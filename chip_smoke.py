@@ -1,0 +1,540 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch / CUDA port (``src/repro_torch``) on one NVIDIA
+card: build every kernel, hold each against its plain PyTorch version at
+the shapes the Table III CNN gives it, then explain full-width batches
+through the engine and check them against the CPU.
+
+    python3 chip_smoke.py                  # one card; exits 0 when all pass
+    python3 chip_smoke.py --out DIR        # also writes DIR/chip_smoke.json
+
+Phases (every failed check raises; nothing is caught and carried on):
+
+1. device: card name, ``nvidia-smi`` name and power limit, TF32 off for the
+   plain versions, kernel build time;
+2. kernels: B1-B6 against their plain versions at batch 32, S = 3 seeds,
+   bitwise for ReLU+mask and pool+argmax, within 1e-5 * max|ref| for the
+   dots; median kernel, plain and one-library-call times (CUDA events);
+3. engine, full width: saliency / deconvnet / guided explains of a
+   [32, 32, 32, 3] batch with top-3 seeds on the card against a CPU twin
+   engine on the same parameters (logits, residual bits, cross-replay), and
+   the launch count of each kernel per explain;
+4. requests: predict / explain / top-k explain / predict-then-explain +
+   replay, where the replay of a target must equal its cold explain bit
+   for bit.
+
+Launch counters are set to 0 just before phases 3-4 (the main path) and
+read just after; the kernel-vs-plain launches of phase 2 are not counted.
+The last two lines are the per-kernel JSON and the device JSON.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import torch
+import torch.nn.functional as F
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+BATCH, SEEDS = 32, 3
+METHODS = ("saliency", "deconvnet", "guided")
+DOT_TOL = 1e-5          # reordered f32 sums of up to 4096 terms
+REPLAY_TOL = 1e-4       # relevance after four layers of such sums
+MIN_BIT_AGREEMENT = 0.9999
+# Published H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s and f32 FLOP/s
+# outside the tensor cores.  The bound is the larger of bytes/HBM and
+# FLOP/f32 peak, at the card's full 700 W limit.
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOP_PER_S = 67e12
+REPS = 50
+
+KERNELS = {   # counter -> (C source, replaced TPU kernel def)
+    "conv2d_fwd": ("src/repro_torch/csrc/conv2d.cu",
+                   "src/repro/kernels/conv2d/conv2d.py:66"),
+    "relu_fwd": ("src/repro_torch/csrc/relu_mask.cu",
+                 "src/repro/kernels/relu_mask/relu_mask.py:87"),
+    "maxpool_fwd": ("src/repro_torch/csrc/pool.cu",
+                    "src/repro/kernels/pool/pool.py:77"),
+    "vmm_fwd": ("src/repro_torch/csrc/vmm.cu",
+                "src/repro/kernels/vmm/vmm.py:49"),
+    "conv2d_bwd_fused": ("src/repro_torch/csrc/conv2d.cu",
+                         "src/repro/kernels/conv2d/conv2d.py:150"),
+    "vmm_bwd_fused": ("src/repro_torch/csrc/vmm.cu",
+                      "src/repro/kernels/vmm/vmm.py:117"),
+}
+
+
+def fail(msg: str):
+    raise AssertionError(msg)
+
+
+def bound_ms(nbytes: float, flops: float) -> float:
+    return 1e3 * max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S)
+
+
+def device_time_ms(fn, reps: int = REPS) -> float:
+    """Median device time of ``fn()`` over ``reps`` back-to-back runs.
+
+    A sleep kernel is queued first so the host enqueues every run before
+    the card reaches them: the events then time the kernels, not Python.
+    Inputs are warm in L2 (all fit in its 50 MB), as on the main path.
+    """
+    fn()
+    torch.cuda.synchronize()
+    ev = [(torch.cuda.Event(enable_timing=True),
+           torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+    torch.cuda._sleep(100_000_000)
+    for a, b in ev:
+        a.record()
+        fn()
+        b.record()
+    torch.cuda.synchronize()
+    return statistics.median(a.elapsed_time(b) for a, b in ev)
+
+
+# ---------------------------------------------------------------------------
+# phase 2: kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+
+class KernelCheck:
+    """Per-kernel results, summed over its main-path shapes (saliency)."""
+
+    def __init__(self):
+        self.rows = []            # one per compared case, for --out
+        self.err = {k: 0.0 for k in KERNELS}
+        self.sums = {k: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+                         "library_ms": None} for k in KERNELS}
+
+    def record(self, counter, case, main, got, want, exact, kernel_fn,
+               plain_fn, nbytes, flops, library_fn=None):
+        torch.cuda.synchronize()
+        pairs = list(zip(got, want)) if isinstance(got, tuple) else [
+            (got, want)]
+        err = 0.0
+        for g, w in pairs:
+            if tuple(g.shape) != tuple(w.shape) or g.dtype != w.dtype:
+                fail(f"{counter} {case}: {tuple(g.shape)}/{g.dtype} vs "
+                     f"{tuple(w.shape)}/{w.dtype}")
+            if exact:
+                if not torch.equal(g, w):
+                    fail(f"{counter} {case}: not bitwise equal to plain")
+            else:
+                e = (g - w).abs().max().item()
+                ref = w.abs().max().item()
+                if not e <= DOT_TOL * ref:
+                    fail(f"{counter} {case}: max|d| {e:.3e} > "
+                         f"{DOT_TOL} * {ref:.3e}")
+                err = max(err, e)
+        ms = device_time_ms(kernel_fn)
+        plain = device_time_ms(plain_fn)
+        lib = device_time_ms(library_fn) if library_fn else None
+        bnd = bound_ms(nbytes, flops)
+        self.err[counter] = max(self.err[counter], err)
+        row = dict(kernel=counter, case=case, max_abs_err=err, ms=ms,
+                   plain_ms=plain, library_ms=lib, bound_ms=bnd,
+                   bytes=nbytes, flops=flops, main_path=main)
+        self.rows.append(row)
+        if main:
+            s = self.sums[counter]
+            s["ms"] += ms
+            s["plain_ms"] += plain
+            s["bound_ms"] += bnd
+            # a library time only where every main-path shape has one
+            if lib is None or s.get("no_library"):
+                s["no_library"], s["library_ms"] = True, None
+            else:
+                s["library_ms"] = (s["library_ms"] or 0.0) + lib
+        libs = f" library {lib:.4f}" if lib is not None else ""
+        print(f"  {counter:17s} {case:34s} err {err:.2e}  kernel {ms:.4f} "
+              f"plain {plain:.4f}{libs}  bound {bnd:.4f} ms")
+
+
+def randn(gen, *shape, scale=1.0):
+    return torch.randn(shape, generator=gen, device="cuda") * scale
+
+
+def check_kernels(kc: KernelCheck):
+    from repro_torch.kernels.conv2d import ref as conv_ref
+    from repro_torch.kernels.conv2d.conv2d import (conv2d, conv2d_bwd_fused,
+                                                   conv2d_bwd_fused_plain)
+    from repro_torch.kernels.pool import ref as pool_ref
+    from repro_torch.kernels.pool.pool import maxpool_fwd
+    from repro_torch.kernels.relu_mask import ref as relu_ref
+    from repro_torch.kernels.relu_mask.relu_mask import (gate_gradient,
+                                                         relu_fwd,
+                                                         unpack_bits)
+    from repro_torch.kernels.tiling import crumb_bytes, mask_bytes
+    from repro_torch.kernels.vmm import ref as vmm_ref
+    from repro_torch.kernels.vmm.vmm import (vmm, vmm_bwd_fused,
+                                             vmm_bwd_fused_plain)
+    from repro_torch.core import masks
+
+    gen = torch.Generator(device="cuda").manual_seed(1234)
+    n = BATCH
+
+    # B1 conv forward: (H, Cin, Cout) of the four Table III layers
+    for h, cin, cout in ((32, 3, 32), (32, 32, 32), (16, 32, 64),
+                         (16, 64, 64)):
+        x = randn(gen, n, h, h, cin)
+        w = randn(gen, 3, 3, cin, cout, scale=(2.0 / (9 * cin)) ** 0.5)
+        b = randn(gen, cout, scale=0.1)
+        xn, wn = x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1)
+        nbytes = 4 * (x.numel() + w.numel() + cout + n * h * h * cout)
+        flops = 2 * n * h * h * cout * 9 * cin
+        kc.record("conv2d_fwd", f"[{n},{h},{h},{cin}->{cout}]", True,
+                  conv2d(x, w, b), conv_ref.conv2d(x, w) + b, False,
+                  lambda: conv2d(x, w, b), lambda: conv_ref.conv2d(x, w) + b,
+                  nbytes, flops, lambda: F.conv2d(xn, wn, b, padding=1))
+
+    # B2 relu + mask: the five rectifiers of the forward
+    for r, c in ((n * 32 * 32, 32), (n * 32 * 32, 32), (n * 16 * 16, 64),
+                 (n * 16 * 16, 64), (n, 128)):
+        x = randn(gen, r, c)
+        x[0] = 0.0                        # exact zeros: bit 0 (strict >)
+        nbytes = 4 * 2 * r * c + r * mask_bytes(c)
+        kc.record("relu_fwd", f"[{r},{c}]", True, relu_fwd(x),
+                  relu_ref.relu_fwd(x), True, lambda: relu_fwd(x),
+                  lambda: relu_ref.relu_fwd(x), nbytes, r * c)
+
+    # B3 pool + argmax, on post-ReLU maps (many tied all-zero windows)
+    for h, c in ((32, 32), (16, 64)):
+        x = torch.clamp_min(randn(gen, n, h, h, c) - 0.5, 0)
+        nbytes = (4 * x.numel() + 4 * x.numel() // 4
+                  + n * (h // 2) ** 2 * crumb_bytes(c))
+        kc.record("maxpool_fwd", f"[{n},{h},{h},{c}]", True, maxpool_fwd(x),
+                  pool_ref.maxpool_fwd(x), True, lambda: maxpool_fwd(x),
+                  lambda: pool_ref.maxpool_fwd(x), nbytes,
+                  3 * x.numel() // 4)
+
+    # B4 vmm: FC0 and FC1 with bias
+    for k, m_out in ((4096, 128), (128, 10)):
+        x = randn(gen, n, k)
+        w = randn(gen, k, m_out, scale=(2.0 / k) ** 0.5)
+        b = randn(gen, m_out, scale=0.1)
+        nbytes = 4 * (x.numel() + w.numel() + m_out + n * m_out)
+        kc.record("vmm_fwd", f"[{n},{k}]@[{k},{m_out}]", True, vmm(x, w, b),
+                  vmm_ref.vmm(x, w) + b, False, lambda: vmm(x, w, b),
+                  lambda: vmm_ref.vmm(x, w) + b, nbytes, 2 * n * k * m_out,
+                  lambda: torch.addmm(b, x, w))
+
+    # B5 fused conv backward: (H, C, Cout', pooled) of layers 3, 2, 1, 0
+    s = SEEDS
+    for method in METHODS:
+        for h, c, cout, pooled in ((16, 64, 64, True), (16, 64, 32, False),
+                                   (32, 32, 32, True), (32, 32, 3, False)):
+            y = randn(gen, n, h, h, c)                  # layer pre-activation
+            mask = None if method == "deconvnet" else masks.pack_mask(y > 0)
+            idx = (pool_ref.maxpool_fwd(torch.clamp_min(y, 0))[1]
+                   if pooled else None)
+            hg = h // 2 if pooled else h
+            g = randn(gen, s, n, hg, hg, c, scale=1e-2)
+            wt = randn(gen, 3, 3, c, cout, scale=(2.0 / (9 * c)) ** 0.5)
+            kw = dict(pool_idx=idx, relu_mask=mask, gate=True, method=method)
+            gg = g
+            if pooled:
+                gg = pool_ref.unpool_scatter(masks.unpack_crumbs(idx, c), g)
+            bits = None if mask is None else unpack_bits(mask)[..., :c]
+            nnz = torch.count_nonzero(gate_gradient(gg, bits, method)).item()
+            nbytes = (4 * (g.numel() + wt.numel() + s * n * h * h * cout)
+                      + (idx.numel() if pooled else 0)
+                      + (mask.numel() if mask is not None else 0))
+            kc.record("conv2d_bwd_fused",
+                      f"{method} [{s},{n},{hg},{hg},{c}]->{cout}"
+                      + (" pool" if pooled else ""),
+                      method == "saliency",
+                      conv2d_bwd_fused(g, wt, **kw),
+                      conv2d_bwd_fused_plain(g, wt, **kw), False,
+                      lambda: conv2d_bwd_fused(g, wt, **kw),
+                      lambda: conv2d_bwd_fused_plain(g, wt, **kw),
+                      nbytes, 2 * nnz * 9 * cout)
+    # ... with the epilogue gate, and with no gate (the library yardstick)
+    y = randn(gen, n, 16, 16, 64)
+    prev = randn(gen, n, 16, 16, 32)
+    g = randn(gen, s, n, 16, 16, 64, scale=1e-2)
+    wt = randn(gen, 3, 3, 64, 32, scale=(2.0 / 576) ** 0.5)
+    kw = dict(relu_mask=masks.pack_mask(y > 0), method="guided",
+              out_relu_mask=masks.pack_mask(prev > 0))
+    nbytes = 4 * (g.numel() * 1.5 + wt.numel()) + n * 256 * 12
+    kc.record("conv2d_bwd_fused", "guided epilogue [3,32,16,16,64]->32",
+              False, conv2d_bwd_fused(g, wt, **kw),
+              conv2d_bwd_fused_plain(g, wt, **kw), False,
+              lambda: conv2d_bwd_fused(g, wt, **kw),
+              lambda: conv2d_bwd_fused_plain(g, wt, **kw), nbytes,
+              2 * g.numel() * 9 * 32)
+    gn = g.reshape(s * n, 16, 16, 64).permute(0, 3, 1, 2)
+    wn = wt.permute(3, 2, 0, 1)      # wt is already flip-transposed
+    kc.record("conv2d_bwd_fused", "no gate [3,32,16,16,64]->32", False,
+              conv2d_bwd_fused(g, wt), conv2d_bwd_fused_plain(g, wt), False,
+              lambda: conv2d_bwd_fused(g, wt),
+              lambda: conv2d_bwd_fused_plain(g, wt),
+              4 * (g.numel() * 1.5 + wt.numel()), 2 * g.numel() * 9 * 32,
+              lambda: F.conv2d(gn, wn, padding=1))
+
+    # B6 fused FC backward: FC1 (no gate) then FC0 (gate by its mask)
+    for method in METHODS:
+        for k, n_out, gated in ((10, 128, False), (128, 4096, True)):
+            g = randn(gen, s, n, k)
+            wt = randn(gen, k, n_out, scale=(2.0 / n_out) ** 0.5)
+            mask = (masks.pack_mask(randn(gen, n, k) > 0)
+                    if gated and method != "deconvnet" else None)
+            kw = dict(relu_mask=mask, gate=gated, method=method)
+            gg = g
+            if gated:
+                bits = None if mask is None else unpack_bits(mask)[:, :k]
+                gg = gate_gradient(g, bits, method)
+            nnz = torch.count_nonzero(gg).item()
+            nbytes = (4 * (g.numel() + wt.numel() + s * n * n_out)
+                      + (mask.numel() if mask is not None else 0))
+            lib = None if gated else (lambda g=g, wt=wt: torch.matmul(g, wt))
+            kc.record("vmm_bwd_fused",
+                      f"{method} [{s},{n},{k}]@[{k},{n_out}]"
+                      + (" gate" if gated else ""), method == "saliency",
+                      vmm_bwd_fused(g, wt, **kw),
+                      vmm_bwd_fused_plain(g, wt, **kw), False,
+                      lambda: vmm_bwd_fused(g, wt, **kw),
+                      lambda: vmm_bwd_fused_plain(g, wt, **kw),
+                      nbytes, 2 * nnz * n_out, lib)
+    g = randn(gen, s, n, 128)
+    wt = randn(gen, 128, 4096, scale=(2.0 / 4096) ** 0.5)
+    kw = dict(relu_mask=masks.pack_mask(randn(gen, n, 128) > 0),
+              method="saliency",
+              out_relu_mask=masks.pack_mask(randn(gen, n, 4096) > 0))
+    kc.record("vmm_bwd_fused", "saliency epilogue [3,32,128]@[128,4096]",
+              False, vmm_bwd_fused(g, wt, **kw),
+              vmm_bwd_fused_plain(g, wt, **kw), False,
+              lambda: vmm_bwd_fused(g, wt, **kw),
+              lambda: vmm_bwd_fused_plain(g, wt, **kw),
+              4 * (g.numel() + wt.numel() + s * n * 4096),
+              2 * g.numel() * 4096)
+
+
+# ---------------------------------------------------------------------------
+# phases 3-4: the engine, end to end
+# ---------------------------------------------------------------------------
+
+#: kernel launches per explain (forward + one seed-batched backward)
+PER_EXPLAIN = {"conv2d_fwd": 4, "relu_fwd": 5, "maxpool_fwd": 2,
+               "vmm_fwd": 2, "conv2d_bwd_fused": 4, "vmm_bwd_fused": 2}
+
+
+def _residual_bit_flips(res_a, res_b):
+    flips = total = 0
+    tensors = [t for pair in zip(res_a["conv"], res_b["conv"])
+               for t in zip(*pair)] + list(zip(res_a["fc"], res_b["fc"]))
+    for a, b in tensors:
+        if (a is None) != (b is None):
+            fail("residual structure differs between card and CPU")
+        if a is None:
+            continue
+        if a.shape != b.shape or a.dtype != torch.uint8:
+            fail(f"residual bytes {tuple(a.shape)} vs {tuple(b.shape)}")
+        x = torch.bitwise_xor(a.cpu(), b.cpu()).to(torch.int32)
+        flips += sum(int(((x >> j) & 1).sum()) for j in range(8))
+        total += 8 * a.numel()
+    return flips, total
+
+
+def check_engine(params, cfg, x_cpu):
+    from repro_torch.engine import CNNModel, EngineSpec, TopK, build
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.models import cnn
+
+    x = x_cpu.cuda()
+    results = {}
+    for method in METHODS:
+        eng = build(EngineSpec(CNNModel(params, cfg, device="cuda"),
+                               method=method, targets=TopK(SEEDS)))
+        twin = build(EngineSpec(CNNModel(params, cfg, device="cpu"),
+                                method=method, targets=TopK(SEEDS)))
+        before = dict(LAUNCHES)
+        logits, rel, res = eng.predict_then_explain(x)
+        torch.cuda.synchronize()
+        rose = {k: LAUNCHES[k] - before[k] for k in LAUNCHES}
+        want = dict(PER_EXPLAIN)
+        if method == "deconvnet":
+            want["relu_fwd"] = 0         # Table II: no mask stored
+        if rose != want:
+            fail(f"{method}: launches per explain {rose}, want {want}")
+        if tuple(rel.shape) != (SEEDS, BATCH, 32, 32, 3) or not bool(
+                torch.isfinite(rel).all()):
+            fail(f"{method}: relevance {tuple(rel.shape)} not finite/shaped")
+
+        logits_c, rel_c, res_c = twin.predict_then_explain(x_cpu)
+        err = (logits.cpu() - logits_c).abs().max().item()
+        ref = logits_c.abs().max().item()
+        if not err <= DOT_TOL * ref:
+            fail(f"{method}: logits card vs CPU {err:.3e} > {DOT_TOL}*{ref}")
+        flips, bits = _residual_bit_flips(res, res_c)
+        if flips > (1 - MIN_BIT_AGREEMENT) * bits:
+            fail(f"{method}: {flips} of {bits} residual bits differ")
+        seeds_c, _ = twin._seeds(logits_c, None, SEEDS)
+        rel_x = eng.replay(cnn.residuals_to(res_c, "cuda"), seeds_c.cuda())
+        rerr = (rel_x.cpu() - rel_c).abs().max().item()
+        rref = rel_c.abs().max().item()
+        if not rerr <= REPLAY_TOL * rref:
+            fail(f"{method}: cross-replay {rerr:.3e} > {REPLAY_TOL}*{rref}")
+        direct = (rel.cpu() - rel_c).abs().max().item()
+
+        times = []
+        for _ in range(12):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            eng.explain(x)
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t0))
+        ms = statistics.median(times[2:])
+        dev_ms = device_time_ms(lambda: eng.explain(x), reps=10)
+        results[method] = dict(logits_err=err, bit_flips=flips, bits=bits,
+                               cross_replay_err=rerr,
+                               card_vs_cpu_rel_err=direct, rel_max=rref,
+                               explain_ms_host=ms, explain_ms_device=dev_ms)
+        print(f"  {method:9s} logits err {err:.2e}  bit flips {flips}/{bits}"
+              f"  cross-replay err {rerr:.2e} (max|rel| {rref:.2e})  "
+              f"card-vs-CPU rel err {direct:.2e}  explain {ms:.3f} ms "
+              f"host, {dev_ms:.3f} ms device (batch {BATCH}, top-{SEEDS})")
+    return results
+
+
+def serve_requests(params, cfg, x_cpu):
+    from repro_torch.engine import CNNModel, EngineSpec, build
+
+    eng = build(EngineSpec(CNNModel(params, cfg, device="cuda"),
+                           method="guided"))
+    x = x_cpu.cuda()
+    n_req = 0
+
+    def ok(t, shape):
+        if tuple(t.shape) != shape or not bool(torch.isfinite(t).all()):
+            fail(f"request {n_req}: {tuple(t.shape)} != {shape} or "
+                 f"not finite")
+
+    for lo, hi in ((0, 1), (1, 9)):                       # 2 predicts
+        n_req += 1
+        ok(eng.predict(x[lo:hi]), (hi - lo, 10))
+    for lo, hi in ((9, 10), (10, 14)):                    # 2 argmax explains
+        n_req += 1
+        logits, rel = eng.explain(x[lo:hi])
+        ok(logits, (hi - lo, 10))
+        ok(rel, (hi - lo, 32, 32, 3))
+    for lo, hi in ((14, 15), (15, 32)):                   # 2 top-3 explains
+        n_req += 1
+        logits, rel = eng.explain(x[lo:hi], topk=3)
+        ok(rel, (3, hi - lo, 32, 32, 3))
+    n_req += 1                                            # explain + keep
+    logits, rel, res = eng.predict_then_explain(x[:8])
+    ok(rel, (8, 32, 32, 3))
+    n_req += 1                                            # replay another
+    other = (torch.argmax(logits, -1) + 1) % 10
+    seeds = F.one_hot(other, 10).to(torch.float32)[None]
+    replayed = eng.replay(res, seeds)[0]
+    _, cold = eng.explain(x[:8], target=other)
+    torch.cuda.synchronize()
+    if not torch.equal(replayed, cold):
+        fail("replay of a target differs from its cold explain")
+    if torch.equal(replayed, rel):
+        fail("replay of another target returned the first target's map")
+    print(f"  {n_req} requests served; replay == cold explain bitwise")
+    return n_req
+
+
+# ---------------------------------------------------------------------------
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--out", type=Path, default=None,
+                    help="directory for chip_smoke.json (per-case numbers)")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; the port's smoke test needs one",
+              file=sys.stderr)
+        return 1
+    from repro_torch.kernels import LAUNCHES, _build, reset_launches
+    from repro_torch.models import cnn
+
+    # phase 1: device
+    kind = torch.cuda.get_device_name(0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    print(f"phase 1: device {kind} (torch {torch.__version__}, CUDA "
+          f"{torch.version.cuda}); nvidia-smi: {smi}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    _build.library()
+    build_s = time.perf_counter() - t0
+    print(f"  kernels built and loaded in {build_s:.2f} s "
+          f"({_build.library_path().name})")
+    log = (_build.BUILD_DIR / "build.log")
+    if log.exists():
+        for line in log.read_text().splitlines():
+            if ("Compiling entry" in line or "registers" in line
+                    or "spill stores" in line):
+                print("   ", line.strip())
+
+    # phase 2: kernels vs plain
+    print(f"phase 2: kernels vs plain versions (batch {BATCH}, S={SEEDS}; "
+          f"ms = median of {REPS} back-to-back runs)")
+    kc = KernelCheck()
+    check_kernels(kc)
+
+    # phases 3-4: the main path, counted
+    cfg = cnn.CNNConfig()
+    params = cnn.init(torch.Generator().manual_seed(0), cfg)
+    x_cpu = torch.randn((BATCH, 32, 32, 3),
+                        generator=torch.Generator().manual_seed(1))
+    reset_launches()
+    print("phase 3: engine end to end, full Table III width")
+    engine_results = check_engine(params, cfg, x_cpu)
+    print("phase 4: requests")
+    n_req = serve_requests(params, cfg, x_cpu)
+    torch.cuda.synchronize()
+    launches = dict(LAUNCHES)
+    never = [k for k, v in launches.items() if v == 0]
+    if never:
+        fail(f"kernels of the main path never launched: {never}")
+    print(f"  main-path launches: {launches}")
+
+    kernels = []
+    for name, (source, replaces) in KERNELS.items():
+        s = kc.sums[name]
+        kernels.append(dict(name=name, route="cuda", source=source,
+                            replaces=replaces, launches=launches[name],
+                            max_abs_err=kc.err[name], ms=s["ms"],
+                            plain_ms=s["plain_ms"], bound_ms=s["bound_ms"],
+                            bound_by=_bound_by(kc, name),
+                            library_ms=s["library_ms"]))
+    if args.out is not None:
+        args.out.mkdir(parents=True, exist_ok=True)
+        (args.out / "chip_smoke.json").write_text(json.dumps(dict(
+            device=kind, nvidia_smi=smi, build_s=build_s,
+            cases=kc.rows, engine=engine_results, requests=n_req,
+            kernels=kernels), indent=1))
+    print(smi)
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind,
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def _bound_by(kc: KernelCheck, name: str) -> str:
+    """Which roof bounds the kernel's main-path shapes, by summed time."""
+    by_bytes = sum(r["bytes"] / HBM_BYTES_PER_S for r in kc.rows
+                   if r["kernel"] == name and r["main_path"])
+    by_ops = sum(r["flops"] / F32_FLOP_PER_S for r in kc.rows
+                 if r["kernel"] == name and r["main_path"])
+    return "bytes" if by_bytes >= by_ops else "operations"
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,201 @@
+"""The configure-once attribution engine: configure -> build -> explain.
+
+:func:`build` turns an :class:`~repro_torch.engine.spec.EngineSpec` into an
+:class:`Engine` once — the model's parameters move to its device and the
+backward weights are prepared there — and memoizes on spec equality: equal
+specs return the SAME engine, a change to any field builds afresh::
+
+    eng = build(EngineSpec(model=CNNModel(params, cfg), method="guided",
+                           targets=TopK(5)))
+    logits = eng.predict(x)                          # forward only
+    logits, rel = eng.explain(x)                     # FP + seed-batched BP
+    logits, rel, res = eng.predict_then_explain(x)   # ...keeping residuals
+    rel2 = eng.replay(res, seeds)                    # BP phase alone
+
+Inputs may be NumPy arrays or tensors on any device; they move to the
+model's device.  Outputs stay there.
+"""
+from __future__ import annotations
+
+from collections import OrderedDict
+from typing import Any, Optional, Tuple
+
+import torch
+
+from repro_torch.engine.backward import ManualSeedBatchedBackward
+from repro_torch.engine.spec import EngineSpec, Fixed, TopK
+
+
+class Engine:
+    """A built attribution engine — all knobs resolved.
+
+    Construct via :func:`build` (direct construction skips the cache).
+    """
+
+    def __init__(self, spec: EngineSpec):
+        self.spec = spec
+        model = spec.model
+        self.device = model.device
+        fwd, bwd = model.pair(spec.method, spec.precision)
+        self._backend = ManualSeedBatchedBackward(fwd, bwd)
+        self._model_fn = model.logits_fn(spec.method, spec.precision)
+
+    # -- the two phases ------------------------------------------------------
+
+    def predict(self, x):
+        """Forward only: ``x -> logits``."""
+        x, live = self._pad(self._input(x))
+        return self._unpad(self._model_fn(x), live)
+
+    def forward(self, x):
+        """Residual-returning forward: ``x -> (logits, residuals)``.
+
+        Unpadded: batching discipline belongs to the caller.
+        """
+        return self._backend.forward(self._input(x))
+
+    def replay(self, residuals, seeds):
+        """BP phase alone: ``seeds [S, B, C] -> relevance [S, B, ...]`` over
+        stored residuals (on this engine's device) — the forward-skipping
+        explain (§III.F)."""
+        seeds = torch.as_tensor(seeds, dtype=torch.float32).to(self.device)
+        return self._backend.backward(residuals, seeds)
+
+    # -- explain -------------------------------------------------------------
+
+    def explain(self, x, *, target=None, topk: Optional[int] = None):
+        """One FP + one seed-batched BP: ``-> (logits, relevance)``.
+
+        Fan-out defaults to ``spec.targets``; ``target``/``topk`` override
+        per call.  Scalar fan-out returns ``rel [B, ...]``; top-K returns a
+        ``rel [K, B, ...]`` panel (K seeds, one launch per layer).  This is
+        forward + replay, the same two calls a cache of residuals makes, so
+        a replayed target equals a cold explain of it.
+        """
+        logits, rel, _ = self.predict_then_explain(x, target=target,
+                                                   topk=topk)
+        return logits, rel
+
+    def predict_then_explain(self, x, *, target=None,
+                             topk: Optional[int] = None):
+        """The two-phase form: ``-> (logits, relevance, residuals)``.
+
+        The residuals can :meth:`replay` further targets later without
+        another forward.
+        """
+        target, topk = self._fanout(target, topk)
+        x, live = self._pad(self._input(x))
+        target = self._pad_target(target, live)
+        logits, residuals = self._backend.forward(x)
+        seeds, squeeze = self._seeds(logits, target, topk)
+        rel = self._backend.backward(residuals, seeds)
+        rel = rel[0] if squeeze else rel
+        return (self._unpad(logits, live),
+                self._unpad(rel, live, axis=0 if squeeze else 1),
+                residuals)
+
+    # -- internals -----------------------------------------------------------
+
+    def _input(self, x) -> torch.Tensor:
+        return torch.as_tensor(x, dtype=torch.float32).to(
+            self.device).contiguous()
+
+    def _fanout(self, target, topk) -> Tuple[Any, Optional[int]]:
+        """Apply ``spec.targets`` defaults to per-call overrides."""
+        if topk is None and target is None:
+            tspec = self.spec.targets
+            if isinstance(tspec, TopK):
+                topk = tspec.k
+            elif isinstance(tspec, Fixed):
+                target = tspec.target
+        return target, topk
+
+    def _seeds(self, logits, target, topk) -> Tuple[torch.Tensor, bool]:
+        """Fan-out (already spec-resolved) to one-hot seeds [S, B, C]; True
+        = squeeze the S=1 axis after the backward."""
+        nc = logits.shape[-1]
+        if topk is not None:
+            idx = torch.topk(logits, topk, dim=-1).indices.T      # [K, B]
+            return self._one_hot(idx, nc, logits), False
+        if target is None:
+            target = torch.argmax(logits, dim=-1)
+        target = torch.as_tensor(target, device=logits.device)
+        target = target.to(torch.int64).broadcast_to(logits.shape[:-1])
+        return self._one_hot(target, nc, logits)[None], True
+
+    @staticmethod
+    def _one_hot(idx, nc, like):
+        """One-hot rows by scatter (no host sync, unlike ``F.one_hot``'s
+        range check on the card)."""
+        out = torch.zeros(idx.shape + (nc,), dtype=like.dtype,
+                          device=like.device)
+        return out.scatter_(-1, idx[..., None], 1.0)
+
+    def _pad(self, x) -> Tuple[torch.Tensor, Optional[int]]:
+        """Pad the leading batch dim up to ``spec.batch`` (row-0 repeats)."""
+        b = self.spec.batch
+        if b is None:
+            return x, None
+        n = x.shape[0]
+        if n > b:
+            raise ValueError(f"batch {n} exceeds spec.batch={b}")
+        if n == b:
+            return x, n
+        pad = x[:1].expand((b - n,) + tuple(x.shape[1:]))
+        return torch.cat([x, pad]), n
+
+    def _pad_target(self, target, live):
+        """Pad a per-example [live] target array alongside the padded batch
+        (padding rows explain class 0 and are sliced off with the batch)."""
+        if live is None or target is None:
+            return target
+        t = torch.as_tensor(target)
+        if t.ndim == 0 or t.shape[0] != live or live == self.spec.batch:
+            return t
+        pad = torch.zeros((self.spec.batch - live,) + tuple(t.shape[1:]),
+                          dtype=t.dtype, device=t.device)
+        return torch.cat([t, pad])
+
+    @staticmethod
+    def _unpad(out, live, axis: int = 0):
+        if live is None:
+            return out
+        return out.narrow(axis, 0, live)
+
+    def __repr__(self):
+        return f"<Engine {self.spec!r}>"
+
+
+# ---------------------------------------------------------------------------
+# the build cache: equal specs share one engine
+# ---------------------------------------------------------------------------
+
+_BUILD_CACHE: "OrderedDict[EngineSpec, Engine]" = OrderedDict()
+
+#: LRU bound on memoized engines.  Specs hold strong references to their
+#: params trees, so an unbounded cache would pin every params object a
+#: long-lived process ever built; evicted engines keep working for whoever
+#: still holds them — only the sharing via ``build()`` lapses.
+MAX_CACHED_ENGINES = 64
+
+
+def build(spec: EngineSpec) -> Engine:
+    """Resolve an engine for ``spec``, memoized on spec equality (LRU
+    bounded at ``MAX_CACHED_ENGINES``)."""
+    eng = _BUILD_CACHE.get(spec)
+    if eng is None:
+        _BUILD_CACHE[spec] = eng = Engine(spec)
+        while len(_BUILD_CACHE) > MAX_CACHED_ENGINES:
+            _BUILD_CACHE.popitem(last=False)
+    else:
+        _BUILD_CACHE.move_to_end(spec)
+    return eng
+
+
+def clear_cache() -> None:
+    """Drop every memoized engine."""
+    _BUILD_CACHE.clear()
+
+
+def cache_size() -> int:
+    return len(_BUILD_CACHE)

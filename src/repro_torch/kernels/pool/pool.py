@@ -1,0 +1,41 @@
+"""2x2 max-pool + 2-bit argmax (paper §III.D, Fig. 5).
+
+:func:`maxpool_fwd` wraps the CUDA kernel ``csrc/pool.cu`` (the port of
+``repro.kernels.pool.pool.maxpool_fwd_pallas``): one pass emits the pooled
+map and the crumb-packed argmax.  The unpool scatter has no standalone
+kernel on this path: it runs as the prologue of the fused conv backward
+(``conv2d.conv2d_bwd_fused``), whose plain twin calls
+:func:`ref.unpool_scatter`.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import _build, check, check_kernel_operands, on_card
+from repro_torch.kernels.pool import ref
+from repro_torch.kernels.tiling import crumb_bytes
+
+
+def maxpool_fwd(x: torch.Tensor):
+    """x: [N, H, W, C] f32, H and W even -> (pooled [N, H/2, W/2, C],
+    packed argmax uint8 [N, H/2, W/2, ceil(C/4)]).
+
+    Candidates are (0,0), (0,1), (1,0), (1,1); the first maximum wins.
+    CPU tensors run :func:`ref.maxpool_fwd`; CUDA tensors the kernel.
+    """
+    name = "maxpool_fwd"
+    if x.dim() != 4 or x.shape[1] % 2 or x.shape[2] % 2:
+        raise ValueError(f"{name}: x must be [N, H, W, C] with even H, W; "
+                         f"got {tuple(x.shape)}")
+    check(name, x, torch.float32, what="x")
+    if not on_card(name, x):
+        return ref.maxpool_fwd(x)
+    check_kernel_operands(name, x)
+    n, h, w, c = x.shape
+    y = torch.empty((n, h // 2, w // 2, c), dtype=x.dtype, device=x.device)
+    idx = torch.empty((n, h // 2, w // 2, crumb_bytes(c)), dtype=torch.uint8,
+                      device=x.device)
+    if y.numel():
+        _build.launch(name, "repro_maxpool_fwd", x.device, x.data_ptr(),
+                      y.data_ptr(), idx.data_ptr(), n, h, w, c)
+    return y, idx

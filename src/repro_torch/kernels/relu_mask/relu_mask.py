@@ -1,0 +1,63 @@
+"""Fused ReLU + 1-bit packed mask (paper §III.D, Fig. 4).
+
+:func:`relu_fwd` is the wrapper of the CUDA kernel ``csrc/relu_mask.cu``
+(the port of ``repro.kernels.relu_mask.relu_mask.relu_fwd_pallas``): one
+pass emits ``max(x, 0)`` and the packed ``x > 0`` bits.
+
+:func:`unpack_bits` and :func:`gate_gradient` are the plain versions of the
+in-kernel helpers that the fused conv/vmm backward kernels run as their
+prologue and epilogue; the plain twins of those kernels call them.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import _build, check, check_kernel_operands, on_card
+from repro_torch.kernels.relu_mask import ref
+from repro_torch.kernels.tiling import mask_bytes
+
+
+def unpack_bits(packed: torch.Tensor) -> torch.Tensor:
+    """[..., C/8] uint8 -> [..., C] bool (C = 8 * bytes)."""
+    shifts = torch.arange(8, device=packed.device, dtype=torch.int32)
+    bits = (packed.to(torch.int32)[..., None] >> shifts) & 1
+    return bits.reshape(packed.shape[:-1]
+                        + (packed.shape[-1] * 8,)).to(torch.bool)
+
+
+def gate_gradient(g: torch.Tensor, mask_bits: Optional[torch.Tensor],
+                  method: str) -> torch.Tensor:
+    """The method's rectifier rule (paper Eq. 3-5) on a gradient block.
+
+    ``mask_bits`` broadcasts against ``g`` (seed-batched gradients carry
+    leading axes the stored mask does not — the mask-reuse amortization).
+    """
+    if method == "deconvnet":                        # Eq. 4: no mask read
+        return torch.where(g > 0, g, 0.0)
+    if method == "guided":                           # Eq. 5
+        return torch.where(mask_bits & (g > 0), g, 0.0)
+    return torch.where(mask_bits, g, 0.0)            # Eq. 3: saliency
+
+
+def relu_fwd(x2d: torch.Tensor):
+    """x2d: [R, C] f32 -> (relu [R, C], packed mask uint8 [R, ceil(C/8)]).
+
+    Bit ``j`` of byte ``b`` is ``x[:, 8b + j] > 0`` (strictly); bits past C
+    are 0.  CPU tensors run :func:`ref.relu_fwd`; CUDA tensors the kernel.
+    """
+    name = "relu_fwd"
+    if x2d.dim() != 2:
+        raise ValueError(f"{name}: x must be [R, C], got {tuple(x2d.shape)}")
+    check(name, x2d, torch.float32, what="x")
+    if not on_card(name, x2d):
+        return ref.relu_fwd(x2d)
+    check_kernel_operands(name, x2d)
+    r, c = x2d.shape
+    y = torch.empty_like(x2d)
+    m = torch.empty((r, mask_bytes(c)), dtype=torch.uint8, device=x2d.device)
+    if r and c:
+        _build.launch(name, "repro_relu_fwd", x2d.device, x2d.data_ptr(),
+                      y.data_ptr(), m.data_ptr(), r, c)
+    return y, m

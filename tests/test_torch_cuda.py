@@ -1,0 +1,173 @@
+"""The CUDA kernels of repro_torch against their plain versions, on a card.
+
+``chip_smoke.py`` checks the kernels at the Table III shapes; these cases
+cover what the main path does not reach: ragged channel counts and spatial
+sizes, K = 5, several Cin chunks and Cout tiles, a fused backward whose
+prologue needs more than 48 KB of shared memory, misaligned pointers, and
+one launch per wrapper call.  Every test needs a CUDA device and skips
+without one.  This file imports neither JAX nor the JAX package, so on a
+machine without JAX run it without the suite's conftest:
+
+    PYTHONPATH=src python -m pytest --noconftest tests/test_torch_cuda.py
+"""
+import pytest
+import torch
+
+from repro_torch.core import masks
+from repro_torch.kernels import LAUNCHES
+from repro_torch.kernels.conv2d import ref as conv_ref
+from repro_torch.kernels.conv2d.conv2d import (conv2d, conv2d_bwd_fused,
+                                               conv2d_bwd_fused_plain)
+from repro_torch.kernels.pool import ref as pool_ref
+from repro_torch.kernels.pool.pool import maxpool_fwd
+from repro_torch.kernels.relu_mask import ref as relu_ref
+from repro_torch.kernels.relu_mask.relu_mask import relu_fwd
+from repro_torch.kernels.vmm import ref as vmm_ref
+from repro_torch.kernels.vmm.vmm import (vmm, vmm_bwd_fused,
+                                         vmm_bwd_fused_plain)
+
+METHODS = ("saliency", "deconvnet", "guided")
+TOL = 1e-5
+
+
+@pytest.fixture
+def gen():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.Generator(device="cuda").manual_seed(0)
+
+
+def _randn(gen, *shape, scale=1.0):
+    return torch.randn(shape, generator=gen, device="cuda") * scale
+
+
+def _close(got, want):
+    torch.cuda.synchronize()
+    assert got.shape == want.shape
+    err = (got - want).abs().max().item()
+    assert err <= TOL * want.abs().max().item()
+
+
+def _launched(counter, fn):
+    before = LAUNCHES[counter]
+    out = fn()
+    assert LAUNCHES[counter] == before + 1
+    return out
+
+
+@pytest.mark.parametrize("r,c", [(5, 3), (16, 13), (3, 128), (7, 1000)])
+def test_relu_fwd_bitwise(gen, r, c):
+    x = _randn(gen, r, c)
+    x[0, : c // 2] = 0.0
+    y, m = _launched("relu_fwd", lambda: relu_fwd(x))
+    yr, mr = relu_ref.relu_fwd(x)
+    assert torch.equal(y, yr) and torch.equal(m, mr)
+
+
+def test_relu_fwd_misaligned_pointer(gen):
+    flat = _randn(gen, 8 * 16 + 1)
+    x = flat[1:].view(8, 16)          # 4-byte offset: no 16-byte loads
+    y, m = relu_fwd(x)
+    yr, mr = relu_ref.relu_fwd(x)
+    assert torch.equal(y, yr) and torch.equal(m, mr)
+
+
+@pytest.mark.parametrize("n,h,w,c", [(2, 4, 4, 3), (1, 8, 6, 13),
+                                     (1, 2, 2, 5), (3, 6, 10, 64)])
+def test_maxpool_fwd_bitwise(gen, n, h, w, c):
+    x = torch.clamp_min(_randn(gen, n, h, w, c), 0)
+    x[:, :2, :2] = 0.0                # tied all-zero windows
+    y, i = _launched("maxpool_fwd", lambda: maxpool_fwd(x))
+    yr, ir = pool_ref.maxpool_fwd(x)
+    assert torch.equal(y, yr) and torch.equal(i, ir)
+
+
+@pytest.mark.parametrize("n,h,w,cin,cout,k", [
+    (2, 6, 10, 5, 3, 3),              # ragged spatial and channels
+    (1, 8, 8, 16, 8, 5),              # K = 5
+    (2, 9, 7, 100, 40, 3),            # several Cin chunks, two Cout tiles
+    (1, 1, 1, 3, 2, 3),               # all padding
+])
+def test_conv2d(gen, n, h, w, cin, cout, k):
+    x = _randn(gen, n, h, w, cin)
+    wt = _randn(gen, k, k, cin, cout, scale=0.2)
+    b = _randn(gen, cout)
+    _close(_launched("conv2d_fwd", lambda: conv2d(x, wt, b)),
+           conv_ref.conv2d(x, wt) + b)
+    _close(conv2d(x, wt), conv_ref.conv2d(x, wt))
+
+
+# (n, h, w, c, cout', pooled, seeds, epilogue)
+BWD_CASES = [
+    (2, 8, 8, 13, 9, True, 3, False),
+    (1, 6, 10, 32, 3, True, 1, True),       # Hg = 3, Cout' < 8
+    (2, 7, 5, 20, 40, False, 2, True),      # odd spatial, two Cout tiles
+    (1, 8, 8, 600, 16, True, 2, False),     # prologue state > 48 KB
+]
+
+
+@pytest.mark.parametrize("case", BWD_CASES)
+@pytest.mark.parametrize("method", METHODS)
+def test_conv2d_bwd_fused(gen, case, method):
+    n, h, w, c, cout, pooled, s, epilogue = case
+    y = _randn(gen, n, h, w, c)
+    mask = None if method == "deconvnet" else masks.pack_mask(y > 0)
+    idx = pool_ref.maxpool_fwd(torch.clamp_min(y, 0))[1] if pooled else None
+    hg, wg = (h // 2, w // 2) if pooled else (h, w)
+    g = _randn(gen, s, n, hg, wg, c)
+    wt = _randn(gen, 3, 3, c, cout, scale=0.1)
+    omask = None
+    if epilogue and method != "deconvnet":
+        omask = masks.pack_mask(_randn(gen, n, h, w, cout) > 0)
+    kw = dict(pool_idx=idx, relu_mask=mask, gate=True, method=method,
+              out_relu_mask=omask, out_gate=epilogue)
+    got = _launched("conv2d_bwd_fused", lambda: conv2d_bwd_fused(g, wt, **kw))
+    _close(got, conv2d_bwd_fused_plain(g, wt, **kw))
+
+
+@pytest.mark.parametrize("m,k,n", [(5, 37, 13), (1, 4096, 128),
+                                   (33, 128, 10)])
+def test_vmm(gen, m, k, n):
+    x = _randn(gen, m, k)
+    w = _randn(gen, k, n, scale=k ** -0.5)
+    b = _randn(gen, n)
+    _close(_launched("vmm_fwd", lambda: vmm(x, w, b)), vmm_ref.vmm(x, w) + b)
+
+
+@pytest.mark.parametrize("method", METHODS)
+@pytest.mark.parametrize("s,m,k,n,epilogue", [(1, 4, 13, 21, True),
+                                              (3, 33, 128, 300, False)])
+def test_vmm_bwd_fused(gen, method, s, m, k, n, epilogue):
+    g = _randn(gen, s, m, k)
+    w = _randn(gen, k, n, scale=k ** -0.5)
+    mask = (None if method == "deconvnet"
+            else masks.pack_mask(_randn(gen, m, k) > 0))
+    omask = (masks.pack_mask(_randn(gen, m, n) > 0)
+             if epilogue and method != "deconvnet" else None)
+    kw = dict(relu_mask=mask, gate=True, method=method, out_relu_mask=omask,
+              out_gate=epilogue)
+    got = _launched("vmm_bwd_fused", lambda: vmm_bwd_fused(g, w, **kw))
+    _close(got, vmm_bwd_fused_plain(g, w, **kw))
+
+
+def test_engine_on_card_matches_cpu_twin(gen):
+    from repro_torch.engine import CNNModel, EngineSpec, TopK, build
+    from repro_torch.models import cnn
+    cfg = cnn.CNNConfig(in_hw=(8, 8), channels=(4, 4), fc=(16,),
+                        num_classes=4)
+    params = cnn.init(torch.Generator().manual_seed(0), cfg)
+    x = torch.randn((3, 8, 8, 3), generator=torch.Generator().manual_seed(1))
+    for method in METHODS:
+        spec = dict(method=method, targets=TopK(2))
+        card = build(EngineSpec(CNNModel(params, cfg), **spec))
+        cpu = build(EngineSpec(CNNModel(params, cfg, device="cpu"), **spec))
+        logits, rel, res = card.predict_then_explain(x)
+        logits_c, rel_c, res_c = cpu.predict_then_explain(x)
+        _close(logits.cpu(), logits_c)
+        seeds, _ = cpu._seeds(logits_c, None, 2)
+        again = card.replay(cnn.residuals_to(res_c, "cuda"), seeds)
+        torch.cuda.synchronize()
+        err = (again.cpu() - rel_c).abs().max().item()
+        assert err <= 1e-4 * rel_c.abs().max().item()

@@ -2,29 +2,35 @@
 """Smoke test of the PyTorch / CUDA port (``src/repro_torch``) on one NVIDIA
 card: build every kernel, hold each against its plain PyTorch version at
 the shapes the Table III CNN gives it, then explain full-width batches
-through the engine and check them against the CPU.
+through the engine, in f32 and in the paper's true-int16 fixed point
+(fxp16), and check them against the CPU.
 
     python3 chip_smoke.py                  # one card; exits 0 when all pass
     python3 chip_smoke.py --out DIR        # also writes DIR/chip_smoke.json
 
 Phases (every failed check raises; nothing is caught and carried on):
 
-1. device: card name, ``nvidia-smi`` name and power limit, TF32 off for the
-   plain versions, kernel build time;
-2. kernels: B1-B6 against their plain versions at batch 32, S = 3 seeds,
-   bitwise for ReLU+mask and pool+argmax, within 1e-5 * max|ref| for the
-   dots; median kernel, plain and one-library-call times (CUDA events);
+1. device: card name, ``nvidia-smi`` name, power limit and maximum SM
+   clock, TF32 off for the plain versions, kernel build time;
+2. kernels at batch 32, S = 3 seeds, against their plain versions: the f32
+   kernels B1-B6 (bitwise for ReLU+mask and pool+argmax, within
+   1e-5 * max|ref| for the dots), then the fxp16 kernels B7-B10 and the
+   int16 instances of B2/B3, all bitwise, plus accumulators that wrap at
+   ±32767 operands; median kernel, plain and one-library-call times (CUDA
+   events);
 3. engine, full width: saliency / deconvnet / guided explains of a
    [32, 32, 32, 3] batch with top-3 seeds on the card against a CPU twin
    engine on the same parameters (logits, residual bits, cross-replay), and
-   the launch count of each kernel per explain;
+   the launch count of each kernel per explain; under fxp16 every one of
+   these must be equal bit for bit;
 4. requests: predict / explain / top-k explain / predict-then-explain +
    replay, where the replay of a target must equal its cold explain bit
    for bit.
 
-Launch counters are set to 0 just before phases 3-4 (the main path) and
-read just after; the kernel-vs-plain launches of phase 2 are not counted.
-The last two lines are the per-kernel JSON and the device JSON.
+Phases 3-4 run once per path, f32 then fxp16.  Launch counters are set to
+0 just before each path and read just after; the kernel-vs-plain launches
+of phase 2 are not counted.  The last two lines are the per-kernel JSON
+and the device JSON.
 """
 from __future__ import annotations
 
@@ -52,6 +58,12 @@ MIN_BIT_AGREEMENT = 0.9999
 # FLOP/f32 peak, at the card's full 700 W limit.
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
+# The int16 kernels run 32-bit integer multiply-adds (IMAD) on the CUDA
+# cores.  Their peak is not on the data sheet: it is taken as SM count x
+# 64 IMAD lanes per SM per clock (compute capability 9.0) x the card's
+# maximum SM clock, both read from the card in phase 1 (an assumption: the
+# sustained clock under load may be lower).
+IMAD_LANES_PER_SM = 64
 REPS = 50
 
 KERNELS = {   # counter -> (C source, replaced TPU kernel def)
@@ -67,15 +79,27 @@ KERNELS = {   # counter -> (C source, replaced TPU kernel def)
                          "src/repro/kernels/conv2d/conv2d.py:150"),
     "vmm_bwd_fused": ("src/repro_torch/csrc/vmm.cu",
                       "src/repro/kernels/vmm/vmm.py:117"),
+    "conv2d_fxp_fwd": ("src/repro_torch/csrc/conv2d_fxp.cu",
+                       "src/repro/kernels/conv2d/fxp.py:53"),
+    "conv2d_bwd_fused_fxp": ("src/repro_torch/csrc/conv2d_fxp.cu",
+                             "src/repro/kernels/conv2d/fxp.py:130"),
+    "vmm_fxp_fwd": ("src/repro_torch/csrc/vmm_fxp.cu",
+                    "src/repro/kernels/vmm/fxp.py:46"),
+    "vmm_bwd_fused_fxp": ("src/repro_torch/csrc/vmm_fxp.cu",
+                          "src/repro/kernels/vmm/fxp.py:116"),
 }
+#: The int16 instances of B2/B3 (fxp16 path): timed and checked on their
+#: own, launched under the ``relu_fwd`` / ``maxpool_fwd`` counters.
+INT16_INSTANCES = ("relu_fwd_i16", "maxpool_fwd_i16")
 
 
 def fail(msg: str):
     raise AssertionError(msg)
 
 
-def bound_ms(nbytes: float, flops: float) -> float:
-    return 1e3 * max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S)
+def bound_ms(nbytes: float, ops: float, rate: float) -> float:
+    """The least time for ``nbytes`` at HBM speed and ``ops`` at ``rate``."""
+    return 1e3 * max(nbytes / HBM_BYTES_PER_S, ops / rate)
 
 
 def device_time_ms(fn, reps: int = REPS) -> float:
@@ -106,14 +130,23 @@ def device_time_ms(fn, reps: int = REPS) -> float:
 class KernelCheck:
     """Per-kernel results, summed over its main-path shapes (saliency)."""
 
-    def __init__(self):
+    def __init__(self, imad_per_s: float):
+        self.imad_per_s = imad_per_s
         self.rows = []            # one per compared case, for --out
-        self.err = {k: 0.0 for k in KERNELS}
+        keys = tuple(KERNELS) + INT16_INSTANCES
+        self.err = {k: 0.0 for k in keys}
         self.sums = {k: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
-                         "library_ms": None} for k in KERNELS}
+                         "library_ms": None, "f32_reference_ms": None}
+                     for k in keys}
 
     def record(self, counter, case, main, got, want, exact, kernel_fn,
-               plain_fn, nbytes, flops, library_fn=None):
+               plain_fn, nbytes, flops, library_fn=None, rate=None,
+               f32_reference_fn=None):
+        """Compare, time and log one case.  ``rate`` is the peak for
+        ``flops`` (f32 FLOP/s by default; IMAD/s for the int16 kernels);
+        ``f32_reference_fn`` times an f32 library call on the same shapes,
+        a reference point only, where no library computes the function."""
+        rate = F32_FLOP_PER_S if rate is None else rate
         torch.cuda.synchronize()
         pairs = list(zip(got, want)) if isinstance(got, tuple) else [
             (got, want)]
@@ -135,11 +168,14 @@ class KernelCheck:
         ms = device_time_ms(kernel_fn)
         plain = device_time_ms(plain_fn)
         lib = device_time_ms(library_fn) if library_fn else None
-        bnd = bound_ms(nbytes, flops)
+        f32_ref = device_time_ms(f32_reference_fn) if f32_reference_fn \
+            else None
+        bnd = bound_ms(nbytes, flops, rate)
         self.err[counter] = max(self.err[counter], err)
         row = dict(kernel=counter, case=case, max_abs_err=err, ms=ms,
                    plain_ms=plain, library_ms=lib, bound_ms=bnd,
-                   bytes=nbytes, flops=flops, main_path=main)
+                   bytes=nbytes, flops=flops, rate=rate, main_path=main,
+                   f32_reference_ms=f32_ref)
         self.rows.append(row)
         if main:
             s = self.sums[counter]
@@ -151,9 +187,22 @@ class KernelCheck:
                 s["no_library"], s["library_ms"] = True, None
             else:
                 s["library_ms"] = (s["library_ms"] or 0.0) + lib
+            if f32_ref is not None:
+                s["f32_reference_ms"] = (s["f32_reference_ms"] or 0.0) \
+                    + f32_ref
         libs = f" library {lib:.4f}" if lib is not None else ""
-        print(f"  {counter:17s} {case:34s} err {err:.2e}  kernel {ms:.4f} "
-              f"plain {plain:.4f}{libs}  bound {bnd:.4f} ms")
+        refs = f" f32-ref {f32_ref:.4f}" if f32_ref is not None else ""
+        print(f"  {counter:20s} {case:34s} err {err:.2e}  kernel {ms:.4f} "
+              f"plain {plain:.4f}{libs}{refs}  bound {bnd:.4f} ms")
+
+    def summary(self):
+        """One line per kernel: main-path sums per explain."""
+        for k, s in self.sums.items():
+            extra = "".join(f" {n} {s[n]:.4f}" for n in (
+                "library_ms", "f32_reference_ms") if s[n] is not None)
+            print(f"  sum {k:20s} ms {s['ms']:.4f} plain_ms "
+                  f"{s['plain_ms']:.4f} bound_ms {s['bound_ms']:.4f} "
+                  f"({_bound_by(self, k)}){extra}")
 
 
 def randn(gen, *shape, scale=1.0):
@@ -315,13 +364,199 @@ def check_kernels(kc: KernelCheck):
               2 * g.numel() * 4096)
 
 
+def check_kernels_fxp(kc: KernelCheck):
+    """The fxp16 path's kernels (B7-B10, int16 B2/B3), bitwise."""
+    from repro_torch.core import fixedpoint, masks
+    from repro_torch.kernels.conv2d import ref as conv_ref
+    from repro_torch.kernels.conv2d.fxp import (conv2d_bwd_fused_fxp,
+                                                conv2d_bwd_fused_fxp_plain,
+                                                conv2d_fxp)
+    from repro_torch.kernels.pool import ref as pool_ref
+    from repro_torch.kernels.pool.fxp import maxpool_fwd_fxp
+    from repro_torch.kernels.relu_mask import ref as relu_ref
+    from repro_torch.kernels.relu_mask.relu_mask import (gate_gradient,
+                                                         relu_fwd,
+                                                         unpack_bits)
+    from repro_torch.kernels.tiling import crumb_bytes, mask_bytes
+    from repro_torch.kernels.vmm import ref as vmm_ref
+    from repro_torch.kernels.vmm.fxp import (vmm_bwd_fused_fxp,
+                                             vmm_bwd_fused_fxp_plain,
+                                             vmm_fxp)
+
+    gen = torch.Generator(device="cuda").manual_seed(4321)
+    n, s, rate = BATCH, SEEDS, kc.imad_per_s
+    lim = fixedpoint.INT16_LIM
+
+    def qact(*shape, scale=1.0):
+        return fixedpoint.to_fixed(randn(gen, *shape, scale=scale))
+
+    def qwgt(*shape, scale):
+        return fixedpoint.to_fixed(randn(gen, *shape, scale=scale),
+                                   fixedpoint.WGT_FRAC)
+
+    def rails(*shape):
+        sign = torch.randint(0, 2, shape, generator=gen, device="cuda")
+        return ((2 * sign - 1) * lim).to(torch.int16)
+
+    def sat(y, b):
+        return fixedpoint.sat_add(y, b)
+
+    # B7 int16 conv forward (+ saturating bias): the four Table III layers
+    for h, cin, cout in ((32, 3, 32), (32, 32, 32), (16, 32, 64),
+                         (16, 64, 64)):
+        x = torch.clamp_min(qact(n, h, h, cin), 0)   # post-ReLU, as fed
+        w = qwgt(3, 3, cin, cout, scale=(2.0 / (9 * cin)) ** 0.5)
+        b = qact(cout, scale=0.1)
+        xf, wf, bf = x.float(), w.float(), b.float()
+        xn, wn = xf.permute(0, 3, 1, 2), wf.permute(3, 2, 0, 1)
+        nbytes = 2 * (x.numel() + w.numel() + cout + n * h * h * cout)
+        kc.record("conv2d_fxp_fwd", f"[{n},{h},{h},{cin}->{cout}]", True,
+                  conv2d_fxp(x, w, b), sat(conv_ref.conv2d_fxp(x, w), b),
+                  True, lambda: conv2d_fxp(x, w, b),
+                  lambda: sat(conv_ref.conv2d_fxp(x, w), b), nbytes,
+                  n * h * h * cout * 9 * cin, rate=rate,
+                  f32_reference_fn=lambda: F.conv2d(xn, wn, bf, padding=1))
+    x, w = rails(n, 16, 16, 64), rails(3, 3, 64, 64)   # 576 * 2^30 wraps
+    kc.record("conv2d_fxp_fwd", "rails [32,16,16,64->64] wrap", False,
+              conv2d_fxp(x, w), conv_ref.conv2d_fxp(x, w), True,
+              lambda: conv2d_fxp(x, w), lambda: conv_ref.conv2d_fxp(x, w),
+              2 * (x.numel() * 2 + w.numel()), x.numel() * 9 * 64,
+              rate=rate)
+
+    # int16 B2 relu + mask: the five rectifiers of the fxp16 forward
+    for r, c in ((n * 32 * 32, 32), (n * 32 * 32, 32), (n * 16 * 16, 64),
+                 (n * 16 * 16, 64), (n, 128)):
+        x = qact(r, c)
+        x[0] = 0                          # exact zeros: bit 0 (strict >)
+        nbytes = 2 * 2 * r * c + r * mask_bytes(c)
+        kc.record("relu_fwd_i16", f"[{r},{c}] int16", True, relu_fwd(x),
+                  relu_ref.relu_fwd(x), True, lambda: relu_fwd(x),
+                  lambda: relu_ref.relu_fwd(x), nbytes, r * c, rate=rate)
+
+    # int16 B3 pool + argmax on post-ReLU int16 maps: ties on the grid
+    for h, c in ((32, 32), (16, 64)):
+        x = torch.clamp_min(qact(n, h, h, c, scale=0.05), 0)
+        nbytes = (2 * x.numel() + 2 * x.numel() // 4
+                  + n * (h // 2) ** 2 * crumb_bytes(c))
+        kc.record("maxpool_fwd_i16", f"[{n},{h},{h},{c}] int16", True,
+                  maxpool_fwd_fxp(x), pool_ref.maxpool_fwd(x), True,
+                  lambda: maxpool_fwd_fxp(x),
+                  lambda: pool_ref.maxpool_fwd(x), nbytes,
+                  3 * x.numel() // 4, rate=rate)
+
+    # B9 int16 FC forward (+ saturating bias): FC0 and FC1
+    for k, m_out in ((4096, 128), (128, 10)):
+        x = torch.clamp_min(qact(n, k), 0)
+        w = qwgt(k, m_out, scale=(2.0 / k) ** 0.5)
+        b = qact(m_out, scale=0.1)
+        xf, wf, bf = x.float(), w.float(), b.float()
+        nbytes = 2 * (x.numel() + w.numel() + m_out + n * m_out)
+        kc.record("vmm_fxp_fwd", f"[{n},{k}]@[{k},{m_out}]", True,
+                  vmm_fxp(x, w, b), sat(vmm_ref.vmm_fxp(x, w), b), True,
+                  lambda: vmm_fxp(x, w, b),
+                  lambda: sat(vmm_ref.vmm_fxp(x, w), b), nbytes,
+                  n * k * m_out, rate=rate,
+                  f32_reference_fn=lambda: torch.addmm(bf, xf, wf))
+    x, w = rails(n, 4096), rails(4096, 128)           # 4096 * 2^30 wraps
+    kc.record("vmm_fxp_fwd", "rails [32,4096]@[4096,128] wrap", False,
+              vmm_fxp(x, w), vmm_ref.vmm_fxp(x, w), True,
+              lambda: vmm_fxp(x, w), lambda: vmm_ref.vmm_fxp(x, w),
+              2 * (x.numel() + w.numel() + n * 128), n * 4096 * 128,
+              rate=rate)
+
+    # B8 int16 fused conv backward: (H, C, Cout', pooled) of layers 3..0
+    for method in METHODS:
+        for h, c, cout, pooled in ((16, 64, 64, True), (16, 64, 32, False),
+                                   (32, 32, 32, True), (32, 32, 3, False)):
+            y = qact(n, h, h, c)                        # layer pre-activation
+            mask = None if method == "deconvnet" else masks.pack_mask(y > 0)
+            idx = (pool_ref.maxpool_fwd(torch.clamp_min(y, 0))[1]
+                   if pooled else None)
+            hg = h // 2 if pooled else h
+            g = qact(s, n, hg, hg, c, scale=0.5)
+            wt = qwgt(3, 3, c, cout, scale=(2.0 / (9 * c)) ** 0.5)
+            kw = dict(pool_idx=idx, relu_mask=mask, gate=True, method=method)
+            gg = g
+            if pooled:
+                gg = pool_ref.unpool_scatter(masks.unpack_crumbs(idx, c), g)
+            bits = None if mask is None else unpack_bits(mask)[..., :c]
+            nnz = torch.count_nonzero(gate_gradient(gg, bits, method)).item()
+            nbytes = (2 * (g.numel() + wt.numel() + s * n * h * h * cout)
+                      + (idx.numel() if pooled else 0)
+                      + (mask.numel() if mask is not None else 0))
+            kc.record("conv2d_bwd_fused_fxp",
+                      f"{method} [{s},{n},{hg},{hg},{c}]->{cout}"
+                      + (" pool" if pooled else ""),
+                      method == "saliency",
+                      conv2d_bwd_fused_fxp(g, wt, **kw),
+                      conv2d_bwd_fused_fxp_plain(g, wt, **kw), True,
+                      lambda: conv2d_bwd_fused_fxp(g, wt, **kw),
+                      lambda: conv2d_bwd_fused_fxp_plain(g, wt, **kw),
+                      nbytes, nnz * 9 * cout, rate=rate)
+    # ... with the epilogue gate after the requantize
+    y, prev = qact(n, 16, 16, 64), qact(n, 16, 16, 32)
+    g = qact(s, n, 16, 16, 64, scale=0.5)
+    wt = qwgt(3, 3, 64, 32, scale=(2.0 / 576) ** 0.5)
+    kw = dict(relu_mask=masks.pack_mask(y > 0), method="guided",
+              out_relu_mask=masks.pack_mask(prev > 0))
+    kc.record("conv2d_bwd_fused_fxp", "guided epilogue [3,32,16,16,64]->32",
+              False, conv2d_bwd_fused_fxp(g, wt, **kw),
+              conv2d_bwd_fused_fxp_plain(g, wt, **kw), True,
+              lambda: conv2d_bwd_fused_fxp(g, wt, **kw),
+              lambda: conv2d_bwd_fused_fxp_plain(g, wt, **kw),
+              2 * (g.numel() * 1.5 + wt.numel()) + n * 256 * 12,
+              g.numel() * 9 * 32, rate=rate)
+
+    # B10 int16 fused FC backward: FC1 (no gate) then FC0 (gated)
+    for method in METHODS:
+        for k, n_out, gated in ((10, 128, False), (128, 4096, True)):
+            g = qact(s, n, k, scale=4.0)
+            wt = qwgt(k, n_out, scale=(2.0 / n_out) ** 0.5)
+            mask = (masks.pack_mask(randn(gen, n, k) > 0)
+                    if gated and method != "deconvnet" else None)
+            kw = dict(relu_mask=mask, gate=gated, method=method)
+            gg = g
+            if gated:
+                bits = None if mask is None else unpack_bits(mask)[:, :k]
+                gg = gate_gradient(g, bits, method)
+            nnz = torch.count_nonzero(gg).item()
+            nbytes = (2 * (g.numel() + wt.numel() + s * n * n_out)
+                      + (mask.numel() if mask is not None else 0))
+            kc.record("vmm_bwd_fused_fxp",
+                      f"{method} [{s},{n},{k}]@[{k},{n_out}]"
+                      + (" gate" if gated else ""), method == "saliency",
+                      vmm_bwd_fused_fxp(g, wt, **kw),
+                      vmm_bwd_fused_fxp_plain(g, wt, **kw), True,
+                      lambda: vmm_bwd_fused_fxp(g, wt, **kw),
+                      lambda: vmm_bwd_fused_fxp_plain(g, wt, **kw),
+                      nbytes, nnz * n_out, rate=rate)
+    g = qact(s, n, 128, scale=4.0)
+    wt = qwgt(128, 4096, scale=(2.0 / 4096) ** 0.5)
+    kw = dict(relu_mask=masks.pack_mask(randn(gen, n, 128) > 0),
+              method="saliency",
+              out_relu_mask=masks.pack_mask(randn(gen, n, 4096) > 0))
+    kc.record("vmm_bwd_fused_fxp", "saliency epilogue [3,32,128]@[128,4096]",
+              False, vmm_bwd_fused_fxp(g, wt, **kw),
+              vmm_bwd_fused_fxp_plain(g, wt, **kw), True,
+              lambda: vmm_bwd_fused_fxp(g, wt, **kw),
+              lambda: vmm_bwd_fused_fxp_plain(g, wt, **kw),
+              2 * (g.numel() + wt.numel() + s * n * 4096),
+              g.numel() * 4096, rate=rate)
+
+
 # ---------------------------------------------------------------------------
 # phases 3-4: the engine, end to end
 # ---------------------------------------------------------------------------
 
-#: kernel launches per explain (forward + one seed-batched backward)
-PER_EXPLAIN = {"conv2d_fwd": 4, "relu_fwd": 5, "maxpool_fwd": 2,
-               "vmm_fwd": 2, "conv2d_bwd_fused": 4, "vmm_bwd_fused": 2}
+#: kernel launches per explain (forward + one seed-batched backward), per
+#: path; every other counter must stay at 0
+PER_EXPLAIN = {
+    "f32": {"conv2d_fwd": 4, "relu_fwd": 5, "maxpool_fwd": 2, "vmm_fwd": 2,
+            "conv2d_bwd_fused": 4, "vmm_bwd_fused": 2},
+    "fxp16": {"conv2d_fxp_fwd": 4, "relu_fwd": 5, "maxpool_fwd": 2,
+              "vmm_fxp_fwd": 2, "conv2d_bwd_fused_fxp": 4,
+              "vmm_bwd_fused_fxp": 2},
+}
 
 
 def _residual_bit_flips(res_a, res_b):
@@ -341,27 +576,32 @@ def _residual_bit_flips(res_a, res_b):
     return flips, total
 
 
-def check_engine(params, cfg, x_cpu):
+def check_engine(params, cfg, x_cpu, precision):
+    """Phase 3 for one path.  f32 within the stated tolerances; fxp16 is
+    integer arithmetic, so logits, every residual bit, the relevance and
+    both cross-replays must equal the CPU twin's bit for bit."""
     from repro_torch.engine import CNNModel, EngineSpec, TopK, build
     from repro_torch.kernels import LAUNCHES
     from repro_torch.models import cnn
 
+    exact = precision == "fxp16"
     x = x_cpu.cuda()
     results = {}
     for method in METHODS:
-        eng = build(EngineSpec(CNNModel(params, cfg, device="cuda"),
-                               method=method, targets=TopK(SEEDS)))
-        twin = build(EngineSpec(CNNModel(params, cfg, device="cpu"),
-                                method=method, targets=TopK(SEEDS)))
+        spec = dict(method=method, precision=precision, targets=TopK(SEEDS))
+        eng = build(EngineSpec(CNNModel(params, cfg, device="cuda"), **spec))
+        twin = build(EngineSpec(CNNModel(params, cfg, device="cpu"), **spec))
         before = dict(LAUNCHES)
         logits, rel, res = eng.predict_then_explain(x)
         torch.cuda.synchronize()
         rose = {k: LAUNCHES[k] - before[k] for k in LAUNCHES}
-        want = dict(PER_EXPLAIN)
+        want = {k: 0 for k in LAUNCHES}
+        want.update(PER_EXPLAIN[precision])
         if method == "deconvnet":
             want["relu_fwd"] = 0         # Table II: no mask stored
         if rose != want:
-            fail(f"{method}: launches per explain {rose}, want {want}")
+            fail(f"{precision} {method}: launches per explain {rose}, "
+                 f"want {want}")
         if tuple(rel.shape) != (SEEDS, BATCH, 32, 32, 3) or not bool(
                 torch.isfinite(rel).all()):
             fail(f"{method}: relevance {tuple(rel.shape)} not finite/shaped")
@@ -369,18 +609,25 @@ def check_engine(params, cfg, x_cpu):
         logits_c, rel_c, res_c = twin.predict_then_explain(x_cpu)
         err = (logits.cpu() - logits_c).abs().max().item()
         ref = logits_c.abs().max().item()
-        if not err <= DOT_TOL * ref:
-            fail(f"{method}: logits card vs CPU {err:.3e} > {DOT_TOL}*{ref}")
+        if not err <= (0.0 if exact else DOT_TOL * ref):
+            fail(f"{precision} {method}: logits card vs CPU {err:.3e}")
         flips, bits = _residual_bit_flips(res, res_c)
-        if flips > (1 - MIN_BIT_AGREEMENT) * bits:
-            fail(f"{method}: {flips} of {bits} residual bits differ")
+        if flips > (0 if exact else (1 - MIN_BIT_AGREEMENT) * bits):
+            fail(f"{precision} {method}: {flips} of {bits} residual bits "
+                 f"differ")
         seeds_c, _ = twin._seeds(logits_c, None, SEEDS)
         rel_x = eng.replay(cnn.residuals_to(res_c, "cuda"), seeds_c.cuda())
         rerr = (rel_x.cpu() - rel_c).abs().max().item()
         rref = rel_c.abs().max().item()
-        if not rerr <= REPLAY_TOL * rref:
-            fail(f"{method}: cross-replay {rerr:.3e} > {REPLAY_TOL}*{rref}")
+        if not rerr <= (0.0 if exact else REPLAY_TOL * rref):
+            fail(f"{precision} {method}: cross-replay {rerr:.3e} "
+                 f"(max|rel| {rref:.3e})")
         direct = (rel.cpu() - rel_c).abs().max().item()
+        if exact:
+            back = twin.replay(cnn.residuals_to(res, "cpu"), seeds_c)
+            if direct != 0.0 or not torch.equal(back, rel.cpu()):
+                fail(f"fxp16 {method}: relevance or the CPU's replay of the "
+                     f"card's residuals differs from the card's")
 
         times = []
         for _ in range(12):
@@ -394,19 +641,21 @@ def check_engine(params, cfg, x_cpu):
         results[method] = dict(logits_err=err, bit_flips=flips, bits=bits,
                                cross_replay_err=rerr,
                                card_vs_cpu_rel_err=direct, rel_max=rref,
-                               explain_ms_host=ms, explain_ms_device=dev_ms)
-        print(f"  {method:9s} logits err {err:.2e}  bit flips {flips}/{bits}"
+                               explain_ms_host=ms, explain_ms_device=dev_ms,
+                               launches_per_explain=rose)
+        print(f"  {precision:5s} {method:9s} logits err {err:.2e}  "
+              f"bit flips {flips}/{bits}"
               f"  cross-replay err {rerr:.2e} (max|rel| {rref:.2e})  "
               f"card-vs-CPU rel err {direct:.2e}  explain {ms:.3f} ms "
               f"host, {dev_ms:.3f} ms device (batch {BATCH}, top-{SEEDS})")
     return results
 
 
-def serve_requests(params, cfg, x_cpu):
+def serve_requests(params, cfg, x_cpu, precision):
     from repro_torch.engine import CNNModel, EngineSpec, build
 
     eng = build(EngineSpec(CNNModel(params, cfg, device="cuda"),
-                           method="guided"))
+                           method="guided", precision=precision))
     x = x_cpu.cuda()
     n_req = 0
 
@@ -440,11 +689,17 @@ def serve_requests(params, cfg, x_cpu):
         fail("replay of a target differs from its cold explain")
     if torch.equal(replayed, rel):
         fail("replay of another target returned the first target's map")
-    print(f"  {n_req} requests served; replay == cold explain bitwise")
+    print(f"  {precision}: {n_req} requests served; replay == cold "
+          f"explain bitwise")
     return n_req
 
 
 # ---------------------------------------------------------------------------
+
+
+#: The counters each path must launch; the others must stay at 0 there.
+PATH_KERNELS = {"f32": tuple(PER_EXPLAIN["f32"]),
+                "fxp16": tuple(PER_EXPLAIN["fxp16"])}
 
 
 def main() -> int:
@@ -461,12 +716,20 @@ def main() -> int:
 
     # phase 1: device
     kind = torch.cuda.get_device_name(0)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip().splitlines()[0]
+
+    def query(fields):
+        return subprocess.run(
+            ["nvidia-smi", f"--query-gpu={fields}", "--format=csv,noheader"],
+            capture_output=True, text=True, check=True,
+            timeout=60).stdout.strip().splitlines()[0]
+
+    smi = query("name,power.limit")
+    max_sm_mhz = float(query("clocks.max.sm").split()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    imad_per_s = sms * IMAD_LANES_PER_SM * max_sm_mhz * 1e6
     print(f"phase 1: device {kind} (torch {torch.__version__}, CUDA "
-          f"{torch.version.cuda}); nvidia-smi: {smi}")
+          f"{torch.version.cuda}); nvidia-smi: {smi}; {sms} SMs, max SM "
+          f"clock {max_sm_mhz:.0f} MHz -> IMAD peak {imad_per_s:.4e}/s")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
@@ -484,31 +747,43 @@ def main() -> int:
     # phase 2: kernels vs plain
     print(f"phase 2: kernels vs plain versions (batch {BATCH}, S={SEEDS}; "
           f"ms = median of {REPS} back-to-back runs)")
-    kc = KernelCheck()
+    kc = KernelCheck(imad_per_s)
     check_kernels(kc)
+    check_kernels_fxp(kc)
+    kc.summary()
 
-    # phases 3-4: the main path, counted
+    # phases 3-4: each main path, counted on its own
     cfg = cnn.CNNConfig()
     params = cnn.init(torch.Generator().manual_seed(0), cfg)
     x_cpu = torch.randn((BATCH, 32, 32, 3),
                         generator=torch.Generator().manual_seed(1))
-    reset_launches()
-    print("phase 3: engine end to end, full Table III width")
-    engine_results = check_engine(params, cfg, x_cpu)
-    print("phase 4: requests")
-    n_req = serve_requests(params, cfg, x_cpu)
-    torch.cuda.synchronize()
-    launches = dict(LAUNCHES)
-    never = [k for k, v in launches.items() if v == 0]
-    if never:
-        fail(f"kernels of the main path never launched: {never}")
-    print(f"  main-path launches: {launches}")
+    engine_results, n_req, launches = {}, {}, {}
+    for precision in ("f32", "fxp16"):
+        reset_launches()
+        print(f"phase 3 ({precision}): engine end to end, full Table III "
+              f"width")
+        engine_results[precision] = check_engine(params, cfg, x_cpu,
+                                                 precision)
+        print(f"phase 4 ({precision}): requests")
+        n_req[precision] = serve_requests(params, cfg, x_cpu, precision)
+        torch.cuda.synchronize()
+        launches[precision] = got = dict(LAUNCHES)
+        never = [k for k in PATH_KERNELS[precision] if got[k] == 0]
+        if never:
+            fail(f"{precision}: kernels of the path never launched: {never}")
+        stray = [k for k, v in got.items()
+                 if v and k not in PATH_KERNELS[precision]]
+        if stray:
+            fail(f"{precision}: kernels of another path launched: {stray}")
+        print(f"  {precision} main-path launches: {got}")
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         s = kc.sums[name]
+        path = "fxp16" if name not in PATH_KERNELS["f32"] else "f32"
         kernels.append(dict(name=name, route="cuda", source=source,
-                            replaces=replaces, launches=launches[name],
+                            replaces=replaces,
+                            launches=launches[path][name],
                             max_abs_err=kc.err[name], ms=s["ms"],
                             plain_ms=s["plain_ms"], bound_ms=s["bound_ms"],
                             bound_by=_bound_by(kc, name),
@@ -516,9 +791,10 @@ def main() -> int:
     if args.out is not None:
         args.out.mkdir(parents=True, exist_ok=True)
         (args.out / "chip_smoke.json").write_text(json.dumps(dict(
-            device=kind, nvidia_smi=smi, build_s=build_s,
-            cases=kc.rows, engine=engine_results, requests=n_req,
-            kernels=kernels), indent=1))
+            device=kind, nvidia_smi=smi, sms=sms, max_sm_mhz=max_sm_mhz,
+            imad_per_s=imad_per_s, build_s=build_s, cases=kc.rows,
+            sums=kc.sums, engine=engine_results, requests=n_req,
+            launches=launches, kernels=kernels), indent=1))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -529,10 +805,9 @@ def main() -> int:
 
 def _bound_by(kc: KernelCheck, name: str) -> str:
     """Which roof bounds the kernel's main-path shapes, by summed time."""
-    by_bytes = sum(r["bytes"] / HBM_BYTES_PER_S for r in kc.rows
-                   if r["kernel"] == name and r["main_path"])
-    by_ops = sum(r["flops"] / F32_FLOP_PER_S for r in kc.rows
-                 if r["kernel"] == name and r["main_path"])
+    rows = [r for r in kc.rows if r["kernel"] == name and r["main_path"]]
+    by_bytes = sum(r["bytes"] / HBM_BYTES_PER_S for r in rows)
+    by_ops = sum(r["flops"] / r["rate"] for r in rows)
     return "bytes" if by_bytes >= by_ops else "operations"
 
 

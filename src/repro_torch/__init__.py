@@ -6,8 +6,9 @@ nothing of ``repro``; the tests hold it against the JAX package on the same
 NumPy inputs.
 
 What runs here: the Table III CNN (``models/cnn.py``) explained through the
-configure-once engine (``engine/``) in f32, with the six hand-written CUDA
-kernels of ``csrc/`` on the card::
+configure-once engine (``engine/``) in f32 and in the paper's true-int16
+fixed point (``precision="fxp16"``, bit for bit with the JAX package), with
+the hand-written CUDA kernels of ``csrc/`` on the card::
 
     import torch
     from repro_torch.engine import CNNModel, EngineSpec, TopK, build

@@ -23,6 +23,30 @@ __device__ __forceinline__ float gate(float g, bool bit, int method) {
   return bit ? g : 0.f;                                        // Eq. 3
 }
 
+// The same rule on an int16 (Q7.8) gradient of the fxp16 path.
+__device__ __forceinline__ int gate(int g, bool bit, int method) {
+  if (method == kDeconvnet) return g > 0 ? g : 0;
+  if (method == kGuided) return (bit && g > 0) ? g : 0;
+  return bit ? g : 0;
+}
+
+// fxp16 numeric contract, as repro_torch.core.fixedpoint states it.
+constexpr int kWgtFrac = 14;       // fixedpoint.WGT_FRAC: Q1.14 weights
+constexpr int kInt16Lim = 32767;   // fixedpoint.INT16_LIM: symmetric rails
+
+__device__ __forceinline__ int sat16(int v) {
+  return max(-kInt16Lim, min(kInt16Lim, v));
+}
+
+// int32 accumulator -> Q7.8 value: clip((acc + 2^13) >> 14, ±32767).  The
+// accumulator is kept as uint32_t so that sums and the rounding add wrap
+// modulo 2^32 as XLA's and NumPy's int32 do (signed overflow is undefined
+// in C++); the shift is then arithmetic, on the int32 value.
+__device__ __forceinline__ int requantize(uint32_t acc) {
+  const int32_t v = static_cast<int32_t>(acc + (1u << (kWgtFrac - 1)));
+  return sat16(v >> kWgtFrac);
+}
+
 // Bit `c` of a row of packed 1-bit masks (LSB first: channel 8b+j is bit j
 // of byte b); false for a null mask.
 __device__ __forceinline__ bool mask_bit(const uint8_t* row, int c) {

@@ -1,52 +1,103 @@
-// Fused ReLU + 1-bit packed mask (paper §III.D, Fig. 4).
+// Fused ReLU + 1-bit packed mask (paper §III.D, Fig. 4), on f32 and on the
+// int16 (Q7.8) feature maps of the fxp16 path.
 //
-// Replaces: src/repro/kernels/relu_mask/relu_mask.py, relu_fwd_pallas.
+// Replaces: src/repro/kernels/relu_mask/relu_mask.py, relu_fwd_pallas (the
+// fxp16 path calls the same Pallas kernel on int16 blocks).
 //
 // Computes y = max(x, 0) over [R, C] and m [R, ceil(C/8)] with bit j of
 // byte b = (x[:, 8b+j] > 0), strictly; bits past C are 0.
 //
-// Bound on an H100: bytes.  It reads 4 bytes and writes 4 + 1/8 per element
-// and does one compare per element, far below the card's compute rate.
-// Design: one thread per output mask byte reads its eight inputs (two
-// 16-byte loads when C is a multiple of 8 and the pointers are aligned, so
-// a warp streams 1 KB contiguously), writes eight outputs and one byte.
-// No shared memory, no atomics: each byte has exactly one writer.
+// Bound on an H100: bytes.  It reads sizeof(T) bytes and writes
+// sizeof(T) + 1/8 per element and does one compare per element, far below
+// the card's compute rate.  Design: one thread per output mask byte reads
+// its eight inputs (two 16-byte loads for f32, one for int16, when C is a
+// multiple of 8 and the pointers are 16-byte aligned, so a warp streams
+// contiguous runs), writes eight outputs and one byte.  No shared memory,
+// no atomics: each byte has exactly one writer.
 
 #include "common.cuh"
 
 namespace {
 
-__global__ void relu_fwd_kernel(const float* __restrict__ x,
-                                float* __restrict__ y,
+// Eight consecutive elements as one or two 16-byte vectors.
+template <typename T>
+struct Vec8;
+
+template <>
+struct Vec8<float> {
+  __device__ static void load(const float* p, float v[8]) {
+    const float4 a = reinterpret_cast<const float4*>(p)[0];
+    const float4 b = reinterpret_cast<const float4*>(p)[1];
+    v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+    v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+  }
+  __device__ static void store(float* p, const float v[8]) {
+    reinterpret_cast<float4*>(p)[0] = make_float4(v[0], v[1], v[2], v[3]);
+    reinterpret_cast<float4*>(p)[1] = make_float4(v[4], v[5], v[6], v[7]);
+  }
+};
+
+template <>
+struct Vec8<int16_t> {
+  union U {
+    int4 q;
+    int16_t h[8];
+  };
+  __device__ static void load(const int16_t* p, int16_t v[8]) {
+    U u;
+    u.q = reinterpret_cast<const int4*>(p)[0];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) v[j] = u.h[j];
+  }
+  __device__ static void store(int16_t* p, const int16_t v[8]) {
+    U u;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) u.h[j] = v[j];
+    reinterpret_cast<int4*>(p)[0] = u.q;
+  }
+};
+
+template <typename T>
+__global__ void relu_fwd_kernel(const T* __restrict__ x, T* __restrict__ y,
                                 uint8_t* __restrict__ m, int rows, int c,
                                 int cb, int vec) {
   const int t = blockIdx.x * blockDim.x + threadIdx.x;
   if (t >= rows * cb) return;
   const int r = t / cb, c0 = 8 * (t - r * cb);
-  const float* xr = x + static_cast<size_t>(r) * c;
-  float* yr = y + static_cast<size_t>(r) * c;
+  const T* xr = x + static_cast<size_t>(r) * c;
+  T* yr = y + static_cast<size_t>(r) * c;
+  const T zero = T(0);
   uint32_t byte = 0;
   if (vec) {
-    const float4* p = reinterpret_cast<const float4*>(xr + c0);
-    const float4 a = p[0], b = p[1];
-    const float v[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
-    float o[8];
+    T v[8], o[8];
+    Vec8<T>::load(xr + c0, v);
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
-      o[j] = v[j] > 0.f ? v[j] : 0.f;
-      byte |= static_cast<uint32_t>(v[j] > 0.f) << j;
+      o[j] = v[j] > zero ? v[j] : zero;
+      byte |= static_cast<uint32_t>(v[j] > zero) << j;
     }
-    float4* q = reinterpret_cast<float4*>(yr + c0);
-    q[0] = make_float4(o[0], o[1], o[2], o[3]);
-    q[1] = make_float4(o[4], o[5], o[6], o[7]);
+    Vec8<T>::store(yr + c0, o);
   } else {
     for (int j = 0; j < 8 && c0 + j < c; ++j) {
-      const float v = xr[c0 + j];
-      yr[c0 + j] = v > 0.f ? v : 0.f;
-      byte |= static_cast<uint32_t>(v > 0.f) << j;
+      const T v = xr[c0 + j];
+      yr[c0 + j] = v > zero ? v : zero;
+      byte |= static_cast<uint32_t>(v > zero) << j;
     }
   }
   m[t] = static_cast<uint8_t>(byte);
+}
+
+template <typename T>
+int relu_fwd(const T* x, T* y, uint8_t* m, int rows, int c,
+             cudaStream_t stream) {
+  const int cb = (c + 7) / 8;
+  const int vec = (c % 8 == 0) &&
+                  (reinterpret_cast<uintptr_t>(x) % 16 == 0) &&
+                  (reinterpret_cast<uintptr_t>(y) % 16 == 0);
+  const int total = rows * cb, threads = 256;
+  relu_fwd_kernel<T><<<(total + threads - 1) / threads, threads, 0, stream>>>(
+      x, y, m, rows, c, cb, vec);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -63,12 +114,10 @@ REPRO_API int repro_set_device(int device) {
 
 REPRO_API int repro_relu_fwd(const float* x, float* y, uint8_t* m, int rows,
                              int c, cudaStream_t stream) {
-  const int cb = (c + 7) / 8;
-  const int vec = (c % 8 == 0) &&
-                  (reinterpret_cast<uintptr_t>(x) % 16 == 0) &&
-                  (reinterpret_cast<uintptr_t>(y) % 16 == 0);
-  const int total = rows * cb, threads = 256;
-  relu_fwd_kernel<<<(total + threads - 1) / threads, threads, 0, stream>>>(
-      x, y, m, rows, c, cb, vec);
-  return static_cast<int>(cudaGetLastError());
+  return relu_fwd<float>(x, y, m, rows, c, stream);
+}
+
+REPRO_API int repro_relu_fwd_i16(const int16_t* x, int16_t* y, uint8_t* m,
+                                 int rows, int c, cudaStream_t stream) {
+  return relu_fwd<int16_t>(x, y, m, rows, c, stream);
 }

@@ -115,13 +115,25 @@ class Engine:
         = squeeze the S=1 axis after the backward."""
         nc = logits.shape[-1]
         if topk is not None:
-            idx = torch.topk(logits, topk, dim=-1).indices.T      # [K, B]
+            idx = self._top_k(logits, topk).T                     # [K, B]
             return self._one_hot(idx, nc, logits), False
         if target is None:
             target = torch.argmax(logits, dim=-1)
         target = torch.as_tensor(target, device=logits.device)
         target = target.to(torch.int64).broadcast_to(logits.shape[:-1])
         return self._one_hot(target, nc, logits)[None], True
+
+    @staticmethod
+    def _top_k(logits, k):
+        """Indices of the ``k`` largest logits per row, in ``lax.top_k``'s
+        order: descending in IEEE total order (+0 above -0), ties to the
+        lower index.  ``torch.topk`` keeps no tie order, and ties are common
+        on the fxp16 logits grid.  The f32 bits are mapped to int32 keys
+        that sort in total order, then sorted stably."""
+        bits = logits.to(torch.float32).contiguous().view(torch.int32)
+        key = bits ^ ((bits >> 31) & 0x7FFFFFFF)
+        order = torch.sort(key, dim=-1, descending=True, stable=True)
+        return order.indices[..., :k]
 
     @staticmethod
     def _one_hot(idx, nc, like):

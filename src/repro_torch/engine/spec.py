@@ -112,18 +112,21 @@ class CNNModel:
 
         ``forward(x) -> (logits, residuals)``; ``backward(residuals, seeds
         [S, B, classes]) -> relevance [S, B, H, W, Cin]``.  Parameters move
-        to the device and the backward weights (flip-transposed kernels,
-        contiguous ``W^T``) are made here, once per pair.
+        to the device and are quantized under fxp16, and the backward
+        weights (flip-transposed kernels, contiguous ``W^T``) are made from
+        them here, once per pair (the JAX package quantizes per call; the
+        numbers are the same).
         """
         from repro_torch.models import cnn
         cnn.check_precision(precision)
         params = cnn.params_to(self.params, self.device)
-        bwd_weights = cnn.backward_weights(params)
+        fwd_params = cnn.prepare_params(params, precision)
+        bwd_weights = cnn.backward_weights(fwd_params)
         cfg = self.cfg
 
         def forward(x):
             return cnn.forward_with_residuals(params, x, cfg, method,
-                                              precision)
+                                              precision, fwd_params)
 
         def backward(residuals, seeds):
             return cnn.backward_seeds(params, residuals, seeds, cfg, method,
@@ -132,15 +135,17 @@ class CNNModel:
         return forward, backward
 
     def logits_fn(self, method: str, precision: str) -> Callable:
-        """Logits-only ``f(x)`` for ``Engine.predict``."""
+        """Logits-only ``f(x)`` for ``Engine.predict`` (under fxp16 the
+        dequantized logits of the int16 forward)."""
         from repro_torch.models import cnn
         cnn.check_precision(precision)
         params = cnn.params_to(self.params, self.device)
+        fwd_params = cnn.prepare_params(params, precision)
         cfg = self.cfg
 
         def f(x):
             return cnn.apply(params, x, cfg, method=method,
-                             precision=precision)
+                             precision=precision, fwd_params=fwd_params)
 
         return f
 
@@ -156,7 +161,9 @@ class EngineSpec:
 
     Fields as in ``repro.engine.spec.EngineSpec``: ``model`` (a
     :class:`CNNModel`), ``method`` (``saliency | deconvnet | guided``),
-    ``precision`` (``f32``), ``backward`` (``auto`` or ``seed_batched``),
+    ``precision`` (``f32`` or ``fxp16``, the paper's true-int16 datapath),
+    ``backward`` (``auto`` or ``seed_batched``; fxp16 is integer arithmetic
+    and has no ``vjp``),
     ``targets`` (:class:`Argmax`, :class:`Fixed` or :class:`TopK`), and
     ``batch`` (inputs are padded up to it and outputs sliced back).  The
     JAX package's planner knobs ``device``/``plan``/``autotune`` and the
@@ -191,6 +198,10 @@ class EngineSpec:
         if self.backward not in BACKWARDS:
             raise ValueError(
                 f"backward={self.backward!r} not in {BACKWARDS}")
+        if self.precision == "fxp16" and self.backward == "vjp":
+            raise ValueError("precision='fxp16' is integer arithmetic — "
+                             "no vjp exists; use backward='auto' or "
+                             "'seed_batched'")
         if self.backward == "vjp":
             raise NotImplementedError(
                 "backward='vjp' (VjpBackward on torch.func) is not ported "

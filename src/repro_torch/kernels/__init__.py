@@ -74,11 +74,14 @@ def check_kernel_operands(name: str, *tensors) -> None:
                              f"kernels' 32-bit indexing")
 
 
-def check(name: str, t: torch.Tensor, dtype: torch.dtype, shape=None,
+def check(name: str, t: torch.Tensor, dtype, shape=None,
           what: str = "tensor"):
-    """Raise unless ``t`` has ``dtype`` (and ``shape`` where given)."""
-    if t.dtype != dtype:
-        raise TypeError(f"{name}: {what} must be {dtype}, got {t.dtype}")
+    """Raise unless ``t`` has ``dtype`` (one dtype, or a tuple of the ones
+    accepted) and ``shape`` where given."""
+    dtypes = dtype if isinstance(dtype, tuple) else (dtype,)
+    if t.dtype not in dtypes:
+        want = " or ".join(map(str, dtypes))
+        raise TypeError(f"{name}: {what} must be {want}, got {t.dtype}")
     if shape is not None and tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: {what} must have shape {tuple(shape)}, "
                          f"got {tuple(t.shape)}")

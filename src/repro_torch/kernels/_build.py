@@ -43,14 +43,26 @@ SIGNATURES = {
     "repro_conv2d_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "repro_conv2d_bwd_fused": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                _I, _I, _I, _I, _I, _P],
+    # the fxp16 path: int16 instances of B2/B3 and the int16 kernels B7-B10
+    "repro_relu_fwd_i16": [_P, _P, _P, _I, _I, _P],
+    "repro_maxpool_fwd_i16": [_P, _P, _P, _I, _I, _I, _I, _P],
+    "repro_conv2d_fxp_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "repro_conv2d_bwd_fused_fxp": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                   _I, _I, _I, _I, _I, _I, _P],
+    "repro_vmm_fxp_fwd": [_P, _P, _P, _P, _I, _I, _I, _P],
+    "repro_vmm_bwd_fused_fxp": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                _I, _P],
 }
 
 #: Launches per kernel wrapper since the last :func:`reset_launches`.  A
 #: wrapper adds one where it launches its kernel and nowhere else, so a run
-#: can show that its path went through the kernels.
+#: can show that its path went through the kernels.  The int16 instances of
+#: ReLU+mask and pool count under ``relu_fwd`` and ``maxpool_fwd``.
 LAUNCHES: Dict[str, int] = {
     "conv2d_fwd": 0, "relu_fwd": 0, "maxpool_fwd": 0, "vmm_fwd": 0,
     "conv2d_bwd_fused": 0, "vmm_bwd_fused": 0,
+    "conv2d_fxp_fwd": 0, "conv2d_bwd_fused_fxp": 0, "vmm_fxp_fwd": 0,
+    "vmm_bwd_fused_fxp": 0,
 }
 
 _LIB: Optional[ctypes.CDLL] = None

@@ -1,1 +1,2 @@
-"""Convolution: kernel wrappers (``conv2d``) and plain versions (``ref``)."""
+"""Convolution: kernel wrappers (``conv2d``, int16 ``fxp``) and plain
+versions (``ref``)."""

@@ -1,4 +1,4 @@
-"""Plain PyTorch version of the conv kernel (NHWC x HWIO, stride 1, SAME).
+"""Plain PyTorch version of the conv kernels (NHWC x HWIO, stride 1, SAME).
 
 On a CUDA tensor ``F.conv2d`` goes through cuDNN, which runs f32 as TF32
 unless ``torch.backends.cudnn.allow_tf32 = False``; whoever compares a
@@ -7,12 +7,35 @@ kernel with this version on the card sets that flag first.
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core.fixedpoint import requantize
+
 
 def conv2d(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x: [N, H, W, Cin], w: [K, K, Cin, Cout] (odd K) -> [N, H, W, Cout]."""
     y = F.conv2d(x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1),
                  padding=(w.shape[0] - 1) // 2)
     return y.permute(0, 2, 3, 1).contiguous()
+
+
+def conv2d_fxp(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """int16 x [N, H, W, Cin] (Q7.8) and w [K, K, Cin, Cout] (Q1.14) ->
+    int16 [N, H, W, Cout]: the int32 accumulator, requantized once.
+
+    PyTorch has no integer matmul on CUDA, so the accumulator is an im2col
+    product in float64.  It is exact on either device: every product is an
+    integer below 2^30 and every partial sum one below 2^53, whatever the
+    order.  :func:`requantize` then reduces it modulo 2^32, as the int32
+    accumulator of the kernels and of the reference wraps.
+    """
+    n, h, wd, cin = x.shape
+    k, cout = w.shape[0], w.shape[3]
+    p = (k - 1) // 2
+    xp = F.pad(x.to(torch.float64), (0, 0, p, p, p, p))
+    patches = torch.cat([xp[:, i:i + h, j:j + wd, :]
+                         for i in range(k) for j in range(k)], dim=-1)
+    acc = patches.reshape(n * h * wd, k * k * cin) @ w.to(
+        torch.float64).reshape(k * k * cin, cout)
+    return requantize(acc).reshape(n, h, wd, cout)
 
 
 def flip_transpose(w: torch.Tensor) -> torch.Tensor:

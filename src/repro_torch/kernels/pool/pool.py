@@ -16,9 +16,14 @@ from repro_torch.kernels.pool import ref
 from repro_torch.kernels.tiling import crumb_bytes
 
 
+#: Kernel entry point per element type: f32, and int16 for the fxp16 path.
+_ENTRY = {torch.float32: "repro_maxpool_fwd",
+          torch.int16: "repro_maxpool_fwd_i16"}
+
+
 def maxpool_fwd(x: torch.Tensor):
-    """x: [N, H, W, C] f32, H and W even -> (pooled [N, H/2, W/2, C],
-    packed argmax uint8 [N, H/2, W/2, ceil(C/4)]).
+    """x: [N, H, W, C] f32 or int16, H and W even -> (pooled [N, H/2, W/2,
+    C] of the same type, packed argmax uint8 [N, H/2, W/2, ceil(C/4)]).
 
     Candidates are (0,0), (0,1), (1,0), (1,1); the first maximum wins.
     CPU tensors run :func:`ref.maxpool_fwd`; CUDA tensors the kernel.
@@ -27,7 +32,7 @@ def maxpool_fwd(x: torch.Tensor):
     if x.dim() != 4 or x.shape[1] % 2 or x.shape[2] % 2:
         raise ValueError(f"{name}: x must be [N, H, W, C] with even H, W; "
                          f"got {tuple(x.shape)}")
-    check(name, x, torch.float32, what="x")
+    check(name, x, tuple(_ENTRY), what="x")
     if not on_card(name, x):
         return ref.maxpool_fwd(x)
     check_kernel_operands(name, x)
@@ -36,6 +41,6 @@ def maxpool_fwd(x: torch.Tensor):
     idx = torch.empty((n, h // 2, w // 2, crumb_bytes(c)), dtype=torch.uint8,
                       device=x.device)
     if y.numel():
-        _build.launch(name, "repro_maxpool_fwd", x.device, x.data_ptr(),
+        _build.launch(name, _ENTRY[x.dtype], x.device, x.data_ptr(),
                       y.data_ptr(), idx.data_ptr(), n, h, w, c)
     return y, idx

@@ -38,7 +38,7 @@ def unpool_scatter(idx: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     out = torch.zeros(g.shape[:-3] + (2 * hp, 2 * wp, c), dtype=g.dtype,
                       device=g.device)
     for k, (di, dj) in enumerate(OFFSETS):
-        out[..., di::2, dj::2, :] = torch.where(idx == k, g, 0.0)
+        out[..., di::2, dj::2, :] = torch.where(idx == k, g, 0)
     return out
 
 

@@ -13,8 +13,8 @@ def relu_bwd(packed: torch.Tensor, g: torch.Tensor,
              method: str) -> torch.Tensor:
     """The three masked BP dataflows of paper Fig. 4 (b)-(d)."""
     if method == "deconvnet":
-        return torch.where(g > 0, g, 0.0)
+        return torch.where(g > 0, g, 0)
     m = masks.unpack_mask(packed, g.shape[-1])
     if method == "guided":
-        return torch.where(m & (g > 0), g, 0.0)
-    return torch.where(m, g, 0.0)   # saliency
+        return torch.where(m & (g > 0), g, 0)
+    return torch.where(m, g, 0)     # saliency

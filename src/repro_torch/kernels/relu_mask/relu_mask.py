@@ -35,14 +35,19 @@ def gate_gradient(g: torch.Tensor, mask_bits: Optional[torch.Tensor],
     leading axes the stored mask does not — the mask-reuse amortization).
     """
     if method == "deconvnet":                        # Eq. 4: no mask read
-        return torch.where(g > 0, g, 0.0)
+        return torch.where(g > 0, g, 0)
     if method == "guided":                           # Eq. 5
-        return torch.where(mask_bits & (g > 0), g, 0.0)
-    return torch.where(mask_bits, g, 0.0)            # Eq. 3: saliency
+        return torch.where(mask_bits & (g > 0), g, 0)
+    return torch.where(mask_bits, g, 0)              # Eq. 3: saliency
+
+
+#: Kernel entry point per element type: f32, and int16 for the fxp16 path.
+_ENTRY = {torch.float32: "repro_relu_fwd", torch.int16: "repro_relu_fwd_i16"}
 
 
 def relu_fwd(x2d: torch.Tensor):
-    """x2d: [R, C] f32 -> (relu [R, C], packed mask uint8 [R, ceil(C/8)]).
+    """x2d: [R, C] f32 or int16 -> (relu [R, C] of the same type, packed
+    mask uint8 [R, ceil(C/8)]).
 
     Bit ``j`` of byte ``b`` is ``x[:, 8b + j] > 0`` (strictly); bits past C
     are 0.  CPU tensors run :func:`ref.relu_fwd`; CUDA tensors the kernel.
@@ -50,7 +55,7 @@ def relu_fwd(x2d: torch.Tensor):
     name = "relu_fwd"
     if x2d.dim() != 2:
         raise ValueError(f"{name}: x must be [R, C], got {tuple(x2d.shape)}")
-    check(name, x2d, torch.float32, what="x")
+    check(name, x2d, tuple(_ENTRY), what="x")
     if not on_card(name, x2d):
         return ref.relu_fwd(x2d)
     check_kernel_operands(name, x2d)
@@ -58,6 +63,6 @@ def relu_fwd(x2d: torch.Tensor):
     y = torch.empty_like(x2d)
     m = torch.empty((r, mask_bytes(c)), dtype=torch.uint8, device=x2d.device)
     if r and c:
-        _build.launch(name, "repro_relu_fwd", x2d.device, x2d.data_ptr(),
+        _build.launch(name, _ENTRY[x2d.dtype], x2d.device, x2d.data_ptr(),
                       y.data_ptr(), m.data_ptr(), r, c)
     return y, m

@@ -1,1 +1,2 @@
-"""FC matmul: kernel wrappers (``vmm``) and plain versions (``ref``)."""
+"""FC matmul: kernel wrappers (``vmm``, int16 ``fxp``) and plain versions
+(``ref``)."""

@@ -1,0 +1,63 @@
+"""True-int16 FC matmul kernels (paper §IV: the 16-bit fixed-point
+datapath): forward and fused backward.
+
+:func:`vmm_fxp` wraps ``repro_vmm_fxp_fwd`` of ``csrc/vmm_fxp.cu`` (the port
+of ``repro.kernels.vmm.fxp.vmm_fxp_pallas``): Q7.8 int16 inputs x Q1.14
+int16 weights, int32 accumulation, one requantize, then the Q7.8 bias added
+with saturation in the epilogue — the reference's ``sat_add(vmm_fxp_pallas(x,
+w), b)`` in one launch.  :func:`vmm_bwd_fused_fxp` wraps
+``repro_vmm_bwd_fused_fxp`` (the port of ``vmm_bwd_fused_fxp_pallas``): the
+f32 fused backward's dataflow and argument contract (``vmm.vmm_bwd_fused``)
+on int16 gradients, with the requantize before the epilogue gate.  Plain
+versions: :func:`ref.vmm_fxp` and :func:`vmm_bwd_fused_fxp_plain`.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.core.fixedpoint import sat_add
+from repro_torch.kernels.vmm import ref
+from repro_torch.kernels.vmm.vmm import bwd_fused, bwd_fused_plain, vmm_fwd
+
+
+def _vmm_fxp_plain(x, w, b):
+    y = ref.vmm_fxp(x, w)
+    return y if b is None else sat_add(y, b)
+
+
+def vmm_fxp(x: torch.Tensor, w: torch.Tensor,
+            b: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """int16 [M, K] (Q7.8) @ int16 [K, N] (Q1.14) (+ int16 b [N], Q7.8,
+    saturating) -> int16 [M, N].
+
+    CPU tensors run :func:`ref.vmm_fxp` (then ``sat_add(., b)``); CUDA
+    tensors the kernel.
+    """
+    return vmm_fwd("vmm_fxp", "vmm_fxp_fwd", "repro_vmm_fxp_fwd", torch.int16,
+                   _vmm_fxp_plain, x, w, b)
+
+
+def vmm_bwd_fused_fxp_plain(g, w, **kw):
+    """Plain twin of :func:`vmm_bwd_fused_fxp`: gate, int16 product with its
+    requantize, gate, as separate PyTorch ops."""
+    return bwd_fused_plain(ref.vmm_fxp, g, w, **kw)
+
+
+def vmm_bwd_fused_fxp(g: torch.Tensor, w: torch.Tensor, *,
+                      relu_mask: Optional[torch.Tensor] = None,
+                      gate: Optional[bool] = None,
+                      method: str = "saliency",
+                      out_relu_mask: Optional[torch.Tensor] = None,
+                      out_gate: Optional[bool] = None) -> torch.Tensor:
+    """int16 twin of :func:`vmm.vmm_bwd_fused`: the same operands and gates,
+    Q7.8 gradients ``g`` [S, M, K] and the Q1.14 transposed weight ``w``.
+
+    CPU tensors run :func:`vmm_bwd_fused_fxp_plain`; CUDA tensors the kernel
+    (one launch for all S seeds).
+    """
+    return bwd_fused("vmm_bwd_fused_fxp", "repro_vmm_bwd_fused_fxp",
+                     torch.int16, vmm_bwd_fused_fxp_plain, g, w,
+                     relu_mask=relu_mask, gate=gate, method=method,
+                     out_relu_mask=out_relu_mask, out_gate=out_gate)

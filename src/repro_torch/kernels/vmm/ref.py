@@ -6,10 +6,23 @@ whoever compares a kernel with this version on the card keeps it so.
 """
 import torch
 
+from repro_torch.core.fixedpoint import requantize
+
 
 def vmm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """[M, K] @ [K, N] -> [M, N], f32 accumulation."""
     return torch.matmul(x, w)
+
+
+def vmm_fxp(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """int16 [..., M, K] (Q7.8) @ int16 [K, N] (Q1.14) -> int16 [..., M, N]:
+    the int32 accumulator, requantized once.
+
+    The product runs in float64, exact on either device (integer partial
+    sums below 2^53); :func:`requantize` reduces it modulo 2^32 as the
+    int32 accumulator wraps.
+    """
+    return requantize(torch.matmul(x.to(torch.float64), w.to(torch.float64)))
 
 
 def vmm_input_grad(g: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

@@ -7,10 +7,14 @@ epilogue.  :func:`vmm_bwd_fused` wraps ``repro_vmm_bwd_fused`` (the port of
 is loaded, then the product with ``W^T``, then an optional epilogue gate —
 an FC layer's whole backward step in one launch, all S seeds sharing the
 stored mask.  :func:`vmm_bwd_fused_plain` is that kernel's plain twin.
+
+The int16 twins (``vmm.fxp``) share the argument contract, checks and plain
+dataflow defined here; only the element type, the entry point and the
+product itself differ.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 
@@ -22,53 +26,47 @@ from repro_torch.kernels.tiling import mask_bytes
 from repro_torch.kernels.vmm import ref
 
 
+def vmm_fwd(name: str, counter: str, entry: str, dtype: torch.dtype,
+            plain: Callable, x: torch.Tensor, w: torch.Tensor,
+            b: Optional[torch.Tensor]) -> torch.Tensor:
+    """Check, then run ``plain(x, w, b)`` on the CPU or launch ``entry``."""
+    if x.dim() != 2 or w.dim() != 2 or x.shape[1] != w.shape[0]:
+        raise ValueError(f"{name}: need [M, K] @ [K, N], got "
+                         f"{tuple(x.shape)} @ {tuple(w.shape)}")
+    m, k = x.shape
+    n = w.shape[1]
+    check(name, x, dtype, what="x")
+    check(name, w, dtype, what="w")
+    if b is not None:
+        check(name, b, dtype, (n,), what="b")
+    if not on_card(name, x, w, b):
+        return plain(x, w, b)
+    check_kernel_operands(name, x, w, b)
+    y = torch.empty((m, n), dtype=x.dtype, device=x.device)
+    if y.numel():
+        _build.launch(counter, entry, x.device, x.data_ptr(), w.data_ptr(),
+                      _build.ptr(b), y.data_ptr(), m, k, n)
+    return y
+
+
+def _vmm_plain(x, w, b):
+    y = ref.vmm(x, w)
+    return y if b is None else y + b
+
+
 def vmm(x: torch.Tensor, w: torch.Tensor,
         b: Optional[torch.Tensor] = None) -> torch.Tensor:
     """[M, K] @ [K, N] (+ b [N]) -> [M, N], f32 accumulation.
 
     CPU tensors run :func:`ref.vmm` (then ``+ b``); CUDA tensors the kernel.
     """
-    name = "vmm"
-    if x.dim() != 2 or w.dim() != 2 or x.shape[1] != w.shape[0]:
-        raise ValueError(f"{name}: need [M, K] @ [K, N], got "
-                         f"{tuple(x.shape)} @ {tuple(w.shape)}")
-    m, k = x.shape
-    n = w.shape[1]
-    check(name, x, torch.float32, what="x")
-    check(name, w, torch.float32, what="w")
-    if b is not None:
-        check(name, b, torch.float32, (n,), what="b")
-    if not on_card(name, x, w, b):
-        y = ref.vmm(x, w)
-        return y if b is None else y + b
-    check_kernel_operands(name, x, w, b)
-    y = torch.empty((m, n), dtype=x.dtype, device=x.device)
-    if y.numel():
-        _build.launch("vmm_fwd", "repro_vmm_fwd", x.device, x.data_ptr(),
-                      w.data_ptr(), _build.ptr(b), y.data_ptr(), m, k, n)
-    return y
+    return vmm_fwd("vmm", "vmm_fwd", "repro_vmm_fwd", torch.float32,
+                   _vmm_plain, x, w, b)
 
 
-def _check_bwd_args(name, g, w, relu_mask, out_relu_mask):
-    if g.dim() != 3 or w.dim() != 2 or g.shape[-1] != w.shape[0]:
-        raise ValueError(f"{name}: need g [S, M, K] and w [K, N], got "
-                         f"{tuple(g.shape)}, {tuple(w.shape)}")
-    _, m, k = g.shape
-    n = w.shape[1]
-    check(name, g, torch.float32, what="g")
-    check(name, w, torch.float32, what="w")
-    if relu_mask is not None:
-        check(name, relu_mask, torch.uint8, (m, mask_bytes(k)),
-              what="relu_mask")
-    if out_relu_mask is not None:
-        check(name, out_relu_mask, torch.uint8, (m, mask_bytes(n)),
-              what="out_relu_mask")
-
-
-def vmm_bwd_fused_plain(g, w, *, relu_mask=None, gate=None,
-                        method="saliency", out_relu_mask=None, out_gate=None):
-    """Plain twin of :func:`vmm_bwd_fused`: gate, matmul, gate, as separate
-    PyTorch ops."""
+def bwd_fused_plain(matmul: Callable, g, w, *, relu_mask=None, gate=None,
+                    method="saliency", out_relu_mask=None, out_gate=None):
+    """Gate, ``matmul(g, w)``, gate, as separate PyTorch ops."""
     gate, out_gate = validate_bp_gates(method, gate, relu_mask, out_gate,
                                        out_relu_mask)
     seeded = g.dim() == 3
@@ -78,11 +76,52 @@ def vmm_bwd_fused_plain(g, w, *, relu_mask=None, gate=None,
     if gate:
         bits = None if relu_mask is None else unpack_bits(relu_mask)[:, :k]
         g = gate_gradient(g, bits, method)
-    out = torch.matmul(g, w)
+    out = matmul(g, w)
     if out_gate:
         bits = (None if out_relu_mask is None
                 else unpack_bits(out_relu_mask)[:, :n])
         out = gate_gradient(out, bits, method)
+    return out if seeded else out[0]
+
+
+def vmm_bwd_fused_plain(g, w, **kw):
+    """Plain twin of :func:`vmm_bwd_fused`: gate, matmul, gate, as separate
+    PyTorch ops."""
+    return bwd_fused_plain(torch.matmul, g, w, **kw)
+
+
+def bwd_fused(name: str, entry: str, dtype: torch.dtype, plain: Callable,
+              g: torch.Tensor, w: torch.Tensor, *, relu_mask, gate, method,
+              out_relu_mask, out_gate) -> torch.Tensor:
+    """Check the fused-backward operands, then run ``plain`` on the CPU or
+    launch ``entry`` (counted under ``name``)."""
+    gate, out_gate = validate_bp_gates(method, gate, relu_mask, out_gate,
+                                       out_relu_mask)
+    seeded = g.dim() == 3
+    g3 = g if seeded else g[None]
+    if g3.dim() != 3 or w.dim() != 2 or g3.shape[-1] != w.shape[0]:
+        raise ValueError(f"{name}: need g [S, M, K] and w [K, N], got "
+                         f"{tuple(g.shape)}, {tuple(w.shape)}")
+    s, m, k = g3.shape
+    n = w.shape[1]
+    check(name, g3, dtype, what="g")
+    check(name, w, dtype, what="w")
+    if relu_mask is not None:
+        check(name, relu_mask, torch.uint8, (m, mask_bytes(k)),
+              what="relu_mask")
+    if out_relu_mask is not None:
+        check(name, out_relu_mask, torch.uint8, (m, mask_bytes(n)),
+              what="out_relu_mask")
+    if not on_card(name, g3, w, relu_mask, out_relu_mask):
+        return plain(g, w, relu_mask=relu_mask, gate=gate, method=method,
+                     out_relu_mask=out_relu_mask, out_gate=out_gate)
+    check_kernel_operands(name, g3, w, relu_mask, out_relu_mask)
+    out = torch.empty((s, m, n), dtype=g.dtype, device=g.device)
+    if out.numel():
+        _build.launch(name, entry, g.device, g3.data_ptr(), w.data_ptr(),
+                      _build.ptr(relu_mask), _build.ptr(out_relu_mask),
+                      out.data_ptr(), s, m, k, n, int(gate), int(out_gate),
+                      METHOD_CODES[method])
     return out if seeded else out[0]
 
 
@@ -102,23 +141,7 @@ def vmm_bwd_fused(g: torch.Tensor, w: torch.Tensor, *,
     [M, ceil(N/8)].  Masks carry no seeds axis — shared across S.
     CPU tensors run :func:`vmm_bwd_fused_plain`; CUDA tensors the kernel.
     """
-    name = "vmm_bwd_fused"
-    gate, out_gate = validate_bp_gates(method, gate, relu_mask, out_gate,
-                                       out_relu_mask)
-    seeded = g.dim() == 3
-    g3 = g if seeded else g[None]
-    _check_bwd_args(name, g3, w, relu_mask, out_relu_mask)
-    if not on_card(name, g3, w, relu_mask, out_relu_mask):
-        return vmm_bwd_fused_plain(
-            g, w, relu_mask=relu_mask, gate=gate, method=method,
-            out_relu_mask=out_relu_mask, out_gate=out_gate)
-    check_kernel_operands(name, g3, w, relu_mask, out_relu_mask)
-    s, m, k = g3.shape
-    n = w.shape[1]
-    out = torch.empty((s, m, n), dtype=g.dtype, device=g.device)
-    if out.numel():
-        _build.launch(name, "repro_vmm_bwd_fused", g.device, g3.data_ptr(),
-                      w.data_ptr(), _build.ptr(relu_mask),
-                      _build.ptr(out_relu_mask), out.data_ptr(), s, m, k, n,
-                      int(gate), int(out_gate), METHOD_CODES[method])
-    return out if seeded else out[0]
+    return bwd_fused("vmm_bwd_fused", "repro_vmm_bwd_fused", torch.float32,
+                     vmm_bwd_fused_plain, g, w, relu_mask=relu_mask,
+                     gate=gate, method=method, out_relu_mask=out_relu_mask,
+                     out_gate=out_gate)

@@ -18,9 +18,14 @@ Layouts are the JAX package's: NHWC activations, HWIO conv kernels,
 replay across the two packages.  Parameters are
 ``{"conv": [{"w", "b"}], "fc": [{"w", "b"}]}`` of f32 tensors.
 
-Only ``precision="f32"`` is ported (bf16 and fxp16 are ROADMAP A6).  The
-training branches of the JAX blocks (``custom_vjp`` dw/db) are not: the
-explain path needs no autograd.
+Precisions: ``"f32"`` and ``"fxp16"``, the paper's true 16-bit
+fixed-point datapath (§IV): params quantized to Q1.14 weights / Q7.8
+biases, Q7.8 int16 feature maps and gradients, int32 accumulation with one
+requantize per layer, through the int16 kernels (``kernels/*/fxp.py``) and
+the int16 instances of ReLU+mask and pool; it matches the JAX package bit
+for bit.  ``"bf16"`` is not ported (ROADMAP A6b).  The training branches of
+the JAX blocks (``custom_vjp`` dw/db) are not either: the explain path
+needs no autograd.
 """
 from __future__ import annotations
 
@@ -31,10 +36,14 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from repro_torch.core import fixedpoint
 from repro_torch.kernels.conv2d import ref as conv_ref
 from repro_torch.kernels.conv2d.conv2d import conv2d, conv2d_bwd_fused
+from repro_torch.kernels.conv2d.fxp import conv2d_bwd_fused_fxp, conv2d_fxp
+from repro_torch.kernels.pool.fxp import maxpool_fwd_fxp
 from repro_torch.kernels.pool.pool import maxpool_fwd
 from repro_torch.kernels.relu_mask.relu_mask import relu_fwd
+from repro_torch.kernels.vmm.fxp import vmm_bwd_fused_fxp, vmm_fxp
 from repro_torch.kernels.vmm.vmm import vmm, vmm_bwd_fused
 
 PRECISIONS = ("f32", "bf16", "fxp16")
@@ -76,16 +85,16 @@ class CNNConfig:
 def check_precision(precision: str) -> None:
     if precision not in PRECISIONS:
         raise ValueError(f"precision={precision!r} not in {PRECISIONS}")
-    if precision != "f32":
+    if precision == "bf16":
         raise NotImplementedError(
-            f"precision={precision!r} is not ported yet (ROADMAP A6); the "
-            f"port runs f32 only")
+            "precision='bf16' is not ported yet (ROADMAP A6b); the port runs "
+            "'f32' and 'fxp16'")
 
 
 def _check_cfg(cfg: CNNConfig) -> None:
     if cfg.dtype != "float32":
         raise NotImplementedError(
-            f"CNNConfig.dtype={cfg.dtype!r} is not ported yet (ROADMAP A6)")
+            f"CNNConfig.dtype={cfg.dtype!r} is not ported yet (ROADMAP A6b)")
 
 
 def init(generator: torch.Generator, cfg: CNNConfig,
@@ -133,10 +142,19 @@ def params_to(params, device) -> dict:
             for k in ("conv", "fc")}
 
 
+def prepare_params(params, precision: str) -> dict:
+    """The params the forward blocks read under ``precision``: the f32
+    tree as given, or under fxp16 its int16 quantization (Q1.14 weights,
+    Q7.8 biases, ``fixedpoint.quantize_params_int``)."""
+    if precision == "fxp16":
+        return fixedpoint.quantize_params_int(params)
+    return params
+
+
 def backward_weights(params) -> dict:
-    """The weights the backward blocks read, made once per model:
-    flip-transposed conv kernels ``[K, K, Cout, Cin]`` and contiguous
-    ``W^T [out, in]`` FC weights."""
+    """The weights the backward blocks read, made once per model from
+    :func:`prepare_params`: flip-transposed conv kernels ``[K, K, Cout,
+    Cin]`` and contiguous ``W^T [out, in]`` FC weights."""
     return {"conv": [conv_ref.flip_transpose(p["w"]) for p in params["conv"]],
             "fc": [p["w"].T.contiguous() for p in params["fc"]]}
 
@@ -155,6 +173,15 @@ def residuals_to(residuals, device) -> dict:
 # fused blocks
 # ---------------------------------------------------------------------------
 
+#: The kernels each precision's blocks run: f32, or the int16 kernels of
+#: the fxp16 datapath (ReLU+mask is one wrapper for both element types).
+_KERNELS = {
+    "f32": dict(conv=conv2d, pool=maxpool_fwd, fc=vmm,
+                conv_bwd=conv2d_bwd_fused, fc_bwd=vmm_bwd_fused),
+    "fxp16": dict(conv=conv2d_fxp, pool=maxpool_fwd_fxp, fc=vmm_fxp,
+                  conv_bwd=conv2d_bwd_fused_fxp, fc_bwd=vmm_bwd_fused_fxp),
+}
+
 
 def _relu_fwd_mask4(y):
     """relu(y) + NHWC-packed 1-bit mask [N, H, W, ceil(C/8)]."""
@@ -163,9 +190,9 @@ def _relu_fwd_mask4(y):
     return y2.reshape(y.shape), m2.reshape(n, h, w, -1)
 
 
-def _conv_block_fwd_res(x, w, b, method, do_relu, do_pool):
+def _conv_block_fwd_res(k, x, w, b, method, do_relu, do_pool):
     """conv (+bias) -> ReLU (+mask) -> pool (+argmax); residuals = packed."""
-    y = conv2d(x, w, b)
+    y = k["conv"](x, w, b)
     mask4 = idx = None
     if do_relu:
         if method == "deconvnet":          # Table II: no ReLU mask stored
@@ -173,18 +200,18 @@ def _conv_block_fwd_res(x, w, b, method, do_relu, do_pool):
         else:
             y, mask4 = _relu_fwd_mask4(y)
     if do_pool:
-        y, idx = maxpool_fwd(y)
+        y, idx = k["pool"](y)
     return y, mask4, idx
 
 
-def _conv_block_bwd_fused(wt, mask4, idx, g, method, do_relu):
+def _conv_block_bwd_fused(k, wt, mask4, idx, g, method, do_relu):
     """A conv layer's whole backward step, one launch for all seeds."""
-    return conv2d_bwd_fused(g, wt, pool_idx=idx, relu_mask=mask4,
-                            gate=do_relu, method=method)
+    return k["conv_bwd"](g, wt, pool_idx=idx, relu_mask=mask4, gate=do_relu,
+                         method=method)
 
 
-def _fc_block_fwd_res(x, w, b, method, do_relu):
-    y = vmm(x, w, b)
+def _fc_block_fwd_res(k, x, w, b, method, do_relu):
+    y = k["fc"](x, w, b)
     mask = None
     if do_relu:
         if method == "deconvnet":
@@ -194,8 +221,8 @@ def _fc_block_fwd_res(x, w, b, method, do_relu):
     return y, mask
 
 
-def _fc_block_bwd_fused(wt, mask, g, method, do_relu):
-    return vmm_bwd_fused(g, wt, relu_mask=mask, gate=do_relu, method=method)
+def _fc_block_bwd_fused(k, wt, mask, g, method, do_relu):
+    return k["fc_bwd"](g, wt, relu_mask=mask, gate=do_relu, method=method)
 
 
 # ---------------------------------------------------------------------------
@@ -204,28 +231,42 @@ def _fc_block_bwd_fused(wt, mask, g, method, do_relu):
 
 
 def forward_with_residuals(params, x, cfg: CNNConfig, method: str,
-                           precision: str = "f32"):
+                           precision: str = "f32", fwd_params=None):
     """Forward that RETURNS the packed residuals (masks + indices).
 
-    ``x`` [N, H, W, Cin] -> ``(logits [N, classes], residuals)``, with
-    ``residuals = {"conv": [(mask4 | None, idx | None)], "fc": [mask |
+    ``x`` [N, H, W, Cin] f32 -> ``(logits [N, classes] f32, residuals)``,
+    with ``residuals = {"conv": [(mask4 | None, idx | None)], "fc": [mask |
     None], "feat_shape": (h, w, c)}`` — per conv layer a 1-bit ReLU mask and
     2-bit pool indices, per hidden FC a 1-bit mask, no activations.
+
+    ``precision="fxp16"`` quantizes the params and the input (Q7.8) and runs
+    the int16 blocks: the masks are computed in the quantized domain, and
+    the logits come back dequantized (exact).  ``fwd_params`` is
+    :func:`prepare_params` of ``params``, made once by the caller; None
+    makes it here.
     """
     check_precision(precision)
     _check_cfg(cfg)
+    if fwd_params is None:
+        fwd_params = prepare_params(params, precision)
+    k = _KERNELS[precision]
+    if precision == "fxp16":
+        x = fixedpoint.to_fixed(x)
     res_conv, res_fc = [], []
-    for i, p in enumerate(params["conv"]):
+    for i, p in enumerate(fwd_params["conv"]):
         do_pool = (i + 1) % cfg.pool_every == 0
-        x, mask4, idx = _conv_block_fwd_res(x, p["w"], p["b"], method,
+        x, mask4, idx = _conv_block_fwd_res(k, x, p["w"], p["b"], method,
                                             cfg.conv_relu, do_pool)
         res_conv.append((mask4, idx))
     feat_shape = tuple(x.shape[1:])
     x = x.reshape(x.shape[0], -1)        # NHWC flatten, as FC0's rows expect
-    n_fc = len(params["fc"])
-    for i, p in enumerate(params["fc"]):
-        x, mask = _fc_block_fwd_res(x, p["w"], p["b"], method, i < n_fc - 1)
+    n_fc = len(fwd_params["fc"])
+    for i, p in enumerate(fwd_params["fc"]):
+        x, mask = _fc_block_fwd_res(k, x, p["w"], p["b"], method,
+                                    i < n_fc - 1)
         res_fc.append(mask)
+    if precision == "fxp16":
+        x = fixedpoint.from_fixed(x)
     return x, {"conv": res_conv, "fc": res_fc, "feat_shape": feat_shape}
 
 
@@ -234,32 +275,48 @@ def backward_seeds(params, residuals, seeds, cfg: CNNConfig, method: str,
     """Seed-batched BP: seeds [S, N, classes] -> relevance [S, N, H, W, Cin].
 
     One fused launch per layer for ALL S seeds, every stored mask and index
-    shared.  ``bwd_weights`` is :func:`backward_weights` of ``params``,
-    made once by the caller; None makes it here.
+    shared.  ``bwd_weights`` is :func:`backward_weights` of
+    :func:`prepare_params`, made once by the caller; None makes it here.
+
+    ``precision="fxp16"`` replays the whole BP in int16: the f32 seeds are
+    quantized to Q7.8 pre-scaled by ``fixedpoint.SEED_GAIN``, every layer
+    runs the int16 fused kernel, and the relevance is dequantized with the
+    gain divided back out exactly.
     """
     check_precision(precision)
     if bwd_weights is None:
-        bwd_weights = backward_weights(params)
+        bwd_weights = backward_weights(prepare_params(params, precision))
+    k = _KERNELS[precision]
     g = seeds
-    n_fc = len(params["fc"])
+    if precision == "fxp16":
+        g = fixedpoint.to_fixed(seeds * fixedpoint.SEED_GAIN)
+    n_fc = len(bwd_weights["fc"])
     for i in reversed(range(n_fc)):
-        g = _fc_block_bwd_fused(bwd_weights["fc"][i], residuals["fc"][i], g,
-                                method, i < n_fc - 1)
+        g = _fc_block_bwd_fused(k, bwd_weights["fc"][i], residuals["fc"][i],
+                                g, method, i < n_fc - 1)
     s, n = g.shape[:2]
     g = g.reshape((s, n) + tuple(residuals["feat_shape"]))
-    for i in reversed(range(len(params["conv"]))):
+    for i in reversed(range(len(bwd_weights["conv"]))):
         mask4, idx = residuals["conv"][i]
-        g = _conv_block_bwd_fused(bwd_weights["conv"][i], mask4, idx, g,
+        g = _conv_block_bwd_fused(k, bwd_weights["conv"][i], mask4, idx, g,
                                   method, cfg.conv_relu)
+    if precision == "fxp16":
+        g = fixedpoint.from_fixed(g) / fixedpoint.SEED_GAIN
     return g
 
 
 def apply(params, x, cfg: CNNConfig, *, method: str = "saliency",
-          precision: str = "f32"):
+          precision: str = "f32", fwd_params=None):
     """Logits only: ``x [N, H, W, Cin] -> [N, classes]``.
 
     The same fused forward blocks as :func:`forward_with_residuals` (same
-    kernels, so the same logits bit for bit), residuals dropped.
+    kernels, so the same logits bit for bit), residuals dropped.  Under
+    fxp16 it runs the deconvnet rule set, which stores no masks (Table II):
+    the ReLU output is rule-invariant, so the logits are those of every
+    method, as in the JAX package.
     """
-    logits, _ = forward_with_residuals(params, x, cfg, method, precision)
+    if precision == "fxp16":
+        method = "deconvnet"
+    logits, _ = forward_with_residuals(params, x, cfg, method, precision,
+                                       fwd_params)
     return logits

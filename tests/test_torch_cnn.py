@@ -246,8 +246,16 @@ def test_init_and_config_shapes():
 
 @pytest.mark.parametrize("precision", ["bf16", "fxp16"])
 def test_other_precisions_are_not_ported_yet(precision):
+    """bf16 is not ported (ROADMAP A6b), as a precision or as the config's
+    dtype; fxp16 runs (``tests/test_torch_cnn_fxp.py``), but not on a
+    bfloat16 config either."""
     cfg = cnn.CNNConfig(**SIZES["tiny"])
     p = cnn.init(torch.Generator().manual_seed(0), cfg)
-    with pytest.raises(NotImplementedError, match="A6"):
-        cnn.forward_with_residuals(p, torch.zeros(1, 8, 8, 3), cfg,
+    bf16_cfg = cnn.CNNConfig(**SIZES["tiny"], dtype="bfloat16")
+    with pytest.raises(NotImplementedError, match="A6b"):
+        cnn.forward_with_residuals(p, torch.zeros(1, 8, 8, 3), bf16_cfg,
                                    "saliency", precision=precision)
+    if precision == "bf16":
+        with pytest.raises(NotImplementedError, match="A6b"):
+            cnn.forward_with_residuals(p, torch.zeros(1, 8, 8, 3), cfg,
+                                       "saliency", precision=precision)

@@ -4,8 +4,10 @@
 cover what the main path does not reach: ragged channel counts and spatial
 sizes, K = 5, several Cin chunks and Cout tiles, a fused backward whose
 prologue needs more than 48 KB of shared memory, misaligned pointers, and
-one launch per wrapper call.  Every test needs a CUDA device and skips
-without one.  This file imports neither JAX nor the JAX package, so on a
+one launch per wrapper call — for the f32 kernels and for the int16 ones of
+the fxp16 path, which must equal their plain versions bit for bit (also
+where the int32 accumulator wraps).  Every test needs a CUDA device and
+skips without one.  This file imports neither JAX nor the JAX package, so on a
 machine without JAX run it without the suite's conftest:
 
     PYTHONPATH=src python -m pytest --noconftest tests/test_torch_cuda.py
@@ -13,16 +15,22 @@ machine without JAX run it without the suite's conftest:
 import pytest
 import torch
 
-from repro_torch.core import masks
+from repro_torch.core import fixedpoint, masks
 from repro_torch.kernels import LAUNCHES
 from repro_torch.kernels.conv2d import ref as conv_ref
 from repro_torch.kernels.conv2d.conv2d import (conv2d, conv2d_bwd_fused,
                                                conv2d_bwd_fused_plain)
+from repro_torch.kernels.conv2d.fxp import (conv2d_bwd_fused_fxp,
+                                            conv2d_bwd_fused_fxp_plain,
+                                            conv2d_fxp)
 from repro_torch.kernels.pool import ref as pool_ref
+from repro_torch.kernels.pool.fxp import maxpool_fwd_fxp
 from repro_torch.kernels.pool.pool import maxpool_fwd
 from repro_torch.kernels.relu_mask import ref as relu_ref
 from repro_torch.kernels.relu_mask.relu_mask import relu_fwd
 from repro_torch.kernels.vmm import ref as vmm_ref
+from repro_torch.kernels.vmm.fxp import (vmm_bwd_fused_fxp,
+                                         vmm_bwd_fused_fxp_plain, vmm_fxp)
 from repro_torch.kernels.vmm.vmm import (vmm, vmm_bwd_fused,
                                          vmm_bwd_fused_plain)
 
@@ -171,3 +179,157 @@ def test_engine_on_card_matches_cpu_twin(gen):
         torch.cuda.synchronize()
         err = (again.cpu() - rel_c).abs().max().item()
         assert err <= 1e-4 * rel_c.abs().max().item()
+
+
+# -- the int16 kernels of the fxp16 path: bitwise against the plain versions
+
+
+def _q(gen, *shape, scale=1.0, frac=fixedpoint.ACT_FRAC):
+    return fixedpoint.to_fixed(_randn(gen, *shape, scale=scale), frac)
+
+
+def _qw(gen, *shape, scale=0.2):
+    return _q(gen, *shape, scale=scale, frac=fixedpoint.WGT_FRAC)
+
+
+def _rails(gen, *shape):
+    sign = torch.randint(0, 2, shape, generator=gen, device="cuda") * 2 - 1
+    return (sign * fixedpoint.INT16_LIM).to(torch.int16)
+
+
+def _same(got, want):
+    torch.cuda.synchronize()
+    assert got.dtype == want.dtype == torch.int16
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("r,c", [(5, 3), (16, 13), (3, 128), (7, 1000)])
+def test_relu_fwd_int16_bitwise(gen, r, c):
+    x = _q(gen, r, c, scale=0.02)
+    x[0, : c // 2] = 0
+    y, m = _launched("relu_fwd", lambda: relu_fwd(x))
+    yr, mr = relu_ref.relu_fwd(x)
+    _same(y, yr)
+    assert torch.equal(m, mr)
+
+
+def test_relu_fwd_int16_misaligned_pointer(gen):
+    flat = _q(gen, 8 * 16 + 1)
+    x = flat[1:].view(8, 16)          # 2-byte offset: no 16-byte loads
+    y, m = relu_fwd(x)
+    yr, mr = relu_ref.relu_fwd(x)
+    _same(y, yr)
+    assert torch.equal(m, mr)
+
+
+@pytest.mark.parametrize("n,h,w,c", [(2, 4, 4, 3), (1, 8, 6, 13),
+                                     (3, 6, 10, 64)])
+def test_maxpool_fwd_int16_bitwise(gen, n, h, w, c):
+    x = torch.clamp_min(_q(gen, n, h, w, c, scale=0.01), 0)  # many ties
+    x[:, :2, :2] = 0
+    y, i = _launched("maxpool_fwd", lambda: maxpool_fwd_fxp(x))
+    yr, ir = pool_ref.maxpool_fwd(x)
+    _same(y, yr)
+    assert torch.equal(i, ir)
+
+
+@pytest.mark.parametrize("n,h,w,cin,cout,k", [
+    (2, 6, 10, 5, 3, 3),              # ragged spatial and channels
+    (1, 8, 8, 16, 8, 5),              # K = 5
+    (2, 9, 7, 100, 40, 3),            # several Cin chunks, two Cout tiles
+    (1, 1, 1, 3, 2, 3),               # all padding
+])
+def test_conv2d_fxp_bitwise(gen, n, h, w, cin, cout, k):
+    x = _q(gen, n, h, w, cin)
+    wt = _qw(gen, k, k, cin, cout)
+    b = _q(gen, cout, scale=4.0)
+    got = _launched("conv2d_fxp_fwd", lambda: conv2d_fxp(x, wt, b))
+    _same(got, fixedpoint.sat_add(conv_ref.conv2d_fxp(x, wt), b))
+    _same(conv2d_fxp(x, wt), conv_ref.conv2d_fxp(x, wt))
+
+
+def test_conv2d_fxp_accumulator_wraps(gen):
+    x, wt = _rails(gen, 2, 5, 6, 200), _rails(gen, 3, 3, 200, 40)
+    x[0] = fixedpoint.INT16_LIM
+    wt[..., 0] = fixedpoint.INT16_LIM  # channel 0 of image 0: 1800 * 2^30
+    _same(conv2d_fxp(x, wt), conv_ref.conv2d_fxp(x, wt))
+
+
+@pytest.mark.parametrize("case", BWD_CASES)
+@pytest.mark.parametrize("method", METHODS)
+def test_conv2d_bwd_fused_fxp_bitwise(gen, case, method):
+    n, h, w, c, cout, pooled, s, epilogue = case
+    y = _q(gen, n, h, w, c)
+    mask = None if method == "deconvnet" else masks.pack_mask(y > 0)
+    idx = (pool_ref.maxpool_fwd(torch.clamp_min(y, 0))[1] if pooled
+           else None)
+    hg, wg = (h // 2, w // 2) if pooled else (h, w)
+    g = _q(gen, s, n, hg, wg, c, scale=2.0)
+    wt = _qw(gen, 3, 3, c, cout, scale=0.1)
+    omask = None
+    if epilogue and method != "deconvnet":
+        omask = masks.pack_mask(_randn(gen, n, h, w, cout) > 0)
+    kw = dict(pool_idx=idx, relu_mask=mask, gate=True, method=method,
+              out_relu_mask=omask, out_gate=epilogue)
+    got = _launched("conv2d_bwd_fused_fxp",
+                    lambda: conv2d_bwd_fused_fxp(g, wt, **kw))
+    _same(got, conv2d_bwd_fused_fxp_plain(g, wt, **kw))
+
+
+@pytest.mark.parametrize("m,k,n", [(5, 37, 13), (1, 4096, 128),
+                                   (33, 128, 10)])
+def test_vmm_fxp_bitwise(gen, m, k, n):
+    x = _q(gen, m, k)
+    w = _qw(gen, k, n, scale=k ** -0.5)
+    b = _q(gen, n, scale=4.0)
+    got = _launched("vmm_fxp_fwd", lambda: vmm_fxp(x, w, b))
+    _same(got, fixedpoint.sat_add(vmm_ref.vmm_fxp(x, w), b))
+    _same(vmm_fxp(x, w), vmm_ref.vmm_fxp(x, w))
+
+
+def test_vmm_fxp_accumulator_wraps(gen):
+    x, w = _rails(gen, 3, 4096), _rails(gen, 4096, 20)
+    x[0] = fixedpoint.INT16_LIM
+    w[:, 0] = fixedpoint.INT16_LIM     # row 0, col 0: 4096 * 2^30
+    _same(vmm_fxp(x, w), vmm_ref.vmm_fxp(x, w))
+
+
+@pytest.mark.parametrize("method", METHODS)
+@pytest.mark.parametrize("s,m,k,n,epilogue", [(1, 4, 13, 21, True),
+                                              (3, 33, 128, 300, False)])
+def test_vmm_bwd_fused_fxp_bitwise(gen, method, s, m, k, n, epilogue):
+    g = _q(gen, s, m, k, scale=3.0)
+    w = _qw(gen, k, n, scale=k ** -0.5)
+    mask = (None if method == "deconvnet"
+            else masks.pack_mask(_randn(gen, m, k) > 0))
+    omask = (masks.pack_mask(_randn(gen, m, n) > 0)
+             if epilogue and method != "deconvnet" else None)
+    kw = dict(relu_mask=mask, gate=True, method=method, out_relu_mask=omask,
+              out_gate=epilogue)
+    got = _launched("vmm_bwd_fused_fxp",
+                    lambda: vmm_bwd_fused_fxp(g, w, **kw))
+    _same(got, vmm_bwd_fused_fxp_plain(g, w, **kw))
+
+
+def test_fxp16_engine_on_card_matches_cpu_twin_bitwise(gen):
+    from repro_torch.engine import CNNModel, EngineSpec, TopK, build
+    from repro_torch.models import cnn
+    cfg = cnn.CNNConfig(in_hw=(8, 8), channels=(4, 4), fc=(16,),
+                        num_classes=4)
+    params = cnn.init(torch.Generator().manual_seed(0), cfg)
+    x = torch.randn((3, 8, 8, 3), generator=torch.Generator().manual_seed(1))
+    for method in METHODS:
+        spec = dict(method=method, precision="fxp16", targets=TopK(2))
+        card = build(EngineSpec(CNNModel(params, cfg), **spec))
+        cpu = build(EngineSpec(CNNModel(params, cfg, device="cpu"), **spec))
+        logits, rel, res = card.predict_then_explain(x)
+        logits_c, rel_c, res_c = cpu.predict_then_explain(x)
+        torch.cuda.synchronize()
+        assert torch.equal(logits.cpu(), logits_c)
+        assert torch.equal(rel.cpu(), rel_c)
+        for a, b in zip(res["fc"], res_c["fc"]):
+            assert (a is None and b is None) or torch.equal(a.cpu(), b)
+        again = card.replay(cnn.residuals_to(res_c, "cuda"),
+                            cpu._seeds(logits_c, None, 2)[0])
+        torch.cuda.synchronize()
+        assert torch.equal(again.cpu(), rel_c)

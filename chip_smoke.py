@@ -3,7 +3,8 @@
 card: build every kernel, hold each against its plain PyTorch version at
 the shapes the Table III CNN gives it, then explain full-width batches
 through the engine, in f32 and in the paper's true-int16 fixed point
-(fxp16), and check them against the CPU.
+(fxp16), then through autograd (the vjp backend) and train a few steps,
+and check them against the CPU.
 
     python3 chip_smoke.py                  # one card; exits 0 when all pass
     python3 chip_smoke.py --out DIR        # also writes DIR/chip_smoke.json
@@ -16,8 +17,9 @@ Phases (every failed check raises; nothing is caught and carried on):
    kernels B1-B6 (bitwise for ReLU+mask and pool+argmax, within
    1e-5 * max|ref| for the dots), then the fxp16 kernels B7-B10 and the
    int16 instances of B2/B3, all bitwise, plus accumulators that wrap at
-   ±32767 operands; median kernel, plain and one-library-call times (CUDA
-   events);
+   ±32767 operands; then the gate (B11, three methods) and unpool (B12,
+   f32 and int16) kernels of the autograd paths, bitwise; median kernel,
+   plain and one-library-call times (CUDA events);
 3. engine, full width: saliency / deconvnet / guided explains of a
    [32, 32, 32, 3] batch with top-3 seeds on the card against a CPU twin
    engine on the same parameters (logits, residual bits, cross-replay), and
@@ -25,12 +27,33 @@ Phases (every failed check raises; nothing is caught and carried on):
    these must be equal bit for bit;
 4. requests: predict / explain / top-k explain / predict-then-explain +
    replay, where the replay of a target must equal its cold explain bit
-   for bit.
+   for bit;
+5. vjp: top-3 explains of the same batch through ``backward="vjp"``, (a)
+   on the fused blocks (``CNNModel``) and (b) on the standalone kernel ops
+   (``FnModel`` over ``cnn.apply(..., use_pallas=True, fused=False)``, B11
+   and B12 in the backward), against the seed-batched card engine and a
+   CPU twin: logits within 1e-5 * max|ref|, relevance within 1e-4 * max|rel|
+   of the seed-batched engine's, of the CPU twin's on the examples whose
+   stored bits the two devices agree on (a pre-activation within float
+   noise of 0 or of its window's maximum can flip a bit, which changes
+   that example's map), and of the CPU's replay of the card's stored bits
+   on every example; the launches of each branch per explain;
+6. train: three AdamW steps of ``cnn.apply(p, x, cfg, use_pallas=True)``
+   (autodiff, cross-entropy, batch 32), each step's parameter gradients
+   within 1e-4 * max|g| of a CPU twin's on the same parameters (over the
+   examples whose ReLU signs and pool argmax the two devices agree on).
 
-Phases 3-4 run once per path, f32 then fxp16.  Launch counters are set to
-0 just before each path and read just after; the kernel-vs-plain launches
-of phase 2 are not counted.  The last two lines are the per-kernel JSON
-and the device JSON.
+Last, one saliency explain of each path and one training step run under
+``torch.profiler``: kernel time by kernel against the device time measured
+before (the device's idle share).  This comes after every timing, since a
+profiler session slows what runs after it.
+
+Phases 3-4 run once per path, f32 then fxp16; phases 5 (per branch) and 6
+are paths of their own.  Launch counters are set to 0 just before each path
+(in phases 5-6: before each checked explain or training step) and read just
+after; the kernel-vs-plain launches of phase 2, and the launches of the
+comparisons of phases 5-6, are not counted.  The last two lines are the
+per-kernel JSON and the device JSON.
 """
 from __future__ import annotations
 
@@ -87,10 +110,15 @@ KERNELS = {   # counter -> (C source, replaced TPU kernel def)
                     "src/repro/kernels/vmm/fxp.py:46"),
     "vmm_bwd_fused_fxp": ("src/repro_torch/csrc/vmm_fxp.cu",
                           "src/repro/kernels/vmm/fxp.py:116"),
+    "relu_bwd": ("src/repro_torch/csrc/relu_mask.cu",
+                 "src/repro/kernels/relu_mask/relu_mask.py:108"),
+    "unpool_bwd": ("src/repro_torch/csrc/pool.cu",
+                   "src/repro/kernels/pool/pool.py:97"),
 }
-#: The int16 instances of B2/B3 (fxp16 path): timed and checked on their
-#: own, launched under the ``relu_fwd`` / ``maxpool_fwd`` counters.
-INT16_INSTANCES = ("relu_fwd_i16", "maxpool_fwd_i16")
+#: The int16 instances of B2/B3 (fxp16 path) and of B12: timed and checked
+#: on their own, launched under the ``relu_fwd`` / ``maxpool_fwd`` /
+#: ``unpool_bwd`` counters.
+INT16_INSTANCES = ("relu_fwd_i16", "maxpool_fwd_i16", "unpool_bwd_i16")
 
 
 def fail(msg: str):
@@ -102,24 +130,56 @@ def bound_ms(nbytes: float, ops: float, rate: float) -> float:
     return 1e3 * max(nbytes / HBM_BYTES_PER_S, ops / rate)
 
 
-def device_time_ms(fn, reps: int = REPS) -> float:
+def device_time_ms(fn, reps: int = REPS, cover_ms: float = 50.0) -> float:
     """Median device time of ``fn()`` over ``reps`` back-to-back runs.
 
-    A sleep kernel is queued first so the host enqueues every run before
-    the card reaches them: the events then time the kernels, not Python.
-    Inputs are warm in L2 (all fit in its 50 MB), as on the main path.
+    A sleep kernel of about ``cover_ms`` is queued first so the host
+    enqueues every run before the card reaches them: the events then time
+    the kernels, not Python.  Inputs are warm in L2 (all fit in its 50 MB),
+    as on the main path.
     """
     fn()
     torch.cuda.synchronize()
     ev = [(torch.cuda.Event(enable_timing=True),
            torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
-    torch.cuda._sleep(100_000_000)
+    torch.cuda._sleep(int(2e6 * cover_ms))       # cycles, ~2 GHz SM clock
     for a, b in ev:
         a.record()
         fn()
         b.record()
     torch.cuda.synchronize()
     return statistics.median(a.elapsed_time(b) for a, b in ev)
+
+
+def profile_breakdown(fn, what: str, wall: float, reps: int = 5):
+    """Device time of ``fn()`` by kernel under ``torch.profiler`` (CUPTI):
+    the kernels' summed time per call against ``wall``, the CUDA-event
+    device time per call measured before any profiler ran (a profiler
+    session slows what runs after it); the gap is the device's idle share
+    between kernels.  Returns None, and says so, where the profiler
+    records no kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_name[e.name] = (by_name.get(e.name, 0.0)
+                               + e.time_range.elapsed_us() / 1e3 / reps)
+    if not by_name:
+        print(f"  profile {what}: the profiler recorded no kernel; device "
+              f"busy share not measured")
+        return None
+    busy = sum(by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    print(f"  profile {what}: kernels {busy:.4f} ms of {wall:.4f} ms device "
+          f"per call (idle {100 * max(0.0, 1 - busy / wall):.1f} %); "
+          + "; ".join(f"{n[:48]} {t:.4f}" for n, t in top))
+    return dict(kernels_ms=busy, device_ms=wall, by_kernel=by_name)
 
 
 # ---------------------------------------------------------------------------
@@ -544,6 +604,67 @@ def check_kernels_fxp(kc: KernelCheck):
               g.numel() * 4096, rate=rate)
 
 
+def check_kernels_autograd(kc: KernelCheck):
+    """B11 (three methods) and B12 (f32 and int16) at the shapes of the
+    unfused backward, bitwise: they select and route, so any difference is
+    a fault.  No PyTorch call computes either; ``F.max_unpool2d`` on the
+    same routing (NCHW, int64 flat indices) is timed as a reference point."""
+    from repro_torch.core import fixedpoint, masks
+    from repro_torch.kernels.pool import ref as pool_ref
+    from repro_torch.kernels.pool.fxp import unpool_bwd_fxp
+    from repro_torch.kernels.pool.pool import maxpool_fwd, unpool_bwd
+    from repro_torch.kernels.relu_mask import ref as relu_ref
+    from repro_torch.kernels.relu_mask.relu_mask import relu_bwd, relu_fwd
+    from repro_torch.kernels.tiling import mask_bytes
+
+    gen = torch.Generator(device="cuda").manual_seed(2468)
+    n = BATCH
+    # B11: the five rectifiers of one unfused backward pass
+    for method in METHODS:
+        for r, c in ((n * 32 * 32, 32), (n * 32 * 32, 32), (n * 16 * 16, 64),
+                     (n * 16 * 16, 64), (n, 128)):
+            _, m = relu_fwd(randn(gen, r, c))
+            m = None if method == "deconvnet" else m     # reads no mask
+            g = randn(gen, r, c, scale=1e-2)
+            g[0] = 0.0                    # exact zeros: g > 0 is strict
+            nbytes = 4 * 2 * r * c + (0 if m is None else r * mask_bytes(c))
+            kc.record("relu_bwd", f"{method} [{r},{c}]", method == "saliency",
+                      relu_bwd(m, g, method), relu_ref.relu_bwd(m, g, method),
+                      True, lambda: relu_bwd(m, g, method),
+                      lambda: relu_ref.relu_bwd(m, g, method), nbytes, r * c)
+
+    # B12: the two pools' unpool, on post-ReLU maps (tied zero windows)
+    for h, c in ((32, 32), (16, 64)):
+        hp = h // 2
+        _, idx = maxpool_fwd(torch.clamp_min(randn(gen, n, h, h, c) - 0.5, 0))
+        k = masks.unpack_crumbs(idx, c).permute(0, 3, 1, 2).to(torch.int64)
+        ii = torch.arange(hp, device="cuda")
+        flat = (2 * ii[:, None] + k // 2) * h + 2 * ii[None, :] + k % 2
+        for dtype in (torch.float32, torch.int16):
+            g = randn(gen, n, hp, hp, c, scale=1e-2)
+            name, fn, size = "unpool_bwd", unpool_bwd, 4
+            lib = None
+            if dtype == torch.int16:
+                g = fixedpoint.to_fixed(g * 100)
+                name, fn, size = "unpool_bwd_i16", unpool_bwd_fxp, 2
+            else:
+                gn = g.permute(0, 3, 1, 2).contiguous()
+                out = F.max_unpool2d(gn, flat, 2, output_size=(h, h))
+                if not torch.equal(out.permute(0, 2, 3, 1),
+                                   pool_ref.unpool_bwd(idx, g)):
+                    fail("F.max_unpool2d on the crumbs' routing differs from "
+                         "the plain unpool")
+
+                def lib(gn=gn):
+                    return F.max_unpool2d(gn, flat, 2, output_size=(h, h))
+            nbytes = size * 5 * g.numel() + idx.numel()
+            kc.record(name, f"[{n},{hp},{hp},{c}]->[{n},{h},{h},{c}]"
+                      + (" int16" if dtype == torch.int16 else ""), True,
+                      fn(idx, g), pool_ref.unpool_bwd(idx, g), True,
+                      lambda: fn(idx, g), lambda: pool_ref.unpool_bwd(idx, g),
+                      nbytes, 4 * g.numel(), f32_reference_fn=lib)
+
+
 # ---------------------------------------------------------------------------
 # phases 3-4: the engine, end to end
 # ---------------------------------------------------------------------------
@@ -576,7 +697,7 @@ def _residual_bit_flips(res_a, res_b):
     return flips, total
 
 
-def check_engine(params, cfg, x_cpu, precision):
+def check_engine(params, cfg, x_cpu, precision, to_profile):
     """Phase 3 for one path.  f32 within the stated tolerances; fxp16 is
     integer arithmetic, so logits, every residual bit, the relevance and
     both cross-replays must equal the CPU twin's bit for bit."""
@@ -638,6 +759,9 @@ def check_engine(params, cfg, x_cpu, precision):
             times.append(1e3 * (time.perf_counter() - t0))
         ms = statistics.median(times[2:])
         dev_ms = device_time_ms(lambda: eng.explain(x), reps=10)
+        if method == "saliency":
+            to_profile.append((f"{precision} {method} explain",
+                               lambda eng=eng: eng.explain(x), dev_ms))
         results[method] = dict(logits_err=err, bit_flips=flips, bits=bits,
                                cross_replay_err=rerr,
                                card_vs_cpu_rel_err=direct, rel_max=rref,
@@ -695,11 +819,244 @@ def serve_requests(params, cfg, x_cpu, precision):
 
 
 # ---------------------------------------------------------------------------
+# phases 5-6: the autograd paths
+# ---------------------------------------------------------------------------
+
+#: kernel launches per vjp explain with SEEDS seeds (one forward, then one
+#: backward pass per seed), per branch; every other counter stays at 0
+PER_EXPLAIN_VJP = {
+    # (a) fused blocks: B5/B6 at S = 1 for dx, no weight gradient asked for
+    "vjp_fused": {"conv2d_fwd": 4, "relu_fwd": 5, "maxpool_fwd": 2,
+                  "vmm_fwd": 2, "conv2d_bwd_fused": 4 * SEEDS,
+                  "vmm_bwd_fused": 2 * SEEDS},
+    # (b) standalone ops: B1/B4 reused for dx (Table I), B11 at the five
+    # rectifiers, B12 at the two pools
+    "vjp_unfused": {"conv2d_fwd": 4 + 4 * SEEDS, "relu_fwd": 5,
+                    "maxpool_fwd": 2, "vmm_fwd": 2 + 2 * SEEDS,
+                    "relu_bwd": 5 * SEEDS, "unpool_bwd": 2 * SEEDS},
+}
+#: kernel launches per training step (autodiff: the ReLU is torch.maximum,
+#: no mask; dx of conv layers 1-3 and both FC layers on B1/B4)
+PER_TRAIN_STEP = {"conv2d_fwd": 4 + 3, "maxpool_fwd": 2, "vmm_fwd": 2 + 2,
+                  "unpool_bwd": 2}
+TRAIN_STEPS, TRAIN_LR = 3, 1e-3
+
+
+def _count(fn, totals):
+    """Run ``fn`` with the counters set to 0; add what it launched to
+    ``totals`` and return ``(result, launches)``."""
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    reset_launches()
+    out = fn()
+    torch.cuda.synchronize()
+    rose = dict(LAUNCHES)
+    for k, v in rose.items():
+        totals[k] = totals.get(k, 0) + v
+    return out, rose
+
+
+def _expect(rose, want, what):
+    from repro_torch.kernels import LAUNCHES
+    full = {k: 0 for k in LAUNCHES}
+    full.update(want)
+    if rose != full:
+        fail(f"{what}: launches {rose}, want {full}")
+
+
+def _flipped_examples(res_a, res_b):
+    """Indices of the examples whose stored residual bits differ."""
+    tensors = [t for pair in zip(res_a["conv"], res_b["conv"])
+               for t in zip(*pair)] + list(zip(res_a["fc"], res_b["fc"]))
+    bad = torch.zeros(BATCH, dtype=torch.bool)
+    for a, b in tensors:
+        if a is not None:
+            diff = torch.bitwise_xor(a.cpu(), b.cpu()) != 0
+            bad |= diff.reshape(diff.shape[0], -1).any(dim=1)
+    return bad
+
+
+def _host_device_ms(fn):
+    times = []
+    for _ in range(12):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    host = statistics.median(times[2:])
+    # autograd's host work can outlast the default sleep: cover it
+    return host, device_time_ms(fn, reps=10, cover_ms=max(50.0, 30 * host))
+
+
+def check_vjp(params, cfg, x_cpu, launches, to_profile):
+    """Phase 5: the vjp backend on both kernel branches, per method."""
+    from repro_torch.engine import CNNModel, EngineSpec, FnModel, TopK, build
+    from repro_torch.models import cnn
+
+    def unfused(p):
+        return lambda m: (lambda v: cnn.apply(p, v, cfg, method=m,
+                                              use_pallas=True, fused=False))
+
+    make_card, make_cpu = unfused(cnn.params_to(params, "cuda")), \
+        unfused(params)
+    x = x_cpu.cuda()
+    results = {}
+    for method in METHODS:
+        spec = dict(method=method, targets=TopK(SEEDS))
+        pair = build(EngineSpec(CNNModel(params, cfg, device="cuda"), **spec))
+        logits_sb, rel_sb, res = pair.predict_then_explain(x)
+        twin = build(EngineSpec(CNNModel(params, cfg, device="cpu"), **spec))
+        _, _, res_c = twin.predict_then_explain(x_cpu)
+        # the CPU's backward on the card's stored bits, for every example
+        rel_x = twin.replay(cnn.residuals_to(res, "cpu"),
+                            pair._seeds(logits_sb, None, SEEDS)[0].cpu())
+        bad = _flipped_examples(res, res_c)
+        keep = ~bad
+        spec["backward"] = "vjp"
+        for branch, card, cpu in (
+                ("vjp_fused", CNNModel(params, cfg, device="cuda"),
+                 CNNModel(params, cfg, device="cpu")),
+                ("vjp_unfused", FnModel(make_card, device="cuda"),
+                 FnModel(make_cpu, device="cpu"))):
+            eng = build(EngineSpec(card, **spec))
+            (logits, rel), rose = _count(lambda: eng.explain(x),
+                                         launches.setdefault(branch, {}))
+            want = dict(PER_EXPLAIN_VJP[branch])
+            if branch == "vjp_fused" and method == "deconvnet":
+                want["relu_fwd"] = 0          # Table II: no mask stored
+            _expect(rose, want, f"{branch} {method} explain")
+            if tuple(rel.shape) != (SEEDS, BATCH, 32, 32, 3) or not bool(
+                    torch.isfinite(rel).all()):
+                fail(f"{branch} {method}: relevance {tuple(rel.shape)} not "
+                     f"finite/shaped")
+            err_sb = (logits - logits_sb).abs().max().item()
+            rerr_sb = (rel - rel_sb).abs().max().item()
+            if not (err_sb <= DOT_TOL * logits_sb.abs().max().item()
+                    and rerr_sb <= REPLAY_TOL * rel_sb.abs().max().item()):
+                fail(f"{branch} {method}: vs the seed-batched engine logits "
+                     f"{err_sb:.3e}, relevance {rerr_sb:.3e}")
+            logits_c, rel_c = build(EngineSpec(cpu, **spec)).explain(x_cpu)
+            err = (logits.cpu() - logits_c).abs().max().item()
+            if not err <= DOT_TOL * logits_c.abs().max().item():
+                fail(f"{branch} {method}: logits card vs CPU {err:.3e}")
+            rref = rel_c.abs().max().item()
+            rerr = (rel.cpu() - rel_c)[:, keep].abs().max().item()
+            if not rerr <= REPLAY_TOL * rref:
+                fail(f"{branch} {method}: relevance card vs CPU {rerr:.3e} "
+                     f"(max|rel| {rref:.3e})")
+            rerr_all = (rel.cpu() - rel_c).abs().max().item()
+            xerr = (rel.cpu() - rel_x).abs().max().item()
+            if not xerr <= REPLAY_TOL * rel_x.abs().max().item():
+                fail(f"{branch} {method}: relevance vs the CPU replay of the "
+                     f"card's residuals {xerr:.3e}")
+            ms, dev_ms = _host_device_ms(lambda: eng.explain(x))
+            if method == "saliency":
+                to_profile.append((f"{branch} {method} explain",
+                                   lambda eng=eng: eng.explain(x), dev_ms))
+            results[f"{branch} {method}"] = dict(
+                logits_err=err, rel_err=rerr, rel_err_all=rerr_all,
+                rel_err_cpu_replay=xerr, rel_max=rref,
+                flipped_examples=int(bad.sum()),
+                vs_seed_batched=(err_sb, rerr_sb), explain_ms_host=ms,
+                explain_ms_device=dev_ms, launches_per_explain=rose)
+            print(f"  {branch:11s} {method:9s} logits err {err:.2e}  rel err "
+                  f"{rerr:.2e} on {int(keep.sum())} examples ({rerr_all:.2e} "
+                  f"on all {BATCH}; max|rel| {rref:.2e}), {xerr:.2e} vs the "
+                  f"CPU replay of the card's bits  vs seed-batched "
+                  f"{err_sb:.2e}/{rerr_sb:.2e}  explain {ms:.3f} ms host, "
+                  f"{dev_ms:.3f} ms device")
+    return results
+
+
+def check_train(params, cfg, x_cpu, launches, to_profile):
+    """Phase 6: AdamW steps of the autodiff loss on the kernel path."""
+    from repro_torch import optim
+    from repro_torch.models import cnn
+
+    y_cpu = torch.randint(0, cfg.num_classes, (BATCH,),
+                          generator=torch.Generator().manual_seed(2))
+
+    def loss_and_grads(p, x, y):
+        p = {k: [{n: t.detach().requires_grad_() for n, t in q.items()}
+                 for q in v] for k, v in p.items()}
+        leaves = [q[n] for k in ("conv", "fc") for q in p[k]
+                  for n in ("w", "b")]
+        loss = F.cross_entropy(cnn.apply(p, x, cfg, use_pallas=True), y)
+        return loss.detach(), torch.autograd.grad(loss, leaves)
+
+    def tree(flat):
+        it = iter(flat)
+        return {k: [{n: next(it) for n in ("w", "b")} for _ in params[k]]
+                for k in ("conv", "fc")}
+
+    p = cnn.params_to(params, "cuda")
+    state = optim.adamw_init(p)
+    x, y = x_cpu.cuda(), y_cpu.cuda()
+    losses, errs = [], []
+    for step in range(TRAIN_STEPS):
+        (loss, grads), rose = _count(lambda: loss_and_grads(p, x, y),
+                                     launches.setdefault("train", {}))
+        _expect(rose, PER_TRAIN_STEP, f"train step {step}")
+        p_cpu = cnn.params_to(p, "cpu")
+        _, res = cnn.forward_with_residuals(p, x, cfg, "saliency")
+        _, res_c = cnn.forward_with_residuals(p_cpu, x_cpu, cfg, "saliency")
+        keep = ~_flipped_examples(res, res_c)
+        g_card, g_cpu = grads, loss_and_grads(p_cpu, x_cpu, y_cpu)[1]
+        if not bool(keep.all()):      # compare on the agreeing examples
+            g_card = loss_and_grads(p, x[keep.cuda()], y[keep.cuda()])[1]
+            g_cpu = loss_and_grads(p_cpu, x_cpu[keep], y_cpu[keep])[1]
+        worst = 0.0
+        for i, (g, g_c) in enumerate(zip(g_card, g_cpu)):
+            if not bool(torch.isfinite(g).all()):
+                fail(f"train step {step}: gradient {i} not finite")
+            e = (g.cpu() - g_c).abs().max().item()
+            ref = g_c.abs().max().item()
+            if not e <= REPLAY_TOL * ref:
+                fail(f"train step {step}: gradient {i} card vs CPU {e:.3e} "
+                     f"(max|g| {ref:.3e})")
+            worst = max(worst, e / ref)
+        losses.append(loss.item())
+        errs.append(worst)
+        print(f"  train step {step}: loss {loss.item():.6f}  grads card vs "
+              f"CPU max rel err {worst:.2e} on {int(keep.sum())} of {BATCH} "
+              f"examples")
+        p, state = optim.adamw_update(tree(grads), state, p, lr=TRAIN_LR)
+
+    def step_fn():
+        optim.adamw_update(tree(loss_and_grads(p, x, y)[1]), state, p,
+                           lr=TRAIN_LR)
+
+    ms, dev_ms = _host_device_ms(step_fn)
+    print(f"  train step {ms:.3f} ms host, {dev_ms:.3f} ms device "
+          f"(batch {BATCH}, forward + backward + AdamW)")
+    to_profile.append(("train step", step_fn, dev_ms))
+    return dict(losses=losses, grad_rel_err=errs, step_ms_host=ms,
+                step_ms_device=dev_ms)
+
+
+# ---------------------------------------------------------------------------
 
 
 #: The counters each path must launch; the others must stay at 0 there.
 PATH_KERNELS = {"f32": tuple(PER_EXPLAIN["f32"]),
-                "fxp16": tuple(PER_EXPLAIN["fxp16"])}
+                "fxp16": tuple(PER_EXPLAIN["fxp16"]),
+                "vjp_fused": tuple(PER_EXPLAIN_VJP["vjp_fused"]),
+                "vjp_unfused": tuple(PER_EXPLAIN_VJP["vjp_unfused"]),
+                "train": tuple(PER_TRAIN_STEP)}
+#: The path whose launches the kernel JSON reports for each kernel: the
+#: first that runs it.
+KERNEL_PATH = {k: next(p for p in PATH_KERNELS if k in PATH_KERNELS[p])
+               for k in KERNELS}
+
+
+def check_path_launches(path, got):
+    never = [k for k in PATH_KERNELS[path] if got.get(k, 0) == 0]
+    if never:
+        fail(f"{path}: kernels of the path never launched: {never}")
+    stray = [k for k, v in got.items() if v and k not in PATH_KERNELS[path]]
+    if stray:
+        fail(f"{path}: kernels of another path launched: {stray}")
+    print(f"  {path} main-path launches: {got}")
 
 
 def main() -> int:
@@ -750,6 +1107,7 @@ def main() -> int:
     kc = KernelCheck(imad_per_s)
     check_kernels(kc)
     check_kernels_fxp(kc)
+    check_kernels_autograd(kc)
     kc.summary()
 
     # phases 3-4: each main path, counted on its own
@@ -757,30 +1115,40 @@ def main() -> int:
     params = cnn.init(torch.Generator().manual_seed(0), cfg)
     x_cpu = torch.randn((BATCH, 32, 32, 3),
                         generator=torch.Generator().manual_seed(1))
-    engine_results, n_req, launches = {}, {}, {}
+    engine_results, n_req, launches, to_profile = {}, {}, {}, []
     for precision in ("f32", "fxp16"):
         reset_launches()
         print(f"phase 3 ({precision}): engine end to end, full Table III "
               f"width")
         engine_results[precision] = check_engine(params, cfg, x_cpu,
-                                                 precision)
+                                                 precision, to_profile)
         print(f"phase 4 ({precision}): requests")
         n_req[precision] = serve_requests(params, cfg, x_cpu, precision)
         torch.cuda.synchronize()
-        launches[precision] = got = dict(LAUNCHES)
-        never = [k for k in PATH_KERNELS[precision] if got[k] == 0]
-        if never:
-            fail(f"{precision}: kernels of the path never launched: {never}")
-        stray = [k for k, v in got.items()
-                 if v and k not in PATH_KERNELS[precision]]
-        if stray:
-            fail(f"{precision}: kernels of another path launched: {stray}")
-        print(f"  {precision} main-path launches: {got}")
+        launches[precision] = dict(LAUNCHES)
+        check_path_launches(precision, launches[precision])
+
+    # phases 5-6: each checked explain / training step counted from 0
+    print(f"phase 5 (vjp): autograd explains, full Table III width, batch "
+          f"{BATCH}, top-{SEEDS}")
+    vjp_results = check_vjp(params, cfg, x_cpu, launches, to_profile)
+    for branch in ("vjp_fused", "vjp_unfused"):
+        check_path_launches(branch, launches[branch])
+    print(f"phase 6 (train): {TRAIN_STEPS} AdamW steps, autodiff "
+          f"cross-entropy on the kernel path, batch {BATCH}")
+    train_results = check_train(params, cfg, x_cpu, launches, to_profile)
+    check_path_launches("train", launches["train"])
+
+    # last, as it slows what runs after it: where each path's time goes
+    print("profiles: one saliency explain per path and one training step "
+          "under torch.profiler")
+    profiles = {what: profile_breakdown(fn, what, wall)
+                for what, fn, wall in to_profile}
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         s = kc.sums[name]
-        path = "fxp16" if name not in PATH_KERNELS["f32"] else "f32"
+        path = KERNEL_PATH[name]
         kernels.append(dict(name=name, route="cuda", source=source,
                             replaces=replaces,
                             launches=launches[path][name],
@@ -794,6 +1162,7 @@ def main() -> int:
             device=kind, nvidia_smi=smi, sms=sms, max_sm_mhz=max_sm_mhz,
             imad_per_s=imad_per_s, build_s=build_s, cases=kc.rows,
             sums=kc.sums, engine=engine_results, requests=n_req,
+            vjp=vjp_results, train=train_results, profiles=profiles,
             launches=launches, kernels=kernels), indent=1))
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -7,8 +7,10 @@ NumPy inputs.
 
 What runs here: the Table III CNN (``models/cnn.py``) explained through the
 configure-once engine (``engine/``) in f32 and in the paper's true-int16
-fixed point (``precision="fxp16"``, bit for bit with the JAX package), with
-the hand-written CUDA kernels of ``csrc/`` on the card::
+fixed point (``precision="fxp16"``, bit for bit with the JAX package), and
+through autograd (``backward="vjp"``, ``FnModel``, the composite methods,
+training with ``optim/``), with the hand-written CUDA kernels of ``csrc/``
+on the card::
 
     import torch
     from repro_torch.engine import CNNModel, EngineSpec, TopK, build

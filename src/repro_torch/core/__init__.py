@@ -1,1 +1,2 @@
-"""Core numerics of the port (bit-packed residual masks)."""
+"""Core numerics of the port: bit-packed residual masks, fixed point and
+the attribution rules."""

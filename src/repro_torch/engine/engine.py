@@ -1,8 +1,9 @@
 """The configure-once attribution engine: configure -> build -> explain.
 
 :func:`build` turns an :class:`~repro_torch.engine.spec.EngineSpec` into an
-:class:`Engine` once — the model's parameters move to its device and the
-backward weights are prepared there — and memoizes on spec equality: equal
+:class:`Engine` once — backend resolution (the manual seed-batched pair or
+autograd's vjp), the model's parameters moved to its device and the
+backward weights prepared there — and memoizes on spec equality: equal
 specs return the SAME engine, a change to any field builds afresh::
 
     eng = build(EngineSpec(model=CNNModel(params, cfg), method="guided",
@@ -11,6 +12,7 @@ specs return the SAME engine, a change to any field builds afresh::
     logits, rel = eng.explain(x)                     # FP + seed-batched BP
     logits, rel, res = eng.predict_then_explain(x)   # ...keeping residuals
     rel2 = eng.replay(res, seeds)                    # BP phase alone
+    logits, ig = eng.ig(x, steps=16)                 # composites
 
 Inputs may be NumPy arrays or tensors on any device; they move to the
 model's device.  Outputs stay there.
@@ -22,7 +24,9 @@ from typing import Any, Optional, Tuple
 
 import torch
 
-from repro_torch.engine.backward import ManualSeedBatchedBackward
+from repro_torch.engine import methods
+from repro_torch.engine.backward import (ManualSeedBatchedBackward,
+                                         VjpBackward, vjp)
 from repro_torch.engine.spec import EngineSpec, Fixed, TopK
 
 
@@ -36,16 +40,51 @@ class Engine:
         self.spec = spec
         model = spec.model
         self.device = model.device
-        fwd, bwd = model.pair(spec.method, spec.precision)
-        self._backend = ManualSeedBatchedBackward(fwd, bwd)
+        # logits only, for predict (under fxp16 the mask-free int16 forward)
         self._model_fn = model.logits_fn(spec.method, spec.precision)
+        if spec.resolve_backward() == "seed_batched":
+            if not model.has_pair:
+                raise ValueError(f"model {model!r} exposes no seed-batched "
+                                 f"pair; use backward='vjp'")
+            fwd, bwd = model.pair(spec.method, spec.precision)
+            self._backend = ManualSeedBatchedBackward(fwd, bwd)
+        else:
+            self._backend = VjpBackward(self._model_fn)
+
+    # -- resolved surfaces ---------------------------------------------------
+
+    @property
+    def supports_replay(self) -> bool:
+        return self._backend.supports_replay
+
+    @property
+    def model_fn(self):
+        """Rule-bound ``f`` for direct method calls.
+
+        f32: ``f(x) -> logits``, differentiable.  fxp16: the pair forward
+        ``f(x) -> (logits, residuals)`` — combine with
+        :attr:`composite_backward` (integers have no gradient).
+        """
+        if self.spec.precision == "fxp16":
+            return self._backend.forward
+        return self._model_fn
+
+    @property
+    def composite_backward(self):
+        """Manual BP for the methods' ``backward=`` knob under fxp16, or
+        None on f32, where autograd through :attr:`model_fn` is the
+        engine."""
+        if self.spec.precision == "fxp16":
+            return self._backend.backward
+        return None
 
     # -- the two phases ------------------------------------------------------
 
     def predict(self, x):
         """Forward only: ``x -> logits``."""
         x, live = self._pad(self._input(x))
-        return self._unpad(self._model_fn(x), live)
+        with torch.no_grad():
+            return self._unpad(self._model_fn(x), live)
 
     def forward(self, x):
         """Residual-returning forward: ``x -> (logits, residuals)``.
@@ -68,20 +107,33 @@ class Engine:
 
         Fan-out defaults to ``spec.targets``; ``target``/``topk`` override
         per call.  Scalar fan-out returns ``rel [B, ...]``; top-K returns a
-        ``rel [K, B, ...]`` panel (K seeds, one launch per layer).  This is
-        forward + replay, the same two calls a cache of residuals makes, so
-        a replayed target equals a cold explain of it.
+        ``rel [K, B, ...]`` panel (K seeds, one launch per layer).  On the
+        manual pair this is forward + replay, the same two calls a cache of
+        residuals makes, so a replayed target equals a cold explain of it;
+        on the vjp backend it is ONE forward with grad and then one
+        backward pass per seed, so the forward never runs twice.
         """
-        logits, rel, _ = self.predict_then_explain(x, target=target,
-                                                   topk=topk)
-        return logits, rel
+        if self.supports_replay:
+            logits, rel, _ = self.predict_then_explain(x, target=target,
+                                                       topk=topk)
+            return logits, rel
+        target, topk = self._fanout(target, topk)
+        x, live = self._pad(self._input(x))
+        target = self._pad_target(target, live)
+        logits, vjp_fn = vjp(self._backend.f, x)
+        seeds, squeeze = self._seeds(logits, target, topk)
+        rel = vjp_fn(seeds)
+        rel = rel[0] if squeeze else rel
+        return (self._unpad(logits, live),
+                self._unpad(rel, live, axis=0 if squeeze else 1))
 
     def predict_then_explain(self, x, *, target=None,
                              topk: Optional[int] = None):
         """The two-phase form: ``-> (logits, relevance, residuals)``.
 
         The residuals can :meth:`replay` further targets later without
-        another forward.
+        another forward.  On the vjp backend the "residuals" are the padded
+        input, and a replay runs the forward again.
         """
         target, topk = self._fanout(target, topk)
         x, live = self._pad(self._input(x))
@@ -93,6 +145,46 @@ class Engine:
         return (self._unpad(logits, live),
                 self._unpad(rel, live, axis=0 if squeeze else 1),
                 residuals)
+
+    # -- composite methods (engine/methods.py) on the same model ------------
+
+    def ig(self, x, *, steps: int = 16, baseline=None, target=None,
+           batched: bool = True):
+        """Integrated gradients (the steps axis folded into the batch)."""
+        return methods.integrated_gradients(
+            self.model_fn, self._input(x), steps=steps, baseline=baseline,
+            target=target, batched=batched,
+            backward=self.composite_backward)
+
+    def smoothgrad(self, x, generator: torch.Generator, *, n: int = 8,
+                   sigma: float = 0.1, target=None, batched: bool = True):
+        """SmoothGrad, its noise drawn from ``generator`` (the noise axis
+        folded into the batch)."""
+        return methods.smoothgrad(
+            self.model_fn, self._input(x), generator, n=n, sigma=sigma,
+            target=target, batched=batched,
+            backward=self.composite_backward)
+
+    def input_x_gradient(self, x, *, target=None):
+        """Gradient . input refinement."""
+        return methods.input_x_gradient(self.model_fn, self._input(x),
+                                        target=target,
+                                        backward=self.composite_backward)
+
+    def contrastive(self, x, target_a, target_b):
+        """Why A rather than B — one difference-seeded BP pass."""
+        return methods.contrastive(self.model_fn, self._input(x), target_a,
+                                   target_b,
+                                   backward=self.composite_backward)
+
+    def attribute_classes(self, x, targets):
+        """K explicit classes from one forward (seed-batched when manual)."""
+        if self.supports_replay:
+            return methods.attribute_classes(self._backend.forward,
+                                             self._input(x), targets,
+                                             backward=self._backend.backward)
+        return methods.attribute_classes(self._model_fn, self._input(x),
+                                         targets)
 
     # -- internals -----------------------------------------------------------
 
@@ -113,15 +205,10 @@ class Engine:
     def _seeds(self, logits, target, topk) -> Tuple[torch.Tensor, bool]:
         """Fan-out (already spec-resolved) to one-hot seeds [S, B, C]; True
         = squeeze the S=1 axis after the backward."""
-        nc = logits.shape[-1]
         if topk is not None:
             idx = self._top_k(logits, topk).T                     # [K, B]
-            return self._one_hot(idx, nc, logits), False
-        if target is None:
-            target = torch.argmax(logits, dim=-1)
-        target = torch.as_tensor(target, device=logits.device)
-        target = target.to(torch.int64).broadcast_to(logits.shape[:-1])
-        return self._one_hot(target, nc, logits)[None], True
+            return methods.one_hot(idx, logits.shape[-1], logits), False
+        return methods.output_seed(logits, target)[None], True
 
     @staticmethod
     def _top_k(logits, k):
@@ -134,14 +221,6 @@ class Engine:
         key = bits ^ ((bits >> 31) & 0x7FFFFFFF)
         order = torch.sort(key, dim=-1, descending=True, stable=True)
         return order.indices[..., :k]
-
-    @staticmethod
-    def _one_hot(idx, nc, like):
-        """One-hot rows by scatter (no host sync, unlike ``F.one_hot``'s
-        range check on the card)."""
-        out = torch.zeros(idx.shape + (nc,), dtype=like.dtype,
-                          device=like.device)
-        return out.scatter_(-1, idx[..., None], 1.0)
 
     def _pad(self, x) -> Tuple[torch.Tensor, Optional[int]]:
         """Pad the leading batch dim up to ``spec.batch`` (row-0 repeats)."""

@@ -10,15 +10,16 @@ hashable value::
     eng = repro_torch.engine.build(spec)     # resolves once
     logits, rel = eng.explain(images)        # steady state: no setup
 
-Fields and semantics follow ``repro.engine.spec``.  What this slice of the
-port does not run raises :class:`NotImplementedError` naming its ROADMAP
-item.  The torch device belongs to the model handle
-(``CNNModel(..., device=)``), not to ``EngineSpec.device``, which names a
+Fields and semantics follow ``repro.engine.spec``.  What the port does not
+run yet raises :class:`NotImplementedError` naming its ROADMAP item.  The
+torch device belongs to the model handle (``CNNModel(..., device=)``,
+``FnModel(..., device=)``), not to ``EngineSpec.device``, which names a
 JAX-side planner profile.
 
-Model handles compare by parameter IDENTITY (the params object), config
-and device — tensors have no cheap equality — so rebinding the same params
-reuses the build cache and a fresh params tree builds a fresh engine.
+Model handles compare by IDENTITY of their params object (or factory),
+plus config and device — tensors have no cheap equality — so rebinding the
+same params reuses the build cache and a fresh params tree builds a fresh
+engine.
 """
 from __future__ import annotations
 
@@ -82,30 +83,45 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
-@dataclass(frozen=True, eq=False)
-class CNNModel:
-    """Handle on the paper's Table III CNN (:mod:`repro_torch.models.cnn`).
-
-    ``params`` is a ``{"conv": [...], "fc": [...]}`` tree of f32 tensors on
-    any device; the engine copies it to ``device`` once.  ``device=None``
-    means the card and raises where there is none.
-    """
-
-    params: Any
-    cfg: Any                    # cnn.CNNConfig
-    device: Any = None
-
-    def __post_init__(self):
-        object.__setattr__(self, "device", resolve_device(self.device))
+class _ParamsIdentity:
+    """eq/hash mixin: params by object identity, the rest by value."""
 
     def _key(self) -> Tuple:
-        return (id(self.params), self.cfg, self.device)
+        raise NotImplementedError
 
     def __eq__(self, other):
         return type(other) is type(self) and self._key() == other._key()
 
     def __hash__(self):
         return hash((type(self).__name__,) + self._key())
+
+
+@dataclass(frozen=True, eq=False)
+class CNNModel(_ParamsIdentity):
+    """Handle on the paper's Table III CNN (:mod:`repro_torch.models.cnn`).
+
+    ``params`` is a ``{"conv": [...], "fc": [...]}`` tree of f32 tensors on
+    any device; the engine copies it to ``device`` once.  ``use_pallas=True``
+    (default) runs the kernels — the fused blocks, required for the
+    seed-batched pair and for fxp16; ``use_pallas=False`` keeps the plain
+    reference ops, where only the ``vjp`` backend exists.  ``device=None``
+    means the card and raises where there is none.
+    """
+
+    params: Any
+    cfg: Any                    # cnn.CNNConfig
+    use_pallas: bool = True
+    device: Any = None
+
+    def __post_init__(self):
+        object.__setattr__(self, "device", resolve_device(self.device))
+
+    def _key(self):
+        return (id(self.params), self.cfg, self.use_pallas, self.device)
+
+    @property
+    def has_pair(self) -> bool:
+        return self.use_pallas
 
     def pair(self, method: str, precision: str) -> Tuple[Callable, Callable]:
         """The seed-batched ``(forward, backward)`` closure pair.
@@ -135,19 +151,54 @@ class CNNModel:
         return forward, backward
 
     def logits_fn(self, method: str, precision: str) -> Callable:
-        """Logits-only ``f(x)`` for ``Engine.predict`` (under fxp16 the
-        dequantized logits of the int16 forward)."""
+        """Rule-bound ``f(x) -> logits`` (``cnn.apply``), differentiable
+        with respect to ``x`` in f32: the ``vjp`` backend and the composite
+        methods run autograd through it.  Under fxp16 it is the dequantized
+        logits of the int16 forward, for ``Engine.predict`` only (integers
+        have no gradient)."""
         from repro_torch.models import cnn
         cnn.check_precision(precision)
         params = cnn.params_to(self.params, self.device)
         fwd_params = cnn.prepare_params(params, precision)
-        cfg = self.cfg
+        cfg, use_pallas = self.cfg, self.use_pallas
 
         def f(x):
             return cnn.apply(params, x, cfg, method=method,
-                             precision=precision, fwd_params=fwd_params)
+                             use_pallas=use_pallas, precision=precision,
+                             fwd_params=fwd_params)
 
         return f
+
+
+@dataclass(frozen=True, eq=False)
+class FnModel(_ParamsIdentity):
+    """Handle on an arbitrary rule-bound callable factory.
+
+    ``make_f(method) -> f(x) -> logits``, differentiable with respect to
+    ``x`` — the escape hatch for models outside the zoo.  vjp-only (no
+    manual pair).  Identity-hashed on the factory object.  ``device`` is
+    where ``f`` computes (inputs move there); ``None`` means the card.
+    """
+
+    make_f: Callable[[str], Callable]
+    device: Any = None
+
+    def __post_init__(self):
+        object.__setattr__(self, "device", resolve_device(self.device))
+
+    def _key(self):
+        return (id(self.make_f), self.device)
+
+    @property
+    def has_pair(self) -> bool:
+        return False
+
+    def logits_fn(self, method: str, precision: str) -> Callable:
+        if precision == "fxp16":
+            raise ValueError("FnModel has no manual pair; precision='fxp16' "
+                             "requires a model exposing seed-batched "
+                             "residuals (e.g. CNNModel)")
+        return self.make_f(method)
 
 
 # ---------------------------------------------------------------------------
@@ -160,10 +211,10 @@ class EngineSpec:
     """Declarative configure-once description of an attribution engine.
 
     Fields as in ``repro.engine.spec.EngineSpec``: ``model`` (a
-    :class:`CNNModel`), ``method`` (``saliency | deconvnet | guided``),
-    ``precision`` (``f32`` or ``fxp16``, the paper's true-int16 datapath),
-    ``backward`` (``auto`` or ``seed_batched``; fxp16 is integer arithmetic
-    and has no ``vjp``),
+    :class:`CNNModel` or :class:`FnModel`), ``method`` (``saliency |
+    deconvnet | guided``), ``precision`` (``f32`` or ``fxp16``, the paper's true-int16 datapath),
+    ``backward`` (``auto`` resolves to the seed-batched pair when the model
+    has one, else ``vjp``; fxp16 is integer arithmetic and has no ``vjp``),
     ``targets`` (:class:`Argmax`, :class:`Fixed` or :class:`TopK`), and
     ``batch`` (inputs are padded up to it and outputs sliced back).  The
     JAX package's planner knobs ``device``/``plan``/``autotune`` and the
@@ -202,10 +253,6 @@ class EngineSpec:
             raise ValueError("precision='fxp16' is integer arithmetic — "
                              "no vjp exists; use backward='auto' or "
                              "'seed_batched'")
-        if self.backward == "vjp":
-            raise NotImplementedError(
-                "backward='vjp' (VjpBackward on torch.func) is not ported "
-                "yet (ROADMAP A5 remainder); use 'auto' or 'seed_batched'")
         if self.batch is not None and self.batch < 1:
             raise ValueError(f"batch must be >= 1, got {self.batch}")
         for knob, default in (("device", None), ("plan", None),
@@ -215,7 +262,20 @@ class EngineSpec:
                     f"EngineSpec.{knob}= is the JAX package's tile-planner "
                     f"knob, not ported yet (ROADMAP A10); the torch device "
                     f"is CNNModel(..., device=)")
-        if not isinstance(self.model, CNNModel):
+        if not isinstance(self.model, (CNNModel, FnModel)):
             raise NotImplementedError(
-                f"model {self.model!r}: only CNNModel is ported (FnModel "
-                f"is ROADMAP A5 remainder, LMModel ROADMAP A11)")
+                f"model {self.model!r}: CNNModel and FnModel are ported "
+                f"(LMModel is ROADMAP A11)")
+
+    def resolve_backward(self) -> str:
+        """The backend ``build`` will actually use (auto-selection rule)."""
+        if self.backward != "auto":
+            return self.backward
+        has_pair = getattr(self.model, "has_pair", False)
+        if self.precision == "fxp16":
+            if not has_pair:
+                raise ValueError(
+                    "precision='fxp16' needs a model with a seed-batched "
+                    "pair (CNNModel(use_pallas=True))")
+            return "seed_batched"
+        return "seed_batched" if has_pair else "vjp"

@@ -52,17 +52,22 @@ SIGNATURES = {
     "repro_vmm_fxp_fwd": [_P, _P, _P, _P, _I, _I, _I, _P],
     "repro_vmm_bwd_fused_fxp": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                 _I, _P],
+    # the autograd paths: B11 and B12 (f32, and int16 for the unpool)
+    "repro_relu_bwd": [_P, _P, _P, _I, _I, _I, _P],
+    "repro_unpool_bwd": [_P, _P, _P, _I, _I, _I, _I, _P],
+    "repro_unpool_bwd_i16": [_P, _P, _P, _I, _I, _I, _I, _P],
 }
 
 #: Launches per kernel wrapper since the last :func:`reset_launches`.  A
 #: wrapper adds one where it launches its kernel and nowhere else, so a run
 #: can show that its path went through the kernels.  The int16 instances of
-#: ReLU+mask and pool count under ``relu_fwd`` and ``maxpool_fwd``.
+#: ReLU+mask, pool and unpool count under ``relu_fwd``, ``maxpool_fwd`` and
+#: ``unpool_bwd``.
 LAUNCHES: Dict[str, int] = {
     "conv2d_fwd": 0, "relu_fwd": 0, "maxpool_fwd": 0, "vmm_fwd": 0,
     "conv2d_bwd_fused": 0, "vmm_bwd_fused": 0,
     "conv2d_fxp_fwd": 0, "conv2d_bwd_fused_fxp": 0, "vmm_fxp_fwd": 0,
-    "vmm_bwd_fused_fxp": 0,
+    "vmm_bwd_fused_fxp": 0, "relu_bwd": 0, "unpool_bwd": 0,
 }
 
 _LIB: Optional[ctypes.CDLL] = None

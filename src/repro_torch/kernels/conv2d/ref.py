@@ -46,3 +46,17 @@ def flip_transpose(w: torch.Tensor) -> torch.Tensor:
 def conv2d_input_grad(g: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """dL/dx of a stride-1 SAME conv == SAME conv of g with flip_transpose(w)."""
     return conv2d(g, flip_transpose(w))
+
+
+def conv2d_weight_grad(x: torch.Tensor, w: torch.Tensor,
+                       g: torch.Tensor) -> torch.Tensor:
+    """dL/dw of a stride-1 SAME conv for the output gradient ``g``, in f32:
+    x [N, H, W, Cin], g [N, H, W, Cout] -> [K, K, Cin, Cout] (HWIO).
+
+    Training only; on a CUDA tensor cuDNN computes it, in TF32 unless
+    ``torch.backends.cudnn.allow_tf32`` is off.
+    """
+    dw = torch.nn.grad.conv2d_weight(
+        x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1).shape,
+        g.permute(0, 3, 1, 2), padding=(w.shape[0] - 1) // 2)
+    return dw.permute(2, 3, 1, 0).contiguous()

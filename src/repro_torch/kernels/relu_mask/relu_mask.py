@@ -2,7 +2,10 @@
 
 :func:`relu_fwd` is the wrapper of the CUDA kernel ``csrc/relu_mask.cu``
 (the port of ``repro.kernels.relu_mask.relu_mask.relu_fwd_pallas``): one
-pass emits ``max(x, 0)`` and the packed ``x > 0`` bits.
+pass emits ``max(x, 0)`` and the packed ``x > 0`` bits.  :func:`relu_bwd`
+wraps its backward twin (the port of ``relu_bwd_pallas``): the method's
+gate (Eq. 3-5) on a gradient by the stored bits, the backward of the
+standalone ReLU (``relu_mask.ops``).
 
 :func:`unpack_bits` and :func:`gate_gradient` are the plain versions of the
 in-kernel helpers that the fused conv/vmm backward kernels run as their
@@ -14,7 +17,8 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import _build, check, check_kernel_operands, on_card
+from repro_torch.kernels import (METHOD_CODES, _build, check,
+                                 check_kernel_operands, on_card)
 from repro_torch.kernels.relu_mask import ref
 from repro_torch.kernels.tiling import mask_bytes
 
@@ -66,3 +70,40 @@ def relu_fwd(x2d: torch.Tensor):
         _build.launch(name, _ENTRY[x2d.dtype], x2d.device, x2d.data_ptr(),
                       y.data_ptr(), m.data_ptr(), r, c)
     return y, m
+
+
+#: Backward entry point per element type (bf16 is ROADMAP A6b).
+_BWD_ENTRY = {torch.float32: "repro_relu_bwd"}
+
+
+def relu_bwd(packed: Optional[torch.Tensor], g2d: torch.Tensor,
+             method: str) -> torch.Tensor:
+    """Masked gradient gate: packed uint8 [R, ceil(C/8)] and g2d [R, C] f32
+    -> [R, C] f32, by ``method``'s rule (paper Eq. 3-5).
+
+    Bits past C are ignored.  ``packed=None`` is accepted for deconvnet
+    only, whose rule reads no mask (Table II stores none).  CPU tensors run
+    :func:`ref.relu_bwd`; CUDA tensors the kernel.
+    """
+    name = "relu_bwd"
+    if method not in METHOD_CODES:
+        raise ValueError(f"method={method!r} not in {tuple(METHOD_CODES)}")
+    if g2d.dim() != 2:
+        raise ValueError(f"{name}: g must be [R, C], got {tuple(g2d.shape)}")
+    check(name, g2d, tuple(_BWD_ENTRY), what="g")
+    r, c = g2d.shape
+    if packed is None:
+        if method != "deconvnet":
+            raise ValueError(f"{name}: method={method!r} needs the stored "
+                             f"1-bit mask; only deconvnet takes none")
+    else:
+        check(name, packed, torch.uint8, (r, mask_bytes(c)), what="packed")
+    if not on_card(name, packed, g2d):
+        return ref.relu_bwd(packed, g2d, method)
+    check_kernel_operands(name, packed, g2d)
+    out = torch.empty_like(g2d)
+    if r and c:
+        _build.launch(name, _BWD_ENTRY[g2d.dtype], g2d.device,
+                      _build.ptr(packed), g2d.data_ptr(), out.data_ptr(), r,
+                      c, METHOD_CODES[method])
+    return out

@@ -3,7 +3,8 @@
 Layer stack:  Conv(3->32) Conv(32->32) Pool Conv(32->64) Conv(64->64) Pool
               FC(4096->128) ReLU FC(128->10)
 
-Every layer runs as a fused block, as on the JAX package's Pallas path:
+On the kernel path every layer runs as a fused block, as on the JAX
+package's Pallas path:
 
 * forward block: conv (+bias) -> ReLU (+1-bit mask) -> pool (+2-bit
   argmax); FC blocks: matmul (+bias) -> ReLU (+mask).  The residuals are
@@ -11,6 +12,15 @@ Every layer runs as a fused block, as on the JAX package's Pallas path:
 * backward block: ONE kernel launch per layer — unpool scatter, mask gate
   (Eq. 3-5) and the flip-transposed conv or transposed matmul — for all S
   seeds at once.
+
+The seed-batched pair (:func:`forward_with_residuals`,
+:func:`backward_seeds`) runs the blocks by hand.  :func:`apply` runs them
+under autograd, with the JAX signature and its three branches: the fused
+blocks as autograd Functions (``_ConvBlock``/``_FCBlock``, whose weight
+gradients are computed only when asked for), the standalone kernel ops of
+``kernels/*/ops.py`` (``fused=False``, and the ``"autodiff"`` training
+path), and the plain reference ops (``use_pallas=False``: ``F.conv2d``,
+matmul, ``core.rules``).
 
 Layouts are the JAX package's: NHWC activations, HWIO conv kernels,
 ``[in, out]`` FC weights, and the residual dict of
@@ -23,26 +33,29 @@ fixed-point datapath (§IV): params quantized to Q1.14 weights / Q7.8
 biases, Q7.8 int16 feature maps and gradients, int32 accumulation with one
 requantize per layer, through the int16 kernels (``kernels/*/fxp.py``) and
 the int16 instances of ReLU+mask and pool; it matches the JAX package bit
-for bit.  ``"bf16"`` is not ported (ROADMAP A6b).  The training branches of
-the JAX blocks (``custom_vjp`` dw/db) are not either: the explain path
-needs no autograd.
+for bit.  ``"bf16"`` is not ported (ROADMAP A6b).
 """
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
-from repro_torch.core import fixedpoint
+from repro_torch.core import fixedpoint, rules
+from repro_torch.kernels.conv2d import ops as conv_ops
 from repro_torch.kernels.conv2d import ref as conv_ref
 from repro_torch.kernels.conv2d.conv2d import conv2d, conv2d_bwd_fused
 from repro_torch.kernels.conv2d.fxp import conv2d_bwd_fused_fxp, conv2d_fxp
+from repro_torch.kernels.pool import ops as pool_ops
 from repro_torch.kernels.pool.fxp import maxpool_fwd_fxp
-from repro_torch.kernels.pool.pool import maxpool_fwd
-from repro_torch.kernels.relu_mask.relu_mask import relu_fwd
+from repro_torch.kernels.pool.pool import maxpool_fwd, unpool_bwd
+from repro_torch.kernels.relu_mask import ops as relu_ops
+from repro_torch.kernels.relu_mask.relu_mask import relu_bwd, relu_fwd
+from repro_torch.kernels.vmm import ops as vmm_ops
+from repro_torch.kernels.vmm import ref as vmm_ref
 from repro_torch.kernels.vmm.fxp import vmm_bwd_fused_fxp, vmm_fxp
 from repro_torch.kernels.vmm.vmm import vmm, vmm_bwd_fused
 
@@ -226,6 +239,100 @@ def _fc_block_bwd_fused(k, wt, mask, g, method, do_relu):
 
 
 # ---------------------------------------------------------------------------
+# the fused blocks under autograd (f32)
+# ---------------------------------------------------------------------------
+
+
+def _gate(mask, g, method):
+    """The rule's gate on g [..., C] by a packed mask [..., ceil(C/8)] (None
+    for deconvnet), through the gate kernel's wrapper."""
+    c = g.shape[-1]
+    m2 = None if mask is None else mask.reshape(-1, mask.shape[-1])
+    return relu_bwd(m2, g.reshape(-1, c), method).reshape(g.shape)
+
+
+class _ConvBlock(torch.autograd.Function):
+    """conv -> ReLU -> pool as one autograd node.  Saves the packed mask and
+    crumbs, the weight, and ``x`` only when ``w`` needs a gradient.  Its
+    backward is the fused conv-backward kernel at S = 1 for ``dx``; ``dw``
+    and ``db`` (training) are computed only when asked for: the gradient
+    unpooled and gated through the B12/B11 wrappers, then plain sums."""
+
+    @staticmethod
+    def forward(ctx, x, w, b, method, do_relu, do_pool):
+        y, mask4, idx = _conv_block_fwd_res(_KERNELS["f32"], x, w, b,
+                                            method, do_relu, do_pool)
+        ctx.rule = (method, do_relu, do_pool)
+        ctx.save_for_backward(x if ctx.needs_input_grad[1] else None, w,
+                              mask4, idx)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w, mask4, idx = ctx.saved_tensors
+        method, do_relu, do_pool = ctx.rule
+        g = g.contiguous()
+        dx = dw = db = None
+        if ctx.needs_input_grad[0]:
+            dx = _conv_block_bwd_fused(_KERNELS["f32"],
+                                       conv_ref.flip_transpose(w), mask4,
+                                       idx, g, method, do_relu)
+        if ctx.needs_input_grad[1] or ctx.needs_input_grad[2]:
+            gg = unpool_bwd(idx, g) if do_pool else g
+            if do_relu:
+                gg = _gate(mask4, gg, method)
+            if ctx.needs_input_grad[1]:
+                dw = conv_ref.conv2d_weight_grad(x, w, gg)
+            if ctx.needs_input_grad[2]:
+                db = gg.sum(dim=(0, 1, 2))
+        return dx, dw, db, None, None, None
+
+
+class _FCBlock(torch.autograd.Function):
+    """matmul -> ReLU as one autograd node; backward: the fused FC-backward
+    kernel for ``dx``, and ``dw``/``db`` (training) only when asked for."""
+
+    @staticmethod
+    def forward(ctx, x, w, b, method, do_relu):
+        y, mask = _fc_block_fwd_res(_KERNELS["f32"], x, w, b, method,
+                                    do_relu)
+        ctx.rule = (method, do_relu)
+        ctx.save_for_backward(x if ctx.needs_input_grad[1] else None, w,
+                              mask)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w, mask = ctx.saved_tensors
+        method, do_relu = ctx.rule
+        g = g.contiguous()
+        dx = dw = db = None
+        if ctx.needs_input_grad[0]:
+            dx = _fc_block_bwd_fused(_KERNELS["f32"], w.T.contiguous(), mask,
+                                     g, method, do_relu)
+        if ctx.needs_input_grad[1] or ctx.needs_input_grad[2]:
+            gg = _gate(mask, g, method) if do_relu else g
+            if ctx.needs_input_grad[1]:
+                dw = vmm_ref.vmm(x.T, gg)
+            if ctx.needs_input_grad[2]:
+                db = gg.sum(dim=0)
+        return dx, dw, db, None, None
+
+
+def _apply_fused(params, x, cfg: CNNConfig, method: str):
+    # the kernels' gate reads "autodiff" as saliency, as the Pallas gate does
+    rule = "saliency" if method == "autodiff" else method
+    for i, p in enumerate(params["conv"]):
+        do_pool = (i + 1) % cfg.pool_every == 0
+        x = _ConvBlock.apply(x, p["w"], p["b"], rule, cfg.conv_relu, do_pool)
+    x = x.reshape(x.shape[0], -1)
+    n_fc = len(params["fc"])
+    for i, p in enumerate(params["fc"]):
+        x = _FCBlock.apply(x, p["w"], p["b"], rule, i < n_fc - 1)
+    return x
+
+
+# ---------------------------------------------------------------------------
 # the seed-batched pair
 # ---------------------------------------------------------------------------
 
@@ -305,18 +412,50 @@ def backward_seeds(params, residuals, seeds, cfg: CNNConfig, method: str,
     return g
 
 
-def apply(params, x, cfg: CNNConfig, *, method: str = "saliency",
+def apply(params, x, cfg: CNNConfig, *, method: str = "autodiff",
+          use_pallas: bool = False, fused: Optional[bool] = None,
           precision: str = "f32", fwd_params=None):
-    """Logits only: ``x [N, H, W, Cin] -> [N, classes]``.
+    """Forward pass, differentiable: ``x [N, H, W, Cin] -> [N, classes]``.
 
-    The same fused forward blocks as :func:`forward_with_residuals` (same
-    kernels, so the same logits bit for bit), residuals dropped.  Under
-    fxp16 it runs the deconvnet rule set, which stores no masks (Table II):
-    the ReLU output is rule-invariant, so the logits are those of every
-    method, as in the JAX package.
+    ``method`` selects the backward rules at the rectifiers
+    (``"autodiff"`` is the plain derivative, for training).  On the kernel
+    path (``use_pallas``) with a rule set bound, ``fused`` (default on) runs
+    each layer as a fused block whose backward is one kernel launch;
+    ``fused=False`` (and ``"autodiff"``) runs the standalone kernel ops, whose
+    backward reuses the forward kernels (Table I) and runs the gate and
+    unpool kernels.  ``use_pallas=False`` runs the plain reference ops.
+    Under fxp16 the knobs do not apply: the logits of the int16 forward
+    under the deconvnet rule set, which stores no masks (Table II) — the
+    ReLU output is rule-invariant, so the logits are those of every method,
+    as in the JAX package; integers have no gradient.  ``fwd_params`` is
+    :func:`prepare_params` of ``params`` for that path, or None.
     """
+    check_precision(precision)
+    _check_cfg(cfg)
     if precision == "fxp16":
-        method = "deconvnet"
-    logits, _ = forward_with_residuals(params, x, cfg, method, precision,
-                                       fwd_params)
-    return logits
+        logits, _ = forward_with_residuals(params, x, cfg, "deconvnet",
+                                           precision, fwd_params)
+        return logits
+    if fused is None:
+        fused = use_pallas and method != "autodiff"
+    if fused:
+        return _apply_fused(params, x, cfg, method)
+    if use_pallas:
+        relu_fn, pool_fn = relu_ops.relu, pool_ops.maxpool2x2
+        conv_fn, fc_fn = conv_ops.conv2d, vmm_ops.vmm
+    else:
+        relu_fn, pool_fn = rules.relu, rules.maxpool2x2
+        conv_fn, fc_fn = conv_ref.conv2d, torch.matmul
+    for i, p in enumerate(params["conv"]):
+        x = conv_fn(x, p["w"]) + p["b"]
+        if cfg.conv_relu:
+            x = relu_fn(x, method)
+        if (i + 1) % cfg.pool_every == 0:
+            x = pool_fn(x, method)
+    x = x.reshape(x.shape[0], -1)
+    n_fc = len(params["fc"])
+    for i, p in enumerate(params["fc"]):
+        x = fc_fn(x, p["w"]) + p["b"]
+        if i < n_fc - 1:
+            x = relu_fn(x, method)       # Table III: ReLU after FC1
+    return x

@@ -225,7 +225,7 @@ def test_jax_backward_replays_torch_residuals(run, size, method):
 def test_apply_is_the_forward_logits(run):
     r = run("tiny", "guided")
     logits = cnn.apply(r.params, torch.from_numpy(r.x), r.cfg,
-                       method="guided")
+                       method="guided", use_pallas=True)
     assert torch.equal(logits, r.logits)
 
 

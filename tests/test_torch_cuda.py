@@ -6,8 +6,9 @@ sizes, K = 5, several Cin chunks and Cout tiles, a fused backward whose
 prologue needs more than 48 KB of shared memory, misaligned pointers, and
 one launch per wrapper call — for the f32 kernels and for the int16 ones of
 the fxp16 path, which must equal their plain versions bit for bit (also
-where the int32 accumulator wraps).  Every test needs a CUDA device and
-skips without one.  This file imports neither JAX nor the JAX package, so on a
+where the int32 accumulator wraps) — and for the gate and unpool kernels of
+the autograd paths (bitwise), with those paths end to end against the CPU.
+Every test needs a CUDA device and skips without one.  This file imports neither JAX nor the JAX package, so on a
 machine without JAX run it without the suite's conftest:
 
     PYTHONPATH=src python -m pytest --noconftest tests/test_torch_cuda.py
@@ -24,10 +25,10 @@ from repro_torch.kernels.conv2d.fxp import (conv2d_bwd_fused_fxp,
                                             conv2d_bwd_fused_fxp_plain,
                                             conv2d_fxp)
 from repro_torch.kernels.pool import ref as pool_ref
-from repro_torch.kernels.pool.fxp import maxpool_fwd_fxp
-from repro_torch.kernels.pool.pool import maxpool_fwd
+from repro_torch.kernels.pool.fxp import maxpool_fwd_fxp, unpool_bwd_fxp
+from repro_torch.kernels.pool.pool import maxpool_fwd, unpool_bwd
 from repro_torch.kernels.relu_mask import ref as relu_ref
-from repro_torch.kernels.relu_mask.relu_mask import relu_fwd
+from repro_torch.kernels.relu_mask.relu_mask import relu_bwd, relu_fwd
 from repro_torch.kernels.vmm import ref as vmm_ref
 from repro_torch.kernels.vmm.fxp import (vmm_bwd_fused_fxp,
                                          vmm_bwd_fused_fxp_plain, vmm_fxp)
@@ -333,3 +334,121 @@ def test_fxp16_engine_on_card_matches_cpu_twin_bitwise(gen):
                             cpu._seeds(logits_c, None, 2)[0])
         torch.cuda.synchronize()
         assert torch.equal(again.cpu(), rel_c)
+
+
+# -- the gate (B11) and unpool (B12) kernels of the autograd paths, bitwise
+
+
+def _grad(gen, *shape):
+    g = _randn(gen, *shape)
+    g.view(-1)[::7] = 0.0                  # zeros and signed zeros: g > 0 is
+    g.view(-1)[3::11] = -0.0               # strict, and the sign must survive
+    return g
+
+
+@pytest.mark.parametrize("method", METHODS)
+@pytest.mark.parametrize("r,c", [(5, 3), (17, 13), (3, 128), (7, 1000),
+                                 (33, 64)])
+def test_relu_bwd_bitwise(gen, method, r, c):
+    _, m = relu_fwd(_randn(gen, r, c))
+    g = _grad(gen, r, c)
+    got = _launched("relu_bwd", lambda: relu_bwd(m, g, method))
+    torch.cuda.synchronize()
+    assert torch.equal(got, relu_ref.relu_bwd(m, g, method))
+    if method == "deconvnet":              # no mask read at all
+        assert torch.equal(relu_bwd(None, g, method), got)
+
+
+def test_relu_bwd_misaligned_pointer(gen):
+    _, m = relu_fwd(_randn(gen, 8, 16))
+    flat = _grad(gen, 8 * 16 + 1)
+    g = flat[1:].view(8, 16)               # 4-byte offset: no 16-byte loads
+    for method in METHODS:
+        want = relu_ref.relu_bwd(m, g, method)
+        assert torch.equal(relu_bwd(m, g, method), want)
+
+
+@pytest.mark.parametrize("n,hp,wp,c", [(2, 2, 2, 3), (1, 4, 3, 13),
+                                       (3, 3, 5, 64), (1, 1, 1, 6)])
+def test_unpool_bwd_bitwise(gen, n, hp, wp, c):
+    x = torch.clamp_min(_randn(gen, n, 2 * hp, 2 * wp, c), 0)
+    x[:, :2, :2] = 0.0                     # tied all-zero windows
+    _, idx = maxpool_fwd(x)
+    g = _grad(gen, n, hp, wp, c)
+    got = _launched("unpool_bwd", lambda: unpool_bwd(idx, g))
+    torch.cuda.synchronize()
+    assert torch.equal(got, pool_ref.unpool_bwd(idx, g))
+
+
+@pytest.mark.parametrize("c", [13, 64])
+def test_unpool_bwd_int16_bitwise(gen, c):
+    x = torch.clamp_min(_q(gen, 2, 6, 4, c, scale=0.01), 0)   # many ties
+    _, idx = maxpool_fwd_fxp(x)
+    g = _q(gen, 2, 3, 2, c)
+    got = _launched("unpool_bwd", lambda: unpool_bwd_fxp(idx, g))
+    _same(got, pool_ref.unpool_bwd(idx, g))
+
+
+def test_unpool_bwd_misaligned_pointer(gen):
+    _, idx = maxpool_fwd(_randn(gen, 1, 4, 4, 8))
+    flat = _grad(gen, 2 * 2 * 8 + 1)
+    g = flat[1:].view(1, 2, 2, 8)          # 4-byte offset: no vector stores
+    assert torch.equal(unpool_bwd(idx, g), pool_ref.unpool_bwd(idx, g))
+    flat16 = _q(gen, 2 * 2 * 8 + 1)
+    g16 = flat16[1:].view(1, 2, 2, 8)      # 2-byte offset
+    _same(unpool_bwd_fxp(idx, g16), pool_ref.unpool_bwd(idx, g16))
+
+
+def test_autograd_paths_on_card_match_cpu_twin(gen):
+    """The vjp engine through the fused blocks and through the standalone
+    ops (B11/B12 in the backward), and the parameter gradients of the
+    autodiff training loss, on the card against the CPU."""
+    from repro_torch.engine import (CNNModel, EngineSpec, FnModel, TopK,
+                                    build)
+    from repro_torch.kernels import reset_launches
+    from repro_torch.models import cnn
+    cfg = cnn.CNNConfig(in_hw=(8, 8), channels=(4, 12), fc=(16,),
+                        num_classes=5)
+    params = cnn.init(torch.Generator().manual_seed(0), cfg)
+    x = torch.randn((3, 8, 8, 3), generator=torch.Generator().manual_seed(1))
+
+    def unfused(device):
+        p = cnn.params_to(params, device)
+        return FnModel(lambda m: lambda v: cnn.apply(
+            p, v, cfg, method=m, use_pallas=True, fused=False), device)
+
+    def launches(fused, method):
+        """Per explain with K = 2 seeds (two backward passes), this cfg."""
+        want = {k: 0 for k in LAUNCHES}
+        relus = 0 if fused and method == "deconvnet" else 3
+        want.update(conv2d_fwd=2, relu_fwd=relus, maxpool_fwd=1, vmm_fwd=2)
+        if fused:
+            want.update(conv2d_bwd_fused=4, vmm_bwd_fused=4)
+        else:         # B1/B4 reused for dx, B11 at 3 ReLUs, B12 at 1 pool
+            want.update(conv2d_fwd=6, vmm_fwd=6, relu_bwd=6, unpool_bwd=2)
+        return want
+
+    for method in METHODS:
+        for fused, model in ((True, lambda d: CNNModel(params, cfg, device=d)),
+                             (False, unfused)):
+            spec = dict(method=method, backward="vjp", targets=TopK(2))
+            reset_launches()
+            logits, rel = build(EngineSpec(model("cuda"), **spec)).explain(x)
+            torch.cuda.synchronize()
+            assert dict(LAUNCHES) == launches(fused, method)
+            logits_c, rel_c = build(EngineSpec(model("cpu"), **spec)).explain(x)
+            _close(logits.cpu(), logits_c)
+            err = (rel.cpu() - rel_c).abs().max().item()
+            assert err <= 1e-4 * rel_c.abs().max().item()
+    y = torch.tensor([0, 3, 4])
+    grads = []
+    for device in ("cuda", "cpu"):
+        p = cnn.params_to(params, device)
+        leaves = [t.requires_grad_() for q in p["conv"] + p["fc"]
+                  for t in q.values()]
+        loss = torch.nn.functional.cross_entropy(
+            cnn.apply(p, x.to(device), cfg, use_pallas=True), y.to(device))
+        grads.append(torch.autograd.grad(loss, leaves))
+    for g, g_c in zip(*grads):    # four layers of reordered f32 sums
+        err = (g.cpu() - g_c).abs().max().item()
+        assert err <= 1e-4 * g_c.abs().max().item()

@@ -1,5 +1,5 @@
 """repro_torch.engine against repro.engine: build cache, target fan-out,
-batch padding, replay, and the knobs this slice does not run.
+batch padding, replay, and the knobs the port does not run yet.
 
 Fan-out and padding are held against the JAX engine's own helpers on the
 same logits and arrays, and one padded top-K explain end to end against
@@ -177,13 +177,13 @@ def test_replay_equals_cold_explain_bitwise(setup):
     assert not torch.equal(replayed, rel)
 
 
-# -- what this slice does not run ----------------------------------------------
+# -- what the port does not run yet ------------------------------------------
 
 
 @pytest.mark.parametrize("kw,item", [
     (dict(precision="bf16"), "A6"),
     (dict(precision="bf16", backward="seed_batched"), "A6"),
-    (dict(backward="vjp"), "A5"), (dict(device="tpu-v4"), "A10"),
+    (dict(model=object()), "A11"), (dict(device="tpu-v4"), "A10"),
     (dict(plan=object()), "A10"), (dict(autotune=True), "A10"),
     (dict(method="occlusion"), "A8"), (dict(method="rise"), "A8"),
 ])

@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch / CUDA port (``src/repro_torch``) on one NVIDIA
 card: build every kernel, hold each against its plain PyTorch version at
-the shapes the Table III CNN gives it, then explain full-width batches
-through the engine, in f32 and in the paper's true-int16 fixed point
-(fxp16), then through autograd (the vjp backend) and train a few steps,
-and check them against the CPU.
+the shapes its path gives it, then explain full-width batches of the Table
+III CNN through the engine, in f32 and in the paper's true-int16 fixed
+point (fxp16), then through autograd (the vjp backend), train a few steps,
+and explain each generated token of falcon-mamba-7b at full width and
+depth, and check them against the CPU.
 
     python3 chip_smoke.py                  # one card; exits 0 when all pass
     python3 chip_smoke.py --out DIR        # also writes DIR/chip_smoke.json
@@ -18,8 +19,13 @@ Phases (every failed check raises; nothing is caught and carried on):
    1e-5 * max|ref| for the dots), then the fxp16 kernels B7-B10 and the
    int16 instances of B2/B3, all bitwise, plus accumulators that wrap at
    ±32767 operands; then the gate (B11, three methods) and unpool (B12,
-   f32 and int16) kernels of the autograd paths, bitwise; median kernel,
-   plain and one-library-call times (CUDA events);
+   f32 and int16) kernels of the autograd paths, bitwise; then the
+   selective scan (B13) at falcon-mamba-7b's explain shape (B = 4, S = 72,
+   D = 8192, N = 16; x bf16 and f32) and a ragged S = 13, within the JAX
+   package's tolerance (atol 2e-4, rtol 2e-3; one bf16 step for a bf16 y),
+   two (d_tile, chunk) pairs bitwise equal, and the time of its plain
+   backward (autograd over the chunked scan); median kernel, plain and
+   one-library-call times (CUDA events);
 3. engine, full width: saliency / deconvnet / guided explains of a
    [32, 32, 32, 3] batch with top-3 seeds on the card against a CPU twin
    engine on the same parameters (logits, residual bits, cross-replay), and
@@ -41,18 +47,41 @@ Phases (every failed check raises; nothing is caught and carried on):
 6. train: three AdamW steps of ``cnn.apply(p, x, cfg, use_pallas=True)``
    (autodiff, cross-entropy, batch 32), each step's parameter gradients
    within 1e-4 * max|g| of a CPU twin's on the same parameters (over the
-   examples whose ReLU signs and pool argmax the two devices agree on).
+   examples whose ReLU signs and pool argmax the two devices agree on);
+7. lm: falcon-mamba-7b's FULL config (64 layers, bf16, 7.27 B random
+   parameters from ``torch.Generator(device="cuda").manual_seed(0)``):
+   greedy ``decode`` of 4 prompts x 64 tokens, 8 new tokens, twice (equal
+   tokens, no B13 launch); ``explain_generated`` in contrastive mode (8
+   per-token explains over S = 72: scores after each seed exactly 0,
+   finite); contrastive = ixg(a) - ixg(b) within LM_LINEARITY_TOL; the
+   engine's ``explain_tokens`` on the prompts in ixg, grad_norm and
+   contrastive (saliency) and ixg for deconvnet and guided; against the
+   chunked scan on the same card: each layer's B13 output within phase
+   2's tolerance of the chunked scan on the same operands, and the
+   explain's last-position logits within LM_LOGITS_FACTOR times the
+   chunked route's own bf16 error (its distance from the same weights in
+   f32); 64 B13 launches per explain; host and device time per decode
+   step and per explain;
+8. lm twin: the same config at depth 2 in f32, batch 2 x 32 tokens, on the
+   card against a CPU twin: logits within 1e-5 * max|ref|; the int8
+   residual codes equal on MIN_BIT_AGREEMENT of them and one step apart
+   elsewhere; scores within 1e-4 * max|scores| per mode of the CPU run on
+   the card's int8 codes, and, with exact residuals, of the plain CPU
+   twin (see ``check_lm_twin``); contrastive = ixg(a) - ixg(b) within
+   1e-4 * max.
 
-Last, one saliency explain of each path and one training step run under
-``torch.profiler``: kernel time by kernel against the device time measured
+Last, one saliency explain of each CNN path, one training step, one LM
+decode step and one per-token LM explain run under ``torch.profiler``:
+kernel time by kernel and by family against the device time measured
 before (the device's idle share).  This comes after every timing, since a
 profiler session slows what runs after it.
 
-Phases 3-4 run once per path, f32 then fxp16; phases 5 (per branch) and 6
-are paths of their own.  Launch counters are set to 0 just before each path
-(in phases 5-6: before each checked explain or training step) and read just
-after; the kernel-vs-plain launches of phase 2, and the launches of the
-comparisons of phases 5-6, are not counted.  The last two lines are the
+Phases 3-4 run once per path, f32 then fxp16; phases 5 (per branch), 6, 7
+and 8 are paths of their own.  Launch counters are set to 0 just before
+each path (in phases 5-8: before each checked explain, training step or
+decode) and read just after; the kernel-vs-plain launches of phase 2, and
+the launches of the comparisons and timings of phases 5-8, are not
+counted.  The last two lines are the
 per-kernel JSON and the device JSON.
 """
 from __future__ import annotations
@@ -87,7 +116,34 @@ F32_FLOP_PER_S = 67e12
 # maximum SM clock, both read from the card in phase 1 (an assumption: the
 # sustained clock under load may be lower).
 IMAD_LANES_PER_SM = 64
+# The scan's exponentials run on the SFU (MUFU.EX2): 16 per SM per clock on
+# compute capability 9.0, times the SM count and maximum SM clock read in
+# phase 1 (the same assumption as for IMAD).
+MUFU_PER_SM = 16
 REPS = 50
+# B13 against its plain version: the JAX package's own tolerance
+# (tests/test_kernels_ssm.py); a bf16 y is a rounding of such a value, so
+# it may sit one bf16 step (at most 2^-7 relative) away.
+SCAN_ATOL, SCAN_RTOL, SCAN_BF16_RTOL = 2e-4, 2e-3, 2.0 ** -7
+# Phase 7: falcon-mamba-7b at full width and depth, bf16: 4 prompts of 64
+# tokens, 8 greedy tokens, so each per-token explain runs over S = 72.
+LM_ARCH, LM_BATCH, LM_PROMPT, LM_NEW = "falcon-mamba-7b", 4, 64, 8
+# bf16 end to end.  The B13 route and the chunked scan compute the same f32
+# recurrence in another order, so a y may land on the other side of a bf16
+# rounding step.  In each layer of the B13 route's forward, B13's y is held
+# against the chunked scan on the same operands at phase 2's tolerance
+# (SCAN_*: one bf16 step).  Through the whole stack such one-step
+# differences run on through 64 bf16 layers, each rounding again, so the
+# explain's last-position logits are held to the chunked route's own bf16
+# error, a bound that B13 does not enter: within LM_LOGITS_FACTOR times the
+# chunked route's distance from the same weights evaluated in f32.
+# Contrastive vs the ixg difference: the backward is linear in its seed but
+# rounds every bf16 cotangent, so the two seeds' roundings differ; within
+# LM_LINEARITY_TOL * max(|ixg a|, |ixg b|).
+LM_LOGITS_FACTOR = 2.0
+LM_LINEARITY_TOL = 5e-2
+# Phase 8: two layers at full width in f32 against a CPU twin.
+LM_TWIN_BATCH, LM_TWIN_SEQ = 2, 32
 
 KERNELS = {   # counter -> (C source, replaced TPU kernel def)
     "conv2d_fwd": ("src/repro_torch/csrc/conv2d.cu",
@@ -114,6 +170,8 @@ KERNELS = {   # counter -> (C source, replaced TPU kernel def)
                  "src/repro/kernels/relu_mask/relu_mask.py:108"),
     "unpool_bwd": ("src/repro_torch/csrc/pool.cu",
                    "src/repro/kernels/pool/pool.py:97"),
+    "selective_scan": ("src/repro_torch/csrc/ssm_scan.cu",
+                       "src/repro/kernels/ssm_scan/ssm_scan.py:56"),
 }
 #: The int16 instances of B2/B3 (fxp16 path) and of B12: timed and checked
 #: on their own, launched under the ``relu_fwd`` / ``maxpool_fwd`` /
@@ -179,7 +237,30 @@ def profile_breakdown(fn, what: str, wall: float, reps: int = 5):
     print(f"  profile {what}: kernels {busy:.4f} ms of {wall:.4f} ms device "
           f"per call (idle {100 * max(0.0, 1 - busy / wall):.1f} %); "
           + "; ".join(f"{n[:48]} {t:.4f}" for n, t in top))
-    return dict(kernels_ms=busy, device_ms=wall, by_kernel=by_name)
+    cats = {}
+    for name, t in by_name.items():
+        cats[_category(name)] = cats.get(_category(name), 0.0) + t
+    print("    by category: " + "; ".join(
+        f"{c} {t:.4f}" for c, t in sorted(cats.items(), key=lambda kv: -kv[1])))
+    return dict(kernels_ms=busy, device_ms=wall, by_kernel=by_name,
+                by_category=cats)
+
+
+def _category(kernel_name: str) -> str:
+    """A kernel's family, by its name: our kernels, cuBLAS/CUTLASS matrix
+    products, or PyTorch's own (elementwise, reductions, copies)."""
+    n = kernel_name.lower()
+    if "selective_scan" in n:
+        return "B13"
+    if any(k in n for k in ("conv_kernel", "conv_fxp_kernel", "relu_fwd_kernel",
+                            "relu_bwd_kernel", "maxpool_fwd_kernel",
+                            "unpool_bwd_kernel", "vmm_kernel",
+                            "vmm_fxp_kernel", "vmm_bwd")):
+        return "B1-B12"
+    if any(k in n for k in ("gemm", "cutlass", "xmma", "cublas", "sm90_",
+                            "gemv", "splitk")):
+        return "matmul (cuBLAS)"
+    return "torch (elementwise, reductions, copies)"
 
 
 # ---------------------------------------------------------------------------
@@ -190,8 +271,10 @@ def profile_breakdown(fn, what: str, wall: float, reps: int = 5):
 class KernelCheck:
     """Per-kernel results, summed over its main-path shapes (saliency)."""
 
-    def __init__(self, imad_per_s: float):
+    def __init__(self, imad_per_s: float, mufu_per_s: float):
         self.imad_per_s = imad_per_s
+        self.mufu_per_s = mufu_per_s
+        self.scan_backward_ms = self.scan_backward_loop_ms = None
         self.rows = []            # one per compared case, for --out
         keys = tuple(KERNELS) + INT16_INSTANCES
         self.err = {k: 0.0 for k in keys}
@@ -201,11 +284,14 @@ class KernelCheck:
 
     def record(self, counter, case, main, got, want, exact, kernel_fn,
                plain_fn, nbytes, flops, library_fn=None, rate=None,
-               f32_reference_fn=None):
+               f32_reference_fn=None, close=None):
         """Compare, time and log one case.  ``rate`` is the peak for
-        ``flops`` (f32 FLOP/s by default; IMAD/s for the int16 kernels);
-        ``f32_reference_fn`` times an f32 library call on the same shapes,
-        a reference point only, where no library computes the function."""
+        ``flops`` (f32 FLOP/s by default; IMAD/s for the int16 kernels,
+        MUFU/s for the scan's exponentials); ``f32_reference_fn`` times an
+        f32 library call on the same shapes, a reference point only, where
+        no library computes the function; ``close(got, want)`` replaces the
+        default ``DOT_TOL`` comparison of an inexact case, returning the
+        error or failing."""
         rate = F32_FLOP_PER_S if rate is None else rate
         torch.cuda.synchronize()
         pairs = list(zip(got, want)) if isinstance(got, tuple) else [
@@ -218,6 +304,8 @@ class KernelCheck:
             if exact:
                 if not torch.equal(g, w):
                     fail(f"{counter} {case}: not bitwise equal to plain")
+            elif close is not None:
+                err = max(err, close(g, w))
             else:
                 e = (g - w).abs().max().item()
                 ref = w.abs().max().item()
@@ -665,6 +753,101 @@ def check_kernels_autograd(kc: KernelCheck):
                       nbytes, 4 * g.numel(), f32_reference_fn=lib)
 
 
+def _scan_close(got, want, what="selective_scan"):
+    """|got - want| <= SCAN_ATOL + rtol * |want| elementwise (rtol one bf16
+    step for a bf16 y); returns the largest |got - want|."""
+    rtol = SCAN_BF16_RTOL if got.dtype == torch.bfloat16 else SCAN_RTOL
+    g, w = got.float(), want.float()
+    d = (g - w).abs()
+    if not bool((d <= SCAN_ATOL + rtol * w.abs()).all()):
+        fail(f"{what}: max|d| {d.max().item():.3e} beyond atol "
+             f"{SCAN_ATOL} + rtol {rtol}")
+    return d.max().item()
+
+
+def check_kernels_scan(kc: KernelCheck):
+    """B13 at falcon-mamba-7b's explain shape (B = 4 prompts, S = 72, D =
+    8192, N = 16; x bf16 on the main path, f32 beside it), a ragged S = 13,
+    and two knob pairs that must agree bit for bit.  No PyTorch call
+    computes the scan: the library column is none.  The plain backward of
+    the scan (autograd over the chunked scan, ``ssm_scan/ops.py``) is timed
+    beside it."""
+    from repro_torch.kernels.ssm_scan import ops as scan_ops
+    from repro_torch.kernels.ssm_scan import ref as scan_ref
+    from repro_torch.kernels.ssm_scan.ssm_scan import selective_scan
+
+    gen = torch.Generator(device="cuda").manual_seed(1357)
+    b, d, n = LM_BATCH, 8192, 16
+    tiles = ((d, 128), (256, 64))     # the explain's knobs, the default's
+
+    def inputs(s, dtype):
+        dt = F.softplus(randn(gen, b, s, d) - 4.6)      # as dt_bias sets
+        x = randn(gen, b, s, d).to(dtype)
+        return (dt, x, randn(gen, b, s, n), randn(gen, b, s, n),
+                -torch.exp(randn(gen, d, n) * 0.3), randn(gen, b, d, n))
+
+    for s, dtype in ((LM_PROMPT + LM_NEW, torch.bfloat16),
+                     (LM_PROMPT + LM_NEW, torch.float32),
+                     (13, torch.bfloat16)):
+        args = inputs(s, dtype)
+        xs = args[1].element_size()
+        nbytes = (4 * b * s * d + 2 * xs * b * s * d + 2 * 4 * b * d * n
+                  + 4 * d * n + 2 * 4 * b * s * n)
+        main = s == LM_PROMPT + LM_NEW and dtype == torch.bfloat16
+        got = [selective_scan(*args, d_tile=dtl, chunk=ck)
+               for dtl, ck in tiles]
+        torch.cuda.synchronize()
+        for y, h in got[1:]:
+            if not (torch.equal(y, got[0][0]) and torch.equal(h, got[0][1])):
+                fail(f"selective_scan: knobs {tiles} change the bits")
+        case = (f"[{b},{s},{d}]x[{d},{n}] "
+                + ("bf16" if dtype == torch.bfloat16 else "f32"))
+        kc.record("selective_scan", case, main, got[0],
+                  scan_ref.selective_scan(*args), False,
+                  lambda: selective_scan(*args, d_tile=d, chunk=128),
+                  lambda: scan_ref.selective_scan(*args), nbytes,
+                  b * s * d * n, rate=kc.mufu_per_s, close=_scan_close)
+        if main:
+            leaves = [t.detach().requires_grad_() for t in args]
+            y, _ = scan_ops.selective_scan(*leaves, d_tile=d, chunk=128)
+            gy = randn(gen, *y.shape).to(y.dtype)
+
+            def backward():
+                torch.autograd.grad(y, leaves, gy, retain_graph=True)
+
+            kc.scan_backward_ms = _span_ms(backward)
+            # the JAX package's form: autograd over the sequential loop
+            y_loop, _ = scan_ref.selective_scan(*leaves)
+
+            def backward_loop():
+                torch.autograd.grad(y_loop, leaves, gy, retain_graph=True)
+
+            kc.scan_backward_loop_ms = _span_ms(backward_loop)
+            print(f"  {'(plain backward)':20s} {case:34s} autograd over the "
+                  f"chunked scan (the port's): {kc.scan_backward_ms:.4f} ms "
+                  f"per layer; over the sequential loop (the JAX "
+                  f"package's form): {kc.scan_backward_loop_ms:.4f} ms")
+    print(f"  selective_scan knobs {tiles[0]} and {tiles[1]}: bitwise equal")
+
+
+def _span_ms(fn, reps: int = 5) -> float:
+    """Median time from a CUDA event before ``fn()`` to one after it, each
+    run on its own: for host-bound calls (thousands of launches), where
+    queueing runs back to back behind a sleep would only time the host."""
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        a, b = (torch.cuda.Event(enable_timing=True),
+                torch.cuda.Event(enable_timing=True))
+        a.record()
+        fn()
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
 # ---------------------------------------------------------------------------
 # phases 3-4: the engine, end to end
 # ---------------------------------------------------------------------------
@@ -1035,6 +1218,355 @@ def check_train(params, cfg, x_cpu, launches, to_profile):
 
 
 # ---------------------------------------------------------------------------
+# phases 7-8: LM token attribution (falcon-mamba-7b)
+# ---------------------------------------------------------------------------
+
+
+def _finite(t, what, shape=None):
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        fail(f"{what}: shape {tuple(t.shape)}, want {tuple(shape)}")
+    if not bool(torch.isfinite(t).all()):
+        fail(f"{what}: not finite")
+
+
+def _rel_err(got, want):
+    return ((got.float() - want.float()).abs().max().item()
+            / max(want.float().abs().max().item(), 1e-30))
+
+
+def check_lm(launches, to_profile):
+    """Phase 7: falcon-mamba-7b, FULL config (64 layers, d_model 4096,
+    d_inner 8192, N 16, vocab 65024, bf16), random weights."""
+    from repro_torch import configs, lm
+    from repro_torch.engine import EngineSpec, LMModel, build
+    from repro_torch.models import transformer as tf
+
+    cfg = configs.get(LM_ARCH)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = tf.init(cfg, generator=torch.Generator(device="cuda")
+                     .manual_seed(0), device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in _leaves(params))
+    prompts = torch.randint(0, cfg.vocab, (LM_BATCH, LM_PROMPT),
+                            generator=torch.Generator(device="cuda")
+                            .manual_seed(1), device="cuda")
+    print(f"  {cfg.name}: {n_params / 1e9:.3f} B parameters "
+          f"({cfg.param_count() / 1e9:.3f} B analytic), "
+          f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB on the card, "
+          f"drawn in {init_s:.1f} s")
+    totals = launches.setdefault("lm", {})
+    per_explain = {"selective_scan": cfg.n_layers}
+
+    # greedy decode, twice: no B13 launch, the same tokens
+    res, rose = _count(lambda: lm.decode(params, cfg, prompts,
+                                         max_new=LM_NEW), {})
+    _expect(rose, {}, "lm decode")
+    again = lm.decode(params, cfg, prompts, max_new=LM_NEW)
+    if not torch.equal(again.tokens, res.tokens):
+        fail("lm: a second greedy decode gave other tokens")
+    s_full = LM_PROMPT + LM_NEW
+    if tuple(res.tokens.shape) != (LM_BATCH, s_full) or bool(
+            (res.generated == res.runners_up).any()):
+        fail("lm: decode result malformed")
+
+    # one contrastive explain per generated token, S = 72
+    scores, rose = _count(lambda: lm.explain_generated(params, cfg, res),
+                          totals)
+    _expect(rose, {"selective_scan": cfg.n_layers * LM_NEW},
+            "lm explain_generated")
+    _finite(scores, "lm per-token scores", (LM_BATCH, LM_NEW, s_full))
+    for t in range(LM_NEW):
+        if not bool((scores[:, t, LM_PROMPT + t:] == 0).all()):
+            fail(f"lm: scores after the seed of token {t} are not 0")
+        if not bool((scores[:, t, :LM_PROMPT + t] != 0).any()):
+            fail(f"lm: token {t} has no relevance before its seed")
+
+    # contrastive == ixg(a) - ixg(b), on the last generated token
+    t, pos = LM_NEW - 1, LM_PROMPT + LM_NEW - 2
+    ixg = lm.make_token_explain(cfg, mode="ixg")
+    (sa, sb), rose = _count(lambda: (
+        ixg(params, res.tokens, pos, res.tokens[:, pos + 1], None),
+        ixg(params, res.tokens, pos, res.runners_up[:, t], None)), totals)
+    _expect(rose, {"selective_scan": 2 * cfg.n_layers}, "lm ixg explains")
+    lin_err = ((scores[:, t] - (sa - sb)).abs().max().item()
+               / max(sa.abs().max().item(), sb.abs().max().item()))
+    if not lin_err <= LM_LINEARITY_TOL:
+        fail(f"lm: contrastive vs ixg(a) - ixg(b): {lin_err:.3e}")
+
+    # the engine, on the prompts: three modes (saliency), two more methods
+    results = {}
+    for method, mode in (("saliency", "ixg"), ("saliency", "grad_norm"),
+                         ("saliency", "contrastive"), ("deconvnet", "ixg"),
+                         ("guided", "ixg")):
+        eng = build(EngineSpec(LMModel(params, cfg), method=method))
+        (lg, sc), rose = _count(lambda: eng.explain_tokens(
+            {"tokens": prompts}, mode=mode), totals)
+        _expect(rose, per_explain, f"lm engine {method} {mode}")
+        _finite(lg, f"lm {method} {mode} logits", (LM_BATCH, cfg.vocab))
+        _finite(sc, f"lm {method} {mode} scores", (LM_BATCH, LM_PROMPT))
+        results[f"{method} {mode}"] = dict(max_abs_score=sc.abs().max()
+                                           .item())
+        if (method, mode) == ("saliency", "ixg"):
+            with torch.no_grad():           # the chunked scan, no B13
+                h = tf.embed_inputs(params, cfg, {"tokens": prompts})
+                ref = tf.forward_from_embeddings(params, cfg, h)[0][:, -1]
+                ref32 = _f32_last_logits(params, cfg, prompts)
+            logit_err = _rel_err(lg, ref)
+            chunk_err = _rel_err(ref, ref32)
+            if not logit_err <= LM_LOGITS_FACTOR * chunk_err:
+                fail(f"lm: B13-route logits vs the chunked scan's "
+                     f"{logit_err:.3e} of max|logit|, beyond "
+                     f"{LM_LOGITS_FACTOR} x the chunked route's bf16 error "
+                     f"{chunk_err:.3e}")
+            layer_errs = _b13_layer_errs(params, cfg, prompts)
+            same_argmax = float((lg.argmax(-1) == ref.argmax(-1)).float()
+                                .mean())
+            eng_ixg = eng
+
+    # times: a decode step, a per-token explain, an engine explain
+    cache = tf.init_cache(cfg, LM_BATCH, s_full, device="cuda")
+    with torch.no_grad():
+        _, cache = tf.prefill(params, cfg, {"tokens": res.tokens[:, :-1]},
+                              cache)
+    last = res.tokens[:, -1:]
+
+    def step():
+        with torch.no_grad():
+            tf.decode_step(params, cfg, last, cache, s_full - 1)
+
+    contrastive = lm.make_token_explain(cfg, mode="contrastive")
+
+    def token_explain():
+        contrastive(params, res.tokens, pos, res.tokens[:, pos + 1],
+                    res.runners_up[:, t])
+
+    def engine_explain():
+        eng_ixg.explain_tokens({"tokens": prompts})
+
+    times = {}
+    for what, fn in (("decode step", step),
+                     ("per-token explain (S=72)", token_explain),
+                     ("engine explain (S=64)", engine_explain)):
+        host = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            host.append(1e3 * (time.perf_counter() - t0))
+        dev = _span_ms(fn, reps=3)
+        times[what] = dict(host_ms=statistics.median(host), device_ms=dev)
+        print(f"  lm {what}: {statistics.median(host):.2f} ms host, "
+              f"{dev:.2f} ms device span")
+    to_profile.append(("lm decode step", step, times["decode step"]
+                       ["device_ms"]))
+    to_profile.append(("lm per-token explain", token_explain,
+                       times["per-token explain (S=72)"]["device_ms"]))
+    print(f"  lm: decode x2 equal, {LM_NEW} per-token explains + 2 ixg + "
+          f"5 engine explains, {cfg.n_layers} B13 launches each and none "
+          f"in decode; causal zeros exact; contrastive vs ixg difference "
+          f"{lin_err:.2e}; B13 vs the chunked scan in each layer's "
+          f"forward: max|dy| {max(layer_errs):.2e}; B13 vs chunked logits "
+          f"{logit_err:.2e} of max (chunked vs f32 weights {chunk_err:.2e}; "
+          f"argmax agrees on {same_argmax:.2f})")
+    return dict(init_s=init_s, n_params=n_params, linearity_err=lin_err,
+                layer_errs=layer_errs, logits_vs_chunked=logit_err,
+                chunked_vs_f32=chunk_err, argmax_agree=same_argmax,
+                times=times, engine=results,
+                peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+
+
+def _b13_layer_errs(params, cfg, tokens):
+    """The B13-route forward of ``tokens`` (the explain's knobs), each
+    layer's scan held against the chunked scan on the same operands, at
+    phase 2's tolerance (:func:`_scan_close`).  Returns the largest |dy| per
+    layer.  The scan is watched by swapping ``ops.selective_scan`` for a
+    wrapper around it for this one forward; these launches are comparisons
+    and are not counted."""
+    from repro_torch.kernels.ssm_scan import ops as scan_ops
+    from repro_torch.launch import steps
+    from repro_torch.models import mamba
+    from repro_torch.models import transformer as tf
+    real, errs = scan_ops.selective_scan, []
+
+    def held(dt, x, bmat, cmat, a, h0, *, d_tile, chunk):
+        y, h = real(dt, x, bmat, cmat, a, h0, d_tile=d_tile, chunk=chunk)
+        want = mamba.chunked_scan(dt, x, bmat, cmat, a, h0, chunk=chunk)[0]
+        errs.append(_scan_close(y, want, f"lm layer {len(errs)}: B13 vs "
+                                         f"the chunked scan"))
+        return y, h
+
+    scan_ops.selective_scan = held
+    try:
+        with torch.no_grad():
+            h = tf.embed_inputs(params, cfg, {"tokens": tokens})
+            tf.forward_from_embeddings(params, cfg, h,
+                                       scan_tiles=steps.ssm_scan_tiles(cfg))
+    finally:
+        scan_ops.selective_scan = real
+    if len(errs) != cfg.n_layers:
+        fail(f"lm: {len(errs)} scans held, want {cfg.n_layers}")
+    return errs
+
+
+def _f32_last_logits(params, cfg, tokens):
+    """Last-position logits of the same weights evaluated in f32, layer by
+    layer (each layer's weights widened as it runs; chunked scan)."""
+    from repro_torch.models import layers
+    from repro_torch.models import transformer as tf
+    c32 = cfg.with_(dtype="float32")
+
+    def up(tree):
+        return tf._tree_map(lambda t: t.to(torch.float32), tree)
+
+    x = tf.embed_inputs(params, cfg, {"tokens": tokens}).to(torch.float32)
+    for si, (kind, count, _) in enumerate(cfg.layer_plan()):
+        for i in range(count):
+            x, _ = tf._block(up(tf._layer(params["segments"][si], i)), x,
+                             c32, kind, method="autodiff")
+    x = layers.apply_norm(params["final_norm"], x[:, -1:], cfg.norm)
+    return layers.lm_head(up(params["embed"]), x, c32)[:, -1]
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _leaves(v)]
+    if isinstance(tree, list):
+        return [t for v in tree for t in _leaves(v)]
+    return [tree]
+
+
+def _int8_codes(fn, replace=None):
+    """Run ``fn`` and return its result and the int8 residual codes that
+    autograd saved (the smooth gates' quantized inputs), in graph order.
+    With ``replace`` (codes of the same graph from another run), each
+    saved code tensor is swapped for its counterpart there, so the
+    backward reads those codes."""
+    codes = []
+
+    def pack(t):
+        if t.dtype == torch.int8:
+            codes.append(t.detach().cpu())
+            if replace is not None:
+                t = replace[len(codes) - 1].to(t.device)
+        return t
+
+    with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+        out = fn()
+    return out, codes
+
+
+def check_lm_twin(launches):
+    """Phase 8: ``FULL.with_(n_layers=2, dtype="float32")`` — full width,
+    depth 2 — explained on the card and on a CPU twin with the same
+    parameters.  Logits within DOT_TOL * max|ref|.
+
+    The int8 residual codes: a pre-activation within float noise of a
+    rounding boundary of its row's int8 grid can take the neighbouring
+    code on the other device (as a ReLU bit flips in phase 5), which moves
+    that example's slope there by one quantum.  An example holds ~10^6
+    codes at full width, so at this size every example may hold such a
+    code, and a comparison on the examples whose codes all agree may have
+    none to compare.  So: the codes agree on at least MIN_BIT_AGREEMENT of
+    them and lie one step apart where they differ; the scores lie within
+    REPLAY_TOL * max|scores| of the CPU twin run on the card's codes (its
+    backward reads them in place of its own), on every example; and the
+    same config with ``residual_policy="exact"`` (the slope at the saved
+    input itself, no grid to round to) within REPLAY_TOL of the plain CPU
+    twin, on every example.  Contrastive = ixg(a) - ixg(b) within
+    REPLAY_TOL in f32."""
+    from repro_torch import configs
+    from repro_torch.engine import EngineSpec, LMModel, build
+    from repro_torch.models import transformer as tf
+
+    cfg = configs.get(LM_ARCH).with_(n_layers=2, dtype="float32")
+    exact = cfg.with_(residual_policy="exact")
+    params = tf.init(cfg, generator=torch.Generator().manual_seed(0),
+                     device="cpu")
+    card = tf.params_to(params, "cuda")
+    toks = torch.randint(0, cfg.vocab, (LM_TWIN_BATCH, LM_TWIN_SEQ),
+                         generator=torch.Generator().manual_seed(2))
+    totals = launches.setdefault("lm_twin", {})
+    results = {}
+
+    def engines(c, method):
+        return (build(EngineSpec(LMModel(card, c), method=method)),
+                build(EngineSpec(LMModel(params, c, device="cpu"),
+                                 method=method)))
+
+    for method, mode in (("saliency", "ixg"), ("saliency", "grad_norm"),
+                         ("saliency", "contrastive"), ("deconvnet", "ixg"),
+                         ("guided", "ixg")):
+        what = f"lm twin {method} {mode}"
+        eng, twin = engines(cfg, method)
+        ((lg, sc), codes), rose = _count(lambda: _int8_codes(
+            lambda: eng.explain_tokens({"tokens": toks}, mode=mode)), totals)
+        _expect(rose, {"selective_scan": cfg.n_layers}, what)
+        (lg_c, sc_c), codes_c = _int8_codes(
+            lambda: twin.explain_tokens({"tokens": toks}, mode=mode))
+        if len(codes) != len(codes_c):
+            fail("lm twin: residual structure differs between the devices")
+        lerr = _rel_err(lg.cpu(), lg_c)
+        if not lerr <= DOT_TOL:
+            fail(f"{what}: logits {lerr:.3e} of max")
+        _finite(sc, f"{what} scores")
+        n_codes = sum(c.numel() for c in codes)
+        n_flip = sum(int((a != b).sum()) for a, b in zip(codes, codes_c))
+        step = max((int((a.short() - b.short()).abs().max())
+                    for a, b in zip(codes, codes_c) if a.numel()), default=0)
+        if n_flip > (1 - MIN_BIT_AGREEMENT) * n_codes or step > 1:
+            fail(f"{what}: {n_flip} of {n_codes} int8 codes differ between "
+                 f"the devices, by up to {step} steps")
+        (_, sc_x), _ = _int8_codes(
+            lambda: twin.explain_tokens({"tokens": toks}, mode=mode),
+            replace=codes)
+        xerr = _rel_err(sc.cpu(), sc_x)
+        if not xerr <= REPLAY_TOL:
+            fail(f"{what}: scores vs the CPU on the card's codes "
+                 f"{xerr:.3e} of max")
+        line = (f"  {what:33s} logits {lerr:.2e} of max; int8: scores "
+                f"{xerr:.2e} of max vs the CPU on the card's codes "
+                f"({_rel_err(sc.cpu(), sc_c):.2e} vs the plain CPU; {n_flip} "
+                f"of {n_codes} codes differ, by at most {step})")
+        results[f"{method} {mode}"] = dict(
+            logits_err=lerr, scores_err_card_codes=xerr,
+            scores_err_plain=_rel_err(sc.cpu(), sc_c), max_abs_score=sc_c
+            .abs().max().item(), codes=n_codes, codes_flipped=n_flip)
+        if n_codes:                 # deconvnet keeps no residual
+            eng, twin = engines(exact, method)
+            (_, sc_e), rose = _count(lambda: eng.explain_tokens(
+                {"tokens": toks}, mode=mode), totals)
+            _expect(rose, {"selective_scan": cfg.n_layers},
+                    f"{what} exact")
+            eerr = _rel_err(sc_e.cpu(), twin.explain_tokens(
+                {"tokens": toks}, mode=mode)[1])
+            if not eerr <= REPLAY_TOL:
+                fail(f"{what}: exact residuals, scores vs the plain CPU "
+                     f"{eerr:.3e} of max")
+            line += f"; exact residuals: {eerr:.2e} vs the plain CPU"
+            results[f"{method} {mode}"]["scores_err_exact"] = eerr
+        print(line)
+        if mode == "ixg" and method == "saliency":
+            lg_full = tf.forward(card, cfg, {"tokens": toks.to("cuda")})[0]
+            top = lg_full[:, -1].float().argsort(dim=-1, descending=True)
+            ta, tb = top[:, 0], top[:, 1]
+    # linearity in f32: contrastive = ixg(a) - ixg(b) at the last position
+    from repro_torch import lm
+    args = (card, toks.to("cuda"), LM_TWIN_SEQ - 1)
+    con = lm.make_token_explain(cfg, mode="contrastive")(*args, ta, tb)
+    ixg = lm.make_token_explain(cfg, mode="ixg")
+    diff = ixg(*args, ta, None) - ixg(*args, tb, None)
+    lin = _rel_err(con, diff)
+    if not lin <= REPLAY_TOL:
+        fail(f"lm twin: contrastive vs ixg(a) - ixg(b) {lin:.3e} of max")
+    print(f"  lm twin: contrastive vs ixg(a) - ixg(b) {lin:.2e} of max (f32)")
+    results["linearity_err"] = lin
+    return results
+
+
+# ---------------------------------------------------------------------------
 
 
 #: The counters each path must launch; the others must stay at 0 there.
@@ -1042,7 +1574,9 @@ PATH_KERNELS = {"f32": tuple(PER_EXPLAIN["f32"]),
                 "fxp16": tuple(PER_EXPLAIN["fxp16"]),
                 "vjp_fused": tuple(PER_EXPLAIN_VJP["vjp_fused"]),
                 "vjp_unfused": tuple(PER_EXPLAIN_VJP["vjp_unfused"]),
-                "train": tuple(PER_TRAIN_STEP)}
+                "train": tuple(PER_TRAIN_STEP),
+                "lm": ("selective_scan",),
+                "lm_twin": ("selective_scan",)}
 #: The path whose launches the kernel JSON reports for each kernel: the
 #: first that runs it.
 KERNEL_PATH = {k: next(p for p in PATH_KERNELS if k in PATH_KERNELS[p])
@@ -1084,9 +1618,11 @@ def main() -> int:
     max_sm_mhz = float(query("clocks.max.sm").split()[0])
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     imad_per_s = sms * IMAD_LANES_PER_SM * max_sm_mhz * 1e6
+    mufu_per_s = sms * MUFU_PER_SM * max_sm_mhz * 1e6
     print(f"phase 1: device {kind} (torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}); nvidia-smi: {smi}; {sms} SMs, max SM "
-          f"clock {max_sm_mhz:.0f} MHz -> IMAD peak {imad_per_s:.4e}/s")
+          f"clock {max_sm_mhz:.0f} MHz -> IMAD peak {imad_per_s:.4e}/s, "
+          f"MUFU peak {mufu_per_s:.4e}/s")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
@@ -1104,10 +1640,11 @@ def main() -> int:
     # phase 2: kernels vs plain
     print(f"phase 2: kernels vs plain versions (batch {BATCH}, S={SEEDS}; "
           f"ms = median of {REPS} back-to-back runs)")
-    kc = KernelCheck(imad_per_s)
+    kc = KernelCheck(imad_per_s, mufu_per_s)
     check_kernels(kc)
     check_kernels_fxp(kc)
     check_kernels_autograd(kc)
+    check_kernels_scan(kc)
     kc.summary()
 
     # phases 3-4: each main path, counted on its own
@@ -1139,9 +1676,22 @@ def main() -> int:
     train_results = check_train(params, cfg, x_cpu, launches, to_profile)
     check_path_launches("train", launches["train"])
 
+    # phases 7-8: LM token attribution, each explain counted from 0
+    print(f"phase 7 (lm): {LM_ARCH} full width and depth, bf16, "
+          f"{LM_BATCH} prompts x {LM_PROMPT} tokens, {LM_NEW} greedy "
+          f"tokens, per-token and engine explains")
+    lm_results = check_lm(launches, to_profile)
+    check_path_launches("lm", launches["lm"])
+    torch.cuda.empty_cache()
+    print(f"phase 8 (lm twin): {LM_ARCH} at full width, 2 layers, f32, "
+          f"batch {LM_TWIN_BATCH} x {LM_TWIN_SEQ} tokens, card vs CPU")
+    twin_results = check_lm_twin(launches)
+    check_path_launches("lm_twin", launches["lm_twin"])
+
     # last, as it slows what runs after it: where each path's time goes
-    print("profiles: one saliency explain per path and one training step "
-          "under torch.profiler")
+    print("profiles: one saliency explain per CNN path, one training step, "
+          "one LM decode step and one per-token LM explain under "
+          "torch.profiler")
     profiles = {what: profile_breakdown(fn, what, wall)
                 for what, fn, wall in to_profile}
 
@@ -1160,9 +1710,13 @@ def main() -> int:
         args.out.mkdir(parents=True, exist_ok=True)
         (args.out / "chip_smoke.json").write_text(json.dumps(dict(
             device=kind, nvidia_smi=smi, sms=sms, max_sm_mhz=max_sm_mhz,
-            imad_per_s=imad_per_s, build_s=build_s, cases=kc.rows,
+            imad_per_s=imad_per_s, mufu_per_s=mufu_per_s, build_s=build_s, cases=kc.rows,
             sums=kc.sums, engine=engine_results, requests=n_req,
-            vjp=vjp_results, train=train_results, profiles=profiles,
+            vjp=vjp_results, train=train_results, lm=lm_results,
+            lm_twin=twin_results,
+            scan_backward_ms=kc.scan_backward_ms,
+            scan_backward_loop_ms=kc.scan_backward_loop_ms,
+            profiles=profiles,
             launches=launches, kernels=kernels), indent=1))
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -1,0 +1,59 @@
+"""Architecture registry, as ``repro.configs`` has it: ``get(name)`` is the
+FULL (published) config, ``get_smoke(name)`` the reduced same-family one.
+
+The port runs falcon-mamba-7b (pure mamba-1, ROADMAP A11a).  Every other
+name of :data:`ARCHS` raises :class:`NotImplementedError` naming the
+ROADMAP item that ports it.
+"""
+from __future__ import annotations
+
+import importlib
+
+from repro_torch.models.config import ModelConfig
+
+ARCHS = (
+    "falcon-mamba-7b",
+    "llama4-scout-17b-a16e",
+    "moonshot-v1-16b-a3b",
+    "llama3.2-1b",
+    "phi4-mini-3.8b",
+    "qwen2-1.5b",
+    "internlm2-20b",
+    "hymba-1.5b",
+    "seamless-m4t-medium",
+    "llava-next-mistral-7b",
+)
+
+#: The configs the port has, and the ROADMAP item of every other one.
+PORTED = ("falcon-mamba-7b",)
+UNPORTED = {
+    "llama4-scout-17b-a16e": "A11b (attention, RoPE, MoE)",
+    "moonshot-v1-16b-a3b": "A11b (attention, RoPE, MoE)",
+    "llama3.2-1b": "A11b (attention, RoPE, FFN)",
+    "phi4-mini-3.8b": "A11b (attention, RoPE, FFN)",
+    "qwen2-1.5b": "A11b (attention, RoPE, FFN)",
+    "internlm2-20b": "A11b (attention, RoPE, FFN)",
+    "hymba-1.5b": "A11b (hybrid attention || SSM)",
+    "seamless-m4t-medium": "A11b (encoder-decoder)",
+    "llava-next-mistral-7b": "A11b (vlm patches frontend)",
+}
+
+
+def _module(arch: str):
+    if arch not in ARCHS:
+        raise ValueError(f"unknown arch {arch!r}; known: {ARCHS}")
+    if arch not in PORTED:
+        raise NotImplementedError(
+            f"{arch}: not ported yet (ROADMAP {UNPORTED[arch]})")
+    return importlib.import_module(
+        "repro_torch.configs." + arch.replace("-", "_").replace(".", "_"))
+
+
+def get(arch: str) -> ModelConfig:
+    """The FULL (exact published) config."""
+    return _module(arch).FULL
+
+
+def get_smoke(arch: str) -> ModelConfig:
+    """The reduced same-family smoke config (CPU-runnable)."""
+    return _module(arch).SMOKE

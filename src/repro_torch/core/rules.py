@@ -13,8 +13,12 @@ Each rule is a :class:`torch.autograd.Function` whose only saved tensor is
 the bit-packed mask (:mod:`repro_torch.core.masks`), so autograd cannot
 keep the activation.  ``method="autodiff"`` is the plain op, for training.
 These run the kernels' plain versions on any device and launch no kernel.
-The smooth gates (``act``, ``silu``, ``gelu``) and ``quantize_int8`` come
-with the LM stack (ROADMAP A11).
+
+Smooth gates (SiLU and GELU; the LM stack) need the pre-activation's
+value for their slope, so a 1-bit mask is not enough: the generalisation
+keeps the cheapest sufficient residual, a per-row int8 quantization
+(``residual="int8"``, :func:`quantize_int8`), and DeconvNet still keeps
+none.
 """
 from __future__ import annotations
 
@@ -25,6 +29,28 @@ from repro_torch.kernels.pool import ref as pool_ref
 from repro_torch.kernels.relu_mask import ref as relu_ref
 
 METHODS = ("autodiff", "saliency", "deconvnet", "guided")
+RESIDUALS = ("exact", "int8")
+
+
+# ---------------------------------------------------------------------------
+# int8 residual quantization
+# ---------------------------------------------------------------------------
+
+
+def quantize_int8(x: torch.Tensor):
+    """Per-row (last-axis) absmax int8 quantization -> ``(q int8, scale
+    f32 [..., 1])``: ``scale = max(absmax / 127, 1e-12)`` in f32 and ``q =
+    clip(round(x / scale), ±127)``, rounding half to even as ``jnp.round``
+    does."""
+    scale = x.abs().amax(dim=-1, keepdim=True).to(torch.float32) / 127.0
+    scale = torch.clamp_min(scale, 1e-12)
+    q = torch.clamp(torch.round(x.to(torch.float32) / scale), -127, 127)
+    return q.to(torch.int8), scale
+
+
+def dequantize_int8(q: torch.Tensor, scale: torch.Tensor,
+                    dtype) -> torch.Tensor:
+    return (q.to(torch.float32) * scale).to(dtype)
 
 
 class _ReluAttr(torch.autograd.Function):
@@ -78,3 +104,98 @@ def maxpool2x2(x: torch.Tensor, method: str = "autodiff") -> torch.Tensor:
     if method == "autodiff":
         return torch.amax(_pool_windows(x), dim=-1)
     return _MaxPoolAttr.apply(x)
+
+
+# ---------------------------------------------------------------------------
+# Smooth gates (SiLU / GELU) with int8 residuals
+# ---------------------------------------------------------------------------
+
+
+def _sigmoid(x):
+    """``1 / (1 + exp(-x))``, each operation rounded to ``x``'s dtype, as
+    ``jax.nn.sigmoid`` lowers (``torch.sigmoid`` rounds once, and differs
+    from it in a third of bf16 values)."""
+    return 1 / (1 + torch.exp(-x))
+
+
+def _gelu_tanh(x):
+    """``jax.nn.gelu(x, approximate=True)``, operation by operation."""
+    c = 0.7978845608028654  # sqrt(2/pi)
+    return x * (0.5 * (1.0 + torch.tanh(c * (x + 0.044715 * x ** 3))))
+
+
+#: Forward of each smooth gate, as the JAX package computes it.
+_FWD = {
+    "silu": lambda x: x * _sigmoid(x),
+    "gelu": _gelu_tanh,
+}
+
+
+def _derivative(kind: str, x: torch.Tensor) -> torch.Tensor:
+    """The gate's slope at ``x`` (f32), in ``repro.core.rules``' closed
+    forms."""
+    if kind == "silu":
+        s = _sigmoid(x)
+        return s * (1 + x * (1 - s))
+    if kind == "gelu":
+        c = 0.7978845608028654  # sqrt(2/pi)
+        t = torch.tanh(c * (x + 0.044715 * x ** 3))
+        return (0.5 * (1 + t)
+                + 0.5 * x * (1 - t ** 2) * c * (1 + 3 * 0.044715 * x ** 2))
+    raise ValueError(kind)
+
+
+class _SmoothAttr(torch.autograd.Function):
+    """A smooth gate whose backward is the method's rule.  Saves the int8
+    residual (``residual="int8"``), the input (``"exact"``) or nothing
+    (deconvnet) — never ``x`` under int8.
+
+    Under saliency and guided the slope is evaluated at the DEQUANTIZED
+    residual, not at ``x``, so this is not autograd's gradient of the gate.
+    """
+
+    @staticmethod
+    def forward(ctx, x, kind, method, residual):
+        ctx.kind, ctx.method, ctx.residual = kind, method, residual
+        if method == "deconvnet":
+            pass                        # gradient-side rule: no residual
+        elif residual == "int8":
+            ctx.save_for_backward(*quantize_int8(x))
+        else:
+            ctx.save_for_backward(x)
+        return _FWD[kind](x)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.method == "deconvnet":   # generalised Eq. 4
+            return torch.where(g > 0, g, 0).to(g.dtype), None, None, None
+        if ctx.residual == "int8":
+            x = dequantize_int8(*ctx.saved_tensors, torch.float32)
+        else:
+            x = ctx.saved_tensors[0].to(torch.float32)
+        r = g.to(torch.float32) * _derivative(ctx.kind, x)
+        if ctx.method == "guided":      # generalised Eq. 5
+            r = torch.where(g > 0, r, 0)
+        return r.to(g.dtype), None, None, None
+
+
+def act(x: torch.Tensor, kind: str, method: str = "autodiff",
+        residual: str = "int8") -> torch.Tensor:
+    """Attribution-aware nonlinearity used by every model of the zoo."""
+    if kind == "relu":
+        return relu(x, method)
+    if method == "autodiff":
+        return _FWD[kind](x)
+    if method not in METHODS:
+        raise ValueError(f"unknown attribution method {method!r}")
+    if residual not in RESIDUALS:
+        raise ValueError(f"unknown residual policy {residual!r}")
+    return _SmoothAttr.apply(x, kind, method, residual)
+
+
+def silu(x, method="autodiff", residual="int8"):
+    return act(x, "silu", method, residual)
+
+
+def gelu(x, method="autodiff", residual="int8"):
+    return act(x, "gelu", method, residual)

@@ -19,10 +19,12 @@ from repro_torch.engine import methods
 from repro_torch.engine.backward import ManualSeedBatchedBackward, VjpBackward
 from repro_torch.engine.engine import Engine, build, cache_size, clear_cache
 from repro_torch.engine.spec import (PERTURB_METHODS, Argmax, CNNModel,
-                                     EngineSpec, Fixed, FnModel, TopK)
+                                     EngineSpec, Fixed, FnModel, LMModel,
+                                     TopK)
 
 __all__ = [
     "Argmax", "CNNModel", "Engine", "EngineSpec", "Fixed", "FnModel",
+    "LMModel",
     "ManualSeedBatchedBackward", "PERTURB_METHODS", "TopK", "VjpBackward",
     "build", "cache_size", "clear_cache", "methods",
 ]

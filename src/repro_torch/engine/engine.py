@@ -40,6 +40,13 @@ class Engine:
         self.spec = spec
         model = spec.model
         self.device = model.device
+        if hasattr(model, "token_step"):
+            # LM token attribution: one step per score mode, the default
+            # "ixg" now and the others at first use.
+            self._token_steps = {"ixg": model.token_step(spec.method)}
+            self._model_fn = self._backend = None
+            return
+        self._token_steps = None
         # logits only, for predict (under fxp16 the mask-free int16 forward)
         self._model_fn = model.logits_fn(spec.method, spec.precision)
         if spec.resolve_backward() == "seed_batched":
@@ -186,6 +193,23 @@ class Engine:
         return methods.attribute_classes(self._model_fn, self._input(x),
                                          targets)
 
+    # -- LM token attribution ------------------------------------------------
+
+    def explain_tokens(self, batch, *, mode: str = "ixg"):
+        """LM engines: ``batch -> (last-position logits [B, V], scores
+        [B, S])`` — per-prompt-position relevance of the next-token
+        prediction.  ``mode`` picks the score reduction (``ixg``,
+        ``grad_norm``, ``contrastive``); each mode's step is built once."""
+        if self._token_steps is None:
+            raise ValueError(
+                f"{type(self.spec.model).__name__} engines explain arrays; "
+                f"explain_tokens needs an LMModel spec")
+        step = self._token_steps.get(mode)
+        if step is None:
+            step = self.spec.model.token_step(self.spec.method, mode=mode)
+            self._token_steps[mode] = step
+        return step(batch)
+
     # -- internals -----------------------------------------------------------
 
     def _input(self, x) -> torch.Tensor:
@@ -206,21 +230,9 @@ class Engine:
         """Fan-out (already spec-resolved) to one-hot seeds [S, B, C]; True
         = squeeze the S=1 axis after the backward."""
         if topk is not None:
-            idx = self._top_k(logits, topk).T                     # [K, B]
+            idx = methods.top_k(logits, topk).T                  # [K, B]
             return methods.one_hot(idx, logits.shape[-1], logits), False
         return methods.output_seed(logits, target)[None], True
-
-    @staticmethod
-    def _top_k(logits, k):
-        """Indices of the ``k`` largest logits per row, in ``lax.top_k``'s
-        order: descending in IEEE total order (+0 above -0), ties to the
-        lower index.  ``torch.topk`` keeps no tie order, and ties are common
-        on the fxp16 logits grid.  The f32 bits are mapped to int32 keys
-        that sort in total order, then sorted stably."""
-        bits = logits.to(torch.float32).contiguous().view(torch.int32)
-        key = bits ^ ((bits >> 31) & 0x7FFFFFFF)
-        order = torch.sort(key, dim=-1, descending=True, stable=True)
-        return order.indices[..., :k]
 
     def _pad(self, x) -> Tuple[torch.Tensor, Optional[int]]:
         """Pad the leading batch dim up to ``spec.batch`` (row-0 repeats)."""

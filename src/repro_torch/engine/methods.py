@@ -13,8 +13,12 @@ engine, where ``f(x)`` returns ``(logits, residuals)`` and
 ``backward(residuals, seeds)`` replays the BP over the stored masks, seeds
 carrying a leading S axis.  That is how the true-int16 ``fxp16`` path runs
 (integers have no gradient) and how a cache replays explanations without
-the forward.  Inputs are tensors (the JAX package also takes pytrees);
-the token methods come with the LM stack (ROADMAP A11).
+the forward.  Inputs are tensors (the JAX package also takes pytrees).
+
+The token methods (:func:`attribute_tokens`,
+:func:`attribute_tokens_contrastive`) explain one position of an LM's
+logits over its input embeddings; their ``backward=`` (the manual engine
+of an fxp16 token stack) is not ported (ROADMAP A11b).
 """
 from __future__ import annotations
 
@@ -33,6 +37,18 @@ def one_hot(idx: torch.Tensor, nc: int, like: torch.Tensor) -> torch.Tensor:
     out = torch.zeros(idx.shape + (nc,), dtype=like.dtype,
                       device=like.device)
     return out.scatter_(-1, idx[..., None], 1.0)
+
+
+def top_k(logits: torch.Tensor, k: int) -> torch.Tensor:
+    """Indices of the ``k`` largest logits per row, in ``lax.top_k``'s
+    order: descending in IEEE total order (+0 above -0), ties to the lower
+    index.  ``torch.topk`` keeps no tie order, and ties are common on the
+    fxp16 logits grid.  The f32 bits are mapped to int32 keys that sort in
+    total order, then sorted stably."""
+    bits = logits.to(torch.float32).contiguous().view(torch.int32)
+    key = bits ^ ((bits >> 31) & 0x7FFFFFFF)
+    order = torch.sort(key, dim=-1, descending=True, stable=True)
+    return order.indices[..., :k]
 
 
 def output_seed(logits: torch.Tensor, target=None) -> torch.Tensor:
@@ -144,6 +160,79 @@ def _probe_logits(f: Callable, x, backward):
     with torch.no_grad():
         out = f(x)
     return out[0] if backward is not None else out
+
+
+def _no_manual_token_backward(backward):
+    if backward is not None:
+        raise NotImplementedError(
+            "backward= (the manual engine of an fxp16 token stack) is not "
+            "ported yet (ROADMAP A11b); token methods run autograd")
+
+
+def _token_seed(logits, position, seed_at):
+    """Zeros shaped like ``logits`` [B, S, V] with ``seed_at`` [B, V] at
+    ``position``."""
+    seed = torch.zeros_like(logits)
+    seed[:, position, :] = seed_at
+    return seed
+
+
+def _token_ids(t, at):
+    """Token ids (ints, a tensor or an array) as int64 [B] on ``at``'s
+    device."""
+    return torch.as_tensor(t, device=at.device).to(torch.int64).broadcast_to(
+        at.shape[:-1])
+
+
+def _token_scores(rel, embeds):
+    """The input-x-gradient reduction per token: ``sum_d rel * embed``."""
+    return (rel.to(torch.float32) * embeds.to(torch.float32)).sum(dim=-1)
+
+
+def attribute_tokens(f: Callable, embeds: torch.Tensor, *, position=-1,
+                     target=None, backward=None):
+    """LM attribution: relevance of input embeddings for one output token.
+
+    ``f(embeds) -> logits [B, S, V]``.  Explains the logit of ``target``
+    (or the argmax) at ``position``.  Returns (logits, relevance [B, S, D],
+    per-token scores [B, S]) with scores = sum_d rel * embed (the "input x
+    gradient" reduction).
+    """
+    _no_manual_token_backward(backward)
+    logits, vjp_fn = vjp(f, embeds)
+    at = logits[:, position, :]
+    if target is None:
+        target = torch.argmax(at, dim=-1)
+    seed_at = one_hot(_token_ids(target, at), at.shape[-1], at)
+    rel = vjp_fn(_token_seed(logits, position, seed_at)[None])[0]
+    return logits, rel, _token_scores(rel, embeds)
+
+
+def attribute_tokens_contrastive(f: Callable, embeds: torch.Tensor, *,
+                                 position=-1, target_a=None, target_b=None,
+                                 backward=None):
+    """Token-level "why A rather than B?" — one BP with an e_A - e_B seed.
+
+    Defaults: ``target_a`` is the argmax at ``position`` and ``target_b``
+    the runner-up (``lax.top_k``'s tie order, :func:`top_k`); a given
+    ``target_a`` (a sampled token) takes as ``target_b`` the top-2
+    candidate that is not it.  Returns (logits, relevance, scores) as
+    :func:`attribute_tokens`; by linearity of the BP in the seed the scores
+    equal the difference of two single-target calls.
+    """
+    _no_manual_token_backward(backward)
+    logits, vjp_fn = vjp(f, embeds)
+    at = logits[:, position, :]
+    idx2 = top_k(at, 2)
+    target_a = _token_ids(idx2[:, 0] if target_a is None else target_a, at)
+    if target_b is None:
+        target_b = torch.where(target_a == idx2[:, 0], idx2[:, 1],
+                               idx2[:, 0])
+    target_b = _token_ids(target_b, at)
+    seed_at = (one_hot(target_a, at.shape[-1], at)
+               - one_hot(target_b, at.shape[-1], at))
+    rel = vjp_fn(_token_seed(logits, position, seed_at)[None])[0]
+    return logits, rel, _token_scores(rel, embeds)
 
 
 def integrated_gradients(f: Callable, x: torch.Tensor, *, baseline=None,

@@ -23,6 +23,7 @@ engine.
 """
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass, field
 from typing import Any, Callable, Optional, Tuple, Union
 
@@ -171,6 +172,58 @@ class CNNModel(_ParamsIdentity):
 
 
 @dataclass(frozen=True, eq=False)
+class LMModel(_ParamsIdentity):
+    """Handle on the LM zoo for token attribution
+    (:func:`repro_torch.launch.steps.make_attribute_step`): FP +
+    input-gradient BP over the embedding stack, scores reduced per prompt
+    position.  ``params`` is a :mod:`repro_torch.models.transformer` tree
+    on any device; it moves to ``device`` (None: the card) once, at the
+    first step built.  Mamba stacks only (ROADMAP A11b for the rest)."""
+
+    params: Any
+    cfg: Any                    # models.config.ModelConfig
+    device: Any = None
+
+    def __post_init__(self):
+        object.__setattr__(self, "device", resolve_device(self.device))
+
+    def _key(self):
+        return (id(self.params), self.cfg, self.device)
+
+    @property
+    def has_pair(self) -> bool:
+        return False            # vjp-only: no manual residual pair for LMs
+
+    @functools.cached_property
+    def device_params(self):
+        """``params`` on ``device`` (the same tensors where already there)."""
+        from repro_torch.models import transformer
+        return transformer.params_to(self.params, self.device)
+
+    def token_step(self, method: str, *, mode: str = "ixg") -> Callable:
+        """``(batch) -> (last-position logits [B, V], scores [B, S])``.
+
+        ``method`` must be a gradient rule set; ``mode`` picks the
+        per-token reduction (``ixg | grad_norm | contrastive``, see
+        :func:`repro_torch.launch.steps.make_attribute_step`).  The token
+        ids of ``batch["tokens"]`` move to the model's device.
+        """
+        if method not in RULE_SETS:
+            raise ValueError(
+                f"token attribution needs a gradient rule set {RULE_SETS}; "
+                f"method={method!r} has no token BP")
+        from repro_torch.launch import steps as steps_lib
+        step = steps_lib.make_attribute_step(self.cfg, method, mode=mode)
+        params, device = self.device_params, self.device
+
+        def run(batch):
+            tokens = torch.as_tensor(batch["tokens"]).to(device, torch.int64)
+            return step(params, {"tokens": tokens})
+
+        return run
+
+
+@dataclass(frozen=True, eq=False)
 class FnModel(_ParamsIdentity):
     """Handle on an arbitrary rule-bound callable factory.
 
@@ -211,7 +264,7 @@ class EngineSpec:
     """Declarative configure-once description of an attribution engine.
 
     Fields as in ``repro.engine.spec.EngineSpec``: ``model`` (a
-    :class:`CNNModel` or :class:`FnModel`), ``method`` (``saliency |
+    :class:`CNNModel`, :class:`FnModel` or :class:`LMModel`), ``method`` (``saliency |
     deconvnet | guided``), ``precision`` (``f32`` or ``fxp16``, the paper's true-int16 datapath),
     ``backward`` (``auto`` resolves to the seed-batched pair when the model
     has one, else ``vjp``; fxp16 is integer arithmetic and has no ``vjp``),
@@ -262,10 +315,16 @@ class EngineSpec:
                     f"EngineSpec.{knob}= is the JAX package's tile-planner "
                     f"knob, not ported yet (ROADMAP A10); the torch device "
                     f"is CNNModel(..., device=)")
-        if not isinstance(self.model, (CNNModel, FnModel)):
+        if not isinstance(self.model, (CNNModel, FnModel, LMModel)):
             raise NotImplementedError(
-                f"model {self.model!r}: CNNModel and FnModel are ported "
-                f"(LMModel is ROADMAP A11)")
+                f"model {self.model!r}: CNNModel, FnModel and LMModel "
+                f"(mamba stacks) are ported; other handles come with "
+                f"ROADMAP A11b")
+        if isinstance(self.model, LMModel) and self.precision != "f32":
+            raise NotImplementedError(
+                f"precision={self.precision!r} for token stacks (the manual "
+                f"backward of an fxp16 LM) is not ported yet (ROADMAP "
+                f"A11b); the LM's dtype is its config's")
 
     def resolve_backward(self) -> str:
         """The backend ``build`` will actually use (auto-selection rule)."""

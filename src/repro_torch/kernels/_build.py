@@ -56,18 +56,22 @@ SIGNATURES = {
     "repro_relu_bwd": [_P, _P, _P, _I, _I, _I, _P],
     "repro_unpool_bwd": [_P, _P, _P, _I, _I, _I, _I, _P],
     "repro_unpool_bwd_i16": [_P, _P, _P, _I, _I, _I, _I, _P],
+    # LM token attribution: B13, x in f32 or bf16
+    "repro_selective_scan": [_P] * 8 + [_I] * 6 + [_P],
+    "repro_selective_scan_bf16": [_P] * 8 + [_I] * 6 + [_P],
 }
 
 #: Launches per kernel wrapper since the last :func:`reset_launches`.  A
 #: wrapper adds one where it launches its kernel and nowhere else, so a run
 #: can show that its path went through the kernels.  The int16 instances of
 #: ReLU+mask, pool and unpool count under ``relu_fwd``, ``maxpool_fwd`` and
-#: ``unpool_bwd``.
+#: ``unpool_bwd``, both element types of the scan under ``selective_scan``.
 LAUNCHES: Dict[str, int] = {
     "conv2d_fwd": 0, "relu_fwd": 0, "maxpool_fwd": 0, "vmm_fwd": 0,
     "conv2d_bwd_fused": 0, "vmm_bwd_fused": 0,
     "conv2d_fxp_fwd": 0, "conv2d_bwd_fused_fxp": 0, "vmm_fxp_fwd": 0,
     "vmm_bwd_fused_fxp": 0, "relu_bwd": 0, "unpool_bwd": 0,
+    "selective_scan": 0,
 }
 
 _LIB: Optional[ctypes.CDLL] = None

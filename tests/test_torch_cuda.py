@@ -6,8 +6,11 @@ sizes, K = 5, several Cin chunks and Cout tiles, a fused backward whose
 prologue needs more than 48 KB of shared memory, misaligned pointers, and
 one launch per wrapper call — for the f32 kernels and for the int16 ones of
 the fxp16 path, which must equal their plain versions bit for bit (also
-where the int32 accumulator wraps) — and for the gate and unpool kernels of
-the autograd paths (bitwise), with those paths end to end against the CPU.
+where the int32 accumulator wraps) — for the gate and unpool kernels of
+the autograd paths (bitwise), with those paths end to end against the CPU,
+and for the selective scan (B13: ragged S, D off the block size, N < 16,
+f32 and bf16 x, the knobs bitwise) with falcon-mamba's SMOKE LM against
+the CPU.
 Every test needs a CUDA device and skips without one.  This file imports neither JAX nor the JAX package, so on a
 machine without JAX run it without the suite's conftest:
 
@@ -452,3 +455,123 @@ def test_autograd_paths_on_card_match_cpu_twin(gen):
     for g, g_c in zip(*grads):    # four layers of reordered f32 sums
         err = (g.cpu() - g_c).abs().max().item()
         assert err <= 1e-4 * g_c.abs().max().item()
+
+
+# -- B13: the selective scan of LM token attribution ---------------------------
+
+SCAN_ATOL, SCAN_RTOL = 2e-4, 2e-3      # tests/test_kernels_ssm.py
+SCAN_BF16_RTOL = 2.0 ** -7             # a bf16 y: one rounding step apart
+
+
+def _scan_inputs(gen, b, s, d, n, dtype=torch.float32):
+    dt = torch.nn.functional.softplus(_randn(gen, b, s, d) - 2)
+    x = _randn(gen, b, s, d).to(dtype)
+    bm, cm = _randn(gen, b, s, n), _randn(gen, b, s, n)
+    a = -torch.exp(_randn(gen, d, n) * 0.3)
+    return dt, x, bm, cm, a, _randn(gen, b, d, n)
+
+
+def _scan_close(got, want, rtol=SCAN_RTOL):
+    torch.cuda.synchronize()
+    assert got.shape == want.shape and got.dtype == want.dtype
+    torch.testing.assert_close(got.float(), want.float(), atol=SCAN_ATOL,
+                               rtol=rtol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("b,s,d,n,d_tile,chunk", [
+    (1, 8, 16, 4, 16, 16),             # a block of 16 channels
+    (2, 13, 200, 16, 200, 5),          # ragged S; D not a multiple of 128
+    (2, 33, 256, 7, 64, 64),           # N < 16, four blocks of 64
+    (1, 300, 384, 16, 384, 128),       # staging chunk capped by smem
+    (3, 1, 8, 1, 8, 4),                # S = 1, N = 1, D < a warp
+])
+def test_selective_scan(gen, b, s, d, n, d_tile, chunk, dtype):
+    from repro_torch.kernels.ssm_scan import ref as scan_ref
+    from repro_torch.kernels.ssm_scan.ssm_scan import selective_scan
+    args = _scan_inputs(gen, b, s, d, n, dtype)
+    y, h = _launched("selective_scan", lambda: selective_scan(
+        *args, d_tile=d_tile, chunk=chunk))
+    yr, hr = scan_ref.selective_scan(*args)
+    _scan_close(y, yr, SCAN_BF16_RTOL if dtype == torch.bfloat16
+                else SCAN_RTOL)
+    _scan_close(h, hr)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_selective_scan_knobs_keep_the_bits(gen, dtype):
+    from repro_torch.kernels.ssm_scan.ssm_scan import selective_scan
+    args = _scan_inputs(gen, 2, 77, 512, 16, dtype)
+    outs = [selective_scan(*args, d_tile=dtl, chunk=ck)
+            for dtl, ck in ((512, 128), (256, 64), (32, 7), (512, 1))]
+    torch.cuda.synchronize()
+    for y, h in outs[1:]:
+        assert torch.equal(y, outs[0][0]) and torch.equal(h, outs[0][1])
+
+
+def test_selective_scan_rejects_what_it_cannot_hold(gen):
+    from repro_torch.kernels.ssm_scan.ssm_scan import selective_scan
+    args = _scan_inputs(gen, 1, 4, 32, 17)
+    with pytest.raises(ValueError, match="N <= 16"):
+        selective_scan(*args, d_tile=32, chunk=4)
+    args = _scan_inputs(gen, 1, 4, 32, 4)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        selective_scan(args[0].cpu(), *args[1:], d_tile=32, chunk=4)
+
+
+def test_selective_scan_strided_operands(gen):
+    """B and C as views of one projection, as mamba_core passes them."""
+    from repro_torch.kernels.ssm_scan import ref as scan_ref
+    from repro_torch.kernels.ssm_scan.ssm_scan import selective_scan
+    dt, x, _, _, a, h0 = _scan_inputs(gen, 2, 9, 64, 8)
+    bc = _randn(gen, 2, 9, 3 + 16)
+    bm, cm = bc[..., 3:11], bc[..., 11:]
+    y, h = selective_scan(dt, x, bm, cm, a, h0, d_tile=64, chunk=4)
+    yr, hr = scan_ref.selective_scan(dt, x, bm, cm, a, h0)
+    _scan_close(y, yr)
+    _scan_close(h, hr)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_lm_explain_on_card_matches_cpu_twin(gen, dtype):
+    """falcon-mamba SMOKE: greedy decode, per-token explains and the
+    engine on the card against the CPU; B13 once per layer per explain and
+    never in decode."""
+    from repro_torch import configs, lm
+    from repro_torch.engine import EngineSpec, LMModel, build
+    from repro_torch.kernels import reset_launches
+    from repro_torch.models import transformer as tf
+    cfg = configs.get_smoke("falcon-mamba-7b").with_(dtype=dtype)
+    params = tf.init(cfg, generator=torch.Generator().manual_seed(0),
+                     device="cpu")
+    card = tf.params_to(params, "cuda")
+    toks = torch.randint(0, cfg.vocab, (2, 12),
+                         generator=torch.Generator().manual_seed(1))
+    reset_launches()
+    res = lm.decode(card, cfg, toks, max_new=3)
+    assert LAUNCHES["selective_scan"] == 0
+    res_c = lm.decode(params, cfg, toks, max_new=3)
+    if dtype == "float32":
+        assert torch.equal(res.tokens.cpu(), res_c.tokens)
+    sc = lm.explain_generated(card, cfg, lm.DecodeResult(
+        res_c.tokens.cuda(), res_c.runners_up.cuda(), res_c.prompt_len))
+    torch.cuda.synchronize()
+    assert LAUNCHES["selective_scan"] == 3 * cfg.n_layers
+    sc_c = lm.explain_generated(params, cfg, res_c)
+    tol = 1e-4 if dtype == "float32" else 5e-2
+    err = (sc.cpu() - sc_c).abs().max().item()
+    assert err <= tol * sc_c.abs().max().item()
+    for t in range(3):
+        assert bool((sc[:, t, 12 + t:] == 0).all())
+    eng = build(EngineSpec(LMModel(params, cfg), method="guided"))
+    eng_c = build(EngineSpec(LMModel(params, cfg, device="cpu"),
+                             method="guided"))
+    for mode in ("ixg", "grad_norm", "contrastive"):
+        (lg, s), (lg_c, s_c) = (e.explain_tokens({"tokens": toks}, mode=mode)
+                                for e in (eng, eng_c))
+        assert (lg.cpu() - lg_c).abs().max().item() <= (
+            1e-5 if dtype == "float32" else 1e-2) * lg_c.abs().max().item()
+        assert (s.cpu() - s_c).abs().max().item() <= tol * \
+            s_c.abs().max().item()

@@ -9,15 +9,24 @@ depth, and check them against the CPU.
 
     python3 chip_smoke.py                  # one card; exits 0 when all pass
     python3 chip_smoke.py --out DIR        # also writes DIR/chip_smoke.json
+    python3 chip_smoke.py --sweep [--out DIR]
+
+``--sweep`` runs phase 1, then times the launch choices of B4 (every K
+split) and B1 (a grid of tile plans, all bitwise equal) beside the library
+call at the main-path and vjp shapes, and stops.
 
 Phases (every failed check raises; nothing is caught and carried on):
 
 1. device: card name, ``nvidia-smi`` name, power limit and maximum SM
-   clock, TF32 off for the plain versions, kernel build time;
+   clock, TF32 off for the plain versions, kernel build time, and the
+   registers and spills ``ptxas`` reports for the redesigned B1/B4
+   kernels;
 2. kernels at batch 32, S = 3 seeds, against their plain versions: the f32
    kernels B1-B6 (bitwise for ReLU+mask and pool+argmax, within
-   1e-5 * max|ref| for the dots), then the fxp16 kernels B7-B10 and the
-   int16 instances of B2/B3, all bitwise, plus accumulators that wrap at
+   1e-5 * max|ref| for the dots; B1 and B4 also launched again on the same
+   inputs, and B1 under a second tile plan, all bitwise equal; each time
+   beside a library call prints its ratio to it), then the fxp16 kernels
+   B7-B10 and the int16 instances of B2/B3, all bitwise, plus accumulators that wrap at
    ±32767 operands; then the gate (B11, three methods) and unpool (B12,
    f32 and int16) kernels of the autograd paths, bitwise; then the
    selective scan (B13) at falcon-mamba-7b's explain shape (B = 4, S = 72,
@@ -88,6 +97,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -183,6 +193,38 @@ def fail(msg: str):
     raise AssertionError(msg)
 
 
+#: Entry functions of the kernels redesigned for this card (B1's and B4's
+#: forwards), whose registers and spills phase 1 reports.
+REDESIGNED = ("conv_igemm_kernel", "vmm_splitk_kernel",
+              "vmm_splitk_sum_kernel")
+
+
+def kernel_resources(ptxas_log: str, names):
+    """``(name<template args>, registers, spill store bytes, spill load
+    bytes)`` of each compiled entry whose mangled name holds one of
+    ``names``, read from ``nvcc -Xptxas=-v`` output."""
+    found, entry, spill = [], None, (None, None)
+    for line in ptxas_log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            entry, spill = m.group(1), (None, None)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spill = (int(m.group(1)), int(m.group(2)))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and entry:
+            for name in names:
+                if re.search(rf"\d{name}(?:I|E|v|$)", entry):
+                    targs = re.findall(r"Li(\d+)E", entry)
+                    label = name + (f"<{','.join(targs)}>" if targs else "")
+                    found.append((label, int(m.group(1))) + spill)
+            entry = None
+    return found
+
+
 def bound_ms(nbytes: float, ops: float, rate: float) -> float:
     """The least time for ``nbytes`` at HBM speed and ``ops`` at ``rate``."""
     return 1e3 * max(nbytes / HBM_BYTES_PER_S, ops / rate)
@@ -252,7 +294,8 @@ def _category(kernel_name: str) -> str:
     n = kernel_name.lower()
     if "selective_scan" in n:
         return "B13"
-    if any(k in n for k in ("conv_kernel", "conv_fxp_kernel", "relu_fwd_kernel",
+    if any(k in n for k in ("conv_kernel", "conv_igemm_kernel",
+                            "vmm_splitk", "conv_fxp_kernel", "relu_fwd_kernel",
                             "relu_bwd_kernel", "maxpool_fwd_kernel",
                             "unpool_bwd_kernel", "vmm_kernel",
                             "vmm_fxp_kernel", "vmm_bwd")):
@@ -338,7 +381,8 @@ class KernelCheck:
             if f32_ref is not None:
                 s["f32_reference_ms"] = (s["f32_reference_ms"] or 0.0) \
                     + f32_ref
-        libs = f" library {lib:.4f}" if lib is not None else ""
+        libs = (f" library {lib:.4f} (x{ms / lib:.2f})" if lib is not None
+                else "")
         refs = f" f32-ref {f32_ref:.4f}" if f32_ref is not None else ""
         print(f"  {counter:20s} {case:34s} err {err:.2e}  kernel {ms:.4f} "
               f"plain {plain:.4f}{libs}{refs}  bound {bnd:.4f} ms")
@@ -348,6 +392,8 @@ class KernelCheck:
         for k, s in self.sums.items():
             extra = "".join(f" {n} {s[n]:.4f}" for n in (
                 "library_ms", "f32_reference_ms") if s[n] is not None)
+            if s["library_ms"]:
+                extra += f" (x{s['ms'] / s['library_ms']:.2f} of library)"
             print(f"  sum {k:20s} ms {s['ms']:.4f} plain_ms "
                   f"{s['plain_ms']:.4f} bound_ms {s['bound_ms']:.4f} "
                   f"({_bound_by(self, k)}){extra}")
@@ -357,10 +403,24 @@ def randn(gen, *shape, scale=1.0):
     return torch.randn(shape, generator=gen, device="cuda") * scale
 
 
+def _bitwise_repeat(counter, case, first, launches):
+    """Fail unless every ``(what, fn)`` of ``launches`` returns ``first``
+    bit for bit (the same inputs, launched again)."""
+    for what, fn in launches:
+        again = fn()
+        torch.cuda.synchronize()
+        if not torch.equal(again, first):
+            fail(f"{counter} {case}: launched {what}, the bits differ")
+    print(f"  {counter:20s} {case:34s} bitwise equal: "
+          + "; ".join(what for what, _ in launches))
+
+
 def check_kernels(kc: KernelCheck):
     from repro_torch.kernels.conv2d import ref as conv_ref
-    from repro_torch.kernels.conv2d.conv2d import (conv2d, conv2d_bwd_fused,
-                                                   conv2d_bwd_fused_plain)
+    from repro_torch.kernels.conv2d.conv2d import (ConvPlan, conv2d,
+                                                   conv2d_bwd_fused,
+                                                   conv2d_bwd_fused_plain,
+                                                   conv2d_planned, conv_plan)
     from repro_torch.kernels.pool import ref as pool_ref
     from repro_torch.kernels.pool.pool import maxpool_fwd
     from repro_torch.kernels.relu_mask import ref as relu_ref
@@ -370,13 +430,15 @@ def check_kernels(kc: KernelCheck):
     from repro_torch.kernels.tiling import crumb_bytes, mask_bytes
     from repro_torch.kernels.vmm import ref as vmm_ref
     from repro_torch.kernels.vmm.vmm import (vmm, vmm_bwd_fused,
-                                             vmm_bwd_fused_plain)
+                                             vmm_bwd_fused_plain, vmm_splits)
     from repro_torch.core import masks
 
     gen = torch.Generator(device="cuda").manual_seed(1234)
     n = BATCH
 
-    # B1 conv forward: (H, Cin, Cout) of the four Table III layers
+    # B1 conv forward: (H, Cin, Cout) of the four Table III layers, each
+    # launched twice (bitwise equal run to run) and once more under
+    # another tile plan (bitwise equal: no plan changes a sum's order)
     for h, cin, cout in ((32, 3, 32), (32, 32, 32), (16, 32, 64),
                          (16, 64, 64)):
         x = randn(gen, n, h, h, cin)
@@ -385,8 +447,16 @@ def check_kernels(kc: KernelCheck):
         xn, wn = x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1)
         nbytes = 4 * (x.numel() + w.numel() + cout + n * h * h * cout)
         flops = 2 * n * h * h * cout * 9 * cin
-        kc.record("conv2d_fwd", f"[{n},{h},{h},{cin}->{cout}]", True,
-                  conv2d(x, w, b), conv_ref.conv2d(x, w) + b, False,
+        case = f"[{n},{h},{h},{cin}->{cout}]"
+        got = conv2d(x, w, b)
+        plan = conv_plan(n, h, h, cin, cout, 3)
+        other = ConvPlan(2 * plan.th, 4 if plan.px == 8 else 8, 16,
+                         8 if cin % 4 == 0 else cin)
+        _bitwise_repeat("conv2d_fwd", case, got, (
+            (f"again under {plan}", lambda: conv2d(x, w, b)),
+            (f"under {other}", lambda: conv2d_planned(x, w, b, plan=other))))
+        kc.record("conv2d_fwd", case, True, got,
+                  conv_ref.conv2d(x, w) + b, False,
                   lambda: conv2d(x, w, b), lambda: conv_ref.conv2d(x, w) + b,
                   nbytes, flops, lambda: F.conv2d(xn, wn, b, padding=1))
 
@@ -410,13 +480,19 @@ def check_kernels(kc: KernelCheck):
                   lambda: pool_ref.maxpool_fwd(x), nbytes,
                   3 * x.numel() // 4)
 
-    # B4 vmm: FC0 and FC1 with bias
+    # B4 vmm: FC0 (split K) and FC1 (one slice) with bias, each launched
+    # twice: bitwise equal run to run
     for k, m_out in ((4096, 128), (128, 10)):
         x = randn(gen, n, k)
         w = randn(gen, k, m_out, scale=(2.0 / k) ** 0.5)
         b = randn(gen, m_out, scale=0.1)
         nbytes = 4 * (x.numel() + w.numel() + m_out + n * m_out)
-        kc.record("vmm_fwd", f"[{n},{k}]@[{k},{m_out}]", True, vmm(x, w, b),
+        case = f"[{n},{k}]@[{k},{m_out}]"
+        got = vmm(x, w, b)
+        _bitwise_repeat("vmm_fwd", case, got, (
+            (f"again, K in {vmm_splits(n, k, m_out)} slice(s)",
+             lambda: vmm(x, w, b)),))
+        kc.record("vmm_fwd", case, True, got,
                   vmm_ref.vmm(x, w) + b, False, lambda: vmm(x, w, b),
                   lambda: vmm_ref.vmm(x, w) + b, nbytes, 2 * n * k * m_out,
                   lambda: torch.addmm(b, x, w))
@@ -510,6 +586,102 @@ def check_kernels(kc: KernelCheck):
               lambda: vmm_bwd_fused_plain(g, wt, **kw),
               4 * (g.numel() + wt.numel() + s * n * 4096),
               2 * g.numel() * 4096)
+
+
+#: ``--sweep``: the B4 shapes (M, K, N) of the main and vjp paths, and the
+#: B1 shapes (H, Cin, Cout) at batch 32: the Table III forward layers, then
+#: the input gradients of the vjp path's standalone ops (B1 on the
+#: flip-transposed weight).
+SWEEP_VMM = ((32, 4096, 128), (32, 128, 10), (32, 128, 4096), (32, 10, 128))
+SWEEP_CONV = {"fwd": ((32, 3, 32), (32, 32, 32), (16, 32, 64), (16, 64, 64)),
+              "dx": ((16, 64, 32), (32, 32, 3))}
+
+
+def _sweep_plans(h, cin, cout):
+    """A grid of B1 tile plans for one shape: rows, pixels a thread, Cout a
+    block, Cin a stage, within the block's thread and memory limits."""
+    from repro_torch.kernels.conv2d.conv2d import CONV_MAX_THREADS, ConvPlan
+    from repro_torch.kernels.tiling import align_up
+    cts = sorted({min(c, cin) if cin % 4 else min(c, cin) // 4 * 4
+                  for c in (4, 8, 16, 32)} - {0})
+    for th in (1, 2, 4, 8, 16, 32):
+        for px in (4, 8):
+            for tco in (4, 8, 16, 32, 64):
+                for ct in cts:
+                    p = ConvPlan(th, px, tco, ct)
+                    if (th <= h and tco <= align_up(cout, 4)
+                            and 32 <= p.threads <= CONV_MAX_THREADS
+                            and p.smem_bytes(3) <= 227 * 1024):
+                        yield p
+
+
+def sweep_launch_choices(gen):
+    """``--sweep``: time every listed B4 split and B1 tile plan beside the
+    library call, and say where ``vmm_splits`` / ``conv_plan`` land.  Each
+    split is held against the plain version at DOT_TOL; every plan of a
+    shape must give the bits of ``conv_plan``'s."""
+    from repro_torch.kernels.conv2d import ref as conv_ref
+    from repro_torch.kernels.conv2d.conv2d import conv2d_planned, conv_plan
+    from repro_torch.kernels.vmm import ref as vmm_ref
+    from repro_torch.kernels.vmm.vmm import (vmm_max_splits, vmm_splits,
+                                             vmm_with_splits)
+
+    def close(got, want, what):
+        torch.cuda.synchronize()
+        e, ref = (got - want).abs().max().item(), want.abs().max().item()
+        if not e <= DOT_TOL * ref:
+            fail(f"sweep {what}: max|d| {e:.3e} > {DOT_TOL} * {ref:.3e}")
+
+    rows = dict(vmm=[], conv=[])
+    for m, k, n in SWEEP_VMM:
+        x, w, b = randn(gen, m, k), randn(gen, k, n, scale=k ** -0.5), \
+            randn(gen, n)
+        lib = device_time_ms(lambda: torch.addmm(b, x, w))
+        chosen = vmm_splits(m, k, n)
+        for s in sorted({1, 2, 4, 8, 16, 32, 64, 96, 128, chosen}
+                        & set(range(1, vmm_max_splits(k) + 1))):
+            close(vmm_with_splits(x, w, b, splits=s), vmm_ref.vmm(x, w) + b,
+                  f"vmm [{m},{k}]@[{k},{n}] splits {s}")
+            ms = device_time_ms(lambda: vmm_with_splits(x, w, b, splits=s))
+            rows["vmm"].append(dict(shape=[m, k, n], splits=s, ms=ms,
+                                    library_ms=lib, chosen=s == chosen))
+            print(f"  vmm [{m},{k}]@[{k},{n}] splits {s:4d}: {ms:.4f} ms "
+                  f"(addmm {lib:.4f})"
+                  + ("  <- vmm_splits" if s == chosen else ""))
+    for kind, shapes in SWEEP_CONV.items():
+        for h, cin, cout in shapes:
+            x = randn(gen, BATCH, h, h, cin)
+            w = randn(gen, 3, 3, cin, cout, scale=(2.0 / (9 * cin)) ** 0.5)
+            b = randn(gen, cout, scale=0.1)
+            xn, wn = x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1)
+            lib = device_time_ms(lambda: F.conv2d(xn, wn, b, padding=1))
+            chosen = conv_plan(BATCH, h, h, cin, cout, 3)
+            first = conv2d_planned(x, w, b, plan=chosen)
+            case = f"conv {kind} [{BATCH},{h},{h},{cin}->{cout}]"
+            close(first, conv_ref.conv2d(x, w) + b, case)
+            found = []
+            for p in set(_sweep_plans(h, cin, cout)) | {chosen}:
+                got = conv2d_planned(x, w, b, plan=p)
+                torch.cuda.synchronize()
+                if not torch.equal(got, first):
+                    fail(f"sweep {case}: plan {p} changes the bits")
+                found.append((device_time_ms(
+                    lambda: conv2d_planned(x, w, b, plan=p)), p))
+            found.sort(key=lambda t: (t[0], t[1].args()))
+            rank = [p for _, p in found].index(chosen)
+            print(f"  {case}: F.conv2d {lib:.4f} ms; conv_plan {chosen} "
+                  f"{found[rank][0]:.4f} ms (rank {rank + 1} of "
+                  f"{len(found)}); fastest:")
+            for ms, p in found[:8]:
+                print(f"      {ms:.4f} ms  {p}  threads {p.threads:3d} "
+                      f"blocks {p.blocks(BATCH, h, h, cout):5d} smem "
+                      f"{p.smem_bytes(3)}")
+            rows["conv"].append(dict(
+                kind=kind, shape=[BATCH, h, h, cin, cout], library_ms=lib,
+                chosen=chosen.args(), chosen_ms=found[rank][0],
+                rank=rank + 1, plans=[dict(plan=p.args(), ms=ms)
+                                      for ms, p in found]))
+    return rows
 
 
 def check_kernels_fxp(kc: KernelCheck):
@@ -1597,6 +1769,10 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", type=Path, default=None,
                     help="directory for chip_smoke.json (per-case numbers)")
+    ap.add_argument("--sweep", action="store_true",
+                    help="after phase 1, time the launch choices of B4 and "
+                         "B1 (every K split, a grid of tile plans) and stop;"
+                         " --out gets kernel_sweep.json")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke test needs one",
@@ -1632,10 +1808,26 @@ def main() -> int:
           f"({_build.library_path().name})")
     log = (_build.BUILD_DIR / "build.log")
     if log.exists():
-        for line in log.read_text().splitlines():
+        text = log.read_text()
+        for line in text.splitlines():
             if ("Compiling entry" in line or "registers" in line
                     or "spill stores" in line):
                 print("   ", line.strip())
+        print("  redesigned B1/B4 kernels (ptxas): " + "; ".join(
+            f"{name} {regs} registers, spill stores {st} B, loads {ld} B"
+            for name, regs, st, ld in kernel_resources(text, REDESIGNED)))
+
+    if args.sweep:
+        print(f"sweep: B4 K splits and B1 tile plans (ms = median of {REPS} "
+              f"back-to-back runs)")
+        rows = sweep_launch_choices(torch.Generator(device="cuda")
+                                    .manual_seed(0))
+        if args.out is not None:
+            args.out.mkdir(parents=True, exist_ok=True)
+            (args.out / "kernel_sweep.json").write_text(json.dumps(dict(
+                device=kind, nvidia_smi=smi, **rows), indent=1))
+        print(smi)
+        return 0
 
     # phase 2: kernels vs plain
     print(f"phase 2: kernels vs plain versions (batch {BATCH}, S={SEEDS}; "

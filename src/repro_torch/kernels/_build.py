@@ -37,10 +37,14 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
     "repro_relu_fwd": [_P, _P, _P, _I, _I, _P],
     "repro_maxpool_fwd": [_P, _P, _P, _I, _I, _I, _I, _P],
-    "repro_vmm_fwd": [_P, _P, _P, _P, _I, _I, _I, _P],
+    # f32 forward: x, w, bias, y, m, k, n, then the split-K workspace, the
+    # number of K slices and their length
+    "repro_vmm_fwd": [_P, _P, _P, _P, _I, _I, _I, _P, _I, _I, _P],
     "repro_vmm_bwd_fused": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                             _P],
-    "repro_conv2d_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # f32 forward: x, w, bias, y, n, h, w, cin, cout, k, then the tile plan
+    # (rows, pixels per thread, Cout per block, Cin per stage)
+    "repro_conv2d_fwd": [_P, _P, _P, _P] + [_I] * 10 + [_P],
     "repro_conv2d_bwd_fused": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                _I, _I, _I, _I, _I, _P],
     # the fxp16 path: int16 instances of B2/B3 and the int16 kernels B7-B10

@@ -2,7 +2,10 @@
 
 :func:`conv2d` wraps ``repro_conv2d_fwd`` of ``csrc/conv2d.cu`` (the port of
 ``repro.kernels.conv2d.conv2d.conv2d_pallas``), with the conv bias added in
-its epilogue.  :func:`conv2d_bwd_fused` wraps ``repro_conv2d_bwd_fused`` (the
+its epilogue; :func:`conv_plan` chooses its tile for each shape (K in
+:data:`CONV_KS`; other odd K run the kernel of the fused backward, which
+tiles itself).
+:func:`conv2d_bwd_fused` wraps ``repro_conv2d_bwd_fused`` (the
 port of ``conv2d_bwd_fused_pallas``): the unpool scatter by the stored 2-bit
 argmax and the Eq. 3-5 gate by the stored 1-bit mask run as a prologue on
 the gradient as it is loaded, then the SAME conv with the flip-transposed
@@ -16,7 +19,8 @@ the conv itself differ.
 """
 from __future__ import annotations
 
-from typing import Callable, Optional
+from dataclasses import dataclass
+from typing import Callable, Optional, Tuple
 
 import torch
 
@@ -27,7 +31,91 @@ from repro_torch.kernels import (METHOD_CODES, _build, check,
 from repro_torch.kernels.conv2d import ref
 from repro_torch.kernels.pool.ref import unpool_scatter
 from repro_torch.kernels.relu_mask.relu_mask import gate_gradient, unpack_bits
-from repro_torch.kernels.tiling import crumb_bytes, mask_bytes
+from repro_torch.kernels.tiling import (H100_SMS, align_up, cdiv,
+                                        crumb_bytes, mask_bytes)
+
+#: ``csrc/conv2d.cu`` FW_TW and FW_MAX_THREADS: the forward's tile is
+#: ``th`` rows x 8 pixels, at most 256 threads a block.
+CONV_TILE_W, CONV_MAX_THREADS = 8, 256
+#: Kernel sizes the register-tiled forward is compiled for (its tile holds a
+#: row of PX + K - 1 inputs); ``repro_conv2d_fwd`` runs other odd K on the
+#: general kernel it shares with the fused backward.
+CONV_KS = (1, 3, 5, 7)
+#: Shared memory a block of the forward may stage (both ring stages): two
+#: blocks, each with the 1 KB the card reserves, fit an SM's 228 KB.
+CONV_SMEM_BUDGET = 112 * 1024
+#: Cin channels per ring stage at most.
+CONV_MAX_CIN_T = 32
+#: Threads a block aims for: among plans of about two blocks per SM, 128
+#: were the fastest on the Table III layers, or within 1 % of it
+#: (``python3 chip_smoke.py --sweep`` on an H100).
+CONV_TARGET_THREADS = 128
+
+
+@dataclass(frozen=True)
+class ConvPlan:
+    """The forward's tile: ``th`` rows x 8 pixels x ``tco`` output channels
+    a block, ``px`` pixels (8 or 4) x 4 channels a thread, ``cin_t`` input
+    channels a ring stage.  No field changes the order of any sum."""
+    th: int
+    px: int
+    tco: int
+    cin_t: int
+
+    @property
+    def threads(self) -> int:
+        return self.th * (CONV_TILE_W // self.px) * (self.tco // 4)
+
+    def blocks(self, n: int, h: int, w: int, cout: int) -> int:
+        return (cdiv(h, self.th) * cdiv(w, CONV_TILE_W)
+                * cdiv(cout, self.tco) * n)
+
+    def smem_bytes(self, k: int) -> int:
+        """Both ring stages: the halo tile (rows padded to a multiple of 4
+        floats, plus 4) and the weight slice, as ``repro_conv2d_fwd``
+        lays them out."""
+        xstride = align_up(self.cin_t, 4) + 4
+        stage = ((self.th + k - 1) * (CONV_TILE_W + k - 1) * xstride
+                 + k * k * self.cin_t * self.tco)
+        return 2 * 4 * stage
+
+    def args(self) -> Tuple[int, int, int, int]:
+        return (self.th, self.px, self.tco, self.cin_t)
+
+
+def conv_cin_t(cin: int, k: int, th: int, px: int, tco: int) -> int:
+    """Cin channels per ring stage: up to 32, halved until both stages fit
+    :data:`CONV_SMEM_BUDGET`; a multiple of 4 where Cin is (16-byte
+    copies)."""
+    step = 4 if cin % 4 == 0 else 1
+    ct = max(1, min(cin, CONV_MAX_CIN_T) // step * step)
+    while ct > step and ConvPlan(th, px, tco, ct).smem_bytes(k) \
+            > CONV_SMEM_BUDGET:
+        ct = max(step, ct // 2 // step * step)
+    return ct
+
+
+def conv_plan(n: int, h: int, w: int, cin: int, cout: int,
+              k: int) -> ConvPlan:
+    """The register-tiled forward's tile for one shape on an H100.
+
+    32 output channels a block (fewer where Cout is), and the tallest tile
+    (up to 32 rows) whose grid still gives about two blocks per SM: at
+    least twice the SMs rounded down to a power of two (256), as the tiles
+    and the batch are powers of two.  Then 8 pixels a thread where that
+    makes 128 threads, else 4 for twice the threads.
+    """
+    if k not in CONV_KS:
+        raise ValueError(f"conv2d: the tiled forward takes K in {CONV_KS}, "
+                         f"got {k}")
+    min_blocks = 1 << ((2 * H100_SMS).bit_length() - 1)
+    tco = min(32, align_up(max(cout, 1), 4))
+    th = min(32, 1 << max(0, (h - 1).bit_length()))
+    while th > 1 and ConvPlan(th, 8, tco, 1).blocks(n, h, w, cout) \
+            < min_blocks:
+        th //= 2
+    px = 8 if th * tco // 4 >= CONV_TARGET_THREADS else 4
+    return ConvPlan(th, px, tco, conv_cin_t(cin, k, th, px, tco))
 
 
 def _check_kernel(name, w, cin, dtype):
@@ -38,10 +126,9 @@ def _check_kernel(name, w, cin, dtype):
     check(name, w, dtype, what="kernel")
 
 
-def conv_fwd(name: str, counter: str, entry: str, dtype: torch.dtype,
-             plain: Callable, x: torch.Tensor, w: torch.Tensor,
-             b: Optional[torch.Tensor]) -> torch.Tensor:
-    """Check, then run ``plain(x, w, b)`` on the CPU or launch ``entry``."""
+def _fwd_dims(name: str, dtype: torch.dtype, x: torch.Tensor,
+              w: torch.Tensor, b: Optional[torch.Tensor]):
+    """Check the forward's operands; ``(n, h, w, cin, cout, k)``."""
     if x.dim() != 4:
         raise ValueError(f"{name}: x must be [N, H, W, Cin], got "
                          f"{tuple(x.shape)}")
@@ -51,13 +138,23 @@ def conv_fwd(name: str, counter: str, entry: str, dtype: torch.dtype,
     k, cout = w.shape[0], w.shape[3]
     if b is not None:
         check(name, b, dtype, (cout,), what="b")
+    return n, h, wd, cin, cout, k
+
+
+def conv_fwd(name: str, counter: str, entry: str, dtype: torch.dtype,
+             plain: Callable, x: torch.Tensor, w: torch.Tensor,
+             b: Optional[torch.Tensor], extra: tuple = ()) -> torch.Tensor:
+    """Check, then run ``plain(x, w, b)`` on the CPU or launch ``entry``
+    with ``extra`` after its common arguments."""
+    n, h, wd, cin, cout, k = _fwd_dims(name, dtype, x, w, b)
     if not on_card(name, x, w, b):
         return plain(x, w, b)
     check_kernel_operands(name, x, w, b)
     y = torch.empty((n, h, wd, cout), dtype=x.dtype, device=x.device)
     if y.numel():
         _build.launch(counter, entry, x.device, x.data_ptr(), w.data_ptr(),
-                      _build.ptr(b), y.data_ptr(), n, h, wd, cin, cout, k)
+                      _build.ptr(b), y.data_ptr(), n, h, wd, cin, cout, k,
+                      *extra)
     return y
 
 
@@ -69,13 +166,29 @@ def _conv2d_plain(x, w, b):
 def conv2d(x: torch.Tensor, w: torch.Tensor,
            b: Optional[torch.Tensor] = None) -> torch.Tensor:
     """[N, H, W, Cin] x [K, K, Cin, Cout] (+ b [Cout]) -> [N, H, W, Cout],
-    stride 1, SAME padding, f32 accumulation.
+    stride 1, SAME padding, odd K, f32 accumulation.
 
     CPU tensors run :func:`ref.conv2d` (then ``+ b``); CUDA tensors the
-    kernel.
+    kernel, tiled by :func:`conv_plan` for K in :data:`CONV_KS`.
     """
+    return conv2d_planned(x, w, b)
+
+
+def conv2d_planned(x: torch.Tensor, w: torch.Tensor,
+                   b: Optional[torch.Tensor] = None, *,
+                   plan: Optional[ConvPlan] = None) -> torch.Tensor:
+    """:func:`conv2d` with the tile chosen by the caller, for tests and
+    sweeps: every plan gives the same bits.  One count of ``conv2d_fwd``
+    per call."""
+    n, h, wd, cin, cout, k = _fwd_dims("conv2d", torch.float32, x, w, b)
+    if k in CONV_KS:
+        plan = plan or conv_plan(n, h, wd, cin, cout, k)
+    elif plan is not None:
+        raise ValueError(f"conv2d: a tile plan needs K in {CONV_KS}, got {k}")
+    # no plan (0, 0, 0, 0): the general-K kernel, which tiles itself
     return conv_fwd("conv2d", "conv2d_fwd", "repro_conv2d_fwd",
-                    torch.float32, _conv2d_plain, x, w, b)
+                    torch.float32, _conv2d_plain, x, w, b,
+                    plan.args() if plan else (0, 0, 0, 0))
 
 
 def bwd_fused_plain(conv: Callable, g, wt, *, pool_idx=None, relu_mask=None,

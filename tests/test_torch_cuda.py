@@ -2,15 +2,17 @@
 
 ``chip_smoke.py`` checks the kernels at the Table III shapes; these cases
 cover what the main path does not reach: ragged channel counts and spatial
-sizes, K = 5, several Cin chunks and Cout tiles, a fused backward whose
-prologue needs more than 48 KB of shared memory, misaligned pointers, and
-one launch per wrapper call — for the f32 kernels and for the int16 ones of
-the fxp16 path, which must equal their plain versions bit for bit (also
-where the int32 accumulator wraps) — for the gate and unpool kernels of
-the autograd paths (bitwise), with those paths end to end against the CPU,
-and for the selective scan (B13: ragged S, D off the block size, N < 16,
-f32 and bf16 x, the knobs bitwise) with falcon-mamba's SMOKE LM against
-the CPU.
+sizes, K = 1 and 5, several Cin chunks and Cout tiles, a fused backward
+whose prologue needs more than 48 KB of shared memory, misaligned
+pointers, the conv forward's tile plans (all bitwise equal) and its
+general kernel for K > 7, the FC forward's K splits (1 to the most, M and
+N past one tile), each bitwise equal run to run, and one launch per wrapper call — for the f32 kernels
+and for the int16 ones of the fxp16 path, which must equal their plain
+versions bit for bit (also where the int32 accumulator wraps) — for the
+gate and unpool kernels of the autograd paths (bitwise), with those paths
+end to end against the CPU, and for the selective scan (B13: ragged S, D
+off the block size, N < 16, f32 and bf16 x, the knobs bitwise) with
+falcon-mamba's SMOKE LM against the CPU.
 Every test needs a CUDA device and skips without one.  This file imports neither JAX nor the JAX package, so on a
 machine without JAX run it without the suite's conftest:
 
@@ -22,8 +24,10 @@ import torch
 from repro_torch.core import fixedpoint, masks
 from repro_torch.kernels import LAUNCHES
 from repro_torch.kernels.conv2d import ref as conv_ref
-from repro_torch.kernels.conv2d.conv2d import (conv2d, conv2d_bwd_fused,
-                                               conv2d_bwd_fused_plain)
+from repro_torch.kernels.conv2d.conv2d import (ConvPlan, conv2d,
+                                               conv2d_bwd_fused,
+                                               conv2d_bwd_fused_plain,
+                                               conv2d_planned, conv_plan)
 from repro_torch.kernels.conv2d.fxp import (conv2d_bwd_fused_fxp,
                                             conv2d_bwd_fused_fxp_plain,
                                             conv2d_fxp)
@@ -36,7 +40,8 @@ from repro_torch.kernels.vmm import ref as vmm_ref
 from repro_torch.kernels.vmm.fxp import (vmm_bwd_fused_fxp,
                                          vmm_bwd_fused_fxp_plain, vmm_fxp)
 from repro_torch.kernels.vmm.vmm import (vmm, vmm_bwd_fused,
-                                         vmm_bwd_fused_plain)
+                                         vmm_bwd_fused_plain, vmm_max_splits,
+                                         vmm_splits, vmm_with_splits)
 
 METHODS = ("saliency", "deconvnet", "guided")
 TOL = 1e-5
@@ -101,6 +106,14 @@ def test_maxpool_fwd_bitwise(gen, n, h, w, c):
     (1, 8, 8, 16, 8, 5),              # K = 5
     (2, 9, 7, 100, 40, 3),            # several Cin chunks, two Cout tiles
     (1, 1, 1, 3, 2, 3),               # all padding
+    (2, 13, 7, 96, 3, 3),             # ragged tile, Cout = 3 (layer 0's dx)
+    (1, 13, 7, 3, 96, 1),             # Cin = 3, K = 1
+    (2, 5, 9, 96, 96, 5),             # K = 5, three Cin stages
+    (3, 1, 1, 96, 96, 3),             # 1 x 1: only the centre tap
+    (1, 13, 7, 3, 3, 5),              # both channel counts 3, K = 5
+    (2, 16, 16, 64, 64, 3),           # a Table III layer, batch 2
+    (2, 9, 7, 8, 12, 9),              # K = 9: the general-K kernel
+    (1, 13, 7, 3, 3, 11),             # K = 11, both channel counts 3
 ])
 def test_conv2d(gen, n, h, w, cin, cout, k):
     x = _randn(gen, n, h, w, cin)
@@ -109,6 +122,33 @@ def test_conv2d(gen, n, h, w, cin, cout, k):
     _close(_launched("conv2d_fwd", lambda: conv2d(x, wt, b)),
            conv_ref.conv2d(x, wt) + b)
     _close(conv2d(x, wt), conv_ref.conv2d(x, wt))
+
+
+def test_conv2d_misaligned_pointer(gen):
+    flat = _randn(gen, 2 * 6 * 5 * 8 + 1)
+    x = flat[1:].view(2, 6, 5, 8)     # 4-byte offset: 4-byte copies only
+    wt = _randn(gen, 3, 3, 8, 12, scale=0.2)
+    b = _randn(gen, 12)
+    _close(conv2d(x, wt, b), conv_ref.conv2d(x, wt) + b)
+
+
+@pytest.mark.parametrize("n,h,w,cin,cout", [(4, 32, 32, 3, 32),
+                                            (4, 16, 16, 64, 64),
+                                            (2, 13, 7, 96, 3)])
+def test_conv2d_bitwise_run_to_run_and_across_plans(gen, n, h, w, cin, cout):
+    x = _randn(gen, n, h, w, cin)
+    wt = _randn(gen, 3, 3, cin, cout, scale=0.2)
+    b = _randn(gen, cout)
+    first = conv2d(x, wt, b)
+    plans = [ConvPlan(1, 8, 4, 1), ConvPlan(16, 4, 16, 8),
+             ConvPlan(2, 8, 64, 32), conv_plan(n, h, w, cin, cout, 3)]
+    for got in [conv2d(x, wt, b)] + [
+            _launched("conv2d_fwd", lambda p=p: conv2d_planned(x, wt, b,
+                                                               plan=p))
+            for p in plans]:
+        torch.cuda.synchronize()
+        assert torch.equal(got, first)
+    _close(first, conv_ref.conv2d(x, wt) + b)
 
 
 # (n, h, w, c, cout', pooled, seeds, epilogue)
@@ -140,12 +180,53 @@ def test_conv2d_bwd_fused(gen, case, method):
 
 
 @pytest.mark.parametrize("m,k,n", [(5, 37, 13), (1, 4096, 128),
-                                   (33, 128, 10)])
+                                   (33, 128, 10),
+                                   (32, 1000, 128),  # K off the slice
+                                   (32, 20, 128),    # K below one chunk
+                                   (96, 4096, 128),  # three M tiles
+                                   (130, 4096, 128),  # ragged M tile
+                                   (32, 4096, 10),   # N = 10, split
+                                   (32, 4096, 4096)])  # N = 4096
 def test_vmm(gen, m, k, n):
     x = _randn(gen, m, k)
     w = _randn(gen, k, n, scale=k ** -0.5)
     b = _randn(gen, n)
     _close(_launched("vmm_fwd", lambda: vmm(x, w, b)), vmm_ref.vmm(x, w) + b)
+
+
+@pytest.mark.parametrize("m,k,n", [(32, 4096, 128), (32, 1000, 10),
+                                   (130, 520, 300), (3, 31, 5)])
+def test_vmm_forced_splits(gen, m, k, n):
+    x = _randn(gen, m, k)
+    w = _randn(gen, k, n, scale=k ** -0.5)
+    b = _randn(gen, n)
+    want = vmm_ref.vmm(x, w) + b
+    # one slice, the most, and a count that leaves slices of K unfilled
+    # (the wrapper then runs as many as K fills)
+    for splits in (1, vmm_max_splits(k), vmm_max_splits(k) // 2 + 1):
+        _close(_launched("vmm_fwd", lambda: vmm_with_splits(x, w, b,
+                                                      splits=splits)), want)
+    with pytest.raises(ValueError, match="splits"):
+        vmm_with_splits(x, w, b, splits=vmm_max_splits(k) + 1)
+
+
+def test_vmm_bitwise_run_to_run(gen):
+    for m, k, n in ((32, 4096, 128), (32, 128, 10)):
+        x = _randn(gen, m, k)
+        w = _randn(gen, k, n, scale=k ** -0.5)
+        b = _randn(gen, n)
+        first = vmm(x, w, b)
+        again = vmm(x, w, b)
+        torch.cuda.synchronize()
+        assert torch.equal(first, again)
+    assert vmm_splits(32, 4096, 128) > 1 and vmm_splits(32, 128, 10) == 1
+
+
+def test_vmm_misaligned_pointers(gen):
+    fx, fw = _randn(gen, 32 * 512 + 1), _randn(gen, 512 * 128 + 1)
+    x = fx[1:].view(32, 512)          # 4-byte offsets: scalar loads
+    w = fw[1:].view(512, 128)
+    _close(vmm(x, w), vmm_ref.vmm(x, w))
 
 
 @pytest.mark.parametrize("method", METHODS)

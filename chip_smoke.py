@@ -13,21 +13,25 @@ depth, and check them against the CPU.
 
 ``--sweep`` runs phase 1, then times the launch choices of B4 (every K
 split) and B1 (a grid of tile plans, all bitwise equal) beside the library
-call at the main-path and vjp shapes, and stops.
+call at the main-path and vjp shapes, and of the fused conv backward (B5 at
+S = 3 and at the vjp path's S = 1, B8 at S = 3: a grid of tile plans, all
+bitwise equal, beside the general kernel), and stops.
 
 Phases (every failed check raises; nothing is caught and carried on):
 
 1. device: card name, ``nvidia-smi`` name, power limit and maximum SM
    clock, TF32 off for the plain versions, kernel build time, and the
-   registers and spills ``ptxas`` reports for the redesigned B1/B4
+   registers and spills ``ptxas`` reports for the redesigned B1/B4/B5/B8
    kernels;
 2. kernels at batch 32, S = 3 seeds, against their plain versions: the f32
    kernels B1-B6 (bitwise for ReLU+mask and pool+argmax, within
-   1e-5 * max|ref| for the dots; B1 and B4 also launched again on the same
-   inputs, and B1 under a second tile plan, all bitwise equal; each time
-   beside a library call prints its ratio to it), then the fxp16 kernels
-   B7-B10 and the int16 instances of B2/B3, all bitwise, plus accumulators that wrap at
-   ±32767 operands; then the gate (B11, three methods) and unpool (B12,
+   1e-5 * max|ref| for the dots; B1, B4 and B5 also launched again on the
+   same inputs, B1 and B5 under a second tile plan, B5 on its general
+   kernel (timed beside it), all bitwise equal; each time beside a library
+   call prints its ratio to it), then the fxp16 kernels B7-B10 and the
+   int16 instances of B2/B3, all bitwise (B8 also under a second plan and
+   on its general kernel), plus accumulators that wrap at ±32767
+   operands; then the gate (B11, three methods) and unpool (B12,
    f32 and int16) kernels of the autograd paths, bitwise; then the
    selective scan (B13) at falcon-mamba-7b's explain shape (B = 4, S = 72,
    D = 8192, N = 16; x bf16 and f32) and a ragged S = 13, within the JAX
@@ -164,13 +168,13 @@ KERNELS = {   # counter -> (C source, replaced TPU kernel def)
                     "src/repro/kernels/pool/pool.py:77"),
     "vmm_fwd": ("src/repro_torch/csrc/vmm.cu",
                 "src/repro/kernels/vmm/vmm.py:49"),
-    "conv2d_bwd_fused": ("src/repro_torch/csrc/conv2d.cu",
+    "conv2d_bwd_fused": ("src/repro_torch/csrc/conv_bwd.cuh",
                          "src/repro/kernels/conv2d/conv2d.py:150"),
     "vmm_bwd_fused": ("src/repro_torch/csrc/vmm.cu",
                       "src/repro/kernels/vmm/vmm.py:117"),
     "conv2d_fxp_fwd": ("src/repro_torch/csrc/conv2d_fxp.cu",
                        "src/repro/kernels/conv2d/fxp.py:53"),
-    "conv2d_bwd_fused_fxp": ("src/repro_torch/csrc/conv2d_fxp.cu",
+    "conv2d_bwd_fused_fxp": ("src/repro_torch/csrc/conv_bwd.cuh",
                              "src/repro/kernels/conv2d/fxp.py:130"),
     "vmm_fxp_fwd": ("src/repro_torch/csrc/vmm_fxp.cu",
                     "src/repro/kernels/vmm/fxp.py:46"),
@@ -194,9 +198,12 @@ def fail(msg: str):
 
 
 #: Entry functions of the kernels redesigned for this card (B1's and B4's
-#: forwards), whose registers and spills phase 1 reports.
+#: forwards, the fused conv backward of B5 and B8), whose registers and
+#: spills phase 1 reports.
 REDESIGNED = ("conv_igemm_kernel", "vmm_splitk_kernel",
-              "vmm_splitk_sum_kernel")
+              "vmm_splitk_sum_kernel", "conv_bwd_igemm_kernel")
+#: Itanium mangling of the element types a template is instantiated for.
+MANGLED_TYPES = {"f": "float", "s": "int16_t"}
 
 
 def kernel_resources(ptxas_log: str, names):
@@ -218,7 +225,9 @@ def kernel_resources(ptxas_log: str, names):
         if m and entry:
             for name in names:
                 if re.search(rf"\d{name}(?:I|E|v|$)", entry):
-                    targs = re.findall(r"Li(\d+)E", entry)
+                    targs = [MANGLED_TYPES[t] for t in re.findall(
+                        rf"{name}I([fs])", entry)]
+                    targs += re.findall(r"Li(\d+)E", entry)
                     label = name + (f"<{','.join(targs)}>" if targs else "")
                     found.append((label, int(m.group(1))) + spill)
             entry = None
@@ -295,6 +304,7 @@ def _category(kernel_name: str) -> str:
     if "selective_scan" in n:
         return "B13"
     if any(k in n for k in ("conv_kernel", "conv_igemm_kernel",
+                            "conv_bwd_igemm_kernel",
                             "vmm_splitk", "conv_fxp_kernel", "relu_fwd_kernel",
                             "relu_bwd_kernel", "maxpool_fwd_kernel",
                             "unpool_bwd_kernel", "vmm_kernel",
@@ -322,19 +332,22 @@ class KernelCheck:
         keys = tuple(KERNELS) + INT16_INSTANCES
         self.err = {k: 0.0 for k in keys}
         self.sums = {k: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
-                         "library_ms": None, "f32_reference_ms": None}
+                         "library_ms": None, "f32_reference_ms": None,
+                         "general_ms": None}
                      for k in keys}
 
     def record(self, counter, case, main, got, want, exact, kernel_fn,
                plain_fn, nbytes, flops, library_fn=None, rate=None,
-               f32_reference_fn=None, close=None):
+               f32_reference_fn=None, close=None, general_fn=None):
         """Compare, time and log one case.  ``rate`` is the peak for
         ``flops`` (f32 FLOP/s by default; IMAD/s for the int16 kernels,
         MUFU/s for the scan's exponentials); ``f32_reference_fn`` times an
         f32 library call on the same shapes, a reference point only, where
-        no library computes the function; ``close(got, want)`` replaces the
-        default ``DOT_TOL`` comparison of an inexact case, returning the
-        error or failing."""
+        no library computes the function; ``general_fn`` times the same
+        kernel's general route (the fused conv backward's design before
+        its redesign), launched on the same inputs; ``close(got, want)``
+        replaces the default ``DOT_TOL`` comparison of an inexact case,
+        returning the error or failing."""
         rate = F32_FLOP_PER_S if rate is None else rate
         torch.cuda.synchronize()
         pairs = list(zip(got, want)) if isinstance(got, tuple) else [
@@ -361,12 +374,13 @@ class KernelCheck:
         lib = device_time_ms(library_fn) if library_fn else None
         f32_ref = device_time_ms(f32_reference_fn) if f32_reference_fn \
             else None
+        general = device_time_ms(general_fn) if general_fn else None
         bnd = bound_ms(nbytes, flops, rate)
         self.err[counter] = max(self.err[counter], err)
         row = dict(kernel=counter, case=case, max_abs_err=err, ms=ms,
                    plain_ms=plain, library_ms=lib, bound_ms=bnd,
                    bytes=nbytes, flops=flops, rate=rate, main_path=main,
-                   f32_reference_ms=f32_ref)
+                   f32_reference_ms=f32_ref, general_ms=general)
         self.rows.append(row)
         if main:
             s = self.sums[counter]
@@ -378,12 +392,15 @@ class KernelCheck:
                 s["no_library"], s["library_ms"] = True, None
             else:
                 s["library_ms"] = (s["library_ms"] or 0.0) + lib
-            if f32_ref is not None:
-                s["f32_reference_ms"] = (s["f32_reference_ms"] or 0.0) \
-                    + f32_ref
+            for key, t in (("f32_reference_ms", f32_ref),
+                           ("general_ms", general)):
+                if t is not None:
+                    s[key] = (s[key] or 0.0) + t
         libs = (f" library {lib:.4f} (x{ms / lib:.2f})" if lib is not None
                 else "")
         refs = f" f32-ref {f32_ref:.4f}" if f32_ref is not None else ""
+        if general is not None:
+            refs += f" general {general:.4f}"
         print(f"  {counter:20s} {case:34s} err {err:.2e}  kernel {ms:.4f} "
               f"plain {plain:.4f}{libs}{refs}  bound {bnd:.4f} ms")
 
@@ -391,7 +408,8 @@ class KernelCheck:
         """One line per kernel: main-path sums per explain."""
         for k, s in self.sums.items():
             extra = "".join(f" {n} {s[n]:.4f}" for n in (
-                "library_ms", "f32_reference_ms") if s[n] is not None)
+                "library_ms", "f32_reference_ms", "general_ms")
+                if s[n] is not None)
             if s["library_ms"]:
                 extra += f" (x{s['ms'] / s['library_ms']:.2f} of library)"
             print(f"  sum {k:20s} ms {s['ms']:.4f} plain_ms "
@@ -415,12 +433,29 @@ def _bitwise_repeat(counter, case, first, launches):
           + "; ".join(what for what, _ in launches))
 
 
+def second_bwd_plan(plan, c: int):
+    """A valid tile plan of the fused conv backward other than ``plan``:
+    the other pixel count a thread, the smallest whole chunk and one seed a
+    group (so the ring also runs across seed groups)."""
+    from repro_torch.kernels.conv2d.conv2d import (CONV_MAX_THREADS,
+                                                   ConvBwdPlan, bwd_cin_step)
+    th = plan.th
+    while True:
+        other = ConvBwdPlan(th, 12 - plan.px, plan.tco, bwd_cin_step(c), 1,
+                            1)
+        if other.threads <= CONV_MAX_THREADS:
+            return other
+        th //= 2
+
+
 def check_kernels(kc: KernelCheck):
     from repro_torch.kernels.conv2d import ref as conv_ref
-    from repro_torch.kernels.conv2d.conv2d import (ConvPlan, conv2d,
+    from repro_torch.kernels.conv2d.conv2d import (CONV_BWD_GENERAL,
+                                                   ConvPlan, conv2d,
                                                    conv2d_bwd_fused,
                                                    conv2d_bwd_fused_plain,
-                                                   conv2d_planned, conv_plan)
+                                                   conv2d_planned,
+                                                   conv_bwd_plan, conv_plan)
     from repro_torch.kernels.pool import ref as pool_ref
     from repro_torch.kernels.pool.pool import maxpool_fwd
     from repro_torch.kernels.relu_mask import ref as relu_ref
@@ -497,7 +532,9 @@ def check_kernels(kc: KernelCheck):
                   lambda: vmm_ref.vmm(x, w) + b, nbytes, 2 * n * k * m_out,
                   lambda: torch.addmm(b, x, w))
 
-    # B5 fused conv backward: (H, C, Cout', pooled) of layers 3, 2, 1, 0
+    # B5 fused conv backward: (H, C, Cout', pooled) of layers 3, 2, 1, 0,
+    # launched again, under a second tile plan and on the general kernel
+    # (its design before the redesign, timed beside it): all bitwise equal
     s = SEEDS
     for method in METHODS:
         for h, c, cout, pooled in ((16, 64, 64, True), (16, 64, 32, False),
@@ -518,15 +555,25 @@ def check_kernels(kc: KernelCheck):
             nbytes = (4 * (g.numel() + wt.numel() + s * n * h * h * cout)
                       + (idx.numel() if pooled else 0)
                       + (mask.numel() if mask is not None else 0))
-            kc.record("conv2d_bwd_fused",
-                      f"{method} [{s},{n},{hg},{hg},{c}]->{cout}"
-                      + (" pool" if pooled else ""),
-                      method == "saliency",
-                      conv2d_bwd_fused(g, wt, **kw),
+            case = (f"{method} [{s},{n},{hg},{hg},{c}]->{cout}"
+                    + (" pool" if pooled else ""))
+            got = conv2d_bwd_fused(g, wt, **kw)
+            plan = conv_bwd_plan(s, n, h, h, c, cout, 3, pooled=pooled,
+                                 esize=g.element_size())
+            other = second_bwd_plan(plan, c)
+            _bitwise_repeat("conv2d_bwd_fused", case, got, (
+                (f"again under {plan}", lambda: conv2d_bwd_fused(g, wt, **kw)),
+                (f"under {other}",
+                 lambda: conv2d_bwd_fused(g, wt, plan=other, **kw)),
+                ("on the general kernel", lambda: conv2d_bwd_fused(
+                    g, wt, plan=CONV_BWD_GENERAL, **kw))))
+            kc.record("conv2d_bwd_fused", case, method == "saliency", got,
                       conv2d_bwd_fused_plain(g, wt, **kw), False,
                       lambda: conv2d_bwd_fused(g, wt, **kw),
                       lambda: conv2d_bwd_fused_plain(g, wt, **kw),
-                      nbytes, 2 * nnz * 9 * cout)
+                      nbytes, 2 * nnz * 9 * cout,
+                      general_fn=lambda: conv2d_bwd_fused(
+                          g, wt, plan=CONV_BWD_GENERAL, **kw))
     # ... with the epilogue gate, and with no gate (the library yardstick)
     y = randn(gen, n, 16, 16, 64)
     prev = randn(gen, n, 16, 16, 32)
@@ -595,6 +642,15 @@ def check_kernels(kc: KernelCheck):
 SWEEP_VMM = ((32, 4096, 128), (32, 128, 10), (32, 128, 4096), (32, 10, 128))
 SWEEP_CONV = {"fwd": ((32, 3, 32), (32, 32, 32), (16, 32, 64), (16, 64, 64)),
               "dx": ((16, 64, 32), (32, 32, 3))}
+#: ``--sweep``: the fused conv backward's launches of an explain at batch
+#: 32, (H, C, Cout', pooled) of layers 3, 2, 1, 0, at (element type, S):
+#: the seed-batched f32 and fxp16 paths (S = 3) and the vjp path (S = 1).
+SWEEP_BWD_SHAPES = ((16, 64, 64, True), (16, 64, 32, False),
+                    (32, 32, 32, True), (32, 32, 3, False))
+SWEEP_BWD = ((torch.float32, SEEDS), (torch.float32, 1), (torch.int16, SEEDS))
+#: Back-to-back runs per backward plan (hundreds of plans a shape), and
+#: the sleep that covers their enqueue.
+SWEEP_BWD_REPS, SWEEP_BWD_COVER_MS = 20, 20.0
 
 
 def _sweep_plans(h, cin, cout):
@@ -613,6 +669,106 @@ def _sweep_plans(h, cin, cout):
                             and 32 <= p.threads <= CONV_MAX_THREADS
                             and p.smem_bytes(3) <= 227 * 1024):
                         yield p
+
+
+def _sweep_bwd_plans(s, h, c, cout, pooled, esize):
+    """A grid of fused-backward tile plans for one launch: rows, pixels a
+    thread, Cout a block, C a stage, seeds a thread and thread slices (one
+    seed, or all S up to 3 in a thread or across slices), within the
+    block's thread and memory limits."""
+    from repro_torch.kernels.conv2d.conv2d import (CONV_MAX_THREADS,
+                                                   CONV_SMEM_LIMIT,
+                                                   ConvBwdPlan)
+    from repro_torch.kernels.tiling import align_up
+    seeds = {(1, 1), (min(s, 3), 1), (1, min(s, 3))}   # (sg, st)
+    for th in (1, 2, 4, 8, 16, 32):
+        for px in (4, 8):
+            for tco in (4, 8, 16, 32, 64):
+                for ct in sorted({min(8, c), min(16, c), min(32, c)}):
+                    for sg, st in sorted(seeds):
+                        p = ConvBwdPlan(th, px, tco, ct, sg, st)
+                        if (th <= h and tco <= align_up(cout, 4)
+                                and (px == 4 or sg == 1)
+                                and 32 <= p.threads <= CONV_MAX_THREADS
+                                and p.smem_bytes(3, pooled=pooled,
+                                                 esize=esize)
+                                <= CONV_SMEM_LIMIT):
+                            yield p
+
+
+def sweep_bwd_plans(gen):
+    """``--sweep``, fused conv backward: time a grid of tile plans at each
+    launch of :data:`SWEEP_BWD` beside the general kernel, every plan held
+    bitwise to ``conv_bwd_plan``'s (and that one to the plain version:
+    within DOT_TOL in f32, bitwise in int16); say where the rule lands."""
+    from repro_torch.core import fixedpoint, masks
+    from repro_torch.kernels.conv2d.conv2d import (CONV_BWD_GENERAL,
+                                                   conv2d_bwd_fused,
+                                                   conv2d_bwd_fused_plain,
+                                                   conv_bwd_plan)
+    from repro_torch.kernels.conv2d.fxp import (conv2d_bwd_fused_fxp,
+                                                conv2d_bwd_fused_fxp_plain)
+    from repro_torch.kernels.pool import ref as pool_ref
+
+    rows = []
+    for dtype, s in SWEEP_BWD:
+        fxp = dtype == torch.int16
+        fn, plain = ((conv2d_bwd_fused_fxp, conv2d_bwd_fused_fxp_plain)
+                     if fxp else (conv2d_bwd_fused, conv2d_bwd_fused_plain))
+        for h, c, cout, pooled in SWEEP_BWD_SHAPES:
+            y = randn(gen, BATCH, h, h, c)
+            idx = (pool_ref.maxpool_fwd(torch.clamp_min(y, 0))[1]
+                   if pooled else None)
+            hg = h // 2 if pooled else h
+            g = randn(gen, s, BATCH, hg, hg, c, scale=0.5 if fxp else 1e-2)
+            wt = randn(gen, 3, 3, c, cout, scale=(2.0 / (9 * c)) ** 0.5)
+            if fxp:
+                g = fixedpoint.to_fixed(g)
+                wt = fixedpoint.to_fixed(wt, fixedpoint.WGT_FRAC)
+            kw = dict(pool_idx=idx, relu_mask=masks.pack_mask(y > 0),
+                      method="saliency")
+            case = (f"bwd {'int16' if fxp else 'f32'} "
+                    f"[{s},{BATCH},{hg},{hg},{c}]->{cout}"
+                    + (" pool" if pooled else ""))
+            chosen = conv_bwd_plan(s, BATCH, h, h, c, cout, 3,
+                                   pooled=pooled, esize=g.element_size())
+            first = fn(g, wt, **kw)
+            want = plain(g, wt, **kw)
+            torch.cuda.synchronize()
+            if fxp and not torch.equal(first, want):
+                fail(f"sweep {case}: not bitwise equal to plain")
+            if not fxp:
+                e = (first - want).abs().max().item()
+                if not e <= DOT_TOL * want.abs().max().item():
+                    fail(f"sweep {case}: max|d| {e:.3e} beyond DOT_TOL")
+            general = device_time_ms(
+                lambda: fn(g, wt, plan=CONV_BWD_GENERAL, **kw),
+                reps=SWEEP_BWD_REPS, cover_ms=SWEEP_BWD_COVER_MS)
+            found = []
+            for p in set(_sweep_bwd_plans(s, h, c, cout, pooled,
+                                          g.element_size())) | {chosen}:
+                got = fn(g, wt, plan=p, **kw)
+                torch.cuda.synchronize()
+                if not torch.equal(got, first):
+                    fail(f"sweep {case}: plan {p} changes the bits")
+                found.append((device_time_ms(
+                    lambda: fn(g, wt, plan=p, **kw), reps=SWEEP_BWD_REPS,
+                    cover_ms=SWEEP_BWD_COVER_MS), p))
+            found.sort(key=lambda t: (t[0], t[1].args()))
+            rank = [p for _, p in found].index(chosen)
+            print(f"  {case}: general kernel {general:.4f} ms; "
+                  f"conv_bwd_plan {chosen} {found[rank][0]:.4f} ms (rank "
+                  f"{rank + 1} of {len(found)}); fastest:")
+            for ms, p in found[:8]:
+                print(f"      {ms:.4f} ms  {p}  threads {p.threads:3d} "
+                      f"blocks {p.blocks(BATCH, h, h, cout):5d} smem "
+                      f"{p.smem_bytes(3, pooled=pooled, esize=g.element_size())}")
+            rows.append(dict(
+                dtype=str(dtype), seeds=s, shape=[BATCH, h, h, c, cout],
+                pooled=pooled, general_ms=general, chosen=chosen.args(),
+                chosen_ms=found[rank][0], rank=rank + 1,
+                plans=[dict(plan=p.args(), ms=ms) for ms, p in found]))
+    return rows
 
 
 def sweep_launch_choices(gen):
@@ -688,6 +844,8 @@ def check_kernels_fxp(kc: KernelCheck):
     """The fxp16 path's kernels (B7-B10, int16 B2/B3), bitwise."""
     from repro_torch.core import fixedpoint, masks
     from repro_torch.kernels.conv2d import ref as conv_ref
+    from repro_torch.kernels.conv2d.conv2d import (CONV_BWD_GENERAL,
+                                                   conv_bwd_plan)
     from repro_torch.kernels.conv2d.fxp import (conv2d_bwd_fused_fxp,
                                                 conv2d_bwd_fused_fxp_plain,
                                                 conv2d_fxp)
@@ -784,7 +942,9 @@ def check_kernels_fxp(kc: KernelCheck):
               2 * (x.numel() + w.numel() + n * 128), n * 4096 * 128,
               rate=rate)
 
-    # B8 int16 fused conv backward: (H, C, Cout', pooled) of layers 3..0
+    # B8 int16 fused conv backward: (H, C, Cout', pooled) of layers 3..0,
+    # bitwise equal to the plain version, and launched again, under a
+    # second tile plan and on the general kernel (timed beside it)
     for method in METHODS:
         for h, c, cout, pooled in ((16, 64, 64, True), (16, 64, 32, False),
                                    (32, 32, 32, True), (32, 32, 3, False)):
@@ -804,15 +964,26 @@ def check_kernels_fxp(kc: KernelCheck):
             nbytes = (2 * (g.numel() + wt.numel() + s * n * h * h * cout)
                       + (idx.numel() if pooled else 0)
                       + (mask.numel() if mask is not None else 0))
-            kc.record("conv2d_bwd_fused_fxp",
-                      f"{method} [{s},{n},{hg},{hg},{c}]->{cout}"
-                      + (" pool" if pooled else ""),
-                      method == "saliency",
-                      conv2d_bwd_fused_fxp(g, wt, **kw),
-                      conv2d_bwd_fused_fxp_plain(g, wt, **kw), True,
+            case = (f"{method} [{s},{n},{hg},{hg},{c}]->{cout}"
+                    + (" pool" if pooled else ""))
+            got = conv2d_bwd_fused_fxp(g, wt, **kw)
+            plan = conv_bwd_plan(s, n, h, h, c, cout, 3, pooled=pooled,
+                                 esize=g.element_size())
+            other = second_bwd_plan(plan, c)
+            _bitwise_repeat("conv2d_bwd_fused_fxp", case, got, (
+                (f"again under {plan}",
+                 lambda: conv2d_bwd_fused_fxp(g, wt, **kw)),
+                (f"under {other}",
+                 lambda: conv2d_bwd_fused_fxp(g, wt, plan=other, **kw)),
+                ("on the general kernel", lambda: conv2d_bwd_fused_fxp(
+                    g, wt, plan=CONV_BWD_GENERAL, **kw))))
+            kc.record("conv2d_bwd_fused_fxp", case, method == "saliency",
+                      got, conv2d_bwd_fused_fxp_plain(g, wt, **kw), True,
                       lambda: conv2d_bwd_fused_fxp(g, wt, **kw),
                       lambda: conv2d_bwd_fused_fxp_plain(g, wt, **kw),
-                      nbytes, nnz * 9 * cout, rate=rate)
+                      nbytes, nnz * 9 * cout, rate=rate,
+                      general_fn=lambda: conv2d_bwd_fused_fxp(
+                          g, wt, plan=CONV_BWD_GENERAL, **kw))
     # ... with the epilogue gate after the requantize
     y, prev = qact(n, 16, 16, 64), qact(n, 16, 16, 32)
     g = qact(s, n, 16, 16, 64, scale=0.5)
@@ -826,6 +997,20 @@ def check_kernels_fxp(kc: KernelCheck):
               lambda: conv2d_bwd_fused_fxp_plain(g, wt, **kw),
               2 * (g.numel() * 1.5 + wt.numel()) + n * 256 * 12,
               g.numel() * 9 * 32, rate=rate)
+    # ... and at the rails: half the gradient channels and their weights
+    # into output channel 0 at +32767, so its int32 sums pass 2^31 and wrap
+    g, wt = rails(s, n, 8, 8, 64), rails(3, 3, 64, 64)
+    g[..., :32], wt[:, :, :32, 0] = lim, lim
+    y = torch.ones(n, 16, 16, 64, device="cuda")          # every bit set
+    kw = dict(pool_idx=pool_ref.maxpool_fwd(y)[1], method="saliency",
+              relu_mask=masks.pack_mask(y > 0))
+    kc.record("conv2d_bwd_fused_fxp", "rails [3,32,8,8,64]->64 pool wrap",
+              False, conv2d_bwd_fused_fxp(g, wt, **kw),
+              conv2d_bwd_fused_fxp_plain(g, wt, **kw), True,
+              lambda: conv2d_bwd_fused_fxp(g, wt, **kw),
+              lambda: conv2d_bwd_fused_fxp_plain(g, wt, **kw),
+              2 * (g.numel() + wt.numel() + s * n * 256 * 64),
+              g.numel() * 9 * 64, rate=rate)
 
     # B10 int16 fused FC backward: FC1 (no gate) then FC0 (gated)
     for method in METHODS:
@@ -1813,7 +1998,7 @@ def main() -> int:
             if ("Compiling entry" in line or "registers" in line
                     or "spill stores" in line):
                 print("   ", line.strip())
-        print("  redesigned B1/B4 kernels (ptxas): " + "; ".join(
+        print("  redesigned B1/B4/B5/B8 kernels (ptxas): " + "; ".join(
             f"{name} {regs} registers, spill stores {st} B, loads {ld} B"
             for name, regs, st, ld in kernel_resources(text, REDESIGNED)))
 
@@ -1822,6 +2007,10 @@ def main() -> int:
               f"back-to-back runs)")
         rows = sweep_launch_choices(torch.Generator(device="cuda")
                                     .manual_seed(0))
+        print(f"sweep: fused conv backward tile plans (ms = median of "
+              f"{SWEEP_BWD_REPS} back-to-back runs)")
+        rows["bwd"] = sweep_bwd_plans(torch.Generator(device="cuda")
+                                      .manual_seed(0))
         if args.out is not None:
             args.out.mkdir(parents=True, exist_ok=True)
             (args.out / "kernel_sweep.json").write_text(json.dumps(dict(

@@ -1,6 +1,7 @@
 // Shared by the kernels of repro_torch: the rectifier rules of the paper
-// (Eq. 3-5) and the packed-residual bit reads used by the fused backward
-// kernels' prologues and epilogues.
+// (Eq. 3-5), the packed-residual bit reads used by the fused backward
+// kernels' prologues and epilogues, and the cp.async copies of the tiled
+// convolutions.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -57,6 +58,33 @@ __device__ __forceinline__ bool mask_bit(const uint8_t* row, int c) {
 // of byte b).
 __device__ __forceinline__ int crumb(const uint8_t* row, int c) {
   return (row[c >> 2] >> (2 * (c & 3))) & 3;
+}
+
+// Asynchronous global -> shared copy of N = 4, 8 or 16 bytes (both
+// addresses aligned to N); ok == false zero-fills them (source size 0).
+template <int N>
+__device__ __forceinline__ void cp_async(void* dst, const void* src,
+                                         bool ok) {
+  static_assert(N == 4 || N == 8 || N == 16, "cp.async copies 4, 8 or 16 B");
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  if constexpr (N == 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+                 "l"(src), "r"(ok ? 16 : 0));
+  } else if constexpr (N == 8) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(d),
+                 "l"(src), "r"(ok ? 8 : 0));
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+                 "l"(src), "r"(ok ? 4 : 0));
+  }
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
 }  // namespace repro

@@ -42,23 +42,31 @@
 // for K = 1, 3, 5, 7, and the forward runs any other odd K on conv_kernel
 // below.
 //
-// Fused backward design (conv_kernel, also the forward's before the
-// redesign and still for K > 7): one block computes an 8x8 pixel tile of
-// one image for a slice of TCO output channels (32, or 8 when Cout <= 8,
-// e.g. the backward of layer 0 whose Cout' is 3).  The input halo tile
-// (10x10 for K=3) and the matching weight slice are staged in shared
-// memory Cin chunk by Cin chunk; each thread keeps TCO/4 pixel accumulators of one channel, so a
+// Fused backward design: the tiled kernel of conv_bwd.cuh
+// (conv_bwd_igemm_kernel<float, K, PX, SG>), the forward's tile with the S
+// seeds of one image in the block and the unpool + gate prologue run on a
+// landing buffer of the cp.async ring; tiled by kernels/conv2d/conv2d.py
+// conv_bwd_plan, bit for bit equal to conv_kernel below under every plan.
+// Built for K = 1, 3, 5, 7 like the forward.
+//
+// General kernel (conv_kernel: the fused backward for any other odd K, or
+// when the caller passes the general plan of zeros; the forward for any
+// other odd K): one block computes an 8x8 pixel tile of one image for a
+// slice of TCO output channels (32, or 8 when Cout <= 8, e.g. the backward
+// of layer 0 whose Cout' is 3).  The input halo tile (10x10 for K=3) and
+// the matching weight slice are staged in shared memory Cin chunk by Cin
+// chunk; each thread keeps TCO/4 pixel accumulators of one channel, so a
 // warp reads one broadcast activation and 32 (or 8) consecutive weights
 // per FMA step.  SAME padding and ragged channel counts (Cin = 3, Cout' =
-// 3) are bounds checks on the loads and stores, never a padded copy.
-//
-// The fused backward decodes the prologue for its whole halo tile and all C
+// 3) are bounds checks on the loads and stores, never a padded copy.  Its
+// fused backward decodes the prologue for its whole halo tile and all C
 // channels once (unpool routing bit + mask bit, one byte per value) into
 // shared memory and then loops over the S seeds, so every seed reuses the
-// residual bytes the block loaded once — the paper's mask reuse.  The
-// gated gradient exists only in shared memory.
+// residual bytes the block loaded once; that state grows with C (60 KB at
+// C = 600), which the tiled kernel's does not.
 
 #include "common.cuh"
+#include "conv_bwd.cuh"
 
 namespace {
 
@@ -249,29 +257,6 @@ struct FwdArgs {
   int vec_x, vec_w, vec_y;  // 16-byte copies / stores allowed
 };
 
-// Asynchronous global -> shared copies; ok == false zero-fills the bytes.
-__device__ __forceinline__ void cp_async16(float* dst, const float* src,
-                                           bool ok) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-               "l"(src), "r"(ok ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src,
-                                          bool ok) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
-               "l"(src), "r"(ok ? 4 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
 template <int K, int PX>
 __global__ void __launch_bounds__(FW_MAX_THREADS)
 conv_igemm_kernel(FwdArgs a) {
@@ -305,7 +290,7 @@ conv_igemm_kernel(FwdArgs a) {
             ok ? xn + (static_cast<size_t>(yy) * a.wd + xx) * a.cin + c0 +
                      4 * q
                : a.x;
-        cp_async16(xs + pos * xstride + 4 * q, src, ok);
+        repro::cp_async<16>(xs + pos * xstride + 4 * q, src, ok);
       }
     } else {
       for (int e = tid; e < XH * XW * cn; e += nthr) {
@@ -315,7 +300,7 @@ conv_igemm_kernel(FwdArgs a) {
         const float* src =
             ok ? xn + (static_cast<size_t>(yy) * a.wd + xx) * a.cin + c0 + ci
                : a.x;
-        cp_async4(xs + pos * xstride + ci, src, ok);
+        repro::cp_async<4>(xs + pos * xstride + ci, src, ok);
       }
     }
     if (a.vec_w) {  // Cout a multiple of 4: a float4 never straddles it
@@ -328,7 +313,7 @@ conv_igemm_kernel(FwdArgs a) {
             ok ? a.w + (static_cast<size_t>(kk) * a.cin + c0 + ci) * a.cout +
                      o
                : a.w;
-        cp_async16(ws + (kk * cin_t + ci) * tco + 4 * q, src, ok);
+        repro::cp_async<16>(ws + (kk * cin_t + ci) * tco + 4 * q, src, ok);
       }
     } else {
       for (int e = tid; e < K * K * cn * tco; e += nthr) {
@@ -339,10 +324,10 @@ conv_igemm_kernel(FwdArgs a) {
             ok ? a.w + (static_cast<size_t>(kk) * a.cin + c0 + ci) * a.cout +
                      o
                : a.w;
-        cp_async4(ws + (kk * cin_t + ci) * tco + q, src, ok);
+        repro::cp_async<4>(ws + (kk * cin_t + ci) * tco + q, src, ok);
       }
     }
-    cp_async_commit();
+    repro::cp_async_commit();
   };
 
   float acc[PX][4];
@@ -354,7 +339,7 @@ conv_igemm_kernel(FwdArgs a) {
   const int nchunks = (a.cin + cin_t - 1) / cin_t;
   if (nchunks > 0) load(0, 0);
   for (int i = 0; i < nchunks; ++i) {
-    cp_async_wait_all();
+    repro::cp_async_wait_all();
     // Chunk i has landed for every thread, and every thread is done with
     // chunk i - 1, whose stage the next copies overwrite.
     __syncthreads();
@@ -500,7 +485,38 @@ REPRO_API int repro_conv2d_bwd_fused(const float* g, const float* wt,
                                      const uint8_t* omask, float* out, int s,
                                      int n, int h, int wd, int c, int cout,
                                      int k, int gate_in, int gate_out,
-                                     int method, cudaStream_t stream) {
+                                     int method, int th, int px, int tco,
+                                     int cin_t, int sg, int st,
+                                     cudaStream_t stream) {
+  const bool tiled = k == 1 || k == 3 || k == 5 || k == 7;
+  const bool general =
+      th == 0 && px == 0 && tco == 0 && cin_t == 0 && sg == 0 && st == 0;
+  if (!general && !tiled) return static_cast<int>(cudaErrorInvalidValue);
+  if (!general) {
+    // The tile plan of kernels/conv2d/conv2d.py conv_bwd_plan.
+    bwd::Args<float> b{};
+    b.g = g;
+    b.wt = wt;
+    b.pool_idx = pool_idx;
+    b.mask = mask;
+    b.omask = omask;
+    b.out = out;
+    b.s = s;
+    b.n = n;
+    b.h = h;
+    b.wd = wd;
+    b.c = c;
+    b.cout = cout;
+    b.gate_in = gate_in;
+    b.gate_out = gate_out;
+    b.method = method;
+    b.th = th;
+    b.tco = tco;
+    b.cin_t = cin_t;
+    b.st = st;
+    return static_cast<int>(bwd::launch_tiled(b, k, px, sg, stream));
+  }
+  // The general plan (zeros): conv_kernel, which tiles itself.
   ConvArgs a{};
   a.in = g;
   a.wt = wt;

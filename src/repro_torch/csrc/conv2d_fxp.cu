@@ -20,23 +20,34 @@
 // Bound on an H100: integer multiply-adds, except the backward of layer 0
 // (Cout' = 3), which is bound by bytes.  Hopper has no int16 tensor-core
 // MMA, so the products run as IMAD on the CUDA cores (64 per SM per clock,
-// half the FFMA rate).  Design: the tile structure of the f32 kernel
-// (conv2d.cu): one block computes an 8x8 pixel tile of one image for TCO
-// output channels (32, or 8 when Cout <= 8, e.g. the backward of layer 0
-// whose Cout' is 3); the input halo tile and the weight slice are staged
-// in shared memory as int16, half the bytes of f32, Cin chunk by Cin chunk
-// (64 channels, halved until the tiles fit the 48 KB: 32 at TCO = 32 and
-// K = 3); each thread keeps TCO/4 pixel accumulators of one channel.  SAME padding and ragged channel counts are bounds checks on
-// the loads and stores.  No atomics: each output is written once by one
+// half the FFMA rate).  No atomics: each output is written once by one
 // thread, so results are deterministic.
 //
-// The fused backward decodes its prologue (unpool routing bit + mask bit)
-// for the whole halo tile and all C channels once into shared memory and
-// then loops over the S seeds, so the residual bytes are loaded once for
-// every seed — the paper's mask reuse.  The gated gradient exists only in
-// shared memory.
+// Fused backward design: the tiled kernel of conv_bwd.cuh
+// (conv_bwd_igemm_kernel<int16_t, K, PX, SG>), the f32 backward's template
+// on int16 operands: the register micro-tile, the input row reused across
+// kw, the cp.async ring with its unpool + gate prologue, the gated values
+// widened to 32 bits in shared memory so the inner loop is IMAD on uint32_t
+// words, and the requantize before the epilogue gate.  Wrapping addition
+// is associative, so no plan changes a bit.  Built for K = 1, 3, 5, 7 and
+// tiled by kernels/conv2d/conv2d.py conv_bwd_plan.
+//
+// General kernel (conv_fxp_kernel; B7's forward, and the fused backward for
+// any other odd K or the general plan of zeros): the tile structure of the
+// f32 general kernel (conv2d.cu conv_kernel): one block computes an 8x8
+// pixel tile of one image for TCO output channels (32, or 8 when Cout <= 8,
+// e.g. the backward of layer 0 whose Cout' is 3); the input halo tile and
+// the weight slice are staged in shared memory as int16, half the bytes of
+// f32, Cin chunk by Cin chunk (64 channels, halved until the tiles fit the
+// 48 KB: 32 at TCO = 32 and K = 3); each thread keeps TCO/4 pixel
+// accumulators of one channel.  SAME padding and ragged channel counts are
+// bounds checks on the loads and stores.  Its fused backward decodes its
+// prologue (unpool routing bit + mask bit) for the whole halo tile and all
+// C channels once into shared memory and then loops over the S seeds, so
+// the residual bytes are loaded once for every seed.
 
 #include "common.cuh"
+#include "conv_bwd.cuh"
 
 namespace {
 
@@ -241,8 +252,38 @@ REPRO_API int repro_conv2d_bwd_fused_fxp(const int16_t* g, const int16_t* wt,
                                          const uint8_t* omask, int16_t* out,
                                          int s, int n, int h, int wd, int c,
                                          int cout, int k, int gate_in,
-                                         int gate_out, int method,
-                                         cudaStream_t stream) {
+                                         int gate_out, int method, int th,
+                                         int px, int tco, int cin_t, int sg,
+                                         int st, cudaStream_t stream) {
+  const bool tiled = k == 1 || k == 3 || k == 5 || k == 7;
+  const bool general =
+      th == 0 && px == 0 && tco == 0 && cin_t == 0 && sg == 0 && st == 0;
+  if (!general && !tiled) return static_cast<int>(cudaErrorInvalidValue);
+  if (!general) {
+    // The tile plan of kernels/conv2d/conv2d.py conv_bwd_plan.
+    bwd::Args<int16_t> b{};
+    b.g = g;
+    b.wt = wt;
+    b.pool_idx = pool_idx;
+    b.mask = mask;
+    b.omask = omask;
+    b.out = out;
+    b.s = s;
+    b.n = n;
+    b.h = h;
+    b.wd = wd;
+    b.c = c;
+    b.cout = cout;
+    b.gate_in = gate_in;
+    b.gate_out = gate_out;
+    b.method = method;
+    b.th = th;
+    b.tco = tco;
+    b.cin_t = cin_t;
+    b.st = st;
+    return static_cast<int>(bwd::launch_tiled(b, k, px, sg, stream));
+  }
+  // The general plan (zeros): conv_fxp_kernel, which tiles itself.
   ConvFxpArgs a{};
   a.in = g;
   a.wt = wt;

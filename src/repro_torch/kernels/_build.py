@@ -45,14 +45,17 @@ SIGNATURES = {
     # f32 forward: x, w, bias, y, n, h, w, cin, cout, k, then the tile plan
     # (rows, pixels per thread, Cout per block, Cin per stage)
     "repro_conv2d_fwd": [_P, _P, _P, _P] + [_I] * 10 + [_P],
-    "repro_conv2d_bwd_fused": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                               _I, _I, _I, _I, _I, _P],
+    # f32 fused backward: g, wt, pool_idx, mask, omask, out, s, n, h, w, c,
+    # cout, k, gate_in, gate_out, method, then the tile plan (rows, pixels
+    # per thread, Cout per block, C per stage, seeds per thread, thread
+    # slices; all 0: the general kernel)
+    "repro_conv2d_bwd_fused": [_P] * 6 + [_I] * 16 + [_P],
     # the fxp16 path: int16 instances of B2/B3 and the int16 kernels B7-B10
     "repro_relu_fwd_i16": [_P, _P, _P, _I, _I, _P],
     "repro_maxpool_fwd_i16": [_P, _P, _P, _I, _I, _I, _I, _P],
     "repro_conv2d_fxp_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    "repro_conv2d_bwd_fused_fxp": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                                   _I, _I, _I, _I, _I, _I, _P],
+    # int16 fused backward: the f32 one's arguments and plan
+    "repro_conv2d_bwd_fused_fxp": [_P] * 6 + [_I] * 16 + [_P],
     "repro_vmm_fxp_fwd": [_P, _P, _P, _P, _I, _I, _I, _P],
     "repro_vmm_bwd_fused_fxp": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                 _I, _P],

@@ -8,9 +8,12 @@ tiles itself).
 :func:`conv2d_bwd_fused` wraps ``repro_conv2d_bwd_fused`` (the
 port of ``conv2d_bwd_fused_pallas``): the unpool scatter by the stored 2-bit
 argmax and the Eq. 3-5 gate by the stored 1-bit mask run as a prologue on
-the gradient as it is loaded, then the SAME conv with the flip-transposed
+the gradient as it is staged, then the SAME conv with the flip-transposed
 kernel, then an optional epilogue gate — a conv layer's whole backward step
-in one launch, all S seeds sharing one load of the stored residuals.
+in one launch, the seeds of a block (all S up to 3) sharing one load of the
+stored residuals.  :func:`conv_bwd_plan` chooses its tile (K in
+:data:`CONV_KS`; other odd K, or :data:`CONV_BWD_GENERAL`, run the general
+kernel, which tiles itself).
 :func:`conv2d_bwd_fused_plain` is that kernel's plain twin.
 
 The int16 twins (``conv2d.fxp``) share the argument contract, checks and
@@ -46,6 +49,10 @@ CONV_KS = (1, 3, 5, 7)
 CONV_SMEM_BUDGET = 112 * 1024
 #: Cin channels per ring stage at most.
 CONV_MAX_CIN_T = 32
+#: Shared memory one block may use on an H100 (227 KB), an SM's in all
+#: (228 KB) and what the card reserves per resident block.
+CONV_SMEM_LIMIT = 227 * 1024
+CONV_SMEM_PER_SM, CONV_SMEM_RESERVED = 228 * 1024, 1024
 #: Threads a block aims for: among plans of about two blocks per SM, 128
 #: were the fastest on the Table III layers, or within 1 % of it
 #: (``python3 chip_smoke.py --sweep`` on an H100).
@@ -116,6 +123,167 @@ def conv_plan(n: int, h: int, w: int, cin: int, cout: int,
         th //= 2
     px = 8 if th * tco // 4 >= CONV_TARGET_THREADS else 4
     return ConvPlan(th, px, tco, conv_cin_t(cin, k, th, px, tco))
+
+
+#: Seeds a thread of the tiled fused backward sums at once (its register
+#: micro-tile is seeds x PX pixels x 4 channels): ``csrc/conv_bwd.cuh`` is
+#: compiled for 1, 2 and 3 at PX = 4 and for 1 at PX = 8 (more spill).
+CONV_BWD_SEED_GROUPS = (1, 2, 3)
+#: Output channels a block of the fused backward holds at most.
+CONV_MAX_TCO_BWD = 64
+#: The fused backward puts a launch's seeds in each thread where that
+#: leaves this many warps an SM, and across thread slices where not (the
+#: sweep's winners: in-thread on the pooled Table III layers, 8 and 16
+#: warps an SM; slices on the unpooled ones, 4 and 2).
+CONV_BWD_MIN_WARPS_PER_SM = 6
+
+
+@dataclass(frozen=True)
+class ConvBwdPlan:
+    """The tiled fused backward's tile: ``th`` rows x 8 pixels x ``tco``
+    output channels x ``sg * st`` seeds a block, in ``st`` slices of
+    threads, each thread ``px`` pixels (8 or 4) x 4 channels x ``sg``
+    seeds; ``cin_t`` gradient channels a ring stage.  No field changes the
+    order of any sum.  :data:`CONV_BWD_GENERAL` (all zeros) selects the
+    general kernel instead."""
+    th: int
+    px: int
+    tco: int
+    cin_t: int
+    sg: int
+    st: int = 1
+
+    @property
+    def seeds(self) -> int:
+        """Seeds a block holds (its residual reads serve all of them)."""
+        return self.sg * self.st
+
+    @property
+    def threads(self) -> int:
+        return (self.st * self.th * (CONV_TILE_W // self.px)
+                * (self.tco // 4))
+
+    def blocks(self, n: int, h: int, w: int, cout: int) -> int:
+        return (cdiv(h, self.th) * cdiv(w, CONV_TILE_W)
+                * cdiv(cout, self.tco) * n)
+
+    def smem_bytes(self, k: int, *, pooled: bool = False,
+                   esize: int = 4) -> int:
+        """The compute buffer (gated inputs as 32-bit words, rows padded to
+        4) and both ring stages (the landing buffer of ``esize``-byte
+        gradients, pooled: the Hg x Wg tile, then the weight slice), as
+        ``csrc/conv_bwd.cuh`` ``launch_tiled`` lays them out."""
+        xh, xw = self.th + k - 1, CONV_TILE_W + k - 1
+        gh, gw = (xh // 2 + 1, xw // 2 + 1) if pooled else (xh, xw)
+        unit = 16 // esize
+        lstride = align_up(self.cin_t, unit) + unit
+        xs = 4 * self.seeds * self.cin_t * xh * align_up(xw, 4)
+        land = esize * self.seeds * gh * gw * lstride
+        wts = align_up(esize * k * k * self.cin_t * self.tco, 16)
+        return xs + 2 * (land + wts)
+
+    def args(self) -> Tuple[int, int, int, int, int, int]:
+        return (self.th, self.px, self.tco, self.cin_t, self.sg, self.st)
+
+
+#: The plan that selects the general fused-backward kernel (``conv_kernel``,
+#: the route of any K outside :data:`CONV_KS`); for tests and sweeps that
+#: hold the tiled kernel against it.
+CONV_BWD_GENERAL = ConvBwdPlan(0, 0, 0, 0, 0, 0)
+
+
+def _check_bwd_plan(plan: ConvBwdPlan, k: int, *, pooled: bool,
+                    esize: int) -> None:
+    """Raise unless the fused backward can run ``plan`` at kernel size
+    ``k`` (pooled or not, on ``esize``-byte elements)."""
+    if plan == CONV_BWD_GENERAL:
+        return
+    if k not in CONV_KS:
+        raise ValueError(f"conv2d_bwd_fused: a tile plan needs K in "
+                         f"{CONV_KS}, got {k}")
+    if (plan.px not in (4, 8) or plan.tco < 4 or plan.tco % 4
+            or plan.th < 1 or plan.cin_t < 1
+            or plan.sg not in CONV_BWD_SEED_GROUPS
+            or (plan.px == 8 and plan.sg != 1) or plan.st < 1
+            or plan.threads > CONV_MAX_THREADS
+            or plan.smem_bytes(k, pooled=pooled, esize=esize)
+            > CONV_SMEM_LIMIT):
+        raise ValueError(f"conv2d_bwd_fused: invalid tile plan {plan}")
+
+
+def conv_bwd_plan(s: int, n: int, h: int, w: int, c: int, cout: int,
+                  k: int, *, pooled: bool = False,
+                  esize: int = 4) -> ConvBwdPlan:
+    """The tiled fused backward's tile for one launch on an H100 (``h``,
+    ``w``: the output size; ``c`` the gradient's channels, ``cout`` the
+    outgoing ones; ``esize`` bytes an element: 4 f32, 2 int16), from
+    ``python3 chip_smoke.py --sweep`` on the Table III launches:
+
+    * all S seeds in one block (up to 3; groups of 3 beyond): in each
+      thread (``sg``) where the launch still has
+      :data:`CONV_BWD_MIN_WARPS_PER_SM` warps an SM of such threads, else
+      one seed a thread in ``st`` slices (the unpooled layers 2 and 0);
+    * 64 output channels a block (fewer where Cout is);
+    * the tallest tile (up to 32 rows) of at most 256 threads whose grid
+      still gives a block per SM (128, the SMs rounded down to a power of
+      two), at 4 pixels a thread, or at 8 where one seed is all a block
+      holds and 8 make the tile taller (layer 1 of the vjp path);
+    * the largest chunk of up to 32 channels (a multiple of
+      :func:`bwd_cin_step`) whose shared memory lets as many blocks reside
+      on an SM as the grid puts there; where even the smallest chunk does
+      not fit the card's 227 KB (K = 7), fewer rows, then fewer channels a
+      block, then a smaller chunk.
+    """
+    if k not in CONV_KS:
+        raise ValueError(f"conv2d_bwd_fused: the tiled kernel takes K in "
+                         f"{CONV_KS}, got {k}")
+    seeds = min(max(s, 1), max(CONV_BWD_SEED_GROUPS))
+    tco = min(CONV_MAX_TCO_BWD, align_up(max(cout, 1), 4))
+    # threads of the launch with the seeds in each thread: 4 pixels x 4
+    # channels a thread (seed groups beyond the first run in turn)
+    threads = n * h * w * align_up(max(cout, 1), 4) // 16
+    sg, st = ((seeds, 1) if threads
+              >= CONV_BWD_MIN_WARPS_PER_SM * 32 * H100_SMS else (1, seeds))
+    min_blocks = 1 << (H100_SMS.bit_length() - 1)
+
+    def rows(px: int) -> int:
+        th = min(32, 1 << max(0, (h - 1).bit_length()))
+        while th > 1 and (
+                ConvBwdPlan(th, px, tco, 1, sg, st).threads > CONV_MAX_THREADS
+                or ConvBwdPlan(th, px, tco, 1, sg, st).blocks(n, h, w, cout)
+                < min_blocks):
+            th //= 2
+        return th
+
+    px, th = 4, rows(4)
+    if sg == st == 1 and rows(8) > th:
+        px, th = 8, rows(8)
+
+    def fits(p: ConvBwdPlan) -> bool:
+        per_sm = min(cdiv(p.blocks(n, h, w, cout), H100_SMS),
+                     2048 // p.threads)
+        return per_sm * (p.smem_bytes(k, pooled=pooled, esize=esize)
+                         + CONV_SMEM_RESERVED) <= CONV_SMEM_PER_SM
+
+    step = bwd_cin_step(c)
+    ct = max(1, min(c, CONV_MAX_CIN_T) // step * step)
+    while ct > step and not fits(ConvBwdPlan(th, px, tco, ct, sg, st)):
+        ct = max(step, ct // 2 // step * step)
+    while ConvBwdPlan(th, px, tco, ct, sg, st).smem_bytes(
+            k, pooled=pooled, esize=esize) > CONV_SMEM_LIMIT:
+        if th > 1:
+            th //= 2
+        elif tco > 4:
+            tco = align_up(tco // 2, 4)
+        else:
+            ct = max(1, ct // 2)
+    return ConvBwdPlan(th, px, tco, ct, sg, st)
+
+
+def bwd_cin_step(c: int) -> int:
+    """The chunk granule of the fused backward at ``c`` channels: 8 where
+    whole 16-byte copies of int16 rows fit, 4 where those of f32 do."""
+    return 8 if c % 8 == 0 else 4 if c % 4 == 0 else 1
 
 
 def _check_kernel(name, w, cin, dtype):
@@ -224,9 +392,12 @@ def conv2d_bwd_fused_plain(g, wt, **kw):
 
 def bwd_fused(name: str, entry: str, dtype: torch.dtype, plain: Callable,
               g: torch.Tensor, wt: torch.Tensor, *, pool_idx, relu_mask,
-              gate, method, out_relu_mask, out_gate) -> torch.Tensor:
+              gate, method, out_relu_mask, out_gate,
+              plan: Optional[ConvBwdPlan] = None) -> torch.Tensor:
     """Check the fused-backward operands, then run ``plain`` on the CPU or
-    launch ``entry`` (counted under ``name``)."""
+    launch ``entry`` (counted under ``name``): tiled by ``plan``, by
+    :func:`conv_bwd_plan` when it is None and K is in :data:`CONV_KS`, on
+    the general kernel for any other K or :data:`CONV_BWD_GENERAL`."""
     gate, out_gate = validate_bp_gates(method, gate, relu_mask, out_gate,
                                        out_relu_mask)
     seeded = g.dim() == 5
@@ -248,6 +419,12 @@ def bwd_fused(name: str, entry: str, dtype: torch.dtype, plain: Callable,
     if out_relu_mask is not None:
         check(name, out_relu_mask, torch.uint8, (n, h, w, mask_bytes(cout)),
               what="out_relu_mask")
+    pooled, esize = pool_idx is not None, g.element_size()
+    if plan is None:
+        plan = (conv_bwd_plan(s, n, h, w, c, cout, k, pooled=pooled,
+                              esize=esize) if k in CONV_KS
+                else CONV_BWD_GENERAL)
+    _check_bwd_plan(plan, k, pooled=pooled, esize=esize)
     if not on_card(name, g5, wt, pool_idx, relu_mask, out_relu_mask):
         return plain(
             g, wt, pool_idx=pool_idx, relu_mask=relu_mask, gate=gate,
@@ -259,7 +436,7 @@ def bwd_fused(name: str, entry: str, dtype: torch.dtype, plain: Callable,
                       _build.ptr(pool_idx), _build.ptr(relu_mask),
                       _build.ptr(out_relu_mask), out.data_ptr(), s, n, h, w,
                       c, cout, k, int(gate), int(out_gate),
-                      METHOD_CODES[method])
+                      METHOD_CODES[method], *plan.args())
     return out if seeded else out[0]
 
 
@@ -270,7 +447,8 @@ def conv2d_bwd_fused(
         gate: Optional[bool] = None,
         method: str = "saliency",
         out_relu_mask: Optional[torch.Tensor] = None,
-        out_gate: Optional[bool] = None) -> torch.Tensor:
+        out_gate: Optional[bool] = None,
+        plan: Optional[ConvBwdPlan] = None) -> torch.Tensor:
     """One launch for a conv layer's whole backward step.
 
     ``g``:        gradients w.r.t. the layer output, [N, Hg, Wg, C] or
@@ -283,11 +461,15 @@ def conv2d_bwd_fused(
                   ReLU; ``gate=True`` with no mask selects deconvnet.
     ``out_relu_mask``/``out_gate``: the same as an epilogue on the outgoing
                   gradient, [N, H, W, ceil(Cout'/8)].
-    Residuals carry no seeds axis: all S seeds share one load.
+    ``plan``:     the tile (tests, sweeps): :func:`conv_bwd_plan`'s by
+                  default, :data:`CONV_BWD_GENERAL` for the general kernel;
+                  every plan gives the same bits.
+    Residuals carry no seeds axis: the seeds of a block share one load, all
+    S of them for S <= 3 (groups of 3 beyond).
     CPU tensors run :func:`conv2d_bwd_fused_plain`; CUDA tensors the kernel.
     """
     return bwd_fused("conv2d_bwd_fused", "repro_conv2d_bwd_fused",
                      torch.float32, conv2d_bwd_fused_plain, g, wt,
                      pool_idx=pool_idx, relu_mask=relu_mask, gate=gate,
                      method=method, out_relu_mask=out_relu_mask,
-                     out_gate=out_gate)
+                     out_gate=out_gate, plan=plan)

@@ -20,8 +20,8 @@ import torch
 
 from repro_torch.core.fixedpoint import sat_add
 from repro_torch.kernels.conv2d import ref
-from repro_torch.kernels.conv2d.conv2d import (bwd_fused, bwd_fused_plain,
-                                               conv_fwd)
+from repro_torch.kernels.conv2d.conv2d import (ConvBwdPlan, bwd_fused,
+                                               bwd_fused_plain, conv_fwd)
 
 
 def _conv2d_fxp_plain(x, w, b):
@@ -55,9 +55,11 @@ def conv2d_bwd_fused_fxp(
         gate: Optional[bool] = None,
         method: str = "saliency",
         out_relu_mask: Optional[torch.Tensor] = None,
-        out_gate: Optional[bool] = None) -> torch.Tensor:
-    """int16 twin of :func:`conv2d.conv2d_bwd_fused`: the same operands and
-    gates, Q7.8 gradients ``g`` and a Q1.14 flip-transposed kernel ``wt``.
+        out_gate: Optional[bool] = None,
+        plan: Optional[ConvBwdPlan] = None) -> torch.Tensor:
+    """int16 twin of :func:`conv2d.conv2d_bwd_fused`: the same operands,
+    gates and ``plan``, Q7.8 gradients ``g`` and a Q1.14 flip-transposed
+    kernel ``wt``.
 
     CPU tensors run :func:`conv2d_bwd_fused_fxp_plain`; CUDA tensors the
     kernel (one launch for all S seeds).
@@ -66,4 +68,4 @@ def conv2d_bwd_fused_fxp(
                      torch.int16, conv2d_bwd_fused_fxp_plain, g, wt,
                      pool_idx=pool_idx, relu_mask=relu_mask, gate=gate,
                      method=method, out_relu_mask=out_relu_mask,
-                     out_gate=out_gate)
+                     out_gate=out_gate, plan=plan)

@@ -5,7 +5,9 @@ cover what the main path does not reach: ragged channel counts and spatial
 sizes, K = 1 and 5, several Cin chunks and Cout tiles, a fused backward
 whose prologue needs more than 48 KB of shared memory, misaligned
 pointers, the conv forward's tile plans (all bitwise equal) and its
-general kernel for K > 7, the FC forward's K splits (1 to the most, M and
+general kernel for K > 7, the fused backward's tile plans (f32: bitwise
+the general kernel's; int16: the plain version's) at K = 1 to 7 and its
+general kernel at K = 9, the FC forward's K splits (1 to the most, M and
 N past one tile), each bitwise equal run to run, and one launch per wrapper call — for the f32 kernels
 and for the int16 ones of the fxp16 path, which must equal their plain
 versions bit for bit (also where the int32 accumulator wraps) — for the
@@ -24,10 +26,12 @@ import torch
 from repro_torch.core import fixedpoint, masks
 from repro_torch.kernels import LAUNCHES
 from repro_torch.kernels.conv2d import ref as conv_ref
-from repro_torch.kernels.conv2d.conv2d import (ConvPlan, conv2d,
+from repro_torch.kernels.conv2d.conv2d import (CONV_BWD_GENERAL,
+                                               ConvBwdPlan, ConvPlan, conv2d,
                                                conv2d_bwd_fused,
                                                conv2d_bwd_fused_plain,
-                                               conv2d_planned, conv_plan)
+                                               conv2d_planned, conv_bwd_plan,
+                                               conv_plan)
 from repro_torch.kernels.conv2d.fxp import (conv2d_bwd_fused_fxp,
                                             conv2d_bwd_fused_fxp_plain,
                                             conv2d_fxp)
@@ -160,23 +164,94 @@ BWD_CASES = [
 ]
 
 
-@pytest.mark.parametrize("case", BWD_CASES)
-@pytest.mark.parametrize("method", METHODS)
-def test_conv2d_bwd_fused(gen, case, method):
+def _bwd_inputs(gen, case, method, k=3, fxp=False, g_flat=False):
+    """``(g, wt, kw)`` of one fused-backward case: f32, or int16 (Q7.8
+    gradients, Q1.14 weights) with ``fxp``; ``g_flat`` makes g a view one
+    element into its storage (a misaligned pointer)."""
     n, h, w, c, cout, pooled, s, epilogue = case
-    y = _randn(gen, n, h, w, c)
+    y = _q(gen, n, h, w, c) if fxp else _randn(gen, n, h, w, c)
     mask = None if method == "deconvnet" else masks.pack_mask(y > 0)
     idx = pool_ref.maxpool_fwd(torch.clamp_min(y, 0))[1] if pooled else None
     hg, wg = (h // 2, w // 2) if pooled else (h, w)
-    g = _randn(gen, s, n, hg, wg, c)
-    wt = _randn(gen, 3, 3, c, cout, scale=0.1)
+    shape = (s, n, hg, wg, c)
+    numel = s * n * hg * wg * c + (1 if g_flat else 0)
+    g = (_q(gen, numel, scale=2.0) if fxp else _randn(gen, numel))
+    g = (g[1:] if g_flat else g).view(shape)
+    wt = (_qw(gen, k, k, c, cout, scale=0.1) if fxp
+          else _randn(gen, k, k, c, cout, scale=0.1))
     omask = None
     if epilogue and method != "deconvnet":
         omask = masks.pack_mask(_randn(gen, n, h, w, cout) > 0)
     kw = dict(pool_idx=idx, relu_mask=mask, gate=True, method=method,
               out_relu_mask=omask, out_gate=epilogue)
+    return g, wt, kw
+
+
+@pytest.mark.parametrize("case", BWD_CASES)
+@pytest.mark.parametrize("method", METHODS)
+def test_conv2d_bwd_fused(gen, case, method):
+    g, wt, kw = _bwd_inputs(gen, case, method)
     got = _launched("conv2d_bwd_fused", lambda: conv2d_bwd_fused(g, wt, **kw))
     _close(got, conv2d_bwd_fused_plain(g, wt, **kw))
+
+
+@pytest.mark.parametrize("case", BWD_CASES)
+@pytest.mark.parametrize("method", METHODS)
+def test_conv2d_bwd_fused_tiled_equals_general_kernel_bitwise(gen, case,
+                                                              method):
+    """K = 3: the tiled kernel sums each output in conv_kernel's order."""
+    g, wt, kw = _bwd_inputs(gen, case, method)
+    got = _launched("conv2d_bwd_fused", lambda: conv2d_bwd_fused(g, wt, **kw))
+    general = _launched("conv2d_bwd_fused", lambda: conv2d_bwd_fused(
+        g, wt, plan=CONV_BWD_GENERAL, **kw))
+    torch.cuda.synchronize()
+    assert torch.equal(got, general)
+
+
+#: Tile plans of the fused backward beside conv_bwd_plan's: one row of 4
+#: channels a block and a 1-channel chunk, seed groups of 2 (a partial
+#: last group at S = 3) and 3, a 64-channel block, seeds in thread slices
+BWD_PLANS = [ConvBwdPlan(1, 8, 4, 1, 1), ConvBwdPlan(16, 4, 16, 8, 2),
+             ConvBwdPlan(2, 4, 64, 32, 3), ConvBwdPlan(4, 4, 8, 4, 3),
+             ConvBwdPlan(8, 8, 32, 16, 1), ConvBwdPlan(8, 4, 4, 8, 1, 3),
+             ConvBwdPlan(2, 4, 16, 8, 2, 2)]
+
+
+@pytest.mark.parametrize("case", BWD_CASES)
+def test_conv2d_bwd_fused_bitwise_run_to_run_and_across_plans(gen, case):
+    g, wt, kw = _bwd_inputs(gen, case, "guided")
+    first = conv2d_bwd_fused(g, wt, **kw)
+    for got in [conv2d_bwd_fused(g, wt, **kw)] + [
+            _launched("conv2d_bwd_fused", lambda p=p: conv2d_bwd_fused(
+                g, wt, plan=p, **kw)) for p in BWD_PLANS]:
+        torch.cuda.synchronize()
+        assert torch.equal(got, first)
+    _close(first, conv2d_bwd_fused_plain(g, wt, **kw))
+
+
+@pytest.mark.parametrize("k", [1, 5, 7, 9])
+@pytest.mark.parametrize("method", METHODS)
+def test_conv2d_bwd_fused_other_kernel_sizes(gen, k, method):
+    """K = 1, 5, 7 on the tiled kernel (bitwise the general one's), K = 9
+    on the general kernel."""
+    g, wt, kw = _bwd_inputs(gen, (2, 10, 6, 24, 12, True, 3, True), method,
+                            k=k)
+    got = _launched("conv2d_bwd_fused", lambda: conv2d_bwd_fused(g, wt, **kw))
+    _close(got, conv2d_bwd_fused_plain(g, wt, **kw))
+    general = conv2d_bwd_fused(g, wt, plan=CONV_BWD_GENERAL, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, general)
+
+
+def test_conv2d_bwd_fused_misaligned_pointers(gen):
+    """g one float into its storage, wt too: 4-byte copies only."""
+    g, wt, kw = _bwd_inputs(gen, (2, 8, 8, 16, 12, True, 3, True), "guided",
+                            g_flat=True)
+    wt = torch.cat([wt.new_zeros(1), wt.flatten()])[1:].view(wt.shape)
+    got = conv2d_bwd_fused(g, wt, **kw)
+    _close(got, conv2d_bwd_fused_plain(g, wt, **kw))
+    assert torch.equal(got, conv2d_bwd_fused(g, wt, plan=CONV_BWD_GENERAL,
+                                             **kw))
 
 
 @pytest.mark.parametrize("m,k,n", [(5, 37, 13), (1, 4096, 128),
@@ -343,22 +418,58 @@ def test_conv2d_fxp_accumulator_wraps(gen):
 @pytest.mark.parametrize("case", BWD_CASES)
 @pytest.mark.parametrize("method", METHODS)
 def test_conv2d_bwd_fused_fxp_bitwise(gen, case, method):
-    n, h, w, c, cout, pooled, s, epilogue = case
-    y = _q(gen, n, h, w, c)
-    mask = None if method == "deconvnet" else masks.pack_mask(y > 0)
-    idx = (pool_ref.maxpool_fwd(torch.clamp_min(y, 0))[1] if pooled
-           else None)
-    hg, wg = (h // 2, w // 2) if pooled else (h, w)
-    g = _q(gen, s, n, hg, wg, c, scale=2.0)
-    wt = _qw(gen, 3, 3, c, cout, scale=0.1)
-    omask = None
-    if epilogue and method != "deconvnet":
-        omask = masks.pack_mask(_randn(gen, n, h, w, cout) > 0)
-    kw = dict(pool_idx=idx, relu_mask=mask, gate=True, method=method,
-              out_relu_mask=omask, out_gate=epilogue)
+    g, wt, kw = _bwd_inputs(gen, case, method, fxp=True)
     got = _launched("conv2d_bwd_fused_fxp",
                     lambda: conv2d_bwd_fused_fxp(g, wt, **kw))
     _same(got, conv2d_bwd_fused_fxp_plain(g, wt, **kw))
+
+
+@pytest.mark.parametrize("case", BWD_CASES)
+def test_conv2d_bwd_fused_fxp_bitwise_across_plans(gen, case):
+    """Every tile plan and the general kernel: the plain version's bits."""
+    g, wt, kw = _bwd_inputs(gen, case, "saliency", fxp=True)
+    want = conv2d_bwd_fused_fxp_plain(g, wt, **kw)
+    for p in BWD_PLANS + [CONV_BWD_GENERAL]:
+        _same(_launched("conv2d_bwd_fused_fxp", lambda p=p:
+                        conv2d_bwd_fused_fxp(g, wt, plan=p, **kw)), want)
+
+
+@pytest.mark.parametrize("k", [1, 5, 7, 9])
+def test_conv2d_bwd_fused_fxp_other_kernel_sizes(gen, k):
+    g, wt, kw = _bwd_inputs(gen, (2, 10, 6, 24, 12, True, 3, True), "guided",
+                            k=k, fxp=True)
+    _same(_launched("conv2d_bwd_fused_fxp",
+                    lambda: conv2d_bwd_fused_fxp(g, wt, **kw)),
+          conv2d_bwd_fused_fxp_plain(g, wt, **kw))
+
+
+@pytest.mark.parametrize("method", ["saliency", "deconvnet"])
+def test_conv2d_bwd_fused_fxp_accumulator_wraps(gen, method):
+    """Rails through the backward: at channel 0 of image 0 every routed
+    gradient and weight is +32767 (the gates keep them), so each output sums
+    hundreds of products of 2^30, past 2^31: the int32 sum wraps."""
+    n, h, w, c, cout = 2, 10, 6, 200, 40
+    g, wt = _rails(gen, 3, n, h // 2, w // 2, c), _rails(gen, 3, 3, c, cout)
+    g[:, 0] = fixedpoint.INT16_LIM
+    wt[..., 0] = fixedpoint.INT16_LIM
+    y = _randn(gen, n, h, w, c)
+    y[0] = 1.0                             # image 0: every mask bit set
+    _, idx = pool_ref.maxpool_fwd(torch.clamp_min(y, 0))
+    kw = dict(pool_idx=idx, gate=True, method=method, relu_mask=None
+              if method == "deconvnet" else masks.pack_mask(y > 0))
+    want = conv2d_bwd_fused_fxp_plain(g, wt, **kw)
+    _same(conv2d_bwd_fused_fxp(g, wt, **kw), want)
+    _same(conv2d_bwd_fused_fxp(g, wt, plan=CONV_BWD_GENERAL, **kw), want)
+
+
+def test_conv2d_bwd_fused_fxp_misaligned_pointers(gen):
+    """int16 g and wt one element into their storage (2-byte offsets):
+    ordinary loads where no 4-byte copy is aligned."""
+    g, wt, kw = _bwd_inputs(gen, (2, 8, 8, 16, 12, True, 3, True), "guided",
+                            fxp=True, g_flat=True)
+    wt = torch.cat([wt.new_zeros(1), wt.flatten()])[1:].view(wt.shape)
+    _same(conv2d_bwd_fused_fxp(g, wt, **kw),
+          conv2d_bwd_fused_fxp_plain(g, wt, **kw))
 
 
 @pytest.mark.parametrize("m,k,n", [(5, 37, 13), (1, 4096, 128),

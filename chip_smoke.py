@@ -13,32 +13,36 @@ depth, and check them against the CPU.
 
 ``--sweep`` runs phase 1, then times the launch choices of B4 (every K
 split) and B1 (a grid of tile plans, all bitwise equal) beside the library
-call at the main-path and vjp shapes, and of the fused conv backward (B5 at
+call at the main-path and vjp shapes, of the fused conv backward (B5 at
 S = 3 and at the vjp path's S = 1, B8 at S = 3: a grid of tile plans, all
-bitwise equal, beside the general kernel), and stops.
+bitwise equal, beside the general kernel), and of the int16 forwards (B7:
+a grid of tile plans at the four Table III layers beside the general
+kernel; B9: every K split at FC0; all bitwise equal to the plain version),
+and stops.
 
 Phases (every failed check raises; nothing is caught and carried on):
 
 1. device: card name, ``nvidia-smi`` name, power limit and maximum SM
    clock, TF32 off for the plain versions, kernel build time, and the
-   registers and spills ``ptxas`` reports for the redesigned B1/B4/B5/B8
-   kernels;
+   registers and spills ``ptxas`` reports for the redesigned B1/B4/B5/B7/
+   B8/B9 kernels;
 2. kernels at batch 32, S = 3 seeds, against their plain versions: the f32
    kernels B1-B6 (bitwise for ReLU+mask and pool+argmax, within
    1e-5 * max|ref| for the dots; B1, B4 and B5 also launched again on the
    same inputs, B1 and B5 under a second tile plan, B5 on its general
    kernel (timed beside it), all bitwise equal; each time beside a library
    call prints its ratio to it), then the fxp16 kernels B7-B10 and the
-   int16 instances of B2/B3, all bitwise (B8 also under a second plan and
-   on its general kernel), plus accumulators that wrap at ±32767
-   operands; then the gate (B11, three methods) and unpool (B12,
-   f32 and int16) kernels of the autograd paths, bitwise; then the
-   selective scan (B13) at falcon-mamba-7b's explain shape (B = 4, S = 72,
-   D = 8192, N = 16; x bf16 and f32) and a ragged S = 13, within the JAX
-   package's tolerance (atol 2e-4, rtol 2e-3; one bf16 step for a bf16 y),
-   two (d_tile, chunk) pairs bitwise equal, and the time of its plain
-   backward (autograd over the chunked scan); median kernel, plain and
-   one-library-call times (CUDA events);
+   int16 instances of B2/B3, all bitwise (B7 and B8 also launched again,
+   under a second plan and on their general kernels, timed beside them;
+   B9 again and under a second K split), plus accumulators that wrap at
+   ±32767 operands (B9's under several splits); then the gate (B11, three
+   methods) and unpool (B12, f32 and int16) kernels of the autograd paths,
+   bitwise; then the selective scan (B13) at falcon-mamba-7b's explain
+   shape (B = 4, S = 72, D = 8192, N = 16; x bf16 and f32) and a ragged
+   S = 13, within the JAX package's tolerance (atol 2e-4, rtol 2e-3; one
+   bf16 step for a bf16 y), two (d_tile, chunk) pairs bitwise equal, and
+   the time of its plain backward (autograd over the chunked scan); median
+   kernel, plain and one-library-call times (CUDA events);
 3. engine, full width: saliency / deconvnet / guided explains of a
    [32, 32, 32, 3] batch with top-3 seeds on the card against a CPU twin
    engine on the same parameters (logits, residual bits, cross-replay), and
@@ -160,7 +164,7 @@ LM_LINEARITY_TOL = 5e-2
 LM_TWIN_BATCH, LM_TWIN_SEQ = 2, 32
 
 KERNELS = {   # counter -> (C source, replaced TPU kernel def)
-    "conv2d_fwd": ("src/repro_torch/csrc/conv2d.cu",
+    "conv2d_fwd": ("src/repro_torch/csrc/conv_fwd.cuh",
                    "src/repro/kernels/conv2d/conv2d.py:66"),
     "relu_fwd": ("src/repro_torch/csrc/relu_mask.cu",
                  "src/repro/kernels/relu_mask/relu_mask.py:87"),
@@ -172,7 +176,7 @@ KERNELS = {   # counter -> (C source, replaced TPU kernel def)
                          "src/repro/kernels/conv2d/conv2d.py:150"),
     "vmm_bwd_fused": ("src/repro_torch/csrc/vmm.cu",
                       "src/repro/kernels/vmm/vmm.py:117"),
-    "conv2d_fxp_fwd": ("src/repro_torch/csrc/conv2d_fxp.cu",
+    "conv2d_fxp_fwd": ("src/repro_torch/csrc/conv_fwd.cuh",
                        "src/repro/kernels/conv2d/fxp.py:53"),
     "conv2d_bwd_fused_fxp": ("src/repro_torch/csrc/conv_bwd.cuh",
                              "src/repro/kernels/conv2d/fxp.py:130"),
@@ -197,11 +201,12 @@ def fail(msg: str):
     raise AssertionError(msg)
 
 
-#: Entry functions of the kernels redesigned for this card (B1's and B4's
-#: forwards, the fused conv backward of B5 and B8), whose registers and
-#: spills phase 1 reports.
+#: Entry functions of the kernels redesigned for this card (the conv
+#: forward of B1 and B7, the FC forwards of B4 and B9, the fused conv
+#: backward of B5 and B8), whose registers and spills phase 1 reports.
 REDESIGNED = ("conv_igemm_kernel", "vmm_splitk_kernel",
-              "vmm_splitk_sum_kernel", "conv_bwd_igemm_kernel")
+              "vmm_splitk_sum_kernel", "conv_bwd_igemm_kernel",
+              "vmm_fxp_splitk_kernel", "vmm_fxp_splitk_sum_kernel")
 #: Itanium mangling of the element types a template is instantiated for.
 MANGLED_TYPES = {"f": "float", "s": "int16_t"}
 
@@ -305,7 +310,8 @@ def _category(kernel_name: str) -> str:
         return "B13"
     if any(k in n for k in ("conv_kernel", "conv_igemm_kernel",
                             "conv_bwd_igemm_kernel",
-                            "vmm_splitk", "conv_fxp_kernel", "relu_fwd_kernel",
+                            "vmm_splitk", "vmm_fxp_splitk",
+                            "conv_fxp_kernel", "relu_fwd_kernel",
                             "relu_bwd_kernel", "maxpool_fwd_kernel",
                             "unpool_bwd_kernel", "vmm_kernel",
                             "vmm_fxp_kernel", "vmm_bwd")):
@@ -433,6 +439,15 @@ def _bitwise_repeat(counter, case, first, launches):
           + "; ".join(what for what, _ in launches))
 
 
+def second_fwd_plan(plan, cin: int):
+    """A valid tile plan of the conv forward other than ``plan``: twice
+    the rows, the other pixel count a thread, 16 channels a block and a
+    chunk of 8 (all of Cin where it is not a multiple of 4)."""
+    from repro_torch.kernels.conv2d.conv2d import ConvPlan
+    return ConvPlan(2 * plan.th, 4 if plan.px == 8 else 8, 16,
+                    8 if cin % 4 == 0 else cin)
+
+
 def second_bwd_plan(plan, c: int):
     """A valid tile plan of the fused conv backward other than ``plan``:
     the other pixel count a thread, the smallest whole chunk and one seed a
@@ -450,8 +465,7 @@ def second_bwd_plan(plan, c: int):
 
 def check_kernels(kc: KernelCheck):
     from repro_torch.kernels.conv2d import ref as conv_ref
-    from repro_torch.kernels.conv2d.conv2d import (CONV_BWD_GENERAL,
-                                                   ConvPlan, conv2d,
+    from repro_torch.kernels.conv2d.conv2d import (CONV_BWD_GENERAL, conv2d,
                                                    conv2d_bwd_fused,
                                                    conv2d_bwd_fused_plain,
                                                    conv2d_planned,
@@ -485,8 +499,7 @@ def check_kernels(kc: KernelCheck):
         case = f"[{n},{h},{h},{cin}->{cout}]"
         got = conv2d(x, w, b)
         plan = conv_plan(n, h, h, cin, cout, 3)
-        other = ConvPlan(2 * plan.th, 4 if plan.px == 8 else 8, 16,
-                         8 if cin % 4 == 0 else cin)
+        other = second_fwd_plan(plan, cin)
         _bitwise_repeat("conv2d_fwd", case, got, (
             (f"again under {plan}", lambda: conv2d(x, w, b)),
             (f"under {other}", lambda: conv2d_planned(x, w, b, plan=other))))
@@ -653,9 +666,10 @@ SWEEP_BWD = ((torch.float32, SEEDS), (torch.float32, 1), (torch.int16, SEEDS))
 SWEEP_BWD_REPS, SWEEP_BWD_COVER_MS = 20, 20.0
 
 
-def _sweep_plans(h, cin, cout):
-    """A grid of B1 tile plans for one shape: rows, pixels a thread, Cout a
-    block, Cin a stage, within the block's thread and memory limits."""
+def _sweep_plans(h, cin, cout, esize=4):
+    """A grid of conv forward tile plans (B1; B7 at ``esize`` 2) for one
+    shape: rows, pixels a thread, Cout a block, Cin a stage, within the
+    block's thread and memory limits."""
     from repro_torch.kernels.conv2d.conv2d import CONV_MAX_THREADS, ConvPlan
     from repro_torch.kernels.tiling import align_up
     cts = sorted({min(c, cin) if cin % 4 else min(c, cin) // 4 * 4
@@ -667,7 +681,7 @@ def _sweep_plans(h, cin, cout):
                     p = ConvPlan(th, px, tco, ct)
                     if (th <= h and tco <= align_up(cout, 4)
                             and 32 <= p.threads <= CONV_MAX_THREADS
-                            and p.smem_bytes(3) <= 227 * 1024):
+                            and p.smem_bytes(3, esize=esize) <= 227 * 1024):
                         yield p
 
 
@@ -840,15 +854,85 @@ def sweep_launch_choices(gen):
     return rows
 
 
+def sweep_fxp_choices(gen):
+    """``--sweep``, the int16 forwards: time a grid of B7 tile plans at the
+    four Table III layers beside the general kernel, and every B9 K split
+    at FC0; every plan and split held bitwise to the plain version."""
+    from repro_torch.core import fixedpoint
+    from repro_torch.kernels.conv2d import ref as conv_ref
+    from repro_torch.kernels.conv2d.conv2d import CONV_GENERAL, conv_plan
+    from repro_torch.kernels.conv2d.fxp import conv2d_fxp_planned
+    from repro_torch.kernels.vmm import ref as vmm_ref
+    from repro_torch.kernels.vmm.fxp import vmm_fxp_with_splits
+    from repro_torch.kernels.vmm.vmm import vmm_max_splits, vmm_splits
+
+    def same(got, want, what):
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            fail(f"sweep {what}: not bitwise equal to plain")
+
+    rows = dict(conv_fxp=[], vmm_fxp=[])
+    for h, cin, cout in SWEEP_CONV["fwd"]:
+        x = fixedpoint.to_fixed(torch.clamp_min(randn(gen, BATCH, h, h, cin),
+                                                0))
+        w = fixedpoint.to_fixed(
+            randn(gen, 3, 3, cin, cout, scale=(2.0 / (9 * cin)) ** 0.5),
+            fixedpoint.WGT_FRAC)
+        b = fixedpoint.to_fixed(randn(gen, cout, scale=0.1))
+        want = fixedpoint.sat_add(conv_ref.conv2d_fxp(x, w), b)
+        case = f"conv int16 [{BATCH},{h},{h},{cin}->{cout}]"
+        chosen = conv_plan(BATCH, h, h, cin, cout, 3,
+                           esize=x.element_size())
+        general = device_time_ms(
+            lambda: conv2d_fxp_planned(x, w, b, plan=CONV_GENERAL))
+        found = []
+        for p in set(_sweep_plans(h, cin, cout, esize=x.element_size())) \
+                | {chosen}:
+            same(conv2d_fxp_planned(x, w, b, plan=p), want, f"{case} {p}")
+            found.append((device_time_ms(
+                lambda: conv2d_fxp_planned(x, w, b, plan=p)), p))
+        found.sort(key=lambda t: (t[0], t[1].args()))
+        rank = [p for _, p in found].index(chosen)
+        print(f"  {case}: general kernel {general:.4f} ms; conv_plan "
+              f"{chosen} {found[rank][0]:.4f} ms (rank {rank + 1} of "
+              f"{len(found)}); fastest:")
+        for ms, p in found[:8]:
+            print(f"      {ms:.4f} ms  {p}  threads {p.threads:3d} blocks "
+                  f"{p.blocks(BATCH, h, h, cout):5d} smem "
+                  f"{p.smem_bytes(3, esize=x.element_size())}")
+        rows["conv_fxp"].append(dict(
+            shape=[BATCH, h, h, cin, cout], general_ms=general,
+            chosen=chosen.args(), chosen_ms=found[rank][0], rank=rank + 1,
+            plans=[dict(plan=p.args(), ms=ms) for ms, p in found]))
+    m, k, n = SWEEP_VMM[0]
+    x = fixedpoint.to_fixed(torch.clamp_min(randn(gen, m, k), 0))
+    w = fixedpoint.to_fixed(randn(gen, k, n, scale=(2.0 / k) ** 0.5),
+                            fixedpoint.WGT_FRAC)
+    b = fixedpoint.to_fixed(randn(gen, n, scale=0.1))
+    want = fixedpoint.sat_add(vmm_ref.vmm_fxp(x, w), b)
+    chosen = vmm_splits(m, k, n)
+    for z in range(1, vmm_max_splits(k) + 1):
+        same(vmm_fxp_with_splits(x, w, b, splits=z), want,
+             f"vmm int16 [{m},{k}]@[{k},{n}] splits {z}")
+        ms = device_time_ms(lambda: vmm_fxp_with_splits(x, w, b, splits=z))
+        rows["vmm_fxp"].append(dict(shape=[m, k, n], splits=z, ms=ms,
+                                    chosen=z == chosen))
+        print(f"  vmm int16 [{m},{k}]@[{k},{n}] splits {z:4d}: {ms:.4f} ms"
+              + ("  <- vmm_splits" if z == chosen else ""))
+    return rows
+
+
 def check_kernels_fxp(kc: KernelCheck):
     """The fxp16 path's kernels (B7-B10, int16 B2/B3), bitwise."""
     from repro_torch.core import fixedpoint, masks
     from repro_torch.kernels.conv2d import ref as conv_ref
     from repro_torch.kernels.conv2d.conv2d import (CONV_BWD_GENERAL,
-                                                   conv_bwd_plan)
+                                                   CONV_GENERAL,
+                                                   conv_bwd_plan, conv_plan)
     from repro_torch.kernels.conv2d.fxp import (conv2d_bwd_fused_fxp,
                                                 conv2d_bwd_fused_fxp_plain,
-                                                conv2d_fxp)
+                                                conv2d_fxp,
+                                                conv2d_fxp_planned)
     from repro_torch.kernels.pool import ref as pool_ref
     from repro_torch.kernels.pool.fxp import maxpool_fwd_fxp
     from repro_torch.kernels.relu_mask import ref as relu_ref
@@ -859,7 +943,8 @@ def check_kernels_fxp(kc: KernelCheck):
     from repro_torch.kernels.vmm import ref as vmm_ref
     from repro_torch.kernels.vmm.fxp import (vmm_bwd_fused_fxp,
                                              vmm_bwd_fused_fxp_plain,
-                                             vmm_fxp)
+                                             vmm_fxp, vmm_fxp_with_splits)
+    from repro_torch.kernels.vmm.vmm import vmm_splits
 
     gen = torch.Generator(device="cuda").manual_seed(4321)
     n, s, rate = BATCH, SEEDS, kc.imad_per_s
@@ -879,7 +964,9 @@ def check_kernels_fxp(kc: KernelCheck):
     def sat(y, b):
         return fixedpoint.sat_add(y, b)
 
-    # B7 int16 conv forward (+ saturating bias): the four Table III layers
+    # B7 int16 conv forward (+ saturating bias): the four Table III layers,
+    # bitwise equal to the plain version, and launched again, under a
+    # second tile plan and on the general kernel (timed beside it)
     for h, cin, cout in ((32, 3, 32), (32, 32, 32), (16, 32, 64),
                          (16, 64, 64)):
         x = torch.clamp_min(qact(n, h, h, cin), 0)   # post-ReLU, as fed
@@ -888,15 +975,33 @@ def check_kernels_fxp(kc: KernelCheck):
         xf, wf, bf = x.float(), w.float(), b.float()
         xn, wn = xf.permute(0, 3, 1, 2), wf.permute(3, 2, 0, 1)
         nbytes = 2 * (x.numel() + w.numel() + cout + n * h * h * cout)
-        kc.record("conv2d_fxp_fwd", f"[{n},{h},{h},{cin}->{cout}]", True,
-                  conv2d_fxp(x, w, b), sat(conv_ref.conv2d_fxp(x, w), b),
-                  True, lambda: conv2d_fxp(x, w, b),
+        case = f"[{n},{h},{h},{cin}->{cout}]"
+        got = conv2d_fxp(x, w, b)
+        plan = conv_plan(n, h, h, cin, cout, 3, esize=x.element_size())
+        other = second_fwd_plan(plan, cin)
+        _bitwise_repeat("conv2d_fxp_fwd", case, got, (
+            (f"again under {plan}", lambda: conv2d_fxp(x, w, b)),
+            (f"under {other}",
+             lambda: conv2d_fxp_planned(x, w, b, plan=other)),
+            ("on the general kernel",
+             lambda: conv2d_fxp_planned(x, w, b, plan=CONV_GENERAL))))
+        kc.record("conv2d_fxp_fwd", case, True, got,
+                  sat(conv_ref.conv2d_fxp(x, w), b), True,
+                  lambda: conv2d_fxp(x, w, b),
                   lambda: sat(conv_ref.conv2d_fxp(x, w), b), nbytes,
                   n * h * h * cout * 9 * cin, rate=rate,
-                  f32_reference_fn=lambda: F.conv2d(xn, wn, bf, padding=1))
+                  f32_reference_fn=lambda: F.conv2d(xn, wn, bf, padding=1),
+                  general_fn=lambda: conv2d_fxp_planned(x, w, b,
+                                                        plan=CONV_GENERAL))
     x, w = rails(n, 16, 16, 64), rails(3, 3, 64, 64)   # 576 * 2^30 wraps
+    got = conv2d_fxp(x, w)
+    other = second_fwd_plan(conv_plan(n, 16, 16, 64, 64, 3, esize=2), 64)
+    _bitwise_repeat("conv2d_fxp_fwd", "rails [32,16,16,64->64] wrap", got, (
+        (f"under {other}", lambda: conv2d_fxp_planned(x, w, plan=other)),
+        ("on the general kernel",
+         lambda: conv2d_fxp_planned(x, w, plan=CONV_GENERAL))))
     kc.record("conv2d_fxp_fwd", "rails [32,16,16,64->64] wrap", False,
-              conv2d_fxp(x, w), conv_ref.conv2d_fxp(x, w), True,
+              got, conv_ref.conv2d_fxp(x, w), True,
               lambda: conv2d_fxp(x, w), lambda: conv_ref.conv2d_fxp(x, w),
               2 * (x.numel() * 2 + w.numel()), x.numel() * 9 * 64,
               rate=rate)
@@ -922,22 +1027,38 @@ def check_kernels_fxp(kc: KernelCheck):
                   lambda: pool_ref.maxpool_fwd(x), nbytes,
                   3 * x.numel() // 4, rate=rate)
 
-    # B9 int16 FC forward (+ saturating bias): FC0 and FC1
+    # B9 int16 FC forward (+ saturating bias): FC0 (split K) and FC1 (one
+    # slice), bitwise equal to the plain version, and launched again and
+    # under a second K split (FC1: its one chunk in four slices)
     for k, m_out in ((4096, 128), (128, 10)):
         x = torch.clamp_min(qact(n, k), 0)
         w = qwgt(k, m_out, scale=(2.0 / k) ** 0.5)
         b = qact(m_out, scale=0.1)
         xf, wf, bf = x.float(), w.float(), b.float()
         nbytes = 2 * (x.numel() + w.numel() + m_out + n * m_out)
-        kc.record("vmm_fxp_fwd", f"[{n},{k}]@[{k},{m_out}]", True,
-                  vmm_fxp(x, w, b), sat(vmm_ref.vmm_fxp(x, w), b), True,
+        case = f"[{n},{k}]@[{k},{m_out}]"
+        got = vmm_fxp(x, w, b)
+        splits = vmm_splits(n, k, m_out)
+        other = 4 if splits == 1 else splits // 2
+        _bitwise_repeat("vmm_fxp_fwd", case, got, (
+            (f"again, K in {splits} slice(s)", lambda: vmm_fxp(x, w, b)),
+            (f"K in {other} slices",
+             lambda: vmm_fxp_with_splits(x, w, b, splits=other))))
+        kc.record("vmm_fxp_fwd", case, True, got,
+                  sat(vmm_ref.vmm_fxp(x, w), b), True,
                   lambda: vmm_fxp(x, w, b),
                   lambda: sat(vmm_ref.vmm_fxp(x, w), b), nbytes,
                   n * k * m_out, rate=rate,
                   f32_reference_fn=lambda: torch.addmm(bf, xf, wf))
     x, w = rails(n, 4096), rails(4096, 128)           # 4096 * 2^30 wraps
+    got = vmm_fxp(x, w)
+    _bitwise_repeat(
+        "vmm_fxp_fwd", "rails [32,4096]@[4096,128] wrap", got, tuple(
+            (f"K in {z} slice(s)",
+             lambda z=z: vmm_fxp_with_splits(x, w, splits=z))
+            for z in (1, 8, 128)))
     kc.record("vmm_fxp_fwd", "rails [32,4096]@[4096,128] wrap", False,
-              vmm_fxp(x, w), vmm_ref.vmm_fxp(x, w), True,
+              got, vmm_ref.vmm_fxp(x, w), True,
               lambda: vmm_fxp(x, w), lambda: vmm_ref.vmm_fxp(x, w),
               2 * (x.numel() + w.numel() + n * 128), n * 4096 * 128,
               rate=rate)
@@ -1955,9 +2076,9 @@ def main() -> int:
     ap.add_argument("--out", type=Path, default=None,
                     help="directory for chip_smoke.json (per-case numbers)")
     ap.add_argument("--sweep", action="store_true",
-                    help="after phase 1, time the launch choices of B4 and "
-                         "B1 (every K split, a grid of tile plans) and stop;"
-                         " --out gets kernel_sweep.json")
+                    help="after phase 1, time the launch choices of B1, B4, "
+                         "B5/B8, B7 and B9 (K splits, grids of tile plans) "
+                         "and stop; --out gets kernel_sweep.json")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke test needs one",
@@ -1998,7 +2119,7 @@ def main() -> int:
             if ("Compiling entry" in line or "registers" in line
                     or "spill stores" in line):
                 print("   ", line.strip())
-        print("  redesigned B1/B4/B5/B8 kernels (ptxas): " + "; ".join(
+        print("  redesigned B1/B4/B5/B7/B8/B9 kernels (ptxas): " + "; ".join(
             f"{name} {regs} registers, spill stores {st} B, loads {ld} B"
             for name, regs, st, ld in kernel_resources(text, REDESIGNED)))
 
@@ -2011,6 +2132,10 @@ def main() -> int:
               f"{SWEEP_BWD_REPS} back-to-back runs)")
         rows["bwd"] = sweep_bwd_plans(torch.Generator(device="cuda")
                                       .manual_seed(0))
+        print(f"sweep: B7 tile plans and B9 K splits, int16 (ms = median "
+              f"of {REPS} back-to-back runs)")
+        rows.update(sweep_fxp_choices(torch.Generator(device="cuda")
+                                      .manual_seed(0)))
         if args.out is not None:
             args.out.mkdir(parents=True, exist_ok=True)
             (args.out / "kernel_sweep.json").write_text(json.dumps(dict(

@@ -1,11 +1,14 @@
 // Shared by the kernels of repro_torch: the rectifier rules of the paper
 // (Eq. 3-5), the packed-residual bit reads used by the fused backward
-// kernels' prologues and epilogues, and the cp.async copies of the tiled
-// convolutions.
+// kernels' prologues and epilogues, and, for the tiled convolutions
+// (conv_fwd.cuh, conv_bwd.cuh), their cp.async copies and the element
+// traits that let one template serve f32 and int16.
 #pragma once
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 // Every C entry point: device pointers, sizes and a cudaStream_t in, the
 // launch's cudaGetLastError() out.
@@ -86,5 +89,131 @@ __device__ __forceinline__ void cp_async_commit() {
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
+
+// One copy of `vb` bytes (16, 8 or 4) into a ring stage, or of one element
+// with an ordinary load where vb == 0; ok == false writes zeros.
+template <typename T>
+__device__ __forceinline__ void stage_copy(T* dst, const T* src, bool ok,
+                                           int vb) {
+  if (vb == 16) {
+    cp_async<16>(dst, src, ok);
+  } else if (vb == 8) {
+    cp_async<8>(dst, src, ok);
+  } else if (vb == 4) {
+    cp_async<4>(dst, src, ok);
+  } else {
+    *dst = ok ? *src : T(0);
+  }
+}
+
+// Call f(std::integral_constant<int, VB>{}) for the copy width vb (16, 8,
+// 4, or 0 for ordinary loads), so a loop of copies inside f branches on
+// the width at compile time, not once per copy.
+template <typename F>
+__device__ __forceinline__ void with_copy_bytes(int vb, F&& f) {
+  switch (vb) {
+    case 16: f(std::integral_constant<int, 16>{}); break;
+    case 8: f(std::integral_constant<int, 8>{}); break;
+    case 4: f(std::integral_constant<int, 4>{}); break;
+    default: f(std::integral_constant<int, 0>{}); break;
+  }
+}
+
+// Bytes per copy of `count`-element rows staged `chunk` elements at a time
+// from `p`: the widest of 16, 8, 4 whose element count divides both and
+// whose alignment `p` has; 0 (ordinary loads) where none does.
+template <typename T>
+int copy_bytes(const void* p, int count, int chunk) {
+  for (int vb = 16; vb >= 4; vb /= 2) {
+    const int e = vb / static_cast<int>(sizeof(T));
+    if (count % e == 0 && chunk % e == 0 &&
+        reinterpret_cast<uintptr_t>(p) % vb == 0)
+      return vb;
+  }
+  return 0;
+}
+
+// The element type of a tiled convolution: f32, or int16 whose operands
+// are widened to 32-bit words before the multiply-add (IMAD on uint32_t,
+// so the sum wraps modulo 2^32 as the reference's int32 dot does) and whose
+// accumulator is requantized to Q7.8 before the epilogue.
+template <typename T>
+struct Traits;
+
+template <>
+struct Traits<float> {
+  using Word = float;  // compute-buffer element and accumulator
+  static __device__ __forceinline__ float widen(float v) { return v; }
+  static __device__ __forceinline__ float prologue(float g, bool bit,
+                                                   int gate_in, int method) {
+    return gate_in ? gate(g, bit, method) : g;
+  }
+  static __device__ __forceinline__ void weights4(const float* p,
+                                                  float (&w)[4]) {
+    const float4 v = *reinterpret_cast<const float4*>(p);
+    w[0] = v.x, w[1] = v.y, w[2] = v.z, w[3] = v.w;
+  }
+  static __device__ __forceinline__ void words4(const float* p,
+                                                float* x) {
+    const float4 v = *reinterpret_cast<const float4*>(p);
+    x[0] = v.x, x[1] = v.y, x[2] = v.z, x[3] = v.w;
+  }
+  static __device__ __forceinline__ float mac(float acc, float x, float w) {
+    return fmaf(x, w, acc);
+  }
+  static __device__ __forceinline__ float finish(float acc) { return acc; }
+  static __device__ __forceinline__ float add_bias(float r, float b) {
+    return r + b;
+  }
+  static __device__ __forceinline__ void store4(float* dst, const float* r) {
+    *reinterpret_cast<float4*>(dst) = make_float4(r[0], r[1], r[2], r[3]);
+  }
+};
+
+template <>
+struct Traits<int16_t> {
+  using Word = uint32_t;
+  // ld.shared.s16 sign-extends: the widening costs no instruction
+  static __device__ __forceinline__ uint32_t widen(int16_t v) {
+    return static_cast<uint32_t>(static_cast<int>(v));
+  }
+  static __device__ __forceinline__ uint32_t prologue(int16_t g, bool bit,
+                                                      int gate_in,
+                                                      int method) {
+    int v = g;
+    if (gate_in) v = gate(v, bit, method);
+    return static_cast<uint32_t>(v);
+  }
+  static __device__ __forceinline__ void weights4(const int16_t* p,
+                                                  uint32_t (&w)[4]) {
+    const short4 v = *reinterpret_cast<const short4*>(p);
+    w[0] = static_cast<uint32_t>(static_cast<int>(v.x));
+    w[1] = static_cast<uint32_t>(static_cast<int>(v.y));
+    w[2] = static_cast<uint32_t>(static_cast<int>(v.z));
+    w[3] = static_cast<uint32_t>(static_cast<int>(v.w));
+  }
+  static __device__ __forceinline__ void words4(const uint32_t* p,
+                                                uint32_t* x) {
+    const uint4 v = *reinterpret_cast<const uint4*>(p);
+    x[0] = v.x, x[1] = v.y, x[2] = v.z, x[3] = v.w;
+  }
+  // |x * w| <= 2^30 as int32; the unsigned product is the same modulo 2^32
+  static __device__ __forceinline__ uint32_t mac(uint32_t acc, uint32_t x,
+                                                 uint32_t w) {
+    return acc + x * w;
+  }
+  static __device__ __forceinline__ int finish(uint32_t acc) {
+    return requantize(acc);
+  }
+  // the reference's sat_add of the Q7.8 bias, after the requantize
+  static __device__ __forceinline__ int add_bias(int r, int16_t b) {
+    return sat16(r + b);
+  }
+  static __device__ __forceinline__ void store4(int16_t* dst, const int* r) {
+    *reinterpret_cast<short4*>(dst) =
+        make_short4(static_cast<short>(r[0]), static_cast<short>(r[1]),
+                    static_cast<short>(r[2]), static_cast<short>(r[3]));
+  }
+};
 
 }  // namespace repro

@@ -19,9 +19,26 @@
 //
 // Bound on an H100: integer multiply-adds, except the backward of layer 0
 // (Cout' = 3), which is bound by bytes.  Hopper has no int16 tensor-core
-// MMA, so the products run as IMAD on the CUDA cores (64 per SM per clock,
-// half the FFMA rate).  No atomics: each output is written once by one
-// thread, so results are deterministic.
+// MMA, so the products run as IMAD on the CUDA cores: 64 per SM per clock,
+// half the FFMA rate, 1.67e13/s on 132 SMs at 1.98 GHz.  No atomics: each
+// output is written once by one thread, so results are deterministic.
+//
+// Forward design (B7): the tiled kernel of conv_fwd.cuh
+// (conv_igemm_kernel<int16_t, K, PX>, instantiated in conv_fwd_i16.cu),
+// B1's template on int16 operands:
+// each thread a register micro-tile of PX pixels of one row x 4 channels
+// in uint32_t accumulators, the row of PX + K - 1 inputs of each (ci, kh)
+// loaded once (widened by ld.shared.s16) and reused for all K taps, the 4
+// weights of a tap read as one 8-byte vector and unpacked to words, so the
+// inner loop is IMAD with one shared-memory load per 7 of them (PX = 8,
+// K = 3) where the general kernel below pays one per IMAD; the int16 halo and
+// weights staged Cin chunk by Cin chunk on a two-stage cp.async ring
+// (16-, 8- or 4-byte copies where C, the chunk and the pointer allow,
+// ordinary loads for layer 0's 6-byte rows or a 2-byte offset view), half
+// the bytes of f32 a stage; requantize, then sat16(r + bias), one write
+// per output.  Wrapping addition is associative, so no plan changes a bit.
+// Built for K = 1, 3, 5, 7 and tiled by kernels/conv2d/conv2d.py
+// conv_plan.
 //
 // Fused backward design: the tiled kernel of conv_bwd.cuh
 // (conv_bwd_igemm_kernel<int16_t, K, PX, SG>), the f32 backward's template
@@ -32,10 +49,11 @@
 // is associative, so no plan changes a bit.  Built for K = 1, 3, 5, 7 and
 // tiled by kernels/conv2d/conv2d.py conv_bwd_plan.
 //
-// General kernel (conv_fxp_kernel; B7's forward, and the fused backward for
-// any other odd K or the general plan of zeros): the tile structure of the
-// f32 general kernel (conv2d.cu conv_kernel): one block computes an 8x8
-// pixel tile of one image for TCO output channels (32, or 8 when Cout <= 8,
+// General kernel (conv_fxp_kernel: the forward and the fused backward for
+// any other odd K or the general plan of zeros, and the bitwise reference
+// the tiled kernels are timed beside): the tile structure of the f32
+// general kernel (conv2d.cu conv_kernel): one block computes an 8x8 pixel
+// tile of one image for TCO output channels (32, or 8 when Cout <= 8,
 // e.g. the backward of layer 0 whose Cout' is 3); the input halo tile and
 // the weight slice are staged in shared memory as int16, half the bytes of
 // f32, Cin chunk by Cin chunk (64 channels, halved until the tiles fit the
@@ -48,6 +66,7 @@
 
 #include "common.cuh"
 #include "conv_bwd.cuh"
+#include "conv_fwd.cuh"
 
 namespace {
 
@@ -230,20 +249,30 @@ int dispatch(const ConvFxpArgs& a, cudaStream_t stream) {
 REPRO_API int repro_conv2d_fxp_fwd(const int16_t* x, const int16_t* w,
                                    const int16_t* bias, int16_t* y, int n,
                                    int h, int wd, int cin, int cout, int k,
+                                   int th, int px, int tco, int cin_t,
                                    cudaStream_t stream) {
-  ConvFxpArgs a{};
-  a.in = x;
-  a.wt = w;
-  a.bias = bias;
-  a.out = y;
-  a.s = 1;
-  a.n = n;
-  a.h = h;
-  a.wd = wd;
-  a.cin = cin;
-  a.cout = cout;
-  a.k = k;
-  return dispatch<false>(a, stream);
+  const bool tiled = k == 1 || k == 3 || k == 5 || k == 7;
+  const bool general = th == 0 && px == 0 && tco == 0 && cin_t == 0;
+  if (!tiled || general) {
+    // Other odd K, or the general plan of zeros: conv_fxp_kernel, which
+    // tiles itself.
+    ConvFxpArgs a{};
+    a.in = x;
+    a.wt = w;
+    a.bias = bias;
+    a.out = y;
+    a.s = 1;
+    a.n = n;
+    a.h = h;
+    a.wd = wd;
+    a.cin = cin;
+    a.cout = cout;
+    a.k = k;
+    return dispatch<false>(a, stream);
+  }
+  // The tile plan of kernels/conv2d/conv2d.py conv_plan.
+  return static_cast<int>(repro::conv_fwd_tiled_i16(
+      x, w, bias, y, n, h, wd, cin, cout, k, th, px, tco, cin_t, stream));
 }
 
 REPRO_API int repro_conv2d_bwd_fused_fxp(const int16_t* g, const int16_t* wt,

@@ -84,89 +84,6 @@ struct Args {
                             // stores
 };
 
-template <typename T>
-struct Traits;
-
-template <>
-struct Traits<float> {
-  using Word = float;  // compute-buffer element and accumulator
-  static __device__ __forceinline__ float prologue(float g, bool bit,
-                                                   int gate_in, int method) {
-    return gate_in ? repro::gate(g, bit, method) : g;
-  }
-  static __device__ __forceinline__ void weights4(const float* p,
-                                                  float (&w)[4]) {
-    const float4 v = *reinterpret_cast<const float4*>(p);
-    w[0] = v.x, w[1] = v.y, w[2] = v.z, w[3] = v.w;
-  }
-  static __device__ __forceinline__ void words4(const float* p,
-                                                float* x) {
-    const float4 v = *reinterpret_cast<const float4*>(p);
-    x[0] = v.x, x[1] = v.y, x[2] = v.z, x[3] = v.w;
-  }
-  static __device__ __forceinline__ float mac(float acc, float x, float w) {
-    return fmaf(x, w, acc);
-  }
-  static __device__ __forceinline__ float finish(float acc) { return acc; }
-  static __device__ __forceinline__ void store4(float* dst, const float* r) {
-    *reinterpret_cast<float4*>(dst) = make_float4(r[0], r[1], r[2], r[3]);
-  }
-};
-
-template <>
-struct Traits<int16_t> {
-  using Word = uint32_t;
-  static __device__ __forceinline__ uint32_t prologue(int16_t g, bool bit,
-                                                      int gate_in,
-                                                      int method) {
-    int v = g;
-    if (gate_in) v = repro::gate(v, bit, method);
-    return static_cast<uint32_t>(v);
-  }
-  static __device__ __forceinline__ void weights4(const int16_t* p,
-                                                  uint32_t (&w)[4]) {
-    const short4 v = *reinterpret_cast<const short4*>(p);
-    w[0] = static_cast<uint32_t>(static_cast<int>(v.x));
-    w[1] = static_cast<uint32_t>(static_cast<int>(v.y));
-    w[2] = static_cast<uint32_t>(static_cast<int>(v.z));
-    w[3] = static_cast<uint32_t>(static_cast<int>(v.w));
-  }
-  static __device__ __forceinline__ void words4(const uint32_t* p,
-                                                uint32_t* x) {
-    const uint4 v = *reinterpret_cast<const uint4*>(p);
-    x[0] = v.x, x[1] = v.y, x[2] = v.z, x[3] = v.w;
-  }
-  // |x * w| <= 2^30 as int32; the unsigned product is the same modulo 2^32
-  static __device__ __forceinline__ uint32_t mac(uint32_t acc, uint32_t x,
-                                                 uint32_t w) {
-    return acc + x * w;
-  }
-  static __device__ __forceinline__ int finish(uint32_t acc) {
-    return repro::requantize(acc);
-  }
-  static __device__ __forceinline__ void store4(int16_t* dst, const int* r) {
-    *reinterpret_cast<short4*>(dst) =
-        make_short4(static_cast<short>(r[0]), static_cast<short>(r[1]),
-                    static_cast<short>(r[2]), static_cast<short>(r[3]));
-  }
-};
-
-// One copy of `vb` bytes (16, 8 or 4) into the ring, or of one element with
-// an ordinary load where vb == 0; ok == false writes zeros.
-template <typename T>
-__device__ __forceinline__ void stage_copy(T* dst, const T* src, bool ok,
-                                           int vb) {
-  if (vb == 16) {
-    repro::cp_async<16>(dst, src, ok);
-  } else if (vb == 8) {
-    repro::cp_async<8>(dst, src, ok);
-  } else if (vb == 4) {
-    repro::cp_async<4>(dst, src, ok);
-  } else {
-    *dst = ok ? *src : T(0);
-  }
-}
-
 // floor(v / 2) for negative v too (the halo's first row may be -P).
 __device__ __forceinline__ int floor_half(int v) {
   return v >= 0 ? v / 2 : -((1 - v) / 2);
@@ -178,7 +95,7 @@ __device__ __forceinline__ int floor_half(int v) {
 template <typename T, int K, int PX, int SG>
 __global__ void __launch_bounds__(MAX_THREADS, 1)
 conv_bwd_igemm_kernel(Args<T> a) {
-  using Tr = Traits<T>;
+  using Tr = repro::Traits<T>;
   using W = typename Tr::Word;
   constexpr int P = (K - 1) / 2, XW = TW + K - 1, XWP = (XW + 3) / 4 * 4;
   constexpr int NX = PX + K - 1, NV = (NX + 3) / 4;  // row of inputs, float4s
@@ -235,7 +152,8 @@ conv_bwd_igemm_kernel(Args<T> a) {
              : a.g;
       T* dst = land + r * a.lstride;
       for (int q = 0; q < gu; ++q)
-        stage_copy(dst + q * eg, ok ? src + q * eg : src, ok, a.vb_g);
+        repro::stage_copy(dst + q * eg, ok ? src + q * eg : src, ok,
+                          a.vb_g);
     }
     const int ew = a.vb_w ? a.vb_w / static_cast<int>(sizeof(T)) : 1;
     const int wu = tco / ew;  // copies per weight row (ew divides tco)
@@ -246,7 +164,8 @@ conv_bwd_igemm_kernel(Args<T> a) {
       const T* src =
           ok ? a.wt + (static_cast<size_t>(kk) * a.c + c0 + ci) * a.cout + o
              : a.wt;
-      stage_copy(ws + (kk * cin_t + ci) * tco + q * ew, src, ok, a.vb_w);
+      repro::stage_copy(ws + (kk * cin_t + ci) * tco + q * ew, src, ok,
+                        a.vb_w);
     }
     repro::cp_async_commit();
   };
@@ -432,20 +351,6 @@ cudaError_t launch_px(const Args<T>& a, int px, int sg, cudaStream_t stream) {
   }
 }
 
-// Bytes per copy of `count`-element rows staged `chunk` elements at a time
-// from `p`: the widest of 16, 8, 4 whose element count divides both and
-// whose alignment `p` has; 0 (ordinary loads) where none does.
-template <typename T>
-int copy_bytes(const void* p, int count, int chunk) {
-  for (int vb = 16; vb >= 4; vb /= 2) {
-    const int e = vb / static_cast<int>(sizeof(T));
-    if (count % e == 0 && chunk % e == 0 &&
-        reinterpret_cast<uintptr_t>(p) % vb == 0)
-      return vb;
-  }
-  return 0;
-}
-
 // The tile plan of kernels/conv2d/conv2d.py conv_bwd_plan (k in {1,3,5,7}):
 // check it, lay out shared memory as ConvBwdPlan.smem_bytes does, choose
 // the copy widths, launch.
@@ -468,8 +373,8 @@ cudaError_t launch_tiled(Args<T> a, int k, int px, int sg,
   a.land_bytes = static_cast<int>(sizeof(T)) * bs * a.gh * a.gw * a.lstride;
   const int wbytes = static_cast<int>(sizeof(T)) * k * k * a.cin_t * a.tco;
   a.stage_bytes = a.land_bytes + (wbytes + 15) / 16 * 16;
-  a.vb_g = copy_bytes<T>(a.g, a.c, a.cin_t);
-  a.vb_w = copy_bytes<T>(a.wt, a.cout, a.tco);
+  a.vb_g = repro::copy_bytes<T>(a.g, a.c, a.cin_t);
+  a.vb_w = repro::copy_bytes<T>(a.wt, a.cout, a.tco);
   a.vec_y = a.cout % 4 == 0 &&
             reinterpret_cast<uintptr_t>(a.out) % (4 * sizeof(T)) == 0;
   switch (k) {

@@ -53,10 +53,13 @@ SIGNATURES = {
     # the fxp16 path: int16 instances of B2/B3 and the int16 kernels B7-B10
     "repro_relu_fwd_i16": [_P, _P, _P, _I, _I, _P],
     "repro_maxpool_fwd_i16": [_P, _P, _P, _I, _I, _I, _I, _P],
-    "repro_conv2d_fxp_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # int16 forward: the f32 one's arguments and plan (all 0: the general
+    # kernel)
+    "repro_conv2d_fxp_fwd": [_P, _P, _P, _P] + [_I] * 10 + [_P],
     # int16 fused backward: the f32 one's arguments and plan
     "repro_conv2d_bwd_fused_fxp": [_P] * 6 + [_I] * 16 + [_P],
-    "repro_vmm_fxp_fwd": [_P, _P, _P, _P, _I, _I, _I, _P],
+    # int16 forward: the f32 one's arguments, the workspace int32
+    "repro_vmm_fxp_fwd": [_P, _P, _P, _P, _I, _I, _I, _P, _I, _I, _P],
     "repro_vmm_bwd_fused_fxp": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                 _I, _P],
     # the autograd paths: B11 and B12 (f32, and int16 for the unpool)

@@ -2,9 +2,9 @@
 
 :func:`conv2d` wraps ``repro_conv2d_fwd`` of ``csrc/conv2d.cu`` (the port of
 ``repro.kernels.conv2d.conv2d.conv2d_pallas``), with the conv bias added in
-its epilogue; :func:`conv_plan` chooses its tile for each shape (K in
-:data:`CONV_KS`; other odd K run the kernel of the fused backward, which
-tiles itself).
+its epilogue; :func:`conv_plan` chooses its tile for each shape and element
+size (K in :data:`CONV_KS`; other odd K, or :data:`CONV_GENERAL`, run the
+general kernel it shares with the fused backward, which tiles itself).
 :func:`conv2d_bwd_fused` wraps ``repro_conv2d_bwd_fused`` (the
 port of ``conv2d_bwd_fused_pallas``): the unpool scatter by the stored 2-bit
 argmax and the Eq. 3-5 gate by the stored 1-bit mask run as a prologue on
@@ -77,40 +77,47 @@ class ConvPlan:
         return (cdiv(h, self.th) * cdiv(w, CONV_TILE_W)
                 * cdiv(cout, self.tco) * n)
 
-    def smem_bytes(self, k: int) -> int:
-        """Both ring stages: the halo tile (rows padded to a multiple of 4
-        floats, plus 4) and the weight slice, as ``repro_conv2d_fwd``
-        lays them out."""
-        xstride = align_up(self.cin_t, 4) + 4
+    def smem_bytes(self, k: int, *, esize: int = 4) -> int:
+        """Both ring stages of ``esize``-byte elements (4 f32, 2 int16):
+        the halo tile (rows padded to a multiple of 16 bytes, plus 16) and
+        the weight slice, each stage rounded up to 16 bytes, as
+        ``csrc/conv_fwd.cuh`` ``launch_tiled`` lays them out."""
+        unit = 16 // esize
+        xstride = align_up(self.cin_t, unit) + unit
         stage = ((self.th + k - 1) * (CONV_TILE_W + k - 1) * xstride
                  + k * k * self.cin_t * self.tco)
-        return 2 * 4 * stage
+        return 2 * esize * align_up(stage, unit)
 
     def args(self) -> Tuple[int, int, int, int]:
         return (self.th, self.px, self.tco, self.cin_t)
 
 
-def conv_cin_t(cin: int, k: int, th: int, px: int, tco: int) -> int:
-    """Cin channels per ring stage: up to 32, halved until both stages fit
-    :data:`CONV_SMEM_BUDGET`; a multiple of 4 where Cin is (16-byte
-    copies)."""
-    step = 4 if cin % 4 == 0 else 1
+def conv_cin_t(cin: int, k: int, th: int, px: int, tco: int, *,
+               esize: int = 4) -> int:
+    """Cin channels per ring stage of ``esize``-byte elements: up to 32,
+    halved until both stages fit :data:`CONV_SMEM_BUDGET`; a multiple of
+    16 bytes of elements (4 f32, 8 int16) where Cin is (16-byte copies)."""
+    unit = 16 // esize
+    step = unit if cin % unit == 0 else 1
     ct = max(1, min(cin, CONV_MAX_CIN_T) // step * step)
-    while ct > step and ConvPlan(th, px, tco, ct).smem_bytes(k) \
-            > CONV_SMEM_BUDGET:
+    while ct > step and ConvPlan(th, px, tco, ct).smem_bytes(
+            k, esize=esize) > CONV_SMEM_BUDGET:
         ct = max(step, ct // 2 // step * step)
     return ct
 
 
-def conv_plan(n: int, h: int, w: int, cin: int, cout: int,
-              k: int) -> ConvPlan:
-    """The register-tiled forward's tile for one shape on an H100.
+def conv_plan(n: int, h: int, w: int, cin: int, cout: int, k: int, *,
+              esize: int = 4) -> ConvPlan:
+    """The register-tiled forward's tile for one shape on an H100, for
+    ``esize``-byte elements (4: B1 in f32, 2: B7 in int16).
 
     32 output channels a block (fewer where Cout is), and the tallest tile
     (up to 32 rows) whose grid still gives about two blocks per SM: at
     least twice the SMs rounded down to a power of two (256), as the tiles
     and the batch are powers of two.  Then 8 pixels a thread where that
-    makes 128 threads, else 4 for twice the threads.
+    makes 128 threads, else 4 for twice the threads.  The element size
+    only sets the chunk (:func:`conv_cin_t`): int16 stages take half the
+    bytes, so a chunk halved for f32 may stay whole.
     """
     if k not in CONV_KS:
         raise ValueError(f"conv2d: the tiled forward takes K in {CONV_KS}, "
@@ -122,7 +129,28 @@ def conv_plan(n: int, h: int, w: int, cin: int, cout: int,
             < min_blocks:
         th //= 2
     px = 8 if th * tco // 4 >= CONV_TARGET_THREADS else 4
-    return ConvPlan(th, px, tco, conv_cin_t(cin, k, th, px, tco))
+    return ConvPlan(th, px, tco,
+                    conv_cin_t(cin, k, th, px, tco, esize=esize))
+
+
+#: The plan that selects the forward's general kernel (``conv_kernel`` /
+#: ``conv_fxp_kernel``, the route of any K outside :data:`CONV_KS`); for
+#: tests and sweeps that hold the tiled kernel against it.
+CONV_GENERAL = ConvPlan(0, 0, 0, 0)
+
+
+def _check_fwd_plan(name: str, plan: ConvPlan, k: int, esize: int) -> None:
+    """Raise unless the forward can run ``plan`` at kernel size ``k`` on
+    ``esize``-byte elements."""
+    if plan == CONV_GENERAL:
+        return
+    if k not in CONV_KS:
+        raise ValueError(f"{name}: a tile plan needs K in {CONV_KS}, got {k}")
+    if (plan.px not in (4, 8) or plan.tco < 4 or plan.tco % 4
+            or plan.th < 1 or plan.cin_t < 1
+            or plan.threads > CONV_MAX_THREADS
+            or plan.smem_bytes(k, esize=esize) > CONV_SMEM_LIMIT):
+        raise ValueError(f"{name}: invalid tile plan {plan}")
 
 
 #: Seeds a thread of the tiled fused backward sums at once (its register
@@ -311,10 +339,17 @@ def _fwd_dims(name: str, dtype: torch.dtype, x: torch.Tensor,
 
 def conv_fwd(name: str, counter: str, entry: str, dtype: torch.dtype,
              plain: Callable, x: torch.Tensor, w: torch.Tensor,
-             b: Optional[torch.Tensor], extra: tuple = ()) -> torch.Tensor:
+             b: Optional[torch.Tensor],
+             plan: Optional[ConvPlan]) -> torch.Tensor:
     """Check, then run ``plain(x, w, b)`` on the CPU or launch ``entry``
-    with ``extra`` after its common arguments."""
+    tiled by ``plan``: :func:`conv_plan`'s when it is None and K is in
+    :data:`CONV_KS`, the general kernel's zeros for any other K."""
     n, h, wd, cin, cout, k = _fwd_dims(name, dtype, x, w, b)
+    esize = x.element_size()
+    if plan is None:
+        plan = (conv_plan(n, h, wd, cin, cout, k, esize=esize)
+                if k in CONV_KS else CONV_GENERAL)
+    _check_fwd_plan(name, plan, k, esize)
     if not on_card(name, x, w, b):
         return plain(x, w, b)
     check_kernel_operands(name, x, w, b)
@@ -322,7 +357,7 @@ def conv_fwd(name: str, counter: str, entry: str, dtype: torch.dtype,
     if y.numel():
         _build.launch(counter, entry, x.device, x.data_ptr(), w.data_ptr(),
                       _build.ptr(b), y.data_ptr(), n, h, wd, cin, cout, k,
-                      *extra)
+                      *plan.args())
     return y
 
 
@@ -346,17 +381,10 @@ def conv2d_planned(x: torch.Tensor, w: torch.Tensor,
                    b: Optional[torch.Tensor] = None, *,
                    plan: Optional[ConvPlan] = None) -> torch.Tensor:
     """:func:`conv2d` with the tile chosen by the caller, for tests and
-    sweeps: every plan gives the same bits.  One count of ``conv2d_fwd``
-    per call."""
-    n, h, wd, cin, cout, k = _fwd_dims("conv2d", torch.float32, x, w, b)
-    if k in CONV_KS:
-        plan = plan or conv_plan(n, h, wd, cin, cout, k)
-    elif plan is not None:
-        raise ValueError(f"conv2d: a tile plan needs K in {CONV_KS}, got {k}")
-    # no plan (0, 0, 0, 0): the general-K kernel, which tiles itself
+    sweeps: every plan, and :data:`CONV_GENERAL`, gives the same bits.
+    One count of ``conv2d_fwd`` per call."""
     return conv_fwd("conv2d", "conv2d_fwd", "repro_conv2d_fwd",
-                    torch.float32, _conv2d_plain, x, w, b,
-                    plan.args() if plan else (0, 0, 0, 0))
+                    torch.float32, _conv2d_plain, x, w, b, plan)
 
 
 def bwd_fused_plain(conv: Callable, g, wt, *, pool_idx=None, relu_mask=None,

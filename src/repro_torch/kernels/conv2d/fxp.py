@@ -5,7 +5,8 @@ datapath): forward and fused backward.
 (the port of ``repro.kernels.conv2d.fxp.conv2d_fxp_pallas``): Q7.8 int16
 feature maps x Q1.14 int16 weights, int32 accumulation, one requantize,
 then the Q7.8 bias added with saturation in the epilogue — the reference's
-``sat_add(conv2d_fxp_pallas(x, w), b)`` in one launch.
+``sat_add(conv2d_fxp_pallas(x, w), b)`` in one launch, tiled like the f32
+forward by ``conv2d.conv_plan`` (at 2-byte elements).
 :func:`conv2d_bwd_fused_fxp` wraps ``repro_conv2d_bwd_fused_fxp`` (the port
 of ``conv2d_bwd_fused_fxp_pallas``): the f32 fused backward's dataflow and
 argument contract (``conv2d.conv2d_bwd_fused``) on int16 gradients, with the
@@ -20,8 +21,9 @@ import torch
 
 from repro_torch.core.fixedpoint import sat_add
 from repro_torch.kernels.conv2d import ref
-from repro_torch.kernels.conv2d.conv2d import (ConvBwdPlan, bwd_fused,
-                                               bwd_fused_plain, conv_fwd)
+from repro_torch.kernels.conv2d.conv2d import (ConvBwdPlan, ConvPlan,
+                                               bwd_fused, bwd_fused_plain,
+                                               conv_fwd)
 
 
 def _conv2d_fxp_plain(x, w, b):
@@ -36,10 +38,19 @@ def conv2d_fxp(x: torch.Tensor, w: torch.Tensor,
     SAME padding.
 
     CPU tensors run :func:`ref.conv2d_fxp` (then ``sat_add(., b)``); CUDA
-    tensors the kernel.
+    tensors the kernel, tiled by ``conv_plan`` for K in ``CONV_KS``.
     """
+    return conv2d_fxp_planned(x, w, b)
+
+
+def conv2d_fxp_planned(x: torch.Tensor, w: torch.Tensor,
+                       b: Optional[torch.Tensor] = None, *,
+                       plan: Optional[ConvPlan] = None) -> torch.Tensor:
+    """:func:`conv2d_fxp` with the tile chosen by the caller, for tests and
+    sweeps: every plan, and ``CONV_GENERAL`` (the general kernel), gives
+    the same bits.  One count of ``conv2d_fxp_fwd`` per call."""
     return conv_fwd("conv2d_fxp", "conv2d_fxp_fwd", "repro_conv2d_fxp_fwd",
-                    torch.int16, _conv2d_fxp_plain, x, w, b)
+                    torch.int16, _conv2d_fxp_plain, x, w, b, plan)
 
 
 def conv2d_bwd_fused_fxp_plain(g, wt, **kw):

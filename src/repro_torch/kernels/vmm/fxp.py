@@ -5,11 +5,13 @@ datapath): forward and fused backward.
 of ``repro.kernels.vmm.fxp.vmm_fxp_pallas``): Q7.8 int16 inputs x Q1.14
 int16 weights, int32 accumulation, one requantize, then the Q7.8 bias added
 with saturation in the epilogue — the reference's ``sat_add(vmm_fxp_pallas(x,
-w), b)`` in one launch.  :func:`vmm_bwd_fused_fxp` wraps
-``repro_vmm_bwd_fused_fxp`` (the port of ``vmm_bwd_fused_fxp_pallas``): the
-f32 fused backward's dataflow and argument contract (``vmm.vmm_bwd_fused``)
-on int16 gradients, with the requantize before the epilogue gate.  Plain
-versions: :func:`ref.vmm_fxp` and :func:`vmm_bwd_fused_fxp_plain`.
+w), b)`` in one launch, K split across blocks as in the f32 forward
+(``vmm.vmm_splits``, with an int32 workspace summed by a second kernel).
+:func:`vmm_bwd_fused_fxp` wraps ``repro_vmm_bwd_fused_fxp`` (the port of
+``vmm_bwd_fused_fxp_pallas``): the f32 fused backward's dataflow and
+argument contract (``vmm.vmm_bwd_fused``) on int16 gradients, with the
+requantize before the epilogue gate.  Plain versions: :func:`ref.vmm_fxp`
+and :func:`vmm_bwd_fused_fxp_plain`.
 """
 from __future__ import annotations
 
@@ -33,10 +35,21 @@ def vmm_fxp(x: torch.Tensor, w: torch.Tensor,
     saturating) -> int16 [M, N].
 
     CPU tensors run :func:`ref.vmm_fxp` (then ``sat_add(., b)``); CUDA
-    tensors the kernel.
+    tensors the kernel, with ``vmm_splits`` slices of K.
     """
+    return vmm_fxp_with_splits(x, w, b)
+
+
+def vmm_fxp_with_splits(x: torch.Tensor, w: torch.Tensor,
+                        b: Optional[torch.Tensor] = None, *,
+                        splits: Optional[int] = None) -> torch.Tensor:
+    """:func:`vmm_fxp` with the number of K slices (1 to
+    ``vmm_max_splits``) chosen by the caller, for tests and sweeps: the
+    int32 partial sums wrap like the whole sum, so every split gives the
+    same bits.  One count of ``vmm_fxp_fwd`` per call, whatever the
+    split."""
     return vmm_fwd("vmm_fxp", "vmm_fxp_fwd", "repro_vmm_fxp_fwd", torch.int16,
-                   _vmm_fxp_plain, x, w, b)
+                   torch.int32, _vmm_fxp_plain, x, w, b, splits)
 
 
 def vmm_bwd_fused_fxp_plain(g, w, **kw):

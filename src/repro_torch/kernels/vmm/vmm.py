@@ -5,7 +5,8 @@
 epilogue.  The forward splits K across blocks: :func:`vmm_splits` chooses
 the number of slices from the shape, and with more than one the wrapper
 hands the kernel a ``[splits, M, N]`` f32 workspace, which a second kernel
-of the same entry point sums in slice order.  :func:`vmm_bwd_fused` wraps
+of the same entry point sums in slice order (:func:`vmm_fwd`, which the
+int16 forward shares).  :func:`vmm_bwd_fused` wraps
 ``repro_vmm_bwd_fused`` (the port of ``vmm_bwd_fused_pallas``): the 1-bit mask gate runs on the gradient as it
 is loaded, then the product with ``W^T``, then an optional epilogue gate —
 an FC layer's whole backward step in one launch, all S seeds sharing the
@@ -67,22 +68,35 @@ def _vmm_dims(name: str, x: torch.Tensor, w: torch.Tensor):
 
 
 def vmm_fwd(name: str, counter: str, entry: str, dtype: torch.dtype,
-            plain: Callable, x: torch.Tensor, w: torch.Tensor,
-            b: Optional[torch.Tensor], extra: tuple = ()) -> torch.Tensor:
+            part_dtype: torch.dtype, plain: Callable, x: torch.Tensor,
+            w: torch.Tensor, b: Optional[torch.Tensor],
+            splits: Optional[int]) -> torch.Tensor:
     """Check, then run ``plain(x, w, b)`` on the CPU or launch ``entry``
-    with ``extra`` after its common arguments."""
+    (the split-K forwards) with ``splits`` slices of K (:func:`vmm_splits`'
+    when None), each :func:`vmm_slice` long, as many as K fills, and a
+    ``[splits, M, N]`` workspace of ``part_dtype`` where K is split."""
     m, k, n = _vmm_dims(name, x, w)
     check(name, x, dtype, what="x")
     check(name, w, dtype, what="w")
     if b is not None:
         check(name, b, dtype, (n,), what="b")
+    if splits is None:
+        splits = vmm_splits(m, k, n)
+    elif not 1 <= splits <= vmm_max_splits(k):
+        raise ValueError(f"{name}: splits={splits} not in [1, "
+                         f"{vmm_max_splits(k)}] for K = {k}")
     if not on_card(name, x, w, b):
         return plain(x, w, b)
     check_kernel_operands(name, x, w, b)
+    ks = vmm_slice(k, splits)
+    splits = max(1, cdiv(k, ks))
+    part = (torch.empty((splits, m, n), dtype=part_dtype, device=x.device)
+            if splits > 1 else None)
     y = torch.empty((m, n), dtype=x.dtype, device=x.device)
     if y.numel():
         _build.launch(counter, entry, x.device, x.data_ptr(), w.data_ptr(),
-                      _build.ptr(b), y.data_ptr(), m, k, n, *extra)
+                      _build.ptr(b), y.data_ptr(), m, k, n, _build.ptr(part),
+                      splits, ks)
     return y
 
 
@@ -108,20 +122,8 @@ def vmm_with_splits(x: torch.Tensor, w: torch.Tensor,
     chosen by the caller, for tests and sweeps; one count of ``vmm_fwd``
     per call, whatever the split.  The slices are :func:`vmm_slice` long
     and as many as K fills, so none is empty."""
-    m, k, n = _vmm_dims("vmm", x, w)
-    if splits is None:
-        splits = vmm_splits(m, k, n)
-    elif not 1 <= splits <= vmm_max_splits(k):
-        raise ValueError(f"vmm: splits={splits} not in [1, "
-                         f"{vmm_max_splits(k)}] for K = {k}")
-    ks = vmm_slice(k, splits)
-    splits = max(1, cdiv(k, ks))
-    # the kernel's [splits, M, N] partial sums where K is split (the plain
-    # version leaves them unused)
-    part = (torch.empty((splits, m, n), dtype=torch.float32,
-                        device=x.device) if splits > 1 else None)
     return vmm_fwd("vmm", "vmm_fwd", "repro_vmm_fwd", torch.float32,
-                   _vmm_plain, x, w, b, (_build.ptr(part), splits, ks))
+                   torch.float32, _vmm_plain, x, w, b, splits)
 
 
 def bwd_fused_plain(matmul: Callable, g, w, *, relu_mask=None, gate=None,

@@ -4,19 +4,22 @@
 cover what the main path does not reach: ragged channel counts and spatial
 sizes, K = 1 and 5, several Cin chunks and Cout tiles, a fused backward
 whose prologue needs more than 48 KB of shared memory, misaligned
-pointers, the conv forward's tile plans (all bitwise equal) and its
-general kernel for K > 7, the fused backward's tile plans (f32: bitwise
-the general kernel's; int16: the plain version's) at K = 1 to 7 and its
-general kernel at K = 9, the FC forward's K splits (1 to the most, M and
-N past one tile), each bitwise equal run to run, and one launch per wrapper call — for the f32 kernels
-and for the int16 ones of the fxp16 path, which must equal their plain
+pointers, the conv forwards' tile plans (f32 and int16, all bitwise
+equal) and their general kernels (K > 7, the plan of zeros), the fused
+backward's tile plans (f32: bitwise the general kernel's; int16: the plain
+version's) at K = 1 to 7 and its general kernel at K = 9, the FC
+forwards' K splits (1 to the most, M and N past one tile; int16: every
+split, also at the rails), each bitwise equal run to run, and one launch
+per wrapper call — for the f32 kernels and for the int16 ones of the fxp16
+path, which must equal their plain
 versions bit for bit (also where the int32 accumulator wraps) — for the
 gate and unpool kernels of the autograd paths (bitwise), with those paths
 end to end against the CPU, and for the selective scan (B13: ragged S, D
 off the block size, N < 16, f32 and bf16 x, the knobs bitwise) with
 falcon-mamba's SMOKE LM against the CPU.
-Every test needs a CUDA device and skips without one.  This file imports neither JAX nor the JAX package, so on a
-machine without JAX run it without the suite's conftest:
+Every test needs a CUDA device and skips without one.  This file imports
+neither JAX nor the JAX package, so on a machine without JAX run it
+without the suite's conftest:
 
     PYTHONPATH=src python -m pytest --noconftest tests/test_torch_cuda.py
 """
@@ -27,14 +30,15 @@ from repro_torch.core import fixedpoint, masks
 from repro_torch.kernels import LAUNCHES
 from repro_torch.kernels.conv2d import ref as conv_ref
 from repro_torch.kernels.conv2d.conv2d import (CONV_BWD_GENERAL,
-                                               ConvBwdPlan, ConvPlan, conv2d,
+                                               CONV_GENERAL, ConvBwdPlan,
+                                               ConvPlan, conv2d,
                                                conv2d_bwd_fused,
                                                conv2d_bwd_fused_plain,
                                                conv2d_planned, conv_bwd_plan,
                                                conv_plan)
 from repro_torch.kernels.conv2d.fxp import (conv2d_bwd_fused_fxp,
                                             conv2d_bwd_fused_fxp_plain,
-                                            conv2d_fxp)
+                                            conv2d_fxp, conv2d_fxp_planned)
 from repro_torch.kernels.pool import ref as pool_ref
 from repro_torch.kernels.pool.fxp import maxpool_fwd_fxp, unpool_bwd_fxp
 from repro_torch.kernels.pool.pool import maxpool_fwd, unpool_bwd
@@ -42,7 +46,8 @@ from repro_torch.kernels.relu_mask import ref as relu_ref
 from repro_torch.kernels.relu_mask.relu_mask import relu_bwd, relu_fwd
 from repro_torch.kernels.vmm import ref as vmm_ref
 from repro_torch.kernels.vmm.fxp import (vmm_bwd_fused_fxp,
-                                         vmm_bwd_fused_fxp_plain, vmm_fxp)
+                                         vmm_bwd_fused_fxp_plain, vmm_fxp,
+                                         vmm_fxp_with_splits)
 from repro_torch.kernels.vmm.vmm import (vmm, vmm_bwd_fused,
                                          vmm_bwd_fused_plain, vmm_max_splits,
                                          vmm_splits, vmm_with_splits)
@@ -415,6 +420,74 @@ def test_conv2d_fxp_accumulator_wraps(gen):
     _same(conv2d_fxp(x, wt), conv_ref.conv2d_fxp(x, wt))
 
 
+def _conv_fxp_want(x, wt, b=None):
+    y = conv_ref.conv2d_fxp(x, wt)
+    return y if b is None else fixedpoint.sat_add(y, b)
+
+
+#: Tile plans of the int16 forward beside conv_plan's: one row of 4
+#: channels and a 1-channel chunk, a 16-row tile at 4 pixels a thread, a
+#: 64-channel block, a 4-channel chunk (8-byte copies)
+FXP_PLANS = [ConvPlan(1, 8, 4, 1), ConvPlan(16, 4, 16, 8),
+             ConvPlan(2, 8, 64, 32), ConvPlan(4, 4, 8, 4)]
+
+
+@pytest.mark.parametrize("k", [1, 3, 5, 7, 9])
+@pytest.mark.parametrize("cin", [3, 13, 64])
+def test_conv2d_fxp_kernel_sizes_and_channel_counts(gen, k, cin):
+    """K = 1 to 7 on the tiled kernel, K = 9 on the general one; Cin = 3
+    (6-byte rows: ordinary loads) and 13 (odd) beside 64 (16-byte
+    copies); both kernels give the plain version's bits."""
+    x = _q(gen, 2, 9, 7, cin)
+    wt = _qw(gen, k, k, cin, 20)
+    b = _q(gen, 20, scale=4.0)
+    want = _conv_fxp_want(x, wt, b)
+    _same(_launched("conv2d_fxp_fwd", lambda: conv2d_fxp(x, wt, b)), want)
+    _same(_launched("conv2d_fxp_fwd", lambda: conv2d_fxp_planned(
+        x, wt, b, plan=CONV_GENERAL)), want)
+
+
+@pytest.mark.parametrize("n,h,w,cin,cout", [(4, 32, 32, 3, 32),
+                                            (4, 16, 16, 64, 64),
+                                            (2, 13, 7, 96, 3)])
+def test_conv2d_fxp_bitwise_run_to_run_and_across_plans(gen, n, h, w, cin,
+                                                         cout):
+    x = _q(gen, n, h, w, cin)
+    wt = _qw(gen, 3, 3, cin, cout)
+    b = _q(gen, cout, scale=4.0)
+    want = _conv_fxp_want(x, wt, b)
+    first = conv2d_fxp(x, wt, b)
+    _same(first, want)
+    _same(conv2d_fxp(x, wt, b), first)
+    chosen = conv_plan(n, h, w, cin, cout, 3, esize=2)
+    for p in FXP_PLANS + [chosen, CONV_GENERAL]:
+        _same(_launched("conv2d_fxp_fwd", lambda p=p: conv2d_fxp_planned(
+            x, wt, b, plan=p)), want)
+
+
+def test_conv2d_fxp_misaligned_pointers(gen):
+    """x, w and b one int16 into their storage (2 bytes off 16): no copy
+    width is aligned, so the stages fill by ordinary loads; y stays
+    aligned."""
+    x = _q(gen, 2 * 6 * 5 * 16 + 1)[1:].view(2, 6, 5, 16)
+    wt = _qw(gen, 3 * 3 * 16 * 12 + 1)[1:].view(3, 3, 16, 12)
+    b = _q(gen, 13, scale=4.0)[1:]
+    want = _conv_fxp_want(x, wt, b)
+    for p in [None] + FXP_PLANS:
+        _same(conv2d_fxp_planned(x, wt, b, plan=p), want)
+
+
+def test_conv2d_fxp_accumulator_wraps_under_every_plan(gen):
+    """The rails through every plan and the general kernel: image 0's
+    channel 0 sums 576 products of 2^30, past 2^31."""
+    x, wt = _rails(gen, 2, 16, 16, 64), _rails(gen, 3, 3, 64, 64)
+    x[0] = fixedpoint.INT16_LIM
+    wt[..., 0] = fixedpoint.INT16_LIM
+    want = _conv_fxp_want(x, wt)
+    for p in [None, CONV_GENERAL] + FXP_PLANS:
+        _same(conv2d_fxp_planned(x, wt, plan=p), want)
+
+
 @pytest.mark.parametrize("case", BWD_CASES)
 @pytest.mark.parametrize("method", METHODS)
 def test_conv2d_bwd_fused_fxp_bitwise(gen, case, method):
@@ -488,6 +561,53 @@ def test_vmm_fxp_accumulator_wraps(gen):
     x[0] = fixedpoint.INT16_LIM
     w[:, 0] = fixedpoint.INT16_LIM     # row 0, col 0: 4096 * 2^30
     _same(vmm_fxp(x, w), vmm_ref.vmm_fxp(x, w))
+
+
+def test_vmm_fxp_every_split_bitwise(gen):
+    """Ragged M and N tiles, K = 1000 off the 32-deep chunk: every split
+    (1 to 32 slices) gives the plain version's bits, each one launch."""
+    m, k, n = 33, 1000, 70
+    x = _q(gen, m, k)
+    w = _qw(gen, k, n, scale=k ** -0.5)
+    b = _q(gen, n, scale=4.0)
+    want = fixedpoint.sat_add(vmm_ref.vmm_fxp(x, w), b)
+    for splits in range(1, vmm_max_splits(k) + 1):
+        _same(_launched("vmm_fxp_fwd", lambda: vmm_fxp_with_splits(
+            x, w, b, splits=splits)), want)
+    with pytest.raises(ValueError, match="splits"):
+        vmm_fxp_with_splits(x, w, b, splits=vmm_max_splits(k) + 1)
+
+
+@pytest.mark.parametrize("m,k,n", [(5, 37, 13), (3, 20, 8), (32, 100, 128)])
+def test_vmm_fxp_k_off_the_chunk(gen, m, k, n):
+    """K not a multiple of the chunk (or of 8: scalar x loads)."""
+    x, w, b = _q(gen, m, k), _qw(gen, k, n), _q(gen, n)
+    want = fixedpoint.sat_add(vmm_ref.vmm_fxp(x, w), b)
+    for splits in sorted({1, vmm_max_splits(k)}):
+        _same(vmm_fxp_with_splits(x, w, b, splits=splits), want)
+
+
+def test_vmm_fxp_misaligned_pointers(gen):
+    """x and w one int16 into their storage: scalar loads, every split."""
+    x = _q(gen, 32 * 512 + 1)[1:].view(32, 512)
+    w = _qw(gen, 512 * 128 + 1, scale=0.05)[1:].view(512, 128)
+    want = vmm_ref.vmm_fxp(x, w)
+    for splits in (1, 4, 16):
+        _same(vmm_fxp_with_splits(x, w, splits=splits), want)
+
+
+def test_vmm_fxp_rails_wrap_at_fc0_under_several_splits(gen):
+    """FC0 at the rails: row 0 x column 0 sums 4096 products of 2^30; the
+    slices' int32 partial sums wrap like the whole sum."""
+    x, w = _rails(gen, 32, 4096), _rails(gen, 4096, 128)
+    x[0] = fixedpoint.INT16_LIM
+    w[:, 0] = fixedpoint.INT16_LIM
+    want = vmm_ref.vmm_fxp(x, w)
+    first = vmm_fxp(x, w)
+    _same(first, want)
+    _same(vmm_fxp(x, w), first)
+    for splits in (1, 2, 8, 64, 128):
+        _same(vmm_fxp_with_splits(x, w, splits=splits), want)
 
 
 @pytest.mark.parametrize("method", METHODS)

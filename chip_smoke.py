@@ -40,9 +40,13 @@ Phases (every failed check raises; nothing is caught and carried on):
    bitwise; then the selective scan (B13) at falcon-mamba-7b's explain
    shape (B = 4, S = 72, D = 8192, N = 16; x bf16 and f32) and a ragged
    S = 13, within the JAX package's tolerance (atol 2e-4, rtol 2e-3; one
-   bf16 step for a bf16 y), two (d_tile, chunk) pairs bitwise equal, and
-   the time of its plain backward (autograd over the chunked scan); median
-   kernel, plain and one-library-call times (CUDA events);
+   bf16 step for a bf16 y), two (d_tile, chunk) pairs bitwise equal; then
+   its backward kernel (B13 bwd) at the same shapes against the plain
+   reverse recurrence, each gradient within 1e-4 * max|ref| (one bf16 step
+   more for a bf16 gradient), bitwise equal under both knob pairs and run
+   to run, beside the backward it replaced (autograd over the chunked
+   scan) and autograd over the sequential loop; median kernel, plain and
+   one-library-call times (CUDA events);
 3. engine, full width: saliency / deconvnet / guided explains of a
    [32, 32, 32, 3] batch with top-3 seeds on the card against a CPU twin
    engine on the same parameters (logits, residual bits, cross-replay), and
@@ -77,15 +81,20 @@ Phases (every failed check raises; nothing is caught and carried on):
    2's tolerance of the chunked scan on the same operands, and the
    explain's last-position logits within LM_LOGITS_FACTOR times the
    chunked route's own bf16 error (its distance from the same weights in
-   f32); 64 B13 launches per explain; host and device time per decode
-   step and per explain;
+   f32); one per-token explain's scores through the B13 backward kernel
+   within LM_ROUTE_TOL * max of the same explain through autograd over the
+   chunked scan; 64 B13 and 64 B13 bwd launches per explain, none in
+   prefill or decode; host and device time per decode step and per
+   explain;
 8. lm twin: the same config at depth 2 in f32, batch 2 x 32 tokens, on the
    card against a CPU twin: logits within 1e-5 * max|ref|; the int8
    residual codes equal on MIN_BIT_AGREEMENT of them and one step apart
    elsewhere; scores within 1e-4 * max|scores| per mode of the CPU run on
    the card's int8 codes, and, with exact residuals, of the plain CPU
-   twin (see ``check_lm_twin``); contrastive = ixg(a) - ixg(b) within
-   1e-4 * max.
+   twin (see ``check_lm_twin``), the card's backward through the B13
+   backward kernel and the CPU's through its plain reverse recurrence;
+   contrastive = ixg(a) - ixg(b) within 1e-4 * max; one B13 and one B13
+   bwd launch per layer and explain.
 
 Last, one saliency explain of each CNN path, one training step, one LM
 decode step and one per-token LM explain run under ``torch.profiler``:
@@ -143,6 +152,10 @@ REPS = 50
 # (tests/test_kernels_ssm.py); a bf16 y is a rounding of such a value, so
 # it may sit one bf16 step (at most 2^-7 relative) away.
 SCAN_ATOL, SCAN_RTOL, SCAN_BF16_RTOL = 2e-4, 2e-3, 2.0 ** -7
+# B13's backward against its plain version: each gradient within
+# SCAN_GRAD_TOL * max|ref| (f32 sums over up to D = 8192 channels and 72
+# steps, in another order), plus one bf16 step where the gradient is bf16.
+SCAN_GRAD_TOL = 1e-4
 # Phase 7: falcon-mamba-7b at full width and depth, bf16: 4 prompts of 64
 # tokens, 8 greedy tokens, so each per-token explain runs over S = 72.
 LM_ARCH, LM_BATCH, LM_PROMPT, LM_NEW = "falcon-mamba-7b", 4, 64, 8
@@ -160,10 +173,15 @@ LM_ARCH, LM_BATCH, LM_PROMPT, LM_NEW = "falcon-mamba-7b", 4, 64, 8
 # LM_LINEARITY_TOL * max(|ixg a|, |ixg b|).
 LM_LOGITS_FACTOR = 2.0
 LM_LINEARITY_TOL = 5e-2
+# Phase 7: a per-token explain's scores through the B13 backward kernel
+# against the same explain through autograd over the chunked scan: the
+# same bf16 stack, its cotangents rounded at other places, so within the
+# bound tests/test_torch_lm.py holds bf16 scores to.
+LM_ROUTE_TOL = 5e-2
 # Phase 8: two layers at full width in f32 against a CPU twin.
 LM_TWIN_BATCH, LM_TWIN_SEQ = 2, 32
 
-KERNELS = {   # counter -> (C source, replaced TPU kernel def)
+KERNELS = {   # counter -> (C source, replaced TPU kernel def or function)
     "conv2d_fwd": ("src/repro_torch/csrc/conv_fwd.cuh",
                    "src/repro/kernels/conv2d/conv2d.py:66"),
     "relu_fwd": ("src/repro_torch/csrc/relu_mask.cu",
@@ -190,6 +208,9 @@ KERNELS = {   # counter -> (C source, replaced TPU kernel def)
                    "src/repro/kernels/pool/pool.py:97"),
     "selective_scan": ("src/repro_torch/csrc/ssm_scan.cu",
                        "src/repro/kernels/ssm_scan/ssm_scan.py:56"),
+    # no Pallas kernel: the JAX package's backward is jax.vjp of its loop
+    "selective_scan_bwd": ("src/repro_torch/csrc/ssm_scan_bwd.cu",
+                           "src/repro/kernels/ssm_scan/ops.py:40"),
 }
 #: The int16 instances of B2/B3 (fxp16 path) and of B12: timed and checked
 #: on their own, launched under the ``relu_fwd`` / ``maxpool_fwd`` /
@@ -203,12 +224,14 @@ def fail(msg: str):
 
 #: Entry functions of the kernels redesigned for this card (the conv
 #: forward of B1 and B7, the FC forwards of B4 and B9, the fused conv
-#: backward of B5 and B8), whose registers and spills phase 1 reports.
+#: backward of B5 and B8, the scan B13 and its backward), whose registers
+#: and spills phase 1 reports.
 REDESIGNED = ("conv_igemm_kernel", "vmm_splitk_kernel",
               "vmm_splitk_sum_kernel", "conv_bwd_igemm_kernel",
-              "vmm_fxp_splitk_kernel", "vmm_fxp_splitk_sum_kernel")
+              "vmm_fxp_splitk_kernel", "vmm_fxp_splitk_sum_kernel",
+              "selective_scan_kernel", "selective_scan_bwd_kernel")
 #: Itanium mangling of the element types a template is instantiated for.
-MANGLED_TYPES = {"f": "float", "s": "int16_t"}
+MANGLED_TYPES = {"f": "float", "s": "int16_t", "13__nv_bfloat16": "bf16"}
 
 
 def kernel_resources(ptxas_log: str, names):
@@ -231,7 +254,7 @@ def kernel_resources(ptxas_log: str, names):
             for name in names:
                 if re.search(rf"\d{name}(?:I|E|v|$)", entry):
                     targs = [MANGLED_TYPES[t] for t in re.findall(
-                        rf"{name}I([fs])", entry)]
+                        rf"{name}I(f|s|13__nv_bfloat16)", entry)]
                     targs += re.findall(r"Li(\d+)E", entry)
                     label = name + (f"<{','.join(targs)}>" if targs else "")
                     found.append((label, int(m.group(1))) + spill)
@@ -306,6 +329,8 @@ def _category(kernel_name: str) -> str:
     """A kernel's family, by its name: our kernels, cuBLAS/CUTLASS matrix
     products, or PyTorch's own (elementwise, reductions, copies)."""
     n = kernel_name.lower()
+    if "selective_scan_bwd" in n:
+        return "B13 bwd"
     if "selective_scan" in n:
         return "B13"
     if any(k in n for k in ("conv_kernel", "conv_igemm_kernel",
@@ -1243,20 +1268,74 @@ def _scan_close(got, want, what="selective_scan"):
     return d.max().item()
 
 
+def _grad_close(got, want, what="selective_scan_bwd"):
+    """|got - want| <= SCAN_GRAD_TOL * max|want| elementwise, plus one bf16
+    step (2^-7 * |want|) for a bf16 gradient; returns the largest
+    |got - want|."""
+    g, w = got.float(), want.float()
+    bound = SCAN_GRAD_TOL * w.abs().max()
+    if got.dtype == torch.bfloat16:
+        bound = bound + SCAN_BF16_RTOL * w.abs()
+    d = (g - w).abs()
+    if not bool((d <= bound).all()):
+        fail(f"{what}: max|d| {d.max().item():.3e} beyond {SCAN_GRAD_TOL} "
+             f"x max|ref| {w.abs().max().item():.3e}")
+    return d.max().item()
+
+
+class _ChunkedGradScan(torch.autograd.Function):
+    """B13's forward with the backward it had before its kernel: autograd
+    over ``models.mamba.chunked_scan`` on the saved inputs.  Only for
+    comparison: phase 2 times it, phase 7 holds the kernel backward's
+    scores against it.  The port's main path never runs it."""
+
+    @staticmethod
+    def forward(ctx, dt, x, bmat, cmat, a, h0, d_tile, chunk):
+        from repro_torch.kernels.ssm_scan import ssm_scan
+        ctx.chunk = chunk
+        ctx.save_for_backward(dt, x, bmat, cmat, a, h0)
+        return ssm_scan.selective_scan(dt, x, bmat, cmat, a, h0,
+                                       d_tile=d_tile, chunk=chunk)
+
+    @staticmethod
+    def backward(ctx, gy, gh):
+        from repro_torch.models import mamba
+        need = ctx.needs_input_grad[:6]
+        with torch.enable_grad():
+            args = [t.detach().requires_grad_(w)
+                    for t, w in zip(ctx.saved_tensors, need)]
+            y, h_last = mamba.chunked_scan(*args, chunk=ctx.chunk)
+            grads = iter(torch.autograd.grad(
+                (y, h_last), [t for t, w in zip(args, need) if w],
+                (gy, gh), allow_unused=True))
+        return tuple(next(grads) if w else None for w in need) + (None, None)
+
+
+def _chunked_grad_scan(dt, x, bmat, cmat, a, h0, *, d_tile=None,
+                       chunk=None):
+    """``ops.selective_scan``'s signature over :class:`_ChunkedGradScan`."""
+    return _ChunkedGradScan.apply(dt, x, bmat, cmat, a, h0,
+                                  int(d_tile or 256), int(chunk or 64))
+
+
 def check_kernels_scan(kc: KernelCheck):
     """B13 at falcon-mamba-7b's explain shape (B = 4 prompts, S = 72, D =
     8192, N = 16; x bf16 on the main path, f32 beside it), a ragged S = 13,
-    and two knob pairs that must agree bit for bit.  No PyTorch call
-    computes the scan: the library column is none.  The plain backward of
-    the scan (autograd over the chunked scan, ``ssm_scan/ops.py``) is timed
-    beside it."""
-    from repro_torch.kernels.ssm_scan import ops as scan_ops
+    and two knob pairs that must agree bit for bit; then B13's backward
+    kernel on the same inputs: on the main path's gradients (dt, x, B, C;
+    h_last unused, so no gh) and, beside it, all six with a gh, against the
+    plain reverse recurrence, bitwise under both knob pairs and run to run.
+    No PyTorch call computes either: the library column is none.  The
+    backward the kernel replaced (autograd over the chunked scan) and
+    autograd over the sequential loop are timed beside it."""
     from repro_torch.kernels.ssm_scan import ref as scan_ref
-    from repro_torch.kernels.ssm_scan.ssm_scan import selective_scan
+    from repro_torch.kernels.ssm_scan.ssm_scan import (selective_scan,
+                                                       selective_scan_bwd)
 
     gen = torch.Generator(device="cuda").manual_seed(1357)
     b, d, n = LM_BATCH, 8192, 16
     tiles = ((d, 128), (256, 64))     # the explain's knobs, the default's
+    main_needs = (True, True, True, True, False, False)
 
     def inputs(s, dtype):
         dt = F.softplus(randn(gen, b, s, d) - 4.6)      # as dt_bias sets
@@ -1285,27 +1364,64 @@ def check_kernels_scan(kc: KernelCheck):
                   lambda: selective_scan(*args, d_tile=d, chunk=128),
                   lambda: scan_ref.selective_scan(*args), nbytes,
                   b * s * d * n, rate=kc.mufu_per_s, close=_scan_close)
+
+        # the backward: the main path's gradients, then all six with a gh
+        gy = randn(gen, b, s, d).to(dtype)
+        gh = randn(gen, b, d, n)
+        for needs, g_h in ((main_needs, None), (None, gh)):
+            every = needs is None
+
+            def bwd(dtl=d, ck=128, needs=needs, g_h=g_h):
+                return selective_scan_bwd(*args, gy, g_h, d_tile=dtl,
+                                          chunk=ck, needs=needs)
+
+            def plain(needs=needs, g_h=g_h):
+                return scan_ref.selective_scan_bwd(*args, gy, g_h, needs)
+
+            outs = [bwd(dtl, ck) for dtl, ck in tiles] + [bwd()]
+            torch.cuda.synchronize()
+            for other in outs[1:]:
+                if not all(torch.equal(g, g0) for g, g0 in zip(other, outs[0])
+                           if g0 is not None):
+                    fail(f"selective_scan_bwd {case}: knobs {tiles} or a "
+                         f"second run change the bits")
+            want = plain()
+            pick = [i for i, g in enumerate(outs[0]) if g is not None]
+            # the forward's operands, gy in place of y, gh in place of
+            # h_last where given, and the gradients asked for
+            nb_bwd = (nbytes - (4 * b * d * n if g_h is None else 0)
+                      + sum(outs[0][i].numel() * outs[0][i].element_size()
+                            for i in pick))
+            kc.record("selective_scan_bwd",
+                      case + (" all six, gh" if every else ""),
+                      main and not every,
+                      tuple(outs[0][i] for i in pick),
+                      tuple(want[i] for i in pick), False, bwd, plain,
+                      nb_bwd, b * s * d * n,
+                      rate=kc.mufu_per_s, close=_grad_close)
         if main:
             leaves = [t.detach().requires_grad_() for t in args]
-            y, _ = scan_ops.selective_scan(*leaves, d_tile=d, chunk=128)
-            gy = randn(gen, *y.shape).to(y.dtype)
+            # the backward B13 had before its kernel (recompute + autograd
+            # over the chunked scan), and the JAX package's form
+            y, _ = _ChunkedGradScan.apply(*leaves, d, 128)
 
             def backward():
                 torch.autograd.grad(y, leaves, gy, retain_graph=True)
 
             kc.scan_backward_ms = _span_ms(backward)
-            # the JAX package's form: autograd over the sequential loop
             y_loop, _ = scan_ref.selective_scan(*leaves)
 
             def backward_loop():
                 torch.autograd.grad(y_loop, leaves, gy, retain_graph=True)
 
             kc.scan_backward_loop_ms = _span_ms(backward_loop)
-            print(f"  {'(plain backward)':20s} {case:34s} autograd over the "
-                  f"chunked scan (the port's): {kc.scan_backward_ms:.4f} ms "
-                  f"per layer; over the sequential loop (the JAX "
-                  f"package's form): {kc.scan_backward_loop_ms:.4f} ms")
-    print(f"  selective_scan knobs {tiles[0]} and {tiles[1]}: bitwise equal")
+            print(f"  {'(before the kernel)':20s} {case:34s} autograd over "
+                  f"the chunked scan (the port's until now): "
+                  f"{kc.scan_backward_ms:.4f} ms per layer; over the "
+                  f"sequential loop (the JAX package's form): "
+                  f"{kc.scan_backward_loop_ms:.4f} ms")
+    print(f"  selective_scan and selective_scan_bwd knobs {tiles[0]} and "
+          f"{tiles[1]}: bitwise equal (the backward also run to run)")
 
 
 def _span_ms(fn, reps: int = 5) -> float:
@@ -1735,7 +1851,8 @@ def check_lm(launches, to_profile):
           f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB on the card, "
           f"drawn in {init_s:.1f} s")
     totals = launches.setdefault("lm", {})
-    per_explain = {"selective_scan": cfg.n_layers}
+    per_explain = {"selective_scan": cfg.n_layers,
+                   "selective_scan_bwd": cfg.n_layers}
 
     # greedy decode, twice: no B13 launch, the same tokens
     res, rose = _count(lambda: lm.decode(params, cfg, prompts,
@@ -1752,7 +1869,7 @@ def check_lm(launches, to_profile):
     # one contrastive explain per generated token, S = 72
     scores, rose = _count(lambda: lm.explain_generated(params, cfg, res),
                           totals)
-    _expect(rose, {"selective_scan": cfg.n_layers * LM_NEW},
+    _expect(rose, {k: v * LM_NEW for k, v in per_explain.items()},
             "lm explain_generated")
     _finite(scores, "lm per-token scores", (LM_BATCH, LM_NEW, s_full))
     for t in range(LM_NEW):
@@ -1767,7 +1884,8 @@ def check_lm(launches, to_profile):
     (sa, sb), rose = _count(lambda: (
         ixg(params, res.tokens, pos, res.tokens[:, pos + 1], None),
         ixg(params, res.tokens, pos, res.runners_up[:, t], None)), totals)
-    _expect(rose, {"selective_scan": 2 * cfg.n_layers}, "lm ixg explains")
+    _expect(rose, {k: 2 * v for k, v in per_explain.items()},
+            "lm ixg explains")
     lin_err = ((scores[:, t] - (sa - sb)).abs().max().item()
                / max(sa.abs().max().item(), sb.abs().max().item()))
     if not lin_err <= LM_LINEARITY_TOL:
@@ -1806,8 +1924,9 @@ def check_lm(launches, to_profile):
     # times: a decode step, a per-token explain, an engine explain
     cache = tf.init_cache(cfg, LM_BATCH, s_full, device="cuda")
     with torch.no_grad():
-        _, cache = tf.prefill(params, cfg, {"tokens": res.tokens[:, :-1]},
-                              cache)
+        (_, cache), rose = _count(lambda: tf.prefill(
+            params, cfg, {"tokens": res.tokens[:, :-1]}, cache), {})
+    _expect(rose, {}, "lm prefill")
     last = res.tokens[:, -1:]
 
     def step():
@@ -1817,8 +1936,16 @@ def check_lm(launches, to_profile):
     contrastive = lm.make_token_explain(cfg, mode="contrastive")
 
     def token_explain():
-        contrastive(params, res.tokens, pos, res.tokens[:, pos + 1],
-                    res.runners_up[:, t])
+        return contrastive(params, res.tokens, pos, res.tokens[:, pos + 1],
+                           res.runners_up[:, t])
+
+    # the same explain through the backward B13 had before its kernel
+    route_err = _rel_err(token_explain(), _through_chunked_grad(
+        token_explain))
+    if not route_err <= LM_ROUTE_TOL:
+        fail(f"lm: per-token scores through the B13 backward kernel vs "
+             f"autograd over the chunked scan: {route_err:.3e} of max, "
+             f"beyond {LM_ROUTE_TOL}")
 
     def engine_explain():
         eng_ixg.explain_tokens({"tokens": prompts})
@@ -1843,17 +1970,33 @@ def check_lm(launches, to_profile):
     to_profile.append(("lm per-token explain", token_explain,
                        times["per-token explain (S=72)"]["device_ms"]))
     print(f"  lm: decode x2 equal, {LM_NEW} per-token explains + 2 ixg + "
-          f"5 engine explains, {cfg.n_layers} B13 launches each and none "
-          f"in decode; causal zeros exact; contrastive vs ixg difference "
-          f"{lin_err:.2e}; B13 vs the chunked scan in each layer's "
+          f"5 engine explains, {cfg.n_layers} B13 and {cfg.n_layers} B13 "
+          f"bwd launches each and none in prefill or decode; causal zeros "
+          f"exact; contrastive vs ixg difference "
+          f"{lin_err:.2e}; scores through the B13 backward kernel vs "
+          f"autograd over the chunked scan {route_err:.2e} of max; B13 vs "
+          f"the chunked scan in each layer's "
           f"forward: max|dy| {max(layer_errs):.2e}; B13 vs chunked logits "
           f"{logit_err:.2e} of max (chunked vs f32 weights {chunk_err:.2e}; "
           f"argmax agrees on {same_argmax:.2f})")
     return dict(init_s=init_s, n_params=n_params, linearity_err=lin_err,
+                route_err=route_err,
                 layer_errs=layer_errs, logits_vs_chunked=logit_err,
                 chunked_vs_f32=chunk_err, argmax_agree=same_argmax,
                 times=times, engine=results,
                 peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+
+
+def _through_chunked_grad(fn):
+    """``fn()`` with the scan's backward swapped for autograd over the
+    chunked scan (:class:`_ChunkedGradScan`), for comparison only."""
+    from repro_torch.kernels.ssm_scan import ops as scan_ops
+    real = scan_ops.selective_scan
+    scan_ops.selective_scan = _chunked_grad_scan
+    try:
+        return fn()
+    finally:
+        scan_ops.selective_scan = real
 
 
 def _b13_layer_errs(params, cfg, tokens):
@@ -1967,6 +2110,8 @@ def check_lm_twin(launches):
     toks = torch.randint(0, cfg.vocab, (LM_TWIN_BATCH, LM_TWIN_SEQ),
                          generator=torch.Generator().manual_seed(2))
     totals = launches.setdefault("lm_twin", {})
+    per_explain = {"selective_scan": cfg.n_layers,
+                   "selective_scan_bwd": cfg.n_layers}
     results = {}
 
     def engines(c, method):
@@ -1981,7 +2126,7 @@ def check_lm_twin(launches):
         eng, twin = engines(cfg, method)
         ((lg, sc), codes), rose = _count(lambda: _int8_codes(
             lambda: eng.explain_tokens({"tokens": toks}, mode=mode)), totals)
-        _expect(rose, {"selective_scan": cfg.n_layers}, what)
+        _expect(rose, per_explain, what)
         (lg_c, sc_c), codes_c = _int8_codes(
             lambda: twin.explain_tokens({"tokens": toks}, mode=mode))
         if len(codes) != len(codes_c):
@@ -2016,8 +2161,7 @@ def check_lm_twin(launches):
             eng, twin = engines(exact, method)
             (_, sc_e), rose = _count(lambda: eng.explain_tokens(
                 {"tokens": toks}, mode=mode), totals)
-            _expect(rose, {"selective_scan": cfg.n_layers},
-                    f"{what} exact")
+            _expect(rose, per_explain, f"{what} exact")
             eerr = _rel_err(sc_e.cpu(), twin.explain_tokens(
                 {"tokens": toks}, mode=mode)[1])
             if not eerr <= REPLAY_TOL:
@@ -2053,8 +2197,8 @@ PATH_KERNELS = {"f32": tuple(PER_EXPLAIN["f32"]),
                 "vjp_fused": tuple(PER_EXPLAIN_VJP["vjp_fused"]),
                 "vjp_unfused": tuple(PER_EXPLAIN_VJP["vjp_unfused"]),
                 "train": tuple(PER_TRAIN_STEP),
-                "lm": ("selective_scan",),
-                "lm_twin": ("selective_scan",)}
+                "lm": ("selective_scan", "selective_scan_bwd"),
+                "lm_twin": ("selective_scan", "selective_scan_bwd")}
 #: The path whose launches the kernel JSON reports for each kernel: the
 #: first that runs it.
 KERNEL_PATH = {k: next(p for p in PATH_KERNELS if k in PATH_KERNELS[p])
@@ -2119,7 +2263,7 @@ def main() -> int:
             if ("Compiling entry" in line or "registers" in line
                     or "spill stores" in line):
                 print("   ", line.strip())
-        print("  redesigned B1/B4/B5/B7/B8/B9 kernels (ptxas): " + "; ".join(
+        print("  redesigned B1/B4/B5/B7/B8/B9/B13 kernels (ptxas): " + "; ".join(
             f"{name} {regs} registers, spill stores {st} B, loads {ld} B"
             for name, regs, st, ld in kernel_resources(text, REDESIGNED)))
 

@@ -66,22 +66,29 @@ SIGNATURES = {
     "repro_relu_bwd": [_P, _P, _P, _I, _I, _I, _P],
     "repro_unpool_bwd": [_P, _P, _P, _I, _I, _I, _I, _P],
     "repro_unpool_bwd_i16": [_P, _P, _P, _I, _I, _I, _I, _P],
-    # LM token attribution: B13, x in f32 or bf16
+    # LM token attribution: B13, x in f32 or bf16 (dt, x, B, C, A, h0, y,
+    # h_last, batch, s, d, n, channels a block, staging chunk)
     "repro_selective_scan": [_P] * 8 + [_I] * 6 + [_P],
     "repro_selective_scan_bf16": [_P] * 8 + [_I] * 6 + [_P],
+    # its backward: dt, x, B, C, A, h0, gy, gh, the six gradients (null:
+    # not asked for), the dB / dC / dA workspaces, batch, s, d, n, window
+    "repro_selective_scan_bwd": [_P] * 17 + [_I] * 5 + [_P],
+    "repro_selective_scan_bwd_bf16": [_P] * 17 + [_I] * 5 + [_P],
 }
 
 #: Launches per kernel wrapper since the last :func:`reset_launches`.  A
 #: wrapper adds one where it launches its kernel and nowhere else, so a run
 #: can show that its path went through the kernels.  The int16 instances of
 #: ReLU+mask, pool and unpool count under ``relu_fwd``, ``maxpool_fwd`` and
-#: ``unpool_bwd``, both element types of the scan under ``selective_scan``.
+#: ``unpool_bwd``, both element types of the scan under ``selective_scan``
+#: and of its backward under ``selective_scan_bwd`` (one entry point that
+#: runs the reverse scan and the partial sums counts once).
 LAUNCHES: Dict[str, int] = {
     "conv2d_fwd": 0, "relu_fwd": 0, "maxpool_fwd": 0, "vmm_fwd": 0,
     "conv2d_bwd_fused": 0, "vmm_bwd_fused": 0,
     "conv2d_fxp_fwd": 0, "conv2d_bwd_fused_fxp": 0, "vmm_fxp_fwd": 0,
     "vmm_bwd_fused_fxp": 0, "relu_bwd": 0, "unpool_bwd": 0,
-    "selective_scan": 0,
+    "selective_scan": 0, "selective_scan_bwd": 0,
 }
 
 _LIB: Optional[ctypes.CDLL] = None

@@ -1,13 +1,13 @@
 """The selective scan as an autograd Function (``repro``'s ``custom_vjp``).
 
 Forward: the B13 kernel (:func:`ssm_scan.selective_scan`; its plain
-version on the CPU).  Backward: recompute from the saved inputs and
-differentiate a plain form of the same recurrence with autograd, as
-``repro.kernels.ssm_scan.ops`` does (``jax.vjp`` of its reference).  The
-form differentiated here is the model's chunked doubling scan
-(``models.mamba.chunked_scan``: about log2(chunk) vectorised steps per
-chunk, not S sequential ones); the JAX package has no backward kernel for
-B13 either, and neither has the port yet (ROADMAP).
+version on the CPU).  Backward: the B13 backward kernel
+(:func:`ssm_scan.selective_scan_bwd`: the reverse recurrence over
+recomputed states; on the CPU its plain version
+:func:`ref.selective_scan_bwd`, step by step), the port of
+``repro.kernels.ssm_scan.ops._bwd`` (``jax.vjp`` of the reference loop).
+Only the gradients that autograd asks for are computed, each returned in
+its input's dtype.
 
 ``d_tile``/``chunk`` default to the JAX package's kernel defaults.
 """
@@ -24,23 +24,23 @@ _DEFAULT_CHUNK = 64
 class _SelectiveScan(torch.autograd.Function):
     @staticmethod
     def forward(ctx, dt, x, bmat, cmat, a, h0, d_tile, chunk):
-        ctx.chunk = chunk
+        ctx.d_tile, ctx.chunk = d_tile, chunk
         ctx.save_for_backward(dt, x, bmat, cmat, a, h0)
+        ctx.set_materialize_grads(False)      # an unused h_last reads nothing
         return ssm_scan.selective_scan(dt, x, bmat, cmat, a, h0,
                                        d_tile=d_tile, chunk=chunk)
 
     @staticmethod
     def backward(ctx, gy, gh):
-        from repro_torch.models import mamba
-        need = ctx.needs_input_grad[:6]
-        with torch.enable_grad():
-            args = [t.detach().requires_grad_(w)
-                    for t, w in zip(ctx.saved_tensors, need)]
-            y, h_last = mamba.chunked_scan(*args, chunk=ctx.chunk)
-            grads = iter(torch.autograd.grad(
-                (y, h_last), [t for t, w in zip(args, need) if w],
-                (gy, gh), allow_unused=True))
-        return tuple(next(grads) if w else None for w in need) + (None, None)
+        inputs = ctx.saved_tensors
+        x = inputs[1]
+        if gy is None:
+            gy = torch.zeros(x.shape, dtype=x.dtype, device=x.device)
+        grads = ssm_scan.selective_scan_bwd(
+            *inputs, gy, gh, d_tile=ctx.d_tile, chunk=ctx.chunk,
+            needs=ctx.needs_input_grad[:6])
+        return tuple(None if g is None else g.to(t.dtype)
+                     for g, t in zip(grads, inputs)) + (None, None)
 
 
 def selective_scan(dt, x, bmat, cmat, a, h0, *, d_tile=None, chunk=None):

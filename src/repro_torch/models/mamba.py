@@ -5,8 +5,8 @@ The full-sequence recurrence ``h_t = Abar_t * h_{t-1} + Bbar_t x_t``
 
 * one token (``s == 1``, decode): the O(1) update of the carried state;
 * ``use_pallas`` or a ``scan_tile``: the B13 kernel
-  (``kernels/ssm_scan``), whose backward recomputes and differentiates the
-  chunked scan below — the LM attribution path;
+  (``kernels/ssm_scan``), whose backward is the B13 backward kernel (the
+  reverse recurrence over recomputed states) — the LM attribution path;
 * otherwise the chunked scan: fixed-size chunks, each a log-step doubling
   scan (torch has no ``associative_scan``) with the discretization and the
   ``C . h`` contraction inside the chunk, the state carried between

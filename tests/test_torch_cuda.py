@@ -15,8 +15,12 @@ path, which must equal their plain
 versions bit for bit (also where the int32 accumulator wraps) — for the
 gate and unpool kernels of the autograd paths (bitwise), with those paths
 end to end against the CPU, and for the selective scan (B13: ragged S, D
-off the block size, N < 16, f32 and bf16 x, the knobs bitwise) with
-falcon-mamba's SMOKE LM against the CPU.
+off the block size, N < 16, f32 and bf16 x, the knobs bitwise) and its
+backward kernel (all six gradients within 1e-4 * max|ref| of the plain
+reverse recurrence, N in {1, 4, 7, 8, 16}, ragged S, several windows,
+strided B/C, gh absent, subsets of the gradients, the knobs and a second
+run bitwise, the rejects, and the autograd Function against the CPU)
+with falcon-mamba's SMOKE LM against the CPU.
 Every test needs a CUDA device and skips without one.  This file imports
 neither JAX nor the JAX package, so on a machine without JAX run it
 without the suite's conftest:
@@ -863,7 +867,7 @@ def test_lm_explain_on_card_matches_cpu_twin(gen, dtype):
                          generator=torch.Generator().manual_seed(1))
     reset_launches()
     res = lm.decode(card, cfg, toks, max_new=3)
-    assert LAUNCHES["selective_scan"] == 0
+    assert LAUNCHES["selective_scan"] == LAUNCHES["selective_scan_bwd"] == 0
     res_c = lm.decode(params, cfg, toks, max_new=3)
     if dtype == "float32":
         assert torch.equal(res.tokens.cpu(), res_c.tokens)
@@ -871,6 +875,7 @@ def test_lm_explain_on_card_matches_cpu_twin(gen, dtype):
         res_c.tokens.cuda(), res_c.runners_up.cuda(), res_c.prompt_len))
     torch.cuda.synchronize()
     assert LAUNCHES["selective_scan"] == 3 * cfg.n_layers
+    assert LAUNCHES["selective_scan_bwd"] == 3 * cfg.n_layers
     sc_c = lm.explain_generated(params, cfg, res_c)
     tol = 1e-4 if dtype == "float32" else 5e-2
     err = (sc.cpu() - sc_c).abs().max().item()
@@ -887,3 +892,140 @@ def test_lm_explain_on_card_matches_cpu_twin(gen, dtype):
             1e-5 if dtype == "float32" else 1e-2) * lg_c.abs().max().item()
         assert (s.cpu() - s_c).abs().max().item() <= tol * \
             s_c.abs().max().item()
+
+
+# -- B13 backward: the reverse scan of the LM explain's backward ---------------
+
+SCAN_GRAD_TOL = 1e-4                   # x max|ref|, per gradient
+SCAN_GRADS = ("ddt", "dx", "dB", "dC", "dA", "dh0")
+
+
+def _scan_bwd_inputs(gen, b, s, d, n, dtype=torch.float32):
+    args = _scan_inputs(gen, b, s, d, n, dtype)
+    gy = _randn(gen, b, s, d).to(dtype)
+    return args, gy, _randn(gen, b, d, n)
+
+
+def _grads_close(got, want):
+    """Each gradient within SCAN_GRAD_TOL * max|ref|, plus one bf16 step
+    (2^-7 relative) where the gradient is bf16."""
+    torch.cuda.synchronize()
+    for name, g, w in zip(SCAN_GRADS, got, want):
+        if w is None:
+            assert g is None, name
+            continue
+        assert g.shape == w.shape and g.dtype == w.dtype, name
+        d = (g.float() - w.float()).abs()
+        bound = SCAN_GRAD_TOL * w.float().abs().max()
+        if g.dtype == torch.bfloat16:
+            bound = bound + SCAN_BF16_RTOL * w.float().abs()
+        assert bool((d <= bound).all()), (name, d.max().item())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("b,s,d,n,d_tile,chunk", [
+    (1, 8, 16, 4, 16, 16),             # one block, mostly dead channels
+    (2, 13, 200, 16, 200, 5),          # ragged S and window; D % 32 != 0
+    (2, 33, 256, 7, 64, 64),           # N = 7: B/C rows read by scalars
+    (2, 20, 96, 8, 96, 16),            # N = 8, as falcon-mamba SMOKE
+    (2, 40, 64, 4, 64, 8),             # N = 4, one segment a window
+    (1, 300, 384, 16, 384, 128),       # three windows of 128 steps
+    (3, 1, 8, 1, 8, 4),                # S = 1, N = 1, D < a warp
+])
+def test_selective_scan_bwd(gen, b, s, d, n, d_tile, chunk, dtype):
+    from repro_torch.kernels.ssm_scan import ref as scan_ref
+    from repro_torch.kernels.ssm_scan.ssm_scan import selective_scan_bwd
+    args, gy, gh = _scan_bwd_inputs(gen, b, s, d, n, dtype)
+    got = _launched("selective_scan_bwd", lambda: selective_scan_bwd(
+        *args, gy, gh, d_tile=d_tile, chunk=chunk))
+    _grads_close(got, scan_ref.selective_scan_bwd(*args, gy, gh))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_selective_scan_bwd_knobs_and_runs_keep_the_bits(gen, dtype):
+    from repro_torch.kernels.ssm_scan.ssm_scan import selective_scan_bwd
+    args, gy, gh = _scan_bwd_inputs(gen, 2, 77, 512, 16, dtype)
+    outs = [selective_scan_bwd(*args, gy, gh, d_tile=dtl, chunk=ck)
+            for dtl, ck in ((512, 128), (256, 64), (32, 7), (512, 1),
+                            (512, 128))]
+    torch.cuda.synchronize()
+    for out in outs[1:]:
+        for g, g0 in zip(out, outs[0]):
+            assert torch.equal(g, g0)
+
+
+@pytest.mark.parametrize("needs", [(False, True, False, False, False, False),
+                                   (True, True, True, True, False, False),
+                                   (False, False, False, True, True, False),
+                                   (False, False, False, False, False, True)])
+def test_selective_scan_bwd_computes_what_is_asked(gen, needs):
+    """A subset of the gradients: None elsewhere, the full call's bits on
+    what is asked."""
+    from repro_torch.kernels.ssm_scan.ssm_scan import selective_scan_bwd
+    args, gy, gh = _scan_bwd_inputs(gen, 2, 19, 96, 16, torch.bfloat16)
+    full = selective_scan_bwd(*args, gy, gh, d_tile=96, chunk=128)
+    part = selective_scan_bwd(*args, gy, gh, d_tile=96, chunk=128,
+                              needs=needs)
+    torch.cuda.synchronize()
+    for w, g, g0 in zip(needs, part, full):
+        assert (g is None) != w
+        if w:
+            assert torch.equal(g, g0)
+
+
+def test_selective_scan_bwd_strided_operands_and_no_gh(gen):
+    """B and C as views of one projection; gh None (h_last unused)."""
+    from repro_torch.kernels.ssm_scan import ref as scan_ref
+    from repro_torch.kernels.ssm_scan.ssm_scan import selective_scan_bwd
+    (dt, x, _, _, a, h0), gy, _ = _scan_bwd_inputs(gen, 2, 9, 64, 8)
+    bc = _randn(gen, 2, 9, 3 + 16)
+    bm, cm = bc[..., 3:11], bc[..., 11:]
+    got = selective_scan_bwd(dt, x, bm, cm, a, h0, gy, None, d_tile=64,
+                             chunk=4)
+    _grads_close(got, scan_ref.selective_scan_bwd(dt, x, bm, cm, a, h0, gy))
+
+
+def test_selective_scan_bwd_rejects_what_it_cannot_hold(gen):
+    from repro_torch.kernels.ssm_scan.ssm_scan import selective_scan_bwd
+    args, gy, gh = _scan_bwd_inputs(gen, 1, 4, 32, 17)
+    with pytest.raises(ValueError, match="N <= 16"):
+        selective_scan_bwd(*args, gy, gh, d_tile=32, chunk=4)
+    args, gy, gh = _scan_bwd_inputs(gen, 1, 4, 32, 4)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        selective_scan_bwd(*args, gy, gh.cpu(), d_tile=32, chunk=4)
+    with pytest.raises(TypeError, match="gy must be"):
+        selective_scan_bwd(*args, gy.to(torch.bfloat16), gh, d_tile=32,
+                           chunk=4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_scan_function_backward_on_card_matches_cpu(gen, dtype):
+    """ops.selective_scan through autograd: the kernel backward on the card
+    (one launch), the plain reverse recurrence on the CPU, B and C bf16
+    views as mamba_core passes them; each gradient in its input's dtype."""
+    from repro_torch.kernels.ssm_scan import ops as scan_ops
+    (dt, x, _, _, a, h0), gy, _ = _scan_bwd_inputs(gen, 2, 21, 128, 16,
+                                                   dtype)
+    bc = _randn(gen, 2, 21, 4 + 32).to(torch.bfloat16)
+    grads = []
+    for dev in ("cuda", "cpu"):
+        leaves = [t.to(dev).detach().requires_grad_(w) for t, w in zip(
+            (dt, x, bc, a, h0), (True, True, True, False, False))]
+        bm, cm = leaves[2][..., 4:20], leaves[2][..., 20:]
+        y, _ = scan_ops.selective_scan(leaves[0], leaves[1], bm, cm,
+                                       leaves[3], leaves[4], d_tile=128,
+                                       chunk=128)
+        before = LAUNCHES["selective_scan_bwd"]
+        grads.append(torch.autograd.grad(y, leaves[:3], gy.to(dev)))
+        if dev == "cuda":
+            assert LAUNCHES["selective_scan_bwd"] == before + 1
+    for g, g_c, t in zip(*grads, (dt, x, bc)):
+        assert g.dtype == t.dtype
+        err = (g.float().cpu() - g_c.float()).abs()
+        bound = SCAN_GRAD_TOL * g_c.float().abs().max()
+        if g.dtype == torch.bfloat16:
+            bound = bound + SCAN_BF16_RTOL * g_c.float().abs()
+        assert bool((err <= bound).all())

@@ -15,27 +15,33 @@ depth, and check them against the CPU.
 split) and B1 (a grid of tile plans, all bitwise equal) beside the library
 call at the main-path and vjp shapes, of the fused conv backward (B5 at
 S = 3 and at the vjp path's S = 1, B8 at S = 3: a grid of tile plans, all
-bitwise equal, beside the general kernel), and of the int16 forwards (B7:
+bitwise equal, beside the general kernel), of the int16 forwards (B7:
 a grid of tile plans at the four Table III layers beside the general
 kernel; B9: every K split at FC0; all bitwise equal to the plain version),
+and of the fused FC backward (B6 and B10 at FC0 with S = 3 and 1 and at
+FC1 with S = 3: every plan of ``vmm_bwd_candidates`` beside the general
+kernel, bitwise equal to it in f32 and to the plain version in int16),
 and stops.
 
 Phases (every failed check raises; nothing is caught and carried on):
 
 1. device: card name, ``nvidia-smi`` name, power limit and maximum SM
    clock, TF32 off for the plain versions, kernel build time, and the
-   registers and spills ``ptxas`` reports for the redesigned B1/B4/B5/B7/
-   B8/B9 kernels;
+   registers and spills ``ptxas`` reports for the redesigned B1/B4/B5/B6/
+   B7/B8/B9/B10/B13 kernels;
 2. kernels at batch 32, S = 3 seeds, against their plain versions: the f32
    kernels B1-B6 (bitwise for ReLU+mask and pool+argmax, within
    1e-5 * max|ref| for the dots; B1, B4 and B5 also launched again on the
    same inputs, B1 and B5 under a second tile plan, B5 on its general
-   kernel (timed beside it), all bitwise equal; each time beside a library
-   call prints its ratio to it), then the fxp16 kernels B7-B10 and the
-   int16 instances of B2/B3, all bitwise (B7 and B8 also launched again,
-   under a second plan and on their general kernels, timed beside them;
-   B9 again and under a second K split), plus accumulators that wrap at
-   ±32767 operands (B9's under several splits); then the gate (B11, three
+   kernel (timed beside it), all bitwise equal; B6 likewise, again, under
+   a second tile plan and on its general kernel, timed beside it and
+   beside ``torch.matmul`` on the pre-gated gradient; each time beside a
+   library call prints its ratio to it), then the fxp16 kernels B7-B10 and
+   the int16 instances of B2/B3, all bitwise (B7, B8 and B10 also launched
+   again, under a second plan and on their general kernels, timed beside
+   them; B9 again and under a second K split), plus accumulators that wrap
+   at ±32767 operands (B9's under several splits, B10's under three
+   plans); then the gate (B11, three
    methods) and unpool (B12, f32 and int16) kernels of the autograd paths,
    bitwise; then the selective scan (B13) at falcon-mamba-7b's explain
    shape (B = 4, S = 72, D = 8192, N = 16; x bf16 and f32) and a ragged
@@ -192,7 +198,7 @@ KERNELS = {   # counter -> (C source, replaced TPU kernel def or function)
                 "src/repro/kernels/vmm/vmm.py:49"),
     "conv2d_bwd_fused": ("src/repro_torch/csrc/conv_bwd.cuh",
                          "src/repro/kernels/conv2d/conv2d.py:150"),
-    "vmm_bwd_fused": ("src/repro_torch/csrc/vmm.cu",
+    "vmm_bwd_fused": ("src/repro_torch/csrc/vmm_bwd.cuh",
                       "src/repro/kernels/vmm/vmm.py:117"),
     "conv2d_fxp_fwd": ("src/repro_torch/csrc/conv_fwd.cuh",
                        "src/repro/kernels/conv2d/fxp.py:53"),
@@ -200,7 +206,7 @@ KERNELS = {   # counter -> (C source, replaced TPU kernel def or function)
                              "src/repro/kernels/conv2d/fxp.py:130"),
     "vmm_fxp_fwd": ("src/repro_torch/csrc/vmm_fxp.cu",
                     "src/repro/kernels/vmm/fxp.py:46"),
-    "vmm_bwd_fused_fxp": ("src/repro_torch/csrc/vmm_fxp.cu",
+    "vmm_bwd_fused_fxp": ("src/repro_torch/csrc/vmm_bwd.cuh",
                           "src/repro/kernels/vmm/fxp.py:116"),
     "relu_bwd": ("src/repro_torch/csrc/relu_mask.cu",
                  "src/repro/kernels/relu_mask/relu_mask.py:108"),
@@ -224,12 +230,13 @@ def fail(msg: str):
 
 #: Entry functions of the kernels redesigned for this card (the conv
 #: forward of B1 and B7, the FC forwards of B4 and B9, the fused conv
-#: backward of B5 and B8, the scan B13 and its backward), whose registers
-#: and spills phase 1 reports.
+#: backward of B5 and B8, the fused FC backward of B6 and B10, the scan B13
+#: and its backward), whose registers and spills phase 1 reports.
 REDESIGNED = ("conv_igemm_kernel", "vmm_splitk_kernel",
               "vmm_splitk_sum_kernel", "conv_bwd_igemm_kernel",
               "vmm_fxp_splitk_kernel", "vmm_fxp_splitk_sum_kernel",
-              "selective_scan_kernel", "selective_scan_bwd_kernel")
+              "vmm_bwd_tiled_kernel", "selective_scan_kernel",
+              "selective_scan_bwd_kernel")
 #: Itanium mangling of the element types a template is instantiated for.
 MANGLED_TYPES = {"f": "float", "s": "int16_t", "13__nv_bfloat16": "bf16"}
 
@@ -488,6 +495,16 @@ def second_bwd_plan(plan, c: int):
         th //= 2
 
 
+def second_vmm_bwd_plan(plan):
+    """A valid tile plan of the fused FC backward other than ``plan``: 8
+    rows x 128 columns a block, 2 rows a thread and 8-deep chunks (so the
+    ring runs K = 10 in two chunks and K = 128 in sixteen), or 64 x 16 x 16
+    at 4 rows a thread where ``plan`` is that one."""
+    from repro_torch.kernels.vmm.vmm import VmmBwdPlan
+    other = VmmBwdPlan(8, 128, 8, 2)
+    return other if other != plan else VmmBwdPlan(64, 16, 16, 4)
+
+
 def check_kernels(kc: KernelCheck):
     from repro_torch.kernels.conv2d import ref as conv_ref
     from repro_torch.kernels.conv2d.conv2d import (CONV_BWD_GENERAL, conv2d,
@@ -503,8 +520,10 @@ def check_kernels(kc: KernelCheck):
                                                          unpack_bits)
     from repro_torch.kernels.tiling import crumb_bytes, mask_bytes
     from repro_torch.kernels.vmm import ref as vmm_ref
-    from repro_torch.kernels.vmm.vmm import (vmm, vmm_bwd_fused,
-                                             vmm_bwd_fused_plain, vmm_splits)
+    from repro_torch.kernels.vmm.vmm import (VMM_BWD_GENERAL, vmm,
+                                             vmm_bwd_fused,
+                                             vmm_bwd_fused_plain,
+                                             vmm_bwd_plan, vmm_splits)
     from repro_torch.core import masks
 
     gen = torch.Generator(device="cuda").manual_seed(1234)
@@ -635,7 +654,11 @@ def check_kernels(kc: KernelCheck):
               4 * (g.numel() * 1.5 + wt.numel()), 2 * g.numel() * 9 * 32,
               lambda: F.conv2d(gn, wn, padding=1))
 
-    # B6 fused FC backward: FC1 (no gate) then FC0 (gate by its mask)
+    # B6 fused FC backward: FC1 (no gate) then FC0 (gate by its mask),
+    # launched again, under a second tile plan and on the general kernel
+    # (its design before the redesign, timed beside it): all bitwise equal;
+    # torch.matmul on the pre-gated gradient is timed beside it as a
+    # reference point (the gated product is no one library call)
     for method in METHODS:
         for k, n_out, gated in ((10, 128, False), (128, 4096, True)):
             g = randn(gen, s, n, k)
@@ -651,26 +674,44 @@ def check_kernels(kc: KernelCheck):
             nbytes = (4 * (g.numel() + wt.numel() + s * n * n_out)
                       + (mask.numel() if mask is not None else 0))
             lib = None if gated else (lambda g=g, wt=wt: torch.matmul(g, wt))
-            kc.record("vmm_bwd_fused",
-                      f"{method} [{s},{n},{k}]@[{k},{n_out}]"
-                      + (" gate" if gated else ""), method == "saliency",
-                      vmm_bwd_fused(g, wt, **kw),
+            case = (f"{method} [{s},{n},{k}]@[{k},{n_out}]"
+                    + (" gate" if gated else ""))
+            got = vmm_bwd_fused(g, wt, **kw)
+            plan = vmm_bwd_plan(s, n, k, n_out)
+            other = second_vmm_bwd_plan(plan)
+            _bitwise_repeat("vmm_bwd_fused", case, got, (
+                (f"again under {plan}", lambda: vmm_bwd_fused(g, wt, **kw)),
+                (f"under {other}",
+                 lambda: vmm_bwd_fused(g, wt, plan=other, **kw)),
+                ("on the general kernel", lambda: vmm_bwd_fused(
+                    g, wt, plan=VMM_BWD_GENERAL, **kw))))
+            kc.record("vmm_bwd_fused", case, method == "saliency", got,
                       vmm_bwd_fused_plain(g, wt, **kw), False,
                       lambda: vmm_bwd_fused(g, wt, **kw),
                       lambda: vmm_bwd_fused_plain(g, wt, **kw),
-                      nbytes, 2 * nnz * n_out, lib)
+                      nbytes, 2 * nnz * n_out, lib,
+                      f32_reference_fn=lambda gg=gg, wt=wt: torch.matmul(
+                          gg, wt),
+                      general_fn=lambda: vmm_bwd_fused(
+                          g, wt, plan=VMM_BWD_GENERAL, **kw))
     g = randn(gen, s, n, 128)
     wt = randn(gen, 128, 4096, scale=(2.0 / 4096) ** 0.5)
     kw = dict(relu_mask=masks.pack_mask(randn(gen, n, 128) > 0),
               method="saliency",
               out_relu_mask=masks.pack_mask(randn(gen, n, 4096) > 0))
-    kc.record("vmm_bwd_fused", "saliency epilogue [3,32,128]@[128,4096]",
-              False, vmm_bwd_fused(g, wt, **kw),
+    case = "saliency epilogue [3,32,128]@[128,4096]"
+    got = vmm_bwd_fused(g, wt, **kw)
+    _bitwise_repeat("vmm_bwd_fused", case, got, (
+        ("on the general kernel",
+         lambda: vmm_bwd_fused(g, wt, plan=VMM_BWD_GENERAL, **kw)),))
+    kc.record("vmm_bwd_fused", case, False, got,
               vmm_bwd_fused_plain(g, wt, **kw), False,
               lambda: vmm_bwd_fused(g, wt, **kw),
               lambda: vmm_bwd_fused_plain(g, wt, **kw),
               4 * (g.numel() + wt.numel() + s * n * 4096),
-              2 * g.numel() * 4096)
+              2 * g.numel() * 4096,
+              general_fn=lambda: vmm_bwd_fused(g, wt, plan=VMM_BWD_GENERAL,
+                                               **kw))
 
 
 #: ``--sweep``: the B4 shapes (M, K, N) of the main and vjp paths, and the
@@ -947,6 +988,75 @@ def sweep_fxp_choices(gen):
     return rows
 
 
+#: ``--sweep``: the fused FC backward's launches (S, M, K, N): FC0 at the
+#: seed-batched S = 3 and at the vjp and training S = 1, and FC1 at S = 3.
+SWEEP_VMM_BWD = ((3, 32, 128, 4096), (1, 32, 128, 4096), (3, 32, 10, 128))
+
+
+def sweep_vmm_bwd_plans(gen):
+    """``--sweep``, fused FC backward (B6 f32, B10 int16): time every plan of
+    ``vmm_bwd_candidates`` at each launch of :data:`SWEEP_VMM_BWD` beside
+    the general kernel; every plan must give the bits of ``vmm_bwd_plan``'s,
+    and that one the general kernel's (f32) or the plain version's
+    (int16)."""
+    from repro_torch.core import fixedpoint, masks
+    from repro_torch.kernels.vmm.fxp import (vmm_bwd_fused_fxp,
+                                             vmm_bwd_fused_fxp_plain)
+    from repro_torch.kernels.vmm.vmm import (VMM_BWD_GENERAL,
+                                             vmm_bwd_candidates,
+                                             vmm_bwd_fused, vmm_bwd_plan)
+
+    rows = []
+    for dtype in (torch.float32, torch.int16):
+        fxp = dtype == torch.int16
+        fn = vmm_bwd_fused_fxp if fxp else vmm_bwd_fused
+        for s, m, k, n in SWEEP_VMM_BWD:
+            g = randn(gen, s, m, k, scale=4.0 if fxp else 1.0)
+            wt = randn(gen, k, n, scale=(2.0 / n) ** 0.5)
+            if fxp:
+                g = fixedpoint.to_fixed(g)
+                wt = fixedpoint.to_fixed(wt, fixedpoint.WGT_FRAC)
+            kw = dict(relu_mask=masks.pack_mask(randn(gen, m, k) > 0),
+                      gate=k > 10, method="saliency")
+            case = (f"vmm_bwd {'int16' if fxp else 'f32'} "
+                    f"[{s},{m},{k}]@[{k},{n}]" + (" gate" if k > 10 else ""))
+            chosen = vmm_bwd_plan(s, m, k, n)
+            first = fn(g, wt, plan=chosen, **kw)
+            want = (vmm_bwd_fused_fxp_plain(g, wt, **kw) if fxp
+                    else fn(g, wt, plan=VMM_BWD_GENERAL, **kw))
+            torch.cuda.synchronize()
+            if not torch.equal(first, want):
+                fail(f"sweep {case}: not bitwise equal to the "
+                     + ("plain version" if fxp else "general kernel"))
+            general = device_time_ms(
+                lambda: fn(g, wt, plan=VMM_BWD_GENERAL, **kw),
+                reps=SWEEP_BWD_REPS, cover_ms=SWEEP_BWD_COVER_MS)
+            found = []
+            for p in set(vmm_bwd_candidates(s, m, k, n)) | {chosen}:
+                got = fn(g, wt, plan=p, **kw)
+                torch.cuda.synchronize()
+                if not torch.equal(got, first):
+                    fail(f"sweep {case}: plan {p} changes the bits")
+                found.append((device_time_ms(
+                    lambda: fn(g, wt, plan=p, **kw), reps=SWEEP_BWD_REPS,
+                    cover_ms=SWEEP_BWD_COVER_MS), p))
+            found.sort(key=lambda t: (t[0], t[1].args()))
+            rank = [p for _, p in found].index(chosen)
+            print(f"  {case}: general kernel {general:.4f} ms; vmm_bwd_plan "
+                  f"{chosen} {found[rank][0]:.4f} ms (rank {rank + 1} of "
+                  f"{len(found)}, every plan bitwise equal); fastest:")
+            for ms, p in found[:8]:
+                print(f"      {ms:.4f} ms  {p}  threads {p.threads:3d} "
+                      f"blocks {p.blocks(s * m, n):5d} smem "
+                      f"{p.smem_bytes(esize=g.element_size())}")
+            rows.append(dict(
+                dtype=str(dtype), shape=[s, m, k, n], general_ms=general,
+                chosen=chosen.args(), chosen_ms=found[rank][0],
+                rank=rank + 1,
+                plans=[dict(plan=p.args(), ms=ms) for ms, p in found]))
+    return rows
+
+
 def check_kernels_fxp(kc: KernelCheck):
     """The fxp16 path's kernels (B7-B10, int16 B2/B3), bitwise."""
     from repro_torch.core import fixedpoint, masks
@@ -969,7 +1079,8 @@ def check_kernels_fxp(kc: KernelCheck):
     from repro_torch.kernels.vmm.fxp import (vmm_bwd_fused_fxp,
                                              vmm_bwd_fused_fxp_plain,
                                              vmm_fxp, vmm_fxp_with_splits)
-    from repro_torch.kernels.vmm.vmm import vmm_splits
+    from repro_torch.kernels.vmm.vmm import (VMM_BWD_GENERAL, vmm_bwd_plan,
+                                             vmm_splits)
 
     gen = torch.Generator(device="cuda").manual_seed(4321)
     n, s, rate = BATCH, SEEDS, kc.imad_per_s
@@ -1158,7 +1269,10 @@ def check_kernels_fxp(kc: KernelCheck):
               2 * (g.numel() + wt.numel() + s * n * 256 * 64),
               g.numel() * 9 * 64, rate=rate)
 
-    # B10 int16 fused FC backward: FC1 (no gate) then FC0 (gated)
+    # B10 int16 fused FC backward: FC1 (no gate) then FC0 (gated), launched
+    # again, under a second tile plan and on the general kernel (timed
+    # beside it), all bitwise equal; an f32 torch.matmul on the pre-gated
+    # gradient beside it, a reference point only
     for method in METHODS:
         for k, n_out, gated in ((10, 128, False), (128, 4096, True)):
             g = qact(s, n, k, scale=4.0)
@@ -1173,14 +1287,28 @@ def check_kernels_fxp(kc: KernelCheck):
             nnz = torch.count_nonzero(gg).item()
             nbytes = (2 * (g.numel() + wt.numel() + s * n * n_out)
                       + (mask.numel() if mask is not None else 0))
-            kc.record("vmm_bwd_fused_fxp",
-                      f"{method} [{s},{n},{k}]@[{k},{n_out}]"
-                      + (" gate" if gated else ""), method == "saliency",
-                      vmm_bwd_fused_fxp(g, wt, **kw),
+            case = (f"{method} [{s},{n},{k}]@[{k},{n_out}]"
+                    + (" gate" if gated else ""))
+            got = vmm_bwd_fused_fxp(g, wt, **kw)
+            plan = vmm_bwd_plan(s, n, k, n_out)
+            other = second_vmm_bwd_plan(plan)
+            _bitwise_repeat("vmm_bwd_fused_fxp", case, got, (
+                (f"again under {plan}",
+                 lambda: vmm_bwd_fused_fxp(g, wt, **kw)),
+                (f"under {other}",
+                 lambda: vmm_bwd_fused_fxp(g, wt, plan=other, **kw)),
+                ("on the general kernel", lambda: vmm_bwd_fused_fxp(
+                    g, wt, plan=VMM_BWD_GENERAL, **kw))))
+            ggf, wtf = gg.float(), wt.float()
+            kc.record("vmm_bwd_fused_fxp", case, method == "saliency", got,
                       vmm_bwd_fused_fxp_plain(g, wt, **kw), True,
                       lambda: vmm_bwd_fused_fxp(g, wt, **kw),
                       lambda: vmm_bwd_fused_fxp_plain(g, wt, **kw),
-                      nbytes, nnz * n_out, rate=rate)
+                      nbytes, nnz * n_out, rate=rate,
+                      f32_reference_fn=lambda ggf=ggf, wtf=wtf: torch.matmul(
+                          ggf, wtf),
+                      general_fn=lambda: vmm_bwd_fused_fxp(
+                          g, wt, plan=VMM_BWD_GENERAL, **kw))
     g = qact(s, n, 128, scale=4.0)
     wt = qwgt(128, 4096, scale=(2.0 / 4096) ** 0.5)
     kw = dict(relu_mask=masks.pack_mask(randn(gen, n, 128) > 0),
@@ -1192,7 +1320,25 @@ def check_kernels_fxp(kc: KernelCheck):
               lambda: vmm_bwd_fused_fxp(g, wt, **kw),
               lambda: vmm_bwd_fused_fxp_plain(g, wt, **kw),
               2 * (g.numel() + wt.numel() + s * n * 4096),
-              g.numel() * 4096, rate=rate)
+              g.numel() * 4096, rate=rate,
+              general_fn=lambda: vmm_bwd_fused_fxp(
+                  g, wt, plan=VMM_BWD_GENERAL, **kw))
+    # ... and at the rails: FC0's row 0 x column 0 sums 128 products of
+    # 2^30 and wraps, under the rule's plan, a second one and the general
+    # kernel
+    g, wt = rails(s, n, 128), rails(128, 4096)
+    g[:, 0], wt[:, 0] = lim, lim
+    want = vmm_bwd_fused_fxp_plain(g, wt)
+    plan = vmm_bwd_plan(s, n, 128, 4096)
+    for p in (plan, second_vmm_bwd_plan(plan), VMM_BWD_GENERAL):
+        got = vmm_bwd_fused_fxp(g, wt, plan=p)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            fail(f"vmm_bwd_fused_fxp rails under {p}: not bitwise equal to "
+                 f"plain")
+    case = "rails [3,32,128]@[128,4096] wrap"
+    print(f"  {'vmm_bwd_fused_fxp':20s} {case:34s} bitwise equal to plain "
+          f"under {plan}, {second_vmm_bwd_plan(plan)} and the general kernel")
 
 
 def check_kernels_autograd(kc: KernelCheck):
@@ -2221,8 +2367,8 @@ def main() -> int:
                     help="directory for chip_smoke.json (per-case numbers)")
     ap.add_argument("--sweep", action="store_true",
                     help="after phase 1, time the launch choices of B1, B4, "
-                         "B5/B8, B7 and B9 (K splits, grids of tile plans) "
-                         "and stop; --out gets kernel_sweep.json")
+                         "B5/B8, B7, B9 and B6/B10 (K splits, grids of tile "
+                         "plans) and stop; --out gets kernel_sweep.json")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke test needs one",
@@ -2263,9 +2409,10 @@ def main() -> int:
             if ("Compiling entry" in line or "registers" in line
                     or "spill stores" in line):
                 print("   ", line.strip())
-        print("  redesigned B1/B4/B5/B7/B8/B9/B13 kernels (ptxas): " + "; ".join(
-            f"{name} {regs} registers, spill stores {st} B, loads {ld} B"
-            for name, regs, st, ld in kernel_resources(text, REDESIGNED)))
+        found = kernel_resources(text, REDESIGNED)
+        print("  redesigned B1/B4/B5/B6/B7/B8/B9/B10/B13 kernels (ptxas): "
+              + "; ".join(f"{name} {regs} registers, spill stores {st} B, "
+                          f"loads {ld} B" for name, regs, st, ld in found))
 
     if args.sweep:
         print(f"sweep: B4 K splits and B1 tile plans (ms = median of {REPS} "
@@ -2280,6 +2427,10 @@ def main() -> int:
               f"of {REPS} back-to-back runs)")
         rows.update(sweep_fxp_choices(torch.Generator(device="cuda")
                                       .manual_seed(0)))
+        print(f"sweep: fused FC backward tile plans, f32 and int16 (ms = "
+              f"median of {SWEEP_BWD_REPS} back-to-back runs)")
+        rows["vmm_bwd"] = sweep_vmm_bwd_plans(torch.Generator(device="cuda")
+                                              .manual_seed(0))
         if args.out is not None:
             args.out.mkdir(parents=True, exist_ok=True)
             (args.out / "kernel_sweep.json").write_text(json.dumps(dict(

@@ -1,7 +1,7 @@
 // FC matmul, forward and fused backward (paper §III.C, §III.E, Fig. 4).
 //
 // Replaces: src/repro/kernels/vmm/vmm.py, vmm_pallas (repro_vmm_fwd) and
-// vmm_bwd_fused_pallas (repro_vmm_bwd_fused).
+// vmm_bwd_fused_pallas (repro_vmm_bwd_fused, the template of vmm_bwd.cuh).
 //
 //   forward:  y[M, N] = x[M, K] @ w[K, N] (+ b[N] in the epilogue)
 //   backward: out[s] = gate_out(gate_in(g[s]) @ wt),  g [S, M, K],
@@ -33,13 +33,20 @@
 // vmm_splitk_sum_kernel, sums the slices in slice order and adds the
 // bias, so the result is bitwise the same from run to run.
 
-// Backward design (vmm_kernel, also the forward's before the split-K
-// redesign): a plain 16x16 shared-memory SGEMM.  The gate is applied to
-// the g tile as it is staged into shared memory (the gated gradient never
-// goes to device memory) and the seeds are the grid's z axis, all reading
-// the same mask bytes.
+// Backward design: the tiled template of vmm_bwd.cuh
+// (vmm_bwd_tiled_kernel<float, RM>, shared with the int16 backward): the
+// seeds folded into rows, a cp.async ring of K chunks gated once into a
+// transposed compute buffer, an RM x 4 register tile a thread, tiled by
+// kernels/vmm/vmm.py vmm_bwd_plan.  The plan of zeros runs the general
+// kernel, vmm_kernel (the forward's before the split-K redesign, and the
+// backward's until the tiled one): a plain 16x16 shared-memory SGEMM, the
+// gate applied to the g tile as it is staged and the seeds the grid's z
+// axis.  Both sum each output over k ascending with fmaf, so the tiled
+// kernel equals vmm_kernel bit for bit; vmm_kernel stays as its bitwise
+// reference.
 
 #include "common.cuh"
+#include "vmm_bwd.cuh"
 
 namespace {
 
@@ -251,7 +258,14 @@ REPRO_API int repro_vmm_bwd_fused(const float* g, const float* wt,
                                   const uint8_t* mask, const uint8_t* omask,
                                   float* out, int s, int m, int k, int n,
                                   int gate_in, int gate_out, int method,
+                                  int br, int bn, int kc, int rm,
                                   cudaStream_t stream) {
+  // the plan (br, bn, kc, rm) of kernels/vmm/vmm.py vmm_bwd_plan; all 0:
+  // the general kernel
+  if (br != 0 || bn != 0 || kc != 0 || rm != 0)
+    return static_cast<int>(vbwd::launch_tiled<float>(
+        g, wt, mask, omask, out, s, m, k, n, gate_in, gate_out, method, br,
+        bn, kc, rm, stream));
   const dim3 grid((n + T - 1) / T, (m + T - 1) / T, s), block(T, T);
   vmm_kernel<<<grid, block, 0, stream>>>(g, wt, nullptr, mask, omask, out, m,
                                          k, n, gate_in, gate_out, method);

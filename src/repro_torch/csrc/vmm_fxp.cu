@@ -2,7 +2,8 @@
 // fixed-point datapath).
 //
 // Replaces: src/repro/kernels/vmm/fxp.py, vmm_fxp_pallas (repro_vmm_fxp_fwd)
-// and vmm_bwd_fused_fxp_pallas (repro_vmm_bwd_fused_fxp).
+// and vmm_bwd_fused_fxp_pallas (repro_vmm_bwd_fused_fxp, the template of
+// vmm_bwd.cuh).
 //
 //   forward:  y[M, N] = sat_add(requantize(x[M, K] @ w[K, N]), b[N])
 //   backward: out[s] = gate_out(requantize(gate_in(g[s]) @ wt)),
@@ -46,15 +47,18 @@
 // and adds the bias.  The partial sums wrap modulo 2^32 like the single
 // sum, and wrapping addition is associative, so no split changes a bit.
 //
-// Backward design (repro_vmm_bwd_fused_fxp: vmm_fxp_kernel, also the
-// forward's before the split-K redesign): the 16x16 shared-memory tile of
-// the f32 backward (vmm.cu vmm_kernel) with int16 tiles and 32-bit
-// accumulators; the gate is applied to the g tile as it is staged (the
-// gated gradient never goes to device memory) and the seeds are the
-// grid's z axis, all reading the same mask bytes.  No atomics: every
-// output is one deterministic sum.
+// Backward design (repro_vmm_bwd_fused_fxp): the f32 backward's tiled
+// template (vmm_bwd.cuh vmm_bwd_tiled_kernel<int16_t, RM>), the gated
+// gradient and the weight chunk widened to 32-bit words in its prologue,
+// IMAD on uint32_t, requantize then the epilogue gate.  The plan of zeros
+// runs the general kernel, vmm_fxp_kernel (the forward's before the
+// split-K redesign, and the backward's until the tiled one): the 16x16
+// shared-memory tile of vmm.cu vmm_kernel with int16 tiles and 32-bit
+// accumulators.  Both wrap modulo 2^32, so every plan gives the plain
+// version's bits.  No atomics: every output is one deterministic sum.
 
 #include "common.cuh"
+#include "vmm_bwd.cuh"
 
 namespace {
 
@@ -290,8 +294,15 @@ REPRO_API int repro_vmm_bwd_fused_fxp(const int16_t* g, const int16_t* wt,
                                       const uint8_t* mask,
                                       const uint8_t* omask, int16_t* out,
                                       int s, int m, int k, int n, int gate_in,
-                                      int gate_out, int method,
+                                      int gate_out, int method, int br,
+                                      int bn, int kc, int rm,
                                       cudaStream_t stream) {
+  // the f32 backward's plan (kernels/vmm/vmm.py vmm_bwd_plan); all 0: the
+  // general kernel
+  if (br != 0 || bn != 0 || kc != 0 || rm != 0)
+    return static_cast<int>(vbwd::launch_tiled<int16_t>(
+        g, wt, mask, omask, out, s, m, k, n, gate_in, gate_out, method, br,
+        bn, kc, rm, stream));
   const dim3 grid((n + T - 1) / T, (m + T - 1) / T, s), block(T, T);
   vmm_fxp_kernel<<<grid, block, 0, stream>>>(g, wt, nullptr, mask, omask, out,
                                              m, k, n, gate_in, gate_out,

@@ -40,8 +40,10 @@ SIGNATURES = {
     # f32 forward: x, w, bias, y, m, k, n, then the split-K workspace, the
     # number of K slices and their length
     "repro_vmm_fwd": [_P, _P, _P, _P, _I, _I, _I, _P, _I, _I, _P],
-    "repro_vmm_bwd_fused": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                            _P],
+    # f32 fused backward: g, wt, mask, omask, out, s, m, k, n, gate_in,
+    # gate_out, method, then the tile plan (rows and columns a block, k a
+    # chunk, rows a thread; all 0: the general kernel)
+    "repro_vmm_bwd_fused": [_P] * 5 + [_I] * 11 + [_P],
     # f32 forward: x, w, bias, y, n, h, w, cin, cout, k, then the tile plan
     # (rows, pixels per thread, Cout per block, Cin per stage)
     "repro_conv2d_fwd": [_P, _P, _P, _P] + [_I] * 10 + [_P],
@@ -60,8 +62,8 @@ SIGNATURES = {
     "repro_conv2d_bwd_fused_fxp": [_P] * 6 + [_I] * 16 + [_P],
     # int16 forward: the f32 one's arguments, the workspace int32
     "repro_vmm_fxp_fwd": [_P, _P, _P, _P, _I, _I, _I, _P, _I, _I, _P],
-    "repro_vmm_bwd_fused_fxp": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                                _I, _P],
+    # int16 fused backward: the f32 one's arguments and plan
+    "repro_vmm_bwd_fused_fxp": [_P] * 5 + [_I] * 11 + [_P],
     # the autograd paths: B11 and B12 (f32, and int16 for the unpool)
     "repro_relu_bwd": [_P, _P, _P, _I, _I, _I, _P],
     "repro_unpool_bwd": [_P, _P, _P, _I, _I, _I, _I, _P],

@@ -8,10 +8,10 @@ with saturation in the epilogue — the reference's ``sat_add(vmm_fxp_pallas(x,
 w), b)`` in one launch, K split across blocks as in the f32 forward
 (``vmm.vmm_splits``, with an int32 workspace summed by a second kernel).
 :func:`vmm_bwd_fused_fxp` wraps ``repro_vmm_bwd_fused_fxp`` (the port of
-``vmm_bwd_fused_fxp_pallas``): the f32 fused backward's dataflow and
-argument contract (``vmm.vmm_bwd_fused``) on int16 gradients, with the
-requantize before the epilogue gate.  Plain versions: :func:`ref.vmm_fxp`
-and :func:`vmm_bwd_fused_fxp_plain`.
+``vmm_bwd_fused_fxp_pallas``): the f32 fused backward's dataflow, argument
+contract and tiled template (``vmm.vmm_bwd_fused``, ``csrc/vmm_bwd.cuh``)
+on int16 gradients, with the requantize before the epilogue gate.  Plain
+versions: :func:`ref.vmm_fxp` and :func:`vmm_bwd_fused_fxp_plain`.
 """
 from __future__ import annotations
 
@@ -21,7 +21,8 @@ import torch
 
 from repro_torch.core.fixedpoint import sat_add
 from repro_torch.kernels.vmm import ref
-from repro_torch.kernels.vmm.vmm import bwd_fused, bwd_fused_plain, vmm_fwd
+from repro_torch.kernels.vmm.vmm import (VmmBwdPlan, bwd_fused,
+                                         bwd_fused_plain, vmm_fwd)
 
 
 def _vmm_fxp_plain(x, w, b):
@@ -63,9 +64,13 @@ def vmm_bwd_fused_fxp(g: torch.Tensor, w: torch.Tensor, *,
                       gate: Optional[bool] = None,
                       method: str = "saliency",
                       out_relu_mask: Optional[torch.Tensor] = None,
-                      out_gate: Optional[bool] = None) -> torch.Tensor:
-    """int16 twin of :func:`vmm.vmm_bwd_fused`: the same operands and gates,
-    Q7.8 gradients ``g`` [S, M, K] and the Q1.14 transposed weight ``w``.
+                      out_gate: Optional[bool] = None,
+                      plan: Optional[VmmBwdPlan] = None) -> torch.Tensor:
+    """int16 twin of :func:`vmm.vmm_bwd_fused`: the same operands, gates and
+    tile plans (``vmm.vmm_bwd_plan``; ``vmm.VMM_BWD_GENERAL`` for the
+    general kernel), Q7.8 gradients ``g`` [S, M, K] and the Q1.14
+    transposed weight ``w``.  The int32 sums wrap, so every plan gives the
+    plain version's bits.
 
     CPU tensors run :func:`vmm_bwd_fused_fxp_plain`; CUDA tensors the kernel
     (one launch for all S seeds).
@@ -73,4 +78,5 @@ def vmm_bwd_fused_fxp(g: torch.Tensor, w: torch.Tensor, *,
     return bwd_fused("vmm_bwd_fused_fxp", "repro_vmm_bwd_fused_fxp",
                      torch.int16, vmm_bwd_fused_fxp_plain, g, w,
                      relu_mask=relu_mask, gate=gate, method=method,
-                     out_relu_mask=out_relu_mask, out_gate=out_gate)
+                     out_relu_mask=out_relu_mask, out_gate=out_gate,
+                     plan=plan)

@@ -10,7 +10,9 @@ int16 forward shares).  :func:`vmm_bwd_fused` wraps
 ``repro_vmm_bwd_fused`` (the port of ``vmm_bwd_fused_pallas``): the 1-bit mask gate runs on the gradient as it
 is loaded, then the product with ``W^T``, then an optional epilogue gate —
 an FC layer's whole backward step in one launch, all S seeds sharing the
-stored mask.  :func:`vmm_bwd_fused_plain` is that kernel's plain twin.
+stored mask, tiled by :func:`vmm_bwd_plan` (``csrc/vmm_bwd.cuh``; the plan
+:data:`VMM_BWD_GENERAL` runs the general 16x16 kernel instead).
+:func:`vmm_bwd_fused_plain` is that kernel's plain twin.
 
 The int16 twins (``vmm.fxp``) share the argument contract, checks and plain
 dataflow defined here; only the element type, the entry point and the
@@ -18,7 +20,8 @@ product itself differ.
 """
 from __future__ import annotations
 
-from typing import Callable, Optional
+from dataclasses import dataclass
+from typing import Callable, Optional, Tuple
 
 import torch
 
@@ -57,6 +60,116 @@ def vmm_splits(m: int, k: int, n: int) -> int:
         return 1
     per = vmm_slice(k, cdiv(2 * H100_SMS, tiles))
     return cdiv(k, per)
+
+
+#: ``csrc/vmm_bwd.cuh`` MAX_THREADS and the k a mask byte covers: a block of
+#: the tiled fused backward has at most 256 threads, a chunk is a whole
+#: number of mask bytes.
+VMM_BWD_MAX_THREADS, VMM_BWD_KG = 256, 8
+#: Rows a thread of the tiled fused backward holds (its register tile is
+#: rows x 4 columns): ``csrc/vmm_bwd.cuh`` is compiled for 2 and 4.
+VMM_BWD_RMS = (2, 4)
+#: The rule's tile: rows and columns a block, and K a chunk at most.
+VMM_BWD_TILE_ROWS, VMM_BWD_TILE_COLS, VMM_BWD_MAX_KC = 16, 64, 64
+#: Shared memory one block may use on an H100 (227 KB).
+VMM_BWD_SMEM_LIMIT = 227 * 1024
+
+
+@dataclass(frozen=True)
+class VmmBwdPlan:
+    """The tiled fused FC backward's tile: ``br`` rows (of the seeds folded
+    into ``[S*M]``) x ``bn`` columns a block, ``kc`` k a ring stage,
+    ``rm`` rows x 4 columns a thread.  No field changes the order of any
+    sum.  :data:`VMM_BWD_GENERAL` (all zeros) selects the general kernel
+    instead."""
+    br: int
+    bn: int
+    kc: int
+    rm: int
+
+    @property
+    def threads(self) -> int:
+        return (self.br // self.rm) * (self.bn // 4)
+
+    def blocks(self, rows: int, n: int) -> int:
+        return cdiv(rows, self.br) * cdiv(n, self.bn)
+
+    def smem_bytes(self, *, esize: int = 4) -> int:
+        """The compute buffer (gated g as ``[kc][br]`` 32-bit words; int16
+        also the widened weights, ``[kc][bn]`` words) and both ring stages
+        (the g rows of ``esize``-byte elements, padded by 16 bytes, then the
+        weight chunk ``[kc][bn]``, each rounded up to 16 bytes), as
+        ``csrc/vmm_bwd.cuh`` ``launch_tiled`` lays them out."""
+        unit = 16 // esize
+        lstride = align_up(self.kc, unit) + unit
+        cbuf = 4 * self.kc * (self.br + (self.bn if esize != 4 else 0))
+        land = align_up(esize * self.br * lstride, 16)
+        wts = align_up(esize * self.kc * self.bn, 16)
+        return cbuf + 2 * (land + wts)
+
+    def args(self) -> Tuple[int, int, int, int]:
+        return (self.br, self.bn, self.kc, self.rm)
+
+
+#: The plan that selects the general fused-backward kernel (``vmm_kernel``
+#: / ``vmm_fxp_kernel``, the 16x16 tile); for tests and sweeps that hold
+#: the tiled kernel against it.
+VMM_BWD_GENERAL = VmmBwdPlan(0, 0, 0, 0)
+
+
+def vmm_bwd_plan(s: int, m: int, k: int, n: int) -> VmmBwdPlan:
+    """The tiled fused backward's tile for ``g [s, m, k] @ wt [k, n]`` on an
+    H100, from ``python3 chip_smoke.py --sweep``: 16 rows x 64 columns a
+    block (fewer where the launch has fewer), 2 rows x 4 columns a thread
+    (128 threads), and K in chunks of up to 64.  Of the plans swept at FC0
+    (S = 3 and 1, f32 and int16) it had the least time summed over the
+    four, within 7 % of each one's best; at FC1 it was the fastest.  At FC0
+    it gives 384 blocks with S = 3 and 128 (the SMs rounded down to a power
+    of two) with S = 1.
+    """
+    rows = max(s * m, 1)
+    rm = 2
+    br = min(VMM_BWD_TILE_ROWS, align_up(rows, rm))
+    bn = min(VMM_BWD_TILE_COLS, align_up(max(n, 1), 4))
+    kc = min(VMM_BWD_MAX_KC, align_up(max(k, 1), VMM_BWD_KG))
+    return VmmBwdPlan(br, bn, kc, rm)
+
+
+def vmm_bwd_candidates(s: int, m: int, k: int, n: int):
+    """The tile plans ``chip_smoke.py --sweep`` times for one launch (and
+    the card tests hold bitwise to the general kernel): 8 to 64 rows x 16
+    to 128 columns a block (no wider than the launch), 2 or 4 rows a
+    thread, chunks of 8 to 128 k (no deeper than K), 16 to 256 threads,
+    within 227 KB of shared memory for f32 and int16."""
+    rows = max(s * m, 1)
+    kcs = sorted({min(c, align_up(max(k, 1), VMM_BWD_KG))
+                  for c in (8, 16, 32, 64, 128)})
+    out = []
+    for rm in VMM_BWD_RMS:
+        for br in (8, 16, 32, 64):
+            for bn in (16, 32, 64, 128):
+                for kc in kcs:
+                    p = VmmBwdPlan(br, bn, kc, rm)
+                    if (br <= max(8, align_up(rows, 8))
+                            and bn <= max(16, align_up(n, 16))
+                            and 16 <= p.threads <= VMM_BWD_MAX_THREADS
+                            and max(p.smem_bytes(), p.smem_bytes(esize=2))
+                            <= VMM_BWD_SMEM_LIMIT):
+                        out.append(p)
+    return out
+
+
+def _check_bwd_plan(name: str, plan: VmmBwdPlan, esize: int) -> None:
+    """Raise unless the fused backward can run ``plan`` on
+    ``esize``-byte elements."""
+    if plan == VMM_BWD_GENERAL:
+        return
+    if (plan.rm not in VMM_BWD_RMS or plan.br < plan.rm
+            or plan.br % plan.rm or plan.bn < 4 or plan.bn % 4
+            or plan.kc < VMM_BWD_KG or plan.kc % VMM_BWD_KG
+            or plan.threads > VMM_BWD_MAX_THREADS
+            or plan.smem_bytes(esize=esize) > VMM_BWD_SMEM_LIMIT):
+        raise ValueError(f"{name}: invalid tile plan {plan}")
 
 
 def _vmm_dims(name: str, x: torch.Tensor, w: torch.Tensor):
@@ -154,9 +267,12 @@ def vmm_bwd_fused_plain(g, w, **kw):
 
 def bwd_fused(name: str, entry: str, dtype: torch.dtype, plain: Callable,
               g: torch.Tensor, w: torch.Tensor, *, relu_mask, gate, method,
-              out_relu_mask, out_gate) -> torch.Tensor:
+              out_relu_mask, out_gate,
+              plan: Optional[VmmBwdPlan] = None) -> torch.Tensor:
     """Check the fused-backward operands, then run ``plain`` on the CPU or
-    launch ``entry`` (counted under ``name``)."""
+    launch ``entry`` (counted under ``name``), tiled by ``plan``
+    (:func:`vmm_bwd_plan`'s when it is None; :data:`VMM_BWD_GENERAL` for
+    the general kernel)."""
     gate, out_gate = validate_bp_gates(method, gate, relu_mask, out_gate,
                                        out_relu_mask)
     seeded = g.dim() == 3
@@ -174,6 +290,9 @@ def bwd_fused(name: str, entry: str, dtype: torch.dtype, plain: Callable,
     if out_relu_mask is not None:
         check(name, out_relu_mask, torch.uint8, (m, mask_bytes(n)),
               what="out_relu_mask")
+    if plan is None:
+        plan = vmm_bwd_plan(s, m, k, n)
+    _check_bwd_plan(name, plan, g.element_size())
     if not on_card(name, g3, w, relu_mask, out_relu_mask):
         return plain(g, w, relu_mask=relu_mask, gate=gate, method=method,
                      out_relu_mask=out_relu_mask, out_gate=out_gate)
@@ -183,7 +302,7 @@ def bwd_fused(name: str, entry: str, dtype: torch.dtype, plain: Callable,
         _build.launch(name, entry, g.device, g3.data_ptr(), w.data_ptr(),
                       _build.ptr(relu_mask), _build.ptr(out_relu_mask),
                       out.data_ptr(), s, m, k, n, int(gate), int(out_gate),
-                      METHOD_CODES[method])
+                      METHOD_CODES[method], *plan.args())
     return out if seeded else out[0]
 
 
@@ -192,7 +311,8 @@ def vmm_bwd_fused(g: torch.Tensor, w: torch.Tensor, *,
                   gate: Optional[bool] = None,
                   method: str = "saliency",
                   out_relu_mask: Optional[torch.Tensor] = None,
-                  out_gate: Optional[bool] = None) -> torch.Tensor:
+                  out_gate: Optional[bool] = None,
+                  plan: Optional[VmmBwdPlan] = None) -> torch.Tensor:
     """One launch for an FC layer's whole backward step.
 
     ``g``: [M, K] or seed-batched [S, M, K] gradients w.r.t. the FC output.
@@ -201,9 +321,12 @@ def vmm_bwd_fused(g: torch.Tensor, w: torch.Tensor, *,
     ReLU; ``gate=True`` with no mask selects the deconvnet rule.
     ``out_relu_mask``/``out_gate``: epilogue gate on the outgoing gradient,
     [M, ceil(N/8)].  Masks carry no seeds axis — shared across S.
+    ``plan``: the tile (tests, sweeps): :func:`vmm_bwd_plan`'s by default,
+    :data:`VMM_BWD_GENERAL` for the general kernel; every plan gives the
+    same bits.
     CPU tensors run :func:`vmm_bwd_fused_plain`; CUDA tensors the kernel.
     """
     return bwd_fused("vmm_bwd_fused", "repro_vmm_bwd_fused", torch.float32,
                      vmm_bwd_fused_plain, g, w, relu_mask=relu_mask,
                      gate=gate, method=method, out_relu_mask=out_relu_mask,
-                     out_gate=out_gate)
+                     out_gate=out_gate, plan=plan)

@@ -9,7 +9,11 @@ equal) and their general kernels (K > 7, the plan of zeros), the fused
 backward's tile plans (f32: bitwise the general kernel's; int16: the plain
 version's) at K = 1 to 7 and its general kernel at K = 9, the FC
 forwards' K splits (1 to the most, M and N past one tile; int16: every
-split, also at the rails), each bitwise equal run to run, and one launch
+split, also at the rails), the fused FC backward's tile plans (every plan
+of the sweep's grid at six shapes, three methods, with and without the
+epilogue gate: f32 bitwise the general kernel's, int16 the plain
+version's; misaligned views; the int32 wrap), each bitwise equal run to
+run, and one launch
 per wrapper call — for the f32 kernels and for the int16 ones of the fxp16
 path, which must equal their plain
 versions bit for bit (also where the int32 accumulator wraps) — for the
@@ -52,9 +56,11 @@ from repro_torch.kernels.vmm import ref as vmm_ref
 from repro_torch.kernels.vmm.fxp import (vmm_bwd_fused_fxp,
                                          vmm_bwd_fused_fxp_plain, vmm_fxp,
                                          vmm_fxp_with_splits)
-from repro_torch.kernels.vmm.vmm import (vmm, vmm_bwd_fused,
-                                         vmm_bwd_fused_plain, vmm_max_splits,
-                                         vmm_splits, vmm_with_splits)
+from repro_torch.kernels.vmm.vmm import (VMM_BWD_GENERAL, VmmBwdPlan, vmm,
+                                         vmm_bwd_candidates, vmm_bwd_fused,
+                                         vmm_bwd_fused_plain, vmm_bwd_plan,
+                                         vmm_max_splits, vmm_splits,
+                                         vmm_with_splits)
 
 METHODS = ("saliency", "deconvnet", "guided")
 TOL = 1e-5
@@ -629,6 +635,113 @@ def test_vmm_bwd_fused_fxp_bitwise(gen, method, s, m, k, n, epilogue):
     got = _launched("vmm_bwd_fused_fxp",
                     lambda: vmm_bwd_fused_fxp(g, w, **kw))
     _same(got, vmm_bwd_fused_fxp_plain(g, w, **kw))
+
+
+# -- the tiled fused FC backward (B6 f32, B10 int16: csrc/vmm_bwd.cuh)
+
+#: (S, M, K, N): ragged K and N (13, 21, 65, 200, 300), M off the row tile
+#: (33, 7), K below one mask byte's chunk, and the main path's FC1 and FC0
+#: at S = 3 (seed-batched) and S = 1 (vjp and training).
+VMM_BWD_SHAPES = [(1, 4, 13, 21), (3, 33, 128, 300), (3, 32, 10, 128),
+                  (3, 32, 128, 4096), (1, 32, 128, 4096), (5, 7, 200, 65)]
+
+
+def _vmm_bwd_gates(gen, m, k, n):
+    """``(method, epilogue, kw)`` for the three methods, without and with
+    the epilogue gate."""
+    for method in METHODS:
+        mask = (None if method == "deconvnet"
+                else masks.pack_mask(_randn(gen, m, k) > 0))
+        for epilogue in (False, True):
+            omask = (masks.pack_mask(_randn(gen, m, n) > 0)
+                     if epilogue and method != "deconvnet" else None)
+            yield method, epilogue, dict(
+                relu_mask=mask, gate=True, method=method,
+                out_relu_mask=omask, out_gate=epilogue)
+
+
+@pytest.mark.parametrize("s,m,k,n", VMM_BWD_SHAPES)
+def test_vmm_bwd_fused_every_plan_equals_general_kernel_bitwise(gen, s, m,
+                                                                k, n):
+    """f32: vmm_bwd_plan's tile and every plan of the sweep give the bits of
+    the general 16x16 kernel (one thread sums k ascending with fmaf), which
+    is within TOL of the plain version."""
+    g = _randn(gen, s, m, k)
+    w = _randn(gen, k, n, scale=k ** -0.5)
+    plans = vmm_bwd_candidates(s, m, k, n)
+    assert plans
+    for method, epilogue, kw in _vmm_bwd_gates(gen, m, k, n):
+        general = vmm_bwd_fused(g, w, plan=VMM_BWD_GENERAL, **kw)
+        _close(general, vmm_bwd_fused_plain(g, w, **kw))
+        got = _launched("vmm_bwd_fused", lambda: vmm_bwd_fused(g, w, **kw))
+        torch.cuda.synchronize()
+        assert torch.equal(got, general), (method, epilogue)
+        for p in plans:
+            got = vmm_bwd_fused(g, w, plan=p, **kw)
+            torch.cuda.synchronize()
+            assert torch.equal(got, general), (method, epilogue, p)
+
+
+@pytest.mark.parametrize("s,m,k,n", VMM_BWD_SHAPES)
+def test_vmm_bwd_fused_fxp_every_plan_bitwise(gen, s, m, k, n):
+    """int16: vmm_bwd_plan's tile, every plan of the sweep and the general
+    kernel give the plain version's bits."""
+    g = _q(gen, s, m, k, scale=3.0)
+    w = _qw(gen, k, n, scale=k ** -0.5)
+    plans = vmm_bwd_candidates(s, m, k, n)
+    for method, epilogue, kw in _vmm_bwd_gates(gen, m, k, n):
+        want = vmm_bwd_fused_fxp_plain(g, w, **kw)
+        _same(_launched("vmm_bwd_fused_fxp",
+                        lambda: vmm_bwd_fused_fxp(g, w, **kw)), want)
+        for p in plans + [VMM_BWD_GENERAL]:
+            _same(vmm_bwd_fused_fxp(g, w, plan=p, **kw), want)
+
+
+def test_vmm_bwd_fused_misaligned_pointers(gen):
+    """g and w one element into their storage (f32: 4-byte, int16: 2-byte
+    offsets): the narrow copies, bitwise as before."""
+    s, m, k, n = 3, 33, 128, 300
+    g = _randn(gen, s * m * k + 1)[1:].view(s, m, k)
+    w = _randn(gen, k * n + 1, scale=k ** -0.5)[1:].view(k, n)
+    gi = _q(gen, s * m * k + 1, scale=3.0)[1:].view(s, m, k)
+    wi = _qw(gen, k * n + 1, scale=k ** -0.5)[1:].view(k, n)
+    mask = masks.pack_mask(_randn(gen, m, k) > 0)
+    omask = masks.pack_mask(_randn(gen, m, n) > 0)
+    kw = dict(relu_mask=mask, method="guided", out_relu_mask=omask)
+    general = vmm_bwd_fused(g, w, plan=VMM_BWD_GENERAL, **kw)
+    _close(general, vmm_bwd_fused_plain(g, w, **kw))
+    want = vmm_bwd_fused_fxp_plain(gi, wi, **kw)
+    for p in (None, VmmBwdPlan(8, 16, 8, 2), VmmBwdPlan(64, 64, 128, 4)):
+        got = vmm_bwd_fused(g, w, plan=p, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got, general)
+        _same(vmm_bwd_fused_fxp(gi, wi, plan=p, **kw), want)
+
+
+def test_vmm_bwd_fused_bitwise_run_to_run(gen):
+    """The main path's two launches at S = 3 and 1, twice each."""
+    for s, m, k, n in ((3, 32, 128, 4096), (1, 32, 128, 4096),
+                       (3, 32, 10, 128)):
+        g = _randn(gen, s, m, k)
+        w = _randn(gen, k, n, scale=k ** -0.5)
+        kw = dict(relu_mask=masks.pack_mask(_randn(gen, m, k) > 0))
+        first = vmm_bwd_fused(g, w, **kw)
+        again = vmm_bwd_fused(g, w, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(first, again)
+        assert vmm_bwd_plan(s, m, k, n) != VMM_BWD_GENERAL
+
+
+def test_vmm_bwd_fused_fxp_accumulator_wraps_under_every_plan(gen):
+    """FC0 at the rails: row 0 x column 0 sums 128 products of 2^30, past
+    2^31; the wrap is the plain version's under every plan."""
+    s, m, k, n = 1, 32, 128, 4096
+    g, w = _rails(gen, s, m, k), _rails(gen, k, n)
+    g[:, 0] = fixedpoint.INT16_LIM
+    w[:, 0] = fixedpoint.INT16_LIM
+    want = vmm_bwd_fused_fxp_plain(g, w)
+    for p in vmm_bwd_candidates(s, m, k, n) + [None, VMM_BWD_GENERAL]:
+        _same(vmm_bwd_fused_fxp(g, w, plan=p), want)
 
 
 def test_fxp16_engine_on_card_matches_cpu_twin_bitwise(gen):

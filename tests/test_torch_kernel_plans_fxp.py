@@ -24,8 +24,9 @@ from repro_torch.kernels.vmm import ref as vmm_ref
 from repro_torch.kernels.vmm import vmm as vmm_mod
 from repro_torch.kernels.vmm.fxp import (vmm_bwd_fused_fxp, vmm_fxp,
                                          vmm_fxp_with_splits)
-from repro_torch.kernels.vmm.vmm import (SPLIT_CHUNK_K, vmm_max_splits,
-                                         vmm_slice, vmm_splits)
+from repro_torch.kernels.vmm.vmm import (SPLIT_CHUNK_K, vmm_bwd_plan,
+                                         vmm_max_splits, vmm_slice,
+                                         vmm_splits)
 
 #: The four conv layers of Table III at batch 32: (H, Cin, Cout).
 TABLE3_CONVS = ((32, 3, 32), (32, 32, 32), (16, 32, 64), (16, 64, 64))
@@ -229,15 +230,17 @@ def test_fxp_vmm_every_split_runs_the_plain_version_on_the_cpu(m, k, n):
 
 @pytest.mark.parametrize("s,m,k,n", [(3, 32, 128, 4096), (1, 4, 13, 21)])
 def test_b10_entry_arguments_are_unchanged(launches, s, m, k, n):
-    """The int16 fused FC backward keeps its entry and arguments: no split,
-    no workspace."""
+    """The int16 fused FC backward keeps its entry and operands (no split,
+    no workspace) and, since its tiled template, ends with the four ints of
+    ``vmm_bwd_plan``, the f32 backward's plan."""
     mask = masks.pack_mask(torch.ones(m, k, dtype=torch.bool))
     omask = masks.pack_mask(torch.ones(m, n, dtype=torch.bool))
     vmm_bwd_fused_fxp(_i16(s, m, k), _i16(k, n), relu_mask=mask,
                       method="guided", out_relu_mask=omask)
     (entry, args, tensors), = launches
     assert entry == "repro_vmm_bwd_fused_fxp"
-    assert len(args) + 1 == len(_build.SIGNATURES[entry]) == 13
-    assert args[5:] == (s, m, k, n, 1, 1, 2)
+    assert len(args) + 1 == len(_build.SIGNATURES[entry]) == 17
+    assert args[5:12] == (s, m, k, n, 1, 1, 2)
+    assert args[12:] == vmm_bwd_plan(s, m, k, n).args()
     assert len(tensors) == 2
     assert tensors[0] is mask and tensors[1] is omask

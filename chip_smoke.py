@@ -18,26 +18,33 @@ S = 3 and at the vjp path's S = 1, B8 at S = 3: a grid of tile plans, all
 bitwise equal, beside the general kernel), of the int16 forwards (B7:
 a grid of tile plans at the four Table III layers beside the general
 kernel; B9: every K split at FC0; all bitwise equal to the plain version),
-and of the fused FC backward (B6 and B10 at FC0 with S = 3 and 1 and at
+of the fused FC backward (B6 and B10 at FC0 with S = 3 and 1 and at
 FC1 with S = 3: every plan of ``vmm_bwd_candidates`` beside the general
 kernel, bitwise equal to it in f32 and to the plain version in int16),
-and stops.
+and of the ReLU / pool template (B2, B3 and their fused pass, f32 and
+int16, at the main-path shapes: every block size of ``RELU_POOL_THREADS``
+beside the general route, bitwise equal, timed between events, back to
+back and under the profiler), and stops.
 
 Phases (every failed check raises; nothing is caught and carried on):
 
 1. device: card name, ``nvidia-smi`` name, power limit and maximum SM
    clock, TF32 off for the plain versions, kernel build time, and the
-   registers and spills ``ptxas`` reports for the redesigned B1/B4/B5/B6/
-   B7/B8/B9/B10/B13 kernels;
+   registers and spills ``ptxas`` reports for the redesigned B1/B2/B3/B4/
+   B5/B6/B7/B8/B9/B10/B13 kernels (B2, B3 and their fused pass: the
+   instances of ``relu_pool_fwd_kernel``);
 2. kernels at batch 32, S = 3 seeds, against their plain versions: the f32
-   kernels B1-B6 (bitwise for ReLU+mask and pool+argmax, within
-   1e-5 * max|ref| for the dots; B1, B4 and B5 also launched again on the
+   kernels B1-B6 (bitwise for ReLU+mask, pool+argmax and the two fused at
+   the pooled layers, with and without the mask, each also bitwise equal
+   to the general route (B2 / B3 on their first kernels) and under every
+   block size, timed beside the general route; within 1e-5 * max|ref| for
+   the dots; B1, B4 and B5 also launched again on the
    same inputs, B1 and B5 under a second tile plan, B5 on its general
    kernel (timed beside it), all bitwise equal; B6 likewise, again, under
    a second tile plan and on its general kernel, timed beside it and
    beside ``torch.matmul`` on the pre-gated gradient; each time beside a
    library call prints its ratio to it), then the fxp16 kernels B7-B10 and
-   the int16 instances of B2/B3, all bitwise (B7, B8 and B10 also launched
+   the int16 instances of B2/B3 and of their fused pass, all bitwise (B7, B8 and B10 also launched
    again, under a second plan and on their general kernels, timed beside
    them; B9 again and under a second K split), plus accumulators that wrap
    at ±32767 operands (B9's under several splits, B10's under three
@@ -105,7 +112,9 @@ Phases (every failed check raises; nothing is caught and carried on):
 Last, one saliency explain of each CNN path, one training step, one LM
 decode step and one per-token LM explain run under ``torch.profiler``:
 kernel time by kernel and by family against the device time measured
-before (the device's idle share).  This comes after every timing, since a
+before (the device's idle share); then the profiler column of phase 2:
+every row's kernel (and general route) 50 times under one profiler
+session, its CUPTI time per call.  This comes after every timing, since a
 profiler session slows what runs after it.
 
 Phases 3-4 run once per path, f32 then fxp16; phases 5 (per branch), 6, 7
@@ -125,6 +134,7 @@ import statistics
 import subprocess
 import sys
 import time
+import types
 from pathlib import Path
 
 import torch
@@ -190,10 +200,14 @@ LM_TWIN_BATCH, LM_TWIN_SEQ = 2, 32
 KERNELS = {   # counter -> (C source, replaced TPU kernel def or function)
     "conv2d_fwd": ("src/repro_torch/csrc/conv_fwd.cuh",
                    "src/repro/kernels/conv2d/conv2d.py:66"),
-    "relu_fwd": ("src/repro_torch/csrc/relu_mask.cu",
+    "relu_fwd": ("src/repro_torch/csrc/relu_pool.cuh",
                  "src/repro/kernels/relu_mask/relu_mask.py:87"),
-    "maxpool_fwd": ("src/repro_torch/csrc/pool.cu",
+    "maxpool_fwd": ("src/repro_torch/csrc/relu_pool.cuh",
                     "src/repro/kernels/pool/pool.py:77"),
+    # the two above in one pass at the pooled layers
+    "relu_pool_fwd": ("src/repro_torch/csrc/relu_pool.cuh",
+                      "src/repro/kernels/relu_mask/relu_mask.py:87 + "
+                      "src/repro/kernels/pool/pool.py:77"),
     "vmm_fwd": ("src/repro_torch/csrc/vmm.cu",
                 "src/repro/kernels/vmm/vmm.py:49"),
     "conv2d_bwd_fused": ("src/repro_torch/csrc/conv_bwd.cuh",
@@ -218,10 +232,11 @@ KERNELS = {   # counter -> (C source, replaced TPU kernel def or function)
     "selective_scan_bwd": ("src/repro_torch/csrc/ssm_scan_bwd.cu",
                            "src/repro/kernels/ssm_scan/ops.py:40"),
 }
-#: The int16 instances of B2/B3 (fxp16 path) and of B12: timed and checked
-#: on their own, launched under the ``relu_fwd`` / ``maxpool_fwd`` /
-#: ``unpool_bwd`` counters.
-INT16_INSTANCES = ("relu_fwd_i16", "maxpool_fwd_i16", "unpool_bwd_i16")
+#: The int16 instances of B2/B3 and of their fused pass (fxp16 path) and of
+#: B12: timed and checked on their own, launched under the ``relu_fwd`` /
+#: ``maxpool_fwd`` / ``relu_pool_fwd`` / ``unpool_bwd`` counters.
+INT16_INSTANCES = ("relu_fwd_i16", "maxpool_fwd_i16", "relu_pool_fwd_i16",
+                   "unpool_bwd_i16")
 
 
 def fail(msg: str):
@@ -229,10 +244,12 @@ def fail(msg: str):
 
 
 #: Entry functions of the kernels redesigned for this card (the conv
-#: forward of B1 and B7, the FC forwards of B4 and B9, the fused conv
-#: backward of B5 and B8, the fused FC backward of B6 and B10, the scan B13
-#: and its backward), whose registers and spills phase 1 reports.
-REDESIGNED = ("conv_igemm_kernel", "vmm_splitk_kernel",
+#: forward of B1 and B7, the ReLU / pool template of B2, B3 and their fused
+#: pass, the FC forwards of B4 and B9, the fused conv backward of B5 and
+#: B8, the fused FC backward of B6 and B10, the scan B13 and its backward),
+#: whose registers and spills phase 1 reports.
+REDESIGNED = ("conv_igemm_kernel", "relu_pool_fwd_kernel",
+              "vmm_splitk_kernel",
               "vmm_splitk_sum_kernel", "conv_bwd_igemm_kernel",
               "vmm_fxp_splitk_kernel", "vmm_fxp_splitk_sum_kernel",
               "vmm_bwd_tiled_kernel", "selective_scan_kernel",
@@ -262,7 +279,7 @@ def kernel_resources(ptxas_log: str, names):
                 if re.search(rf"\d{name}(?:I|E|v|$)", entry):
                     targs = [MANGLED_TYPES[t] for t in re.findall(
                         rf"{name}I(f|s|13__nv_bfloat16)", entry)]
-                    targs += re.findall(r"Li(\d+)E", entry)
+                    targs += re.findall(r"L[ib](\d+)E", entry)
                     label = name + (f"<{','.join(targs)}>" if targs else "")
                     found.append((label, int(m.group(1))) + spill)
             entry = None
@@ -293,6 +310,65 @@ def device_time_ms(fn, reps: int = REPS, cover_ms: float = 50.0) -> float:
         b.record()
     torch.cuda.synchronize()
     return statistics.median(a.elapsed_time(b) for a, b in ev)
+
+
+def cupti_per_call(fns, reps: int = REPS):
+    """The CUPTI duration of the kernels each ``fn()`` launches, per call:
+    every ``fn`` run ``reps`` times under one ``torch.profiler`` session.
+    A sleep kernel (``torch.cuda._sleep``, ATen's ``spin_kernel``) before
+    each ``fn`` and after the last splits the card's kernel sequence into
+    calls, so no host clock is matched with the device's; three more lead
+    the session, whose first records CUPTI can lose (seen on the card).
+    None where fewer groups than calls come out, or an empty one (the
+    profiler recorded no kernel)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):      # a session can lose its first records
+            torch.cuda._sleep(1000)
+        for fn in fns:
+            torch.cuda._sleep(1000)
+            for _ in range(reps):
+                fn()
+        torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+    kernels = sorted((e for e in prof.events()
+                      if e.device_type == DeviceType.CUDA),
+                     key=lambda e: e.time_range.start)
+    groups, cur = [], None
+    for e in kernels:
+        if "spin_kernel" in e.name:          # ATen's sleep kernel
+            if cur is not None:
+                groups.append(cur / reps)
+            cur = 0.0
+        elif cur is not None:
+            cur += e.time_range.elapsed_us() / 1e3
+    groups = groups[len(groups) - len(fns):]      # the calls' groups: last
+    if len(groups) != len(fns) or not all(groups):
+        print(f"  cupti_per_call: {len(groups)} groups of kernels between "
+              f"sleep kernels for {len(fns)} calls, or an empty one; not "
+              f"measured")
+        return None
+    return groups
+
+
+def batched_ms(fn, reps: int = REPS) -> float:
+    """Device time per call of ``reps`` calls of ``fn()`` back to back
+    between one pair of CUDA events, queued behind a sleep kernel: the
+    launches' own spacing without the events between them."""
+    fn()
+    torch.cuda.synchronize()
+    a, b = (torch.cuda.Event(enable_timing=True),
+            torch.cuda.Event(enable_timing=True))
+    torch.cuda._sleep(int(2e6 * 50))
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / reps
 
 
 def profile_breakdown(fn, what: str, wall: float, reps: int = 5):
@@ -344,6 +420,7 @@ def _category(kernel_name: str) -> str:
                             "conv_bwd_igemm_kernel",
                             "vmm_splitk", "vmm_fxp_splitk",
                             "conv_fxp_kernel", "relu_fwd_kernel",
+                            "relu_pool_fwd_kernel",
                             "relu_bwd_kernel", "maxpool_fwd_kernel",
                             "unpool_bwd_kernel", "vmm_kernel",
                             "vmm_fxp_kernel", "vmm_bwd")):
@@ -359,6 +436,22 @@ def _category(kernel_name: str) -> str:
 # ---------------------------------------------------------------------------
 
 
+def _frozen(fn):
+    """``fn`` with the values its free variables hold now: phase 2's
+    closures read loop variables, which later cases rebind before the
+    profiler column runs them again."""
+    if fn is None or not fn.__closure__:
+        return fn
+    cells = []
+    for c in fn.__closure__:
+        try:
+            cells.append(types.CellType(c.cell_contents))
+        except ValueError:                  # not bound yet: keep it
+            cells.append(c)
+    return types.FunctionType(fn.__code__, fn.__globals__, fn.__name__,
+                              fn.__defaults__, tuple(cells))
+
+
 class KernelCheck:
     """Per-kernel results, summed over its main-path shapes (saliency)."""
 
@@ -367,11 +460,13 @@ class KernelCheck:
         self.mufu_per_s = mufu_per_s
         self.scan_backward_ms = self.scan_backward_loop_ms = None
         self.rows = []            # one per compared case, for --out
+        self.fns = []             # (kernel_fn, general_fn) per row
         keys = tuple(KERNELS) + INT16_INSTANCES
         self.err = {k: 0.0 for k in keys}
         self.sums = {k: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
                          "library_ms": None, "f32_reference_ms": None,
-                         "general_ms": None}
+                         "general_ms": None, "cupti_ms": None,
+                         "cupti_general_ms": None}
                      for k in keys}
 
     def record(self, counter, case, main, got, want, exact, kernel_fn,
@@ -418,8 +513,10 @@ class KernelCheck:
         row = dict(kernel=counter, case=case, max_abs_err=err, ms=ms,
                    plain_ms=plain, library_ms=lib, bound_ms=bnd,
                    bytes=nbytes, flops=flops, rate=rate, main_path=main,
-                   f32_reference_ms=f32_ref, general_ms=general)
+                   f32_reference_ms=f32_ref, general_ms=general,
+                   cupti_ms=None, cupti_general_ms=None)
         self.rows.append(row)
+        self.fns.append((_frozen(kernel_fn), _frozen(general_fn)))
         if main:
             s = self.sums[counter]
             s["ms"] += ms
@@ -442,11 +539,35 @@ class KernelCheck:
         print(f"  {counter:20s} {case:34s} err {err:.2e}  kernel {ms:.4f} "
               f"plain {plain:.4f}{libs}{refs}  bound {bnd:.4f} ms")
 
+    def profile(self, reps: int = REPS):
+        """The profiler column: each row's kernel (and general route) under
+        one profiler session (:func:`cupti_per_call`), after every event
+        timing of the run (a profiler session slows what runs after it)."""
+        runs = [(i, key, fn) for i, fns in enumerate(self.fns)
+                for key, fn in zip(("cupti_ms", "cupti_general_ms"), fns)
+                if fn is not None]
+        times = cupti_per_call([fn for _, _, fn in runs], reps)
+        if times is None:
+            return
+        for (i, key, _), t in zip(runs, times):
+            row = self.rows[i]
+            row[key] = t
+            if row["main_path"]:
+                s = self.sums[row["kernel"]]
+                s[key] = (s[key] or 0.0) + t
+        for row in self.rows:
+            gen = row["cupti_general_ms"]
+            print(f"  {row['kernel']:20s} {row['case']:34s} CUPTI "
+                  f"{row['cupti_ms']:.4f}"
+                  + (f" general {gen:.4f}" if gen is not None else "")
+                  + f" events {row['ms']:.4f} bound {row['bound_ms']:.4f}")
+
     def summary(self):
         """One line per kernel: main-path sums per explain."""
         for k, s in self.sums.items():
             extra = "".join(f" {n} {s[n]:.4f}" for n in (
-                "library_ms", "f32_reference_ms", "general_ms")
+                "library_ms", "f32_reference_ms", "general_ms", "cupti_ms",
+                "cupti_general_ms")
                 if s[n] is not None)
             if s["library_ms"]:
                 extra += f" (x{s['ms'] / s['library_ms']:.2f} of library)"
@@ -469,6 +590,47 @@ def _bitwise_repeat(counter, case, first, launches):
             fail(f"{counter} {case}: launched {what}, the bits differ")
     print(f"  {counter:20s} {case:34s} bitwise equal: "
           + "; ".join(what for what, _ in launches))
+
+
+def _same_bits(a, b) -> bool:
+    """Equal tuples (or tensors) of equal types, f32 compared as bits (so
+    +0.0 and -0.0 differ); None matches only None."""
+    a = a if isinstance(a, tuple) else (a,)
+    b = b if isinstance(b, tuple) else (b,)
+    for x, y in zip(a, b, strict=True):
+        if (x is None) != (y is None):
+            return False
+        if x is None:
+            continue
+        if x.dtype != y.dtype or x.shape != y.shape:
+            return False
+        if x.dtype == torch.float32:
+            x, y = x.view(torch.int32), y.view(torch.int32)
+        if not torch.equal(x, y):
+            return False
+    return True
+
+
+def check_relu_pool(kc, counter, case, x, kernel, plain, general, nbytes,
+                    ops, main, rate=None):
+    """One case of the ReLU / pool template: bitwise its plain version, the
+    general route (B2 / B3 on their first kernels; B2 then B3 for the
+    fused pass) and itself under every block size; timed beside the
+    general route."""
+    from repro_torch.kernels.tiling import RELU_POOL_THREADS
+    got, want = kernel(), plain()
+    torch.cuda.synchronize()
+    for what, out in [("the plain version", want),
+                      ("the general route", general())] + [
+            (f"{t} threads", kernel(threads=t)) for t in RELU_POOL_THREADS]:
+        torch.cuda.synchronize()
+        if not _same_bits(out, got):
+            fail(f"{counter} {case}: the bits differ from {what}")
+    print(f"  {counter:20s} {case:34s} bitwise equal: plain, general, "
+          f"threads {RELU_POOL_THREADS}")
+    kc.record(counter, case, main, tuple(t for t in got if t is not None),
+              tuple(t for t in want if t is not None), True, kernel, plain,
+              nbytes, ops, rate=rate, general_fn=general)
 
 
 def second_fwd_plan(plan, cin: int):
@@ -505,6 +667,18 @@ def second_vmm_bwd_plan(plan):
     return other if other != plan else VmmBwdPlan(64, 16, 16, 4)
 
 
+def general_relu_pool(x, mask):
+    """The fused pass on the general route: B2's first kernel, then B3's
+    (two launches, the ReLU'd map written and read back)."""
+    from repro_torch.kernels.pool.pool import maxpool_fwd
+    from repro_torch.kernels.relu_mask.relu_mask import relu_fwd
+    from repro_torch.kernels.tiling import RELU_POOL_GENERAL
+    n, h, w, c = x.shape
+    y, m = relu_fwd(x.reshape(-1, c), threads=RELU_POOL_GENERAL)
+    y, idx = maxpool_fwd(y.reshape(x.shape), threads=RELU_POOL_GENERAL)
+    return y, (m.reshape(n, h, w, -1) if mask else None), idx
+
+
 def check_kernels(kc: KernelCheck):
     from repro_torch.kernels.conv2d import ref as conv_ref
     from repro_torch.kernels.conv2d.conv2d import (CONV_BWD_GENERAL, conv2d,
@@ -513,12 +687,13 @@ def check_kernels(kc: KernelCheck):
                                                    conv2d_planned,
                                                    conv_bwd_plan, conv_plan)
     from repro_torch.kernels.pool import ref as pool_ref
-    from repro_torch.kernels.pool.pool import maxpool_fwd
+    from repro_torch.kernels.pool.pool import maxpool_fwd, relu_pool_fwd
     from repro_torch.kernels.relu_mask import ref as relu_ref
     from repro_torch.kernels.relu_mask.relu_mask import (gate_gradient,
                                                          relu_fwd,
                                                          unpack_bits)
-    from repro_torch.kernels.tiling import crumb_bytes, mask_bytes
+    from repro_torch.kernels.tiling import (RELU_POOL_GENERAL, crumb_bytes,
+                                            mask_bytes)
     from repro_torch.kernels.vmm import ref as vmm_ref
     from repro_torch.kernels.vmm.vmm import (VMM_BWD_GENERAL, vmm,
                                              vmm_bwd_fused,
@@ -552,25 +727,50 @@ def check_kernels(kc: KernelCheck):
                   lambda: conv2d(x, w, b), lambda: conv_ref.conv2d(x, w) + b,
                   nbytes, flops, lambda: F.conv2d(xn, wn, b, padding=1))
 
-    # B2 relu + mask: the five rectifiers of the forward
-    for r, c in ((n * 32 * 32, 32), (n * 32 * 32, 32), (n * 16 * 16, 64),
-                 (n * 16 * 16, 64), (n, 128)):
+    # B2 relu + mask: the three rectifiers of the forward no pool follows
+    # (conv 0, conv 2, FC0); exact zeros give bit 0 (strict >), -0.0 +0.0
+    for r, c in ((n * 32 * 32, 32), (n * 16 * 16, 64), (n, 128)):
         x = randn(gen, r, c)
-        x[0] = 0.0                        # exact zeros: bit 0 (strict >)
-        nbytes = 4 * 2 * r * c + r * mask_bytes(c)
-        kc.record("relu_fwd", f"[{r},{c}]", True, relu_fwd(x),
-                  relu_ref.relu_fwd(x), True, lambda: relu_fwd(x),
-                  lambda: relu_ref.relu_fwd(x), nbytes, r * c)
+        x[0] = 0.0
+        x[1] = -0.0
+        check_relu_pool(
+            kc, "relu_fwd", f"[{r},{c}]", x,
+            lambda x=x, **kw: relu_fwd(x, **kw),
+            lambda x=x: relu_ref.relu_fwd(x),
+            lambda x=x: relu_fwd(x, threads=RELU_POOL_GENERAL),
+            4 * 2 * r * c + r * mask_bytes(c), r * c, True)
 
-    # B3 pool + argmax, on post-ReLU maps (many tied all-zero windows)
+    # B3 pool + argmax alone, on post-ReLU maps (many tied all-zero
+    # windows): the vjp standalone ops' and training's pools
     for h, c in ((32, 32), (16, 64)):
         x = torch.clamp_min(randn(gen, n, h, h, c) - 0.5, 0)
         nbytes = (4 * x.numel() + 4 * x.numel() // 4
                   + n * (h // 2) ** 2 * crumb_bytes(c))
-        kc.record("maxpool_fwd", f"[{n},{h},{h},{c}]", True, maxpool_fwd(x),
-                  pool_ref.maxpool_fwd(x), True, lambda: maxpool_fwd(x),
-                  lambda: pool_ref.maxpool_fwd(x), nbytes,
-                  3 * x.numel() // 4)
+        check_relu_pool(
+            kc, "maxpool_fwd", f"[{n},{h},{h},{c}]", x,
+            lambda x=x, **kw: maxpool_fwd(x, **kw),
+            lambda x=x: pool_ref.maxpool_fwd(x),
+            lambda x=x: maxpool_fwd(x, threads=RELU_POOL_GENERAL),
+            nbytes, 3 * x.numel() // 4, True)
+
+    # B2 + B3 fused at the two pooled layers, on conv outputs (all-negative
+    # windows give crumb 0), with the mask (saliency, guided) and without
+    # (deconvnet); the general route is B2 then B3
+    for h, c in ((32, 32), (16, 64)):
+        x = randn(gen, n, h, h, c)
+        x[:, 0, 0] = 0.0
+        x[:, 0, 1] = -0.0
+        for mask in (True, False):
+            nbytes = (4 * x.numel() + 4 * x.numel() // 4
+                      + n * (h // 2) ** 2 * crumb_bytes(c)
+                      + (n * h * h * mask_bytes(c) if mask else 0))
+            check_relu_pool(
+                kc, "relu_pool_fwd",
+                f"[{n},{h},{h},{c}]" + (" mask" if mask else " no mask"), x,
+                lambda x=x, mask=mask, **kw: relu_pool_fwd(x, mask, **kw),
+                lambda x=x, mask=mask: pool_ref.relu_pool_fwd(x, mask),
+                lambda x=x, mask=mask: general_relu_pool(x, mask),
+                nbytes, x.numel() + 3 * x.numel() // 4, mask)
 
     # B4 vmm: FC0 (split K) and FC1 (one slice) with bias, each launched
     # twice: bitwise equal run to run
@@ -1057,6 +1257,84 @@ def sweep_vmm_bwd_plans(gen):
     return rows
 
 
+def sweep_relu_pool(gen):
+    """``--sweep``, the ReLU / pool template (B2, B3, the fused pass with
+    the mask; f32 and int16) at the main-path shapes: every block size of
+    ``RELU_POOL_THREADS`` beside the general route, each bitwise equal to
+    it, timed three ways: the median of single launches between CUDA
+    events, 50 launches between one pair of events, and CUPTI (one
+    profiler session after the event timings)."""
+    from repro_torch.core import fixedpoint
+    from repro_torch.kernels.pool.pool import maxpool_fwd, relu_pool_fwd
+    from repro_torch.kernels.relu_mask.relu_mask import relu_fwd
+    from repro_torch.kernels.tiling import (RELU_POOL_GENERAL,
+                                            RELU_POOL_THREADS, mask_bytes,
+                                            relu_pool_threads)
+    n = BATCH
+    cases = []
+    for dtype in (torch.float32, torch.int16):
+        def make(*shape):
+            x = randn(gen, *shape)
+            return fixedpoint.to_fixed(x) if dtype == torch.int16 else x
+        name = "int16" if dtype == torch.int16 else "f32"
+        for r, c in ((n * 32 * 32, 32), (n * 16 * 16, 64), (n, 128)):
+            x = make(r, c)
+            cases.append((f"relu_fwd {name} [{r},{c}]", r * mask_bytes(c),
+                          lambda x=x, t=None: relu_fwd(x, threads=t),
+                          lambda x=x: relu_fwd(x, threads=RELU_POOL_GENERAL)))
+        for h, c in ((32, 32), (16, 64)):
+            x = make(n, h, h, c)
+            work = n * (h // 2) ** 2 * mask_bytes(c)
+            xr = torch.clamp_min(x, 0)
+            cases.append((f"maxpool_fwd {name} [{n},{h},{h},{c}]", work,
+                          lambda x=xr, t=None: maxpool_fwd(x, threads=t),
+                          lambda x=xr: maxpool_fwd(
+                              x, threads=RELU_POOL_GENERAL)))
+            cases.append((f"relu_pool_fwd {name} [{n},{h},{h},{c}] mask",
+                          work,
+                          lambda x=x, t=None: relu_pool_fwd(x, threads=t),
+                          lambda x=x: general_relu_pool(x, True)))
+    runs, rows = [], []
+    for case, work, fn, general_fn in cases:
+        first, general = fn(), general_fn()
+        torch.cuda.synchronize()
+        if not _same_bits(first, general):
+            fail(f"sweep {case}: not bitwise equal to the general route")
+        row = dict(case=case, chosen=relu_pool_threads(work), threads={},
+                   general=dict(events_ms=device_time_ms(general_fn),
+                                batched_ms=batched_ms(general_fn)))
+        runs.append((row, None, general_fn))
+        for t in RELU_POOL_THREADS:
+            if not _same_bits(fn(t=t), first):
+                fail(f"sweep {case}: {t} threads change the bits")
+            row["threads"][t] = dict(
+                events_ms=device_time_ms(lambda: fn(t=t)),
+                batched_ms=batched_ms(lambda: fn(t=t)))
+            runs.append((row, t, lambda fn=fn, t=t: fn(t=t)))
+        rows.append(row)
+    times = cupti_per_call([f for _, _, f in runs])
+    for (row, t, _), ms in zip(runs, times or [None] * len(runs)):
+        (row["general"] if t is None else row["threads"][t])["cupti_ms"] = ms
+    for row in rows:
+        by = sorted(row["threads"].items(),
+                    key=lambda kv: kv[1]["cupti_ms"] or kv[1]["batched_ms"])
+        rank = [t for t, _ in by].index(row["chosen"]) + 1
+        g = row["general"]
+        print(f"  {row['case']}: rule {row['chosen']} threads, rank {rank} "
+              f"of {len(by)} (every block size bitwise equal); general "
+              f"route events {g['events_ms']:.4f} batched "
+              f"{g['batched_ms']:.4f} CUPTI "
+              + (f"{g['cupti_ms']:.4f}" if g["cupti_ms"] is not None
+                 else "not measured") + "; "
+              + "; ".join(f"{t}: events {v['events_ms']:.4f} batched "
+                          f"{v['batched_ms']:.4f} CUPTI "
+                          + (f"{v['cupti_ms']:.4f}" if v["cupti_ms"]
+                             is not None else "not measured")
+                          for t, v in by))
+        row["rank"] = rank
+    return rows
+
+
 def check_kernels_fxp(kc: KernelCheck):
     """The fxp16 path's kernels (B7-B10, int16 B2/B3), bitwise."""
     from repro_torch.core import fixedpoint, masks
@@ -1069,12 +1347,15 @@ def check_kernels_fxp(kc: KernelCheck):
                                                 conv2d_fxp,
                                                 conv2d_fxp_planned)
     from repro_torch.kernels.pool import ref as pool_ref
-    from repro_torch.kernels.pool.fxp import maxpool_fwd_fxp
+    from repro_torch.kernels.pool.fxp import (maxpool_fwd_fxp,
+                                              relu_pool_fwd_fxp)
+    from repro_torch.kernels.pool.pool import maxpool_fwd, relu_pool_fwd
     from repro_torch.kernels.relu_mask import ref as relu_ref
     from repro_torch.kernels.relu_mask.relu_mask import (gate_gradient,
                                                          relu_fwd,
                                                          unpack_bits)
-    from repro_torch.kernels.tiling import crumb_bytes, mask_bytes
+    from repro_torch.kernels.tiling import (RELU_POOL_GENERAL, crumb_bytes,
+                                            mask_bytes)
     from repro_torch.kernels.vmm import ref as vmm_ref
     from repro_torch.kernels.vmm.fxp import (vmm_bwd_fused_fxp,
                                              vmm_bwd_fused_fxp_plain,
@@ -1142,26 +1423,58 @@ def check_kernels_fxp(kc: KernelCheck):
               2 * (x.numel() * 2 + w.numel()), x.numel() * 9 * 64,
               rate=rate)
 
-    # int16 B2 relu + mask: the five rectifiers of the fxp16 forward
-    for r, c in ((n * 32 * 32, 32), (n * 32 * 32, 32), (n * 16 * 16, 64),
-                 (n * 16 * 16, 64), (n, 128)):
+    # int16 B2 relu + mask: the three rectifiers of the fxp16 forward no
+    # pool follows, exact zeros giving bit 0 (strict >), and the rails
+    for r, c in ((n * 32 * 32, 32), (n * 16 * 16, 64), (n, 128)):
         x = qact(r, c)
         x[0] = 0                          # exact zeros: bit 0 (strict >)
-        nbytes = 2 * 2 * r * c + r * mask_bytes(c)
-        kc.record("relu_fwd_i16", f"[{r},{c}] int16", True, relu_fwd(x),
-                  relu_ref.relu_fwd(x), True, lambda: relu_fwd(x),
-                  lambda: relu_ref.relu_fwd(x), nbytes, r * c, rate=rate)
+        x[1] = rails(c)
+        x[-1, ::3] = -lim - 1
+        check_relu_pool(
+            kc, "relu_fwd_i16", f"[{r},{c}] int16", x,
+            lambda x=x, **kw: relu_fwd(x, **kw),
+            lambda x=x: relu_ref.relu_fwd(x),
+            lambda x=x: relu_fwd(x, threads=RELU_POOL_GENERAL),
+            2 * 2 * r * c + r * mask_bytes(c), r * c, True, rate=rate)
 
-    # int16 B3 pool + argmax on post-ReLU int16 maps: ties on the grid
+    # int16 B3 pool + argmax alone on post-ReLU int16 maps: ties on the grid
     for h, c in ((32, 32), (16, 64)):
         x = torch.clamp_min(qact(n, h, h, c, scale=0.05), 0)
         nbytes = (2 * x.numel() + 2 * x.numel() // 4
                   + n * (h // 2) ** 2 * crumb_bytes(c))
-        kc.record("maxpool_fwd_i16", f"[{n},{h},{h},{c}] int16", True,
-                  maxpool_fwd_fxp(x), pool_ref.maxpool_fwd(x), True,
-                  lambda: maxpool_fwd_fxp(x),
-                  lambda: pool_ref.maxpool_fwd(x), nbytes,
-                  3 * x.numel() // 4, rate=rate)
+        check_relu_pool(
+            kc, "maxpool_fwd_i16", f"[{n},{h},{h},{c}] int16", x,
+            lambda x=x, **kw: maxpool_fwd(x, **kw),
+            lambda x=x: pool_ref.maxpool_fwd(x),
+            lambda x=x: maxpool_fwd(x, threads=RELU_POOL_GENERAL),
+            nbytes, 3 * x.numel() // 4, True, rate=rate)
+        if not _same_bits(maxpool_fwd_fxp(x), maxpool_fwd(x)):
+            fail(f"maxpool_fwd_fxp [{n},{h},{h},{c}]: differs from "
+                 f"maxpool_fwd on int16")
+
+    # int16 B2 + B3 fused at the two pooled layers, with and without the
+    # mask, on int16 conv outputs with rails, beside B2 then B3
+    for h, c in ((32, 32), (16, 64)):
+        x = qact(n, h, h, c, scale=0.05)
+        x[:, 0] = rails(n, h, c)
+        x[:, 1, 0] = 0
+        x[:, 1, 1] = -lim - 1
+        for mask in (True, False):
+            nbytes = (2 * x.numel() + 2 * x.numel() // 4
+                      + n * (h // 2) ** 2 * crumb_bytes(c)
+                      + (n * h * h * mask_bytes(c) if mask else 0))
+            check_relu_pool(
+                kc, "relu_pool_fwd_i16",
+                f"[{n},{h},{h},{c}] int16" + (" mask" if mask else
+                                              " no mask"), x,
+                lambda x=x, mask=mask, **kw: relu_pool_fwd(x, mask, **kw),
+                lambda x=x, mask=mask: pool_ref.relu_pool_fwd(x, mask),
+                lambda x=x, mask=mask: general_relu_pool(x, mask),
+                nbytes, x.numel() + 3 * x.numel() // 4, mask, rate=rate)
+        got = relu_pool_fwd_fxp(x)
+        if not _same_bits(got, relu_pool_fwd(x)):
+            fail(f"relu_pool_fwd_fxp [{n},{h},{h},{c}]: differs from "
+                 f"relu_pool_fwd on int16")
 
     # B9 int16 FC forward (+ saturating bias): FC0 (split K) and FC1 (one
     # slice), bitwise equal to the plain version, and launched again and
@@ -1593,11 +1906,12 @@ def _span_ms(fn, reps: int = 5) -> float:
 # ---------------------------------------------------------------------------
 
 #: kernel launches per explain (forward + one seed-batched backward), per
-#: path; every other counter must stay at 0
+#: path; every other counter must stay at 0 (B3 alone among them: the
+#: pooled layers run ReLU and pool as one fused launch)
 PER_EXPLAIN = {
-    "f32": {"conv2d_fwd": 4, "relu_fwd": 5, "maxpool_fwd": 2, "vmm_fwd": 2,
-            "conv2d_bwd_fused": 4, "vmm_bwd_fused": 2},
-    "fxp16": {"conv2d_fxp_fwd": 4, "relu_fwd": 5, "maxpool_fwd": 2,
+    "f32": {"conv2d_fwd": 4, "relu_fwd": 3, "relu_pool_fwd": 2,
+            "vmm_fwd": 2, "conv2d_bwd_fused": 4, "vmm_bwd_fused": 2},
+    "fxp16": {"conv2d_fxp_fwd": 4, "relu_fwd": 3, "relu_pool_fwd": 2,
               "vmm_fxp_fwd": 2, "conv2d_bwd_fused_fxp": 4,
               "vmm_bwd_fused_fxp": 2},
 }
@@ -1642,7 +1956,9 @@ def check_engine(params, cfg, x_cpu, precision, to_profile):
         want = {k: 0 for k in LAUNCHES}
         want.update(PER_EXPLAIN[precision])
         if method == "deconvnet":
-            want["relu_fwd"] = 0         # Table II: no mask stored
+            # Table II: no mask stored; the pooled layers still run the
+            # fused pass (without the mask), the others torch.clamp_min
+            want["relu_fwd"] = 0
         if rose != want:
             fail(f"{precision} {method}: launches per explain {rose}, "
                  f"want {want}")
@@ -1748,8 +2064,9 @@ def serve_requests(params, cfg, x_cpu, precision):
 #: kernel launches per vjp explain with SEEDS seeds (one forward, then one
 #: backward pass per seed), per branch; every other counter stays at 0
 PER_EXPLAIN_VJP = {
-    # (a) fused blocks: B5/B6 at S = 1 for dx, no weight gradient asked for
-    "vjp_fused": {"conv2d_fwd": 4, "relu_fwd": 5, "maxpool_fwd": 2,
+    # (a) fused blocks: B5/B6 at S = 1 for dx, no weight gradient asked
+    # for; ReLU and pool fused at the pooled layers
+    "vjp_fused": {"conv2d_fwd": 4, "relu_fwd": 3, "relu_pool_fwd": 2,
                   "vmm_fwd": 2, "conv2d_bwd_fused": 4 * SEEDS,
                   "vmm_bwd_fused": 2 * SEEDS},
     # (b) standalone ops: B1/B4 reused for dx (Table I), B11 at the five
@@ -2410,7 +2727,8 @@ def main() -> int:
                     or "spill stores" in line):
                 print("   ", line.strip())
         found = kernel_resources(text, REDESIGNED)
-        print("  redesigned B1/B4/B5/B6/B7/B8/B9/B10/B13 kernels (ptxas): "
+        print("  redesigned B1/B2/B3/B4/B5/B6/B7/B8/B9/B10/B13 kernels "
+              "(ptxas): "
               + "; ".join(f"{name} {regs} registers, spill stores {st} B, "
                           f"loads {ld} B" for name, regs, st, ld in found))
 
@@ -2431,6 +2749,11 @@ def main() -> int:
               f"median of {SWEEP_BWD_REPS} back-to-back runs)")
         rows["vmm_bwd"] = sweep_vmm_bwd_plans(torch.Generator(device="cuda")
                                               .manual_seed(0))
+        print(f"sweep: ReLU / pool template block sizes, f32 and int16 (ms "
+              f"a launch: median of {REPS} between events, {REPS} back to "
+              f"back, CUPTI)")
+        rows["relu_pool"] = sweep_relu_pool(torch.Generator(device="cuda")
+                                            .manual_seed(0))
         if args.out is not None:
             args.out.mkdir(parents=True, exist_ok=True)
             (args.out / "kernel_sweep.json").write_text(json.dumps(dict(
@@ -2495,6 +2818,11 @@ def main() -> int:
           "torch.profiler")
     profiles = {what: profile_breakdown(fn, what, wall)
                 for what, fn, wall in to_profile}
+    print(f"profiler column of phase 2: each row's kernel (and general "
+          f"route) {REPS} times under one torch.profiler session, CUPTI ms "
+          f"a call")
+    kc.profile()
+    kc.summary()
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():

@@ -25,9 +25,13 @@
 // candidates itself, zeros included, so every output element has exactly
 // one writer (no memset, no scatter, no atomics) and is written once, with
 // one 4-element vector per candidate when C % 4 == 0 and the pointers are
-// aligned to it.  No shared memory.
+// aligned to it.  No shared memory.  The forward runs the B3 instance of
+// relu_pool.cuh's template, and the fused ReLU+mask+pool instances of the
+// pooled layers enter here too; maxpool_fwd_kernel below is the first
+// design of the forward, kept as the general route (threads == 0), against
+// which the card tests and chip_smoke.py hold and time the template.
 
-#include "common.cuh"
+#include "relu_pool.cuh"
 
 namespace {
 
@@ -64,15 +68,34 @@ __global__ void maxpool_fwd_kernel(const T* __restrict__ x, T* __restrict__ y,
   idx[t] = static_cast<uint8_t>(byte);
 }
 
+// threads == 0: the general kernel (256-thread blocks); else the template's
+// B3 instance in blocks of `threads`, with programmatic dependent launch.
 template <typename T>
 int maxpool_fwd(const T* x, T* y, uint8_t* idx, int n, int h, int w, int c,
-                cudaStream_t stream) {
+                int threads, cudaStream_t stream) {
+  if (threads != 0)
+    return rp::launch<T, true, false, false>(x, y, nullptr, idx,
+                                             n * (h / 2) * (w / 2), h, w, c,
+                                             threads, stream);
   const int cb = (c + 3) / 4;
-  const int total = n * (h / 2) * (w / 2) * cb, threads = 256;
+  const int total = n * (h / 2) * (w / 2) * cb, general_threads = 256;
   maxpool_fwd_kernel<T>
-      <<<(total + threads - 1) / threads, threads, 0, stream>>>(x, y, idx, n,
-                                                                h, w, c, cb);
+      <<<(total + general_threads - 1) / general_threads, general_threads,
+         0, stream>>>(x, y, idx, n, h, w, c, cb);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The fused ReLU (+ mask where m is not null) + pool of a pooled layer:
+// the template's <T, true, true, true> or <T, true, true, false>.
+template <typename T>
+int relu_pool_fwd(const T* x, T* y, uint8_t* m, uint8_t* idx, int n, int h,
+                  int w, int c, int threads, cudaStream_t stream) {
+  const int pixels = n * (h / 2) * (w / 2);
+  if (m == nullptr)
+    return rp::launch<T, true, true, false>(x, y, m, idx, pixels, h, w, c,
+                                            threads, stream);
+  return rp::launch<T, true, true, true>(x, y, m, idx, pixels, h, w, c,
+                                         threads, stream);
 }
 
 // Four consecutive elements as one vector (16 bytes of f32, 8 of int16).
@@ -165,14 +188,29 @@ int unpool_bwd(const uint8_t* idx, const T* g, T* out, int n, int hp,
 }  // namespace
 
 REPRO_API int repro_maxpool_fwd(const float* x, float* y, uint8_t* idx, int n,
-                                int h, int w, int c, cudaStream_t stream) {
-  return maxpool_fwd<float>(x, y, idx, n, h, w, c, stream);
+                                int h, int w, int c, int threads,
+                                cudaStream_t stream) {
+  return maxpool_fwd<float>(x, y, idx, n, h, w, c, threads, stream);
 }
 
 REPRO_API int repro_maxpool_fwd_i16(const int16_t* x, int16_t* y,
                                     uint8_t* idx, int n, int h, int w, int c,
-                                    cudaStream_t stream) {
-  return maxpool_fwd<int16_t>(x, y, idx, n, h, w, c, stream);
+                                    int threads, cudaStream_t stream) {
+  return maxpool_fwd<int16_t>(x, y, idx, n, h, w, c, threads, stream);
+}
+
+// m may be null: the no-mask instance (deconvnet stores no ReLU mask).
+REPRO_API int repro_relu_pool_fwd(const float* x, float* y, uint8_t* m,
+                                  uint8_t* idx, int n, int h, int w, int c,
+                                  int threads, cudaStream_t stream) {
+  return relu_pool_fwd<float>(x, y, m, idx, n, h, w, c, threads, stream);
+}
+
+REPRO_API int repro_relu_pool_fwd_i16(const int16_t* x, int16_t* y,
+                                      uint8_t* m, uint8_t* idx, int n, int h,
+                                      int w, int c, int threads,
+                                      cudaStream_t stream) {
+  return relu_pool_fwd<int16_t>(x, y, m, idx, n, h, w, c, threads, stream);
 }
 
 REPRO_API int repro_unpool_bwd(const uint8_t* idx, const float* g, float* out,

@@ -15,54 +15,19 @@
 // Bound on an H100: bytes.  The forward reads sizeof(T) bytes and writes
 // sizeof(T) + 1/8 per element, the backward reads sizeof(T) + 1/8 (no mask
 // byte for deconvnet) and writes sizeof(T); each does one compare or select
-// per element, far below the card's compute rate.  Design, both ways: one
-// thread per mask byte covers its eight elements (two 16-byte loads and
-// stores for f32, one for int16, when C is a multiple of 8 and the pointers
-// are 16-byte aligned, so a warp streams contiguous runs) and reads or
-// writes the one byte.  No shared memory, no atomics: each output has
-// exactly one writer.
+// per element, far below the card's compute rate.  The forward runs the
+// B2 instance of relu_pool.cuh's template; relu_fwd_kernel below is its
+// first design, kept as the general route (threads == 0), against which
+// the card tests and chip_smoke.py hold and time the template.  Design of
+// both it and the backward: one thread per mask byte covers its eight
+// elements (two 16-byte loads and stores for f32, one for int16, when C is
+// a multiple of 8 and the pointers are 16-byte aligned, so a warp streams
+// contiguous runs) and reads or writes the one byte.  No shared memory, no
+// atomics: each output has exactly one writer.
 
-#include "common.cuh"
+#include "relu_pool.cuh"
 
 namespace {
-
-// Eight consecutive elements as one or two 16-byte vectors.
-template <typename T>
-struct Vec8;
-
-template <>
-struct Vec8<float> {
-  __device__ static void load(const float* p, float v[8]) {
-    const float4 a = reinterpret_cast<const float4*>(p)[0];
-    const float4 b = reinterpret_cast<const float4*>(p)[1];
-    v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
-    v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
-  }
-  __device__ static void store(float* p, const float v[8]) {
-    reinterpret_cast<float4*>(p)[0] = make_float4(v[0], v[1], v[2], v[3]);
-    reinterpret_cast<float4*>(p)[1] = make_float4(v[4], v[5], v[6], v[7]);
-  }
-};
-
-template <>
-struct Vec8<int16_t> {
-  union U {
-    int4 q;
-    int16_t h[8];
-  };
-  __device__ static void load(const int16_t* p, int16_t v[8]) {
-    U u;
-    u.q = reinterpret_cast<const int4*>(p)[0];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) v[j] = u.h[j];
-  }
-  __device__ static void store(int16_t* p, const int16_t v[8]) {
-    U u;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) u.h[j] = v[j];
-    reinterpret_cast<int4*>(p)[0] = u.q;
-  }
-};
 
 template <typename T>
 __global__ void relu_fwd_kernel(const T* __restrict__ x, T* __restrict__ y,
@@ -94,16 +59,22 @@ __global__ void relu_fwd_kernel(const T* __restrict__ x, T* __restrict__ y,
   m[t] = static_cast<uint8_t>(byte);
 }
 
+// threads == 0: the general kernel (256-thread blocks); else the template's
+// B2 instance in blocks of `threads`, with programmatic dependent launch.
 template <typename T>
-int relu_fwd(const T* x, T* y, uint8_t* m, int rows, int c,
+int relu_fwd(const T* x, T* y, uint8_t* m, int rows, int c, int threads,
              cudaStream_t stream) {
+  if (threads != 0)
+    return rp::launch<T, false, true, true>(x, y, m, nullptr, rows, 1, 1, c,
+                                            threads, stream);
   const int cb = (c + 7) / 8;
   const int vec = (c % 8 == 0) &&
                   (reinterpret_cast<uintptr_t>(x) % 16 == 0) &&
                   (reinterpret_cast<uintptr_t>(y) % 16 == 0);
-  const int total = rows * cb, threads = 256;
-  relu_fwd_kernel<T><<<(total + threads - 1) / threads, threads, 0, stream>>>(
-      x, y, m, rows, c, cb, vec);
+  const int total = rows * cb, general_threads = 256;
+  relu_fwd_kernel<T><<<(total + general_threads - 1) / general_threads,
+                       general_threads, 0, stream>>>(x, y, m, rows, c, cb,
+                                                     vec);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -171,13 +142,14 @@ REPRO_API int repro_set_device(int device) {
 }
 
 REPRO_API int repro_relu_fwd(const float* x, float* y, uint8_t* m, int rows,
-                             int c, cudaStream_t stream) {
-  return relu_fwd<float>(x, y, m, rows, c, stream);
+                             int c, int threads, cudaStream_t stream) {
+  return relu_fwd<float>(x, y, m, rows, c, threads, stream);
 }
 
 REPRO_API int repro_relu_fwd_i16(const int16_t* x, int16_t* y, uint8_t* m,
-                                 int rows, int c, cudaStream_t stream) {
-  return relu_fwd<int16_t>(x, y, m, rows, c, stream);
+                                 int rows, int c, int threads,
+                                 cudaStream_t stream) {
+  return relu_fwd<int16_t>(x, y, m, rows, c, threads, stream);
 }
 
 // m may be null for deconvnet (method 1), which reads no mask.

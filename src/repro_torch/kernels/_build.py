@@ -35,8 +35,12 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P, _I = ctypes.c_void_p, ctypes.c_int
 #: C entry point -> argtypes (pointers and the stream as void*, sizes int).
 SIGNATURES = {
-    "repro_relu_fwd": [_P, _P, _P, _I, _I, _P],
-    "repro_maxpool_fwd": [_P, _P, _P, _I, _I, _I, _I, _P],
+    # the ReLU / pool template (B2, B3, and the two fused): x, y, then the
+    # mask and / or crumbs, the sizes and the block size (0: the general
+    # kernel of B2 / B3)
+    "repro_relu_fwd": [_P, _P, _P, _I, _I, _I, _P],
+    "repro_maxpool_fwd": [_P, _P, _P] + [_I] * 5 + [_P],
+    "repro_relu_pool_fwd": [_P] * 4 + [_I] * 5 + [_P],
     # f32 forward: x, w, bias, y, m, k, n, then the split-K workspace, the
     # number of K slices and their length
     "repro_vmm_fwd": [_P, _P, _P, _P, _I, _I, _I, _P, _I, _I, _P],
@@ -53,8 +57,9 @@ SIGNATURES = {
     # slices; all 0: the general kernel)
     "repro_conv2d_bwd_fused": [_P] * 6 + [_I] * 16 + [_P],
     # the fxp16 path: int16 instances of B2/B3 and the int16 kernels B7-B10
-    "repro_relu_fwd_i16": [_P, _P, _P, _I, _I, _P],
-    "repro_maxpool_fwd_i16": [_P, _P, _P, _I, _I, _I, _I, _P],
+    "repro_relu_fwd_i16": [_P, _P, _P, _I, _I, _I, _P],
+    "repro_maxpool_fwd_i16": [_P, _P, _P] + [_I] * 5 + [_P],
+    "repro_relu_pool_fwd_i16": [_P] * 4 + [_I] * 5 + [_P],
     # int16 forward: the f32 one's arguments and plan (all 0: the general
     # kernel)
     "repro_conv2d_fxp_fwd": [_P, _P, _P, _P] + [_I] * 10 + [_P],
@@ -81,12 +86,15 @@ SIGNATURES = {
 #: Launches per kernel wrapper since the last :func:`reset_launches`.  A
 #: wrapper adds one where it launches its kernel and nowhere else, so a run
 #: can show that its path went through the kernels.  The int16 instances of
-#: ReLU+mask, pool and unpool count under ``relu_fwd``, ``maxpool_fwd`` and
-#: ``unpool_bwd``, both element types of the scan under ``selective_scan``
-#: and of its backward under ``selective_scan_bwd`` (one entry point that
-#: runs the reverse scan and the partial sums counts once).
+#: ReLU+mask, pool, the fused ReLU+mask+pool and unpool count under
+#: ``relu_fwd``, ``maxpool_fwd``, ``relu_pool_fwd`` and ``unpool_bwd`` (a
+#: fused launch counts under ``relu_pool_fwd`` alone), both element types
+#: of the scan under ``selective_scan`` and of its backward under
+#: ``selective_scan_bwd`` (one entry point that runs the reverse scan and
+#: the partial sums counts once).
 LAUNCHES: Dict[str, int] = {
-    "conv2d_fwd": 0, "relu_fwd": 0, "maxpool_fwd": 0, "vmm_fwd": 0,
+    "conv2d_fwd": 0, "relu_fwd": 0, "maxpool_fwd": 0, "relu_pool_fwd": 0,
+    "vmm_fwd": 0,
     "conv2d_bwd_fused": 0, "vmm_bwd_fused": 0,
     "conv2d_fxp_fwd": 0, "conv2d_bwd_fused_fxp": 0, "vmm_fxp_fwd": 0,
     "vmm_bwd_fused_fxp": 0, "relu_bwd": 0, "unpool_bwd": 0,

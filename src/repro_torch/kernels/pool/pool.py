@@ -1,8 +1,14 @@
-"""2x2 max-pool + 2-bit argmax (paper §III.D, Fig. 5).
+"""2x2 max-pool + 2-bit argmax (paper §III.D, Fig. 5), alone and fused with
+the ReLU + 1-bit mask before it.
 
-:func:`maxpool_fwd` wraps the CUDA kernel ``csrc/pool.cu`` (the port of
-``repro.kernels.pool.pool.maxpool_fwd_pallas``): one pass emits the pooled
-map and the crumb-packed argmax.  :func:`unpool_bwd` wraps its backward
+:func:`maxpool_fwd` wraps the B3 instance of the CUDA template
+``csrc/relu_pool.cuh`` (the port of
+``repro.kernels.pool.pool.maxpool_fwd_pallas``; entry in ``csrc/pool.cu``):
+one pass emits the pooled map and the crumb-packed argmax.
+:func:`relu_pool_fwd` runs the template's fused instance at the pooled
+conv layers: ReLU (+ the 1-bit mask of every pre-pool element) and the
+pool in one pass, where B2 then B3 would write the ReLU'd map and read it
+back.  :func:`unpool_bwd` wraps its backward
 twin (the port of ``unpool_bwd_pallas``): the pooled gradient routed to
 the stored argmax, the backward of the standalone pool (``pool.ops``).  On
 the seed-batched path the unpool runs instead as the prologue of the fused
@@ -11,11 +17,14 @@ conv backward (``conv2d.conv2d_bwd_fused``), whose plain twin calls
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from repro_torch.kernels import _build, check, check_kernel_operands, on_card
 from repro_torch.kernels.pool import ref
-from repro_torch.kernels.tiling import crumb_bytes
+from repro_torch.kernels.tiling import (check_relu_pool_threads, crumb_bytes,
+                                        mask_bytes, relu_pool_threads)
 
 
 #: Kernel entry point per element type: f32, and int16 for the fxp16 path.
@@ -23,29 +32,90 @@ _ENTRY = {torch.float32: "repro_maxpool_fwd",
           torch.int16: "repro_maxpool_fwd_i16"}
 
 
-def maxpool_fwd(x: torch.Tensor):
+def _check_map(name: str, x: torch.Tensor) -> None:
+    if x.dim() != 4 or x.shape[1] % 2 or x.shape[2] % 2:
+        raise ValueError(f"{name}: x must be [N, H, W, C] with even H, W; "
+                         f"got {tuple(x.shape)}")
+    check(name, x, tuple(_ENTRY), what="x")
+
+
+def _pooled(x: torch.Tensor):
+    """Empty pooled map and crumbs for ``x`` [N, H, W, C]."""
+    n, h, w, c = x.shape
+    y = torch.empty((n, h // 2, w // 2, c), dtype=x.dtype, device=x.device)
+    idx = torch.empty((n, h // 2, w // 2, crumb_bytes(c)), dtype=torch.uint8,
+                      device=x.device)
+    return y, idx
+
+
+def _threads(x: torch.Tensor, threads: Optional[int]) -> int:
+    """The rule's block size for the pooled instances over ``x``: one
+    thread a window and 8 channels."""
+    if threads is not None:
+        return threads
+    n, h, w, c = x.shape
+    return relu_pool_threads(n * (h // 2) * (w // 2) * mask_bytes(c))
+
+
+def maxpool_fwd(x: torch.Tensor, *, threads: Optional[int] = None):
     """x: [N, H, W, C] f32 or int16, H and W even -> (pooled [N, H/2, W/2,
     C] of the same type, packed argmax uint8 [N, H/2, W/2, ceil(C/4)]).
 
     Candidates are (0,0), (0,1), (1,0), (1,1); the first maximum wins.
     CPU tensors run :func:`ref.maxpool_fwd`; CUDA tensors the kernel.
+    ``threads``: the block size (tests, sweeps): :func:`relu_pool_threads`'s
+    by default, ``RELU_POOL_GENERAL`` for the general kernel; every choice
+    gives the same bits.
     """
     name = "maxpool_fwd"
-    if x.dim() != 4 or x.shape[1] % 2 or x.shape[2] % 2:
-        raise ValueError(f"{name}: x must be [N, H, W, C] with even H, W; "
-                         f"got {tuple(x.shape)}")
-    check(name, x, tuple(_ENTRY), what="x")
+    _check_map(name, x)
+    threads = _threads(x, threads)
+    check_relu_pool_threads(name, threads)
     if not on_card(name, x):
         return ref.maxpool_fwd(x)
     check_kernel_operands(name, x)
     n, h, w, c = x.shape
-    y = torch.empty((n, h // 2, w // 2, c), dtype=x.dtype, device=x.device)
-    idx = torch.empty((n, h // 2, w // 2, crumb_bytes(c)), dtype=torch.uint8,
-                      device=x.device)
+    y, idx = _pooled(x)
     if y.numel():
         _build.launch(name, _ENTRY[x.dtype], x.device, x.data_ptr(),
-                      y.data_ptr(), idx.data_ptr(), n, h, w, c)
+                      y.data_ptr(), idx.data_ptr(), n, h, w, c, threads)
     return y, idx
+
+
+#: Fused ReLU+mask+pool entry point per element type.
+_FUSED_ENTRY = {torch.float32: "repro_relu_pool_fwd",
+                torch.int16: "repro_relu_pool_fwd_i16"}
+
+
+def relu_pool_fwd(x: torch.Tensor, mask: bool = True, *,
+                  threads: Optional[int] = None):
+    """x: [N, H, W, C] f32 or int16 (a conv's output), H and W even ->
+    (pooled ReLU [N, H/2, W/2, C] of the same type, the 1-bit mask of
+    ``x > 0`` uint8 [N, H, W, ceil(C/8)] or None where not ``mask``, packed
+    argmax uint8 [N, H/2, W/2, ceil(C/4)]).
+
+    Bitwise :func:`maxpool_fwd` of :func:`relu_mask.relu_fwd`'s output and
+    its mask in ``_relu_fwd_mask4``'s layout (``mask=False``: deconvnet,
+    which stores no mask, Table II), in one launch.  CPU tensors run
+    :func:`ref.relu_pool_fwd`; CUDA tensors the kernel.  ``threads``: the
+    block size (tests, sweeps), :func:`relu_pool_threads`'s by default.
+    """
+    name = "relu_pool_fwd"
+    _check_map(name, x)
+    threads = _threads(x, threads)
+    check_relu_pool_threads(name, threads, general=False)
+    if not on_card(name, x):
+        return ref.relu_pool_fwd(x, mask)
+    check_kernel_operands(name, x)
+    n, h, w, c = x.shape
+    y, idx = _pooled(x)
+    m = (torch.empty((n, h, w, mask_bytes(c)), dtype=torch.uint8,
+                     device=x.device) if mask else None)
+    if y.numel():
+        _build.launch(name, _FUSED_ENTRY[x.dtype], x.device, x.data_ptr(),
+                      y.data_ptr(), _build.ptr(m), idx.data_ptr(), n, h, w,
+                      c, threads)
+    return y, m, idx
 
 
 #: Backward entry point per element type: f32, and int16 for the fxp16 path.

@@ -1,7 +1,9 @@
-"""Plain PyTorch version of the 2x2 max-pool / unpool kernels (Fig. 5)."""
+"""Plain PyTorch version of the 2x2 max-pool / unpool kernels (Fig. 5), and
+of the pool fused with the ReLU + mask before it."""
 import torch
 
 from repro_torch.core import masks
+from repro_torch.kernels.relu_mask import ref as relu_ref
 
 #: Window candidate order; the first maximum wins (``jnp.argmax``).
 OFFSETS = ((0, 0), (0, 1), (1, 0), (1, 1))
@@ -26,6 +28,15 @@ def maxpool_fwd(x: torch.Tensor):
         best = torch.where(gt, c, best)
         idx = torch.where(gt, k, idx)
     return best, masks.pack_crumbs(idx)
+
+
+def relu_pool_fwd(x: torch.Tensor, mask: bool = True):
+    """NHWC -> (pooled ReLU, 1-bit mask [N, H, W, ceil(C/8)] or None, 2-bit
+    packed argmax): the two plain versions composed."""
+    n, h, w, c = x.shape
+    y, m = relu_ref.relu_fwd(x.reshape(-1, c))
+    pooled, idx = maxpool_fwd(y.reshape(x.shape))
+    return pooled, (m.reshape(n, h, w, -1) if mask else None), idx
 
 
 def unpool_scatter(idx: torch.Tensor, g: torch.Tensor) -> torch.Tensor:

@@ -5,8 +5,13 @@ from repro_torch.core import masks
 
 
 def relu_fwd(x: torch.Tensor):
-    """Returns (relu(x), packed 1-bit mask of ``x > 0`` along the last axis)."""
-    return torch.clamp_min(x, 0), masks.pack_mask(x > 0)
+    """Returns (relu(x), packed 1-bit mask of ``x > 0`` along the last axis).
+
+    ``x > 0 ? x : 0``: -0.0 maps to +0.0, as ``jnp.maximum(x, 0)`` and the
+    kernel give it (``torch.clamp_min`` keeps the sign of -0.0).
+    """
+    gt = x > 0
+    return torch.where(gt, x, 0), masks.pack_mask(gt)
 
 
 def relu_bwd(packed: torch.Tensor, g: torch.Tensor,

@@ -1,8 +1,11 @@
 """Fused ReLU + 1-bit packed mask (paper §III.D, Fig. 4).
 
-:func:`relu_fwd` is the wrapper of the CUDA kernel ``csrc/relu_mask.cu``
-(the port of ``repro.kernels.relu_mask.relu_mask.relu_fwd_pallas``): one
-pass emits ``max(x, 0)`` and the packed ``x > 0`` bits.  :func:`relu_bwd`
+:func:`relu_fwd` is the wrapper of the B2 instance of the CUDA template
+``csrc/relu_pool.cuh`` (the port of
+``repro.kernels.relu_mask.relu_mask.relu_fwd_pallas``; entry in
+``csrc/relu_mask.cu``): one pass emits ``max(x, 0)`` and the packed
+``x > 0`` bits.  At the pooled conv layers the same template fuses it with
+the pool (``pool.relu_pool_fwd``).  :func:`relu_bwd`
 wraps its backward twin (the port of ``relu_bwd_pallas``): the method's
 gate (Eq. 3-5) on a gradient by the stored bits, the backward of the
 standalone ReLU (``relu_mask.ops``).
@@ -20,7 +23,8 @@ import torch
 from repro_torch.kernels import (METHOD_CODES, _build, check,
                                  check_kernel_operands, on_card)
 from repro_torch.kernels.relu_mask import ref
-from repro_torch.kernels.tiling import mask_bytes
+from repro_torch.kernels.tiling import (check_relu_pool_threads, mask_bytes,
+                                        relu_pool_threads)
 
 
 def unpack_bits(packed: torch.Tensor) -> torch.Tensor:
@@ -49,26 +53,32 @@ def gate_gradient(g: torch.Tensor, mask_bits: Optional[torch.Tensor],
 _ENTRY = {torch.float32: "repro_relu_fwd", torch.int16: "repro_relu_fwd_i16"}
 
 
-def relu_fwd(x2d: torch.Tensor):
+def relu_fwd(x2d: torch.Tensor, *, threads: Optional[int] = None):
     """x2d: [R, C] f32 or int16 -> (relu [R, C] of the same type, packed
     mask uint8 [R, ceil(C/8)]).
 
     Bit ``j`` of byte ``b`` is ``x[:, 8b + j] > 0`` (strictly); bits past C
     are 0.  CPU tensors run :func:`ref.relu_fwd`; CUDA tensors the kernel.
+    ``threads``: the block size (tests, sweeps): :func:`relu_pool_threads`'s
+    by default, ``RELU_POOL_GENERAL`` for the general kernel; every choice
+    gives the same bits.
     """
     name = "relu_fwd"
     if x2d.dim() != 2:
         raise ValueError(f"{name}: x must be [R, C], got {tuple(x2d.shape)}")
     check(name, x2d, tuple(_ENTRY), what="x")
+    r, c = x2d.shape
+    if threads is None:
+        threads = relu_pool_threads(r * mask_bytes(c))
+    check_relu_pool_threads(name, threads)
     if not on_card(name, x2d):
         return ref.relu_fwd(x2d)
     check_kernel_operands(name, x2d)
-    r, c = x2d.shape
     y = torch.empty_like(x2d)
     m = torch.empty((r, mask_bytes(c)), dtype=torch.uint8, device=x2d.device)
     if r and c:
         _build.launch(name, _ENTRY[x2d.dtype], x2d.device, x2d.data_ptr(),
-                      y.data_ptr(), m.data_ptr(), r, c)
+                      y.data_ptr(), m.data_ptr(), r, c, threads)
     return y, m
 
 

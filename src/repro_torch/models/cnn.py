@@ -50,8 +50,9 @@ from repro_torch.kernels.conv2d import ref as conv_ref
 from repro_torch.kernels.conv2d.conv2d import conv2d, conv2d_bwd_fused
 from repro_torch.kernels.conv2d.fxp import conv2d_bwd_fused_fxp, conv2d_fxp
 from repro_torch.kernels.pool import ops as pool_ops
-from repro_torch.kernels.pool.fxp import maxpool_fwd_fxp
-from repro_torch.kernels.pool.pool import maxpool_fwd, unpool_bwd
+from repro_torch.kernels.pool.fxp import maxpool_fwd_fxp, relu_pool_fwd_fxp
+from repro_torch.kernels.pool.pool import (maxpool_fwd, relu_pool_fwd,
+                                           unpool_bwd)
 from repro_torch.kernels.relu_mask import ops as relu_ops
 from repro_torch.kernels.relu_mask.relu_mask import relu_bwd, relu_fwd
 from repro_torch.kernels.vmm import ops as vmm_ops
@@ -188,10 +189,13 @@ def residuals_to(residuals, device) -> dict:
 
 #: The kernels each precision's blocks run: f32, or the int16 kernels of
 #: the fxp16 datapath (ReLU+mask is one wrapper for both element types).
+#: ``relu_pool`` is ReLU (+mask) and pool in one launch, at the pooled
+#: layers.
 _KERNELS = {
-    "f32": dict(conv=conv2d, pool=maxpool_fwd, fc=vmm,
-                conv_bwd=conv2d_bwd_fused, fc_bwd=vmm_bwd_fused),
-    "fxp16": dict(conv=conv2d_fxp, pool=maxpool_fwd_fxp, fc=vmm_fxp,
+    "f32": dict(conv=conv2d, pool=maxpool_fwd, relu_pool=relu_pool_fwd,
+                fc=vmm, conv_bwd=conv2d_bwd_fused, fc_bwd=vmm_bwd_fused),
+    "fxp16": dict(conv=conv2d_fxp, pool=maxpool_fwd_fxp,
+                  relu_pool=relu_pool_fwd_fxp, fc=vmm_fxp,
                   conv_bwd=conv2d_bwd_fused_fxp, fc_bwd=vmm_bwd_fused_fxp),
 }
 
@@ -204,8 +208,12 @@ def _relu_fwd_mask4(y):
 
 
 def _conv_block_fwd_res(k, x, w, b, method, do_relu, do_pool):
-    """conv (+bias) -> ReLU (+mask) -> pool (+argmax); residuals = packed."""
+    """conv (+bias) -> ReLU (+mask) -> pool (+argmax); residuals = packed.
+    A pooled layer's ReLU and pool run as one launch (the ReLU'd map never
+    reaches memory); Table II: deconvnet stores no ReLU mask."""
     y = k["conv"](x, w, b)
+    if do_relu and do_pool:
+        return k["relu_pool"](y, mask=method != "deconvnet")
     mask4 = idx = None
     if do_relu:
         if method == "deconvnet":          # Table II: no ReLU mask stored

@@ -18,7 +18,11 @@ per wrapper call — for the f32 kernels and for the int16 ones of the fxp16
 path, which must equal their plain
 versions bit for bit (also where the int32 accumulator wraps) — for the
 gate and unpool kernels of the autograd paths (bitwise), with those paths
-end to end against the CPU, and for the selective scan (B13: ragged S, D
+end to end against the CPU, for the ReLU / pool template (B2, B3 and
+their fused pass, f32 and int16, mask on and off, under every block size:
+bitwise the plain version and the general route, also on misaligned
+views, -0.0, all-negative windows and the int16 rails), and for the
+selective scan (B13: ragged S, D
 off the block size, N < 16, f32 and bf16 x, the knobs bitwise) and its
 backward kernel (all six gradients within 1e-4 * max|ref| of the plain
 reverse recurrence, N in {1, 4, 7, 8, 16}, ragged S, several windows,
@@ -48,10 +52,13 @@ from repro_torch.kernels.conv2d.fxp import (conv2d_bwd_fused_fxp,
                                             conv2d_bwd_fused_fxp_plain,
                                             conv2d_fxp, conv2d_fxp_planned)
 from repro_torch.kernels.pool import ref as pool_ref
-from repro_torch.kernels.pool.fxp import maxpool_fwd_fxp, unpool_bwd_fxp
-from repro_torch.kernels.pool.pool import maxpool_fwd, unpool_bwd
+from repro_torch.kernels.pool.fxp import (maxpool_fwd_fxp, relu_pool_fwd_fxp,
+                                          unpool_bwd_fxp)
+from repro_torch.kernels.pool.pool import (maxpool_fwd, relu_pool_fwd,
+                                           unpool_bwd)
 from repro_torch.kernels.relu_mask import ref as relu_ref
 from repro_torch.kernels.relu_mask.relu_mask import relu_bwd, relu_fwd
+from repro_torch.kernels.tiling import RELU_POOL_GENERAL, RELU_POOL_THREADS
 from repro_torch.kernels.vmm import ref as vmm_ref
 from repro_torch.kernels.vmm.fxp import (vmm_bwd_fused_fxp,
                                          vmm_bwd_fused_fxp_plain, vmm_fxp,
@@ -118,6 +125,90 @@ def test_maxpool_fwd_bitwise(gen, n, h, w, c):
     y, i = _launched("maxpool_fwd", lambda: maxpool_fwd(x))
     yr, ir = pool_ref.maxpool_fwd(x)
     assert torch.equal(y, yr) and torch.equal(i, ir)
+
+
+# The ReLU / pool template (csrc/relu_pool.cuh): every instance under every
+# block size, against its plain version and against the general route (B2
+# then B3 on their first kernels), bitwise, f32 and int16, at ragged C.
+RELU_POOL_MAPS = [(2, 4, 4, 3), (1, 8, 6, 13), (3, 6, 10, 64),
+                  (2, 8, 8, 32), (1, 2, 2, 5)]
+
+
+def _relu_pool_input(gen, shape, dtype):
+    if dtype == torch.int16:
+        x = _q(gen, *shape, scale=0.02)
+        x[..., ::5] = fixedpoint.INT16_LIM            # the rails
+        x[..., 1::7] = -fixedpoint.INT16_LIM - 1
+    else:
+        x = _randn(gen, *shape)
+    x[:, :2, :2] = x[:, :2, :2].clamp(max=-1)         # all-negative window
+    x[:, -2:, -2:] = 0                                # exact zeros
+    if dtype == torch.float32:
+        x.view(-1)[::13] = -0.0                       # -0.0 maps to +0.0
+    return x
+
+
+def _general_relu_pool(x, mask):
+    n, h, w, c = x.shape
+    y, m = relu_fwd(x.reshape(-1, c), threads=RELU_POOL_GENERAL)
+    y, idx = maxpool_fwd(y.reshape(x.shape), threads=RELU_POOL_GENERAL)
+    return y, (m.reshape(n, h, w, -1) if mask else None), idx
+
+
+def _equal_all(got, want):
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert (g is None) == (w is None)
+        if g is not None:
+            assert g.dtype == w.dtype and torch.equal(g, w)
+            if g.dtype == torch.float32:       # +0.0 and -0.0 differ here
+                assert torch.equal(g.view(torch.int32), w.view(torch.int32))
+
+
+@pytest.mark.parametrize("threads", RELU_POOL_THREADS + (None,))
+@pytest.mark.parametrize("mask", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int16])
+@pytest.mark.parametrize("shape", RELU_POOL_MAPS)
+def test_relu_pool_fwd_bitwise(gen, shape, dtype, mask, threads):
+    x = _relu_pool_input(gen, shape, dtype)
+    before = {k: LAUNCHES[k] for k in ("relu_fwd", "maxpool_fwd")}
+    got = _launched("relu_pool_fwd",
+                    lambda: relu_pool_fwd(x, mask, threads=threads))
+    assert {k: LAUNCHES[k] for k in before} == before
+    _equal_all(got, pool_ref.relu_pool_fwd(x, mask))
+    _equal_all(got, _general_relu_pool(x, mask))
+    if dtype == torch.int16 and threads is None:
+        _equal_all(relu_pool_fwd_fxp(x, mask), got)
+
+
+@pytest.mark.parametrize("threads", RELU_POOL_THREADS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int16])
+@pytest.mark.parametrize("shape", RELU_POOL_MAPS)
+def test_relu_fwd_and_maxpool_fwd_every_block_size_equal_general(
+        gen, shape, dtype, threads):
+    x = _relu_pool_input(gen, shape, dtype)
+    x2 = x.reshape(-1, shape[-1])
+    got = _launched("relu_fwd", lambda: relu_fwd(x2, threads=threads))
+    _equal_all(got, relu_fwd(x2, threads=RELU_POOL_GENERAL))
+    _equal_all(got, relu_ref.relu_fwd(x2))
+    got = _launched("maxpool_fwd", lambda: maxpool_fwd(x, threads=threads))
+    _equal_all(got, maxpool_fwd(x, threads=RELU_POOL_GENERAL))
+    _equal_all(got, pool_ref.maxpool_fwd(x))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int16])
+def test_relu_pool_fwd_misaligned_pointers(gen, dtype):
+    shape = (2, 4, 6, 16)
+    n = 2 * 4 * 6 * 16
+    base = _relu_pool_input(gen, shape, dtype).reshape(-1)
+    for off in (1, 3):                 # no 16-byte loads: the scalar path
+        flat = torch.zeros(n + 3, dtype=dtype, device="cuda")
+        flat[off:off + n] = base
+        x = flat[off:off + n].view(shape)
+        _equal_all(relu_pool_fwd(x), pool_ref.relu_pool_fwd(x))
+        _equal_all(maxpool_fwd(x), pool_ref.maxpool_fwd(x))
+        x2 = x.reshape(-1, 16)
+        _equal_all(relu_fwd(x2), relu_ref.relu_fwd(x2))
 
 
 @pytest.mark.parametrize("n,h,w,cin,cout,k", [
@@ -852,10 +943,11 @@ def test_autograd_paths_on_card_match_cpu_twin(gen):
     def launches(fused, method):
         """Per explain with K = 2 seeds (two backward passes), this cfg."""
         want = {k: 0 for k in LAUNCHES}
-        relus = 0 if fused and method == "deconvnet" else 3
-        want.update(conv2d_fwd=2, relu_fwd=relus, maxpool_fwd=1, vmm_fwd=2)
-        if fused:
-            want.update(conv2d_bwd_fused=4, vmm_bwd_fused=4)
+        want.update(conv2d_fwd=2, relu_fwd=3, maxpool_fwd=1, vmm_fwd=2)
+        if fused:     # the pooled layer's ReLU and pool: one fused launch
+            relus = 0 if method == "deconvnet" else 2
+            want.update(relu_fwd=relus, maxpool_fwd=0, relu_pool_fwd=1,
+                        conv2d_bwd_fused=4, vmm_bwd_fused=4)
         else:         # B1/B4 reused for dx, B11 at 3 ReLUs, B12 at 1 pool
             want.update(conv2d_fwd=6, vmm_fwd=6, relu_bwd=6, unpool_bwd=2)
         return want

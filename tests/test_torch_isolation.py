@@ -89,7 +89,7 @@ from repro_torch.kernels import _build
 assert _build._LIB is None
 print("ok", len(_build.LAUNCHES))
 """)
-    assert "ok 14" in out
+    assert "ok 15" in out
 
 
 def test_missing_nvcc_raises(monkeypatch, tmp_path):

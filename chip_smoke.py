@@ -2,10 +2,11 @@
 """Smoke test of the PyTorch / CUDA port (``src/repro_torch``) on one NVIDIA
 card: build every kernel, hold each against its plain PyTorch version at
 the shapes its path gives it, then explain full-width batches of the Table
-III CNN through the engine, in f32 and in the paper's true-int16 fixed
-point (fxp16), then through autograd (the vjp backend), train a few steps,
-and explain each generated token of falcon-mamba-7b at full width and
-depth, and check them against the CPU.
+III CNN through the engine, in f32, in bf16 and in the paper's true-int16
+fixed point (fxp16), state the paper's own accounting (Table II / §V,
+Table IV), then explain through autograd (the vjp backend), train a few
+steps, and explain each generated token of falcon-mamba-7b at full width
+and depth, and check them against the CPU.
 
     python3 chip_smoke.py                  # one card; exits 0 when all pass
     python3 chip_smoke.py --out DIR        # also writes DIR/chip_smoke.json
@@ -43,7 +44,13 @@ Phases (every failed check raises; nothing is caught and carried on):
    kernel (timed beside it), all bitwise equal; B6 likewise, again, under
    a second tile plan and on its general kernel, timed beside it and
    beside ``torch.matmul`` on the pre-gated gradient; each time beside a
-   library call prints its ratio to it), then the fxp16 kernels B7-B10 and
+   library call prints its ratio to it), then the bf16 instances of B1-B6
+   and of the fused pass (ReLU / pool bitwise, as above; conv and FC within
+   one bf16 rounding step of the f32 sum plus one of the output,
+   ``BF16_STEP * (|sum| + |plain|)``, and the f32 kernels' tolerance for
+   the reordered sum, ``DOT_TOL * max|sum|``; bitwise again and under a second
+   plan; beside ``F.conv2d`` / ``torch.addmm`` in bf16), then the fxp16
+   kernels B7-B10 and
    the int16 instances of B2/B3 and of their fused pass, all bitwise (B7, B8 and B10 also launched
    again, under a second plan and on their general kernels, timed beside
    them; B9 again and under a second K split), plus accumulators that wrap
@@ -64,7 +71,12 @@ Phases (every failed check raises; nothing is caught and carried on):
    [32, 32, 32, 3] batch with top-3 seeds on the card against a CPU twin
    engine on the same parameters (logits, residual bits, cross-replay), and
    the launch count of each kernel per explain; under fxp16 every one of
-   these must be equal bit for bit;
+   these must be equal bit for bit; bf16 (between f32 and fxp16) must
+   give bf16 logits and relevance, launch every kernel through its bf16
+   entry point (counted per entry point), and stay within
+   BF16_TOL * max of the CPU twin, the relevance also against the CPU's
+   replay of the card's stored bits, and its heatmaps against f32's on the
+   same seeds (``fidelity.compare``, printed);
 4. requests: predict / explain / top-k explain / predict-then-explain +
    replay, where the replay of a target must equal its cold explain bit
    for bit;
@@ -109,18 +121,32 @@ Phases (every failed check raises; nothing is caught and carried on):
    contrastive = ixg(a) - ixg(b) within 1e-4 * max; one B13 and one B13
    bwd launch per layer and explain.
 
-Last, one saliency explain of each CNN path, one training step, one LM
-decode step and one per-token LM explain run under ``torch.profiler``:
-kernel time by kernel and by family against the device time measured
-before (the device's idle share); then the profiler column of phase 2:
-every row's kernel (and general route) 50 times under one profiler
-session, its CUPTI time per call.  This comes after every timing, since a
-profiler session slows what runs after it.
+9. paper tables (after phase 4 of the last path): each config's
+   ``core.residuals`` Ledger (``TABLE_III_LITERAL``, the paper's 24.7 Kb,
+   and ``FULL``) equal to the bits of the residual tensors the card's
+   forward returns, per example and method; the bf16 explain of
+   ``TABLE_III_LITERAL`` (its pools run alone) against its CPU twin,
+   counted from 0; the bytes autograd saves for the backward of the
+   autodiff model against the packed residuals, and the peak device memory
+   of a packed-residual explain against a ``backward="vjp"`` explain over
+   ``method="autodiff"`` (§V); FP against FP+BP device ms at batch 1 and 32
+   in f32, bf16 and fxp16 (Table IV).
 
-Phases 3-4 run once per path, f32 then fxp16; phases 5 (per branch), 6, 7
-and 8 are paths of their own.  Launch counters are set to 0 just before
+Last, the profiler column of phase 2: every row's kernel (and general
+route) 50 times under one profiler session, its CUPTI time per call;
+then one saliency explain of each CNN path, Table IV's f32 FP+BP at
+batch 1 and 32, one training step, one LM decode step and one per-token
+LM explain under ``torch.profiler``: kernel time by kernel and by family
+against the device time measured before (the device's idle share).  This
+comes after every timing, since a profiler session slows what runs after
+it.
+
+Phases 3-4 run once per path, f32, bf16, then fxp16; phase 9's literal
+bf16 explain and phases 5 (per branch), 6, 7 and 8 are paths of their
+own.  Launch counters are set to 0 just before
 each path (in phases 5-8: before each checked explain, training step or
-decode) and read just after; the kernel-vs-plain launches of phase 2, and
+decode) and read just after, per wrapper counter and, on the bf16 paths,
+per C entry point; the kernel-vs-plain launches of phase 2, and
 the launches of the comparisons and timings of phases 5-8, are not
 counted.  The last two lines are the
 per-kernel JSON and the device JSON.
@@ -148,11 +174,23 @@ METHODS = ("saliency", "deconvnet", "guided")
 DOT_TOL = 1e-5          # reordered f32 sums of up to 4096 terms
 REPLAY_TOL = 1e-4       # relevance after four layers of such sums
 MIN_BIT_AGREEMENT = 0.9999
-# Published H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s and f32 FLOP/s
-# outside the tensor cores.  The bound is the larger of bytes/HBM and
-# FLOP/f32 peak, at the card's full 700 W limit.
+# bf16: an output is its f32 sum rounded once to bf16 (the forward's bias
+# after that rounding, then once more), so a reordered sum can land one
+# rounding step away: a kernel is held to within BF16_STEP * (|sum| +
+# |plain|) of its plain version, plus DOT_TOL * max|sum| for the reordered
+# f32 sum itself (phase 2), and an explain's logits and
+# relevance, after four layers of such steps, to BF16_TOL * max|ref| of
+# the CPU twin's (tests/test_torch_cnn_bf16.py holds the port to repro
+# at the same bound)
+BF16_STEP, BF16_TOL = 2.0 ** -7, 2.0 ** -6
+# Published H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, f32 FLOP/s
+# outside the tensor cores and dense bf16 FLOP/s on the tensor cores.  The
+# bound is the larger of bytes/HBM and FLOP/the peak for the operands'
+# type, at the card's full 700 W limit: a bf16 product is bounded by the
+# bf16 peak whatever units its kernel chooses.
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
+BF16_FLOP_PER_S = 989e12
 # The int16 kernels run 32-bit integer multiply-adds (IMAD) on the CUDA
 # cores.  Their peak is not on the data sheet: it is taken as SM count x
 # 64 IMAD lanes per SM per clock (compute capability 9.0) x the card's
@@ -237,6 +275,32 @@ KERNELS = {   # counter -> (C source, replaced TPU kernel def or function)
 #: ``maxpool_fwd`` / ``relu_pool_fwd`` / ``unpool_bwd`` counters.
 INT16_INSTANCES = ("relu_fwd_i16", "maxpool_fwd_i16", "relu_pool_fwd_i16",
                    "unpool_bwd_i16")
+#: The bf16 instances of B1-B6 and of the fused ReLU/pool pass (bf16 path):
+#: timed and checked on their own (phase 2), launched under their f32
+#: counters through entry points of their own (name -> (counter, entry)).
+#: The bf16 paths must launch every kernel through these entries (phase 3
+#: and phase 9 count per entry point); the kernel line lists each with the
+#: launches of its entry on the bf16 path, B3 alone with those of the
+#: Table-III-literal bf16 explain (conv_relu=False: the only bf16 path that
+#: pools alone).
+BF16_INSTANCES = {
+    "conv2d_fwd_bf16": ("conv2d_fwd", "repro_conv2d_fwd_bf16"),
+    "relu_fwd_bf16": ("relu_fwd", "repro_relu_fwd_bf16"),
+    "maxpool_fwd_bf16": ("maxpool_fwd", "repro_maxpool_fwd_bf16"),
+    "relu_pool_fwd_bf16": ("relu_pool_fwd", "repro_relu_pool_fwd_bf16"),
+    "vmm_fwd_bf16": ("vmm_fwd", "repro_vmm_fwd_bf16"),
+    "conv2d_bwd_fused_bf16": ("conv2d_bwd_fused",
+                              "repro_conv2d_bwd_fused_bf16"),
+    "vmm_bwd_fused_bf16": ("vmm_bwd_fused", "repro_vmm_bwd_fused_bf16")}
+
+
+def bf16_entries(counts, entry_counts):
+    """The per-entry-point launches a bf16 path must show: each counter's
+    count on its bf16 entry, every other entry point at 0."""
+    want = {k: 0 for k in entry_counts}
+    for counter, entry in BF16_INSTANCES.values():
+        want[entry] = counts.get(counter, 0)
+    return want
 
 
 def fail(msg: str):
@@ -347,9 +411,11 @@ def cupti_per_call(fns, reps: int = REPS):
             cur += e.time_range.elapsed_us() / 1e3
     groups = groups[len(groups) - len(fns):]      # the calls' groups: last
     if len(groups) != len(fns) or not all(groups):
+        spins = sum("spin_kernel" in e.name for e in kernels)
         print(f"  cupti_per_call: {len(groups)} groups of kernels between "
-              f"sleep kernels for {len(fns)} calls, or an empty one; not "
-              f"measured")
+              f"sleep kernels for {len(fns)} calls, or an empty one "
+              f"({len(kernels)} kernel records, {spins} of them sleeps); "
+              f"not measured")
         return None
     return groups
 
@@ -461,7 +527,7 @@ class KernelCheck:
         self.scan_backward_ms = self.scan_backward_loop_ms = None
         self.rows = []            # one per compared case, for --out
         self.fns = []             # (kernel_fn, general_fn) per row
-        keys = tuple(KERNELS) + INT16_INSTANCES
+        keys = tuple(KERNELS) + INT16_INSTANCES + tuple(BF16_INSTANCES)
         self.err = {k: 0.0 for k in keys}
         self.sums = {k: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
                          "library_ms": None, "f32_reference_ms": None,
@@ -547,6 +613,8 @@ class KernelCheck:
                 for key, fn in zip(("cupti_ms", "cupti_general_ms"), fns)
                 if fn is not None]
         times = cupti_per_call([fn for _, _, fn in runs], reps)
+        if times is None:       # one more session: CUPTI can lose records
+            times = cupti_per_call([fn for _, _, fn in runs], reps)
         if times is None:
             return
         for (i, key, _), t in zip(runs, times):
@@ -593,8 +661,8 @@ def _bitwise_repeat(counter, case, first, launches):
 
 
 def _same_bits(a, b) -> bool:
-    """Equal tuples (or tensors) of equal types, f32 compared as bits (so
-    +0.0 and -0.0 differ); None matches only None."""
+    """Equal tuples (or tensors) of equal types, f32 and bf16 compared as
+    bits (so +0.0 and -0.0 differ); None matches only None."""
     a = a if isinstance(a, tuple) else (a,)
     b = b if isinstance(b, tuple) else (b,)
     for x, y in zip(a, b, strict=True):
@@ -606,6 +674,8 @@ def _same_bits(a, b) -> bool:
             return False
         if x.dtype == torch.float32:
             x, y = x.view(torch.int32), y.view(torch.int32)
+        elif x.dtype == torch.bfloat16:
+            x, y = x.view(torch.int16), y.view(torch.int16)
         if not torch.equal(x, y):
             return False
     return True
@@ -1654,6 +1724,222 @@ def check_kernels_fxp(kc: KernelCheck):
           f"under {plan}, {second_vmm_bwd_plan(plan)} and the general kernel")
 
 
+def bf16_close(got, want, acc):
+    """Fail unless every bf16 output ``got`` is within one bf16 step of the
+    unrounded f32 sum ``acc`` plus one of ``want`` (the plain version's),
+    plus the f32 kernels' DOT_TOL for the reordered f32 sum itself:
+    ``|got - want| <= BF16_STEP * (|acc| + |want|) + DOT_TOL * max|acc|``.
+    Returns the largest ``|got - want|``."""
+    err = (got.float() - want.float()).abs()
+    bound = (BF16_STEP * (acc.abs() + want.float().abs())
+             + DOT_TOL * acc.abs().max())
+    over = (err - bound).max().item()
+    if over > 0:
+        fail(f"bf16 output off its plain version by {over:.3e} beyond one "
+             f"rounding step of the sum and one of the output")
+    return err.max().item()
+
+
+def check_kernels_bf16(kc: KernelCheck):
+    """The bf16 path's instances of B1-B6 and the fused ReLU/pool pass at
+    the Table III shapes: the ReLU / pool instances bitwise (plain version,
+    general route, every block size); the conv and FC instances within one
+    bf16 rounding step (:func:`bf16_close`) of their plain versions (f32
+    sums of the widened operands in cuDNN's or cuBLAS's order, rounded),
+    bitwise run to run and under a second plan; each timed beside the bf16
+    library call where one computes the same function (``F.conv2d``,
+    ``torch.addmm``: tensor cores).  Bytes at 2 an element; the conv and FC
+    products' operations at the card's bf16 peak (BF16_FLOP_PER_S), though
+    the instances run f32 FFMA on the CUDA cores, the compares at the f32
+    rate (those rows are bound by bytes)."""
+    from repro_torch.core import masks
+    from repro_torch.kernels.conv2d import ref as conv_ref
+    from repro_torch.kernels.conv2d.conv2d import (bwd_fused_plain, conv2d,
+                                                   conv2d_bwd_fused,
+                                                   conv2d_bwd_fused_plain,
+                                                   conv2d_planned,
+                                                   conv_bwd_plan, conv_plan)
+    from repro_torch.kernels.pool import ref as pool_ref
+    from repro_torch.kernels.pool.pool import maxpool_fwd, relu_pool_fwd
+    from repro_torch.kernels.relu_mask import ref as relu_ref
+    from repro_torch.kernels.relu_mask.relu_mask import (gate_gradient,
+                                                         relu_fwd,
+                                                         unpack_bits)
+    from repro_torch.kernels.tiling import (RELU_POOL_GENERAL, crumb_bytes,
+                                            mask_bytes)
+    from repro_torch.kernels.vmm import ref as vmm_ref
+    from repro_torch.kernels.vmm.vmm import bwd_fused_plain as vbwd_plain
+    from repro_torch.kernels.vmm.vmm import (vmm, vmm_bwd_fused,
+                                             vmm_bwd_fused_plain,
+                                             vmm_bwd_plan, vmm_splits)
+
+    gen = torch.Generator(device="cuda").manual_seed(2718)
+    n, s, bf = BATCH, SEEDS, torch.bfloat16
+
+    def rb(*shape, scale=1.0):
+        return randn(gen, *shape, scale=scale).to(bf)
+
+    # B1 bf16: the four Table III layers (+ bias after the rounding), run
+    # to run and under a second tile plan bitwise; F.conv2d in bf16 beside
+    for h, cin, cout in ((32, 3, 32), (32, 32, 32), (16, 32, 64),
+                         (16, 64, 64)):
+        x = rb(n, h, h, cin)
+        w = rb(3, 3, cin, cout, scale=(2.0 / (9 * cin)) ** 0.5)
+        b = rb(cout, scale=0.1)
+        xn, wn = x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1)
+        case = f"[{n},{h},{h},{cin}->{cout}]"
+        got = conv2d(x, w, b)
+        plan = conv_plan(n, h, h, cin, cout, 3, esize=2)
+        other = second_fwd_plan(plan, cin)
+        _bitwise_repeat("conv2d_fwd_bf16", case, got, (
+            (f"again under {plan}", lambda: conv2d(x, w, b)),
+            (f"under {other}", lambda: conv2d_planned(x, w, b, plan=other))))
+        acc = conv_ref.conv2d_widened(x, w)
+        kc.record("conv2d_fwd_bf16", case, True, got,
+                  conv_ref.conv2d_bf16(x, w) + b, False,
+                  lambda: conv2d(x, w, b),
+                  lambda: conv_ref.conv2d_bf16(x, w) + b,
+                  2 * (x.numel() + w.numel() + cout + n * h * h * cout),
+                  2 * n * h * h * cout * 9 * cin,
+                  lambda: F.conv2d(xn, wn, b, padding=1),
+                  rate=BF16_FLOP_PER_S,
+                  close=lambda g, w_, acc=acc: bf16_close(g, w_, acc))
+
+    # B2 bf16: the three rectifiers no pool follows; -0.0 gives +0.0
+    for r, c in ((n * 32 * 32, 32), (n * 16 * 16, 64), (n, 128)):
+        x = rb(r, c)
+        x[0] = 0.0
+        x[1] = -0.0
+        check_relu_pool(
+            kc, "relu_fwd_bf16", f"[{r},{c}]", x,
+            lambda x=x, **kw: relu_fwd(x, **kw),
+            lambda x=x: relu_ref.relu_fwd(x),
+            lambda x=x: relu_fwd(x, threads=RELU_POOL_GENERAL),
+            2 * 2 * r * c + r * mask_bytes(c), r * c, True)
+
+    # B3 bf16 alone: the pool of a layer with no ReLU before it
+    # (TABLE_III_LITERAL, conv_relu=False), on conv outputs
+    for h, c in ((32, 32), (16, 64)):
+        x = rb(n, h, h, c)
+        check_relu_pool(
+            kc, "maxpool_fwd_bf16", f"[{n},{h},{h},{c}]", x,
+            lambda x=x, **kw: maxpool_fwd(x, **kw),
+            lambda x=x: pool_ref.maxpool_fwd(x),
+            lambda x=x: maxpool_fwd(x, threads=RELU_POOL_GENERAL),
+            2 * x.numel() + 2 * x.numel() // 4
+            + n * (h // 2) ** 2 * crumb_bytes(c), 3 * x.numel() // 4, True)
+
+    # B2 + B3 fused bf16 at the two pooled layers, with and without the mask
+    for h, c in ((32, 32), (16, 64)):
+        x = rb(n, h, h, c)
+        x[:, 0, 0] = 0.0
+        x[:, 0, 1] = -0.0
+        for mask in (True, False):
+            nbytes = (2 * x.numel() + 2 * x.numel() // 4
+                      + n * (h // 2) ** 2 * crumb_bytes(c)
+                      + (n * h * h * mask_bytes(c) if mask else 0))
+            check_relu_pool(
+                kc, "relu_pool_fwd_bf16",
+                f"[{n},{h},{h},{c}]" + (" mask" if mask else " no mask"), x,
+                lambda x=x, mask=mask, **kw: relu_pool_fwd(x, mask, **kw),
+                lambda x=x, mask=mask: pool_ref.relu_pool_fwd(x, mask),
+                lambda x=x, mask=mask: general_relu_pool(x, mask),
+                nbytes, x.numel() + 3 * x.numel() // 4, mask)
+
+    # B4 bf16: FC0 (split K, f32 workspace) and FC1, run to run bitwise;
+    # torch.addmm in bf16 beside
+    for k, m_out in ((4096, 128), (128, 10)):
+        x = rb(n, k)
+        w = rb(k, m_out, scale=(2.0 / k) ** 0.5)
+        b = rb(m_out, scale=0.1)
+        case = f"[{n},{k}]@[{k},{m_out}]"
+        got = vmm(x, w, b)
+        _bitwise_repeat("vmm_fwd_bf16", case, got, (
+            (f"again, K in {vmm_splits(n, k, m_out)} slice(s)",
+             lambda: vmm(x, w, b)),))
+        acc = vmm_ref.vmm_widened(x, w)
+        kc.record("vmm_fwd_bf16", case, True, got,
+                  vmm_ref.vmm_bf16(x, w) + b, False, lambda: vmm(x, w, b),
+                  lambda: vmm_ref.vmm_bf16(x, w) + b,
+                  2 * (x.numel() + w.numel() + m_out + n * m_out),
+                  2 * n * k * m_out, lambda: torch.addmm(b, x, w),
+                  rate=BF16_FLOP_PER_S,
+                  close=lambda g, w_, acc=acc: bf16_close(g, w_, acc))
+
+    # B5 bf16: layers 3, 2, 1, 0 under every method, again and under a
+    # second tile plan bitwise
+    for method in METHODS:
+        for h, c, cout, pooled in ((16, 64, 64, True), (16, 64, 32, False),
+                                   (32, 32, 32, True), (32, 32, 3, False)):
+            y = rb(n, h, h, c)
+            mask = None if method == "deconvnet" else masks.pack_mask(y > 0)
+            idx = (pool_ref.maxpool_fwd(torch.clamp_min(y, 0))[1]
+                   if pooled else None)
+            hg = h // 2 if pooled else h
+            g = rb(s, n, hg, hg, c, scale=1e-2)
+            wt = rb(3, 3, c, cout, scale=(2.0 / (9 * c)) ** 0.5)
+            kw = dict(pool_idx=idx, relu_mask=mask, gate=True, method=method)
+            gg = g
+            if pooled:
+                gg = pool_ref.unpool_scatter(masks.unpack_crumbs(idx, c), g)
+            bits = None if mask is None else unpack_bits(mask)[..., :c]
+            nnz = torch.count_nonzero(gate_gradient(gg, bits, method)).item()
+            nbytes = (2 * (g.numel() + wt.numel() + s * n * h * h * cout)
+                      + (idx.numel() if pooled else 0)
+                      + (mask.numel() if mask is not None else 0))
+            case = (f"{method} [{s},{n},{hg},{hg},{c}]->{cout}"
+                    + (" pool" if pooled else ""))
+            got = conv2d_bwd_fused(g, wt, **kw)
+            plan = conv_bwd_plan(s, n, h, h, c, cout, 3, pooled=pooled,
+                                 esize=2)
+            other = second_bwd_plan(plan, c)
+            _bitwise_repeat("conv2d_bwd_fused_bf16", case, got, (
+                (f"again under {plan}", lambda: conv2d_bwd_fused(g, wt, **kw)),
+                (f"under {other}",
+                 lambda: conv2d_bwd_fused(g, wt, plan=other, **kw))))
+            acc = bwd_fused_plain(conv_ref.conv2d_widened, g, wt, **kw)
+            kc.record("conv2d_bwd_fused_bf16", case, method == "saliency",
+                      got, conv2d_bwd_fused_plain(g, wt, **kw), False,
+                      lambda: conv2d_bwd_fused(g, wt, **kw),
+                      lambda: conv2d_bwd_fused_plain(g, wt, **kw),
+                      nbytes, 2 * nnz * 9 * cout, rate=BF16_FLOP_PER_S,
+                      close=lambda g_, w_, acc=acc: bf16_close(g_, w_, acc))
+
+    # B6 bf16: FC1 then FC0 (gated) under every method, again and under a
+    # second tile plan bitwise
+    for method in METHODS:
+        for k, n_out, gated in ((10, 128, False), (128, 4096, True)):
+            g = rb(s, n, k)
+            wt = rb(k, n_out, scale=(2.0 / n_out) ** 0.5)
+            mask = (masks.pack_mask(randn(gen, n, k) > 0)
+                    if gated and method != "deconvnet" else None)
+            kw = dict(relu_mask=mask, gate=gated, method=method)
+            gg = g
+            if gated:
+                bits = None if mask is None else unpack_bits(mask)[:, :k]
+                gg = gate_gradient(g, bits, method)
+            nnz = torch.count_nonzero(gg).item()
+            nbytes = (2 * (g.numel() + wt.numel() + s * n * n_out)
+                      + (mask.numel() if mask is not None else 0))
+            case = (f"{method} [{s},{n},{k}]@[{k},{n_out}]"
+                    + (" gate" if gated else ""))
+            got = vmm_bwd_fused(g, wt, **kw)
+            plan = vmm_bwd_plan(s, n, k, n_out)
+            other = second_vmm_bwd_plan(plan)
+            _bitwise_repeat("vmm_bwd_fused_bf16", case, got, (
+                (f"again under {plan}", lambda: vmm_bwd_fused(g, wt, **kw)),
+                (f"under {other}",
+                 lambda: vmm_bwd_fused(g, wt, plan=other, **kw))))
+            acc = vbwd_plain(vmm_ref.vmm_widened, g, wt, **kw)
+            lib = None if gated else (lambda g=g, wt=wt: torch.matmul(g, wt))
+            kc.record("vmm_bwd_fused_bf16", case, method == "saliency", got,
+                      vmm_bwd_fused_plain(g, wt, **kw), False,
+                      lambda: vmm_bwd_fused(g, wt, **kw),
+                      lambda: vmm_bwd_fused_plain(g, wt, **kw),
+                      nbytes, 2 * nnz * n_out, lib, rate=BF16_FLOP_PER_S,
+                      close=lambda g_, w_, acc=acc: bf16_close(g_, w_, acc))
+
+
 def check_kernels_autograd(kc: KernelCheck):
     """B11 (three methods) and B12 (f32 and int16) at the shapes of the
     unfused backward, bitwise: they select and route, so any difference is
@@ -1911,6 +2197,9 @@ def _span_ms(fn, reps: int = 5) -> float:
 PER_EXPLAIN = {
     "f32": {"conv2d_fwd": 4, "relu_fwd": 3, "relu_pool_fwd": 2,
             "vmm_fwd": 2, "conv2d_bwd_fused": 4, "vmm_bwd_fused": 2},
+    # the bf16 instances, under the f32 counters
+    "bf16": {"conv2d_fwd": 4, "relu_fwd": 3, "relu_pool_fwd": 2,
+             "vmm_fwd": 2, "conv2d_bwd_fused": 4, "vmm_bwd_fused": 2},
     "fxp16": {"conv2d_fxp_fwd": 4, "relu_fwd": 3, "relu_pool_fwd": 2,
               "vmm_fxp_fwd": 2, "conv2d_bwd_fused_fxp": 4,
               "vmm_bwd_fused_fxp": 2},
@@ -1934,22 +2223,39 @@ def _residual_bit_flips(res_a, res_b):
     return flips, total
 
 
+def _heatmap_agreement(rel, ref):
+    """``fidelity.compare`` (k = 64) of each (seed, example) heatmap of
+    ``rel`` against ``ref``'s: the mean and the least of each metric."""
+    from repro_torch.core import fidelity
+    from repro_torch.engine.methods import heatmap
+    hs = heatmap(rel.float().flatten(0, 1))
+    hr = heatmap(ref.float().flatten(0, 1))
+    rows = [fidelity.compare(a, b, k=64) for a, b in zip(hs, hr)]
+    return {m: (statistics.fmean(r[m] for r in rows), min(r[m] for r in rows))
+            for m in rows[0]}
+
+
 def check_engine(params, cfg, x_cpu, precision, to_profile):
-    """Phase 3 for one path.  f32 within the stated tolerances; fxp16 is
-    integer arithmetic, so logits, every residual bit, the relevance and
-    both cross-replays must equal the CPU twin's bit for bit."""
+    """Phase 3 for one path.  f32 within the stated tolerances, bf16
+    within BF16_TOL (relevance also against the CPU's replay of the card's
+    stored bits, and its heatmaps ranked against f32's on the same
+    seeds); fxp16 is integer arithmetic, so logits, every residual bit,
+    the relevance and both cross-replays must equal the CPU twin's bit for
+    bit."""
     from repro_torch.engine import CNNModel, EngineSpec, TopK, build
-    from repro_torch.kernels import LAUNCHES
+    from repro_torch.kernels import ENTRY_LAUNCHES, LAUNCHES
     from repro_torch.models import cnn
 
     exact = precision == "fxp16"
+    tol, rtol = ((BF16_TOL, BF16_TOL) if precision == "bf16"
+                 else (DOT_TOL, REPLAY_TOL))
     x = x_cpu.cuda()
     results = {}
     for method in METHODS:
         spec = dict(method=method, precision=precision, targets=TopK(SEEDS))
         eng = build(EngineSpec(CNNModel(params, cfg, device="cuda"), **spec))
         twin = build(EngineSpec(CNNModel(params, cfg, device="cpu"), **spec))
-        before = dict(LAUNCHES)
+        before, before_e = dict(LAUNCHES), dict(ENTRY_LAUNCHES)
         logits, rel, res = eng.predict_then_explain(x)
         torch.cuda.synchronize()
         rose = {k: LAUNCHES[k] - before[k] for k in LAUNCHES}
@@ -1962,14 +2268,26 @@ def check_engine(params, cfg, x_cpu, precision, to_profile):
         if rose != want:
             fail(f"{precision} {method}: launches per explain {rose}, "
                  f"want {want}")
+        if precision == "bf16":
+            # every launch through a bf16 entry point, and bf16 out
+            rose_e = {k: ENTRY_LAUNCHES[k] - before_e[k]
+                      for k in ENTRY_LAUNCHES}
+            want_e = bf16_entries(want, ENTRY_LAUNCHES)
+            if rose_e != want_e:
+                fail(f"bf16 {method}: launches per entry point "
+                     f"{ {k: v for k, v in rose_e.items() if v} }, want "
+                     f"{ {k: v for k, v in want_e.items() if v} }")
+            if not logits.dtype == rel.dtype == torch.bfloat16:
+                fail(f"bf16 {method}: logits {logits.dtype}, relevance "
+                     f"{rel.dtype}, want torch.bfloat16")
         if tuple(rel.shape) != (SEEDS, BATCH, 32, 32, 3) or not bool(
                 torch.isfinite(rel).all()):
             fail(f"{method}: relevance {tuple(rel.shape)} not finite/shaped")
 
         logits_c, rel_c, res_c = twin.predict_then_explain(x_cpu)
-        err = (logits.cpu() - logits_c).abs().max().item()
-        ref = logits_c.abs().max().item()
-        if not err <= (0.0 if exact else DOT_TOL * ref):
+        err = (logits.cpu().float() - logits_c.float()).abs().max().item()
+        ref = logits_c.float().abs().max().item()
+        if not err <= (0.0 if exact else tol * ref):
             fail(f"{precision} {method}: logits card vs CPU {err:.3e}")
         flips, bits = _residual_bit_flips(res, res_c)
         if flips > (0 if exact else (1 - MIN_BIT_AGREEMENT) * bits):
@@ -1977,17 +2295,44 @@ def check_engine(params, cfg, x_cpu, precision, to_profile):
                  f"differ")
         seeds_c, _ = twin._seeds(logits_c, None, SEEDS)
         rel_x = eng.replay(cnn.residuals_to(res_c, "cuda"), seeds_c.cuda())
-        rerr = (rel_x.cpu() - rel_c).abs().max().item()
-        rref = rel_c.abs().max().item()
-        if not rerr <= (0.0 if exact else REPLAY_TOL * rref):
+        rerr = (rel_x.cpu().float() - rel_c.float()).abs().max().item()
+        rref = rel_c.float().abs().max().item()
+        if not rerr <= (0.0 if exact else rtol * rref):
             fail(f"{precision} {method}: cross-replay {rerr:.3e} "
                  f"(max|rel| {rref:.3e})")
-        direct = (rel.cpu() - rel_c).abs().max().item()
+        direct = (rel.cpu().float() - rel_c.float()).abs().max().item()
         if exact:
             back = twin.replay(cnn.residuals_to(res, "cpu"), seeds_c)
             if direct != 0.0 or not torch.equal(back, rel.cpu()):
                 fail(f"fxp16 {method}: relevance or the CPU's replay of the "
                      f"card's residuals differs from the card's")
+        agreement = None
+        if precision == "bf16":
+            # every example on the CPU's replay of the card's stored bits
+            seeds, _ = eng._seeds(logits, None, SEEDS)
+            back = twin.replay(cnn.residuals_to(res, "cpu"), seeds.cpu())
+            berr = (rel.cpu().float() - back.float()).abs().max().item()
+            if not berr <= BF16_TOL * back.float().abs().max().item():
+                fail(f"bf16 {method}: relevance {berr:.3e} off the CPU's "
+                     f"replay of the card's residuals")
+            # the heatmaps against f32's, same model, same seeds (its
+            # launches are a comparison's: not counted on the bf16 path)
+            counted, counted_e = dict(LAUNCHES), dict(ENTRY_LAUNCHES)
+            f32 = build(EngineSpec(CNNModel(params, cfg, device="cuda"),
+                                   method=method, targets=TopK(SEEDS)))
+            _, res32 = f32.forward(x)
+            rel32 = f32.replay(res32, seeds.float())
+            torch.cuda.synchronize()
+            LAUNCHES.update(counted)
+            ENTRY_LAUNCHES.update(counted_e)
+            agreement = _heatmap_agreement(rel, rel32)
+            if agreement["spearman"][0] < 0.9:
+                fail(f"bf16 {method}: heatmaps rank unlike f32's "
+                     f"{agreement}")
+            print(f"  bf16  {method:9s} vs f32 heatmaps (fidelity.compare, "
+                  f"k 64, mean / least over {SEEDS}x{BATCH}): "
+                  + "; ".join(f"{m} {a:.4f} / {b:.4f}"
+                              for m, (a, b) in agreement.items()))
 
         times = []
         for _ in range(12):
@@ -2005,7 +2350,8 @@ def check_engine(params, cfg, x_cpu, precision, to_profile):
                                cross_replay_err=rerr,
                                card_vs_cpu_rel_err=direct, rel_max=rref,
                                explain_ms_host=ms, explain_ms_device=dev_ms,
-                               launches_per_explain=rose)
+                               launches_per_explain=rose,
+                               vs_f32_heatmaps=agreement)
         print(f"  {precision:5s} {method:9s} logits err {err:.2e}  "
               f"bit flips {flips}/{bits}"
               f"  cross-replay err {rerr:.2e} (max|rel| {rref:.2e})  "
@@ -2055,6 +2401,178 @@ def serve_requests(params, cfg, x_cpu, precision):
     print(f"  {precision}: {n_req} requests served; replay == cold "
           f"explain bitwise")
     return n_req
+
+
+# ---------------------------------------------------------------------------
+# phase 9: the paper's accounting (Table II / §V, Table IV)
+# ---------------------------------------------------------------------------
+
+#: kernel launches of one saliency explain of the Table-III-literal config
+#: in bf16 (no conv ReLU: the pools run alone, the one ReLU is FC0's)
+PER_LITERAL_EXPLAIN = {"conv2d_fwd": 4, "maxpool_fwd": 2, "relu_fwd": 1,
+                       "vmm_fwd": 2, "conv2d_bwd_fused": 4,
+                       "vmm_bwd_fused": 2}
+#: The paper's figures (§V, Table IV) printed beside the port's.
+PAPER = "3.4 Mb autodiff vs 24.7 Kb packed (137x); FP+BP 50-72 % over FP"
+TABLE_IV_BATCHES = (1, BATCH)
+
+
+def _peak_bytes(fn):
+    """Device memory ``fn()`` allocates at its peak beyond what was held
+    before it (``max_memory_allocated``), after one warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    del out
+    return peak
+
+
+def check_paper_tables(params, cfg, x_cpu, launches, entry_launches,
+                       to_profile):
+    """Phase 9.  (a) Table II / §V: each config's Ledger (analytic bits per
+    method, fp32 autodiff bits) against the bits of the residual tensors
+    ``forward_with_residuals`` returns on the card, per example, for
+    ``TABLE_III_LITERAL`` (the paper's 24.7 Kb) and ``FULL``: they must be
+    equal.  (b) the bf16 explain of ``TABLE_III_LITERAL`` (counted from 0,
+    per counter and per entry point: the pool alone in bf16) against its
+    CPU twin, bf16 out.  (c) §V on the card: the
+    bytes autograd saves for the backward of ``cnn.apply(method=
+    "autodiff")`` (the software baseline, plain ops), and the peak device
+    memory of a top-3 explain at batch 32 on the packed residuals against
+    a ``backward="vjp"`` explain over that autodiff model.  (d) Table IV:
+    FP (``Engine.forward``) against FP+BP (``Engine.explain``, the argmax
+    class) device ms at batch 1 and 32 in f32, bf16 and fxp16; the f32
+    FP+BP at both batches joins the profiles (its time by kernel)."""
+    from repro_torch.configs import paper_cnn
+    from repro_torch.core import residuals
+    from repro_torch.engine import CNNModel, EngineSpec, FnModel, TopK, build
+    from repro_torch.kernels import ENTRY_LAUNCHES, LAUNCHES, reset_launches
+    from repro_torch.models import cnn
+
+    x = x_cpu.cuda()
+    out = {"paper": PAPER, "ledger": {}}
+    # (a) the Ledger against the residual tensors
+    for name in ("TABLE_III_LITERAL", "FULL"):
+        c = getattr(paper_cnn, name)
+        led = residuals.cnn_ledger(c)
+        p = cnn.params_to(cnn.init(torch.Generator().manual_seed(0), c),
+                          "cuda")
+        row = dict(autodiff_bits=led.autodiff_bits(32))
+        for method in METHODS:
+            _, res = cnn.forward_with_residuals(p, x, c, method)
+            got = residuals.residual_bits(res) / BATCH
+            want = led.analytic_bits(method)
+            if got != want:
+                fail(f"{name} {method}: {got} residual bits an example, "
+                     f"the Ledger says {want}")
+            row[method] = dict(bits=want, reduction=led.reduction(method))
+        out["ledger"][name] = row
+        print(f"  {name}: autodiff {residuals.mb(row['autodiff_bits']):.3f} "
+              f"Mb an example (fp32); packed residual tensors = Ledger: "
+              + "; ".join(f"{m} {residuals.kb(row[m]['bits']):.3f} Kb "
+                          f"({row[m]['reduction']:.1f}x)" for m in METHODS))
+    print(f"  paper: {PAPER}")
+
+    # (b) the literal config in bf16: its pools run alone
+    lit = paper_cnn.TABLE_III_LITERAL
+    lp = cnn.init(torch.Generator().manual_seed(0), lit)
+    spec = dict(method="saliency", precision="bf16", targets=TopK(SEEDS))
+    eng = build(EngineSpec(CNNModel(lp, lit, device="cuda"), **spec))
+    twin = build(EngineSpec(CNNModel(lp, lit, device="cpu"), **spec))
+    reset_launches()
+    logits, rel, res = eng.predict_then_explain(x)
+    torch.cuda.synchronize()
+    launches["bf16_literal"] = dict(LAUNCHES)
+    entry_launches["bf16_literal"] = dict(ENTRY_LAUNCHES)
+    want = {k: 0 for k in LAUNCHES}
+    want.update(PER_LITERAL_EXPLAIN)
+    if launches["bf16_literal"] != want:
+        fail(f"bf16 literal: launches {launches['bf16_literal']}, want "
+             f"{want}")
+    if entry_launches["bf16_literal"] != bf16_entries(want, ENTRY_LAUNCHES):
+        fail(f"bf16 literal: launches per entry point "
+             f"{ {k: v for k, v in ENTRY_LAUNCHES.items() if v} }, not "
+             f"all through the bf16 entries")
+    if not logits.dtype == rel.dtype == torch.bfloat16:
+        fail(f"bf16 literal: logits {logits.dtype}, relevance {rel.dtype}, "
+             f"want torch.bfloat16")
+    logits_c, _, _ = twin.predict_then_explain(x_cpu)
+    err = (logits.cpu().float() - logits_c.float()).abs().max().item()
+    if not err <= BF16_TOL * logits_c.float().abs().max().item():
+        fail(f"bf16 literal: logits card vs CPU {err:.3e}")
+    seeds, _ = eng._seeds(logits, None, SEEDS)
+    back = twin.replay(cnn.residuals_to(res, "cpu"), seeds.cpu())
+    rerr = (rel.cpu().float() - back.float()).abs().max().item()
+    if not rerr <= BF16_TOL * back.float().abs().max().item():
+        fail(f"bf16 literal: relevance {rerr:.3e} off the CPU's replay")
+    out["bf16_literal"] = dict(logits_err=err, rel_err=rerr)
+    print(f"  bf16 TABLE_III_LITERAL saliency explain: logits err "
+          f"{err:.2e}, relevance vs the CPU's replay of the card's bits "
+          f"{rerr:.2e}")
+
+    # (c) §V on the card: what autograd saves, and the peak memory
+    pc = cnn.params_to(params, "cuda")
+
+    def autodiff(method):
+        return lambda v: cnn.apply(pc, v, cfg, method="autodiff")
+
+    saved = {}
+
+    def pack(t):
+        saved[(t.data_ptr(), t.dtype, tuple(t.shape))] = (
+            t.numel() * t.element_size())
+        return t
+
+    with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+        autodiff("saliency")(x.clone().requires_grad_(True))
+    weights = {t.data_ptr() for k in ("conv", "fc") for q in pc[k]
+               for t in q.values()}
+    saved_bytes = sum(v for (ptr, _, _), v in saved.items()
+                      if ptr not in weights)
+    _, res = cnn.forward_with_residuals(pc, x, cfg, "saliency")
+    packed_bytes = residuals.residual_bits(res) // 8
+    packed_eng = build(EngineSpec(CNNModel(params, cfg, device="cuda"),
+                                  method="saliency", targets=TopK(SEEDS)))
+    vjp_eng = build(EngineSpec(FnModel(autodiff, device="cuda"),
+                               backward="vjp", targets=TopK(SEEDS)))
+    peak_packed = _peak_bytes(lambda: packed_eng.explain(x))
+    peak_vjp = _peak_bytes(lambda: vjp_eng.explain(x))
+    out["memory"] = dict(autograd_saved_bytes=saved_bytes,
+                         packed_residual_bytes=packed_bytes,
+                         peak_packed_explain_bytes=peak_packed,
+                         peak_vjp_autodiff_explain_bytes=peak_vjp)
+    print(f"  batch {BATCH}, FULL: autograd saves {saved_bytes} B of "
+          f"activations for the backward (autodiff, plain ops, weights not "
+          f"counted; {8 * saved_bytes / BATCH / 1e6:.3f} Mb an example), "
+          f"the packed residuals are {packed_bytes} B "
+          f"({8 * packed_bytes / BATCH / 1e3:.3f} Kb an example; "
+          f"{saved_bytes / packed_bytes:.1f}x); peak device memory of a "
+          f"top-{SEEDS} explain: packed {peak_packed} B, vjp over autodiff "
+          f"{peak_vjp} B ({peak_vjp / peak_packed:.2f}x)")
+
+    # (d) Table IV: FP against FP+BP
+    out["table_iv"] = {}
+    for precision in ("f32", "bf16", "fxp16"):
+        eng = build(EngineSpec(CNNModel(params, cfg, device="cuda"),
+                               method="saliency", precision=precision))
+        for b in TABLE_IV_BATCHES:
+            xb = x[:b].contiguous()
+            fp = device_time_ms(lambda: eng.forward(xb))
+            fpbp = device_time_ms(lambda: eng.explain(xb))
+            out["table_iv"][f"{precision} b{b}"] = dict(
+                fp_ms=fp, fp_bp_ms=fpbp, overhead=fpbp / fp - 1)
+            if precision == "f32":
+                to_profile.append((f"Table IV f32 FP+BP batch {b}",
+                                   lambda eng=eng, xb=xb: eng.explain(xb),
+                                   fpbp))
+            print(f"  Table IV {precision:5s} batch {b:2d}: FP {fp:.4f} ms, "
+                  f"FP+BP {fpbp:.4f} ms device (+{100 * (fpbp / fp - 1):.0f}"
+                  f" %)")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -2656,6 +3174,8 @@ def check_lm_twin(launches):
 
 #: The counters each path must launch; the others must stay at 0 there.
 PATH_KERNELS = {"f32": tuple(PER_EXPLAIN["f32"]),
+                "bf16": tuple(PER_EXPLAIN["bf16"]),
+                "bf16_literal": tuple(PER_LITERAL_EXPLAIN),
                 "fxp16": tuple(PER_EXPLAIN["fxp16"]),
                 "vjp_fused": tuple(PER_EXPLAIN_VJP["vjp_fused"]),
                 "vjp_unfused": tuple(PER_EXPLAIN_VJP["vjp_unfused"]),
@@ -2663,8 +3183,9 @@ PATH_KERNELS = {"f32": tuple(PER_EXPLAIN["f32"]),
                 "lm": ("selective_scan", "selective_scan_bwd"),
                 "lm_twin": ("selective_scan", "selective_scan_bwd")}
 #: The path whose launches the kernel JSON reports for each kernel: the
-#: first that runs it.
-KERNEL_PATH = {k: next(p for p in PATH_KERNELS if k in PATH_KERNELS[p])
+#: first that runs it (the bf16 paths report the bf16 instances).
+KERNEL_PATH = {k: next(p for p in PATH_KERNELS if k in PATH_KERNELS[p]
+                       and not p.startswith("bf16"))
                for k in KERNELS}
 
 
@@ -2691,7 +3212,8 @@ def main() -> int:
         print("chip_smoke: no CUDA device; the port's smoke test needs one",
               file=sys.stderr)
         return 1
-    from repro_torch.kernels import LAUNCHES, _build, reset_launches
+    from repro_torch.kernels import (ENTRY_LAUNCHES, LAUNCHES, _build,
+                                     reset_launches)
     from repro_torch.models import cnn
 
     # phase 1: device
@@ -2766,6 +3288,7 @@ def main() -> int:
           f"ms = median of {REPS} back-to-back runs)")
     kc = KernelCheck(imad_per_s, mufu_per_s)
     check_kernels(kc)
+    check_kernels_bf16(kc)
     check_kernels_fxp(kc)
     check_kernels_autograd(kc)
     check_kernels_scan(kc)
@@ -2777,7 +3300,8 @@ def main() -> int:
     x_cpu = torch.randn((BATCH, 32, 32, 3),
                         generator=torch.Generator().manual_seed(1))
     engine_results, n_req, launches, to_profile = {}, {}, {}, []
-    for precision in ("f32", "fxp16"):
+    entry_launches = {}
+    for precision in ("f32", "bf16", "fxp16"):
         reset_launches()
         print(f"phase 3 ({precision}): engine end to end, full Table III "
               f"width")
@@ -2787,7 +3311,22 @@ def main() -> int:
         n_req[precision] = serve_requests(params, cfg, x_cpu, precision)
         torch.cuda.synchronize()
         launches[precision] = dict(LAUNCHES)
+        entry_launches[precision] = dict(ENTRY_LAUNCHES)
         check_path_launches(precision, launches[precision])
+        if precision == "bf16" and entry_launches["bf16"] != bf16_entries(
+                launches["bf16"], ENTRY_LAUNCHES):
+            fail(f"bf16: launches per entry point "
+                 f"{ {k: v for k, v in ENTRY_LAUNCHES.items() if v} }, not "
+                 f"all through the bf16 entries")
+
+    # the paper's accounting (Table II / §V, Table IV), and the bf16
+    # explain of the Table-III-literal config (the pool alone in bf16),
+    # counted from 0
+    print("phase 9 (paper tables): residual bits and the Ledger, peak "
+          "memory packed vs autodiff, FP vs FP+BP (Table IV)")
+    tables = check_paper_tables(params, cfg, x_cpu, launches, entry_launches,
+                                to_profile)
+    check_path_launches("bf16_literal", launches["bf16_literal"])
 
     # phases 5-6: each checked explain / training step counted from 0
     print(f"phase 5 (vjp): autograd explains, full Table III width, batch "
@@ -2812,25 +3351,31 @@ def main() -> int:
     twin_results = check_lm_twin(launches)
     check_path_launches("lm_twin", launches["lm_twin"])
 
-    # last, as it slows what runs after it: where each path's time goes
-    print("profiles: one saliency explain per CNN path, one training step, "
-          "one LM decode step and one per-token LM explain under "
-          "torch.profiler")
-    profiles = {what: profile_breakdown(fn, what, wall)
-                for what, fn, wall in to_profile}
+    # last, as a profiler session slows what runs after it: phase 2's
+    # profiler column (the process's first session), then where each
+    # path's time goes
     print(f"profiler column of phase 2: each row's kernel (and general "
           f"route) {REPS} times under one torch.profiler session, CUPTI ms "
           f"a call")
     kc.profile()
     kc.summary()
+    print("profiles: one saliency explain per CNN path, Table IV's f32 "
+          "FP+BP at batch 1 and 32, one training step, one LM decode step "
+          "and one per-token LM explain under torch.profiler")
+    profiles = {what: profile_breakdown(fn, what, wall)
+                for what, fn, wall in to_profile}
 
     kernels = []
-    for name, (source, replaces) in KERNELS.items():
+    rows = [(name, launches[KERNEL_PATH[name]][name], source, replaces)
+            for name, (source, replaces) in KERNELS.items()]
+    rows += [(name, entry_launches[
+        "bf16_literal" if counter == "maxpool_fwd" else "bf16"][entry])
+        + KERNELS[counter]
+        for name, (counter, entry) in BF16_INSTANCES.items()]
+    for name, n_launched, source, replaces in rows:
         s = kc.sums[name]
-        path = KERNEL_PATH[name]
         kernels.append(dict(name=name, route="cuda", source=source,
-                            replaces=replaces,
-                            launches=launches[path][name],
+                            replaces=replaces, launches=n_launched,
                             max_abs_err=kc.err[name], ms=s["ms"],
                             plain_ms=s["plain_ms"], bound_ms=s["bound_ms"],
                             bound_by=_bound_by(kc, name),
@@ -2841,12 +3386,14 @@ def main() -> int:
             device=kind, nvidia_smi=smi, sms=sms, max_sm_mhz=max_sm_mhz,
             imad_per_s=imad_per_s, mufu_per_s=mufu_per_s, build_s=build_s, cases=kc.rows,
             sums=kc.sums, engine=engine_results, requests=n_req,
+            paper_tables=tables,
             vjp=vjp_results, train=train_results, lm=lm_results,
             lm_twin=twin_results,
             scan_backward_ms=kc.scan_backward_ms,
             scan_backward_loop_ms=kc.scan_backward_loop_ms,
             profiles=profiles,
-            launches=launches, kernels=kernels), indent=1))
+            launches=launches, entry_launches=entry_launches,
+            kernels=kernels), indent=1))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -3,7 +3,9 @@ FULL (published) config, ``get_smoke(name)`` the reduced same-family one.
 
 The port runs falcon-mamba-7b (pure mamba-1, ROADMAP A11a).  Every other
 name of :data:`ARCHS` raises :class:`NotImplementedError` naming the
-ROADMAP item that ports it.
+ROADMAP item that ports it.  The paper's own CNN is not an LM arch: its
+configs (``paper_cnn``: ``FULL``, ``TABLE_III_LITERAL``, ``SMOKE``) come
+from :func:`cnn`.
 """
 from __future__ import annotations
 
@@ -57,3 +59,16 @@ def get(arch: str) -> ModelConfig:
 def get_smoke(arch: str) -> ModelConfig:
     """The reduced same-family smoke config (CPU-runnable)."""
     return _module(arch).SMOKE
+
+
+#: The paper's Table III CNN configs (``configs/paper_cnn.py``).
+CNN_CONFIGS = ("FULL", "TABLE_III_LITERAL", "SMOKE")
+
+
+def cnn(name: str = "FULL"):
+    """One of the paper CNN's configs (a ``models.cnn.CNNConfig``)."""
+    if name not in CNN_CONFIGS:
+        raise ValueError(f"unknown paper_cnn config {name!r}; known: "
+                         f"{CNN_CONFIGS}")
+    return getattr(importlib.import_module("repro_torch.configs.paper_cnn"),
+                   name)

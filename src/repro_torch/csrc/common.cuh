@@ -1,10 +1,12 @@
 // Shared by the kernels of repro_torch: the rectifier rules of the paper
 // (Eq. 3-5), the packed-residual bit reads used by the fused backward
 // kernels' prologues and epilogues, and, for the tiled convolutions
-// (conv_fwd.cuh, conv_bwd.cuh), their cp.async copies and the element
-// traits that let one template serve f32 and int16.
+// (conv_fwd.cuh, conv_bwd.cuh) and the tiled FC backward (vmm_bwd.cuh),
+// their cp.async copies and the element traits that let one template serve
+// f32, bf16 and int16.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -133,9 +135,10 @@ int copy_bytes(const void* p, int count, int chunk) {
   return 0;
 }
 
-// The element type of a tiled convolution: f32, or int16 whose operands
-// are widened to 32-bit words before the multiply-add (IMAD on uint32_t,
-// so the sum wraps modulo 2^32 as the reference's int32 dot does) and whose
+// The element type of a tiled kernel: f32; bf16, whose operands are
+// widened to f32 words and summed as f32 is; or int16, whose operands are
+// widened to 32-bit words before the multiply-add (IMAD on uint32_t, so the
+// sum wraps modulo 2^32 as the reference's int32 dot does) and whose
 // accumulator is requantized to Q7.8 before the epilogue.
 template <typename T>
 struct Traits;
@@ -213,6 +216,64 @@ struct Traits<int16_t> {
     *reinterpret_cast<short4*>(dst) =
         make_short4(static_cast<short>(r[0]), static_cast<short>(r[1]),
                     static_cast<short>(r[2]), static_cast<short>(r[3]));
+  }
+};
+
+// bf16 to f32 is exact: the 16 bits become the high half of the word.
+__device__ __forceinline__ float bf16_lo(uint32_t pair) {
+  return __uint_as_float(pair << 16);
+}
+__device__ __forceinline__ float bf16_hi(uint32_t pair) {
+  return __uint_as_float(pair & 0xffff0000u);
+}
+
+// Two f32 values rounded to nearest even, packed as two bf16 (a first).
+__device__ __forceinline__ uint32_t bf16_pack(float a, float b) {
+  return static_cast<uint32_t>(__bfloat16_as_ushort(__float2bfloat16_rn(a))) |
+         static_cast<uint32_t>(__bfloat16_as_ushort(__float2bfloat16_rn(b)))
+             << 16;
+}
+
+// bf16: operands widened to f32 exactly where they are read from shared
+// memory, the f32 instance's chain of FFMA (the same order), and one
+// rounding to nearest even where the result is stored.  finish keeps the
+// f32 sum, so the backward's epilogue gate acts on it before the rounding,
+// as the reference gates its f32 accumulator before .astype(bf16); the
+// forward's bias is added after the rounding, bf16(f32(bf16(acc)) + f32(b)),
+// as the reference computes conv2d_pallas(x, w) + b and vmm_pallas(x, w) + b
+// with a bf16 kernel output.
+template <>
+struct Traits<__nv_bfloat16> {
+  using Word = float;
+  static __device__ __forceinline__ float widen(__nv_bfloat16 v) {
+    return __bfloat162float(v);
+  }
+  static __device__ __forceinline__ float prologue(__nv_bfloat16 g, bool bit,
+                                                   int gate_in, int method) {
+    const float v = __bfloat162float(g);
+    return gate_in ? gate(v, bit, method) : v;
+  }
+  static __device__ __forceinline__ void weights4(const __nv_bfloat16* p,
+                                                  float (&w)[4]) {
+    const uint2 v = *reinterpret_cast<const uint2*>(p);
+    w[0] = bf16_lo(v.x), w[1] = bf16_hi(v.x);
+    w[2] = bf16_lo(v.y), w[3] = bf16_hi(v.y);
+  }
+  static __device__ __forceinline__ void words4(const float* p, float* x) {
+    const float4 v = *reinterpret_cast<const float4*>(p);
+    x[0] = v.x, x[1] = v.y, x[2] = v.z, x[3] = v.w;
+  }
+  static __device__ __forceinline__ float mac(float acc, float x, float w) {
+    return fmaf(x, w, acc);
+  }
+  static __device__ __forceinline__ float finish(float acc) { return acc; }
+  static __device__ __forceinline__ float add_bias(float r, __nv_bfloat16 b) {
+    return __bfloat162float(__float2bfloat16_rn(r)) + __bfloat162float(b);
+  }
+  static __device__ __forceinline__ void store4(__nv_bfloat16* dst,
+                                                const float* r) {
+    *reinterpret_cast<uint2*>(dst) =
+        make_uint2(bf16_pack(r[0], r[1]), bf16_pack(r[2], r[3]));
   }
 };
 

@@ -1,11 +1,13 @@
 // The tiled fused conv backward (paper §III.B, Fig. 5-6), one template for
-// the f32 kernel B5 (conv2d.cu, repro_conv2d_bwd_fused) and the int16 kernel
-// B8 (conv2d_fxp.cu, repro_conv2d_bwd_fused_fxp).
+// the f32 kernel B5 (conv2d.cu, repro_conv2d_bwd_fused), its bf16 instance
+// (conv_bwd_bf16.cu, repro_conv2d_bwd_fused_bf16) and the int16 kernel B8
+// (conv2d_fxp.cu, repro_conv2d_bwd_fused_fxp).
 //
 //   out[s, n] = gate_out(finish(conv(gate_in(unpool(g[s, n])), wt)))
 //
-// finish is the identity in f32 and the requantize to Q7.8 in int16 (before
-// the epilogue gate, as src/repro/kernels/conv2d/fxp.py:119-125 does).
+// finish is the identity in f32 and bf16 (bf16 rounds at the store, after
+// the epilogue gate) and the requantize to Q7.8 in int16 (before the
+// epilogue gate, as src/repro/kernels/conv2d/fxp.py:119-125 does).
 //
 // Bound on an H100: multiply-adds on the CUDA cores (FFMA, or IMAD at half
 // its rate: no TF32, no int16 MMA), counted on the nonzero gated inputs;

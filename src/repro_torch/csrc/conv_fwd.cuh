@@ -1,13 +1,15 @@
 // The tiled conv forward (paper §III.B and §IV), one template for the f32
-// kernel B1 (instantiated in conv2d.cu for repro_conv2d_fwd) and the int16
-// kernel B7 (instantiated in conv_fwd_i16.cu for conv2d_fxp.cu's
+// kernel B1 (instantiated in conv2d.cu for repro_conv2d_fwd), its bf16
+// instance (conv_fwd_bf16.cu, repro_conv2d_fwd_bf16) and the int16 kernel
+// B7 (instantiated in conv_fwd_i16.cu for conv2d_fxp.cu's
 // repro_conv2d_fxp_fwd), NHWC x HWIO, stride 1, SAME.
 //
 //   y[n] = add_bias(finish(conv(x[n], w)), b)
 //
-// finish is the identity in f32 and the requantize to Q7.8 in int16; the
-// bias is added in f32 and added with saturation in int16 (the reference's
-// sat_add(conv2d_fxp_pallas(x, w), b)).
+// finish is the identity in f32 and bf16 and the requantize to Q7.8 in
+// int16; the bias is added in f32, after the rounding in bf16 (the
+// reference's conv2d_pallas(x, w) + b on a bf16 output), and with
+// saturation in int16 (the reference's sat_add(conv2d_fxp_pallas(x, w), b)).
 //
 // Bound on an H100: multiply-adds on the CUDA cores (9*Cin a 3x3 output),
 // except where a channel count is 3.  f32 runs FFMA (128 per SM per clock,

@@ -1,5 +1,6 @@
-// 2x2/2 max pool + 2-bit argmax (paper §III.D, Fig. 5), on f32 and on the
-// int16 (Q7.8) feature maps of the fxp16 path, and its unpool backward.
+// 2x2/2 max pool + 2-bit argmax (paper §III.D, Fig. 5), on f32, on bf16
+// (the bf16 path) and on the int16 (Q7.8) feature maps of the fxp16 path,
+// and its unpool backward.
 //
 // Replaces: src/repro/kernels/pool/pool.py, maxpool_fwd_pallas and
 // unpool_bwd_pallas, and their int16 instances pinned by
@@ -193,6 +194,13 @@ REPRO_API int repro_maxpool_fwd(const float* x, float* y, uint8_t* idx, int n,
   return maxpool_fwd<float>(x, y, idx, n, h, w, c, threads, stream);
 }
 
+REPRO_API int repro_maxpool_fwd_bf16(const __nv_bfloat16* x,
+                                     __nv_bfloat16* y, uint8_t* idx, int n,
+                                     int h, int w, int c, int threads,
+                                     cudaStream_t stream) {
+  return maxpool_fwd<__nv_bfloat16>(x, y, idx, n, h, w, c, threads, stream);
+}
+
 REPRO_API int repro_maxpool_fwd_i16(const int16_t* x, int16_t* y,
                                     uint8_t* idx, int n, int h, int w, int c,
                                     int threads, cudaStream_t stream) {
@@ -204,6 +212,15 @@ REPRO_API int repro_relu_pool_fwd(const float* x, float* y, uint8_t* m,
                                   uint8_t* idx, int n, int h, int w, int c,
                                   int threads, cudaStream_t stream) {
   return relu_pool_fwd<float>(x, y, m, idx, n, h, w, c, threads, stream);
+}
+
+REPRO_API int repro_relu_pool_fwd_bf16(const __nv_bfloat16* x,
+                                       __nv_bfloat16* y, uint8_t* m,
+                                       uint8_t* idx, int n, int h, int w,
+                                       int c, int threads,
+                                       cudaStream_t stream) {
+  return relu_pool_fwd<__nv_bfloat16>(x, y, m, idx, n, h, w, c, threads,
+                                      stream);
 }
 
 REPRO_API int repro_relu_pool_fwd_i16(const int16_t* x, int16_t* y,

@@ -1,5 +1,6 @@
-// Fused ReLU + 1-bit packed mask (paper §III.D, Fig. 4), on f32 and on the
-// int16 (Q7.8) feature maps of the fxp16 path, and its masked backward.
+// Fused ReLU + 1-bit packed mask (paper §III.D, Fig. 4), on f32, on bf16
+// (the bf16 path) and on the int16 (Q7.8) feature maps of the fxp16 path,
+// and its masked backward.
 //
 // Replaces: src/repro/kernels/relu_mask/relu_mask.py, relu_fwd_pallas (the
 // fxp16 path calls the same Pallas kernel on int16 blocks), and
@@ -144,6 +145,12 @@ REPRO_API int repro_set_device(int device) {
 REPRO_API int repro_relu_fwd(const float* x, float* y, uint8_t* m, int rows,
                              int c, int threads, cudaStream_t stream) {
   return relu_fwd<float>(x, y, m, rows, c, threads, stream);
+}
+
+REPRO_API int repro_relu_fwd_bf16(const __nv_bfloat16* x, __nv_bfloat16* y,
+                                  uint8_t* m, int rows, int c, int threads,
+                                  cudaStream_t stream) {
+  return relu_fwd<__nv_bfloat16>(x, y, m, rows, c, threads, stream);
 }
 
 REPRO_API int repro_relu_fwd_i16(const int16_t* x, int16_t* y, uint8_t* m,

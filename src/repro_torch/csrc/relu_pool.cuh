@@ -1,6 +1,8 @@
 // ReLU + 1-bit mask (B2), 2x2/2 max pool + 2-bit argmax (B3), and the two
-// fused into one pass at the pooled layers, on f32 and on the int16 (Q7.8)
-// feature maps of the fxp16 path: one template for the card.
+// fused into one pass at the pooled layers, on f32, on the bf16 maps of the
+// bf16 path and on the int16 (Q7.8) feature maps of the fxp16 path: one
+// template for the card.  Compares and selects only, so every element type
+// is exact (bf16 compares as bf16: -0.0 is not > 0, NaN is not > anything).
 //
 // Replaces: src/repro/kernels/relu_mask/relu_mask.py, relu_fwd_pallas, and
 // src/repro/kernels/pool/pool.py, maxpool_fwd_pallas (int16: pinned by
@@ -76,6 +78,28 @@ struct Vec8<int16_t> {
 #pragma unroll
     for (int j = 0; j < 8; ++j) u.h[j] = v[j];
     reinterpret_cast<int4*>(p)[0] = u.q;
+  }
+};
+
+template <>
+struct Vec8<__nv_bfloat16> {
+  __device__ static void load(const __nv_bfloat16* p, __nv_bfloat16 v[8]) {
+    const uint4 q = reinterpret_cast<const uint4*>(p)[0];
+    const uint32_t u[4] = {q.x, q.y, q.z, q.w};
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      v[2 * j] = __ushort_as_bfloat16(static_cast<unsigned short>(u[j]));
+      v[2 * j + 1] =
+          __ushort_as_bfloat16(static_cast<unsigned short>(u[j] >> 16));
+    }
+  }
+  __device__ static void store(__nv_bfloat16* p, const __nv_bfloat16 v[8]) {
+    uint32_t u[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      u[j] = static_cast<uint32_t>(__bfloat16_as_ushort(v[2 * j])) |
+             static_cast<uint32_t>(__bfloat16_as_ushort(v[2 * j + 1])) << 16;
+    reinterpret_cast<uint4*>(p)[0] = make_uint4(u[0], u[1], u[2], u[3]);
   }
 };
 

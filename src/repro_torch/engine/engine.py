@@ -29,6 +29,9 @@ from repro_torch.engine.backward import (ManualSeedBatchedBackward,
                                          VjpBackward, vjp)
 from repro_torch.engine.spec import EngineSpec, Fixed, TopK
 
+#: Precisions whose only backward is the manual seed-batched pair.
+MANUAL_ONLY = ("bf16", "fxp16")
+
 
 class Engine:
     """A built attribution engine — all knobs resolved.
@@ -68,20 +71,21 @@ class Engine:
     def model_fn(self):
         """Rule-bound ``f`` for direct method calls.
 
-        f32: ``f(x) -> logits``, differentiable.  fxp16: the pair forward
-        ``f(x) -> (logits, residuals)`` — combine with
-        :attr:`composite_backward` (integers have no gradient).
+        f32: ``f(x) -> logits``, differentiable.  bf16 and fxp16: the pair
+        forward ``f(x) -> (logits, residuals)`` — combine with
+        :attr:`composite_backward` (integers have no gradient, and bf16
+        under autograd is ROADMAP A6d).
         """
-        if self.spec.precision == "fxp16":
+        if self.spec.precision in MANUAL_ONLY:
             return self._backend.forward
         return self._model_fn
 
     @property
     def composite_backward(self):
-        """Manual BP for the methods' ``backward=`` knob under fxp16, or
-        None on f32, where autograd through :attr:`model_fn` is the
-        engine."""
-        if self.spec.precision == "fxp16":
+        """Manual BP for the methods' ``backward=`` knob under bf16 and
+        fxp16, or None on f32, where autograd through :attr:`model_fn` is
+        the engine."""
+        if self.spec.precision in MANUAL_ONLY:
             return self._backend.backward
         return None
 

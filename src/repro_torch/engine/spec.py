@@ -101,12 +101,13 @@ class _ParamsIdentity:
 class CNNModel(_ParamsIdentity):
     """Handle on the paper's Table III CNN (:mod:`repro_torch.models.cnn`).
 
-    ``params`` is a ``{"conv": [...], "fc": [...]}`` tree of f32 tensors on
-    any device; the engine copies it to ``device`` once.  ``use_pallas=True``
-    (default) runs the kernels — the fused blocks, required for the
-    seed-batched pair and for fxp16; ``use_pallas=False`` keeps the plain
-    reference ops, where only the ``vjp`` backend exists.  ``device=None``
-    means the card and raises where there is none.
+    ``params`` is a ``{"conv": [...], "fc": [...]}`` tree of f32 (or, for
+    a bfloat16 config, bf16) tensors on any device; the engine copies it to
+    ``device`` once.  ``use_pallas=True`` (default) runs the kernels — the
+    fused blocks, required for the seed-batched pair and for bf16 and
+    fxp16; ``use_pallas=False`` keeps the plain reference ops, where only
+    the ``vjp`` backend exists.  ``device=None`` means the card and raises
+    where there is none.
     """
 
     params: Any
@@ -154,9 +155,10 @@ class CNNModel(_ParamsIdentity):
     def logits_fn(self, method: str, precision: str) -> Callable:
         """Rule-bound ``f(x) -> logits`` (``cnn.apply``), differentiable
         with respect to ``x`` in f32: the ``vjp`` backend and the composite
-        methods run autograd through it.  Under fxp16 it is the dequantized
-        logits of the int16 forward, for ``Engine.predict`` only (integers
-        have no gradient)."""
+        methods run autograd through it.  Under bf16 and fxp16 it is the bf16
+        or dequantized logits of the bf16 or int16 forward, for
+        ``Engine.predict`` only (integers have no gradient; bf16 autograd is
+        ROADMAP A6d)."""
         from repro_torch.models import cnn
         cnn.check_precision(precision)
         params = cnn.params_to(self.params, self.device)
@@ -264,10 +266,12 @@ class EngineSpec:
     """Declarative configure-once description of an attribution engine.
 
     Fields as in ``repro.engine.spec.EngineSpec``: ``model`` (a
-    :class:`CNNModel`, :class:`FnModel` or :class:`LMModel`), ``method`` (``saliency |
-    deconvnet | guided``), ``precision`` (``f32`` or ``fxp16``, the paper's true-int16 datapath),
-    ``backward`` (``auto`` resolves to the seed-batched pair when the model
-    has one, else ``vjp``; fxp16 is integer arithmetic and has no ``vjp``),
+    :class:`CNNModel`, :class:`FnModel` or :class:`LMModel`), ``method``
+    (``saliency | deconvnet | guided``), ``precision`` (``f32``, ``bf16``,
+    or ``fxp16``, the paper's true-int16 datapath), ``backward`` (``auto``
+    resolves to the seed-batched pair when the model has one, else
+    ``vjp``; fxp16 is integer arithmetic and has no ``vjp``, and bf16 runs
+    the seed-batched pair only: bf16 under ``vjp`` is ROADMAP A6d),
     ``targets`` (:class:`Argmax`, :class:`Fixed` or :class:`TopK`), and
     ``batch`` (inputs are padded up to it and outputs sliced back).  The
     JAX package's planner knobs ``device``/``plan``/``autotune`` and the
@@ -325,6 +329,12 @@ class EngineSpec:
                 f"precision={self.precision!r} for token stacks (the manual "
                 f"backward of an fxp16 LM) is not ported yet (ROADMAP "
                 f"A11b); the LM's dtype is its config's")
+        if self.precision == "bf16" and self.resolve_backward() == "vjp":
+            raise NotImplementedError(
+                "precision='bf16' under backward='vjp' (autograd through the "
+                "bf16 blocks, f32 relevance as the JAX package returns it) "
+                "is not ported yet (ROADMAP A6d); the seed-batched pair of "
+                "a CNNModel(use_pallas=True) runs bf16")
 
     def resolve_backward(self) -> str:
         """The backend ``build`` will actually use (auto-selection rule)."""

@@ -15,12 +15,13 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels._build import LAUNCHES, reset_launches
+from repro_torch.kernels._build import (ENTRY_LAUNCHES, LAUNCHES,
+                                       reset_launches)
 
 METHOD_CODES = {"saliency": 0, "deconvnet": 1, "guided": 2}
 
-__all__ = ["LAUNCHES", "METHOD_CODES", "on_card", "reset_launches",
-           "validate_bp_gates"]
+__all__ = ["ENTRY_LAUNCHES", "LAUNCHES", "METHOD_CODES", "on_card",
+           "reset_launches", "validate_bp_gates"]
 
 
 def validate_bp_gates(method: str, gate, relu_mask, out_gate, out_relu_mask):

@@ -12,7 +12,8 @@ Nothing here runs at import time: :func:`library` builds and loads on the
 first kernel launch, so CPU-only installs import the package without a
 compiler.  Every C entry point takes device pointers, sizes and a
 ``cudaStream_t`` and returns ``cudaGetLastError()``; :func:`launch` raises on
-a non-zero code and counts the launch in :data:`LAUNCHES`.
+a non-zero code and counts the launch in :data:`LAUNCHES` (per wrapper)
+and :data:`ENTRY_LAUNCHES` (per entry point).
 """
 from __future__ import annotations
 
@@ -56,6 +57,15 @@ SIGNATURES = {
     # per thread, Cout per block, C per stage, seeds per thread, thread
     # slices; all 0: the general kernel)
     "repro_conv2d_bwd_fused": [_P] * 6 + [_I] * 16 + [_P],
+    # the bf16 path: bf16 instances of B1-B6 and of the fused ReLU+mask+pool
+    # (the f32 entries' arguments; the FC forward's workspace stays f32)
+    "repro_relu_fwd_bf16": [_P, _P, _P, _I, _I, _I, _P],
+    "repro_maxpool_fwd_bf16": [_P, _P, _P] + [_I] * 5 + [_P],
+    "repro_relu_pool_fwd_bf16": [_P] * 4 + [_I] * 5 + [_P],
+    "repro_conv2d_fwd_bf16": [_P, _P, _P, _P] + [_I] * 10 + [_P],
+    "repro_conv2d_bwd_fused_bf16": [_P] * 6 + [_I] * 16 + [_P],
+    "repro_vmm_fwd_bf16": [_P, _P, _P, _P, _I, _I, _I, _P, _I, _I, _P],
+    "repro_vmm_bwd_fused_bf16": [_P] * 5 + [_I] * 11 + [_P],
     # the fxp16 path: int16 instances of B2/B3 and the int16 kernels B7-B10
     "repro_relu_fwd_i16": [_P, _P, _P, _I, _I, _I, _P],
     "repro_maxpool_fwd_i16": [_P, _P, _P] + [_I] * 5 + [_P],
@@ -85,10 +95,13 @@ SIGNATURES = {
 
 #: Launches per kernel wrapper since the last :func:`reset_launches`.  A
 #: wrapper adds one where it launches its kernel and nowhere else, so a run
-#: can show that its path went through the kernels.  The int16 instances of
-#: ReLU+mask, pool, the fused ReLU+mask+pool and unpool count under
-#: ``relu_fwd``, ``maxpool_fwd``, ``relu_pool_fwd`` and ``unpool_bwd`` (a
-#: fused launch counts under ``relu_pool_fwd`` alone), both element types
+#: can show that its path went through the kernels.  The bf16 instances of
+#: B1-B6 and of the fused ReLU+mask+pool count under their f32 counters
+#: (``conv2d_fwd``, ``relu_fwd``, ``maxpool_fwd``, ``relu_pool_fwd``,
+#: ``vmm_fwd``, ``conv2d_bwd_fused``, ``vmm_bwd_fused``).  The int16
+#: instances of ReLU+mask, pool, the fused ReLU+mask+pool and unpool count
+#: under ``relu_fwd``, ``maxpool_fwd``, ``relu_pool_fwd`` and ``unpool_bwd``
+#: (a fused launch counts under ``relu_pool_fwd`` alone), both element types
 #: of the scan under ``selective_scan`` and of its backward under
 #: ``selective_scan_bwd`` (one entry point that runs the reverse scan and
 #: the partial sums counts once).
@@ -100,13 +113,19 @@ LAUNCHES: Dict[str, int] = {
     "vmm_bwd_fused_fxp": 0, "relu_bwd": 0, "unpool_bwd": 0,
     "selective_scan": 0, "selective_scan_bwd": 0,
 }
+#: Launches per C entry point since the last :func:`reset_launches`, beside
+#: :data:`LAUNCHES`: it tells apart the element-type instances that share a
+#: counter (``repro_conv2d_fwd`` and ``repro_conv2d_fwd_bf16`` both count
+#: under ``conv2d_fwd``).
+ENTRY_LAUNCHES: Dict[str, int] = {name: 0 for name in SIGNATURES}
 
 _LIB: Optional[ctypes.CDLL] = None
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counts in (LAUNCHES, ENTRY_LAUNCHES):
+        for k in counts:
+            counts[k] = 0
 
 
 def find_nvcc() -> str:
@@ -216,6 +235,7 @@ def launch(counter: str, entry: str, device, *args) -> None:
         msg = lib.repro_cuda_error_string(rc).decode()
         raise RuntimeError(f"{entry}: CUDA error {rc} ({msg})")
     LAUNCHES[counter] += 1
+    ENTRY_LAUNCHES[entry] += 1
 
 
 def ptr(t) -> Optional[int]:

@@ -16,9 +16,14 @@ stored residuals.  :func:`conv_bwd_plan` chooses its tile (K in
 kernel, which tiles itself).
 :func:`conv2d_bwd_fused_plain` is that kernel's plain twin.
 
-The int16 twins (``conv2d.fxp``) share the argument contract, checks and
-plain dataflow defined here; only the element type, the entry point and
-the conv itself differ.
+Both wrappers take f32 and bf16 (the bf16 path): each element type has its
+entry point (:data:`_ENTRY`, :data:`_BWD_ENTRY`), bf16 an instance of the
+same tiled template with f32 sums, rounded once to bf16 (the forward's bias
+added after the rounding, as the JAX package adds it after
+``conv2d_pallas``).  bf16 has no general kernel: on the card it takes K in
+:data:`CONV_KS` and a tile plan.  The int16 twins (``conv2d.fxp``) share the
+argument contract, checks and plain dataflow defined here; only the element
+type, the entry point and the conv itself differ.
 """
 from __future__ import annotations
 
@@ -322,29 +327,38 @@ def _check_kernel(name, w, cin, dtype):
     check(name, w, dtype, what="kernel")
 
 
-def _fwd_dims(name: str, dtype: torch.dtype, x: torch.Tensor,
+def _fwd_dims(name: str, dtypes: tuple, x: torch.Tensor,
               w: torch.Tensor, b: Optional[torch.Tensor]):
-    """Check the forward's operands; ``(n, h, w, cin, cout, k)``."""
+    """Check the forward's operands (x of one of ``dtypes``, w and b of
+    x's); ``(n, h, w, cin, cout, k)``."""
     if x.dim() != 4:
         raise ValueError(f"{name}: x must be [N, H, W, Cin], got "
                          f"{tuple(x.shape)}")
     n, h, wd, cin = x.shape
-    check(name, x, dtype, what="x")
-    _check_kernel(name, w, cin, dtype)
+    check(name, x, dtypes, what="x")
+    _check_kernel(name, w, cin, x.dtype)
     k, cout = w.shape[0], w.shape[3]
     if b is not None:
-        check(name, b, dtype, (cout,), what="b")
+        check(name, b, x.dtype, (cout,), what="b")
     return n, h, wd, cin, cout, k
 
 
-def conv_fwd(name: str, counter: str, entry: str, dtype: torch.dtype,
-             plain: Callable, x: torch.Tensor, w: torch.Tensor,
-             b: Optional[torch.Tensor],
+def _check_general(name: str, dtype: torch.dtype, general: bool) -> None:
+    """Raise where the card has no kernel for the general plan: bf16 is
+    an instance of the tiled templates only."""
+    if general and dtype == torch.bfloat16:
+        raise ValueError(f"{name}: bf16 has no general kernel; on the card "
+                         f"it takes K in {CONV_KS} and a tile plan")
+
+
+def conv_fwd(name: str, counter: str, entries: dict, plain: Callable,
+             x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
              plan: Optional[ConvPlan]) -> torch.Tensor:
-    """Check, then run ``plain(x, w, b)`` on the CPU or launch ``entry``
-    tiled by ``plan``: :func:`conv_plan`'s when it is None and K is in
-    :data:`CONV_KS`, the general kernel's zeros for any other K."""
-    n, h, wd, cin, cout, k = _fwd_dims(name, dtype, x, w, b)
+    """Check, then run ``plain(x, w, b)`` on the CPU or launch the entry
+    of x's element type (``entries``) tiled by ``plan``:
+    :func:`conv_plan`'s when it is None and K is in :data:`CONV_KS`, the
+    general kernel's zeros for any other K."""
+    n, h, wd, cin, cout, k = _fwd_dims(name, tuple(entries), x, w, b)
     esize = x.element_size()
     if plan is None:
         plan = (conv_plan(n, h, wd, cin, cout, k, esize=esize)
@@ -352,27 +366,38 @@ def conv_fwd(name: str, counter: str, entry: str, dtype: torch.dtype,
     _check_fwd_plan(name, plan, k, esize)
     if not on_card(name, x, w, b):
         return plain(x, w, b)
+    _check_general(name, x.dtype, plan == CONV_GENERAL)
     check_kernel_operands(name, x, w, b)
     y = torch.empty((n, h, wd, cout), dtype=x.dtype, device=x.device)
     if y.numel():
-        _build.launch(counter, entry, x.device, x.data_ptr(), w.data_ptr(),
-                      _build.ptr(b), y.data_ptr(), n, h, wd, cin, cout, k,
-                      *plan.args())
+        _build.launch(counter, entries[x.dtype], x.device, x.data_ptr(),
+                      w.data_ptr(), _build.ptr(b), y.data_ptr(), n, h, wd,
+                      cin, cout, k, *plan.args())
     return y
 
 
+#: Forward entry point per element type: f32, and bf16 for the bf16 path.
+_ENTRY = {torch.float32: "repro_conv2d_fwd",
+          torch.bfloat16: "repro_conv2d_fwd_bf16"}
+
+
 def _conv2d_plain(x, w, b):
-    y = ref.conv2d(x, w)
+    """The plain conv, then ``+ b`` in x's type (bf16: after the
+    rounding, as the reference adds it)."""
+    y = (ref.conv2d_bf16(x, w) if x.dtype == torch.bfloat16
+         else ref.conv2d(x, w))
     return y if b is None else y + b
 
 
 def conv2d(x: torch.Tensor, w: torch.Tensor,
            b: Optional[torch.Tensor] = None) -> torch.Tensor:
     """[N, H, W, Cin] x [K, K, Cin, Cout] (+ b [Cout]) -> [N, H, W, Cout],
-    stride 1, SAME padding, odd K, f32 accumulation.
+    stride 1, SAME padding, odd K, f32 accumulation; f32 or bf16 (rounded
+    once, then ``+ b`` in bf16).
 
-    CPU tensors run :func:`ref.conv2d` (then ``+ b``); CUDA tensors the
-    kernel, tiled by :func:`conv_plan` for K in :data:`CONV_KS`.
+    CPU tensors run :func:`ref.conv2d` / :func:`ref.conv2d_bf16` (then
+    ``+ b``); CUDA tensors the kernel, tiled by :func:`conv_plan` for K in
+    :data:`CONV_KS`.
     """
     return conv2d_planned(x, w, b)
 
@@ -383,8 +408,8 @@ def conv2d_planned(x: torch.Tensor, w: torch.Tensor,
     """:func:`conv2d` with the tile chosen by the caller, for tests and
     sweeps: every plan, and :data:`CONV_GENERAL`, gives the same bits.
     One count of ``conv2d_fwd`` per call."""
-    return conv_fwd("conv2d", "conv2d_fwd", "repro_conv2d_fwd",
-                    torch.float32, _conv2d_plain, x, w, b, plan)
+    return conv_fwd("conv2d", "conv2d_fwd", _ENTRY, _conv2d_plain, x, w, b,
+                    plan)
 
 
 def bwd_fused_plain(conv: Callable, g, wt, *, pool_idx=None, relu_mask=None,
@@ -414,18 +439,28 @@ def bwd_fused_plain(conv: Callable, g, wt, *, pool_idx=None, relu_mask=None,
 
 def conv2d_bwd_fused_plain(g, wt, **kw):
     """Plain twin of :func:`conv2d_bwd_fused`: unpool, gate, conv, gate, as
-    separate PyTorch ops."""
+    separate PyTorch ops; bf16 sums the widened values in f32 and rounds
+    once, after the epilogue gate."""
+    if g.dtype == torch.bfloat16:
+        return bwd_fused_plain(ref.conv2d_widened, g, wt, **kw).to(
+            torch.bfloat16)
     return bwd_fused_plain(ref.conv2d, g, wt, **kw)
 
 
-def bwd_fused(name: str, entry: str, dtype: torch.dtype, plain: Callable,
+#: Fused-backward entry point per element type: f32, and bf16.
+_BWD_ENTRY = {torch.float32: "repro_conv2d_bwd_fused",
+              torch.bfloat16: "repro_conv2d_bwd_fused_bf16"}
+
+
+def bwd_fused(name: str, entries: dict, plain: Callable,
               g: torch.Tensor, wt: torch.Tensor, *, pool_idx, relu_mask,
               gate, method, out_relu_mask, out_gate,
               plan: Optional[ConvBwdPlan] = None) -> torch.Tensor:
     """Check the fused-backward operands, then run ``plain`` on the CPU or
-    launch ``entry`` (counted under ``name``): tiled by ``plan``, by
-    :func:`conv_bwd_plan` when it is None and K is in :data:`CONV_KS`, on
-    the general kernel for any other K or :data:`CONV_BWD_GENERAL`."""
+    launch the entry of g's element type (``entries``, counted under
+    ``name``): tiled by ``plan``, by :func:`conv_bwd_plan` when it is None
+    and K is in :data:`CONV_KS`, on the general kernel for any other K or
+    :data:`CONV_BWD_GENERAL`."""
     gate, out_gate = validate_bp_gates(method, gate, relu_mask, out_gate,
                                        out_relu_mask)
     seeded = g.dim() == 5
@@ -434,8 +469,8 @@ def bwd_fused(name: str, entry: str, dtype: torch.dtype, plain: Callable,
         raise ValueError(f"{name}: g must be [S, N, H, W, C] or [N, H, W, C],"
                          f" got {tuple(g.shape)}")
     s, n, hg, wg, c = g5.shape
-    check(name, g5, dtype, what="g")
-    _check_kernel(name, wt, c, dtype)
+    check(name, g5, tuple(entries), what="g")
+    _check_kernel(name, wt, c, g.dtype)
     k, cout = wt.shape[0], wt.shape[3]
     h, w = (2 * hg, 2 * wg) if pool_idx is not None else (hg, wg)
     if pool_idx is not None:
@@ -457,10 +492,12 @@ def bwd_fused(name: str, entry: str, dtype: torch.dtype, plain: Callable,
         return plain(
             g, wt, pool_idx=pool_idx, relu_mask=relu_mask, gate=gate,
             method=method, out_relu_mask=out_relu_mask, out_gate=out_gate)
+    _check_general(name, g.dtype, plan == CONV_BWD_GENERAL)
     check_kernel_operands(name, g5, wt, pool_idx, relu_mask, out_relu_mask)
     out = torch.empty((s, n, h, w, cout), dtype=g.dtype, device=g.device)
     if out.numel():
-        _build.launch(name, entry, g.device, g5.data_ptr(), wt.data_ptr(),
+        _build.launch(name, entries[g.dtype], g.device, g5.data_ptr(),
+                      wt.data_ptr(),
                       _build.ptr(pool_idx), _build.ptr(relu_mask),
                       _build.ptr(out_relu_mask), out.data_ptr(), s, n, h, w,
                       c, cout, k, int(gate), int(out_gate),
@@ -493,11 +530,12 @@ def conv2d_bwd_fused(
                   default, :data:`CONV_BWD_GENERAL` for the general kernel;
                   every plan gives the same bits.
     Residuals carry no seeds axis: the seeds of a block share one load, all
-    S of them for S <= 3 (groups of 3 beyond).
+    S of them for S <= 3 (groups of 3 beyond).  ``g`` and ``wt`` are f32 or
+    bf16 (f32 sums, rounded once after the epilogue gate).
     CPU tensors run :func:`conv2d_bwd_fused_plain`; CUDA tensors the kernel.
     """
-    return bwd_fused("conv2d_bwd_fused", "repro_conv2d_bwd_fused",
-                     torch.float32, conv2d_bwd_fused_plain, g, wt,
+    return bwd_fused("conv2d_bwd_fused", _BWD_ENTRY,
+                     conv2d_bwd_fused_plain, g, wt,
                      pool_idx=pool_idx, relu_mask=relu_mask, gate=gate,
                      method=method, out_relu_mask=out_relu_mask,
                      out_gate=out_gate, plan=plan)

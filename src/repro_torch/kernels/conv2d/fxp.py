@@ -49,8 +49,9 @@ def conv2d_fxp_planned(x: torch.Tensor, w: torch.Tensor,
     """:func:`conv2d_fxp` with the tile chosen by the caller, for tests and
     sweeps: every plan, and ``CONV_GENERAL`` (the general kernel), gives
     the same bits.  One count of ``conv2d_fxp_fwd`` per call."""
-    return conv_fwd("conv2d_fxp", "conv2d_fxp_fwd", "repro_conv2d_fxp_fwd",
-                    torch.int16, _conv2d_fxp_plain, x, w, b, plan)
+    return conv_fwd("conv2d_fxp", "conv2d_fxp_fwd",
+                    {torch.int16: "repro_conv2d_fxp_fwd"}, _conv2d_fxp_plain,
+                    x, w, b, plan)
 
 
 def conv2d_bwd_fused_fxp_plain(g, wt, **kw):
@@ -75,8 +76,9 @@ def conv2d_bwd_fused_fxp(
     CPU tensors run :func:`conv2d_bwd_fused_fxp_plain`; CUDA tensors the
     kernel (one launch for all S seeds).
     """
-    return bwd_fused("conv2d_bwd_fused_fxp", "repro_conv2d_bwd_fused_fxp",
-                     torch.int16, conv2d_bwd_fused_fxp_plain, g, wt,
+    return bwd_fused("conv2d_bwd_fused_fxp",
+                     {torch.int16: "repro_conv2d_bwd_fused_fxp"},
+                     conv2d_bwd_fused_fxp_plain, g, wt,
                      pool_idx=pool_idx, relu_mask=relu_mask, gate=gate,
                      method=method, out_relu_mask=out_relu_mask,
                      out_gate=out_gate, plan=plan)

@@ -17,6 +17,20 @@ def conv2d(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return y.permute(0, 2, 3, 1).contiguous()
 
 
+def conv2d_widened(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """bf16 (or f32) x and w widened to f32, exactly, then the f32 conv:
+    the sum the bf16 kernels hold before they round."""
+    return conv2d(x.float(), w.float())
+
+
+def conv2d_bf16(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """bf16 x [N, H, W, Cin] and w [K, K, Cin, Cout] -> bf16 [N, H, W, Cout]:
+    the f32 conv of the widened operands, rounded to nearest even once, as
+    the JAX package's conv2d_pallas does on bf16 blocks (an f32 dot, then
+    ``.astype(bf16)``)."""
+    return conv2d_widened(x, w).to(torch.bfloat16)
+
+
 def conv2d_fxp(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """int16 x [N, H, W, Cin] (Q7.8) and w [K, K, Cin, Cout] (Q1.14) ->
     int16 [N, H, W, Cout]: the int32 accumulator, requantized once.

@@ -27,16 +27,18 @@ from repro_torch.kernels.tiling import (check_relu_pool_threads, crumb_bytes,
                                         mask_bytes, relu_pool_threads)
 
 
-#: Kernel entry point per element type: f32, and int16 for the fxp16 path.
+#: Kernel entry point per element type: f32, bf16 for the bf16 path and
+#: int16 for the fxp16 path.
 _ENTRY = {torch.float32: "repro_maxpool_fwd",
+          torch.bfloat16: "repro_maxpool_fwd_bf16",
           torch.int16: "repro_maxpool_fwd_i16"}
 
 
-def _check_map(name: str, x: torch.Tensor) -> None:
+def _check_map(name: str, x: torch.Tensor, entries: dict) -> None:
     if x.dim() != 4 or x.shape[1] % 2 or x.shape[2] % 2:
         raise ValueError(f"{name}: x must be [N, H, W, C] with even H, W; "
                          f"got {tuple(x.shape)}")
-    check(name, x, tuple(_ENTRY), what="x")
+    check(name, x, tuple(entries), what="x")
 
 
 def _pooled(x: torch.Tensor):
@@ -58,8 +60,9 @@ def _threads(x: torch.Tensor, threads: Optional[int]) -> int:
 
 
 def maxpool_fwd(x: torch.Tensor, *, threads: Optional[int] = None):
-    """x: [N, H, W, C] f32 or int16, H and W even -> (pooled [N, H/2, W/2,
-    C] of the same type, packed argmax uint8 [N, H/2, W/2, ceil(C/4)]).
+    """x: [N, H, W, C] f32, bf16 or int16, H and W even -> (pooled [N,
+    H/2, W/2, C] of the same type, packed argmax uint8 [N, H/2, W/2,
+    ceil(C/4)]).
 
     Candidates are (0,0), (0,1), (1,0), (1,1); the first maximum wins.
     CPU tensors run :func:`ref.maxpool_fwd`; CUDA tensors the kernel.
@@ -68,7 +71,7 @@ def maxpool_fwd(x: torch.Tensor, *, threads: Optional[int] = None):
     gives the same bits.
     """
     name = "maxpool_fwd"
-    _check_map(name, x)
+    _check_map(name, x, _ENTRY)
     threads = _threads(x, threads)
     check_relu_pool_threads(name, threads)
     if not on_card(name, x):
@@ -84,13 +87,14 @@ def maxpool_fwd(x: torch.Tensor, *, threads: Optional[int] = None):
 
 #: Fused ReLU+mask+pool entry point per element type.
 _FUSED_ENTRY = {torch.float32: "repro_relu_pool_fwd",
+                torch.bfloat16: "repro_relu_pool_fwd_bf16",
                 torch.int16: "repro_relu_pool_fwd_i16"}
 
 
 def relu_pool_fwd(x: torch.Tensor, mask: bool = True, *,
                   threads: Optional[int] = None):
-    """x: [N, H, W, C] f32 or int16 (a conv's output), H and W even ->
-    (pooled ReLU [N, H/2, W/2, C] of the same type, the 1-bit mask of
+    """x: [N, H, W, C] f32, bf16 or int16 (a conv's output), H and W
+    even -> (pooled ReLU [N, H/2, W/2, C] of the same type, the 1-bit mask of
     ``x > 0`` uint8 [N, H, W, ceil(C/8)] or None where not ``mask``, packed
     argmax uint8 [N, H/2, W/2, ceil(C/4)]).
 
@@ -101,7 +105,7 @@ def relu_pool_fwd(x: torch.Tensor, mask: bool = True, *,
     block size (tests, sweeps), :func:`relu_pool_threads`'s by default.
     """
     name = "relu_pool_fwd"
-    _check_map(name, x)
+    _check_map(name, x, _FUSED_ENTRY)
     threads = _threads(x, threads)
     check_relu_pool_threads(name, threads, general=False)
     if not on_card(name, x):

@@ -49,13 +49,16 @@ def gate_gradient(g: torch.Tensor, mask_bits: Optional[torch.Tensor],
     return torch.where(mask_bits, g, 0)              # Eq. 3: saliency
 
 
-#: Kernel entry point per element type: f32, and int16 for the fxp16 path.
-_ENTRY = {torch.float32: "repro_relu_fwd", torch.int16: "repro_relu_fwd_i16"}
+#: Kernel entry point per element type: f32, bf16 for the bf16 path and
+#: int16 for the fxp16 path.
+_ENTRY = {torch.float32: "repro_relu_fwd",
+          torch.bfloat16: "repro_relu_fwd_bf16",
+          torch.int16: "repro_relu_fwd_i16"}
 
 
 def relu_fwd(x2d: torch.Tensor, *, threads: Optional[int] = None):
-    """x2d: [R, C] f32 or int16 -> (relu [R, C] of the same type, packed
-    mask uint8 [R, ceil(C/8)]).
+    """x2d: [R, C] f32, bf16 or int16 -> (relu [R, C] of the same type,
+    packed mask uint8 [R, ceil(C/8)]).
 
     Bit ``j`` of byte ``b`` is ``x[:, 8b + j] > 0`` (strictly); bits past C
     are 0.  CPU tensors run :func:`ref.relu_fwd`; CUDA tensors the kernel.
@@ -82,7 +85,8 @@ def relu_fwd(x2d: torch.Tensor, *, threads: Optional[int] = None):
     return y, m
 
 
-#: Backward entry point per element type (bf16 is ROADMAP A6b).
+#: Backward entry point per element type: f32 (the autograd paths; bf16
+#: has none, as it has no vjp).
 _BWD_ENTRY = {torch.float32: "repro_relu_bwd"}
 
 

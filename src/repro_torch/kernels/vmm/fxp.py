@@ -49,8 +49,9 @@ def vmm_fxp_with_splits(x: torch.Tensor, w: torch.Tensor,
     int32 partial sums wrap like the whole sum, so every split gives the
     same bits.  One count of ``vmm_fxp_fwd`` per call, whatever the
     split."""
-    return vmm_fwd("vmm_fxp", "vmm_fxp_fwd", "repro_vmm_fxp_fwd", torch.int16,
-                   torch.int32, _vmm_fxp_plain, x, w, b, splits)
+    return vmm_fwd("vmm_fxp", "vmm_fxp_fwd",
+                   {torch.int16: "repro_vmm_fxp_fwd"}, torch.int32,
+                   _vmm_fxp_plain, x, w, b, splits)
 
 
 def vmm_bwd_fused_fxp_plain(g, w, **kw):
@@ -75,8 +76,9 @@ def vmm_bwd_fused_fxp(g: torch.Tensor, w: torch.Tensor, *,
     CPU tensors run :func:`vmm_bwd_fused_fxp_plain`; CUDA tensors the kernel
     (one launch for all S seeds).
     """
-    return bwd_fused("vmm_bwd_fused_fxp", "repro_vmm_bwd_fused_fxp",
-                     torch.int16, vmm_bwd_fused_fxp_plain, g, w,
+    return bwd_fused("vmm_bwd_fused_fxp",
+                     {torch.int16: "repro_vmm_bwd_fused_fxp"},
+                     vmm_bwd_fused_fxp_plain, g, w,
                      relu_mask=relu_mask, gate=gate, method=method,
                      out_relu_mask=out_relu_mask, out_gate=out_gate,
                      plan=plan)

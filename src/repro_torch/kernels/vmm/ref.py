@@ -14,6 +14,20 @@ def vmm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return torch.matmul(x, w)
 
 
+def vmm_widened(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """bf16 (or f32) operands widened to f32, exactly, then the f32
+    product: the sum the bf16 kernels hold before they round."""
+    return torch.matmul(x.float(), w.float())
+
+
+def vmm_bf16(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """bf16 [..., M, K] @ bf16 [K, N] -> bf16 [..., M, N]: the f32 product
+    of the widened operands, rounded to nearest even once, as the JAX
+    package's vmm_pallas does on bf16 blocks (an f32 accumulator, then
+    ``.astype(bf16)``)."""
+    return vmm_widened(x, w).to(torch.bfloat16)
+
+
 def vmm_fxp(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """int16 [..., M, K] (Q7.8) @ int16 [K, N] (Q1.14) -> int16 [..., M, N]:
     the int32 accumulator, requantized once.

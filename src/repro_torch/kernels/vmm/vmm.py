@@ -14,9 +14,14 @@ stored mask, tiled by :func:`vmm_bwd_plan` (``csrc/vmm_bwd.cuh``; the plan
 :data:`VMM_BWD_GENERAL` runs the general 16x16 kernel instead).
 :func:`vmm_bwd_fused_plain` is that kernel's plain twin.
 
-The int16 twins (``vmm.fxp``) share the argument contract, checks and plain
-dataflow defined here; only the element type, the entry point and the
-product itself differ.
+Both wrappers take f32 and bf16 (the bf16 path): each element type has its
+entry point (:data:`_ENTRY`, :data:`_BWD_ENTRY`), bf16 an instance of the
+same kernels with f32 sums (and an f32 workspace), rounded once to bf16
+(the forward's bias added after the rounding, as the JAX package adds it
+after ``vmm_pallas``).  bf16 has no general fused-backward kernel: on the
+card it takes a tile plan.  The int16 twins (``vmm.fxp``) share the
+argument contract, checks and plain dataflow defined here; only the
+element type, the entry point and the product itself differ.
 """
 from __future__ import annotations
 
@@ -180,19 +185,20 @@ def _vmm_dims(name: str, x: torch.Tensor, w: torch.Tensor):
     return x.shape[0], x.shape[1], w.shape[1]
 
 
-def vmm_fwd(name: str, counter: str, entry: str, dtype: torch.dtype,
+def vmm_fwd(name: str, counter: str, entries: dict,
             part_dtype: torch.dtype, plain: Callable, x: torch.Tensor,
             w: torch.Tensor, b: Optional[torch.Tensor],
             splits: Optional[int]) -> torch.Tensor:
-    """Check, then run ``plain(x, w, b)`` on the CPU or launch ``entry``
-    (the split-K forwards) with ``splits`` slices of K (:func:`vmm_splits`'
-    when None), each :func:`vmm_slice` long, as many as K fills, and a
-    ``[splits, M, N]`` workspace of ``part_dtype`` where K is split."""
+    """Check, then run ``plain(x, w, b)`` on the CPU or launch the entry
+    of x's element type (``entries``: the split-K forwards) with ``splits``
+    slices of K (:func:`vmm_splits`' when None), each :func:`vmm_slice`
+    long, as many as K fills, and a ``[splits, M, N]`` workspace of
+    ``part_dtype`` where K is split."""
     m, k, n = _vmm_dims(name, x, w)
-    check(name, x, dtype, what="x")
-    check(name, w, dtype, what="w")
+    check(name, x, tuple(entries), what="x")
+    check(name, w, x.dtype, what="w")
     if b is not None:
-        check(name, b, dtype, (n,), what="b")
+        check(name, b, x.dtype, (n,), what="b")
     if splits is None:
         splits = vmm_splits(m, k, n)
     elif not 1 <= splits <= vmm_max_splits(k):
@@ -207,23 +213,31 @@ def vmm_fwd(name: str, counter: str, entry: str, dtype: torch.dtype,
             if splits > 1 else None)
     y = torch.empty((m, n), dtype=x.dtype, device=x.device)
     if y.numel():
-        _build.launch(counter, entry, x.device, x.data_ptr(), w.data_ptr(),
-                      _build.ptr(b), y.data_ptr(), m, k, n, _build.ptr(part),
-                      splits, ks)
+        _build.launch(counter, entries[x.dtype], x.device, x.data_ptr(),
+                      w.data_ptr(), _build.ptr(b), y.data_ptr(), m, k, n,
+                      _build.ptr(part), splits, ks)
     return y
 
 
+#: Forward entry point per element type: f32, and bf16 for the bf16 path
+#: (its split-K workspace stays f32).
+_ENTRY = {torch.float32: "repro_vmm_fwd", torch.bfloat16: "repro_vmm_fwd_bf16"}
+
+
 def _vmm_plain(x, w, b):
-    y = ref.vmm(x, w)
+    """The plain product, then ``+ b`` in x's type (bf16: after the
+    rounding, as the reference adds it)."""
+    y = ref.vmm_bf16(x, w) if x.dtype == torch.bfloat16 else ref.vmm(x, w)
     return y if b is None else y + b
 
 
 def vmm(x: torch.Tensor, w: torch.Tensor,
         b: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """[M, K] @ [K, N] (+ b [N]) -> [M, N], f32 accumulation.
+    """[M, K] @ [K, N] (+ b [N]) -> [M, N], f32 accumulation; f32 or bf16
+    (rounded once, then ``+ b`` in bf16).
 
-    CPU tensors run :func:`ref.vmm` (then ``+ b``); CUDA tensors the kernel,
-    with :func:`vmm_splits` slices of K.
+    CPU tensors run :func:`ref.vmm` / :func:`ref.vmm_bf16` (then ``+ b``);
+    CUDA tensors the kernel, with :func:`vmm_splits` slices of K.
     """
     return vmm_with_splits(x, w, b)
 
@@ -235,8 +249,8 @@ def vmm_with_splits(x: torch.Tensor, w: torch.Tensor,
     chosen by the caller, for tests and sweeps; one count of ``vmm_fwd``
     per call, whatever the split.  The slices are :func:`vmm_slice` long
     and as many as K fills, so none is empty."""
-    return vmm_fwd("vmm", "vmm_fwd", "repro_vmm_fwd", torch.float32,
-                   torch.float32, _vmm_plain, x, w, b, splits)
+    return vmm_fwd("vmm", "vmm_fwd", _ENTRY, torch.float32, _vmm_plain, x,
+                   w, b, splits)
 
 
 def bwd_fused_plain(matmul: Callable, g, w, *, relu_mask=None, gate=None,
@@ -261,18 +275,27 @@ def bwd_fused_plain(matmul: Callable, g, w, *, relu_mask=None, gate=None,
 
 def vmm_bwd_fused_plain(g, w, **kw):
     """Plain twin of :func:`vmm_bwd_fused`: gate, matmul, gate, as separate
-    PyTorch ops."""
+    PyTorch ops; bf16 sums the widened values in f32 and rounds once,
+    after the epilogue gate."""
+    if g.dtype == torch.bfloat16:
+        return bwd_fused_plain(ref.vmm_widened, g, w, **kw).to(
+            torch.bfloat16)
     return bwd_fused_plain(torch.matmul, g, w, **kw)
 
 
-def bwd_fused(name: str, entry: str, dtype: torch.dtype, plain: Callable,
+#: Fused-backward entry point per element type: f32, and bf16.
+_BWD_ENTRY = {torch.float32: "repro_vmm_bwd_fused",
+              torch.bfloat16: "repro_vmm_bwd_fused_bf16"}
+
+
+def bwd_fused(name: str, entries: dict, plain: Callable,
               g: torch.Tensor, w: torch.Tensor, *, relu_mask, gate, method,
               out_relu_mask, out_gate,
               plan: Optional[VmmBwdPlan] = None) -> torch.Tensor:
     """Check the fused-backward operands, then run ``plain`` on the CPU or
-    launch ``entry`` (counted under ``name``), tiled by ``plan``
-    (:func:`vmm_bwd_plan`'s when it is None; :data:`VMM_BWD_GENERAL` for
-    the general kernel)."""
+    launch the entry of g's element type (``entries``, counted under
+    ``name``), tiled by ``plan`` (:func:`vmm_bwd_plan`'s when it is None;
+    :data:`VMM_BWD_GENERAL` for the general kernel, which bf16 has not)."""
     gate, out_gate = validate_bp_gates(method, gate, relu_mask, out_gate,
                                        out_relu_mask)
     seeded = g.dim() == 3
@@ -282,8 +305,8 @@ def bwd_fused(name: str, entry: str, dtype: torch.dtype, plain: Callable,
                          f"{tuple(g.shape)}, {tuple(w.shape)}")
     s, m, k = g3.shape
     n = w.shape[1]
-    check(name, g3, dtype, what="g")
-    check(name, w, dtype, what="w")
+    check(name, g3, tuple(entries), what="g")
+    check(name, w, g.dtype, what="w")
     if relu_mask is not None:
         check(name, relu_mask, torch.uint8, (m, mask_bytes(k)),
               what="relu_mask")
@@ -296,10 +319,14 @@ def bwd_fused(name: str, entry: str, dtype: torch.dtype, plain: Callable,
     if not on_card(name, g3, w, relu_mask, out_relu_mask):
         return plain(g, w, relu_mask=relu_mask, gate=gate, method=method,
                      out_relu_mask=out_relu_mask, out_gate=out_gate)
+    if plan == VMM_BWD_GENERAL and g.dtype == torch.bfloat16:
+        raise ValueError(f"{name}: bf16 has no general kernel; on the card "
+                         f"it takes a tile plan")
     check_kernel_operands(name, g3, w, relu_mask, out_relu_mask)
     out = torch.empty((s, m, n), dtype=g.dtype, device=g.device)
     if out.numel():
-        _build.launch(name, entry, g.device, g3.data_ptr(), w.data_ptr(),
+        _build.launch(name, entries[g.dtype], g.device, g3.data_ptr(),
+                      w.data_ptr(),
                       _build.ptr(relu_mask), _build.ptr(out_relu_mask),
                       out.data_ptr(), s, m, k, n, int(gate), int(out_gate),
                       METHOD_CODES[method], *plan.args())
@@ -322,11 +349,12 @@ def vmm_bwd_fused(g: torch.Tensor, w: torch.Tensor, *,
     ``out_relu_mask``/``out_gate``: epilogue gate on the outgoing gradient,
     [M, ceil(N/8)].  Masks carry no seeds axis — shared across S.
     ``plan``: the tile (tests, sweeps): :func:`vmm_bwd_plan`'s by default,
-    :data:`VMM_BWD_GENERAL` for the general kernel; every plan gives the
-    same bits.
+    :data:`VMM_BWD_GENERAL` for the general kernel (f32 only); every plan
+    gives the same bits.  ``g`` and ``w`` are f32 or bf16 (f32 sums,
+    rounded once after the epilogue gate).
     CPU tensors run :func:`vmm_bwd_fused_plain`; CUDA tensors the kernel.
     """
-    return bwd_fused("vmm_bwd_fused", "repro_vmm_bwd_fused", torch.float32,
+    return bwd_fused("vmm_bwd_fused", _BWD_ENTRY,
                      vmm_bwd_fused_plain, g, w, relu_mask=relu_mask,
                      gate=gate, method=method, out_relu_mask=out_relu_mask,
                      out_gate=out_gate, plan=plan)

@@ -1,4 +1,4 @@
-"""The paper's Table III CNN (CIFAR-10), f32, on the port's kernels.
+"""The paper's Table III CNN (CIFAR-10), on the port's kernels.
 
 Layer stack:  Conv(3->32) Conv(32->32) Pool Conv(32->64) Conv(64->64) Pool
               FC(4096->128) ReLU FC(128->10)
@@ -26,14 +26,21 @@ Layouts are the JAX package's: NHWC activations, HWIO conv kernels,
 ``[in, out]`` FC weights, and the residual dict of
 ``repro.models.cnn.forward_with_residuals``, byte for byte, so residuals
 replay across the two packages.  Parameters are
-``{"conv": [{"w", "b"}], "fc": [{"w", "b"}]}`` of f32 tensors.
+``{"conv": [{"w", "b"}], "fc": [{"w", "b"}]}`` of f32 (or bf16) tensors.
 
-Precisions: ``"f32"`` and ``"fxp16"``, the paper's true 16-bit
+Precisions: ``"f32"``; ``"bf16"``, params, input and seeds cast to bf16
+as the JAX package casts them, through the bf16 instances of the same
+kernels (f32 sums, each layer's output rounded once to bf16, the bias added
+after that rounding); and ``"fxp16"``, the paper's true 16-bit
 fixed-point datapath (§IV): params quantized to Q1.14 weights / Q7.8
 biases, Q7.8 int16 feature maps and gradients, int32 accumulation with one
 requantize per layer, through the int16 kernels (``kernels/*/fxp.py``) and
 the int16 instances of ReLU+mask and pool; it matches the JAX package bit
-for bit.  ``"bf16"`` is not ported (ROADMAP A6b).
+for bit.  ``CNNConfig.dtype`` is the params' type (``"float32"`` or
+``"bfloat16"``, as the JAX package's ``init`` makes them); the precision
+casts them.  The seed-batched pair runs every precision; autograd
+(``apply`` with a gradient, the vjp engine) runs f32 only: bf16 under
+autograd is ROADMAP A6d.
 """
 from __future__ import annotations
 
@@ -60,7 +67,11 @@ from repro_torch.kernels.vmm import ref as vmm_ref
 from repro_torch.kernels.vmm.fxp import vmm_bwd_fused_fxp, vmm_fxp
 from repro_torch.kernels.vmm.vmm import vmm, vmm_bwd_fused
 
-PRECISIONS = ("f32", "bf16", "fxp16")
+#: ``CNNConfig.dtype`` -> the params' torch type.
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+#: Precision -> the ``CNNConfig.dtype`` its datapath runs in (fxp16: int16,
+#: none of DTYPES).
+PRECISIONS = {"f32": "float32", "bf16": "bfloat16", "fxp16": None}
 
 
 @dataclass(frozen=True)
@@ -98,42 +109,41 @@ class CNNConfig:
 
 def check_precision(precision: str) -> None:
     if precision not in PRECISIONS:
-        raise ValueError(f"precision={precision!r} not in {PRECISIONS}")
-    if precision == "bf16":
-        raise NotImplementedError(
-            "precision='bf16' is not ported yet (ROADMAP A6b); the port runs "
-            "'f32' and 'fxp16'")
+        raise ValueError(f"precision={precision!r} not in "
+                         f"{tuple(PRECISIONS)}")
 
 
 def _check_cfg(cfg: CNNConfig) -> None:
-    if cfg.dtype != "float32":
-        raise NotImplementedError(
-            f"CNNConfig.dtype={cfg.dtype!r} is not ported yet (ROADMAP A6b)")
+    if cfg.dtype not in DTYPES:
+        raise ValueError(f"CNNConfig.dtype={cfg.dtype!r} not in "
+                         f"{tuple(DTYPES)}")
 
 
 def init(generator: torch.Generator, cfg: CNNConfig,
          device="cpu") -> dict:
-    """He-init conv (HWIO) and FC params from ``generator``.
+    """He-init conv (HWIO) and FC params from ``generator``, of
+    ``cfg.dtype``.
 
     Same shapes and scales as ``repro.models.cnn.init``, not the same
     numbers (a ``torch.Generator`` is not ``jax.random``); to hold the two
     packages against each other use :func:`params_from_jax`.
     """
     _check_cfg(cfg)
+    dt = DTYPES[cfg.dtype]
     params = {"conv": [], "fc": []}
     cin = cfg.in_ch
     for c in cfg.channels:
         fan_in = cfg.kernel * cfg.kernel * cin
         w = torch.randn((cfg.kernel, cfg.kernel, cin, c),
                         generator=generator) * math.sqrt(2.0 / fan_in)
-        params["conv"].append({"w": w.to(device),
-                               "b": torch.zeros(c, device=device)})
+        params["conv"].append({"w": w.to(device, dt),
+                               "b": torch.zeros(c, dtype=dt, device=device)})
         cin = c
     fin = cfg.flat_features()
     for f in cfg.fc + (cfg.num_classes,):
         w = torch.randn((fin, f), generator=generator) * math.sqrt(2.0 / fin)
-        params["fc"].append({"w": w.to(device),
-                             "b": torch.zeros(f, device=device)})
+        params["fc"].append({"w": w.to(device, dt),
+                             "b": torch.zeros(f, dtype=dt, device=device)})
         fin = f
     return params
 
@@ -141,7 +151,8 @@ def init(generator: torch.Generator, cfg: CNNConfig,
 def params_from_jax(params_np, device="cpu") -> dict:
     """The JAX package's params tree (as NumPy arrays) -> this package's.
 
-    Same layouts (HWIO, ``[in, out]``), so it is a copy and nothing else.
+    Same layouts (HWIO, ``[in, out]``), so it is a copy and nothing else;
+    f32 tensors (bf16 params widen exactly, and a precision casts back).
     """
     def t(a):
         return torch.tensor(np.asarray(a, np.float32), device=device)
@@ -157,12 +168,15 @@ def params_to(params, device) -> dict:
 
 
 def prepare_params(params, precision: str) -> dict:
-    """The params the forward blocks read under ``precision``: the f32
-    tree as given, or under fxp16 its int16 quantization (Q1.14 weights,
-    Q7.8 biases, ``fixedpoint.quantize_params_int``)."""
+    """The params the forward blocks read under ``precision``: the tree
+    cast to f32 or to bf16 (the same tensors where they already are), or
+    under fxp16 its int16 quantization (Q1.14 weights, Q7.8 biases,
+    ``fixedpoint.quantize_params_int``)."""
     if precision == "fxp16":
         return fixedpoint.quantize_params_int(params)
-    return params
+    dt = DTYPES[PRECISIONS[precision]]
+    return {k: [{n: v.to(dt) for n, v in p.items()} for p in params[k]]
+            for k in ("conv", "fc")}
 
 
 def backward_weights(params) -> dict:
@@ -187,13 +201,16 @@ def residuals_to(residuals, device) -> dict:
 # fused blocks
 # ---------------------------------------------------------------------------
 
-#: The kernels each precision's blocks run: f32, or the int16 kernels of
-#: the fxp16 datapath (ReLU+mask is one wrapper for both element types).
+#: The kernels each precision's blocks run: f32 and bf16 share the
+#: wrappers, which launch their bf16 instances on bf16 tensors; fxp16 runs
+#: the int16 kernels (ReLU+mask is one wrapper for every element type).
 #: ``relu_pool`` is ReLU (+mask) and pool in one launch, at the pooled
 #: layers.
+_FLOAT_KERNELS = dict(conv=conv2d, pool=maxpool_fwd, relu_pool=relu_pool_fwd,
+                      fc=vmm, conv_bwd=conv2d_bwd_fused, fc_bwd=vmm_bwd_fused)
 _KERNELS = {
-    "f32": dict(conv=conv2d, pool=maxpool_fwd, relu_pool=relu_pool_fwd,
-                fc=vmm, conv_bwd=conv2d_bwd_fused, fc_bwd=vmm_bwd_fused),
+    "f32": _FLOAT_KERNELS,
+    "bf16": _FLOAT_KERNELS,
     "fxp16": dict(conv=conv2d_fxp, pool=maxpool_fwd_fxp,
                   relu_pool=relu_pool_fwd_fxp, fc=vmm_fxp,
                   conv_bwd=conv2d_bwd_fused_fxp, fc_bwd=vmm_bwd_fused_fxp),
@@ -354,6 +371,9 @@ def forward_with_residuals(params, x, cfg: CNNConfig, method: str,
     None], "feat_shape": (h, w, c)}`` — per conv layer a 1-bit ReLU mask and
     2-bit pool indices, per hidden FC a 1-bit mask, no activations.
 
+    ``precision="bf16"`` casts the params and the input to bf16 and runs
+    the bf16 blocks: the masks are computed on the bf16 maps, and the
+    logits come back bf16, as the JAX package's do.
     ``precision="fxp16"`` quantizes the params and the input (Q7.8) and runs
     the int16 blocks: the masks are computed in the quantized domain, and
     the logits come back dequantized (exact).  ``fwd_params`` is
@@ -367,6 +387,8 @@ def forward_with_residuals(params, x, cfg: CNNConfig, method: str,
     k = _KERNELS[precision]
     if precision == "fxp16":
         x = fixedpoint.to_fixed(x)
+    else:
+        x = x.to(DTYPES[PRECISIONS[precision]])
     res_conv, res_fc = [], []
     for i, p in enumerate(fwd_params["conv"]):
         do_pool = (i + 1) % cfg.pool_every == 0
@@ -393,6 +415,8 @@ def backward_seeds(params, residuals, seeds, cfg: CNNConfig, method: str,
     shared.  ``bwd_weights`` is :func:`backward_weights` of
     :func:`prepare_params`, made once by the caller; None makes it here.
 
+    ``precision="bf16"`` casts the seeds to bf16 and replays the BP on
+    the bf16 kernels: relevance in bf16, as the JAX package's.
     ``precision="fxp16"`` replays the whole BP in int16: the f32 seeds are
     quantized to Q7.8 pre-scaled by ``fixedpoint.SEED_GAIN``, every layer
     runs the int16 fused kernel, and the relevance is dequantized with the
@@ -402,9 +426,10 @@ def backward_seeds(params, residuals, seeds, cfg: CNNConfig, method: str,
     if bwd_weights is None:
         bwd_weights = backward_weights(prepare_params(params, precision))
     k = _KERNELS[precision]
-    g = seeds
     if precision == "fxp16":
         g = fixedpoint.to_fixed(seeds * fixedpoint.SEED_GAIN)
+    else:
+        g = seeds.to(DTYPES[PRECISIONS[precision]])
     n_fc = len(bwd_weights["fc"])
     for i in reversed(range(n_fc)):
         g = _fc_block_bwd_fused(k, bwd_weights["fc"][i], residuals["fc"][i],
@@ -432,18 +457,22 @@ def apply(params, x, cfg: CNNConfig, *, method: str = "autodiff",
     ``fused=False`` (and ``"autodiff"``) runs the standalone kernel ops, whose
     backward reuses the forward kernels (Table I) and runs the gate and
     unpool kernels.  ``use_pallas=False`` runs the plain reference ops.
-    Under fxp16 the knobs do not apply: the logits of the int16 forward
-    under the deconvnet rule set, which stores no masks (Table II) — the
-    ReLU output is rule-invariant, so the logits are those of every method,
-    as in the JAX package; integers have no gradient.  ``fwd_params`` is
-    :func:`prepare_params` of ``params`` for that path, or None.
+    Under bf16 and fxp16 the knobs do not apply: the logits of the bf16 or
+    int16 forward under the deconvnet rule set, which stores no masks
+    (Table II) — the ReLU output is rule-invariant, so the logits are those
+    of every method, as in the JAX package; integers have no gradient, and
+    bf16 under autograd is ROADMAP A6d.  Under f32, params of a bfloat16
+    config are widened (exactly), as the JAX package's f32 blocks promote
+    them.  ``fwd_params`` is :func:`prepare_params` of ``params`` for that
+    path, or None.
     """
     check_precision(precision)
     _check_cfg(cfg)
-    if precision == "fxp16":
+    if precision != "f32":
         logits, _ = forward_with_residuals(params, x, cfg, "deconvnet",
                                            precision, fwd_params)
         return logits
+    params = prepare_params(params, "f32")
     if fused is None:
         fused = use_pallas and method != "autodiff"
     if fused:

@@ -22,11 +22,11 @@ import numpy as np
 import pytest
 import torch
 
-from repro.core import fidelity
 from repro.engine import methods as jmethods
 from repro.engine.spec import CNNModel as JCNNModel
 from repro.kernels.conv2d import ref as jconv_ref
 from repro.models import cnn as jcnn
+from repro_torch.core import fidelity
 from repro_torch.models import cnn
 
 METHODS = ("saliency", "deconvnet", "guided")
@@ -246,16 +246,26 @@ def test_init_and_config_shapes():
 
 @pytest.mark.parametrize("precision", ["bf16", "fxp16"])
 def test_other_precisions_are_not_ported_yet(precision):
-    """bf16 is not ported (ROADMAP A6b), as a precision or as the config's
-    dtype; fxp16 runs (``tests/test_torch_cnn_fxp.py``), but not on a
-    bfloat16 config either."""
+    """What of the other precisions is still not ported: bf16 under
+    autograd (ROADMAP A6d; the seed-batched pair runs bf16,
+    ``tests/test_torch_cnn_bf16.py``), and fxp16 has no vjp at all.  On a
+    bfloat16 config both precisions run their pair, on the same numbers
+    as the f32 config holding the same (bf16-valued) params."""
+    from repro_torch.engine import CNNModel, EngineSpec
     cfg = cnn.CNNConfig(**SIZES["tiny"])
-    p = cnn.init(torch.Generator().manual_seed(0), cfg)
     bf16_cfg = cnn.CNNConfig(**SIZES["tiny"], dtype="bfloat16")
-    with pytest.raises(NotImplementedError, match="A6b"):
-        cnn.forward_with_residuals(p, torch.zeros(1, 8, 8, 3), bf16_cfg,
-                                   "saliency", precision=precision)
-    if precision == "bf16":
-        with pytest.raises(NotImplementedError, match="A6b"):
-            cnn.forward_with_residuals(p, torch.zeros(1, 8, 8, 3), cfg,
-                                       "saliency", precision=precision)
+    p16 = cnn.init(torch.Generator().manual_seed(0), bf16_cfg)
+    p32 = {k: [{n: v.float() for n, v in q.items()} for q in p16[k]]
+           for k in ("conv", "fc")}
+    x = torch.randn((2, 8, 8, 3), generator=torch.Generator().manual_seed(1))
+    got, res = cnn.forward_with_residuals(p16, x, bf16_cfg, "saliency",
+                                          precision=precision)
+    want, res32 = cnn.forward_with_residuals(p32, x, cfg, "saliency",
+                                             precision=precision)
+    assert torch.equal(got, want)
+    assert torch.equal(res["fc"][0], res32["fc"][0])     # the hidden FC
+    kind = NotImplementedError if precision == "bf16" else ValueError
+    with pytest.raises(kind, match="A6d" if precision == "bf16"
+                       else "integer arithmetic"):
+        EngineSpec(CNNModel(p16, bf16_cfg, device="cpu"),
+                   precision=precision, backward="vjp")

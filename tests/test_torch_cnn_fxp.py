@@ -169,14 +169,19 @@ def test_replay_equals_cold_explain_bitwise(run):
 
 
 def test_bf16_and_vjp_raise_as_specified():
+    """bf16 resolves to the seed-batched pair and runs it; under vjp it
+    raises naming ROADMAP A6d; fxp16 under vjp is refused as integer
+    arithmetic, here and in the JAX package."""
     cfg = cnn.CNNConfig(**SIZES["tiny"])
     p = cnn.init(torch.Generator().manual_seed(0), cfg)
     model = CNNModel(p, cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="A6b"):
-        EngineSpec(model, precision="bf16")
-    with pytest.raises(NotImplementedError, match="A6b"):
-        cnn.forward_with_residuals(p, torch.zeros(1, 8, 8, 3), cfg,
-                                   "saliency", precision="bf16")
+    assert EngineSpec(model, precision="bf16").resolve_backward() \
+        == "seed_batched"
+    with pytest.raises(NotImplementedError, match="A6d"):
+        EngineSpec(model, precision="bf16", backward="vjp")
+    logits, _ = cnn.forward_with_residuals(p, torch.zeros(1, 8, 8, 3), cfg,
+                                           "saliency", precision="bf16")
+    assert logits.dtype == torch.bfloat16
     with pytest.raises(ValueError, match="integer arithmetic"):
         EngineSpec(model, precision="fxp16", backward="vjp")
     jcfg = jcnn.CNNConfig(**SIZES["tiny"])

@@ -1234,3 +1234,257 @@ def test_scan_function_backward_on_card_matches_cpu(gen, dtype):
         if g.dtype == torch.bfloat16:
             bound = bound + SCAN_BF16_RTOL * g_c.float().abs()
         assert bool((err <= bound).all())
+
+
+# -- the bf16 instances of B1-B6 and of the fused pass (the bf16 path) ------
+#
+# The ReLU / pool instances compare and select only: bitwise their plain
+# version and the general route.  The conv and FC instances sum the
+# widened operands in f32 in the f32 instances' order and round once (the
+# forward's bias after the rounding, then once more); the plain version
+# sums in cuDNN's or cuBLAS's order, so an output may land one rounding
+# step away: |got - want| <= 2^-7 * (|sum| + |want|), one bf16 step of the
+# unrounded f32 sum and one of the output, plus the f32 kernels' own
+# TOL * max|sum| for the reordered sum itself (it dominates where a long
+# sum cancels to near 0: C = 600 at K = 5).  Every tile plan of a kernel
+# keeps its order, so plans give the same bits.
+
+BF = torch.bfloat16
+BF16_STEP = 2.0 ** -7
+
+
+def _bf(gen, *shape, scale=1.0):
+    return _randn(gen, *shape, scale=scale).to(BF)
+
+
+def _bf16_close(got, want, acc):
+    """Within one bf16 step of the f32 sum ``acc`` and one of ``want``,
+    plus the reordered f32 sum's own tolerance."""
+    torch.cuda.synchronize()
+    assert got.dtype == want.dtype == BF and got.shape == want.shape
+    err = (got.float() - want.float()).abs()
+    bound = (BF16_STEP * (acc.abs() + want.float().abs())
+             + TOL * acc.abs().max())
+    assert bool((err <= bound).all()), (err - bound).max().item()
+
+
+def _equal_bits(got, want):
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert (g is None) == (w is None)
+        if g is not None:
+            assert g.dtype == w.dtype
+            if g.dtype == BF:              # +0.0 and -0.0 differ here
+                g, w = g.view(torch.int16), w.view(torch.int16)
+            assert torch.equal(g, w)
+
+
+def _relu_pool_input_bf16(gen, shape):
+    x = _bf(gen, *shape)
+    x[:, :2, :2] = x[:, :2, :2].clamp(max=-1)         # all-negative window
+    x[:, -2:, -2:] = 0                                # exact zeros
+    x.view(-1)[::13] = -0.0                           # -0.0 maps to +0.0
+    x.view(-1)[1::17] = x.view(-1)[2::17][:x.view(-1)[1::17].numel()]
+    return x                                          # and tied neighbours
+
+
+@pytest.mark.parametrize("threads", RELU_POOL_THREADS + (None,))
+@pytest.mark.parametrize("mask", [True, False])
+@pytest.mark.parametrize("shape", RELU_POOL_MAPS)
+def test_relu_pool_fwd_bf16_bitwise(gen, shape, mask, threads):
+    x = _relu_pool_input_bf16(gen, shape)
+    got = _launched("relu_pool_fwd",
+                    lambda: relu_pool_fwd(x, mask, threads=threads))
+    _equal_bits(got, pool_ref.relu_pool_fwd(x, mask))
+    _equal_bits(got, _general_relu_pool(x, mask))
+
+
+@pytest.mark.parametrize("threads", RELU_POOL_THREADS)
+@pytest.mark.parametrize("shape", RELU_POOL_MAPS)
+def test_relu_fwd_and_maxpool_fwd_bf16_every_block_size_equal_general(
+        gen, shape, threads):
+    x = _relu_pool_input_bf16(gen, shape)
+    x2 = x.reshape(-1, shape[-1])
+    got = _launched("relu_fwd", lambda: relu_fwd(x2, threads=threads))
+    _equal_bits(got, relu_fwd(x2, threads=RELU_POOL_GENERAL))
+    _equal_bits(got, relu_ref.relu_fwd(x2))
+    got = _launched("maxpool_fwd", lambda: maxpool_fwd(x, threads=threads))
+    _equal_bits(got, maxpool_fwd(x, threads=RELU_POOL_GENERAL))
+    _equal_bits(got, pool_ref.maxpool_fwd(x))
+
+
+def test_relu_pool_fwd_bf16_misaligned_pointers(gen):
+    shape = (2, 4, 6, 16)
+    n = 2 * 4 * 6 * 16
+    base = _relu_pool_input_bf16(gen, shape).reshape(-1)
+    for off in (1, 3):                 # no 16-byte loads: the scalar path
+        flat = torch.zeros(n + 3, dtype=BF, device="cuda")
+        flat[off:off + n] = base
+        x = flat[off:off + n].view(shape)
+        _equal_bits(relu_pool_fwd(x), pool_ref.relu_pool_fwd(x))
+        _equal_bits(maxpool_fwd(x), pool_ref.maxpool_fwd(x))
+        x2 = x.reshape(-1, 16)
+        _equal_bits(relu_fwd(x2), relu_ref.relu_fwd(x2))
+
+
+@pytest.mark.parametrize("n,h,w,cin,cout,k", [
+    (2, 6, 10, 5, 3, 3),              # ragged spatial and channels
+    (1, 8, 8, 16, 8, 5),              # K = 5
+    (2, 9, 7, 100, 40, 3),            # several Cin chunks, two Cout tiles
+    (1, 13, 7, 3, 96, 1),             # Cin = 3, K = 1
+    (2, 5, 9, 96, 96, 7),             # K = 7, three Cin stages
+    (4, 32, 32, 3, 32, 3),            # Table III layer 0, batch 4
+    (2, 16, 16, 64, 64, 3),           # a Table III layer, batch 2
+])
+def test_conv2d_bf16(gen, n, h, w, cin, cout, k):
+    x = _bf(gen, n, h, w, cin)
+    wt = _bf(gen, k, k, cin, cout, scale=0.2)
+    b = _bf(gen, cout)
+    got = _launched("conv2d_fwd", lambda: conv2d(x, wt, b))
+    acc = conv_ref.conv2d_widened(x, wt)
+    _bf16_close(got, conv_ref.conv2d_bf16(x, wt) + b, acc)
+    _bf16_close(conv2d(x, wt), conv_ref.conv2d_bf16(x, wt), acc)
+    plans = [ConvPlan(1, 8, 4, 1), ConvPlan(2, 4, 16, 8),
+             conv_plan(n, h, w, cin, cout, k, esize=2)]
+    for again in [conv2d(x, wt, b)] + [conv2d_planned(x, wt, b, plan=p)
+                                       for p in plans]:
+        _equal_bits((again,), (got,))
+
+
+def test_conv2d_bf16_has_no_general_kernel(gen):
+    x = _bf(gen, 1, 8, 8, 4)
+    with pytest.raises(ValueError, match="bf16 has no general kernel"):
+        conv2d(x, _bf(gen, 9, 9, 4, 4))
+    with pytest.raises(ValueError, match="bf16 has no general kernel"):
+        conv2d_planned(x, _bf(gen, 3, 3, 4, 4), plan=CONV_GENERAL)
+    g = _bf(gen, 1, 1, 8, 8, 4)
+    with pytest.raises(ValueError, match="bf16 has no general kernel"):
+        conv2d_bwd_fused(g, _bf(gen, 3, 3, 4, 4), plan=CONV_BWD_GENERAL)
+    with pytest.raises(ValueError, match="bf16 has no general kernel"):
+        vmm_bwd_fused(_bf(gen, 1, 2, 8), _bf(gen, 8, 4),
+                      plan=VMM_BWD_GENERAL)
+    with pytest.raises(TypeError):                    # bf16 x, f32 kernel
+        conv2d(x, _randn(gen, 3, 3, 4, 4))
+
+
+def test_conv2d_bf16_misaligned_pointer(gen):
+    flat = _bf(gen, 2 * 6 * 5 * 8 + 1)
+    x = flat[1:].view(2, 6, 5, 8)     # 2-byte offset: ordinary loads
+    wt = _bf(gen, 3, 3, 8, 12, scale=0.2)
+    b = _bf(gen, 12)
+    _bf16_close(conv2d(x, wt, b), conv_ref.conv2d_bf16(x, wt) + b,
+                conv_ref.conv2d_widened(x, wt))
+
+
+def _bwd_inputs_bf16(gen, case, method, k=3, g_flat=False):
+    g, wt, kw = _bwd_inputs(gen, case, method, k=k, g_flat=g_flat)
+    return g.to(BF) if not g_flat else g, wt.to(BF), kw
+
+
+def _bwd_acc(g, wt, kw):
+    """The f32 sum the bf16 backward rounds: the plain dataflow on the
+    widened operands, before the rounding."""
+    from repro_torch.kernels.conv2d.conv2d import bwd_fused_plain
+    return bwd_fused_plain(conv_ref.conv2d_widened, g, wt, **kw)
+
+
+@pytest.mark.parametrize("k", [1, 3, 5, 7])
+@pytest.mark.parametrize("case", BWD_CASES)
+@pytest.mark.parametrize("method", METHODS)
+def test_conv2d_bwd_fused_bf16(gen, case, method, k):
+    g, wt, kw = _bwd_inputs_bf16(gen, case, method, k=k)
+    got = _launched("conv2d_bwd_fused", lambda: conv2d_bwd_fused(g, wt, **kw))
+    _bf16_close(got, conv2d_bwd_fused_plain(g, wt, **kw), _bwd_acc(g, wt, kw))
+    n, h, w, c, cout, pooled, s, _ = case
+    plan = conv_bwd_plan(s, n, h, w, c, cout, k, pooled=pooled, esize=2)
+    others = [ConvBwdPlan(2, 4, 8, 4, 1, 2), ConvBwdPlan(4, 8, 4, 8, 1, 1)]
+    for again in [conv2d_bwd_fused(g, wt, plan=p, **kw)
+                  for p in [plan] + others]:
+        _equal_bits((again,), (got,))
+
+
+def test_conv2d_bwd_fused_bf16_misaligned_pointers(gen):
+    case = (2, 8, 8, 16, 12, True, 3, True)
+    flat = _bf(gen, 3 * 2 * 4 * 4 * 16 + 1)
+    g = flat[1:].view(3, 2, 4, 4, 16)  # 2-byte offset: ordinary loads
+    _, wt, kw = _bwd_inputs_bf16(gen, case, "guided")
+    _bf16_close(conv2d_bwd_fused(g, wt, **kw),
+                conv2d_bwd_fused_plain(g, wt, **kw), _bwd_acc(g, wt, kw))
+
+
+@pytest.mark.parametrize("m,k,n", [(5, 37, 13), (1, 4096, 128),
+                                   (32, 4096, 128), (32, 128, 10),
+                                   (3, 20, 8), (130, 520, 300)])
+def test_vmm_bf16(gen, m, k, n):
+    x, w, b = _bf(gen, m, k), _bf(gen, k, n, scale=k ** -0.5), _bf(gen, n)
+    got = _launched("vmm_fwd", lambda: vmm(x, w, b))
+    acc = vmm_ref.vmm_widened(x, w)
+    _bf16_close(got, vmm_ref.vmm_bf16(x, w) + b, acc)
+    _equal_bits((vmm(x, w, b),), (got,))               # run to run
+    for splits in sorted({1, min(2, vmm_max_splits(k)), vmm_max_splits(k)}):
+        _bf16_close(vmm_with_splits(x, w, b, splits=splits),
+                    vmm_ref.vmm_bf16(x, w) + b, acc)
+
+
+def test_vmm_bf16_misaligned_pointers(gen):
+    flat = _bf(gen, 7 * 64 + 1)
+    x = flat[1:].view(7, 64)           # 2-byte offset: element loads
+    w, b = _bf(gen, 64, 12, scale=0.125), _bf(gen, 12)
+    _bf16_close(vmm(x, w, b), vmm_ref.vmm_bf16(x, w) + b,
+                vmm_ref.vmm_widened(x, w))
+
+
+@pytest.mark.parametrize("method", METHODS)
+@pytest.mark.parametrize("s,m,k,n,epilogue", [(1, 4, 13, 21, True),
+                                              (3, 32, 128, 4096, False),
+                                              (3, 32, 10, 128, False),
+                                              (2, 7, 64, 40, True)])
+def test_vmm_bwd_fused_bf16_every_plan(gen, method, s, m, k, n, epilogue):
+    g, w = _bf(gen, s, m, k), _bf(gen, k, n, scale=k ** -0.5)
+    mask = (None if method == "deconvnet"
+            else masks.pack_mask(_randn(gen, m, k) > 0))
+    omask = (masks.pack_mask(_randn(gen, m, n) > 0)
+             if epilogue and method != "deconvnet" else None)
+    kw = dict(relu_mask=mask, gate=True, method=method,
+              out_relu_mask=omask, out_gate=epilogue)
+    got = _launched("vmm_bwd_fused", lambda: vmm_bwd_fused(g, w, **kw))
+    from repro_torch.kernels.vmm.vmm import bwd_fused_plain
+    acc = bwd_fused_plain(vmm_ref.vmm_widened, g, w, **kw)
+    _bf16_close(got, vmm_bwd_fused_plain(g, w, **kw), acc)
+    for p in vmm_bwd_candidates(s, m, k, n):
+        _equal_bits((vmm_bwd_fused(g, w, plan=p, **kw),), (got,))
+
+
+def test_bf16_engine_on_card_matches_cpu_twin(gen):
+    """A small CNN in bf16: one launch of an instance per layer, the
+    logits within 2^-6 * max of the CPU twin's (the bound of
+    tests/test_torch_cnn_bf16.py), and the relevance within it of the
+    CPU's replay of the card's stored bits."""
+    from repro_torch.engine import CNNModel, EngineSpec, TopK, build
+    from repro_torch.kernels import reset_launches
+    from repro_torch.models import cnn
+    cfg = cnn.CNNConfig(in_hw=(8, 8), channels=(8, 8), fc=(16,),
+                        num_classes=4)
+    params = cnn.init(torch.Generator().manual_seed(0), cfg)
+    x = torch.randn((3, 8, 8, 3), generator=torch.Generator().manual_seed(1))
+    for method in METHODS:
+        spec = dict(method=method, precision="bf16", targets=TopK(2))
+        card = build(EngineSpec(CNNModel(params, cfg), **spec))
+        cpu = build(EngineSpec(CNNModel(params, cfg, device="cpu"), **spec))
+        reset_launches()
+        logits, rel, res = card.predict_then_explain(x)
+        torch.cuda.synchronize()
+        want = {"conv2d_fwd": 2, "relu_fwd": 2, "relu_pool_fwd": 1,
+                "vmm_fwd": 2, "conv2d_bwd_fused": 2, "vmm_bwd_fused": 2}
+        if method == "deconvnet":
+            want["relu_fwd"] = 0
+        assert {k: v for k, v in LAUNCHES.items() if v} == {
+            k: v for k, v in want.items() if v}
+        logits_c, _, _ = cpu.predict_then_explain(x)
+        assert logits.dtype == rel.dtype == BF
+        err = (logits.cpu().float() - logits_c.float()).abs().max()
+        assert err <= 2.0 ** -6 * logits_c.float().abs().max()
+        seeds, _ = card._seeds(logits, None, 2)
+        back = cpu.replay(cnn.residuals_to(res, "cpu"), seeds.cpu())
+        err = (rel.cpu().float() - back.float()).abs().max()
+        assert err <= 2.0 ** -6 * back.float().abs().max()

@@ -16,7 +16,8 @@ import torch
 from repro import engine as jengine
 from repro.models import cnn as jcnn
 from repro_torch import engine as tengine
-from repro_torch.engine import CNNModel, EngineSpec, Fixed, TopK, build
+from repro_torch.engine import (CNNModel, EngineSpec, Fixed, FnModel,
+                                TopK, build)
 from repro_torch.models import cnn
 
 KW = dict(in_hw=(8, 8), channels=(4, 4), fc=(16,))
@@ -181,8 +182,10 @@ def test_replay_equals_cold_explain_bitwise(setup):
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(precision="bf16"), "A6"),
-    (dict(precision="bf16", backward="seed_batched"), "A6"),
+    (dict(precision="bf16", backward="vjp"), "A6"),
+    # a model with no seed-batched pair resolves to vjp
+    (dict(precision="bf16", model=FnModel(lambda method: None,
+                                          device="cpu")), "A6"),
     (dict(model=object()), "A11"), (dict(device="tpu-v4"), "A10"),
     (dict(plan=object()), "A10"), (dict(autotune=True), "A10"),
     (dict(method="occlusion"), "A8"), (dict(method="rise"), "A8"),

@@ -19,6 +19,12 @@ S = 3 and at the vjp path's S = 1, B8 at S = 3: a grid of tile plans, all
 bitwise equal, beside the general kernel), of the int16 forwards (B7:
 a grid of tile plans at the four Table III layers beside the general
 kernel; B9: every K split at FC0; all bitwise equal to the plain version),
+of the bf16 forwards (B1 bf16: every tensor-core tile of
+``conv_mma_candidates`` at the Table III layers beside ``F.conv2d`` bf16
+and the FFMA instance; B4 bf16: every cluster size and column tile of
+``vmm_mma_candidates`` at FC0 and FC1 beside ``torch.addmm`` bf16;
+within one bf16 step of the plain version, a route's tiles bitwise
+equal),
 of the fused FC backward (B6 and B10 at FC0 with S = 3 and 1 and at
 FC1 with S = 3: every plan of ``vmm_bwd_candidates`` beside the general
 kernel, bitwise equal to it in f32 and to the plain version in int16),
@@ -45,11 +51,17 @@ Phases (every failed check raises; nothing is caught and carried on):
    a second tile plan and on its general kernel, timed beside it and
    beside ``torch.matmul`` on the pre-gated gradient; each time beside a
    library call prints its ratio to it), then the bf16 instances of B1-B6
-   and of the fused pass (ReLU / pool bitwise, as above; conv and FC within
+   and of the fused pass: first the tensor-core forwards (B1 bf16 where
+   Cin is a multiple of 16, B4 bf16) against the f64 sum of the widened
+   operands, beside the plain version, at the main-path shapes and at two
+   long cancelling sums (conv C = 608 at K = 5, FC0's K = 4096); then
+   ReLU / pool bitwise, as above; conv and FC within
    one bf16 rounding step of the f32 sum plus one of the output,
    ``BF16_STEP * (|sum| + |plain|)``, and the f32 kernels' tolerance for
-   the reordered sum, ``DOT_TOL * max|sum|``; bitwise again and under a second
-   plan; beside ``F.conv2d`` / ``torch.addmm`` in bf16), then the fxp16
+   the reordered sum, ``DOT_TOL * max|sum|``; bitwise again and under a
+   second plan of the same route, the FFMA route of B1/B4 within that
+   bound of the tensor cores; B4 bf16 allocating nothing but y; beside
+   ``F.conv2d`` / ``torch.addmm`` in bf16), then the fxp16
    kernels B7-B10 and
    the int16 instances of B2/B3 and of their fused pass, all bitwise (B7, B8 and B10 also launched
    again, under a second plan and on their general kernels, timed beside
@@ -137,7 +149,9 @@ route) 50 times under one profiler session, its CUPTI time per call;
 then one saliency explain of each CNN path, Table IV's f32 FP+BP at
 batch 1 and 32, one training step, one LM decode step and one per-token
 LM explain under ``torch.profiler``: kernel time by kernel and by family
-against the device time measured before (the device's idle share).  This
+against the device time measured before (the device's idle share); the
+bf16 explain's kernels by name must show the forwards on the tensor
+cores, each FC layer one CUDA kernel (``BF16_MMA_KERNELS``).  This
 comes after every timing, since a profiler session slows what runs after
 it.
 
@@ -282,9 +296,12 @@ INT16_INSTANCES = ("relu_fwd_i16", "maxpool_fwd_i16", "relu_pool_fwd_i16",
 #: and phase 9 count per entry point); the kernel line lists each with the
 #: launches of its entry on the bf16 path, B3 alone with those of the
 #: Table-III-literal bf16 explain (conv_relu=False: the only bf16 path that
-#: pools alone).
+#: pools alone).  The bf16 conv forward's entry holds two kernels, each a
+#: row of its own: the tensor cores (layers 1-3) and the FFMA instance
+#: (layer 0), their launches told apart by route (:data:`BF16_ROUTES`).
 BF16_INSTANCES = {
     "conv2d_fwd_bf16": ("conv2d_fwd", "repro_conv2d_fwd_bf16"),
+    "conv2d_fwd_bf16_ffma": ("conv2d_fwd", "repro_conv2d_fwd_bf16"),
     "relu_fwd_bf16": ("relu_fwd", "repro_relu_fwd_bf16"),
     "maxpool_fwd_bf16": ("maxpool_fwd", "repro_maxpool_fwd_bf16"),
     "relu_pool_fwd_bf16": ("relu_pool_fwd", "repro_relu_pool_fwd_bf16"),
@@ -292,6 +309,18 @@ BF16_INSTANCES = {
     "conv2d_bwd_fused_bf16": ("conv2d_bwd_fused",
                               "repro_conv2d_bwd_fused_bf16"),
     "vmm_bwd_fused_bf16": ("vmm_bwd_fused", "repro_vmm_bwd_fused_bf16")}
+
+
+#: The bf16 instances whose main path runs a kernel of its own: B1 bf16's
+#: layers 1-3 and B4 bf16 on the tensor cores (B1 bf16's layer 0,
+#: ``conv2d_fwd_bf16_ffma``, is ``conv_fwd.cuh``'s FFMA instance).
+BF16_SOURCES = {"conv2d_fwd_bf16": "src/repro_torch/csrc/conv_fwd_mma.cu",
+                "vmm_fwd_bf16": "src/repro_torch/csrc/vmm_fwd_bf16.cu"}
+#: The rows whose launches are their route's (``_build.ROUTE_LAUNCHES``),
+#: not their entry point's, and each route's launches per explain.
+BF16_ROUTES = {"conv2d_fwd_bf16": "conv2d_fwd_bf16_mma",
+               "conv2d_fwd_bf16_ffma": "conv2d_fwd_bf16_ffma"}
+ROUTES_PER_EXPLAIN = {"conv2d_fwd_bf16_mma": 3, "conv2d_fwd_bf16_ffma": 1}
 
 
 def bf16_entries(counts, entry_counts):
@@ -303,17 +332,28 @@ def bf16_entries(counts, entry_counts):
     return want
 
 
+def check_bf16_routes(what, routes, explains):
+    """Fail unless the bf16 conv forward's launches ``routes`` (a delta of
+    ``_build.ROUTE_LAUNCHES``) are ``explains`` explains' worth: layers 1-3
+    on the tensor cores, layer 0 on FFMA."""
+    want = {k: v * explains for k, v in ROUTES_PER_EXPLAIN.items()}
+    if routes != want:
+        fail(f"{what}: bf16 conv forward launches by kernel {routes}, want "
+             f"{want}")
+
+
 def fail(msg: str):
     raise AssertionError(msg)
 
 
 #: Entry functions of the kernels redesigned for this card (the conv
-#: forward of B1 and B7, the ReLU / pool template of B2, B3 and their fused
-#: pass, the FC forwards of B4 and B9, the fused conv backward of B5 and
-#: B8, the fused FC backward of B6 and B10, the scan B13 and its backward),
-#: whose registers and spills phase 1 reports.
-REDESIGNED = ("conv_igemm_kernel", "relu_pool_fwd_kernel",
-              "vmm_splitk_kernel",
+#: forward of B1 and B7, and of B1 bf16 on the tensor cores, the ReLU /
+#: pool template of B2, B3 and their fused pass, the FC forwards of B4 and
+#: B9, and of B4 bf16 on the tensor cores, the fused conv backward of B5
+#: and B8, the fused FC backward of B6 and B10, the scan B13 and its
+#: backward), whose registers and spills phase 1 reports.
+REDESIGNED = ("conv_igemm_kernel", "conv_mma_kernel",
+              "relu_pool_fwd_kernel", "vmm_splitk_kernel", "vmm_mma_kernel",
               "vmm_splitk_sum_kernel", "conv_bwd_igemm_kernel",
               "vmm_fxp_splitk_kernel", "vmm_fxp_splitk_sum_kernel",
               "vmm_bwd_tiled_kernel", "selective_scan_kernel",
@@ -451,11 +491,12 @@ def profile_breakdown(fn, what: str, wall: float, reps: int = 5):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    by_name = {}
+    by_name, calls = {}, {}
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
             by_name[e.name] = (by_name.get(e.name, 0.0)
                                + e.time_range.elapsed_us() / 1e3 / reps)
+            calls[e.name] = calls.get(e.name, 0) + 1 / reps
     if not by_name:
         print(f"  profile {what}: the profiler recorded no kernel; device "
               f"busy share not measured")
@@ -471,7 +512,35 @@ def profile_breakdown(fn, what: str, wall: float, reps: int = 5):
     print("    by category: " + "; ".join(
         f"{c} {t:.4f}" for c, t in sorted(cats.items(), key=lambda kv: -kv[1])))
     return dict(kernels_ms=busy, device_ms=wall, by_kernel=by_name,
-                by_category=cats)
+                by_category=cats, calls=calls)
+
+
+#: The CUDA kernels a bf16 saliency explain must launch on the forwards
+#: (name fragment -> kernels an explain): conv layers 1-3 on the tensor
+#: cores and layer 0 on the FFMA instance, both FC layers on the tensor
+#: cores, each in one kernel; none of the split-K's.
+BF16_MMA_KERNELS = {"conv_mma_kernel": 3, "conv_igemm_kernel": 1,
+                    "vmm_mma_kernel": 2, "vmm_splitk": 0}
+
+
+def check_bf16_kernel_names(profile, again):
+    """The bf16 explain's profile read by kernel name: the forwards ran on
+    the tensor cores, FC0 in one CUDA launch with no split-K sum kernel.
+    Where the profile is missing (CUPTI can lose a session), ``again()``
+    profiles once more; fail if that is missing too."""
+    if profile is None:
+        profile = again()
+    if profile is None:
+        fail("bf16 explain: no profile in two sessions, so its kernels "
+             "cannot be read by name")
+    got = {frag: round(sum(c for name, c in profile["calls"].items()
+                           if frag in name))
+           for frag in BF16_MMA_KERNELS}
+    if got != BF16_MMA_KERNELS:
+        fail(f"bf16 explain: CUDA kernels by name {got}, want "
+             f"{BF16_MMA_KERNELS}")
+    print(f"  bf16 explain kernels by name (profiler, per explain): {got}")
+    return got
 
 
 def _category(kernel_name: str) -> str:
@@ -483,8 +552,8 @@ def _category(kernel_name: str) -> str:
     if "selective_scan" in n:
         return "B13"
     if any(k in n for k in ("conv_kernel", "conv_igemm_kernel",
-                            "conv_bwd_igemm_kernel",
-                            "vmm_splitk", "vmm_fxp_splitk",
+                            "conv_bwd_igemm_kernel", "conv_mma_kernel",
+                            "vmm_splitk", "vmm_fxp_splitk", "vmm_mma_kernel",
                             "conv_fxp_kernel", "relu_fwd_kernel",
                             "relu_pool_fwd_kernel",
                             "relu_bwd_kernel", "maxpool_fwd_kernel",
@@ -525,6 +594,7 @@ class KernelCheck:
         self.imad_per_s = imad_per_s
         self.mufu_per_s = mufu_per_s
         self.scan_backward_ms = self.scan_backward_loop_ms = None
+        self.accumulation = None  # check_mma_accumulation's rows
         self.rows = []            # one per compared case, for --out
         self.fns = []             # (kernel_fn, general_fn) per row
         keys = tuple(KERNELS) + INT16_INSTANCES + tuple(BF16_INSTANCES)
@@ -1190,6 +1260,107 @@ def sweep_launch_choices(gen):
     return rows
 
 
+#: ``--sweep``, the bf16 forwards: the Table III conv layers (H, Cin, Cout)
+#: and FC layers (M, K, N) at batch 32.
+SWEEP_BF16_CONV = ((32, 3, 32), (32, 32, 32), (16, 32, 64), (16, 64, 64))
+SWEEP_BF16_VMM = ((32, 4096, 128), (32, 128, 10))
+
+
+def sweep_bf16_choices(gen):
+    """``--sweep``, the bf16 forwards: at the four Table III layers every
+    tensor-core tile of ``conv_mma_candidates`` (Cin a multiple of 16)
+    beside ``F.conv2d`` in bf16 and the FFMA instance (``conv_plan``'s
+    tile), and at FC0 and FC1 every tensor-core launch of
+    ``vmm_mma_candidates`` beside ``torch.addmm`` in bf16; each within
+    :func:`bf16_close` of the plain version, every tile of a layer (FC: of
+    one cluster size) the same bits."""
+    from repro_torch.kernels.conv2d import ref as conv_ref
+    from repro_torch.kernels.conv2d.conv2d import (conv2d_planned,
+                                                   conv_bf16_plan,
+                                                   conv_mma_candidates,
+                                                   conv_plan)
+    from repro_torch.kernels.vmm import ref as vmm_ref
+    from repro_torch.kernels.vmm.vmm import (vmm_mma_candidates,
+                                             vmm_mma_plan, vmm_planned)
+    bf = torch.bfloat16
+    rows = dict(conv_bf16=[], vmm_bf16=[])
+    for h, cin, cout in SWEEP_BF16_CONV:
+        x = randn(gen, BATCH, h, h, cin).to(bf)
+        w = randn(gen, 3, 3, cin, cout,
+                  scale=(2.0 / (9 * cin)) ** 0.5).to(bf)
+        b = randn(gen, cout, scale=0.1).to(bf)
+        xn, wn = x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1)
+        acc = conv_ref.conv2d_widened(x, w)
+        want = conv_ref.conv2d_bf16(x, w) + b
+        lib = device_time_ms(lambda: F.conv2d(xn, wn, b, padding=1))
+        ffma_plan = conv_plan(BATCH, h, h, cin, cout, 3, esize=2)
+        bf16_close(conv2d_planned(x, w, b, plan=ffma_plan), want, acc)
+        ffma = device_time_ms(lambda: conv2d_planned(x, w, b,
+                                                     plan=ffma_plan))
+        chosen = conv_bf16_plan(BATCH, h, h, cin, cout, 3)
+        case = f"conv bf16 [{BATCH},{h},{h},{cin}->{cout}]"
+        found = []
+        if cin % 16 == 0:
+            first = conv2d_planned(x, w, b, plan=chosen)
+            bf16_close(first, want, acc)
+            for p in conv_mma_candidates(h, h, cin, cout, 3):
+                got = conv2d_planned(x, w, b, plan=p)
+                torch.cuda.synchronize()
+                if not torch.equal(got, first):
+                    fail(f"sweep {case}: plan {p} changes the bits")
+                found.append((device_time_ms(
+                    lambda: conv2d_planned(x, w, b, plan=p)), p))
+            found.sort(key=lambda t: (t[0], t[1].args()))
+        rank = ([p for _, p in found].index(chosen) if found else None)
+        chosen_ms = found[rank][0] if found else ffma
+        print(f"  {case}: F.conv2d {lib:.4f} ms; FFMA {ffma_plan} "
+              f"{ffma:.4f} ms; conv_bf16_plan {chosen} {chosen_ms:.4f} ms"
+              + (f" (rank {rank + 1} of {len(found)}); fastest:" if found
+                 else ""))
+        for ms, p in found[:8]:
+            print(f"      {ms:.4f} ms  {p}  threads {p.threads:3d} blocks "
+                  f"{p.blocks(BATCH, h, h, cout):5d} smem "
+                  f"{p.smem_bytes(3, cin)}")
+        rows["conv_bf16"].append(dict(
+            shape=[BATCH, h, h, cin, cout], library_ms=lib,
+            ffma=ffma_plan.args(), ffma_ms=ffma, chosen=chosen.args(),
+            chosen_ms=chosen_ms, rank=None if rank is None else rank + 1,
+            plans=[dict(plan=p.args(), ms=ms) for ms, p in found]))
+    for m, k, n in SWEEP_BF16_VMM:
+        x = randn(gen, m, k).to(bf)
+        w = randn(gen, k, n, scale=k ** -0.5).to(bf)
+        b = randn(gen, n).to(bf)
+        acc = vmm_ref.vmm_widened(x, w)
+        want = vmm_ref.vmm_bf16(x, w) + b
+        lib = device_time_ms(lambda: torch.addmm(b, x, w))
+        chosen = vmm_mma_plan(m, k, n)
+        case = f"vmm bf16 [{m},{k}]@[{k},{n}]"
+        found, firsts = [], {}
+        for p in vmm_mma_candidates(m, k, n):
+            got = vmm_planned(x, w, b, plan=p)
+            bf16_close(got, want, acc)
+            first = firsts.setdefault(p.cluster, got)
+            torch.cuda.synchronize()
+            if not torch.equal(got, first):
+                fail(f"sweep {case}: {p} changes the bits of its cluster "
+                     f"size")
+            found.append((device_time_ms(
+                lambda: vmm_planned(x, w, b, plan=p)), p))
+        found.sort(key=lambda t: (t[0], t[1].cluster, t[1].bn))
+        rank = [p for _, p in found].index(chosen)
+        print(f"  {case}: addmm {lib:.4f} ms; vmm_mma_plan {chosen} "
+              f"{found[rank][0]:.4f} ms (rank {rank + 1} of {len(found)}):")
+        for ms, p in found:
+            print(f"      {ms:.4f} ms  {p}  blocks {p.blocks(m, n)}")
+        rows["vmm_bf16"].append(dict(
+            shape=[m, k, n], library_ms=lib,
+            chosen=[chosen.bn, chosen.cluster],
+            chosen_ms=found[rank][0], rank=rank + 1,
+            plans=[dict(bn=p.bn, cluster=p.cluster, ms=ms)
+                   for ms, p in found]))
+    return rows
+
+
 def sweep_fxp_choices(gen):
     """``--sweep``, the int16 forwards: time a grid of B7 tile plans at the
     four Table III layers beside the general kernel, and every B9 K split
@@ -1724,6 +1895,92 @@ def check_kernels_fxp(kc: KernelCheck):
           f"under {plan}, {second_vmm_bwd_plan(plan)} and the general kernel")
 
 
+def second_mma_plan(plan):
+    """A valid tile of the tensor-core conv forward other than ``plan``:
+    one row a warp, 16-channel chunks and twice the rows (halved back
+    while over 256 threads), or 64 channels a block where that is
+    ``plan``."""
+    from repro_torch.kernels.conv2d.conv2d import ConvMmaPlan
+    th = 2 * plan.th
+    while 32 * th * (plan.tco // 32) > 256:
+        th //= 2
+    other = ConvMmaPlan(th, 1, plan.tco, 16)
+    return other if other != plan else ConvMmaPlan(plan.th, plan.mt, 64, 16)
+
+
+def _accumulation_row(what, got, plain, s64, acc):
+    """One line of :func:`check_mma_accumulation`: the kernel's and the
+    plain version's largest distance from the f64 sum, in units of
+    max|sum|, their outputs off the correctly rounded bf16 of it, and the
+    kernel's largest share of the :func:`bf16_close` bound."""
+    torch.cuda.synchronize()
+    top = s64.abs().max().item()
+    near = s64.to(torch.bfloat16)
+    err = (got.double() - s64).abs().max().item() / top
+    perr = (plain.double() - s64).abs().max().item() / top
+    off = int((got != near).sum().item())
+    poff = int((plain != near).sum().item())
+    bound = (BF16_STEP * (acc.abs() + plain.float().abs())
+             + DOT_TOL * acc.abs().max())
+    share = ((got.float() - plain.float()).abs() / bound).max().item()
+    bf16_close(got, plain, acc)
+    print(f"  {what:46s} |y - sum64| {err:.3e} of max|sum| (plain "
+          f"{perr:.3e}); off the rounded f64 sum {off} of {got.numel()} "
+          f"(plain {poff}); {share:.3f} of the bf16_close bound")
+    return dict(case=what, err_of_max=err, plain_err_of_max=perr,
+                off_rounding=off, plain_off_rounding=poff,
+                outputs=got.numel(), bound_share=share)
+
+
+def check_mma_accumulation(gen):
+    """Phase 2, before any timing: the tensor-core forwards' outputs (no
+    bias: the sum rounded once) against the f64 sum of the widened
+    operands, beside the plain version's, at the main-path shapes (conv
+    layers 1-3, FC0 with its K = 4096, FC1) and at two long sums that
+    cancel (alternating signs): a conv over C = 608 at K = 5 and FC0's
+    K = 4096.  Each must be within :func:`bf16_close` of the plain
+    version; the lines are what PERF.md quotes."""
+    from repro_torch.kernels.conv2d import ref as conv_ref
+    from repro_torch.kernels.conv2d.conv2d import conv2d
+    from repro_torch.kernels.vmm import ref as vmm_ref
+    from repro_torch.kernels.vmm.vmm import vmm
+
+    print("  tensor-core accumulation (bf16 out, no bias) against the f64 "
+          "sum of the widened operands:")
+
+    def operands(shape_x, shape_w, scale, cancel):
+        x = randn(gen, *shape_x).to(torch.bfloat16)
+        w = randn(gen, *shape_w, scale=scale).to(torch.bfloat16)
+        if cancel:       # channel c of x has sign (-1)^c, w is positive
+            c = shape_x[-1]
+            sign = (torch.arange(c, device=x.device) % 2 * 2 - 1).to(x.dtype)
+            x, w = x.abs() * sign, w.abs()
+        return x, w
+
+    rows = []
+    for h, cin, cout, k, cancel in ((32, 32, 32, 3, False),
+                                    (16, 32, 64, 3, False),
+                                    (16, 64, 64, 3, False),
+                                    (16, 608, 64, 5, True)):
+        nb = BATCH if not cancel else 4
+        x, w = operands((nb, h, h, cin), (k, k, cin, cout),
+                        (2.0 / (k * k * cin)) ** 0.5, cancel)
+        s64 = conv_ref.conv2d(x.double(), w.double())
+        rows.append(_accumulation_row(
+            f"conv [{nb},{h},{h},{cin}->{cout}] K {k}"
+            + (" cancelling" if cancel else ""), conv2d(x, w),
+            conv_ref.conv2d_bf16(x, w), s64, conv_ref.conv2d_widened(x, w)))
+    for k, m_out, cancel in ((4096, 128, False), (128, 10, False),
+                             (4096, 128, True)):
+        x, w = operands((BATCH, k), (k, m_out), (2.0 / k) ** 0.5, cancel)
+        s64 = x.double() @ w.double()
+        rows.append(_accumulation_row(
+            f"fc [{BATCH},{k}]@[{k},{m_out}]"
+            + (" cancelling" if cancel else ""), vmm(x, w),
+            vmm_ref.vmm_bf16(x, w), s64, vmm_ref.vmm_widened(x, w)))
+    return rows
+
+
 def bf16_close(got, want, acc):
     """Fail unless every bf16 output ``got`` is within one bf16 step of the
     unrounded f32 sum ``acc`` plus one of ``want`` (the plain version's),
@@ -1754,10 +2011,12 @@ def check_kernels_bf16(kc: KernelCheck):
     rate (those rows are bound by bytes)."""
     from repro_torch.core import masks
     from repro_torch.kernels.conv2d import ref as conv_ref
-    from repro_torch.kernels.conv2d.conv2d import (bwd_fused_plain, conv2d,
+    from repro_torch.kernels.conv2d.conv2d import (ConvMmaPlan,
+                                                   bwd_fused_plain, conv2d,
                                                    conv2d_bwd_fused,
                                                    conv2d_bwd_fused_plain,
                                                    conv2d_planned,
+                                                   conv_bf16_plan,
                                                    conv_bwd_plan, conv_plan)
     from repro_torch.kernels.pool import ref as pool_ref
     from repro_torch.kernels.pool.pool import maxpool_fwd, relu_pool_fwd
@@ -1769,9 +2028,10 @@ def check_kernels_bf16(kc: KernelCheck):
                                             mask_bytes)
     from repro_torch.kernels.vmm import ref as vmm_ref
     from repro_torch.kernels.vmm.vmm import bwd_fused_plain as vbwd_plain
-    from repro_torch.kernels.vmm.vmm import (vmm, vmm_bwd_fused,
+    from repro_torch.kernels.vmm.vmm import (VmmMmaPlan, vmm, vmm_bwd_fused,
                                              vmm_bwd_fused_plain,
-                                             vmm_bwd_plan, vmm_splits)
+                                             vmm_bwd_plan, vmm_mma_plan,
+                                             vmm_planned)
 
     gen = torch.Generator(device="cuda").manual_seed(2718)
     n, s, bf = BATCH, SEEDS, torch.bfloat16
@@ -1779,23 +2039,35 @@ def check_kernels_bf16(kc: KernelCheck):
     def rb(*shape, scale=1.0):
         return randn(gen, *shape, scale=scale).to(bf)
 
+    kc.accumulation = check_mma_accumulation(gen)
+
     # B1 bf16: the four Table III layers (+ bias after the rounding), run
-    # to run and under a second tile plan bitwise; F.conv2d in bf16 beside
+    # to run and under a second tile plan of its route bitwise (layers 1-3
+    # on the tensor cores, also the FFMA route within one bf16 step);
+    # F.conv2d in bf16 beside
     for h, cin, cout in ((32, 3, 32), (32, 32, 32), (16, 32, 64),
                          (16, 64, 64)):
         x = rb(n, h, h, cin)
         w = rb(3, 3, cin, cout, scale=(2.0 / (9 * cin)) ** 0.5)
         b = rb(cout, scale=0.1)
         xn, wn = x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1)
-        case = f"[{n},{h},{h},{cin}->{cout}]"
         got = conv2d(x, w, b)
-        plan = conv_plan(n, h, h, cin, cout, 3, esize=2)
-        other = second_fwd_plan(plan, cin)
-        _bitwise_repeat("conv2d_fwd_bf16", case, got, (
+        plan = conv_bf16_plan(n, h, h, cin, cout, 3)
+        mma = isinstance(plan, ConvMmaPlan)
+        other = (second_mma_plan(plan) if mma
+                 else second_fwd_plan(plan, cin))
+        case = f"[{n},{h},{h},{cin}->{cout}] {'mma' if mma else 'ffma'}"
+        row = "conv2d_fwd_bf16" if mma else "conv2d_fwd_bf16_ffma"
+        _bitwise_repeat(row, case, got, (
             (f"again under {plan}", lambda: conv2d(x, w, b)),
             (f"under {other}", lambda: conv2d_planned(x, w, b, plan=other))))
         acc = conv_ref.conv2d_widened(x, w)
-        kc.record("conv2d_fwd_bf16", case, True, got,
+        if mma:
+            ffma = conv_plan(n, h, h, cin, cout, 3, esize=2)
+            err = bf16_close(conv2d_planned(x, w, b, plan=ffma), got, acc)
+            print(f"  {'conv2d_fwd_bf16':20s} {case:34s} the FFMA route "
+                  f"{ffma} within one bf16 step (max|d| {err:.2e})")
+        kc.record(row, case, True, got,
                   conv_ref.conv2d_bf16(x, w) + b, False,
                   lambda: conv2d(x, w, b),
                   lambda: conv_ref.conv2d_bf16(x, w) + b,
@@ -1846,18 +2118,32 @@ def check_kernels_bf16(kc: KernelCheck):
                 lambda x=x, mask=mask: general_relu_pool(x, mask),
                 nbytes, x.numel() + 3 * x.numel() // 4, mask)
 
-    # B4 bf16: FC0 (split K, f32 workspace) and FC1, run to run bitwise;
-    # torch.addmm in bf16 beside
+    # B4 bf16: FC0 and FC1 on the tensor cores, one launch and no
+    # workspace (the device memory a call allocates is y's alone), run to
+    # run and under the other column tile bitwise; torch.addmm in bf16
+    # beside
     for k, m_out in ((4096, 128), (128, 10)):
         x = rb(n, k)
         w = rb(k, m_out, scale=(2.0 / k) ** 0.5)
         b = rb(m_out, scale=0.1)
-        case = f"[{n},{k}]@[{k},{m_out}]"
+        plan = vmm_mma_plan(n, k, m_out)
+        case = f"[{n},{k}]@[{k},{m_out}] mma"
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
         got = vmm(x, w, b)
+        torch.cuda.synchronize()
+        grew = torch.cuda.max_memory_allocated() - base
+        if grew > -(-2 * got.numel() // 512) * 512:
+            fail(f"vmm_fwd_bf16 {case}: a call allocated {grew} B, more "
+                 f"than y's {2 * got.numel()} (a workspace?)")
+        other = VmmMmaPlan(32 if plan.bn == 16 else 16, plan.cluster)
         _bitwise_repeat("vmm_fwd_bf16", case, got, (
-            (f"again, K in {vmm_splits(n, k, m_out)} slice(s)",
-             lambda: vmm(x, w, b)),))
+            (f"again under {plan}", lambda: vmm(x, w, b)),
+            (f"under {other}", lambda: vmm_planned(x, w, b, plan=other))))
         acc = vmm_ref.vmm_widened(x, w)
+        print(f"  {'vmm_fwd_bf16':20s} {case:34s} allocates {grew} B (y "
+              f"{2 * got.numel()} B)")
         kc.record("vmm_fwd_bf16", case, True, got,
                   vmm_ref.vmm_bf16(x, w) + b, False, lambda: vmm(x, w, b),
                   lambda: vmm_ref.vmm_bf16(x, w) + b,
@@ -2244,6 +2530,7 @@ def check_engine(params, cfg, x_cpu, precision, to_profile):
     bit."""
     from repro_torch.engine import CNNModel, EngineSpec, TopK, build
     from repro_torch.kernels import ENTRY_LAUNCHES, LAUNCHES
+    from repro_torch.kernels._build import ROUTE_LAUNCHES
     from repro_torch.models import cnn
 
     exact = precision == "fxp16"
@@ -2256,6 +2543,7 @@ def check_engine(params, cfg, x_cpu, precision, to_profile):
         eng = build(EngineSpec(CNNModel(params, cfg, device="cuda"), **spec))
         twin = build(EngineSpec(CNNModel(params, cfg, device="cpu"), **spec))
         before, before_e = dict(LAUNCHES), dict(ENTRY_LAUNCHES)
+        before_r = dict(ROUTE_LAUNCHES)
         logits, rel, res = eng.predict_then_explain(x)
         torch.cuda.synchronize()
         rose = {k: LAUNCHES[k] - before[k] for k in LAUNCHES}
@@ -2277,6 +2565,9 @@ def check_engine(params, cfg, x_cpu, precision, to_profile):
                 fail(f"bf16 {method}: launches per entry point "
                      f"{ {k: v for k, v in rose_e.items() if v} }, want "
                      f"{ {k: v for k, v in want_e.items() if v} }")
+            check_bf16_routes(f"bf16 {method}", {
+                k: ROUTE_LAUNCHES[k] - before_r[k] for k in ROUTE_LAUNCHES},
+                1)
             if not logits.dtype == rel.dtype == torch.bfloat16:
                 fail(f"bf16 {method}: logits {logits.dtype}, relevance "
                      f"{rel.dtype}, want torch.bfloat16")
@@ -3205,8 +3496,9 @@ def main() -> int:
                     help="directory for chip_smoke.json (per-case numbers)")
     ap.add_argument("--sweep", action="store_true",
                     help="after phase 1, time the launch choices of B1, B4, "
-                         "B5/B8, B7, B9 and B6/B10 (K splits, grids of tile "
-                         "plans) and stop; --out gets kernel_sweep.json")
+                         "B1/B4 bf16, B5/B8, B7, B9 and B6/B10 (K splits, "
+                         "clusters, grids of tile plans) and stop; --out "
+                         "gets kernel_sweep.json")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke test needs one",
@@ -3249,8 +3541,8 @@ def main() -> int:
                     or "spill stores" in line):
                 print("   ", line.strip())
         found = kernel_resources(text, REDESIGNED)
-        print("  redesigned B1/B2/B3/B4/B5/B6/B7/B8/B9/B10/B13 kernels "
-              "(ptxas): "
+        print("  redesigned B1/B2/B3/B4/B5/B6/B7/B8/B9/B10/B13 kernels, "
+              "B1/B4 bf16 on the tensor cores (ptxas): "
               + "; ".join(f"{name} {regs} registers, spill stores {st} B, "
                           f"loads {ld} B" for name, regs, st, ld in found))
 
@@ -3263,6 +3555,11 @@ def main() -> int:
               f"{SWEEP_BWD_REPS} back-to-back runs)")
         rows["bwd"] = sweep_bwd_plans(torch.Generator(device="cuda")
                                       .manual_seed(0))
+        print(f"sweep: B1 and B4 in bf16, tensor-core tiles and clusters "
+              f"beside F.conv2d / torch.addmm bf16 and the FFMA route (ms = "
+              f"median of {REPS} back-to-back runs)")
+        rows.update(sweep_bf16_choices(torch.Generator(device="cuda")
+                                       .manual_seed(0)))
         print(f"sweep: B7 tile plans and B9 K splits, int16 (ms = median "
               f"of {REPS} back-to-back runs)")
         rows.update(sweep_fxp_choices(torch.Generator(device="cuda")
@@ -3300,7 +3597,7 @@ def main() -> int:
     x_cpu = torch.randn((BATCH, 32, 32, 3),
                         generator=torch.Generator().manual_seed(1))
     engine_results, n_req, launches, to_profile = {}, {}, {}, []
-    entry_launches = {}
+    entry_launches, route_launches = {}, {}
     for precision in ("f32", "bf16", "fxp16"):
         reset_launches()
         print(f"phase 3 ({precision}): engine end to end, full Table III "
@@ -3312,12 +3609,20 @@ def main() -> int:
         torch.cuda.synchronize()
         launches[precision] = dict(LAUNCHES)
         entry_launches[precision] = dict(ENTRY_LAUNCHES)
+        route_launches[precision] = dict(_build.ROUTE_LAUNCHES)
         check_path_launches(precision, launches[precision])
         if precision == "bf16" and entry_launches["bf16"] != bf16_entries(
                 launches["bf16"], ENTRY_LAUNCHES):
             fail(f"bf16: launches per entry point "
                  f"{ {k: v for k, v in ENTRY_LAUNCHES.items() if v} }, not "
                  f"all through the bf16 entries")
+        if precision == "bf16":
+            # layers 1-3 on the tensor cores, layer 0 on FFMA, in every
+            # conv forward of the path
+            check_bf16_routes("bf16 path", route_launches["bf16"],
+                              launches["bf16"]["conv2d_fwd"] // 4)
+            print(f"  bf16 conv forward launches by kernel: "
+                  f"{route_launches['bf16']}")
 
     # the paper's accounting (Table II / §V, Table IV), and the bf16
     # explain of the Table-III-literal config (the pool alone in bf16),
@@ -3364,14 +3669,21 @@ def main() -> int:
           "and one per-token LM explain under torch.profiler")
     profiles = {what: profile_breakdown(fn, what, wall)
                 for what, fn, wall in to_profile}
+    bf16_explain = "bf16 saliency explain"
+    check_bf16_kernel_names(profiles[bf16_explain], lambda: next(
+        profile_breakdown(fn, what, wall) for what, fn, wall in to_profile
+        if what == bf16_explain))
 
     kernels = []
     rows = [(name, launches[KERNEL_PATH[name]][name], source, replaces)
             for name, (source, replaces) in KERNELS.items()]
-    rows += [(name, entry_launches[
-        "bf16_literal" if counter == "maxpool_fwd" else "bf16"][entry])
-        + KERNELS[counter]
-        for name, (counter, entry) in BF16_INSTANCES.items()]
+    rows += [(name, route_launches["bf16"][BF16_ROUTES[name]]
+              if name in BF16_ROUTES else entry_launches[
+                  "bf16_literal" if counter == "maxpool_fwd" else "bf16"][
+                  entry])
+             + (BF16_SOURCES.get(name, KERNELS[counter][0]),
+                KERNELS[counter][1])
+             for name, (counter, entry) in BF16_INSTANCES.items()]
     for name, n_launched, source, replaces in rows:
         s = kc.sums[name]
         kernels.append(dict(name=name, route="cuda", source=source,
@@ -3390,9 +3702,11 @@ def main() -> int:
             vjp=vjp_results, train=train_results, lm=lm_results,
             lm_twin=twin_results,
             scan_backward_ms=kc.scan_backward_ms,
+            mma_accumulation=kc.accumulation,
             scan_backward_loop_ms=kc.scan_backward_loop_ms,
             profiles=profiles,
             launches=launches, entry_launches=entry_launches,
+            route_launches=route_launches,
             kernels=kernels), indent=1))
     print(smi)
     print(json.dumps({"kernels": kernels}))

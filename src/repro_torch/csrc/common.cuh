@@ -92,6 +92,13 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
+// Wait until at most N groups of this thread's cp.async copies are in
+// flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
 // One copy of `vb` bytes (16, 8 or 4) into a ring stage, or of one element
 // with an ordinary load where vb == 0; ok == false writes zeros.
 template <typename T>
@@ -276,5 +283,35 @@ struct Traits<__nv_bfloat16> {
         make_uint2(bf16_pack(r[0], r[1]), bf16_pack(r[2], r[3]));
   }
 };
+
+// Launch kernel<<<grid, block, smem, stream>>>(args...) with programmatic
+// dependent launch: the grid may be scheduled while the kernel before it on
+// the stream drains, and waits for that kernel's writes (griddepcontrol.wait
+// in the kernel) before its first load.  cluster > 0 also groups the blocks
+// into thread-block clusters of that many along x.
+template <typename... Params, typename... Vals>
+cudaError_t launch_pdl(void (*kernel)(Params...), dim3 grid, dim3 block,
+                       size_t smem, cudaStream_t stream, int cluster,
+                       Vals... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = block;
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[2];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.numAttrs = 1;
+  if (cluster > 0) {
+    attr[1].id = cudaLaunchAttributeClusterDimension;
+    attr[1].val.clusterDim.x = cluster;
+    attr[1].val.clusterDim.y = 1;
+    attr[1].val.clusterDim.z = 1;
+    cfg.numAttrs = 2;
+  }
+  cfg.attrs = attr;
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, args...);
+  return e != cudaSuccess ? e : cudaGetLastError();
+}
 
 }  // namespace repro

@@ -210,21 +210,11 @@ int launch(const T* x, T* y, uint8_t* m, uint8_t* idx, int pixels, int h,
                   (reinterpret_cast<uintptr_t>(y) % 16 == 0) &&
                   (reinterpret_cast<uintptr_t>(idx) % 2 == 0);
   const long long total = static_cast<long long>(pixels) * groups;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(static_cast<unsigned>((total + threads - 1) / threads));
-  cfg.blockDim = dim3(threads);
-  cfg.dynamicSmemBytes = 0;
-  cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
-  attr[0].val.programmaticStreamSerializationAllowed = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  const cudaError_t rc = cudaLaunchKernelEx(
-      &cfg, relu_pool_fwd_kernel<T, POOL, RELU, MASK>, x, y, m, idx, pixels,
-      h, w, c, groups, vec);
-  if (rc != cudaSuccess) return static_cast<int>(rc);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(repro::launch_pdl(
+      relu_pool_fwd_kernel<T, POOL, RELU, MASK>,
+      dim3(static_cast<unsigned>((total + threads - 1) / threads)),
+      dim3(threads), 0, stream, 0, x, y, m, idx, pixels, h, w, c, groups,
+      vec));
 }
 
 }  // namespace rp

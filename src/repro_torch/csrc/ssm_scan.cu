@@ -54,11 +54,6 @@ using namespace repro::scan;
 constexpr int kMaxChannels = 32;  // channels a block: 128 threads
 constexpr int kMaxChunk = 16;     // steps a staging chunk
 
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
 // One staging chunk in shared memory: the block's dt columns [ck, cpb],
 // the B and C rows [ck, kMaxN] (zeros past N) and the x columns [ck, cpb].
 template <typename T>
@@ -163,9 +158,9 @@ __global__ void __launch_bounds__(kLanes * kMaxChannels, 8)
       stage(Chunk<T>(smem + ((k + 1) & 1) * buf, ck, cpb), dt, x, bm, cm,
             row + t1, min(ck, s - t1), ck, d, d0, cpb, n);
       repro::cp_async_commit();
-      cp_async_wait<1>();
+      repro::cp_async_wait<1>();
     } else {
-      cp_async_wait<0>();
+      repro::cp_async_wait<0>();
     }
     __syncthreads();                  // chunk k has landed for every thread
     const Chunk<T> st(smem + (k & 1) * buf, ck, cpb);

@@ -34,13 +34,12 @@
 // vmm_splitk_sum_kernel, sums the slices in slice order and adds the
 // bias, so the result is bitwise the same from run to run.
 //
-// bf16 (the same two kernels on T = __nv_bfloat16): each 4-element group of
-// x and w is one 8-byte load, widened to f32 exactly as it is stashed, so
-// the sums, the f32 workspace and their order are the f32 instance's; the
-// result is rounded to bf16 where it is written, then the bias is added in
-// f32 and the sum rounded again, bf16(f32(bf16(acc)) + f32(b)): the
-// reference's vmm_pallas(x, w) + b, whose kernel output is bf16.  Half the
-// bytes of f32; the same FMAs.
+// bf16: repro_vmm_fwd_bf16 runs the tensor-core kernel of vmm_fwd_bf16.cu
+// (one launch, split-K reduced inside a thread-block cluster, no
+// workspace) for the plans kernels/vmm/vmm.py vmm_mma_plan gives.  It
+// rounds the sum to bf16, then adds the bias in f32 and rounds again,
+// bf16(f32(bf16(acc)) + f32(b)): the reference's vmm_pallas(x, w) + b,
+// whose kernel output is bf16.
 
 // Backward design: the tiled template of vmm_bwd.cuh
 // (vmm_bwd_tiled_kernel<float, RM>, shared with the int16 backward): the
@@ -55,6 +54,7 @@
 // reference.
 
 #include "common.cuh"
+#include "mma.cuh"
 #include "vmm_bwd.cuh"
 
 namespace {
@@ -108,48 +108,12 @@ vmm_kernel(const float* __restrict__ a, const float* __restrict__ b,
 constexpr int SK_BM = 32, SK_BN = 32, SK_KC = 32, SK_THREADS = 128;
 constexpr int SK_XS = SK_KC + 4;  // x row stride: 16-byte rows, no conflict
 
-// Four consecutive elements as f32: one 16-byte (f32) or 8-byte (bf16)
-// load, or one element.
-template <typename T>
-struct Ld;
-template <>
-struct Ld<float> {
-  static __device__ __forceinline__ float4 four(const float* p) {
-    return __ldg(reinterpret_cast<const float4*>(p));
-  }
-  static __device__ __forceinline__ float one(const float* p) {
-    return __ldg(p);
-  }
-};
-template <>
-struct Ld<__nv_bfloat16> {
-  static __device__ __forceinline__ float4 four(const __nv_bfloat16* p) {
-    const uint2 v = __ldg(reinterpret_cast<const uint2*>(p));
-    return make_float4(repro::bf16_lo(v.x), repro::bf16_hi(v.x),
-                       repro::bf16_lo(v.y), repro::bf16_hi(v.y));
-  }
-  static __device__ __forceinline__ float one(const __nv_bfloat16* p) {
-    return __bfloat162float(__ldg(p));
-  }
-};
-
-// An output of the forward from its f32 sum: + bias in f32; bf16 rounds
-// the sum, adds the bias in f32 and rounds again (Traits::add_bias).
-template <typename T>
-__device__ __forceinline__ T fwd_out(float acc, const T* bias, int c) {
-  using Tr = repro::Traits<T>;
-  float o = Tr::finish(acc);
-  if (bias) o = Tr::add_bias(o, bias[c]);
-  return static_cast<T>(o);
-}
-
 // One block: output rows [m0, m0 + 32) x columns [n0, n0 + 32) over the K
 // slice [kb, ke).  part == nullptr: write y (+ bias); else write the
 // partial tile to part[blockIdx.z].
-template <typename T>
 __global__ void __launch_bounds__(SK_THREADS)
-vmm_splitk_kernel(const T* __restrict__ x, const T* __restrict__ w,
-                  const T* __restrict__ bias, T* __restrict__ y,
+vmm_splitk_kernel(const float* __restrict__ x, const float* __restrict__ w,
+                  const float* __restrict__ bias, float* __restrict__ y,
                   float* __restrict__ part, int m, int k, int n, int ks,
                   int vec_x, int vec_w) {
   __shared__ __align__(16) float xs[SK_BM * SK_XS];
@@ -167,16 +131,16 @@ vmm_splitk_kernel(const T* __restrict__ x, const T* __restrict__ w,
     for (int i = 0; i < WV; ++i) {
       const int e = tid + i * SK_THREADS;
       const int kk = k0 + e / (SK_BN / 4), c = n0 + 4 * (e % (SK_BN / 4));
-      const T* src = w + static_cast<size_t>(kk) * n + c;
+      const float* src = w + static_cast<size_t>(kk) * n + c;
       float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
       if (kk < ke) {
         if (vec_w && c < n) {
-          v = Ld<T>::four(src);
+          v = __ldg(reinterpret_cast<const float4*>(src));
         } else {
-          if (c < n) v.x = Ld<T>::one(src);
-          if (c + 1 < n) v.y = Ld<T>::one(src + 1);
-          if (c + 2 < n) v.z = Ld<T>::one(src + 2);
-          if (c + 3 < n) v.w = Ld<T>::one(src + 3);
+          if (c < n) v.x = __ldg(src);
+          if (c + 1 < n) v.y = __ldg(src + 1);
+          if (c + 2 < n) v.z = __ldg(src + 2);
+          if (c + 3 < n) v.w = __ldg(src + 3);
         }
       }
       wr[i] = v;
@@ -185,16 +149,16 @@ vmm_splitk_kernel(const T* __restrict__ x, const T* __restrict__ w,
     for (int i = 0; i < XV; ++i) {
       const int e = tid + i * SK_THREADS;
       const int r = m0 + e / (SK_KC / 4), kk = k0 + 4 * (e % (SK_KC / 4));
-      const T* src = x + static_cast<size_t>(r) * k + kk;
+      const float* src = x + static_cast<size_t>(r) * k + kk;
       float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
       if (r < m) {
         if (vec_x && kk < ke) {   // vec_x: K % 4 == 0, so kk + 3 < ke
-          v = Ld<T>::four(src);
+          v = __ldg(reinterpret_cast<const float4*>(src));
         } else {
-          if (kk < ke) v.x = Ld<T>::one(src);
-          if (kk + 1 < ke) v.y = Ld<T>::one(src + 1);
-          if (kk + 2 < ke) v.z = Ld<T>::one(src + 2);
-          if (kk + 3 < ke) v.w = Ld<T>::one(src + 3);
+          if (kk < ke) v.x = __ldg(src);
+          if (kk + 1 < ke) v.y = __ldg(src + 1);
+          if (kk + 2 < ke) v.z = __ldg(src + 2);
+          if (kk + 3 < ke) v.w = __ldg(src + 3);
         }
       }
       xr[i] = v;
@@ -249,7 +213,9 @@ vmm_splitk_kernel(const T* __restrict__ x, const T* __restrict__ w,
       if (part) {
         part[(static_cast<size_t>(blockIdx.z) * m + r) * n + c] = acc[i][j];
       } else {
-        y[static_cast<size_t>(r) * n + c] = fwd_out(acc[i][j], bias, c);
+        float o = acc[i][j];
+        if (bias) o += bias[c];
+        y[static_cast<size_t>(r) * n + c] = o;
       }
     }
   }
@@ -257,10 +223,9 @@ vmm_splitk_kernel(const T* __restrict__ x, const T* __restrict__ w,
 
 // Second pass of the split-K forward: y = sum of the slices in slice order
 // (+ bias), one thread per output.
-template <typename T>
 __global__ void vmm_splitk_sum_kernel(const float* __restrict__ part,
-                                      const T* __restrict__ bias,
-                                      T* __restrict__ y, int m, int n,
+                                      const float* __restrict__ bias,
+                                      float* __restrict__ y, int m, int n,
                                       int splits) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= m * n) return;
@@ -268,32 +233,8 @@ __global__ void vmm_splitk_sum_kernel(const float* __restrict__ part,
   float s = part[i];
 #pragma unroll 8
   for (int z = 1; z < splits; ++z) s += part[z * mn + i];
-  y[i] = fwd_out(s, bias, i % n);
-}
-
-template <typename T>
-int vmm_fwd(const T* x, const T* w, const T* bias, T* y, int m, int k, int n,
-            float* part, int splits, int ks, cudaStream_t stream) {
-  // splits slices of K, each ks long (a whole number of chunks), none
-  // empty: kernels/vmm/vmm.py vmm_with_splits chooses both.
-  if (splits < 1 || ks < SK_KC || ks % SK_KC != 0 ||
-      static_cast<long long>(splits) * ks < k ||
-      (splits > 1 && (part == nullptr || (splits - 1) * ks >= k)))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const uintptr_t vb = 4 * sizeof(T);   // one 4-element load
-  const int vec_x = k % 4 == 0 && reinterpret_cast<uintptr_t>(x) % vb == 0;
-  const int vec_w = n % 4 == 0 && reinterpret_cast<uintptr_t>(w) % vb == 0;
-  const dim3 grid((n + SK_BN - 1) / SK_BN, (m + SK_BM - 1) / SK_BM, splits);
-  vmm_splitk_kernel<T><<<grid, SK_THREADS, 0, stream>>>(
-      x, w, bias, y, splits > 1 ? part : nullptr, m, k, n, ks, vec_x, vec_w);
-  if (splits > 1) {
-    const cudaError_t e = cudaGetLastError();
-    if (e != cudaSuccess) return static_cast<int>(e);
-    const int threads = 256, blocks = (m * n + threads - 1) / threads;
-    vmm_splitk_sum_kernel<T><<<blocks, threads, 0, stream>>>(part, bias, y, m,
-                                                             n, splits);
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (bias) s += bias[i % n];
+  y[i] = s;
 }
 
 }  // namespace
@@ -301,17 +242,37 @@ int vmm_fwd(const T* x, const T* w, const T* bias, T* y, int m, int k, int n,
 REPRO_API int repro_vmm_fwd(const float* x, const float* w, const float* bias,
                             float* y, int m, int k, int n, float* part,
                             int splits, int ks, cudaStream_t stream) {
-  return vmm_fwd<float>(x, w, bias, y, m, k, n, part, splits, ks, stream);
+  // splits slices of K, each ks long (a whole number of chunks), none
+  // empty: kernels/vmm/vmm.py vmm_with_splits chooses both.
+  if (splits < 1 || ks < SK_KC || ks % SK_KC != 0 ||
+      static_cast<long long>(splits) * ks < k ||
+      (splits > 1 && (part == nullptr || (splits - 1) * ks >= k)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int vec_x = k % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  const int vec_w = n % 4 == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0;
+  const dim3 grid((n + SK_BN - 1) / SK_BN, (m + SK_BM - 1) / SK_BM, splits);
+  vmm_splitk_kernel<<<grid, SK_THREADS, 0, stream>>>(
+      x, w, bias, y, splits > 1 ? part : nullptr, m, k, n, ks, vec_x, vec_w);
+  if (splits > 1) {
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return static_cast<int>(e);
+    const int threads = 256, blocks = (m * n + threads - 1) / threads;
+    vmm_splitk_sum_kernel<<<blocks, threads, 0, stream>>>(part, bias, y, m, n,
+                                                          splits);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
-// bf16 operands and output, the f32 workspace (the same slices and sums).
+// bf16 operands and output: the tensor-core kernel of vmm_fwd_bf16.cu, bn
+// columns a block, K in `cluster` slices of ks, one a block of a
+// thread-block cluster; no workspace.
 REPRO_API int repro_vmm_fwd_bf16(const __nv_bfloat16* x,
                                  const __nv_bfloat16* w,
                                  const __nv_bfloat16* bias, __nv_bfloat16* y,
-                                 int m, int k, int n, float* part, int splits,
-                                 int ks, cudaStream_t stream) {
-  return vmm_fwd<__nv_bfloat16>(x, w, bias, y, m, k, n, part, splits, ks,
-                                stream);
+                                 int m, int k, int n, int cluster, int ks,
+                                 int bn, cudaStream_t stream) {
+  return static_cast<int>(repro::vmm_fwd_mma_bf16(x, w, bias, y, m, k, n,
+                                                  cluster, ks, bn, stream));
 }
 
 REPRO_API int repro_vmm_bwd_fused(const float* g, const float* wt,

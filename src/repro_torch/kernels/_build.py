@@ -58,13 +58,19 @@ SIGNATURES = {
     # slices; all 0: the general kernel)
     "repro_conv2d_bwd_fused": [_P] * 6 + [_I] * 16 + [_P],
     # the bf16 path: bf16 instances of B1-B6 and of the fused ReLU+mask+pool
-    # (the f32 entries' arguments; the FC forward's workspace stays f32)
+    # (the f32 entries' arguments, but for the two forwards)
     "repro_relu_fwd_bf16": [_P, _P, _P, _I, _I, _I, _P],
     "repro_maxpool_fwd_bf16": [_P, _P, _P] + [_I] * 5 + [_P],
     "repro_relu_pool_fwd_bf16": [_P] * 4 + [_I] * 5 + [_P],
-    "repro_conv2d_fwd_bf16": [_P, _P, _P, _P] + [_I] * 10 + [_P],
+    # bf16 conv forward: the f32 one's arguments up to k, then the route (1:
+    # tensor cores, plan th, rows a warp, Cout per block, Cin per stage; 0:
+    # FFMA, the f32 plan)
+    "repro_conv2d_fwd_bf16": [_P, _P, _P, _P] + [_I] * 11 + [_P],
     "repro_conv2d_bwd_fused_bf16": [_P] * 6 + [_I] * 16 + [_P],
-    "repro_vmm_fwd_bf16": [_P, _P, _P, _P, _I, _I, _I, _P, _I, _I, _P],
+    # bf16 FC forward on the tensor cores: the f32 one's arguments up to n,
+    # then the plan (K slices, one a block of a cluster; their length; the
+    # column tile), no workspace
+    "repro_vmm_fwd_bf16": [_P, _P, _P, _P] + [_I] * 6 + [_P],
     "repro_vmm_bwd_fused_bf16": [_P] * 5 + [_I] * 11 + [_P],
     # the fxp16 path: int16 instances of B2/B3 and the int16 kernels B7-B10
     "repro_relu_fwd_i16": [_P, _P, _P, _I, _I, _I, _P],
@@ -118,12 +124,18 @@ LAUNCHES: Dict[str, int] = {
 #: counter (``repro_conv2d_fwd`` and ``repro_conv2d_fwd_bf16`` both count
 #: under ``conv2d_fwd``).
 ENTRY_LAUNCHES: Dict[str, int] = {name: 0 for name in SIGNATURES}
+#: Launches per kernel of an entry point that holds more than one, beside
+#: :data:`ENTRY_LAUNCHES`: ``repro_conv2d_fwd_bf16`` runs the tensor-core
+#: kernel (``csrc/conv_fwd_mma.cu``) or the FFMA instance
+#: (``csrc/conv_fwd.cuh``), as its route argument says.
+ROUTE_LAUNCHES: Dict[str, int] = {"conv2d_fwd_bf16_mma": 0,
+                                  "conv2d_fwd_bf16_ffma": 0}
 
 _LIB: Optional[ctypes.CDLL] = None
 
 
 def reset_launches() -> None:
-    for counts in (LAUNCHES, ENTRY_LAUNCHES):
+    for counts in (LAUNCHES, ENTRY_LAUNCHES, ROUTE_LAUNCHES):
         for k in counts:
             counts[k] = 0
 
@@ -217,11 +229,14 @@ def library() -> ctypes.CDLL:
     return _LIB
 
 
-def launch(counter: str, entry: str, device, *args) -> None:
+def launch(counter: str, entry: str, device, *args,
+           route: Optional[str] = None) -> None:
     """Call one C entry point on ``device`` and PyTorch's current stream
     there; raise on error.
 
-    ``args`` are the entry point's arguments without the trailing stream.
+    ``args`` are the entry point's arguments without the trailing stream;
+    ``route`` names the kernel they select (a key of
+    :data:`ROUTE_LAUNCHES`) where the entry point holds more than one.
     The library's CUDA runtime keeps its own current device, so it is set
     to the operands' device before every launch.
     """
@@ -236,6 +251,8 @@ def launch(counter: str, entry: str, device, *args) -> None:
         raise RuntimeError(f"{entry}: CUDA error {rc} ({msg})")
     LAUNCHES[counter] += 1
     ENTRY_LAUNCHES[entry] += 1
+    if route is not None:
+        ROUTE_LAUNCHES[route] += 1
 
 
 def ptr(t) -> Optional[int]:

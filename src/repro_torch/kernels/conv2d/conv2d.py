@@ -17,10 +17,13 @@ kernel, which tiles itself).
 :func:`conv2d_bwd_fused_plain` is that kernel's plain twin.
 
 Both wrappers take f32 and bf16 (the bf16 path): each element type has its
-entry point (:data:`_ENTRY`, :data:`_BWD_ENTRY`), bf16 an instance of the
-same tiled template with f32 sums, rounded once to bf16 (the forward's bias
-added after the rounding, as the JAX package adds it after
-``conv2d_pallas``).  bf16 has no general kernel: on the card it takes K in
+entry point (:data:`_ENTRY`, :data:`_BWD_ENTRY`), bf16 with f32 sums,
+rounded once to bf16 (the forward's bias added after the rounding, as the
+JAX package adds it after ``conv2d_pallas``).  The bf16 forward runs on the
+tensor cores where Cin is a multiple of 16 (``csrc/conv_fwd_mma.cu``,
+tiled by :class:`ConvMmaPlan`; :func:`conv_bf16_plan` picks the route),
+elsewhere on a bf16 instance of the f32 tiled template; the backward is
+such an instance.  bf16 has no general kernel: on the card it takes K in
 :data:`CONV_KS` and a tile plan.  The int16 twins (``conv2d.fxp``) share the
 argument contract, checks and plain dataflow defined here; only the element
 type, the entry point and the conv itself differ.
@@ -143,14 +146,142 @@ def conv_plan(n: int, h: int, w: int, cin: int, cout: int, k: int, *,
 #: tests and sweeps that hold the tiled kernel against it.
 CONV_GENERAL = ConvPlan(0, 0, 0, 0)
 
+#: The bf16 tensor-core forward (``csrc/conv_fwd_mma.cu``): a tile row is
+#: 16 pixels (one m16 fragment), a warp holds 32 output channels (four n8
+#: fragments) of 1 or 2 rows, and a k step is one tap over 16 input
+#: channels, so it takes Cin a multiple of 16.
+CONV_MMA_TW, CONV_MMA_WN, CONV_MMA_K16 = 16, 32, 16
+CONV_MMA_ROWS = (1, 2)
+#: Cin channels a ring stage of the tensor-core forward at most.
+CONV_MMA_MAX_CIN_T = 64
 
-def _check_fwd_plan(name: str, plan: ConvPlan, k: int, esize: int) -> None:
-    """Raise unless the forward can run ``plan`` at kernel size ``k`` on
-    ``esize``-byte elements."""
+
+@dataclass(frozen=True)
+class ConvMmaPlan:
+    """The bf16 tensor-core forward's tile: ``th`` rows x 16 pixels x
+    ``tco`` output channels (a multiple of 32) a block, ``mt`` rows (1 or
+    2) x 32 channels a warp, ``cin_t`` input channels (a multiple of 16) a
+    ring stage.  No field changes the order of any sum: each output walks
+    the 16-channel groups, then the taps, in order."""
+    th: int
+    mt: int
+    tco: int
+    cin_t: int
+
+    @property
+    def threads(self) -> int:
+        return 32 * (self.th // self.mt) * (self.tco // CONV_MMA_WN)
+
+    def blocks(self, n: int, h: int, w: int, cout: int) -> int:
+        return (cdiv(h, self.th) * cdiv(w, CONV_MMA_TW)
+                * cdiv(cout, self.tco) * n)
+
+    def smem_bytes(self, k: int, cin: int) -> int:
+        """The ring of 2-byte elements, as ``csrc/conv_fwd_mma.cu`` lays
+        it out: a stage is the halo tile (a position's row of ``cin_t``
+        channels padded by 16 bytes) then the weight slice (rows of
+        ``tco`` padded by 16 bytes); two stages where Cin takes more than
+        one, else one."""
+        stage = ((self.th + k - 1) * (CONV_MMA_TW + k - 1) * (self.cin_t + 8)
+                 + k * k * self.cin_t * (self.tco + 8))
+        return 2 * (1 if self.cin_t >= cin else 2) * stage
+
+    def args(self) -> Tuple[int, int, int, int]:
+        return (self.th, self.mt, self.tco, self.cin_t)
+
+
+def conv_mma_plan(n: int, h: int, w: int, cin: int, cout: int,
+                  k: int) -> ConvMmaPlan:
+    """The bf16 tensor-core forward's tile for one shape on an H100 (Cin a
+    multiple of 16, K in :data:`CONV_KS`), from ``python3 chip_smoke.py
+    --sweep`` on the Table III layers 1-3:
+
+    32 output channels a block; the tallest tile (up to 16 rows) whose grid
+    still gives a block per SM (128, the SMs rounded down to a power of
+    two), one row a warp (two at 16 rows, so at most 8 warps); the largest
+    chunk of up to 64 channels (whole 16-channel groups) within
+    :data:`CONV_SMEM_BUDGET`, then fewer rows while the card's 227 KB is
+    exceeded (K = 7).  On the three layers this is the sweep's fastest
+    plan; 2-block-per-SM plans of 4 warps ran 12-32 % slower.
+    """
+    if k not in CONV_KS or cin % CONV_MMA_K16 or cin < CONV_MMA_K16:
+        raise ValueError(f"conv2d: the tensor-core forward takes K in "
+                         f"{CONV_KS} and Cin a multiple of 16, got K = {k}, "
+                         f"Cin = {cin}")
+    min_blocks = 1 << (H100_SMS.bit_length() - 1)
+    tco = CONV_MMA_WN
+    th = min(16, 1 << max(0, (h - 1).bit_length()))
+    while th > 1 and ConvMmaPlan(th, 1, tco, 16).blocks(n, h, w, cout) \
+            < min_blocks:
+        th //= 2
+
+    def plan(th: int, ct: int) -> ConvMmaPlan:
+        return ConvMmaPlan(th, 2 if th == 16 else 1, tco, ct)
+
+    ct = min(cin, CONV_MMA_MAX_CIN_T) // CONV_MMA_K16 * CONV_MMA_K16
+    while ct > CONV_MMA_K16 and plan(th, ct).smem_bytes(k, cin) \
+            > CONV_SMEM_BUDGET:
+        ct = max(CONV_MMA_K16, ct // 2 // CONV_MMA_K16 * CONV_MMA_K16)
+    while th > 1 and plan(th, ct).smem_bytes(k, cin) > CONV_SMEM_LIMIT:
+        th //= 2
+    return plan(th, ct)
+
+
+def conv_mma_candidates(h: int, w: int, cin: int, cout: int, k: int):
+    """The tensor-core tile plans ``chip_smoke.py --sweep`` times for one
+    layer (and the card tests hold bitwise to each other): 1 to 16 rows,
+    1 or 2 rows a warp, 32 or 64 channels a block (no wider than Cout
+    needs), chunks of 16 to 64 channels (no deeper than Cin), within 256
+    threads and 227 KB of shared memory."""
+    out = []
+    for th in (1, 2, 4, 8, 16):
+        for mt in CONV_MMA_ROWS:
+            for tco in (32, 64):
+                for ct in (16, 32, 64):
+                    p = ConvMmaPlan(th, mt, tco, ct)
+                    if (th % mt == 0 and th <= max(1, h)
+                            and tco <= align_up(max(cout, 1), CONV_MMA_WN)
+                            and ct <= cin and p.threads <= CONV_MAX_THREADS
+                            and p.smem_bytes(k, cin) <= CONV_SMEM_LIMIT):
+                        out.append(p)
+    return out
+
+
+def conv_bf16_plan(n: int, h: int, w: int, cin: int, cout: int,
+                   k: int):
+    """The route and tile of a bf16 forward layer on an H100: the
+    tensor-core kernel (:func:`conv_mma_plan`) where Cin is a multiple of
+    16, the FFMA instance (:func:`conv_plan` at 2-byte elements) elsewhere.
+    Table III's layer 0 (Cin = 3) stays on FFMA, which beats cuDNN's bf16
+    conv there; layers 1-3 (Cin 32, 32, 64) take the tensor cores."""
+    if cin % CONV_MMA_K16 == 0 and cin > 0:
+        return conv_mma_plan(n, h, w, cin, cout, k)
+    return conv_plan(n, h, w, cin, cout, k, esize=2)
+
+
+def _check_fwd_plan(name: str, plan, k: int, esize: int, cin: int,
+                    dtype: torch.dtype) -> None:
+    """Raise unless the forward can run ``plan`` (a :class:`ConvPlan`, or
+    a :class:`ConvMmaPlan` on bf16) at kernel size ``k`` on
+    ``esize``-byte elements and ``cin`` input channels."""
     if plan == CONV_GENERAL:
         return
     if k not in CONV_KS:
         raise ValueError(f"{name}: a tile plan needs K in {CONV_KS}, got {k}")
+    if isinstance(plan, ConvMmaPlan):
+        if dtype != torch.bfloat16:
+            raise ValueError(f"{name}: the tensor-core route is bf16's only, "
+                             f"got {dtype}")
+        if (cin % CONV_MMA_K16 or cin < CONV_MMA_K16
+                or plan.mt not in CONV_MMA_ROWS or plan.th < plan.mt
+                or plan.th % plan.mt or plan.tco < CONV_MMA_WN
+                or plan.tco % CONV_MMA_WN or plan.cin_t < CONV_MMA_K16
+                or plan.cin_t % CONV_MMA_K16
+                or plan.threads > CONV_MAX_THREADS
+                or plan.smem_bytes(k, cin) > CONV_SMEM_LIMIT):
+            raise ValueError(f"{name}: invalid tile plan {plan} for Cin "
+                             f"{cin}")
+        return
     if (plan.px not in (4, 8) or plan.tco < 4 or plan.tco % 4
             or plan.th < 1 or plan.cin_t < 1
             or plan.threads > CONV_MAX_THREADS
@@ -353,26 +484,34 @@ def _check_general(name: str, dtype: torch.dtype, general: bool) -> None:
 
 def conv_fwd(name: str, counter: str, entries: dict, plain: Callable,
              x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
-             plan: Optional[ConvPlan]) -> torch.Tensor:
+             plan) -> torch.Tensor:
     """Check, then run ``plain(x, w, b)`` on the CPU or launch the entry
-    of x's element type (``entries``) tiled by ``plan``:
-    :func:`conv_plan`'s when it is None and K is in :data:`CONV_KS`, the
-    general kernel's zeros for any other K."""
+    of x's element type (``entries``) tiled by ``plan``: when it is None
+    and K is in :data:`CONV_KS`, :func:`conv_bf16_plan`'s for bf16 and
+    :func:`conv_plan`'s otherwise; the general kernel's zeros for any
+    other K.  The bf16 entry takes its route first (1 for a
+    :class:`ConvMmaPlan`, 0 for a :class:`ConvPlan`)."""
     n, h, wd, cin, cout, k = _fwd_dims(name, tuple(entries), x, w, b)
-    esize = x.element_size()
+    esize, bf16 = x.element_size(), x.dtype == torch.bfloat16
     if plan is None:
-        plan = (conv_plan(n, h, wd, cin, cout, k, esize=esize)
-                if k in CONV_KS else CONV_GENERAL)
-    _check_fwd_plan(name, plan, k, esize)
+        plan = (CONV_GENERAL if k not in CONV_KS
+                else conv_bf16_plan(n, h, wd, cin, cout, k) if bf16
+                else conv_plan(n, h, wd, cin, cout, k, esize=esize))
+    _check_fwd_plan(name, plan, k, esize, cin, x.dtype)
     if not on_card(name, x, w, b):
         return plain(x, w, b)
     _check_general(name, x.dtype, plan == CONV_GENERAL)
     check_kernel_operands(name, x, w, b)
+    mma = isinstance(plan, ConvMmaPlan)
+    # bf16: the route argument, and the kernel it selects counted apart
+    route, counted = (((int(mma),), dict(route="conv2d_fwd_bf16_mma" if mma
+                                          else "conv2d_fwd_bf16_ffma"))
+                      if bf16 else ((), {}))
     y = torch.empty((n, h, wd, cout), dtype=x.dtype, device=x.device)
     if y.numel():
         _build.launch(counter, entries[x.dtype], x.device, x.data_ptr(),
                       w.data_ptr(), _build.ptr(b), y.data_ptr(), n, h, wd,
-                      cin, cout, k, *plan.args())
+                      cin, cout, k, *route, *plan.args(), **counted)
     return y
 
 
@@ -397,17 +536,21 @@ def conv2d(x: torch.Tensor, w: torch.Tensor,
 
     CPU tensors run :func:`ref.conv2d` / :func:`ref.conv2d_bf16` (then
     ``+ b``); CUDA tensors the kernel, tiled by :func:`conv_plan` for K in
-    :data:`CONV_KS`.
+    :data:`CONV_KS` (bf16: :func:`conv_bf16_plan`, the tensor cores where
+    Cin is a multiple of 16).
     """
     return conv2d_planned(x, w, b)
 
 
 def conv2d_planned(x: torch.Tensor, w: torch.Tensor,
                    b: Optional[torch.Tensor] = None, *,
-                   plan: Optional[ConvPlan] = None) -> torch.Tensor:
+                   plan=None) -> torch.Tensor:
     """:func:`conv2d` with the tile chosen by the caller, for tests and
-    sweeps: every plan, and :data:`CONV_GENERAL`, gives the same bits.
-    One count of ``conv2d_fwd`` per call."""
+    sweeps: every :class:`ConvPlan`, and :data:`CONV_GENERAL`, gives the
+    same bits; on bf16 a :class:`ConvPlan` selects the FFMA route and a
+    :class:`ConvMmaPlan` the tensor-core route, every plan of a route the
+    same bits (the two routes sum in other orders).  One count of
+    ``conv2d_fwd`` per call."""
     return conv_fwd("conv2d", "conv2d_fwd", _ENTRY, _conv2d_plain, x, w, b,
                     plan)
 

@@ -15,13 +15,17 @@ stored mask, tiled by :func:`vmm_bwd_plan` (``csrc/vmm_bwd.cuh``; the plan
 :func:`vmm_bwd_fused_plain` is that kernel's plain twin.
 
 Both wrappers take f32 and bf16 (the bf16 path): each element type has its
-entry point (:data:`_ENTRY`, :data:`_BWD_ENTRY`), bf16 an instance of the
-same kernels with f32 sums (and an f32 workspace), rounded once to bf16
-(the forward's bias added after the rounding, as the JAX package adds it
-after ``vmm_pallas``).  bf16 has no general fused-backward kernel: on the
-card it takes a tile plan.  The int16 twins (``vmm.fxp``) share the
-argument contract, checks and plain dataflow defined here; only the
-element type, the entry point and the product itself differ.
+entry point (``repro_vmm_fwd_bf16``, :data:`_BWD_ENTRY`), bf16 with f32 sums,
+rounded once to bf16 (the forward's bias added after the rounding, as the
+JAX package adds it after ``vmm_pallas``).  The bf16 forward runs on the
+tensor cores in one launch, K split across the blocks of a thread-block
+cluster and reduced in their shared memory, with no workspace
+(``csrc/vmm_fwd_bf16.cu``, :func:`vmm_planned`, :class:`VmmMmaPlan` by
+:func:`vmm_mma_plan`); the split-K forward is f32's and int16's.  bf16 has
+no general fused-backward kernel: on the card it takes a tile plan.  The
+int16 twins (``vmm.fxp``) share the argument contract, checks and plain
+dataflow defined here; only the element type, the entry point and the
+product itself differ.
 """
 from __future__ import annotations
 
@@ -65,6 +69,74 @@ def vmm_splits(m: int, k: int, n: int) -> int:
         return 1
     per = vmm_slice(k, cdiv(2 * H100_SMS, tiles))
     return cdiv(k, per)
+
+
+#: The bf16 tensor-core forward (``csrc/vmm_fwd_bf16.cu`` BM, KC and the
+#: cluster limits): 32 rows a block, K in 64-deep chunks (a k16 step a warp),
+#: 16 or 32 columns a block, and up to 16 blocks a cluster, of which more
+#: than 8 need ``cudaFuncAttributeNonPortableClusterSizeAllowed``.
+MMA_TILE_M, MMA_CHUNK_K = 32, 64
+MMA_TILE_NS = (16, 32)
+MMA_MAX_CLUSTER, MMA_PORTABLE_CLUSTER = 16, 8
+
+
+@dataclass(frozen=True)
+class VmmMmaPlan:
+    """The bf16 tensor-core forward's launch: ``bn`` columns a block, and K
+    cut into ``cluster`` slices (:meth:`slice` long), one a block of a
+    thread-block cluster.  The cluster size sets how the sum is grouped;
+    the column tile changes no bit."""
+    bn: int
+    cluster: int
+
+    def slice(self, k: int) -> int:
+        """Length of each K slice: whole chunks, the last maybe shorter."""
+        return align_up(max(1, cdiv(k, self.cluster)), MMA_CHUNK_K)
+
+    def blocks(self, m: int, n: int) -> int:
+        return cdiv(m, MMA_TILE_M) * cdiv(n, self.bn) * self.cluster
+
+    def args(self, k: int) -> Tuple[int, int, int]:
+        """The entry point's ``splits, ks, bn`` for this plan."""
+        return (self.cluster, self.slice(k), self.bn)
+
+
+def vmm_mma_plan(m: int, k: int, n: int) -> VmmMmaPlan:
+    """The bf16 tensor-core forward's launch for ``[m, k] @ [k, n]`` on an
+    H100, from ``python3 chip_smoke.py --sweep``: 16 columns a block (twice
+    the blocks of 32; the two were within 2 % at FC0), and the smallest
+    power-of-two cluster (up to 16) whose blocks cover the SMs, with no
+    slice shorter than a chunk and none empty.  FC0 ``[32, 4096] @ [4096,
+    128]``: 8 tiles x a cluster of 16 = 128 blocks, slices of 256 (the
+    sweep's fastest cluster; 8 ran 13 % slower); FC1 ``[32, 128] @ [128,
+    10]``: a cluster of 2, a chunk each (10 % faster than one block)."""
+    bn = MMA_TILE_NS[0]
+    tiles = cdiv(m, MMA_TILE_M) * cdiv(n, bn)
+    most = min(MMA_MAX_CLUSTER, cdiv(max(k, 1), MMA_CHUNK_K))
+    cluster = 1
+    while 2 * cluster <= most and tiles * cluster < H100_SMS:
+        cluster *= 2
+    return VmmMmaPlan(bn, cdiv(max(k, 1),
+                               VmmMmaPlan(bn, cluster).slice(k)))
+
+
+def vmm_mma_candidates(m: int, k: int, n: int):
+    """The tensor-core launches ``chip_smoke.py --sweep`` times for one
+    shape: each column tile no wider than N needs, by each cluster size
+    whose slices leave none of K's blocks empty."""
+    return [VmmMmaPlan(bn, c) for bn in MMA_TILE_NS for c in (1, 2, 4, 8, 16)
+            if bn <= max(MMA_TILE_NS[0], align_up(n, MMA_TILE_NS[0]))
+            and (c - 1) * VmmMmaPlan(bn, c).slice(k) < max(k, 1)]
+
+
+def _check_mma_plan(name: str, plan: VmmMmaPlan, k: int) -> None:
+    """Raise unless the tensor-core forward can run ``plan`` on K: its
+    slices cover K, none empty."""
+    if (plan.bn not in MMA_TILE_NS
+            or not 1 <= plan.cluster <= MMA_MAX_CLUSTER
+            or (plan.cluster - 1) * plan.slice(k) >= max(k, 1)):
+        raise ValueError(f"{name}: invalid tensor-core plan {plan} for "
+                         f"K = {k}")
 
 
 #: ``csrc/vmm_bwd.cuh`` MAX_THREADS and the k a mask byte covers: a block of
@@ -185,20 +257,28 @@ def _vmm_dims(name: str, x: torch.Tensor, w: torch.Tensor):
     return x.shape[0], x.shape[1], w.shape[1]
 
 
+def _fwd_operands(name: str, x: torch.Tensor, w: torch.Tensor,
+                  b: Optional[torch.Tensor], dtypes: tuple):
+    """``(m, k, n)`` of a forward's operands, or raise: x of one of
+    ``dtypes``, w and b of x's."""
+    m, k, n = _vmm_dims(name, x, w)
+    check(name, x, dtypes, what="x")
+    check(name, w, x.dtype, what="w")
+    if b is not None:
+        check(name, b, x.dtype, (n,), what="b")
+    return m, k, n
+
+
 def vmm_fwd(name: str, counter: str, entries: dict,
             part_dtype: torch.dtype, plain: Callable, x: torch.Tensor,
             w: torch.Tensor, b: Optional[torch.Tensor],
             splits: Optional[int]) -> torch.Tensor:
-    """Check, then run ``plain(x, w, b)`` on the CPU or launch the entry
-    of x's element type (``entries``: the split-K forwards) with ``splits``
+    """Check, then run ``plain(x, w, b)`` on the CPU or launch the split-K
+    forward of x's element type (``entries``: f32, int16) with ``splits``
     slices of K (:func:`vmm_splits`' when None), each :func:`vmm_slice`
     long, as many as K fills, and a ``[splits, M, N]`` workspace of
     ``part_dtype`` where K is split."""
-    m, k, n = _vmm_dims(name, x, w)
-    check(name, x, tuple(entries), what="x")
-    check(name, w, x.dtype, what="w")
-    if b is not None:
-        check(name, b, x.dtype, (n,), what="b")
+    m, k, n = _fwd_operands(name, x, w, b, tuple(entries))
     if splits is None:
         splits = vmm_splits(m, k, n)
     elif not 1 <= splits <= vmm_max_splits(k):
@@ -219,11 +299,6 @@ def vmm_fwd(name: str, counter: str, entries: dict,
     return y
 
 
-#: Forward entry point per element type: f32, and bf16 for the bf16 path
-#: (its split-K workspace stays f32).
-_ENTRY = {torch.float32: "repro_vmm_fwd", torch.bfloat16: "repro_vmm_fwd_bf16"}
-
-
 def _vmm_plain(x, w, b):
     """The plain product, then ``+ b`` in x's type (bf16: after the
     rounding, as the reference adds it)."""
@@ -237,20 +312,46 @@ def vmm(x: torch.Tensor, w: torch.Tensor,
     (rounded once, then ``+ b`` in bf16).
 
     CPU tensors run :func:`ref.vmm` / :func:`ref.vmm_bf16` (then ``+ b``);
-    CUDA tensors the kernel, with :func:`vmm_splits` slices of K.
+    CUDA tensors the kernel: f32 with :func:`vmm_splits` slices of K, bf16
+    on the tensor cores by :func:`vmm_mma_plan`.
     """
+    if x.dtype == torch.bfloat16:
+        return vmm_planned(x, w, b)
     return vmm_with_splits(x, w, b)
 
 
 def vmm_with_splits(x: torch.Tensor, w: torch.Tensor,
                     b: Optional[torch.Tensor] = None, *,
                     splits: Optional[int] = None) -> torch.Tensor:
-    """:func:`vmm` with the number of K slices (1 to :func:`vmm_max_splits`)
-    chosen by the caller, for tests and sweeps; one count of ``vmm_fwd``
-    per call, whatever the split.  The slices are :func:`vmm_slice` long
-    and as many as K fills, so none is empty."""
-    return vmm_fwd("vmm", "vmm_fwd", _ENTRY, torch.float32, _vmm_plain, x,
-                   w, b, splits)
+    """:func:`vmm` on f32 with the number of K slices (1 to
+    :func:`vmm_max_splits`; :func:`vmm_splits`' when None) chosen by the
+    caller, for tests and sweeps; one count of ``vmm_fwd`` per call,
+    whatever the split.  The slices are :func:`vmm_slice` long and as many
+    as K fills, so none is empty."""
+    return vmm_fwd("vmm", "vmm_fwd", {torch.float32: "repro_vmm_fwd"},
+                   torch.float32, _vmm_plain, x, w, b, splits)
+
+
+def vmm_planned(x: torch.Tensor, w: torch.Tensor,
+                b: Optional[torch.Tensor] = None, *,
+                plan: Optional[VmmMmaPlan] = None) -> torch.Tensor:
+    """:func:`vmm` on bf16: the tensor-core kernel, launched by ``plan``
+    (:func:`vmm_mma_plan`'s when None; tests and sweeps pass others, and
+    plans of one cluster size give the same bits), with no workspace.
+    One count of ``vmm_fwd`` per call."""
+    m, k, n = _fwd_operands("vmm", x, w, b, (torch.bfloat16,))
+    if plan is None:
+        plan = vmm_mma_plan(m, k, n)
+    _check_mma_plan("vmm", plan, k)
+    if not on_card("vmm", x, w, b):
+        return _vmm_plain(x, w, b)
+    check_kernel_operands("vmm", x, w, b)
+    y = torch.empty((m, n), dtype=x.dtype, device=x.device)
+    if y.numel():
+        _build.launch("vmm_fwd", "repro_vmm_fwd_bf16", x.device,
+                      x.data_ptr(), w.data_ptr(), _build.ptr(b),
+                      y.data_ptr(), m, k, n, *plan.args(k))
+    return y
 
 
 def bwd_fused_plain(matmul: Callable, g, w, *, relu_mask=None, gate=None,

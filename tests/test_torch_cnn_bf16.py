@@ -322,7 +322,7 @@ def launches(monkeypatch):
         monkeypatch.setattr(mod, "check_kernel_operands",
                             lambda name, *ts: None)
     monkeypatch.setattr(_build, "launch",
-                        lambda counter, entry, device, *args:
+                        lambda counter, entry, device, *args, **kw:
                         out.append((counter, entry, args)))
     return out
 
@@ -330,10 +330,13 @@ def launches(monkeypatch):
 def test_bf16_wrappers_launch_their_bf16_entries(launches):
     from repro_torch.kernels import _build
     from repro_torch.kernels.conv2d.conv2d import (conv2d, conv2d_bwd_fused,
-                                                   conv_bwd_plan, conv_plan)
+                                                   conv_bf16_plan,
+                                                   conv_bwd_plan,
+                                                   conv_mma_plan)
     from repro_torch.kernels.pool.pool import maxpool_fwd, relu_pool_fwd
     from repro_torch.kernels.relu_mask.relu_mask import relu_fwd
-    from repro_torch.kernels.vmm.vmm import vmm, vmm_bwd_fused, vmm_bwd_plan
+    from repro_torch.kernels.vmm.vmm import (vmm, vmm_bwd_fused,
+                                             vmm_bwd_plan, vmm_mma_plan)
     bf = torch.bfloat16
     x = torch.zeros(2, 8, 8, 16, dtype=bf)
     conv2d(x, torch.zeros(3, 3, 16, 8, dtype=bf), torch.zeros(8, dtype=bf))
@@ -356,11 +359,15 @@ def test_bf16_wrappers_launch_their_bf16_entries(launches):
         ("relu_pool_fwd", "repro_relu_pool_fwd_bf16")]
     for _, entry, args in launches:
         assert len(args) + 1 == len(_build.SIGNATURES[entry])
-    # the tile plans at 2-byte elements; an f32 split-K workspace
-    assert launches[0][2][10:] == conv_plan(2, 8, 8, 16, 8, 3,
-                                            esize=2).args()
+    # the forwards on the tensor cores: the conv (Cin 16) on route 1 and
+    # its plan, FC0 with no workspace, a cluster's K slices and a column
+    # tile; the backwards' tile plans at 2-byte elements
+    plan = conv_bf16_plan(2, 8, 8, 16, 8, 3)
+    assert plan == conv_mma_plan(2, 8, 8, 16, 8, 3)
+    assert launches[0][2][10:] == (1,) + plan.args()
     assert launches[1][2][-6:] == conv_bwd_plan(3, 2, 8, 8, 8, 16, 3,
                                                 esize=2).args()
+    assert launches[2][2][7:] == vmm_mma_plan(32, 4096, 128).args(4096)
     assert launches[3][2][-4:] == vmm_bwd_plan(3, 32, 128, 10).args()
 
 

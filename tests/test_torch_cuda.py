@@ -28,7 +28,12 @@ backward kernel (all six gradients within 1e-4 * max|ref| of the plain
 reverse recurrence, N in {1, 4, 7, 8, 16}, ragged S, several windows,
 strided B/C, gh absent, subsets of the gradients, the knobs and a second
 run bitwise, the rejects, and the autograd Function against the CPU)
-with falcon-mamba's SMOKE LM against the CPU.
+with falcon-mamba's SMOKE LM against the CPU; and the bf16 instances,
+among them the bf16 forwards on the tensor cores (every conv tile of
+``conv_mma_candidates`` and every FC cluster size of
+``vmm_mma_candidates`` within one bf16 step of the plain version, a
+route's plans bitwise equal, the conv's FFMA route within the same bound;
+ragged H/W and Cout, Cin 16/48/96, K = 1, 5, 7, misaligned views).
 Every test needs a CUDA device and skips without one.  This file imports
 neither JAX nor the JAX package, so on a machine without JAX run it
 without the suite's conftest:
@@ -47,7 +52,7 @@ from repro_torch.kernels.conv2d.conv2d import (CONV_BWD_GENERAL,
                                                conv2d_bwd_fused,
                                                conv2d_bwd_fused_plain,
                                                conv2d_planned, conv_bwd_plan,
-                                               conv_plan)
+                                               conv_mma_candidates, conv_plan)
 from repro_torch.kernels.conv2d.fxp import (conv2d_bwd_fused_fxp,
                                             conv2d_bwd_fused_fxp_plain,
                                             conv2d_fxp, conv2d_fxp_planned)
@@ -66,8 +71,9 @@ from repro_torch.kernels.vmm.fxp import (vmm_bwd_fused_fxp,
 from repro_torch.kernels.vmm.vmm import (VMM_BWD_GENERAL, VmmBwdPlan, vmm,
                                          vmm_bwd_candidates, vmm_bwd_fused,
                                          vmm_bwd_fused_plain, vmm_bwd_plan,
-                                         vmm_max_splits, vmm_splits,
-                                         vmm_with_splits)
+                                         vmm_max_splits, vmm_mma_candidates,
+                                         vmm_mma_plan, vmm_planned,
+                                         vmm_splits, vmm_with_splits)
 
 METHODS = ("saliency", "deconvnet", "guided")
 TOL = 1e-5
@@ -1247,7 +1253,11 @@ def test_scan_function_backward_on_card_matches_cpu(gen, dtype):
 # unrounded f32 sum and one of the output, plus the f32 kernels' own
 # TOL * max|sum| for the reordered sum itself (it dominates where a long
 # sum cancels to near 0: C = 600 at K = 5).  Every tile plan of a kernel
-# keeps its order, so plans give the same bits.
+# keeps its order, so plans give the same bits.  The bf16 FC forward runs
+# on the tensor cores, the same bits under each plan of one cluster size;
+# the bf16 conv forward has two routes, the tensor cores (Cin a multiple of
+# 16) and FFMA, each the same bits under each of its plans, and the two,
+# which sum in other orders, held to each other within the same bound.
 
 BF = torch.bfloat16
 BF16_STEP = 2.0 ** -7
@@ -1329,12 +1339,16 @@ def test_relu_pool_fwd_bf16_misaligned_pointers(gen):
 
 @pytest.mark.parametrize("n,h,w,cin,cout,k", [
     (2, 6, 10, 5, 3, 3),              # ragged spatial and channels
-    (1, 8, 8, 16, 8, 5),              # K = 5
+    (1, 8, 8, 16, 8, 5),              # K = 5, tensor cores
     (2, 9, 7, 100, 40, 3),            # several Cin chunks, two Cout tiles
     (1, 13, 7, 3, 96, 1),             # Cin = 3, K = 1
     (2, 5, 9, 96, 96, 7),             # K = 7, three Cin stages
     (4, 32, 32, 3, 32, 3),            # Table III layer 0, batch 4
     (2, 16, 16, 64, 64, 3),           # a Table III layer, batch 2
+    (2, 7, 9, 48, 20, 3),             # odd H/W, Cout 20, Cin 48
+    (1, 9, 5, 16, 13, 1),             # K = 1, Cout 13
+    (2, 6, 11, 96, 36, 5),            # K = 5, Cin 96, Cout 36
+    (1, 11, 19, 32, 70, 7),           # K = 7, three Cout tiles, W > 16
 ])
 def test_conv2d_bf16(gen, n, h, w, cin, cout, k):
     x = _bf(gen, n, h, w, cin)
@@ -1344,11 +1358,24 @@ def test_conv2d_bf16(gen, n, h, w, cin, cout, k):
     acc = conv_ref.conv2d_widened(x, wt)
     _bf16_close(got, conv_ref.conv2d_bf16(x, wt) + b, acc)
     _bf16_close(conv2d(x, wt), conv_ref.conv2d_bf16(x, wt), acc)
-    plans = [ConvPlan(1, 8, 4, 1), ConvPlan(2, 4, 16, 8),
-             conv_plan(n, h, w, cin, cout, k, esize=2)]
-    for again in [conv2d(x, wt, b)] + [conv2d_planned(x, wt, b, plan=p)
-                                       for p in plans]:
-        _equal_bits((again,), (got,))
+    _equal_bits((conv2d(x, wt, b),), (got,))             # run to run
+    # each route: the same bits under every plan; the rule's route is the
+    # tensor cores where Cin is a multiple of 16; the routes agree within
+    # one bf16 step
+    ffma = [ConvPlan(1, 8, 4, 1), ConvPlan(2, 4, 16, 8),
+            conv_plan(n, h, w, cin, cout, k, esize=2)]
+    routes = [ffma]
+    if cin % 16 == 0:
+        routes.append(conv_mma_candidates(h, w, cin, cout, k))
+    firsts = []
+    for plans in routes:
+        first = conv2d_planned(x, wt, b, plan=plans[0])
+        for p in plans[1:]:
+            _equal_bits((conv2d_planned(x, wt, b, plan=p),), (first,))
+        firsts.append(first)
+    _equal_bits((firsts[-1],), (got,))
+    for first in firsts:
+        _bf16_close(first, got, acc)
 
 
 def test_conv2d_bf16_has_no_general_kernel(gen):
@@ -1374,6 +1401,27 @@ def test_conv2d_bf16_misaligned_pointer(gen):
     b = _bf(gen, 12)
     _bf16_close(conv2d(x, wt, b), conv_ref.conv2d_bf16(x, wt) + b,
                 conv_ref.conv2d_widened(x, wt))
+
+
+def test_conv2d_bf16_tensor_cores_misaligned_pointers(gen):
+    """The tensor-core route's copies by ordinary loads (x or w 2 bytes
+    off), 4-byte and 8-byte copies (4 and 8 bytes off 16): the aligned
+    result's bits."""
+    n, h, w, cin, cout = 2, 6, 5, 32, 24
+    x0 = _bf(gen, n, h, w, cin)
+    w0 = _bf(gen, 3, 3, cin, cout, scale=0.2)
+    b = _bf(gen, cout)
+    want = conv2d(x0, w0, b)
+    for off in (1, 2, 4):
+        fx = torch.zeros(x0.numel() + off, dtype=BF, device="cuda")
+        fx[off:] = x0.reshape(-1)
+        fw = torch.zeros(w0.numel() + off, dtype=BF, device="cuda")
+        fw[off:] = w0.reshape(-1)
+        x, wt = fx[off:].view(x0.shape), fw[off:].view(w0.shape)
+        _equal_bits((conv2d(x, w0, b),), (want,))
+        _equal_bits((conv2d(x0, wt, b),), (want,))
+    _bf16_close(want, conv_ref.conv2d_bf16(x0, w0) + b,
+                conv_ref.conv2d_widened(x0, w0))
 
 
 def _bwd_inputs_bf16(gen, case, method, k=3, g_flat=False):
@@ -1421,9 +1469,6 @@ def test_vmm_bf16(gen, m, k, n):
     acc = vmm_ref.vmm_widened(x, w)
     _bf16_close(got, vmm_ref.vmm_bf16(x, w) + b, acc)
     _equal_bits((vmm(x, w, b),), (got,))               # run to run
-    for splits in sorted({1, min(2, vmm_max_splits(k)), vmm_max_splits(k)}):
-        _bf16_close(vmm_with_splits(x, w, b, splits=splits),
-                    vmm_ref.vmm_bf16(x, w) + b, acc)
 
 
 def test_vmm_bf16_misaligned_pointers(gen):
@@ -1432,6 +1477,32 @@ def test_vmm_bf16_misaligned_pointers(gen):
     w, b = _bf(gen, 64, 12, scale=0.125), _bf(gen, 12)
     _bf16_close(vmm(x, w, b), vmm_ref.vmm_bf16(x, w) + b,
                 vmm_ref.vmm_widened(x, w))
+    fw = _bf(gen, 64 * 12 + 3)
+    wv = fw[3:].view(64, 12)           # 6 bytes off: 2-byte element loads
+    _equal_bits((vmm(x, wv.clone(), b),), (vmm(x, wv, b),))
+    _bf16_close(vmm(x, wv, b), vmm_ref.vmm_bf16(x, wv) + b,
+                vmm_ref.vmm_widened(x, wv))
+
+
+@pytest.mark.parametrize("m,k,n", [(32, 4096, 128), (32, 128, 10),
+                                   (130, 520, 300), (5, 37, 13),
+                                   (1, 4096, 128), (33, 1000, 40)])
+def test_vmm_bf16_tensor_core_plans(gen, m, k, n):
+    """Every cluster size and column tile of the sweep's grid within one
+    bf16 step of the plain version, one launch each; the two column tiles
+    of one cluster size the same bits, and again."""
+    x, w, b = _bf(gen, m, k), _bf(gen, k, n, scale=k ** -0.5), _bf(gen, n)
+    acc = vmm_ref.vmm_widened(x, w)
+    want = vmm_ref.vmm_bf16(x, w) + b
+    got = _launched("vmm_fwd", lambda: vmm(x, w, b))
+    _equal_bits((vmm_planned(x, w, b, plan=vmm_mma_plan(m, k, n)),), (got,))
+    by_cluster = {}
+    for p in vmm_mma_candidates(m, k, n):
+        y = _launched("vmm_fwd", lambda: vmm_planned(x, w, b, plan=p))
+        _bf16_close(y, want, acc)
+        _equal_bits((vmm_planned(x, w, b, plan=p),), (y,))
+        first = by_cluster.setdefault(p.cluster, y)
+        _equal_bits((y,), (first,))
 
 
 @pytest.mark.parametrize("method", METHODS)

@@ -24,7 +24,11 @@ of the bf16 forwards (B1 bf16: every tensor-core tile of
 and the FFMA instance; B4 bf16: every cluster size and column tile of
 ``vmm_mma_candidates`` at FC0 and FC1 beside ``torch.addmm`` bf16;
 within one bf16 step of the plain version, a route's tiles bitwise
-equal),
+equal), of the bf16 backwards on the tensor cores (B5 bf16: every tile of
+``conv_bwd_mma_candidates`` at the four Table III launches beside the
+FFMA instance; B6 bf16: every tile of ``vmm_bwd_mma_candidates`` at FC0
+and FC1; within one bf16 step of the plain version, a launch's tiles
+bitwise equal),
 of the fused FC backward (B6 and B10 at FC0 with S = 3 and 1 and at
 FC1 with S = 3: every plan of ``vmm_bwd_candidates`` beside the general
 kernel, bitwise equal to it in f32 and to the plain version in int16),
@@ -38,8 +42,9 @@ Phases (every failed check raises; nothing is caught and carried on):
 1. device: card name, ``nvidia-smi`` name, power limit and maximum SM
    clock, TF32 off for the plain versions, kernel build time, and the
    registers and spills ``ptxas`` reports for the redesigned B1/B2/B3/B4/
-   B5/B6/B7/B8/B9/B10/B13 kernels (B2, B3 and their fused pass: the
-   instances of ``relu_pool_fwd_kernel``);
+   B5/B6/B7/B8/B9/B10/B13 kernels and the bf16 tensor-core kernels of
+   B1/B4/B5/B6 (B2, B3 and their fused pass: the instances of
+   ``relu_pool_fwd_kernel``);
 2. kernels at batch 32, S = 3 seeds, against their plain versions: the f32
    kernels B1-B6 (bitwise for ReLU+mask, pool+argmax and the two fused at
    the pooled layers, with and without the mask, each also bitwise equal
@@ -51,17 +56,20 @@ Phases (every failed check raises; nothing is caught and carried on):
    a second tile plan and on its general kernel, timed beside it and
    beside ``torch.matmul`` on the pre-gated gradient; each time beside a
    library call prints its ratio to it), then the bf16 instances of B1-B6
-   and of the fused pass: first the tensor-core forwards (B1 bf16 where
-   Cin is a multiple of 16, B4 bf16) against the f64 sum of the widened
-   operands, beside the plain version, at the main-path shapes and at two
-   long cancelling sums (conv C = 608 at K = 5, FC0's K = 4096); then
+   and of the fused pass: first the tensor-core kernels (B1 bf16 where
+   Cin is a multiple of 16, B4 bf16, and the backwards B5 bf16 and B6
+   bf16, gated) against the f64 sum of the widened operands, beside the
+   plain version, at the main-path shapes and at three long cancelling
+   sums (conv C = 608 at K = 5, forward and gated backward, FC0's K =
+   4096); then
    ReLU / pool bitwise, as above; conv and FC within
    one bf16 rounding step of the f32 sum plus one of the output,
    ``BF16_STEP * (|sum| + |plain|)``, and the f32 kernels' tolerance for
    the reordered sum, ``DOT_TOL * max|sum|``; bitwise again and under a
-   second plan of the same route, the FFMA route of B1/B4 within that
-   bound of the tensor cores; B4 bf16 allocating nothing but y; beside
-   ``F.conv2d`` / ``torch.addmm`` in bf16), then the fxp16
+   second plan of the same route, the FFMA routes of B1 and B5 within that
+   bound of the tensor cores (B5's FFMA route timed beside); B4 bf16
+   allocating nothing but y; beside ``F.conv2d`` / ``torch.addmm`` in
+   bf16), then the fxp16
    kernels B7-B10 and
    the int16 instances of B2/B3 and of their fused pass, all bitwise (B7, B8 and B10 also launched
    again, under a second plan and on their general kernels, timed beside
@@ -150,8 +158,8 @@ then one saliency explain of each CNN path, Table IV's f32 FP+BP at
 batch 1 and 32, one training step, one LM decode step and one per-token
 LM explain under ``torch.profiler``: kernel time by kernel and by family
 against the device time measured before (the device's idle share); the
-bf16 explain's kernels by name must show the forwards on the tensor
-cores, each FC layer one CUDA kernel (``BF16_MMA_KERNELS``).  This
+bf16 explain's kernels by name must show the forwards and backwards on
+the tensor cores, each FC layer one CUDA kernel (``BF16_MMA_KERNELS``).  This
 comes after every timing, since a profiler session slows what runs after
 it.
 
@@ -311,16 +319,30 @@ BF16_INSTANCES = {
     "vmm_bwd_fused_bf16": ("vmm_bwd_fused", "repro_vmm_bwd_fused_bf16")}
 
 
-#: The bf16 instances whose main path runs a kernel of its own: B1 bf16's
-#: layers 1-3 and B4 bf16 on the tensor cores (B1 bf16's layer 0,
-#: ``conv2d_fwd_bf16_ffma``, is ``conv_fwd.cuh``'s FFMA instance).
+#: The bf16 instances whose main path runs a kernel of its own, on the
+#: tensor cores: B1 bf16's layers 1-3, B4 bf16, and all four layers of B5
+#: bf16 and both of B6 bf16 (B1 bf16's layer 0, ``conv2d_fwd_bf16_ffma``,
+#: is ``conv_fwd.cuh``'s FFMA instance).
 BF16_SOURCES = {"conv2d_fwd_bf16": "src/repro_torch/csrc/conv_fwd_mma.cu",
-                "vmm_fwd_bf16": "src/repro_torch/csrc/vmm_fwd_bf16.cu"}
+                "vmm_fwd_bf16": "src/repro_torch/csrc/vmm_fwd_bf16.cu",
+                "conv2d_bwd_fused_bf16":
+                    "src/repro_torch/csrc/conv_bwd_mma.cu",
+                "vmm_bwd_fused_bf16": "src/repro_torch/csrc/vmm_bwd_bf16.cu"}
 #: The rows whose launches are their route's (``_build.ROUTE_LAUNCHES``),
-#: not their entry point's, and each route's launches per explain.
+#: not their entry point's.
 BF16_ROUTES = {"conv2d_fwd_bf16": "conv2d_fwd_bf16_mma",
-               "conv2d_fwd_bf16_ffma": "conv2d_fwd_bf16_ffma"}
-ROUTES_PER_EXPLAIN = {"conv2d_fwd_bf16_mma": 3, "conv2d_fwd_bf16_ffma": 1}
+               "conv2d_fwd_bf16_ffma": "conv2d_fwd_bf16_ffma",
+               "conv2d_bwd_fused_bf16": "conv2d_bwd_fused_bf16_mma",
+               "vmm_bwd_fused_bf16": "vmm_bwd_fused_bf16_mma"}
+#: Per counter of the bf16 path, its launches a call (4 conv forwards a
+#: forward, 4 conv and 2 FC backwards an explain) and each route's share:
+#: the conv forward's layers 1-3 on the tensor cores and layer 0 on FFMA,
+#: every backward on the tensor cores.
+ROUTES_PER_CALL = {
+    "conv2d_fwd": (4, {"conv2d_fwd_bf16_mma": 3, "conv2d_fwd_bf16_ffma": 1}),
+    "conv2d_bwd_fused": (4, {"conv2d_bwd_fused_bf16_mma": 4,
+                             "conv2d_bwd_fused_bf16_ffma": 0}),
+    "vmm_bwd_fused": (2, {"vmm_bwd_fused_bf16_mma": 2})}
 
 
 def bf16_entries(counts, entry_counts):
@@ -332,14 +354,21 @@ def bf16_entries(counts, entry_counts):
     return want
 
 
-def check_bf16_routes(what, routes, explains):
-    """Fail unless the bf16 conv forward's launches ``routes`` (a delta of
-    ``_build.ROUTE_LAUNCHES``) are ``explains`` explains' worth: layers 1-3
-    on the tensor cores, layer 0 on FFMA."""
-    want = {k: v * explains for k, v in ROUTES_PER_EXPLAIN.items()}
+def check_bf16_routes(what, routes, counts):
+    """Fail unless the bf16 path's launches by kernel ``routes`` (a delta
+    of ``_build.ROUTE_LAUNCHES``) match its launches per counter
+    ``counts`` (a delta of ``LAUNCHES``) as :data:`ROUTES_PER_CALL` splits
+    them: the conv forward's layers 1-3 on the tensor cores and layer 0 on
+    FFMA, each conv and FC backward on the tensor cores."""
+    want = {}
+    for counter, (layers, split) in ROUTES_PER_CALL.items():
+        calls, rest = divmod(counts.get(counter, 0), layers)
+        if rest:
+            fail(f"{what}: {counts.get(counter)} {counter} launches, not "
+                 f"whole calls of {layers}")
+        want.update({k: v * calls for k, v in split.items()})
     if routes != want:
-        fail(f"{what}: bf16 conv forward launches by kernel {routes}, want "
-             f"{want}")
+        fail(f"{what}: bf16 launches by kernel {routes}, want {want}")
 
 
 def fail(msg: str):
@@ -350,13 +379,15 @@ def fail(msg: str):
 #: forward of B1 and B7, and of B1 bf16 on the tensor cores, the ReLU /
 #: pool template of B2, B3 and their fused pass, the FC forwards of B4 and
 #: B9, and of B4 bf16 on the tensor cores, the fused conv backward of B5
-#: and B8, the fused FC backward of B6 and B10, the scan B13 and its
+#: and B8, and of B5 bf16 on the tensor cores, the fused FC backward of B6
+#: and B10, and of B6 bf16 on the tensor cores, the scan B13 and its
 #: backward), whose registers and spills phase 1 reports.
 REDESIGNED = ("conv_igemm_kernel", "conv_mma_kernel",
               "relu_pool_fwd_kernel", "vmm_splitk_kernel", "vmm_mma_kernel",
               "vmm_splitk_sum_kernel", "conv_bwd_igemm_kernel",
-              "vmm_fxp_splitk_kernel", "vmm_fxp_splitk_sum_kernel",
-              "vmm_bwd_tiled_kernel", "selective_scan_kernel",
+              "conv_bwd_mma_kernel", "vmm_fxp_splitk_kernel",
+              "vmm_fxp_splitk_sum_kernel", "vmm_bwd_tiled_kernel",
+              "vmm_bwd_mma_kernel", "selective_scan_kernel",
               "selective_scan_bwd_kernel")
 #: Itanium mangling of the element types a template is instantiated for.
 MANGLED_TYPES = {"f": "float", "s": "int16_t", "13__nv_bfloat16": "bf16"}
@@ -515,17 +546,22 @@ def profile_breakdown(fn, what: str, wall: float, reps: int = 5):
                 by_category=cats, calls=calls)
 
 
-#: The CUDA kernels a bf16 saliency explain must launch on the forwards
-#: (name fragment -> kernels an explain): conv layers 1-3 on the tensor
-#: cores and layer 0 on the FFMA instance, both FC layers on the tensor
-#: cores, each in one kernel; none of the split-K's.
+#: The CUDA kernels a bf16 saliency explain must launch (name fragment ->
+#: kernels an explain; no fragment is part of another's name): the
+#: forwards' conv layers 1-3 on the tensor cores and layer 0 on the FFMA
+#: instance, both FC layers on the tensor cores, each in one kernel, none
+#: of the split-K's; the backwards' four conv and two FC layers on the
+#: tensor cores, none on the FFMA templates.
 BF16_MMA_KERNELS = {"conv_mma_kernel": 3, "conv_igemm_kernel": 1,
-                    "vmm_mma_kernel": 2, "vmm_splitk": 0}
+                    "vmm_mma_kernel": 2, "vmm_splitk": 0,
+                    "conv_bwd_mma_kernel": 4, "vmm_bwd_mma_kernel": 2,
+                    "conv_bwd_igemm_kernel": 0, "vmm_bwd_tiled_kernel": 0}
 
 
 def check_bf16_kernel_names(profile, again):
-    """The bf16 explain's profile read by kernel name: the forwards ran on
-    the tensor cores, FC0 in one CUDA launch with no split-K sum kernel.
+    """The bf16 explain's profile read by kernel name: the forwards and
+    backwards ran on the tensor cores, FC0 in one CUDA launch with no
+    split-K sum kernel, no backward on an FFMA template.
     Where the profile is missing (CUPTI can lose a session), ``again()``
     profiles once more; fail if that is missing too."""
     if profile is None:
@@ -553,6 +589,7 @@ def _category(kernel_name: str) -> str:
         return "B13"
     if any(k in n for k in ("conv_kernel", "conv_igemm_kernel",
                             "conv_bwd_igemm_kernel", "conv_mma_kernel",
+                            "conv_bwd_mma_kernel",
                             "vmm_splitk", "vmm_fxp_splitk", "vmm_mma_kernel",
                             "conv_fxp_kernel", "relu_fwd_kernel",
                             "relu_pool_fwd_kernel",
@@ -607,14 +644,16 @@ class KernelCheck:
 
     def record(self, counter, case, main, got, want, exact, kernel_fn,
                plain_fn, nbytes, flops, library_fn=None, rate=None,
-               f32_reference_fn=None, close=None, general_fn=None):
+               f32_reference_fn=None, close=None, general_fn=None,
+               general_what="general"):
         """Compare, time and log one case.  ``rate`` is the peak for
         ``flops`` (f32 FLOP/s by default; IMAD/s for the int16 kernels,
         MUFU/s for the scan's exponentials); ``f32_reference_fn`` times an
         f32 library call on the same shapes, a reference point only, where
         no library computes the function; ``general_fn`` times the same
         kernel's general route (the fused conv backward's design before
-        its redesign), launched on the same inputs; ``close(got, want)``
+        its redesign; ``general_what`` names it where it is another route),
+        launched on the same inputs; ``close(got, want)``
         replaces the default ``DOT_TOL`` comparison of an inexact case,
         returning the error or failing."""
         rate = F32_FLOP_PER_S if rate is None else rate
@@ -671,7 +710,7 @@ class KernelCheck:
                 else "")
         refs = f" f32-ref {f32_ref:.4f}" if f32_ref is not None else ""
         if general is not None:
-            refs += f" general {general:.4f}"
+            refs += f" {general_what} {general:.4f}"
         print(f"  {counter:20s} {case:34s} err {err:.2e}  kernel {ms:.4f} "
               f"plain {plain:.4f}{libs}{refs}  bound {bnd:.4f} ms")
 
@@ -1361,6 +1400,112 @@ def sweep_bf16_choices(gen):
     return rows
 
 
+#: ``--sweep``: the bf16 backwards' launches at batch 32, S = 3: the four
+#: Table III conv layers (H, C, Cout', pooled) and FC0 / FC1 (S, M, K, N,
+#: gated).
+SWEEP_BF16_BWD = ((16, 64, 64, True), (16, 64, 32, False),
+                  (32, 32, 32, True), (32, 32, 3, False))
+SWEEP_BF16_VMM_BWD = ((SEEDS, BATCH, 128, 4096, True),
+                      (SEEDS, BATCH, 10, 128, False))
+
+
+def sweep_bf16_bwd_choices(gen):
+    """``--sweep``, the bf16 backwards on the tensor cores: at the four
+    Table III conv launches every tile of ``conv_bwd_mma_candidates``
+    beside the FFMA instance (``conv_bwd_plan``'s tile), and at FC0 and FC1
+    every tile of ``vmm_bwd_mma_candidates``; each within
+    :func:`bf16_close` of the plain version, every tile of a launch the
+    same bits as the rule's (saliency, gated, all seeds)."""
+    from repro_torch.core import masks
+    from repro_torch.kernels.conv2d import ref as conv_ref
+    from repro_torch.kernels.conv2d.conv2d import (bwd_fused_plain,
+                                                   conv2d_bwd_fused,
+                                                   conv2d_bwd_fused_plain,
+                                                   conv_bwd_bf16_plan,
+                                                   conv_bwd_mma_candidates,
+                                                   conv_bwd_plan)
+    from repro_torch.kernels.pool import ref as pool_ref
+    from repro_torch.kernels.vmm import ref as vmm_ref
+    from repro_torch.kernels.vmm.vmm import bwd_fused_plain as vbwd_plain
+    from repro_torch.kernels.vmm.vmm import (vmm_bwd_fused,
+                                             vmm_bwd_fused_plain,
+                                             vmm_bwd_mma_candidates,
+                                             vmm_bwd_mma_plan)
+    bf, s, n = torch.bfloat16, SEEDS, BATCH
+
+    def timed(fn):
+        return device_time_ms(fn, reps=SWEEP_BWD_REPS,
+                              cover_ms=SWEEP_BWD_COVER_MS)
+
+    def ranked(case, fn, cands, chosen, first, extra):
+        found = []
+        for p in cands:
+            got = fn(p)
+            torch.cuda.synchronize()
+            if not torch.equal(got, first):
+                fail(f"sweep {case}: plan {p} changes the bits")
+            found.append((timed(lambda: fn(p)), p))
+        found.sort(key=lambda t: (t[0], t[1].args()))
+        rank = [p for _, p in found].index(chosen)
+        print(f"  {case}: {extra}; rule {chosen} {found[rank][0]:.4f} ms "
+              f"(rank {rank + 1} of {len(found)}); fastest:")
+        for ms, p in found[:8]:
+            print(f"      {ms:.4f} ms  {p}  threads {p.threads:3d}")
+        return found, rank
+
+    rows = dict(conv_bwd_bf16=[], vmm_bwd_bf16=[])
+    for h, c, cout, pooled in SWEEP_BF16_BWD:
+        y = randn(gen, n, h, h, c)
+        hg = h // 2 if pooled else h
+        g = randn(gen, s, n, hg, hg, c, scale=1e-2).to(bf)
+        wt = randn(gen, 3, 3, c, cout, scale=(2.0 / (9 * c)) ** 0.5).to(bf)
+        kw = dict(pool_idx=(pool_ref.maxpool_fwd(torch.clamp_min(y, 0))[1]
+                            if pooled else None),
+                  relu_mask=masks.pack_mask(y > 0), gate=True,
+                  method="saliency")
+        acc = bwd_fused_plain(conv_ref.conv2d_widened, g, wt, **kw)
+        want = conv2d_bwd_fused_plain(g, wt, **kw)
+        ffma_plan = conv_bwd_plan(s, n, h, h, c, cout, 3, pooled=pooled,
+                                  esize=2)
+        bf16_close(conv2d_bwd_fused(g, wt, plan=ffma_plan, **kw), want, acc)
+        ffma = timed(lambda: conv2d_bwd_fused(g, wt, plan=ffma_plan, **kw))
+        chosen = conv_bwd_bf16_plan(s, n, h, h, c, cout, 3, pooled=pooled)
+        first = conv2d_bwd_fused(g, wt, plan=chosen, **kw)
+        bf16_close(first, want, acc)
+        case = (f"conv bwd bf16 [{s},{n},{hg},{hg},{c}]->{cout}"
+                + (" pool" if pooled else ""))
+        found, rank = ranked(
+            case, lambda p: conv2d_bwd_fused(g, wt, plan=p, **kw),
+            conv_bwd_mma_candidates(s, h, h, c, cout, 3, pooled=pooled),
+            chosen, first, f"FFMA {ffma_plan} {ffma:.4f} ms")
+        rows["conv_bwd_bf16"].append(dict(
+            shape=[s, n, h, h, c, cout, int(pooled)], ffma=ffma_plan.args(),
+            ffma_ms=ffma, chosen=chosen.args(), chosen_ms=found[rank][0],
+            rank=rank + 1, plans=[dict(plan=p.args(), ms=ms)
+                                  for ms, p in found]))
+    for s_, m, k, n_out, gated in SWEEP_BF16_VMM_BWD:
+        g = randn(gen, s_, m, k).to(bf)
+        wt = randn(gen, k, n_out, scale=(2.0 / n_out) ** 0.5).to(bf)
+        kw = dict(relu_mask=(masks.pack_mask(randn(gen, m, k) > 0) if gated
+                             else None), gate=gated, method="saliency")
+        acc = vbwd_plain(vmm_ref.vmm_widened, g, wt, **kw)
+        want = vmm_bwd_fused_plain(g, wt, **kw)
+        chosen = vmm_bwd_mma_plan(s_, m, k, n_out)
+        first = vmm_bwd_fused(g, wt, plan=chosen, **kw)
+        bf16_close(first, want, acc)
+        case = (f"vmm bwd bf16 [{s_},{m},{k}]@[{k},{n_out}]"
+                + (" gate" if gated else ""))
+        found, rank = ranked(
+            case, lambda p: vmm_bwd_fused(g, wt, plan=p, **kw),
+            vmm_bwd_mma_candidates(s_, m, k, n_out), chosen, first,
+            "tensor cores only")
+        rows["vmm_bwd_bf16"].append(dict(
+            shape=[s_, m, k, n_out, int(gated)], chosen=chosen.args(),
+            chosen_ms=found[rank][0], rank=rank + 1,
+            plans=[dict(plan=p.args(), ms=ms) for ms, p in found]))
+    return rows
+
+
 def sweep_fxp_choices(gen):
     """``--sweep``, the int16 forwards: time a grid of B7 tile plans at the
     four Table III layers beside the general kernel, and every B9 K split
@@ -1908,6 +2053,32 @@ def second_mma_plan(plan):
     return other if other != plan else ConvMmaPlan(plan.th, plan.mt, 64, 16)
 
 
+def second_bwd_mma_plan(plan):
+    """A valid tile of the tensor-core conv backward other than ``plan``:
+    the seeds moved between the warps and the seed slices, 16-channel
+    chunks (so the ring runs C = 32 and 64 in two and four), and as many
+    rows as 256 threads allow; or half the rows where that is ``plan``."""
+    from repro_torch.kernels.conv2d.conv2d import ConvBwdMmaPlan
+    sg, st = ((1, plan.seeds) if plan.sg > 1 else (plan.seeds, 1))
+    th = plan.th
+    while th > 1 and ConvBwdMmaPlan(th, 1, plan.tco, 16, sg, st).threads \
+            > 256:
+        th //= 2
+    other = ConvBwdMmaPlan(th, 1, plan.tco, 16, sg, st)
+    return other if other != plan else ConvBwdMmaPlan(
+        max(1, plan.th // 2), 1, plan.tco, 16, plan.sg, plan.st)
+
+
+def second_vmm_bwd_mma_plan(plan):
+    """A valid tile of the tensor-core FC backward other than ``plan``: 32
+    rows x 64 columns a block, two m16 fragments a warp and 16-deep chunks
+    (so FC0's 96 rows take three row blocks and its K eight chunks), or
+    16 x 16 where that is ``plan``."""
+    from repro_torch.kernels.vmm.vmm import VmmBwdMmaPlan
+    other = VmmBwdMmaPlan(32, 64, 16, 2, 4)
+    return other if other != plan else VmmBwdMmaPlan(16, 16, 16, 1, 2)
+
+
 def _accumulation_row(what, got, plain, s64, acc):
     """One line of :func:`check_mma_accumulation`: the kernel's and the
     plain version's largest distance from the f64 sum, in units of
@@ -1933,17 +2104,25 @@ def _accumulation_row(what, got, plain, s64, acc):
 
 
 def check_mma_accumulation(gen):
-    """Phase 2, before any timing: the tensor-core forwards' outputs (no
+    """Phase 2, before any timing: the tensor-core kernels' outputs (no
     bias: the sum rounded once) against the f64 sum of the widened
-    operands, beside the plain version's, at the main-path shapes (conv
-    layers 1-3, FC0 with its K = 4096, FC1) and at two long sums that
-    cancel (alternating signs): a conv over C = 608 at K = 5 and FC0's
-    K = 4096.  Each must be within :func:`bf16_close` of the plain
-    version; the lines are what PERF.md quotes."""
+    operands, beside the plain version's, at the main-path shapes (the
+    forwards' conv layers 1-3, FC0 with its K = 4096, FC1; the backwards'
+    four conv layers, gated, all S seeds, FC0 gated and FC1) and at three
+    long sums that cancel (alternating signs): a conv over C = 608 at K =
+    5, forward and gated backward, and FC0's K = 4096.  Each must be
+    within :func:`bf16_close` of the plain version; the lines are what
+    PERF.md quotes."""
+    from repro_torch.core import masks
     from repro_torch.kernels.conv2d import ref as conv_ref
-    from repro_torch.kernels.conv2d.conv2d import conv2d
+    from repro_torch.kernels.conv2d.conv2d import (bwd_fused_plain, conv2d,
+                                                   conv2d_bwd_fused,
+                                                   conv2d_bwd_fused_plain)
+    from repro_torch.kernels.pool import ref as pool_ref
     from repro_torch.kernels.vmm import ref as vmm_ref
-    from repro_torch.kernels.vmm.vmm import vmm
+    from repro_torch.kernels.vmm.vmm import bwd_fused_plain as vbwd_plain
+    from repro_torch.kernels.vmm.vmm import (vmm, vmm_bwd_fused,
+                                             vmm_bwd_fused_plain)
 
     print("  tensor-core accumulation (bf16 out, no bias) against the f64 "
           "sum of the widened operands:")
@@ -1978,6 +2157,43 @@ def check_mma_accumulation(gen):
             f"fc [{BATCH},{k}]@[{k},{m_out}]"
             + (" cancelling" if cancel else ""), vmm(x, w),
             vmm_ref.vmm_bf16(x, w), s64, vmm_ref.vmm_widened(x, w)))
+
+    def s64_conv(a, b):
+        return conv_ref.conv2d(a.double(), b.double())
+
+    for h, c, cout, pooled, k, cancel in ((16, 64, 64, True, 3, False),
+                                          (16, 64, 32, False, 3, False),
+                                          (32, 32, 32, True, 3, False),
+                                          (32, 32, 3, False, 3, False),
+                                          (16, 608, 64, False, 5, True)):
+        nb = BATCH if not cancel else 4
+        y = randn(gen, nb, h, h, c)
+        idx = (pool_ref.maxpool_fwd(torch.clamp_min(y, 0))[1] if pooled
+               else None)
+        hg = h // 2 if pooled else h
+        g, wt = operands((SEEDS, nb, hg, hg, c), (k, k, c, cout),
+                         (2.0 / (k * k * c)) ** 0.5, cancel)
+        kw = dict(pool_idx=idx, relu_mask=masks.pack_mask(y > 0), gate=True,
+                  method="saliency")
+        rows.append(_accumulation_row(
+            f"conv bwd [{SEEDS},{nb},{hg},{hg},{c}]->{cout} K {k}"
+            + (" pool" if pooled else "") + (" cancelling" if cancel
+                                             else ""),
+            conv2d_bwd_fused(g, wt, **kw), conv2d_bwd_fused_plain(g, wt, **kw),
+            bwd_fused_plain(s64_conv, g, wt, **kw),
+            bwd_fused_plain(conv_ref.conv2d_widened, g, wt, **kw)))
+    for k, n_out, gated in ((128, 4096, True), (10, 128, False)):
+        g, wt = operands((SEEDS, BATCH, k), (k, n_out), (2.0 / n_out) ** 0.5,
+                         False)
+        kw = dict(relu_mask=(masks.pack_mask(randn(gen, BATCH, k) > 0)
+                             if gated else None),
+                  gate=gated, method="saliency")
+        rows.append(_accumulation_row(
+            f"fc bwd [{SEEDS},{BATCH},{k}]@[{k},{n_out}]"
+            + (" gate" if gated else ""),
+            vmm_bwd_fused(g, wt, **kw), vmm_bwd_fused_plain(g, wt, **kw),
+            vbwd_plain(lambda a, b: a.double() @ b.double(), g, wt, **kw),
+            vbwd_plain(vmm_ref.vmm_widened, g, wt, **kw)))
     return rows
 
 
@@ -2003,20 +2219,24 @@ def check_kernels_bf16(kc: KernelCheck):
     general route, every block size); the conv and FC instances within one
     bf16 rounding step (:func:`bf16_close`) of their plain versions (f32
     sums of the widened operands in cuDNN's or cuBLAS's order, rounded),
-    bitwise run to run and under a second plan; each timed beside the bf16
-    library call where one computes the same function (``F.conv2d``,
-    ``torch.addmm``: tensor cores).  Bytes at 2 an element; the conv and FC
-    products' operations at the card's bf16 peak (BF16_FLOP_PER_S), though
-    the instances run f32 FFMA on the CUDA cores, the compares at the f32
-    rate (those rows are bound by bytes)."""
+    bitwise run to run and under a second plan of their route, the FFMA
+    routes of B1 layers 1-3 and of B5 within one bf16 step of the tensor
+    cores (B5's timed beside them); each timed beside the bf16 library
+    call where one computes the same function (``F.conv2d``,
+    ``torch.addmm``, ungated FC1 ``torch.matmul``: tensor cores).  Bytes
+    at 2 an element; the conv and FC products' operations at the card's
+    bf16 peak (BF16_FLOP_PER_S), whatever units a kernel runs on, the
+    compares at the f32 rate (those rows are bound by bytes)."""
     from repro_torch.core import masks
     from repro_torch.kernels.conv2d import ref as conv_ref
-    from repro_torch.kernels.conv2d.conv2d import (ConvMmaPlan,
+    from repro_torch.kernels.conv2d.conv2d import (ConvBwdMmaPlan,
+                                                   ConvMmaPlan,
                                                    bwd_fused_plain, conv2d,
                                                    conv2d_bwd_fused,
                                                    conv2d_bwd_fused_plain,
                                                    conv2d_planned,
                                                    conv_bf16_plan,
+                                                   conv_bwd_bf16_plan,
                                                    conv_bwd_plan, conv_plan)
     from repro_torch.kernels.pool import ref as pool_ref
     from repro_torch.kernels.pool.pool import maxpool_fwd, relu_pool_fwd
@@ -2030,7 +2250,7 @@ def check_kernels_bf16(kc: KernelCheck):
     from repro_torch.kernels.vmm.vmm import bwd_fused_plain as vbwd_plain
     from repro_torch.kernels.vmm.vmm import (VmmMmaPlan, vmm, vmm_bwd_fused,
                                              vmm_bwd_fused_plain,
-                                             vmm_bwd_plan, vmm_mma_plan,
+                                             vmm_bwd_mma_plan, vmm_mma_plan,
                                              vmm_planned)
 
     gen = torch.Generator(device="cuda").manual_seed(2718)
@@ -2152,8 +2372,9 @@ def check_kernels_bf16(kc: KernelCheck):
                   rate=BF16_FLOP_PER_S,
                   close=lambda g, w_, acc=acc: bf16_close(g, w_, acc))
 
-    # B5 bf16: layers 3, 2, 1, 0 under every method, again and under a
-    # second tile plan bitwise
+    # B5 bf16 on the tensor cores: layers 3, 2, 1, 0 under every method,
+    # again and under a second tile plan bitwise; the FFMA route (conv_bwd.cuh
+    # bf16 instance) on the same inputs within one bf16 step, timed beside
     for method in METHODS:
         for h, c, cout, pooled in ((16, 64, 64, True), (16, 64, 32, False),
                                    (32, 32, 32, True), (32, 32, 3, False)):
@@ -2176,23 +2397,34 @@ def check_kernels_bf16(kc: KernelCheck):
             case = (f"{method} [{s},{n},{hg},{hg},{c}]->{cout}"
                     + (" pool" if pooled else ""))
             got = conv2d_bwd_fused(g, wt, **kw)
-            plan = conv_bwd_plan(s, n, h, h, c, cout, 3, pooled=pooled,
-                                 esize=2)
-            other = second_bwd_plan(plan, c)
+            plan = conv_bwd_bf16_plan(s, n, h, h, c, cout, 3, pooled=pooled)
+            if not isinstance(plan, ConvBwdMmaPlan):
+                fail(f"conv2d_bwd_fused_bf16 {case}: rule's plan {plan} is "
+                     f"not the tensor cores'")
+            other = second_bwd_mma_plan(plan)
             _bitwise_repeat("conv2d_bwd_fused_bf16", case, got, (
                 (f"again under {plan}", lambda: conv2d_bwd_fused(g, wt, **kw)),
                 (f"under {other}",
                  lambda: conv2d_bwd_fused(g, wt, plan=other, **kw))))
             acc = bwd_fused_plain(conv_ref.conv2d_widened, g, wt, **kw)
+            ffma = conv_bwd_plan(s, n, h, h, c, cout, 3, pooled=pooled,
+                                 esize=2)
+            err = bf16_close(conv2d_bwd_fused(g, wt, plan=ffma, **kw), got,
+                             acc)
+            print(f"  {'conv2d_bwd_fused_bf16':20s} {case:34s} the FFMA "
+                  f"route {ffma} within one bf16 step (max|d| {err:.2e})")
             kc.record("conv2d_bwd_fused_bf16", case, method == "saliency",
                       got, conv2d_bwd_fused_plain(g, wt, **kw), False,
                       lambda: conv2d_bwd_fused(g, wt, **kw),
                       lambda: conv2d_bwd_fused_plain(g, wt, **kw),
                       nbytes, 2 * nnz * 9 * cout, rate=BF16_FLOP_PER_S,
-                      close=lambda g_, w_, acc=acc: bf16_close(g_, w_, acc))
+                      close=lambda g_, w_, acc=acc: bf16_close(g_, w_, acc),
+                      general_fn=lambda: conv2d_bwd_fused(g, wt, plan=ffma,
+                                                          **kw),
+                      general_what="ffma")
 
-    # B6 bf16: FC1 then FC0 (gated) under every method, again and under a
-    # second tile plan bitwise
+    # B6 bf16 on the tensor cores: FC1 then FC0 (gated) under every
+    # method, again and under a second tile plan bitwise
     for method in METHODS:
         for k, n_out, gated in ((10, 128, False), (128, 4096, True)):
             g = rb(s, n, k)
@@ -2210,8 +2442,8 @@ def check_kernels_bf16(kc: KernelCheck):
             case = (f"{method} [{s},{n},{k}]@[{k},{n_out}]"
                     + (" gate" if gated else ""))
             got = vmm_bwd_fused(g, wt, **kw)
-            plan = vmm_bwd_plan(s, n, k, n_out)
-            other = second_vmm_bwd_plan(plan)
+            plan = vmm_bwd_mma_plan(s, n, k, n_out)
+            other = second_vmm_bwd_mma_plan(plan)
             _bitwise_repeat("vmm_bwd_fused_bf16", case, got, (
                 (f"again under {plan}", lambda: vmm_bwd_fused(g, wt, **kw)),
                 (f"under {other}",
@@ -2567,7 +2799,7 @@ def check_engine(params, cfg, x_cpu, precision, to_profile):
                      f"{ {k: v for k, v in want_e.items() if v} }")
             check_bf16_routes(f"bf16 {method}", {
                 k: ROUTE_LAUNCHES[k] - before_r[k] for k in ROUTE_LAUNCHES},
-                1)
+                rose)
             if not logits.dtype == rel.dtype == torch.bfloat16:
                 fail(f"bf16 {method}: logits {logits.dtype}, relevance "
                      f"{rel.dtype}, want torch.bfloat16")
@@ -3496,9 +3728,9 @@ def main() -> int:
                     help="directory for chip_smoke.json (per-case numbers)")
     ap.add_argument("--sweep", action="store_true",
                     help="after phase 1, time the launch choices of B1, B4, "
-                         "B1/B4 bf16, B5/B8, B7, B9 and B6/B10 (K splits, "
-                         "clusters, grids of tile plans) and stop; --out "
-                         "gets kernel_sweep.json")
+                         "B1/B4/B5/B6 bf16, B5/B8, B7, B9 and B6/B10 (K "
+                         "splits, clusters, grids of tile plans) and stop; "
+                         "--out gets kernel_sweep.json")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke test needs one",
@@ -3542,7 +3774,7 @@ def main() -> int:
                 print("   ", line.strip())
         found = kernel_resources(text, REDESIGNED)
         print("  redesigned B1/B2/B3/B4/B5/B6/B7/B8/B9/B10/B13 kernels, "
-              "B1/B4 bf16 on the tensor cores (ptxas): "
+              "B1/B4/B5/B6 bf16 on the tensor cores (ptxas): "
               + "; ".join(f"{name} {regs} registers, spill stores {st} B, "
                           f"loads {ld} B" for name, regs, st, ld in found))
 
@@ -3560,6 +3792,10 @@ def main() -> int:
               f"median of {REPS} back-to-back runs)")
         rows.update(sweep_bf16_choices(torch.Generator(device="cuda")
                                        .manual_seed(0)))
+        print(f"sweep: B5 and B6 in bf16, tensor-core tiles beside the FFMA "
+              f"route (ms = median of {SWEEP_BWD_REPS} back-to-back runs)")
+        rows.update(sweep_bf16_bwd_choices(torch.Generator(device="cuda")
+                                           .manual_seed(0)))
         print(f"sweep: B7 tile plans and B9 K splits, int16 (ms = median "
               f"of {REPS} back-to-back runs)")
         rows.update(sweep_fxp_choices(torch.Generator(device="cuda")
@@ -3618,11 +3854,10 @@ def main() -> int:
                  f"all through the bf16 entries")
         if precision == "bf16":
             # layers 1-3 on the tensor cores, layer 0 on FFMA, in every
-            # conv forward of the path
+            # conv forward of the path; every backward on the tensor cores
             check_bf16_routes("bf16 path", route_launches["bf16"],
-                              launches["bf16"]["conv2d_fwd"] // 4)
-            print(f"  bf16 conv forward launches by kernel: "
-                  f"{route_launches['bf16']}")
+                              launches["bf16"])
+            print(f"  bf16 launches by kernel: {route_launches['bf16']}")
 
     # the paper's accounting (Table II / §V, Table IV), and the bf16
     # explain of the Table-III-literal config (the pool alone in bf16),

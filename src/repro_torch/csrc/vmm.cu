@@ -2,7 +2,8 @@
 //
 // Replaces: src/repro/kernels/vmm/vmm.py, vmm_pallas (repro_vmm_fwd; bf16:
 // repro_vmm_fwd_bf16) and vmm_bwd_fused_pallas (repro_vmm_bwd_fused, the
-// template of vmm_bwd.cuh; bf16: repro_vmm_bwd_fused_bf16).
+// template of vmm_bwd.cuh; bf16: repro_vmm_bwd_fused_bf16, the tensor-core
+// kernel of vmm_bwd_bf16.cu).
 //
 //   forward:  y[M, N] = x[M, K] @ w[K, N] (+ b[N] in the epilogue)
 //   backward: out[s] = gate_out(gate_in(g[s]) @ wt),  g [S, M, K],
@@ -293,8 +294,8 @@ REPRO_API int repro_vmm_bwd_fused(const float* g, const float* wt,
   return static_cast<int>(cudaGetLastError());
 }
 
-// bf16: the tiled kernel only (vmm_bwd_tiled_kernel<__nv_bfloat16, RM>);
-// the general 16x16 kernel is f32, so the plan of zeros is refused.
+// bf16: the tensor-core kernel of vmm_bwd_bf16.cu, the plan (br, bn, kc, mf,
+// nt) of kernels/vmm/vmm.py VmmBwdMmaPlan; there is no general bf16 kernel.
 REPRO_API int repro_vmm_bwd_fused_bf16(const __nv_bfloat16* g,
                                        const __nv_bfloat16* wt,
                                        const uint8_t* mask,
@@ -302,8 +303,8 @@ REPRO_API int repro_vmm_bwd_fused_bf16(const __nv_bfloat16* g,
                                        __nv_bfloat16* out, int s, int m, int k,
                                        int n, int gate_in, int gate_out,
                                        int method, int br, int bn, int kc,
-                                       int rm, cudaStream_t stream) {
-  return static_cast<int>(vbwd::launch_tiled<__nv_bfloat16>(
+                                       int mf, int nt, cudaStream_t stream) {
+  return static_cast<int>(repro::vmm_bwd_mma_bf16(
       g, wt, mask, omask, out, s, m, k, n, gate_in, gate_out, method, br, bn,
-      kc, rm, stream));
+      kc, mf, nt, stream));
 }

@@ -1,13 +1,11 @@
 // The tiled fused FC backward (paper §III.C, §III.E, Fig. 4), one template
-// for the f32 kernel B6 (vmm.cu, repro_vmm_bwd_fused), its bf16 instance
-// (vmm.cu, repro_vmm_bwd_fused_bf16) and the int16 kernel B10 (vmm_fxp.cu,
-// repro_vmm_bwd_fused_fxp).
+// for the f32 kernel B6 (vmm.cu, repro_vmm_bwd_fused) and the int16 kernel
+// B10 (vmm_fxp.cu, repro_vmm_bwd_fused_fxp).  B6 in bf16 runs on the tensor
+// cores instead (vmm_bwd_bf16.cu).
 //
 //   out[s] = gate_out(finish(gate_in(g[s]) @ wt)),  g [S, M, K], wt [K, N]
 //
-// finish is the identity in f32 and bf16 (bf16 rounds at the store, after
-// the epilogue gate, as src/repro/kernels/vmm/vmm.py:110-113 gates its f32
-// accumulator before .astype) and the requantize to Q7.8 in int16 (before
+// finish is the identity in f32 and the requantize to Q7.8 in int16 (before
 // the epilogue gate, as src/repro/kernels/vmm/fxp.py:106-112 does).  The
 // 1-bit masks [M, ceil(K/8)] and [M, ceil(N/8)] have no seeds axis.
 //
@@ -33,8 +31,7 @@
 // of a row's k), int16 widened to 32-bit words there as B7/B9 do, and for
 // int16 the weight chunk widened too.  The next chunk's copies are issued
 // right after the first barrier and land while the chunk is gated and
-// summed.  bf16 is widened to f32 words like int16 (g in the prologue, the
-// weight chunk beside it), and then summed by the f32 chain.  Each thread keeps an RM x 4 register tile (RM rows, 4 columns):
+// summed.  Each thread keeps an RM x 4 register tile (RM rows, 4 columns):
 // per k it reads its RM gated values as one vector and its 4 weights as
 // one, RM * 4 multiply-adds per 2 shared loads.
 //
@@ -117,7 +114,7 @@ vmm_bwd_tiled_kernel(Args<T> a) {
   unsigned char* smem = reinterpret_cast<unsigned char*>(vbwd_smem4);
   const int br = a.br, bn = a.bn, kc = a.kc;
   W* xs = reinterpret_cast<W*>(smem);  // [kc][br] gated g words
-  W* wsw = xs + kc * br;               // bf16, int16: [kc][bn] widened
+  W* wsw = xs + kc * br;               // int16: [kc][bn] widened
   const int tid = threadIdx.x, nthr = blockDim.x;
   const int tc = tid % (bn / 4), tr = tid / (bn / 4);
   const int n0 = blockIdx.x * bn, r0 = blockIdx.y * br;

@@ -66,12 +66,18 @@ SIGNATURES = {
     # tensor cores, plan th, rows a warp, Cout per block, Cin per stage; 0:
     # FFMA, the f32 plan)
     "repro_conv2d_fwd_bf16": [_P, _P, _P, _P] + [_I] * 11 + [_P],
-    "repro_conv2d_bwd_fused_bf16": [_P] * 6 + [_I] * 16 + [_P],
+    # bf16 fused conv backward: the f32 one's arguments up to method, then
+    # the route (1: tensor cores, plan th, rows a warp, Cout per block, C
+    # per stage, seeds a warp, seed slices; 0: FFMA, the f32 plan)
+    "repro_conv2d_bwd_fused_bf16": [_P] * 6 + [_I] * 17 + [_P],
     # bf16 FC forward on the tensor cores: the f32 one's arguments up to n,
     # then the plan (K slices, one a block of a cluster; their length; the
     # column tile), no workspace
     "repro_vmm_fwd_bf16": [_P, _P, _P, _P] + [_I] * 6 + [_P],
-    "repro_vmm_bwd_fused_bf16": [_P] * 5 + [_I] * 11 + [_P],
+    # bf16 fused FC backward on the tensor cores: the f32 one's arguments
+    # up to method, then the plan (rows and columns a block, k a chunk, m16
+    # and n8 fragments a warp)
+    "repro_vmm_bwd_fused_bf16": [_P] * 5 + [_I] * 12 + [_P],
     # the fxp16 path: int16 instances of B2/B3 and the int16 kernels B7-B10
     "repro_relu_fwd_i16": [_P, _P, _P, _I, _I, _I, _P],
     "repro_maxpool_fwd_i16": [_P, _P, _P] + [_I] * 5 + [_P],
@@ -124,12 +130,19 @@ LAUNCHES: Dict[str, int] = {
 #: counter (``repro_conv2d_fwd`` and ``repro_conv2d_fwd_bf16`` both count
 #: under ``conv2d_fwd``).
 ENTRY_LAUNCHES: Dict[str, int] = {name: 0 for name in SIGNATURES}
-#: Launches per kernel of an entry point that holds more than one, beside
+#: Launches per kernel of the bf16 entry points, beside
 #: :data:`ENTRY_LAUNCHES`: ``repro_conv2d_fwd_bf16`` runs the tensor-core
 #: kernel (``csrc/conv_fwd_mma.cu``) or the FFMA instance
-#: (``csrc/conv_fwd.cuh``), as its route argument says.
+#: (``csrc/conv_fwd.cuh``), ``repro_conv2d_bwd_fused_bf16`` the tensor-core
+#: kernel (``csrc/conv_bwd_mma.cu``) or the FFMA instance
+#: (``csrc/conv_bwd.cuh``), as their route argument says;
+#: ``repro_vmm_bwd_fused_bf16`` runs the tensor-core kernel
+#: (``csrc/vmm_bwd_bf16.cu``) alone.
 ROUTE_LAUNCHES: Dict[str, int] = {"conv2d_fwd_bf16_mma": 0,
-                                  "conv2d_fwd_bf16_ffma": 0}
+                                  "conv2d_fwd_bf16_ffma": 0,
+                                  "conv2d_bwd_fused_bf16_mma": 0,
+                                  "conv2d_bwd_fused_bf16_ffma": 0,
+                                  "vmm_bwd_fused_bf16_mma": 0}
 
 _LIB: Optional[ctypes.CDLL] = None
 

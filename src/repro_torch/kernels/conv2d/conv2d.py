@@ -23,10 +23,14 @@ JAX package adds it after ``conv2d_pallas``).  The bf16 forward runs on the
 tensor cores where Cin is a multiple of 16 (``csrc/conv_fwd_mma.cu``,
 tiled by :class:`ConvMmaPlan`; :func:`conv_bf16_plan` picks the route),
 elsewhere on a bf16 instance of the f32 tiled template; the backward is
-such an instance.  bf16 has no general kernel: on the card it takes K in
-:data:`CONV_KS` and a tile plan.  The int16 twins (``conv2d.fxp``) share the
-argument contract, checks and plain dataflow defined here; only the element
-type, the entry point and the conv itself differ.
+likewise on the tensor cores where C is a multiple of 16
+(``csrc/conv_bwd_mma.cu``, tiled by :class:`ConvBwdMmaPlan`;
+:func:`conv_bwd_bf16_plan` picks the route), elsewhere on a bf16 instance
+of the f32 tiled backward.  bf16 has no general kernel: on the card it
+takes K in :data:`CONV_KS` and a tile plan.  The int16 twins
+(``conv2d.fxp``) share the argument contract, checks and plain dataflow
+defined here; only the element type, the entry point and the conv itself
+differ.
 """
 from __future__ import annotations
 
@@ -356,15 +360,34 @@ class ConvBwdPlan:
 CONV_BWD_GENERAL = ConvBwdPlan(0, 0, 0, 0, 0, 0)
 
 
-def _check_bwd_plan(plan: ConvBwdPlan, k: int, *, pooled: bool,
-                    esize: int) -> None:
-    """Raise unless the fused backward can run ``plan`` at kernel size
-    ``k`` (pooled or not, on ``esize``-byte elements)."""
+def _check_bwd_plan(plan, k: int, *, pooled: bool, esize: int, c: int,
+                    s: int, dtype: torch.dtype) -> None:
+    """Raise unless the fused backward can run ``plan`` (a
+    :class:`ConvBwdPlan`, or a :class:`ConvBwdMmaPlan` on bf16) at kernel
+    size ``k`` (pooled or not, on ``esize``-byte elements, ``c`` gradient
+    channels, ``s`` seeds)."""
     if plan == CONV_BWD_GENERAL:
         return
     if k not in CONV_KS:
         raise ValueError(f"conv2d_bwd_fused: a tile plan needs K in "
                          f"{CONV_KS}, got {k}")
+    if isinstance(plan, ConvBwdMmaPlan):
+        if dtype != torch.bfloat16:
+            raise ValueError(f"conv2d_bwd_fused: the tensor-core route is "
+                             f"bf16's only, got {dtype}")
+        if (c % CONV_MMA_K16 or c < CONV_MMA_K16
+                or plan.sg not in CONV_BWD_SEED_GROUPS or plan.st < 1
+                or plan.mt < 1 or plan.frags > CONV_BWD_MMA_FRAGS
+                or plan.th < plan.mt or plan.th % plan.mt
+                or (plan.tco != CONV_BWD_MMA_N8 and (
+                    plan.tco < CONV_MMA_WN or plan.tco % CONV_MMA_WN))
+                or plan.cin_t < CONV_MMA_K16 or plan.cin_t % CONV_MMA_K16
+                or plan.threads > CONV_MAX_THREADS
+                or plan.smem_bytes(k, c, s, pooled=pooled)
+                > CONV_SMEM_LIMIT):
+            raise ValueError(f"conv2d_bwd_fused: invalid tile plan {plan} "
+                             f"for C {c}")
+        return
     if (plan.px not in (4, 8) or plan.tco < 4 or plan.tco % 4
             or plan.th < 1 or plan.cin_t < 1
             or plan.sg not in CONV_BWD_SEED_GROUPS
@@ -448,6 +471,193 @@ def bwd_cin_step(c: int) -> int:
     """The chunk granule of the fused backward at ``c`` channels: 8 where
     whole 16-byte copies of int16 rows fit, 4 where those of f32 do."""
     return 8 if c % 8 == 0 else 4 if c % 4 == 0 else 1
+
+
+#: The bf16 tensor-core fused backward (``csrc/conv_bwd_mma.cu``): a tile
+#: row is 16 pixels (one m16 fragment, :data:`CONV_MMA_TW`), a block holds 8
+#: output channels (one n8 fragment, for Cout' up to 8) or a multiple of 32
+#: (four n8 fragments a warp), a warp at most 3 m16 fragments (seeds x
+#: rows), and a k step is one tap over 16 channels, so it takes C a
+#: multiple of 16.
+CONV_BWD_MMA_N8, CONV_BWD_MMA_FRAGS = 8, 3
+#: C channels a ring stage of the tensor-core backward at most.
+CONV_BWD_MMA_MAX_CIN_T = 64
+
+
+@dataclass(frozen=True)
+class ConvBwdMmaPlan:
+    """The bf16 tensor-core fused backward's tile: ``th`` rows x 16 pixels
+    x ``tco`` output channels (8, or a multiple of 32) x ``sg * st`` seeds
+    a block, in ``st`` seed slices of warps, each warp ``mt`` rows x ``sg``
+    seeds (``sg * mt`` m16 fragments, at most 3) x 8 or 32 channels;
+    ``cin_t`` gradient channels (a multiple of 16) a ring stage.  No field
+    changes the order of any sum: each output walks the 16-channel groups,
+    then the taps, in order."""
+    th: int
+    mt: int
+    tco: int
+    cin_t: int
+    sg: int
+    st: int = 1
+
+    @property
+    def seeds(self) -> int:
+        """Seeds a block holds (its residual reads serve all of them)."""
+        return self.sg * self.st
+
+    @property
+    def frags(self) -> int:
+        """m16 fragments a warp holds (the kernel's template argument)."""
+        return self.sg * self.mt
+
+    @property
+    def wn(self) -> int:
+        """Output channels a warp holds: 8 at ``tco`` 8, else 32."""
+        return CONV_BWD_MMA_N8 if self.tco == CONV_BWD_MMA_N8 else CONV_MMA_WN
+
+    @property
+    def threads(self) -> int:
+        return (32 * (self.th // self.mt) * (self.tco // self.wn)
+                * self.st)
+
+    def blocks(self, n: int, h: int, w: int, cout: int) -> int:
+        return (cdiv(h, self.th) * cdiv(w, CONV_MMA_TW)
+                * cdiv(cout, self.tco) * n)
+
+    def smem_bytes(self, k: int, c: int, s: int, *,
+                   pooled: bool = False) -> int:
+        """As ``csrc/conv_bwd_mma.cu`` lays it out: the pooled layers'
+        compute buffer (the halo tile, a position's row of ``cin_t`` 2-byte
+        channels padded by 16 bytes, per seed), then the ring: a stage is
+        the landing buffer (the seeds' gradient, pooled the Hg x Wg quarter
+        tile; unpooled it is gated in place and is the compute buffer), the
+        weight slice (rows of ``tco`` rounded up to an odd number of
+        8-channel units) and the chunk's residual bytes (a mask byte per 8
+        channels of each halo position, then, pooled, a crumb byte per 4 of
+        each landing position, each part rounded up to 16 bytes), or a seed
+        group's output tile where that is larger (it is written into the
+        stage its products were summed from); two stages where the launch
+        has more than one (seed group, chunk) pair, else one."""
+        xh, xw = self.th + k - 1, CONV_MMA_TW + k - 1
+        gh, gw = (xh // 2 + 1, xw // 2 + 1) if pooled else (xh, xw)
+        xstride = self.cin_t + 8
+        wstride = 8 * ((self.tco // 8) | 1)
+        xs = self.seeds * xh * xw * xstride if pooled else 0
+        res = (align_up(xh * xw * self.cin_t // 8, 16)
+               + (align_up(gh * gw * self.cin_t // 4, 16) if pooled else 0))
+        stage = max(2 * (self.seeds * gh * gw * xstride
+                         + k * k * self.cin_t * wstride) + res,
+                    2 * self.seeds * self.th * CONV_MMA_TW * wstride)
+        pairs = cdiv(max(s, 1), self.seeds) * cdiv(c, self.cin_t)
+        return 2 * xs + (2 if pairs > 1 else 1) * stage
+
+    def args(self) -> Tuple[int, int, int, int, int, int]:
+        return (self.th, self.mt, self.tco, self.cin_t, self.sg, self.st)
+
+
+def conv_bwd_mma_plan(s: int, n: int, h: int, w: int, c: int, cout: int,
+                      k: int, *, pooled: bool = False) -> ConvBwdMmaPlan:
+    """The bf16 tensor-core fused backward's tile for one launch on an H100
+    (C a multiple of 16, K in :data:`CONV_KS`; ``h``, ``w`` the output
+    size), from ``python3 chip_smoke.py --sweep`` on the Table III
+    launches:
+
+    * 8 output channels a block where Cout' is at most 8 (one n8
+      fragment: Table III's layer 0), 64 where Cout' is 64 or more, else
+      32;
+    * the tallest tile (up to 8 rows, 256 threads at a row a warp) whose
+      grid still gives a block per SM (128, the SMs rounded down to a
+      power of two);
+    * all S seeds in one block (up to 3; groups of 3 beyond), all of them
+      in each warp, so a warp's B fragments serve every seed; where that
+      leaves fewer than 8 warps (layer 2), one seed a warp in S slices at
+      two rows a warp;
+    * the largest chunk of up to 64 channels (whole 16-channel groups)
+      whose shared memory lets as many blocks reside on an SM as the grid
+      puts there; where even 16 do not fit the card's 227 KB, fewer rows,
+      then 32 channels a block.
+
+    On the four Table III launches this is the sweep's fastest plan or
+    within 4 % of it.
+    """
+    if k not in CONV_KS or c % CONV_MMA_K16 or c < CONV_MMA_K16:
+        raise ValueError(f"conv2d_bwd_fused: the tensor-core backward takes "
+                         f"K in {CONV_KS} and C a multiple of 16, got "
+                         f"K = {k}, C = {c}")
+    seeds = min(max(s, 1), max(CONV_BWD_SEED_GROUPS))
+    tco = (CONV_BWD_MMA_N8 if cout <= CONV_BWD_MMA_N8
+           else 2 * CONV_MMA_WN if cout >= 2 * CONV_MMA_WN else CONV_MMA_WN)
+    min_blocks = 1 << (H100_SMS.bit_length() - 1)
+    th = min(8, 1 << max(0, (h - 1).bit_length()))
+    while th > 1 and (
+            ConvBwdMmaPlan(th, 1, tco, 16, seeds).threads > CONV_MAX_THREADS
+            or ConvBwdMmaPlan(th, 1, tco, 16, seeds).blocks(n, h, w, cout)
+            < min_blocks):
+        th //= 2
+
+    def plan(th: int, ct: int, tco: int) -> ConvBwdMmaPlan:
+        p = ConvBwdMmaPlan(th, 1, tco, ct, seeds)
+        if p.threads < 8 * 32 and seeds > 1 and th % 2 == 0:
+            p = ConvBwdMmaPlan(th, 2, tco, ct, 1, seeds)
+        return p
+
+    def fits(p: ConvBwdMmaPlan) -> bool:
+        per_sm = min(cdiv(p.blocks(n, h, w, cout), H100_SMS),
+                     2048 // p.threads)
+        return per_sm * (p.smem_bytes(k, c, s, pooled=pooled)
+                         + CONV_SMEM_RESERVED) <= CONV_SMEM_PER_SM
+
+    ct = min(c, CONV_BWD_MMA_MAX_CIN_T) // CONV_MMA_K16 * CONV_MMA_K16
+    while ct > CONV_MMA_K16 and not fits(plan(th, ct, tco)):
+        ct = max(CONV_MMA_K16, ct // 2 // CONV_MMA_K16 * CONV_MMA_K16)
+    while plan(th, ct, tco).smem_bytes(
+            k, c, s, pooled=pooled) > CONV_SMEM_LIMIT:
+        if th > 1:
+            th //= 2
+        elif tco > CONV_MMA_WN:
+            tco = CONV_MMA_WN
+        else:
+            break
+    return plan(th, ct, tco)
+
+
+def conv_bwd_mma_candidates(s: int, h: int, w: int, c: int, cout: int,
+                            k: int, *, pooled: bool = False):
+    """The tensor-core tile plans ``chip_smoke.py --sweep`` times for one
+    launch (and the card tests hold bitwise to each other): 1 to 16 rows,
+    1 to 3 rows a warp, the S seeds (up to 3) in each warp or one a warp,
+    8, 32 or 64 channels a block (no wider than Cout' needs), chunks of 16
+    to 64 channels (no deeper than C), within 256 threads and 227 KB of
+    shared memory."""
+    seeds = min(max(s, 1), max(CONV_BWD_SEED_GROUPS))
+    out = []
+    for th in (1, 2, 4, 8, 16):
+        for mt in (1, 2, 3):
+            for sg, st in sorted({(seeds, 1), (1, seeds)}, reverse=True):
+                for tco in (CONV_BWD_MMA_N8, 32, 64):
+                    for ct in (16, 32, 64):
+                        p = ConvBwdMmaPlan(th, mt, tco, ct, sg, st)
+                        if (th % mt == 0 and th <= max(1, h)
+                                and p.frags <= CONV_BWD_MMA_FRAGS
+                                and tco <= max(CONV_BWD_MMA_N8,
+                                               align_up(cout, CONV_MMA_WN))
+                                and ct <= c
+                                and p.threads <= CONV_MAX_THREADS
+                                and p.smem_bytes(k, c, s, pooled=pooled)
+                                <= CONV_SMEM_LIMIT):
+                            out.append(p)
+    return out
+
+
+def conv_bwd_bf16_plan(s: int, n: int, h: int, w: int, c: int, cout: int,
+                       k: int, *, pooled: bool = False):
+    """The route and tile of a bf16 fused-backward launch on an H100: the
+    tensor-core kernel (:func:`conv_bwd_mma_plan`) where C is a multiple
+    of 16, as on all four Table III layers, the FFMA instance
+    (:func:`conv_bwd_plan` at 2-byte elements) elsewhere."""
+    if c % CONV_MMA_K16 == 0 and c > 0:
+        return conv_bwd_mma_plan(s, n, h, w, c, cout, k, pooled=pooled)
+    return conv_bwd_plan(s, n, h, w, c, cout, k, pooled=pooled, esize=2)
 
 
 def _check_kernel(name, w, cin, dtype):
@@ -598,12 +808,14 @@ _BWD_ENTRY = {torch.float32: "repro_conv2d_bwd_fused",
 def bwd_fused(name: str, entries: dict, plain: Callable,
               g: torch.Tensor, wt: torch.Tensor, *, pool_idx, relu_mask,
               gate, method, out_relu_mask, out_gate,
-              plan: Optional[ConvBwdPlan] = None) -> torch.Tensor:
+              plan=None) -> torch.Tensor:
     """Check the fused-backward operands, then run ``plain`` on the CPU or
     launch the entry of g's element type (``entries``, counted under
-    ``name``): tiled by ``plan``, by :func:`conv_bwd_plan` when it is None
-    and K is in :data:`CONV_KS`, on the general kernel for any other K or
-    :data:`CONV_BWD_GENERAL`."""
+    ``name``): tiled by ``plan``, when it is None and K is in
+    :data:`CONV_KS` by :func:`conv_bwd_bf16_plan` for bf16 and
+    :func:`conv_bwd_plan` otherwise, on the general kernel for any other K
+    or :data:`CONV_BWD_GENERAL`.  The bf16 entry takes its route first (1
+    for a :class:`ConvBwdMmaPlan`, 0 for a :class:`ConvBwdPlan`)."""
     gate, out_gate = validate_bp_gates(method, gate, relu_mask, out_gate,
                                        out_relu_mask)
     seeded = g.dim() == 5
@@ -626,17 +838,26 @@ def bwd_fused(name: str, entries: dict, plain: Callable,
         check(name, out_relu_mask, torch.uint8, (n, h, w, mask_bytes(cout)),
               what="out_relu_mask")
     pooled, esize = pool_idx is not None, g.element_size()
+    bf16 = g.dtype == torch.bfloat16
     if plan is None:
-        plan = (conv_bwd_plan(s, n, h, w, c, cout, k, pooled=pooled,
-                              esize=esize) if k in CONV_KS
-                else CONV_BWD_GENERAL)
-    _check_bwd_plan(plan, k, pooled=pooled, esize=esize)
+        plan = (CONV_BWD_GENERAL if k not in CONV_KS
+                else conv_bwd_bf16_plan(s, n, h, w, c, cout, k,
+                                        pooled=pooled) if bf16
+                else conv_bwd_plan(s, n, h, w, c, cout, k, pooled=pooled,
+                                   esize=esize))
+    _check_bwd_plan(plan, k, pooled=pooled, esize=esize, c=c, s=s,
+                    dtype=g.dtype)
     if not on_card(name, g5, wt, pool_idx, relu_mask, out_relu_mask):
         return plain(
             g, wt, pool_idx=pool_idx, relu_mask=relu_mask, gate=gate,
             method=method, out_relu_mask=out_relu_mask, out_gate=out_gate)
     _check_general(name, g.dtype, plan == CONV_BWD_GENERAL)
     check_kernel_operands(name, g5, wt, pool_idx, relu_mask, out_relu_mask)
+    mma = isinstance(plan, ConvBwdMmaPlan)
+    # bf16: the route argument, and the kernel it selects counted apart
+    route, counted = (((int(mma),), dict(
+        route="conv2d_bwd_fused_bf16_mma" if mma
+        else "conv2d_bwd_fused_bf16_ffma")) if bf16 else ((), {}))
     out = torch.empty((s, n, h, w, cout), dtype=g.dtype, device=g.device)
     if out.numel():
         _build.launch(name, entries[g.dtype], g.device, g5.data_ptr(),
@@ -644,7 +865,7 @@ def bwd_fused(name: str, entries: dict, plain: Callable,
                       _build.ptr(pool_idx), _build.ptr(relu_mask),
                       _build.ptr(out_relu_mask), out.data_ptr(), s, n, h, w,
                       c, cout, k, int(gate), int(out_gate),
-                      METHOD_CODES[method], *plan.args())
+                      METHOD_CODES[method], *route, *plan.args(), **counted)
     return out if seeded else out[0]
 
 
@@ -656,7 +877,7 @@ def conv2d_bwd_fused(
         method: str = "saliency",
         out_relu_mask: Optional[torch.Tensor] = None,
         out_gate: Optional[bool] = None,
-        plan: Optional[ConvBwdPlan] = None) -> torch.Tensor:
+        plan=None) -> torch.Tensor:
     """One launch for a conv layer's whole backward step.
 
     ``g``:        gradients w.r.t. the layer output, [N, Hg, Wg, C] or
@@ -670,8 +891,12 @@ def conv2d_bwd_fused(
     ``out_relu_mask``/``out_gate``: the same as an epilogue on the outgoing
                   gradient, [N, H, W, ceil(Cout'/8)].
     ``plan``:     the tile (tests, sweeps): :func:`conv_bwd_plan`'s by
-                  default, :data:`CONV_BWD_GENERAL` for the general kernel;
-                  every plan gives the same bits.
+                  default (bf16: :func:`conv_bwd_bf16_plan`'s),
+                  :data:`CONV_BWD_GENERAL` for the general kernel; every
+                  plan gives the same bits, but for bf16, where a
+                  :class:`ConvBwdPlan` selects the FFMA route and a
+                  :class:`ConvBwdMmaPlan` the tensor cores, every plan of a
+                  route the same bits (the two routes sum in other orders).
     Residuals carry no seeds axis: the seeds of a block share one load, all
     S of them for S <= 3 (groups of 3 beyond).  ``g`` and ``wt`` are f32 or
     bf16 (f32 sums, rounded once after the epilogue gate).

@@ -21,8 +21,11 @@ JAX package adds it after ``vmm_pallas``).  The bf16 forward runs on the
 tensor cores in one launch, K split across the blocks of a thread-block
 cluster and reduced in their shared memory, with no workspace
 (``csrc/vmm_fwd_bf16.cu``, :func:`vmm_planned`, :class:`VmmMmaPlan` by
-:func:`vmm_mma_plan`); the split-K forward is f32's and int16's.  bf16 has
-no general fused-backward kernel: on the card it takes a tile plan.  The
+:func:`vmm_mma_plan`); the split-K forward is f32's and int16's.  The bf16
+fused backward runs on the tensor cores too, all the seeds' rows in one
+block (``csrc/vmm_bwd_bf16.cu``, :class:`VmmBwdMmaPlan` by
+:func:`vmm_bwd_mma_plan`); the tiled template of ``csrc/vmm_bwd.cuh`` is
+f32's and int16's, and bf16 has no general fused-backward kernel.  The
 int16 twins (``vmm.fxp``) share the argument contract, checks and plain
 dataflow defined here; only the element type, the entry point and the
 product itself differ.
@@ -236,11 +239,114 @@ def vmm_bwd_candidates(s: int, m: int, k: int, n: int):
     return out
 
 
-def _check_bwd_plan(name: str, plan: VmmBwdPlan, esize: int) -> None:
-    """Raise unless the fused backward can run ``plan`` on
-    ``esize``-byte elements."""
+#: The bf16 tensor-core fused backward (``csrc/vmm_bwd_bf16.cu``): a warp
+#: holds ``mf`` m16 row fragments (1 or 2) x ``nt`` n8 column fragments (2
+#: or 4), and a k step is 16 deep (K is zero-filled up to it).  The rule's
+#: tile: rows and columns a block, K a chunk at most.
+VMM_BWD_MMA_MFS, VMM_BWD_MMA_NTS, VMM_BWD_MMA_K16 = (1, 2), (2, 4), 16
+VMM_BWD_MMA_BR, VMM_BWD_MMA_BN, VMM_BWD_MMA_MAX_KC = 32, 64, 128
+
+
+@dataclass(frozen=True)
+class VmmBwdMmaPlan:
+    """The bf16 tensor-core fused backward's tile: ``br`` rows (of the
+    seeds folded into ``[S*M]``) x ``bn`` columns a block, ``kc`` k (a
+    multiple of 16) a ring stage, each warp ``16 mf`` rows x ``8 nt``
+    columns.  No field changes the order of any sum: each output adds its
+    k16 steps in k order."""
+    br: int
+    bn: int
+    kc: int
+    mf: int
+    nt: int
+
+    @property
+    def threads(self) -> int:
+        return 32 * (self.br // (16 * self.mf)) * (self.bn // (8 * self.nt))
+
+    def blocks(self, rows: int, n: int) -> int:
+        return cdiv(rows, self.br) * cdiv(n, self.bn)
+
+    def smem_bytes(self, k: int) -> int:
+        """2-byte elements, as ``csrc/vmm_bwd_bf16.cu`` lays them out: a
+        stage is the block's g rows (``kc`` padded by 16 bytes; gated in
+        place) and the weight chunk (rows of ``bn`` rounded up to an odd
+        number of 8-column units); two stages where K takes more than one
+        chunk, else one."""
+        stage = (self.br * (self.kc + 8)
+                 + self.kc * 8 * ((self.bn // 8) | 1))
+        return 2 * (2 if k > self.kc else 1) * stage
+
+    def args(self) -> Tuple[int, int, int, int, int]:
+        return (self.br, self.bn, self.kc, self.mf, self.nt)
+
+
+def vmm_bwd_mma_plan(s: int, m: int, k: int, n: int) -> VmmBwdMmaPlan:
+    """The bf16 tensor-core fused backward's tile for ``g [s, m, k] @ wt
+    [k, n]`` on an H100, from ``python3 chip_smoke.py --sweep``: up to 32
+    rows x 64 columns a block (16 or 32 columns where N needs no more), one
+    m16 and two n8 fragments a warp, K in one chunk up to 128.  At FC0 ``[3,
+    32, 128] @ [128, 4096]`` that is 192 blocks of 8 warps, each weight
+    element fetched from L2 by three row blocks: 0.0097 ms between events
+    against 0.0116 for the best plan holding all 96 rows in a block (one
+    fetch), which leaves 128 or fewer blocks to hide the copies' latency;
+    at FC1 (K = 10, one k16 step) it is within 2 % of the fastest."""
+    rows = max(s * m, 1)
+    br = min(VMM_BWD_MMA_BR, align_up(rows, 16))
+    bn = max(b for b in (16, 32, VMM_BWD_MMA_BN)
+             if b <= max(16, align_up(n, 16)))
+    kc = min(VMM_BWD_MMA_MAX_KC, align_up(max(k, 1), VMM_BWD_MMA_K16))
+    return VmmBwdMmaPlan(br, bn, kc, 1, 2)
+
+
+def vmm_bwd_mma_candidates(s: int, m: int, k: int, n: int):
+    """The tensor-core tile plans ``chip_smoke.py --sweep`` times for one
+    launch (and the card tests hold bitwise to each other): 16 to 128 rows
+    (no more than the launch has), 16 to 64 columns (no wider than N
+    needs), chunks of 16 to 128 k (no deeper than K), 1 or 2 row fragments
+    x 2 or 4 column fragments a warp, 32 to 256 threads, within 227 KB."""
+    rows16 = align_up(max(s * m, 1), 16)
+    brs = sorted({min(b, rows16) for b in (16, 32, 64, 96, 128)})
+    kcs = sorted({min(c, align_up(max(k, 1), VMM_BWD_MMA_K16))
+                  for c in (16, 32, 64, 128)})
+    out = []
+    for br in brs:
+        for bn in (16, 32, 64):
+            for kc in kcs:
+                for mf in VMM_BWD_MMA_MFS:
+                    for nt in VMM_BWD_MMA_NTS:
+                        p = VmmBwdMmaPlan(br, bn, kc, mf, nt)
+                        if (br % (16 * mf) == 0 and bn % (8 * nt) == 0
+                                and bn <= max(16, align_up(n, 16))
+                                and p.threads <= VMM_BWD_MAX_THREADS
+                                and p.smem_bytes(k) <= VMM_BWD_SMEM_LIMIT):
+                            out.append(p)
+    return out
+
+
+def _check_bwd_plan(name: str, plan, dtype: torch.dtype, esize: int,
+                    k: int) -> None:
+    """Raise unless the fused backward can run ``plan`` on ``dtype``
+    (``esize``-byte) elements and K = ``k``: a :class:`VmmBwdMmaPlan` for
+    bf16, a :class:`VmmBwdPlan` (or :data:`VMM_BWD_GENERAL`, f32 and int16
+    only) otherwise."""
     if plan == VMM_BWD_GENERAL:
         return
+    if dtype == torch.bfloat16:
+        if (not isinstance(plan, VmmBwdMmaPlan)
+                or plan.mf not in VMM_BWD_MMA_MFS
+                or plan.nt not in VMM_BWD_MMA_NTS
+                or plan.br < 16 * plan.mf or plan.br % (16 * plan.mf)
+                or plan.bn < 8 * plan.nt or plan.bn % (8 * plan.nt)
+                or plan.kc < VMM_BWD_MMA_K16 or plan.kc % VMM_BWD_MMA_K16
+                or plan.threads > VMM_BWD_MAX_THREADS
+                or plan.smem_bytes(k) > VMM_BWD_SMEM_LIMIT):
+            raise ValueError(f"{name}: invalid tile plan {plan} for bf16 "
+                             f"(the tensor cores take a VmmBwdMmaPlan)")
+        return
+    if not isinstance(plan, VmmBwdPlan):
+        raise ValueError(f"{name}: invalid tile plan {plan}: the tensor-core "
+                         f"route is bf16's only")
     if (plan.rm not in VMM_BWD_RMS or plan.br < plan.rm
             or plan.br % plan.rm or plan.bn < 4 or plan.bn % 4
             or plan.kc < VMM_BWD_KG or plan.kc % VMM_BWD_KG
@@ -392,11 +498,12 @@ _BWD_ENTRY = {torch.float32: "repro_vmm_bwd_fused",
 def bwd_fused(name: str, entries: dict, plain: Callable,
               g: torch.Tensor, w: torch.Tensor, *, relu_mask, gate, method,
               out_relu_mask, out_gate,
-              plan: Optional[VmmBwdPlan] = None) -> torch.Tensor:
+              plan=None) -> torch.Tensor:
     """Check the fused-backward operands, then run ``plain`` on the CPU or
     launch the entry of g's element type (``entries``, counted under
-    ``name``), tiled by ``plan`` (:func:`vmm_bwd_plan`'s when it is None;
-    :data:`VMM_BWD_GENERAL` for the general kernel, which bf16 has not)."""
+    ``name``), tiled by ``plan`` (when it is None :func:`vmm_bwd_mma_plan`'s
+    for bf16, :func:`vmm_bwd_plan`'s otherwise; :data:`VMM_BWD_GENERAL` for
+    the general kernel, which bf16 has not)."""
     gate, out_gate = validate_bp_gates(method, gate, relu_mask, out_gate,
                                        out_relu_mask)
     seeded = g.dim() == 3
@@ -414,23 +521,26 @@ def bwd_fused(name: str, entries: dict, plain: Callable,
     if out_relu_mask is not None:
         check(name, out_relu_mask, torch.uint8, (m, mask_bytes(n)),
               what="out_relu_mask")
+    bf16 = g.dtype == torch.bfloat16
     if plan is None:
-        plan = vmm_bwd_plan(s, m, k, n)
-    _check_bwd_plan(name, plan, g.element_size())
+        plan = (vmm_bwd_mma_plan if bf16 else vmm_bwd_plan)(s, m, k, n)
+    _check_bwd_plan(name, plan, g.dtype, g.element_size(), k)
     if not on_card(name, g3, w, relu_mask, out_relu_mask):
         return plain(g, w, relu_mask=relu_mask, gate=gate, method=method,
                      out_relu_mask=out_relu_mask, out_gate=out_gate)
-    if plan == VMM_BWD_GENERAL and g.dtype == torch.bfloat16:
+    if plan == VMM_BWD_GENERAL and bf16:
         raise ValueError(f"{name}: bf16 has no general kernel; on the card "
                          f"it takes a tile plan")
     check_kernel_operands(name, g3, w, relu_mask, out_relu_mask)
+    # bf16: the tensor-core kernel, counted under its route too
+    counted = dict(route="vmm_bwd_fused_bf16_mma") if bf16 else {}
     out = torch.empty((s, m, n), dtype=g.dtype, device=g.device)
     if out.numel():
         _build.launch(name, entries[g.dtype], g.device, g3.data_ptr(),
                       w.data_ptr(),
                       _build.ptr(relu_mask), _build.ptr(out_relu_mask),
                       out.data_ptr(), s, m, k, n, int(gate), int(out_gate),
-                      METHOD_CODES[method], *plan.args())
+                      METHOD_CODES[method], *plan.args(), **counted)
     return out if seeded else out[0]
 
 
@@ -440,7 +550,7 @@ def vmm_bwd_fused(g: torch.Tensor, w: torch.Tensor, *,
                   method: str = "saliency",
                   out_relu_mask: Optional[torch.Tensor] = None,
                   out_gate: Optional[bool] = None,
-                  plan: Optional[VmmBwdPlan] = None) -> torch.Tensor:
+                  plan=None) -> torch.Tensor:
     """One launch for an FC layer's whole backward step.
 
     ``g``: [M, K] or seed-batched [S, M, K] gradients w.r.t. the FC output.
@@ -450,9 +560,10 @@ def vmm_bwd_fused(g: torch.Tensor, w: torch.Tensor, *,
     ``out_relu_mask``/``out_gate``: epilogue gate on the outgoing gradient,
     [M, ceil(N/8)].  Masks carry no seeds axis — shared across S.
     ``plan``: the tile (tests, sweeps): :func:`vmm_bwd_plan`'s by default,
-    :data:`VMM_BWD_GENERAL` for the general kernel (f32 only); every plan
-    gives the same bits.  ``g`` and ``w`` are f32 or bf16 (f32 sums,
-    rounded once after the epilogue gate).
+    :data:`VMM_BWD_GENERAL` for the general kernel (f32 only); bf16 runs on
+    the tensor cores, :class:`VmmBwdMmaPlan` by :func:`vmm_bwd_mma_plan`;
+    every plan gives the same bits.  ``g`` and ``w`` are f32 or bf16 (f32
+    sums, rounded once after the epilogue gate).
     CPU tensors run :func:`vmm_bwd_fused_plain`; CUDA tensors the kernel.
     """
     return bwd_fused("vmm_bwd_fused", _BWD_ENTRY,

@@ -336,7 +336,7 @@ def test_bf16_wrappers_launch_their_bf16_entries(launches):
     from repro_torch.kernels.pool.pool import maxpool_fwd, relu_pool_fwd
     from repro_torch.kernels.relu_mask.relu_mask import relu_fwd
     from repro_torch.kernels.vmm.vmm import (vmm, vmm_bwd_fused,
-                                             vmm_bwd_plan, vmm_mma_plan)
+                                             vmm_bwd_mma_plan, vmm_mma_plan)
     bf = torch.bfloat16
     x = torch.zeros(2, 8, 8, 16, dtype=bf)
     conv2d(x, torch.zeros(3, 3, 16, 8, dtype=bf), torch.zeros(8, dtype=bf))
@@ -361,14 +361,15 @@ def test_bf16_wrappers_launch_their_bf16_entries(launches):
         assert len(args) + 1 == len(_build.SIGNATURES[entry])
     # the forwards on the tensor cores: the conv (Cin 16) on route 1 and
     # its plan, FC0 with no workspace, a cluster's K slices and a column
-    # tile; the backwards' tile plans at 2-byte elements
+    # tile; the conv backward (C 8) on route 0, its tile plan at 2-byte
+    # elements; the FC backward's tensor-core plan
     plan = conv_bf16_plan(2, 8, 8, 16, 8, 3)
     assert plan == conv_mma_plan(2, 8, 8, 16, 8, 3)
     assert launches[0][2][10:] == (1,) + plan.args()
-    assert launches[1][2][-6:] == conv_bwd_plan(3, 2, 8, 8, 8, 16, 3,
-                                                esize=2).args()
+    assert launches[1][2][-7:] == (0,) + conv_bwd_plan(3, 2, 8, 8, 8, 16, 3,
+                                                       esize=2).args()
     assert launches[2][2][7:] == vmm_mma_plan(32, 4096, 128).args(4096)
-    assert launches[3][2][-4:] == vmm_bwd_plan(3, 32, 128, 10).args()
+    assert launches[3][2][-5:] == vmm_bwd_mma_plan(3, 32, 128, 10).args()
 
 
 @pytest.mark.parametrize("method", METHODS)

@@ -33,7 +33,13 @@ among them the bf16 forwards on the tensor cores (every conv tile of
 ``conv_mma_candidates`` and every FC cluster size of
 ``vmm_mma_candidates`` within one bf16 step of the plain version, a
 route's plans bitwise equal, the conv's FFMA route within the same bound;
-ragged H/W and Cout, Cin 16/48/96, K = 1, 5, 7, misaligned views).
+ragged H/W and Cout, Cin 16/48/96, K = 1, 5, 7, misaligned views) and the
+bf16 backwards on the tensor cores (every plan of
+``conv_bwd_mma_candidates`` and ``vmm_bwd_mma_candidates`` bitwise equal
+to the rule's and to a repeat, within one bf16 step of the plain version;
+K 1 to 7, Cout' 3 to 64, pooled or not, the epilogue gate on and off, the
+three methods, S 1, 3 and 4, FC K = 10, 13 and 37, misaligned views; C =
+13 on the FFMA route).
 Every test needs a CUDA device and skips without one.  This file imports
 neither JAX nor the JAX package, so on a machine without JAX run it
 without the suite's conftest:
@@ -44,14 +50,17 @@ import pytest
 import torch
 
 from repro_torch.core import fixedpoint, masks
-from repro_torch.kernels import LAUNCHES
+from repro_torch.kernels import LAUNCHES, _build
 from repro_torch.kernels.conv2d import ref as conv_ref
 from repro_torch.kernels.conv2d.conv2d import (CONV_BWD_GENERAL,
-                                               CONV_GENERAL, ConvBwdPlan,
-                                               ConvPlan, conv2d,
+                                               CONV_GENERAL, ConvBwdMmaPlan,
+                                               ConvBwdPlan, ConvPlan, conv2d,
                                                conv2d_bwd_fused,
                                                conv2d_bwd_fused_plain,
-                                               conv2d_planned, conv_bwd_plan,
+                                               conv2d_planned,
+                                               conv_bwd_bf16_plan,
+                                               conv_bwd_mma_candidates,
+                                               conv_bwd_plan,
                                                conv_mma_candidates, conv_plan)
 from repro_torch.kernels.conv2d.fxp import (conv2d_bwd_fused_fxp,
                                             conv2d_bwd_fused_fxp_plain,
@@ -70,7 +79,9 @@ from repro_torch.kernels.vmm.fxp import (vmm_bwd_fused_fxp,
                                          vmm_fxp_with_splits)
 from repro_torch.kernels.vmm.vmm import (VMM_BWD_GENERAL, VmmBwdPlan, vmm,
                                          vmm_bwd_candidates, vmm_bwd_fused,
-                                         vmm_bwd_fused_plain, vmm_bwd_plan,
+                                         vmm_bwd_fused_plain,
+                                         vmm_bwd_mma_candidates,
+                                         vmm_bwd_mma_plan, vmm_bwd_plan,
                                          vmm_max_splits, vmm_mma_candidates,
                                          vmm_mma_plan, vmm_planned,
                                          vmm_splits, vmm_with_splits)
@@ -1440,15 +1451,24 @@ def _bwd_acc(g, wt, kw):
 @pytest.mark.parametrize("case", BWD_CASES)
 @pytest.mark.parametrize("method", METHODS)
 def test_conv2d_bwd_fused_bf16(gen, case, method, k):
+    """The rule's route within one bf16 step of the plain version; the FFMA
+    route's plans the same bits, and within one bf16 step of the tensor
+    cores where C is a multiple of 16 (C = 32 here), whose rule's plan is
+    the route's bits again."""
     g, wt, kw = _bwd_inputs_bf16(gen, case, method, k=k)
     got = _launched("conv2d_bwd_fused", lambda: conv2d_bwd_fused(g, wt, **kw))
-    _bf16_close(got, conv2d_bwd_fused_plain(g, wt, **kw), _bwd_acc(g, wt, kw))
+    acc = _bwd_acc(g, wt, kw)
+    _bf16_close(got, conv2d_bwd_fused_plain(g, wt, **kw), acc)
     n, h, w, c, cout, pooled, s, _ = case
-    plan = conv_bwd_plan(s, n, h, w, c, cout, k, pooled=pooled, esize=2)
-    others = [ConvBwdPlan(2, 4, 8, 4, 1, 2), ConvBwdPlan(4, 8, 4, 8, 1, 1)]
-    for again in [conv2d_bwd_fused(g, wt, plan=p, **kw)
-                  for p in [plan] + others]:
-        _equal_bits((again,), (got,))
+    plan = conv_bwd_bf16_plan(s, n, h, w, c, cout, k, pooled=pooled)
+    assert isinstance(plan, ConvBwdMmaPlan) == (c % 16 == 0)
+    _equal_bits((conv2d_bwd_fused(g, wt, plan=plan, **kw),), (got,))
+    ffma = [conv_bwd_plan(s, n, h, w, c, cout, k, pooled=pooled, esize=2),
+            ConvBwdPlan(2, 4, 8, 4, 1, 2), ConvBwdPlan(4, 8, 4, 8, 1, 1)]
+    first = conv2d_bwd_fused(g, wt, plan=ffma[0], **kw)
+    for p in ffma[1:]:
+        _equal_bits((conv2d_bwd_fused(g, wt, plan=p, **kw),), (first,))
+    _bf16_close(first, got, acc)
 
 
 def test_conv2d_bwd_fused_bf16_misaligned_pointers(gen):
@@ -1458,6 +1478,92 @@ def test_conv2d_bwd_fused_bf16_misaligned_pointers(gen):
     _, wt, kw = _bwd_inputs_bf16(gen, case, "guided")
     _bf16_close(conv2d_bwd_fused(g, wt, **kw),
                 conv2d_bwd_fused_plain(g, wt, **kw), _bwd_acc(g, wt, kw))
+
+
+# -- B5 bf16 on the tensor cores --------------------------------------------
+#
+# The tensor-core route (csrc/conv_bwd_mma.cu): every plan of
+# conv_bwd_mma_candidates the same bits as the rule's plan and as a repeat,
+# each within one bf16 step of the plain version; K 1 to 7, Cout' 3 to 64
+# (one n8 fragment a block up to 8), pooled or not, the epilogue gate on and
+# off, the three methods and S 1, 3 and 4 (a second seed group) spread over
+# the cases, and misaligned views.
+
+_MMA_BWD_COUTS = (3, 8, 13, 32, 64)
+
+
+@pytest.mark.parametrize("pooled", [True, False], ids=["pool", "nopool"])
+@pytest.mark.parametrize("cout", _MMA_BWD_COUTS)
+@pytest.mark.parametrize("k", [1, 3, 5, 7])
+def test_conv2d_bwd_fused_bf16_tensor_core_plans(gen, k, cout, pooled):
+    i = [1, 3, 5, 7].index(k) + _MMA_BWD_COUTS.index(cout) + int(pooled)
+    method, s = METHODS[i % 3], (1, 3, 4)[i % 3]
+    epilogue, c = i % 2 == 0, (16, 32)[i % 2]
+    case = (1, 6, 18, c, cout, pooled, s, epilogue)
+    g, wt, kw = _bwd_inputs_bf16(gen, case, method, k=k)
+    before = dict(_build.ROUTE_LAUNCHES)
+    got = _launched("conv2d_bwd_fused", lambda: conv2d_bwd_fused(g, wt, **kw))
+    assert _build.ROUTE_LAUNCHES["conv2d_bwd_fused_bf16_mma"] == \
+        before["conv2d_bwd_fused_bf16_mma"] + 1
+    _bf16_close(got, conv2d_bwd_fused_plain(g, wt, **kw), _bwd_acc(g, wt, kw))
+    _equal_bits((conv2d_bwd_fused(g, wt, **kw),), (got,))         # again
+    plans = conv_bwd_mma_candidates(s, 6, 18, c, cout, k, pooled=pooled)
+    assert plans
+    for p in plans:
+        _equal_bits((conv2d_bwd_fused(g, wt, plan=p, **kw),), (got,))
+
+
+@pytest.mark.parametrize("s", [1, 3, 4])
+@pytest.mark.parametrize("epilogue", [True, False])
+@pytest.mark.parametrize("method", METHODS)
+def test_conv2d_bwd_fused_bf16_tensor_cores_methods_and_seeds(
+        gen, method, epilogue, s):
+    """The Table III layer-0 shape (C 32 -> Cout' 3, one n8 fragment) and
+    layer 3's (pooled, C 64 -> 64) at N = 1 under every method, seed count
+    and epilogue gate."""
+    for case in ((1, 32, 32, 32, 3, False, s, epilogue),
+                 (1, 16, 16, 64, 64, True, s, epilogue)):
+        g, wt, kw = _bwd_inputs_bf16(gen, case, method)
+        got = conv2d_bwd_fused(g, wt, **kw)
+        _bf16_close(got, conv2d_bwd_fused_plain(g, wt, **kw),
+                    _bwd_acc(g, wt, kw))
+        n, h, w, c, cout, pooled, _, _ = case
+        plan = conv_bwd_bf16_plan(s, n, h, w, c, cout, 3, pooled=pooled)
+        assert isinstance(plan, ConvBwdMmaPlan)
+        other = ConvBwdMmaPlan(2, 1, min(plan.tco, 32), 16, 1, min(s, 3))
+        _equal_bits((conv2d_bwd_fused(g, wt, plan=other, **kw),), (got,))
+
+
+def test_conv2d_bwd_fused_bf16_tensor_cores_misaligned_pointers(gen):
+    """The tensor-core route's copies by ordinary loads (g or wt 2 bytes
+    off), 4- and 8-byte copies (4 and 8 bytes off 16): the aligned
+    result's bits."""
+    case = (2, 8, 8, 32, 24, True, 3, True)
+    g0, w0, kw = _bwd_inputs_bf16(gen, case, "guided")
+    want = conv2d_bwd_fused(g0, w0, **kw)
+    for off in (1, 2, 4):
+        fg = torch.zeros(g0.numel() + off, dtype=BF, device="cuda")
+        fg[off:] = g0.reshape(-1)
+        fw = torch.zeros(w0.numel() + off, dtype=BF, device="cuda")
+        fw[off:] = w0.reshape(-1)
+        g, wt = fg[off:].view(g0.shape), fw[off:].view(w0.shape)
+        _equal_bits((conv2d_bwd_fused(g, w0, **kw),), (want,))
+        _equal_bits((conv2d_bwd_fused(g0, wt, **kw),), (want,))
+    _bf16_close(want, conv2d_bwd_fused_plain(g0, w0, **kw),
+                _bwd_acc(g0, w0, kw))
+
+
+def test_conv2d_bwd_fused_bf16_c13_takes_ffma(gen):
+    """C off the 16-channel step reaches the FFMA instance (route 0)."""
+    case = (2, 8, 8, 13, 9, True, 3, False)
+    g, wt, kw = _bwd_inputs_bf16(gen, case, "saliency")
+    assert isinstance(conv_bwd_bf16_plan(3, 2, 8, 8, 13, 9, 3, pooled=True),
+                      ConvBwdPlan)
+    before = dict(_build.ROUTE_LAUNCHES)
+    got = conv2d_bwd_fused(g, wt, **kw)
+    assert {k: v - before[k] for k, v in _build.ROUTE_LAUNCHES.items()
+            if v != before[k]} == {"conv2d_bwd_fused_bf16_ffma": 1}
+    _bf16_close(got, conv2d_bwd_fused_plain(g, wt, **kw), _bwd_acc(g, wt, kw))
 
 
 @pytest.mark.parametrize("m,k,n", [(5, 37, 13), (1, 4096, 128),
@@ -1509,8 +1615,15 @@ def test_vmm_bf16_tensor_core_plans(gen, m, k, n):
 @pytest.mark.parametrize("s,m,k,n,epilogue", [(1, 4, 13, 21, True),
                                               (3, 32, 128, 4096, False),
                                               (3, 32, 10, 128, False),
-                                              (2, 7, 64, 40, True)])
+                                              (2, 7, 64, 40, True),
+                                              (3, 50, 37, 20, True),
+                                              (4, 33, 200, 9, False)])
 def test_vmm_bwd_fused_bf16_every_plan(gen, method, s, m, k, n, epilogue):
+    """The tensor-core kernel (csrc/vmm_bwd_bf16.cu) within one bf16 step
+    of the plain version, one launch counted under its route; every plan of
+    vmm_bwd_mma_candidates, and a repeat, the same bits (K = 10, 13 and 37
+    zero-filled to the next k16 step; more than 128 rows: two row
+    blocks)."""
     g, w = _bf(gen, s, m, k), _bf(gen, k, n, scale=k ** -0.5)
     mask = (None if method == "deconvnet"
             else masks.pack_mask(_randn(gen, m, k) > 0))
@@ -1518,12 +1631,45 @@ def test_vmm_bwd_fused_bf16_every_plan(gen, method, s, m, k, n, epilogue):
              if epilogue and method != "deconvnet" else None)
     kw = dict(relu_mask=mask, gate=True, method=method,
               out_relu_mask=omask, out_gate=epilogue)
+    before = _build.ROUTE_LAUNCHES["vmm_bwd_fused_bf16_mma"]
     got = _launched("vmm_bwd_fused", lambda: vmm_bwd_fused(g, w, **kw))
+    assert _build.ROUTE_LAUNCHES["vmm_bwd_fused_bf16_mma"] == before + 1
     from repro_torch.kernels.vmm.vmm import bwd_fused_plain
     acc = bwd_fused_plain(vmm_ref.vmm_widened, g, w, **kw)
     _bf16_close(got, vmm_bwd_fused_plain(g, w, **kw), acc)
-    for p in vmm_bwd_candidates(s, m, k, n):
+    _equal_bits((vmm_bwd_fused(g, w, **kw),), (got,))             # again
+    assert vmm_bwd_mma_plan(s, m, k, n) in vmm_bwd_mma_candidates(s, m, k, n)
+    for p in vmm_bwd_mma_candidates(s, m, k, n):
         _equal_bits((vmm_bwd_fused(g, w, plan=p, **kw),), (got,))
+
+
+def test_vmm_bwd_fused_bf16_misaligned_pointers(gen):
+    """Copies by ordinary loads (g 2 bytes off, w 6 bytes off) and 4-byte
+    copies (K = 10): the aligned result's bits."""
+    for s, m, k, n in ((3, 7, 64, 12), (3, 32, 10, 128)):
+        g0, w0 = _bf(gen, s, m, k), _bf(gen, k, n, scale=k ** -0.5)
+        mask = masks.pack_mask(_randn(gen, m, k) > 0)
+        kw = dict(relu_mask=mask, method="guided")
+        want = vmm_bwd_fused(g0, w0, **kw)
+        fg = _bf(gen, g0.numel() + 1)
+        fg[1:] = g0.reshape(-1)
+        fw = _bf(gen, w0.numel() + 3)
+        fw[3:] = w0.reshape(-1)
+        _equal_bits((vmm_bwd_fused(fg[1:].view(g0.shape), w0, **kw),),
+                    (want,))
+        _equal_bits((vmm_bwd_fused(g0, fw[3:].view(w0.shape), **kw),),
+                    (want,))
+        from repro_torch.kernels.vmm.vmm import bwd_fused_plain
+        _bf16_close(want, vmm_bwd_fused_plain(g0, w0, **kw),
+                    bwd_fused_plain(vmm_ref.vmm_widened, g0, w0, **kw))
+
+
+def test_vmm_bwd_fused_bf16_refuses_the_ffma_plans(gen):
+    """bf16 has no FFMA FC backward: a VmmBwdPlan raises, before any
+    launch."""
+    g, w = _bf(gen, 3, 32, 128), _bf(gen, 128, 64)
+    with pytest.raises(ValueError, match="VmmBwdMmaPlan"):
+        vmm_bwd_fused(g, w, plan=vmm_bwd_plan(3, 32, 128, 64))
 
 
 def test_bf16_engine_on_card_matches_cpu_twin(gen):

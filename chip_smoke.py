@@ -5,8 +5,9 @@ the shapes its path gives it, then explain full-width batches of the Table
 III CNN through the engine, in f32, in bf16 and in the paper's true-int16
 fixed point (fxp16), state the paper's own accounting (Table II / §V,
 Table IV), then explain through autograd (the vjp backend), train a few
-steps, and explain each generated token of falcon-mamba-7b at full width
-and depth, and check them against the CPU.
+steps, explain each generated token of falcon-mamba-7b at full width
+and depth and serve it, serve the CNN through the explanation server
+(``repro_torch.serve``), and check them against the CPU.
 
     python3 chip_smoke.py                  # one card; exits 0 when all pass
     python3 chip_smoke.py --out DIR        # also writes DIR/chip_smoke.json
@@ -140,6 +141,13 @@ Phases (every failed check raises; nothing is caught and carried on):
    backward kernel and the CPU's through its plain reverse recurrence;
    contrastive = ixg(a) - ixg(b) within 1e-4 * max; one B13 and one B13
    bwd launch per layer and explain.
+7b. lm serve (at the end of phase 7, on its model): an ``LMAdapter``
+   ``ExplanationServer`` (``max_batch`` 4): 4 predicts bitwise the
+   last-position logits of ``forward`` (no B13 launch), then batches of 4
+   ``token_ixg`` and of 4 ``token_contrastive`` requests of 64 tokens,
+   each response bitwise ``Engine.explain_tokens`` on the same padded
+   batch, 64 B13 and 64 B13 bwd launches a batch; host ms through the
+   server and device span a batch.
 
 9. paper tables (after phase 4 of the last path): each config's
    ``core.residuals`` Ledger (``TABLE_III_LITERAL``, the paper's 24.7 Kb,
@@ -151,6 +159,30 @@ Phases (every failed check raises; nothing is caught and carried on):
    of a packed-residual explain against a ``backward="vjp"`` explain over
    ``method="autodiff"`` (§V); FP against FP+BP device ms at batch 1 and 32
    in f32, bf16 and fxp16 (Table IV).
+
+10. serve (after phase 8): ``ExplanationServer(CNNAdapter.from_engine(
+   eng), max_batch=32)`` on the card, f32, full Table III width, and a CPU
+   twin server fed the same requests: 64 predicts (two batches), their
+   explains (saliency, guided, deconvnet, top-3 panels, explicit targets:
+   every one a cache hit), 32 cold explains of new uids and their top-3
+   follow-ups; every response bitwise ``Engine.explain`` of the same
+   padded batch; a hit batch launches 4 B5 and 2 B6 and no forward
+   kernel, a cold BP batch both sets, a predict batch the forward's;
+   against the twin, logits within 1e-5 * max and relevance within 1e-4 *
+   max (examples whose stored bits differ replayed on the card's bits);
+   8 integrated-gradients requests (steps 16) bitwise ``Engine.ig`` of
+   their batch, 8 smoothgrad (n 8, per-request seeds) co-batched bitwise
+   equal to singleton requests; the cache's bits = its entries x the
+   Ledger's bits an example = the bytes its tensors own; a server under
+   pressure rerouting to fxp16 (``DegradePolicy``), the rerouted responses
+   flagged and bitwise the card's fxp16 engine and the CPU twin's; host ms
+   through the server against device ms of the kernels for a 32-row
+   predict, hit and cold BP batch, and the host ms of filling the cache;
+   ``TimedAdapter`` replays of ``synthesize(2000, seed=0)`` without and
+   with admission (capacity 256, 50 ms deadlines, fxp16 reroute): p50/p99
+   by kind, sheds, degrades, hit rate, occupancy; any error response
+   fails.  The server's launches go on a ``{"serve": ...}`` line before
+   the kernels line, not into the kernels' counts.
 
 Last, the profiler column of phase 2: every row's kernel (and general
 route) 50 times under one profiler session, its CUPTI time per call;
@@ -165,7 +197,8 @@ it.
 
 Phases 3-4 run once per path, f32, bf16, then fxp16; phase 9's literal
 bf16 explain and phases 5 (per branch), 6, 7 and 8 are paths of their
-own.  Launch counters are set to 0 just before
+own (phases 7b and 10 are the server's, reported on their own
+line).  Launch counters are set to 0 just before
 each path (in phases 5-8: before each checked explain, training step or
 decode) and read just after, per wrapper counter and, on the bf16 paths,
 per C entry point; the kernel-vs-plain launches of phase 2, and
@@ -3483,8 +3516,11 @@ def check_lm(launches, to_profile):
           f"forward: max|dy| {max(layer_errs):.2e}; B13 vs chunked logits "
           f"{logit_err:.2e} of max (chunked vs f32 weights {chunk_err:.2e}; "
           f"argmax agrees on {same_argmax:.2f})")
+    print(f"phase 7b (lm serve): an LMAdapter server on the same model, "
+          f"max_batch {LM_BATCH}")
+    serve = check_serve_lm(params, cfg, prompts)
     return dict(init_s=init_s, n_params=n_params, linearity_err=lin_err,
-                route_err=route_err,
+                route_err=route_err, serve=serve,
                 layer_errs=layer_errs, logits_vs_chunked=logit_err,
                 chunked_vs_f32=chunk_err, argmax_agree=same_argmax,
                 times=times, engine=results,
@@ -3693,6 +3729,406 @@ def check_lm_twin(launches):
 
 
 # ---------------------------------------------------------------------------
+# phases 7b and 10: the explanation server (repro_torch.serve)
+# ---------------------------------------------------------------------------
+
+#: Phase 10: the server's batch, the example pool, the composites' fan-out
+#: and the timed replay's trace length.
+SERVE_BATCH, SERVE_POOL = 32, 160
+SERVE_IG_STEPS, SERVE_SG_N, SERVE_REPLAY_N = 16, 8, 2000
+#: kernel launches per predict batch, per hit batch (the BP phase over the
+#: stored bits alone) and per cold BP batch (both), f32 Table III
+PER_PREDICT_BATCH = {"conv2d_fwd": 4, "relu_fwd": 3, "relu_pool_fwd": 2,
+                     "vmm_fwd": 2}
+PER_HIT_BATCH = {"conv2d_bwd_fused": 4, "vmm_bwd_fused": 2}
+PER_COLD_BATCH = dict(PER_PREDICT_BATCH, **PER_HIT_BATCH)
+#: the forward's counters: a hit batch must launch none of them
+FORWARD_KERNELS = ("conv2d_fwd", "relu_fwd", "relu_pool_fwd", "vmm_fwd",
+                   "maxpool_fwd", "conv2d_fxp_fwd", "vmm_fxp_fwd")
+#: phase 7b: falcon-mamba-7b served in batches of LM_BATCH prompts
+LM_SERVE_MODES = (("token_ixg", "ixg"), ("token_contrastive", "contrastive"))
+
+
+def _burst(srv, reqs):
+    """Submit every request, then drain: one padded batch per bucket (at
+    most SERVE_BATCH rows), every dispatch ending in a synchronise."""
+    for r in reqs:
+        srv.submit(r)
+    out = srv.drain()
+    bad = [(r.uid, r.error_type, r.error) for r in out if not r.ok]
+    if bad:
+        fail(f"serve: error responses {bad[:3]}")
+    return out
+
+
+def _counted_burst(srv, reqs, want, batches, what):
+    """:func:`_burst` with the counters set to 0: ``want`` launches a batch
+    times the ``batches`` it must make, every other counter 0."""
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    reset_launches()
+    before = srv.stats.batches
+    out = _burst(srv, reqs)
+    torch.cuda.synchronize()
+    rose = dict(LAUNCHES)
+    made = srv.stats.batches - before
+    if made != batches:
+        fail(f"serve {what}: {made} batches, want {batches}")
+    _expect(rose, {k: v * batches for k, v in want.items()},
+            f"serve {what}")
+    return out, rose
+
+
+def _twin_close(card, twin, resp, tresp, method):
+    """A pure-BP response on the card against the CPU twin's: logits
+    within DOT_TOL, relevance within REPLAY_TOL of max, or, where the two
+    devices stored different bits for the example, against the CPU's
+    replay of the card's bits.  Returns True when the bits differed."""
+    from repro_torch.models import cnn
+    if resp.targets != tresp.targets:
+        fail(f"serve {resp.uid}: targets {resp.targets} on the card, "
+             f"{tresp.targets} on the CPU")
+    err = _rel_err(resp.logits.cpu(), tresp.logits)
+    if not err <= DOT_TOL:
+        fail(f"serve {resp.uid}: logits card vs CPU {err:.3e} of max")
+    ce, te = card.cache.peek(resp.uid), twin.cache.peek(tresp.uid)
+    pairs = [t for pair in zip(ce.residuals["conv"], te.residuals["conv"])
+             for t in zip(*pair)] + list(zip(ce.residuals["fc"],
+                                             te.residuals["fc"]))
+    flipped = any(a is not None and not torch.equal(a.cpu(), b)
+                  for a, b in pairs)
+    want = tresp.relevance
+    if flipped:
+        seeds = F.one_hot(torch.tensor(resp.targets), 10).float()[:, None]
+        want = twin.adapter.engine_for(method).replay(
+            cnn.residuals_to(ce.residuals, "cpu"), seeds)[:, 0]
+        want = want if resp.relevance.dim() == 4 else want[0]
+    rerr = _rel_err(resp.relevance.cpu(), want)
+    if not rerr <= REPLAY_TOL:
+        fail(f"serve {resp.uid} {method}: relevance card vs CPU "
+             f"{rerr:.3e} of max (bits differ: {flipped})")
+    return flipped
+
+
+def check_serve_cnn(params, cfg, launches, smi):
+    """Phase 10: ``ExplanationServer(CNNAdapter.from_engine(eng),
+    max_batch=32)`` on the card, f32, full Table III width, a CPU twin
+    server on the same parameters and requests."""
+    from repro_torch.core.residuals import cnn_ledger
+    from repro_torch.engine import CNNModel, EngineSpec, build
+    from repro_torch.serve import (AdmissionConfig, CNNAdapter,
+                                   DegradePolicy, ExplanationServer,
+                                   Request)
+    from repro_torch.serve.adapters import concat_examples, slice_example
+    from repro_torch.serve.batcher import pad_size, stack_padded
+    from repro_torch.serve.replay import (TimedAdapter, VirtualClock,
+                                          replay, synthesize)
+    from repro_torch.serve.residual_cache import owned_bytes
+
+    pool = torch.randn((SERVE_POOL, 32, 32, 3),
+                       generator=torch.Generator().manual_seed(2)).numpy()
+    opts = {"integrated_gradients": {"steps": SERVE_IG_STEPS},
+            "smoothgrad": {"n": SERVE_SG_N}}
+
+    def make(device, **kw):
+        eng = build(EngineSpec(CNNModel(params, cfg, device=device)))
+        return ExplanationServer(CNNAdapter.from_engine(eng),
+                                 max_batch=SERVE_BATCH, max_delay_s=60.0,
+                                 cache_capacity=1024, method_opts=opts,
+                                 **kw)
+
+    card, twin = make("cuda"), make("cpu")
+    totals = launches.setdefault("serve_cnn", {})
+
+    def both(reqs_fn, want, batches, what):
+        out, rose = _counted_burst(card, reqs_fn(), want, batches, what)
+        for k, v in rose.items():
+            totals[k] = totals.get(k, 0) + v
+        return out, _burst(twin, reqs_fn())
+
+    def reqs(uids, ix, **kw):
+        return lambda: [Request(uid=u, x=pool[i], **kw)
+                        for u, i in zip(uids, ix)]
+
+    # 64 predicts: two batches of 32
+    pu = [f"p{i}" for i in range(64)]
+    both(reqs(pu, range(64), kind="predict"), PER_PREDICT_BATCH, 2,
+         "predict")
+    # explains of the same uids: every one a hit, one batch a group
+    groups = [("saliency", range(0, 16), {}), ("guided", range(16, 32), {}),
+              ("deconvnet", range(32, 40), {}),
+              ("saliency", range(40, 56), {"topk": SEEDS}),
+              ("guided", range(56, 64), {"target": True})]
+    # then 32 cold explains of new uids (one cold BP batch), and their
+    # follow-ups (hits, top-3 panels)
+    cu = [f"c{i}" for i in range(32)]
+    n_hit = n_cold = flips = 0
+    checked = []
+    for method, ix, kw in groups + [("saliency", None, {}),
+                                    ("guided", None, {"topk": SEEDS})]:
+        cold = ix is None and method == "saliency"
+        uids = cu if ix is None else [pu[i] for i in ix]
+        xi = range(64, 96) if ix is None else ix
+        tgt = [i % 10 for i in xi] if kw.get("target") else None
+
+        def fn(uids=uids, xi=xi, tgt=tgt, method=method, kw=kw):
+            return [Request(uid=u, kind="explain", x=pool[i], method=method,
+                            topk=kw.get("topk"),
+                            target=None if tgt is None else tgt[j])
+                    for j, (u, i) in enumerate(zip(uids, xi))]
+        out, tout = both(fn, PER_COLD_BATCH if cold else PER_HIT_BATCH, 1,
+                         f"{'cold' if cold else 'hit'} {method} {kw}")
+        if any(r.cache_hit == cold for r in out):
+            fail(f"serve {method} {kw}: cache hits {[r.cache_hit for r in out]}")
+        n_cold += cold
+        n_hit += not cold
+        # every response bitwise the engine's explain of the same padded
+        # batch (a hit skipped the forward and changed no bit)
+        n = len(out)
+        xb = stack_padded([pool[i] for i in xi], pad_size(n, SERVE_BATCH))
+        t = None if tgt is None else torch.tensor(tgt + [0] * (len(xb) - n))
+        _, rel = card.adapter.engine_for(method).explain(
+            xb, target=t, topk=kw.get("topk"))
+        for i, (r, tr) in enumerate(zip(out, tout)):
+            ref = rel[:, i] if kw.get("topk") else rel[i]
+            if not torch.equal(r.relevance, ref):
+                fail(f"serve {r.uid} {method}: response differs from the "
+                     f"engine's explain of the same padded batch")
+            flips += _twin_close(card, twin, r, tr, method)
+        checked += out
+
+    # 8 integrated gradients and 8 smoothgrad (per-request seeds)
+    gu = [f"g{i}" for i in range(8)]
+    ig = _burst(card, reqs(gu, range(96, 104), kind="explain",
+                           method="integrated_gradients")())
+    eng = card.adapter.engine_for("saliency")
+    _, ig_ref = eng.ig(stack_padded([pool[i] for i in range(96, 104)], 8),
+                       steps=SERVE_IG_STEPS)
+    for i, r in enumerate(ig):
+        _finite(r.relevance, "serve ig", (32, 32, 3))
+        if r.cache_hit or not torch.equal(r.relevance, ig_ref[i]):
+            fail(f"serve {r.uid}: IG differs from the engine's on the "
+                 f"same batch")
+    su = [f"s{i}" for i in range(8)]
+
+    def sg(uids):
+        return [Request(uid=u, kind="explain", x=pool[104 + int(u[1:])],
+                        method="smoothgrad", key=1000 + int(u[1:]))
+                for u in uids]
+    cobatched = _burst(card, sg(su))
+    if {r.batch_size for r in cobatched} != {8}:
+        fail("serve smoothgrad: not co-batched")
+    for r in cobatched:
+        (single,) = _burst(card, sg([r.uid]))
+        if single.batch_size != 1 or not torch.equal(single.relevance,
+                                                     r.relevance):
+            fail(f"serve {r.uid}: co-batched smoothgrad differs from the "
+                 f"singleton request")
+        _finite(r.relevance, "serve smoothgrad", (32, 32, 3))
+
+    # the cache: entries x the Ledger's bits an example, owned bytes
+    per_ex = cnn_ledger(cfg).analytic_bits("saliency")
+    bits = card.cache.stats.bits_stored
+    if not bits == len(card.cache) * per_ex == 8 * owned_bytes(card.cache):
+        fail(f"serve cache: {bits} bits stored, {len(card.cache)} entries x "
+             f"{per_ex}, {8 * owned_bytes(card.cache)} bits owned")
+    n_entries = len(card.cache)
+    print(f"  cnn: 64 predicts, {len(checked)} pure-BP explains in "
+          f"{n_hit} hit batches ({PER_HIT_BATCH} a batch, no forward "
+          f"kernel) and {n_cold} cold BP batch(es) ({PER_COLD_BATCH}); "
+          f"every response bitwise the engine's explain of its padded "
+          f"batch; vs the CPU twin within {DOT_TOL:g} / {REPLAY_TOL:g} of "
+          f"max ({flips} examples replayed on the card's bits); 8 IG "
+          f"(steps {SERVE_IG_STEPS}) bitwise Engine.ig, 8 smoothgrad (n "
+          f"{SERVE_SG_N}) co-batched == singleton bitwise; cache "
+          f"{len(card.cache)} entries x {per_ex} bits = {bits} bits = the "
+          f"bytes its tensors own")
+
+    # fxp16: a server under pressure reroutes to the int16 sibling
+    adm = AdmissionConfig(capacity=16, degrade=DegradePolicy(
+        pressure_threshold=0.5, reroute_precision="fxp16"))
+    dcard, dtwin = make("cuda", admission=adm), make("cpu", admission=adm)
+    du, dix = [f"d{i}" for i in range(16)], range(112, 128)
+    dreq = reqs(du, dix, kind="explain", method="saliency")
+    out, tout = _burst(dcard, dreq()), _burst(dtwin, dreq())
+    rerouted = [r for r in out if r.meta.get("degraded")]
+    if [r.uid for r in rerouted] != du[8:] or any(
+            r.meta["degraded"] != "reroute_precision" for r in rerouted):
+        fail(f"serve fxp16: rerouted {[r.uid for r in rerouted]}")
+    fxp = build(EngineSpec(CNNModel(params, cfg, device="cuda"),
+                           precision="fxp16"))
+    logits, rel = fxp.explain(stack_padded([pool[i] for i in dix[8:]], 8))
+    trer = {r.uid: r for r in tout}
+    for i, r in enumerate(rerouted):
+        tr = trer[r.uid]
+        if not (torch.equal(r.relevance, rel[i])
+                and torch.equal(r.logits, logits[i])
+                and torch.equal(r.relevance.cpu(), tr.relevance)
+                and torch.equal(r.logits.cpu(), tr.logits)):
+            fail(f"serve {r.uid}: the fxp16 reroute differs from the fxp16 "
+                 f"engine or the CPU twin")
+        if dcard.cache.peek(r.uid) is not None:
+            fail(f"serve {r.uid}: a rerouted request warmed the cache")
+    print(f"  cnn fxp16 reroute: {len(rerouted)} of 16 explains rerouted "
+          f"under pressure (meta degraded), bitwise the card's fxp16 engine "
+          f"and the CPU twin")
+
+    # host against device: the server's own time per 32-row batch
+    eng_c = card.adapter
+    xb = torch.from_numpy(pool[:SERVE_BATCH]).cuda()
+    entries = [card.cache.peek(f"p{i}") for i in range(SERVE_BATCH)]
+    res32 = concat_examples([e.residuals for e in entries])
+    seeds = F.one_hot(torch.tensor([int(e.host_logits.argmax())
+                                    for e in entries]), 10).float()[None]
+    seeds = seeds.cuda()
+    seq = iter(range(10 ** 6))
+
+    def fresh(kind, method=None):
+        k = next(seq)
+        return [Request(uid=f"t{k}_{j}", kind=kind, x=pool[j],
+                        method=method or "saliency")
+                for j in range(SERVE_BATCH)]
+
+    rows = {
+        "predict batch": (lambda: _burst(card, fresh("predict")),
+                          lambda: eng_c.predict(xb)),
+        "hit batch": (lambda: _burst(card, [
+            Request(uid=f"p{j}", kind="explain", x=pool[j],
+                    method="saliency") for j in range(SERVE_BATCH)]),
+                      lambda: eng_c.explain_cached("saliency", res32,
+                                                   seeds)),
+        "cold BP batch": (lambda: _burst(card, fresh("explain")),
+                          lambda: eng_c.explain_cached(
+                              "saliency", eng_c.predict(xb)[1], seeds)),
+    }
+    times = {}
+    for what, (served, device_fn) in rows.items():
+        host = []
+        for _ in range(7):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            served()
+            host.append(1e3 * (time.perf_counter() - t0))
+        dev = device_time_ms(device_fn, reps=10)
+        h = statistics.median(host[2:])
+        times[what] = dict(host_ms=h, device_ms=dev)
+        print(f"  cnn {what} (32 rows): {h:.3f} ms host through the server "
+              f"(submit to responses), {dev:.4f} ms device for its kernels "
+              f"({smi})")
+    _, res = eng_c.predict(xb)
+    fill = []
+    for _ in range(7):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        [slice_example(res, i) for i in range(SERVE_BATCH)]
+        torch.cuda.synchronize()
+        fill.append(1e3 * (time.perf_counter() - t0))
+    times["cache fill"] = dict(host_ms=statistics.median(fill[2:]))
+    print(f"  cnn: filling the cache from a 32-row predict batch (a copy "
+          f"per tensor per example) {times['cache fill']['host_ms']:.3f} ms "
+          f"host")
+
+    # timed replays (TimedAdapter: the clock advances by service time)
+    reports = {}
+    for name, admission in (
+            ("no admission", None),
+            ("admission", AdmissionConfig(
+                capacity=256, default_deadline_s=0.05,
+                degrade=DegradePolicy(reroute_precision="fxp16")))):
+        clock = VirtualClock()
+        eng = build(EngineSpec(CNNModel(params, cfg, device="cuda")))
+        srv = ExplanationServer(TimedAdapter(CNNAdapter.from_engine(eng),
+                                             clock),
+                                clock=clock, max_batch=SERVE_BATCH,
+                                max_delay_s=0.002, admission=admission)
+        t0 = time.perf_counter()
+        rep = replay(srv, synthesize(SERVE_REPLAY_N, seed=0),
+                     example_shape=(32, 32, 3))
+        wall = time.perf_counter() - t0
+        snap = rep.snapshot()
+        if rep.errors:
+            fail(f"serve replay ({name}): {rep.errors} error responses")
+        if rep.completed + rep.shed_total != rep.offered:
+            fail(f"serve replay ({name}): responses do not add up {snap}")
+        reports[name] = dict(snap, wall_s=wall)
+        print(f"  cnn timed replay ({name}): {SERVE_REPLAY_N} requests, "
+              f"poisson 2000/s, DEFAULT_MIX; p50/p99 us predict "
+              f"{snap.get('predict_p50_us')}/{snap.get('predict_p99_us')}, "
+              f"explain {snap.get('explain_p50_us')}/"
+              f"{snap.get('explain_p99_us')}; sheds {snap['sheds_by_reason']}"
+              f", degrades {snap['degrades']}, hit rate "
+              f"{snap['cache_hit_rate']:.4f}, occupancy "
+              f"{snap['mean_occupancy']:.4f}, makespan {snap['makespan_s']:.4f}"
+              f" s virtual, {wall:.2f} s wall")
+    check_path_launches("serve_cnn", totals)
+    return dict(times=times, replays=reports, twin_flips=flips,
+                hit_batches=n_hit, cold_batches=n_cold,
+                cache_bits=bits, cache_entries=n_entries,
+                launches_per_batch=dict(predict=PER_PREDICT_BATCH,
+                                        hit=PER_HIT_BATCH,
+                                        cold=PER_COLD_BATCH),
+                launches=totals)
+
+
+def check_serve_lm(params, cfg, prompts):
+    """Phase 7b: an ``LMAdapter`` server (``max_batch`` = LM_BATCH) on
+    phase 7's falcon-mamba-7b: predicts bitwise the last-position logits
+    of ``forward``, ``token_ixg`` and ``token_contrastive`` responses
+    bitwise ``Engine.explain_tokens`` on the same padded batch, 64 B13 and
+    64 B13 bwd launches an explain batch and none in predict."""
+    from repro_torch import lm
+    from repro_torch.engine import EngineSpec, LMModel, build
+    from repro_torch.models import transformer as tf
+    from repro_torch.serve import ExplanationServer, Request
+    from repro_torch.serve.batcher import stack_padded
+
+    eng = build(EngineSpec(LMModel(params, cfg)))
+    srv = ExplanationServer(lm.LMAdapter.from_engine(eng),
+                            max_batch=LM_BATCH, max_delay_s=60.0)
+    toks = prompts.cpu().numpy()
+    per_batch = {"selective_scan": cfg.n_layers,
+                 "selective_scan_bwd": cfg.n_layers}
+    out, _ = _counted_burst(srv, [Request(uid=f"l{i}", kind="predict",
+                                          x=toks[i])
+                                  for i in range(LM_BATCH)], {}, 1,
+                            "lm predict")
+    with torch.no_grad():
+        want = tf.forward(params, cfg, {"tokens": prompts})[0][:, -1]
+    if not all(torch.equal(r.logits, want[i]) for i, r in enumerate(out)):
+        fail("serve lm: predict differs from forward's last-position logits")
+    xb = stack_padded(list(toks), LM_BATCH)
+    results = {}
+    for method, mode in LM_SERVE_MODES:
+        def reqs(method=method):
+            return [Request(uid=f"l{i}", kind="explain", x=toks[i],
+                            method=method) for i in range(LM_BATCH)]
+        out, rose = _counted_burst(srv, reqs(), per_batch, 1,
+                                   f"lm {method}")
+        lg, sc = eng.explain_tokens({"tokens": xb}, mode=mode)
+        for i, r in enumerate(out):
+            if not (torch.equal(r.relevance, sc[i])
+                    and torch.equal(r.logits, lg[i])):
+                fail(f"serve lm {r.uid} {method}: differs from "
+                     f"explain_tokens on the same batch")
+            _finite(r.relevance, f"serve lm {method}", (LM_PROMPT,))
+        host = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _burst(srv, reqs())
+            host.append(1e3 * (time.perf_counter() - t0))
+        dev = _span_ms(lambda mode=mode: eng.explain_tokens(
+            {"tokens": xb}, mode=mode), reps=3)
+        rose = {k: v for k, v in rose.items() if v}
+        results[method] = dict(host_ms=statistics.median(host),
+                               device_ms=dev, launches=rose)
+        print(f"  lm served {method}: {LM_BATCH} x {LM_PROMPT} tokens a "
+              f"batch, bitwise explain_tokens, {rose}; "
+              f"{statistics.median(host):.2f} ms host through the server, "
+              f"{dev:.2f} ms device span")
+    return results
+
+
+# ---------------------------------------------------------------------------
 
 
 #: The counters each path must launch; the others must stay at 0 there.
@@ -3704,7 +4140,8 @@ PATH_KERNELS = {"f32": tuple(PER_EXPLAIN["f32"]),
                 "vjp_unfused": tuple(PER_EXPLAIN_VJP["vjp_unfused"]),
                 "train": tuple(PER_TRAIN_STEP),
                 "lm": ("selective_scan", "selective_scan_bwd"),
-                "lm_twin": ("selective_scan", "selective_scan_bwd")}
+                "lm_twin": ("selective_scan", "selective_scan_bwd"),
+                "serve_cnn": tuple(PER_COLD_BATCH)}
 #: The path whose launches the kernel JSON reports for each kernel: the
 #: first that runs it (the bf16 paths report the bf16 instances).
 KERNEL_PATH = {k: next(p for p in PATH_KERNELS if k in PATH_KERNELS[p]
@@ -3890,6 +4327,11 @@ def main() -> int:
           f"batch {LM_TWIN_BATCH} x {LM_TWIN_SEQ} tokens, card vs CPU")
     twin_results = check_lm_twin(launches)
     check_path_launches("lm_twin", launches["lm_twin"])
+    torch.cuda.empty_cache()
+    print(f"phase 10 (serve): ExplanationServer on the card, full Table III "
+          f"width, f32, max_batch {SERVE_BATCH}, against a CPU twin server; "
+          f"fxp16 reroute; timed replays")
+    serve_results = check_serve_cnn(params, cfg, launches, smi)
 
     # last, as a profiler session slows what runs after it: phase 2's
     # profiler column (the process's first session), then where each
@@ -3935,7 +4377,7 @@ def main() -> int:
             sums=kc.sums, engine=engine_results, requests=n_req,
             paper_tables=tables,
             vjp=vjp_results, train=train_results, lm=lm_results,
-            lm_twin=twin_results,
+            lm_twin=twin_results, serve=serve_results,
             scan_backward_ms=kc.scan_backward_ms,
             mma_accumulation=kc.accumulation,
             scan_backward_loop_ms=kc.scan_backward_loop_ms,
@@ -3944,6 +4386,12 @@ def main() -> int:
             route_launches=route_launches,
             kernels=kernels), indent=1))
     print(smi)
+    print(json.dumps({"serve": {
+        "cnn": dict(launches=serve_results["launches"],
+                    per_batch=serve_results["launches_per_batch"],
+                    hit_batches=serve_results["hit_batches"],
+                    cold_batches=serve_results["cold_batches"]),
+        "lm": {m: r["launches"] for m, r in lm_results["serve"].items()}}}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

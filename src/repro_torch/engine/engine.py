@@ -167,10 +167,11 @@ class Engine:
             target=target, batched=batched,
             backward=self.composite_backward)
 
-    def smoothgrad(self, x, generator: torch.Generator, *, n: int = 8,
-                   sigma: float = 0.1, target=None, batched: bool = True):
-        """SmoothGrad, its noise drawn from ``generator`` (the noise axis
-        folded into the batch)."""
+    def smoothgrad(self, x, generator, *, n: int = 8, sigma: float = 0.1,
+                   target=None, batched: bool = True):
+        """SmoothGrad, its noise drawn from ``generator``, or from one
+        generator per example (a sequence), the noise axis folded into the
+        batch."""
         return methods.smoothgrad(
             self.model_fn, self._input(x), generator, n=n, sigma=sigma,
             target=target, batched=batched,

@@ -255,20 +255,38 @@ def integrated_gradients(f: Callable, x: torch.Tensor, *, baseline=None,
     return logits, grads.mean(dim=0) * (x - baseline)
 
 
-def smoothgrad(f: Callable, x: torch.Tensor, generator: torch.Generator, *,
-               n: int = 8, sigma: float = 0.1, target=None,
-               batched: bool = True, backward=None):
+def _noise(generator, n: int, x: torch.Tensor) -> torch.Tensor:
+    """``[n, *x.shape]`` standard normal noise: from one generator, or, for
+    a sequence of ``B`` generators, example ``i``'s ``[n, *x.shape[1:]]``
+    from generator ``i`` (so a row's draw does not depend on its batch)."""
+    def draw(gen, shape):
+        return torch.randn(shape, generator=gen, device=gen.device,
+                           dtype=x.dtype).to(x.device)
+
+    if isinstance(generator, torch.Generator):
+        return draw(generator, (n,) + tuple(x.shape))
+    if len(generator) != x.shape[0]:
+        raise ValueError(f"{len(generator)} generators for a batch of "
+                         f"{x.shape[0]}")
+    row = (n,) + tuple(x.shape[1:])
+    return torch.stack([draw(g, row) for g in generator], dim=1)
+
+
+def smoothgrad(f: Callable, x: torch.Tensor, generator, *, n: int = 8,
+               sigma: float = 0.1, target=None, batched: bool = True,
+               backward=None):
     """Smilkov et al. 2017 — saliency averaged over ``n`` Gaussian-perturbed
     inputs.  The noise comes from ``generator`` (on its own device, then
-    moved to ``x``'s); the JAX key stream cannot be reproduced, so tests
+    moved to ``x``'s), or from a sequence of one generator per example
+    (the serve layer's per-request seeds, as the JAX package folds a stack
+    of per-example keys): each example then draws its own noise, whatever
+    shares its batch.  The JAX key stream cannot be reproduced, so tests
     hold the method to the reference through :func:`fold_batched_gradients`
     on shared noise."""
     logits = _probe_logits(f, x, backward)
     if target is None:
         target = torch.argmax(logits, dim=-1)
-    noise = torch.randn((n,) + tuple(x.shape), generator=generator,
-                        device=generator.device, dtype=x.dtype)
-    xs = x + sigma * noise.to(x.device)
+    xs = x + sigma * _noise(generator, n, x)
     grads = _stacked_gradients(f, xs, target, logits.shape[:-1], batched,
                                backward)
     return logits, grads.mean(dim=0)

@@ -39,7 +39,12 @@ bf16 backwards on the tensor cores (every plan of
 to the rule's and to a repeat, within one bf16 step of the plain version;
 K 1 to 7, Cout' 3 to 64, pooled or not, the epilogue gate on and off, the
 three methods, S 1, 3 and 4, FC K = 10, 13 and 37, misaligned views; C =
-13 on the FFMA route).
+13 on the FFMA route), and the explanation server on the card
+(``repro_torch.serve``, tiny config: a cache hit bitwise the cold explain
+and launching only the backward kernels, in f32, bf16 and fxp16; the
+cache owning exactly ``bits_stored / 8`` bytes on the device; the dispatch
+clock read after a synchronise, so a batch whose kernels outlast its
+launches reads slow).
 Every test needs a CUDA device and skips without one.  This file imports
 neither JAX nor the JAX package, so on a machine without JAX run it
 without the suite's conftest:
@@ -1705,3 +1710,109 @@ def test_bf16_engine_on_card_matches_cpu_twin(gen):
         back = cpu.replay(cnn.residuals_to(res, "cpu"), seeds.cpu())
         err = (rel.cpu().float() - back.float()).abs().max()
         assert err <= 2.0 ** -6 * back.float().abs().max()
+
+
+# -- the explanation server on the card (repro_torch.serve) -------------------
+
+
+def _serve_setup(precision="f32"):
+    from repro_torch.engine import CNNModel, EngineSpec, build
+    from repro_torch.models import cnn
+    from repro_torch.serve import CNNAdapter, ExplanationServer
+    cfg = cnn.CNNConfig(in_hw=(8, 8), channels=(4, 4), fc=(16,))
+    params = cnn.init(torch.Generator().manual_seed(0), cfg)
+    x = torch.randn((4, 8, 8, 3),
+                    generator=torch.Generator().manual_seed(1)).numpy()
+    eng = build(EngineSpec(CNNModel(params, cfg), precision=precision))
+    adapter = CNNAdapter.from_engine(eng)
+
+    def server(**kw):
+        kw.setdefault("max_batch", 4)
+        kw.setdefault("max_delay_s", 0.0)
+        return ExplanationServer(adapter, **kw)
+    return adapter, server, x
+
+
+def _burst(srv, reqs):
+    for r in reqs:
+        srv.submit(r)
+    return srv.drain()
+
+
+#: kernels of the forward pass (a hit must launch none of them)
+FORWARD_COUNTERS = ("conv2d_fwd", "relu_fwd", "relu_pool_fwd", "vmm_fwd",
+                    "maxpool_fwd", "conv2d_fxp_fwd", "vmm_fxp_fwd")
+
+
+@pytest.mark.parametrize("precision", ["f32", "bf16", "fxp16"])
+@pytest.mark.parametrize("method,topk", [("saliency", None), ("guided", 3),
+                                         ("deconvnet", None)])
+def test_serve_hit_is_bitwise_the_cold_explain_and_launches_no_forward(
+        gen, precision, method, topk):
+    from repro_torch.kernels import reset_launches
+    from repro_torch.serve import Request
+    adapter, server, x = _serve_setup(precision)
+    warm = server()
+    _burst(warm, [Request(uid=f"u{i}", kind="predict", x=x[i])
+                  for i in range(3)])
+    reset_launches()
+    hot = _burst(warm, [Request(uid=f"u{i}", kind="explain", x=x[i],
+                                method=method, topk=topk) for i in range(3)])
+    torch.cuda.synchronize()
+    rose = {k: v for k, v in LAUNCHES.items() if v}
+    bwd = ("conv2d_bwd_fused_fxp", "vmm_bwd_fused_fxp") if (
+        precision == "fxp16") else ("conv2d_bwd_fused", "vmm_bwd_fused")
+    assert rose == {bwd[0]: 2, bwd[1]: 2}
+    assert not any(LAUNCHES[k] for k in FORWARD_COUNTERS)
+    cold = _burst(server(), [Request(uid=f"u{i}", kind="explain", x=x[i],
+                                     method=method, topk=topk)
+                             for i in range(3)])
+    assert all(r.cache_hit for r in hot)
+    assert not any(r.cache_hit for r in cold)
+    for h, c in zip(hot, cold):
+        assert h.relevance.is_cuda and h.targets == c.targets
+        assert torch.equal(h.relevance, c.relevance)
+        assert torch.equal(h.logits, c.logits)
+
+
+def test_serve_cache_owns_exactly_bits_stored(gen):
+    from repro_torch.serve import Request
+    from repro_torch.serve.residual_cache import owned_bytes
+    _, server, x = _serve_setup()
+    srv = server(cache_capacity=3)
+    _burst(srv, [Request(uid=f"u{i}", kind="predict", x=x[i % 4])
+                 for i in range(6)])
+    assert len(srv.cache) == 3 and srv.cache.stats.evictions == 3
+    entry = srv.cache.peek("u5")
+    assert entry.residuals["fc"][0].is_cuda
+    assert owned_bytes(srv.cache) * 8 == srv.cache.stats.bits_stored > 0
+
+
+def test_serve_syncs_before_the_dispatch_clock_is_read(gen):
+    """A batch whose kernels outlast its launches reads its service time:
+    the adapter queues a ~50 ms sleep kernel after the forward and returns
+    at once; the dispatch duration the admission estimator observes must
+    cover it."""
+    from repro_torch.serve import AdmissionConfig, Request
+    adapter, server, x = _serve_setup()
+    srv = server(admission=AdmissionConfig(capacity=8))
+    real = adapter.predict
+
+    def slow(xb):
+        out = real(xb)
+        torch.cuda._sleep(int(2e6 * 50))       # cycles, ~2 GHz SM clock
+        return out
+    adapter.predict = slow
+    try:
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        torch.cuda._sleep(int(2e6 * 50))
+        b.record()
+        torch.cuda.synchronize()
+        sleep_s = a.elapsed_time(b) / 1e3
+        (resp,) = _burst(srv, [Request(uid="a", kind="predict", x=x[0])])
+    finally:
+        del adapter.predict
+    assert resp.ok
+    assert srv.admission.estimator.estimate("predict") >= 0.9 * sleep_s
+    assert resp.latency_s >= 0.9 * sleep_s

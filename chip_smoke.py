@@ -7,7 +7,9 @@ fixed point (fxp16), state the paper's own accounting (Table II / §V,
 Table IV), then explain through autograd (the vjp backend), train a few
 steps, explain each generated token of falcon-mamba-7b at full width
 and depth and serve it, serve the CNN through the explanation server
-(``repro_torch.serve``), and check them against the CPU.
+(``repro_torch.serve``), explain it by perturbation (occlusion, LIME,
+RISE: ``Engine.perturb``'s fold of N x 32 rows, and one of 67,200 rows),
+and check them against the CPU.
 
     python3 chip_smoke.py                  # one card; exits 0 when all pass
     python3 chip_smoke.py --out DIR        # also writes DIR/chip_smoke.json
@@ -184,6 +186,27 @@ Phases (every failed check raises; nothing is caught and carried on):
    fails.  The server's launches go on a ``{"serve": ...}`` line before
    the kernels line, not into the kernels' counts.
 
+11. perturb (after phase 10): ``Engine.perturb`` at full Table III width,
+   batch 32, per-example seeds: occlusion (window 4, stride 2: N = 225),
+   LIME and RISE (N = 256), each in f32, bf16 and fxp16; a batched
+   explain launches exactly 8 conv, 4 mask-free fused ReLU + pool and 4 FC
+   kernels (the base forward and the fold of N x 32 rows; no ReLU mask, no
+   backward kernel); the fold against the sequential path (one 32-row
+   forward a mask: fxp16 bitwise; f32 logits and heat within DOT_TOL
+   (LIME REPLAY_TOL), bf16 BF16_TOL, of max|logits|, as the FC forward
+   sums in another order at N x 32 rows); a CPU twin on 2 rows with the card's masks (logits and per-mask
+   scores: fxp16 bitwise, f32 DOT_TOL, bf16 BF16_TOL; the heatmap against
+   the CPU's aggregation of the card's fold outputs); host and device ms
+   of the batched and the sequential explain, peak device memory; one RISE
+   fold of 2,100 x 32 = 67,200 rows (more images than ``gridDim.z``
+   holds), finite, its logits within DOT_TOL of the same rows run in
+   65,535-row slices; 24 served perturbation requests in batches of 8,
+   never a cache hit (nor a counted miss), no backward kernel, each
+   bitwise ``Engine.perturb`` of its batch; then ``obs.profile``'s
+   KernelProfiler over one f32 top-3 explain and one f32 RISE explain, its
+   fenced ms per family printed at the end beside CUPTI's kernel ms of the
+   same calls.
+
 Last, the profiler column of phase 2: every row's kernel (and general
 route) 50 times under one profiler session, its CUPTI time per call;
 then one saliency explain of each CNN path, Table IV's f32 FP+BP at
@@ -198,7 +221,8 @@ it.
 Phases 3-4 run once per path, f32, bf16, then fxp16; phase 9's literal
 bf16 explain and phases 5 (per branch), 6, 7 and 8 are paths of their
 own (phases 7b and 10 are the server's, reported on their own
-line).  Launch counters are set to 0 just before
+line; phase 11's perturbation explains count per precision, as paths
+``perturb_f32``, ``perturb_bf16`` and ``perturb_fxp16``).  Launch counters are set to 0 just before
 each path (in phases 5-8: before each checked explain, training step or
 decode) and read just after, per wrapper counter and, on the bf16 paths,
 per C entry point; the kernel-vs-plain launches of phase 2, and
@@ -4129,6 +4153,380 @@ def check_serve_lm(params, cfg, prompts):
 
 
 # ---------------------------------------------------------------------------
+# phase 11: the perturbation explainers, and the kernel profiler
+# ---------------------------------------------------------------------------
+
+PERTURB_METHODS = ("occlusion", "lime", "rise")
+#: masks a method folds at its defaults on 32 x 32 (occlusion: window 4,
+#: stride 2, 15 x 15 positions; LIME and RISE: 256 samples)
+PERTURB_N = {"occlusion": 225, "lime": 256, "rise": 256}
+#: kernel launches of one batched perturbation explain: the base forward
+#: and the fold, each 4 conv, 2 mask-free fused ReLU + pool and 2 FC
+#: launches (no ReLU mask, no backward kernel)
+PER_PERTURB = {
+    "f32": {"conv2d_fwd": 8, "relu_pool_fwd": 4, "vmm_fwd": 4},
+    "bf16": {"conv2d_fwd": 8, "relu_pool_fwd": 4, "vmm_fwd": 4},
+    "fxp16": {"conv2d_fxp_fwd": 8, "relu_pool_fwd": 4, "vmm_fxp_fwd": 4},
+}
+#: RISE samples of the large fold: 2,100 x 32 = 67,200 rows, more images
+#: than gridDim.z holds (the conv entries launch them in chunks)
+PERTURB_BIG_SAMPLES, PERTURB_SLICE = 2100, 65_535
+PERTURB_TWIN_ROWS, PERTURB_SERVE_N, PERTURB_SERVE_BATCH = 2, 24, 8
+PROFILE_FAMILIES = ("conv2d_fwd", "conv2d_bwd", "vmm_fwd", "vmm_bwd", "pool",
+                    "other")
+
+
+def _family(kernel_name: str) -> str:
+    """The profiler family (``obs/profile.py``) of a CUDA kernel, by
+    name; B2 and PyTorch's own kernels are "other"."""
+    n = kernel_name
+    if "conv_bwd" in n:
+        return "conv2d_bwd"
+    if "vmm_bwd" in n:
+        return "vmm_bwd"
+    if any(k in n for k in ("conv_igemm_kernel", "conv_mma_kernel",
+                            "conv_kernel", "conv_fxp_kernel")):
+        return "conv2d_fwd"
+    if any(k in n for k in ("vmm_splitk", "vmm_fxp_splitk", "vmm_mma_kernel",
+                            "vmm_kernel", "vmm_fxp_kernel")):
+        return "vmm_fwd"
+    pooled = re.search(r"relu_pool_fwd_kernel<[^,]+, *(true|false)", n)
+    if (pooled and pooled.group(1) == "true") or "maxpool_fwd_kernel" in n:
+        return "pool"
+    return "other"
+
+
+def cupti_by_family(fns, reps: int = 5):
+    """CUPTI kernel time a call of each ``fn``, by profiler family: the
+    calls under one ``torch.profiler`` session, split by sleep kernels as
+    :func:`cupti_per_call` splits them.  None where the split fails."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):      # a session can lose its first records
+            torch.cuda._sleep(1000)
+        for fn in fns:
+            torch.cuda._sleep(1000)
+            for _ in range(reps):
+                fn()
+        torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+    kernels = sorted((e for e in prof.events()
+                      if e.device_type == DeviceType.CUDA),
+                     key=lambda e: e.time_range.start)
+    groups, cur = [], None
+    for e in kernels:
+        if "spin_kernel" in e.name:
+            if cur is not None:
+                groups.append({k: v / reps for k, v in cur.items()})
+            cur = {}
+        elif cur is not None:
+            fam = _family(e.name)
+            cur[fam] = cur.get(fam, 0.0) + e.time_range.elapsed_us() / 1e3
+    groups = groups[len(groups) - len(fns):]
+    if len(groups) != len(fns) or not all(groups):
+        print(f"  cupti_by_family: {len(groups)} groups for {len(fns)} "
+              f"calls; not measured")
+        return None
+    return groups
+
+
+def _profiled_ms(fn):
+    """``obs.profile.KernelProfiler`` over one call of ``fn`` (after a
+    warm-up): fenced wall ms a call by family, and the calls."""
+    from repro_torch.obs import profile as obs_profile
+    fn()
+    torch.cuda.synchronize()
+    with obs_profile.profiled() as prof:
+        fn()
+    by_family, calls = {}, {}
+    for (family, _, _), a in prof.aggregates().items():
+        by_family[family] = (by_family.get(family, 0.0)
+                             + a["count"] * a["mean_us"] / 1e3)
+        calls[family] = calls.get(family, 0) + a["count"]
+    return by_family, calls
+
+
+def _perturb_masks(method, seeds, n, hw, device):
+    from repro_torch import perturb
+    if method == "occlusion":
+        return perturb.occlusion_masks(hw, window=4, stride=2, device=device)
+    fn = getattr(perturb, f"{method}_masks")
+    return fn(perturb.generators(seeds, device), n, hw)
+
+
+def _masks_to(ms, device):
+    import dataclasses
+    return dataclasses.replace(
+        ms, packed=ms.packed.to(device),
+        shifts=None if ms.shifts is None else ms.shifts.to(device))
+
+
+def check_perturb_twin(eng, twin, x, x_cpu, method, precision, seeds):
+    """The CPU twin on PERTURB_TWIN_ROWS rows with the card's masks: (a)
+    the fold's logits and per-mask target logits on the card against the
+    CPU's (fxp16 bitwise, f32 DOT_TOL, bf16 BF16_TOL, times max|logits|);
+    (b) the heatmap against the CPU's aggregation of the card's fold
+    outputs (the masks applied, scores gathered and aggregated on the
+    CPU), within DOT_TOL * max (LIME: REPLAY_TOL, a ridge solve by
+    another library)."""
+    from repro_torch import perturb
+    rows = PERTURB_TWIN_ROWS
+    ms = _perturb_masks(method, seeds[:rows], PERTURB_N[method], (32, 32),
+                        "cuda")
+    dense = ms.dense()
+    card_fold = eng._fold_forward()
+    lc, tc, sc = perturb.perturb_scores(card_fold, x[:rows], dense)
+    lt, tt, st = perturb.perturb_scores(twin._fold_forward(), x_cpu[:rows],
+                                        dense.cpu())
+    if precision == "fxp16":
+        if not (torch.equal(lc.cpu(), lt) and torch.equal(sc.cpu(), st)):
+            fail(f"perturb {precision} {method}: CPU twin's logits or "
+                 f"scores differ")
+    else:
+        tol = DOT_TOL if precision == "f32" else BF16_TOL
+        scale = lt.float().abs().max().item()
+        for what, a, b in (("logits", lc, lt), ("scores", sc, st)):
+            err = (a.float().cpu() - b.float()).abs().max().item()
+            if err > tol * scale:
+                fail(f"perturb {precision} {method}: twin {what} off by "
+                     f"{err:.3g} (max {scale:.3g})")
+
+    def card_on_cpu(xb):
+        return card_fold(xb.cuda()).cpu()
+
+    args = () if method == "occlusion" else (None,)
+    masks = dense if method == "rise" else ms
+    cpu_masks = dense.cpu() if method == "rise" else _masks_to(ms, "cpu")
+    _, heat = getattr(perturb, method)(card_fold, x[:rows], *args,
+                                       masks=masks)
+    _, heat_t = getattr(perturb, method)(card_on_cpu, x_cpu[:rows], *args,
+                                         masks=cpu_masks)
+    tol = REPLAY_TOL if method == "lime" else DOT_TOL
+    err = _rel_err(heat.cpu(), heat_t)
+    if err > tol:
+        fail(f"perturb {precision} {method}: heat off the CPU's aggregation "
+             f"of the card's outputs by {err:.3g} of max")
+    return err
+
+
+def check_perturb(params, cfg, x_cpu, launches):
+    """Phase 11: ``Engine.perturb`` at full Table III width, batch 32,
+    occlusion (N = 225), LIME and RISE (N = 256) in f32, bf16 and fxp16,
+    per-example seeds; a RISE fold of 67,200 rows; 24 served requests;
+    the kernel profiler beside CUPTI (read at the end)."""
+    from repro_torch import perturb
+    from repro_torch.engine import CNNModel, EngineSpec, build
+    from repro_torch.perturb.scores import _masked_fold
+    from repro_torch.serve import CNNAdapter, ExplanationServer, Request
+    x = x_cpu.cuda()
+    seeds = list(range(100, 100 + BATCH))
+    results = {}
+    for precision in ("f32", "bf16", "fxp16"):
+        eng = build(EngineSpec(CNNModel(params, cfg), method="occlusion",
+                               precision=precision))
+        twin = build(EngineSpec(CNNModel(params, cfg, device="cpu"),
+                                method="occlusion", precision=precision))
+        path = f"perturb_{precision}"
+        totals = launches.setdefault(path, {})
+        for method in PERTURB_METHODS:
+            key = None if method == "occlusion" else seeds
+
+            def run(batched=True, method=method, key=key):
+                return eng.perturb(x, key, method=method, batched=batched)
+
+            run()
+            (logits, heat), rose = _count(run, totals)
+            what = f"perturb {precision} {method}"
+            _expect(rose, PER_PERTURB[precision], what)
+            _finite(heat, what, (BATCH, 32, 32))
+            _finite(logits, what, (BATCH, 10))
+            logits_s, heat_s = run(batched=False)
+            if precision == "fxp16":
+                if not (torch.equal(heat, heat_s)
+                        and torch.equal(logits, logits_s)):
+                    fail(f"{what}: fold differs from the sequential path")
+                fold_err = 0.0
+            else:
+                # The FC forward sums K in another order at N x 32 rows
+                # than at 32 (vmm_splits; bf16: vmm_mma_plan's cluster),
+                # so the fold's scores sit within the dot tolerance of the
+                # logits' scale; occlusion's and RISE's heat averages
+                # score differences and moves no further, LIME's ridge
+                # solve may amplify them (REPLAY_TOL).
+                tol = ((REPLAY_TOL if method == "lime" else DOT_TOL)
+                       if precision == "f32" else BF16_TOL)
+                scale = logits_s.float().abs().max().item()
+                fold_err = max(
+                    (heat - heat_s).abs().max().item(),
+                    (logits.float() - logits_s.float()).abs().max().item()
+                ) / scale
+                if fold_err > tol:
+                    fail(f"{what}: fold off the sequential path by "
+                         f"{fold_err:.3g} of max|logits|")
+            twin_err = check_perturb_twin(eng, twin, x, x_cpu, method,
+                                          precision, seeds)
+            host = []
+            for _ in range(5):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                run()
+                torch.cuda.synchronize()
+                host.append(1e3 * (time.perf_counter() - t0))
+            seq_host = []
+            for _ in range(2):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                run(batched=False)
+                torch.cuda.synchronize()
+                seq_host.append(1e3 * (time.perf_counter() - t0))
+            r = dict(n=PERTURB_N[method], fold_rows=PERTURB_N[method] * BATCH,
+                     host_ms=statistics.median(host),
+                     device_ms=_span_ms(run, reps=5),
+                     seq_host_ms=statistics.median(seq_host),
+                     seq_device_ms=_span_ms(lambda: run(batched=False),
+                                            reps=2),
+                     peak_bytes=_peak_bytes(run), fold_err=fold_err,
+                     twin_heat_err=twin_err,
+                     launches={k: v for k, v in rose.items() if v})
+            results[f"{precision}/{method}"] = r
+            print(f"  {what}: N {r['n']} ({r['fold_rows']} rows), "
+                  f"{r['launches']}; batched {r['host_ms']:.3f} ms host / "
+                  f"{r['device_ms']:.3f} ms device, sequential "
+                  f"{r['seq_host_ms']:.1f} / {r['seq_device_ms']:.1f}; peak "
+                  f"{r['peak_bytes'] / 2**20:.1f} MiB; fold vs sequential "
+                  f"{fold_err:.3g} of max|logits|, heat vs the CPU's "
+                  f"aggregation "
+                  f"{twin_err:.3g} of max")
+        check_path_launches(path, totals)
+
+    # past gridDim.z: 67,200 rows in one fold, f32
+    eng = build(EngineSpec(CNNModel(params, cfg), method="rise"))
+    big = PERTURB_BIG_SAMPLES * BATCH
+
+    def run_big():
+        return eng.perturb(x, seeds, n_samples=PERTURB_BIG_SAMPLES)
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    (logits, heat), rose = _count(run_big, launches["perturb_f32"])
+    peak = torch.cuda.max_memory_allocated() - base
+    _expect(rose, PER_PERTURB["f32"], f"perturb f32 rise {big} rows")
+    _finite(heat, f"perturb {big} rows", (BATCH, 32, 32))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run_big()
+    torch.cuda.synchronize()
+    big_ms = 1e3 * (time.perf_counter() - t0)
+    ms = _perturb_masks("rise", seeds, PERTURB_BIG_SAMPLES, (32, 32), "cuda")
+    masked = _masked_fold(x, ms.dense(), None).reshape(big, 32, 32, 3)
+    fold = eng._fold_forward()
+    whole = fold(masked)
+    parts = torch.cat([fold(masked[:PERTURB_SLICE]),
+                       fold(masked[PERTURB_SLICE:])])
+    big_err = _rel_err(whole, parts)
+    _finite(whole, f"fold of {big} rows", (big, 10))
+    if big_err > DOT_TOL:
+        fail(f"fold of {big} rows: logits off {PERTURB_SLICE}-row slices by "
+             f"{big_err:.3g} of max")
+    del masked, whole, parts
+    torch.cuda.empty_cache()
+    results["f32/rise_67200"] = dict(rows=big, host_ms=big_ms,
+                                     peak_bytes=peak, slices_err=big_err)
+    print(f"  perturb f32 rise, {PERTURB_BIG_SAMPLES} samples x {BATCH}: a "
+          f"fold of {big} rows, {({k: v for k, v in rose.items() if v})}, "
+          f"{big_ms:.1f} ms host, peak {peak / 2**30:.2f} GiB; logits vs "
+          f"{PERTURB_SLICE}-row slices {big_err:.3g} of max")
+
+    # served: never a cache hit, no backward kernel
+    from repro_torch.serve.batcher import pad_size
+    srv_eng = build(EngineSpec(CNNModel(params, cfg)))
+    srv = ExplanationServer(CNNAdapter.from_engine(srv_eng),
+                            max_batch=PERTURB_SERVE_BATCH, max_delay_s=0.0)
+    pool = torch.randn((PERTURB_SERVE_N, 32, 32, 3),
+                       generator=torch.Generator().manual_seed(3)).numpy()
+    for i in range(PERTURB_SERVE_N):
+        srv.submit(Request(uid=f"p{i}", kind="predict", x=pool[i]))
+    srv.drain()
+    per = PERTURB_SERVE_N // len(PERTURB_METHODS)
+    reqs = [Request(uid=f"p{i}", kind="explain", x=pool[i],
+                    method=PERTURB_METHODS[i // per],
+                    key=None if i < per else 500 + i)
+            for i in range(PERTURB_SERVE_N)]
+
+    def serve():
+        for r in reqs:
+            srv.submit(r)
+        return srv.drain()
+
+    out, rose = _count(serve, {})
+    want = {k: len(PERTURB_METHODS) * v
+            for k, v in PER_PERTURB["f32"].items()}
+    _expect(rose, want, "perturb served")
+    if len(out) != PERTURB_SERVE_N or any(
+            not r.ok or r.cache_hit for r in out):
+        fail("perturb served: an error or a cache hit")
+    if srv.cache.stats.hits or srv.cache.stats.misses:
+        fail(f"perturb served: the cache was consulted "
+             f"{srv.cache.stats.snapshot()}")
+    by_uid = {r.uid: r for r in out}
+    for m, method in enumerate(PERTURB_METHODS):
+        ids = range(m * per, (m + 1) * per)
+        if pad_size(per, PERTURB_SERVE_BATCH) != per:
+            fail("perturb served: a padded batch")
+        key = None if method == "occlusion" else [500 + i for i in ids]
+        _, heat = srv_eng.perturb(pool[list(ids)], key, method=method)
+        for j, i in enumerate(ids):
+            rel = by_uid[f"p{i}"].relevance
+            _finite(rel, f"perturb served {method}", (32, 32))
+            if not torch.equal(rel, heat[j]):
+                fail(f"perturb served {method} p{i}: differs from "
+                     f"Engine.perturb of its batch")
+    results["served"] = dict(n=PERTURB_SERVE_N, launches={
+        k: v for k, v in rose.items() if v})
+    print(f"  perturb served: {PERTURB_SERVE_N} explains in batches of "
+          f"{PERTURB_SERVE_BATCH} ({per} a method), no cache hit or miss "
+          f"counted, each bitwise Engine.perturb of its batch, "
+          f"{results['served']['launches']}")
+
+    # the kernel profiler: one f32 explain and one f32 RISE explain
+    calls = {"f32 top-3 explain": lambda: srv_eng.explain(x, topk=SEEDS),
+             "f32 rise explain": lambda: eng.perturb(x, seeds)}
+    results["profiler"] = {}
+    for what, fn in calls.items():
+        by_family, n_calls = _profiled_ms(fn)
+        results["profiler"][what] = dict(ms=by_family, calls=n_calls)
+    return results, calls
+
+
+def print_profiler_vs_cupti(results, calls):
+    """The KernelProfiler's fenced ms per wrapper call, by family, beside
+    CUPTI's kernel ms per call of the same calls (read last: a profiler
+    session slows what runs after it).  "other" (B2, PyTorch's own
+    kernels) has no profiled call site: its CUPTI ms a whole call."""
+    cupti = cupti_by_family(list(calls.values()))
+    for i, what in enumerate(calls):
+        prof = results["profiler"][what]
+        cu = None if cupti is None else cupti[i]
+        prof["cupti_ms"] = cu
+        parts = []
+        for fam in PROFILE_FAMILIES:
+            n = prof["calls"].get(fam, 0)
+            if n == 0 and not (cu and fam in cu):
+                continue
+            fenced = ("-" if n == 0
+                      else f"{prof['ms'][fam] / n:.4f}")
+            kernel = ("not measured" if cu is None
+                      else f"{cu.get(fam, 0.0) / max(n, 1):.4f}")
+            parts.append(f"{fam} x{n} {fenced} / {kernel}")
+        print(f"  {what}: family x wrapper calls: KernelProfiler fenced ms "
+              f"/ CUPTI kernel ms, a wrapper call: " + "; ".join(parts))
+
+
+# ---------------------------------------------------------------------------
 
 
 #: The counters each path must launch; the others must stay at 0 there.
@@ -4141,7 +4539,10 @@ PATH_KERNELS = {"f32": tuple(PER_EXPLAIN["f32"]),
                 "train": tuple(PER_TRAIN_STEP),
                 "lm": ("selective_scan", "selective_scan_bwd"),
                 "lm_twin": ("selective_scan", "selective_scan_bwd"),
-                "serve_cnn": tuple(PER_COLD_BATCH)}
+                "serve_cnn": tuple(PER_COLD_BATCH),
+                "perturb_f32": tuple(PER_PERTURB["f32"]),
+                "perturb_bf16": tuple(PER_PERTURB["bf16"]),
+                "perturb_fxp16": tuple(PER_PERTURB["fxp16"])}
 #: The path whose launches the kernel JSON reports for each kernel: the
 #: first that runs it (the bf16 paths report the bf16 instances).
 KERNEL_PATH = {k: next(p for p in PATH_KERNELS if k in PATH_KERNELS[p]
@@ -4332,6 +4733,13 @@ def main() -> int:
           f"width, f32, max_batch {SERVE_BATCH}, against a CPU twin server; "
           f"fxp16 reroute; timed replays")
     serve_results = check_serve_cnn(params, cfg, launches, smi)
+    torch.cuda.empty_cache()
+    print(f"phase 11 (perturb): Engine.perturb at full Table III width, "
+          f"batch {BATCH}, occlusion / LIME / RISE x f32 / bf16 / fxp16, "
+          f"a fold of {PERTURB_BIG_SAMPLES * BATCH} rows, "
+          f"{PERTURB_SERVE_N} served requests, the kernel profiler")
+    perturb_results, profiled_calls = check_perturb(params, cfg, x_cpu,
+                                                    launches)
 
     # last, as a profiler session slows what runs after it: phase 2's
     # profiler column (the process's first session), then where each
@@ -4350,6 +4758,8 @@ def main() -> int:
     check_bf16_kernel_names(profiles[bf16_explain], lambda: next(
         profile_breakdown(fn, what, wall) for what, fn, wall in to_profile
         if what == bf16_explain))
+    print("phase 11's kernel profiler beside CUPTI: the same two calls")
+    print_profiler_vs_cupti(perturb_results, profiled_calls)
 
     kernels = []
     rows = [(name, launches[KERNEL_PATH[name]][name], source, replaces)
@@ -4378,6 +4788,7 @@ def main() -> int:
             paper_tables=tables,
             vjp=vjp_results, train=train_results, lm=lm_results,
             lm_twin=twin_results, serve=serve_results,
+            perturb=perturb_results,
             scan_backward_ms=kc.scan_backward_ms,
             mma_accumulation=kc.accumulation,
             scan_backward_loop_ms=kc.scan_backward_loop_ms,

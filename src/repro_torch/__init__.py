@@ -9,8 +9,9 @@ What runs here: the Table III CNN (``models/cnn.py``) explained through the
 configure-once engine (``engine/``) in f32 and in the paper's true-int16
 fixed point (``precision="fxp16"``, bit for bit with the JAX package), and
 through autograd (``backward="vjp"``, ``FnModel``, the composite methods,
-training with ``optim/``), with the hand-written CUDA kernels of ``csrc/``
-on the card::
+training with ``optim/``), and by perturbation (``perturb/``: occlusion,
+LIME and RISE, one folded forward), with the hand-written CUDA kernels of
+``csrc/`` on the card::
 
     import torch
     from repro_torch.engine import CNNModel, EngineSpec, TopK, build

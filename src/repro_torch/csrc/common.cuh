@@ -18,6 +18,28 @@
 
 namespace repro {
 
+// Images one conv forward launch covers: gridDim.z holds at most 65,535,
+// and a multiple of 16 images keeps each chunk's base pointers as aligned
+// as the whole batch's, so the copy widths and vector stores chosen for the
+// batch stay legal (kernels/conv2d/conv2d.py CONV_BATCH_CHUNK mirrors it).
+constexpr int kBatchChunk = 65520;
+
+// Call launch(n0, nb) for the batch in chunks of nb <= kBatchChunk images
+// from image n0, in order, and stop at the first error.  A batch of 0 makes
+// one call with nb = 0.  Every image of a convolution is computed alone, so
+// a chunked launch writes the bits of one launch over the whole batch.
+template <typename F>
+cudaError_t for_batch_chunks(int n, F&& launch) {
+  int n0 = 0;
+  do {
+    const int nb = n - n0 < kBatchChunk ? n - n0 : kBatchChunk;
+    const cudaError_t e = launch(n0, nb);
+    if (e != cudaSuccess) return e;
+    n0 += nb;
+  } while (n0 < n);
+  return cudaSuccess;
+}
+
 // Method codes, as repro_torch.kernels.METHOD_CODES numbers them.
 enum Method { kSaliency = 0, kDeconvnet = 1, kGuided = 2 };
 

@@ -231,10 +231,21 @@ cudaError_t launch(ConvFxpArgs a, cudaStream_t stream) {
         cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (e != cudaSuccess) return e;
   }
-  const dim3 grid(((a.h + TH - 1) / TH) * ((a.wd + TW - 1) / TW),
-                  (a.cout + TCO - 1) / TCO, a.n);
-  conv_fxp_kernel<TCO, FUSED><<<grid, NTHREADS, smem, stream>>>(a);
-  return cudaGetLastError();
+  // The batch rides gridDim.z.  The forward (one seed) launches a chunk of
+  // at most kBatchChunk images at a time; the fused backward indexes its
+  // [S, N, ...] gradient by the whole N and launches once.
+  return repro::for_batch_chunks(FUSED ? 0 : a.n, [&](int n0, int nb) {
+    ConvFxpArgs b = a;
+    if (!FUSED) {
+      b.in = a.in + static_cast<size_t>(n0) * a.h * a.wd * a.cin;
+      b.out = a.out + static_cast<size_t>(n0) * a.h * a.wd * a.cout;
+      b.n = nb;
+    }
+    const dim3 grid(((a.h + TH - 1) / TH) * ((a.wd + TW - 1) / TW),
+                    (a.cout + TCO - 1) / TCO, b.n);
+    conv_fxp_kernel<TCO, FUSED><<<grid, NTHREADS, smem, stream>>>(b);
+    return cudaGetLastError();
+  });
 }
 
 template <bool FUSED>

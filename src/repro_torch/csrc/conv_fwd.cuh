@@ -223,10 +223,17 @@ cudaError_t launch(const Args<T>& a, cudaStream_t stream) {
     if (e != cudaSuccess) return e;
   }
   const int threads = a.th * (TW / PX) * (a.tco / 4);
-  const dim3 grid(((a.h + a.th - 1) / a.th) * ((a.wd + TW - 1) / TW),
-                  (a.cout + a.tco - 1) / a.tco, a.n);
-  conv_igemm_kernel<T, K, PX><<<grid, threads, smem, stream>>>(a);
-  return cudaGetLastError();
+  // the batch rides gridDim.z, a chunk of at most kBatchChunk images a launch
+  return repro::for_batch_chunks(a.n, [&](int n0, int nb) {
+    Args<T> b = a;
+    b.x = a.x + static_cast<size_t>(n0) * a.h * a.wd * a.cin;
+    b.y = a.y + static_cast<size_t>(n0) * a.h * a.wd * a.cout;
+    b.n = nb;
+    const dim3 grid(((a.h + a.th - 1) / a.th) * ((a.wd + TW - 1) / TW),
+                    (a.cout + a.tco - 1) / a.tco, nb);
+    conv_igemm_kernel<T, K, PX><<<grid, threads, smem, stream>>>(b);
+    return cudaGetLastError();
+  });
 }
 
 template <typename T, int K>

@@ -242,11 +242,18 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
         static_cast<int>(smem));
     if (e != cudaSuccess) return e;
   }
-  return repro::launch_pdl(
-      conv_mma_kernel<K, MT>,
-      dim3(((a.h + a.th - 1) / a.th) * ((a.wd + TW - 1) / TW),
-           (a.cout + a.tco - 1) / a.tco, a.n),
-      dim3(32 * (a.th / MT) * (a.tco / WN)), smem, stream, 0, a);
+  // the batch rides gridDim.z, a chunk of at most kBatchChunk images a launch
+  return repro::for_batch_chunks(a.n, [&](int n0, int nb) {
+    Args b = a;
+    b.x = a.x + static_cast<size_t>(n0) * a.h * a.wd * a.cin;
+    b.y = a.y + static_cast<size_t>(n0) * a.h * a.wd * a.cout;
+    b.n = nb;
+    return repro::launch_pdl(
+        conv_mma_kernel<K, MT>,
+        dim3(((a.h + a.th - 1) / a.th) * ((a.wd + TW - 1) / TW),
+             (a.cout + a.tco - 1) / a.tco, nb),
+        dim3(32 * (a.th / MT) * (a.tco / WN)), smem, stream, 0, b);
+  });
 }
 
 template <int K>

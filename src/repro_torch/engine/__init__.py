@@ -13,7 +13,9 @@ Backends: :class:`ManualSeedBatchedBackward` (the fused kernels' pair,
 auto-selected for ``CNNModel(use_pallas=True)`` and required for fxp16)
 and :class:`VjpBackward` (autograd, any differentiable model:
 ``backward="vjp"``, ``CNNModel(use_pallas=False)``, :class:`FnModel`).
-The method math lives in :mod:`repro_torch.engine.methods`.
+The method math lives in :mod:`repro_torch.engine.methods`;
+``Engine.perturb`` runs the forward-only perturbation explainers of
+:mod:`repro_torch.perturb` over the model's mask-free fold forward.
 """
 from repro_torch.engine import methods
 from repro_torch.engine.backward import ManualSeedBatchedBackward, VjpBackward

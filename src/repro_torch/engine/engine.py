@@ -13,6 +13,7 @@ specs return the SAME engine, a change to any field builds afresh::
     logits, rel, res = eng.predict_then_explain(x)   # ...keeping residuals
     rel2 = eng.replay(res, seeds)                    # BP phase alone
     logits, ig = eng.ig(x, steps=16)                 # composites
+    logits, heat = eng.perturb(x, 7, method="rise")  # forward-only
 
 Inputs may be NumPy arrays or tensors on any device; they move to the
 model's device.  Outputs stay there.
@@ -27,7 +28,7 @@ import torch
 from repro_torch.engine import methods
 from repro_torch.engine.backward import (ManualSeedBatchedBackward,
                                          VjpBackward, vjp)
-from repro_torch.engine.spec import EngineSpec, Fixed, TopK
+from repro_torch.engine.spec import PERTURB_METHODS, EngineSpec, Fixed, TopK
 
 #: Precisions whose only backward is the manual seed-batched pair.
 MANUAL_ONLY = ("bf16", "fxp16")
@@ -50,13 +51,17 @@ class Engine:
             self._model_fn = self._backend = None
             return
         self._token_steps = None
+        self._fold_fn = None    # the perturbation fold's forward, at first use
+        # Perturbation specs are forward-only: the model is built under
+        # saliency rules (spec.fwd_rules), which never run for them.
+        rules = spec.fwd_rules()
         # logits only, for predict (under fxp16 the mask-free int16 forward)
-        self._model_fn = model.logits_fn(spec.method, spec.precision)
+        self._model_fn = model.logits_fn(rules, spec.precision)
         if spec.resolve_backward() == "seed_batched":
             if not model.has_pair:
                 raise ValueError(f"model {model!r} exposes no seed-batched "
                                  f"pair; use backward='vjp'")
-            fwd, bwd = model.pair(spec.method, spec.precision)
+            fwd, bwd = model.pair(rules, spec.precision)
             self._backend = ManualSeedBatchedBackward(fwd, bwd)
         else:
             self._backend = VjpBackward(self._model_fn)
@@ -124,6 +129,7 @@ class Engine:
         on the vjp backend it is ONE forward with grad and then one
         backward pass per seed, so the forward never runs twice.
         """
+        self._require_gradient_spec("explain")
         if self.supports_replay:
             logits, rel, _ = self.predict_then_explain(x, target=target,
                                                        topk=topk)
@@ -146,6 +152,7 @@ class Engine:
         another forward.  On the vjp backend the "residuals" are the padded
         input, and a replay runs the forward again.
         """
+        self._require_gradient_spec("predict_then_explain")
         target, topk = self._fanout(target, topk)
         x, live = self._pad(self._input(x))
         target = self._pad_target(target, live)
@@ -162,6 +169,7 @@ class Engine:
     def ig(self, x, *, steps: int = 16, baseline=None, target=None,
            batched: bool = True):
         """Integrated gradients (the steps axis folded into the batch)."""
+        self._require_gradient_spec("ig")
         return methods.integrated_gradients(
             self.model_fn, self._input(x), steps=steps, baseline=baseline,
             target=target, batched=batched,
@@ -172,6 +180,7 @@ class Engine:
         """SmoothGrad, its noise drawn from ``generator``, or from one
         generator per example (a sequence), the noise axis folded into the
         batch."""
+        self._require_gradient_spec("smoothgrad")
         return methods.smoothgrad(
             self.model_fn, self._input(x), generator, n=n, sigma=sigma,
             target=target, batched=batched,
@@ -179,24 +188,81 @@ class Engine:
 
     def input_x_gradient(self, x, *, target=None):
         """Gradient . input refinement."""
+        self._require_gradient_spec("input_x_gradient")
         return methods.input_x_gradient(self.model_fn, self._input(x),
                                         target=target,
                                         backward=self.composite_backward)
 
     def contrastive(self, x, target_a, target_b):
         """Why A rather than B — one difference-seeded BP pass."""
+        self._require_gradient_spec("contrastive")
         return methods.contrastive(self.model_fn, self._input(x), target_a,
                                    target_b,
                                    backward=self.composite_backward)
 
     def attribute_classes(self, x, targets):
         """K explicit classes from one forward (seed-batched when manual)."""
+        self._require_gradient_spec("attribute_classes")
         if self.supports_replay:
             return methods.attribute_classes(self._backend.forward,
                                              self._input(x), targets,
                                              backward=self._backend.backward)
         return methods.attribute_classes(self._model_fn, self._input(x),
                                          targets)
+
+    def perturb(self, x, key=None, *, method: Optional[str] = None,
+                target=None, batched: bool = True,
+                n_samples: Optional[int] = None, **opts):
+        """Gradient-free perturbation explain: ``-> (logits, heat [B, H,
+        W])``.
+
+        Runs :mod:`repro_torch.perturb` over this engine's model: N masked
+        variants folded into the leading batch axis and ONE forward pass
+        (:meth:`_fold_forward`), no backward, so this is the explain path
+        that runs under ``precision="fxp16"``.  ``batched=False`` runs one
+        forward per mask through the predict forward instead.
+
+        ``method`` defaults to ``spec.method`` (then one of ``occlusion |
+        lime | rise``); ``n_samples`` to ``spec.n_samples``, then the
+        method default.  ``key`` is required by the stochastic methods: an
+        int seed or a ``torch.Generator`` (one mask set for the batch), or
+        a sequence of them, one per example (the serve layer's per-request
+        seeds).  Seeds draw on this engine's device; pad rows draw under
+        the first key.
+        """
+        if self._token_steps is not None:
+            raise ValueError("perturb() is not available on LM token "
+                             "engines; use explain_tokens(batch)")
+        from repro_torch import perturb as perturb_lib
+        method = method if method is not None else self.spec.method
+        if method not in PERTURB_METHODS:
+            raise ValueError(f"method={method!r} not in {PERTURB_METHODS}; "
+                             f"pass method= or build a perturbation spec")
+        merged = dict(perturb_lib.PERTURB_DEFAULTS[method])
+        if "n_samples" in merged:
+            n_samples = (n_samples if n_samples is not None
+                         else self.spec.n_samples)
+            if n_samples is not None:
+                merged["n_samples"] = int(n_samples)
+        merged.update({k: v for k, v in opts.items() if v is not None})
+        x, live = self._pad(self._input(x))
+        target = self._pad_target(target, live)
+        fwd = self._fold_forward() if batched else self._model_fn
+        fn = getattr(perturb_lib, method)
+        if method == "occlusion":
+            logits, heat = fn(fwd, x, target=target, batched=batched,
+                              **merged)
+        else:
+            if key is None:
+                raise ValueError(f"{method} is stochastic: pass a seed or a "
+                                 f"generator (key=)")
+            kb = perturb_lib.key_batch_size(key)
+            if kb is not None and kb < x.shape[0]:
+                key = perturb_lib.pad_keys(key, x.shape[0])
+            logits, heat = fn(fwd, x, perturb_lib.generators(key,
+                                                             self.device),
+                              target=target, batched=batched, **merged)
+        return self._unpad(logits, live), self._unpad(heat, live)
 
     # -- LM token attribution ------------------------------------------------
 
@@ -216,6 +282,24 @@ class Engine:
         return step(batch)
 
     # -- internals -----------------------------------------------------------
+
+    def _fold_forward(self):
+        """The forward a folded perturbation batch runs: the model's
+        mask-free ``fold_fn`` (``cnn.apply_fold`` on the kernel path: the
+        deconvnet blocks, which store nothing for a backward), or the
+        predict forward for models without one (``FnModel``)."""
+        if self._fold_fn is None:
+            fold = getattr(self.spec.model, "fold_fn", None)
+            self._fold_fn = (fold(self.spec.precision) if fold is not None
+                             else self._model_fn)
+        return self._fold_fn
+
+    def _require_gradient_spec(self, op: str):
+        if self.spec.method in PERTURB_METHODS:
+            raise ValueError(
+                f"{op}() runs the gradient BP path; spec.method="
+                f"{self.spec.method!r} is forward-only — use "
+                f"Engine.perturb(x, key=...)")
 
     def _input(self, x) -> torch.Tensor:
         return torch.as_tensor(x, dtype=torch.float32).to(

@@ -152,6 +152,23 @@ class CNNModel(_ParamsIdentity):
 
         return forward, backward
 
+    def fold_fn(self, precision: str) -> Callable:
+        """``f(x) -> logits`` for a folded perturbation batch: on the kernel
+        path the mask-free forward (``cnn.apply_fold``), otherwise the
+        plain reference ops of :meth:`logits_fn`."""
+        if not self.use_pallas:
+            return self.logits_fn("saliency", precision)
+        from repro_torch.models import cnn
+        cnn.check_precision(precision)
+        params = cnn.params_to(self.params, self.device)
+        fwd_params = cnn.prepare_params(params, precision)
+        cfg = self.cfg
+
+        def f(x):
+            return cnn.apply_fold(params, x, cfg, precision, fwd_params)
+
+        return f
+
     def logits_fn(self, method: str, precision: str) -> Callable:
         """Rule-bound ``f(x) -> logits`` (``cnn.apply``), differentiable
         with respect to ``x`` in f32: the ``vjp`` backend and the composite
@@ -267,15 +284,19 @@ class EngineSpec:
 
     Fields as in ``repro.engine.spec.EngineSpec``: ``model`` (a
     :class:`CNNModel`, :class:`FnModel` or :class:`LMModel`), ``method``
-    (``saliency | deconvnet | guided``), ``precision`` (``f32``, ``bf16``,
+    (``saliency | deconvnet | guided``, or the forward-only perturbation
+    methods ``occlusion | lime | rise`` of ``Engine.perturb``),
+    ``precision`` (``f32``, ``bf16``,
     or ``fxp16``, the paper's true-int16 datapath), ``backward`` (``auto``
     resolves to the seed-batched pair when the model has one, else
     ``vjp``; fxp16 is integer arithmetic and has no ``vjp``, and bf16 runs
     the seed-batched pair only: bf16 under ``vjp`` is ROADMAP A6d),
     ``targets`` (:class:`Argmax`, :class:`Fixed` or :class:`TopK`), and
-    ``batch`` (inputs are padded up to it and outputs sliced back).  The
-    JAX package's planner knobs ``device``/``plan``/``autotune`` and the
-    perturbation fields are accepted only at their defaults.
+    ``batch`` (inputs are padded up to it and outputs sliced back) and
+    ``n_samples`` (the fan-out of ``lime`` / ``rise``, None for the method
+    default; occlusion's is geometric and refuses it).  The JAX package's
+    planner knobs ``device``/``plan``/``autotune`` are accepted only at
+    their defaults.
     """
 
     model: Any
@@ -290,17 +311,22 @@ class EngineSpec:
     n_samples: Optional[int] = None
 
     def __post_init__(self):
-        if self.method in PERTURB_METHODS:
-            raise NotImplementedError(
-                f"method={self.method!r}: perturbation methods are not "
-                f"ported yet (ROADMAP A8)")
-        if self.method not in RULE_SETS:
+        if self.method not in RULE_SETS + PERTURB_METHODS:
             raise ValueError(f"method={self.method!r} not in "
                              f"{RULE_SETS + PERTURB_METHODS}")
         if self.n_samples is not None:
+            if self.method not in ("lime", "rise"):
+                raise ValueError(
+                    f"n_samples applies to stochastic perturbation methods "
+                    f"('lime', 'rise'); method={self.method!r}")
+            if self.n_samples < 1:
+                raise ValueError(
+                    f"n_samples must be >= 1, got {self.n_samples}")
+        if self.method in PERTURB_METHODS and isinstance(self.targets, TopK):
             raise ValueError(
-                f"n_samples applies to stochastic perturbation methods "
-                f"('lime', 'rise'); method={self.method!r}")
+                "perturbation methods explain one target per example (no "
+                "seed-batched BP to ride a top-K panel); use Argmax/Fixed "
+                "targets")
         from repro_torch.models.cnn import check_precision
         check_precision(self.precision)
         if self.backward not in BACKWARDS:
@@ -335,6 +361,12 @@ class EngineSpec:
                 "bf16 blocks, f32 relevance as the JAX package returns it) "
                 "is not ported yet (ROADMAP A6d); the seed-batched pair of "
                 "a CNNModel(use_pallas=True) runs bf16")
+
+    def fwd_rules(self) -> str:
+        """The rule set the model is built with: the method's, or saliency
+        for the forward-only perturbation methods, whose rules never run
+        (their logits are every rule set's)."""
+        return self.method if self.method in RULE_SETS else "saliency"
 
     def resolve_backward(self) -> str:
         """The backend ``build`` will actually use (auto-selection rule)."""

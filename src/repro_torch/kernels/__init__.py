@@ -75,6 +75,20 @@ def check_kernel_operands(name: str, *tensors) -> None:
                              f"kernels' 32-bit indexing")
 
 
+def check_image_operand(name: str, x: torch.Tensor) -> None:
+    """Raise unless the batched operand ``x`` [N, ...] is contiguous and
+    one image of it fits the 32-bit element indices: for the kernels that
+    offset each image by a 64-bit product and index within it in 32 bits,
+    whatever N (the conv forwards, which also launch the batch in chunks
+    of at most ``conv2d.CONV_BATCH_CHUNK`` images)."""
+    if not x.is_contiguous():
+        raise ValueError(f"{name}: kernel operands must be contiguous")
+    per_image = x[0].numel() if x.shape[0] else 0
+    if per_image >= 2 ** 31:
+        raise ValueError(f"{name}: {per_image} elements an image exceed the "
+                         f"kernels' 32-bit indexing")
+
+
 def check(name: str, t: torch.Tensor, dtype, shape=None,
           what: str = "tensor"):
     """Raise unless ``t`` has ``dtype`` (one dtype, or a tuple of the ones

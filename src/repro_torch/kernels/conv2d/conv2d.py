@@ -41,13 +41,14 @@ import torch
 
 from repro_torch.core import masks
 from repro_torch.kernels import (METHOD_CODES, _build, check,
-                                 check_kernel_operands, on_card,
-                                 validate_bp_gates)
+                                 check_image_operand, check_kernel_operands,
+                                 on_card, validate_bp_gates)
 from repro_torch.kernels.conv2d import ref
 from repro_torch.kernels.pool.ref import unpool_scatter
 from repro_torch.kernels.relu_mask.relu_mask import gate_gradient, unpack_bits
 from repro_torch.kernels.tiling import (H100_SMS, align_up, cdiv,
                                         crumb_bytes, mask_bytes)
+from repro_torch.obs.profile import instrument
 
 #: ``csrc/conv2d.cu`` FW_TW and FW_MAX_THREADS: the forward's tile is
 #: ``th`` rows x 8 pixels, at most 256 threads a block.
@@ -56,6 +57,12 @@ CONV_TILE_W, CONV_MAX_THREADS = 8, 256
 #: row of PX + K - 1 inputs); ``repro_conv2d_fwd`` runs other odd K on the
 #: general kernel it shares with the fused backward.
 CONV_KS = (1, 3, 5, 7)
+#: Images a conv forward launch covers at most (``csrc/common.cuh``
+#: kBatchChunk): the batch rides ``gridDim.z`` (at most 65,535), so a larger
+#: batch is launched in chunks, a multiple of 16 images each so every
+#: chunk's pointers stay as aligned as the batch's.  An image is computed
+#: alone, so the bits are those of one launch.
+CONV_BATCH_CHUNK = 65520
 #: Shared memory a block of the forward may stage (both ring stages): two
 #: blocks, each with the 1 KB the card reserves, fit an SM's 228 KB.
 CONV_SMEM_BUDGET = 112 * 1024
@@ -711,7 +718,9 @@ def conv_fwd(name: str, counter: str, entries: dict, plain: Callable,
     if not on_card(name, x, w, b):
         return plain(x, w, b)
     _check_general(name, x.dtype, plan == CONV_GENERAL)
-    check_kernel_operands(name, x, w, b)
+    # each image offset in 64 bits: any batch, in chunks of CONV_BATCH_CHUNK
+    check_image_operand(name, x)
+    check_kernel_operands(name, w, b)
     mma = isinstance(plan, ConvMmaPlan)
     # bf16: the route argument, and the kernel it selects counted apart
     route, counted = (((int(mma),), dict(route="conv2d_fwd_bf16_mma" if mma
@@ -738,6 +747,7 @@ def _conv2d_plain(x, w, b):
     return y if b is None else y + b
 
 
+@instrument("conv2d_fwd")
 def conv2d(x: torch.Tensor, w: torch.Tensor,
            b: Optional[torch.Tensor] = None) -> torch.Tensor:
     """[N, H, W, Cin] x [K, K, Cin, Cout] (+ b [Cout]) -> [N, H, W, Cout],
@@ -869,6 +879,7 @@ def bwd_fused(name: str, entries: dict, plain: Callable,
     return out if seeded else out[0]
 
 
+@instrument("conv2d_bwd")
 def conv2d_bwd_fused(
         g: torch.Tensor, wt: torch.Tensor, *,
         pool_idx: Optional[torch.Tensor] = None,

@@ -24,6 +24,7 @@ from repro_torch.kernels.conv2d import ref
 from repro_torch.kernels.conv2d.conv2d import (ConvBwdPlan, ConvPlan,
                                                bwd_fused, bwd_fused_plain,
                                                conv_fwd)
+from repro_torch.obs.profile import instrument
 
 
 def _conv2d_fxp_plain(x, w, b):
@@ -31,6 +32,7 @@ def _conv2d_fxp_plain(x, w, b):
     return y if b is None else sat_add(y, b)
 
 
+@instrument("conv2d_fwd")
 def conv2d_fxp(x: torch.Tensor, w: torch.Tensor,
                b: Optional[torch.Tensor] = None) -> torch.Tensor:
     """int16 [N, H, W, Cin] (Q7.8) x int16 [K, K, Cin, Cout] (Q1.14)
@@ -60,6 +62,7 @@ def conv2d_bwd_fused_fxp_plain(g, wt, **kw):
     return bwd_fused_plain(ref.conv2d_fxp, g, wt, **kw)
 
 
+@instrument("conv2d_bwd")
 def conv2d_bwd_fused_fxp(
         g: torch.Tensor, wt: torch.Tensor, *,
         pool_idx: Optional[torch.Tensor] = None,

@@ -25,6 +25,7 @@ from repro_torch.kernels import _build, check, check_kernel_operands, on_card
 from repro_torch.kernels.pool import ref
 from repro_torch.kernels.tiling import (check_relu_pool_threads, crumb_bytes,
                                         mask_bytes, relu_pool_threads)
+from repro_torch.obs.profile import instrument
 
 
 #: Kernel entry point per element type: f32, bf16 for the bf16 path and
@@ -59,6 +60,7 @@ def _threads(x: torch.Tensor, threads: Optional[int]) -> int:
     return relu_pool_threads(n * (h // 2) * (w // 2) * mask_bytes(c))
 
 
+@instrument("pool")
 def maxpool_fwd(x: torch.Tensor, *, threads: Optional[int] = None):
     """x: [N, H, W, C] f32, bf16 or int16, H and W even -> (pooled [N,
     H/2, W/2, C] of the same type, packed argmax uint8 [N, H/2, W/2,
@@ -91,6 +93,7 @@ _FUSED_ENTRY = {torch.float32: "repro_relu_pool_fwd",
                 torch.int16: "repro_relu_pool_fwd_i16"}
 
 
+@instrument("pool")
 def relu_pool_fwd(x: torch.Tensor, mask: bool = True, *,
                   threads: Optional[int] = None):
     """x: [N, H, W, C] f32, bf16 or int16 (a conv's output), H and W
@@ -110,8 +113,14 @@ def relu_pool_fwd(x: torch.Tensor, mask: bool = True, *,
     check_relu_pool_threads(name, threads, general=False)
     if not on_card(name, x):
         return ref.relu_pool_fwd(x, mask)
-    check_kernel_operands(name, x)
     n, h, w, c = x.shape
+    # input pixels are offset in 64 bits, threads (a window x 8 channels)
+    # counted in 32: any input whose threads fit
+    if not x.is_contiguous():
+        raise ValueError(f"{name}: kernel operands must be contiguous")
+    if n * (h // 2) * (w // 2) * mask_bytes(c) >= 2 ** 31:
+        raise ValueError(f"{name}: {n * (h // 2) * (w // 2)} windows of "
+                         f"{c} channels exceed the kernel's 32-bit threads")
     y, idx = _pooled(x)
     m = (torch.empty((n, h, w, mask_bytes(c)), dtype=torch.uint8,
                      device=x.device) if mask else None)

@@ -23,6 +23,7 @@ from repro_torch.core.fixedpoint import sat_add
 from repro_torch.kernels.vmm import ref
 from repro_torch.kernels.vmm.vmm import (VmmBwdPlan, bwd_fused,
                                          bwd_fused_plain, vmm_fwd)
+from repro_torch.obs.profile import instrument
 
 
 def _vmm_fxp_plain(x, w, b):
@@ -30,6 +31,7 @@ def _vmm_fxp_plain(x, w, b):
     return y if b is None else sat_add(y, b)
 
 
+@instrument("vmm_fwd")
 def vmm_fxp(x: torch.Tensor, w: torch.Tensor,
             b: Optional[torch.Tensor] = None) -> torch.Tensor:
     """int16 [M, K] (Q7.8) @ int16 [K, N] (Q1.14) (+ int16 b [N], Q7.8,
@@ -60,6 +62,7 @@ def vmm_bwd_fused_fxp_plain(g, w, **kw):
     return bwd_fused_plain(ref.vmm_fxp, g, w, **kw)
 
 
+@instrument("vmm_bwd")
 def vmm_bwd_fused_fxp(g: torch.Tensor, w: torch.Tensor, *,
                       relu_mask: Optional[torch.Tensor] = None,
                       gate: Optional[bool] = None,

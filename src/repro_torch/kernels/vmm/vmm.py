@@ -43,6 +43,7 @@ from repro_torch.kernels import (METHOD_CODES, _build, check,
 from repro_torch.kernels.relu_mask.relu_mask import gate_gradient, unpack_bits
 from repro_torch.kernels.tiling import H100_SMS, align_up, cdiv, mask_bytes
 from repro_torch.kernels.vmm import ref
+from repro_torch.obs.profile import instrument
 
 #: The split-K forward's output tile and K chunk (``csrc/vmm.cu`` SK_BM,
 #: SK_BN, SK_KC): a slice of K is a whole number of chunks.
@@ -412,6 +413,7 @@ def _vmm_plain(x, w, b):
     return y if b is None else y + b
 
 
+@instrument("vmm_fwd")
 def vmm(x: torch.Tensor, w: torch.Tensor,
         b: Optional[torch.Tensor] = None) -> torch.Tensor:
     """[M, K] @ [K, N] (+ b [N]) -> [M, N], f32 accumulation; f32 or bf16
@@ -544,6 +546,7 @@ def bwd_fused(name: str, entries: dict, plain: Callable,
     return out if seeded else out[0]
 
 
+@instrument("vmm_bwd")
 def vmm_bwd_fused(g: torch.Tensor, w: torch.Tensor, *,
                   relu_mask: Optional[torch.Tensor] = None,
                   gate: Optional[bool] = None,

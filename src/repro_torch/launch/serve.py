@@ -23,9 +23,13 @@ Both run on the card unless ``--torch-device cpu`` asks for the CPU::
     python -m repro_torch.launch.serve --workload lm --arch falcon-mamba-7b \\
         --method token_ixg --torch-device cpu
 
-``repro``'s planner flags (``--device-profile``, ``--autotune``) raise
-naming ROADMAP A10 and ``--profile-kernels`` naming A9.  ``generate`` /
-``explain`` stay importable helpers for the LM path.
+``--method occlusion|lime|rise`` serves the perturbation explainers
+(``--perturb-samples`` sets lime's and rise's fan-out).
+``--profile-kernels`` times every kernel wrapper call (fenced) and prints
+the profiler's aggregates; the reference's cost-model drift table beside
+them waits for the tile planner, as do ``repro``'s planner flags
+(``--device-profile``, ``--autotune``), which raise naming ROADMAP A10.
+``generate`` / ``explain`` stay importable helpers for the LM path.
 """
 from __future__ import annotations
 
@@ -40,6 +44,7 @@ from repro_torch import engine as engine_lib
 from repro_torch.engine.spec import resolve_device
 from repro_torch.models import cnn as cnn_lib, transformer as tf
 from repro_torch.obs import Tracer, dumps_strict, snapshot as obs_snapshot
+from repro_torch.obs import profile as obs_profile
 from repro_torch.serve import (AdmissionConfig, CNNAdapter, DegradePolicy,
                                ExplanationServer, Request, ShedError,
                                registry)
@@ -195,6 +200,7 @@ def run_cnn(args) -> None:
                                else None))
     admission = _admission(args, degrade)
     tracer = Tracer() if args.trace_out else None
+    profiler = obs_profile.enable() if args.profile_kernels else None
     method_opts = {}
     if args.perturb_samples is not None:
         method_opts = {m: {"n_samples": args.perturb_samples}
@@ -233,6 +239,13 @@ def run_cnn(args) -> None:
               f"peak queue {snap['peak_queue_depth']}")
     print(f"[serve/cnn] cache: {server.cache.stats.snapshot()}")
     _report("cnn", server, tracer, args)
+    if profiler is not None:
+        obs_profile.disable()
+        print(f"[serve/cnn] kernel profile (fenced wall time a wrapper "
+              f"call, {args.precision}):")
+        print(obs_profile.format_aggregates(profiler))
+        print("[serve/cnn] the cost-model drift table beside it needs the "
+              "tile planner (ROADMAP A10)")
 
 
 def main(argv=None):
@@ -263,8 +276,9 @@ def main(argv=None):
     # is immediately servable without touching this file.
     ap.add_argument("--method", default="saliency", choices=registry.names())
     ap.add_argument("--perturb-samples", type=int, default=None,
-                    help="cnn workload: mask fan-out N for lime/rise "
-                         "(perturbation methods: ROADMAP A8)")
+                    help="cnn workload: mask fan-out N of the "
+                         "perturbation explainers lime / rise, folded into "
+                         "one forward of N x batch rows")
     ap.add_argument("--precision", default="f32",
                     choices=["f32", "bf16", "fxp16"],
                     help="cnn workload numeric path; fxp16 = true int16 "
@@ -285,18 +299,15 @@ def main(argv=None):
                     help="print the unified repro_torch.obs metrics "
                          "snapshot")
     ap.add_argument("--profile-kernels", action="store_true",
-                    help="kernel profiling and the cost-model drift table "
-                         "(ROADMAP A9: raises)")
+                    help="cnn workload: time every kernel wrapper call "
+                         "(fenced) and print the aggregates per family, "
+                         "shape and precision")
     args = ap.parse_args(argv)
 
     if args.device_profile is not None or args.autotune:
         raise NotImplementedError(
             "--device-profile / --autotune: the tile planner (repro.plan) "
             "is not ported yet (ROADMAP A10)")
-    if args.profile_kernels:
-        raise NotImplementedError(
-            "--profile-kernels: the kernel profiler (obs/profile.py) and "
-            "its drift table are not ported yet (ROADMAP A9)")
     if args.workload == "lm":
         if args.method not in registry.token_methods():
             raise SystemExit(

@@ -445,6 +445,29 @@ def backward_seeds(params, residuals, seeds, cfg: CNNConfig, method: str,
     return g
 
 
+def apply_fold(params, x, cfg: CNNConfig, precision: str = "f32",
+               fwd_params=None):
+    """Logits only, at a folded batch: the forward the perturbation
+    explainers run over their ``[N*B, ...]`` fan-out (``Engine.perturb``),
+    the counterpart of ``repro.models.cnn._apply_fold``.
+
+    It stores nothing for a backward: the deconvnet blocks of
+    :func:`forward_with_residuals` (Table II: no ReLU mask), that is, per
+    conv layer the conv kernel (B1, its bf16 instance, or B7 under fxp16),
+    then ``clamp_min`` at an unpooled layer or the mask-free fused ReLU +
+    pool at a pooled one, and the FC kernel (B4, B4 bf16, B9) with
+    ``clamp_min`` after the hidden layers.  The ReLU output does not depend
+    on the rule set, so the logits are those of every method.  The pool
+    crumbs are written and dropped (the template has no instance without
+    them).  ``fwd_params`` is :func:`prepare_params` of ``params``, or
+    None.
+    """
+    with torch.no_grad():
+        logits, _ = forward_with_residuals(params, x, cfg, "deconvnet",
+                                           precision, fwd_params)
+    return logits
+
+
 def apply(params, x, cfg: CNNConfig, *, method: str = "autodiff",
           use_pallas: bool = False, fused: Optional[bool] = None,
           precision: str = "f32", fwd_params=None):

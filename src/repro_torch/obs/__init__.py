@@ -14,9 +14,16 @@ metrics, per-request tracing and the one injectable clock.
     every serving timestamp reads (``VirtualClock`` conforms), so traces
     and deadlines never disagree about "now".
 
+  * :mod:`repro_torch.obs.profile` — the opt-in kernel profiler: the
+    kernel wrappers' calls fenced and timed into the
+    ``kernel_launch_seconds`` histogram, labelled (family, shape,
+    precision), with an exact-shape aggregate table.
+
 ZERO-COST WHEN DISABLED: a server without a tracer uses the shared no-op
-span (no allocation, no clock reads).  The kernel profiler
-(``obs/profile.py``) and ``python -m repro.obs`` come with ROADMAP A9.
+span (no allocation, no clock reads); kernel wrappers without an enabled
+profiler run one ``is None`` check (no fence).  ``python -m
+repro_torch.obs`` traces a simulated replay, validates a trace file and
+prints the catalog.
 """
 from repro_torch.obs.clock import VirtualClock, monotonic, perf
 from repro_torch.obs.jsonsafe import dump_strict, dumps_strict, sanitize

@@ -2,9 +2,10 @@
 
 Every layer records into these shared series, so one ``obs.snapshot()``
 describes serve + plan + engine in a single document.  The names, kinds
-and labels are ``repro.obs.metrics``'s; the plan-cache and kernel series
-stay zero until the planner (ROADMAP A10) and the kernel profiler (A9)
-record into them.  All instruments
+and labels are ``repro.obs.metrics``'s; the plan-cache series stay zero
+until the planner (ROADMAP A10) records into them, and the kernel series
+fills while the kernel profiler (:mod:`repro_torch.obs.profile`) is on.
+All instruments
 are registered EAGERLY at import: a snapshot from a freshly started
 process already names every series the system can produce (zero-valued),
 which is what dashboards and the BENCH trend view key on.
@@ -84,7 +85,7 @@ ENGINE_BUILDS = _R.counter(
     "engine build-cache outcomes (build/hit/evict)",
     ("outcome",))
 
-# --- kernels (the opt-in profiler, ROADMAP A9) -----------------------------
+# --- kernels (the opt-in profiler, obs/profile.py) -------------------------
 KERNEL_SECONDS = _R.histogram(
     "kernel_launch_seconds",
     "fenced wall time of eager kernel wrapper launches",

@@ -24,18 +24,18 @@ Class attributes drive server capabilities:
     with its own request's seed) instead of taking the singleton-bucket
     path; each request's draw depends only on its own seed.
 
-The perturbation methods (``occlusion``, ``lime``, ``rise``) are registered
-with the reference's flags, so :func:`names` and the batcher's bucket keys
-are the reference's; their ``attribute`` raises naming ROADMAP A8.
+The perturbation methods (``occlusion``, ``lime``, ``rise``,
+:mod:`repro_torch.perturb`) are forward-only: ``mask_reuse = False``, so
+the residual cache never serves them.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, List, Optional, Sequence, Type, Union
+from typing import Callable, Dict, List, Optional, Type
 
-import numpy as np
 import torch
 
 from repro_torch.core import attribution
+from repro_torch.perturb.keys import generators
 
 _REGISTRY: Dict[str, Type["Explainer"]] = {}
 
@@ -73,21 +73,6 @@ def mask_reuse_methods() -> List[str]:
 
 def make(name: str, f: Callable, **opts) -> "Explainer":
     return get(name)(f, **opts)
-
-
-def generators(key: Union[int, Sequence[int]],
-               device) -> Union[torch.Generator, List[torch.Generator]]:
-    """Seeds -> generators on ``device``: one int gives one generator, a
-    sequence of ints one generator per example (a request's seed, folded
-    along the batch)."""
-    dev = torch.device(device)
-
-    def gen(seed) -> torch.Generator:
-        return torch.Generator(device=dev).manual_seed(int(seed))
-
-    if np.ndim(key) == 0:
-        return gen(key)
-    return [gen(k) for k in key]
 
 
 class Explainer:
@@ -266,16 +251,31 @@ class TokenContrastive(_TokenEngine):
 
 
 class _Perturb(Explainer):
-    """Gradient-free perturbation methods (``repro.perturb``), not ported
-    yet: registered with the reference's flags (forward-only, so
-    ``mask_reuse = False``), ``attribute`` raises naming ROADMAP A8."""
+    """Gradient-free perturbation methods (:mod:`repro_torch.perturb`).
+
+    Forward-only: ``mask_reuse = False`` by construction — there is no BP
+    phase, so the server's hit path never serves these.  Engine-bound
+    explainers dispatch through ``Engine.perturb`` (its mask-free fold
+    forward on the kernels); raw-callable explainers run the free
+    functions.  ``key``: one int seed, or one per example (``fold_keys``).
+    """
 
     mask_reuse = False
 
     def attribute(self, x, *, target=None, key=None):
-        raise NotImplementedError(
-            f"{self.name}: the perturbation methods are not ported yet "
-            f"(ROADMAP A8)")
+        from repro_torch import perturb
+        if self.needs_key and key is None:
+            raise ValueError(f"{self.name} is stochastic: pass a seed "
+                             f"(key=)")
+        if self.engine is not None:
+            return self.engine.perturb(x, key, method=self.name,
+                                       target=target, **self.opts)
+        x = self._input(x)
+        fn = getattr(perturb, self.name)
+        if self.needs_key:
+            return fn(self.f, x, generators(key, x.device), target=target,
+                      **self.opts)
+        return fn(self.f, x, target=target, **self.opts)
 
 
 @register("occlusion")
@@ -289,7 +289,7 @@ class Lime(_Perturb):
     ``baseline``, ``batched``."""
 
     needs_key = True
-    fold_keys = True
+    fold_keys = True            # per-example Bernoulli masks, own seeds
 
 
 @register("rise")
@@ -298,4 +298,4 @@ class Rise(_Perturb):
     ``batched``."""
 
     needs_key = True
-    fold_keys = True
+    fold_keys = True            # per-example mask lattices, own seeds

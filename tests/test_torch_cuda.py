@@ -44,7 +44,12 @@ three methods, S 1, 3 and 4, FC K = 10, 13 and 37, misaligned views; C =
 and launching only the backward kernels, in f32, bf16 and fxp16; the
 cache owning exactly ``bits_stored / 8`` bytes on the device; the dispatch
 clock read after a synchronise, so a batch whose kernels outlast its
-launches reads slow).
+launches reads slow), and the perturbation fold: every conv forward (f32
+and int16, tiled and general; bf16 on both routes) at more than 65,535
+images, bitwise equal to launches of the same images in slices of at most
+65,535, and the fold forward (``cnn.apply_fold``) at 7,200 rows of the
+full Table III width against its plain version, launching 4 conv, 2
+mask-free fused ReLU + pool and 2 FC kernels and nothing else.
 Every test needs a CUDA device and skips without one.  This file imports
 neither JAX nor the JAX package, so on a machine without JAX run it
 without the suite's conftest:
@@ -1816,3 +1821,104 @@ def test_serve_syncs_before_the_dispatch_clock_is_read(gen):
     assert resp.ok
     assert srv.admission.estimator.estimate("predict") >= 0.9 * sleep_s
     assert resp.latency_s >= 0.9 * sleep_s
+
+
+# -- the perturbation fold: batches past gridDim.z, the fold forward ------
+
+#: More images than gridDim.z holds (65,535): the conv entries launch the
+#: batch in chunks of at most CONV_BATCH_CHUNK.
+PAST_GRID_Z = 70_001
+
+
+@pytest.mark.parametrize("case", ["f32", "f32_general", "bf16_ffma",
+                                  "bf16_mma", "int16", "int16_general"])
+def test_conv_forwards_past_grid_z_equal_slices_bitwise(gen, case):
+    from repro_torch.kernels.conv2d.conv2d import (CONV_BATCH_CHUNK,
+                                                   conv_bf16_plan)
+    cin = 16 if case == "bf16_mma" else 3
+    cout = 16 if case == "bf16_mma" else 8
+    n, h, w = PAST_GRID_Z, 4, 4
+    x = _randn(gen, n, h, w, cin)
+    wt = _randn(gen, 3, 3, cin, cout, scale=0.3)
+    b = _randn(gen, cout, scale=0.1)
+    if case.startswith("int16"):
+        x, wt, b = (fixedpoint.to_fixed(x), fixedpoint.to_fixed(
+            wt, fixedpoint.WGT_FRAC), fixedpoint.to_fixed(b))
+        plan = (CONV_GENERAL if case == "int16_general"
+                else conv_plan(n, h, w, cin, cout, 3, esize=2))
+
+        def run(xs):
+            return conv2d_fxp_planned(xs, wt, b, plan=plan)
+        counter = "conv2d_fxp_fwd"
+    else:
+        if case.startswith("bf16"):
+            x, wt, b = x.bfloat16(), wt.bfloat16(), b.bfloat16()
+            plan = (conv_bf16_plan(n, h, w, cin, cout, 3) if case == "bf16_mma"
+                    else conv_plan(n, h, w, cin, cout, 3, esize=2))
+            assert isinstance(plan, ConvPlan) == (case == "bf16_ffma")
+        else:
+            plan = (CONV_GENERAL if case == "f32_general"
+                    else conv_plan(n, h, w, cin, cout, 3))
+
+        def run(xs):
+            return conv2d_planned(xs, wt, b, plan=plan)
+        counter = "conv2d_fwd"
+    assert n > 65_535 >= CONV_BATCH_CHUNK
+    whole = _launched(counter, lambda: run(x))
+    cut = 65_535
+    parts = torch.cat([run(x[:cut]), run(x[cut:])])
+    torch.cuda.synchronize()
+    assert whole.dtype == x.dtype and torch.equal(whole, parts)
+    # the last chunk's images are the slice's bits too
+    tail = run(x[CONV_BATCH_CHUNK:])
+    assert torch.equal(whole[CONV_BATCH_CHUNK:], tail)
+
+
+def _plain_fold(params, x, cfg, precision):
+    """cnn.apply_fold by the wrappers' plain versions, on the card."""
+    from repro_torch.kernels.conv2d.conv2d import _conv2d_plain
+    from repro_torch.kernels.conv2d.fxp import _conv2d_fxp_plain
+    from repro_torch.kernels.vmm.fxp import _vmm_fxp_plain
+    from repro_torch.kernels.vmm.vmm import _vmm_plain
+    from repro_torch.models import cnn
+    fxp = precision == "fxp16"
+    conv, fc = ((_conv2d_fxp_plain, _vmm_fxp_plain) if fxp
+                else (_conv2d_plain, _vmm_plain))
+    fp = cnn.prepare_params(params, precision)
+    x = fixedpoint.to_fixed(x) if fxp else x
+    for i, p in enumerate(fp["conv"]):
+        x = conv(x, p["w"], p["b"])
+        if (i + 1) % cfg.pool_every == 0:
+            x = pool_ref.relu_pool_fwd(x, False)[0]
+        else:
+            x = torch.clamp_min(x, 0)
+    x = x.reshape(x.shape[0], -1)
+    for i, p in enumerate(fp["fc"]):
+        x = fc(x, p["w"], p["b"])
+        if i < len(fp["fc"]) - 1:
+            x = torch.clamp_min(x, 0)
+    return fixedpoint.from_fixed(x) if fxp else x
+
+
+@pytest.mark.parametrize("precision", ["f32", "fxp16"])
+def test_fold_forward_at_7200_rows_matches_plain(gen, precision):
+    from repro_torch.engine import CNNModel
+    from repro_torch.kernels import reset_launches
+    from repro_torch.models import cnn
+    cfg = cnn.CNNConfig()
+    params = cnn.init(torch.Generator().manual_seed(0), cfg, device="cuda")
+    fold = CNNModel(params, cfg).fold_fn(precision)
+    x = _randn(gen, 7200, 32, 32, 3)
+    reset_launches()
+    got = fold(x)
+    torch.cuda.synchronize()
+    fx = precision == "fxp16"
+    assert {k: v for k, v in LAUNCHES.items() if v} == {
+        "conv2d_fxp_fwd" if fx else "conv2d_fwd": 4, "relu_pool_fwd": 2,
+        "vmm_fxp_fwd" if fx else "vmm_fwd": 2}
+    want = _plain_fold(params, x, cfg, precision)
+    assert got.shape == (7200, 10) and torch.isfinite(got).all()
+    if fx:
+        assert torch.equal(got, want)
+    else:
+        _close(got, want)

@@ -188,7 +188,6 @@ def test_replay_equals_cold_explain_bitwise(setup):
                                           device="cpu")), "A6"),
     (dict(model=object()), "A11"), (dict(device="tpu-v4"), "A10"),
     (dict(plan=object()), "A10"), (dict(autotune=True), "A10"),
-    (dict(method="occlusion"), "A8"), (dict(method="rise"), "A8"),
 ])
 def test_unported_knobs_raise(setup, kw, item):
     _, params, _ = setup

@@ -5,6 +5,10 @@
   fine: names are matched exactly, not by prefix).
 * With ``jax`` made unimportable, the package imports and explains on the
   CPU at the golden tiny config.
+* With ``jax`` made unimportable, the perturbation explainers
+  (``repro_torch.perturb``, ``Engine.perturb``, the serve explainers) and
+  the kernel profiler run on the CPU, and ``python -m repro_torch.obs
+  trace`` replays and validates its trace.
 * Importing every module neither starts ``nvcc`` nor loads the kernel
   library, and a CUDA launch without ``nvcc`` raises instead of running
   the plain version.
@@ -74,6 +78,45 @@ assert not any(m == "jax" or m.startswith(("jax.", "repro."))
 print("ok", tuple(logits.shape))
 """)
     assert "ok (2, 4)" in out
+
+
+def test_perturb_and_profiler_without_jax(tmp_path):
+    out = _run(f"""
+import sys
+sys.modules["jax"] = None
+sys.modules["repro"] = None
+import numpy as np, torch
+from repro_torch.engine import CNNModel, EngineSpec, build
+from repro_torch.models import cnn
+from repro_torch.obs import profile
+from repro_torch.serve import CNNAdapter, ExplanationServer, Request
+cfg = cnn.CNNConfig(in_hw=(8, 8), channels=(4, 4), fc=(16,))
+params = cnn.init(torch.Generator().manual_seed(0), cfg)
+x = np.random.RandomState(0).randn(2, 8, 8, 3).astype(np.float32)
+with profile.profiled() as prof:
+    for method in ("occlusion", "lime", "rise"):
+        eng = build(EngineSpec(CNNModel(params, cfg, device="cpu"),
+                               method=method, precision="fxp16"))
+        key = None if method == "occlusion" else [1, 2]
+        logits, heat = eng.perturb(x, key, n_samples=None
+                                   if method == "occlusion" else 8)
+        assert heat.shape == (2, 8, 8) and torch.isfinite(heat).all()
+assert {{k[0] for k in prof.aggregates()}} == {{"conv2d_fwd", "pool",
+                                               "vmm_fwd"}}
+srv = ExplanationServer(CNNAdapter.from_engine(eng), max_batch=2,
+                        max_delay_s=0.0,
+                        method_opts={{"rise": {{"n_samples": 8}}}})
+srv.submit(Request(uid="a", kind="explain", x=x[0], method="rise", key=3))
+(resp,) = srv.drain()
+assert resp.ok and not resp.cache_hit
+from repro_torch.obs.__main__ import main
+assert main(["trace", "-n", "50", "--out", r"{tmp_path / 't.json'}"]) == 0
+assert main(["validate", r"{tmp_path / 't.json'}"]) == 0
+assert not any(m == "jax" or m.startswith(("jax.", "repro."))
+               for m in sys.modules if sys.modules[m] is not None)
+print("ok")
+""")
+    assert out.strip().endswith("ok")
 
 
 def test_import_builds_and_loads_nothing():

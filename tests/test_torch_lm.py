@@ -368,8 +368,8 @@ def test_unported_knobs_and_handles_raise(setup):
     p, cfg = setup.p, setup.cfg
     with pytest.raises(NotImplementedError, match="A11b"):
         EngineSpec(LMModel(p, cfg, device="cpu"), precision="fxp16")
-    with pytest.raises(NotImplementedError, match="A8"):
-        EngineSpec(LMModel(p, cfg, device="cpu"), method="occlusion")
+    with pytest.raises(ValueError, match="gradient rule set"):
+        build(EngineSpec(LMModel(p, cfg, device="cpu"), method="occlusion"))
     with pytest.raises(NotImplementedError, match="A10"):
         steps.ssm_scan_tiles(cfg, plan=object())
     with pytest.raises(ValueError, match="mode"):

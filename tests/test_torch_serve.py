@@ -169,13 +169,6 @@ def test_registry_names_and_flags_equal_reference():
             pass
 
 
-@pytest.mark.parametrize("method", ["occlusion", "lime", "rise"])
-def test_perturbation_explainers_raise_naming_a8(method):
-    ex = tregistry.make(method, lambda x: x)
-    with pytest.raises(NotImplementedError, match="A8"):
-        ex.attribute(np.zeros((1, 8, 8, 3), np.float32), key=0)
-
-
 def test_registry_explainers_are_the_direct_calls(setup):
     _, params, x = setup
     eng = build(EngineSpec(CNNModel(params, CFG, device="cpu")))
@@ -718,8 +711,7 @@ def test_driver_serves_cnn_on_the_cpu():
 
 
 @pytest.mark.parametrize("flag,item", [("--device-profile=edge-small", "A10"),
-                                       ("--autotune", "A10"),
-                                       ("--profile-kernels", "A9")])
+                                       ("--autotune", "A10")])
 def test_driver_refuses_what_is_not_ported(flag, item):
     from repro_torch.launch import serve as driver
     with pytest.raises(NotImplementedError, match=item):

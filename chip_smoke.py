@@ -9,14 +9,17 @@ steps, explain each generated token of falcon-mamba-7b at full width
 and depth and serve it, serve the CNN through the explanation server
 (``repro_torch.serve``), explain it by perturbation (occlusion, LIME,
 RISE: ``Engine.perturb``'s fold of N x 32 rows, and one of 67,200 rows),
-and check them against the CPU.
+plan its kernels with the tile planner's ``h100`` profile (analytic and
+autotuned), and check them against the CPU.
 
     python3 chip_smoke.py                  # one card; exits 0 when all pass
     python3 chip_smoke.py --out DIR        # also writes DIR/chip_smoke.json
     python3 chip_smoke.py --sweep [--out DIR]
 
 ``--sweep`` runs phase 1, then times the launch choices of B4 (every K
-split) and B1 (a grid of tile plans, all bitwise equal) beside the library
+split) and B1 (the tile plans of ``conv_candidates``, all bitwise equal;
+B5 / B8: ``conv_bwd_candidates``; the autotuner measures from the same
+enumerators) beside the library
 call at the main-path and vjp shapes, of the fused conv backward (B5 at
 S = 3 and at the vjp path's S = 1, B8 at S = 3: a grid of tile plans, all
 bitwise equal, beside the general kernel), of the int16 forwards (B7:
@@ -207,6 +210,33 @@ Phases (every failed check raises; nothing is caught and carried on):
    fenced ms per family printed at the end beside CUPTI's kernel ms of the
    same calls.
 
+12. plan (after phase 11): the tile planner (``repro_torch.plan``) with
+   the card's ``h100`` profile (SM count and shared memory read from the
+   card, rates from its data sheet; ``detected`` resolves to it), at full
+   Table III width, batch 32, top-3, in f32, bf16 and fxp16: the analytic
+   ``plan_cnn`` equal to the kernels' launch rules entry for entry; an
+   ``EngineSpec(device="h100")`` engine's explain bitwise the unplanned
+   one's, launching the same kernels; an ``autotune=True`` build on a fresh
+   tuning cache under ``--out`` (the rule's plan and the three
+   best-ranked other candidates of each launch timed by CUDA events), each
+   entry's rule and chosen microseconds and the build's seconds printed,
+   its explain held to the unplanned one (fxp16 bitwise, f32 within
+   DOT_TOL / REPLAY_TOL, bf16 BF16_TOL of max) with the same launches
+   (counted as path ``plan_<precision>``); a warm build a 100 % cache hit
+   with no measurement, and ``python -m repro_torch.plan --device h100
+   --autotune`` then ``--expect-full-hit`` exiting 0; device ms of the
+   unplanned, analytic and autotuned explain (interleaved, beside a second
+   unplanned engine on its own copy of the weights) and host ms; ``plan_lm`` on
+   phase 7's falcon-mamba-7b FULL (autotuned over the scan's ScanTiles, one
+   per launch they make) and per-token explains under the analytic, the
+   autotuned and four more ScanTiles against the unplanned one (within
+   LM_ROUTE_TOL of max, bitwise reported; the analytic plan bitwise), 64
+   B13 and 64 B13 bwd launches each; ``device="edge-tiny"``: a half-width
+   CNN's RISE fold of 256 x 32 rows raises ``InfeasiblePlanError`` before
+   any launch, and the Table III widths raise at build; the served CNN's
+   ``--profile-kernels`` drift table (every row measured on the card: est,
+   measured, drift), read back by ``python -m repro_torch.obs drift``.
+
 Last, the profiler column of phase 2: every row's kernel (and general
 route) 50 times under one profiler session, its CUPTI time per call;
 then one saliency explain of each CNN path, Table IV's f32 FP+BP at
@@ -222,7 +252,8 @@ Phases 3-4 run once per path, f32, bf16, then fxp16; phase 9's literal
 bf16 explain and phases 5 (per branch), 6, 7 and 8 are paths of their
 own (phases 7b and 10 are the server's, reported on their own
 line; phase 11's perturbation explains count per precision, as paths
-``perturb_f32``, ``perturb_bf16`` and ``perturb_fxp16``).  Launch counters are set to 0 just before
+``perturb_f32``, ``perturb_bf16`` and ``perturb_fxp16``, and phase 12's
+autotuned explains as ``plan_f32``, ``plan_bf16`` and ``plan_fxp16``).  Launch counters are set to 0 just before
 each path (in phases 5-8: before each checked explain, training step or
 decode) and read just after, per wrapper counter and, on the bf16 paths,
 per C entry point; the kernel-vs-plain launches of phase 2, and
@@ -238,6 +269,7 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import types
 from pathlib import Path
@@ -1168,50 +1200,6 @@ SWEEP_BWD = ((torch.float32, SEEDS), (torch.float32, 1), (torch.int16, SEEDS))
 SWEEP_BWD_REPS, SWEEP_BWD_COVER_MS = 20, 20.0
 
 
-def _sweep_plans(h, cin, cout, esize=4):
-    """A grid of conv forward tile plans (B1; B7 at ``esize`` 2) for one
-    shape: rows, pixels a thread, Cout a block, Cin a stage, within the
-    block's thread and memory limits."""
-    from repro_torch.kernels.conv2d.conv2d import CONV_MAX_THREADS, ConvPlan
-    from repro_torch.kernels.tiling import align_up
-    cts = sorted({min(c, cin) if cin % 4 else min(c, cin) // 4 * 4
-                  for c in (4, 8, 16, 32)} - {0})
-    for th in (1, 2, 4, 8, 16, 32):
-        for px in (4, 8):
-            for tco in (4, 8, 16, 32, 64):
-                for ct in cts:
-                    p = ConvPlan(th, px, tco, ct)
-                    if (th <= h and tco <= align_up(cout, 4)
-                            and 32 <= p.threads <= CONV_MAX_THREADS
-                            and p.smem_bytes(3, esize=esize) <= 227 * 1024):
-                        yield p
-
-
-def _sweep_bwd_plans(s, h, c, cout, pooled, esize):
-    """A grid of fused-backward tile plans for one launch: rows, pixels a
-    thread, Cout a block, C a stage, seeds a thread and thread slices (one
-    seed, or all S up to 3 in a thread or across slices), within the
-    block's thread and memory limits."""
-    from repro_torch.kernels.conv2d.conv2d import (CONV_MAX_THREADS,
-                                                   CONV_SMEM_LIMIT,
-                                                   ConvBwdPlan)
-    from repro_torch.kernels.tiling import align_up
-    seeds = {(1, 1), (min(s, 3), 1), (1, min(s, 3))}   # (sg, st)
-    for th in (1, 2, 4, 8, 16, 32):
-        for px in (4, 8):
-            for tco in (4, 8, 16, 32, 64):
-                for ct in sorted({min(8, c), min(16, c), min(32, c)}):
-                    for sg, st in sorted(seeds):
-                        p = ConvBwdPlan(th, px, tco, ct, sg, st)
-                        if (th <= h and tco <= align_up(cout, 4)
-                                and (px == 4 or sg == 1)
-                                and 32 <= p.threads <= CONV_MAX_THREADS
-                                and p.smem_bytes(3, pooled=pooled,
-                                                 esize=esize)
-                                <= CONV_SMEM_LIMIT):
-                            yield p
-
-
 def sweep_bwd_plans(gen):
     """``--sweep``, fused conv backward: time a grid of tile plans at each
     launch of :data:`SWEEP_BWD` beside the general kernel, every plan held
@@ -1221,6 +1209,7 @@ def sweep_bwd_plans(gen):
     from repro_torch.kernels.conv2d.conv2d import (CONV_BWD_GENERAL,
                                                    conv2d_bwd_fused,
                                                    conv2d_bwd_fused_plain,
+                                                   conv_bwd_candidates,
                                                    conv_bwd_plan)
     from repro_torch.kernels.conv2d.fxp import (conv2d_bwd_fused_fxp,
                                                 conv2d_bwd_fused_fxp_plain)
@@ -1261,8 +1250,9 @@ def sweep_bwd_plans(gen):
                 lambda: fn(g, wt, plan=CONV_BWD_GENERAL, **kw),
                 reps=SWEEP_BWD_REPS, cover_ms=SWEEP_BWD_COVER_MS)
             found = []
-            for p in set(_sweep_bwd_plans(s, h, c, cout, pooled,
-                                          g.element_size())) | {chosen}:
+            for p in set(conv_bwd_candidates(
+                    s, h, c, cout, 3, pooled=pooled,
+                    esize=g.element_size())) | {chosen}:
                 got = fn(g, wt, plan=p, **kw)
                 torch.cuda.synchronize()
                 if not torch.equal(got, first):
@@ -1293,7 +1283,8 @@ def sweep_launch_choices(gen):
     split is held against the plain version at DOT_TOL; every plan of a
     shape must give the bits of ``conv_plan``'s."""
     from repro_torch.kernels.conv2d import ref as conv_ref
-    from repro_torch.kernels.conv2d.conv2d import conv2d_planned, conv_plan
+    from repro_torch.kernels.conv2d.conv2d import (conv2d_planned,
+                                                   conv_candidates, conv_plan)
     from repro_torch.kernels.vmm import ref as vmm_ref
     from repro_torch.kernels.vmm.vmm import (vmm_max_splits, vmm_splits,
                                              vmm_with_splits)
@@ -1332,7 +1323,7 @@ def sweep_launch_choices(gen):
             case = f"conv {kind} [{BATCH},{h},{h},{cin}->{cout}]"
             close(first, conv_ref.conv2d(x, w) + b, case)
             found = []
-            for p in set(_sweep_plans(h, cin, cout)) | {chosen}:
+            for p in set(conv_candidates(h, cin, cout, 3)) | {chosen}:
                 got = conv2d_planned(x, w, b, plan=p)
                 torch.cuda.synchronize()
                 if not torch.equal(got, first):
@@ -1569,7 +1560,8 @@ def sweep_fxp_choices(gen):
     at FC0; every plan and split held bitwise to the plain version."""
     from repro_torch.core import fixedpoint
     from repro_torch.kernels.conv2d import ref as conv_ref
-    from repro_torch.kernels.conv2d.conv2d import CONV_GENERAL, conv_plan
+    from repro_torch.kernels.conv2d.conv2d import (CONV_GENERAL,
+                                                   conv_candidates, conv_plan)
     from repro_torch.kernels.conv2d.fxp import conv2d_fxp_planned
     from repro_torch.kernels.vmm import ref as vmm_ref
     from repro_torch.kernels.vmm.fxp import vmm_fxp_with_splits
@@ -1595,7 +1587,8 @@ def sweep_fxp_choices(gen):
         general = device_time_ms(
             lambda: conv2d_fxp_planned(x, w, b, plan=CONV_GENERAL))
         found = []
-        for p in set(_sweep_plans(h, cin, cout, esize=x.element_size())) \
+        for p in set(conv_candidates(h, cin, cout, 3,
+                                     esize=x.element_size())) \
                 | {chosen}:
             same(conv2d_fxp_planned(x, w, b, plan=p), want, f"{case} {p}")
             found.append((device_time_ms(
@@ -3391,7 +3384,9 @@ def _rel_err(got, want):
 
 def check_lm(launches, to_profile):
     """Phase 7: falcon-mamba-7b, FULL config (64 layers, d_model 4096,
-    d_inner 8192, N 16, vocab 65024, bf16), random weights."""
+    d_inner 8192, N 16, vocab 65024, bf16), random weights.  Returns
+    ``((params, cfg, decode result), results)``: the model stays on the
+    card for phase 12."""
     from repro_torch import configs, lm
     from repro_torch.engine import EngineSpec, LMModel, build
     from repro_torch.models import transformer as tf
@@ -3543,12 +3538,12 @@ def check_lm(launches, to_profile):
     print(f"phase 7b (lm serve): an LMAdapter server on the same model, "
           f"max_batch {LM_BATCH}")
     serve = check_serve_lm(params, cfg, prompts)
-    return dict(init_s=init_s, n_params=n_params, linearity_err=lin_err,
-                route_err=route_err, serve=serve,
-                layer_errs=layer_errs, logits_vs_chunked=logit_err,
-                chunked_vs_f32=chunk_err, argmax_agree=same_argmax,
-                times=times, engine=results,
-                peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    return (params, cfg, res), dict(
+        init_s=init_s, n_params=n_params, linearity_err=lin_err,
+        route_err=route_err, serve=serve, layer_errs=layer_errs,
+        logits_vs_chunked=logit_err, chunked_vs_f32=chunk_err,
+        argmax_agree=same_argmax, times=times, engine=results,
+        peak_gib=torch.cuda.max_memory_allocated() / 2**30)
 
 
 def _through_chunked_grad(fn):
@@ -4502,6 +4497,390 @@ def check_perturb(params, cfg, x_cpu, launches):
     return results, calls
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the tile planner on the card
+# ---------------------------------------------------------------------------
+
+#: Phase 12's CNN for the edge-tiny fold audit: half the Table III widths,
+#: whose plan fits edge-tiny's 1 MB at the spec's batch while a RISE fold
+#: of 256 x 32 rows does not (the full widths do not fit it even at one
+#: image: that build is checked too).
+PLAN_TINY_CNN = dict(channels=(16, 16, 32, 32), fc=(64,))
+#: ScanTiles phase 12 holds bitwise to the unplanned scan: 8, 16 and 32
+#: channels a forward block, chunks of 4 to 128 steps (windows of 8 to 128
+#: in the backward).
+PLAN_SCAN_TILES = ((8, 4), (16, 8), (32, 64), (512, 128))
+#: Rounds of phase 12's interleaved explain timings (the four engines in
+#: a rotated order each round, 20 explains between events apiece).
+PLAN_ROUNDS = 6
+
+
+def _rule_entries(cfg, precision, batch, seeds):
+    """Each launch's plan by today's launch rule (the kernels' own)."""
+    from repro_torch.kernels.conv2d import conv2d as cv
+    from repro_torch.kernels.vmm import vmm as vm
+    from repro_torch.plan import cnn_kernel_shapes
+    esize, bf16 = (4 if precision == "f32" else 2), precision == "bf16"
+    out = {}
+    for key, family, kw in cnn_kernel_shapes(cfg, batch, seeds):
+        if family == "conv2d_fwd":
+            a = (kw["n"], kw["h"], kw["w"], kw["cin"], kw["cout"], kw["k"])
+            out[key] = (cv.conv_bf16_plan(*a) if bf16
+                        else cv.conv_plan(*a, esize=esize))
+        elif family == "conv2d_bwd":
+            h, w = ((2 * kw["hg"], 2 * kw["wg"]) if kw["pooled"]
+                    else (kw["hg"], kw["wg"]))
+            a = (kw["s"], kw["n"], h, w, kw["c"], kw["cout"], kw["k"])
+            out[key] = (cv.conv_bwd_bf16_plan(*a, pooled=kw["pooled"]) if bf16
+                        else cv.conv_bwd_plan(*a, pooled=kw["pooled"],
+                                              esize=esize))
+        elif family == "vmm_fwd":
+            out[key] = (vm.vmm_mma_plan if bf16 else vm.vmm_splits)(
+                kw["m"], kw["k"], kw["n"])
+        elif family == "vmm_bwd":
+            out[key] = (vm.vmm_bwd_mma_plan if bf16 else vm.vmm_bwd_plan)(
+                kw["s"], kw["m"], kw["k"], kw["n"])
+    return out
+
+
+def _held(what, got, want, precision):
+    """An autotuned engine's output against the unplanned one: fxp16
+    bitwise; f32 within DOT_TOL (logits) / REPLAY_TOL (relevance) of max;
+    bf16 within BF16_TOL of max.  Returns the error relative to max."""
+    if precision == "fxp16":
+        if not torch.equal(got, want):
+            fail(f"phase 12: {what} not bitwise the unplanned engine's")
+        return 0.0
+    err = _rel_err(got, want)
+    tol = (BF16_TOL if precision == "bf16"
+           else DOT_TOL if "logits" in what else REPLAY_TOL)
+    if not err <= tol:
+        fail(f"phase 12: {what} {err:.3e} of max from the unplanned "
+             f"engine's, beyond {tol}")
+    return err
+
+
+def _counted(fn, launches=None):
+    """``fn()`` with the launch counters set to 0 just before and read
+    just after (into ``launches`` when given)."""
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    torch.cuda.synchronize()
+    reset_launches()
+    out = fn()
+    torch.cuda.synchronize()
+    got = {k: v for k, v in LAUNCHES.items() if v}
+    if launches is not None:
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+    return out, got
+
+
+def check_plan(params, cfg, x_cpu, launches, lm_state, work):
+    """Phase 12: the tile planner on the card (see the module docstring);
+    the tuning cache and the drift table go to the directory ``work``."""
+    import os
+
+    from repro_torch import plan as tplan
+    from repro_torch.engine import CNNModel, EngineSpec, build
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.models import cnn
+    from repro_torch.plan import planner as planner_lib
+
+    prof = tplan.get_profile("h100")
+    if tplan.get_profile("detected") != prof:
+        fail("phase 12: 'detected' does not resolve to the card's profile")
+    print(f"  h100 profile: {prof.card}, {prof.sms} SMs, shared memory "
+          f"{prof.vmem_bytes} B a block / {prof.smem_per_sm} B an SM, "
+          f"{prof.threads_per_sm} threads an SM; cache device "
+          f"{prof.cache_device!r}")
+    work.mkdir(parents=True, exist_ok=True)
+    cache_path = work / "tileplans.json"
+    if cache_path.exists():
+        cache_path.unlink()
+    measured = []
+    real_measure = planner_lib.measure_kernel
+
+    def counting_measure(*a):
+        us = real_measure(*a)
+        measured.append((a[0], us))
+        return us
+
+    planner_lib.measure_kernel = counting_measure
+    # EngineSpec(autotune=True) reads and writes the default cache
+    os.environ["REPRO_TORCH_PLAN_CACHE"] = str(cache_path)
+    x = x_cpu.cuda()
+    model = CNNModel(params, cfg, device="cuda")
+    out = {}
+    try:
+        for precision in ("f32", "bf16", "fxp16"):
+            out[precision] = _plan_precision(model, x, precision, launches,
+                                             measured, cache_path)
+            check_path_launches(f"plan_{precision}",
+                                launches[f"plan_{precision}"])
+        # the CLI: a batch-1 build, then a warm one that must hit fully
+        for args, want in (((), 0), (("--expect-full-hit",), 0)):
+            r = subprocess.run(
+                [sys.executable, "-m", "repro_torch.plan", "--device",
+                 "h100", "--autotune", "--cache", str(cache_path), *args],
+                capture_output=True, text=True, timeout=600,
+                cwd=ROOT, env=dict(os.environ,
+                                   PYTHONPATH=str(ROOT / "src")))
+            if r.returncode != want:
+                fail(f"phase 12: python -m repro_torch.plan {args} exited "
+                     f"{r.returncode}: {r.stderr[-2000:]}")
+        print(f"  python -m repro_torch.plan --device h100 --autotune: "
+              f"exit 0, then with --expect-full-hit exit 0 ("
+              f"{r.stdout.strip().splitlines()[-1]})")
+        out["lm"] = _plan_lm(lm_state, measured, cache_path)
+    finally:
+        planner_lib.measure_kernel = real_measure
+        del os.environ["REPRO_TORCH_PLAN_CACHE"]
+
+    # an edge profile audits: a fold its plan cannot hold raises before
+    # any launch
+    edge_cfg = cnn.CNNConfig(**PLAN_TINY_CNN)
+    edge_params = cnn.init(torch.Generator().manual_seed(2), edge_cfg)
+    eng = build(EngineSpec(CNNModel(edge_params, edge_cfg, device="cuda"),
+                           method="rise", device="edge-tiny"))
+    if eng.plan is None or eng.plan.device != "edge-tiny":
+        fail("phase 12: the edge-tiny engine has no edge-tiny plan")
+    _, ok = _counted(lambda: eng.perturb(x[:1], 7, n_samples=4))
+    reset_launches()
+    try:
+        eng.perturb(x, 7)
+    except tplan.InfeasiblePlanError as e:
+        raised = str(e)
+    else:
+        fail("phase 12: edge-tiny's RISE fold of 256 x 32 rows ran")
+    torch.cuda.synchronize()
+    if any(LAUNCHES.values()):
+        fail(f"phase 12: the infeasible fold launched {dict(LAUNCHES)}")
+    try:
+        build(EngineSpec(CNNModel(params, cfg, device="cuda"),
+                         device="edge-tiny"))
+    except tplan.InfeasiblePlanError as e:
+        full = str(e)
+    else:
+        fail("phase 12: the Table III CNN's plan fits edge-tiny")
+    if any(LAUNCHES.values()):
+        fail("phase 12: an infeasible build launched")
+    print(f"  edge-tiny ({edge_cfg.channels}, FC {edge_cfg.fc}): a RISE "
+          f"explain of 4 x 1 rows runs ({sum(ok.values())} launches); the "
+          f"fold of 256 x 32 raises before any launch: {raised[:90]}...; "
+          f"the Table III widths raise at build: {full[:70]}...")
+    out["edge_tiny"] = dict(fold_error=raised, build_error=full)
+
+    # the drift table, from the served CNN's --profile-kernels
+    drift_json = work / "drift.json"
+    r = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--workload",
+         "cnn", "--requests", "16", "--batch", str(BATCH), "--topk",
+         str(SEEDS), "--profile-kernels", "--drift-out", str(drift_json)],
+        capture_output=True, text=True, timeout=600, cwd=ROOT,
+        env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+    if r.returncode != 0 or "cost-model drift (h100" not in r.stdout:
+        fail(f"phase 12: --profile-kernels exited {r.returncode}: "
+             f"{r.stderr[-2000:]}")
+    rows = json.loads(drift_json.read_text())["rows"]
+    if any(row["measured_us"] is None or row["drift"] is None
+           or not row["est_us"] > 0 for row in rows):
+        fail(f"phase 12: drift rows without a measurement: {rows}")
+    back = subprocess.run(
+        [sys.executable, "-m", "repro_torch.obs", "drift", "--path",
+         str(drift_json)], capture_output=True, text=True, timeout=300,
+        cwd=ROOT, env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+    if back.returncode != 0 or [line.split()[0] for line in
+                                back.stdout.splitlines()[2:]] != [
+                                    row["key"] for row in rows]:
+        fail(f"phase 12: python -m repro_torch.obs drift read "
+             f"{back.returncode}: {back.stdout[-1000:]}")
+    print("  the served CNN's drift table (--profile-kernels, read back by "
+          "python -m repro_torch.obs drift):")
+    for line in back.stdout.splitlines():
+        print("   ", line)
+    out["drift"] = rows
+    return out
+
+
+def _plan_precision(model, x, precision, launches, measured, cache_path):
+    """Phase 12 items 1-5 for one precision."""
+    import dataclasses
+
+    from repro_torch import plan as tplan
+    from repro_torch.engine import (CNNModel, EngineSpec, TopK, build,
+                                    clear_cache)
+    cfg = model.cfg
+    analytic = tplan.plan_cnn(cfg, device="h100", precision=precision,
+                              batch=BATCH, seeds=SEEDS)
+    rules = _rule_entries(cfg, precision, BATCH, SEEDS)
+    if dict(analytic.entries) != rules:
+        fail(f"phase 12 ({precision}): the analytic h100 plan is not the "
+             f"launch rules: {analytic.entries} vs {rules}")
+    spec = EngineSpec(model, method="saliency", precision=precision,
+                      targets=TopK(SEEDS), batch=BATCH)
+    base = build(spec)
+    ana = build(dataclasses.replace(spec, device="h100"))
+    (bl, br), base_launches = _counted(lambda: base.explain(x))
+    (al, ar), ana_launches = _counted(lambda: ana.explain(x))
+    if not (torch.equal(al, bl) and torch.equal(ar, br)):
+        fail(f"phase 12 ({precision}): the analytic-plan engine is not "
+             f"bitwise the unplanned one")
+    if ana_launches != base_launches:
+        fail(f"phase 12 ({precision}): launches {ana_launches} vs "
+             f"{base_launches}")
+    # the autotuned engine, on a fresh cache
+    measured.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tuned = build(dataclasses.replace(spec, device="h100", autotune=True))
+    build_s = time.perf_counter() - t0
+    n_measured = len(measured)
+    if not n_measured:
+        fail(f"phase 12 ({precision}): the autotuned build measured nothing")
+    stored = json.loads(cache_path.read_text())
+    dims = {key: [int(v) for v in kw.values()]
+            for key, _, kw in tplan.cnn_kernel_shapes(cfg, BATCH, SEEDS)}
+    entries = []
+    for key, tile in tuned.plan.entries:
+        family = next(f for k, f, _ in tplan.cnn_kernel_shapes(
+            cfg, BATCH, SEEDS) if k == key)
+        ck = tplan.cache_key(family, dims[key],
+                             tplan.planner.PLAN_DTYPES[precision], precision,
+                             tplan.get_profile("h100").cache_device)
+        e = stored[ck]
+        moved = tile != rules[key]
+        entries.append(dict(key=key, rule=str(rules[key]), chosen=str(tile),
+                            rule_us=e["rule_us"], chosen_us=e["measured_us"],
+                            moved=moved))
+        print(f"  {precision} {key:10s} rule {e['rule_us']:8.2f} us "
+              f"{rules[key]}" + (f" -> {e['measured_us']:8.2f} us {tile}"
+                                 if moved else " (kept)"))
+    path = f"plan_{precision}"
+    launches[path] = {}
+    (tl, tr), tuned_launches = _counted(lambda: tuned.explain(x),
+                                        launches[path])
+    if tuned_launches != base_launches:
+        fail(f"phase 12 ({precision}): the autotuned engine launched "
+             f"{tuned_launches}, the unplanned one {base_launches}")
+    logit_err = _held(f"{precision} logits", tl, bl, precision)
+    rel_err = _held(f"{precision} relevance", tr, br, precision)
+    # the warm build: a 100 % cache hit, no measurement
+    clear_cache()
+    measured.clear()
+    warm_cache = tplan.TuningCache(str(cache_path))
+    warm = tplan.plan_cnn(cfg, device="h100", precision=precision,
+                          batch=BATCH, seeds=SEEDS, autotune=True,
+                          cache=warm_cache)
+    again = build(dataclasses.replace(spec, device="h100", autotune=True))
+    if (measured or warm_cache.misses or warm_cache.hits != len(warm)
+            or warm != tuned.plan or again.plan != tuned.plan):
+        fail(f"phase 12 ({precision}): the warm build measured "
+             f"{len(measured)} or missed {warm_cache.misses}")
+    # device ms, interleaved: PLAN_ROUNDS rounds, the order turned each;
+    # a second unplanned engine, on its own copy of the weights, gives the
+    # spread between two engines making the same launches
+    twin_params = {k: [dict(p) for p in v] for k, v in model.params.items()}
+    engines = {"unplanned": base, "unplanned twin": build(
+        dataclasses.replace(spec, model=CNNModel(twin_params, cfg,
+                                                 device="cuda"))),
+        "analytic": ana, "autotuned": tuned}
+    times = {name: [] for name in engines}
+    names = list(engines)
+    for r in range(PLAN_ROUNDS):
+        for name in names[r % 4:] + names[:r % 4]:
+            eng = engines[name]
+            times[name].append(device_time_ms(lambda: eng.explain(x),
+                                              reps=20))
+    ms = {k: statistics.median(v) for k, v in times.items()}
+    host = {}
+    for name, eng in engines.items():
+        runs = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            eng.explain(x)
+            torch.cuda.synchronize()
+            runs.append(1e3 * (time.perf_counter() - t0))
+        host[name] = statistics.median(runs)
+    print(f"  {precision}: analytic plan = the rules, its engine bitwise "
+          f"the unplanned one; autotuned build {build_s:.2f} s "
+          f"({n_measured} measurements), {sum(e['moved'] for e in entries)}"
+          f" of {len(entries)} entries off the rule, logits "
+          f"{logit_err:.2e} / relevance {rel_err:.2e} of max from the "
+          f"unplanned; warm build: {warm_cache.hits} hits, 0 misses, 0 "
+          f"measurements; explain device ms (median of {PLAN_ROUNDS}) "
+          + ", ".join(f"{k} {v:.4f}" for k, v in ms.items())
+          + "; host ms " + ", ".join(f"{k} {v:.3f}" for k, v in host.items())
+          + f" ({times})")
+    return dict(entries=entries, build_s=build_s, n_measured=n_measured,
+                logits_err=logit_err, relevance_err=rel_err,
+                device_ms=ms, device_ms_runs=times, host_ms=host,
+                launches=tuned_launches)
+
+
+def _plan_lm(lm_state, measured, cache_path):
+    """Phase 12 item 6: plan_lm on falcon-mamba-7b FULL, and per-token
+    explains under planned scan knobs against the unplanned one."""
+    from repro_torch import lm
+    from repro_torch import plan as tplan
+    params, cfg, res = lm_state
+    s_full = LM_PROMPT + LM_NEW
+    measured.clear()
+    t0 = time.perf_counter()
+    tuned = tplan.plan_lm(cfg, device="h100", precision="bf16",
+                          batch=LM_BATCH, seq=s_full, autotune=True,
+                          cache=tplan.TuningCache(str(cache_path)))
+    build_s = time.perf_counter() - t0
+    analytic = tplan.plan_lm(cfg, device="h100", precision="bf16",
+                             batch=LM_BATCH, seq=s_full)
+    rule = tplan.ScanTile(cfg.d_inner, cfg.ssm_chunk)
+    if set(dict(analytic.entries).values()) != {rule}:
+        fail(f"phase 12 (lm): the analytic plan is not the unplanned "
+             f"launch: {analytic.summary()}")
+    t, pos = LM_NEW - 1, LM_PROMPT + LM_NEW - 2
+    per_explain = {"selective_scan": cfg.n_layers,
+                   "selective_scan_bwd": cfg.n_layers}
+
+    def explain(plan):
+        step = lm.make_token_explain(cfg, mode="contrastive", plan=plan)
+        return _counted(lambda: step(params, res.tokens, pos,
+                                     res.tokens[:, pos + 1],
+                                     res.runners_up[:, t]))
+
+    base, base_launches = explain(None)
+    if base_launches != per_explain:
+        fail(f"phase 12 (lm): unplanned launches {base_launches}")
+    rows = []
+    knobs = [("analytic", analytic), ("autotuned", tuned)] + [
+        (f"ScanTile{dt}", tplan.TilePlan(
+            "h100", "bf16", tuple((k, tplan.ScanTile(*dt))
+                                  for k in analytic.keys())))
+        for dt in PLAN_SCAN_TILES]
+    for name, plan in knobs:
+        got, n = explain(plan)
+        if n != base_launches:
+            fail(f"phase 12 (lm): {name} launched {n}, unplanned "
+                 f"{base_launches}")
+        err = _rel_err(got, base)
+        if not err <= LM_ROUTE_TOL:
+            fail(f"phase 12 (lm): {name} scores {err:.3e} of max from the "
+                 f"unplanned explain, beyond {LM_ROUTE_TOL}")
+        rows.append(dict(plan=name, tile=str(plan.get("ssm0.scan")),
+                         bitwise=bool(torch.equal(got, base)), err=err))
+    if not rows[0]["bitwise"]:
+        fail("phase 12 (lm): the analytic plan's explain is not bitwise")
+    print(f"  lm: plan_lm({cfg.name} FULL, h100, bf16, B {LM_BATCH}, S "
+          f"{s_full}) autotuned in {build_s:.2f} s ({len(measured)} "
+          f"measurements): ssm0.scan {tuned.get('ssm0.scan')} (rule "
+          f"{rule}); per-token explains, {cfg.n_layers} B13 + "
+          f"{cfg.n_layers} B13 bwd launches each, against the unplanned: "
+          + "; ".join(f"{r['plan']} {r['tile']} "
+                      + ("bitwise" if r["bitwise"] else f"{r['err']:.2e}")
+                      for r in rows))
+    return dict(build_s=build_s, n_measured=len(measured),
+                tuned=str(tuned.get("ssm0.scan")), rows=rows)
+
+
 def print_profiler_vs_cupti(results, calls):
     """The KernelProfiler's fenced ms per wrapper call, by family, beside
     CUPTI's kernel ms per call of the same calls (read last: a profiler
@@ -4542,7 +4921,10 @@ PATH_KERNELS = {"f32": tuple(PER_EXPLAIN["f32"]),
                 "serve_cnn": tuple(PER_COLD_BATCH),
                 "perturb_f32": tuple(PER_PERTURB["f32"]),
                 "perturb_bf16": tuple(PER_PERTURB["bf16"]),
-                "perturb_fxp16": tuple(PER_PERTURB["fxp16"])}
+                "perturb_fxp16": tuple(PER_PERTURB["fxp16"]),
+                "plan_f32": tuple(PER_EXPLAIN["f32"]),
+                "plan_bf16": tuple(PER_EXPLAIN["bf16"]),
+                "plan_fxp16": tuple(PER_EXPLAIN["fxp16"])}
 #: The path whose launches the kernel JSON reports for each kernel: the
 #: first that runs it (the bf16 paths report the bf16 instances).
 KERNEL_PATH = {k: next(p for p in PATH_KERNELS if k in PATH_KERNELS[p]
@@ -4721,7 +5103,8 @@ def main() -> int:
     print(f"phase 7 (lm): {LM_ARCH} full width and depth, bf16, "
           f"{LM_BATCH} prompts x {LM_PROMPT} tokens, {LM_NEW} greedy "
           f"tokens, per-token and engine explains")
-    lm_results = check_lm(launches, to_profile)
+    # the model stays on the card for phase 12's planned explains
+    lm_state, lm_results = check_lm(launches, to_profile)
     check_path_launches("lm", launches["lm"])
     torch.cuda.empty_cache()
     print(f"phase 8 (lm twin): {LM_ARCH} at full width, 2 layers, f32, "
@@ -4740,6 +5123,17 @@ def main() -> int:
           f"{PERTURB_SERVE_N} served requests, the kernel profiler")
     perturb_results, profiled_calls = check_perturb(params, cfg, x_cpu,
                                                     launches)
+    torch.cuda.empty_cache()
+    print(f"phase 12 (plan): the tile planner's h100 profile at full Table "
+          f"III width, batch {BATCH}, top-{SEEDS}: analytic plans, "
+          f"autotuned engines, warm builds, the LM's scan, edge-tiny's "
+          f"audit, the drift table")
+    with tempfile.TemporaryDirectory(prefix="plan_") as tmp:
+        plan_results = check_plan(params, cfg, x_cpu, launches, lm_state,
+                                  Path(args.out if args.out is not None
+                                       else tmp))
+    del lm_state
+    torch.cuda.empty_cache()
 
     # last, as a profiler session slows what runs after it: phase 2's
     # profiler column (the process's first session), then where each
@@ -4788,7 +5182,7 @@ def main() -> int:
             paper_tables=tables,
             vjp=vjp_results, train=train_results, lm=lm_results,
             lm_twin=twin_results, serve=serve_results,
-            perturb=perturb_results,
+            perturb=perturb_results, plan=plan_results,
             scan_backward_ms=kc.scan_backward_ms,
             mma_accumulation=kc.accumulation,
             scan_backward_loop_ms=kc.scan_backward_loop_ms,

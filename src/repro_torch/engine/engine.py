@@ -15,6 +15,12 @@ specs return the SAME engine, a change to any field builds afresh::
     logits, ig = eng.ig(x, steps=16)                 # composites
     logits, heat = eng.perturb(x, 7, method="rise")  # forward-only
 
+A spec's ``device`` / ``plan`` / ``autotune`` resolve a
+:class:`repro_torch.plan.TilePlan` once, at build (:attr:`Engine.plan`),
+and every kernel of the model runs under it; a composite that folds an
+axis into the batch re-audits the plan at the folded size first
+(``_engine_for_fold``), before any launch.
+
 Inputs may be NumPy arrays or tensors on any device; they move to the
 model's device.  Outputs stay there.
 """
@@ -44,29 +50,43 @@ class Engine:
         self.spec = spec
         model = spec.model
         self.device = model.device
+        # Tile planning happens here, before any launch: every kernel of
+        # the model runs under the resolved plan.
+        self._plan = spec.resolve_plan()
         if hasattr(model, "token_step"):
             # LM token attribution: one step per score mode, the default
             # "ixg" now and the others at first use.
-            self._token_steps = {"ixg": model.token_step(spec.method)}
+            self._token_steps = {"ixg": model.token_step(spec.method,
+                                                         plan=self._plan)}
             self._model_fn = self._backend = None
             return
         self._token_steps = None
         self._fold_fn = None    # the perturbation fold's forward, at first use
+        # folded-batch audit decisions (composites): folded M -> the engine
+        # to dispatch through (self while the plan still fits)
+        self._fold_engines = {}
         # Perturbation specs are forward-only: the model is built under
         # saliency rules (spec.fwd_rules), which never run for them.
         rules = spec.fwd_rules()
         # logits only, for predict (under fxp16 the mask-free int16 forward)
-        self._model_fn = model.logits_fn(rules, spec.precision)
+        self._model_fn = model.logits_fn(rules, spec.precision,
+                                         plan=self._plan)
         if spec.resolve_backward() == "seed_batched":
             if not model.has_pair:
                 raise ValueError(f"model {model!r} exposes no seed-batched "
                                  f"pair; use backward='vjp'")
-            fwd, bwd = model.pair(rules, spec.precision)
+            fwd, bwd = model.pair(rules, spec.precision, plan=self._plan)
             self._backend = ManualSeedBatchedBackward(fwd, bwd)
         else:
             self._backend = VjpBackward(self._model_fn)
 
     # -- resolved surfaces ---------------------------------------------------
+
+    @property
+    def plan(self):
+        """The resolved :class:`repro_torch.plan.TilePlan` (None when the
+        spec names no device or plan: every launch runs its rule)."""
+        return self._plan
 
     @property
     def supports_replay(self) -> bool:
@@ -168,23 +188,29 @@ class Engine:
 
     def ig(self, x, *, steps: int = 16, baseline=None, target=None,
            batched: bool = True):
-        """Integrated gradients (the steps axis folded into the batch)."""
+        """Integrated gradients (the steps axis folded into the batch; the
+        folded launch re-audited against the plan first,
+        :meth:`_engine_for_fold`)."""
         self._require_gradient_spec("ig")
+        x = self._input(x)
+        eng = self._engine_for_fold(steps if batched else 1, x)
         return methods.integrated_gradients(
-            self.model_fn, self._input(x), steps=steps, baseline=baseline,
+            eng.model_fn, x, steps=steps, baseline=baseline,
             target=target, batched=batched,
-            backward=self.composite_backward)
+            backward=eng.composite_backward)
 
     def smoothgrad(self, x, generator, *, n: int = 8, sigma: float = 0.1,
                    target=None, batched: bool = True):
         """SmoothGrad, its noise drawn from ``generator``, or from one
         generator per example (a sequence), the noise axis folded into the
-        batch."""
+        batch (re-audited against the plan first)."""
         self._require_gradient_spec("smoothgrad")
+        x = self._input(x)
+        eng = self._engine_for_fold(n if batched else 1, x)
         return methods.smoothgrad(
-            self.model_fn, self._input(x), generator, n=n, sigma=sigma,
+            eng.model_fn, x, generator, n=n, sigma=sigma,
             target=target, batched=batched,
-            backward=self.composite_backward)
+            backward=eng.composite_backward)
 
     def input_x_gradient(self, x, *, target=None):
         """Gradient . input refinement."""
@@ -228,7 +254,9 @@ class Engine:
         int seed or a ``torch.Generator`` (one mask set for the batch), or
         a sequence of them, one per example (the serve layer's per-request
         seeds).  Seeds draw on this engine's device; pad rows draw under
-        the first key.
+        the first key.  The folded launch is re-audited against the plan
+        first (:meth:`_engine_for_fold`): replanned or rejected before any
+        launch.
         """
         if self._token_steps is not None:
             raise ValueError("perturb() is not available on LM token "
@@ -247,7 +275,9 @@ class Engine:
         merged.update({k: v for k, v in opts.items() if v is not None})
         x, live = self._pad(self._input(x))
         target = self._pad_target(target, live)
-        fwd = self._fold_forward() if batched else self._model_fn
+        n = perturb_lib.n_masks(method, tuple(x.shape[1:3]), **merged)
+        eng = self._engine_for_fold(n if batched else 1, x)
+        fwd = eng._fold_forward() if batched else eng._model_fn
         fn = getattr(perturb_lib, method)
         if method == "occlusion":
             logits, heat = fn(fwd, x, target=target, batched=batched,
@@ -277,7 +307,8 @@ class Engine:
                 f"explain_tokens needs an LMModel spec")
         step = self._token_steps.get(mode)
         if step is None:
-            step = self.spec.model.token_step(self.spec.method, mode=mode)
+            step = self.spec.model.token_step(self.spec.method,
+                                              plan=self._plan, mode=mode)
             self._token_steps[mode] = step
         return step(batch)
 
@@ -290,9 +321,53 @@ class Engine:
         predict forward for models without one (``FnModel``)."""
         if self._fold_fn is None:
             fold = getattr(self.spec.model, "fold_fn", None)
-            self._fold_fn = (fold(self.spec.precision) if fold is not None
-                             else self._model_fn)
+            self._fold_fn = (fold(self.spec.precision, plan=self._plan)
+                             if fold is not None else self._model_fn)
         return self._fold_fn
+
+    def _engine_for_fold(self, factor: int, x) -> "Engine":
+        """The engine a composite's FOLDED launch dispatches through.
+
+        ``ig(steps=S)``, ``smoothgrad(n=S)`` and ``perturb`` (N masks) fold
+        an axis into the batch, so the kernels run at ``M = S * B``, a
+        shape the plan was not made for.  Memoized per folded M:
+
+          * no plan, or folded M within the planned batch -> ``self``;
+          * the plan's footprints still fit the profile at folded M (on the
+            card always: an ``h100`` entry applies only at its planned
+            shape, and every other launch runs its rule) -> ``self``;
+          * the budget is violated -> replan at the folded batch and
+            dispatch through a sibling engine built on that plan;
+          * no tile fits at folded M -> the planner's
+            :class:`~repro_torch.plan.InfeasiblePlanError`, before any
+            launch.
+        """
+        if factor <= 1 or self._plan is None:
+            return self
+        folded = int(factor) * int(x.shape[0])
+        if folded <= (self.spec.batch or 1):
+            return self
+        if folded not in self._fold_engines:
+            self._fold_engines[folded] = self._audit_fold(folded)
+        return self._fold_engines[folded]
+
+    def _audit_fold(self, folded: int) -> "Engine":
+        from dataclasses import replace
+
+        from repro_torch.plan import (cnn_plan_footprints, get_profile,
+                                      plan_cnn)
+        spec = self.spec
+        profile = get_profile(spec.device if spec.device is not None
+                              else self._plan.device)
+        # composites backprop ONE seed per folded row (seeds=1)
+        fps = cnn_plan_footprints(spec.model.cfg, self._plan,
+                                  precision=spec.precision, batch=folded,
+                                  seeds=1, profile=profile)
+        if all(fp.fits(profile) for fp in fps.values()):
+            return self
+        plan = plan_cnn(spec.model.cfg, device=profile,
+                        precision=spec.precision, batch=folded, seeds=1)
+        return build(replace(spec, plan=plan))
 
     def _require_gradient_spec(self, op: str):
         if self.spec.method in PERTURB_METHODS:

@@ -14,7 +14,9 @@ Fields and semantics follow ``repro.engine.spec``.  What the port does not
 run yet raises :class:`NotImplementedError` naming its ROADMAP item.  The
 torch device belongs to the model handle (``CNNModel(..., device=)``,
 ``FnModel(..., device=)``), not to ``EngineSpec.device``, which names a
-JAX-side planner profile.
+tile planner profile (:mod:`repro_torch.plan`): ``h100``, whose plans the
+card's kernels launch, or one of the JAX package's, whose plans are
+audits on the card.
 
 Model handles compare by IDENTITY of their params object (or factory),
 plus config and device — tensors have no cheap equality — so rebinding the
@@ -125,7 +127,8 @@ class CNNModel(_ParamsIdentity):
     def has_pair(self) -> bool:
         return self.use_pallas
 
-    def pair(self, method: str, precision: str) -> Tuple[Callable, Callable]:
+    def pair(self, method: str, precision: str,
+             plan=None) -> Tuple[Callable, Callable]:
         """The seed-batched ``(forward, backward)`` closure pair.
 
         ``forward(x) -> (logits, residuals)``; ``backward(residuals, seeds
@@ -133,7 +136,9 @@ class CNNModel(_ParamsIdentity):
         to the device and are quantized under fxp16, and the backward
         weights (flip-transposed kernels, contiguous ``W^T``) are made from
         them here, once per pair (the JAX package quantizes per call; the
-        numbers are the same).
+        numbers are the same).  ``plan``: a
+        :class:`repro_torch.plan.TilePlan` whose ``h100`` entries the
+        launches of their planned shapes run.
         """
         from repro_torch.models import cnn
         cnn.check_precision(precision)
@@ -144,20 +149,21 @@ class CNNModel(_ParamsIdentity):
 
         def forward(x):
             return cnn.forward_with_residuals(params, x, cfg, method,
-                                              precision, fwd_params)
+                                              precision, fwd_params, plan)
 
         def backward(residuals, seeds):
             return cnn.backward_seeds(params, residuals, seeds, cfg, method,
-                                      precision, bwd_weights=bwd_weights)
+                                      precision, bwd_weights=bwd_weights,
+                                      plan=plan)
 
         return forward, backward
 
-    def fold_fn(self, precision: str) -> Callable:
+    def fold_fn(self, precision: str, plan=None) -> Callable:
         """``f(x) -> logits`` for a folded perturbation batch: on the kernel
         path the mask-free forward (``cnn.apply_fold``), otherwise the
         plain reference ops of :meth:`logits_fn`."""
         if not self.use_pallas:
-            return self.logits_fn("saliency", precision)
+            return self.logits_fn("saliency", precision, plan)
         from repro_torch.models import cnn
         cnn.check_precision(precision)
         params = cnn.params_to(self.params, self.device)
@@ -165,11 +171,13 @@ class CNNModel(_ParamsIdentity):
         cfg = self.cfg
 
         def f(x):
-            return cnn.apply_fold(params, x, cfg, precision, fwd_params)
+            return cnn.apply_fold(params, x, cfg, precision, fwd_params,
+                                  plan)
 
         return f
 
-    def logits_fn(self, method: str, precision: str) -> Callable:
+    def logits_fn(self, method: str, precision: str,
+                  plan=None) -> Callable:
         """Rule-bound ``f(x) -> logits`` (``cnn.apply``), differentiable
         with respect to ``x`` in f32: the ``vjp`` backend and the composite
         methods run autograd through it.  Under bf16 and fxp16 it is the bf16
@@ -185,7 +193,7 @@ class CNNModel(_ParamsIdentity):
         def f(x):
             return cnn.apply(params, x, cfg, method=method,
                              use_pallas=use_pallas, precision=precision,
-                             fwd_params=fwd_params)
+                             fwd_params=fwd_params, plan=plan)
 
         return f
 
@@ -219,20 +227,23 @@ class LMModel(_ParamsIdentity):
         from repro_torch.models import transformer
         return transformer.params_to(self.params, self.device)
 
-    def token_step(self, method: str, *, mode: str = "ixg") -> Callable:
+    def token_step(self, method: str, *, plan=None,
+                   mode: str = "ixg") -> Callable:
         """``(batch) -> (last-position logits [B, V], scores [B, S])``.
 
         ``method`` must be a gradient rule set; ``mode`` picks the
         per-token reduction (``ixg | grad_norm | contrastive``, see
-        :func:`repro_torch.launch.steps.make_attribute_step`).  The token
-        ids of ``batch["tokens"]`` move to the model's device.
+        :func:`repro_torch.launch.steps.make_attribute_step`) and ``plan``
+        the scan's knobs (a ``plan_lm`` TilePlan).  The token ids of
+        ``batch["tokens"]`` move to the model's device.
         """
         if method not in RULE_SETS:
             raise ValueError(
                 f"token attribution needs a gradient rule set {RULE_SETS}; "
                 f"method={method!r} has no token BP")
         from repro_torch.launch import steps as steps_lib
-        step = steps_lib.make_attribute_step(self.cfg, method, mode=mode)
+        step = steps_lib.make_attribute_step(self.cfg, method, plan=plan,
+                                             mode=mode)
         params, device = self.device_params, self.device
 
         def run(batch):
@@ -265,7 +276,10 @@ class FnModel(_ParamsIdentity):
     def has_pair(self) -> bool:
         return False
 
-    def logits_fn(self, method: str, precision: str) -> Callable:
+    def logits_fn(self, method: str, precision: str,
+                  plan=None) -> Callable:
+        """``make_f(method)``; ``plan`` is accepted and unused (an
+        arbitrary model has no planned kernels)."""
         if precision == "fxp16":
             raise ValueError("FnModel has no manual pair; precision='fxp16' "
                              "requires a model exposing seed-batched "
@@ -294,9 +308,22 @@ class EngineSpec:
     ``targets`` (:class:`Argmax`, :class:`Fixed` or :class:`TopK`), and
     ``batch`` (inputs are padded up to it and outputs sliced back) and
     ``n_samples`` (the fan-out of ``lime`` / ``rise``, None for the method
-    default; occlusion's is geometric and refuses it).  The JAX package's
-    planner knobs ``device``/``plan``/``autotune`` are accepted only at
-    their defaults.
+    default; occlusion's is geometric and refuses it).  The planner's
+    knobs:
+
+      * ``device`` — a :mod:`repro_torch.plan` profile name (or profile):
+        ``h100`` (on the card; ``detected`` resolves to it there) plans the
+        card's own launch objects, which the kernels of the planned shapes
+        launch; the JAX package's profiles (``detected`` on the CPU,
+        ``tpu-v4``, ``edge-*``, ``mesh:<p>:1``) plan TPU tiles, which on
+        the card are audits (:class:`~repro_torch.plan.
+        InfeasiblePlanError` before any launch) while the kernels launch
+        under their own rules.  ``mesh:<p>:<n>`` with n > 1 is ROADMAP
+        A12.
+      * ``plan`` — an explicit :class:`repro_torch.plan.TilePlan`
+        (overrides ``device``-driven planning).
+      * ``autotune`` — refine the plan by measured kernel times at build
+        time, through the persistent tuning cache.
     """
 
     model: Any
@@ -338,13 +365,19 @@ class EngineSpec:
                              "'seed_batched'")
         if self.batch is not None and self.batch < 1:
             raise ValueError(f"batch must be >= 1, got {self.batch}")
-        for knob, default in (("device", None), ("plan", None),
-                              ("autotune", False)):
-            if getattr(self, knob) != default:
+        if self.device is not None:
+            from repro_torch.plan import MeshProfile, get_profile
+            profile = get_profile(self.device)   # validate the name eagerly
+            if isinstance(profile, MeshProfile) and profile.n_shards > 1:
                 raise NotImplementedError(
-                    f"EngineSpec.{knob}= is the JAX package's tile-planner "
-                    f"knob, not ported yet (ROADMAP A10); the torch device "
-                    f"is CNNModel(..., device=)")
+                    f"device={profile.name!r}: a mesh of {profile.n_shards} "
+                    f"shards is ROADMAP A12 (multi-device); one shard plans "
+                    f"like its core")
+        if self.plan is not None:
+            from repro_torch.plan import TilePlan
+            if not isinstance(self.plan, TilePlan):
+                raise TypeError(f"plan must be a repro_torch.plan.TilePlan, "
+                                f"got {type(self.plan).__name__}")
         if not isinstance(self.model, (CNNModel, FnModel, LMModel)):
             raise NotImplementedError(
                 f"model {self.model!r}: CNNModel, FnModel and LMModel "
@@ -380,3 +413,38 @@ class EngineSpec:
                     "pair (CNNModel(use_pallas=True))")
             return "seed_batched"
         return "seed_batched" if has_pair else "vjp"
+
+    def resolve_plan(self):
+        """The :class:`repro_torch.plan.TilePlan` the built engine runs,
+        or None.
+
+        An explicit ``plan`` wins; otherwise a ``device`` plans the model's
+        kernel shapes — ``plan_cnn`` for a CNN with the seed-batched pair,
+        ``plan_lm`` (the scan's ``(d_tile, chunk)``) for an LM with mamba
+        segments; other models have no planned kernels.  The plan covers
+        the spec's declared shapes: ``batch`` (or 1) x the targets' fan-out
+        (TopK rides the seeds axis).  Composites that fold extra axes into
+        the batch re-audit at call time (``Engine._engine_for_fold``).
+        ``autotune`` measures through the default tuning cache.
+        """
+        if self.plan is not None:
+            return self.plan
+        if self.device is None or not hasattr(self.model, "cfg"):
+            return None
+        from repro_torch.plan import (LM_PLAN_SEQ, TuningCache, plan_cnn,
+                                      plan_lm)
+        cache = TuningCache() if self.autotune else None
+        if hasattr(self.model, "token_step"):
+            cfg = self.model.cfg
+            if not any(k in ("mamba", "hybrid")
+                       for k, _, _ in cfg.layer_plan()):
+                return None
+            return plan_lm(cfg, device=self.device, precision=self.precision,
+                           batch=self.batch or 1, seq=LM_PLAN_SEQ,
+                           autotune=self.autotune, cache=cache)
+        if not getattr(self.model, "has_pair", False):
+            return None
+        seeds = self.targets.k if isinstance(self.targets, TopK) else 1
+        return plan_cnn(self.model.cfg, device=self.device,
+                        precision=self.precision, batch=self.batch or 1,
+                        seeds=seeds, autotune=self.autotune, cache=cache)

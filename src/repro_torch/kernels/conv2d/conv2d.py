@@ -126,7 +126,7 @@ def conv_cin_t(cin: int, k: int, th: int, px: int, tco: int, *,
 
 
 def conv_plan(n: int, h: int, w: int, cin: int, cout: int, k: int, *,
-              esize: int = 4) -> ConvPlan:
+              esize: int = 4, sms: int = H100_SMS) -> ConvPlan:
     """The register-tiled forward's tile for one shape on an H100, for
     ``esize``-byte elements (4: B1 in f32, 2: B7 in int16).
 
@@ -136,12 +136,13 @@ def conv_plan(n: int, h: int, w: int, cin: int, cout: int, k: int, *,
     and the batch are powers of two.  Then 8 pixels a thread where that
     makes 128 threads, else 4 for twice the threads.  The element size
     only sets the chunk (:func:`conv_cin_t`): int16 stages take half the
-    bytes, so a chunk halved for f32 may stay whole.
+    bytes, so a chunk halved for f32 may stay whole.  ``sms`` is the card's
+    SM count (the tile planner passes its profile's).
     """
     if k not in CONV_KS:
         raise ValueError(f"conv2d: the tiled forward takes K in {CONV_KS}, "
                          f"got {k}")
-    min_blocks = 1 << ((2 * H100_SMS).bit_length() - 1)
+    min_blocks = 1 << ((2 * sms).bit_length() - 1)
     tco = min(32, align_up(max(cout, 1), 4))
     th = min(32, 1 << max(0, (h - 1).bit_length()))
     while th > 1 and ConvPlan(th, 8, tco, 1).blocks(n, h, w, cout) \
@@ -156,6 +157,31 @@ def conv_plan(n: int, h: int, w: int, cin: int, cout: int, k: int, *,
 #: ``conv_fxp_kernel``, the route of any K outside :data:`CONV_KS`); for
 #: tests and sweeps that hold the tiled kernel against it.
 CONV_GENERAL = ConvPlan(0, 0, 0, 0)
+
+
+def conv_candidates(h: int, cin: int, cout: int, k: int, *,
+                    esize: int = 4):
+    """The register-tiled forward's tile plans that ``chip_smoke.py
+    --sweep`` times for one layer (B1; B7 at ``esize`` 2) and the tile
+    planner's autotuner measures: 1 to 32 rows (no more than H), 4 or 8
+    pixels a thread, 4 to 64 output channels a block (no wider than Cout
+    needs), chunks of 4 to 32 channels (whole 16-byte copies where Cin
+    allows), 32 to 256 threads, within 227 KB of shared memory.  Every
+    plan gives the same bits."""
+    cts = sorted({min(c, cin) if cin % 4 else min(c, cin) // 4 * 4
+                  for c in (4, 8, 16, 32)} - {0})
+    out = []
+    for th in (1, 2, 4, 8, 16, 32):
+        for px in (4, 8):
+            for tco in (4, 8, 16, 32, 64):
+                for ct in cts:
+                    p = ConvPlan(th, px, tco, ct)
+                    if (th <= h and tco <= align_up(cout, 4)
+                            and 32 <= p.threads <= CONV_MAX_THREADS
+                            and p.smem_bytes(k, esize=esize)
+                            <= CONV_SMEM_LIMIT):
+                        out.append(p)
+    return out
 
 #: The bf16 tensor-core forward (``csrc/conv_fwd_mma.cu``): a tile row is
 #: 16 pixels (one m16 fragment), a warp holds 32 output channels (four n8
@@ -202,7 +228,7 @@ class ConvMmaPlan:
 
 
 def conv_mma_plan(n: int, h: int, w: int, cin: int, cout: int,
-                  k: int) -> ConvMmaPlan:
+                  k: int, *, sms: int = H100_SMS) -> ConvMmaPlan:
     """The bf16 tensor-core forward's tile for one shape on an H100 (Cin a
     multiple of 16, K in :data:`CONV_KS`), from ``python3 chip_smoke.py
     --sweep`` on the Table III layers 1-3:
@@ -219,7 +245,7 @@ def conv_mma_plan(n: int, h: int, w: int, cin: int, cout: int,
         raise ValueError(f"conv2d: the tensor-core forward takes K in "
                          f"{CONV_KS} and Cin a multiple of 16, got K = {k}, "
                          f"Cin = {cin}")
-    min_blocks = 1 << (H100_SMS.bit_length() - 1)
+    min_blocks = 1 << (sms.bit_length() - 1)
     tco = CONV_MMA_WN
     th = min(16, 1 << max(0, (h - 1).bit_length()))
     while th > 1 and ConvMmaPlan(th, 1, tco, 16).blocks(n, h, w, cout) \
@@ -259,15 +285,15 @@ def conv_mma_candidates(h: int, w: int, cin: int, cout: int, k: int):
 
 
 def conv_bf16_plan(n: int, h: int, w: int, cin: int, cout: int,
-                   k: int):
+                   k: int, *, sms: int = H100_SMS):
     """The route and tile of a bf16 forward layer on an H100: the
     tensor-core kernel (:func:`conv_mma_plan`) where Cin is a multiple of
     16, the FFMA instance (:func:`conv_plan` at 2-byte elements) elsewhere.
     Table III's layer 0 (Cin = 3) stays on FFMA, which beats cuDNN's bf16
     conv there; layers 1-3 (Cin 32, 32, 64) take the tensor cores."""
     if cin % CONV_MMA_K16 == 0 and cin > 0:
-        return conv_mma_plan(n, h, w, cin, cout, k)
-    return conv_plan(n, h, w, cin, cout, k, esize=2)
+        return conv_mma_plan(n, h, w, cin, cout, k, sms=sms)
+    return conv_plan(n, h, w, cin, cout, k, esize=2, sms=sms)
 
 
 def _check_fwd_plan(name: str, plan, k: int, esize: int, cin: int,
@@ -407,7 +433,7 @@ def _check_bwd_plan(plan, k: int, *, pooled: bool, esize: int, c: int,
 
 def conv_bwd_plan(s: int, n: int, h: int, w: int, c: int, cout: int,
                   k: int, *, pooled: bool = False,
-                  esize: int = 4) -> ConvBwdPlan:
+                  esize: int = 4, sms: int = H100_SMS) -> ConvBwdPlan:
     """The tiled fused backward's tile for one launch on an H100 (``h``,
     ``w``: the output size; ``c`` the gradient's channels, ``cout`` the
     outgoing ones; ``esize`` bytes an element: 4 f32, 2 int16), from
@@ -437,8 +463,8 @@ def conv_bwd_plan(s: int, n: int, h: int, w: int, c: int, cout: int,
     # channels a thread (seed groups beyond the first run in turn)
     threads = n * h * w * align_up(max(cout, 1), 4) // 16
     sg, st = ((seeds, 1) if threads
-              >= CONV_BWD_MIN_WARPS_PER_SM * 32 * H100_SMS else (1, seeds))
-    min_blocks = 1 << (H100_SMS.bit_length() - 1)
+              >= CONV_BWD_MIN_WARPS_PER_SM * 32 * sms else (1, seeds))
+    min_blocks = 1 << (sms.bit_length() - 1)
 
     def rows(px: int) -> int:
         th = min(32, 1 << max(0, (h - 1).bit_length()))
@@ -454,7 +480,7 @@ def conv_bwd_plan(s: int, n: int, h: int, w: int, c: int, cout: int,
         px, th = 8, rows(8)
 
     def fits(p: ConvBwdPlan) -> bool:
-        per_sm = min(cdiv(p.blocks(n, h, w, cout), H100_SMS),
+        per_sm = min(cdiv(p.blocks(n, h, w, cout), sms),
                      2048 // p.threads)
         return per_sm * (p.smem_bytes(k, pooled=pooled, esize=esize)
                          + CONV_SMEM_RESERVED) <= CONV_SMEM_PER_SM
@@ -478,6 +504,34 @@ def bwd_cin_step(c: int) -> int:
     """The chunk granule of the fused backward at ``c`` channels: 8 where
     whole 16-byte copies of int16 rows fit, 4 where those of f32 do."""
     return 8 if c % 8 == 0 else 4 if c % 4 == 0 else 1
+
+
+def conv_bwd_candidates(s: int, h: int, c: int, cout: int, k: int, *,
+                        pooled: bool = False, esize: int = 4):
+    """The tiled fused backward's plans that ``chip_smoke.py --sweep``
+    times for one launch (B5; B8 at ``esize`` 2) and the tile planner's
+    autotuner measures: 1 to 32 rows (no more than the output's H), 4 or 8
+    pixels a thread (8 with one seed a thread), 4 to 64 output channels a
+    block (no wider than Cout' needs), chunks of 8, 16 or 32 channels (no
+    deeper than C), one seed, or all S up to 3 in a thread or across
+    thread slices, 32 to 256 threads, within 227 KB of shared memory.
+    Every plan gives the same bits."""
+    seeds = {(1, 1), (min(s, 3), 1), (1, min(s, 3))}   # (sg, st)
+    out = []
+    for th in (1, 2, 4, 8, 16, 32):
+        for px in (4, 8):
+            for tco in (4, 8, 16, 32, 64):
+                for ct in sorted({min(8, c), min(16, c), min(32, c)}):
+                    for sg, st in sorted(seeds):
+                        p = ConvBwdPlan(th, px, tco, ct, sg, st)
+                        if (th <= h and tco <= align_up(cout, 4)
+                                and (px == 4 or sg == 1)
+                                and 32 <= p.threads <= CONV_MAX_THREADS
+                                and p.smem_bytes(k, pooled=pooled,
+                                                 esize=esize)
+                                <= CONV_SMEM_LIMIT):
+                            out.append(p)
+    return out
 
 
 #: The bf16 tensor-core fused backward (``csrc/conv_bwd_mma.cu``): a tile
@@ -563,7 +617,8 @@ class ConvBwdMmaPlan:
 
 
 def conv_bwd_mma_plan(s: int, n: int, h: int, w: int, c: int, cout: int,
-                      k: int, *, pooled: bool = False) -> ConvBwdMmaPlan:
+                      k: int, *, pooled: bool = False,
+                      sms: int = H100_SMS) -> ConvBwdMmaPlan:
     """The bf16 tensor-core fused backward's tile for one launch on an H100
     (C a multiple of 16, K in :data:`CONV_KS`; ``h``, ``w`` the output
     size), from ``python3 chip_smoke.py --sweep`` on the Table III
@@ -594,7 +649,7 @@ def conv_bwd_mma_plan(s: int, n: int, h: int, w: int, c: int, cout: int,
     seeds = min(max(s, 1), max(CONV_BWD_SEED_GROUPS))
     tco = (CONV_BWD_MMA_N8 if cout <= CONV_BWD_MMA_N8
            else 2 * CONV_MMA_WN if cout >= 2 * CONV_MMA_WN else CONV_MMA_WN)
-    min_blocks = 1 << (H100_SMS.bit_length() - 1)
+    min_blocks = 1 << (sms.bit_length() - 1)
     th = min(8, 1 << max(0, (h - 1).bit_length()))
     while th > 1 and (
             ConvBwdMmaPlan(th, 1, tco, 16, seeds).threads > CONV_MAX_THREADS
@@ -609,7 +664,7 @@ def conv_bwd_mma_plan(s: int, n: int, h: int, w: int, c: int, cout: int,
         return p
 
     def fits(p: ConvBwdMmaPlan) -> bool:
-        per_sm = min(cdiv(p.blocks(n, h, w, cout), H100_SMS),
+        per_sm = min(cdiv(p.blocks(n, h, w, cout), sms),
                      2048 // p.threads)
         return per_sm * (p.smem_bytes(k, c, s, pooled=pooled)
                          + CONV_SMEM_RESERVED) <= CONV_SMEM_PER_SM
@@ -657,14 +712,17 @@ def conv_bwd_mma_candidates(s: int, h: int, w: int, c: int, cout: int,
 
 
 def conv_bwd_bf16_plan(s: int, n: int, h: int, w: int, c: int, cout: int,
-                       k: int, *, pooled: bool = False):
+                       k: int, *, pooled: bool = False,
+                       sms: int = H100_SMS):
     """The route and tile of a bf16 fused-backward launch on an H100: the
     tensor-core kernel (:func:`conv_bwd_mma_plan`) where C is a multiple
     of 16, as on all four Table III layers, the FFMA instance
     (:func:`conv_bwd_plan` at 2-byte elements) elsewhere."""
     if c % CONV_MMA_K16 == 0 and c > 0:
-        return conv_bwd_mma_plan(s, n, h, w, c, cout, k, pooled=pooled)
-    return conv_bwd_plan(s, n, h, w, c, cout, k, pooled=pooled, esize=2)
+        return conv_bwd_mma_plan(s, n, h, w, c, cout, k, pooled=pooled,
+                                 sms=sms)
+    return conv_bwd_plan(s, n, h, w, c, cout, k, pooled=pooled, esize=2,
+                         sms=sms)
 
 
 def _check_kernel(name, w, cin, dtype):
@@ -749,24 +807,27 @@ def _conv2d_plain(x, w, b):
 
 @instrument("conv2d_fwd")
 def conv2d(x: torch.Tensor, w: torch.Tensor,
-           b: Optional[torch.Tensor] = None) -> torch.Tensor:
+           b: Optional[torch.Tensor] = None, *, plan=None) -> torch.Tensor:
     """[N, H, W, Cin] x [K, K, Cin, Cout] (+ b [Cout]) -> [N, H, W, Cout],
     stride 1, SAME padding, odd K, f32 accumulation; f32 or bf16 (rounded
     once, then ``+ b`` in bf16).
 
     CPU tensors run :func:`ref.conv2d` / :func:`ref.conv2d_bf16` (then
-    ``+ b``); CUDA tensors the kernel, tiled by :func:`conv_plan` for K in
-    :data:`CONV_KS` (bf16: :func:`conv_bf16_plan`, the tensor cores where
-    Cin is a multiple of 16).
+    ``+ b``); CUDA tensors the kernel, tiled by ``plan`` (a tile planner's
+    entry, see :func:`conv2d_planned`) or, when it is None, by
+    :func:`conv_plan` for K in :data:`CONV_KS` (bf16:
+    :func:`conv_bf16_plan`, the tensor cores where Cin is a multiple of
+    16).
     """
-    return conv2d_planned(x, w, b)
+    return conv2d_planned(x, w, b, plan=plan)
 
 
 def conv2d_planned(x: torch.Tensor, w: torch.Tensor,
                    b: Optional[torch.Tensor] = None, *,
                    plan=None) -> torch.Tensor:
-    """:func:`conv2d` with the tile chosen by the caller, for tests and
-    sweeps: every :class:`ConvPlan`, and :data:`CONV_GENERAL`, gives the
+    """:func:`conv2d` with the tile chosen by the caller, for tests, sweeps
+    and the tile planner: every :class:`ConvPlan`, and :data:`CONV_GENERAL`,
+    gives the
     same bits; on bf16 a :class:`ConvPlan` selects the FFMA route and a
     :class:`ConvMmaPlan` the tensor-core route, every plan of a route the
     same bits (the two routes sum in other orders).  One count of

@@ -34,15 +34,17 @@ def _conv2d_fxp_plain(x, w, b):
 
 @instrument("conv2d_fwd")
 def conv2d_fxp(x: torch.Tensor, w: torch.Tensor,
-               b: Optional[torch.Tensor] = None) -> torch.Tensor:
+               b: Optional[torch.Tensor] = None, *,
+               plan: Optional[ConvPlan] = None) -> torch.Tensor:
     """int16 [N, H, W, Cin] (Q7.8) x int16 [K, K, Cin, Cout] (Q1.14)
     (+ int16 b [Cout], Q7.8, saturating) -> int16 [N, H, W, Cout], stride 1,
     SAME padding.
 
     CPU tensors run :func:`ref.conv2d_fxp` (then ``sat_add(., b)``); CUDA
-    tensors the kernel, tiled by ``conv_plan`` for K in ``CONV_KS``.
+    tensors the kernel, tiled by ``plan`` (a tile planner's entry) or, when
+    it is None, by ``conv_plan`` for K in ``CONV_KS``.
     """
-    return conv2d_fxp_planned(x, w, b)
+    return conv2d_fxp_planned(x, w, b, plan=plan)
 
 
 def conv2d_fxp_planned(x: torch.Tensor, w: torch.Tensor,

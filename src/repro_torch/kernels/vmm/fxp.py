@@ -33,14 +33,16 @@ def _vmm_fxp_plain(x, w, b):
 
 @instrument("vmm_fwd")
 def vmm_fxp(x: torch.Tensor, w: torch.Tensor,
-            b: Optional[torch.Tensor] = None) -> torch.Tensor:
+            b: Optional[torch.Tensor] = None, *,
+            plan: Optional[int] = None) -> torch.Tensor:
     """int16 [M, K] (Q7.8) @ int16 [K, N] (Q1.14) (+ int16 b [N], Q7.8,
     saturating) -> int16 [M, N].
 
     CPU tensors run :func:`ref.vmm_fxp` (then ``sat_add(., b)``); CUDA
-    tensors the kernel, with ``vmm_splits`` slices of K.
+    tensors the kernel, with ``plan`` slices of K (a tile planner's entry)
+    or, when it is None, ``vmm_splits``'.
     """
-    return vmm_fxp_with_splits(x, w, b)
+    return vmm_fxp_with_splits(x, w, b, splits=plan)
 
 
 def vmm_fxp_with_splits(x: torch.Tensor, w: torch.Tensor,

@@ -61,17 +61,18 @@ def vmm_slice(k: int, splits: int) -> int:
     return align_up(max(1, cdiv(k, splits)), SPLIT_CHUNK_K)
 
 
-def vmm_splits(m: int, k: int, n: int) -> int:
+def vmm_splits(m: int, k: int, n: int, *, sms: int = H100_SMS) -> int:
     """Number of K slices for ``[m, k] @ [k, n]`` on an H100.
 
     One slice, with no second pass, where K is at most four chunks or the
     output tiles alone fill the card; otherwise enough slices for about two
-    blocks per SM, each at least one chunk long, and none empty.
+    blocks per SM, each at least one chunk long, and none empty.  ``sms``
+    is the card's SM count (the tile planner passes its profile's).
     """
     tiles = cdiv(m, SPLIT_TILE_M) * cdiv(n, SPLIT_TILE_N)
-    if k <= 4 * SPLIT_CHUNK_K or tiles >= H100_SMS:
+    if k <= 4 * SPLIT_CHUNK_K or tiles >= sms:
         return 1
-    per = vmm_slice(k, cdiv(2 * H100_SMS, tiles))
+    per = vmm_slice(k, cdiv(2 * sms, tiles))
     return cdiv(k, per)
 
 
@@ -105,7 +106,8 @@ class VmmMmaPlan:
         return (self.cluster, self.slice(k), self.bn)
 
 
-def vmm_mma_plan(m: int, k: int, n: int) -> VmmMmaPlan:
+def vmm_mma_plan(m: int, k: int, n: int, *,
+                 sms: int = H100_SMS) -> VmmMmaPlan:
     """The bf16 tensor-core forward's launch for ``[m, k] @ [k, n]`` on an
     H100, from ``python3 chip_smoke.py --sweep``: 16 columns a block (twice
     the blocks of 32; the two were within 2 % at FC0), and the smallest
@@ -118,7 +120,7 @@ def vmm_mma_plan(m: int, k: int, n: int) -> VmmMmaPlan:
     tiles = cdiv(m, MMA_TILE_M) * cdiv(n, bn)
     most = min(MMA_MAX_CLUSTER, cdiv(max(k, 1), MMA_CHUNK_K))
     cluster = 1
-    while 2 * cluster <= most and tiles * cluster < H100_SMS:
+    while 2 * cluster <= most and tiles * cluster < sms:
         cluster *= 2
     return VmmMmaPlan(bn, cdiv(max(k, 1),
                                VmmMmaPlan(bn, cluster).slice(k)))
@@ -198,7 +200,8 @@ class VmmBwdPlan:
 VMM_BWD_GENERAL = VmmBwdPlan(0, 0, 0, 0)
 
 
-def vmm_bwd_plan(s: int, m: int, k: int, n: int) -> VmmBwdPlan:
+def vmm_bwd_plan(s: int, m: int, k: int, n: int, *,
+                 sms: int = H100_SMS) -> VmmBwdPlan:
     """The tiled fused backward's tile for ``g [s, m, k] @ wt [k, n]`` on an
     H100, from ``python3 chip_smoke.py --sweep``: 16 rows x 64 columns a
     block (fewer where the launch has fewer), 2 rows x 4 columns a thread
@@ -206,7 +209,8 @@ def vmm_bwd_plan(s: int, m: int, k: int, n: int) -> VmmBwdPlan:
     (S = 3 and 1, f32 and int16) it had the least time summed over the
     four, within 7 % of each one's best; at FC1 it was the fastest.  At FC0
     it gives 384 blocks with S = 3 and 128 (the SMs rounded down to a power
-    of two) with S = 1.
+    of two) with S = 1.  The tile does not depend on ``sms``, which it
+    takes as the other rules do.
     """
     rows = max(s * m, 1)
     rm = 2
@@ -282,7 +286,8 @@ class VmmBwdMmaPlan:
         return (self.br, self.bn, self.kc, self.mf, self.nt)
 
 
-def vmm_bwd_mma_plan(s: int, m: int, k: int, n: int) -> VmmBwdMmaPlan:
+def vmm_bwd_mma_plan(s: int, m: int, k: int, n: int, *,
+                     sms: int = H100_SMS) -> VmmBwdMmaPlan:
     """The bf16 tensor-core fused backward's tile for ``g [s, m, k] @ wt
     [k, n]`` on an H100, from ``python3 chip_smoke.py --sweep``: up to 32
     rows x 64 columns a block (16 or 32 columns where N needs no more), one
@@ -291,7 +296,9 @@ def vmm_bwd_mma_plan(s: int, m: int, k: int, n: int) -> VmmBwdMmaPlan:
     element fetched from L2 by three row blocks: 0.0097 ms between events
     against 0.0116 for the best plan holding all 96 rows in a block (one
     fetch), which leaves 128 or fewer blocks to hide the copies' latency;
-    at FC1 (K = 10, one k16 step) it is within 2 % of the fastest."""
+    at FC1 (K = 10, one k16 step) it is within 2 % of the fastest.  The
+    tile does not depend on ``sms``, which it takes as the other rules
+    do."""
     rows = max(s * m, 1)
     br = min(VMM_BWD_MMA_BR, align_up(rows, 16))
     bn = max(b for b in (16, 32, VMM_BWD_MMA_BN)
@@ -415,17 +422,19 @@ def _vmm_plain(x, w, b):
 
 @instrument("vmm_fwd")
 def vmm(x: torch.Tensor, w: torch.Tensor,
-        b: Optional[torch.Tensor] = None) -> torch.Tensor:
+        b: Optional[torch.Tensor] = None, *, plan=None) -> torch.Tensor:
     """[M, K] @ [K, N] (+ b [N]) -> [M, N], f32 accumulation; f32 or bf16
     (rounded once, then ``+ b`` in bf16).
 
     CPU tensors run :func:`ref.vmm` / :func:`ref.vmm_bf16` (then ``+ b``);
-    CUDA tensors the kernel: f32 with :func:`vmm_splits` slices of K, bf16
-    on the tensor cores by :func:`vmm_mma_plan`.
+    CUDA tensors the kernel: f32 with ``plan`` slices of K (an int, a tile
+    planner's entry) or, when it is None, :func:`vmm_splits`'; bf16 on the
+    tensor cores, launched by ``plan`` (a :class:`VmmMmaPlan`) or
+    :func:`vmm_mma_plan`'s.
     """
     if x.dtype == torch.bfloat16:
-        return vmm_planned(x, w, b)
-    return vmm_with_splits(x, w, b)
+        return vmm_planned(x, w, b, plan=plan)
+    return vmm_with_splits(x, w, b, splits=plan)
 
 
 def vmm_with_splits(x: torch.Tensor, w: torch.Tensor,

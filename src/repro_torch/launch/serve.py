@@ -25,10 +25,14 @@ Both run on the card unless ``--torch-device cpu`` asks for the CPU::
 
 ``--method occlusion|lime|rise`` serves the perturbation explainers
 (``--perturb-samples`` sets lime's and rise's fan-out).
-``--profile-kernels`` times every kernel wrapper call (fenced) and prints
-the profiler's aggregates; the reference's cost-model drift table beside
-them waits for the tile planner, as do ``repro``'s planner flags
-(``--device-profile``, ``--autotune``), which raise naming ROADMAP A10.
+``--device-profile`` plans the kernels for a :mod:`repro_torch.plan`
+profile before anything runs (``h100``: the card's own launch objects;
+the JAX package's profiles: audits), ``--autotune`` refines the plan by
+measured kernel times through the tuning cache.  ``--profile-kernels``
+times every kernel wrapper call (fenced), prints the profiler's
+aggregates and the cost-model drift table (estimate against measured time
+per launch; on the card every launch is measured), and writes the table
+(``--drift-out``, default next to the tuning cache).
 ``generate`` / ``explain`` stay importable helpers for the LM path.
 """
 from __future__ import annotations
@@ -123,10 +127,20 @@ def run_lm(args) -> None:
     if method != args.method:
         print(f"[serve/lm] --method {args.method} -> {method} "
               f"(LM serving dispatches the registry token explainers)")
+    # configure-once, as the CNN path: the spec resolves the scan's plan
+    # for the device profile before anything runs
     adapter = lm_lib.LMAdapter.from_engine(engine_lib.build(
         engine_lib.EngineSpec(model=engine_lib.LMModel(params, cfg,
                                                        device=device),
-                              method="saliency", precision=args.precision)))
+                              method="saliency", precision=args.precision,
+                              device=args.device_profile,
+                              autotune=args.autotune)))
+    eng = adapter.engine
+    if eng.plan is not None:
+        print(f"[serve/lm] planned ssm_scan tiles for device profile "
+              f"{args.device_profile!r}:")
+        for line in eng.plan.summary().splitlines()[1:]:
+            print(f"  {line.strip()}")
 
     # step-wise generation + per-generated-token contrastive attribution
     prompts = torch.randint(0, cfg.vocab, (args.batch, args.prompt_len),
@@ -137,7 +151,7 @@ def run_lm(args) -> None:
     print(f"[serve/lm] decoded {tuple(result.generated.shape)} in "
           f"{time.time() - t0:.2f}s on {device}")
     t0 = time.time()
-    per_tok = lm_lib.explain_generated(params, cfg, result)
+    per_tok = lm_lib.explain_generated(params, cfg, result, plan=eng.plan)
     print(f"[serve/lm] contrastive per-generated-token attribution "
           f"{tuple(per_tok.shape)} in {time.time() - t0:.2f}s")
 
@@ -186,10 +200,16 @@ def run_cnn(args) -> None:
     cfg = cnn_lib.CNNConfig()
     params = cnn_lib.init(torch.Generator().manual_seed(0), cfg)
     # configure-once: the spec decides precision x store-rules x backend x
-    # device; the server/adapter only ever execute the built engine.
+    # tile plan; the server/adapter only ever execute the built engine.
     eng = engine_lib.build(engine_lib.EngineSpec(
         model=engine_lib.CNNModel(params, cfg, device=device),
-        method="saliency", precision=args.precision))
+        method="saliency", precision=args.precision,
+        device=args.device_profile, autotune=args.autotune))
+    if eng.plan is not None:
+        print(f"[serve/cnn] planned tiles for device profile "
+              f"{args.device_profile!r}:")
+        for line in eng.plan.summary().splitlines()[1:]:
+            print(f"  {line.strip()}")
     degrade = None
     if args.degrade_pressure is not None:
         # above the occupancy threshold: collapse top-K panels to argmax
@@ -244,8 +264,22 @@ def run_cnn(args) -> None:
         print(f"[serve/cnn] kernel profile (fenced wall time a wrapper "
               f"call, {args.precision}):")
         print(obs_profile.format_aggregates(profiler))
-        print("[serve/cnn] the cost-model drift table beside it needs the "
-              "tile planner (ROADMAP A10)")
+        from repro_torch.plan import GpuProfile, get_profile
+        from repro_torch.plan.drift import (drift_rows, format_drift,
+                                            write_drift)
+        profile = get_profile(args.device_profile)
+        card = isinstance(profile, GpuProfile)
+        print(f"[serve/cnn] cost-model drift ({profile.name}, "
+              f"{args.precision}; "
+              + ("launches the profiler missed measured on the card):"
+                 if card else "the profiler's times):"))
+        # at the served launch shapes: max_batch rows, top-K seeds
+        rows = drift_rows(cfg, eng.plan, device=profile,
+                          precision=args.precision, batch=args.batch,
+                          seeds=args.topk, profiler=profiler, measure=card)
+        print(format_drift(rows))
+        print(f"[serve/cnn] drift table -> "
+              f"{write_drift(rows, args.drift_out)}")
 
 
 def main(argv=None):
@@ -286,10 +320,16 @@ def main(argv=None):
     ap.add_argument("--torch-device", default=None,
                     help="where the model runs: 'cuda' (the default: the "
                          "card, an error without one) or 'cpu'")
+    from repro_torch.plan import profile_names
     ap.add_argument("--device-profile", default=None,
-                    help="repro.plan device profile (ROADMAP A10: raises)")
+                    help="plan the kernels (cnn: conv / FC; lm: the scan) "
+                         "for this repro_torch.plan profile before anything "
+                         f"runs: one of {profile_names()} (h100: the "
+                         "card's launch objects; the others: audits) or "
+                         "'mesh:<profile>:1'")
     ap.add_argument("--autotune", action="store_true",
-                    help="measured tile planning (ROADMAP A10: raises)")
+                    help="refine the tile plan by measured kernel times "
+                         "(persisted in the repro_torch.plan tuning cache)")
     # observability: opt-in; the server runs on no-op singletons otherwise
     ap.add_argument("--trace-out", default=None, metavar="PATH",
                     help="write a Perfetto-loadable Chrome trace-event "
@@ -300,14 +340,12 @@ def main(argv=None):
                          "snapshot")
     ap.add_argument("--profile-kernels", action="store_true",
                     help="cnn workload: time every kernel wrapper call "
-                         "(fenced) and print the aggregates per family, "
-                         "shape and precision")
+                         "(fenced), print the aggregates per family, shape "
+                         "and precision and the cost-model drift table")
+    ap.add_argument("--drift-out", default=None, metavar="PATH",
+                    help="where --profile-kernels writes the drift table "
+                         "(default: next to the tuning cache)")
     args = ap.parse_args(argv)
-
-    if args.device_profile is not None or args.autotune:
-        raise NotImplementedError(
-            "--device-profile / --autotune: the tile planner (repro.plan) "
-            "is not ported yet (ROADMAP A10)")
     if args.workload == "lm":
         if args.method not in registry.token_methods():
             raise SystemExit(

@@ -35,7 +35,6 @@ import numpy as np
 import torch
 
 from repro_torch import engine as engine_lib
-from repro_torch.serve.adapters import check_planner_knobs
 
 #: Token id LEFT-padding fills with.  The stacks are unmasked, so padding
 #: shifts absolute positions — an approximation the pow2 length grid bounds
@@ -79,10 +78,11 @@ def pad_tokens(tokens, length: Optional[int] = None,
 class LMAdapter:
     """Serve token-level LM attribution through the ExplanationServer.
 
-    ``device=`` / ``autotune=`` are ``repro``'s planner knobs (a plan
-    profile for the scan's chunking) and raise naming ROADMAP A10 unless
-    left at their defaults.  The model runs on the card; :meth:`from_engine`
-    adapts an engine built on any device (``LMModel(..., device="cpu")``).
+    ``device=`` / ``autotune=`` are the tile planner's knobs (a
+    :mod:`repro_torch.plan` profile for the scan's launch knobs, resolved
+    once by the base engine: ``plan_lm``).  The model runs on the card;
+    :meth:`from_engine` adapts an engine built on any device
+    (``LMModel(..., device="cpu")``).
     """
 
     input_kind = "tokens"
@@ -90,14 +90,13 @@ class LMAdapter:
     def __init__(self, params, cfg, *, store_rules: str = "saliency",
                  precision: str = "f32", device: Optional[str] = None,
                  autotune: bool = False):
-        check_planner_knobs(device, autotune)
         self.params = params
         self.cfg = cfg
         self.store_rules = store_rules
         self.precision = precision
         self.engine = engine_lib.build(engine_lib.EngineSpec(
-            model=engine_lib.LMModel(params, cfg),
-            method=store_rules, precision=precision))
+            model=engine_lib.LMModel(params, cfg), method=store_rules,
+            precision=precision, device=device, autotune=autotune))
         self._engines = {store_rules: self.engine}
 
     @classmethod

@@ -93,15 +93,16 @@ def decode(params, cfg, prompt_tokens, *, max_new: int,
 
 
 def make_token_explain(cfg, method: str = "saliency", *,
-                       mode: str = "contrastive"):
+                       mode: str = "contrastive", plan=None):
     """One per-token attribution step for ``cfg``: ``(params, tokens
     [B, S], position, target_a, target_b) -> scores [B, S]``.  Causality
     makes this one step right for every generated position; ``target_b``
     is ignored outside ``mode="contrastive"``.  The mamba segments run the
-    B13 kernel (``steps.ssm_scan_tiles``)."""
+    B13 kernel with ``plan``'s knobs (``steps.ssm_scan_tiles``; None: the
+    unplanned launch)."""
     if mode not in TOKEN_MODES:
         raise ValueError(f"mode={mode!r} not in {TOKEN_MODES}")
-    tiles = steps_lib.ssm_scan_tiles(cfg)
+    tiles = steps_lib.ssm_scan_tiles(cfg, plan)
 
     def explain(params, tokens, position, target_a, target_b):
         h = tf.embed_inputs(params, cfg, {"tokens": tokens})
@@ -126,16 +127,18 @@ def make_token_explain(cfg, method: str = "saliency", *,
 
 def explain_generated(params, cfg, result: DecodeResult, *,
                       method: str = "saliency",
-                      mode: str = "contrastive") -> torch.Tensor:
+                      mode: str = "contrastive",
+                      plan=None) -> torch.Tensor:
     """Per-generated-token attribution over a finished decode.
 
     For generated token ``t`` the seed sits at the position whose logits
     produced it (``prompt_len - 1 + t``); in the contrastive mode
     ``target_a`` is the picked token and ``target_b`` its recorded
     runner-up.  Returns scores ``[B, T, S]`` (S: the full sequence;
-    positions after the seed are exactly zero by causality).
+    positions after the seed are exactly zero by causality).  ``plan``: a
+    ``plan_lm`` TilePlan for the scan's knobs (None: unplanned).
     """
-    step = make_token_explain(cfg, method, mode=mode)
+    step = make_token_explain(cfg, method, mode=mode, plan=plan)
     s0 = result.prompt_len
     n_gen = result.tokens.shape[1] - s0
     return torch.stack([

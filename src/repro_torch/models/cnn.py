@@ -224,11 +224,43 @@ def _relu_fwd_mask4(y):
     return y2.reshape(y.shape), m2.reshape(n, h, w, -1)
 
 
-def _conv_block_fwd_res(k, x, w, b, method, do_relu, do_pool):
+def _launch_plan(plan, key: str, *dims):
+    """The card's launch object a tile plan holds for this launch
+    (:meth:`repro_torch.plan.TilePlan.at`: an ``h100`` entry planned at
+    exactly these dims), or None: the kernel's own rule.  A TPU plan (the
+    JAX package's profiles) is an audit and never reaches a launch."""
+    return None if plan is None else plan.at(key, dims)
+
+
+def _conv_fwd_plan(plan, i: int, x, w):
+    n, h, wd, cin = x.shape
+    return _launch_plan(plan, f"conv{i}.fwd", n, h, wd, w.shape[0], cin,
+                        w.shape[3])
+
+
+def _conv_bwd_plan(plan, i: int, g, wt, pooled: bool, gated: bool):
+    s, n, hg, wg, c = g.shape if g.dim() == 5 else (1,) + tuple(g.shape)
+    return _launch_plan(plan, f"conv{i}.bwd", s, n, hg, wg, wt.shape[0], c,
+                        wt.shape[3], int(pooled), int(gated))
+
+
+def _fc_fwd_plan(plan, i: int, x, w):
+    return _launch_plan(plan, f"fc{i}.fwd", x.shape[0], x.shape[1],
+                        w.shape[1])
+
+
+def _fc_bwd_plan(plan, i: int, g, wt, gated: bool):
+    s, m, k = g.shape if g.dim() == 3 else (1,) + tuple(g.shape)
+    return _launch_plan(plan, f"fc{i}.bwd", s, m, k, wt.shape[1],
+                        int(gated))
+
+
+def _conv_block_fwd_res(k, x, w, b, method, do_relu, do_pool, plan=None):
     """conv (+bias) -> ReLU (+mask) -> pool (+argmax); residuals = packed.
     A pooled layer's ReLU and pool run as one launch (the ReLU'd map never
-    reaches memory); Table II: deconvnet stores no ReLU mask."""
-    y = k["conv"](x, w, b)
+    reaches memory); Table II: deconvnet stores no ReLU mask.  ``plan``:
+    the conv's launch object, or None for its rule."""
+    y = k["conv"](x, w, b, plan=plan)
     if do_relu and do_pool:
         return k["relu_pool"](y, mask=method != "deconvnet")
     mask4 = idx = None
@@ -242,14 +274,14 @@ def _conv_block_fwd_res(k, x, w, b, method, do_relu, do_pool):
     return y, mask4, idx
 
 
-def _conv_block_bwd_fused(k, wt, mask4, idx, g, method, do_relu):
+def _conv_block_bwd_fused(k, wt, mask4, idx, g, method, do_relu, plan=None):
     """A conv layer's whole backward step, one launch for all seeds."""
     return k["conv_bwd"](g, wt, pool_idx=idx, relu_mask=mask4, gate=do_relu,
-                         method=method)
+                         method=method, plan=plan)
 
 
-def _fc_block_fwd_res(k, x, w, b, method, do_relu):
-    y = k["fc"](x, w, b)
+def _fc_block_fwd_res(k, x, w, b, method, do_relu, plan=None):
+    y = k["fc"](x, w, b, plan=plan)
     mask = None
     if do_relu:
         if method == "deconvnet":
@@ -259,8 +291,9 @@ def _fc_block_fwd_res(k, x, w, b, method, do_relu):
     return y, mask
 
 
-def _fc_block_bwd_fused(k, wt, mask, g, method, do_relu):
-    return k["fc_bwd"](g, wt, relu_mask=mask, gate=do_relu, method=method)
+def _fc_block_bwd_fused(k, wt, mask, g, method, do_relu, plan=None):
+    return k["fc_bwd"](g, wt, relu_mask=mask, gate=do_relu, method=method,
+                       plan=plan)
 
 
 # ---------------------------------------------------------------------------
@@ -284,10 +317,11 @@ class _ConvBlock(torch.autograd.Function):
     unpooled and gated through the B12/B11 wrappers, then plain sums."""
 
     @staticmethod
-    def forward(ctx, x, w, b, method, do_relu, do_pool):
+    def forward(ctx, x, w, b, method, do_relu, do_pool, plan=None, i=0):
         y, mask4, idx = _conv_block_fwd_res(_KERNELS["f32"], x, w, b,
-                                            method, do_relu, do_pool)
-        ctx.rule = (method, do_relu, do_pool)
+                                            method, do_relu, do_pool,
+                                            _conv_fwd_plan(plan, i, x, w))
+        ctx.rule = (method, do_relu, do_pool, plan, i)
         ctx.save_for_backward(x if ctx.needs_input_grad[1] else None, w,
                               mask4, idx)
         return y
@@ -295,13 +329,14 @@ class _ConvBlock(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         x, w, mask4, idx = ctx.saved_tensors
-        method, do_relu, do_pool = ctx.rule
+        method, do_relu, do_pool, plan, i = ctx.rule
         g = g.contiguous()
         dx = dw = db = None
         if ctx.needs_input_grad[0]:
-            dx = _conv_block_bwd_fused(_KERNELS["f32"],
-                                       conv_ref.flip_transpose(w), mask4,
-                                       idx, g, method, do_relu)
+            wt = conv_ref.flip_transpose(w)
+            dx = _conv_block_bwd_fused(
+                _KERNELS["f32"], wt, mask4, idx, g, method, do_relu,
+                _conv_bwd_plan(plan, i, g, wt, do_pool, do_relu))
         if ctx.needs_input_grad[1] or ctx.needs_input_grad[2]:
             gg = unpool_bwd(idx, g) if do_pool else g
             if do_relu:
@@ -310,7 +345,7 @@ class _ConvBlock(torch.autograd.Function):
                 dw = conv_ref.conv2d_weight_grad(x, w, gg)
             if ctx.needs_input_grad[2]:
                 db = gg.sum(dim=(0, 1, 2))
-        return dx, dw, db, None, None, None
+        return dx, dw, db, None, None, None, None, None
 
 
 class _FCBlock(torch.autograd.Function):
@@ -318,10 +353,10 @@ class _FCBlock(torch.autograd.Function):
     kernel for ``dx``, and ``dw``/``db`` (training) only when asked for."""
 
     @staticmethod
-    def forward(ctx, x, w, b, method, do_relu):
+    def forward(ctx, x, w, b, method, do_relu, plan=None, i=0):
         y, mask = _fc_block_fwd_res(_KERNELS["f32"], x, w, b, method,
-                                    do_relu)
-        ctx.rule = (method, do_relu)
+                                    do_relu, _fc_fwd_plan(plan, i, x, w))
+        ctx.rule = (method, do_relu, plan, i)
         ctx.save_for_backward(x if ctx.needs_input_grad[1] else None, w,
                               mask)
         return y
@@ -329,31 +364,34 @@ class _FCBlock(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         x, w, mask = ctx.saved_tensors
-        method, do_relu = ctx.rule
+        method, do_relu, plan, i = ctx.rule
         g = g.contiguous()
         dx = dw = db = None
         if ctx.needs_input_grad[0]:
-            dx = _fc_block_bwd_fused(_KERNELS["f32"], w.T.contiguous(), mask,
-                                     g, method, do_relu)
+            wt = w.T.contiguous()
+            dx = _fc_block_bwd_fused(_KERNELS["f32"], wt, mask, g, method,
+                                     do_relu, _fc_bwd_plan(plan, i, g, wt,
+                                                           do_relu))
         if ctx.needs_input_grad[1] or ctx.needs_input_grad[2]:
             gg = _gate(mask, g, method) if do_relu else g
             if ctx.needs_input_grad[1]:
                 dw = vmm_ref.vmm(x.T, gg)
             if ctx.needs_input_grad[2]:
                 db = gg.sum(dim=0)
-        return dx, dw, db, None, None
+        return dx, dw, db, None, None, None, None
 
 
-def _apply_fused(params, x, cfg: CNNConfig, method: str):
+def _apply_fused(params, x, cfg: CNNConfig, method: str, plan=None):
     # the kernels' gate reads "autodiff" as saliency, as the Pallas gate does
     rule = "saliency" if method == "autodiff" else method
     for i, p in enumerate(params["conv"]):
         do_pool = (i + 1) % cfg.pool_every == 0
-        x = _ConvBlock.apply(x, p["w"], p["b"], rule, cfg.conv_relu, do_pool)
+        x = _ConvBlock.apply(x, p["w"], p["b"], rule, cfg.conv_relu, do_pool,
+                             plan, i)
     x = x.reshape(x.shape[0], -1)
     n_fc = len(params["fc"])
     for i, p in enumerate(params["fc"]):
-        x = _FCBlock.apply(x, p["w"], p["b"], rule, i < n_fc - 1)
+        x = _FCBlock.apply(x, p["w"], p["b"], rule, i < n_fc - 1, plan, i)
     return x
 
 
@@ -363,7 +401,8 @@ def _apply_fused(params, x, cfg: CNNConfig, method: str):
 
 
 def forward_with_residuals(params, x, cfg: CNNConfig, method: str,
-                           precision: str = "f32", fwd_params=None):
+                           precision: str = "f32", fwd_params=None,
+                           plan=None):
     """Forward that RETURNS the packed residuals (masks + indices).
 
     ``x`` [N, H, W, Cin] f32 -> ``(logits [N, classes] f32, residuals)``,
@@ -378,7 +417,9 @@ def forward_with_residuals(params, x, cfg: CNNConfig, method: str,
     the int16 blocks: the masks are computed in the quantized domain, and
     the logits come back dequantized (exact).  ``fwd_params`` is
     :func:`prepare_params` of ``params``, made once by the caller; None
-    makes it here.
+    makes it here.  ``plan`` is a :class:`repro_torch.plan.TilePlan`: a
+    launch runs its ``h100`` entry where the entry was planned for that
+    shape, and its kernel's rule otherwise.
     """
     check_precision(precision)
     _check_cfg(cfg)
@@ -392,15 +433,17 @@ def forward_with_residuals(params, x, cfg: CNNConfig, method: str,
     res_conv, res_fc = [], []
     for i, p in enumerate(fwd_params["conv"]):
         do_pool = (i + 1) % cfg.pool_every == 0
-        x, mask4, idx = _conv_block_fwd_res(k, x, p["w"], p["b"], method,
-                                            cfg.conv_relu, do_pool)
+        x, mask4, idx = _conv_block_fwd_res(
+            k, x, p["w"], p["b"], method, cfg.conv_relu, do_pool,
+            _conv_fwd_plan(plan, i, x, p["w"]))
         res_conv.append((mask4, idx))
     feat_shape = tuple(x.shape[1:])
     x = x.reshape(x.shape[0], -1)        # NHWC flatten, as FC0's rows expect
     n_fc = len(fwd_params["fc"])
     for i, p in enumerate(fwd_params["fc"]):
         x, mask = _fc_block_fwd_res(k, x, p["w"], p["b"], method,
-                                    i < n_fc - 1)
+                                    i < n_fc - 1,
+                                    _fc_fwd_plan(plan, i, x, p["w"]))
         res_fc.append(mask)
     if precision == "fxp16":
         x = fixedpoint.from_fixed(x)
@@ -408,7 +451,7 @@ def forward_with_residuals(params, x, cfg: CNNConfig, method: str,
 
 
 def backward_seeds(params, residuals, seeds, cfg: CNNConfig, method: str,
-                   precision: str = "f32", bwd_weights=None):
+                   precision: str = "f32", bwd_weights=None, plan=None):
     """Seed-batched BP: seeds [S, N, classes] -> relevance [S, N, H, W, Cin].
 
     One fused launch per layer for ALL S seeds, every stored mask and index
@@ -420,7 +463,8 @@ def backward_seeds(params, residuals, seeds, cfg: CNNConfig, method: str,
     ``precision="fxp16"`` replays the whole BP in int16: the f32 seeds are
     quantized to Q7.8 pre-scaled by ``fixedpoint.SEED_GAIN``, every layer
     runs the int16 fused kernel, and the relevance is dequantized with the
-    gain divided back out exactly.
+    gain divided back out exactly.  ``plan`` as in
+    :func:`forward_with_residuals`.
     """
     check_precision(precision)
     if bwd_weights is None:
@@ -432,21 +476,24 @@ def backward_seeds(params, residuals, seeds, cfg: CNNConfig, method: str,
         g = seeds.to(DTYPES[PRECISIONS[precision]])
     n_fc = len(bwd_weights["fc"])
     for i in reversed(range(n_fc)):
-        g = _fc_block_bwd_fused(k, bwd_weights["fc"][i], residuals["fc"][i],
-                                g, method, i < n_fc - 1)
+        wt, gated = bwd_weights["fc"][i], i < n_fc - 1
+        g = _fc_block_bwd_fused(k, wt, residuals["fc"][i], g, method, gated,
+                                _fc_bwd_plan(plan, i, g, wt, gated))
     s, n = g.shape[:2]
     g = g.reshape((s, n) + tuple(residuals["feat_shape"]))
     for i in reversed(range(len(bwd_weights["conv"]))):
         mask4, idx = residuals["conv"][i]
-        g = _conv_block_bwd_fused(k, bwd_weights["conv"][i], mask4, idx, g,
-                                  method, cfg.conv_relu)
+        wt = bwd_weights["conv"][i]
+        g = _conv_block_bwd_fused(
+            k, wt, mask4, idx, g, method, cfg.conv_relu,
+            _conv_bwd_plan(plan, i, g, wt, idx is not None, cfg.conv_relu))
     if precision == "fxp16":
         g = fixedpoint.from_fixed(g) / fixedpoint.SEED_GAIN
     return g
 
 
 def apply_fold(params, x, cfg: CNNConfig, precision: str = "f32",
-               fwd_params=None):
+               fwd_params=None, plan=None):
     """Logits only, at a folded batch: the forward the perturbation
     explainers run over their ``[N*B, ...]`` fan-out (``Engine.perturb``),
     the counterpart of ``repro.models.cnn._apply_fold``.
@@ -460,17 +507,18 @@ def apply_fold(params, x, cfg: CNNConfig, precision: str = "f32",
     on the rule set, so the logits are those of every method.  The pool
     crumbs are written and dropped (the template has no instance without
     them).  ``fwd_params`` is :func:`prepare_params` of ``params``, or
-    None.
+    None; ``plan`` as in :func:`forward_with_residuals` (at a folded
+    batch a plan made for the unfolded one leaves the rules).
     """
     with torch.no_grad():
         logits, _ = forward_with_residuals(params, x, cfg, "deconvnet",
-                                           precision, fwd_params)
+                                           precision, fwd_params, plan)
     return logits
 
 
 def apply(params, x, cfg: CNNConfig, *, method: str = "autodiff",
           use_pallas: bool = False, fused: Optional[bool] = None,
-          precision: str = "f32", fwd_params=None):
+          precision: str = "f32", fwd_params=None, plan=None):
     """Forward pass, differentiable: ``x [N, H, W, Cin] -> [N, classes]``.
 
     ``method`` selects the backward rules at the rectifiers
@@ -487,19 +535,20 @@ def apply(params, x, cfg: CNNConfig, *, method: str = "autodiff",
     bf16 under autograd is ROADMAP A6d.  Under f32, params of a bfloat16
     config are widened (exactly), as the JAX package's f32 blocks promote
     them.  ``fwd_params`` is :func:`prepare_params` of ``params`` for that
-    path, or None.
+    path, or None.  ``plan`` (a :class:`repro_torch.plan.TilePlan`) reaches
+    the fused blocks' launches, as in :func:`forward_with_residuals`.
     """
     check_precision(precision)
     _check_cfg(cfg)
     if precision != "f32":
         logits, _ = forward_with_residuals(params, x, cfg, "deconvnet",
-                                           precision, fwd_params)
+                                           precision, fwd_params, plan)
         return logits
     params = prepare_params(params, "f32")
     if fused is None:
         fused = use_pallas and method != "autodiff"
     if fused:
-        return _apply_fused(params, x, cfg, method)
+        return _apply_fused(params, x, cfg, method, plan)
     if use_pallas:
         relu_fn, pool_fn = relu_ops.relu, pool_ops.maxpool2x2
         conv_fn, fc_fn = conv_ops.conv2d, vmm_ops.vmm

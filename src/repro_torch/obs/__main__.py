@@ -8,9 +8,10 @@ Subcommands::
               JSON, optionally the unified metrics snapshot
     validate  schema-check a trace-event JSON file (exit 1 on problems)
     metrics   print the default-registry catalog (JSON or Prometheus text)
-    drift     the cost-model drift table: it joins the profiler's times
-              with the tile planner's estimates, which is not ported yet
-              (ROADMAP A10), so it raises
+    drift     print a persisted cost-model drift table (the profiler's or
+              the card's measured times against the tile planner's
+              estimates), as ``launch/serve.py --profile-kernels`` writes
+              it
 
 The ``trace`` run is the CI smoke: deterministic (virtual clock, seeded
 trace), a few hundred requests, every admitted request leaving
@@ -99,10 +100,16 @@ def _cmd_metrics(args) -> int:
 
 
 def _cmd_drift(args) -> int:
-    raise NotImplementedError(
-        "drift: the cost-model drift table joins the kernel profiler's "
-        "times with the tile planner's estimates; the planner (repro.plan) "
-        "is not ported yet (ROADMAP A10)")
+    from repro_torch.plan.drift import drift_path, format_drift
+    path = args.path if args.path else drift_path()
+    try:
+        with open(path) as f:
+            table = json.load(f)
+    except OSError as e:
+        print(f"no drift table at {path}: {e}", file=sys.stderr)
+        return 1
+    print(format_drift(table["rows"]))
+    return 0
 
 
 def main(argv=None) -> int:
@@ -129,8 +136,7 @@ def main(argv=None) -> int:
                    default="json")
     m.set_defaults(fn=_cmd_metrics)
 
-    d = sub.add_parser("drift", help="print a persisted drift table "
-                                     "(ROADMAP A10: raises)")
+    d = sub.add_parser("drift", help="print a persisted drift table")
     d.add_argument("--path", default=None)
     d.set_defaults(fn=_cmd_drift)
 

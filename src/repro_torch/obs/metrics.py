@@ -2,9 +2,10 @@
 
 Every layer records into these shared series, so one ``obs.snapshot()``
 describes serve + plan + engine in a single document.  The names, kinds
-and labels are ``repro.obs.metrics``'s; the plan-cache series stay zero
-until the planner (ROADMAP A10) records into them, and the kernel series
-fills while the kernel profiler (:mod:`repro_torch.obs.profile`) is on.
+and labels are ``repro.obs.metrics``'s; the plan-cache series count the
+tuning cache's lookups and stores (:mod:`repro_torch.plan.cache`), and the
+kernel series fills while the kernel profiler
+(:mod:`repro_torch.obs.profile`) is on.
 All instruments
 are registered EAGERLY at import: a snapshot from a freshly started
 process already names every series the system can produce (zero-valued),

@@ -17,8 +17,9 @@ mean, min and max.  The fences serialize the stream, so a profiled run is
 slower than an unprofiled one.
 
 Shape signatures keep the keyword order of the JAX package's
-``_sig_*`` (that of its planner's ``cnn_kernel_shapes``), so profiler keys
-join with the tile planner's when it is ported (ROADMAP A10).
+``_sig_*`` (that of the planner's ``cnn_kernel_shapes``), so profiler keys
+join with the tile planner's in the drift table
+(:mod:`repro_torch.plan.drift`).
 """
 from __future__ import annotations
 

@@ -80,16 +80,6 @@ def block_until_ready(out):
     return out
 
 
-def check_planner_knobs(device, autotune) -> None:
-    if device is not None or autotune:
-        raise NotImplementedError(
-            "device= / autotune= name a repro.plan device profile and "
-            "measured tiling: the tile planner is not ported yet (ROADMAP "
-            "A10); the torch device is the model's: build the engine on "
-            "CNNModel(..., device=) / LMModel(..., device=) and adapt it "
-            "with from_engine")
-
-
 class CNNAdapter:
     """Serve the paper CNN: residual-returning predict + fused BP explain.
 
@@ -101,10 +91,11 @@ class CNNAdapter:
 
     Every engine comes from ``repro_torch.engine.build``: one per rule set,
     derived from the base spec with ``dataclasses.replace`` so precision,
-    model and device are decided exactly once.  ``device=`` / ``autotune=``
-    are ``repro``'s planner knobs (a plan profile, not a torch device) and
-    raise naming ROADMAP A10 unless left at their defaults.  The model runs
-    on the card; :meth:`from_engine` adapts an engine built on any device
+    model and plan are decided exactly once.  ``device=`` / ``autotune=``
+    are the tile planner's knobs (a :mod:`repro_torch.plan` profile, not a
+    torch device): every engine this adapter builds, its per-rule siblings
+    too, runs the plan resolved for that profile.  The model runs on the
+    card; :meth:`from_engine` adapts an engine built on any device
     (``CNNModel(..., device="cpu")``).
     """
 
@@ -113,7 +104,6 @@ class CNNAdapter:
     def __init__(self, params, cfg: cnn.CNNConfig, *,
                  store_rules: str = "saliency", precision: str = "f32",
                  device: str = None, autotune: bool = False):
-        check_planner_knobs(device, autotune)
         cnn.check_precision(precision)
         self.params = params
         self.cfg = cfg
@@ -124,15 +114,16 @@ class CNNAdapter:
         # ``backward``) replays the fused BP in int16.
         self.precision = precision
         self.engine = engine_lib.build(engine_lib.EngineSpec(
-            model=engine_lib.CNNModel(params, cfg),
-            method=store_rules, precision=precision))
+            model=engine_lib.CNNModel(params, cfg), method=store_rules,
+            precision=precision, device=device, autotune=autotune))
         self._engines: Dict[str, engine_lib.Engine] = {store_rules: self.engine}
 
     @classmethod
     def from_engine(cls, eng: engine_lib.Engine) -> "CNNAdapter":
         """Adapt an already-built engine AS CONFIGURED; its method is the
         store rule set, and every other spec field (model and its device,
-        precision, backend, targets, batch) is preserved — per-rule sibling
+        precision, backend, targets, batch, plan) is preserved — per-rule
+        sibling
         engines derive from this spec via ``replace(spec, method=...)``."""
         spec = eng.spec
         self = cls.__new__(cls)

@@ -49,7 +49,11 @@ and int16, tiled and general; bf16 on both routes) at more than 65,535
 images, bitwise equal to launches of the same images in slices of at most
 65,535, and the fold forward (``cnn.apply_fold``) at 7,200 rows of the
 full Table III width against its plain version, launching 4 conv, 2
-mask-free fused ReLU + pool and 2 FC kernels and nothing else.
+mask-free fused ReLU + pool and 2 FC kernels and nothing else; and the
+tile planner on the card: ``measure_kernel`` on one small shape per
+family and precision, and an autotuned ``h100`` engine held to the
+unplanned one (fxp16 bitwise, f32 1e-5 / 1e-4, bf16 2^-6 of max), its
+entries the rules' or their candidates, a second build measuring nothing.
 Every test needs a CUDA device and skips without one.  This file imports
 neither JAX nor the JAX package, so on a machine without JAX run it
 without the suite's conftest:
@@ -1922,3 +1926,87 @@ def test_fold_forward_at_7200_rows_matches_plain(gen, precision):
         assert torch.equal(got, want)
     else:
         _close(got, want)
+
+
+# -- the tile planner on the card ---------------------------------------------
+
+MEASURE_CASES = [
+    ("conv2d_fwd", dict(n=2, h=8, w=8, k=3, cin=16, cout=32)),
+    ("conv2d_bwd", dict(s=3, n=2, hg=4, wg=4, k=3, c=16, cout=8,
+                        pooled=True, gated=True)),
+    ("vmm_fwd", dict(m=4, k=256, n=32)),
+    ("vmm_bwd", dict(s=3, m=4, k=32, n=64, gated=True)),
+    ("pool", dict(n=2, h=8, w=8, c=16)),
+    ("ssm_scan", dict(b=2, s=13, d=64, n=16, chunk_default=8)),
+]
+
+
+@pytest.mark.parametrize("family,kw,precision", [
+    pytest.param(family, kw, precision, id=f"{family}-{precision}")
+    for family, kw in MEASURE_CASES for precision in ("f32", "bf16", "fxp16")
+    if not (family == "ssm_scan" and precision == "fxp16")])   # no int16
+def test_measure_kernel_times_the_card(gen, family, kw, precision):
+    """measure_kernel launches the real wrapper under the plan it is given
+    (one launch counted per timed call) and returns device microseconds."""
+    from repro_torch import plan as tplan
+    from repro_torch.plan import planner
+    prof = tplan.get_profile("h100")
+    assert prof.sms == torch.cuda.get_device_properties(0) \
+        .multi_processor_count
+    tile = (None if family == "pool"
+            else planner._rule_plan(family, kw, prof, precision))
+    before = sum(LAUNCHES.values())
+    us = tplan.measure_kernel(family, kw, tile, precision)
+    assert 0 < us < 1e5
+    assert sum(LAUNCHES.values()) > before
+
+
+@pytest.mark.parametrize("precision", ["f32", "bf16", "fxp16"])
+def test_autotuned_engine_is_held_to_the_unplanned_one(gen, tmp_path,
+                                                       monkeypatch,
+                                                       precision):
+    """An autotuned h100 engine (fresh cache) against the unplanned one on
+    the same batch: fxp16 bitwise, f32 within 1e-5 / 1e-4 of max, bf16
+    within 2^-6; every entry the rule's plan or one of its launch's
+    candidates; a second build measures nothing."""
+    from repro_torch import plan as tplan
+    from repro_torch.engine import CNNModel, EngineSpec, TopK, build
+    from repro_torch.models import cnn
+    from repro_torch.plan import planner
+    monkeypatch.setenv("REPRO_TORCH_PLAN_CACHE", str(tmp_path / "t.json"))
+    cfg = cnn.CNNConfig(channels=(16, 16, 32, 32), fc=(64,))
+    params = cnn.init(torch.Generator().manual_seed(0), cfg)
+    x = torch.randn((8, 32, 32, 3), generator=gen, device="cuda")
+    spec = EngineSpec(CNNModel(params, cfg, device="cuda"),
+                      precision=precision, targets=TopK(3), batch=8)
+    base = build(spec)
+    tuned = build(EngineSpec(spec.model, precision=precision,
+                             targets=TopK(3), batch=8, device="h100",
+                             autotune=True))
+    prof = tplan.get_profile("h100")
+    for key, family, kw in tplan.cnn_kernel_shapes(cfg, 8, 3):
+        if family == "pool":
+            continue
+        tile = tuned.plan.get(key)
+        rule = planner._rule_plan(family, kw, prof, precision)
+        assert tile == rule or tile in planner._card_candidates(
+            family, kw, precision), (key, tile)
+    (bl, br), (tl, tr) = base.explain(x), tuned.explain(x)
+    if precision == "fxp16":
+        assert torch.equal(tl, bl) and torch.equal(tr, br)
+    else:
+        ltol, rtol = ((2.0 ** -6, 2.0 ** -6) if precision == "bf16"
+                      else (1e-5, 1e-4))
+        assert ((tl.float() - bl.float()).abs().max()
+                <= ltol * bl.float().abs().max())
+        assert ((tr.float() - br.float()).abs().max()
+                <= rtol * br.float().abs().max())
+    calls = []
+    monkeypatch.setattr(planner, "measure_kernel",
+                        lambda *a: calls.append(a) or 1.0)
+    from repro_torch.engine import clear_cache
+    clear_cache()
+    again = build(EngineSpec(spec.model, precision=precision,
+                             targets=TopK(3), batch=8, device="h100",
+                             autotune=True))
+    assert not calls and again.plan == tuned.plan

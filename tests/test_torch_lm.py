@@ -370,8 +370,8 @@ def test_unported_knobs_and_handles_raise(setup):
         EngineSpec(LMModel(p, cfg, device="cpu"), precision="fxp16")
     with pytest.raises(ValueError, match="gradient rule set"):
         build(EngineSpec(LMModel(p, cfg, device="cpu"), method="occlusion"))
-    with pytest.raises(NotImplementedError, match="A10"):
-        steps.ssm_scan_tiles(cfg, plan=object())
+    with pytest.raises(NotImplementedError, match="A12"):
+        EngineSpec(LMModel(p, cfg, device="cpu"), device="mesh:edge-small:2")
     with pytest.raises(ValueError, match="mode"):
         lm.make_token_explain(cfg, mode="nope")
     with pytest.raises(NotImplementedError, match="A11b"):

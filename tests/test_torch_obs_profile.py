@@ -13,8 +13,9 @@ repro.obs.profile and ``python -m repro.obs``, on the CPU.
 * The CLI: ``trace`` writes the reference's trace byte for byte on the same
   seed and passes ``validate``; ``metrics`` prints the catalog (the
   reference's CLI prints an empty registry, as it never imports its
-  catalog: ROADMAP C); ``drift`` raises naming ROADMAP A10; the driver's
-  ``--profile-kernels`` prints the aggregates.
+  catalog: ROADMAP C); ``drift`` prints a persisted drift table (exit 1
+  where there is none); the driver's ``--profile-kernels`` prints the
+  aggregates and the drift table.
 """
 import json
 import subprocess
@@ -257,22 +258,33 @@ def test_cli_metrics_prints_the_catalog():
         in p.stdout
 
 
-def test_cli_drift_waits_for_the_planner():
+def test_cli_drift_waits_for_the_planner(tmp_path, capsys):
     from repro_torch.obs.__main__ import main
-    with pytest.raises(NotImplementedError, match="A10"):
-        main(["drift"])
+    from repro_torch.plan.drift import drift_rows, write_drift
+    assert main(["drift", "--path", str(tmp_path / "none.json")]) == 1
+    path = write_drift(drift_rows(CFG, device="edge-small"),
+                       str(tmp_path / "d.json"))
+    capsys.readouterr()
+    assert main(["drift", "--path", path]) == 0
+    out = capsys.readouterr().out.splitlines()
+    assert out[0].split()[:3] == ["key", "family", "shape"]
+    assert [line.split()[0] for line in out[2:]] == [
+        "conv0.fwd", "conv0.bwd", "conv1.fwd", "conv1.bwd", "pool1",
+        "fc0.fwd", "fc0.bwd", "fc1.fwd", "fc1.bwd"]
     assert obs.VirtualClock is not None
 
 
-def test_driver_profile_kernels_prints_the_aggregates():
+def test_driver_profile_kernels_prints_the_aggregates(tmp_path):
     r = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.serve", "--workload",
          "cnn", "--torch-device", "cpu", "--requests", "2",
-         "--profile-kernels", "--precision", "fxp16"],
+         "--profile-kernels", "--precision", "fxp16", "--drift-out",
+         str(tmp_path / "drift.json")],
         capture_output=True, text=True, timeout=300, cwd=ROOT,
         env={"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"})
     assert r.returncode == 0, r.stderr
     assert "kernel profile" in r.stdout and "fxp16" in r.stdout
     for family in ("conv2d_fwd", "conv2d_bwd", "vmm_fwd", "vmm_bwd", "pool"):
         assert f"\n{family} " in r.stdout, family
-    assert "ROADMAP A10" in r.stdout
+    assert "cost-model drift (detected, fxp16" in r.stdout
+    assert (tmp_path / "drift.json").exists()

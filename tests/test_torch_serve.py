@@ -659,7 +659,8 @@ def test_lm_server_matches_reference(lm_setup):
             close(b.relevance, a.relevance, 1e-4, (a.uid, a.method))
 
 
-def test_lm_predict_is_forward_and_explain_cached_refuses(lm_setup):
+def test_lm_predict_is_forward_and_explain_cached_refuses(lm_setup,
+                                                          monkeypatch):
     _, cfg, _, p, toks = lm_setup
     ad = lm_adapter(p, cfg)
     xb = torch.from_numpy(np.stack(toks[:3]))
@@ -670,21 +671,31 @@ def test_lm_predict_is_forward_and_explain_cached_refuses(lm_setup):
     with pytest.raises(ValueError, match="no residual replay"):
         ad.explain_cached("token_ixg", None, None)
     assert ad.example_shape is None and ad.n_shards == 1
-    with pytest.raises(NotImplementedError, match="A10"):
-        lm.LMAdapter(p, cfg, device="edge-small")
+    from repro_torch.engine import spec as spec_mod
+    real = spec_mod.resolve_device
+    monkeypatch.setattr(spec_mod, "resolve_device",
+                        lambda d: real("cpu" if d is None else d))
+    with pytest.raises(NotImplementedError, match="A12"):
+        lm.LMAdapter(p, cfg, device="mesh:edge-small:2")
 
 
-def test_planner_and_mesh_knobs_raise(setup):
+def test_planner_and_mesh_knobs_raise(setup, monkeypatch):
     jparams, params, _ = setup
-    with pytest.raises(NotImplementedError, match="A10"):
-        tserve.CNNAdapter(params, CFG, device="edge-small")
-    with pytest.raises(NotImplementedError, match="A10"):
-        tserve.CNNAdapter(params, CFG, autotune=True)
     with pytest.raises(ValueError):
         tserve.CNNAdapter(params, CFG, precision="int4")
     if not torch.cuda.is_available():       # the card or an error, no CPU
         with pytest.raises(RuntimeError, match="CUDA"):
             tserve.CNNAdapter(params, CFG)
+    # the planner's knobs reach the engine (tests/test_torch_plan_engine.py);
+    # a mesh of several shards is multi-device work
+    from repro_torch.engine import spec as spec_mod
+    real = spec_mod.resolve_device
+    monkeypatch.setattr(spec_mod, "resolve_device",
+                        lambda d: real("cpu" if d is None else d))
+    with pytest.raises(NotImplementedError, match="A12"):
+        tserve.CNNAdapter(params, CFG, device="mesh:edge-small:4")
+    assert tserve.CNNAdapter(params, CFG,
+                             device="edge-small").engine.plan is not None
 
     class Sharded:
         store_rules, n_shards = "saliency", 4
@@ -710,8 +721,8 @@ def test_driver_serves_cnn_on_the_cpu():
     assert "0 errors" in r.stdout and "serve_requests_total" in r.stdout
 
 
-@pytest.mark.parametrize("flag,item", [("--device-profile=edge-small", "A10"),
-                                       ("--autotune", "A10")])
+@pytest.mark.parametrize("flag,item", [
+    ("--device-profile=mesh:edge-small:4", "A12")])
 def test_driver_refuses_what_is_not_ported(flag, item):
     from repro_torch.launch import serve as driver
     with pytest.raises(NotImplementedError, match=item):

@@ -75,16 +75,20 @@ Phases (every failed check raises; nothing is caught and carried on):
    second plan of the same route, the FFMA routes of B1 and B5 within that
    bound of the tensor cores (B5's FFMA route timed beside); B4 bf16
    allocating nothing but y; beside ``F.conv2d`` / ``torch.addmm`` in
-   bf16), then the fxp16
+   bf16; B5 bf16 and B6 bf16 also at the vjp path's S = 1, seed 0 alone:
+   within that bound of the plain version, bitwise again and under a
+   second tile, and compared with seed 0 of the S = 3 launch, bitwise
+   where each output sums in one order whatever S is, else held within
+   one bf16 step and the launch named), then the fxp16
    kernels B7-B10 and
    the int16 instances of B2/B3 and of their fused pass, all bitwise (B7, B8 and B10 also launched
    again, under a second plan and on their general kernels, timed beside
    them; B9 again and under a second K split), plus accumulators that wrap
    at ±32767 operands (B9's under several splits, B10's under three
-   plans); then the gate (B11, three
-   methods) and unpool (B12, f32 and int16) kernels of the autograd paths,
-   bitwise; then the selective scan (B13) at falcon-mamba-7b's explain
-   shape (B = 4, S = 72, D = 8192, N = 16; x bf16 and f32) and a ragged
+   plans); then the gate (B11, three methods, f32 and bf16) and unpool
+   (B12, f32, bf16 and int16) kernels of the autograd paths, bitwise (bf16
+   compared as its 16 bits, -0.0 gradients included); then the selective
+   scan (B13) at falcon-mamba-7b's explain shape (B = 4, S = 72, D = 8192, N = 16; x bf16 and f32) and a ragged
    S = 13, within the JAX package's tolerance (atol 2e-4, rtol 2e-3; one
    bf16 step for a bf16 y), two (d_tile, chunk) pairs bitwise equal; then
    its backward kernel (B13 bwd) at the same shapes against the plain
@@ -115,11 +119,19 @@ Phases (every failed check raises; nothing is caught and carried on):
    stored bits the two devices agree on (a pre-activation within float
    noise of 0 or of its window's maximum can flip a bit, which changes
    that example's map), and of the CPU's replay of the card's stored bits
-   on every example; the launches of each branch per explain;
+   on every example; the launches of each branch per explain; then both
+   branches in bf16 (``precision="bf16"``): bf16 logits and f32
+   relevance, within BF16_TOL * max of the bf16 seed-batched card engine
+   (the fused branch bitwise or not, printed), of the CPU twin on the
+   agreeing examples and of the CPU's replay of the card's bits, every
+   launch through a bf16 entry point, by kernel as the routes say; host
+   and device ms per explain;
 6. train: three AdamW steps of ``cnn.apply(p, x, cfg, use_pallas=True)``
    (autodiff, cross-entropy, batch 32), each step's parameter gradients
    within 1e-4 * max|g| of a CPU twin's on the same parameters (over the
-   examples whose ReLU signs and pool argmax the two devices agree on);
+   examples whose ReLU signs and pool argmax the two devices agree on),
+   then one step through ``cnn.apply(..., precision="bf16")`` (the bf16
+   entries; f32 gradients) within BF16_TOL * max|g| of its CPU twin's;
 7. lm: falcon-mamba-7b's FULL config (64 layers, bf16, 7.27 B random
    parameters from ``torch.Generator(device="cuda").manual_seed(0)``):
    greedy ``decode`` of 4 prompts x 64 tokens, 8 new tokens, twice (equal
@@ -160,7 +172,9 @@ Phases (every failed check raises; nothing is caught and carried on):
    forward returns, per example and method; the bf16 explain of
    ``TABLE_III_LITERAL`` (its pools run alone) against its CPU twin,
    counted from 0; the bytes autograd saves for the backward of the
-   autodiff model against the packed residuals, and the peak device memory
+   autodiff model against the packed residuals; what it saves for a bf16
+   saliency vjp explain on the fused blocks (the bf16 weights and exactly
+   the packed mask and crumb bytes, no other tensor); the peak device memory
    of a packed-residual explain against a ``backward="vjp"`` explain over
    ``method="autodiff"`` (§V); FP against FP+BP device ms at batch 1 and 32
    in f32, bf16 and fxp16 (Table IV).
@@ -249,11 +263,15 @@ comes after every timing, since a profiler session slows what runs after
 it.
 
 Phases 3-4 run once per path, f32, bf16, then fxp16; phase 9's literal
-bf16 explain and phases 5 (per branch), 6, 7 and 8 are paths of their
-own (phases 7b and 10 are the server's, reported on their own
-line; phase 11's perturbation explains count per precision, as paths
-``perturb_f32``, ``perturb_bf16`` and ``perturb_fxp16``, and phase 12's
-autotuned explains as ``plan_f32``, ``plan_bf16`` and ``plan_fxp16``).  Launch counters are set to 0 just before
+bf16 explain and phases 5 (per branch and precision: ``vjp_fused``,
+``vjp_unfused``, ``vjp_fused_bf16``, ``vjp_unfused_bf16``), 6 (``train``,
+``train_bf16``), 7 and 8 are paths of their own (phases 7b and 10 are the
+server's, reported on their own line; phase 11's perturbation explains
+count per precision, as paths ``perturb_f32``, ``perturb_bf16`` and
+``perturb_fxp16``, and phase 12's autotuned explains as ``plan_f32``,
+``plan_bf16`` and ``plan_fxp16``); the kernels line reports B11 bf16 and
+B12 bf16 with their entries' launches on ``vjp_unfused_bf16``.  Launch
+counters are set to 0 just before
 each path (in phases 5-8: before each checked explain, training step or
 decode) and read just after, per wrapper counter and, on the bf16 paths,
 per C entry point; the kernel-vs-plain launches of phase 2, and
@@ -405,7 +423,16 @@ BF16_INSTANCES = {
     "vmm_fwd_bf16": ("vmm_fwd", "repro_vmm_fwd_bf16"),
     "conv2d_bwd_fused_bf16": ("conv2d_bwd_fused",
                               "repro_conv2d_bwd_fused_bf16"),
-    "vmm_bwd_fused_bf16": ("vmm_bwd_fused", "repro_vmm_bwd_fused_bf16")}
+    "vmm_bwd_fused_bf16": ("vmm_bwd_fused", "repro_vmm_bwd_fused_bf16"),
+    "relu_bwd_bf16": ("relu_bwd", "repro_relu_bwd_bf16"),
+    "unpool_bwd_bf16": ("unpool_bwd", "repro_unpool_bwd_bf16")}
+#: The path whose launches per entry point the kernels line reports for a
+#: bf16 instance the bf16 seed-batched path does not run: B3 bf16 alone
+#: (the Table-III-literal explain) and the gate and unpool of the bf16
+#: standalone-ops vjp explain (phase 5, summed over its three methods).
+BF16_INSTANCE_PATHS = {"maxpool_fwd_bf16": "bf16_literal",
+                       "relu_bwd_bf16": "vjp_unfused_bf16",
+                       "unpool_bwd_bf16": "vjp_unfused_bf16"}
 
 
 #: The bf16 instances whose main path runs a kernel of its own, on the
@@ -721,6 +748,7 @@ class KernelCheck:
         self.mufu_per_s = mufu_per_s
         self.scan_backward_ms = self.scan_backward_loop_ms = None
         self.accumulation = None  # check_mma_accumulation's rows
+        self.one_seed = []        # B5 / B6 bf16 at S = 1 vs the S = 3 launch
         self.rows = []            # one per compared case, for --out
         self.fns = []             # (kernel_fn, general_fn) per row
         keys = tuple(KERNELS) + INT16_INSTANCES + tuple(BF16_INSTANCES)
@@ -2287,6 +2315,7 @@ def check_kernels_bf16(kc: KernelCheck):
                                                    conv2d_planned,
                                                    conv_bf16_plan,
                                                    conv_bwd_bf16_plan,
+                                                   conv_bwd_mma_candidates,
                                                    conv_bwd_plan, conv_plan)
     from repro_torch.kernels.pool import ref as pool_ref
     from repro_torch.kernels.pool.pool import maxpool_fwd, relu_pool_fwd
@@ -2300,6 +2329,7 @@ def check_kernels_bf16(kc: KernelCheck):
     from repro_torch.kernels.vmm.vmm import bwd_fused_plain as vbwd_plain
     from repro_torch.kernels.vmm.vmm import (VmmMmaPlan, vmm, vmm_bwd_fused,
                                              vmm_bwd_fused_plain,
+                                             vmm_bwd_mma_candidates,
                                              vmm_bwd_mma_plan, vmm_mma_plan,
                                              vmm_planned)
 
@@ -2472,6 +2502,19 @@ def check_kernels_bf16(kc: KernelCheck):
                       general_fn=lambda: conv2d_bwd_fused(g, wt, plan=ffma,
                                                           **kw),
                       general_what="ffma")
+            check_bwd_bf16_one_seed(
+                kc, "conv2d_bwd_fused_bf16", case, got, g,
+                lambda g1, wt=wt, kw=kw, **k: conv2d_bwd_fused(g1, wt, **kw,
+                                                               **k),
+                lambda g1, wt=wt, kw=kw: conv2d_bwd_fused_plain(g1, wt, **kw),
+                lambda g1, wt=wt, kw=kw: bwd_fused_plain(
+                    conv_ref.conv2d_widened, g1, wt, **kw),
+                _other_plan(conv_bwd_bf16_plan(1, n, h, h, c, cout, 3,
+                                               pooled=pooled),
+                            conv_bwd_mma_candidates(1, h, h, c, cout, 3,
+                                                    pooled=pooled)), nbytes,
+                torch.count_nonzero(gate_gradient(gg[0], bits,
+                                                  method)).item(), 9 * cout)
 
     # B6 bf16 on the tensor cores: FC1 then FC0 (gated) under every
     # method, again and under a second tile plan bitwise
@@ -2506,13 +2549,64 @@ def check_kernels_bf16(kc: KernelCheck):
                       lambda: vmm_bwd_fused_plain(g, wt, **kw),
                       nbytes, 2 * nnz * n_out, lib, rate=BF16_FLOP_PER_S,
                       close=lambda g_, w_, acc=acc: bf16_close(g_, w_, acc))
+            check_bwd_bf16_one_seed(
+                kc, "vmm_bwd_fused_bf16", case, got, g,
+                lambda g1, wt=wt, kw=kw, **k: vmm_bwd_fused(g1, wt, **kw, **k),
+                lambda g1, wt=wt, kw=kw: vmm_bwd_fused_plain(g1, wt, **kw),
+                lambda g1, wt=wt, kw=kw: vbwd_plain(vmm_ref.vmm_widened, g1,
+                                                    wt, **kw),
+                _other_plan(vmm_bwd_mma_plan(1, n, k, n_out),
+                            vmm_bwd_mma_candidates(1, n, k, n_out)),
+                nbytes, torch.count_nonzero(gg[0]).item(), n_out)
+
+
+def _other_plan(rule, candidates):
+    """The first of a launch's candidate tile plans that is not its rule's
+    (a second tile of the same route, for a bitwise check)."""
+    return next(p for p in candidates if p != rule)
+
+
+def check_bwd_bf16_one_seed(kc, row, case, got_s, g, launch, plain, widened,
+                            other, nbytes_s, nnz1, per_nnz):
+    """The vjp path's launch of a bf16 fused backward: seed 0 of ``g``
+    alone (S = 1, g [N, ...]), as autograd gives it to a block.  Within
+    one bf16 step of its plain version, bitwise again and under ``other``
+    (a second tile plan), and compared with seed 0 of the seed-batched
+    launch ``got_s``: bitwise where each output sums in the same order
+    whatever S is; otherwise held within one bf16 step of it and the
+    launch named.  Timed as a row apart from the seed-batched path's
+    (``main`` off); bytes and operations are seed 0's share of the S = 3
+    launch's, the weights read whole; ``nnz1`` is seed 0's gated
+    gradients, each ``per_nnz`` multiply-adds."""
+    g1 = g[0].contiguous()
+    got = launch(g1)
+    acc = widened(g1)
+    case1 = case.replace(f"[{SEEDS},", "[1,") + " S=1"
+    _bitwise_repeat(row, case1, got, (
+        ("again", lambda: launch(g1)),
+        (f"under {other}", lambda: launch(g1, plan=other))))
+    same = _same_bits(got, got_s[0])
+    if not same:
+        err = bf16_close(got, got_s[0], acc)
+        print(f"  {row:20s} {case1:34s} NOT bitwise seed 0 of the S = "
+              f"{SEEDS} launch: within one bf16 step of it (max|d| "
+              f"{err:.2e})")
+    kc.one_seed.append(dict(kernel=row, case=case1, bitwise_seed_batched=same))
+    seed_share = g1.numel() * 2 * (SEEDS - 1)
+    kc.record(row, case1, False, got, plain(g1), False, lambda: launch(g1),
+              lambda: plain(g1),
+              nbytes_s - seed_share - (got_s.numel() - got.numel()) * 2,
+              2 * nnz1 * per_nnz, rate=BF16_FLOP_PER_S,
+              close=lambda g_, w_, acc=acc: bf16_close(g_, w_, acc))
 
 
 def check_kernels_autograd(kc: KernelCheck):
-    """B11 (three methods) and B12 (f32 and int16) at the shapes of the
-    unfused backward, bitwise: they select and route, so any difference is
-    a fault.  No PyTorch call computes either; ``F.max_unpool2d`` on the
-    same routing (NCHW, int64 flat indices) is timed as a reference point."""
+    """B11 (three methods; f32 and bf16) and B12 (f32, bf16 and int16) at
+    the shapes of the unfused backward, bitwise (bf16 compared as its 16
+    bits, so a signed zero counts): they select and route, so any
+    difference is a fault.  No PyTorch call computes either;
+    ``F.max_unpool2d`` on the same routing (NCHW, int64 flat indices) is
+    timed as a reference point."""
     from repro_torch.core import fixedpoint, masks
     from repro_torch.kernels.pool import ref as pool_ref
     from repro_torch.kernels.pool.fxp import unpool_bwd_fxp
@@ -2537,6 +2631,24 @@ def check_kernels_autograd(kc: KernelCheck):
                       True, lambda: relu_bwd(m, g, method),
                       lambda: relu_ref.relu_bwd(m, g, method), nbytes, r * c)
 
+    # B11 bf16: the same five of the bf16 unfused backward, -0.0 gradients
+    # gated to +0.0 by g > 0 and kept where the mask alone passes them
+    for method in METHODS:
+        for r, c in ((n * 32 * 32, 32), (n * 32 * 32, 32), (n * 16 * 16, 64),
+                     (n * 16 * 16, 64), (n, 128)):
+            _, m = relu_fwd(randn(gen, r, c).to(torch.bfloat16))
+            m = None if method == "deconvnet" else m
+            g = randn(gen, r, c, scale=1e-2).to(torch.bfloat16)
+            g[0] = 0.0
+            g[1] = -0.0
+            nbytes = 2 * 2 * r * c + (0 if m is None else r * mask_bytes(c))
+            kc.record("relu_bwd_bf16", f"{method} [{r},{c}]",
+                      method == "saliency",
+                      relu_bwd(m, g, method).view(torch.int16),
+                      relu_ref.relu_bwd(m, g, method).view(torch.int16),
+                      True, lambda: relu_bwd(m, g, method),
+                      lambda: relu_ref.relu_bwd(m, g, method), nbytes, r * c)
+
     # B12: the two pools' unpool, on post-ReLU maps (tied zero windows)
     for h, c in ((32, 32), (16, 64)):
         hp = h // 2
@@ -2544,7 +2656,7 @@ def check_kernels_autograd(kc: KernelCheck):
         k = masks.unpack_crumbs(idx, c).permute(0, 3, 1, 2).to(torch.int64)
         ii = torch.arange(hp, device="cuda")
         flat = (2 * ii[:, None] + k // 2) * h + 2 * ii[None, :] + k % 2
-        for dtype in (torch.float32, torch.int16):
+        for dtype in (torch.float32, torch.bfloat16, torch.int16):
             g = randn(gen, n, hp, hp, c, scale=1e-2)
             name, fn, size = "unpool_bwd", unpool_bwd, 4
             lib = None
@@ -2552,6 +2664,10 @@ def check_kernels_autograd(kc: KernelCheck):
                 g = fixedpoint.to_fixed(g * 100)
                 name, fn, size = "unpool_bwd_i16", unpool_bwd_fxp, 2
             else:
+                if dtype == torch.bfloat16:
+                    g = g.to(torch.bfloat16)
+                    g[:, 0, 0] = -0.0     # the argmax keeps its sign
+                    name, size = "unpool_bwd_bf16", 2
                 gn = g.permute(0, 3, 1, 2).contiguous()
                 out = F.max_unpool2d(gn, flat, 2, output_size=(h, h))
                 if not torch.equal(out.permute(0, 2, 3, 1),
@@ -2561,11 +2677,16 @@ def check_kernels_autograd(kc: KernelCheck):
 
                 def lib(gn=gn):
                     return F.max_unpool2d(gn, flat, 2, output_size=(h, h))
+            # bf16 as its 16 bits: a signed zero must survive the route
+            bits = ((lambda t: t.view(torch.int16)) if dtype == torch.bfloat16
+                    else (lambda t: t))
             nbytes = size * 5 * g.numel() + idx.numel()
             kc.record(name, f"[{n},{hp},{hp},{c}]->[{n},{h},{h},{c}]"
-                      + (" int16" if dtype == torch.int16 else ""), True,
-                      fn(idx, g), pool_ref.unpool_bwd(idx, g), True,
-                      lambda: fn(idx, g), lambda: pool_ref.unpool_bwd(idx, g),
+                      + {torch.int16: " int16", torch.bfloat16: " bf16"}.get(
+                          dtype, ""), True,
+                      bits(fn(idx, g)), bits(pool_ref.unpool_bwd(idx, g)),
+                      True, lambda: fn(idx, g),
+                      lambda: pool_ref.unpool_bwd(idx, g),
                       nbytes, 4 * g.numel(), f32_reference_fn=lib)
 
 
@@ -3014,7 +3135,9 @@ def check_paper_tables(params, cfg, x_cpu, launches, entry_launches,
     per counter and per entry point: the pool alone in bf16) against its
     CPU twin, bf16 out.  (c) §V on the card: the
     bytes autograd saves for the backward of ``cnn.apply(method=
-    "autodiff")`` (the software baseline, plain ops), and the peak device
+    "autodiff")`` (the software baseline, plain ops), what it saves for a
+    bf16 saliency vjp explain on the fused blocks (the bf16 weights and
+    exactly the packed residual bytes, nothing else), and the peak device
     memory of a top-3 explain at batch 32 on the packed residuals against
     a ``backward="vjp"`` explain over that autodiff model.  (d) Table IV:
     FP (``Engine.forward``) against FP+BP (``Engine.explain``, the argmax
@@ -3114,10 +3237,42 @@ def check_paper_tables(params, cfg, x_cpu, launches, entry_launches,
                                backward="vjp", targets=TopK(SEEDS)))
     peak_packed = _peak_bytes(lambda: packed_eng.explain(x))
     peak_vjp = _peak_bytes(lambda: vjp_eng.explain(x))
+    # the bf16 vjp explain on the fused blocks: autograd's graph holds the
+    # bf16 weights and the packed bytes, no activation (the casts save
+    # nothing)
+    bf16_vjp = build(EngineSpec(CNNModel(params, cfg, device="cuda"),
+                                method="saliency", precision="bf16",
+                                backward="vjp", targets=TopK(SEEDS)))
+    saved_bf16 = []
+    with torch.autograd.graph.saved_tensors_hooks(
+            lambda t: saved_bf16.append(t) or t, lambda t: t):
+        bf16_vjp.explain(x)
+    floats = [t for t in saved_bf16 if t.is_floating_point()]
+    state = [t for t in saved_bf16 if not t.is_floating_point()]
+    weight_shapes = sorted(tuple(q["w"].shape) for k in ("conv", "fc")
+                           for q in params[k])
+    if (sorted(tuple(t.shape) for t in floats) != weight_shapes
+            or any(t.dtype != torch.bfloat16 for t in floats)):
+        fail(f"bf16 vjp explain: autograd saved float tensors "
+             f"{[(tuple(t.shape), t.dtype) for t in floats]}, want the "
+             f"bf16 weights alone")
+    _, res16 = cnn.forward_with_residuals(pc, x, cfg, "saliency", "bf16")
+    state_bytes = sum(t.numel() * t.element_size() for t in state)
+    packed16 = residuals.residual_bits(res16) // 8
+    if any(t.dtype != torch.uint8 for t in state) or state_bytes != packed16:
+        fail(f"bf16 vjp explain: autograd saved {state_bytes} B of state, "
+             f"the packed residuals are {packed16} B")
+    weight_bytes = sum(t.numel() * t.element_size() for t in floats)
     out["memory"] = dict(autograd_saved_bytes=saved_bytes,
                          packed_residual_bytes=packed_bytes,
                          peak_packed_explain_bytes=peak_packed,
-                         peak_vjp_autodiff_explain_bytes=peak_vjp)
+                         peak_vjp_autodiff_explain_bytes=peak_vjp,
+                         bf16_vjp_saved_state_bytes=state_bytes,
+                         bf16_vjp_saved_weight_bytes=weight_bytes)
+    print(f"  bf16 vjp saliency explain (fused blocks): autograd saves the "
+          f"bf16 weights ({weight_bytes} B) and {state_bytes} B of packed "
+          f"masks and crumbs (= the bf16 residuals' {packed16} B), no "
+          f"activation")
     print(f"  batch {BATCH}, FULL: autograd saves {saved_bytes} B of "
           f"activations for the backward (autodiff, plain ops, weights not "
           f"counted; {8 * saved_bytes / BATCH / 1e6:.3f} Mb an example), "
@@ -3153,7 +3308,8 @@ def check_paper_tables(params, cfg, x_cpu, launches, entry_launches,
 # ---------------------------------------------------------------------------
 
 #: kernel launches per vjp explain with SEEDS seeds (one forward, then one
-#: backward pass per seed), per branch; every other counter stays at 0
+#: backward pass per seed), per branch; every other counter stays at 0.
+#: The bf16 branches make the same launches through the bf16 entries.
 PER_EXPLAIN_VJP = {
     # (a) fused blocks: B5/B6 at S = 1 for dx, no weight gradient asked
     # for; ReLU and pool fused at the pooled layers
@@ -3166,8 +3322,19 @@ PER_EXPLAIN_VJP = {
                     "maxpool_fwd": 2, "vmm_fwd": 2 + 2 * SEEDS,
                     "relu_bwd": 5 * SEEDS, "unpool_bwd": 2 * SEEDS},
 }
+PER_EXPLAIN_VJP.update({f"{b}_bf16": v for b, v in
+                        list(PER_EXPLAIN_VJP.items())})
+#: the bf16 standalone-ops explain by kernel: the forward's conv layers
+#: 1-3 on the tensor cores and layer 0 on FFMA, then every dx conv (the
+#: flipped weight's Cin is 32 or 64) on the tensor cores
+VJP_UNFUSED_BF16_ROUTES = {"conv2d_fwd_bf16_mma": 3 + 4 * SEEDS,
+                           "conv2d_fwd_bf16_ffma": 1,
+                           "conv2d_bwd_fused_bf16_mma": 0,
+                           "conv2d_bwd_fused_bf16_ffma": 0,
+                           "vmm_bwd_fused_bf16_mma": 0}
 #: kernel launches per training step (autodiff: the ReLU is torch.maximum,
-#: no mask; dx of conv layers 1-3 and both FC layers on B1/B4)
+#: no mask; dx of conv layers 1-3 and both FC layers on B1/B4); the bf16
+#: step the same through the bf16 entries
 PER_TRAIN_STEP = {"conv2d_fwd": 4 + 3, "maxpool_fwd": 2, "vmm_fwd": 2 + 2,
                   "unpool_bwd": 2}
 TRAIN_STEPS, TRAIN_LR = 3, 1e-3
@@ -3219,100 +3386,164 @@ def _host_device_ms(fn):
     return host, device_time_ms(fn, reps=10, cover_ms=max(50.0, 30 * host))
 
 
-def check_vjp(params, cfg, x_cpu, launches, to_profile):
-    """Phase 5: the vjp backend on both kernel branches, per method."""
+def _entries_and_routes(what, rose, bf16, routes_want=None):
+    """The launches of the call just counted, per C entry point and per
+    bf16 kernel (``_build``'s tables, reset by :func:`_count`): under bf16
+    every launch through a bf16 entry (:func:`bf16_entries`) and by kernel
+    as ``routes_want`` (the seed-batched split when None); under f32
+    through the f32 entries.  Returns the entry launches."""
+    from repro_torch.kernels import ENTRY_LAUNCHES, _build
+    entries = dict(ENTRY_LAUNCHES)
+    if not bf16:
+        if any(v and k.endswith("_bf16") for k, v in entries.items()):
+            fail(f"{what}: a bf16 entry launched on the f32 path")
+        return entries
+    if entries != bf16_entries(rose, entries):
+        fail(f"{what}: launches per entry point "
+             f"{ {k: v for k, v in entries.items() if v} }, not all through "
+             f"the bf16 entries")
+    routes = dict(_build.ROUTE_LAUNCHES)
+    if routes_want is None:
+        check_bf16_routes(what, routes, rose)
+    elif routes != routes_want:
+        fail(f"{what}: bf16 launches by kernel {routes}, want {routes_want}")
+    return entries
+
+
+def check_vjp(params, cfg, x_cpu, launches, entry_launches, to_profile):
+    """Phase 5: the vjp backend on both kernel branches, per method, in f32
+    and in bf16.  bf16: the logits bf16 and the relevance f32 (the bf16
+    cotangent widened through the input's cast), against the bf16
+    seed-batched card engine (the fused branch runs the same kernels at S
+    = 1: bitwise expected, else within BF16_TOL and the launch named by
+    phase 2; the standalone ops sum dx on B1/B4 bf16, another order:
+    BF16_TOL) and a CPU twin within BF16_TOL * max."""
     from repro_torch.engine import CNNModel, EngineSpec, FnModel, TopK, build
     from repro_torch.models import cnn
 
-    def unfused(p):
+    def unfused(p, precision):
         return lambda m: (lambda v: cnn.apply(p, v, cfg, method=m,
-                                              use_pallas=True, fused=False))
+                                              use_pallas=True, fused=False,
+                                              precision=precision))
 
-    make_card, make_cpu = unfused(cnn.params_to(params, "cuda")), \
-        unfused(params)
     x = x_cpu.cuda()
     results = {}
-    for method in METHODS:
-        spec = dict(method=method, targets=TopK(SEEDS))
-        pair = build(EngineSpec(CNNModel(params, cfg, device="cuda"), **spec))
-        logits_sb, rel_sb, res = pair.predict_then_explain(x)
-        twin = build(EngineSpec(CNNModel(params, cfg, device="cpu"), **spec))
-        _, _, res_c = twin.predict_then_explain(x_cpu)
-        # the CPU's backward on the card's stored bits, for every example
-        rel_x = twin.replay(cnn.residuals_to(res, "cpu"),
-                            pair._seeds(logits_sb, None, SEEDS)[0].cpu())
-        bad = _flipped_examples(res, res_c)
-        keep = ~bad
-        spec["backward"] = "vjp"
-        for branch, card, cpu in (
-                ("vjp_fused", CNNModel(params, cfg, device="cuda"),
-                 CNNModel(params, cfg, device="cpu")),
-                ("vjp_unfused", FnModel(make_card, device="cuda"),
-                 FnModel(make_cpu, device="cpu"))):
-            eng = build(EngineSpec(card, **spec))
-            (logits, rel), rose = _count(lambda: eng.explain(x),
-                                         launches.setdefault(branch, {}))
-            want = dict(PER_EXPLAIN_VJP[branch])
-            if branch == "vjp_fused" and method == "deconvnet":
-                want["relu_fwd"] = 0          # Table II: no mask stored
-            _expect(rose, want, f"{branch} {method} explain")
-            if tuple(rel.shape) != (SEEDS, BATCH, 32, 32, 3) or not bool(
-                    torch.isfinite(rel).all()):
-                fail(f"{branch} {method}: relevance {tuple(rel.shape)} not "
-                     f"finite/shaped")
-            err_sb = (logits - logits_sb).abs().max().item()
-            rerr_sb = (rel - rel_sb).abs().max().item()
-            if not (err_sb <= DOT_TOL * logits_sb.abs().max().item()
-                    and rerr_sb <= REPLAY_TOL * rel_sb.abs().max().item()):
-                fail(f"{branch} {method}: vs the seed-batched engine logits "
-                     f"{err_sb:.3e}, relevance {rerr_sb:.3e}")
-            logits_c, rel_c = build(EngineSpec(cpu, **spec)).explain(x_cpu)
-            err = (logits.cpu() - logits_c).abs().max().item()
-            if not err <= DOT_TOL * logits_c.abs().max().item():
-                fail(f"{branch} {method}: logits card vs CPU {err:.3e}")
-            rref = rel_c.abs().max().item()
-            rerr = (rel.cpu() - rel_c)[:, keep].abs().max().item()
-            if not rerr <= REPLAY_TOL * rref:
-                fail(f"{branch} {method}: relevance card vs CPU {rerr:.3e} "
-                     f"(max|rel| {rref:.3e})")
-            rerr_all = (rel.cpu() - rel_c).abs().max().item()
-            xerr = (rel.cpu() - rel_x).abs().max().item()
-            if not xerr <= REPLAY_TOL * rel_x.abs().max().item():
-                fail(f"{branch} {method}: relevance vs the CPU replay of the "
-                     f"card's residuals {xerr:.3e}")
-            ms, dev_ms = _host_device_ms(lambda: eng.explain(x))
-            if method == "saliency":
-                to_profile.append((f"{branch} {method} explain",
-                                   lambda eng=eng: eng.explain(x), dev_ms))
-            results[f"{branch} {method}"] = dict(
-                logits_err=err, rel_err=rerr, rel_err_all=rerr_all,
-                rel_err_cpu_replay=xerr, rel_max=rref,
-                flipped_examples=int(bad.sum()),
-                vs_seed_batched=(err_sb, rerr_sb), explain_ms_host=ms,
-                explain_ms_device=dev_ms, launches_per_explain=rose)
-            print(f"  {branch:11s} {method:9s} logits err {err:.2e}  rel err "
-                  f"{rerr:.2e} on {int(keep.sum())} examples ({rerr_all:.2e} "
-                  f"on all {BATCH}; max|rel| {rref:.2e}), {xerr:.2e} vs the "
-                  f"CPU replay of the card's bits  vs seed-batched "
-                  f"{err_sb:.2e}/{rerr_sb:.2e}  explain {ms:.3f} ms host, "
-                  f"{dev_ms:.3f} ms device")
+    for precision in ("f32", "bf16"):
+        bf16 = precision == "bf16"
+        logit_tol, rel_tol = (BF16_TOL, BF16_TOL) if bf16 else (DOT_TOL,
+                                                                 REPLAY_TOL)
+        sfx = "_bf16" if bf16 else ""
+        p_card = cnn.params_to(params, "cuda")
+        for method in METHODS:
+            spec = dict(method=method, precision=precision,
+                        targets=TopK(SEEDS))
+            pair = build(EngineSpec(CNNModel(params, cfg, device="cuda"),
+                                    **spec))
+            logits_sb, rel_sb, res = pair.predict_then_explain(x)
+            twin = build(EngineSpec(CNNModel(params, cfg, device="cpu"),
+                                    **spec))
+            _, _, res_c = twin.predict_then_explain(x_cpu)
+            # the CPU's backward on the card's stored bits, every example
+            rel_x = twin.replay(cnn.residuals_to(res, "cpu"),
+                                pair._seeds(logits_sb, None, SEEDS)[0].cpu())
+            bad = _flipped_examples(res, res_c)
+            keep = ~bad
+            spec["backward"] = "vjp"
+            for branch, card, cpu in (
+                    ("vjp_fused" + sfx, CNNModel(params, cfg, device="cuda"),
+                     CNNModel(params, cfg, device="cpu")),
+                    ("vjp_unfused" + sfx,
+                     FnModel(unfused(p_card, precision), device="cuda"),
+                     FnModel(unfused(params, precision), device="cpu"))):
+                eng = build(EngineSpec(card, **spec))
+                (logits, rel), rose = _count(lambda: eng.explain(x),
+                                             launches.setdefault(branch, {}))
+                want = dict(PER_EXPLAIN_VJP[branch])
+                if branch.startswith("vjp_fused") and method == "deconvnet":
+                    want["relu_fwd"] = 0          # Table II: no mask stored
+                _expect(rose, want, f"{branch} {method} explain")
+                entries = _entries_and_routes(
+                    f"{branch} {method} explain", rose, bf16,
+                    VJP_UNFUSED_BF16_ROUTES if branch == "vjp_unfused_bf16"
+                    else None)
+                totals = entry_launches.setdefault(branch, {})
+                for k, v in entries.items():
+                    totals[k] = totals.get(k, 0) + v
+                if tuple(rel.shape) != (SEEDS, BATCH, 32, 32, 3) or not bool(
+                        torch.isfinite(rel).all()):
+                    fail(f"{branch} {method}: relevance {tuple(rel.shape)} "
+                         f"not finite/shaped")
+                if bf16 and not (logits.dtype == torch.bfloat16
+                                 and rel.dtype == torch.float32):
+                    fail(f"{branch} {method}: logits {logits.dtype}, "
+                         f"relevance {rel.dtype}; want bf16 and f32")
+                lf, rf = logits.float(), rel.float()
+                err_sb = (lf - logits_sb.float()).abs().max().item()
+                rerr_sb = (rf - rel_sb.float()).abs().max().item()
+                bitwise_sb = bool(torch.equal(logits, logits_sb)
+                                  and torch.equal(rf, rel_sb.float()))
+                if not (err_sb <= logit_tol * logits_sb.float().abs().max()
+                        .item() and rerr_sb <= rel_tol
+                        * rel_sb.float().abs().max().item()):
+                    fail(f"{branch} {method}: vs the seed-batched engine "
+                         f"logits {err_sb:.3e}, relevance {rerr_sb:.3e}")
+                logits_c, rel_c = build(EngineSpec(cpu, **spec)).explain(
+                    x_cpu)
+                err = (lf.cpu() - logits_c.float()).abs().max().item()
+                if not err <= logit_tol * logits_c.float().abs().max().item():
+                    fail(f"{branch} {method}: logits card vs CPU {err:.3e}")
+                rref = rel_c.float().abs().max().item()
+                rerr = (rf.cpu() - rel_c.float())[:, keep].abs().max().item()
+                if not rerr <= rel_tol * rref:
+                    fail(f"{branch} {method}: relevance card vs CPU "
+                         f"{rerr:.3e} (max|rel| {rref:.3e})")
+                rerr_all = (rf.cpu() - rel_c.float()).abs().max().item()
+                xerr = (rf.cpu() - rel_x.float()).abs().max().item()
+                if not xerr <= rel_tol * rel_x.float().abs().max().item():
+                    fail(f"{branch} {method}: relevance vs the CPU replay of "
+                         f"the card's residuals {xerr:.3e}")
+                ms, dev_ms = _host_device_ms(lambda: eng.explain(x))
+                if method == "saliency":
+                    to_profile.append((f"{branch} {method} explain",
+                                       lambda eng=eng: eng.explain(x),
+                                       dev_ms))
+                results[f"{branch} {method}"] = dict(
+                    logits_err=err, rel_err=rerr, rel_err_all=rerr_all,
+                    rel_err_cpu_replay=xerr, rel_max=rref,
+                    flipped_examples=int(bad.sum()),
+                    vs_seed_batched=(err_sb, rerr_sb),
+                    bitwise_seed_batched=bitwise_sb, explain_ms_host=ms,
+                    explain_ms_device=dev_ms, launches_per_explain=rose)
+                print(f"  {branch:16s} {method:9s} logits err {err:.2e}  rel "
+                      f"err {rerr:.2e} on {int(keep.sum())} examples "
+                      f"({rerr_all:.2e} on all {BATCH}; max|rel| "
+                      f"{rref:.2e}), {xerr:.2e} vs the CPU replay of the "
+                      f"card's bits  vs seed-batched {err_sb:.2e}/"
+                      f"{rerr_sb:.2e}"
+                      + (" (bitwise)" if bitwise_sb else "")
+                      + f"  explain {ms:.3f} ms host, {dev_ms:.3f} ms device")
     return results
 
 
-def check_train(params, cfg, x_cpu, launches, to_profile):
-    """Phase 6: AdamW steps of the autodiff loss on the kernel path."""
+def check_train(params, cfg, x_cpu, launches, entry_launches, to_profile):
+    """Phase 6: AdamW steps of the autodiff loss on the kernel path, in f32
+    (TRAIN_STEPS) and then one in bf16 (``precision="bf16"``: the loss on
+    the bf16 logits widened, the parameter gradients f32 holding bf16
+    values), each step's gradients against a CPU twin's on the examples
+    whose residual bits the two devices agree on."""
     from repro_torch import optim
     from repro_torch.models import cnn
 
     y_cpu = torch.randint(0, cfg.num_classes, (BATCH,),
                           generator=torch.Generator().manual_seed(2))
 
-    def loss_and_grads(p, x, y):
+    def loss_and_grads(p, x, y, precision="f32"):
         p = {k: [{n: t.detach().requires_grad_() for n, t in q.items()}
                  for q in v] for k, v in p.items()}
         leaves = [q[n] for k in ("conv", "fc") for q in p[k]
                   for n in ("w", "b")]
-        loss = F.cross_entropy(cnn.apply(p, x, cfg, use_pallas=True), y)
+        loss = F.cross_entropy(cnn.apply(p, x, cfg, use_pallas=True,
+                                         precision=precision).float(), y)
         return loss.detach(), torch.autograd.grad(loss, leaves)
 
     def tree(flat):
@@ -3324,45 +3555,65 @@ def check_train(params, cfg, x_cpu, launches, to_profile):
     state = optim.adamw_init(p)
     x, y = x_cpu.cuda(), y_cpu.cuda()
     losses, errs = [], []
-    for step in range(TRAIN_STEPS):
-        (loss, grads), rose = _count(lambda: loss_and_grads(p, x, y),
-                                     launches.setdefault("train", {}))
-        _expect(rose, PER_TRAIN_STEP, f"train step {step}")
+    for step, precision in enumerate(["f32"] * TRAIN_STEPS + ["bf16"]):
+        bf16 = precision == "bf16"
+        path, tol = ("train_bf16", BF16_TOL) if bf16 else ("train",
+                                                           REPLAY_TOL)
+        what = f"train step {step} ({precision})"
+        (loss, grads), rose = _count(
+            lambda: loss_and_grads(p, x, y, precision),
+            launches.setdefault(path, {}))
+        _expect(rose, PER_TRAIN_STEP, what)
+        entries = _entries_and_routes(what, rose, bf16, {
+            "conv2d_fwd_bf16_mma": 3 + 3, "conv2d_fwd_bf16_ffma": 1,
+            "conv2d_bwd_fused_bf16_mma": 0, "conv2d_bwd_fused_bf16_ffma": 0,
+            "vmm_bwd_fused_bf16_mma": 0})
+        if bf16:
+            entry_launches[path] = entries
         p_cpu = cnn.params_to(p, "cpu")
-        _, res = cnn.forward_with_residuals(p, x, cfg, "saliency")
-        _, res_c = cnn.forward_with_residuals(p_cpu, x_cpu, cfg, "saliency")
+        _, res = cnn.forward_with_residuals(p, x, cfg, "saliency", precision)
+        _, res_c = cnn.forward_with_residuals(p_cpu, x_cpu, cfg, "saliency",
+                                              precision)
         keep = ~_flipped_examples(res, res_c)
-        g_card, g_cpu = grads, loss_and_grads(p_cpu, x_cpu, y_cpu)[1]
+        g_card = grads
+        g_cpu = loss_and_grads(p_cpu, x_cpu, y_cpu, precision)[1]
         if not bool(keep.all()):      # compare on the agreeing examples
-            g_card = loss_and_grads(p, x[keep.cuda()], y[keep.cuda()])[1]
-            g_cpu = loss_and_grads(p_cpu, x_cpu[keep], y_cpu[keep])[1]
+            g_card = loss_and_grads(p, x[keep.cuda()], y[keep.cuda()],
+                                    precision)[1]
+            g_cpu = loss_and_grads(p_cpu, x_cpu[keep], y_cpu[keep],
+                                   precision)[1]
         worst = 0.0
         for i, (g, g_c) in enumerate(zip(g_card, g_cpu)):
-            if not bool(torch.isfinite(g).all()):
-                fail(f"train step {step}: gradient {i} not finite")
+            if not bool(torch.isfinite(g).all()) or g.dtype != torch.float32:
+                fail(f"{what}: gradient {i} not finite, or {g.dtype}")
             e = (g.cpu() - g_c).abs().max().item()
             ref = g_c.abs().max().item()
-            if not e <= REPLAY_TOL * ref:
-                fail(f"train step {step}: gradient {i} card vs CPU {e:.3e} "
-                     f"(max|g| {ref:.3e})")
+            if not e <= tol * ref:
+                fail(f"{what}: gradient {i} card vs CPU {e:.3e} (max|g| "
+                     f"{ref:.3e})")
             worst = max(worst, e / ref)
         losses.append(loss.item())
         errs.append(worst)
-        print(f"  train step {step}: loss {loss.item():.6f}  grads card vs "
-              f"CPU max rel err {worst:.2e} on {int(keep.sum())} of {BATCH} "
-              f"examples")
+        print(f"  {what}: loss {loss.item():.6f}  grads card vs CPU max rel "
+              f"err {worst:.2e} on {int(keep.sum())} of {BATCH} examples")
         p, state = optim.adamw_update(tree(grads), state, p, lr=TRAIN_LR)
 
-    def step_fn():
-        optim.adamw_update(tree(loss_and_grads(p, x, y)[1]), state, p,
-                           lr=TRAIN_LR)
+    times = {}
+    for precision in ("f32", "bf16"):
+        def step_fn(precision=precision):
+            optim.adamw_update(tree(loss_and_grads(p, x, y, precision)[1]),
+                               state, p, lr=TRAIN_LR)
 
-    ms, dev_ms = _host_device_ms(step_fn)
-    print(f"  train step {ms:.3f} ms host, {dev_ms:.3f} ms device "
-          f"(batch {BATCH}, forward + backward + AdamW)")
-    to_profile.append(("train step", step_fn, dev_ms))
-    return dict(losses=losses, grad_rel_err=errs, step_ms_host=ms,
-                step_ms_device=dev_ms)
+        ms, dev_ms = _host_device_ms(step_fn)
+        times[precision] = (ms, dev_ms)
+        print(f"  train step {precision}: {ms:.3f} ms host, {dev_ms:.3f} ms "
+              f"device (batch {BATCH}, forward + backward + AdamW)")
+        to_profile.append(("train step" + (" bf16" if precision == "bf16"
+                                           else ""), step_fn, dev_ms))
+    return dict(losses=losses, grad_rel_err=errs,
+                step_ms_host=times["f32"][0], step_ms_device=times["f32"][1],
+                bf16_step_ms_host=times["bf16"][0],
+                bf16_step_ms_device=times["bf16"][1])
 
 
 # ---------------------------------------------------------------------------
@@ -4916,6 +5167,10 @@ PATH_KERNELS = {"f32": tuple(PER_EXPLAIN["f32"]),
                 "vjp_fused": tuple(PER_EXPLAIN_VJP["vjp_fused"]),
                 "vjp_unfused": tuple(PER_EXPLAIN_VJP["vjp_unfused"]),
                 "train": tuple(PER_TRAIN_STEP),
+                "vjp_fused_bf16": tuple(PER_EXPLAIN_VJP["vjp_fused_bf16"]),
+                "vjp_unfused_bf16": tuple(
+                    PER_EXPLAIN_VJP["vjp_unfused_bf16"]),
+                "train_bf16": tuple(PER_TRAIN_STEP),
                 "lm": ("selective_scan", "selective_scan_bwd"),
                 "lm_twin": ("selective_scan", "selective_scan_bwd"),
                 "serve_cnn": tuple(PER_COLD_BATCH),
@@ -5091,13 +5346,17 @@ def main() -> int:
     # phases 5-6: each checked explain / training step counted from 0
     print(f"phase 5 (vjp): autograd explains, full Table III width, batch "
           f"{BATCH}, top-{SEEDS}")
-    vjp_results = check_vjp(params, cfg, x_cpu, launches, to_profile)
-    for branch in ("vjp_fused", "vjp_unfused"):
+    vjp_results = check_vjp(params, cfg, x_cpu, launches, entry_launches,
+                            to_profile)
+    for branch in ("vjp_fused", "vjp_unfused", "vjp_fused_bf16",
+                   "vjp_unfused_bf16"):
         check_path_launches(branch, launches[branch])
     print(f"phase 6 (train): {TRAIN_STEPS} AdamW steps, autodiff "
           f"cross-entropy on the kernel path, batch {BATCH}")
-    train_results = check_train(params, cfg, x_cpu, launches, to_profile)
+    train_results = check_train(params, cfg, x_cpu, launches,
+                                entry_launches, to_profile)
     check_path_launches("train", launches["train"])
+    check_path_launches("train_bf16", launches["train_bf16"])
 
     # phases 7-8: LM token attribution, each explain counted from 0
     print(f"phase 7 (lm): {LM_ARCH} full width and depth, bf16, "
@@ -5160,8 +5419,7 @@ def main() -> int:
             for name, (source, replaces) in KERNELS.items()]
     rows += [(name, route_launches["bf16"][BF16_ROUTES[name]]
               if name in BF16_ROUTES else entry_launches[
-                  "bf16_literal" if counter == "maxpool_fwd" else "bf16"][
-                  entry])
+                  BF16_INSTANCE_PATHS.get(name, "bf16")][entry])
              + (BF16_SOURCES.get(name, KERNELS[counter][0]),
                 KERNELS[counter][1])
              for name, (counter, entry) in BF16_INSTANCES.items()]
@@ -5184,7 +5442,7 @@ def main() -> int:
             lm_twin=twin_results, serve=serve_results,
             perturb=perturb_results, plan=plan_results,
             scan_backward_ms=kc.scan_backward_ms,
-            mma_accumulation=kc.accumulation,
+            mma_accumulation=kc.accumulation, bf16_one_seed=kc.one_seed,
             scan_backward_loop_ms=kc.scan_backward_loop_ms,
             profiles=profiles,
             launches=launches, entry_launches=entry_launches,

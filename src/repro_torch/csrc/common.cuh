@@ -58,6 +58,18 @@ __device__ __forceinline__ int gate(int g, bool bit, int method) {
   return bit ? g : 0;
 }
 
+// The same rule on a bf16 gradient: it selects g or +0, never rounds, and
+// compares g widened to f32 (exact), so -0.0 and NaN are not > 0, as
+// jnp.where(g > 0, g, 0) has it.
+__device__ __forceinline__ __nv_bfloat16 gate(__nv_bfloat16 g, bool bit,
+                                              int method) {
+  const __nv_bfloat16 zero = __ushort_as_bfloat16(0);
+  const bool pos = __bfloat162float(g) > 0.f;
+  if (method == kDeconvnet) return pos ? g : zero;
+  if (method == kGuided) return (bit && pos) ? g : zero;
+  return bit ? g : zero;
+}
+
 // fxp16 numeric contract, as repro_torch.core.fixedpoint states it.
 constexpr int kWgtFrac = 14;       // fixedpoint.WGT_FRAC: Q1.14 weights
 constexpr int kInt16Lim = 32767;   // fixedpoint.INT16_LIM: symmetric rails

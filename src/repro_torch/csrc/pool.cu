@@ -1,6 +1,6 @@
 // 2x2/2 max pool + 2-bit argmax (paper §III.D, Fig. 5), on f32, on bf16
 // (the bf16 path) and on the int16 (Q7.8) feature maps of the fxp16 path,
-// and its unpool backward.
+// and its unpool backward on each of the three.
 //
 // Replaces: src/repro/kernels/pool/pool.py, maxpool_fwd_pallas and
 // unpool_bwd_pallas, and their int16 instances pinned by
@@ -99,7 +99,8 @@ int relu_pool_fwd(const T* x, T* y, uint8_t* m, uint8_t* idx, int n, int h,
                                          threads, stream);
 }
 
-// Four consecutive elements as one vector (16 bytes of f32, 8 of int16).
+// Four consecutive elements as one vector (16 bytes of f32, 8 of int16 or
+// bf16).
 template <typename T>
 struct Vec4;
 
@@ -131,6 +132,25 @@ struct Vec4<int16_t> {
 #pragma unroll
     for (int j = 0; j < 4; ++j) u.h[j] = v[j];
     reinterpret_cast<uint2*>(p)[0] = u.q;
+  }
+};
+
+template <>
+struct Vec4<__nv_bfloat16> {
+  __device__ static void load(const __nv_bfloat16* p, __nv_bfloat16 v[4]) {
+    const uint2 q = reinterpret_cast<const uint2*>(p)[0];
+    v[0] = __ushort_as_bfloat16(static_cast<unsigned short>(q.x));
+    v[1] = __ushort_as_bfloat16(static_cast<unsigned short>(q.x >> 16));
+    v[2] = __ushort_as_bfloat16(static_cast<unsigned short>(q.y));
+    v[3] = __ushort_as_bfloat16(static_cast<unsigned short>(q.y >> 16));
+  }
+  __device__ static void store(__nv_bfloat16* p, const __nv_bfloat16 v[4]) {
+    uint2 q;
+    q.x = static_cast<uint32_t>(__bfloat16_as_ushort(v[0])) |
+          static_cast<uint32_t>(__bfloat16_as_ushort(v[1])) << 16;
+    q.y = static_cast<uint32_t>(__bfloat16_as_ushort(v[2])) |
+          static_cast<uint32_t>(__bfloat16_as_ushort(v[3])) << 16;
+    reinterpret_cast<uint2*>(p)[0] = q;
   }
 };
 
@@ -240,4 +260,13 @@ REPRO_API int repro_unpool_bwd_i16(const uint8_t* idx, const int16_t* g,
                                    int16_t* out, int n, int hp, int wp,
                                    int c, cudaStream_t stream) {
   return unpool_bwd<int16_t>(idx, g, out, n, hp, wp, c, stream);
+}
+
+// The unpool of a bf16 gradient (the bf16 autograd paths): a scatter, so
+// the bits are the plain version's (+0 at the three other candidates).
+REPRO_API int repro_unpool_bwd_bf16(const uint8_t* idx,
+                                    const __nv_bfloat16* g,
+                                    __nv_bfloat16* out, int n, int hp,
+                                    int wp, int c, cudaStream_t stream) {
+  return unpool_bwd<__nv_bfloat16>(idx, g, out, n, hp, wp, c, stream);
 }

@@ -1,6 +1,6 @@
 // Fused ReLU + 1-bit packed mask (paper §III.D, Fig. 4), on f32, on bf16
 // (the bf16 path) and on the int16 (Q7.8) feature maps of the fxp16 path,
-// and its masked backward.
+// and its masked backward on f32 and bf16 gradients.
 //
 // Replaces: src/repro/kernels/relu_mask/relu_mask.py, relu_fwd_pallas (the
 // fxp16 path calls the same Pallas kernel on int16 blocks), and
@@ -21,10 +21,10 @@
 // first design, kept as the general route (threads == 0), against which
 // the card tests and chip_smoke.py hold and time the template.  Design of
 // both it and the backward: one thread per mask byte covers its eight
-// elements (two 16-byte loads and stores for f32, one for int16, when C is
-// a multiple of 8 and the pointers are 16-byte aligned, so a warp streams
-// contiguous runs) and reads or writes the one byte.  No shared memory, no
-// atomics: each output has exactly one writer.
+// elements (two 16-byte loads and stores for f32, one for int16 and bf16,
+// when C is a multiple of 8 and the pointers are 16-byte aligned, so a warp
+// streams contiguous runs) and reads or writes the one byte.  No shared
+// memory, no atomics: each output has exactly one writer.
 
 #include "relu_pool.cuh"
 
@@ -164,4 +164,12 @@ REPRO_API int repro_relu_bwd(const uint8_t* m, const float* g, float* r,
                              int rows, int c, int method,
                              cudaStream_t stream) {
   return relu_bwd<float>(m, g, r, rows, c, method, stream);
+}
+
+// The gate on a bf16 gradient (the bf16 autograd paths): selects, so the
+// bits are the plain version's.
+REPRO_API int repro_relu_bwd_bf16(const uint8_t* m, const __nv_bfloat16* g,
+                                  __nv_bfloat16* r, int rows, int c,
+                                  int method, cudaStream_t stream) {
+  return relu_bwd<__nv_bfloat16>(m, g, r, rows, c, method, stream);
 }

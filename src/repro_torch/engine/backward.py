@@ -26,13 +26,16 @@ def vjp(f: Callable, x: torch.Tensor) -> Tuple[torch.Tensor, Callable]:
     returning ``(logits, vjp_fn)``; ``vjp_fn(seeds [S, *logits.shape])``
     returns ``[S, *x.shape]``, one backward pass per seed over the one
     retained graph (K backward passes, no extra forward, as ``jax.vmap`` of
-    the vjp does).  The kernels' backward Functions have no vmap rule, so
-    the seeds are a loop, not ``is_grads_batched``."""
+    the vjp does).  The seeds enter in the logits' dtype (bf16 logits take
+    bf16 seeds, as a JAX cotangent has its primal's dtype); the result has
+    ``x``'s.  The kernels' backward Functions have no vmap rule, so the
+    seeds are a loop, not ``is_grads_batched``."""
     x = x.detach().requires_grad_(True)
     with torch.enable_grad():
         out = f(x)
 
     def vjp_fn(seeds):
+        seeds = seeds.to(out.dtype)
         return torch.stack([
             torch.autograd.grad(out, x, seed, retain_graph=True)[0]
             for seed in seeds])

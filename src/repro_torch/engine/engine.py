@@ -36,8 +36,9 @@ from repro_torch.engine.backward import (ManualSeedBatchedBackward,
                                          VjpBackward, vjp)
 from repro_torch.engine.spec import PERTURB_METHODS, EngineSpec, Fixed, TopK
 
-#: Precisions whose only backward is the manual seed-batched pair.
-MANUAL_ONLY = ("bf16", "fxp16")
+#: Precisions whose only backward is the manual seed-batched pair
+#: (integers have no gradient).
+MANUAL_ONLY = ("fxp16",)
 
 
 class Engine:
@@ -55,7 +56,10 @@ class Engine:
         self._plan = spec.resolve_plan()
         if hasattr(model, "token_step"):
             # LM token attribution: one step per score mode, the default
-            # "ixg" now and the others at first use.
+            # "ixg" now and the others at first use.  The step runs the
+            # LM's own dtype; fxp16 needs a pair, which no LM has
+            # (resolve_backward raises the JAX package's ValueError).
+            spec.resolve_backward()
             self._token_steps = {"ixg": model.token_step(spec.method,
                                                          plan=self._plan)}
             self._model_fn = self._backend = None
@@ -96,10 +100,10 @@ class Engine:
     def model_fn(self):
         """Rule-bound ``f`` for direct method calls.
 
-        f32: ``f(x) -> logits``, differentiable.  bf16 and fxp16: the pair
-        forward ``f(x) -> (logits, residuals)`` — combine with
-        :attr:`composite_backward` (integers have no gradient, and bf16
-        under autograd is ROADMAP A6d).
+        f32 and bf16: ``f(x) -> logits``, differentiable (bf16 logits
+        under bf16, an f32 input's gradient f32).  fxp16: the pair forward
+        ``f(x) -> (logits, residuals)`` — combine with
+        :attr:`composite_backward` (integers have no gradient).
         """
         if self.spec.precision in MANUAL_ONLY:
             return self._backend.forward
@@ -107,9 +111,9 @@ class Engine:
 
     @property
     def composite_backward(self):
-        """Manual BP for the methods' ``backward=`` knob under bf16 and
-        fxp16, or None on f32, where autograd through :attr:`model_fn` is
-        the engine."""
+        """Manual BP for the methods' ``backward=`` knob under fxp16, or
+        None on f32 and bf16, where autograd through :attr:`model_fn` is
+        the engine (as in the JAX package)."""
         if self.spec.precision in MANUAL_ONLY:
             return self._backend.backward
         return None

@@ -106,10 +106,10 @@ class CNNModel(_ParamsIdentity):
     ``params`` is a ``{"conv": [...], "fc": [...]}`` tree of f32 (or, for
     a bfloat16 config, bf16) tensors on any device; the engine copies it to
     ``device`` once.  ``use_pallas=True`` (default) runs the kernels — the
-    fused blocks, required for the seed-batched pair and for bf16 and
-    fxp16; ``use_pallas=False`` keeps the plain reference ops, where only
-    the ``vjp`` backend exists.  ``device=None`` means the card and raises
-    where there is none.
+    fused blocks, required for the seed-batched pair and so for fxp16;
+    ``use_pallas=False`` keeps the plain reference ops, where only the
+    ``vjp`` backend exists (f32 and bf16).  ``device=None`` means the card
+    and raises where there is none.
     """
 
     params: Any
@@ -179,11 +179,11 @@ class CNNModel(_ParamsIdentity):
     def logits_fn(self, method: str, precision: str,
                   plan=None) -> Callable:
         """Rule-bound ``f(x) -> logits`` (``cnn.apply``), differentiable
-        with respect to ``x`` in f32: the ``vjp`` backend and the composite
-        methods run autograd through it.  Under bf16 and fxp16 it is the bf16
-        or dequantized logits of the bf16 or int16 forward, for
-        ``Engine.predict`` only (integers have no gradient; bf16 autograd is
-        ROADMAP A6d)."""
+        with respect to ``x`` in f32 and bf16 (bf16 logits, an f32 ``x``'s
+        gradient f32): the ``vjp`` backend and the composite methods run
+        autograd through it.  Under fxp16 it is the dequantized logits of
+        the int16 forward, for ``Engine.predict`` only (integers have no
+        gradient)."""
         from repro_torch.models import cnn
         cnn.check_precision(precision)
         params = cnn.params_to(self.params, self.device)
@@ -303,8 +303,11 @@ class EngineSpec:
     ``precision`` (``f32``, ``bf16``,
     or ``fxp16``, the paper's true-int16 datapath), ``backward`` (``auto``
     resolves to the seed-batched pair when the model has one, else
-    ``vjp``; fxp16 is integer arithmetic and has no ``vjp``, and bf16 runs
-    the seed-batched pair only: bf16 under ``vjp`` is ROADMAP A6d),
+    ``vjp``; fxp16 is integer arithmetic and has no ``vjp``; bf16 under
+    ``vjp`` runs autograd through the bf16 blocks, bf16 logits and the
+    f32 relevance of the f32 input, as the JAX package's; an LM's dtype is
+    its config's whatever the precision, and fxp16 needs a pair, which no
+    LM has),
     ``targets`` (:class:`Argmax`, :class:`Fixed` or :class:`TopK`), and
     ``batch`` (inputs are padded up to it and outputs sliced back) and
     ``n_samples`` (the fan-out of ``lime`` / ``rise``, None for the method
@@ -383,17 +386,6 @@ class EngineSpec:
                 f"model {self.model!r}: CNNModel, FnModel and LMModel "
                 f"(mamba stacks) are ported; other handles come with "
                 f"ROADMAP A11b")
-        if isinstance(self.model, LMModel) and self.precision != "f32":
-            raise NotImplementedError(
-                f"precision={self.precision!r} for token stacks (the manual "
-                f"backward of an fxp16 LM) is not ported yet (ROADMAP "
-                f"A11b); the LM's dtype is its config's")
-        if self.precision == "bf16" and self.resolve_backward() == "vjp":
-            raise NotImplementedError(
-                "precision='bf16' under backward='vjp' (autograd through the "
-                "bf16 blocks, f32 relevance as the JAX package returns it) "
-                "is not ported yet (ROADMAP A6d); the seed-batched pair of "
-                "a CNNModel(use_pallas=True) runs bf16")
 
     def fwd_rules(self) -> str:
         """The rule set the model is built with: the method's, or saliency

@@ -91,9 +91,12 @@ SIGNATURES = {
     "repro_vmm_fxp_fwd": [_P, _P, _P, _P, _I, _I, _I, _P, _I, _I, _P],
     # int16 fused backward: the f32 one's arguments and plan
     "repro_vmm_bwd_fused_fxp": [_P] * 5 + [_I] * 11 + [_P],
-    # the autograd paths: B11 and B12 (f32, and int16 for the unpool)
+    # the autograd paths: B11 and B12 (f32 and bf16, and int16 for the
+    # unpool)
     "repro_relu_bwd": [_P, _P, _P, _I, _I, _I, _P],
+    "repro_relu_bwd_bf16": [_P, _P, _P, _I, _I, _I, _P],
     "repro_unpool_bwd": [_P, _P, _P, _I, _I, _I, _I, _P],
+    "repro_unpool_bwd_bf16": [_P, _P, _P, _I, _I, _I, _I, _P],
     "repro_unpool_bwd_i16": [_P, _P, _P, _I, _I, _I, _I, _P],
     # LM token attribution: B13, x in f32 or bf16 (dt, x, B, C, A, h0, y,
     # h_last, batch, s, d, n, channels a block, staging chunk)
@@ -110,7 +113,8 @@ SIGNATURES = {
 #: can show that its path went through the kernels.  The bf16 instances of
 #: B1-B6 and of the fused ReLU+mask+pool count under their f32 counters
 #: (``conv2d_fwd``, ``relu_fwd``, ``maxpool_fwd``, ``relu_pool_fwd``,
-#: ``vmm_fwd``, ``conv2d_bwd_fused``, ``vmm_bwd_fused``).  The int16
+#: ``vmm_fwd``, ``conv2d_bwd_fused``, ``vmm_bwd_fused``), and those of B11
+#: and B12 under ``relu_bwd`` and ``unpool_bwd``.  The int16
 #: instances of ReLU+mask, pool, the fused ReLU+mask+pool and unpool count
 #: under ``relu_fwd``, ``maxpool_fwd``, ``relu_pool_fwd`` and ``unpool_bwd``
 #: (a fused launch counts under ``relu_pool_fwd`` alone), both element types

@@ -1,10 +1,12 @@
 """Convolution with the paper's compute-block-reuse backward (Fig. 6,
 Table I): the standalone op of the unfused path.
 
-The forward is the conv kernel (B1).  The input gradient is the SAME
-kernel on the flip-transposed weight; the weight gradient (training only)
-is :func:`ref.conv2d_weight_grad`, outside the kernels as in the JAX
-package.  ``x`` is saved only when ``w`` needs a gradient — the port's
+The forward is the conv kernel (B1, or its bf16 instance, which routes
+any channel count: the tensor cores where Cin is a multiple of 16, FFMA
+otherwise).  The input gradient is the SAME kernel on the flip-transposed
+weight; the weight gradient (training only) is
+:func:`ref.conv2d_weight_grad`, an f32 sum rounded once to the weight's
+type, outside the kernels as in the JAX package.  ``x`` is saved only when ``w`` needs a gradient — the port's
 counterpart of XLA dropping the weight branch on the attribution path.
 """
 from __future__ import annotations

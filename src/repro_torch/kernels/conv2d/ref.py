@@ -64,13 +64,15 @@ def conv2d_input_grad(g: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 def conv2d_weight_grad(x: torch.Tensor, w: torch.Tensor,
                        g: torch.Tensor) -> torch.Tensor:
-    """dL/dw of a stride-1 SAME conv for the output gradient ``g``, in f32:
-    x [N, H, W, Cin], g [N, H, W, Cout] -> [K, K, Cin, Cout] (HWIO).
+    """dL/dw of a stride-1 SAME conv for the output gradient ``g``: x [N, H,
+    W, Cin], g [N, H, W, Cout] -> [K, K, Cin, Cout] (HWIO) of w's type.
 
+    In f32 throughout (bf16 operands widened exactly), rounded once to w's
+    type, as the JAX package's ``conv2d_weight_grad`` computes it.
     Training only; on a CUDA tensor cuDNN computes it, in TF32 unless
     ``torch.backends.cudnn.allow_tf32`` is off.
     """
     dw = torch.nn.grad.conv2d_weight(
-        x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1).shape,
-        g.permute(0, 3, 1, 2), padding=(w.shape[0] - 1) // 2)
-    return dw.permute(2, 3, 1, 0).contiguous()
+        x.float().permute(0, 3, 1, 2), w.permute(3, 2, 0, 1).shape,
+        g.float().permute(0, 3, 1, 2), padding=(w.shape[0] - 1) // 2)
+    return dw.permute(2, 3, 1, 0).contiguous().to(w.dtype)

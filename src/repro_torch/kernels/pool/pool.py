@@ -131,15 +131,17 @@ def relu_pool_fwd(x: torch.Tensor, mask: bool = True, *,
     return y, m, idx
 
 
-#: Backward entry point per element type: f32, and int16 for the fxp16 path.
+#: Backward entry point per element type: f32, bf16 for the bf16 autograd
+#: paths, and int16 for the fxp16 path.
 _BWD_ENTRY = {torch.float32: "repro_unpool_bwd",
+              torch.bfloat16: "repro_unpool_bwd_bf16",
               torch.int16: "repro_unpool_bwd_i16"}
 
 
 def unpool_bwd(packed: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
-    """packed uint8 [N, H/2, W/2, ceil(C/4)] and g [N, H/2, W/2, C] f32 or
-    int16 -> [N, H, W, C] of g's type: each window's gradient at its stored
-    argmax candidate, 0 at the other three (paper Fig. 5b).
+    """packed uint8 [N, H/2, W/2, ceil(C/4)] and g [N, H/2, W/2, C] f32,
+    bf16 or int16 -> [N, H, W, C] of g's type: each window's gradient at its
+    stored argmax candidate, +0 at the other three (paper Fig. 5b).
 
     Crumbs past C are ignored.  CPU tensors run :func:`ref.unpool_bwd`;
     CUDA tensors the kernel, which writes every output element once.

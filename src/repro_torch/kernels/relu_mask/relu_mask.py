@@ -6,9 +6,10 @@
 ``csrc/relu_mask.cu``): one pass emits ``max(x, 0)`` and the packed
 ``x > 0`` bits.  At the pooled conv layers the same template fuses it with
 the pool (``pool.relu_pool_fwd``).  :func:`relu_bwd`
-wraps its backward twin (the port of ``relu_bwd_pallas``): the method's
-gate (Eq. 3-5) on a gradient by the stored bits, the backward of the
-standalone ReLU (``relu_mask.ops``).
+wraps its backward twin (the port of ``relu_bwd_pallas``, on f32 and bf16
+gradients): the method's gate (Eq. 3-5) on a gradient by the stored bits,
+the backward of the standalone ReLU (``relu_mask.ops``) and the weight
+gradients of the fused blocks.
 
 :func:`unpack_bits` and :func:`gate_gradient` are the plain versions of the
 in-kernel helpers that the fused conv/vmm backward kernels run as their
@@ -85,17 +86,19 @@ def relu_fwd(x2d: torch.Tensor, *, threads: Optional[int] = None):
     return y, m
 
 
-#: Backward entry point per element type: f32 (the autograd paths; bf16
-#: has none, as it has no vjp).
-_BWD_ENTRY = {torch.float32: "repro_relu_bwd"}
+#: Backward entry point per element type: f32, and bf16 for the bf16
+#: autograd paths (the fxp16 path has no vjp).
+_BWD_ENTRY = {torch.float32: "repro_relu_bwd",
+              torch.bfloat16: "repro_relu_bwd_bf16"}
 
 
 def relu_bwd(packed: Optional[torch.Tensor], g2d: torch.Tensor,
              method: str) -> torch.Tensor:
     """Masked gradient gate: packed uint8 [R, ceil(C/8)] and g2d [R, C] f32
-    -> [R, C] f32, by ``method``'s rule (paper Eq. 3-5).
+    or bf16 -> [R, C] of g2d's type, by ``method``'s rule (paper Eq. 3-5).
 
-    Bits past C are ignored.  ``packed=None`` is accepted for deconvnet
+    It selects and never rounds, so every type is exact; ``g > 0`` is
+    strict (-0.0 gates to +0.0).  Bits past C are ignored.  ``packed=None`` is accepted for deconvnet
     only, whose rule reads no mask (Table II stores none).  CPU tensors run
     :func:`ref.relu_bwd`; CUDA tensors the kernel.
     """

@@ -1,9 +1,11 @@
 """FC matmul with transposed-operand backward reuse (paper §III.E, Table
 I): the standalone op of the unfused path.
 
-The forward is the vmm kernel (B4); the input gradient is the SAME kernel
-on a contiguous ``W^T``; the weight gradient (training only) is a plain f32
-product.  ``x`` is saved only when ``w`` needs a gradient.
+The forward is the vmm kernel (B4, or its bf16 instance); the input
+gradient is the SAME kernel on a contiguous ``W^T``; the weight gradient
+(training only) is a plain f32 product, rounded once to the weight's type
+(:func:`ref.vmm_weight_grad`).  ``x`` is saved only when ``w`` needs a
+gradient.
 """
 from __future__ import annotations
 
@@ -27,7 +29,7 @@ class _Vmm(torch.autograd.Function):
         if ctx.needs_input_grad[0]:
             dx = vmm_kernel(g, w.T.contiguous())
         if ctx.needs_input_grad[1]:
-            dw = ref.vmm(x.T, g)
+            dw = ref.vmm_weight_grad(x, g, w.dtype)
         return dx, dw
 
 

@@ -28,6 +28,15 @@ def vmm_bf16(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return vmm_widened(x, w).to(torch.bfloat16)
 
 
+def vmm_weight_grad(x: torch.Tensor, g: torch.Tensor,
+                    dtype: torch.dtype) -> torch.Tensor:
+    """dL/dw of ``x @ w`` for the output gradient ``g``: ``x^T g`` [K, N],
+    an f32 sum of the widened operands rounded once to ``dtype`` (w's), as
+    the JAX package's ``einsum(..., preferred_element_type=f32)
+    .astype(w.dtype)``."""
+    return vmm_widened(x.T, g).to(dtype)
+
+
 def vmm_fxp(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """int16 [..., M, K] (Q7.8) @ int16 [K, N] (Q1.14) -> int16 [..., M, N]:
     the int32 accumulator, requantized once.

@@ -39,8 +39,11 @@ the int16 instances of ReLU+mask and pool; it matches the JAX package bit
 for bit.  ``CNNConfig.dtype`` is the params' type (``"float32"`` or
 ``"bfloat16"``, as the JAX package's ``init`` makes them); the precision
 casts them.  The seed-batched pair runs every precision; autograd
-(``apply`` with a gradient, the vjp engine) runs f32 only: bf16 under
-autograd is ROADMAP A6d.
+(``apply`` with a gradient, the vjp engine) runs f32 and bf16: under bf16
+the cotangent flows in bf16 through each block's backward (the bf16
+instances of the same kernels) and back through the casts, so the
+gradient of an f32 input or parameter is f32 holding bf16 values, as the
+JAX package's.  Integers have no gradient: fxp16 runs the pair only.
 """
 from __future__ import annotations
 
@@ -297,8 +300,14 @@ def _fc_block_bwd_fused(k, wt, mask, g, method, do_relu, plan=None):
 
 
 # ---------------------------------------------------------------------------
-# the fused blocks under autograd (f32)
+# the fused blocks under autograd (f32 and bf16)
 # ---------------------------------------------------------------------------
+
+
+def _kernels_of(t: torch.Tensor) -> dict:
+    """The kernels of ``t``'s precision, looked up at each call:
+    ``_KERNELS["bf16"]`` for a bf16 tensor, ``_KERNELS["f32"]`` else."""
+    return _KERNELS["bf16" if t.dtype == torch.bfloat16 else "f32"]
 
 
 def _gate(mask, g, method):
@@ -310,15 +319,18 @@ def _gate(mask, g, method):
 
 
 class _ConvBlock(torch.autograd.Function):
-    """conv -> ReLU -> pool as one autograd node.  Saves the packed mask and
-    crumbs, the weight, and ``x`` only when ``w`` needs a gradient.  Its
-    backward is the fused conv-backward kernel at S = 1 for ``dx``; ``dw``
-    and ``db`` (training) are computed only when asked for: the gradient
-    unpooled and gated through the B12/B11 wrappers, then plain sums."""
+    """conv -> ReLU -> pool as one autograd node, on f32 or bf16 operands
+    (the kernels of their precision, :func:`_kernels_of`).  Saves the
+    packed mask and crumbs, the weight, and ``x`` only when ``w`` needs a
+    gradient.  Its backward is the fused conv-backward kernel at S = 1 for
+    ``dx``; ``dw`` and ``db`` (training) are computed only when asked for:
+    the gradient unpooled and gated through the B12/B11 wrappers, then f32
+    sums rounded once to the weight's type, as the JAX package's
+    references compute them."""
 
     @staticmethod
     def forward(ctx, x, w, b, method, do_relu, do_pool, plan=None, i=0):
-        y, mask4, idx = _conv_block_fwd_res(_KERNELS["f32"], x, w, b,
+        y, mask4, idx = _conv_block_fwd_res(_kernels_of(x), x, w, b,
                                             method, do_relu, do_pool,
                                             _conv_fwd_plan(plan, i, x, w))
         ctx.rule = (method, do_relu, do_pool, plan, i)
@@ -335,7 +347,7 @@ class _ConvBlock(torch.autograd.Function):
         if ctx.needs_input_grad[0]:
             wt = conv_ref.flip_transpose(w)
             dx = _conv_block_bwd_fused(
-                _KERNELS["f32"], wt, mask4, idx, g, method, do_relu,
+                _kernels_of(g), wt, mask4, idx, g, method, do_relu,
                 _conv_bwd_plan(plan, i, g, wt, do_pool, do_relu))
         if ctx.needs_input_grad[1] or ctx.needs_input_grad[2]:
             gg = unpool_bwd(idx, g) if do_pool else g
@@ -344,17 +356,19 @@ class _ConvBlock(torch.autograd.Function):
             if ctx.needs_input_grad[1]:
                 dw = conv_ref.conv2d_weight_grad(x, w, gg)
             if ctx.needs_input_grad[2]:
-                db = gg.sum(dim=(0, 1, 2))
+                db = gg.float().sum(dim=(0, 1, 2)).to(w.dtype)
         return dx, dw, db, None, None, None, None, None
 
 
 class _FCBlock(torch.autograd.Function):
-    """matmul -> ReLU as one autograd node; backward: the fused FC-backward
-    kernel for ``dx``, and ``dw``/``db`` (training) only when asked for."""
+    """matmul -> ReLU as one autograd node, on f32 or bf16 operands;
+    backward: the fused FC-backward kernel at S = 1 for ``dx``, and
+    ``dw``/``db`` (training) only when asked for, f32 sums rounded once to
+    the weight's type."""
 
     @staticmethod
     def forward(ctx, x, w, b, method, do_relu, plan=None, i=0):
-        y, mask = _fc_block_fwd_res(_KERNELS["f32"], x, w, b, method,
+        y, mask = _fc_block_fwd_res(_kernels_of(x), x, w, b, method,
                                     do_relu, _fc_fwd_plan(plan, i, x, w))
         ctx.rule = (method, do_relu, plan, i)
         ctx.save_for_backward(x if ctx.needs_input_grad[1] else None, w,
@@ -369,15 +383,15 @@ class _FCBlock(torch.autograd.Function):
         dx = dw = db = None
         if ctx.needs_input_grad[0]:
             wt = w.T.contiguous()
-            dx = _fc_block_bwd_fused(_KERNELS["f32"], wt, mask, g, method,
-                                     do_relu, _fc_bwd_plan(plan, i, g, wt,
-                                                           do_relu))
+            dx = _fc_block_bwd_fused(_kernels_of(g), wt, mask, g,
+                                     method, do_relu,
+                                     _fc_bwd_plan(plan, i, g, wt, do_relu))
         if ctx.needs_input_grad[1] or ctx.needs_input_grad[2]:
             gg = _gate(mask, g, method) if do_relu else g
             if ctx.needs_input_grad[1]:
-                dw = vmm_ref.vmm(x.T, gg)
+                dw = vmm_ref.vmm_weight_grad(x, gg, w.dtype)
             if ctx.needs_input_grad[2]:
-                db = gg.sum(dim=0)
+                db = gg.float().sum(dim=0).to(w.dtype)
         return dx, dw, db, None, None, None, None
 
 
@@ -528,23 +542,34 @@ def apply(params, x, cfg: CNNConfig, *, method: str = "autodiff",
     ``fused=False`` (and ``"autodiff"``) runs the standalone kernel ops, whose
     backward reuses the forward kernels (Table I) and runs the gate and
     unpool kernels.  ``use_pallas=False`` runs the plain reference ops.
-    Under bf16 and fxp16 the knobs do not apply: the logits of the bf16 or
-    int16 forward under the deconvnet rule set, which stores no masks
-    (Table II) — the ReLU output is rule-invariant, so the logits are those
-    of every method, as in the JAX package; integers have no gradient, and
-    bf16 under autograd is ROADMAP A6d.  Under f32, params of a bfloat16
-    config are widened (exactly), as the JAX package's f32 blocks promote
-    them.  ``fwd_params`` is :func:`prepare_params` of ``params`` for that
-    path, or None.  ``plan`` (a :class:`repro_torch.plan.TilePlan`) reaches
-    the fused blocks' launches, as in :func:`forward_with_residuals`.
+
+    ``precision="bf16"`` casts the params and ``x`` to bf16, as the JAX
+    package does, and runs the same three branches on bf16 (the kernels'
+    bf16 instances; the reference ops as f32 sums of the widened operands,
+    rounded once): the logits are bf16, and the gradient of an f32 ``x``
+    or parameter comes back through the casts as f32.  Under fxp16 the
+    knobs do not apply: the dequantized logits of the int16 forward under
+    the deconvnet rule set, which stores no masks (Table II) — the ReLU
+    output is rule-invariant, so the logits are those of every method, as
+    in the JAX package; integers have no gradient.  Under f32, params of a
+    bfloat16 config are widened (exactly), as the JAX package's f32 blocks
+    promote them.  ``fwd_params`` is :func:`prepare_params` of ``params``
+    for that precision (made once by the caller, and then no gradient
+    reaches ``params``), or None.  ``plan`` (a
+    :class:`repro_torch.plan.TilePlan`) reaches the fused blocks'
+    launches, as in :func:`forward_with_residuals`.
     """
     check_precision(precision)
     _check_cfg(cfg)
-    if precision != "f32":
+    if precision == "fxp16":
         logits, _ = forward_with_residuals(params, x, cfg, "deconvnet",
                                            precision, fwd_params, plan)
         return logits
-    params = prepare_params(params, "f32")
+    params = (prepare_params(params, precision) if fwd_params is None
+              else fwd_params)
+    bf16 = precision == "bf16"
+    if bf16:
+        x = x.to(torch.bfloat16)
     if fused is None:
         fused = use_pallas and method != "autodiff"
     if fused:
@@ -554,7 +579,8 @@ def apply(params, x, cfg: CNNConfig, *, method: str = "autodiff",
         conv_fn, fc_fn = conv_ops.conv2d, vmm_ops.vmm
     else:
         relu_fn, pool_fn = rules.relu, rules.maxpool2x2
-        conv_fn, fc_fn = conv_ref.conv2d, torch.matmul
+        conv_fn, fc_fn = ((conv_ref.conv2d_bf16, vmm_ref.vmm_bf16) if bf16
+                          else (conv_ref.conv2d, torch.matmul))
     for i, p in enumerate(params["conv"]):
         x = conv_fn(x, p["w"]) + p["b"]
         if cfg.conv_relu:

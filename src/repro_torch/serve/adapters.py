@@ -184,12 +184,13 @@ class CNNAdapter:
     # -- rule-bound model fn for cold explainers -----------------------------
 
     def model_fn(self, rules: str):
-        """Under bf16 and fxp16 the returned ``f`` is the residual forward
-        (pair output) — cold composite explainers must pair it with
-        :meth:`manual_backward`."""
+        """Under fxp16 the returned ``f`` is the residual forward (pair
+        output) — cold composite explainers must pair it with
+        :meth:`manual_backward`; under f32 and bf16 it is the
+        differentiable logits."""
         return self.engine_for(rules).model_fn
 
     def manual_backward(self, rules: str):
-        """Manual BP engine for registry explainers, or None on f32 (where
-        autograd through :meth:`model_fn` is the engine)."""
+        """Manual BP engine for registry explainers, or None on f32 and
+        bf16 (where autograd through :meth:`model_fn` is the engine)."""
         return self.engine_for(rules).composite_backward

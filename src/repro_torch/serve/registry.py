@@ -90,8 +90,8 @@ class Explainer:
         self.f = f
         # Manual BP engine (attribution's ``backward=``): set when ``f``
         # returns (logits, residuals) and the BP phase runs over the stored
-        # masks — the bf16 and fxp16 pairs arrive here, since integer
-        # arithmetic has no gradient.
+        # masks — the fxp16 pair arrives here, since integer arithmetic
+        # has no gradient (bf16 runs autograd, as f32 does).
         self.backward = backward
         # The repro_torch.engine.Engine this explainer rides, when
         # constructed via :meth:`from_engine` (the server path).
@@ -105,8 +105,8 @@ class Explainer:
     def from_engine(cls, eng, **opts) -> "Explainer":
         """Bind the method to a built :class:`repro_torch.engine.Engine`:
         the engine's rule-bound ``model_fn`` is ``f`` and its
-        ``composite_backward`` (the manual pair under bf16 and fxp16, None
-        on f32) is the ``backward=`` knob — so precision routing is decided
+        ``composite_backward`` (the manual pair under fxp16, None on f32
+        and bf16) is the ``backward=`` knob — so precision routing is decided
         by the engine spec, never by the caller."""
         return cls(eng.model_fn, backward=eng.composite_backward,
                    engine=eng, **opts)

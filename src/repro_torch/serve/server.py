@@ -271,8 +271,7 @@ class ExplanationServer:
             if eng_for is not None:
                 # Engine-backed adapters: the explainer rides the built
                 # engine for its rule set — precision/backend (incl. the
-                # bf16 / fxp16 manual pair) resolved by the spec, in one
-                # place.
+                # fxp16 manual pair) resolved by the spec, in one place.
                 self._explainers[key] = cls.from_engine(
                     eng_for(cls.rules), **self.method_opts.get(method, {}))
             else:

@@ -246,12 +246,14 @@ def test_init_and_config_shapes():
 
 @pytest.mark.parametrize("precision", ["bf16", "fxp16"])
 def test_other_precisions_are_not_ported_yet(precision):
-    """What of the other precisions is still not ported: bf16 under
-    autograd (ROADMAP A6d; the seed-batched pair runs bf16,
-    ``tests/test_torch_cnn_bf16.py``), and fxp16 has no vjp at all.  On a
-    bfloat16 config both precisions run their pair, on the same numbers
-    as the f32 config holding the same (bf16-valued) params."""
-    from repro_torch.engine import CNNModel, EngineSpec
+    """The other precisions on a bfloat16 config: both run their pair, on
+    the same numbers as the f32 config holding the same (bf16-valued)
+    params.  bf16 under autograd (ROADMAP A6d, ported) explains through
+    the vjp backend as the JAX package's engine does: bf16 logits, f32
+    relevance, within 2^-6 of max (``tests/test_torch_vjp_bf16.py``);
+    fxp16 has no vjp at all, here and in the JAX package."""
+    from repro import engine as jengine
+    from repro_torch.engine import CNNModel, EngineSpec, TopK, build
     cfg = cnn.CNNConfig(**SIZES["tiny"])
     bf16_cfg = cnn.CNNConfig(**SIZES["tiny"], dtype="bfloat16")
     p16 = cnn.init(torch.Generator().manual_seed(0), bf16_cfg)
@@ -264,8 +266,26 @@ def test_other_precisions_are_not_ported_yet(precision):
                                              precision=precision)
     assert torch.equal(got, want)
     assert torch.equal(res["fc"][0], res32["fc"][0])     # the hidden FC
-    kind = NotImplementedError if precision == "bf16" else ValueError
-    with pytest.raises(kind, match="A6d" if precision == "bf16"
-                       else "integer arithmetic"):
-        EngineSpec(CNNModel(p16, bf16_cfg, device="cpu"),
-                   precision=precision, backward="vjp")
+    if precision == "fxp16":
+        with pytest.raises(ValueError, match="integer arithmetic"):
+            EngineSpec(CNNModel(p16, bf16_cfg, device="cpu"),
+                       precision=precision, backward="vjp")
+        return
+    jcfg = jcnn.CNNConfig(**SIZES["tiny"], dtype="bfloat16")
+    jp16 = jax.tree.map(lambda t: jnp.asarray(t.float().numpy()).astype(
+        jnp.bfloat16), p16)
+    eng = build(EngineSpec(CNNModel(p16, bf16_cfg, device="cpu"),
+                           precision="bf16", backward="vjp",
+                           targets=TopK(2)))
+    jeng = jengine.build(jengine.EngineSpec(
+        jengine.CNNModel(jp16, jcfg), precision="bf16", backward="vjp",
+        targets=jengine.TopK(2)))
+    logits, rel = eng.explain(x)
+    jlogits, jrel = jeng.explain(jnp.asarray(x.numpy()))
+    assert logits.dtype == torch.bfloat16 and jlogits.dtype == jnp.bfloat16
+    assert rel.dtype == torch.float32 and jrel.dtype == jnp.float32
+    assert torch.equal(logits, got)
+    for t, j in ((logits, jlogits), (rel, jrel)):
+        j = np.asarray(j.astype(jnp.float32))
+        assert np.abs(t.float().numpy() - j).max() <= 2.0 ** -6 * \
+            np.abs(j).max()

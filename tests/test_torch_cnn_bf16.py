@@ -333,8 +333,9 @@ def test_bf16_wrappers_launch_their_bf16_entries(launches):
                                                    conv_bf16_plan,
                                                    conv_bwd_plan,
                                                    conv_mma_plan)
-    from repro_torch.kernels.pool.pool import maxpool_fwd, relu_pool_fwd
-    from repro_torch.kernels.relu_mask.relu_mask import relu_fwd
+    from repro_torch.kernels.pool.pool import (maxpool_fwd, relu_pool_fwd,
+                                               unpool_bwd)
+    from repro_torch.kernels.relu_mask.relu_mask import relu_bwd, relu_fwd
     from repro_torch.kernels.vmm.vmm import (vmm, vmm_bwd_fused,
                                              vmm_bwd_mma_plan, vmm_mma_plan)
     bf = torch.bfloat16
@@ -348,6 +349,11 @@ def test_bf16_wrappers_launch_their_bf16_entries(launches):
     relu_fwd(torch.zeros(4, 16, dtype=bf))
     maxpool_fwd(x)
     relu_pool_fwd(x)
+    # the bf16 autograd paths' gate and unpool
+    relu_bwd(torch.zeros(4, 2, dtype=torch.uint8),
+             torch.zeros(4, 16, dtype=bf), "guided")
+    unpool_bwd(torch.zeros(2, 4, 4, 4, dtype=torch.uint8),
+               torch.zeros(2, 4, 4, 16, dtype=bf))
     got = [(c, e) for c, e, _ in launches]
     assert got == [
         ("conv2d_fwd", "repro_conv2d_fwd_bf16"),
@@ -356,7 +362,9 @@ def test_bf16_wrappers_launch_their_bf16_entries(launches):
         ("vmm_bwd_fused", "repro_vmm_bwd_fused_bf16"),
         ("relu_fwd", "repro_relu_fwd_bf16"),
         ("maxpool_fwd", "repro_maxpool_fwd_bf16"),
-        ("relu_pool_fwd", "repro_relu_pool_fwd_bf16")]
+        ("relu_pool_fwd", "repro_relu_pool_fwd_bf16"),
+        ("relu_bwd", "repro_relu_bwd_bf16"),
+        ("unpool_bwd", "repro_unpool_bwd_bf16")]
     for _, entry, args in launches:
         assert len(args) + 1 == len(_build.SIGNATURES[entry])
     # the forwards on the tensor cores: the conv (Cin 16) on route 1 and
@@ -475,16 +483,19 @@ def test_bf16_has_no_general_kernel_on_the_card(launches):
 
 
 def test_wrappers_without_a_bf16_instance_reject_bf16():
+    """The int16 wrappers take no bf16; the gate (B11) has no int16
+    instance (fxp16 has no vjp).  B11 and B12 have bf16 instances since
+    the bf16 autograd paths (``tests/test_torch_vjp_bf16.py``)."""
     from repro_torch.kernels.conv2d.fxp import conv2d_fxp
-    from repro_torch.kernels.pool.pool import unpool_bwd
+    from repro_torch.kernels.pool.fxp import unpool_bwd_fxp
     from repro_torch.kernels.relu_mask.relu_mask import relu_bwd
     from repro_torch.kernels.vmm.fxp import vmm_fxp
     bf = torch.bfloat16
     with pytest.raises(TypeError):
-        relu_bwd(None, torch.zeros(4, 8, dtype=bf), "deconvnet")
+        relu_bwd(None, torch.zeros(4, 8, dtype=torch.int16), "deconvnet")
     with pytest.raises(TypeError):
-        unpool_bwd(torch.zeros(1, 2, 2, 1, dtype=torch.uint8),
-                   torch.zeros(1, 2, 2, 4, dtype=bf))
+        unpool_bwd_fxp(torch.zeros(1, 2, 2, 1, dtype=torch.uint8),
+                       torch.zeros(1, 2, 2, 4, dtype=bf))
     with pytest.raises(TypeError):
         conv2d_fxp(torch.zeros(1, 4, 4, 3, dtype=bf),
                    torch.zeros(3, 3, 3, 4, dtype=bf))

@@ -169,25 +169,37 @@ def test_replay_equals_cold_explain_bitwise(run):
 
 
 def test_bf16_and_vjp_raise_as_specified():
-    """bf16 resolves to the seed-batched pair and runs it; under vjp it
-    raises naming ROADMAP A6d; fxp16 under vjp is refused as integer
-    arithmetic, here and in the JAX package."""
+    """bf16 resolves to the seed-batched pair and runs it; under vjp
+    (ROADMAP A6d, ported) it explains through autograd as the JAX
+    package's engine does (bf16 logits, f32 relevance, within 2^-6 of
+    max); fxp16 under vjp is refused as integer arithmetic, here and in
+    the JAX package."""
     cfg = cnn.CNNConfig(**SIZES["tiny"])
-    p = cnn.init(torch.Generator().manual_seed(0), cfg)
+    jcfg = jcnn.CNNConfig(**SIZES["tiny"])
+    jp = jcnn.init(jax.random.PRNGKey(0), jcfg)
+    p = cnn.params_from_jax(jax.tree.map(np.asarray, jp))
     model = CNNModel(p, cfg, device="cpu")
     assert EngineSpec(model, precision="bf16").resolve_backward() \
         == "seed_batched"
-    with pytest.raises(NotImplementedError, match="A6d"):
-        EngineSpec(model, precision="bf16", backward="vjp")
-    logits, _ = cnn.forward_with_residuals(p, torch.zeros(1, 8, 8, 3), cfg,
-                                           "saliency", precision="bf16")
-    assert logits.dtype == torch.bfloat16
+    x = np.random.RandomState(2).randn(2, 8, 8, 3).astype(np.float32)
+    logits, rel = build(EngineSpec(model, precision="bf16",
+                                   backward="vjp")).explain(x)
+    jlogits, jrel = jengine.build(jengine.EngineSpec(
+        jengine.CNNModel(jp, jcfg), precision="bf16",
+        backward="vjp")).explain(jnp.asarray(x))
+    assert logits.dtype == torch.bfloat16 and rel.dtype == torch.float32
+    assert jlogits.dtype == jnp.bfloat16 and jrel.dtype == jnp.float32
+    for t, j in ((logits, jlogits), (rel, jrel)):
+        j = np.asarray(j.astype(jnp.float32))
+        assert np.abs(t.float().numpy() - j).max() <= 2.0 ** -6 * \
+            np.abs(j).max()
+    pair_logits, _ = cnn.forward_with_residuals(
+        p, torch.from_numpy(x), cfg, "saliency", precision="bf16")
+    assert torch.equal(logits, pair_logits)
     with pytest.raises(ValueError, match="integer arithmetic"):
         EngineSpec(model, precision="fxp16", backward="vjp")
-    jcfg = jcnn.CNNConfig(**SIZES["tiny"])
     with pytest.raises(ValueError, match="integer arithmetic"):
-        jengine.EngineSpec(jengine.CNNModel(
-            jcnn.init(jax.random.PRNGKey(0), jcfg), jcfg),
-            precision="fxp16", backward="vjp")
+        jengine.EngineSpec(jengine.CNNModel(jp, jcfg), precision="fxp16",
+                           backward="vjp")
     assert EngineSpec(model, precision="fxp16",
                       backward="seed_batched").precision == "fxp16"

@@ -53,7 +53,12 @@ mask-free fused ReLU + pool and 2 FC kernels and nothing else; and the
 tile planner on the card: ``measure_kernel`` on one small shape per
 family and precision, and an autotuned ``h100`` engine held to the
 unplanned one (fxp16 bitwise, f32 1e-5 / 1e-4, bf16 2^-6 of max), its
-entries the rules' or their candidates, a second build measuring nothing.
+entries the rules' or their candidates, a second build measuring nothing;
+and bf16 under autograd: the gate and unpool kernels' bf16 instances
+bitwise the plain versions (also misaligned), B5 bf16 and B6 bf16 at the
+vjp path's S = 1 (within one bf16 step of plain, every candidate plan and
+each seed of an S = 3 launch the same bits), and the bf16 vjp engine on
+both kernel branches and a bf16 training step against the CPU (2^-6).
 Every test needs a CUDA device and skips without one.  This file imports
 neither JAX nor the JAX package, so on a machine without JAX run it
 without the suite's conftest:
@@ -2010,3 +2015,145 @@ def test_autotuned_engine_is_held_to_the_unplanned_one(gen, tmp_path,
                              targets=TopK(3), batch=8, device="h100",
                              autotune=True))
     assert not calls and again.plan == tuned.plan
+
+
+# -- bf16 under autograd: B11 / B12 bf16, B5 / B6 bf16 at S = 1 ---------------
+
+
+def _entry_launched(entry, fn):
+    """``fn()``, which must launch ``entry`` once."""
+    before = _build.ENTRY_LAUNCHES[entry]
+    out = fn()
+    assert _build.ENTRY_LAUNCHES[entry] == before + 1
+    return out
+
+
+@pytest.mark.parametrize("method", METHODS)
+@pytest.mark.parametrize("r,c", [(5, 3), (17, 13), (3, 128), (33, 64)])
+def test_relu_bwd_bf16_bitwise(gen, method, r, c):
+    """B11 bf16 selects: the plain version's bits, -0.0 kept where the
+    mask passes it and gated to +0.0 by ``g > 0``; also misaligned."""
+    _, m = relu_fwd(_bf(gen, r, c))
+    g = _grad(gen, r, c).to(BF)
+    got = _entry_launched("repro_relu_bwd_bf16",
+                          lambda: relu_bwd(m, g, method))
+    _equal_bits((got,), (relu_ref.relu_bwd(m, g, method),))
+    if method == "deconvnet":              # no mask read at all
+        _equal_bits((relu_bwd(None, g, method),), (got,))
+    flat = _grad(gen, r * c + 1).to(BF)
+    gm = flat[1:].view(r, c)               # 2-byte offset: no vector loads
+    _equal_bits((relu_bwd(m, gm, method),),
+                (relu_ref.relu_bwd(m, gm, method),))
+
+
+@pytest.mark.parametrize("n,hp,wp,c", [(2, 2, 2, 3), (1, 4, 3, 13),
+                                       (3, 3, 5, 64), (1, 1, 1, 6)])
+def test_unpool_bwd_bf16_bitwise(gen, n, hp, wp, c):
+    """B12 bf16 routes: the plain version's bits (+0.0 at the other three
+    candidates, -0.0 kept at the argmax); also misaligned."""
+    x = torch.clamp_min(_bf(gen, n, 2 * hp, 2 * wp, c), 0)
+    x[:, :2, :2] = 0.0                     # tied all-zero windows
+    _, idx = maxpool_fwd(x)
+    g = _grad(gen, n, hp, wp, c).to(BF)
+    got = _entry_launched("repro_unpool_bwd_bf16",
+                          lambda: unpool_bwd(idx, g))
+    _equal_bits((got,), (pool_ref.unpool_bwd(idx, g),))
+    flat = _grad(gen, g.numel() + 1).to(BF)
+    gm = flat[1:].view(g.shape)            # 2-byte offset: no vector stores
+    _equal_bits((unpool_bwd(idx, gm),), (pool_ref.unpool_bwd(idx, gm),))
+
+
+@pytest.mark.parametrize("method", METHODS)
+def test_bf16_fused_backwards_at_one_seed(gen, method):
+    """The vjp path's launches: B5 bf16 and B6 bf16 at S = 1 on the Table
+    III layer shapes (N = 2), within one bf16 step of the plain version,
+    every candidate plan the same bits, and each seed's output the bits of
+    the same seed in an S = 3 launch (each output sums in one K order
+    whatever S is)."""
+    for case in ((2, 32, 32, 32, 3, False, 3, False),
+                 (2, 32, 32, 32, 32, True, 3, False),
+                 (2, 16, 16, 64, 32, False, 3, False),
+                 (2, 16, 16, 64, 64, True, 3, False)):
+        g3, wt, kw = _bwd_inputs_bf16(gen, case, method)
+        both = conv2d_bwd_fused(g3, wt, **kw)
+        n, h, w, c, cout, pooled, _, _ = case
+        for s in range(3):
+            got = conv2d_bwd_fused(g3[s], wt, **kw)
+            _bf16_close(got, conv2d_bwd_fused_plain(g3[s], wt, **kw),
+                        _bwd_acc(g3[s], wt, kw))
+            _equal_bits((got,), (both[s],))
+        for p in conv_bwd_mma_candidates(1, h, w, c, cout, 3,
+                                         pooled=pooled):
+            _equal_bits((conv2d_bwd_fused(g3[0], wt, plan=p, **kw),),
+                        (both[0],))
+    from repro_torch.kernels.vmm.vmm import bwd_fused_plain
+    for k, n_out, gated in ((10, 128, False), (128, 4096, True)):
+        g3, w = _bf(gen, 3, 2, k), _bf(gen, k, n_out, scale=k ** -0.5)
+        mask = (masks.pack_mask(_randn(gen, 2, k) > 0)
+                if gated and method != "deconvnet" else None)
+        kw = dict(relu_mask=mask, gate=gated, method=method)
+        both = vmm_bwd_fused(g3, w, **kw)
+        for s in range(3):
+            got = vmm_bwd_fused(g3[s], w, **kw)
+            _bf16_close(got, vmm_bwd_fused_plain(g3[s], w, **kw),
+                        bwd_fused_plain(vmm_ref.vmm_widened, g3[s], w, **kw))
+            _equal_bits((got,), (both[s],))
+        for p in vmm_bwd_mma_candidates(1, 2, k, n_out):
+            _equal_bits((vmm_bwd_fused(g3[0], w, plan=p, **kw),), (both[0],))
+
+
+def test_bf16_autograd_paths_on_card_match_cpu_twin(gen):
+    """bf16 under autograd on the card: the vjp engine through the fused
+    blocks and through the standalone ops, every launch through a bf16
+    entry point; bf16 logits and f32 relevance within 2^-6 * max of the
+    CPU twin's; one bf16 training step's parameter gradients the same."""
+    from repro_torch.engine import (CNNModel, EngineSpec, FnModel, TopK,
+                                    build)
+    from repro_torch.kernels import ENTRY_LAUNCHES, reset_launches
+    from repro_torch.models import cnn
+    cfg = cnn.CNNConfig(in_hw=(8, 8), channels=(16, 32), fc=(16,),
+                        num_classes=5)
+    params = cnn.init(torch.Generator().manual_seed(0), cfg)
+    x = torch.randn((3, 8, 8, 3), generator=torch.Generator().manual_seed(1))
+
+    def unfused(device):
+        p = cnn.params_to(params, device)
+        return FnModel(lambda m: lambda v: cnn.apply(
+            p, v, cfg, method=m, use_pallas=True, fused=False,
+            precision="bf16"), device)
+
+    def close(got, want):
+        err = (got.cpu().float() - want.float()).abs().max().item()
+        assert err <= 2.0 ** -6 * want.float().abs().max().item()
+
+    for method in METHODS:
+        for fused, model in ((True, lambda d: CNNModel(params, cfg, device=d)),
+                             (False, unfused)):
+            spec = dict(method=method, precision="bf16", backward="vjp",
+                        targets=TopK(2))
+            reset_launches()
+            logits, rel = build(EngineSpec(model("cuda"), **spec)).explain(x)
+            torch.cuda.synchronize()
+            launched = {k for k, v in ENTRY_LAUNCHES.items() if v}
+            assert launched and all(k.endswith("_bf16") for k in launched)
+            if not fused:
+                assert {"repro_relu_bwd_bf16",
+                        "repro_unpool_bwd_bf16"} <= launched
+            assert logits.dtype == BF and rel.dtype == torch.float32
+            logits_c, rel_c = build(EngineSpec(model("cpu"),
+                                               **spec)).explain(x)
+            close(logits, logits_c)
+            close(rel, rel_c)
+    y = torch.tensor([0, 3, 4])
+    grads = []
+    for device in ("cuda", "cpu"):
+        p = cnn.params_to(params, device)
+        leaves = [t.requires_grad_() for q in p["conv"] + p["fc"]
+                  for t in q.values()]
+        loss = torch.nn.functional.cross_entropy(
+            cnn.apply(p, x.to(device), cfg, use_pallas=True,
+                      precision="bf16").float(), y.to(device))
+        grads.append(torch.autograd.grad(loss, leaves))
+    for g, g_c in zip(*grads):
+        assert g.dtype == torch.float32
+        close(g, g_c)

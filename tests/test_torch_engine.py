@@ -181,20 +181,46 @@ def test_replay_equals_cold_explain_bitwise(setup):
 # -- what the port does not run yet ------------------------------------------
 
 
+def _fn_model_bf16(params, jparams):
+    """An FnModel over the reference ops in bf16, in each package."""
+    return (FnModel(lambda m: lambda v: cnn.apply(
+        params, v, CFG, method=m, precision="bf16"), device="cpu"),
+        jengine.FnModel(lambda m: lambda v: jcnn.apply(
+            jparams, v, JCFG, method=m, precision="bf16")))
+
+
 @pytest.mark.parametrize("kw,item", [
+    # bf16 under vjp (ROADMAP A6d) is ported: it runs and matches repro
     (dict(precision="bf16", backward="vjp"), "A6"),
     # a model with no seed-batched pair resolves to vjp
-    (dict(precision="bf16", model=FnModel(lambda method: None,
-                                          device="cpu")), "A6"),
+    (dict(precision="bf16", model="fn"), "A6"),
     (dict(model=object()), "A11"),
     # the tile planner's knobs run (tests/test_torch_plan_engine.py); a
     # mesh of several shards is multi-device work
     (dict(device="mesh:edge-small:4"), "A12"),
 ])
 def test_unported_knobs_raise(setup, kw, item):
-    _, params, _ = setup
-    with pytest.raises(NotImplementedError, match=item):
-        spec_for(params, **kw)
+    jparams, params, x = setup
+    kw = dict(kw)
+    if item != "A6":
+        with pytest.raises(NotImplementedError, match=item):
+            spec_for(params, **kw)
+        return
+    jmodel = jengine.CNNModel(jparams, JCFG)
+    if kw.get("model") == "fn":
+        kw["model"], jmodel = _fn_model_bf16(params, jparams)
+    spec = spec_for(params, **kw)
+    jspec = jengine.EngineSpec(jmodel, **{k: v for k, v in kw.items()
+                                          if k != "model"})
+    assert spec.resolve_backward() == jspec.resolve_backward() == "vjp"
+    logits, rel = build(spec).explain(x)
+    jlogits, jrel = jengine.build(jspec).explain(jnp.asarray(x))
+    assert logits.dtype == torch.bfloat16 and rel.dtype == torch.float32
+    assert jlogits.dtype == jnp.bfloat16 and jrel.dtype == jnp.float32
+    for t, j in ((logits, jlogits), (rel, jrel)):
+        j = np.asarray(j.astype(jnp.float32))
+        assert np.abs(t.float().numpy() - j).max() <= 2.0 ** -6 * \
+            np.abs(j).max()
 
 
 def test_bad_values_still_raise_value_error(setup):

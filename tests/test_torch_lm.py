@@ -365,9 +365,19 @@ def test_unported_block_kinds_raise(family):
 
 
 def test_unported_knobs_and_handles_raise(setup):
+    """What the port refuses.  fxp16 needs a seed-batched pair, which no
+    LM has: the spec builds and its backend resolution raises the JAX
+    package's ValueError, in both packages (``repro``'s build then goes
+    on to run the LM's own dtype; the port's build raises)."""
     p, cfg = setup.p, setup.cfg
-    with pytest.raises(NotImplementedError, match="A11b"):
-        EngineSpec(LMModel(p, cfg, device="cpu"), precision="fxp16")
+    spec = EngineSpec(LMModel(p, cfg, device="cpu"), precision="fxp16")
+    jspec = jengine.EngineSpec(jengine.LMModel(setup.jp, setup.jcfg),
+                               precision="fxp16")
+    for s in (spec, jspec):
+        with pytest.raises(ValueError, match="seed-batched pair"):
+            s.resolve_backward()
+    with pytest.raises(ValueError, match="seed-batched pair"):
+        build(spec)
     with pytest.raises(ValueError, match="gradient rule set"):
         build(EngineSpec(LMModel(p, cfg, device="cpu"), method="occlusion"))
     with pytest.raises(NotImplementedError, match="A12"):
@@ -385,6 +395,37 @@ def test_unported_knobs_and_handles_raise(setup):
                                      ccfg, device="cpu")))
     with pytest.raises(ValueError, match="LMModel"):
         ceng.explain_tokens({"tokens": setup.toks})
+
+
+def test_bf16_lm_adapter_matches_repro(setup, monkeypatch):
+    """``precision="bf16"`` on an LM, as the JAX package takes it: the spec
+    resolves to vjp and the step runs the LM's own dtype (its config's),
+    so the bf16 adapter's explains are bitwise the f32 engine's; on the
+    float32 config they match ``repro.lm.LMAdapter(precision="bf16")``
+    (its bf16 LM explain fails on its B13 route: ROADMAP C).  fxp16: the
+    port's adapter raises the ValueError of the backend resolution."""
+    from repro_torch.engine import spec as spec_mod
+    real = spec_mod.resolve_device
+    monkeypatch.setattr(spec_mod, "resolve_device",
+                        lambda d: real("cpu" if d is None else d))
+    ad = lm.LMAdapter(setup.p, setup.cfg, precision="bf16")
+    jad = jlm.LMAdapter(setup.jp, setup.jcfg, precision="bf16")
+    assert ad.precision == jad.precision == "bf16"
+    assert ad.engine.spec.resolve_backward() == \
+        jad.engine.spec.resolve_backward() == "vjp"
+    assert ad.with_precision("f32").precision == "f32"
+    f32 = build(EngineSpec(LMModel(setup.p, setup.cfg, device="cpu")))
+    batch = {"tokens": setup.toks}
+    logits, scores = ad.engine.explain_tokens(batch)
+    for a, b in zip((logits, scores), f32.explain_tokens(batch)):
+        assert torch.equal(a, b)
+    if setup.dtype == "float32":
+        jlogits, jscores = jad.engine.explain_tokens(
+            {"tokens": jnp.asarray(setup.toks)})
+        _close(logits, jlogits, setup.tol["logits"])
+        _close(scores, jscores, setup.tol["scores"])
+    with pytest.raises(ValueError, match="seed-batched pair"):
+        lm.LMAdapter(setup.p, setup.cfg, precision="fxp16")
 
 
 def test_lm_model_defaults_to_the_card(setup):

@@ -251,11 +251,37 @@ Phases (every failed check raises; nothing is caught and carried on):
    ``--profile-kernels`` drift table (every row measured on the card: est,
    measured, drift), read back by ``python -m repro_torch.obs drift``.
 
+13. lm zoo (after phase 12): the other nine configs of the zoo at their
+   published widths in bf16, random weights from
+   ``torch.Generator(device="cuda").manual_seed(0)``, full depth but for
+   internlm2-20b (16 of 48 layers), moonshot-v1-16b-a3b (12 of 48: the
+   dense layer and 11 MoE) and llama4-scout-17b-a16e (2 of 48), each cut
+   printed (``ZOO_DEPTH``: weights at most 16 GB); per config 4 prompts x
+   64 tokens (llava: the 576 patch embeddings on the engine explain;
+   seamless: 64 frame embeddings on every explain): greedy ``decode`` of
+   8 tokens twice, equal; contrastive ``explain_generated`` (scores after
+   each seed exactly 0, all finite), contrastive = ixg(a) - ixg(b) within
+   REPLAY_TOL on the same weights in f32 (the bf16 figure printed: in bf16
+   it measures rounding, ``_zoo_f32_checks``), an engine explain; host and device-span ms of a
+   decode step, a per-token explain and the engine explain.  hymba-1.5b,
+   the slice's main path (counted as path ``lm_zoo``): 32 B13 and 32 B13
+   bwd launches an explain and none in prefill or decode, each layer's
+   B13 against the chunked scan, the explain's logits within
+   LM_LOGITS_FACTOR times the chunked route's bf16 error, a per-token
+   explain through the B13 backward within REPLAY_TOL of autograd over
+   the chunked scan in f32 (bf16 printed), an analytic ``h100``
+   ``plan_lm`` explain bitwise the
+   unplanned one, and phase 7b's LMAdapter server on it; five f32 twins
+   (qwen2, moonshot, hymba, seamless with frames, llava with patches) at
+   depth 2 on 2 x 32 tokens against the CPU: logits within DOT_TOL, ixg
+   scores within REPLAY_TOL of max, the MoE's routing equal; moonshot's
+   MoE at full width bitwise on two calls, forward and backward.
+
 Last, the profiler column of phase 2: every row's kernel (and general
 route) 50 times under one profiler session, its CUPTI time per call;
 then one saliency explain of each CNN path, Table IV's f32 FP+BP at
 batch 1 and 32, one training step, one LM decode step and one per-token
-LM explain under ``torch.profiler``: kernel time by kernel and by family
+LM explain (falcon-mamba-7b, and hymba-1.5b's) under ``torch.profiler``: kernel time by kernel and by family
 against the device time measured before (the device's idle share); the
 bf16 explain's kernels by name must show the forwards and backwards on
 the tensor cores, each FC layer one CUDA kernel (``BF16_MMA_KERNELS``).  This
@@ -3844,7 +3870,8 @@ def _b13_layer_errs(params, cfg, tokens):
 
 def _f32_last_logits(params, cfg, tokens):
     """Last-position logits of the same weights evaluated in f32, layer by
-    layer (each layer's weights widened as it runs; chunked scan)."""
+    layer (each layer's weights widened as it runs; chunked scan; each
+    segment's attention window)."""
     from repro_torch.models import layers
     from repro_torch.models import transformer as tf
     c32 = cfg.with_(dtype="float32")
@@ -3853,10 +3880,12 @@ def _f32_last_logits(params, cfg, tokens):
         return tf._tree_map(lambda t: t.to(torch.float32), tree)
 
     x = tf.embed_inputs(params, cfg, {"tokens": tokens}).to(torch.float32)
-    for si, (kind, count, _) in enumerate(cfg.layer_plan()):
+    rope_cs = tf._rope(c32, x.shape[1], x.device)
+    for si, (kind, count, window) in enumerate(cfg.layer_plan()):
         for i in range(count):
-            x, _ = tf._block(up(tf._layer(params["segments"][si], i)), x,
-                             c32, kind, method="autodiff")
+            x, _, _ = tf._block(up(tf._layer(params["segments"][si], i)),
+                                x, c32, kind, rope_cs=rope_cs,
+                                window=window, method="autodiff")
     x = layers.apply_norm(params["final_norm"], x[:, -1:], cfg.norm)
     return layers.lm_head(up(params["embed"]), x, c32)[:, -1]
 
@@ -5157,6 +5186,418 @@ def print_profiler_vs_cupti(results, calls):
 
 
 # ---------------------------------------------------------------------------
+# phase 13: the rest of the LM zoo (attention, RoPE, FFN, MoE; hymba on B13)
+# ---------------------------------------------------------------------------
+
+#: Phase 13's configs in the order they run, the slice's main path
+#: (hymba-1.5b, whose 32 hybrid layers scan through B13) first.  Depth is
+#: cut only where the bf16 weights would pass 16 GB (scout's 108 B
+#: parameters need four cards: ROADMAP A12).
+ZOO_ARCHS = ("hymba-1.5b", "llama3.2-1b", "qwen2-1.5b", "phi4-mini-3.8b",
+             "internlm2-20b", "moonshot-v1-16b-a3b", "llama4-scout-17b-a16e",
+             "seamless-m4t-medium", "llava-next-mistral-7b")
+ZOO_DEPTH = {"internlm2-20b": 16, "moonshot-v1-16b-a3b": 12,
+             "llama4-scout-17b-a16e": 2}
+#: seamless's source frames on the explain (llava's 576 patches are its
+#: config's ``n_patches``)
+ZOO_FRAMES = 64
+#: Phase 13's f32 twins, one a family, at depth 2 on batch 2 x 32 tokens
+#: against the CPU: logits within DOT_TOL, ixg scores within REPLAY_TOL
+#: of max, and on the card contrastive = ixg(a) - ixg(b) within
+#: REPLAY_TOL.  ``residual_policy="exact"``: the int8 codes of the smooth
+#: gates may land one step apart on the two devices (phase 8), which is
+#: not what these twins hold.
+ZOO_TWINS = ("qwen2-1.5b", "moonshot-v1-16b-a3b", "hymba-1.5b",
+             "seamless-m4t-medium", "llava-next-mistral-7b")
+
+
+def _zoo_inputs(cfg, batch, seq, gen, device):
+    """Tokens, and the vlm's patches or the encoder-decoder's frames."""
+    out = {"tokens": torch.randint(0, cfg.vocab, (batch, seq), generator=gen,
+                                   device=device)}
+    if cfg.frontend == "patches":
+        out["patches"] = torch.randn(batch, cfg.n_patches, cfg.d_model,
+                                     generator=gen, device=device)
+    if cfg.enc_layers:
+        out["frames"] = torch.randn(batch, ZOO_FRAMES, cfg.d_model,
+                                    generator=gen, device=device)
+    return out
+
+
+def _host_and_span(fn, reps=3):
+    host = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        host.append(1e3 * (time.perf_counter() - t0))
+    return statistics.median(host), _span_ms(fn, reps=reps)
+
+
+def _zoo_f32_checks(params, cfg, res, frames):
+    """The contrastive seed against the ixg difference (and, on hybrid
+    stacks, the scores through B13's backward against autograd over the
+    chunked scan) on the same weights widened to f32, full depth, within
+    REPLAY_TOL of max.
+
+    In bf16 both comparisons measure rounding, not the property: the
+    backward through attention (the bf16 ``p`` of ``p @ v`` into the
+    softmax's cancelling backward) and through hymba's per-branch norms
+    amplifies where two computations round their cotangents.  On the card
+    (phase 13) the bf16 contrastive seed sat 0.015 (llama3.2, 16
+    layers) to 0.22 (llava, 32) and 0.34 (hymba) of max from the ixg
+    difference, hymba's B13 backward 0.18 from autograd over the chunked
+    scan; ``repro``'s own bf16 stack on the CPU is as far (hymba SMOKE:
+    0.27, the port 0.26).  In f32 the same comparisons read 1e-5."""
+    from repro_torch import lm
+    from repro_torch.models import transformer as tf
+    t, pos = LM_NEW - 1, LM_PROMPT + LM_NEW - 2
+    ta, tb = res.tokens[:, pos + 1], res.runners_up[:, t]
+    p32 = tf._tree_map(lambda v: v.float(), params)
+    c32 = cfg.with_(dtype="float32")
+    con32 = lm.make_token_explain(c32, mode="contrastive")
+    ixg32 = lm.make_token_explain(c32, mode="ixg")
+
+    def explain32():
+        return con32(p32, res.tokens, pos, ta, tb, frames)
+
+    base = explain32()
+    out = dict(linearity_err_f32=_rel_err(
+        base, ixg32(p32, res.tokens, pos, ta, None, frames)
+        - ixg32(p32, res.tokens, pos, tb, None, frames)))
+    if cfg.family == "hybrid":
+        out["route_err_f32"] = _rel_err(base, _through_chunked_grad(
+            explain32))
+    del p32, base
+    torch.cuda.empty_cache()
+    bad = {k: v for k, v in out.items() if not v <= REPLAY_TOL}
+    if bad:
+        fail(f"lm zoo {cfg.name} f32: {bad} of max, beyond {REPLAY_TOL}")
+    return out
+
+
+def check_zoo_arch(arch, launches, to_profile):
+    """One config of phase 13 at full width in bf16: greedy decode twice,
+    contrastive ``explain_generated``, contrastive vs the ixg difference,
+    an engine explain with the modality inputs, times; hymba also B13's
+    launches, its route against the chunked scan, a planned explain and
+    an LMAdapter server.  Returns the config's results."""
+    from repro_torch import configs, lm
+    from repro_torch.engine import EngineSpec, LMModel, build
+    from repro_torch.models import transformer as tf
+
+    full = configs.get(arch)
+    cfg = full.with_(n_layers=ZOO_DEPTH.get(arch, full.n_layers))
+    hybrid = cfg.family == "hybrid"
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = tf.init(cfg, generator=torch.Generator(device="cuda")
+                     .manual_seed(0), device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in _leaves(params))
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    inputs = _zoo_inputs(cfg, LM_BATCH, LM_PROMPT, gen, "cuda")
+    prompts = inputs["tokens"]
+    frames = inputs.get("frames")
+    cut = ("" if cfg.n_layers == full.n_layers else
+           f", depth cut to {cfg.n_layers} of {full.n_layers}")
+    print(f"  {arch}{cut}: {n_params / 1e9:.3f} B parameters "
+          f"({cfg.param_count() / 1e9:.3f} B analytic), "
+          f"{n_params * 2 / 1e9:.2f} GB bf16, drawn in {init_s:.1f} s")
+    totals = launches.setdefault("lm_zoo", {})
+    per_explain = ({"selective_scan": cfg.n_layers,
+                    "selective_scan_bwd": cfg.n_layers} if hybrid else {})
+    what = f"lm zoo {arch}"
+
+    res, rose = _count(lambda: lm.decode(params, cfg, prompts,
+                                         max_new=LM_NEW), totals)
+    _expect(rose, {}, f"{what} decode")
+    again = lm.decode(params, cfg, prompts, max_new=LM_NEW)
+    if not torch.equal(again.tokens, res.tokens):
+        fail(f"{what}: a second greedy decode gave other tokens")
+    s_full = LM_PROMPT + LM_NEW
+    if tuple(res.tokens.shape) != (LM_BATCH, s_full) or bool(
+            (res.generated == res.runners_up).any()):
+        fail(f"{what}: decode result malformed")
+
+    scores, rose = _count(lambda: lm.explain_generated(
+        params, cfg, res, frames=frames), totals)
+    _expect(rose, {k: v * LM_NEW for k, v in per_explain.items()},
+            f"{what} explain_generated")
+    _finite(scores, f"{what} per-token scores", (LM_BATCH, LM_NEW, s_full))
+    for t in range(LM_NEW):
+        if not bool((scores[:, t, LM_PROMPT + t:] == 0).all()):
+            fail(f"{what}: scores after the seed of token {t} are not 0")
+        if not bool((scores[:, t, :LM_PROMPT + t] != 0).any()):
+            fail(f"{what}: token {t} has no relevance before its seed")
+
+    t, pos = LM_NEW - 1, LM_PROMPT + LM_NEW - 2
+    ixg = lm.make_token_explain(cfg, mode="ixg")
+    (sa, sb), rose = _count(lambda: (
+        ixg(params, res.tokens, pos, res.tokens[:, pos + 1], None, frames),
+        ixg(params, res.tokens, pos, res.runners_up[:, t], None, frames)),
+        totals)
+    _expect(rose, {k: 2 * v for k, v in per_explain.items()},
+            f"{what} ixg explains")
+    lin_err = ((scores[:, t] - (sa - sb)).abs().max().item()
+               / max(sa.abs().max().item(), sb.abs().max().item()))
+    f32 = _zoo_f32_checks(params, cfg, res, frames)
+
+    eng = build(EngineSpec(LMModel(params, cfg)))
+    (lg, sc), rose = _count(lambda: eng.explain_tokens(inputs), totals)
+    _expect(rose, per_explain, f"{what} engine explain")
+    s_in = LM_PROMPT + (cfg.n_patches if cfg.frontend == "patches" else 0)
+    _finite(lg, f"{what} engine logits", (LM_BATCH, cfg.vocab))
+    _finite(sc, f"{what} engine scores", (LM_BATCH, s_in))
+
+    cache = tf.init_cache(cfg, LM_BATCH, s_full, device="cuda")
+    with torch.no_grad():
+        (_, cache), rose = _count(lambda: tf.prefill(
+            params, cfg, {"tokens": res.tokens[:, :-1]}, cache), {})
+    _expect(rose, {}, f"{what} prefill")
+    last = res.tokens[:, -1:]
+
+    def step():
+        with torch.no_grad():
+            tf.decode_step(params, cfg, last, cache, s_full - 1)
+
+    contrastive = lm.make_token_explain(cfg, mode="contrastive")
+
+    def token_explain():
+        return contrastive(params, res.tokens, pos, res.tokens[:, pos + 1],
+                           res.runners_up[:, t], frames)
+
+    times = {}
+    for name, fn in (("decode step", step),
+                     (f"per-token explain (S={s_full})", token_explain),
+                     (f"engine explain (S={s_in})",
+                      lambda: eng.explain_tokens(inputs))):
+        host, dev = _host_and_span(fn)
+        times[name] = dict(host_ms=host, device_ms=dev)
+    print(f"    decode x2 equal; {LM_NEW} per-token explains + 2 ixg + 1 "
+          f"engine explain, causal zeros exact; contrastive vs ixg "
+          f"difference {lin_err:.2e} in bf16 (not held: see "
+          f"_zoo_f32_checks), {f32['linearity_err_f32']:.2e} in f32"
+          + (f"; scores through the B13 backward vs autograd over the "
+             f"chunked scan {f32['route_err_f32']:.2e} in f32" if hybrid
+             else "")
+          + "; host / device-span ms: "
+          + "; ".join(f"{k} {v['host_ms']:.2f} / {v['device_ms']:.2f}"
+                      for k, v in times.items()))
+    out = dict(n_layers=cfg.n_layers, full_layers=full.n_layers,
+               n_params=n_params, init_s=init_s, linearity_err_bf16=lin_err,
+               times=times, **f32, peak_gib=torch.cuda.max_memory_allocated()
+               / 2**30)
+    print(f"    peak device memory {out['peak_gib']:.1f} GiB (the f32 "
+          f"copy included)")
+    if hybrid:
+        out.update(_check_zoo_hybrid(params, cfg, res, prompts, eng, lg,
+                                     token_explain, totals, to_profile,
+                                     times))
+    return out
+
+
+def _check_zoo_hybrid(params, cfg, res, prompts, eng, lg, token_explain,
+                      totals, to_profile, times):
+    """hymba-1.5b: each layer's B13 against the chunked scan, the explain's
+    logits against the chunked route's own bf16 error, one per-token
+    explain through the B13 backward against autograd over the chunked
+    scan (printed; held in f32 by :func:`_zoo_f32_checks`), an analytic
+    ``h100``
+    ``plan_lm`` explain bitwise the unplanned one, and an LMAdapter server
+    (phase 7b's checks)."""
+    from repro_torch import lm
+    from repro_torch import plan as tplan
+    from repro_torch.models import transformer as tf
+    with torch.no_grad():
+        ref = tf.forward(params, cfg, {"tokens": prompts})[0][:, -1]
+    ref32 = _f32_last_logits(params, cfg, prompts)
+    logit_err, chunk_err = _rel_err(lg, ref), _rel_err(ref, ref32)
+    if not logit_err <= LM_LOGITS_FACTOR * chunk_err:
+        fail(f"hymba: B13-route logits vs the chunked scan's "
+             f"{logit_err:.3e} of max|logit|, beyond {LM_LOGITS_FACTOR} x "
+             f"the chunked route's bf16 error {chunk_err:.3e}")
+    layer_errs = _b13_layer_errs(params, cfg, prompts)
+    route_bf16 = _rel_err(token_explain(), _through_chunked_grad(
+        token_explain))
+    s_full = LM_PROMPT + LM_NEW
+    t, pos = LM_NEW - 1, LM_PROMPT + LM_NEW - 2
+    analytic = tplan.plan_lm(cfg, device="h100", precision="bf16",
+                             batch=LM_BATCH, seq=s_full)
+    rule = tplan.ScanTile(cfg.d_inner, cfg.ssm_chunk)
+    if set(dict(analytic.entries).values()) != {rule}:
+        fail(f"hymba: the analytic plan is not the unplanned launch: "
+             f"{analytic.summary()}")
+    planned = lm.make_token_explain(cfg, mode="contrastive", plan=analytic)
+    per_explain = {"selective_scan": cfg.n_layers,
+                   "selective_scan_bwd": cfg.n_layers}
+    got, rose = _count(lambda: planned(params, res.tokens, pos,
+                                       res.tokens[:, pos + 1],
+                                       res.runners_up[:, t]), totals)
+    _expect(rose, per_explain, "hymba planned explain")
+    if not torch.equal(got, token_explain()):
+        fail("hymba: the analytic h100 plan's explain is not bitwise the "
+             "unplanned one")
+    to_profile.append(("hymba per-token explain", token_explain,
+                       times[f"per-token explain (S={s_full})"]
+                       ["device_ms"]))
+    print(f"    hymba: {cfg.n_layers} B13 and {cfg.n_layers} B13 bwd "
+          f"launches per explain, none in prefill or decode; B13 vs the "
+          f"chunked scan in each layer's forward: max|dy| "
+          f"{max(layer_errs):.2e}; B13 vs chunked logits {logit_err:.2e} of "
+          f"max (chunked vs f32 weights {chunk_err:.2e}); scores through "
+          f"the B13 backward vs autograd over the chunked scan "
+          f"{route_bf16:.2e} of max in bf16 (not held: see "
+          f"_zoo_f32_checks); plan_lm(h100) {len(analytic.entries)} "
+          f"entries = the rule {rule}, its explain bitwise")
+    print(f"  phase 13 lm serve: an LMAdapter server on {cfg.name}, "
+          f"max_batch {LM_BATCH}")
+    serve = check_serve_lm(params, cfg, prompts)
+    return dict(logits_vs_chunked=logit_err, chunked_vs_f32=chunk_err,
+                layer_errs=layer_errs, route_err_bf16=route_bf16,
+                serve=serve)
+
+
+def check_zoo_twin(arch):
+    """One f32 twin: ``FULL.with_(n_layers=2, dtype="float32",
+    residual_policy="exact")`` explained on the card and on the CPU with
+    the same parameters; the MoE's routing (expert ids, each slot's token)
+    recorded on both devices and equal."""
+    from repro_torch import configs
+    from repro_torch.engine import EngineSpec, LMModel, build
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as tf
+
+    cfg = configs.get(arch).with_(n_layers=2, dtype="float32",
+                                  residual_policy="exact")
+    params = tf.init(cfg, generator=torch.Generator().manual_seed(0),
+                     device="cpu")
+    card = tf.params_to(params, "cuda")
+    inputs = _zoo_inputs(cfg, LM_TWIN_BATCH, LM_TWIN_SEQ,
+                         torch.Generator().manual_seed(2), "cpu")
+    routes = {"cuda": [], "cpu": []}
+    real = moe.dispatch
+
+    def spy(ids, c_, c):
+        out = real(ids, c_, c)
+        routes[ids.device.type].append((ids.cpu(), out[0].cpu()))
+        return out
+
+    moe.dispatch = spy
+    try:
+        lg, sc = build(EngineSpec(LMModel(card, cfg))).explain_tokens(
+            {k: v.cuda() for k, v in inputs.items()})
+        lg_c, sc_c = build(EngineSpec(LMModel(params, cfg, device="cpu"))
+                           ).explain_tokens(inputs)
+    finally:
+        moe.dispatch = real
+    lerr, serr = _rel_err(lg.cpu(), lg_c), _rel_err(sc.cpu(), sc_c)
+    if not (lerr <= DOT_TOL and serr <= REPLAY_TOL):
+        fail(f"lm zoo twin {arch}: logits {lerr:.3e}, ixg scores {serr:.3e} "
+             f"of max")
+    from repro_torch import lm
+    toks = inputs["tokens"].cuda()
+    frames = inputs["frames"].cuda() if "frames" in inputs else None
+    top = lg.float().argsort(dim=-1, descending=True)
+    args = (card, toks, LM_TWIN_SEQ - 1)
+    con = lm.make_token_explain(cfg, mode="contrastive")(
+        *args, top[:, 0], top[:, 1], frames)
+    ixg = lm.make_token_explain(cfg, mode="ixg")
+    lin = _rel_err(con, ixg(*args, top[:, 0], None, frames)
+                   - ixg(*args, top[:, 1], None, frames))
+    if not lin <= REPLAY_TOL:
+        fail(f"lm zoo twin {arch}: contrastive vs ixg(a) - ixg(b) "
+             f"{lin:.3e} of max")
+    same = len(routes["cuda"]) == len(routes["cpu"]) and all(
+        torch.equal(a, b) for (ia, ta), (ib, tb) in zip(routes["cuda"],
+                                                        routes["cpu"])
+        for a, b in ((ia, ib), (ta, tb)))
+    if not same:
+        fail(f"lm zoo twin {arch}: the MoE routing differs card vs CPU")
+    moe_note = (f"; routing of {len(routes['cpu'])} MoE layer(s) equal"
+                if routes["cpu"] else "")
+    print(f"  twin {arch} (depth 2, f32, {LM_TWIN_BATCH} x {LM_TWIN_SEQ}"
+          + (f" + {cfg.n_patches} patches" if cfg.frontend == "patches"
+             else "")
+          + (f" + {ZOO_FRAMES} frames" if cfg.enc_layers else "")
+          + f"): logits {lerr:.2e}, ixg scores {serr:.2e} of max, "
+          f"contrastive vs ixg difference {lin:.2e}{moe_note}")
+    return dict(logits_err=lerr, scores_err=serr, linearity_err=lin,
+                moe_layers=len(routes["cpu"]))
+
+
+def check_moe_determinism():
+    """moonshot-v1-16b-a3b's MoE at full width (64 experts, top 6, a
+    shared pair, bf16): forward and backward (input, router and expert
+    gradients) on 4 x 72 tokens twice, the same bits."""
+    from repro_torch import configs
+    from repro_torch.models import moe
+    cfg = configs.get("moonshot-v1-16b-a3b")
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    p = moe.init_moe(gen, cfg)
+    x = torch.randn(LM_BATCH, LM_PROMPT + LM_NEW, cfg.d_model, generator=gen,
+                    device="cuda").to(cfg.torch_dtype)
+    seed = torch.randn(x.shape, generator=gen, device="cuda").to(x.dtype)
+
+    def run():
+        leaves = {k: v.detach().requires_grad_() for k, v in p.items()
+                  if k != "shared"}
+        xx = x.detach().requires_grad_()
+        y, aux = moe.moe_ffn(dict(p, **leaves), xx, cfg, method="saliency")
+        grads = torch.autograd.grad((y.float() * seed.float()).sum() + aux,
+                                    [xx] + list(leaves.values()))
+        return [y, aux] + list(grads)
+
+    first, second = run(), run()
+    if not all(torch.equal(a, b) for a, b in zip(first, second)):
+        fail("moe: the forward or backward differs between two calls")
+    print(f"  moe determinism: moonshot's MoE at full width, {LM_BATCH} x "
+          f"{LM_PROMPT + LM_NEW} tokens, forward and backward (x, router, "
+          f"w1, w2, w3) bitwise on two calls")
+
+
+def check_lm_zoo(launches, to_profile):
+    """Phase 13: every config of the zoo but falcon-mamba at full width in
+    bf16 (``ZOO_DEPTH``'s cuts), hymba-1.5b's B13 path, the five f32
+    twins, the MoE's determinism."""
+    matmul = torch.backends.cuda.matmul
+    reduced = matmul.allow_bf16_reduced_precision_reduction
+    matmul.allow_bf16_reduced_precision_reduction = False   # one rounding
+    results, failed = {"archs": {}, "twins": {}}, []
+
+    def each(group, arch, fn):
+        # a config that fails is reported, and the others still run; the
+        # engines built on a config's weights (the build cache keeps
+        # them) go before the next config is drawn
+        from repro_torch.engine import clear_cache
+        try:
+            results[group][arch] = fn(arch)
+        except AssertionError as e:
+            failed.append(str(e))
+            print(f"  {arch}: FAILED: {e}")
+        clear_cache()
+        torch.cuda.empty_cache()
+
+    try:
+        for arch in ZOO_ARCHS:
+            torch.cuda.reset_peak_memory_stats()
+            each("archs", arch, lambda a: check_zoo_arch(a, launches,
+                                                         to_profile))
+        for arch in ZOO_TWINS:
+            each("twins", arch, check_zoo_twin)
+        check_moe_determinism()
+    finally:
+        matmul.allow_bf16_reduced_precision_reduction = reduced
+    torch.cuda.empty_cache()
+    if failed:
+        fail(f"phase 13: {len(failed)} config(s) failed: " + " | ".join(
+            failed))
+    return results
+
+
+# ---------------------------------------------------------------------------
 
 
 #: The counters each path must launch; the others must stay at 0 there.
@@ -5173,6 +5614,7 @@ PATH_KERNELS = {"f32": tuple(PER_EXPLAIN["f32"]),
                 "train_bf16": tuple(PER_TRAIN_STEP),
                 "lm": ("selective_scan", "selective_scan_bwd"),
                 "lm_twin": ("selective_scan", "selective_scan_bwd"),
+                "lm_zoo": ("selective_scan", "selective_scan_bwd"),
                 "serve_cnn": tuple(PER_COLD_BATCH),
                 "perturb_f32": tuple(PER_PERTURB["f32"]),
                 "perturb_bf16": tuple(PER_PERTURB["bf16"]),
@@ -5206,6 +5648,9 @@ def main() -> int:
                          "B1/B4/B5/B6 bf16, B5/B8, B7, B9 and B6/B10 (K "
                          "splits, clusters, grids of tile plans) and stop; "
                          "--out gets kernel_sweep.json")
+    ap.add_argument("--zoo", action="store_true",
+                    help="after phase 1, run phase 13 (the LM zoo) alone "
+                         "and stop")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke test needs one",
@@ -5288,6 +5733,19 @@ def main() -> int:
             args.out.mkdir(parents=True, exist_ok=True)
             (args.out / "kernel_sweep.json").write_text(json.dumps(dict(
                 device=kind, nvidia_smi=smi, **rows), indent=1))
+        print(smi)
+        return 0
+
+    if args.zoo:
+        launches = {}
+        print("phase 13 (lm zoo) alone")
+        zoo_results = check_lm_zoo(launches, [])
+        check_path_launches("lm_zoo", launches["lm_zoo"])
+        if args.out is not None:
+            args.out.mkdir(parents=True, exist_ok=True)
+            (args.out / "chip_smoke_zoo.json").write_text(json.dumps(dict(
+                device=kind, nvidia_smi=smi, lm_zoo=zoo_results,
+                launches=launches), indent=1))
         print(smi)
         return 0
 
@@ -5393,6 +5851,12 @@ def main() -> int:
                                        else tmp))
     del lm_state
     torch.cuda.empty_cache()
+    print(f"phase 13 (lm zoo): the other nine configs at full width, bf16, "
+          f"{LM_BATCH} prompts x {LM_PROMPT} tokens, {LM_NEW} greedy tokens "
+          f"(depth cut: {ZOO_DEPTH}); hymba-1.5b through B13; "
+          f"{len(ZOO_TWINS)} f32 twins; the MoE's determinism")
+    zoo_results = check_lm_zoo(launches, to_profile)
+    check_path_launches("lm_zoo", launches["lm_zoo"])
 
     # last, as a profiler session slows what runs after it: phase 2's
     # profiler column (the process's first session), then where each
@@ -5404,7 +5868,8 @@ def main() -> int:
     kc.summary()
     print("profiles: one saliency explain per CNN path, Table IV's f32 "
           "FP+BP at batch 1 and 32, one training step, one LM decode step "
-          "and one per-token LM explain under torch.profiler")
+          "and one per-token LM explain (falcon-mamba-7b, hymba-1.5b) under "
+          "torch.profiler")
     profiles = {what: profile_breakdown(fn, what, wall)
                 for what, fn, wall in to_profile}
     bf16_explain = "bf16 saliency explain"
@@ -5439,7 +5904,7 @@ def main() -> int:
             sums=kc.sums, engine=engine_results, requests=n_req,
             paper_tables=tables,
             vjp=vjp_results, train=train_results, lm=lm_results,
-            lm_twin=twin_results, serve=serve_results,
+            lm_twin=twin_results, lm_zoo=zoo_results, serve=serve_results,
             perturb=perturb_results, plan=plan_results,
             scan_backward_ms=kc.scan_backward_ms,
             mma_accumulation=kc.accumulation, bf16_one_seed=kc.one_seed,
@@ -5454,7 +5919,9 @@ def main() -> int:
                     per_batch=serve_results["launches_per_batch"],
                     hit_batches=serve_results["hit_batches"],
                     cold_batches=serve_results["cold_batches"]),
-        "lm": {m: r["launches"] for m, r in lm_results["serve"].items()}}}))
+        "lm": {m: r["launches"] for m, r in lm_results["serve"].items()},
+        "lm_zoo": {m: r["launches"] for m, r in zoo_results["archs"][
+            "hymba-1.5b"]["serve"].items()}}}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

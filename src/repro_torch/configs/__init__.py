@@ -1,11 +1,10 @@
 """Architecture registry, as ``repro.configs`` has it: ``get(name)`` is the
 FULL (published) config, ``get_smoke(name)`` the reduced same-family one.
 
-The port runs falcon-mamba-7b (pure mamba-1, ROADMAP A11a).  Every other
-name of :data:`ARCHS` raises :class:`NotImplementedError` naming the
-ROADMAP item that ports it.  The paper's own CNN is not an LM arch: its
-configs (``paper_cnn``: ``FULL``, ``TABLE_III_LITERAL``, ``SMOKE``) come
-from :func:`cnn`.
+Every name of :data:`ARCHS` has a module here, a copy of the JAX
+package's (dense, MoE, mamba, hybrid, encoder-decoder and vlm).  The
+paper's own CNN is not an LM arch: its configs (``paper_cnn``: ``FULL``,
+``TABLE_III_LITERAL``, ``SMOKE``) come from :func:`cnn`.
 """
 from __future__ import annotations
 
@@ -26,27 +25,13 @@ ARCHS = (
     "llava-next-mistral-7b",
 )
 
-#: The configs the port has, and the ROADMAP item of every other one.
-PORTED = ("falcon-mamba-7b",)
-UNPORTED = {
-    "llama4-scout-17b-a16e": "A11b (attention, RoPE, MoE)",
-    "moonshot-v1-16b-a3b": "A11b (attention, RoPE, MoE)",
-    "llama3.2-1b": "A11b (attention, RoPE, FFN)",
-    "phi4-mini-3.8b": "A11b (attention, RoPE, FFN)",
-    "qwen2-1.5b": "A11b (attention, RoPE, FFN)",
-    "internlm2-20b": "A11b (attention, RoPE, FFN)",
-    "hymba-1.5b": "A11b (hybrid attention || SSM)",
-    "seamless-m4t-medium": "A11b (encoder-decoder)",
-    "llava-next-mistral-7b": "A11b (vlm patches frontend)",
-}
+#: The configs the port has: all of them.
+PORTED = ARCHS
 
 
 def _module(arch: str):
     if arch not in ARCHS:
         raise ValueError(f"unknown arch {arch!r}; known: {ARCHS}")
-    if arch not in PORTED:
-        raise NotImplementedError(
-            f"{arch}: not ported yet (ROADMAP {UNPORTED[arch]})")
     return importlib.import_module(
         "repro_torch.configs." + arch.replace("-", "_").replace(".", "_"))
 

@@ -17,8 +17,8 @@ the forward.  Inputs are tensors (the JAX package also takes pytrees).
 
 The token methods (:func:`attribute_tokens`,
 :func:`attribute_tokens_contrastive`) explain one position of an LM's
-logits over its input embeddings; their ``backward=`` (the manual engine
-of an fxp16 token stack) is not ported (ROADMAP A11b).
+logits over its input embeddings, through autograd or, with
+``backward=``, through a manual engine's replay of the position's seed.
 """
 from __future__ import annotations
 
@@ -162,11 +162,15 @@ def _probe_logits(f: Callable, x, backward):
     return out[0] if backward is not None else out
 
 
-def _no_manual_token_backward(backward):
+def _token_forward(f, embeds, backward):
+    """``(logits, replay)``: ``replay(seed)`` -> the relevance of the
+    embeddings for one seed shaped like the logits, by autograd or by the
+    manual engine's ``backward(residuals, seeds)``."""
     if backward is not None:
-        raise NotImplementedError(
-            "backward= (the manual engine of an fxp16 token stack) is not "
-            "ported yet (ROADMAP A11b); token methods run autograd")
+        logits, residuals = f(embeds)
+        return logits, lambda seed: backward(residuals, seed[None])[0]
+    logits, vjp_fn = vjp(f, embeds)
+    return logits, lambda seed: vjp_fn(seed[None])[0]
 
 
 def _token_seed(logits, position, seed_at):
@@ -196,15 +200,17 @@ def attribute_tokens(f: Callable, embeds: torch.Tensor, *, position=-1,
     ``f(embeds) -> logits [B, S, V]``.  Explains the logit of ``target``
     (or the argmax) at ``position``.  Returns (logits, relevance [B, S, D],
     per-token scores [B, S]) with scores = sum_d rel * embed (the "input x
-    gradient" reduction).
+    gradient" reduction).  ``backward`` selects the manual engine (see
+    :func:`attribute`): ``f`` returns ``(logits, residuals)`` and the
+    one-hot seed at ``position`` replays through ``backward(residuals,
+    seeds)``.
     """
-    _no_manual_token_backward(backward)
-    logits, vjp_fn = vjp(f, embeds)
+    logits, replay = _token_forward(f, embeds, backward)
     at = logits[:, position, :]
     if target is None:
         target = torch.argmax(at, dim=-1)
     seed_at = one_hot(_token_ids(target, at), at.shape[-1], at)
-    rel = vjp_fn(_token_seed(logits, position, seed_at)[None])[0]
+    rel = replay(_token_seed(logits, position, seed_at))
     return logits, rel, _token_scores(rel, embeds)
 
 
@@ -218,10 +224,10 @@ def attribute_tokens_contrastive(f: Callable, embeds: torch.Tensor, *,
     ``target_a`` (a sampled token) takes as ``target_b`` the top-2
     candidate that is not it.  Returns (logits, relevance, scores) as
     :func:`attribute_tokens`; by linearity of the BP in the seed the scores
-    equal the difference of two single-target calls.
+    equal the difference of two single-target calls.  ``backward`` selects
+    the manual engine, as in :func:`attribute_tokens`.
     """
-    _no_manual_token_backward(backward)
-    logits, vjp_fn = vjp(f, embeds)
+    logits, replay = _token_forward(f, embeds, backward)
     at = logits[:, position, :]
     idx2 = top_k(at, 2)
     target_a = _token_ids(idx2[:, 0] if target_a is None else target_a, at)
@@ -231,7 +237,7 @@ def attribute_tokens_contrastive(f: Callable, embeds: torch.Tensor, *,
     target_b = _token_ids(target_b, at)
     seed_at = (one_hot(target_a, at.shape[-1], at)
                - one_hot(target_b, at.shape[-1], at))
-    rel = vjp_fn(_token_seed(logits, position, seed_at)[None])[0]
+    rel = replay(_token_seed(logits, position, seed_at))
     return logits, rel, _token_scores(rel, embeds)
 
 

@@ -204,18 +204,20 @@ class LMModel(_ParamsIdentity):
     (:func:`repro_torch.launch.steps.make_attribute_step`): FP +
     input-gradient BP over the embedding stack, scores reduced per prompt
     position.  ``params`` is a :mod:`repro_torch.models.transformer` tree
-    on any device; it moves to ``device`` (None: the card) once, at the
-    first step built.  Mamba stacks only (ROADMAP A11b for the rest)."""
+    of any arch of the zoo, on any device; it moves to ``device`` (None:
+    the card) once, at the first step built.  ``triangle_skip`` is the
+    chunked attention's static skip of masked causal chunks."""
 
     params: Any
     cfg: Any                    # models.config.ModelConfig
     device: Any = None
+    triangle_skip: bool = True
 
     def __post_init__(self):
         object.__setattr__(self, "device", resolve_device(self.device))
 
     def _key(self):
-        return (id(self.params), self.cfg, self.device)
+        return (id(self.params), self.cfg, self.device, self.triangle_skip)
 
     @property
     def has_pair(self) -> bool:
@@ -235,20 +237,26 @@ class LMModel(_ParamsIdentity):
         per-token reduction (``ixg | grad_norm | contrastive``, see
         :func:`repro_torch.launch.steps.make_attribute_step`) and ``plan``
         the scan's knobs (a ``plan_lm`` TilePlan).  The token ids of
-        ``batch["tokens"]`` move to the model's device.
+        ``batch["tokens"]`` move to the model's device, and so do the
+        ``"patches"`` of a vlm and the ``"frames"`` of an encoder-decoder.
         """
         if method not in RULE_SETS:
             raise ValueError(
                 f"token attribution needs a gradient rule set {RULE_SETS}; "
                 f"method={method!r} has no token BP")
         from repro_torch.launch import steps as steps_lib
-        step = steps_lib.make_attribute_step(self.cfg, method, plan=plan,
-                                             mode=mode)
+        step = steps_lib.make_attribute_step(
+            self.cfg, method, triangle_skip=self.triangle_skip, plan=plan,
+            mode=mode)
         params, device = self.device_params, self.device
 
         def run(batch):
-            tokens = torch.as_tensor(batch["tokens"]).to(device, torch.int64)
-            return step(params, {"tokens": tokens})
+            moved = {"tokens": torch.as_tensor(batch["tokens"]).to(
+                device, torch.int64)}
+            for name in ("patches", "frames"):
+                if name in batch:
+                    moved[name] = torch.as_tensor(batch[name]).to(device)
+            return step(params, moved)
 
         return run
 
@@ -383,9 +391,8 @@ class EngineSpec:
                                 f"got {type(self.plan).__name__}")
         if not isinstance(self.model, (CNNModel, FnModel, LMModel)):
             raise NotImplementedError(
-                f"model {self.model!r}: CNNModel, FnModel and LMModel "
-                f"(mamba stacks) are ported; other handles come with "
-                f"ROADMAP A11b")
+                f"model {self.model!r}: the handles are CNNModel, FnModel "
+                f"and LMModel (every arch of the LM zoo, ROADMAP A11)")
 
     def fwd_rules(self) -> str:
         """The rule set the model is built with: the method's, or saliency

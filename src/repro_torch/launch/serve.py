@@ -285,9 +285,8 @@ def run_cnn(args) -> None:
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--workload", default="lm", choices=["lm", "cnn"])
-    ap.add_argument("--arch", default="falcon-mamba-7b",
-                    help="lm workload: the SMOKE config of this arch "
-                         "(mamba stacks; the rest are ROADMAP A11b)")
+    ap.add_argument("--arch", default="qwen2-1.5b",
+                    help="lm workload: the SMOKE config of this arch")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--max-new", type=int, default=8)

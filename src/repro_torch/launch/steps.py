@@ -34,14 +34,17 @@ def ssm_scan_tiles(cfg, plan=None):
     return tiles or None
 
 
-def make_attribute_step(cfg, method: str = "saliency", *, plan=None,
+def make_attribute_step(cfg, method: str = "saliency", *,
+                        triangle_skip: bool = True, plan=None,
                         mode: str = "ixg"):
     """The paper's technique as a serving feature for LMs: one forward and
     one input-gradient backward, ``(params, batch) -> (last-position
     logits [B, V], per-position scores [B, S])`` for the final position's
-    prediction.  ``mode``: ``"ixg"`` (input x gradient, signed),
-    ``"grad_norm"`` (L2 norm of the embedding gradient) or
-    ``"contrastive"`` (argmax-vs-runner-up difference seed).  ``plan`` (a
+    prediction (vlm: the first ``n_patches`` scores are the image's;
+    ``batch["frames"]`` feed an encoder-decoder's encoder).  ``mode``:
+    ``"ixg"`` (input x gradient, signed), ``"grad_norm"`` (L2 norm of the
+    embedding gradient) or ``"contrastive"`` (argmax-vs-runner-up
+    difference seed).  ``plan`` (a
     ``plan_lm`` :class:`~repro_torch.plan.TilePlan`) sets the scan's
     ``(d_tile, chunk)`` per segment (:func:`ssm_scan_tiles`)."""
     if mode not in TOKEN_MODES:
@@ -50,10 +53,12 @@ def make_attribute_step(cfg, method: str = "saliency", *, plan=None,
 
     def attribute_step(params, batch):
         h = tf.embed_inputs(params, cfg, batch)
+        enc_frames = batch.get("frames")
 
         def f(e):
-            return tf.forward_from_embeddings(params, cfg, e, method=method,
-                                              scan_tiles=scan_tiles)[0]
+            return tf.forward_from_embeddings(
+                params, cfg, e, method=method, enc_frames=enc_frames,
+                triangle_skip=triangle_skip, scan_tiles=scan_tiles)[0]
 
         if mode == "contrastive":
             logits, rel, scores = engine_methods.attribute_tokens_contrastive(

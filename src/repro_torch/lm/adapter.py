@@ -24,7 +24,7 @@ This adapter makes LM requests flow through it:
     ride the engine's B13 scan route.
 
 The adapter runs where its ``LMModel`` runs (the card unless told
-otherwise).  Only the mamba stacks are ported (other archs: ROADMAP A11b).
+otherwise), for any arch of the zoo.
 """
 from __future__ import annotations
 

@@ -1,14 +1,15 @@
 """Step-wise LM generation with per-generated-token attribution, as
 ``repro.lm.decode``.
 
-Generate token by token (prefill, then O(1) decode steps over the cached
-mamba states), remembering per step what was picked and what the runner-up
-was; then explain every generated token with one FP + input-gradient BP
-over the final sequence.  The stack is causal, so the seed at position
-``p`` sends gradient only to positions ``<= p``: one attribution step over
-the final sequence serves every generated token, and the scores after the
-seed are exactly zero.  The per-token contrastive mode ("why this token
-rather than the runner-up?") is a single ``e_A - e_B`` seed.
+Generate token by token (prefill, then decode steps over the cached keys,
+values and mamba states), remembering per step what was picked and what
+the runner-up was; then explain every generated token with one FP +
+input-gradient BP over the final sequence.  The stack is causal, so the
+seed at position ``p`` sends gradient only to positions ``<= p``: one
+attribution step over the final sequence serves every generated token,
+and the scores after the seed are exactly zero.  The per-token
+contrastive mode ("why this token rather than the runner-up?") is a
+single ``e_A - e_B`` seed.
 
 Sampling draws from a ``torch.Generator`` (on the logits' device); its
 stream is not JAX's, so only greedy decoding is reproducible against the
@@ -60,14 +61,15 @@ def _pick(logits, temperature, generator, greedy: bool):
 
 @torch.no_grad()
 def decode(params, cfg, prompt_tokens, *, max_new: int,
-           temperature: float = 0.0,
-           generator: torch.Generator = None) -> DecodeResult:
+           temperature: float = 0.0, generator: torch.Generator = None,
+           triangle_skip: bool = True) -> DecodeResult:
     """Generate ``max_new`` tokens step-wise; returns a :class:`DecodeResult`.
 
     ``temperature <= 0`` (or no ``generator``) decodes greedily; otherwise
     each step samples from ``softmax(logits / temperature)`` with
     ``generator``, which must live on the params' device.  The prompt
-    moves to that device.
+    moves to that device.  Any arch, tokens only (no frames, no patches),
+    as the JAX package's ``decode``.
     """
     if max_new < 1:
         raise ValueError(f"max_new must be >= 1, got {max_new}")
@@ -77,7 +79,8 @@ def decode(params, cfg, prompt_tokens, *, max_new: int,
     greedy = temperature <= 0.0 or generator is None
 
     cache = tf.init_cache(cfg, b, s0 + max_new + 8, device=device)
-    logits, cache = tf.prefill(params, cfg, {"tokens": prompt}, cache)
+    logits, cache = tf.prefill(params, cfg, {"tokens": prompt}, cache,
+                               triangle_skip=triangle_skip)
     nxt, runner = _pick(logits[:, -1, :], temperature, generator, greedy)
     toks, runners = [nxt], [runner]
     for t in range(1, max_new):
@@ -93,23 +96,26 @@ def decode(params, cfg, prompt_tokens, *, max_new: int,
 
 
 def make_token_explain(cfg, method: str = "saliency", *,
-                       mode: str = "contrastive", plan=None):
+                       mode: str = "contrastive", plan=None,
+                       triangle_skip: bool = True):
     """One per-token attribution step for ``cfg``: ``(params, tokens
-    [B, S], position, target_a, target_b) -> scores [B, S]``.  Causality
-    makes this one step right for every generated position; ``target_b``
-    is ignored outside ``mode="contrastive"``.  The mamba segments run the
-    B13 kernel with ``plan``'s knobs (``steps.ssm_scan_tiles``; None: the
-    unplanned launch)."""
+    [B, S], position, target_a, target_b, frames=None) -> scores [B, S]``.
+    Causality makes this one step right for every generated position;
+    ``target_b`` is ignored outside ``mode="contrastive"``; ``frames``
+    feed an encoder-decoder's encoder.  The mamba and hybrid segments run
+    the B13 kernel with ``plan``'s knobs (``steps.ssm_scan_tiles``; None:
+    the unplanned launch)."""
     if mode not in TOKEN_MODES:
         raise ValueError(f"mode={mode!r} not in {TOKEN_MODES}")
     tiles = steps_lib.ssm_scan_tiles(cfg, plan)
 
-    def explain(params, tokens, position, target_a, target_b):
+    def explain(params, tokens, position, target_a, target_b, frames=None):
         h = tf.embed_inputs(params, cfg, {"tokens": tokens})
 
         def f(e):
-            return tf.forward_from_embeddings(params, cfg, e, method=method,
-                                              scan_tiles=tiles)[0]
+            return tf.forward_from_embeddings(
+                params, cfg, e, method=method, enc_frames=frames,
+                triangle_skip=triangle_skip, scan_tiles=tiles)[0]
 
         if mode == "contrastive":
             _, _, scores = engine_methods.attribute_tokens_contrastive(
@@ -128,7 +134,8 @@ def make_token_explain(cfg, method: str = "saliency", *,
 def explain_generated(params, cfg, result: DecodeResult, *,
                       method: str = "saliency",
                       mode: str = "contrastive",
-                      plan=None) -> torch.Tensor:
+                      plan=None, triangle_skip: bool = True,
+                      frames=None) -> torch.Tensor:
     """Per-generated-token attribution over a finished decode.
 
     For generated token ``t`` the seed sits at the position whose logits
@@ -136,11 +143,13 @@ def explain_generated(params, cfg, result: DecodeResult, *,
     ``target_a`` is the picked token and ``target_b`` its recorded
     runner-up.  Returns scores ``[B, T, S]`` (S: the full sequence;
     positions after the seed are exactly zero by causality).  ``plan``: a
-    ``plan_lm`` TilePlan for the scan's knobs (None: unplanned).
+    ``plan_lm`` TilePlan for the scan's knobs (None: unplanned);
+    ``frames``: an encoder-decoder's source frames.
     """
-    step = make_token_explain(cfg, method, mode=mode, plan=plan)
+    step = make_token_explain(cfg, method, mode=mode, plan=plan,
+                              triangle_skip=triangle_skip)
     s0 = result.prompt_len
     n_gen = result.tokens.shape[1] - s0
     return torch.stack([
         step(params, result.tokens, s0 - 1 + t, result.tokens[:, s0 + t],
-             result.runners_up[:, t]) for t in range(n_gen)], dim=1)
+             result.runners_up[:, t], frames) for t in range(n_gen)], dim=1)

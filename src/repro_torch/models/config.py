@@ -1,11 +1,8 @@
 """Unified model configuration of the LM zoo, as ``repro.models.config``
 has it: one frozen dataclass whose family fields decide the block kind of
-every layer (dense / MoE / SSM / hybrid / enc-dec).
-
-The port runs the ``"mamba"`` block kind (``models/transformer.py``); the
-other kinds stay representable here, so every config of the zoo loads and
-counts its parameters, and the model raises on them.  ``jdtype`` becomes
-:attr:`ModelConfig.torch_dtype`.
+every layer (dense / MoE / SSM / hybrid / enc-dec), so one backbone
+(``models/transformer.py``) serves every architecture.  ``jdtype``
+becomes :attr:`ModelConfig.torch_dtype`.
 """
 from __future__ import annotations
 

@@ -1,24 +1,27 @@
-"""The LM backbone of the zoo, as ``repro.models.transformer`` — mamba
-segments only (falcon-mamba-7b).
+"""The LM backbone of the zoo, as ``repro.models.transformer``: every block
+kind (dense attention + FFN, attention + MoE, mamba, hybrid attention ||
+SSM), the encoder stack of the encoder-decoder (audio) configs and the
+patch prefix of the vlm configs.
 
 Layers are grouped into homogeneous segments (``cfg.layer_plan()``) whose
 parameters carry a leading layer axis, the JAX package's tree exactly
 (``params_from_jax`` is a copy); :func:`_run_segments` walks each segment's
-layers in a Python loop where the JAX package runs ``lax.scan``.  Any block
-kind other than ``"mamba"``, an encoder or a modality frontend raises
-:class:`NotImplementedError` naming ROADMAP A11b.
+layers in a Python loop where the JAX package runs ``lax.scan``.
 
 Entry points:
   init(cfg, generator=, device=)                    -> params
   forward(params, cfg, batch, method=...)           -> (logits, aux)
   forward_from_embeddings(params, cfg, h, ...)      -> (logits, aux)
-  init_cache(cfg, batch, capacity, device=)         -> cache
+  init_cache(cfg, batch, capacity, src_len, device=) -> cache
   prefill(params, cfg, batch, cache)                -> (logits, cache)
   decode_step(params, cfg, tokens, cache, pos)      -> (logits, cache)
 
-Mamba caches are O(1) per layer: the f32 state ``h`` and the conv window.
-The JAX package's ``remat`` and ``triangle_skip`` knobs (checkpointing and
-attention) have nothing to act on here and are not taken.
+Caches are per-segment trees with a leading layer axis: fused
+``[B, T, Kv*hd]`` keys and values (``ck`` / ``cv``: the encoder's
+projected keys and values, cached once at prefill), the mamba layers' f32
+state ``h`` and conv window; a hybrid segment holds ``{"attn", "ssm"}``.
+The JAX package's ``remat`` knob (checkpointing) has nothing to act on
+here and is not taken.
 """
 from __future__ import annotations
 
@@ -28,42 +31,42 @@ import numpy as np
 import torch
 
 from repro_torch.engine.spec import resolve_device
-from repro_torch.models import layers, mamba
+from repro_torch.models import layers, mamba, moe
 from repro_torch.models.config import ModelConfig
-
-_A11B = "ROADMAP A11b"
-
-
-def _check_ported(cfg: ModelConfig) -> None:
-    for kind, _, _ in cfg.layer_plan():
-        if kind != "mamba":
-            raise NotImplementedError(
-                f"{cfg.name}: block kind {kind!r} is not ported yet "
-                f"({_A11B}: attention, RoPE, FFN, MoE, hybrid)")
-    if cfg.enc_layers:
-        raise NotImplementedError(f"{cfg.name}: encoder-decoder stacks are "
-                                  f"not ported yet ({_A11B})")
-    if cfg.frontend != "none":
-        raise NotImplementedError(f"{cfg.name}: frontend {cfg.frontend!r} "
-                                  f"is not ported yet ({_A11B})")
-
 
 # ---------------------------------------------------------------------------
 # params
 # ---------------------------------------------------------------------------
 
 
-def _init_segment(gen, cfg, count: int) -> dict:
-    """``count`` mamba blocks stacked on a leading layer axis, filled layer
-    by layer (one layer's draws beside the stack, never two stacks)."""
-    first = {"norm1": layers.norm_init(cfg.d_model, cfg.norm, gen.device),
-             "mixer": mamba.init_mamba(gen, cfg)}
+def _init_block(gen, cfg: ModelConfig, kind: str, cross: bool = False):
+    dev = gen.device
+    p = {"norm1": layers.norm_init(cfg.d_model, cfg.norm, dev)}
+    if kind == "mamba":
+        p["mixer"] = mamba.init_mamba(gen, cfg)
+        return p
+    p["attn"] = layers.init_attention(gen, cfg)
+    if kind == "hybrid":
+        p["ssm"] = mamba.init_mamba(gen, cfg)
+        p["norm_attn"] = layers.norm_init(cfg.d_model, cfg.norm, dev)
+        p["norm_ssm"] = layers.norm_init(cfg.d_model, cfg.norm, dev)
+    p["norm2"] = layers.norm_init(cfg.d_model, cfg.norm, dev)
+    p["ffn"] = (moe.init_moe(gen, cfg) if kind == "moe"
+                else layers.init_ffn(gen, cfg))
+    if cross:
+        p["cross"] = layers.init_attention(gen, cfg)
+        p["norm_cross"] = layers.norm_init(cfg.d_model, cfg.norm, dev)
+    return p
+
+
+def _init_segment(gen, cfg, kind: str, count: int, cross: bool = False):
+    """``count`` blocks stacked on a leading layer axis, filled layer by
+    layer (one layer's draws beside the stack, never two stacks)."""
+    first = _init_block(gen, cfg, kind, cross)
     seg = _tree_map(lambda t: t.new_empty((count,) + tuple(t.shape)), first)
     for i in range(count):
-        blk = first if i == 0 else {
-            "norm1": layers.norm_init(cfg.d_model, cfg.norm, gen.device),
-            "mixer": mamba.init_mamba(gen, cfg)}
-        _tree_map2(lambda dst, src, i=i: dst[i].copy_(src), seg, blk)
+        blk = first if i == 0 else _init_block(gen, cfg, kind, cross)
+        _tree_map2(lambda dst, src: dst[i].copy_(src), seg, blk)
     return seg
 
 
@@ -71,9 +74,8 @@ def init(cfg: ModelConfig, *, generator: torch.Generator = None,
          device=None) -> Dict:
     """Random parameters on ``device`` (None: the card), drawn from
     ``generator`` (default: seed 0 on that device), which must live there.
-    Matrices in the config's dtype; norms, ``A_log``, ``D`` and
-    ``dt_bias`` in f32."""
-    _check_ported(cfg)
+    Matrices in the config's dtype; norms, the router, ``A_log``, ``D``
+    and ``dt_bias`` in f32."""
     dev = resolve_device(device)
     gen = generator if generator is not None else \
         torch.Generator(device=dev).manual_seed(0)
@@ -81,8 +83,12 @@ def init(cfg: ModelConfig, *, generator: torch.Generator = None,
         raise ValueError(f"generator on {gen.device}, params on {dev}")
     params = {"embed": layers.init_embed(gen, cfg),
               "final_norm": layers.norm_init(cfg.d_model, cfg.norm, dev)}
-    params["segments"] = [_init_segment(gen, cfg, count)
-                          for _, count, _ in cfg.layer_plan()]
+    params["segments"] = [
+        _init_segment(gen, cfg, kind, count, cross=cfg.enc_layers > 0)
+        for kind, count, _ in cfg.layer_plan()]
+    if cfg.enc_layers:
+        params["encoder"] = _init_segment(gen, cfg, "dense", cfg.enc_layers)
+        params["enc_norm"] = layers.norm_init(cfg.d_model, cfg.norm, dev)
     return params
 
 
@@ -105,6 +111,13 @@ def _tree_map2(fn, a, b):
         fn(a, b)
 
 
+def _stack(trees):
+    """Per-layer trees -> one tree with a leading layer axis."""
+    if isinstance(trees[0], dict):
+        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    return torch.stack(trees)
+
+
 def _from_numpy(a, device) -> torch.Tensor:
     a = np.asarray(a)
     if a.dtype.name == "bfloat16":     # ml_dtypes: same bits as torch's
@@ -116,7 +129,7 @@ def _from_numpy(a, device) -> torch.Tensor:
 def params_from_jax(params_np, device="cpu") -> Dict:
     """The JAX package's params tree (leaves as NumPy arrays, bf16 as
     ``ml_dtypes.bfloat16``) -> this package's: the same tree, per-segment
-    leading layer axis included, bit for bit."""
+    leading layer axis and encoder included, bit for bit."""
     return _tree_map(lambda a: _from_numpy(a, device), params_np)
 
 
@@ -130,49 +143,155 @@ def device_of(params) -> torch.device:
 
 
 # ---------------------------------------------------------------------------
-# one layer, the stack
+# one layer
 # ---------------------------------------------------------------------------
 
 
-def _block(p, x, cfg, kind: str, *, method: str, cache=None, pos=None,
-           scan_tile=None):
-    """One layer. Returns (x, new_cache_slice)."""
-    if kind != "mamba":
-        raise NotImplementedError(f"block kind {kind!r} ({_A11B})")
+def _cross_attend(p, x, cfg, cache, enc_out, method):
+    """Cross-attention on the encoder's keys and values, projected per
+    layer from ``enc_out`` (training, prefill) or read from the cache
+    (decode).  Returns (delta_x, (ck, cv))."""
+    b = x.shape[0]
+    hd, kvh = cfg.hd, cfg.n_kv
+    hc = layers.apply_norm(p["norm_cross"], x, cfg.norm)
+    if enc_out is not None:
+        ck, cv = enc_out @ p["cross"]["wk"], enc_out @ p["cross"]["wv"]
+    else:
+        ck, cv = cache["ck"], cache["cv"]
+    k4 = ck.reshape(b, ck.shape[1], kvh, hd)
+    v4 = cv.reshape(b, cv.shape[1], kvh, hd)
+    c = layers.attention(p["cross"], hc, cfg, rope_cs=None, causal=False,
+                         kv_override=(k4, v4), method=method)
+    return c, (ck, cv)
+
+
+def _block(p, x, cfg, kind: str, *, rope_cs=None, window: int = 0,
+           method: str = "autodiff", cache=None, pos=None, enc_out=None,
+           causal=True, triangle_skip=True, scan_tile=None):
+    """One layer. Returns (x, new_cache_slice, aux)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = layers.apply_norm(p["norm1"], x, cfg.norm)
-    out, new_state = mamba.mamba_core(p["mixer"], h, cfg, method,
-                                      state=cache, pos=pos,
-                                      scan_tile=scan_tile)
-    return x + out, new_state
+    new_cache = cache
+
+    if kind == "mamba":
+        out, new_state = mamba.mamba_core(p["mixer"], h, cfg, method,
+                                          state=cache, pos=pos,
+                                          scan_tile=scan_tile)
+        return x + out, new_state, aux
+
+    attn_kw = dict(rope_cs=rope_cs, causal=causal, window=window, pos=pos,
+                   method=method, triangle_skip=triangle_skip)
+    if kind == "hybrid":
+        attn_cache = cache["attn"] if cache is not None else None
+        ssm_state = cache["ssm"] if cache is not None else None
+        a = layers.attention(p["attn"], h, cfg, cache=attn_cache, **attn_kw)
+        if attn_cache is not None:
+            a, attn_cache = a
+        sout, ssm_state = mamba.mamba_core(p["ssm"], h, cfg, method,
+                                           state=ssm_state, pos=pos,
+                                           scan_tile=scan_tile)
+        # hymba: the mean of the per-branch-normalized outputs
+        mix = 0.5 * (layers.apply_norm(p["norm_attn"], a, cfg.norm)
+                     + layers.apply_norm(p["norm_ssm"], sout, cfg.norm))
+        x = x + mix
+        if cache is not None:
+            new_cache = {"attn": attn_cache, "ssm": ssm_state}
+    else:
+        self_cache = (None if cache is None
+                      else {"k": cache["k"], "v": cache["v"]})
+        a = layers.attention(p["attn"], h, cfg, cache=self_cache, **attn_kw)
+        if self_cache is not None:
+            a, self_cache = a
+        x = x + a
+        if cache is not None:
+            new_cache = dict(cache, **self_cache)
+
+    if "cross" in p and (enc_out is not None or
+                         (cache is not None and "ck" in cache)):
+        c, (ck, cv) = _cross_attend(p, x, cfg, cache, enc_out, method)
+        x = x + c
+        if cache is not None and "ck" in cache:
+            new_cache = dict(new_cache, ck=ck.to(cache["ck"].dtype),
+                             cv=cv.to(cache["cv"].dtype))
+
+    h2 = layers.apply_norm(p["norm2"], x, cfg.norm)
+    if kind == "moe":
+        f, aux = moe.moe_ffn(p["ffn"], h2, cfg, method)
+    else:
+        f = layers.ffn(p["ffn"], h2, cfg, method)
+    return x + f, new_cache, aux
 
 
 def _layer(tree, i):
     return _tree_map(lambda t: t[i], tree)
 
 
-def _run_segments(params, cfg, x, *, method, caches=None, pos=None,
-                  scan_tiles=None):
-    """Walk each segment's layers; returns (x, new_caches | None).
+def _run_segments(params, cfg, x, *, rope_cs=None, method="autodiff",
+                  caches=None, pos=None, enc_out=None, causal=True,
+                  triangle_skip=True, scan_tiles=None):
+    """Walk each segment's layers; returns (x, new_caches | None, aux).
 
     ``scan_tiles`` is an optional per-SEGMENT dict ``{si: (d_tile,
-    chunk)}`` routing that segment's scans through the B13 kernel.
+    chunk)}`` routing that segment's scans (mamba, hybrid) through the B13
+    kernel; the window of each segment is its ``layer_plan`` entry's.
     """
-    _check_ported(cfg)
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     new_caches = [] if caches is not None else None
-    for si, (kind, count, _) in enumerate(cfg.layer_plan()):
+    for si, (kind, count, window) in enumerate(cfg.layer_plan()):
         seg_p = params["segments"][si]
         seg_c = caches[si] if caches is not None else None
         tile = scan_tiles.get(si) if scan_tiles else None
         states = []
         for i in range(count):
-            x, nc = _block(_layer(seg_p, i), x, cfg, kind, method=method,
-                           cache=_layer(seg_c, i) if seg_c else None,
-                           pos=pos, scan_tile=tile)
+            x, nc, aux = _block(
+                _layer(seg_p, i), x, cfg, kind, rope_cs=rope_cs,
+                window=window, method=method,
+                cache=_layer(seg_c, i) if seg_c is not None else None,
+                pos=pos, enc_out=enc_out, causal=causal,
+                triangle_skip=triangle_skip, scan_tile=tile)
+            aux_total = aux_total + aux
             states.append(nc)
         if new_caches is not None:
-            new_caches.append({k: torch.stack([st[k] for st in states])
-                               for k in states[0]})
-    return x, new_caches
+            new_caches.append(_stack(states))
+    return x, new_caches, aux_total
+
+
+# ---------------------------------------------------------------------------
+# embeddings / frontends (precomputed modality embeddings)
+# ---------------------------------------------------------------------------
+
+
+def embed_inputs(params, cfg, batch: Dict, method="autodiff"):
+    """The input dict -> backbone embeddings.
+
+    dense / moe / ssm / hybrid: ``{"tokens": [B, S]}`` -> [B, S, d];
+    vlm: ``{"tokens": [B, S-P], "patches": [B, P, d]}`` -> the patches then
+    the tokens' embeddings; audio: the decoder tokens (the frames go to
+    :func:`encode`)."""
+    te = layers.embed(params["embed"], batch["tokens"], cfg)
+    if cfg.frontend == "patches" and "patches" in batch:
+        return torch.cat([batch["patches"].to(te.dtype), te], dim=1)
+    return te
+
+
+def _rope(cfg, s: int, device):
+    return layers.rope_tables(torch.arange(s, device=device), cfg.hd,
+                              cfg.rope_theta)
+
+
+def encode(params, cfg, frames, method="autodiff"):
+    """Bidirectional encoder over frame embeddings -> [B, S_src, d]."""
+    x = frames.to(cfg.torch_dtype)
+    rope_cs = _rope(cfg, x.shape[1], x.device)
+    enc = params["encoder"]
+    for i in range(cfg.enc_layers):
+        lp = _layer(enc, i)
+        h = layers.apply_norm(lp["norm1"], x, cfg.norm)
+        x = x + layers.attention(lp["attn"], h, cfg, rope_cs=rope_cs,
+                                 causal=False, method=method)
+        h2 = layers.apply_norm(lp["norm2"], x, cfg.norm)
+        x = x + layers.ffn(lp["ffn"], h2, cfg, method)
+    return layers.apply_norm(params["enc_norm"], x, cfg.norm)
 
 
 # ---------------------------------------------------------------------------
@@ -180,66 +299,98 @@ def _run_segments(params, cfg, x, *, method, caches=None, pos=None,
 # ---------------------------------------------------------------------------
 
 
-def embed_inputs(params, cfg, batch: Dict, method="autodiff"):
-    """``{"tokens": [B, S]} -> [B, S, d]`` embeddings."""
-    _check_ported(cfg)
-    return layers.embed(params["embed"], batch["tokens"], cfg)
-
-
 def forward_from_embeddings(params, cfg: ModelConfig, h, *,
-                            method="autodiff", scan_tiles=None):
+                            method="autodiff", enc_frames=None, causal=True,
+                            triangle_skip=True, scan_tiles=None):
     """Backbone from embeddings -> (logits [B,S,vocab] f32, aux).  The
-    attribution entry.  ``scan_tiles`` routes the mamba segments through
-    the B13 kernel (``{segment: (d_tile, chunk)}``); None keeps the chunked
-    scan.  ``aux`` is the JAX package's MoE loss slot, 0 here."""
-    x, _ = _run_segments(params, cfg, h.to(cfg.torch_dtype), method=method,
-                         scan_tiles=scan_tiles)
+    attribution entry.  ``enc_frames`` feed the encoder (encoder-decoder
+    configs); ``scan_tiles`` routes the mamba / hybrid segments through
+    the B13 kernel (``{segment: (d_tile, chunk)}``); None keeps the
+    chunked scan.  ``aux`` is the MoE load-balancing loss (0 without
+    MoE)."""
+    h = h.to(cfg.torch_dtype)
+    rope_cs = _rope(cfg, h.shape[1], h.device)
+    enc_out = None
+    if cfg.enc_layers and enc_frames is not None:
+        enc_out = encode(params, cfg, enc_frames, method)
+    x, _, aux = _run_segments(params, cfg, h, rope_cs=rope_cs, method=method,
+                              enc_out=enc_out, causal=causal,
+                              triangle_skip=triangle_skip,
+                              scan_tiles=scan_tiles)
     x = layers.apply_norm(params["final_norm"], x, cfg.norm)
-    logits = layers.lm_head(params["embed"], x, cfg)
-    return logits, torch.zeros((), device=logits.device)
+    return layers.lm_head(params["embed"], x, cfg), aux
 
 
-def forward(params, cfg: ModelConfig, batch: Dict, *, method="autodiff"):
+def forward(params, cfg: ModelConfig, batch: Dict, *, method="autodiff",
+            triangle_skip=True):
     """Training/eval forward: (logits, aux)."""
     h = embed_inputs(params, cfg, batch, method)
-    return forward_from_embeddings(params, cfg, h, method=method)
+    enc_frames = batch.get("frames") if cfg.enc_layers else None
+    return forward_from_embeddings(params, cfg, h, method=method,
+                                   enc_frames=enc_frames,
+                                   triangle_skip=triangle_skip)
+
+
+# ---------------------------------------------------------------------------
+# serving: cache init / prefill / decode
+# ---------------------------------------------------------------------------
 
 
 def init_cache(cfg: ModelConfig, batch: int, capacity: int,
                src_len: int = 0, *, device=None):
-    """Per-segment cache (f32 ssm state, conv window in the config's
-    dtype) on ``device`` (None: the card).  ``capacity`` sizes attention
-    caches, which mamba has none of."""
-    _check_ported(cfg)
+    """Per-segment cache (fused kv in the config's dtype; f32 ssm state,
+    conv window in the config's dtype) on ``device`` (None: the card).
+    ``capacity`` sizes the self-attention caches, ``src_len`` the
+    encoder-decoder's cross ``ck`` / ``cv``."""
     dev = resolve_device(device)
+    dt = cfg.torch_dtype
     caches = []
-    for _, count, _ in cfg.layer_plan():
-        caches.append({
+    for kind, count, _ in cfg.layer_plan():
+        kv_shape = (count, batch, capacity, cfg.n_kv * cfg.hd)
+        attn_c = {"k": torch.zeros(kv_shape, dtype=dt, device=dev),
+                  "v": torch.zeros(kv_shape, dtype=dt, device=dev)}
+        if cfg.enc_layers and src_len:
+            cross_shape = (count, batch, src_len, cfg.n_kv * cfg.hd)
+            attn_c["ck"] = torch.zeros(cross_shape, dtype=dt, device=dev)
+            attn_c["cv"] = torch.zeros(cross_shape, dtype=dt, device=dev)
+        ssm_c = {
             "h": torch.zeros((count, batch, cfg.d_inner, cfg.ssm_state),
                              dtype=torch.float32, device=dev),
             "conv": torch.zeros((count, batch, cfg.ssm_conv - 1,
-                                 cfg.d_inner), dtype=cfg.torch_dtype,
-                                device=dev),
-        })
+                                 cfg.d_inner), dtype=dt, device=dev)}
+        if kind == "mamba":
+            caches.append(ssm_c)
+        elif kind == "hybrid":
+            caches.append({"attn": attn_c, "ssm": ssm_c})
+        else:
+            caches.append(attn_c)
     return caches
 
 
 def prefill(params, cfg: ModelConfig, batch: Dict, cache, *,
-            method="autodiff"):
-    """Fill caches from a full prompt; returns (last-position logits
-    [B, 1, vocab], cache)."""
+            method="autodiff", triangle_skip=True):
+    """Fill caches from a full prompt (and, with ``batch["frames"]``, the
+    cross ``ck`` / ``cv``); returns (last-position logits [B, 1, vocab],
+    cache)."""
     h = embed_inputs(params, cfg, batch, method).to(cfg.torch_dtype)
-    x, new_caches = _run_segments(params, cfg, h, method=method,
-                                  caches=cache)
+    rope_cs = _rope(cfg, h.shape[1], h.device)
+    enc_out = None
+    if cfg.enc_layers and "frames" in batch:
+        enc_out = encode(params, cfg, batch["frames"], method)
+    x, new_caches, _ = _run_segments(params, cfg, h, rope_cs=rope_cs,
+                                     method=method, caches=cache,
+                                     enc_out=enc_out,
+                                     triangle_skip=triangle_skip)
     x = layers.apply_norm(params["final_norm"], x[:, -1:], cfg.norm)
     return layers.lm_head(params["embed"], x, cfg), new_caches
 
 
 def decode_step(params, cfg: ModelConfig, tokens, cache, pos, *,
                 method="autodiff"):
-    """One decode step: tokens [B, 1] at position ``pos``."""
+    """One decode step: tokens [B, 1] at position ``pos`` (an int); the
+    RoPE tables come from ``pos``."""
     h = layers.embed(params["embed"], tokens, cfg)
-    x, new_caches = _run_segments(params, cfg, h, method=method,
-                                  caches=cache, pos=pos)
+    x, new_caches, _ = _run_segments(params, cfg, h, rope_cs=(),
+                                     method=method, caches=cache, pos=pos)
     x = layers.apply_norm(params["final_norm"], x, cfg.norm)
     return layers.lm_head(params["embed"], x, cfg), new_caches

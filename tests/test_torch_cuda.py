@@ -2157,3 +2157,141 @@ def test_bf16_autograd_paths_on_card_match_cpu_twin(gen):
     for g, g_c in zip(*grads):
         assert g.dtype == torch.float32
         close(g, g_c)
+
+
+# -- the LM zoo on the card: attention, the MoE, every SMOKE stack -------------
+
+
+def _rel(got, want):
+    return ((got.float().cpu() - want.float().cpu()).abs().max().item()
+            / want.float().abs().max().item())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_attention_on_card_matches_cpu(gen, dtype):
+    """The three sdpa shapes on the card against the CPU (f32 1e-6, bf16
+    1e-2 of max; TF32 off), and the chunked attention at a ragged length
+    (S = 40, chunks of 16) equal to full attention on the card."""
+    from repro_torch.models import layers
+    b, s, h, kvh, hd = 2, 40, 10, 2, 16
+    q, k, v = (_randn(gen, b, s, n, hd).to(dtype) for n in (h, kvh, kvh))
+    pos = torch.arange(s, device="cuda")
+    tol = 1e-6 if dtype == torch.float32 else 1e-2
+    for causal, window in ((True, 0), (True, 24), (False, 0)):
+        lay = layers._head_layout(q, k, v, h // kvh)
+        full = layers._sdpa_full(*lay, q_pos=pos, k_pos=pos, causal=causal,
+                                 window=window)
+        cpu = layers._sdpa_full(*(t.cpu() for t in lay), q_pos=pos.cpu(),
+                                k_pos=pos.cpu(), causal=causal,
+                                window=window)
+        assert full.dtype == dtype and _rel(full, cpu) <= tol
+        for skip in (False, True):
+            chunked = layers._sdpa_chunked(*lay, q_pos=pos, k_pos=pos,
+                                           causal=causal, window=window,
+                                           qc=16, kc=16, triangle_skip=skip)
+            assert _rel(chunked, full) <= max(tol, 1e-6)
+        qg = q[:, 29:30].reshape(b, 1, kvh, h // kvh, hd)
+        dec = layers._sdpa_grouped(qg, k, v, q_pos=pos[29:30], k_pos=pos,
+                                   causal=causal, window=window)
+        dec_c = layers._sdpa_grouped(qg.cpu(), k.cpu(), v.cpu(),
+                                     q_pos=pos[29:30].cpu(), k_pos=pos.cpu(),
+                                     causal=causal, window=window)
+        assert _rel(dec, dec_c) <= tol
+
+
+def _moe_setup(dtype):
+    from repro_torch import configs
+    from repro_torch.models import moe
+    cfg = configs.get_smoke("moonshot-v1-16b-a3b").with_(dtype=dtype)
+    p = moe.init_moe(torch.Generator().manual_seed(0), cfg)
+    x = torch.randn(2, 24, cfg.d_model,
+                    generator=torch.Generator().manual_seed(1)).to(
+                        cfg.torch_dtype)
+    return cfg, p, x
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_moe_is_deterministic_on_the_card(gen, dtype):
+    """The MoE forward and its backward (input, router and expert
+    gradients) give the same bits on two calls on the card; in f32 the
+    routing (expert ids and each slot's token) equals the CPU's and the
+    outputs are within 1e-5 of max (capacity factor 0.5: experts
+    overflow)."""
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as tf
+    cfg, p, x = _moe_setup(dtype)
+    cfg = cfg.with_(capacity_factor=0.5)
+    card = tf.params_to(p, "cuda")
+
+    def run(params, xx):
+        leaves = {k: v.detach().requires_grad_()
+                  for k, v in params.items() if k != "shared"}
+        params = dict(params, **leaves)
+        xx = xx.detach().requires_grad_()
+        y, aux = moe.moe_ffn(params, xx, cfg, method="saliency")
+        seed = torch.ones_like(y)
+        grads = torch.autograd.grad((y * seed).sum() + aux,
+                                    [xx] + list(leaves.values()))
+        return [y, aux] + list(grads)
+
+    first, second = run(card, x.cuda()), run(card, x.cuda())
+    for a, b_ in zip(first, second):
+        assert torch.equal(a, b_)
+    if dtype == "float32":
+        xt = x.reshape(-1, cfg.d_model)
+        c = moe._capacity(xt.shape[0], cfg)
+        ids_c = moe.route(p, xt, cfg)[1]
+        ids = moe.route(card, xt.cuda(), cfg)[1]
+        assert torch.equal(ids.cpu(), ids_c)
+        assert torch.equal(moe.dispatch(ids, cfg, c)[0].cpu(),
+                           moe.dispatch(ids_c, cfg, c)[0])
+        assert int(torch.bincount(ids_c.reshape(-1)).max()) > c
+        cpu = run(p, x)
+        for a, b_ in zip(first, cpu):
+            assert _rel(a, b_) <= 1e-5
+
+
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "phi4-mini-3.8b",
+                                  "qwen2-1.5b", "internlm2-20b",
+                                  "llama4-scout-17b-a16e",
+                                  "moonshot-v1-16b-a3b", "hymba-1.5b",
+                                  "seamless-m4t-medium",
+                                  "llava-next-mistral-7b"])
+def test_zoo_smoke_on_card_matches_cpu(gen, arch):
+    """Each SMOKE stack (f32) on the card against the CPU: logits of
+    ``forward`` within 1e-5 of max, the greedy tokens equal, contrastive
+    per-token scores within 1e-4 of max with exact causal zeros, hymba's
+    scans through B13 and its backward (one launch a layer an explain)."""
+    from repro_torch import configs, lm
+    from repro_torch.kernels import reset_launches
+    from repro_torch.models import transformer as tf
+    cfg = configs.get_smoke(arch).with_(residual_policy="exact")
+    params = tf.init(cfg, generator=torch.Generator().manual_seed(0),
+                     device="cpu")
+    card = tf.params_to(params, "cuda")
+    g = torch.Generator().manual_seed(1)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (2, 12), generator=g)}
+    if cfg.frontend == "patches":
+        batch["patches"] = torch.randn(2, cfg.n_patches, cfg.d_model,
+                                       generator=g)
+    if cfg.enc_layers:
+        batch["frames"] = torch.randn(2, 10, cfg.d_model, generator=g)
+    on_card = {k: v.cuda() for k, v in batch.items()}
+    assert _rel(tf.forward(card, cfg, on_card)[0],
+                tf.forward(params, cfg, batch)[0]) <= 1e-5
+    res_c = lm.decode(params, cfg, batch["tokens"], max_new=3)
+    res = lm.decode(card, cfg, batch["tokens"], max_new=3)
+    assert torch.equal(res.tokens.cpu(), res_c.tokens)
+    frames = batch.get("frames")
+    reset_launches()
+    sc = lm.explain_generated(card, cfg, res, frames=None if frames is None
+                              else frames.cuda())
+    torch.cuda.synchronize()
+    hybrid = cfg.family == "hybrid"
+    assert LAUNCHES["selective_scan"] == 3 * cfg.n_layers * hybrid
+    assert LAUNCHES["selective_scan_bwd"] == 3 * cfg.n_layers * hybrid
+    sc_c = lm.explain_generated(params, cfg, res_c, frames=frames)
+    assert _rel(sc, sc_c) <= 1e-4
+    for t in range(3):
+        assert bool((sc[:, t, 12 + t:] == 0).all())

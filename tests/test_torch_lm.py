@@ -9,8 +9,8 @@ The same parameters (``repro``'s ``transformer.init``, copied by
   ``decode_step``, greedy ``decode`` (tokens and runners-up equal);
 * per-token scores: ``explain_generated``, ``make_token_explain`` in all
   three modes x saliency / deconvnet / guided, ``Engine.explain_tokens``;
-* exact causal zeros, contrastive = ixg(a) - ixg(b), and the
-  ``NotImplementedError`` of what is not ported.
+* exact causal zeros, contrastive = ixg(a) - ixg(b), and what the port
+  refuses (the other archs: ``tests/test_torch_lm_zoo_*.py``).
 
 Tolerances (relative to the reference's max |value|):
 
@@ -47,7 +47,6 @@ from repro.models import config as jconfig
 from repro.models import transformer as jtf
 from repro_torch import configs, lm
 from repro_torch.engine import EngineSpec, LMModel, build
-from repro_torch.engine import methods
 from repro_torch.launch import steps
 from repro_torch.models import transformer as tf
 from repro_torch.models.config import ModelConfig
@@ -135,8 +134,8 @@ def test_configs_match_repro():
 
 @pytest.mark.parametrize("arch", jconfigs.ARCHS)
 def test_every_zoo_config_is_representable(arch):
-    """Block kinds other than mamba stay representable: each config of the
-    zoo, rebuilt in the port, plans and counts as the JAX package's."""
+    """Each config of the zoo, rebuilt in the port, plans and counts as
+    the JAX package's."""
     want = jconfigs.get(arch)
     got = ModelConfig(**dataclasses.asdict(want))
     for prop in ("layer_plan", "segments", "param_count",
@@ -339,29 +338,7 @@ def test_engine_explain_tokens_matches(setup, mode):
     _close(scores, jscores, setup.tol["scores"])
 
 
-# -- what is not ported --------------------------------------------------------
-
-
-@pytest.mark.parametrize("arch", [a for a in jconfigs.ARCHS if a != ARCH])
-def test_unported_archs_raise(arch):
-    with pytest.raises(NotImplementedError, match="A11b"):
-        configs.get(arch)
-    with pytest.raises(NotImplementedError, match="A11b"):
-        configs.get_smoke(arch)
-
-
-@pytest.mark.parametrize("family", ["dense", "moe", "hybrid"])
-def test_unported_block_kinds_raise(family):
-    cfg = ModelConfig(family=family, n_layers=2, d_model=32, n_heads=2,
-                      n_kv=2, d_ff=64, vocab=64, n_experts=4 * (
-                          family == "moe"), top_k=2 * (family == "moe"),
-                      ssm_state=4, dtype="float32")
-    with pytest.raises(NotImplementedError, match="A11b"):
-        tf.init(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="A11b"):
-        tf.init_cache(cfg, 1, 8, device="cpu")
-    with pytest.raises(NotImplementedError, match="A11b"):
-        tf.init(configs.get_smoke(ARCH).with_(enc_layers=2), device="cpu")
+# -- what the port refuses ------------------------------------------------------
 
 
 def test_unported_knobs_and_handles_raise(setup):
@@ -384,9 +361,6 @@ def test_unported_knobs_and_handles_raise(setup):
         EngineSpec(LMModel(p, cfg, device="cpu"), device="mesh:edge-small:2")
     with pytest.raises(ValueError, match="mode"):
         lm.make_token_explain(cfg, mode="nope")
-    with pytest.raises(NotImplementedError, match="A11b"):
-        methods.attribute_tokens(lambda e: e, torch.zeros(1, 2, 3),
-                                 backward=object())
     from repro_torch.engine import CNNModel
     from repro_torch.models import cnn
     ccfg = cnn.CNNConfig(in_hw=(8, 8), channels=(4, 4), fc=(8,),

@@ -305,9 +305,9 @@ def test_driver_device_profile_reaches_the_engine(tmp_path):
     assert "planned tiles for device profile 'edge-small'" in r.stdout
     assert "conv0.fwd    ConvTile(co_tile=32)" in r.stdout
     r = _driver(tmp_path, "-m", "repro_torch.launch.serve", "--workload",
-                "lm", "--torch-device", "cpu", "--prompt-len", "8",
-                "--max-new", "1", "--requests", "1", "--method",
-                "token_ixg", "--device-profile", "tpu-v4")
+                "lm", "--arch", "falcon-mamba-7b", "--torch-device", "cpu",
+                "--prompt-len", "8", "--max-new", "1", "--requests", "1",
+                "--method", "token_ixg", "--device-profile", "tpu-v4")
     assert r.returncode == 0, r.stderr
     assert "planned ssm_scan tiles for device profile 'tpu-v4'" in r.stdout
 

@@ -262,11 +262,14 @@ Phases (every failed check raises; nothing is caught and carried on):
    8 tokens twice, equal; contrastive ``explain_generated`` (scores after
    each seed exactly 0, all finite), contrastive = ixg(a) - ixg(b) within
    REPLAY_TOL on the same weights in f32 (the bf16 figure printed: in bf16
-   it measures rounding, ``_zoo_f32_checks``), an engine explain; host and device-span ms of a
-   decode step, a per-token explain and the engine explain.  hymba-1.5b,
+   it measures rounding, ``_zoo_f32_checks``), an engine explain; host
+   and device-span ms of a decode step, a per-token explain and the
+   engine explain.  hymba-1.5b,
    the slice's main path (counted as path ``lm_zoo``): 32 B13 and 32 B13
    bwd launches an explain and none in prefill or decode, each layer's
-   B13 against the chunked scan, the explain's logits within
+   B13 against the chunked scan and, in a per-token explain, each
+   layer's bf16 B13 backward against the plain reverse recurrence on its
+   own operands (phase 2's SCAN_GRAD_TOL), the explain's logits within
    LM_LOGITS_FACTOR times the chunked route's bf16 error, a per-token
    explain through the B13 backward within REPLAY_TOL of autograd over
    the chunked scan in f32 (bf16 printed), an analytic ``h100``
@@ -274,15 +277,22 @@ Phases (every failed check raises; nothing is caught and carried on):
    unplanned one, and phase 7b's LMAdapter server on it; five f32 twins
    (qwen2, moonshot, hymba, seamless with frames, llava with patches) at
    depth 2 on 2 x 32 tokens against the CPU: logits within DOT_TOL, ixg
-   scores within REPLAY_TOL of max, the MoE's routing equal; moonshot's
-   MoE at full width bitwise on two calls, forward and backward.
+   scores within REPLAY_TOL of max, the MoE's routing equal; the same
+   five in bf16 on the CPU's top two targets (logits, and the embedding
+   gradients of a contrastive and an ixg seed, no farther from the f32
+   evaluation of the same weights than LM_LOGITS_FACTOR times the CPU
+   bf16 twin; their scores within ZOO_BF16_SCORES_TOL of max sum_d
+   |rel*e| of the CPU twin's; each device's bf16 linearity printed);
+   moonshot's MoE at full width bitwise on two calls, forward and
+   backward.
 
 Last, the profiler column of phase 2: every row's kernel (and general
 route) 50 times under one profiler session, its CUPTI time per call;
 then one saliency explain of each CNN path, Table IV's f32 FP+BP at
 batch 1 and 32, one training step, one LM decode step and one per-token
-LM explain (falcon-mamba-7b, and hymba-1.5b's) under ``torch.profiler``: kernel time by kernel and by family
-against the device time measured before (the device's idle share); the
+LM explain (falcon-mamba-7b, and hymba-1.5b's) under ``torch.profiler``:
+kernel time by kernel and by family against the device time measured
+before (the device's idle share); the
 bf16 explain's kernels by name must show the forwards and backwards on
 the tensor cores, each FC layer one CUDA kernel (``BF16_MMA_KERNELS``).  This
 comes after every timing, since a profiler session slows what runs after
@@ -3868,6 +3878,38 @@ def _b13_layer_errs(params, cfg, tokens):
     return errs
 
 
+def _b13_bwd_layer_errs(explain, n_layers):
+    """``explain()`` once, each layer's B13 backward held against the plain
+    reverse recurrence (``ref.selective_scan_bwd``) on the same operands,
+    cotangents and ``needs``, at phase 2's tolerance (:func:`_grad_close`).
+    Returns the largest |d| of each layer's gradients.  As in
+    :func:`_b13_layer_errs`, the wrapper is swapped for this one explain and
+    its launches are comparisons, not counted."""
+    from repro_torch.kernels.ssm_scan import ref as scan_ref
+    from repro_torch.kernels.ssm_scan import ssm_scan
+    real, errs = ssm_scan.selective_scan_bwd, []
+
+    def held(dt, x, bmat, cmat, a, h0, gy, gh, *, d_tile, chunk,
+             needs=None):
+        got = real(dt, x, bmat, cmat, a, h0, gy, gh, d_tile=d_tile,
+                   chunk=chunk, needs=needs)
+        want = scan_ref.selective_scan_bwd(dt, x, bmat, cmat, a, h0, gy, gh,
+                                           needs)
+        what = f"lm layer {len(errs)}: B13 bwd vs the plain recurrence"
+        errs.append(max(_grad_close(g, w, what) for g, w in zip(got, want)
+                        if g is not None))
+        return got
+
+    ssm_scan.selective_scan_bwd = held
+    try:
+        explain()
+    finally:
+        ssm_scan.selective_scan_bwd = real
+    if len(errs) != n_layers:
+        fail(f"lm: {len(errs)} scan backwards held, want {n_layers}")
+    return errs
+
+
 def _f32_last_logits(params, cfg, tokens):
     """Last-position logits of the same weights evaluated in f32, layer by
     layer (each layer's weights widened as it runs; chunked scan; each
@@ -5209,6 +5251,17 @@ ZOO_FRAMES = 64
 #: not what these twins hold.
 ZOO_TWINS = ("qwen2-1.5b", "moonshot-v1-16b-a3b", "hymba-1.5b",
              "seamless-m4t-medium", "llava-next-mistral-7b")
+#: The same five twins in bf16 (the dtype the explains above run in, so a
+#: fault of a bf16 path on the card shows), on the CPU's top two targets.
+#: The last-position logits and the embedding gradients of a contrastive
+#: and an ixg seed are compared with the f32 evaluation of the same weights
+#: on the CPU: the card's distance from it within LM_LOGITS_FACTOR times
+#: the CPU bf16 twin's own (the card rounds no worse than the CPU).  Their
+#: scores, sums over d that cancel (one bf16 step apart anywhere in the
+#: backward moves them by several % of max |score|, by chance more on one
+#: device than the other), within ZOO_BF16_SCORES_TOL of max sum_d |rel*e|
+#: of the CPU bf16 twin's: the scale of a bf16 sum's rounding error.
+ZOO_BF16_SCORES_TOL = 5e-2
 
 
 def _zoo_inputs(cfg, batch, seq, gen, device):
@@ -5245,11 +5298,13 @@ def _zoo_f32_checks(params, cfg, res, frames):
     backward through attention (the bf16 ``p`` of ``p @ v`` into the
     softmax's cancelling backward) and through hymba's per-branch norms
     amplifies where two computations round their cotangents.  On the card
-    (phase 13) the bf16 contrastive seed sat 0.015 (llama3.2, 16
-    layers) to 0.22 (llava, 32) and 0.34 (hymba) of max from the ixg
-    difference, hymba's B13 backward 0.18 from autograd over the chunked
-    scan; ``repro``'s own bf16 stack on the CPU is as far (hymba SMOKE:
-    0.27, the port 0.26).  In f32 the same comparisons read 1e-5."""
+    the bf16 contrastive seed sat 0.015 (llama3.2, 16 layers) to 0.22
+    (llava, 32) and 0.34 (hymba) of max from the ixg difference, hymba's
+    B13 backward 0.18 from autograd over the chunked scan, and the bf16
+    twins (:func:`check_zoo_twin_bf16`) print the CPU's bf16 explain as
+    far from linear as the card's.  In f32 the same comparisons read
+    1e-5.  The bf16 path itself is held by the bf16 twins and, on hymba,
+    each layer's B13 backward by :func:`_b13_bwd_layer_errs`."""
     from repro_torch import lm
     from repro_torch.models import transformer as tf
     t, pos = LM_NEW - 1, LM_PROMPT + LM_NEW - 2
@@ -5401,7 +5456,9 @@ def check_zoo_arch(arch, launches, to_profile):
 
 def _check_zoo_hybrid(params, cfg, res, prompts, eng, lg, token_explain,
                       totals, to_profile, times):
-    """hymba-1.5b: each layer's B13 against the chunked scan, the explain's
+    """hymba-1.5b: each layer's B13 against the chunked scan and, in one
+    per-token explain, each layer's bf16 B13 backward against the plain
+    reverse recurrence on its own operands, the explain's
     logits against the chunked route's own bf16 error, one per-token
     explain through the B13 backward against autograd over the chunked
     scan (printed; held in f32 by :func:`_zoo_f32_checks`), an analytic
@@ -5420,6 +5477,7 @@ def _check_zoo_hybrid(params, cfg, res, prompts, eng, lg, token_explain,
              f"{logit_err:.3e} of max|logit|, beyond {LM_LOGITS_FACTOR} x "
              f"the chunked route's bf16 error {chunk_err:.3e}")
     layer_errs = _b13_layer_errs(params, cfg, prompts)
+    bwd_errs = _b13_bwd_layer_errs(token_explain, cfg.n_layers)
     route_bf16 = _rel_err(token_explain(), _through_chunked_grad(
         token_explain))
     s_full = LM_PROMPT + LM_NEW
@@ -5446,7 +5504,9 @@ def _check_zoo_hybrid(params, cfg, res, prompts, eng, lg, token_explain,
     print(f"    hymba: {cfg.n_layers} B13 and {cfg.n_layers} B13 bwd "
           f"launches per explain, none in prefill or decode; B13 vs the "
           f"chunked scan in each layer's forward: max|dy| "
-          f"{max(layer_errs):.2e}; B13 vs chunked logits {logit_err:.2e} of "
+          f"{max(layer_errs):.2e}; each layer's bf16 B13 backward in the "
+          f"explain vs the plain recurrence on its operands: max|d| "
+          f"{max(bwd_errs):.2e}; B13 vs chunked logits {logit_err:.2e} of "
           f"max (chunked vs f32 weights {chunk_err:.2e}); scores through "
           f"the B13 backward vs autograd over the chunked scan "
           f"{route_bf16:.2e} of max in bf16 (not held: see "
@@ -5456,7 +5516,8 @@ def _check_zoo_hybrid(params, cfg, res, prompts, eng, lg, token_explain,
           f"max_batch {LM_BATCH}")
     serve = check_serve_lm(params, cfg, prompts)
     return dict(logits_vs_chunked=logit_err, chunked_vs_f32=chunk_err,
-                layer_errs=layer_errs, route_err_bf16=route_bf16,
+                layer_errs=layer_errs, bwd_layer_errs=bwd_errs,
+                route_err_bf16=route_bf16,
                 serve=serve)
 
 
@@ -5528,6 +5589,96 @@ def check_zoo_twin(arch):
                 moe_layers=len(routes["cpu"]))
 
 
+def _token_relevance(params, cfg, batch, ta, tb):
+    """Last-position logits; the embedding gradient and scores of a
+    contrastive (``ta`` vs ``tb``) and an ixg (``ta``) seed there; and the
+    contrastive scores' distance from ixg(a) - ixg(b) of max; and the
+    embeddings; through the explain's own route (B13's knobs on hybrid
+    stacks)."""
+    from repro_torch.engine import methods as engine_methods
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as tf
+    h = tf.embed_inputs(params, cfg, batch)
+    tiles = steps.ssm_scan_tiles(cfg)
+
+    def f(e):
+        return tf.forward_from_embeddings(params, cfg, e,
+                                          enc_frames=batch.get("frames"),
+                                          scan_tiles=tiles)[0]
+
+    lg, rel_c, sc_c = engine_methods.attribute_tokens_contrastive(
+        f, h, target_a=ta, target_b=tb)
+    _, rel_a, sc_a = engine_methods.attribute_tokens(f, h, target=ta)
+    sc_b = engine_methods.attribute_tokens(f, h, target=tb)[2]
+    return ({"logits": lg[:, -1], "contrastive gradient": rel_c,
+             "contrastive scores": sc_c, "ixg gradient": rel_a,
+             "ixg scores": sc_a}, _rel_err(sc_c, sc_a - sc_b), h)
+
+
+def check_zoo_twin_bf16(arch):
+    """One bf16 twin: ``FULL.with_(n_layers=2, dtype="bfloat16",
+    residual_policy="exact")`` on the card and on the CPU with the same
+    parameters, seeded on the CPU's top two logits (a near tie cannot
+    pick other targets on the card), and the same weights widened to f32
+    on the CPU: logits and
+    gradients on the card within LM_LOGITS_FACTOR times the CPU bf16
+    twin's distance from the f32 ones, scores within ZOO_BF16_SCORES_TOL
+    of max sum_d |rel*e| of the CPU bf16 twin's.  Each device's bf16
+    linearity printed."""
+    from repro_torch import configs
+    from repro_torch.engine import methods as engine_methods
+    from repro_torch.models import transformer as tf
+
+    cfg = configs.get(arch).with_(n_layers=2, dtype="bfloat16",
+                                  residual_policy="exact")
+    params = tf.init(cfg, generator=torch.Generator().manual_seed(0),
+                     device="cpu")
+    batch = _zoo_inputs(cfg, LM_TWIN_BATCH, LM_TWIN_SEQ,
+                        torch.Generator().manual_seed(2), "cpu")
+    with torch.no_grad():
+        at = tf.forward(params, cfg, batch)[0][:, -1]
+    top = engine_methods.top_k(at.float(), 2)
+    ta, tb = top[:, 0], top[:, 1]
+    exact, _, _ = _token_relevance(tf._tree_map(lambda v: v.float(),
+                                                params),
+                                   cfg.with_(dtype="float32"), batch, ta, tb)
+    cpu, lin_cpu, e_cpu = _token_relevance(params, cfg, batch, ta, tb)
+    dev, lin_dev, _ = _token_relevance(
+        tf.params_to(params, "cuda"), cfg,
+        {k: v.cuda() for k, v in batch.items()}, ta.cuda(), tb.cuda())
+    out = {k: dict(card=_rel_err(dev[k].cpu(), v),
+                   cpu=_rel_err(cpu[k], v)) for k, v in exact.items()}
+    bad = [k for k, v in out.items() if "scores" not in k
+           and not v["card"] <= LM_LOGITS_FACTOR * v["cpu"]]
+    for mode in ("contrastive", "ixg"):
+        terms = (cpu[f"{mode} gradient"].float() * e_cpu.float()).abs().sum(
+            -1).max().item()
+        sc = out[f"{mode} scores"]
+        sc["card_vs_cpu_of_terms"] = (dev[f"{mode} scores"].cpu().float()
+                                      - cpu[f"{mode} scores"].float()).abs(
+                                      ).max().item() / terms
+        if not sc["card_vs_cpu_of_terms"] <= ZOO_BF16_SCORES_TOL:
+            bad.append(f"{mode} scores")
+    out.update(linearity_card=lin_dev, linearity_cpu=lin_cpu)
+    print(f"  twin {arch} (depth 2, bf16, {LM_TWIN_BATCH} x {LM_TWIN_SEQ}"
+          + (f" + {cfg.n_patches} patches" if cfg.frontend == "patches"
+             else "")
+          + (f" + {ZOO_FRAMES} frames" if cfg.enc_layers else "")
+          + "), card / CPU bf16 distance from f32 of max: "
+          + "; ".join(f"{k} {v['card']:.2e} / {v['cpu']:.2e}"
+                      for k, v in out.items() if k in exact)
+          + "; scores card vs CPU of max sum|rel*e|: " + ", ".join(
+              f"{m} {out[m + ' scores']['card_vs_cpu_of_terms']:.2e}"
+              for m in ("contrastive", "ixg"))
+          + f"; contrastive vs ixg(a) - ixg(b): card {lin_dev:.2e}, CPU "
+          f"{lin_cpu:.2e} of max")
+    if bad:
+        fail(f"lm zoo bf16 twin {arch}: {bad} beyond {LM_LOGITS_FACTOR} x "
+             f"the CPU's bf16 distance from f32 (scores: "
+             f"{ZOO_BF16_SCORES_TOL} of max sum|rel*e|): {out}")
+    return out
+
+
 def check_moe_determinism():
     """moonshot-v1-16b-a3b's MoE at full width (64 experts, top 6, a
     shared pair, bf16): forward and backward (input, router and expert
@@ -5560,12 +5711,9 @@ def check_moe_determinism():
 
 def check_lm_zoo(launches, to_profile):
     """Phase 13: every config of the zoo but falcon-mamba at full width in
-    bf16 (``ZOO_DEPTH``'s cuts), hymba-1.5b's B13 path, the five f32
-    twins, the MoE's determinism."""
-    matmul = torch.backends.cuda.matmul
-    reduced = matmul.allow_bf16_reduced_precision_reduction
-    matmul.allow_bf16_reduced_precision_reduction = False   # one rounding
-    results, failed = {"archs": {}, "twins": {}}, []
+    bf16 (``ZOO_DEPTH``'s cuts), hymba-1.5b's B13 path, the five twins in
+    f32 and in bf16, the MoE's determinism."""
+    results, failed = {"archs": {}, "twins": {}, "twins_bf16": {}}, []
 
     def each(group, arch, fn):
         # a config that fails is reported, and the others still run; the
@@ -5580,16 +5728,15 @@ def check_lm_zoo(launches, to_profile):
         clear_cache()
         torch.cuda.empty_cache()
 
-    try:
-        for arch in ZOO_ARCHS:
-            torch.cuda.reset_peak_memory_stats()
-            each("archs", arch, lambda a: check_zoo_arch(a, launches,
-                                                         to_profile))
-        for arch in ZOO_TWINS:
-            each("twins", arch, check_zoo_twin)
-        check_moe_determinism()
-    finally:
-        matmul.allow_bf16_reduced_precision_reduction = reduced
+    for arch in ZOO_ARCHS:
+        torch.cuda.reset_peak_memory_stats()
+        each("archs", arch, lambda a: check_zoo_arch(a, launches,
+                                                     to_profile))
+    for arch in ZOO_TWINS:
+        each("twins", arch, check_zoo_twin)
+    for arch in ZOO_TWINS:
+        each("twins_bf16", arch, check_zoo_twin_bf16)
+    check_moe_determinism()
     torch.cuda.empty_cache()
     if failed:
         fail(f"phase 13: {len(failed)} config(s) failed: " + " | ".join(
@@ -5648,9 +5795,6 @@ def main() -> int:
                          "B1/B4/B5/B6 bf16, B5/B8, B7, B9 and B6/B10 (K "
                          "splits, clusters, grids of tile plans) and stop; "
                          "--out gets kernel_sweep.json")
-    ap.add_argument("--zoo", action="store_true",
-                    help="after phase 1, run phase 13 (the LM zoo) alone "
-                         "and stop")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke test needs one",
@@ -5733,19 +5877,6 @@ def main() -> int:
             args.out.mkdir(parents=True, exist_ok=True)
             (args.out / "kernel_sweep.json").write_text(json.dumps(dict(
                 device=kind, nvidia_smi=smi, **rows), indent=1))
-        print(smi)
-        return 0
-
-    if args.zoo:
-        launches = {}
-        print("phase 13 (lm zoo) alone")
-        zoo_results = check_lm_zoo(launches, [])
-        check_path_launches("lm_zoo", launches["lm_zoo"])
-        if args.out is not None:
-            args.out.mkdir(parents=True, exist_ok=True)
-            (args.out / "chip_smoke_zoo.json").write_text(json.dumps(dict(
-                device=kind, nvidia_smi=smi, lm_zoo=zoo_results,
-                launches=launches), indent=1))
         print(smi)
         return 0
 
@@ -5854,7 +5985,8 @@ def main() -> int:
     print(f"phase 13 (lm zoo): the other nine configs at full width, bf16, "
           f"{LM_BATCH} prompts x {LM_PROMPT} tokens, {LM_NEW} greedy tokens "
           f"(depth cut: {ZOO_DEPTH}); hymba-1.5b through B13; "
-          f"{len(ZOO_TWINS)} f32 twins; the MoE's determinism")
+          f"{len(ZOO_TWINS)} twins in f32 and in bf16; the MoE's "
+          f"determinism")
     zoo_results = check_lm_zoo(launches, to_profile)
     check_path_launches("lm_zoo", launches["lm_zoo"])
 

@@ -10,19 +10,24 @@
   assignment writes nowhere: the JAX package points it at the expert's
   slot 0, where XLA's unordered duplicate scatter may overwrite the first
   kept token (ROADMAP C), so the two agree wherever no expert overflows.
-* Expert compute on ``[E, C, d]``: bf16 (or f32) batched products with
-  f32 accumulation, rounded once, as the JAX package's einsums with
-  ``preferred_element_type`` then ``astype``; the gates through
-  ``rules.act``, so attribution crosses the experts with the method.
+* Expert compute on ``[E, C, d]``: bf16 (or f32) batched products
+  (``torch.bmm``: f32 accumulation, the output in the operands' dtype),
+  where the JAX package's einsums take ``preferred_element_type`` then
+  ``astype``; the gates through ``rules.act``, so attribution crosses the
+  experts with the method.  Like every bf16 product of the port they run
+  under PyTorch's default settings, so cuBLAS may reduce split-K partial
+  sums in bf16 (``allow_bf16_reduced_precision_reduction``).
 * Combine: each slot's output times its gate in the compute dtype, then
   each token's (at most k) slots summed in slot order, from zero, in that
   dtype: the order of XLA's scatter-add.
 
 Dispatch and combine are deterministic on the card: no scatter with
-duplicate indices and no atomic add, forward or backward.  They are a
-pair of autograd Functions, each the other's backward: a gather of slot
-rows by token (:class:`_SlotGather`) and an ordered per-token sum of slot
-rows (:class:`_SlotSum`).
+duplicate indices and no atomic add onto a row that is kept, forward or
+backward.  The gates (by assignment) and the combine (slot rows by token)
+gather real rows at distinct indices, so their plain autograd backwards
+add at most once into each real row (the zero padding row, which may take
+many, is discarded).  Only the dispatch gathers a token more than once; its
+backward is :class:`_SlotGather`'s ordered per-token sum.
 """
 from __future__ import annotations
 
@@ -75,50 +80,21 @@ def _gather_rows(x: torch.Tensor, tok: torch.Tensor) -> torch.Tensor:
 
 
 class _SlotGather(torch.autograd.Function):
-    """``xe[s] = x[tok[s]]`` (``tok[s] = T``: an empty slot, zeros); the
-    backward sums each token's slot gradients in slot order."""
+    """``xe[s] = x[tok[s]]`` (``tok[s] = T``: an empty slot, zeros).  A
+    token fills up to k slots, so its gradient is a sum: the backward sums
+    each token's slot gradients in slot order (``slots`` [T, k] ascending,
+    ``E*C`` where dropped), where ``index_select``'s own backward would add
+    them atomically."""
 
     @staticmethod
     def forward(ctx, x, tok, slots):
-        ctx.save_for_backward(tok, slots)
+        ctx.save_for_backward(slots)
         return _gather_rows(x, tok)
 
     @staticmethod
     def backward(ctx, g):
-        tok, slots = ctx.saved_tensors
-        return _SlotSum.apply(g, tok, slots), None, None
-
-
-class _Bijection(torch.autograd.Function):
-    """``out[i] = x[fwd[i]]`` for a partial bijection (``fwd[i] = len(x)``:
-    zero); the backward gathers back through ``inv`` (``inv[j] =
-    len(out)`` where ``x[j]`` reaches no output)."""
-
-    @staticmethod
-    def forward(ctx, x, fwd, inv):
-        ctx.save_for_backward(fwd, inv)
-        return _gather_rows(x, fwd)
-
-    @staticmethod
-    def backward(ctx, g):
-        fwd, inv = ctx.saved_tensors
-        return _Bijection.apply(g, inv, fwd), None, None
-
-
-class _SlotSum(torch.autograd.Function):
-    """``out[t] = sum of y[s] over token t's slots``, in slot order
-    (``slots`` [T, k] ascending, ``E*C`` where dropped); the backward
-    gathers each slot's token gradient."""
-
-    @staticmethod
-    def forward(ctx, y, tok, slots):
-        ctx.save_for_backward(tok, slots)
-        return _ordered_sum(y, slots)
-
-    @staticmethod
-    def backward(ctx, g):
-        tok, slots = ctx.saved_tensors
-        return _SlotGather.apply(g, tok, slots), None, None
+        (slots,) = ctx.saved_tensors
+        return _ordered_sum(g, slots), None, None
 
 
 def route(p, xt: torch.Tensor, cfg):
@@ -139,9 +115,8 @@ def route(p, xt: torch.Tensor, cfg):
 def dispatch(expert_ids: torch.Tensor, cfg, c: int):
     """The capacity dispatch of ``expert_ids [T, k]``: ``(tok [E*C]``: the
     token of each slot, ``T`` where empty; ``assign [E*C]``: the flat
-    assignment ``t*k + j`` of each slot, ``T*k`` where empty; ``slot_flat
-    [T*k]``: each assignment's slot, ``E*C`` where dropped; ``slots [T, k]``:
-    each token's slots ascending)``.  An expert keeps its first ``c``
+    assignment ``t*k + j`` of each slot, ``T*k`` where empty; ``slots
+    [T, k]``: each token's slots ascending, ``E*C`` where dropped)``.  An expert keeps its first ``c``
     assignments in the stable sort by expert id; every index write has
     distinct targets."""
     t, k = expert_ids.shape
@@ -164,7 +139,7 @@ def dispatch(expert_ids: torch.Tensor, cfg, c: int):
     slot_flat = torch.empty(tk, dtype=torch.int64, device=dev)
     slot_flat[order] = slot_sorted
     slots = torch.sort(slot_flat.reshape(t, k), dim=-1).values
-    return tok, assign, slot_flat, slots
+    return tok, assign, slots
 
 
 def moe_ffn(p, x, cfg, method="autodiff"):
@@ -175,19 +150,17 @@ def moe_ffn(p, x, cfg, method="autodiff"):
     c = _capacity(t, cfg)
 
     gates, expert_ids, aux = route(p, xt, cfg)
-    tok, assign, slot_flat, slots = dispatch(expert_ids, cfg, c)
-    gate_slots = _Bijection.apply(gates.reshape(t * k), assign, slot_flat)
+    tok, assign, slots = dispatch(expert_ids, cfg, c)
+    gate_slots = _gather_rows(gates.reshape(t * k), assign)
 
     xe = _SlotGather.apply(xt, tok, slots).reshape(e, c, d)
-    # bf16 products: f32 sums rounded once (the reduced-precision split-K
-    # reduction of cuBLAS off, as chip_smoke.py sets it)
     h = rules.act(torch.bmm(xe, p["w1"]), cfg.act, method,
                   cfg.residual_policy)
     if cfg.ffn_gated:
         h = h * torch.bmm(xe, p["w3"])
     y = torch.bmm(h, p["w2"])
     yw = y.reshape(e * c, d) * gate_slots[:, None].to(y.dtype)
-    out = _SlotSum.apply(yw, tok, slots).reshape(b, s, d)
+    out = _ordered_sum(yw, slots).reshape(b, s, d)
     if cfg.n_shared_experts:
         out = out + layers.ffn(p["shared"], x, cfg, method)
     return out, aux

@@ -3,9 +3,8 @@
 test_torch_lm_zoo_hybrid.py``).  The port's attribution runs the hybrid
 segments' scans through B13 and its backward (their plain versions
 here), the reference its chunked scan, the same function.  Tolerances,
-relative to the reference's max |value|: logits 1e-2, scores 5e-2 (ixg
-and contrastive: of max Σ_d |rel·e|), against ``repro`` run one
-primitive at a time.
+relative to the reference's max |value|: logits 1e-2, scores 5e-2,
+against ``repro`` run one primitive at a time.
 """
 import pytest
 

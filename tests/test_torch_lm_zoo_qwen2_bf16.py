@@ -1,8 +1,7 @@
 """qwen2-1.5b SMOKE in bf16 against the JAX package (CPU): the zoo tests
 of ``tests/_torch_zoo.py`` (f32: ``tests/test_torch_lm_zoo_qwen2.py``).
 Tolerances, relative to the reference's max |value|: logits 1e-2, scores
-5e-2 (ixg and contrastive: of max Σ_d |rel·e|), against ``repro`` run one
-primitive at a time.
+5e-2, against ``repro`` run one primitive at a time.
 """
 import pytest
 

@@ -533,14 +533,15 @@ def fail(msg: str):
 #: B9, and of B4 bf16 on the tensor cores, the fused conv backward of B5
 #: and B8, and of B5 bf16 on the tensor cores, the fused FC backward of B6
 #: and B10, and of B6 bf16 on the tensor cores, the scan B13 and its
-#: backward), whose registers and spills phase 1 reports.
+#: backward, and B12's 2-byte unpool), whose registers and spills phase 1
+#: reports.
 REDESIGNED = ("conv_igemm_kernel", "conv_mma_kernel",
               "relu_pool_fwd_kernel", "vmm_splitk_kernel", "vmm_mma_kernel",
               "vmm_splitk_sum_kernel", "conv_bwd_igemm_kernel",
               "conv_bwd_mma_kernel", "vmm_fxp_splitk_kernel",
               "vmm_fxp_splitk_sum_kernel", "vmm_bwd_tiled_kernel",
               "vmm_bwd_mma_kernel", "selective_scan_kernel",
-              "selective_scan_bwd_kernel")
+              "selective_scan_bwd_kernel", "unpool_bwd16_vec_kernel")
 #: Itanium mangling of the element types a template is instantiated for.
 MANGLED_TYPES = {"f": "float", "s": "int16_t", "13__nv_bfloat16": "bf16"}
 
@@ -746,7 +747,7 @@ def _category(kernel_name: str) -> str:
                             "conv_fxp_kernel", "relu_fwd_kernel",
                             "relu_pool_fwd_kernel",
                             "relu_bwd_kernel", "maxpool_fwd_kernel",
-                            "unpool_bwd_kernel", "vmm_kernel",
+                            "unpool_bwd", "vmm_kernel",
                             "vmm_fxp_kernel", "vmm_bwd")):
         return "B1-B12"
     if any(k in n for k in ("gemm", "cutlass", "xmma", "cublas", "sm90_",
@@ -2791,36 +2792,42 @@ def _chunked_grad_scan(dt, x, bmat, cmat, a, h0, *, d_tile=None,
 def check_kernels_scan(kc: KernelCheck):
     """B13 at falcon-mamba-7b's explain shape (B = 4 prompts, S = 72, D =
     8192, N = 16; x bf16 on the main path, f32 beside it), a ragged S = 13,
-    and two knob pairs that must agree bit for bit; then B13's backward
-    kernel on the same inputs: on the main path's gradients (dt, x, B, C;
-    h_last unused, so no gh) and, beside it, all six with a gh, against the
-    plain reverse recurrence, bitwise under both knob pairs and run to run.
-    No PyTorch call computes either: the library column is none.  The
-    backward the kernel replaced (autograd over the chunked scan) and
-    autograd over the sequential loop are timed beside it."""
+    hymba-1.5b's explain shape (D = 3200, the lm_zoo path's), and D = 3232
+    (off the backward's 128-channel partial group), each under two knob
+    pairs that must agree bit for bit; then B13's backward kernel on the
+    same inputs: on the main path's gradients (dt, x, B, C; h_last unused,
+    so no gh) and, beside it, all six with a gh, against the plain reverse
+    recurrence, bitwise under both knob pairs and run to run.  No PyTorch
+    call computes either: the library column is none.  The backward the
+    kernel replaced (autograd over the chunked scan) and autograd over the
+    sequential loop are timed beside it."""
     from repro_torch.kernels.ssm_scan import ref as scan_ref
     from repro_torch.kernels.ssm_scan.ssm_scan import (selective_scan,
                                                        selective_scan_bwd)
 
     gen = torch.Generator(device="cuda").manual_seed(1357)
-    b, d, n = LM_BATCH, 8192, 16
-    tiles = ((d, 128), (256, 64))     # the explain's knobs, the default's
+    b, n = LM_BATCH, 16
     main_needs = (True, True, True, True, False, False)
 
-    def inputs(s, dtype):
+    def inputs(s, dtype, d):
         dt = F.softplus(randn(gen, b, s, d) - 4.6)      # as dt_bias sets
         x = randn(gen, b, s, d).to(dtype)
         return (dt, x, randn(gen, b, s, n), randn(gen, b, s, n),
                 -torch.exp(randn(gen, d, n) * 0.3), randn(gen, b, d, n))
 
-    for s, dtype in ((LM_PROMPT + LM_NEW, torch.bfloat16),
-                     (LM_PROMPT + LM_NEW, torch.float32),
-                     (13, torch.bfloat16)):
-        args = inputs(s, dtype)
+    for s, dtype, d in ((LM_PROMPT + LM_NEW, torch.bfloat16, 8192),
+                        (LM_PROMPT + LM_NEW, torch.float32, 8192),
+                        (13, torch.bfloat16, 8192),
+                        (LM_PROMPT + LM_NEW, torch.bfloat16, 3200),
+                        (13, torch.bfloat16, 3232)):
+        # the explain's knobs, the default's (a d_tile that divides D)
+        tiles = ((d, 128), (256 if d % 256 == 0 else 32, 64))
+        args = inputs(s, dtype, d)
         xs = args[1].element_size()
         nbytes = (4 * b * s * d + 2 * xs * b * s * d + 2 * 4 * b * d * n
                   + 4 * d * n + 2 * 4 * b * s * n)
-        main = s == LM_PROMPT + LM_NEW and dtype == torch.bfloat16
+        main = (s == LM_PROMPT + LM_NEW and dtype == torch.bfloat16
+                and d == 8192)
         got = [selective_scan(*args, d_tile=dtl, chunk=ck)
                for dtl, ck in tiles]
         torch.cuda.synchronize()
@@ -2841,11 +2848,11 @@ def check_kernels_scan(kc: KernelCheck):
         for needs, g_h in ((main_needs, None), (None, gh)):
             every = needs is None
 
-            def bwd(dtl=d, ck=128, needs=needs, g_h=g_h):
+            def bwd(dtl=d, ck=128, needs=needs, g_h=g_h, args=args, gy=gy):
                 return selective_scan_bwd(*args, gy, g_h, d_tile=dtl,
                                           chunk=ck, needs=needs)
 
-            def plain(needs=needs, g_h=g_h):
+            def plain(needs=needs, g_h=g_h, args=args, gy=gy):
                 return scan_ref.selective_scan_bwd(*args, gy, g_h, needs)
 
             outs = [bwd(dtl, ck) for dtl, ck in tiles] + [bwd()]
@@ -2890,8 +2897,9 @@ def check_kernels_scan(kc: KernelCheck):
                   f"{kc.scan_backward_ms:.4f} ms per layer; over the "
                   f"sequential loop (the JAX package's form): "
                   f"{kc.scan_backward_loop_ms:.4f} ms")
-    print(f"  selective_scan and selective_scan_bwd knobs {tiles[0]} and "
-          f"{tiles[1]}: bitwise equal (the backward also run to run)")
+    print("  selective_scan and selective_scan_bwd under the explain's "
+          "knobs (D, 128) and the default's (256 or 32, 64): bitwise equal "
+          "(the backward also run to run)")
 
 
 def _span_ms(fn, reps: int = 5) -> float:

@@ -318,6 +318,21 @@ struct Traits<__nv_bfloat16> {
   }
 };
 
+// The cluster barrier in two halves: arrive (relaxed: it orders no memory;
+// or release: this thread's earlier accesses, also to other blocks' shared
+// memory, happen before the wait of any thread of the cluster returns) and
+// wait (acquire), so the wait for the cluster's blocks to have started, or
+// to have pushed their partials, overlaps other work.
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
 // Launch kernel<<<grid, block, smem, stream>>>(args...) with programmatic
 // dependent launch: the grid may be scheduled while the kernel before it on
 // the stream drains, and waits for that kernel's writes (griddepcontrol.wait

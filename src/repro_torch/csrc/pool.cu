@@ -20,13 +20,17 @@
 // Bound on an H100: bytes.  The forward reads sizeof(T) B and writes
 // sizeof(T)/4 B + 1/16 B per input element (three compares); the backward
 // reads sizeof(T)/4 B + 1/16 B and writes sizeof(T) B per output element
-// (one select).  Design, both ways: one thread per crumb byte covers four
-// channels of one window, so neighbouring threads read and write
-// neighbouring runs of each candidate row; the backward writes all four
-// candidates itself, zeros included, so every output element has exactly
-// one writer (no memset, no scatter, no atomics) and is written once, with
-// one 4-element vector per candidate when C % 4 == 0 and the pointers are
-// aligned to it.  No shared memory.  The forward runs the B3 instance of
+// (one select).  Design, both ways: one thread covers a run of channels
+// of one window, so neighbouring threads read and write neighbouring runs
+// of each candidate row; the backward writes all four candidates itself,
+// zeros included, so every output element has exactly one writer (no
+// memset, no scatter, no atomics) and is written once.  Every access of the
+// backward is 16 bytes where C and the pointers allow it: on f32 a thread
+// takes one crumb byte (4 channels, one float4 a candidate, C % 4 == 0);
+// on bf16 and int16 two crumb bytes (8 channels, one 16-byte word a
+// candidate, C % 8 == 0), selecting each element's 16 bits by a mask, so
+// one kernel serves both types.  Elsewhere a thread takes one crumb byte
+// with scalar accesses.  No shared memory.  The forward runs the B3 instance of
 // relu_pool.cuh's template, and the fused ReLU+mask+pool instances of the
 // pooled layers enter here too; maxpool_fwd_kernel below is the first
 // design of the forward, kept as the general route (threads == 0), against
@@ -99,61 +103,9 @@ int relu_pool_fwd(const T* x, T* y, uint8_t* m, uint8_t* idx, int n, int h,
                                          threads, stream);
 }
 
-// Four consecutive elements as one vector (16 bytes of f32, 8 of int16 or
-// bf16).
-template <typename T>
-struct Vec4;
-
-template <>
-struct Vec4<float> {
-  __device__ static void load(const float* p, float v[4]) {
-    const float4 a = reinterpret_cast<const float4*>(p)[0];
-    v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
-  }
-  __device__ static void store(float* p, const float v[4]) {
-    reinterpret_cast<float4*>(p)[0] = make_float4(v[0], v[1], v[2], v[3]);
-  }
-};
-
-template <>
-struct Vec4<int16_t> {
-  union U {
-    uint2 q;
-    int16_t h[4];
-  };
-  __device__ static void load(const int16_t* p, int16_t v[4]) {
-    U u;
-    u.q = reinterpret_cast<const uint2*>(p)[0];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) v[j] = u.h[j];
-  }
-  __device__ static void store(int16_t* p, const int16_t v[4]) {
-    U u;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) u.h[j] = v[j];
-    reinterpret_cast<uint2*>(p)[0] = u.q;
-  }
-};
-
-template <>
-struct Vec4<__nv_bfloat16> {
-  __device__ static void load(const __nv_bfloat16* p, __nv_bfloat16 v[4]) {
-    const uint2 q = reinterpret_cast<const uint2*>(p)[0];
-    v[0] = __ushort_as_bfloat16(static_cast<unsigned short>(q.x));
-    v[1] = __ushort_as_bfloat16(static_cast<unsigned short>(q.x >> 16));
-    v[2] = __ushort_as_bfloat16(static_cast<unsigned short>(q.y));
-    v[3] = __ushort_as_bfloat16(static_cast<unsigned short>(q.y >> 16));
-  }
-  __device__ static void store(__nv_bfloat16* p, const __nv_bfloat16 v[4]) {
-    uint2 q;
-    q.x = static_cast<uint32_t>(__bfloat16_as_ushort(v[0])) |
-          static_cast<uint32_t>(__bfloat16_as_ushort(v[1])) << 16;
-    q.y = static_cast<uint32_t>(__bfloat16_as_ushort(v[2])) |
-          static_cast<uint32_t>(__bfloat16_as_ushort(v[3])) << 16;
-    reinterpret_cast<uint2*>(p)[0] = q;
-  }
-};
-
+// One thread a crumb byte (4 channels), T float or, for a bf16 or int16
+// element routed as its 16 bits, uint16_t: on f32 one float4 a candidate
+// where C % 4 == 0 and g and out are 16-byte aligned (vec), else scalars.
 template <typename T>
 __global__ void unpool_bwd_kernel(const uint8_t* __restrict__ idx,
                                   const T* __restrict__ g,
@@ -169,40 +121,97 @@ __global__ void unpool_bwd_kernel(const uint8_t* __restrict__ idx,
   T* c00 = out + ((static_cast<size_t>(nn) * 2 * hp + 2 * i) * (2 * wp)
                   + 2 * j) * c + 4 * b;
   T* cand[4] = {c00, c00 + c, c00 + row, c00 + row + c};
-  const T zero = T(0);
-  if (vec) {
-    T v[4];
-    Vec4<T>::load(gp, v);
+  if constexpr (sizeof(T) == 4) {
+    if (vec) {
+      const float4 a = reinterpret_cast<const float4*>(gp)[0];
+      const float v[4] = {a.x, a.y, a.z, a.w};
 #pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      T o[4];
+      for (int k = 0; k < 4; ++k) {
+        float o[4];
 #pragma unroll
-      for (int q = 0; q < 4; ++q)
-        o[q] = static_cast<int>((byte >> (2 * q)) & 3) == k ? v[q] : zero;
-      Vec4<T>::store(cand[k], o);
+        for (int q = 0; q < 4; ++q)
+          o[q] = static_cast<int>((byte >> (2 * q)) & 3) == k ? v[q] : 0.f;
+        reinterpret_cast<float4*>(cand[k])[0] = make_float4(o[0], o[1], o[2],
+                                                            o[3]);
+      }
+      return;
     }
-  } else {
-    for (int q = 0; q < 4 && 4 * b + q < c; ++q) {
-      const T v = gp[q];
-      const int sel = (byte >> (2 * q)) & 3;
+  }
+  for (int q = 0; q < 4 && 4 * b + q < c; ++q) {
+    const T v = gp[q];
+    const int sel = (byte >> (2 * q)) & 3;
 #pragma unroll
-      for (int k = 0; k < 4; ++k) cand[k][q] = sel == k ? v : zero;
-    }
+    for (int k = 0; k < 4; ++k) cand[k][q] = sel == k ? v : T(0);
   }
 }
 
-template <typename T>
-int unpool_bwd(const uint8_t* idx, const T* g, T* out, int n, int hp,
-               int wp, int c, cudaStream_t stream) {
+// The low (q = 0) or high (q = 1) half of a 32-bit word of two 2-byte
+// elements, kept where crumb `sel` routes its channel to candidate k.
+__device__ __forceinline__ uint32_t keep_half(uint32_t sel, int k, int q) {
+  return static_cast<int>(sel & 3) == k ? 0xffffu << (16 * q) : 0u;
+}
+
+// 2-byte elements (bf16, int16: routed as their 16 bits, +0 elsewhere, so
+// a -0.0 at the argmax keeps its sign): one thread two crumb bytes (8
+// channels), one 16-byte load of g and one 16-byte store a candidate, C %
+// 8 == 0 and g, out 16-byte aligned.  w8 counts 8-channel words a pixel.
+__global__ void unpool_bwd16_vec_kernel(const uint8_t* __restrict__ idx,
+                                        const uint4* __restrict__ g,
+                                        uint4* __restrict__ out, int n,
+                                        int hp, int wp, int w8) {
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= n * hp * wp * w8) return;
+  const int b = t % w8, pix = t / w8;            // pix = (nn*hp + i)*wp + j
+  const int j = pix % wp, i = (pix / wp) % hp, nn = pix / (wp * hp);
+  const uint32_t sel = idx[2 * static_cast<size_t>(t)] |
+                       static_cast<uint32_t>(idx[2 * static_cast<size_t>(t)
+                                                 + 1]) << 8;
+  const uint4 v = g[t];
+  const size_t row = static_cast<size_t>(2 * wp) * w8;
+  uint4* c00 = out + ((static_cast<size_t>(nn) * 2 * hp + 2 * i) * (2 * wp)
+                      + 2 * j) * w8 + b;
+  uint4* cand[4] = {c00, c00 + w8, c00 + row, c00 + row + w8};
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    uint4 o;
+    o.x = v.x & (keep_half(sel, k, 0) | keep_half(sel >> 2, k, 1));
+    o.y = v.y & (keep_half(sel >> 4, k, 0) | keep_half(sel >> 6, k, 1));
+    o.z = v.z & (keep_half(sel >> 8, k, 0) | keep_half(sel >> 10, k, 1));
+    o.w = v.w & (keep_half(sel >> 12, k, 0) | keep_half(sel >> 14, k, 1));
+    cand[k][0] = o;
+  }
+}
+
+int unpool_bwd(const uint8_t* idx, const float* g, float* out, int n,
+               int hp, int wp, int c, cudaStream_t stream) {
   const int cb = (c + 3) / 4;
-  const uintptr_t vbytes = 4 * sizeof(T);
-  const int vec = (c % 4 == 0) &&
-                  (reinterpret_cast<uintptr_t>(g) % vbytes == 0) &&
-                  (reinterpret_cast<uintptr_t>(out) % vbytes == 0);
+  const int vec = (c % 4 == 0) && (reinterpret_cast<uintptr_t>(g) % 16 == 0) &&
+                  (reinterpret_cast<uintptr_t>(out) % 16 == 0);
   const int total = n * hp * wp * cb, threads = 256;
-  unpool_bwd_kernel<T>
+  unpool_bwd_kernel<float>
       <<<(total + threads - 1) / threads, threads, 0, stream>>>(
           idx, g, out, n, hp, wp, c, cb, vec);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// g and out hold 2-byte elements (bf16 or int16).
+int unpool_bwd16(const uint8_t* idx, const void* g, void* out, int n, int hp,
+                 int wp, int c, cudaStream_t stream) {
+  const int threads = 128;
+  if (c % 8 == 0 && reinterpret_cast<uintptr_t>(g) % 16 == 0 &&
+      reinterpret_cast<uintptr_t>(out) % 16 == 0) {
+    const int w8 = c / 8, total = n * hp * wp * w8;
+    unpool_bwd16_vec_kernel<<<(total + threads - 1) / threads, threads, 0,
+                              stream>>>(idx, static_cast<const uint4*>(g),
+                                        static_cast<uint4*>(out), n, hp, wp,
+                                        w8);
+  } else {
+    const int cb = (c + 3) / 4, total = n * hp * wp * cb;
+    unpool_bwd_kernel<uint16_t>
+        <<<(total + threads - 1) / threads, threads, 0, stream>>>(
+            idx, static_cast<const uint16_t*>(g),
+            static_cast<uint16_t*>(out), n, hp, wp, c, cb, 0);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -253,13 +262,13 @@ REPRO_API int repro_relu_pool_fwd_i16(const int16_t* x, int16_t* y,
 REPRO_API int repro_unpool_bwd(const uint8_t* idx, const float* g, float* out,
                                int n, int hp, int wp, int c,
                                cudaStream_t stream) {
-  return unpool_bwd<float>(idx, g, out, n, hp, wp, c, stream);
+  return unpool_bwd(idx, g, out, n, hp, wp, c, stream);
 }
 
 REPRO_API int repro_unpool_bwd_i16(const uint8_t* idx, const int16_t* g,
                                    int16_t* out, int n, int hp, int wp,
                                    int c, cudaStream_t stream) {
-  return unpool_bwd<int16_t>(idx, g, out, n, hp, wp, c, stream);
+  return unpool_bwd16(idx, g, out, n, hp, wp, c, stream);
 }
 
 // The unpool of a bf16 gradient (the bf16 autograd paths): a scatter, so
@@ -268,5 +277,5 @@ REPRO_API int repro_unpool_bwd_bf16(const uint8_t* idx,
                                     const __nv_bfloat16* g,
                                     __nv_bfloat16* out, int n, int hp,
                                     int wp, int c, cudaStream_t stream) {
-  return unpool_bwd<__nv_bfloat16>(idx, g, out, n, hp, wp, c, stream);
+  return unpool_bwd16(idx, g, out, n, hp, wp, c, stream);
 }

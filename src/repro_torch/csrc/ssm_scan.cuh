@@ -67,20 +67,5 @@ __device__ __forceinline__ float group_sum(float v) {
   return __fadd_rn(v, __shfl_xor_sync(kFull, v, 2));
 }
 
-// The kSpl values of a lane's states in row `row` (an [N] row of B or C),
-// zeros for states at or above n.  `vec4` (N a multiple of 4, 16-byte
-// aligned rows) reads them as one float4.
-__device__ __forceinline__ void load_states(const float* row, int q, int n,
-                                            bool vec4, float (&v)[kSpl]) {
-  const int n0 = kSpl * q;
-  if (vec4 && n0 < n) {
-    const float4 f = __ldg(reinterpret_cast<const float4*>(row + n0));
-    v[0] = f.x, v[1] = f.y, v[2] = f.z, v[3] = f.w;
-    return;
-  }
-#pragma unroll
-  for (int j = 0; j < kSpl; ++j) v[j] = n0 + j < n ? __ldg(row + n0 + j) : 0.f;
-}
-
 }  // namespace scan
 }  // namespace repro

@@ -59,16 +59,6 @@ constexpr int BM = 32, KC = 64, WARPS = KC / 16, THREADS = 32 * WARPS;
 constexpr int STAGES = 8, XS = KC + 8;  // x row stride: 144 bytes
 constexpr int MAX_CLUSTER = 16, PORTABLE_CLUSTER = 8;
 
-// The cluster barrier in two halves: arrive (relaxed: it orders no memory)
-// and wait, so the wait for the cluster's blocks to have started overlaps
-// the main loop.
-__device__ __forceinline__ void cluster_arrive_relaxed() {
-  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void cluster_wait() {
-  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
-}
-
 template <int BN>
 struct Layout {
   static constexpr int WS = BN + 8;  // weight row stride: 48 or 80 bytes
@@ -97,7 +87,7 @@ vmm_mma_kernel(const T* __restrict__ x, const T* __restrict__ w,
   const int cs = static_cast<int>(cluster.num_blocks());
   // A block may write into another's shared memory only once that block
   // runs: arrive now, wait before the first remote write.
-  if (cs > 1) cluster_arrive_relaxed();
+  if (cs > 1) repro::cluster_arrive_relaxed();
   // Launched with programmatic stream serialization, the grid may start
   // while the kernel before it drains: wait for its writes before a load.
   asm volatile("griddepcontrol.wait;\n" ::: "memory");
@@ -219,7 +209,7 @@ vmm_mma_kernel(const T* __restrict__ x, const T* __restrict__ w,
   // inbox in rank order and writes y.  No block reads another's shared
   // memory after the barrier, so none has to wait for the others to leave.
   const int share = (BM * BN + cs - 1) / cs;
-  if (cs > 1) cluster_wait();
+  if (cs > 1) repro::cluster_wait();
   for (int e = tid; e < BM * BN; e += THREADS) {
     float s = wpart[e];
 #pragma unroll

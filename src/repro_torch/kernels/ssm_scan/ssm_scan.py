@@ -6,7 +6,8 @@ per mamba layer, a channel's f32 states in the registers of 4 lanes, B/C
 and the block's dt/x columns staged in shared memory chunk by chunk,
 double-buffered.  :func:`selective_scan_bwd` wraps ``csrc/ssm_scan_bwd.cu``,
 its vjp (``repro``'s ``ops._bwd``): the reverse recurrence over states
-recomputed from checkpoints, dB/dC summed per block and then over blocks
+recomputed from checkpoints, every step's operands staged in shared
+memory, dB/dC summed per cluster of blocks on chip and then over clusters
 in a fixed order.  CPU tensors run the plain versions
 :func:`ref.selective_scan` and :func:`ref.selective_scan_bwd`.
 
@@ -15,8 +16,9 @@ channels one grid cell covers, how many timesteps one staging chunk
 holds).  As there, they split the grid and the staging, never the
 arithmetic of an element, so every pair gives the same bits, forward and
 backward.  In the backward ``chunk`` sets the window of checkpointed
-steps (:func:`bwd_window`); its block is a fixed group of
-:data:`BWD_GROUP` channels, the group of its partial sums.
+steps (:func:`bwd_window`); its block is a fixed count of
+:data:`BWD_CHANNELS` channels and its cluster of :data:`BWD_CLUSTER`
+blocks the fixed group of :data:`BWD_GROUP` channels of a dB/dC partial.
 """
 from __future__ import annotations
 
@@ -38,11 +40,17 @@ LANES = 4
 #: Forward: at most this many channels a block, steps a staging chunk.
 FWD_MAX_CHANNELS = 32
 FWD_MAX_CHUNK = 16
-#: Backward: steps a register segment, channels a block (and a partial
-#: group of dB/dC), segments a window (checkpoints in shared memory).
+#: Backward: steps a segment (staged, recomputed into registers), channels
+#: a block, blocks a thread-block cluster, channels a dB/dC partial (the
+#: cluster's), segments a window (checkpoints in shared memory).
 BWD_SEG = 8
-BWD_GROUP = 32
+BWD_CHANNELS = 32
+BWD_CLUSTER = 4
+BWD_GROUP = BWD_CLUSTER * BWD_CHANNELS
 BWD_MAX_SLOTS = 16
+#: Blocks an SM the backward kernel's registers are bounded for (its
+#: ``__launch_bounds__``).
+BWD_MIN_BLOCKS = 5
 
 
 def fwd_channels(d_tile: int, d: int) -> int:

@@ -25,9 +25,11 @@ views, -0.0, all-negative windows and the int16 rails), and for the
 selective scan (B13: ragged S, D
 off the block size, N < 16, f32 and bf16 x, the knobs bitwise) and its
 backward kernel (all six gradients within 1e-4 * max|ref| of the plain
-reverse recurrence, N in {1, 4, 7, 8, 16}, ragged S, several windows,
-strided B/C, gh absent, subsets of the gradients, the knobs and a second
-run bitwise, the rejects, and the autograd Function against the CPU)
+reverse recurrence, N in {1, 4, 5, 7, 8, 16}, ragged S, S = 1, several
+windows, D off the 128-channel cluster group, hymba-1.5b's explain
+shape, strided B/C, gh absent, subsets of the gradients, the knobs and a
+second run bitwise, the rejects, and the autograd Function against the
+CPU)
 with falcon-mamba's SMOKE LM against the CPU; and the bf16 instances,
 among them the bf16 forwards on the tensor cores (every conv tile of
 ``conv_mma_candidates`` and every FC cluster size of
@@ -55,7 +57,8 @@ family and precision, and an autotuned ``h100`` engine held to the
 unplanned one (fxp16 bitwise, f32 1e-5 / 1e-4, bf16 2^-6 of max), its
 entries the rules' or their candidates, a second build measuring nothing;
 and bf16 under autograd: the gate and unpool kernels' bf16 instances
-bitwise the plain versions (also misaligned), B5 bf16 and B6 bf16 at the
+bitwise the plain versions (also misaligned; B12's 2-byte routes, 16-byte
+and scalar, in bf16 and int16), B5 bf16 and B6 bf16 at the
 vjp path's S = 1 (within one bf16 step of plain, every candidate plan and
 each seed of an S = 3 launch the same bits), and the bf16 vjp engine on
 both kernel branches and a bf16 training step against the CPU (2^-6).
@@ -948,6 +951,35 @@ def test_unpool_bwd_int16_bitwise(gen, c):
     _same(got, pool_ref.unpool_bwd(idx, g))
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.int16],
+                         ids=["bf16", "int16"])
+@pytest.mark.parametrize("c", [4, 12, 20, 24, 40])
+def test_unpool_bwd_2byte_routes_bitwise(gen, dtype, c):
+    """B12's 2-byte instances on both routes, bitwise the plain version:
+    16-byte accesses where C % 8 == 0 and g and out are 16-byte aligned
+    (C = 24, 40), scalar ones where C % 8 != 0 (C = 4, 12, 20) or where
+    g sits 2 or 8 bytes off (every C)."""
+    if dtype == torch.bfloat16:
+        x = torch.clamp_min(_bf(gen, 2, 6, 10, c), 0)
+        x[:, :2, :2] = 0.0                 # tied all-zero windows
+        _, idx = maxpool_fwd(x)
+        g = _grad(gen, 2, 3, 5, c).to(BF)
+        g[0, 0, 0] = -0.0                  # the argmax keeps its sign
+        fn, entry = unpool_bwd, "repro_unpool_bwd_bf16"
+        flat = _grad(gen, g.numel() + 4).to(BF)
+    else:
+        x = torch.clamp_min(_q(gen, 2, 6, 10, c, scale=0.01), 0)
+        _, idx = maxpool_fwd_fxp(x)
+        g = _q(gen, 2, 3, 5, c)
+        fn, entry = unpool_bwd_fxp, "repro_unpool_bwd_i16"
+        flat = _q(gen, g.numel() + 4)
+    got = _entry_launched(entry, lambda: fn(idx, g))
+    _equal_bits((got,), (pool_ref.unpool_bwd(idx, g),))
+    for off in (1, 4):                     # 2 and 8 bytes off 16
+        gm = flat[off:off + g.numel()].view(g.shape)
+        _equal_bits((fn(idx, gm),), (pool_ref.unpool_bwd(idx, gm),))
+
+
 def test_unpool_bwd_misaligned_pointer(gen):
     _, idx = maxpool_fwd(_randn(gen, 1, 4, 4, 8))
     flat = _grad(gen, 2 * 2 * 8 + 1)
@@ -1173,6 +1205,10 @@ def _grads_close(got, want):
     (2, 40, 64, 4, 64, 8),             # N = 4, one segment a window
     (1, 300, 384, 16, 384, 128),       # three windows of 128 steps
     (3, 1, 8, 1, 8, 4),                # S = 1, N = 1, D < a warp
+    (2, 29, 160, 16, 160, 128),        # D % 128 = 32: a cluster 3/4 dead
+    (1, 77, 136, 5, 136, 24),          # D % 128 = 8, N = 5, 4 windows
+    (2, 1, 260, 16, 260, 128),         # S = 1, D % 128 = 4
+    (4, 72, 3200, 16, 3200, 128),      # hymba-1.5b's explain shape
 ])
 def test_selective_scan_bwd(gen, b, s, d, n, d_tile, chunk, dtype):
     from repro_torch.kernels.ssm_scan import ref as scan_ref
@@ -1185,12 +1221,20 @@ def test_selective_scan_bwd(gen, b, s, d, n, d_tile, chunk, dtype):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
-def test_selective_scan_bwd_knobs_and_runs_keep_the_bits(gen, dtype):
+@pytest.mark.parametrize("b,s,d,n,tiles", [
+    (2, 77, 512, 16, ((512, 128), (256, 64), (32, 7), (512, 1))),
+    # D off the 128-channel group, N < 16, up to 10 windows
+    (2, 77, 200, 5, ((200, 128), (40, 64), (8, 7), (200, 1))),
+    (3, 1, 136, 16, ((136, 128), (8, 1))),     # S = 1
+])
+def test_selective_scan_bwd_knobs_and_runs_keep_the_bits(gen, dtype, b, s,
+                                                         d, n, tiles):
+    """Every knob pair and a second run of the first: the same bits (the
+    window moves the checkpoints, never a sum's order)."""
     from repro_torch.kernels.ssm_scan.ssm_scan import selective_scan_bwd
-    args, gy, gh = _scan_bwd_inputs(gen, 2, 77, 512, 16, dtype)
+    args, gy, gh = _scan_bwd_inputs(gen, b, s, d, n, dtype)
     outs = [selective_scan_bwd(*args, gy, gh, d_tile=dtl, chunk=ck)
-            for dtl, ck in ((512, 128), (256, 64), (32, 7), (512, 1),
-                            (512, 128))]
+            for dtl, ck in tiles + tiles[:1]]
     torch.cuda.synchronize()
     for out in outs[1:]:
         for g, g0 in zip(out, outs[0]):

@@ -17,8 +17,9 @@ package, on the CPU.
 * subsets of the gradients: only what is asked is computed, with the bits
   of the full call;
 * the launch helpers of both kernels (channels a forward block, shared
-  memory, the backward's window and partial groups) and the arguments the
-  wrapper hands the backward's entry point, with the launch stubbed.
+  memory, the backward's window, grid and cluster partial groups) and the
+  arguments the wrapper hands the backward's entry point, with the launch
+  stubbed.
 
 Inputs are built with NumPy from a seed and fed to both packages.
 """
@@ -33,8 +34,9 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.ssm_scan import ops, ref
 from repro_torch.kernels.ssm_scan import ssm_scan as scan_mod
 from repro_torch.kernels.ssm_scan.ssm_scan import (
-    BWD_GROUP, BWD_MAX_SLOTS, BWD_SEG, FWD_MAX_CHANNELS, FWD_MAX_CHUNK,
-    LANES, MAX_STATE, bwd_window, fwd_channels, selective_scan_bwd)
+    BWD_CHANNELS, BWD_CLUSTER, BWD_GROUP, BWD_MAX_SLOTS, BWD_MIN_BLOCKS,
+    BWD_SEG, FWD_MAX_CHANNELS, FWD_MAX_CHUNK, LANES, MAX_STATE, bwd_window,
+    fwd_channels, selective_scan_bwd)
 from repro_torch.kernels.tiling import H100_SMS, cdiv
 
 GRAD_TOL = 1e-4
@@ -42,8 +44,9 @@ BF16_RTOL = 2.0 ** -7            # one bf16 rounding step, at most
 SHAPES = [(1, 8, 16, 4), (2, 17, 32, 8), (1, 64, 128, 16), (2, 33, 256, 16),
           (2, 13, 24, 16)]       # the last: ragged S, D % 32 != 0
 NAMES = ("ddt", "dx", "dB", "dC", "dA", "dh0")
-#: The shared memory a block can use without opting in, and per SM.
-SMEM_DEFAULT, SMEM_PER_SM = 48 * 1024, 228 * 1024
+#: The shared memory a block can use without opting in, with it, and per
+#: SM.
+SMEM_DEFAULT, SMEM_OPT_IN, SMEM_PER_SM = 48 * 1024, 227 * 1024, 228 * 1024
 
 
 def _inputs(b, s, d, n, seed=0):
@@ -210,12 +213,17 @@ def _fwd_smem(channels, esize):
     return 2 * FWD_MAX_CHUNK * (channels * (4 + esize) + 2 * MAX_STATE * 4)
 
 
-def _bwd_smem(window):
-    """A backward block's shared memory (ssm_scan_bwd.cu): a float4
-    checkpoint a thread per segment, the warps' dB/dC partials."""
-    threads = LANES * BWD_GROUP
-    return 4 * ((window // BWD_SEG) * threads * 4
-                + 2 * (threads // 32) * BWD_SEG * MAX_STATE)
+def _bwd_smem(window, esize):
+    """A backward block's shared memory (ssm_scan_bwd.cu smem_bytes): the
+    four-stage ring of staged segments (dt, x and gy columns, B and C rows
+    of 16), a float4 checkpoint a thread per segment of the window, and
+    three thirds of the cluster inbox (its quarter of a segment's 2 x 8 x
+    16 dB/dC entries from each of the cluster's 16 warps)."""
+    threads = LANES * BWD_CHANNELS
+    seg = BWD_SEG * (BWD_CHANNELS * (4 + 2 * esize) + 2 * MAX_STATE * 4)
+    share = 2 * BWD_SEG * MAX_STATE // BWD_CLUSTER
+    return (4 * seg + (window // BWD_SEG) * threads * 16
+            + 4 * 3 * BWD_CLUSTER * (threads // 32) * share)
 
 
 def test_fwd_fills_the_card_at_the_explain_shape():
@@ -231,10 +239,60 @@ def test_fwd_fills_the_card_at_the_explain_shape():
 
 @pytest.mark.parametrize("esize", [2, 4])
 def test_kernels_need_no_shared_memory_opt_in(esize):
-    """Neither entry point raises the 48 KB default: the largest forward
-    block and the largest backward window fit under it."""
+    """The forward never raises the 48 KB default.  The backward stays
+    under it at the explain's window (72 steps, 9 segments); its longest
+    windows (11 segments or more in f32, 13 in bf16) opt in
+    (ssm_scan_bwd.cu: cudaFuncSetAttribute above 48 KB), within the 227 KB
+    a block may have."""
     assert _fwd_smem(FWD_MAX_CHANNELS, esize) <= SMEM_DEFAULT
-    assert _bwd_smem(BWD_SEG * BWD_MAX_SLOTS) <= SMEM_DEFAULT
+    assert _bwd_smem(bwd_window(72, 128), esize) <= SMEM_DEFAULT
+    opt_in = [w for w in range(1, BWD_MAX_SLOTS + 1)
+              if _bwd_smem(BWD_SEG * w, esize) > SMEM_DEFAULT]
+    assert opt_in == list(range(13 if esize == 2 else 11,
+                                BWD_MAX_SLOTS + 1))
+    assert _bwd_smem(BWD_SEG * BWD_MAX_SLOTS, esize) <= SMEM_OPT_IN
+
+
+@pytest.mark.parametrize("name,d", [("falcon-mamba-7b", 8192),
+                                    ("hymba-1.5b", 3200)])
+def test_bwd_fills_the_card_at_the_explain_shapes(name, d):
+    """[4, 72, D], N 16, bf16, one window of 72 steps: whole clusters of
+    BWD_CLUSTER blocks of 128 threads, every SM busy, and shared memory
+    for the BWD_MIN_BLOCKS blocks an SM that the registers allow.
+    hymba's 400 blocks run in one wave, falcon's 1024 in 1.55."""
+    b = 4
+    blocks = cdiv(d, BWD_GROUP) * BWD_CLUSTER * b
+    assert blocks % BWD_CLUSTER == 0
+    assert blocks == {8192: 1024, 3200: 400}[d]
+    assert blocks * BWD_CHANNELS >= d * b > (blocks - BWD_CLUSTER) * \
+        BWD_CHANNELS                           # no dead cluster
+    assert blocks >= H100_SMS
+    window = bwd_window(72, 128)
+    assert window == 72
+    per_sm = SMEM_PER_SM // (_bwd_smem(window, 2) + 1024)
+    assert per_sm >= BWD_MIN_BLOCKS
+    waves = blocks / (BWD_MIN_BLOCKS * H100_SMS)
+    assert waves <= 1 if d == 3200 else 1 < waves < 2
+
+
+@pytest.mark.parametrize("d", [8, 100, 128, 200, 3200, 8192])
+def test_bwd_partial_group_is_a_constant(launches, d):
+    """The dB/dC workspace holds one partial per cluster of BWD_GROUP =
+    128 channels whatever the knobs: every (d_tile, chunk) pair hands the
+    entry point the same [B, S, ceil(D / 128), N] workspaces, so every
+    pair sums in one order."""
+    assert BWD_GROUP == BWD_CLUSTER * BWD_CHANNELS == 128
+    b, s, n = 1, 9, 4
+    args, gy, _ = _inputs(b, s, d, n)
+    t, tgy = _torch_args(args, gy, False)
+    tiles = [(dt, ck) for dt in (d, max(1, d // 2), 1) if d % dt == 0
+             for ck in (1, 7, 128)]
+    for dt, ck in tiles:
+        selective_scan_bwd(*t, tgy, None, d_tile=dt, chunk=ck)
+    shapes = {tuple(tuple(w.shape) for w in rec[3][-3:-1])
+              for rec in launches}
+    assert shapes == {((b, s, cdiv(d, 128), n),) * 2}
+    assert len(launches) == len(tiles)
 
 
 @pytest.mark.parametrize("s,chunk", [(72, 128), (72, 64), (13, 5), (1, 4),
@@ -300,8 +358,8 @@ def test_bwd_entry_arguments(launches, bf16, needs):
         assert (p is None) != w and (g is None) != w
         if w:
             assert p == g.data_ptr()
-    # the workspaces: the per-block dB/dC partials of G groups of
-    # BWD_GROUP channels, and the per-row dA sums
+    # the workspaces: the dB/dC partials of G clusters of BWD_GROUP
+    # channels, and the per-row dA sums
     groups = cdiv(d, BWD_GROUP)
     for w, ws, shape in zip(want[2:5], tensors[-3:], (
             (b, s, groups, n), (b, s, groups, n), (b, d, n))):

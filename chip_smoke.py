@@ -286,11 +286,39 @@ Phases (every failed check raises; nothing is caught and carried on):
    moonshot's MoE at full width bitwise on two calls, forward and
    backward.
 
+14. train (after phase 13, the earlier phases' memory freed): (a)
+   llama3.2-1b FULL (16 layers, d_model 2048, vocab 128256; bf16 compute,
+   f32 master, random weights from seed 0 on the card) trained 6 steps by
+   ``launch.train.train_loop`` on ``TokenStream(128256, 64, 8)``, every
+   loss finite and the first within 1.0 of ln 128256; host ms a step
+   (train_loop's last 4), CUDA-event device ms (4 more steps), tokens/s,
+   peak memory, clip + AdamW alone; (d) on its model the prefill step then
+   7 decode steps, greedy, 4 prompts x 64 tokens, bitwise
+   ``lm.decode``'s tokens; (b) cut to 2 of 16 layers at full width: 4
+   straight steps bitwise equal to 2 steps, a checkpoint and 2 resumed
+   (params, mu, nu, step); the checkpoint's bytes, ``save_async``'s
+   blocking ms, ``save_blocking``'s s and restore s of those runs (in a
+   temporary directory, removed); (c) the same cut in f32, 2 x 16 tokens,
+   2 steps on the card against the CPU from the same state: loss / ce /
+   gnorm within DOT_TOL relative, mu and nu within REPLAY_TOL of each
+   leaf's max; (e) the paper's Fig. 3 pipeline (tests/test_system.py's):
+   the Table III CNN trained 60 AdamW steps of 64 ``CifarLikeImages``
+   (lr 3e-3, no weight decay) through the fused blocks under the
+   saliency rules (B1, B2, B2+B3, B4, B5 and B6 at S = 1, B11, B12:
+   ``PER_TRAIN_CNN_STEP`` a step), accuracy above 0.5 on
+   ``batch_at(999, 128)``, the saliency heatmap's in-blob mass median
+   above 3x the blob's area share, and the first step's conv weight
+   gradients within DOT_TOL of max of float64 with cuDNN's flags at
+   PyTorch's default (ROADMAP C1: the port pins IEEE f32 itself).  Paths
+   ``train_lm`` (no kernel of ours: the LM train step reaches none, as in
+   ``repro``) and ``train_cnn``.
+
 Last, the profiler column of phase 2: every row's kernel (and general
 route) 50 times under one profiler session, its CUPTI time per call;
 then one saliency explain of each CNN path, Table IV's f32 FP+BP at
 batch 1 and 32, one training step, one LM decode step and one per-token
-LM explain (falcon-mamba-7b, and hymba-1.5b's) under ``torch.profiler``:
+LM explain (falcon-mamba-7b, and hymba-1.5b's), and phase 14's
+llama3.2-1b train step and its clip + AdamW alone under ``torch.profiler``:
 kernel time by kernel and by family against the device time measured
 before (the device's idle share); the
 bf16 explain's kernels by name must show the forwards and backwards on
@@ -572,6 +600,15 @@ def kernel_resources(ptxas_log: str, names):
                     found.append((label, int(m.group(1))) + spill)
             entry = None
     return found
+
+
+def f32_conv(*args, **kw):
+    """``F.conv2d`` in IEEE f32: the library call f32 kernels are timed
+    beside, which computes their function only without TF32 (cuDNN's f32
+    default), pinned as the port pins its own cuDNN calls."""
+    from repro_torch.kernels.conv2d import ref as conv_ref
+    with conv_ref.ieee_f32():
+        return F.conv2d(*args, **kw)
 
 
 def bound_ms(nbytes: float, ops: float, rate: float) -> float:
@@ -1058,7 +1095,7 @@ def check_kernels(kc: KernelCheck):
         kc.record("conv2d_fwd", case, True, got,
                   conv_ref.conv2d(x, w) + b, False,
                   lambda: conv2d(x, w, b), lambda: conv_ref.conv2d(x, w) + b,
-                  nbytes, flops, lambda: F.conv2d(xn, wn, b, padding=1))
+                  nbytes, flops, lambda: f32_conv(xn, wn, b, padding=1))
 
     # B2 relu + mask: the three rectifiers of the forward no pool follows
     # (conv 0, conv 2, FC0); exact zeros give bit 0 (strict >), -0.0 +0.0
@@ -1185,7 +1222,7 @@ def check_kernels(kc: KernelCheck):
               lambda: conv2d_bwd_fused(g, wt),
               lambda: conv2d_bwd_fused_plain(g, wt),
               4 * (g.numel() * 1.5 + wt.numel()), 2 * g.numel() * 9 * 32,
-              lambda: F.conv2d(gn, wn, padding=1))
+              lambda: f32_conv(gn, wn, padding=1))
 
     # B6 fused FC backward: FC1 (no gate) then FC0 (gate by its mask),
     # launched again, under a second tile plan and on the general kernel
@@ -1382,7 +1419,7 @@ def sweep_launch_choices(gen):
             w = randn(gen, 3, 3, cin, cout, scale=(2.0 / (9 * cin)) ** 0.5)
             b = randn(gen, cout, scale=0.1)
             xn, wn = x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1)
-            lib = device_time_ms(lambda: F.conv2d(xn, wn, b, padding=1))
+            lib = device_time_ms(lambda: f32_conv(xn, wn, b, padding=1))
             chosen = conv_plan(BATCH, h, h, cin, cout, 3)
             first = conv2d_planned(x, w, b, plan=chosen)
             case = f"conv {kind} [{BATCH},{h},{h},{cin}->{cout}]"
@@ -1908,7 +1945,7 @@ def check_kernels_fxp(kc: KernelCheck):
                   lambda: conv2d_fxp(x, w, b),
                   lambda: sat(conv_ref.conv2d_fxp(x, w), b), nbytes,
                   n * h * h * cout * 9 * cin, rate=rate,
-                  f32_reference_fn=lambda: F.conv2d(xn, wn, bf, padding=1),
+                  f32_reference_fn=lambda: f32_conv(xn, wn, bf, padding=1),
                   general_fn=lambda: conv2d_fxp_planned(x, w, b,
                                                         plan=CONV_GENERAL))
     x, w = rails(n, 16, 16, 64), rails(3, 3, 64, 64)   # 576 * 2^30 wraps
@@ -3405,11 +3442,11 @@ def _expect(rose, want, what):
         fail(f"{what}: launches {rose}, want {full}")
 
 
-def _flipped_examples(res_a, res_b):
-    """Indices of the examples whose stored residual bits differ."""
+def _flipped_examples(res_a, res_b, n=BATCH):
+    """Indices of the ``n`` examples whose stored residual bits differ."""
     tensors = [t for pair in zip(res_a["conv"], res_b["conv"])
                for t in zip(*pair)] + list(zip(res_a["fc"], res_b["fc"]))
-    bad = torch.zeros(BATCH, dtype=torch.bool)
+    bad = torch.zeros(n, dtype=torch.bool)
     for a, b in tensors:
         if a is not None:
             diff = torch.bitwise_xor(a.cpu(), b.cpu()) != 0
@@ -3682,6 +3719,7 @@ def check_lm(launches, to_profile):
     d_inner 8192, N 16, vocab 65024, bf16), random weights.  Returns
     ``((params, cfg, decode result), results)``: the model stays on the
     card for phase 12."""
+    from repro_torch.tree import leaves
     from repro_torch import configs, lm
     from repro_torch.engine import EngineSpec, LMModel, build
     from repro_torch.models import transformer as tf
@@ -3693,7 +3731,7 @@ def check_lm(launches, to_profile):
                      .manual_seed(0), device="cuda")
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    n_params = sum(t.numel() for t in _leaves(params))
+    n_params = sum(t.numel() for t in leaves(params))
     prompts = torch.randint(0, cfg.vocab, (LM_BATCH, LM_PROMPT),
                             generator=torch.Generator(device="cuda")
                             .manual_seed(1), device="cuda")
@@ -3922,30 +3960,22 @@ def _f32_last_logits(params, cfg, tokens):
     """Last-position logits of the same weights evaluated in f32, layer by
     layer (each layer's weights widened as it runs; chunked scan; each
     segment's attention window)."""
+    from repro_torch.tree import tree_map
     from repro_torch.models import layers
     from repro_torch.models import transformer as tf
     c32 = cfg.with_(dtype="float32")
 
     def up(tree):
-        return tf._tree_map(lambda t: t.to(torch.float32), tree)
+        return tree_map(lambda t: t.to(torch.float32), tree)
 
     x = tf.embed_inputs(params, cfg, {"tokens": tokens}).to(torch.float32)
     rope_cs = tf._rope(c32, x.shape[1], x.device)
     for si, (kind, count, window) in enumerate(cfg.layer_plan()):
-        for i in range(count):
-            x, _, _ = tf._block(up(tf._layer(params["segments"][si], i)),
-                                x, c32, kind, rope_cs=rope_cs,
+        for lp in tf._unstack(params["segments"][si], count):
+            x, _, _ = tf._block(up(lp), x, c32, kind, rope_cs=rope_cs,
                                 window=window, method="autodiff")
     x = layers.apply_norm(params["final_norm"], x[:, -1:], cfg.norm)
     return layers.lm_head(up(params["embed"]), x, c32)[:, -1]
-
-
-def _leaves(tree):
-    if isinstance(tree, dict):
-        return [t for v in tree.values() for t in _leaves(v)]
-    if isinstance(tree, list):
-        return [t for v in tree for t in _leaves(v)]
-    return [tree]
 
 
 def _int8_codes(fn, replace=None):
@@ -5313,11 +5343,12 @@ def _zoo_f32_checks(params, cfg, res, frames):
     far from linear as the card's.  In f32 the same comparisons read
     1e-5.  The bf16 path itself is held by the bf16 twins and, on hymba,
     each layer's B13 backward by :func:`_b13_bwd_layer_errs`."""
+    from repro_torch.tree import tree_map
     from repro_torch import lm
     from repro_torch.models import transformer as tf
     t, pos = LM_NEW - 1, LM_PROMPT + LM_NEW - 2
     ta, tb = res.tokens[:, pos + 1], res.runners_up[:, t]
-    p32 = tf._tree_map(lambda v: v.float(), params)
+    p32 = tree_map(lambda v: v.float(), params)
     c32 = cfg.with_(dtype="float32")
     con32 = lm.make_token_explain(c32, mode="contrastive")
     ixg32 = lm.make_token_explain(c32, mode="ixg")
@@ -5346,6 +5377,7 @@ def check_zoo_arch(arch, launches, to_profile):
     an engine explain with the modality inputs, times; hymba also B13's
     launches, its route against the chunked scan, a planned explain and
     an LMAdapter server.  Returns the config's results."""
+    from repro_torch.tree import leaves
     from repro_torch import configs, lm
     from repro_torch.engine import EngineSpec, LMModel, build
     from repro_torch.models import transformer as tf
@@ -5359,7 +5391,7 @@ def check_zoo_arch(arch, launches, to_profile):
                      .manual_seed(0), device="cuda")
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    n_params = sum(t.numel() for t in _leaves(params))
+    n_params = sum(t.numel() for t in leaves(params))
     gen = torch.Generator(device="cuda").manual_seed(1)
     inputs = _zoo_inputs(cfg, LM_BATCH, LM_PROMPT, gen, "cuda")
     prompts = inputs["tokens"]
@@ -5633,6 +5665,7 @@ def check_zoo_twin_bf16(arch):
     twin's distance from the f32 ones, scores within ZOO_BF16_SCORES_TOL
     of max sum_d |rel*e| of the CPU bf16 twin's.  Each device's bf16
     linearity printed."""
+    from repro_torch.tree import tree_map
     from repro_torch import configs
     from repro_torch.engine import methods as engine_methods
     from repro_torch.models import transformer as tf
@@ -5647,7 +5680,7 @@ def check_zoo_twin_bf16(arch):
         at = tf.forward(params, cfg, batch)[0][:, -1]
     top = engine_methods.top_k(at.float(), 2)
     ta, tb = top[:, 0], top[:, 1]
-    exact, _, _ = _token_relevance(tf._tree_map(lambda v: v.float(),
+    exact, _, _ = _token_relevance(tree_map(lambda v: v.float(),
                                                 params),
                                    cfg.with_(dtype="float32"), batch, ta, tb)
     cpu, lin_cpu, e_cpu = _token_relevance(params, cfg, batch, ta, tb)
@@ -5753,6 +5786,450 @@ def check_lm_zoo(launches, to_profile):
 
 
 # ---------------------------------------------------------------------------
+# phase 14: training on the card (launch/train, launch/steps, checkpoint)
+# ---------------------------------------------------------------------------
+
+
+#: (a) llama3.2-1b FULL, as ``repro.launch.train``'s defaults feed it:
+#: 8 x 64 tokens a step; (b) and (c) cut to RESUME_LAYERS of its 16 layers
+#: (a checkpoint of the full depth would be ~14.8 GB of npz)
+TRAIN_LM_ARCH = "llama3.2-1b"
+TRAIN_LM_STEPS, TRAIN_LM_SEQ, TRAIN_LM_BATCH = 6, 64, 8
+TRAIN_LM_TIMED = 4
+RESUME_LAYERS = 2
+TWIN_TRAIN_BATCH, TWIN_TRAIN_SEQ = 2, 16
+#: (d) the prefill step then decode steps, greedy, on (a)'s model
+STEP_PROMPTS, STEP_PROMPT_LEN, STEP_NEW = 4, 64, 8
+#: (e) the paper's Fig. 3 pipeline, as tests/test_system.py trains it
+CNN_TRAIN_STEPS, CNN_TRAIN_BATCH, CNN_TRAIN_LR = 60, 64, 3e-3
+#: the steps whose gradients are held against the CPU twin's: the first
+#: two (by step 10 the loss is ~1e-5, where the softmax's 1 - p cancels)
+CNN_TWIN_STEPS = (0, 1)
+#: kernel launches per CNN training step on the fused blocks under the
+#: saliency rules (the true gradient): the forward's four convs, the
+#: ReLU mask at conv 0, conv 2 and FC0, the fused ReLU + pool at conv 1
+#: and conv 3, both FC layers; dx of conv 1-3 and of both FC layers
+#: through the fused backwards at S = 1; for the weight gradients the
+#: gate at the five rectifiers and the unpool at the two pools
+PER_TRAIN_CNN_STEP = {"conv2d_fwd": 4, "relu_fwd": 3, "relu_pool_fwd": 2,
+                      "vmm_fwd": 2, "conv2d_bwd_fused": 3,
+                      "vmm_bwd_fused": 2, "relu_bwd": 5, "unpool_bwd": 2}
+
+
+def _state_to(state, device):
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as tf
+    opt = state.opt
+    return steps.TrainState(tf.params_to(state.params, device),
+                            type(opt)(opt.step.to(device),
+                                      tf.params_to(opt.mu, device),
+                                      tf.params_to(opt.nu, device)))
+
+
+def _state_leaves(state):
+    from repro_torch.tree import leaves
+    from repro_torch.launch import steps
+    return (leaves(state.params) + leaves(state.opt.mu)
+            + leaves(state.opt.nu) + [state.opt.step])
+
+
+def _bitwise_states(a, b, what):
+    la, lb = _state_leaves(a), _state_leaves(b)
+    if len(la) != len(lb) or not all(
+            x.dtype == y.dtype and torch.equal(x, y) for x, y in zip(la, lb)):
+        fail(f"{what}: the states are not bitwise equal")
+
+
+def _batch_on(data, step, device="cuda"):
+    return {k: torch.as_tensor(v).to(device)
+            for k, v in data.batch_at(step).items()}
+
+
+def check_train_lm(launches, to_profile):
+    """Phase 14 (a)-(d): llama3.2-1b trained at full width and depth, the
+    crash-resume at 2 layers bitwise, a 2-layer f32 card-vs-CPU twin, and
+    the prefill / decode steps against ``lm.decode``."""
+    from repro_torch.tree import leaves, tree_map
+    import math
+    import os
+    import shutil
+
+    from repro_torch import configs, lm
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.data import TokenStream
+    from repro_torch.launch import steps, train
+    from repro_torch.models import transformer as tf
+    from repro_torch.optim import clip_by_global_norm, adamw_update
+    from repro_torch.runtime import HealthMonitor
+
+    full = configs.get(TRAIN_LM_ARCH)
+    data = TokenStream(vocab=full.vocab, seq_len=TRAIN_LM_SEQ,
+                       global_batch=TRAIN_LM_BATCH)
+    tokens = TRAIN_LM_BATCH * TRAIN_LM_SEQ
+    res = {}
+    totals = launches.setdefault("train_lm", {})
+
+    # (a) full width and depth: train_loop's 6 steps, each step_fn call
+    # between two CUDA events; the last TRAIN_LM_TIMED steps are timed
+    t_a = time.perf_counter()
+    held = torch.cuda.memory_allocated() / 2 ** 30
+    torch.cuda.reset_peak_memory_stats()
+    mon, events, real_build = HealthMonitor(), [], train.build
+
+    def timed_build(*args, **kwargs):
+        init_fn, step_fn = real_build(*args, **kwargs)
+
+        def timed_step(state, batch):
+            a, e = (torch.cuda.Event(enable_timing=True),
+                    torch.cuda.Event(enable_timing=True))
+            a.record()
+            out = step_fn(state, batch)
+            e.record()
+            events.append((a, e))
+            return out
+        return init_fn, timed_step
+
+    train.build = timed_build
+    try:
+        (state, losses), _ = _count(lambda: train.train_loop(
+            full, data, steps=TRAIN_LM_STEPS, ckpt_dir=None, monitor=mon,
+            log_every=1), totals)
+    finally:
+        train.build = real_build
+    n_params = sum(t.numel() for t in leaves(state.params))
+    if not all(math.isfinite(v) for v in losses):
+        fail(f"phase 14 (a): losses not finite: {losses}")
+    if abs(losses[0] - math.log(full.vocab)) > 1.0:
+        fail(f"phase 14 (a): first loss {losses[0]:.4f} not within 1.0 of "
+             f"ln {full.vocab} = {math.log(full.vocab):.4f}")
+    # host: train_loop's wall time of each step (the step and the sync of
+    # its loss); device: each step's span between its events; the window:
+    # from the first timed step's start to the last one's end, the gaps
+    # between steps included
+    timed = events[-TRAIN_LM_TIMED:]
+    host_ms = 1e3 * statistics.median(list(mon._times[0])[-TRAIN_LM_TIMED:])
+    dev_ms = statistics.median([a.elapsed_time(e) for a, e in timed])
+    window_ms = timed[0][0].elapsed_time(timed[-1][1])
+    tokens_per_s = TRAIN_LM_TIMED * tokens / window_ms * 1e3
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"  (a) {TRAIN_LM_ARCH} FULL ({full.n_layers} layers, d_model "
+          f"{full.d_model}, vocab {full.vocab}, {n_params / 1e9:.3f} G f32 "
+          f"params, bf16 compute), {TRAIN_LM_BATCH} x {TRAIN_LM_SEQ} tokens: "
+          f"losses {[round(v, 4) for v in losses]} (ln V "
+          f"{math.log(full.vocab):.4f}); of train_loop's last "
+          f"{TRAIN_LM_TIMED} steps, a step {host_ms:.2f} ms host and "
+          f"{dev_ms:.2f} ms device (medians; CUDA events around each "
+          f"step), the {TRAIN_LM_TIMED} in a window of {window_ms:.2f} ms "
+          f"({window_ms / TRAIN_LM_TIMED:.2f} a step), {tokens_per_s:.0f} "
+          f"tokens/s over it; peak {peak:.2f} GiB, "
+          f"{held:.2f} of it held before phase 14 (kept for the profiles "
+          f"at the end)")
+    res["a"] = dict(losses=losses, host_ms=host_ms, device_ms=dev_ms,
+                    window_ms=window_ms, tokens_per_s=tokens_per_s,
+                    peak_gib=peak, held_gib=held, n_params=n_params)
+    _, step_fn = train.build(full, total_steps=TRAIN_LM_STEPS)
+    b = _batch_on(data, 0)
+    to_profile.append((f"lm train step ({TRAIN_LM_ARCH} FULL)",
+                       lambda: step_fn(state, b), dev_ms))
+    grads = tree_map(torch.zeros_like, state.params)
+    lr = torch.tensor(1e-3, device="cuda")
+
+    def adamw_pass():
+        adamw_update(clip_by_global_norm(grads, 1.0)[0], state.opt,
+                     state.params, lr=lr)
+
+    _, adamw_ms = _host_device_ms(adamw_pass)
+    print(f"  (a) clip + AdamW alone over the f32 state: {adamw_ms:.2f} ms "
+          f"device ({100 * adamw_ms / dev_ms:.1f} % of a step); "
+          f"{time.perf_counter() - t_a:.1f} s")
+    res["a"]["adamw_ms"] = adamw_ms
+    to_profile.append((f"lm train clip + AdamW ({TRAIN_LM_ARCH} FULL)",
+                       adamw_pass, adamw_ms))
+
+    # (d) the prefill and decode steps on (a)'s model, against lm.decode
+    params_c = steps.cast_for_compute(state.params, full)
+    prompts = torch.randint(0, full.vocab, (STEP_PROMPTS, STEP_PROMPT_LEN),
+                            generator=torch.Generator().manual_seed(3))
+    want = lm.decode(params_c, full, prompts, max_new=STEP_NEW).generated
+    cache = tf.init_cache(full, STEP_PROMPTS,
+                          STEP_PROMPT_LEN + STEP_NEW + 8, device="cuda")
+    prefill, decode = steps.make_prefill_step(full), \
+        steps.make_decode_step(full)
+
+    def run_steps(cache):
+        nxt, cache = prefill(params_c, {"tokens": prompts.cuda()}, cache)
+        got = [nxt]
+        for i in range(STEP_NEW - 1):
+            nxt, cache = decode(params_c, cache, nxt, STEP_PROMPT_LEN + i)
+            got.append(nxt)
+        return torch.cat(got, dim=1)
+
+    got, _ = _count(lambda: run_steps(cache), totals)
+    if got.dtype != torch.int32 or not torch.equal(got.long().cpu(),
+                                                   want.cpu()):
+        fail(f"phase 14 (d): prefill + decode steps {got.tolist()} != "
+             f"lm.decode's {want.tolist()}")
+    print(f"  (d) prefill step + {STEP_NEW - 1} decode steps, greedy, "
+          f"{STEP_PROMPTS} x {STEP_PROMPT_LEN} prompts: the {STEP_NEW} "
+          f"tokens equal lm.decode's bitwise")
+    del params_c, cache
+
+    # (b) crash-resume at 2 of 16 layers, bitwise; the resumed run's
+    # checkpoint manager timed
+    t_b = time.perf_counter()
+    cut = full.with_(n_layers=RESUME_LAYERS)
+    (straight, _), _ = _count(lambda: train.train_loop(
+        cut, data, steps=4, ckpt_dir=None, verbose=False), totals)
+    timed = {}
+
+    class TimedManager(CheckpointManager):
+        def save_async(self, step, tree):
+            self.wait()
+            t0 = time.perf_counter()
+            super().save_async(step, tree)
+            timed.setdefault("save_async_block_ms", []).append(
+                1e3 * (time.perf_counter() - t0))
+
+        def save_blocking(self, step, tree):
+            t0 = time.perf_counter()
+            super().save_blocking(step, tree)
+            timed.setdefault("save_blocking_s", []).append(
+                time.perf_counter() - t0)
+
+        def restore_latest(self, like):
+            t0 = time.perf_counter()
+            out = super().restore_latest(like)
+            torch.cuda.synchronize()
+            timed.setdefault("restore_s", []).append(
+                time.perf_counter() - t0)
+            return out
+
+    real_manager = train.CheckpointManager
+    train.CheckpointManager = TimedManager
+    try:
+        with tempfile.TemporaryDirectory(prefix="ckpt_") as d:
+            free = shutil.disk_usage(d).free / 1e9
+            _count(lambda: train.train_loop(cut, data, steps=2, ckpt_dir=d,
+                                            ckpt_every=2, verbose=False),
+                   totals)
+            nbytes = os.path.getsize(os.path.join(d, "step_00000002",
+                                                  "shard_0.npz"))
+            (resumed, _), _ = _count(lambda: train.train_loop(
+                cut, data, steps=4, ckpt_dir=d, verbose=False), totals)
+            if real_manager(d).latest_step() != 4:
+                fail("phase 14 (b): no checkpoint of step 4")
+    finally:
+        train.CheckpointManager = real_manager
+    _bitwise_states(straight, resumed,
+                    "phase 14 (b): 4 straight vs 2 + 2 resumed")
+    block_ms = statistics.median(timed["save_async_block_ms"])
+    save_s = statistics.median(timed["save_blocking_s"])
+    restore_s = timed["restore_s"][0]
+    print(f"  (b) {RESUME_LAYERS} of {full.n_layers} layers at full width: 4 "
+          f"straight steps == 2 + a checkpoint + 2 resumed, bitwise (params, "
+          f"mu, nu, step); a checkpoint {nbytes / 1e9:.3f} GB, save_async "
+          f"blocks {block_ms:.1f} ms, save_blocking {save_s:.2f} s (after "
+          f"the async save's wait), restore {restore_s:.2f} s ({free:.1f} GB "
+          f"free in the temporary directory; removed); "
+          f"{time.perf_counter() - t_b:.1f} s")
+    res["b"] = dict(ckpt_bytes=nbytes, save_async_block_ms=block_ms,
+                    save_blocking_s=save_s, restore_s=restore_s)
+    del straight, resumed
+
+    # (c) card vs CPU twin, f32, 2 layers, batch 2 x 16
+    t_c = time.perf_counter()
+    twin = full.with_(n_layers=RESUME_LAYERS, dtype="float32")
+    init_fn, twin_step = train.build(twin, total_steps=TRAIN_LM_STEPS)
+    cpu = init_fn(torch.Generator().manual_seed(0), "cpu")
+    card = _state_to(cpu, "cuda")
+    tdata = TokenStream(vocab=full.vocab, seq_len=TWIN_TRAIN_SEQ,
+                        global_batch=TWIN_TRAIN_BATCH)
+    errs = {}
+    for s in range(2):
+        bc = _batch_on(tdata, s, "cpu")
+        cpu, mc = twin_step(cpu, bc)
+        (card, m), _ = _count(lambda: twin_step(
+            card, {k: v.cuda() for k, v in bc.items()}), totals)
+        for k in ("loss", "ce", "gnorm"):
+            e = abs(float(m[k]) - float(mc[k])) / abs(float(mc[k]))
+            errs[k] = max(errs.get(k, 0.0), e)
+            if not e <= DOT_TOL:
+                fail(f"phase 14 (c): step {s} {k} card {float(m[k])} vs "
+                     f"CPU {float(mc[k])}")
+    for name in ("mu", "nu"):
+        worst = 0.0
+        for x, y in zip(leaves(getattr(card.opt, name)),
+                        leaves(getattr(cpu.opt, name))):
+            e = (x.cpu() - y).abs().max().item() / max(
+                y.abs().max().item(), 1e-30)
+            worst = max(worst, e)
+        errs[name] = worst
+        if not worst <= REPLAY_TOL:
+            fail(f"phase 14 (c): {name} card vs CPU {worst:.3e} of max")
+    print(f"  (c) {RESUME_LAYERS} layers f32, {TWIN_TRAIN_BATCH} x "
+          f"{TWIN_TRAIN_SEQ} tokens, 2 steps card vs CPU: loss / ce / gnorm "
+          f"within {max(errs['loss'], errs['ce'], errs['gnorm']):.2e} "
+          f"relative, mu {errs['mu']:.2e}, nu {errs['nu']:.2e} of max; "
+          f"{time.perf_counter() - t_c:.1f} s")
+    res["c"] = errs
+    del cpu, card
+    return res
+
+
+def check_train_cnn(launches):
+    """Phase 14 (e): the paper's Fig. 3 pipeline on the card: the Table
+    III CNN trained with AdamW on the kernel path (fused blocks, saliency
+    rules: the true gradient), then explained; the first step's conv
+    weight gradients against float64 under cuDNN's default flags (C1)."""
+    import numpy as np
+
+    from repro_torch import optim
+    from repro_torch.core import attribution
+    from repro_torch.data import CifarLikeImages
+    from repro_torch.engine import CNNModel, EngineSpec, build
+    from repro_torch.kernels.conv2d import ref as conv_ref
+    from repro_torch.models import cnn
+
+    cfg, ds = cnn.CNNConfig(), CifarLikeImages()
+    p = cnn.params_to(cnn.init(torch.Generator().manual_seed(0), cfg),
+                      "cuda")
+    state = optim.adamw_init(p)
+    setting = torch.backends.cudnn.conv.fp32_precision
+    totals = launches.setdefault("train_cnn", {})
+
+    def batch(s, device):
+        b = ds.batch_at(s, batch=CNN_TRAIN_BATCH)
+        return (torch.from_numpy(b["image"]).to(device),
+                torch.from_numpy(b["label"]).long().to(device))
+
+    def loss_and_grads(p, img, lab):
+        pg = {k: [{n: t.detach().requires_grad_() for n, t in q.items()}
+                  for q in v] for k, v in p.items()}
+        leaves = [q[n] for k in ("conv", "fc") for q in pg[k]
+                  for n in ("w", "b")]
+        loss = F.cross_entropy(cnn.apply(pg, img, cfg, method="saliency",
+                                         use_pallas=True), lab)
+        return loss.detach(), torch.autograd.grad(loss, leaves)
+
+    def step(p, state, s):
+        loss, flat = loss_and_grads(p, *batch(s, "cuda"))
+        it = iter(flat)
+        grads = {k: [{n: next(it) for n in ("w", "b")} for _ in p[k]]
+                 for k in ("conv", "fc")}
+        p, state = optim.adamw_update(grads, state, p, lr=CNN_TRAIN_LR,
+                                      weight_decay=0.0)
+        return p, state, loss, flat
+
+    def against_twin(p, s, loss, flat):
+        """The step's loss and gradients against the port on the CPU (each
+        kernel's plain version) from the same params and batch, on the
+        examples whose residual bits the two devices agree on."""
+        img, lab = batch(s, "cuda")
+        img_c, lab_c = batch(s, "cpu")
+        p_cpu = cnn.params_to(p, "cpu")
+        _, res = cnn.forward_with_residuals(p, img, cfg, "saliency")
+        _, res_c = cnn.forward_with_residuals(p_cpu, img_c, cfg, "saliency")
+        keep = ~_flipped_examples(res, res_c, CNN_TRAIN_BATCH)
+        if not bool(keep.all()):
+            loss, flat = loss_and_grads(p, img[keep.cuda()],
+                                        lab[keep.cuda()])
+        loss_c, flat_c = loss_and_grads(p_cpu, img_c[keep], lab_c[keep])
+        what = f"phase 14 (e): step {s} card vs CPU twin"
+        e_loss = abs(loss.item() - loss_c.item()) / abs(loss_c.item())
+        if not e_loss <= DOT_TOL:
+            fail(f"{what}: loss {loss.item()} vs {loss_c.item()}")
+        worst = 0.0
+        for i, (g, g_c) in enumerate(zip(flat, flat_c)):
+            e = (g.cpu() - g_c).abs().max().item()
+            ref = g_c.abs().max().item()
+            if not (bool(torch.isfinite(g).all()) and e <= REPLAY_TOL * ref):
+                fail(f"{what}: gradient {i} off by {e:.3e} (max|g| "
+                     f"{ref:.3e})")
+            worst = max(worst, e / ref)
+        return dict(step=s, kept=int(keep.sum()), loss=loss_c.item(),
+                    loss_rel_err=e_loss, grad_rel_err=worst)
+
+    seen, real = [], conv_ref.conv2d_weight_grad
+
+    def spy(x, w, g):
+        dw = real(x, w, g)
+        seen.append((x, w, g, dw))
+        return dw
+
+    losses, twins, wall_s = [], [], 0.0
+    for s in range(CNN_TRAIN_STEPS):
+        if s == 0:
+            conv_ref.conv2d_weight_grad = spy
+        t0, before = time.perf_counter(), p
+        try:
+            (p, state, loss, flat), rose = _count(
+                lambda: step(p, state, s), totals)
+        finally:
+            conv_ref.conv2d_weight_grad = real
+        wall_s += time.perf_counter() - t0
+        _expect(rose, PER_TRAIN_CNN_STEP, f"phase 14 (e): step {s}")
+        losses.append(loss)
+        if s in CNN_TWIN_STEPS:
+            twins.append(against_twin(before, s, loss, flat))
+        del flat
+    losses = [v.item() for v in losses]
+    worst = 0.0
+    for x, w, g, dw in seen:
+        dw64 = torch.nn.grad.conv2d_weight(
+            x.double().permute(0, 3, 1, 2), w.permute(3, 2, 0, 1).shape,
+            g.double().permute(0, 3, 1, 2), padding=(w.shape[0] - 1) // 2
+        ).permute(2, 3, 1, 0)
+        e = (dw.double() - dw64).abs().max().item() / dw64.abs().max().item()
+        worst = max(worst, e)
+    if len(seen) != len(p["conv"]) or not worst <= DOT_TOL:
+        fail(f"phase 14 (e): {len(seen)} conv weight gradients, worst "
+             f"{worst:.3e} of max from float64 (cuDNN conv fp32_precision "
+             f"{setting!r} outside the port's calls)")
+    test = ds.batch_at(999, batch=128)
+    with torch.no_grad():
+        logits = cnn.apply(p, torch.from_numpy(test["image"]).cuda(), cfg,
+                           use_pallas=True)
+    acc = (logits.argmax(-1).cpu().numpy() == test["label"]).mean()
+    eng = build(EngineSpec(CNNModel(p, cfg, device="cuda"),
+                           method="saliency"))
+    _, rel = eng.explain(test["image"][:16])
+    hm = attribution.heatmap(rel).cpu().numpy()
+    cy, cx = ds.blob_center(test["label"][:16])
+    yy = np.arange(32)[None, :, None]
+    xx = np.arange(32)[None, None, :]
+    near = ((yy - cy[:, None, None]) ** 2
+            + (xx - cx[:, None, None]) ** 2) < 6.0 ** 2
+    in_mass = (hm * near).sum(axis=(1, 2)) / hm.sum(axis=(1, 2))
+    share = float(near.mean())
+    med = float(np.median(in_mass))
+    print(f"  (e) Table III CNN, {CNN_TRAIN_STEPS} AdamW steps of batch "
+          f"{CNN_TRAIN_BATCH} (lr {CNN_TRAIN_LR}, fused blocks, saliency "
+          f"rules) in {wall_s:.2f} s: loss at steps 0 / 1 / 2 / 10 / "
+          f"{CNN_TRAIN_STEPS - 1} "
+          + " / ".join(f"{losses[i]:.4g}" for i in (0, 1, 2, 10, -1))
+          + f"; accuracy {acc:.3f} on batch_at(999, 128); "
+          f"saliency heatmap in-blob mass median {med:.4f} against "
+          f"{share:.4f} of the area ({med / share:.2f}x); the first step's "
+          f"{len(seen)} conv weight gradients within {worst:.2e} of max "
+          f"from float64 (cuDNN conv fp32_precision {setting!r} outside "
+          f"the port's calls); launches a step {PER_TRAIN_CNN_STEP}")
+    for t in twins:
+        print(f"  (e) step {t['step']} against the CPU twin (each kernel's "
+              f"plain version, the same params and batch) on {t['kept']} of "
+              f"{CNN_TRAIN_BATCH} examples: loss {t['loss']:.4f}, within "
+              f"{t['loss_rel_err']:.2e} relative, every gradient within "
+              f"{t['grad_rel_err']:.2e} of its max")
+    if not acc > 0.5:
+        fail(f"phase 14 (e): accuracy {acc:.3f} <= 0.5")
+    if not med > 3 * share:
+        fail(f"phase 14 (e): in-blob mass median {med:.4f} <= 3 x {share:.4f}")
+    return dict(losses=losses, accuracy=float(acc), in_mass_median=med,
+                area_share=share, dw_f64_rel_err=worst, wall_s=wall_s,
+                twins=twins, cudnn_conv_fp32_precision=setting,
+                launches_per_step=PER_TRAIN_CNN_STEP)
+
+
+# ---------------------------------------------------------------------------
 
 
 #: The counters each path must launch; the others must stay at 0 there.
@@ -5776,7 +6253,9 @@ PATH_KERNELS = {"f32": tuple(PER_EXPLAIN["f32"]),
                 "perturb_fxp16": tuple(PER_PERTURB["fxp16"]),
                 "plan_f32": tuple(PER_EXPLAIN["f32"]),
                 "plan_bf16": tuple(PER_EXPLAIN["bf16"]),
-                "plan_fxp16": tuple(PER_EXPLAIN["fxp16"])}
+                "plan_fxp16": tuple(PER_EXPLAIN["fxp16"]),
+                "train_lm": (),
+                "train_cnn": tuple(PER_TRAIN_CNN_STEP)}
 #: The path whose launches the kernel JSON reports for each kernel: the
 #: first that runs it (the bf16 paths report the bf16 instances).
 KERNEL_PATH = {k: next(p for p in PATH_KERNELS if k in PATH_KERNELS[p]
@@ -5830,8 +6309,6 @@ def main() -> int:
           f"{torch.version.cuda}); nvidia-smi: {smi}; {sms} SMs, max SM "
           f"clock {max_sm_mhz:.0f} MHz -> IMAD peak {imad_per_s:.4e}/s, "
           f"MUFU peak {mufu_per_s:.4e}/s")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
     _build.library()
     build_s = time.perf_counter() - t0
@@ -5997,6 +6474,17 @@ def main() -> int:
           f"determinism")
     zoo_results = check_lm_zoo(launches, to_profile)
     check_path_launches("lm_zoo", launches["lm_zoo"])
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase 14 (train): {TRAIN_LM_ARCH} FULL trained {TRAIN_LM_STEPS} "
+          f"steps (launch.train), crash-resume and a CPU "
+          f"twin at {RESUME_LAYERS} layers, the prefill / decode steps; the "
+          f"Table III CNN trained {CNN_TRAIN_STEPS} steps, then explained")
+    train_lm_results = check_train_lm(launches, to_profile)
+    check_path_launches("train_lm", launches["train_lm"])
+    train_cnn_results = check_train_cnn(launches)
+    check_path_launches("train_cnn", launches["train_cnn"])
 
     # last, as a profiler session slows what runs after it: phase 2's
     # profiler column (the process's first session), then where each
@@ -6008,7 +6496,8 @@ def main() -> int:
     kc.summary()
     print("profiles: one saliency explain per CNN path, Table IV's f32 "
           "FP+BP at batch 1 and 32, one training step, one LM decode step "
-          "and one per-token LM explain (falcon-mamba-7b, hymba-1.5b) under "
+          "and one per-token LM explain (falcon-mamba-7b, hymba-1.5b), "
+          "llama3.2-1b's train step and its clip + AdamW under "
           "torch.profiler")
     profiles = {what: profile_breakdown(fn, what, wall)
                 for what, fn, wall in to_profile}
@@ -6045,6 +6534,7 @@ def main() -> int:
             paper_tables=tables,
             vjp=vjp_results, train=train_results, lm=lm_results,
             lm_twin=twin_results, lm_zoo=zoo_results, serve=serve_results,
+            train_lm=train_lm_results, train_cnn=train_cnn_results,
             perturb=perturb_results, plan=plan_results,
             scan_backward_ms=kc.scan_backward_ms,
             mma_accumulation=kc.accumulation, bf16_one_seed=kc.one_seed,

@@ -1,19 +1,62 @@
 """Plain PyTorch version of the conv kernels (NHWC x HWIO, stride 1, SAME).
 
-On a CUDA tensor ``F.conv2d`` goes through cuDNN, which runs f32 as TF32
-unless ``torch.backends.cudnn.allow_tf32 = False``; whoever compares a
-kernel with this version on the card sets that flag first.
+On a CUDA tensor the convolutions go through cuDNN, whose f32 default is
+TF32.  Every cuDNN call here (the forward, its autograd gradients and the
+weight gradient) runs inside :func:`ieee_f32`, so an f32 conv of the port
+sums in IEEE f32, as the JAX package's do, whatever the process-wide
+flags say.
 """
+import contextlib
+
 import torch
 import torch.nn.functional as F
 
 from repro_torch.core.fixedpoint import requantize
 
 
+@contextlib.contextmanager
+def ieee_f32():
+    """cuDNN's f32 convolutions in IEEE f32 (no TF32) inside the block;
+    the caller's setting comes back on exit, an exception included.  It
+    reads and writes one setting, ``torch.backends.cudnn.conv.
+    fp32_precision``, so a caller may use either of PyTorch's TF32 APIs."""
+    conv = torch.backends.cudnn.conv
+    before = conv.fp32_precision
+    conv.fp32_precision = "ieee"
+    try:
+        yield
+    finally:
+        conv.fp32_precision = before
+
+
+class _Conv2d(torch.autograd.Function):
+    """``F.conv2d`` (NCHW x OIHW, stride 1) whose forward and backward both
+    run inside :func:`ieee_f32`: the backward is the same
+    ``convolution_backward`` autograd would call, when the caller's
+    ``backward()`` runs outside any block of this module."""
+
+    @staticmethod
+    def forward(ctx, x, w, pad: int):
+        ctx.save_for_backward(x, w)
+        ctx.pad = pad
+        with ieee_f32():
+            return F.conv2d(x, w, padding=pad)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        need = ctx.needs_input_grad
+        with ieee_f32():
+            dx, dw, _ = torch.ops.aten.convolution_backward(
+                g, x, w, None, [1, 1], [ctx.pad, ctx.pad], [1, 1], False,
+                [0, 0], 1, [need[0], need[1], False])
+        return dx, dw, None
+
+
 def conv2d(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x: [N, H, W, Cin], w: [K, K, Cin, Cout] (odd K) -> [N, H, W, Cout]."""
-    y = F.conv2d(x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1),
-                 padding=(w.shape[0] - 1) // 2)
+    y = _Conv2d.apply(x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1),
+                      (w.shape[0] - 1) // 2)
     return y.permute(0, 2, 3, 1).contiguous()
 
 
@@ -69,10 +112,11 @@ def conv2d_weight_grad(x: torch.Tensor, w: torch.Tensor,
 
     In f32 throughout (bf16 operands widened exactly), rounded once to w's
     type, as the JAX package's ``conv2d_weight_grad`` computes it.
-    Training only; on a CUDA tensor cuDNN computes it, in TF32 unless
-    ``torch.backends.cudnn.allow_tf32`` is off.
+    Training only; on a CUDA tensor cuDNN computes it, in IEEE f32
+    (:func:`ieee_f32`).
     """
-    dw = torch.nn.grad.conv2d_weight(
-        x.float().permute(0, 3, 1, 2), w.permute(3, 2, 0, 1).shape,
-        g.float().permute(0, 3, 1, 2), padding=(w.shape[0] - 1) // 2)
+    with ieee_f32():
+        dw = torch.nn.grad.conv2d_weight(
+            x.float().permute(0, 3, 1, 2), w.permute(3, 2, 0, 1).shape,
+            g.float().permute(0, 3, 1, 2), padding=(w.shape[0] - 1) // 2)
     return dw.permute(2, 3, 1, 0).contiguous().to(w.dtype)

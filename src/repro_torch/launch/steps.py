@@ -1,12 +1,189 @@
-"""The LM token-attribution step, as ``repro.launch.steps`` builds it:
-``TOKEN_MODES``, :func:`ssm_scan_tiles` and :func:`make_attribute_step`.
-The train / prefill / decode steps and the sharding trees of that module
-are ROADMAP A12.
+"""The steps of ``repro.launch.steps`` on one device: train, prefill,
+decode and the LM token-attribution step.
+
+Numerics, as the JAX package's: f32 master parameters and Adam moments
+(:class:`TrainState`); each step casts the master once to the compute
+dtype (:func:`cast_for_compute`: every matrix, SSM dynamics kept f32) and
+differentiates the loss with respect to that one tree; microbatch
+gradients are widened to f32 and summed in order, then divided.  The
+sharding trees of that module need a mesh (ROADMAP A12b).
 """
 from __future__ import annotations
 
+from typing import Dict, NamedTuple
+
+import torch
+
+from repro_torch import tree as trees
 from repro_torch.engine import methods as engine_methods
 from repro_torch.models import transformer as tf
+from repro_torch.optim import (AdamWState, adamw_init, adamw_update,
+                               clip_by_global_norm, cosine_schedule)
+
+_KEEP_F32 = ("A_log", "dt_bias", "D")   # SSM dynamics: stay f32 in compute
+
+
+class TrainState(NamedTuple):
+    params: Dict     # f32 master
+    opt: AdamWState
+
+
+# ---------------------------------------------------------------------------
+# trees / casts / loss
+# ---------------------------------------------------------------------------
+
+
+def cast_for_compute(params, cfg):
+    """The compute tree: every f32 leaf with ``ndim >= 2`` whose name is
+    not in ``_KEEP_F32`` cast to the config's dtype.  The rule reads the
+    stacked segment tree, so a per-layer norm scale ``[L, d]`` and the
+    router ``[L, d, E]`` are cast while ``final_norm`` ``[d]`` stays f32,
+    as in the JAX package."""
+    def cast(path, p):
+        if (p.dim() >= 2 and p.dtype == torch.float32
+                and trees.leaf_name(path) not in _KEEP_F32):
+            return p.to(cfg.torch_dtype)
+        return p
+    return trees.map_with_path(cast, params)
+
+
+def ce_loss(logits, labels, cfg):
+    """Mean token cross-entropy of f32 logits; a vlm's loss runs over the
+    text positions only (the first ``n_patches`` are dropped)."""
+    lg = logits.to(torch.float32)
+    if cfg.frontend == "patches":
+        lg = lg[:, cfg.n_patches:, :]
+    lse = torch.logsumexp(lg, dim=-1)
+    ll = torch.gather(lg, -1, labels.to(torch.int64)[..., None])[..., 0]
+    return (lse - ll).mean()
+
+
+# ---------------------------------------------------------------------------
+# train
+# ---------------------------------------------------------------------------
+
+
+def make_train_state_init(cfg):
+    """``init_fn(generator=None, device=None) -> TrainState``: f32 master
+    parameters (``tf.init`` of ``cfg`` in f32) and zero moments on
+    ``device`` (None: the card), drawn from ``generator`` (default: seed 0
+    on that device)."""
+    cfg32 = cfg.with_(dtype="float32")
+
+    def init_fn(generator: torch.Generator = None, device=None) -> TrainState:
+        params = tf.init(cfg32, generator=generator, device=device)
+        return TrainState(params=params, opt=adamw_init(params))
+
+    return init_fn
+
+
+def make_train_step(cfg, *, microbatches: int = 1, peak_lr: float = 2e-4,
+                    warmup_steps: int = 100, total_steps: int = 10_000,
+                    clip: float = 1.0, triangle_skip: bool = True):
+    """``(state, batch) -> (state, metrics)``; ``batch``: tensors on the
+    state's device, ``tokens`` and ``labels`` ``[B, S]`` (plus a vlm's
+    ``patches``, an encoder-decoder's ``frames``).  Metrics: ``loss`` (CE
+    plus the MoE's aux loss), ``ce``, ``gnorm`` (before clipping) and
+    ``lr`` (the schedule at the step before the update), scalar
+    tensors."""
+
+    def loss_fn(params_c, mb):
+        fwd_batch = {k: v for k, v in mb.items() if k != "labels"}
+        logits, aux = tf.forward(params_c, cfg, fwd_batch,
+                                 triangle_skip=triangle_skip)
+        ce = ce_loss(logits, mb["labels"], cfg)
+        return ce + aux, ce
+
+    def grads_of(params_c, leaves, mb):
+        loss, ce = loss_fn(params_c, mb)
+        gs = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                 materialize_grads=True)
+        return loss.detach(), ce.detach(), gs
+
+    def train_step(state: TrainState, batch: Dict):
+        params_c = trees.tree_map(lambda t: t.detach().requires_grad_(),
+                        cast_for_compute(state.params, cfg))
+        leaves = trees.leaves(params_c)
+        if microbatches == 1:
+            loss, ce, gs = grads_of(params_c, leaves, batch)
+            flat = [g.to(torch.float32) for g in gs]
+            del gs
+        else:
+            mbs = {k: v.reshape((microbatches, v.shape[0] // microbatches)
+                                + tuple(v.shape[1:]))
+                   for k, v in batch.items()}
+            flat = [torch.zeros(t.shape, dtype=torch.float32,
+                                device=t.device) for t in leaves]
+            loss = torch.zeros((), dtype=torch.float32,
+                               device=leaves[0].device)
+            ce = torch.zeros_like(loss)
+            for i in range(microbatches):
+                li, ci, gs = grads_of(params_c, leaves,
+                                      {k: v[i] for k, v in mbs.items()})
+                flat = [a + g.to(torch.float32) for a, g in zip(flat, gs)]
+                loss, ce = loss + li, ce + ci
+                del gs
+            flat = [g / microbatches for g in flat]
+            loss, ce = loss / microbatches, ce / microbatches
+        del params_c, leaves
+        grads = trees.unflatten(state.params, flat)
+        del flat
+        grads, gnorm = clip_by_global_norm(grads, clip)
+        lr = cosine_schedule(state.opt.step, peak_lr=peak_lr,
+                             warmup_steps=warmup_steps,
+                             total_steps=total_steps)
+        new_params, new_opt = adamw_update(grads, state.opt, state.params,
+                                           lr=lr)
+        metrics = {"loss": loss, "ce": ce, "gnorm": gnorm, "lr": lr}
+        return TrainState(new_params, new_opt), metrics
+
+    return train_step
+
+
+def state_from_jax(state_np, device="cpu") -> TrainState:
+    """The JAX package's ``TrainState`` (leaves as NumPy arrays) -> this
+    package's on ``device``: params, mu and nu copied bit for bit
+    (``tf.params_from_jax``), the step as an int32 scalar."""
+    opt = state_np.opt
+    return TrainState(
+        params=tf.params_from_jax(state_np.params, device),
+        opt=AdamWState(
+            step=torch.tensor(int(opt.step), dtype=torch.int32,
+                              device=device),
+            mu=tf.params_from_jax(opt.mu, device),
+            nu=tf.params_from_jax(opt.nu, device)))
+
+
+# ---------------------------------------------------------------------------
+# serve
+# ---------------------------------------------------------------------------
+
+
+def make_prefill_step(cfg, *, triangle_skip: bool = True):
+    """``(params, batch, cache) -> (next tokens [B, 1] int32, cache)``:
+    the prompt's prefill and its greedy (argmax) next token."""
+    @torch.no_grad()
+    def prefill_step(params, batch, cache):
+        logits, cache = tf.prefill(params, cfg, batch, cache,
+                                   triangle_skip=triangle_skip)
+        nxt = torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)
+        return nxt[:, None], cache
+
+    return prefill_step
+
+
+def make_decode_step(cfg):
+    """``(params, cache, tokens [B, 1], pos) -> (next tokens [B, 1] int32,
+    cache)``: one cached decode step at position ``pos`` and its greedy
+    next token."""
+    @torch.no_grad()
+    def decode_step(params, cache, tokens, pos):
+        logits, cache = tf.decode_step(params, cfg, tokens, cache, int(pos))
+        nxt = torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)
+        return nxt[:, None], cache
+
+    return decode_step
+
 
 #: Per-token score reductions ``make_attribute_step`` builds.
 TOKEN_MODES = ("ixg", "grad_norm", "contrastive")

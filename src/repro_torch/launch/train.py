@@ -1,0 +1,140 @@
+"""End-to-end fault-tolerant training driver on one device, as
+``repro.launch.train`` runs it on its host mesh:
+
+  deterministic data -> train_step -> health monitor (stragglers)
+  -> async checkpoints -> crash-resume (bitwise, thanks to step-indexed data)
+  -> elastic remesh planning on simulated host loss.
+
+Runs on the card unless ``--torch-device cpu`` asks for the CPU::
+
+    python -m repro_torch.launch.train --arch llama3.2-1b --steps 20
+    python -m repro_torch.launch.train --steps 3 --torch-device cpu \\
+        --ckpt /tmp/ck --simulate-host-loss 28
+
+``--mesh host`` is the one device; the production meshes (``--mesh
+single|multi``) are ROADMAP A12b.  As in the JAX package's driver,
+``--smoke`` is always on: the arch's SMOKE config trains.
+"""
+from __future__ import annotations
+
+import argparse
+import time
+from typing import Optional
+
+import torch
+
+import repro_torch.configs as configs
+from repro_torch.checkpoint import CheckpointManager
+from repro_torch.data import TokenStream
+from repro_torch.engine.spec import resolve_device
+from repro_torch.launch import steps as steps_lib
+from repro_torch.runtime import HealthMonitor, plan_remesh
+
+
+def build(cfg, *, microbatches=1, peak_lr=1e-3, total_steps=1000):
+    """``(init_fn, step_fn)``: :func:`steps.make_train_state_init` and the
+    train step, warmup ``max(10, total_steps // 20)``."""
+    init_fn = steps_lib.make_train_state_init(cfg)
+    step_fn = steps_lib.make_train_step(cfg, microbatches=microbatches,
+                                        peak_lr=peak_lr,
+                                        warmup_steps=max(10, total_steps // 20),
+                                        total_steps=total_steps)
+    return init_fn, step_fn
+
+
+def _mesh_unsupported(mesh):
+    return NotImplementedError(
+        f"mesh {mesh!r}: training on a mesh of devices is ROADMAP A12b; "
+        f"the port trains on one device (--mesh host)")
+
+
+def train_loop(cfg, data: TokenStream, *, steps: int, ckpt_dir: Optional[str],
+               ckpt_every: int = 50, resume: bool = True, mesh=None,
+               microbatches: int = 1, log_every: int = 10,
+               monitor: Optional[HealthMonitor] = None, verbose=True,
+               device=None):
+    """Returns (final_state, losses). Restart-safe around ``ckpt_dir``.
+
+    Trains on ``device`` (None: the card) from parameters drawn with seed
+    0 there; ``mesh`` must be None (one device)."""
+    if mesh is not None:
+        raise _mesh_unsupported(mesh)
+    dev = resolve_device(device)
+    init_fn, step_fn = build(cfg, microbatches=microbatches,
+                             total_steps=steps)
+
+    def fresh():
+        return init_fn(torch.Generator(device=dev).manual_seed(0), dev)
+
+    manager = CheckpointManager(ckpt_dir) if ckpt_dir else None
+    start = 0
+    state = None
+    if manager and resume and manager.latest_step() is not None:
+        start, state = manager.restore_latest(fresh())
+        if verbose:
+            print(f"[train] resumed from step {start}")
+    if state is None:
+        state = fresh()
+
+    monitor = monitor or HealthMonitor()
+    losses = []
+    for step in range(start, steps):
+        batch = {k: torch.as_tensor(v).to(dev)
+                 for k, v in data.batch_at(step).items()}
+        t0 = time.monotonic()
+        state, metrics = step_fn(state, batch)
+        loss = float(metrics["loss"])
+        monitor.record_step(0, time.monotonic() - t0)
+        losses.append(loss)
+        if verbose and step % log_every == 0:
+            print(f"[train] step {step:5d} loss {loss:.4f} "
+                  f"lr {float(metrics['lr']):.2e} "
+                  f"gnorm {float(metrics['gnorm']):.2f}")
+        if manager and (step + 1) % ckpt_every == 0:
+            manager.save_async(step + 1, state)
+    if manager:
+        manager.save_blocking(steps, state)
+    return state, losses
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="llama3.2-1b")
+    ap.add_argument("--smoke", action="store_true", default=True)
+    ap.add_argument("--steps", type=int, default=200)
+    ap.add_argument("--global-batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=64)
+    ap.add_argument("--ckpt", default=None)
+    ap.add_argument("--mesh", default="host", choices=["host", "single", "multi"])
+    ap.add_argument("--microbatches", type=int, default=1)
+    ap.add_argument("--simulate-host-loss", type=int, default=0,
+                    help="simulate N dead hosts and print the elastic plan")
+    ap.add_argument("--torch-device", default=None,
+                    help="where training runs: 'cuda' (the default: the "
+                         "card, an error without one) or 'cpu'")
+    args = ap.parse_args(argv)
+
+    cfg = configs.get_smoke(args.arch) if args.smoke else configs.get(args.arch)
+    if args.mesh != "host":
+        raise _mesh_unsupported(args.mesh)
+
+    if args.simulate_host_loss:
+        healthy = list(range(128 - args.simulate_host_loss))
+        plan = plan_remesh(128, healthy, 4, 16)
+        print(f"[elastic] lost {args.simulate_host_loss} hosts -> "
+              f"mesh {plan.mesh_shape} ({plan.note}); restore latest "
+              f"checkpoint into the new mesh and continue.")
+
+    data = TokenStream(vocab=cfg.vocab, seq_len=args.seq,
+                       global_batch=args.global_batch)
+    t0 = time.time()
+    _, losses = train_loop(cfg, data, steps=args.steps, ckpt_dir=args.ckpt,
+                           microbatches=args.microbatches,
+                           device=args.torch_device)
+    dt = time.time() - t0
+    print(f"[train] {args.steps} steps in {dt:.1f}s; "
+          f"loss {losses[0]:.3f} -> {losses[-1]:.3f}")
+
+
+if __name__ == "__main__":
+    main()

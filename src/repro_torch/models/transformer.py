@@ -33,6 +33,7 @@ import torch
 from repro_torch.engine.spec import resolve_device
 from repro_torch.models import layers, mamba, moe
 from repro_torch.models.config import ModelConfig
+from repro_torch.tree import leaves, tree_map
 
 # ---------------------------------------------------------------------------
 # params
@@ -63,10 +64,11 @@ def _init_segment(gen, cfg, kind: str, count: int, cross: bool = False):
     """``count`` blocks stacked on a leading layer axis, filled layer by
     layer (one layer's draws beside the stack, never two stacks)."""
     first = _init_block(gen, cfg, kind, cross)
-    seg = _tree_map(lambda t: t.new_empty((count,) + tuple(t.shape)), first)
+    seg = tree_map(lambda t: t.new_empty((count,) + tuple(t.shape)), first)
     for i in range(count):
         blk = first if i == 0 else _init_block(gen, cfg, kind, cross)
-        _tree_map2(lambda dst, src: dst[i].copy_(src), seg, blk)
+        for dst, src in zip(leaves(seg), leaves(blk)):
+            dst[i].copy_(src)
     return seg
 
 
@@ -92,25 +94,6 @@ def init(cfg: ModelConfig, *, generator: torch.Generator = None,
     return params
 
 
-def _tree_map(fn, tree):
-    if isinstance(tree, dict):
-        return {k: _tree_map(fn, v) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return [_tree_map(fn, v) for v in tree]
-    return fn(tree)
-
-
-def _tree_map2(fn, a, b):
-    if isinstance(a, dict):
-        for k in a:
-            _tree_map2(fn, a[k], b[k])
-    elif isinstance(a, list):
-        for x, y in zip(a, b):
-            _tree_map2(fn, x, y)
-    else:
-        fn(a, b)
-
-
 def _stack(trees):
     """Per-layer trees -> one tree with a leading layer axis."""
     if isinstance(trees[0], dict):
@@ -130,12 +113,12 @@ def params_from_jax(params_np, device="cpu") -> Dict:
     """The JAX package's params tree (leaves as NumPy arrays, bf16 as
     ``ml_dtypes.bfloat16``) -> this package's: the same tree, per-segment
     leading layer axis and encoder included, bit for bit."""
-    return _tree_map(lambda a: _from_numpy(a, device), params_np)
+    return tree_map(lambda a: _from_numpy(a, device), params_np)
 
 
 def params_to(params, device) -> Dict:
     """Params tree moved to ``device`` (no copy where already there)."""
-    return _tree_map(lambda t: t.to(device), params)
+    return tree_map(lambda t: t.to(device), params)
 
 
 def device_of(params) -> torch.device:
@@ -222,8 +205,15 @@ def _block(p, x, cfg, kind: str, *, rope_cs=None, window: int = 0,
     return x + f, new_cache, aux
 
 
-def _layer(tree, i):
-    return _tree_map(lambda t: t[i], tree)
+def _unstack(tree, count: int):
+    """The ``count`` per-layer trees of a stacked (dict) tree, each leaf
+    split by one ``unbind``: under autograd its backward stacks the
+    layers' gradients once, where indexing layer by layer would add
+    ``count`` full-size zero-padded gradients into each stacked leaf."""
+    if isinstance(tree, dict):
+        per = {k: _unstack(v, count) for k, v in tree.items()}
+        return [{k: per[k][i] for k in per} for i in range(count)]
+    return list(tree.unbind(0))
 
 
 def _run_segments(params, cfg, x, *, rope_cs=None, method="autodiff",
@@ -238,15 +228,16 @@ def _run_segments(params, cfg, x, *, rope_cs=None, method="autodiff",
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     new_caches = [] if caches is not None else None
     for si, (kind, count, window) in enumerate(cfg.layer_plan()):
-        seg_p = params["segments"][si]
-        seg_c = caches[si] if caches is not None else None
+        seg_p = _unstack(params["segments"][si], count)
+        seg_c = (_unstack(caches[si], count) if caches is not None
+                 else None)
         tile = scan_tiles.get(si) if scan_tiles else None
         states = []
         for i in range(count):
             x, nc, aux = _block(
-                _layer(seg_p, i), x, cfg, kind, rope_cs=rope_cs,
+                seg_p[i], x, cfg, kind, rope_cs=rope_cs,
                 window=window, method=method,
-                cache=_layer(seg_c, i) if seg_c is not None else None,
+                cache=seg_c[i] if seg_c is not None else None,
                 pos=pos, enc_out=enc_out, causal=causal,
                 triangle_skip=triangle_skip, scan_tile=tile)
             aux_total = aux_total + aux
@@ -283,9 +274,7 @@ def encode(params, cfg, frames, method="autodiff"):
     """Bidirectional encoder over frame embeddings -> [B, S_src, d]."""
     x = frames.to(cfg.torch_dtype)
     rope_cs = _rope(cfg, x.shape[1], x.device)
-    enc = params["encoder"]
-    for i in range(cfg.enc_layers):
-        lp = _layer(enc, i)
+    for lp in _unstack(params["encoder"], cfg.enc_layers):
         h = layers.apply_norm(lp["norm1"], x, cfg.norm)
         x = x + layers.attention(lp["attn"], h, cfg, rope_cs=rope_cs,
                                  causal=False, method=method)

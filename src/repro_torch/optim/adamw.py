@@ -7,9 +7,11 @@ parameter and moment trees are returned, nothing is changed in place.
 from __future__ import annotations
 
 import math
-from typing import Any, Callable, Iterator, List, NamedTuple
+from typing import Any, NamedTuple
 
 import torch
+
+from repro_torch.tree import leaves, tree_map, unflatten
 
 
 class AdamWState(NamedTuple):
@@ -18,34 +20,13 @@ class AdamWState(NamedTuple):
     nu: Any
 
 
-def _leaves(tree) -> List[torch.Tensor]:
-    if isinstance(tree, dict):
-        return [t for v in tree.values() for t in _leaves(v)]
-    if isinstance(tree, (list, tuple)):
-        return [t for v in tree for t in _leaves(v)]
-    return [tree]
-
-
-def _rebuild(like, it: Iterator):
-    """A tree shaped like ``like`` whose leaves come from ``it`` in order."""
-    if isinstance(like, dict):
-        return {k: _rebuild(v, it) for k, v in like.items()}
-    if isinstance(like, (list, tuple)):
-        return type(like)(_rebuild(v, it) for v in like)
-    return next(it)
-
-
-def _map(fn: Callable, tree):
-    return _rebuild(tree, iter([fn(t) for t in _leaves(tree)]))
-
-
 def adamw_init(params) -> AdamWState:
     def zeros(p):
         return torch.zeros_like(p, dtype=torch.float32)
 
-    step = torch.zeros((), dtype=torch.int32, device=_leaves(params)[0].device)
-    return AdamWState(step=step, mu=_map(zeros, params),
-                      nu=_map(zeros, params))
+    step = torch.zeros((), dtype=torch.int32, device=leaves(params)[0].device)
+    return AdamWState(step=step, mu=tree_map(zeros, params),
+                      nu=tree_map(zeros, params))
 
 
 def adamw_update(grads, state: AdamWState, params, *, lr, b1=0.9, b2=0.95,
@@ -57,8 +38,8 @@ def adamw_update(grads, state: AdamWState, params, *, lr, b1=0.9, b2=0.95,
     bc1 = 1.0 - b1 ** t
     bc2 = 1.0 - b2 ** t
     new_p, new_m, new_v = [], [], []
-    for g, m, v, p in zip(_leaves(grads), _leaves(state.mu),
-                          _leaves(state.nu), _leaves(params)):
+    for g, m, v, p in zip(leaves(grads), leaves(state.mu),
+                          leaves(state.nu), leaves(params)):
         g = g.to(torch.float32)
         m = b1 * m + (1 - b1) * g
         v = b2 * v + (1 - b2) * torch.square(g)
@@ -68,17 +49,17 @@ def adamw_update(grads, state: AdamWState, params, *, lr, b1=0.9, b2=0.95,
         new_p.append((p32 - lr * (delta + wd * p32)).to(p.dtype))
         new_m.append(m)
         new_v.append(v)
-    return (_rebuild(params, iter(new_p)),
-            AdamWState(step=step, mu=_rebuild(params, iter(new_m)),
-                       nu=_rebuild(params, iter(new_v))))
+    return (unflatten(params, new_p),
+            AdamWState(step=step, mu=unflatten(params, new_m),
+                       nu=unflatten(params, new_v)))
 
 
 def clip_by_global_norm(grads, max_norm: float):
     """Returns ``(clipped_grads, global_norm)``."""
     gnorm = torch.sqrt(sum(torch.sum(torch.square(g.to(torch.float32)))
-                           for g in _leaves(grads)))
+                           for g in leaves(grads)))
     scale = torch.clamp(max_norm / torch.clamp_min(gnorm, 1e-9), max=1.0)
-    return _map(lambda g: (g.to(torch.float32) * scale).to(g.dtype),
+    return tree_map(lambda g: (g.to(torch.float32) * scale).to(g.dtype),
                 grads), gnorm
 
 

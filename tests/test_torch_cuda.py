@@ -116,8 +116,6 @@ TOL = 1e-5
 def gen():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     return torch.Generator(device="cuda").manual_seed(0)
 
 
@@ -2339,3 +2337,152 @@ def test_zoo_smoke_on_card_matches_cpu(gen, arch):
     assert _rel(sc, sc_c) <= 1e-4
     for t in range(3):
         assert bool((sc[:, t, 12 + t:] == 0).all())
+
+
+# ---------------------------------------------------------------------------
+# ROADMAP C1 and training (A12a) on the card
+# ---------------------------------------------------------------------------
+
+
+def _f64_weight_grad(x, w, g):
+    return torch.nn.grad.conv2d_weight(
+        x.double().permute(0, 3, 1, 2), w.permute(3, 2, 0, 1).shape,
+        g.double().permute(0, 3, 1, 2), padding=(w.shape[0] - 1) // 2
+    ).permute(2, 3, 1, 0)
+
+
+def test_c1_f32_convs_ieee_under_default_flags(gen):
+    """With cuDNN's f32 TF32 default on: the port's plain conv (forward
+    and its autograd input gradient) at a Table III layer, and the four
+    conv weight gradients of a Table III training step (``CifarLikeImages``
+    batch, the fused blocks under the saliency rules, as phase 14 of
+    ``chip_smoke.py`` trains), are within 1e-5 of max of a float64 twin:
+    IEEE f32, not TF32.  The weight gradients are held on the training
+    step's own activations and gradients: on unit Gaussians at
+    ``[32,16,16,64]`` cuDNN's f32 weight-gradient algorithm alone sits at
+    1.1e-5 of max (a sum of 8192 such products)."""
+    from repro_torch.data import CifarLikeImages
+    from repro_torch.models import cnn
+    cd = torch.backends.cudnn
+    before = cd.conv.fp32_precision
+    cd.conv.fp32_precision = "tf32"
+    try:
+        x = _randn(gen, 32, 16, 16, 32)
+        w = _randn(gen, 3, 3, 32, 64, scale=(2.0 / (9 * 32)) ** 0.5)
+        g = _randn(gen, 32, 16, 16, 64)
+        xr = x.clone().requires_grad_()
+        y = conv_ref.conv2d(xr, w)
+        (dx,) = torch.autograd.grad(y, xr, g)
+        x64 = x.double().requires_grad_()
+        y64 = torch.nn.functional.conv2d(
+            x64.permute(0, 3, 1, 2), w.double().permute(3, 2, 0, 1),
+            padding=1).permute(0, 2, 3, 1)
+        (dx64,) = torch.autograd.grad(y64, x64, g.double())
+        _close(y.double(), y64.detach())
+        _close(dx.double(), dx64)
+
+        seen, real = [], conv_ref.conv2d_weight_grad
+
+        def spy(x, w, g):
+            dw = real(x, w, g)
+            seen.append((x, w, g, dw))
+            return dw
+
+        cfg = cnn.CNNConfig()
+        p = cnn.params_to(cnn.init(torch.Generator().manual_seed(0), cfg),
+                          "cuda")
+        leaves = [q[n].requires_grad_() for k in ("conv", "fc")
+                  for q in p[k] for n in ("w", "b")]
+        b = CifarLikeImages().batch_at(0, batch=64)
+        conv_ref.conv2d_weight_grad = spy
+        try:
+            loss = torch.nn.functional.cross_entropy(
+                cnn.apply(p, torch.from_numpy(b["image"]).cuda(), cfg,
+                          method="saliency", use_pallas=True),
+                torch.from_numpy(b["label"]).long().cuda())
+            torch.autograd.grad(loss, leaves)
+        finally:
+            conv_ref.conv2d_weight_grad = real
+        assert len(seen) == 4
+        for x, w, g, dw in seen:
+            _close(dw.double(), _f64_weight_grad(x, w, g))
+        assert cd.conv.fp32_precision == "tf32"
+    finally:
+        cd.conv.fp32_precision = before
+
+
+def test_embedding_gradient_deterministic_on_card(gen):
+    """The token lookup's table gradient: the same bits on two runs with
+    repeated tokens, within 1e-6 of the CPU's ``index_put_``
+    accumulate."""
+    from repro_torch.models import layers
+    table = _randn(gen, 300, 64).requires_grad_()
+    tokens = torch.randint(0, 40, (8, 64), device="cuda", generator=gen)
+    g = _randn(gen, 8, 64, 64)
+
+    def grad():
+        out = layers.embed({"table": table}, tokens, None)
+        return torch.autograd.grad(out, table, g)[0]
+
+    a, b = grad(), grad()
+    assert torch.equal(a, b)
+    want = torch.zeros(300, 64).index_put_((tokens.cpu().reshape(-1),),
+                                           g.cpu().reshape(-1, 64),
+                                           accumulate=True)
+    assert (a.cpu() - want).abs().max().item() <= 1e-6 * want.abs().max()
+
+
+def test_train_step_on_card_matches_cpu(gen):
+    """Two SMOKE train steps (llama3.2-1b, f32) on the card against the
+    CPU from the same state: metrics within 1e-5 relative, mu and nu
+    within 1e-4 of each leaf's max."""
+    from repro_torch import configs
+    from repro_torch.data import TokenStream
+    from repro_torch import tree as trees
+    from repro_torch.launch import steps, train
+    from repro_torch.models import transformer as tf
+    cfg = configs.get_smoke("llama3.2-1b")
+    init_fn, step_fn = train.build(cfg, total_steps=20)
+    cpu = init_fn(torch.Generator().manual_seed(0), "cpu")
+    card = steps.TrainState(tf.params_to(cpu.params, "cuda"),
+                            type(cpu.opt)(*[tf.params_to(t, "cuda")
+                                            if isinstance(t, dict)
+                                            else t.cuda()
+                                            for t in cpu.opt]))
+    data = TokenStream(vocab=cfg.vocab, seq_len=16, global_batch=4)
+    for step in range(2):
+        b = {k: torch.as_tensor(v) for k, v in data.batch_at(step).items()}
+        cpu, mc = step_fn(cpu, b)
+        card, m = step_fn(card, {k: v.cuda() for k, v in b.items()})
+        for k in mc:
+            assert abs(float(m[k]) - float(mc[k])) <= \
+                1e-5 * max(abs(float(mc[k])), 1e-30), k
+    for a_, b_ in ((card.opt.mu, cpu.opt.mu), (card.opt.nu, cpu.opt.nu)):
+        for x, y in zip(trees.leaves(a_), trees.leaves(b_)):
+            assert (x.cpu() - y).abs().max() <= 1e-4 * y.abs().max()
+
+
+def test_train_resume_bitwise_on_card(gen, tmp_path):
+    """SMOKE llama3.2-1b in bf16 compute: 4 straight steps equal 2 steps,
+    a checkpoint and a resumed 2, bit for bit."""
+    from repro_torch import configs
+    from repro_torch.data import TokenStream
+    from repro_torch import tree as trees
+    from repro_torch.launch import train
+    cfg = configs.get_smoke("llama3.2-1b").with_(dtype="bfloat16")
+    data = TokenStream(vocab=cfg.vocab, seq_len=16, global_batch=4)
+    full, _ = train.train_loop(cfg, data, steps=4, ckpt_dir=None,
+                               verbose=False)
+    d = str(tmp_path / "ck")
+    train.train_loop(cfg, data, steps=2, ckpt_dir=d, ckpt_every=2,
+                     verbose=False)
+    resumed, _ = train.train_loop(cfg, data, steps=4, ckpt_dir=d,
+                                  verbose=False)
+    for t in (full, resumed):
+        assert t.opt.step.device.type == "cuda"
+    for tree in ("params", "mu", "nu"):
+        get = (lambda s: s.params) if tree == "params" else \
+            (lambda s, n=tree: getattr(s.opt, n))
+        for x, y in zip(trees.leaves(get(full)), trees.leaves(get(resumed))):
+            assert torch.equal(x, y)
+    assert torch.equal(full.opt.step, resumed.opt.step)

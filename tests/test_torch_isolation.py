@@ -9,6 +9,8 @@
   (``repro_torch.perturb``, ``Engine.perturb``, the serve explainers) and
   the kernel profiler run on the CPU, and ``python -m repro_torch.obs
   trace`` replays and validates its trace.
+* With ``jax`` made unimportable, ``train_loop`` trains two steps on the
+  CPU into a checkpoint and resumes from it.
 * Importing every module neither starts ``nvcc`` nor loads the kernel
   library, and a CUDA launch without ``nvcc`` raises instead of running
   the plain version.
@@ -116,6 +118,30 @@ assert not any(m == "jax" or m.startswith(("jax.", "repro."))
                for m in sys.modules if sys.modules[m] is not None)
 print("ok")
 """)
+    assert out.strip().endswith("ok")
+
+
+def test_train_loop_without_jax(tmp_path):
+    out = _run(f"""
+import sys
+sys.modules["jax"] = None
+sys.modules["repro"] = None
+from repro_torch import configs
+from repro_torch.data import TokenStream
+from repro_torch.launch.train import train_loop
+cfg = configs.get_smoke("llama3.2-1b")
+data = TokenStream(vocab=cfg.vocab, seq_len=8, global_batch=2)
+ck = r"{tmp_path / 'ck'}"
+state, losses = train_loop(cfg, data, steps=2, ckpt_dir=ck, ckpt_every=1,
+                           verbose=False, device="cpu")
+assert len(losses) == 2 and int(state.opt.step) == 2
+_, more = train_loop(cfg, data, steps=3, ckpt_dir=ck, device="cpu")
+assert len(more) == 1
+assert not any(m == "jax" or m.startswith(("jax.", "repro."))
+               for m in sys.modules if sys.modules[m] is not None)
+print("ok")
+""")
+    assert "[train] resumed from step 2" in out
     assert out.strip().endswith("ok")
 
 

@@ -34,6 +34,7 @@ from repro.models import moe as jmoe
 from repro_torch import configs
 from repro_torch.models import moe
 from repro_torch.models import transformer as tf
+from repro_torch.tree import tree_map
 
 ARCHS = ("llama4-scout-17b-a16e", "moonshot-v1-16b-a3b")
 
@@ -110,7 +111,7 @@ def test_moe_gradients_match_jax_grad(arch):
         return jnp.sum(y ** 2) + aux
 
     jgp, jgx = jax.grad(jloss, argnums=(0, 1))(jp, jx)
-    leaves = tf._tree_map(lambda t: t.requires_grad_(), p)
+    leaves = tree_map(lambda t: t.requires_grad_(), p)
     tx.requires_grad_()
     y, aux = moe.moe_ffn(leaves, tx, cfg)
     ((y ** 2).sum() + aux).backward()

@@ -15,6 +15,7 @@ autotuned), and check them against the CPU.
     python3 chip_smoke.py                  # one card; exits 0 when all pass
     python3 chip_smoke.py --out DIR        # also writes DIR/chip_smoke.json
     python3 chip_smoke.py --sweep [--out DIR]
+    python3 chip_smoke.py --multi-device [--out DIR]
 
 ``--sweep`` runs phase 1, then times the launch choices of B4 (every K
 split) and B1 (the tile plans of ``conv_candidates``, all bitwise equal;
@@ -312,6 +313,32 @@ Phases (every failed check raises; nothing is caught and carried on):
    PyTorch's default (ROADMAP C1: the port pins IEEE f32 itself).  Paths
    ``train_lm`` (no kernel of ours: the LM train step reaches none, as in
    ``repro``) and ``train_cnn``.
+15. multi-device (after phase 14): (a) a NCCL process group of 1 rank
+   (``file://`` store in a temporary directory); (b) ``mesh:h100:1`` and
+   ``mesh:h100:4`` engines (the latter capped at the world's 1 rank: data
+   parallel over ``make_serving_mesh``, every collective run through
+   NCCL) against the single-device ``h100`` engine at full Table III
+   width, batch 32, top-3, in f32, bf16 and fxp16 and every method:
+   explain, forward, replay and every residual byte bitwise, each run
+   counted (paths ``dp_f32``, ``dp_bf16``, ``dp_fxp16``: B1-B10); the
+   sharded explain timed against the unsharded one, host and CUDA-event
+   ms, medians of 24; (c) data-parallel llama3.2-1b FULL train steps on
+   ``make_host_mesh(1, 1)`` from phase 14's state on 2 batches, each
+   bitwise the plain step from the same state and batch, timed; (d)
+   ``compressed_all_reduce``
+   of the tied embedding's gradient [128256, 2048] (caught at (c)'s first
+   clip) over NCCL, bitwise ``decompress(compress(x + err))`` with the
+   residue as the new error, twice, timed, and its wire bytes against
+   f32's; (e) last of all (after the profiles, card 0's memory freed),
+   with 2 or more cards, ``min(4, count)`` NCCL ranks, one card each, run
+   (b) (fxp16 bitwise; f32 within DOT_TOL and bf16 within
+   BF16_TOL of max, residual bits within MIN_BIT_AGREEMENT) and (c) (the
+   data-parallel gradient within DOT_TOL of each leaf's max of the
+   row-weighted f32 sum of the plain step's gradients of each rank's
+   slice, loss and CE likewise: each rank rounds the bf16 gradient of its
+   rows before the sum, so against the whole batch's plain step bf16
+   would set the bound); else one line says the machine has one card.  ``--multi-device`` runs phase 1, then
+   phase 15 alone (on a llama3.2-1b state from seed 0), and stops.
 
 Last, the profiler column of phase 2: every row's kernel (and general
 route) 50 times under one profiler session, its CUPTI time per call;
@@ -6073,7 +6100,7 @@ def check_train_lm(launches, to_profile):
           f"{time.perf_counter() - t_c:.1f} s")
     res["c"] = errs
     del cpu, card
-    return res
+    return res, (state, full)
 
 
 def check_train_cnn(launches):
@@ -6230,6 +6257,468 @@ def check_train_cnn(launches):
 
 
 # ---------------------------------------------------------------------------
+# phase 15: multi-device (torch.distributed: the data-parallel engine and
+# train step, the compressed all-reduce)
+# ---------------------------------------------------------------------------
+
+#: (b) the serving meshes held against the single-device ``h100`` engine:
+#: ``mesh:h100:4`` is capped at the world's ranks
+DP_SHARDS = (1, 4)
+#: (b) timed rounds of the sharded and unsharded explains (after DP_WARM)
+DP_TIMED, DP_WARM = 24, 4
+#: (c) data-parallel train steps, each against the plain step
+DP_TRAIN_STEPS = 2
+#: (d) timed calls of the compressed all-reduce
+CAR_REPS = 10
+#: (e) multi-card worlds: at most this many ranks, each joined within
+DP_MAX_RANKS, DP_RANK_TIMEOUT_S = 4, 600
+
+
+def _init_world(rank, world, store):
+    """A NCCL process group of ``world`` ranks, this one on card
+    ``rank``, rendezvousing through a ``file://`` store."""
+    import torch.distributed as dist
+    torch.cuda.set_device(rank)
+    dist.init_process_group("nccl", init_method=f"file://{store}",
+                            rank=rank, world_size=world)
+
+
+def _res_tensors(res):
+    return ([t for pair in res["conv"] for t in pair if t is not None]
+            + [t for t in res["fc"] if t is not None])
+
+
+def _dp_outputs(eng, x):
+    """The sharded path a user runs: explain (top-3), forward, replay of
+    its residuals."""
+    logits, rel = eng.explain(x)
+    f_logits, res = eng.forward(x)
+    seeds = eng._seeds(f_logits, None, SEEDS)[0]
+    return dict(logits=logits, rel=rel, forward=f_logits,
+                replay=eng.replay(res, seeds), res=res)
+
+
+def _dp_held(what, got, want, precision, exact):
+    """``got`` against ``want`` (the single-device engine's): bit for bit
+    where ``exact``; else fxp16 bitwise, f32 within DOT_TOL and bf16
+    within BF16_TOL of max|ref| (FC0's K split follows the rows a rank
+    holds), residual bits within MIN_BIT_AGREEMENT.  Returns the worst
+    error."""
+    worst = 0.0
+    bitwise = exact or precision == "fxp16"
+    for k in ("logits", "rel", "forward", "replay"):
+        a, b = got[k], want[k]
+        if a.shape != b.shape or a.dtype != b.dtype:
+            fail(f"{what} {k}: {tuple(a.shape)} {a.dtype} vs "
+                 f"{tuple(b.shape)} {b.dtype}")
+        if bitwise:
+            if not torch.equal(a, b):
+                fail(f"{what} {k}: not bitwise the single-device engine's")
+            continue
+        err = (a.float() - b.float()).abs().max().item()
+        ref = b.float().abs().max().item()
+        tol = BF16_TOL if precision == "bf16" else DOT_TOL
+        worst = max(worst, err / max(ref, 1e-30))
+        if not err <= tol * ref:
+            fail(f"{what} {k}: {err:.3e} off (max|ref| {ref:.3e})")
+    ra, rb = _res_tensors(got["res"]), _res_tensors(want["res"])
+    if len(ra) != len(rb):
+        fail(f"{what}: residual structure differs")
+    if bitwise:
+        if not all(torch.equal(a, b) for a, b in zip(ra, rb)):
+            fail(f"{what}: residual bytes differ")
+    else:
+        flips, bits = _residual_bit_flips(got["res"], want["res"])
+        if flips > (1 - MIN_BIT_AGREEMENT) * bits:
+            fail(f"{what}: {flips} of {bits} residual bits differ")
+    return worst
+
+
+def _dp_engines(params, cfg, x, launches, exact, what):
+    """(b) on every rank of the current world: ``mesh:h100:<n>`` engines
+    for n in DP_SHARDS against the single-device ``h100`` engine, every
+    method and precision; each sharded run counted (path ``dp_<p>``).
+    Returns the worst relative error per precision."""
+    from repro_torch.engine import CNNModel, EngineSpec, TopK, build
+    worst = {}
+    for precision in ("f32", "bf16", "fxp16"):
+        totals = launches.setdefault(f"dp_{precision}", {})
+        for method in METHODS:
+            spec = dict(method=method, precision=precision,
+                        targets=TopK(SEEDS), batch=BATCH)
+            base = build(EngineSpec(CNNModel(params, cfg, device="cuda"),
+                                    device="h100", **spec))
+            want = _dp_outputs(base, x)
+            for n in DP_SHARDS:
+                eng = build(EngineSpec(CNNModel(params, cfg, device="cuda"),
+                                       device=f"mesh:h100:{n}", **spec))
+                if eng.n_shards != n or eng.mesh is None \
+                        or not eng.mesh.has_group:
+                    fail(f"{what}: mesh:h100:{n} engine has n_shards "
+                         f"{eng.n_shards}, mesh {eng.mesh!r}")
+                got, rose = _count(lambda: _dp_outputs(eng, x), totals)
+                wants = {k: 2 * v for k, v in PER_EXPLAIN[precision].items()}
+                if method == "deconvnet":
+                    wants["relu_fwd"] = 0
+                _expect(rose, wants, f"{what} {precision} {method} "
+                                     f"mesh:h100:{n}")
+                worst[precision] = max(worst.get(precision, 0.0), _dp_held(
+                    f"{what} {precision} {method} mesh:h100:{n}", got, want,
+                    precision, exact))
+    return worst
+
+
+def _dp_train(state, full, batches, mesh, what, timed):
+    """(c): a data-parallel step over ``mesh`` (one rank) from ``state``
+    on each of DP_TRAIN_STEPS batches, each bitwise the plain step from
+    the same state and batch (its result held on the host, so that one
+    new state at most is on the card besides ``state``); both timed into
+    ``timed``.  Returns the embedding gradient of the first data-parallel
+    step, caught at the clip."""
+    from repro_torch.launch import steps, train
+    _, plain = train.build(full, total_steps=TRAIN_LM_STEPS)
+    _, dp = train.build(full, total_steps=TRAIN_LM_STEPS, mesh=mesh)
+    caught, real_clip = [], steps.clip_by_global_norm
+
+    def catch(grads, clip):
+        if not caught:
+            caught.append(grads["embed"]["table"].clone())
+        return real_clip(grads, clip)
+
+    def run(step_fn, b, key):
+        torch.cuda.synchronize()
+        a, e = (torch.cuda.Event(enable_timing=True),
+                torch.cuda.Event(enable_timing=True))
+        t0 = time.perf_counter()
+        a.record()
+        out = step_fn(state, b)
+        e.record()
+        torch.cuda.synchronize()
+        timed.setdefault(key, []).append(
+            (1e3 * (time.perf_counter() - t0), a.elapsed_time(e)))
+        return out
+
+    for i, b in enumerate(batches[:DP_TRAIN_STEPS]):
+        p_state, p_m = run(plain, b, "plain")
+        p_host = [t.cpu() for t in _state_leaves(p_state)]
+        del p_state
+        steps.clip_by_global_norm = catch
+        try:
+            d_state, d_m = run(dp, b, "dp")
+        finally:
+            steps.clip_by_global_norm = real_clip
+        for k in ("loss", "ce", "gnorm", "lr"):
+            if float(d_m[k]) != float(p_m[k]):
+                fail(f"{what}: step {i} {k} {float(d_m[k])} vs the plain "
+                     f"step's {float(p_m[k])}")
+        d_leaves = _state_leaves(d_state)
+        if len(d_leaves) != len(p_host) or not all(
+                a.dtype == c.dtype and torch.equal(a.cpu(), c)
+                for a, c in zip(d_leaves, p_host)):
+            fail(f"{what}: step {i}: the state is not bitwise the plain "
+                 f"step's")
+        del p_host, d_leaves, d_state
+    return caught[0]
+
+
+def _dp_train_slices(state, full, batches, mesh, what):
+    """(e)'s (c): a data-parallel step over ``mesh`` from ``state`` on
+    each batch, its gradient (caught at the clip, after the all-reduce)
+    against the row-weighted f32 sum, in rank order, of the plain step's
+    gradient of each rank's slice, within DOT_TOL of each leaf's max, and
+    its loss and CE against the same sums within DOT_TOL.  (Against the
+    plain step of the whole batch the bf16 compute would set the bound:
+    each rank's gradient of its rows is rounded to bf16 before the sum.)
+    Returns the worst errors and the data-parallel steps' host / device
+    ms."""
+    from repro_torch import tree as trees
+    from repro_torch.data import host_shard_bounds
+    from repro_torch.dist.sharding import batch_group
+    from repro_torch.launch import steps, train
+    _, plain = train.build(full, total_steps=TRAIN_LM_STEPS)
+    _, dp = train.build(full, total_steps=TRAIN_LM_STEPS, mesh=mesh)
+    _, _, ways = batch_group(mesh)
+    real_clip = steps.clip_by_global_norm
+
+    def caught(step_fn, b):
+        got = []
+
+        def catch(grads, clip):
+            got.append([t.clone() for t in trees.leaves(grads)])
+            return real_clip(grads, clip)
+
+        steps.clip_by_global_norm = catch
+        try:
+            new, m = step_fn(state, b)
+        finally:
+            steps.clip_by_global_norm = real_clip
+        del new
+        return got[0], m
+
+    errs, timed = {"grads": 0.0, "metrics": 0.0}, []
+    for i, b in enumerate(batches[:DP_TRAIN_STEPS]):
+        torch.cuda.synchronize()
+        a, e = (torch.cuda.Event(enable_timing=True),
+                torch.cuda.Event(enable_timing=True))
+        t0 = time.perf_counter()
+        a.record()
+        d_grads, d_m = caught(dp, b)
+        e.record()
+        torch.cuda.synchronize()
+        timed.append((1e3 * (time.perf_counter() - t0), a.elapsed_time(e)))
+        n = next(iter(b.values())).shape[0]
+        ref, ref_m = None, {"loss": 0.0, "ce": 0.0}
+        for r in range(ways):
+            lo, hi = host_shard_bounds(n, r, ways)
+            g, m = caught(plain, {k: v[lo:hi] for k, v in b.items()})
+            share = (hi - lo) / n
+            g = [t.mul_(share) for t in g]
+            ref = g if ref is None else [x.add_(y) for x, y in zip(ref, g)]
+            for k in ref_m:
+                ref_m[k] += share * float(m[k])
+            del g
+        for j, (x, y) in enumerate(zip(d_grads, ref)):
+            err = (x - y).abs().max().item() / max(y.abs().max().item(),
+                                                   1e-30)
+            errs["grads"] = max(errs["grads"], err)
+            if not err <= DOT_TOL:
+                fail(f"{what}: step {i}: gradient leaf {j} {err:.3e} of max "
+                     f"from the slices' weighted sum")
+        for k in ref_m:
+            err = abs(float(d_m[k]) - ref_m[k]) / abs(ref_m[k])
+            errs["metrics"] = max(errs["metrics"], err)
+            if not err <= DOT_TOL:
+                fail(f"{what}: step {i}: {k} {float(d_m[k])} vs the slices' "
+                     f"weighted sum {ref_m[k]}")
+        del d_grads, ref
+    return errs, timed
+
+
+def _dp_rank(rank, world, store, x_cpu, out_dir):
+    """(e) one rank of a multi-card world: (b) and (c) on its card, the
+    results in ``out_dir/rank<r>.json``, a failure's traceback in
+    ``rank<r>.err``."""
+    import traceback
+
+    import torch.distributed as dist
+    try:
+        _init_world(rank, world, store)
+        from repro_torch import configs
+        from repro_torch.data import TokenStream
+        from repro_torch.kernels import _build
+        from repro_torch.launch import steps
+        from repro_torch.launch.mesh import make_host_mesh
+        from repro_torch.models import cnn
+        _build.library()
+        cfg = cnn.CNNConfig()
+        params = cnn.init(torch.Generator().manual_seed(0), cfg)
+        launches = {}
+        worst = _dp_engines(params, cfg, x_cpu.cuda(), launches,
+                            exact=False, what=f"phase 15 (e) rank {rank}")
+        full = configs.get(TRAIN_LM_ARCH)
+        data = TokenStream(vocab=full.vocab, seq_len=TRAIN_LM_SEQ,
+                           global_batch=TRAIN_LM_BATCH)
+        state = steps.make_train_state_init(full)(
+            torch.Generator(device="cuda").manual_seed(0), "cuda")
+        errs, timed = _dp_train_slices(
+            state, full, [_batch_on(data, s) for s in range(DP_TRAIN_STEPS)],
+            make_host_mesh(world, 1), f"phase 15 (e) rank {rank}")
+        dist.destroy_process_group()
+        Path(out_dir, f"rank{rank}.json").write_text(json.dumps(dict(
+            engine_worst=worst, train=errs, launches=launches,
+            train_ms=timed)))
+    except BaseException:
+        Path(out_dir, f"rank{rank}.err").write_text(traceback.format_exc())
+        raise SystemExit(1)
+
+
+def _dp_multi_card(x_cpu):
+    """(e): ``min(DP_MAX_RANKS, count)`` NCCL ranks, one card each."""
+    import multiprocessing as mp
+    world = min(DP_MAX_RANKS, torch.cuda.device_count())
+    with tempfile.TemporaryDirectory(prefix="dp_") as d:
+        ctx = mp.get_context("spawn")
+        procs = [ctx.Process(target=_dp_rank, args=(
+            r, world, str(Path(d, "store")), x_cpu, d)) for r in range(world)]
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + DP_RANK_TIMEOUT_S
+        for p in procs:
+            p.join(max(0.0, deadline - time.monotonic()))
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+        errs = [Path(d, f"rank{r}.err") for r in range(world)]
+        bad = [e.read_text() for e in errs if e.exists()]
+        if bad or any(p.exitcode != 0 for p in procs):
+            fail(f"phase 15 (e): ranks failed (exit codes "
+                 f"{[p.exitcode for p in procs]}):\n" + "\n".join(bad))
+        return world, [json.loads(Path(d, f"rank{r}.json").read_text())
+                       for r in range(world)]
+
+
+def check_multi_device(params, cfg, x_cpu, launches, lm_state):
+    """Phase 15 (a)-(d): (a) a world-1 NCCL process group; (b) the
+    data-parallel CNN engine bitwise the single-device one, timed; (c) the
+    data-parallel train step bitwise the plain one; (d) the int8
+    compressed all-reduce over NCCL.  (e) is :func:`check_multi_card`."""
+    import torch.distributed as dist
+
+    from repro_torch.data import TokenStream
+    from repro_torch.engine import CNNModel, EngineSpec, TopK, build
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.runtime import (compress_int8, compressed_all_reduce,
+                                     decompress_int8)
+    res = {}
+    x = x_cpu.cuda()
+    with tempfile.TemporaryDirectory(prefix="nccl_") as d:
+        # (a)
+        t_a = time.perf_counter()
+        _init_world(0, 1, str(Path(d, "store")))
+        print(f"  (a) NCCL process group of 1 rank (file:// store) in "
+              f"{time.perf_counter() - t_a:.2f} s; backend "
+              f"{dist.get_backend()}")
+        try:
+            # (b) bitwise, counted
+            t_b = time.perf_counter()
+            _dp_engines(params, cfg, x, launches, exact=True,
+                        what="phase 15 (b)")
+            # the world-1 collectives' cost: sharded vs unsharded explain
+            timing = {}
+            for precision in ("f32", "bf16", "fxp16"):
+                spec = dict(precision=precision, targets=TopK(SEEDS),
+                            batch=BATCH)
+                engs = {k: build(EngineSpec(
+                    CNNModel(params, cfg, device="cuda"), device=dev,
+                    **spec)) for k, dev in (("single", "h100"),
+                                            ("mesh", "mesh:h100:1"))}
+                host = {k: [] for k in engs}
+                for i in range(DP_WARM + DP_TIMED):
+                    for k, eng in engs.items():
+                        torch.cuda.synchronize()
+                        t0 = time.perf_counter()
+                        eng.explain(x)
+                        torch.cuda.synchronize()
+                        if i >= DP_WARM:
+                            host[k].append(1e3 * (time.perf_counter() - t0))
+                row = {}
+                for k, eng in engs.items():
+                    h = statistics.median(host[k])
+                    row[k] = dict(host_ms=h, device_ms=device_time_ms(
+                        lambda eng=eng: eng.explain(x), reps=DP_TIMED,
+                        cover_ms=max(50.0, 30 * h)))
+                timing[precision] = row
+                print(f"  (b) {precision:5s} saliency top-{SEEDS} explain, "
+                      f"batch {BATCH}: mesh:h100:1 {row['mesh']['host_ms']:.3f}"
+                      f" ms host / {row['mesh']['device_ms']:.4f} ms device, "
+                      f"h100 {row['single']['host_ms']:.3f} / "
+                      f"{row['single']['device_ms']:.4f} (medians of "
+                      f"{DP_TIMED}, interleaved)")
+            print(f"  (b) mesh:h100:1 and mesh:h100:4 (capped at 1 rank) x "
+                  f"f32 / bf16 / fxp16 x {', '.join(METHODS)}: explain, "
+                  f"forward, replay and every residual byte bitwise the "
+                  f"h100 engine's; {time.perf_counter() - t_b:.1f} s")
+            res["b"] = timing
+
+            # (c) on phase 14's model and state
+            t_c = time.perf_counter()
+            state, full = lm_state
+            data = TokenStream(vocab=full.vocab, seq_len=TRAIN_LM_SEQ,
+                               global_batch=TRAIN_LM_BATCH)
+            timed = {}
+            torch.cuda.reset_peak_memory_stats()
+            grad = _dp_train(state, full, [_batch_on(data, s) for s in
+                                           range(DP_TRAIN_STEPS)],
+                             make_host_mesh(1, 1), "phase 15 (c)", timed)
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            res["c"] = dict(
+                dp_ms=[dict(host=h, device=e) for h, e in timed["dp"]],
+                plain_ms=[dict(host=h, device=e) for h, e in timed["plain"]],
+                peak_gib=peak)
+            print(f"  (c) {TRAIN_LM_ARCH} FULL from phase 14's state, "
+                  f"{TRAIN_LM_BATCH} x {TRAIN_LM_SEQ} tokens: a "
+                  f"data-parallel step on each of {DP_TRAIN_STEPS} batches, "
+                  f"on make_host_mesh(1, 1), bitwise the plain steps (loss, "
+                  f"ce, gnorm, lr, params, mu, nu, step); a step host / "
+                  f"device ms: data parallel "
+                  + ", ".join(f"{h:.2f} / {e:.2f}" for h, e in timed["dp"])
+                  + "; plain " + ", ".join(f"{h:.2f} / {e:.2f}"
+                                           for h, e in timed["plain"])
+                  + f"; peak {peak:.2f} GiB; "
+                  f"{time.perf_counter() - t_c:.1f} s")
+
+            # (d) the compressed all-reduce on the tied embedding's
+            # gradient
+            t_d = time.perf_counter()
+            err = torch.zeros_like(grad)
+            for rnd in range(2):            # then with the error fed back
+                total, new_err = compressed_all_reduce(grad, err=err)
+                q, scale = compress_int8(grad + err)
+                want = decompress_int8(q, scale)
+                if not torch.equal(total, want):
+                    fail(f"phase 15 (d): round {rnd}: the sum is not "
+                         f"decompress(compress(x + err)) bitwise")
+                if not torch.equal(new_err, (grad + err) - want):
+                    fail(f"phase 15 (d): round {rnd}: the new error is not "
+                         f"the residue")
+                err = new_err
+            car_ms = device_time_ms(
+                lambda: compressed_all_reduce(grad, err=err), reps=CAR_REPS)
+            plain = grad.clone()
+            ar_ms = device_time_ms(lambda: dist.all_reduce(plain),
+                                   reps=CAR_REPS)
+            wire = q.numel() * q.element_size() + \
+                scale.numel() * scale.element_size()
+            f32_bytes = grad.numel() * 4
+            res["d"] = dict(shape=list(grad.shape), ms=car_ms,
+                            f32_all_reduce_ms=ar_ms, wire_bytes=wire,
+                            f32_bytes=f32_bytes)
+            print(f"  (d) compressed_all_reduce of the tied embedding's "
+                  f"gradient {list(grad.shape)} f32 over NCCL (1 rank): the "
+                  f"sum and the new error bitwise decompress(compress(x + "
+                  f"err)) and its residue, twice; {car_ms:.3f} ms device "
+                  f"(median of {CAR_REPS}; f32 all_reduce {ar_ms:.3f} ms); "
+                  f"the all-gather carries {wire / 1e6:.1f} MB (int8 + f32 "
+                  f"row scales) against {f32_bytes / 1e6:.1f} MB of f32 "
+                  f"({f32_bytes / wire:.2f}x fewer); "
+                  f"{time.perf_counter() - t_d:.1f} s")
+            del grad, err, total, new_err, want, plain, q, scale
+        finally:
+            dist.destroy_process_group()
+
+    return res
+
+
+def check_multi_card(x_cpu):
+    """Phase 15 (e), run last (after the profiles, when the earlier
+    phases' memory on card 0 is freed): a world of ``min(DP_MAX_RANKS,
+    count)`` NCCL ranks, one card each, where the machine has 2 or more
+    cards; None otherwise."""
+    count = torch.cuda.device_count()
+    if count < 2:
+        print(f"phase 15 (e): the machine has {count} card: no multi-card "
+              f"world")
+        return None
+    t_e = time.perf_counter()
+    world, ranks = _dp_multi_card(x_cpu)
+    print(f"phase 15 (e): {world} NCCL ranks, one card each: the sharded "
+          f"engines against each card's single-device engine (fxp16 "
+          f"bitwise; worst f32 / bf16 relative errors "
+          + ", ".join(f"{r['engine_worst'].get('f32', 0):.2e} / "
+                      f"{r['engine_worst'].get('bf16', 0):.2e}"
+                      for r in ranks)
+          + f"); {DP_TRAIN_STEPS} data-parallel {TRAIN_LM_ARCH} FULL train "
+          f"steps, their gradients against the row-weighted sums of the "
+          f"plain steps' gradients of each rank's slice (worst "
+          + ", ".join(f"{r['train']['grads']:.2e}" for r in ranks)
+          + " of a leaf's max; loss and ce "
+          + ", ".join(f"{r['train']['metrics']:.2e}" for r in ranks)
+          + "); a data-parallel step host / device ms on rank 0: "
+          + ", ".join(f"{h:.2f} / {e:.2f}" for h, e in ranks[0]["train_ms"])
+          + f"; {time.perf_counter() - t_e:.1f} s")
+    return dict(world=world, ranks=ranks)
+# ---------------------------------------------------------------------------
 
 
 #: The counters each path must launch; the others must stay at 0 there.
@@ -6255,7 +6744,10 @@ PATH_KERNELS = {"f32": tuple(PER_EXPLAIN["f32"]),
                 "plan_bf16": tuple(PER_EXPLAIN["bf16"]),
                 "plan_fxp16": tuple(PER_EXPLAIN["fxp16"]),
                 "train_lm": (),
-                "train_cnn": tuple(PER_TRAIN_CNN_STEP)}
+                "train_cnn": tuple(PER_TRAIN_CNN_STEP),
+                "dp_f32": tuple(PER_EXPLAIN["f32"]),
+                "dp_bf16": tuple(PER_EXPLAIN["bf16"]),
+                "dp_fxp16": tuple(PER_EXPLAIN["fxp16"])}
 #: The path whose launches the kernel JSON reports for each kernel: the
 #: first that runs it (the bf16 paths report the bf16 instances).
 KERNEL_PATH = {k: next(p for p in PATH_KERNELS if k in PATH_KERNELS[p]
@@ -6282,6 +6774,11 @@ def main() -> int:
                          "B1/B4/B5/B6 bf16, B5/B8, B7, B9 and B6/B10 (K "
                          "splits, clusters, grids of tile plans) and stop; "
                          "--out gets kernel_sweep.json")
+    ap.add_argument("--multi-device", action="store_true",
+                    help="after phase 1, run phase 15 alone (on a "
+                         "llama3.2-1b state drawn from seed 0 in place of "
+                         "phase 14's) and stop: on a machine of several "
+                         "cards, its multi-card world (e)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke test needs one",
@@ -6362,6 +6859,34 @@ def main() -> int:
             args.out.mkdir(parents=True, exist_ok=True)
             (args.out / "kernel_sweep.json").write_text(json.dumps(dict(
                 device=kind, nvidia_smi=smi, **rows), indent=1))
+        print(smi)
+        return 0
+
+    if args.multi_device:
+        from repro_torch import configs
+        from repro_torch.launch import steps
+        cfg = cnn.CNNConfig()
+        params = cnn.init(torch.Generator().manual_seed(0), cfg)
+        x_cpu = torch.randn((BATCH, 32, 32, 3),
+                            generator=torch.Generator().manual_seed(1))
+        full = configs.get(TRAIN_LM_ARCH)
+        state = steps.make_train_state_init(full)(
+            torch.Generator(device="cuda").manual_seed(0), "cuda")
+        print("phase 15 (multi-device) alone")
+        launches = {}
+        out = check_multi_device(params, cfg, x_cpu, launches,
+                                 (state, full))
+        for precision in ("f32", "bf16", "fxp16"):
+            check_path_launches(f"dp_{precision}",
+                                launches[f"dp_{precision}"])
+        del state
+        torch.cuda.empty_cache()
+        out["e"] = check_multi_card(x_cpu)
+        if args.out is not None:
+            args.out.mkdir(parents=True, exist_ok=True)
+            (args.out / "multi_device.json").write_text(json.dumps(dict(
+                device=kind, nvidia_smi=smi, multi_device=out,
+                launches=launches), indent=1))
         print(smi)
         return 0
 
@@ -6481,10 +7006,23 @@ def main() -> int:
           f"steps (launch.train), crash-resume and a CPU "
           f"twin at {RESUME_LAYERS} layers, the prefill / decode steps; the "
           f"Table III CNN trained {CNN_TRAIN_STEPS} steps, then explained")
-    train_lm_results = check_train_lm(launches, to_profile)
+    train_lm_results, lm_train_state = check_train_lm(launches, to_profile)
     check_path_launches("train_lm", launches["train_lm"])
     train_cnn_results = check_train_cnn(launches)
     check_path_launches("train_cnn", launches["train_cnn"])
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase 15 (multi-device): a NCCL process group of 1 rank; the "
+          f"data-parallel engines mesh:h100:{DP_SHARDS} against h100 at "
+          f"full Table III width, batch {BATCH}, top-{SEEDS}, f32 / bf16 / "
+          f"fxp16; {DP_TRAIN_STEPS} data-parallel {TRAIN_LM_ARCH} FULL "
+          f"train steps against the plain ones; the int8 compressed "
+          f"all-reduce ((e), a multi-card world, runs last)")
+    multi_results = check_multi_device(params, cfg, x_cpu, launches,
+                                       lm_train_state)
+    del lm_train_state
+    for precision in ("f32", "bf16", "fxp16"):
+        check_path_launches(f"dp_{precision}", launches[f"dp_{precision}"])
 
     # last, as a profiler session slows what runs after it: phase 2's
     # profiler column (the process's first session), then where each
@@ -6507,6 +7045,10 @@ def main() -> int:
         if what == bf16_explain))
     print("phase 11's kernel profiler beside CUPTI: the same two calls")
     print_profiler_vs_cupti(perturb_results, profiled_calls)
+    del to_profile
+    gc.collect()
+    torch.cuda.empty_cache()
+    multi_results["e"] = check_multi_card(x_cpu)
 
     kernels = []
     rows = [(name, launches[KERNEL_PATH[name]][name], source, replaces)
@@ -6535,6 +7077,7 @@ def main() -> int:
             vjp=vjp_results, train=train_results, lm=lm_results,
             lm_twin=twin_results, lm_zoo=zoo_results, serve=serve_results,
             train_lm=train_lm_results, train_cnn=train_cnn_results,
+            multi_device=multi_results,
             perturb=perturb_results, plan=plan_results,
             scan_backward_ms=kc.scan_backward_ms,
             mma_accumulation=kc.accumulation, bf16_one_seed=kc.one_seed,

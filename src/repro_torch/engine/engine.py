@@ -31,6 +31,7 @@ from typing import Any, Optional, Tuple
 
 import torch
 
+from repro_torch.dist import sharding as dist_sharding
 from repro_torch.engine import methods
 from repro_torch.engine.backward import (ManualSeedBatchedBackward,
                                          VjpBackward, vjp)
@@ -54,6 +55,7 @@ class Engine:
         # Tile planning happens here, before any launch: every kernel of
         # the model runs under the resolved plan.
         self._plan = spec.resolve_plan()
+        self._mesh, self._n_shards = None, 1
         if hasattr(model, "token_step"):
             # LM token attribution: one step per score mode, the default
             # "ixg" now and the others at first use.  The step runs the
@@ -69,22 +71,86 @@ class Engine:
         # folded-batch audit decisions (composites): folded M -> the engine
         # to dispatch through (self while the plan still fits)
         self._fold_engines = {}
+        # A mesh:<profile>:<n> device builds a data-parallel engine: the
+        # plan above is already per shard (the planner splits the batch
+        # across the mesh before tiling); here every program is wrapped so
+        # that each rank of the serving mesh runs its rows of the batch
+        # and every rank gets the whole result (dist.sharding).  Without a
+        # process group the mesh has one rank and the wrappers are the
+        # identity: the same programs, the same bits.
+        self._mesh, self._n_shards = _serving_mesh(spec, self._plan)
         # Perturbation specs are forward-only: the model is built under
         # saliency rules (spec.fwd_rules), which never run for them.
         rules = spec.fwd_rules()
         # logits only, for predict (under fxp16 the mask-free int16 forward)
-        self._model_fn = model.logits_fn(rules, spec.precision,
-                                         plan=self._plan)
+        self._model_fn = self._shard_fn(model.logits_fn(
+            rules, spec.precision, plan=self._plan))
         if spec.resolve_backward() == "seed_batched":
             if not model.has_pair:
                 raise ValueError(f"model {model!r} exposes no seed-batched "
                                  f"pair; use backward='vjp'")
             fwd, bwd = model.pair(rules, spec.precision, plan=self._plan)
-            self._backend = ManualSeedBatchedBackward(fwd, bwd)
+            self._backend = ManualSeedBatchedBackward(
+                self._shard_fn(fwd), self._shard_pair_bwd(bwd))
         else:
             self._backend = VjpBackward(self._model_fn)
 
+    # -- the data-parallel build ---------------------------------------------
+
+    def _sharded(self) -> bool:
+        return dist_sharding.batch_group(self._mesh)[0] is not None
+
+    def _shard_fn(self, f):
+        """``f(x) -> out`` on this rank's rows of ``x``, ``out`` gathered
+        along the batch.  A logits function stays differentiable in ``x``
+        (the composites' autograd and the vjp backend run through it); a
+        pair forward's logits and residual tensors (mask and crumb bytes,
+        int16 words) come back in one collective, so a replay on any rank,
+        or on a single-device engine, reads the whole batch's residuals."""
+        if not self._sharded():
+            return f
+        mesh = self._mesh
+
+        def run(x):
+            n = x.shape[0]
+            out = f(dist_sharding.slice_rows(mesh, x))
+            if isinstance(out, tuple):      # a pair forward: no gradient
+                return dist_sharding.gather_tree_rows(mesh, out, n)
+            return dist_sharding.join_rows(mesh, out, n)
+
+        return run
+
+    def _shard_pair_bwd(self, bwd):
+        """The pair backward on this rank's rows of the residuals and of
+        the seeds ``[S, B, C]``; the relevance gathered along B.  The
+        seeds axis is not split (the serving mesh replicates it)."""
+        if not self._sharded():
+            return bwd
+        mesh = self._mesh
+
+        def run(residuals, seeds):
+            n = seeds.shape[1]
+            rel = bwd(dist_sharding.slice_tree_rows(mesh, residuals),
+                      dist_sharding.slice_rows(mesh, seeds, dim=1))
+            return dist_sharding.gather_rows(mesh, rel, n, dim=1)
+
+        return run
+
     # -- resolved surfaces ---------------------------------------------------
+
+    @property
+    def mesh(self):
+        """The serving mesh (:func:`repro_torch.launch.mesh.
+        make_serving_mesh`) of a ``mesh:<profile>:<n>`` CNN engine; None
+        otherwise, LM engines included (they build unsharded, as the JAX
+        package's)."""
+        return self._mesh
+
+    @property
+    def n_shards(self) -> int:
+        """Mesh extent of the spec's device profile (1 = unsharded).  The
+        serve batcher fills toward ``max_batch * n_shards`` seats."""
+        return self._n_shards
 
     @property
     def plan(self):
@@ -325,7 +391,8 @@ class Engine:
         predict forward for models without one (``FnModel``)."""
         if self._fold_fn is None:
             fold = getattr(self.spec.model, "fold_fn", None)
-            self._fold_fn = (fold(self.spec.precision, plan=self._plan)
+            self._fold_fn = (self._shard_fn(fold(self.spec.precision,
+                                                 plan=self._plan))
                              if fold is not None else self._model_fn)
         return self._fold_fn
 
@@ -435,6 +502,22 @@ class Engine:
 
     def __repr__(self):
         return f"<Engine {self.spec!r}>"
+
+
+def _serving_mesh(spec: EngineSpec, plan):
+    """``(mesh, n_shards)`` of a CNN spec: a ``mesh:<profile>:<n>`` device
+    (the spec's, else its plan's) gives ``make_serving_mesh(n)`` and n;
+    any other ``(None, 1)``."""
+    device = spec.device if spec.device is not None else (
+        plan.device if plan is not None else None)
+    if device is None:
+        return None, 1
+    from repro_torch.launch.mesh import make_serving_mesh
+    from repro_torch.plan import MeshProfile, get_profile
+    profile = get_profile(device)
+    if not isinstance(profile, MeshProfile):
+        return None, 1
+    return make_serving_mesh(profile.n_shards), profile.n_shards
 
 
 # ---------------------------------------------------------------------------

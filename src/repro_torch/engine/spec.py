@@ -326,11 +326,14 @@ class EngineSpec:
         ``h100`` (on the card; ``detected`` resolves to it there) plans the
         card's own launch objects, which the kernels of the planned shapes
         launch; the JAX package's profiles (``detected`` on the CPU,
-        ``tpu-v4``, ``edge-*``, ``mesh:<p>:1``) plan TPU tiles, which on
-        the card are audits (:class:`~repro_torch.plan.
-        InfeasiblePlanError` before any launch) while the kernels launch
-        under their own rules.  ``mesh:<p>:<n>`` with n > 1 is ROADMAP
-        A12.
+        ``tpu-v4``, ``edge-*``) plan TPU tiles, which on the card are
+        audits (:class:`~repro_torch.plan.InfeasiblePlanError` before any
+        launch) while the kernels launch under their own rules.
+        ``mesh:<p>:<n>`` plans each of n shards of ``<p>`` at its slice of
+        the batch, and a CNN engine on it is data parallel over
+        ``make_serving_mesh(n)`` (the ranks of the process group, capped
+        at the world size; one rank without a group); an LM engine builds
+        unsharded, as the JAX package's.
       * ``plan`` — an explicit :class:`repro_torch.plan.TilePlan`
         (overrides ``device``-driven planning).
       * ``autotune`` — refine the plan by measured kernel times at build
@@ -377,13 +380,8 @@ class EngineSpec:
         if self.batch is not None and self.batch < 1:
             raise ValueError(f"batch must be >= 1, got {self.batch}")
         if self.device is not None:
-            from repro_torch.plan import MeshProfile, get_profile
-            profile = get_profile(self.device)   # validate the name eagerly
-            if isinstance(profile, MeshProfile) and profile.n_shards > 1:
-                raise NotImplementedError(
-                    f"device={profile.name!r}: a mesh of {profile.n_shards} "
-                    f"shards is ROADMAP A12 (multi-device); one shard plans "
-                    f"like its core")
+            from repro_torch.plan import get_profile
+            get_profile(self.device)             # validate the name eagerly
         if self.plan is not None:
             from repro_torch.plan import TilePlan
             if not isinstance(self.plan, TilePlan):

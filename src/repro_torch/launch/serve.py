@@ -205,6 +205,9 @@ def run_cnn(args) -> None:
         model=engine_lib.CNNModel(params, cfg, device=device),
         method="saliency", precision=args.precision,
         device=args.device_profile, autotune=args.autotune))
+    if eng.n_shards > 1:
+        print(f"[serve/cnn] mesh-sharded engine: {eng.n_shards} shards, "
+              f"batcher fills {args.batch * eng.n_shards} seats/launch")
     if eng.plan is not None:
         print(f"[serve/cnn] planned tiles for device profile "
               f"{args.device_profile!r}:")
@@ -325,7 +328,8 @@ def main(argv=None):
                          "for this repro_torch.plan profile before anything "
                          f"runs: one of {profile_names()} (h100: the "
                          "card's launch objects; the others: audits) or "
-                         "'mesh:<profile>:1'")
+                         "'mesh:<profile>:<n>' for a mesh-sharded engine "
+                         "whose batcher fills n x batch seats a launch")
     ap.add_argument("--autotune", action="store_true",
                     help="refine the tile plan by measured kernel times "
                          "(persisted in the repro_torch.plan tuning cache)")

@@ -1,12 +1,15 @@
-"""The steps of ``repro.launch.steps`` on one device: train, prefill,
-decode and the LM token-attribution step.
+"""The steps of ``repro.launch.steps``: train (on one device or data
+parallel over a mesh), prefill, decode and the LM token-attribution step,
+plus their sharding trees (DTensor placements).
 
 Numerics, as the JAX package's: f32 master parameters and Adam moments
 (:class:`TrainState`); each step casts the master once to the compute
 dtype (:func:`cast_for_compute`: every matrix, SSM dynamics kept f32) and
 differentiates the loss with respect to that one tree; microbatch
-gradients are widened to f32 and summed in order, then divided.  The
-sharding trees of that module need a mesh (ROADMAP A12b).
+gradients are widened to f32 and summed in order, then divided.  On a
+mesh each rank runs that on its rows of the global batch, weights its
+gradients, loss and CE by its share of the rows and all-reduces them in
+f32 before the clip, so every rank applies the same update.
 """
 from __future__ import annotations
 
@@ -15,6 +18,9 @@ from typing import Dict, NamedTuple
 import torch
 
 from repro_torch import tree as trees
+from repro_torch.dist import params as dist_params
+from repro_torch.dist import sharding as dist_sharding
+from repro_torch.dist.sharding import physical_spec, placements
 from repro_torch.engine import methods as engine_methods
 from repro_torch.models import transformer as tf
 from repro_torch.optim import (AdamWState, adamw_init, adamw_update,
@@ -77,15 +83,37 @@ def make_train_state_init(cfg):
     return init_fn
 
 
+def _check_data_parallel(mesh):
+    """Training runs data parallel only: a "model" axis that computes is
+    ROADMAP A12d."""
+    if mesh is not None and "model" in mesh.axis_names \
+            and mesh.axis_size("model") > 1:
+        raise NotImplementedError(
+            f"mesh {mesh!r}: the model axis computing (tensor / expert "
+            f"parallel training) is ROADMAP A12d; train data parallel, on "
+            f"a mesh whose model axis is 1")
+
+
 def make_train_step(cfg, *, microbatches: int = 1, peak_lr: float = 2e-4,
                     warmup_steps: int = 100, total_steps: int = 10_000,
-                    clip: float = 1.0, triangle_skip: bool = True):
+                    clip: float = 1.0, triangle_skip: bool = True,
+                    mesh=None):
     """``(state, batch) -> (state, metrics)``; ``batch``: tensors on the
     state's device, ``tokens`` and ``labels`` ``[B, S]`` (plus a vlm's
     ``patches``, an encoder-decoder's ``frames``).  Metrics: ``loss`` (CE
     plus the MoE's aux loss), ``ce``, ``gnorm`` (before clipping) and
     ``lr`` (the schedule at the step before the update), scalar
-    tensors."""
+    tensors.
+
+    ``mesh`` (a :class:`repro_torch.launch.mesh.Mesh`, its model axis 1)
+    makes the step data parallel over the mesh's batch axes: every rank
+    passes the same global batch and computes its rows
+    ``host_shard_bounds(B, r, n)``; its gradients (summed over its
+    microbatches, as above), loss and CE are weighted by its share of the
+    ``B`` rows and summed over the ranks in f32, so the gradient norm is
+    global and every rank applies the same AdamW update.  An MoE routes
+    each rank's tokens on their own (capacity and aux loss per rank)."""
+    _check_data_parallel(mesh)
 
     def loss_fn(params_c, mb):
         fwd_batch = {k: v for k, v in mb.items() if k != "labels"}
@@ -101,8 +129,15 @@ def make_train_step(cfg, *, microbatches: int = 1, peak_lr: float = 2e-4,
         return loss.detach(), ce.detach(), gs
 
     def train_step(state: TrainState, batch: Dict):
+        group, _, ways = dist_sharding.batch_group(mesh)
+        if group is not None:
+            n = next(iter(batch.values())).shape[0]
+            if n < ways:
+                raise ValueError(f"a batch of {n} rows over {ways} ranks")
+            lo, hi = dist_sharding.local_rows(mesh, n)
+            batch = {k: v[lo:hi] for k, v in batch.items()}
         params_c = trees.tree_map(lambda t: t.detach().requires_grad_(),
-                        cast_for_compute(state.params, cfg))
+                                  cast_for_compute(state.params, cfg))
         leaves = trees.leaves(params_c)
         if microbatches == 1:
             loss, ce, gs = grads_of(params_c, leaves, batch)
@@ -126,6 +161,11 @@ def make_train_step(cfg, *, microbatches: int = 1, peak_lr: float = 2e-4,
             flat = [g / microbatches for g in flat]
             loss, ce = loss / microbatches, ce / microbatches
         del params_c, leaves
+        if group is not None:
+            share = (hi - lo) / n
+            for t in flat + [loss, ce]:
+                dist_sharding.all_reduce_sum(
+                    mesh, t.mul_(share) if ways > 1 else t)
         grads = trees.unflatten(state.params, flat)
         del flat
         grads, gnorm = clip_by_global_norm(grads, clip)
@@ -247,3 +287,62 @@ def make_attribute_step(cfg, method: str = "saliency", *,
         return logits[:, -1, :], scores
 
     return attribute_step
+
+
+# ---------------------------------------------------------------------------
+# sharding trees (DTensor placements, the twins of the JAX package's
+# NamedSharding trees)
+# ---------------------------------------------------------------------------
+
+
+def batch_shardings(batch, mesh) -> Dict:
+    """Placements per batch entry: the leading axis on the batch axes."""
+    def spec(v):
+        if len(v.shape) == 2 and v.dtype == torch.int32:
+            return physical_spec(("batch", None), mesh)
+        return physical_spec(("batch",) + (None,) * (len(v.shape) - 1),
+                             mesh)
+    return {k: placements(spec(v), mesh) for k, v in batch.items()}
+
+
+def state_shardings(state: TrainState, mesh) -> TrainState:
+    """Placements per leaf of a :class:`TrainState`: the parameter rules
+    for params and both moments, the step replicated."""
+    opt = state.opt
+    return TrainState(
+        params=dist_params.param_sharding_tree(state.params, mesh),
+        opt=type(opt)(
+            step=placements((), mesh),
+            mu=dist_params.param_sharding_tree(opt.mu, mesh),
+            nu=dist_params.param_sharding_tree(opt.nu, mesh)))
+
+
+def cache_shardings(cfg, cache, mesh, batch_size: int):
+    """KV / state cache placements.
+
+    Batch >= DP size: shard the batch over (pod, data).  Small-batch
+    long-context decode: sequence-parallel instead — the cache T axis
+    shards over "data" and the fused head axis over "model".
+    """
+    dp = 1
+    for ax in ("pod", "data"):
+        if ax in mesh.axis_names:
+            dp *= mesh.axis_size(ax)
+    batch_big = batch_size >= dp
+
+    def spec(path, leaf):
+        name = trees.leaf_name(path)
+        if name in ("k", "v", "ck", "cv"):          # [L, B, T, Kv*hd]
+            if batch_big:
+                return physical_spec((None, "batch", None, "model"), mesh)
+            return physical_spec((None, None, "data", "model"), mesh)
+        if name == "h":                              # [L, B, d_inner, N]
+            bax = "batch" if batch_big else None
+            return physical_spec((None, bax, "model", None), mesh)
+        if name == "conv":                           # [L, B, k-1, d_inner]
+            bax = "batch" if batch_big else None
+            return physical_spec((None, bax, None, "model"), mesh)
+        return ()
+
+    return trees.map_with_path(
+        lambda p, leaf: placements(spec(p, leaf), mesh), cache)

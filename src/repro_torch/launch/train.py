@@ -1,5 +1,6 @@
-"""End-to-end fault-tolerant training driver on one device, as
-``repro.launch.train`` runs it on its host mesh:
+"""End-to-end fault-tolerant training driver, as ``repro.launch.train``
+runs it, on one device or data parallel over the ranks of a process
+group:
 
   deterministic data -> train_step -> health monitor (stragglers)
   -> async checkpoints -> crash-resume (bitwise, thanks to step-indexed data)
@@ -10,42 +11,48 @@ Runs on the card unless ``--torch-device cpu`` asks for the CPU::
     python -m repro_torch.launch.train --arch llama3.2-1b --steps 20
     python -m repro_torch.launch.train --steps 3 --torch-device cpu \\
         --ckpt /tmp/ck --simulate-host-loss 28
+    torchrun --standalone --nproc-per-node 2 -m repro_torch.launch.train \\
+        --mesh host --torch-device cpu --steps 3
 
-``--mesh host`` is the one device; the production meshes (``--mesh
-single|multi``) are ROADMAP A12b.  As in the JAX package's driver,
-``--smoke`` is always on: the arch's SMOKE config trains.
+Under ``torchrun`` the driver initializes the default process group from
+the environment (NCCL on the cards, gloo with ``--torch-device cpu``), and
+``--mesh host`` trains data parallel over all its ranks
+(``make_host_mesh(world, 1)``); rank 0 writes the checkpoints.  ``--mesh
+single|multi`` build the production meshes, which need 256 / 512 ranks and
+a model axis that computes (ROADMAP A12d).  As in the JAX package's
+driver, ``--smoke`` is always on: the arch's SMOKE config trains.
 """
 from __future__ import annotations
 
 import argparse
+import os
 import time
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 
 import repro_torch.configs as configs
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.data import TokenStream
 from repro_torch.engine.spec import resolve_device
 from repro_torch.launch import steps as steps_lib
+from repro_torch.launch.mesh import (make_host_mesh, make_production_mesh,
+                                    world_size)
 from repro_torch.runtime import HealthMonitor, plan_remesh
 
 
-def build(cfg, *, microbatches=1, peak_lr=1e-3, total_steps=1000):
+def build(cfg, *, microbatches=1, peak_lr=1e-3, total_steps=1000,
+          mesh=None):
     """``(init_fn, step_fn)``: :func:`steps.make_train_state_init` and the
-    train step, warmup ``max(10, total_steps // 20)``."""
+    train step (data parallel over ``mesh``), warmup ``max(10,
+    total_steps // 20)``."""
     init_fn = steps_lib.make_train_state_init(cfg)
     step_fn = steps_lib.make_train_step(cfg, microbatches=microbatches,
                                         peak_lr=peak_lr,
                                         warmup_steps=max(10, total_steps // 20),
-                                        total_steps=total_steps)
+                                        total_steps=total_steps, mesh=mesh)
     return init_fn, step_fn
-
-
-def _mesh_unsupported(mesh):
-    return NotImplementedError(
-        f"mesh {mesh!r}: training on a mesh of devices is ROADMAP A12b; "
-        f"the port trains on one device (--mesh host)")
 
 
 def train_loop(cfg, data: TokenStream, *, steps: int, ckpt_dir: Optional[str],
@@ -56,12 +63,16 @@ def train_loop(cfg, data: TokenStream, *, steps: int, ckpt_dir: Optional[str],
     """Returns (final_state, losses). Restart-safe around ``ckpt_dir``.
 
     Trains on ``device`` (None: the card) from parameters drawn with seed
-    0 there; ``mesh`` must be None (one device)."""
-    if mesh is not None:
-        raise _mesh_unsupported(mesh)
+    0 there.  With ``mesh`` (every rank of the process group calls this
+    with the same arguments) each step's global batch is
+    ``data.batch_at(step)``, whatever the world size, and each rank
+    computes its rows of it (:func:`steps.make_train_step`); rank 0 writes
+    the checkpoints, every rank restores them, and each rank records its
+    step times under its rank."""
     dev = resolve_device(device)
     init_fn, step_fn = build(cfg, microbatches=microbatches,
-                             total_steps=steps)
+                             total_steps=steps, mesh=mesh)
+    rank = dist.get_rank() if mesh is not None and mesh.has_group else 0
 
     def fresh():
         return init_fn(torch.Generator(device=dev).manual_seed(0), dev)
@@ -75,6 +86,7 @@ def train_loop(cfg, data: TokenStream, *, steps: int, ckpt_dir: Optional[str],
             print(f"[train] resumed from step {start}")
     if state is None:
         state = fresh()
+    writer = manager if rank == 0 else None
 
     monitor = monitor or HealthMonitor()
     losses = []
@@ -84,17 +96,41 @@ def train_loop(cfg, data: TokenStream, *, steps: int, ckpt_dir: Optional[str],
         t0 = time.monotonic()
         state, metrics = step_fn(state, batch)
         loss = float(metrics["loss"])
-        monitor.record_step(0, time.monotonic() - t0)
+        monitor.record_step(rank, time.monotonic() - t0)
         losses.append(loss)
         if verbose and step % log_every == 0:
             print(f"[train] step {step:5d} loss {loss:.4f} "
                   f"lr {float(metrics['lr']):.2e} "
                   f"gnorm {float(metrics['gnorm']):.2f}")
-        if manager and (step + 1) % ckpt_every == 0:
-            manager.save_async(step + 1, state)
-    if manager:
-        manager.save_blocking(steps, state)
+        if writer and (step + 1) % ckpt_every == 0:
+            writer.save_async(step + 1, state)
+    if writer:
+        writer.save_blocking(steps, state)
+    if manager and mesh is not None and mesh.has_group:
+        dist.barrier()              # every rank past rank 0's last save
     return state, losses
+
+
+def init_from_env(device) -> bool:
+    """Under ``torchrun`` (``WORLD_SIZE`` set) initialize the default
+    process group from the environment: NCCL on the cards (this rank's
+    card is ``LOCAL_RANK``), gloo on the CPU.  Returns whether it did."""
+    if "WORLD_SIZE" not in os.environ or dist.is_initialized():
+        return False
+    if resolve_device(device).type == "cuda":
+        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0)))
+        dist.init_process_group("nccl")
+    else:
+        dist.init_process_group("gloo")
+    return True
+
+
+def mesh_for(name: str):
+    """``--mesh``: ``host`` -> :func:`make_host_mesh` over every rank;
+    ``single`` / ``multi`` -> the production meshes (256 / 512 ranks)."""
+    if name == "host":
+        return make_host_mesh(world_size(), 1)
+    return make_production_mesh(multi_pod=name == "multi")
 
 
 def main(argv=None):
@@ -115,8 +151,16 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     cfg = configs.get_smoke(args.arch) if args.smoke else configs.get(args.arch)
-    if args.mesh != "host":
-        raise _mesh_unsupported(args.mesh)
+    started = init_from_env(args.torch_device)
+    try:
+        _run(args, cfg)
+    finally:
+        if started:
+            dist.destroy_process_group()
+
+
+def _run(args, cfg):
+    mesh = mesh_for(args.mesh)
 
     if args.simulate_host_loss:
         healthy = list(range(128 - args.simulate_host_loss))
@@ -129,7 +173,7 @@ def main(argv=None):
                        global_batch=args.global_batch)
     t0 = time.time()
     _, losses = train_loop(cfg, data, steps=args.steps, ckpt_dir=args.ckpt,
-                           microbatches=args.microbatches,
+                           mesh=mesh, microbatches=args.microbatches,
                            device=args.torch_device)
     dt = time.time() - t0
     print(f"[train] {args.steps} steps in {dt:.1f}s; "

@@ -119,7 +119,8 @@ class LMAdapter:
 
     @property
     def n_shards(self) -> int:
-        return 1
+        """The engine's: 1, LM engines build unsharded on any device."""
+        return self.engine.n_shards
 
     @property
     def device(self) -> torch.device:

@@ -33,14 +33,15 @@ from repro_torch.plan.planner import (AUTOTUNE_TOP_K, LM_PLAN_SEQ, ConvTile,
                                       lm_kernel_shapes, lm_plan_footprints,
                                       measure_kernel, plan_cnn, plan_conv2d,
                                       plan_lm, plan_vmm, shard_batch_seeds)
-from repro_torch.plan.profiles import (PROFILES, DeviceProfile, GpuProfile,
+from repro_torch.plan.profiles import (PROFILES, DeviceProfile,
+                                       GpuMeshProfile, GpuProfile,
                                        MeshProfile, detect, get_profile,
                                        gpu_profile, mesh_profile,
                                        profile_names)
 
 __all__ = [
     "AUTOTUNE_TOP_K", "CardFootprint", "ConvTile", "DeviceProfile",
-    "Footprint", "GpuProfile", "InfeasiblePlanError", "LM_PLAN_SEQ",
+    "Footprint", "GpuMeshProfile", "GpuProfile", "InfeasiblePlanError", "LM_PLAN_SEQ",
     "MeshProfile", "PROFILES", "ScanTile", "TilePlan", "TuningCache",
     "VmmBwdTile", "VmmTile", "cache_key", "card_footprint",
     "cnn_kernel_shapes", "cnn_plan_footprints", "conv2d_bwd_footprint",

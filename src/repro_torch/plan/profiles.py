@@ -32,7 +32,7 @@ raises, and tests build one from an explicit properties record
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, fields
 from types import SimpleNamespace
 from typing import Dict, Tuple
 
@@ -191,21 +191,30 @@ def h100() -> GpuProfile:
         torch.cuda.current_device()))
 
 
+@dataclass(frozen=True)
+class GpuMeshProfile(MeshProfile, GpuProfile):
+    """N cards, each with the :class:`GpuProfile` envelope: the planner
+    splits the batch / seeds axes over the cards first, then plans each
+    card's launch objects at its slice (``mesh:h100:<n>``)."""
+
+    @property
+    def core(self) -> GpuProfile:
+        kw = {f.name: getattr(self, f.name) for f in fields(GpuProfile)}
+        return GpuProfile(**dict(kw, name=self.name.split(":")[1]))
+
+
 def mesh_profile(core, n_shards: int) -> MeshProfile:
     """N-core mesh of ``core`` (a profile name or :class:`DeviceProfile`),
-    named ``mesh:<core>:<n>``.  A mesh of cards is ROADMAP A12."""
+    named ``mesh:<core>:<n>``; a mesh of cards is a
+    :class:`GpuMeshProfile`."""
     base = get_profile(core)
     if isinstance(base, MeshProfile):
         raise ValueError(f"cannot nest meshes: {base.name!r}")
-    if isinstance(base, GpuProfile):
-        raise NotImplementedError(
-            f"mesh:{base.name}:{n_shards}: planning across several cards "
-            f"is ROADMAP A12")
-    return MeshProfile(
-        name=f"mesh:{base.name}:{int(n_shards)}",
-        vmem_bytes=base.vmem_bytes, sublane=base.sublane, lane=base.lane,
-        mxu=base.mxu, hbm_gbps=base.hbm_gbps, mxu_tflops=base.mxu_tflops,
-        n_shards=int(n_shards))
+    cls = GpuMeshProfile if isinstance(base, GpuProfile) else MeshProfile
+    kw = {f.name: getattr(base, f.name) for f in fields(type(base))}
+    kw.update(name=f"mesh:{base.name}:{int(n_shards)}",
+              n_shards=int(n_shards))
+    return cls(**kw)
 
 
 PROFILES: Dict[str, DeviceProfile] = {

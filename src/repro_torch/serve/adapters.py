@@ -113,6 +113,9 @@ class CNNAdapter:
         # explain (hit, cold pure-BP, or composite via the engine's manual
         # ``backward``) replays the fused BP in int16.
         self.precision = precision
+        # "mesh:<profile>:<n>" builds a data-parallel engine; the adapter
+        # then reports n_shards and the server batches toward full mesh
+        # occupancy.
         self.engine = engine_lib.build(engine_lib.EngineSpec(
             model=engine_lib.CNNModel(params, cfg), method=store_rules,
             precision=precision, device=device, autotune=autotune))
@@ -143,9 +146,11 @@ class CNNAdapter:
 
     @property
     def n_shards(self) -> int:
-        """Mesh extent of the base engine: 1, the port's engines are
-        single-device (ROADMAP A12)."""
-        return 1
+        """Mesh extent of the base engine (1 = unsharded): a
+        ``device="mesh:<profile>:<n>"`` adapter reports n, so the server
+        batches toward ``max_batch * n`` seats and sharded launches run at
+        full mesh occupancy."""
+        return self.engine.n_shards
 
     @property
     def device(self) -> torch.device:

@@ -20,8 +20,6 @@ therefore:
     (``n_shards > 1``): a sharded launch has ``max_batch * n_shards``
     seats (:attr:`MicroBatcher.fill_target`), so buckets pop at full mesh
     occupancy instead of starving N-1 shards with single-core batches.
-    The port's engines are single-device (``n_shards == 1``; sharded
-    serving is ROADMAP A12), so only the batching arithmetic is here.
 
 Heavy-traffic hardening adds per-REQUEST deadlines on top of the per-BUCKET
 delay cap:

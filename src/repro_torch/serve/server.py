@@ -83,13 +83,19 @@ class ExplanationServer:
         if self.tracer.enabled:
             self.tracer.clock = clock      # spans and deadlines share "now"
         self._trace_seq = itertools.count()
-        n_shards = getattr(adapter, "n_shards", 1)
-        if n_shards != 1:
+        # Mesh-sharded adapters (engine built for a mesh:<profile>:<n>
+        # device) expose n_shards; the batcher then fills buckets toward
+        # max_batch * n_shards seats so every launch occupies the mesh.
+        # The server drives its engine from one rank: on a mesh of several
+        # ranks the others would need a follower joining every launch.
+        mesh = getattr(getattr(adapter, "engine", None), "mesh", None)
+        if mesh is not None and mesh.size > 1:
             raise NotImplementedError(
-                f"n_shards={n_shards}: mesh-sharded serving is not ported "
-                f"yet (ROADMAP A12)")
+                f"serving on {mesh!r}: ranks > 0 need a follower that joins "
+                f"each launch (ROADMAP A12d)")
         self.batcher = MicroBatcher(max_batch=max_batch,
-                                    max_delay_s=max_delay_s, clock=clock)
+                                    max_delay_s=max_delay_s, clock=clock,
+                                    n_shards=getattr(adapter, "n_shards", 1))
         self.cache = ResidualCache(cache_capacity)
         self.stats = ServerStats()
         self.method_opts = method_opts or {}

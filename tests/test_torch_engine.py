@@ -196,12 +196,20 @@ def _fn_model_bf16(params, jparams):
     (dict(precision="bf16", model="fn"), "A6"),
     (dict(model=object()), "A11"),
     # the tile planner's knobs run (tests/test_torch_plan_engine.py); a
-    # mesh of several shards is multi-device work
+    # mesh of several shards builds a data-parallel engine (A12b), here on
+    # the one rank of a process without a group
     (dict(device="mesh:edge-small:4"), "A12"),
 ])
 def test_unported_knobs_raise(setup, kw, item):
     jparams, params, x = setup
     kw = dict(kw)
+    if item == "A12":
+        eng = build(spec_for(params, **kw))
+        base = build(spec_for(params, device="edge-small"))
+        assert eng.n_shards == 4 and eng.mesh.size == 1
+        for a, b in zip(eng.explain(x), base.explain(x)):
+            assert torch.equal(a, b)
+        return
     if item != "A6":
         with pytest.raises(NotImplementedError, match=item):
             spec_for(params, **kw)

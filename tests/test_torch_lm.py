@@ -357,8 +357,10 @@ def test_unported_knobs_and_handles_raise(setup):
         build(spec)
     with pytest.raises(ValueError, match="gradient rule set"):
         build(EngineSpec(LMModel(p, cfg, device="cpu"), method="occlusion"))
-    with pytest.raises(NotImplementedError, match="A12"):
-        EngineSpec(LMModel(p, cfg, device="cpu"), device="mesh:edge-small:2")
+    # an LM engine on a mesh device builds unsharded, as repro's does
+    eng = build(EngineSpec(LMModel(p, cfg, device="cpu"),
+                           device="mesh:edge-small:2"))
+    assert eng.n_shards == 1 and eng.mesh is None
     with pytest.raises(ValueError, match="mode"):
         lm.make_token_explain(cfg, mode="nope")
     from repro_torch.engine import CNNModel

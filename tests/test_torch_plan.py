@@ -120,10 +120,25 @@ def test_malformed_names_raise_as_in_repro(bad):
 
 
 def test_nested_mesh_and_card_meshes_raise():
+    """Nested meshes raise; a mesh of cards (A12b) is a GpuMeshProfile:
+    each card planned at its slice, and ``mesh:h100:1`` plans what
+    ``h100`` plans, entry for entry."""
     with pytest.raises(ValueError, match="nest"):
         tplan.mesh_profile("mesh:edge-small:2", 2)
-    with pytest.raises(NotImplementedError, match="A12"):
-        tplan.mesh_profile(H100, 2)
+    with pytest.raises(ValueError, match="nest"):
+        tplan.mesh_profile(tplan.mesh_profile(H100, 2), 2)
+    m2 = tplan.mesh_profile(H100, 2)
+    assert isinstance(m2, tplan.GpuMeshProfile)
+    assert isinstance(m2, tplan.GpuProfile) and m2.n_shards == 2
+    assert m2.name == "mesh:h100:2" and m2.core == H100
+    cfg = cnn.CNNConfig()
+    for p in PRECISIONS:
+        one = tplan.plan_cnn(cfg, tplan.mesh_profile(H100, 1), p, batch=32,
+                             seeds=3)
+        assert one.entries == tplan.plan_cnn(cfg, H100, p, batch=32,
+                                             seeds=3).entries
+        assert tplan.plan_cnn(cfg, m2, p, batch=32, seeds=3).entries == \
+            tplan.plan_cnn(cfg, H100, p, batch=16, seeds=3).entries
 
 
 def test_shard_batch_seeds_matches_repro():

@@ -9,7 +9,8 @@ against repro's, on the CPU.
 * The fold audit of ``ig(batched=True)``, ``smoothgrad`` and ``perturb``
   keeps the engine, replans or raises exactly where repro's does; a raise
   comes before any kernel wrapper is called.
-* ``mesh:<p>:<n>`` with n > 1 raises naming ROADMAP A12; a bad plan
+* ``mesh:<p>:<n>`` with n > 1 builds a data-parallel engine planned at
+  the per-shard batch (one rank here: no process group); a bad plan
   raises.
 * The LM: ``ssm_scan_tiles(cfg, plan)`` equals repro's for every profile,
   a planned engine's token explain equals the unplanned one bitwise.
@@ -137,8 +138,12 @@ def test_h100_plan_is_bitwise_the_unplanned_engine(setup, precision):
 def test_plan_knob_validation(setup):
     _, params, _ = setup
     model = CNNModel(params, CFG, device="cpu")
-    with pytest.raises(NotImplementedError, match="A12"):
-        EngineSpec(model=model, device="mesh:edge-small:4")
+    eng = build(EngineSpec(model=model, device="mesh:edge-small:4",
+                           batch=8))
+    assert eng.n_shards == 4
+    assert eng.plan.device == "mesh:edge-small:4"
+    assert eng.plan.entries == tplan.plan_cnn(CFG, "edge-small",
+                                              batch=2).entries
     with pytest.raises(ValueError, match="unknown device profile"):
         EngineSpec(model=model, device="edge-nonexistent")
     with pytest.raises(TypeError, match="TilePlan"):
@@ -285,8 +290,10 @@ def test_adapters_thread_the_planner_knobs(setup, monkeypatch, tmp_path):
                  device="cpu")
     lad = lm.LMAdapter(lp, cfg, device="edge-small")
     assert lad.engine.plan == tplan.plan_lm(cfg, "edge-small")
-    with pytest.raises(NotImplementedError, match="A12"):
-        lm.LMAdapter(lp, cfg, device="mesh:edge-small:2")
+    # an LM on a mesh device builds unsharded, planned per shard
+    lmesh = lm.LMAdapter(lp, cfg, device="mesh:edge-small:2")
+    assert lmesh.n_shards == 1 and lmesh.engine.mesh is None
+    assert lmesh.engine.plan == tplan.plan_lm(cfg, "mesh:edge-small:2")
 
 
 def _driver(tmp_path, *args):

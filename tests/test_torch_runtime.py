@@ -1,8 +1,8 @@
 """repro_torch.runtime against repro.runtime (CPU): twins of
 ``tests/test_runtime.py``'s four fault tests on the port, and
 ``plan_remesh`` equal to the JAX package's over a grid of host losses,
-host sizes and model-parallel widths.  The compressed all-reduce is
-ROADMAP A12c."""
+host sizes and model-parallel widths.  The compressed all-reduce is held
+in ``tests/test_torch_compression.py``."""
 import numpy as np
 import pytest
 

@@ -675,8 +675,8 @@ def test_lm_predict_is_forward_and_explain_cached_refuses(lm_setup,
     real = spec_mod.resolve_device
     monkeypatch.setattr(spec_mod, "resolve_device",
                         lambda d: real("cpu" if d is None else d))
-    with pytest.raises(NotImplementedError, match="A12"):
-        lm.LMAdapter(p, cfg, device="mesh:edge-small:2")
+    # an LM engine on a mesh device builds unsharded, as repro's
+    assert lm.LMAdapter(p, cfg, device="mesh:edge-small:2").n_shards == 1
 
 
 def test_planner_and_mesh_knobs_raise(setup, monkeypatch):
@@ -687,20 +687,68 @@ def test_planner_and_mesh_knobs_raise(setup, monkeypatch):
         with pytest.raises(RuntimeError, match="CUDA"):
             tserve.CNNAdapter(params, CFG)
     # the planner's knobs reach the engine (tests/test_torch_plan_engine.py);
-    # a mesh of several shards is multi-device work
+    # a mesh of several shards builds a data-parallel engine whose extent
+    # the adapter, its siblings and from_engine report (twin of
+    # tests/test_engine.py::test_adapter_reports_mesh_extent)
     from repro_torch.engine import spec as spec_mod
     real = spec_mod.resolve_device
     monkeypatch.setattr(spec_mod, "resolve_device",
                         lambda d: real("cpu" if d is None else d))
-    with pytest.raises(NotImplementedError, match="A12"):
-        tserve.CNNAdapter(params, CFG, device="mesh:edge-small:4")
+    adp = tserve.CNNAdapter(params, CFG, device="mesh:edge-small:2")
+    assert adp.n_shards == 2 and adp.engine_for("guided").n_shards == 2
+    assert tserve.CNNAdapter.from_engine(adp.engine).n_shards == 2
+    assert adp.with_precision("fxp16").n_shards == 2
     assert tserve.CNNAdapter(params, CFG,
-                             device="edge-small").engine.plan is not None
+                             device="mesh:edge-small:4").n_shards == 4
+    single = tserve.CNNAdapter(params, CFG, device="edge-small")
+    assert single.engine.plan is not None and single.n_shards == 1
 
+    # a server on one rank fills toward max_batch * n_shards seats (twin
+    # of tests/test_admission.py::test_fill_target_scales_batches_to_the_mesh)
     class Sharded:
         store_rules, n_shards = "saliency", 4
-    with pytest.raises(NotImplementedError, match="A12"):
-        tserve.ExplanationServer(Sharded())
+    srv = tserve.ExplanationServer(Sharded(), max_batch=3)
+    assert srv.batcher.fill_target == 12 and srv.batcher.n_shards == 4
+
+
+@pytest.mark.parametrize("n_shards", [1, 4])
+def test_mesh_server_heatmaps_bitwise_with_single_device(setup, n_shards):
+    """Twin of ``tests/test_serve.py::
+    test_mesh_server_heatmaps_bitwise_with_single_device``: serving through
+    a ``mesh:edge-small:<n>`` adapter on one rank returns the single-device
+    adapter's heatmaps bit for bit, its batcher filling toward ``n *
+    max_batch`` seats."""
+    _, params, x = setup
+
+    def adapter(device):
+        return tserve.CNNAdapter.from_engine(build(EngineSpec(
+            CNNModel(params, CFG, device="cpu"), device=device)))
+
+    mk = lambda: [tserve.Request(uid=f"r{i}", kind="explain", x=x[i],
+                                 method="saliency") for i in range(3)]
+    single = server(tserve, adapter("edge-small"))
+    meshed = server(tserve, adapter(f"mesh:edge-small:{n_shards}"))
+    assert meshed.batcher.fill_target == 4 * n_shards
+    out_s, out_m = burst(single, mk()), burst(meshed, mk())
+    assert [r.uid for r in out_s] == [r.uid for r in out_m]
+    for a, b in zip(out_s, out_m):
+        assert a.ok and b.ok
+        assert torch.equal(a.relevance, b.relevance)
+
+
+def test_server_on_several_ranks_is_a12d():
+    """A server drives its engine from one rank; ranks > 0 would need a
+    follower joining each launch (ROADMAP A12d)."""
+    class Mesh:
+        size = 2
+
+    class Engine:
+        mesh = Mesh()
+
+    class Adapter:
+        store_rules, n_shards, engine = "saliency", 2, Engine()
+    with pytest.raises(NotImplementedError, match="A12d"):
+        tserve.ExplanationServer(Adapter())
 
 
 # -- the driver ---------------------------------------------------------------
@@ -723,7 +771,12 @@ def test_driver_serves_cnn_on_the_cpu():
 
 @pytest.mark.parametrize("flag,item", [
     ("--device-profile=mesh:edge-small:4", "A12")])
-def test_driver_refuses_what_is_not_ported(flag, item):
+def test_driver_refuses_what_is_not_ported(flag, item, capsys):
+    """The driver serves a mesh-sharded engine (A12b): 4 shards, its
+    batcher filling 4 x batch seats a launch."""
     from repro_torch.launch import serve as driver
-    with pytest.raises(NotImplementedError, match=item):
-        driver.main(["--workload", "cnn", "--torch-device", "cpu", flag])
+    driver.main(["--workload", "cnn", "--torch-device", "cpu", flag,
+                 "--requests", "4", "--batch", "2"])
+    out = capsys.readouterr().out
+    assert "mesh-sharded engine: 4 shards, batcher fills 8 seats" in out
+    assert "8 responses" in out and "0 errors" in out

@@ -2,7 +2,10 @@
 package checkpointed, resumed by either package to the same state (within
 ``tests/_torch_train.py``'s tolerances); the port's crash-resume bitwise
 and its loss decreasing (twins of ``tests/test_system.py``'s two slow
-LM tests); the command line."""
+LM tests); the command line.  On 2 gloo ranks (``tests/_torch_dist.py``)
+``--mesh host``'s mesh trains data parallel: 4 straight steps equal 2, a
+checkpoint rank 0 wrote, and 2 resumed, bit for bit; the production
+meshes name the 256 / 512 ranks they need."""
 import shutil
 
 import jax
@@ -17,6 +20,7 @@ from repro_torch import configs
 from repro_torch.data import TokenStream
 from repro_torch.launch import train
 
+from _torch_dist import run_worlds
 from _torch_train import check_metrics, check_moments, check_update, flat
 
 ARCH = "llama3.2-1b"
@@ -97,12 +101,28 @@ def test_lm_loss_decreases():
     assert losses[-1] < losses[0] - 0.2, (losses[0], losses[-1])
 
 
-def test_mesh_is_a12b():
-    cfg = configs.get_smoke(ARCH)
-    data = TokenStream(vocab=cfg.vocab, seq_len=8, global_batch=2)
-    with pytest.raises(NotImplementedError, match="A12b"):
-        train.train_loop(cfg, data, steps=1, ckpt_dir=None, mesh="multi",
-                         device="cpu")
+def test_mesh_is_a12b(tmp_path):
+    """A12b: ``train_loop`` on ``--mesh host``'s mesh over a world of 2
+    gloo ranks resumes bitwise through rank 0's checkpoint, and every rank
+    holds the same state."""
+    ranks = run_worlds(tmp_path, {"t": ("train_loop_scenario", 2, dict(
+        ckpt=str(tmp_path / "ck")))})["t"]
+    for out in ranks:
+        assert out["mesh"] == "Mesh(data=2, model=1, group)"
+        assert out["files"] == ["DONE", "META.json", "shard_0.npz"]
+        for a, b in zip(_state_leaves(out["straight"]),
+                        _state_leaves(out["resumed"])):
+            assert torch.equal(a, b)
+    for a, b in zip(_state_leaves(ranks[0]["resumed"]),
+                    _state_leaves(ranks[1]["resumed"])):
+        assert torch.equal(a, b)
+    assert ranks[0]["losses"] == ranks[1]["losses"]
+
+
+def _state_leaves(state):
+    from repro_torch import tree as trees
+    return (trees.leaves(state.params) + trees.leaves(state.opt.mu)
+            + trees.leaves(state.opt.nu) + [state.opt.step])
 
 
 def test_cli(tmp_path, capsys):
@@ -119,6 +139,7 @@ def test_cli(tmp_path, capsys):
     train.main(["--steps", "4", "--torch-device", "cpu", "--ckpt", ck,
                 "--seq", "16"])
     assert "[train] resumed from step 3" in capsys.readouterr().out
-    for mesh in ("single", "multi"):
-        with pytest.raises(NotImplementedError, match="A12b"):
+    for mesh, ranks in (("single", 256), ("multi", 512)):
+        with pytest.raises(ValueError, match=f"needs {ranks} ranks; the "
+                                             f"world has 1"):
             train.main(["--mesh", mesh, "--torch-device", "cpu"])

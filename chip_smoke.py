@@ -2853,6 +2853,102 @@ def _chunked_grad_scan(dt, x, bmat, cmat, a, h0, *, d_tile=None,
                                   int(d_tile or 256), int(chunk or 64))
 
 
+def _scan_row(kc: KernelCheck, gen, s, dtype, d, every=True):
+    """One B13 case of phase 2 (phase 16 (a): a model rank's channels):
+    the forward under two knob pairs, bitwise; the backward on the main
+    path's gradients (and, with ``every``, all six with a gh), bitwise
+    under both pairs and run to run, against the plain versions."""
+    from repro_torch.kernels.ssm_scan import ref as scan_ref
+    from repro_torch.kernels.ssm_scan.ssm_scan import (selective_scan,
+                                                       selective_scan_bwd)
+    b, n = LM_BATCH, 16
+    main_needs = (True, True, True, True, False, False)
+
+    def inputs(s, dtype, d):
+        dt = F.softplus(randn(gen, b, s, d) - 4.6)      # as dt_bias sets
+        x = randn(gen, b, s, d).to(dtype)
+        return (dt, x, randn(gen, b, s, n), randn(gen, b, s, n),
+                -torch.exp(randn(gen, d, n) * 0.3), randn(gen, b, d, n))
+
+    # the explain's knobs, the default's (a d_tile that divides D)
+    tiles = ((d, 128), (256 if d % 256 == 0 else 32, 64))
+    args = inputs(s, dtype, d)
+    xs = args[1].element_size()
+    nbytes = (4 * b * s * d + 2 * xs * b * s * d + 2 * 4 * b * d * n
+              + 4 * d * n + 2 * 4 * b * s * n)
+    main = (s == LM_PROMPT + LM_NEW and dtype == torch.bfloat16
+            and d == 8192)
+    got = [selective_scan(*args, d_tile=dtl, chunk=ck)
+           for dtl, ck in tiles]
+    torch.cuda.synchronize()
+    for y, h in got[1:]:
+        if not (torch.equal(y, got[0][0]) and torch.equal(h, got[0][1])):
+            fail(f"selective_scan: knobs {tiles} change the bits")
+    case = (f"[{b},{s},{d}]x[{d},{n}] "
+            + ("bf16" if dtype == torch.bfloat16 else "f32"))
+    kc.record("selective_scan", case, main, got[0],
+              scan_ref.selective_scan(*args), False,
+              lambda: selective_scan(*args, d_tile=d, chunk=128),
+              lambda: scan_ref.selective_scan(*args), nbytes,
+              b * s * d * n, rate=kc.mufu_per_s, close=_scan_close)
+
+    # the backward: the main path's gradients, then all six with a gh
+    gy = randn(gen, b, s, d).to(dtype)
+    gh = randn(gen, b, d, n)
+    for needs, g_h in ((main_needs, None), (None, gh))[:2 if every else 1]:
+        every_six = needs is None
+
+        def bwd(dtl=d, ck=128, needs=needs, g_h=g_h, args=args, gy=gy):
+            return selective_scan_bwd(*args, gy, g_h, d_tile=dtl,
+                                      chunk=ck, needs=needs)
+
+        def plain(needs=needs, g_h=g_h, args=args, gy=gy):
+            return scan_ref.selective_scan_bwd(*args, gy, g_h, needs)
+
+        outs = [bwd(dtl, ck) for dtl, ck in tiles] + [bwd()]
+        torch.cuda.synchronize()
+        for other in outs[1:]:
+            if not all(torch.equal(g, g0) for g, g0 in zip(other, outs[0])
+                       if g0 is not None):
+                fail(f"selective_scan_bwd {case}: knobs {tiles} or a "
+                     f"second run change the bits")
+        want = plain()
+        pick = [i for i, g in enumerate(outs[0]) if g is not None]
+        # the forward's operands, gy in place of y, gh in place of
+        # h_last where given, and the gradients asked for
+        nb_bwd = (nbytes - (4 * b * d * n if g_h is None else 0)
+                  + sum(outs[0][i].numel() * outs[0][i].element_size()
+                        for i in pick))
+        kc.record("selective_scan_bwd",
+                  case + (" all six, gh" if every_six else ""),
+                  main and not every_six,
+                  tuple(outs[0][i] for i in pick),
+                  tuple(want[i] for i in pick), False, bwd, plain,
+                  nb_bwd, b * s * d * n,
+                  rate=kc.mufu_per_s, close=_grad_close)
+    if main:
+        leaves = [t.detach().requires_grad_() for t in args]
+        # the backward B13 had before its kernel (recompute + autograd
+        # over the chunked scan), and the JAX package's form
+        y, _ = _ChunkedGradScan.apply(*leaves, d, 128)
+
+        def backward():
+            torch.autograd.grad(y, leaves, gy, retain_graph=True)
+
+        kc.scan_backward_ms = _span_ms(backward)
+        y_loop, _ = scan_ref.selective_scan(*leaves)
+
+        def backward_loop():
+            torch.autograd.grad(y_loop, leaves, gy, retain_graph=True)
+
+        kc.scan_backward_loop_ms = _span_ms(backward_loop)
+        print(f"  {'(before the kernel)':20s} {case:34s} autograd over "
+              f"the chunked scan (the port's until now): "
+              f"{kc.scan_backward_ms:.4f} ms per layer; over the "
+              f"sequential loop (the JAX package's form): "
+              f"{kc.scan_backward_loop_ms:.4f} ms")
+
+
 def check_kernels_scan(kc: KernelCheck):
     """B13 at falcon-mamba-7b's explain shape (B = 4 prompts, S = 72, D =
     8192, N = 16; x bf16 on the main path, f32 beside it), a ragged S = 13,
@@ -2865,102 +2961,13 @@ def check_kernels_scan(kc: KernelCheck):
     call computes either: the library column is none.  The backward the
     kernel replaced (autograd over the chunked scan) and autograd over the
     sequential loop are timed beside it."""
-    from repro_torch.kernels.ssm_scan import ref as scan_ref
-    from repro_torch.kernels.ssm_scan.ssm_scan import (selective_scan,
-                                                       selective_scan_bwd)
-
     gen = torch.Generator(device="cuda").manual_seed(1357)
-    b, n = LM_BATCH, 16
-    main_needs = (True, True, True, True, False, False)
-
-    def inputs(s, dtype, d):
-        dt = F.softplus(randn(gen, b, s, d) - 4.6)      # as dt_bias sets
-        x = randn(gen, b, s, d).to(dtype)
-        return (dt, x, randn(gen, b, s, n), randn(gen, b, s, n),
-                -torch.exp(randn(gen, d, n) * 0.3), randn(gen, b, d, n))
-
     for s, dtype, d in ((LM_PROMPT + LM_NEW, torch.bfloat16, 8192),
                         (LM_PROMPT + LM_NEW, torch.float32, 8192),
                         (13, torch.bfloat16, 8192),
                         (LM_PROMPT + LM_NEW, torch.bfloat16, 3200),
                         (13, torch.bfloat16, 3232)):
-        # the explain's knobs, the default's (a d_tile that divides D)
-        tiles = ((d, 128), (256 if d % 256 == 0 else 32, 64))
-        args = inputs(s, dtype, d)
-        xs = args[1].element_size()
-        nbytes = (4 * b * s * d + 2 * xs * b * s * d + 2 * 4 * b * d * n
-                  + 4 * d * n + 2 * 4 * b * s * n)
-        main = (s == LM_PROMPT + LM_NEW and dtype == torch.bfloat16
-                and d == 8192)
-        got = [selective_scan(*args, d_tile=dtl, chunk=ck)
-               for dtl, ck in tiles]
-        torch.cuda.synchronize()
-        for y, h in got[1:]:
-            if not (torch.equal(y, got[0][0]) and torch.equal(h, got[0][1])):
-                fail(f"selective_scan: knobs {tiles} change the bits")
-        case = (f"[{b},{s},{d}]x[{d},{n}] "
-                + ("bf16" if dtype == torch.bfloat16 else "f32"))
-        kc.record("selective_scan", case, main, got[0],
-                  scan_ref.selective_scan(*args), False,
-                  lambda: selective_scan(*args, d_tile=d, chunk=128),
-                  lambda: scan_ref.selective_scan(*args), nbytes,
-                  b * s * d * n, rate=kc.mufu_per_s, close=_scan_close)
-
-        # the backward: the main path's gradients, then all six with a gh
-        gy = randn(gen, b, s, d).to(dtype)
-        gh = randn(gen, b, d, n)
-        for needs, g_h in ((main_needs, None), (None, gh)):
-            every = needs is None
-
-            def bwd(dtl=d, ck=128, needs=needs, g_h=g_h, args=args, gy=gy):
-                return selective_scan_bwd(*args, gy, g_h, d_tile=dtl,
-                                          chunk=ck, needs=needs)
-
-            def plain(needs=needs, g_h=g_h, args=args, gy=gy):
-                return scan_ref.selective_scan_bwd(*args, gy, g_h, needs)
-
-            outs = [bwd(dtl, ck) for dtl, ck in tiles] + [bwd()]
-            torch.cuda.synchronize()
-            for other in outs[1:]:
-                if not all(torch.equal(g, g0) for g, g0 in zip(other, outs[0])
-                           if g0 is not None):
-                    fail(f"selective_scan_bwd {case}: knobs {tiles} or a "
-                         f"second run change the bits")
-            want = plain()
-            pick = [i for i, g in enumerate(outs[0]) if g is not None]
-            # the forward's operands, gy in place of y, gh in place of
-            # h_last where given, and the gradients asked for
-            nb_bwd = (nbytes - (4 * b * d * n if g_h is None else 0)
-                      + sum(outs[0][i].numel() * outs[0][i].element_size()
-                            for i in pick))
-            kc.record("selective_scan_bwd",
-                      case + (" all six, gh" if every else ""),
-                      main and not every,
-                      tuple(outs[0][i] for i in pick),
-                      tuple(want[i] for i in pick), False, bwd, plain,
-                      nb_bwd, b * s * d * n,
-                      rate=kc.mufu_per_s, close=_grad_close)
-        if main:
-            leaves = [t.detach().requires_grad_() for t in args]
-            # the backward B13 had before its kernel (recompute + autograd
-            # over the chunked scan), and the JAX package's form
-            y, _ = _ChunkedGradScan.apply(*leaves, d, 128)
-
-            def backward():
-                torch.autograd.grad(y, leaves, gy, retain_graph=True)
-
-            kc.scan_backward_ms = _span_ms(backward)
-            y_loop, _ = scan_ref.selective_scan(*leaves)
-
-            def backward_loop():
-                torch.autograd.grad(y_loop, leaves, gy, retain_graph=True)
-
-            kc.scan_backward_loop_ms = _span_ms(backward_loop)
-            print(f"  {'(before the kernel)':20s} {case:34s} autograd over "
-                  f"the chunked scan (the port's until now): "
-                  f"{kc.scan_backward_ms:.4f} ms per layer; over the "
-                  f"sequential loop (the JAX package's form): "
-                  f"{kc.scan_backward_loop_ms:.4f} ms")
+        _scan_row(kc, gen, s, dtype, d)
     print("  selective_scan and selective_scan_bwd under the explain's "
           "knobs (D, 128) and the default's (256 or 32, 64): bitwise equal "
           "(the backward also run to run)")
@@ -6380,10 +6387,10 @@ def _dp_train(state, full, batches, mesh, what, timed):
     _, dp = train.build(full, total_steps=TRAIN_LM_STEPS, mesh=mesh)
     caught, real_clip = [], steps.clip_by_global_norm
 
-    def catch(grads, clip):
+    def catch(grads, clip, **kw):
         if not caught:
             caught.append(grads["embed"]["table"].clone())
-        return real_clip(grads, clip)
+        return real_clip(grads, clip, **kw)
 
     def run(step_fn, b, key):
         torch.cuda.synchronize()
@@ -6443,9 +6450,9 @@ def _dp_train_slices(state, full, batches, mesh, what):
     def caught(step_fn, b):
         got = []
 
-        def catch(grads, clip):
+        def catch(grads, clip, **kw):
             got.append([t.clone() for t in trees.leaves(grads)])
-            return real_clip(grads, clip)
+            return real_clip(grads, clip, **kw)
 
         steps.clip_by_global_norm = catch
         try:
@@ -6719,6 +6726,349 @@ def check_multi_card(x_cpu):
           + f"; {time.perf_counter() - t_e:.1f} s")
     return dict(world=world, ranks=ranks)
 # ---------------------------------------------------------------------------
+# phase 16: the model axis (tensor and expert parallel LM steps)
+# ---------------------------------------------------------------------------
+
+#: (a) B13 at a model rank's channels (B = 4 prompts, S = 72): falcon-
+#: mamba-7b's 8192 over 2 and 4 ranks, hymba-1.5b's 3200 over 2 and 4 (800
+#: is not a multiple of the backward's 128-channel dB / dC partials)
+TP_SCAN_D = (4096, 2048, 1600, 800)
+#: (b) the jobs of the one card's world, full width: the attribute steps of
+#: falcon-mamba-7b (B13 on each rank's channels) and hymba-1.5b (25 heads:
+#: split across the ranks), a llama3.2-1b train step ("train"); (c) adds
+#: moonshot-v1-16b-a3b (64 experts over the ranks) and qwen2-1.5b (2 KV
+#: heads over 4 ranks)
+TP_JOBS = ("falcon-mamba-7b", "hymba-1.5b", "train")
+TP_MULTI_JOBS = TP_JOBS + ("moonshot-v1-16b-a3b", "qwen2-1.5b")
+#: each job's depth: 2 layers (the train step: RESUME_LAYERS), moonshot at
+#: phase 13's 12; the f32 twins at 2 layers on LM_TWIN_BATCH x LM_TWIN_SEQ
+TP_DEPTH = {"moonshot-v1-16b-a3b": ZOO_DEPTH["moonshot-v1-16b-a3b"]}
+TP_LAYERS = 2
+#: (b) ranks sharing card 0 (gloo: NCCL refuses two ranks on one card);
+#: (c) NCCL worlds of 2 and 4 ranks, one card each
+TP_ONE_CARD_RANKS, TP_WORLDS = 2, (2, 4)
+#: timed calls of each step (after one warm-up), and a world's deadline
+TP_TIMED, TP_RANK_TIMEOUT_S = 3, 900
+
+
+def _tp_timed(fn, reps=TP_TIMED):
+    """Medians of host ms and CUDA-event ms of ``reps`` calls of ``fn``
+    after one warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    host, dev = [], []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        a.record()
+        fn()
+        e.record()
+        torch.cuda.synchronize()
+        host.append(1e3 * (time.perf_counter() - t0))
+        dev.append(a.elapsed_time(e))
+    return statistics.median(host), statistics.median(dev)
+
+
+def _bf16_rule(what, tp, one, f32):
+    """Phase 13's bf16 rule: the model-parallel bf16 result no farther
+    from the f32 evaluation of the same weights than LM_LOGITS_FACTOR
+    times the single-process bf16 step (floor: half a bf16 step)."""
+    e_tp, e_one = _rel_err(tp, f32), _rel_err(one, f32)
+    if not e_tp <= LM_LOGITS_FACTOR * max(e_one, BF16_STEP / 2):
+        fail(f"phase 16 {what}: bf16 {e_tp:.3e} of max from f32, the "
+             f"single-process step's {e_one:.3e}")
+    return e_tp, e_one
+
+
+def _terms_scale(params, cfg, batch):
+    """max_t sum_d |rel * e| of the attribute step's ixg seed (saliency,
+    B13 on hybrid and mamba stacks) on one process: the scale phase 13
+    holds bf16 scores to."""
+    from repro_torch.engine import methods as engine_methods
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as tf
+    h = tf.embed_inputs(params, cfg, batch)
+    tiles = steps.ssm_scan_tiles(cfg)
+
+    def f(e):
+        return tf.forward_from_embeddings(
+            params, cfg, e, method="saliency",
+            enc_frames=batch.get("frames"), scan_tiles=tiles)[0]
+
+    _, rel, _ = engine_methods.attribute_tokens(f, h)
+    return (rel.float() * h.float()).abs().sum(-1).max().item()
+
+
+def _tp_attribute(arch, mesh, single):
+    """One attribute job on ``mesh``: the ixg step in bf16 at full width
+    (``TP_DEPTH``), counted, timed, its collective bytes; the f32 twin at
+    TP_LAYERS (exact residuals); on rank 0 (``single``) the single-process
+    steps beside them."""
+    from repro_torch import configs
+    from repro_torch import tree as trees
+    from repro_torch.dist import params as dist_params
+    from repro_torch.dist import sharding as shd
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as tf
+    cfg = configs.get(arch).with_(n_layers=TP_DEPTH.get(arch, TP_LAYERS))
+    params = tf.init(cfg, generator=torch.Generator(device="cuda")
+                     .manual_seed(0), device="cuda")
+    batch = _zoo_inputs(cfg, LM_BATCH, LM_PROMPT + LM_NEW,
+                        torch.Generator(device="cuda").manual_seed(2),
+                        "cuda")
+    local = dist_params.shard_params(params, mesh)
+    if not single:
+        del params
+    step = steps.make_attribute_step(cfg, mode="ixg", mesh=mesh)
+    torch.cuda.synchronize()
+    reset_launches()
+    shd.reset_model_traffic()
+    logits, scores = step(local, batch)
+    torch.cuda.synchronize()
+    out = dict(ways=shd.model_ways(mesh), n_layers=cfg.n_layers,
+               launches={k: v for k, v in LAUNCHES.items() if v},
+               traffic=dict(shd.MODEL_TRAFFIC))
+    _finite(logits, f"phase 16 {arch} logits", (LM_BATCH, cfg.vocab))
+    _finite(scores, f"phase 16 {arch} scores", tuple(batch["tokens"].shape))
+    out["ms"] = _tp_timed(lambda: step(local, batch))
+    del local
+    if single:
+        one = steps.make_attribute_step(cfg, mode="ixg")
+        ref = one(params, batch)
+        out["one_ms"] = _tp_timed(lambda: one(params, batch))
+        # phase 13's rule for bf16 scores (sums over d that cancel): the
+        # scale of a bf16 sum's rounding, max sum_d |rel * e|
+        terms = _terms_scale(params, cfg, batch)
+        p32 = trees.tree_map(lambda t: t.float(), params)
+        del params
+        f32 = steps.make_attribute_step(cfg.with_(dtype="float32"),
+                                        mode="ixg")(p32, batch)
+        del p32
+        out["bf16_logits"] = _bf16_rule(f"{arch} logits", logits, ref[0],
+                                        f32[0])
+        out["bf16_scores"] = tuple(
+            (a.float() - b.float()).abs().max().item() / terms
+            for a, b in ((scores, ref[1]), (scores, f32[1]), (ref[1], f32[1])))
+        if not out["bf16_scores"][0] <= ZOO_BF16_SCORES_TOL:
+            fail(f"phase 16 {arch} scores: bf16 {out['bf16_scores'][0]:.3e} "
+                 f"of max sum_d |rel*e| from the single-process step's "
+                 f"(ZOO_BF16_SCORES_TOL)")
+    torch.cuda.empty_cache()
+    # the f32 twin: TP_LAYERS, exact residuals, the twin's batch
+    twin = configs.get(arch).with_(n_layers=TP_LAYERS, dtype="float32",
+                                   residual_policy="exact")
+    p32 = tf.init(twin, generator=torch.Generator(device="cuda")
+                  .manual_seed(0), device="cuda")
+    tb = _zoo_inputs(twin, LM_TWIN_BATCH, LM_TWIN_SEQ,
+                     torch.Generator(device="cuda").manual_seed(3), "cuda")
+    got = steps.make_attribute_step(twin, mode="ixg", mesh=mesh)(
+        dist_params.shard_params(p32, mesh), tb)
+    if single:
+        want = steps.make_attribute_step(twin, mode="ixg")(p32, tb)
+        out["f32"] = (_rel_err(got[0], want[0]), _rel_err(got[1], want[1]))
+        if not (out["f32"][0] <= DOT_TOL and out["f32"][1] <= REPLAY_TOL):
+            fail(f"phase 16 {arch}: the f32 twin's logits / scores "
+                 f"{out['f32'][0]:.3e} / {out['f32'][1]:.3e} of max from "
+                 f"the single-process step (DOT_TOL / REPLAY_TOL)")
+    del p32
+    torch.cuda.empty_cache()
+    return out
+
+
+def _tp_train(mesh, single):
+    """The train job on ``mesh``: llama3.2-1b FULL width at RESUME_LAYERS
+    layers, bf16 compute, one step from the seed-0 state (timed on the
+    next batch, its collective bytes); its f32 twin two steps on 2 x 16
+    tokens; on rank 0 the single-process steps beside them."""
+    from repro_torch import configs
+    from repro_torch.data import TokenStream
+    from repro_torch.dist import sharding as shd
+    from repro_torch.launch import steps, train
+    cut = configs.get(TRAIN_LM_ARCH).with_(n_layers=RESUME_LAYERS)
+    init = steps.make_train_state_init(cut)
+    data = TokenStream(vocab=cut.vocab, seq_len=TRAIN_LM_SEQ,
+                       global_batch=TRAIN_LM_BATCH)
+    batches = [_batch_on(data, s) for s in range(2)]
+    out = dict(ways=shd.model_ways(mesh), n_layers=cut.n_layers)
+
+    def run(cfg, m, bs, timed=False):
+        state = init(torch.Generator(device="cuda").manual_seed(0), "cuda")
+        step = train.build(cfg, total_steps=10, mesh=m)[1]
+        local = steps.shard_state(state, m)
+        del state
+        shd.reset_model_traffic()
+        metrics = []
+        for b in bs:
+            new, met = step(local, b)
+            metrics.append({k: float(v) for k, v in met.items()})
+        traffic = dict(shd.MODEL_TRAFFIC)
+        ms = _tp_timed(lambda: step(local, bs[-1])) if timed else None
+        whole = steps.gather_state(new, m)
+        del local, new
+        torch.cuda.empty_cache()
+        return whole, metrics, traffic, ms
+
+    _, met, out["traffic"], out["ms"] = run(cut, mesh, batches[:1], True)
+    for k in ("loss", "ce", "gnorm"):
+        if not float("-inf") < met[0][k] < float("inf"):
+            fail(f"phase 16 train: {k} {met[0][k]} not finite")
+    if single:
+        _, one, _, out["one_ms"] = run(cut, None, batches[:1], True)
+        _, f32, _, _ = run(cut.with_(dtype="float32"), None, batches[:1])
+        out["bf16"] = {k: _bf16_rule(
+            f"train {k}", torch.tensor(met[0][k]), torch.tensor(one[0][k]),
+            torch.tensor(f32[0][k])) for k in ("loss", "gnorm")}
+    twin = cut.with_(dtype="float32")
+    tdata = TokenStream(vocab=twin.vocab, seq_len=16, global_batch=2)
+    tbatches = [_batch_on(tdata, s) for s in range(2)]
+    got, got_m, _, _ = run(twin, mesh, tbatches)
+    if single:
+        want, want_m, _, _ = run(twin, None, tbatches)
+        worst = max(abs(g[k] - w[k]) / max(abs(w[k]), 1e-30)
+                    for g, w in zip(got_m, want_m)
+                    for k in ("loss", "ce", "gnorm"))
+        moments = max(_rel_err(a, b) for a, b in zip(
+            _state_leaves(got)[:-1], _state_leaves(want)[:-1])
+            if b.abs().max() > 0)
+        if not (worst <= DOT_TOL and moments <= REPLAY_TOL):
+            fail(f"phase 16 train: the f32 twin's metrics {worst:.3e} "
+                 f"(DOT_TOL) and state {moments:.3e} (REPLAY_TOL) of the "
+                 f"single-process steps'")
+        out["f32"] = (worst, moments)
+    del got
+    torch.cuda.empty_cache()
+    return out
+
+
+def _tp_rank(rank, world, store, backend, jobs, out_dir):
+    """One rank of a phase 16 world: ``make_host_mesh(1, world)``, each
+    job's results in ``out_dir/rank<r>.json``, a failure's traceback in
+    ``rank<r>.err``."""
+    import traceback
+
+    import torch.distributed as dist
+    try:
+        torch.cuda.set_device(rank if backend == "nccl" else 0)
+        dist.init_process_group(backend, init_method=f"file://{store}",
+                                rank=rank, world_size=world)
+        from repro_torch.kernels import _build
+        from repro_torch.launch.mesh import make_host_mesh
+        _build.library()
+        mesh = make_host_mesh(1, world)
+        out = dict(backend=dist.get_backend(), mesh=repr(mesh))
+        for job in jobs:
+            out[job] = (_tp_train(mesh, rank == 0) if job == "train"
+                        else _tp_attribute(job, mesh, rank == 0))
+        dist.destroy_process_group()
+        Path(out_dir, f"rank{rank}.json").write_text(json.dumps(out))
+    except BaseException:
+        Path(out_dir, f"rank{rank}.err").write_text(traceback.format_exc())
+        raise SystemExit(1)
+
+
+def _tp_world(backend, world, jobs):
+    """A world of ``world`` ranks running :func:`_tp_rank`; rank 0's
+    results (every rank checks its own run; rank 0 also the
+    single-process steps)."""
+    import multiprocessing as mp
+    with tempfile.TemporaryDirectory(prefix="tp_") as d:
+        ctx = mp.get_context("spawn")
+        procs = [ctx.Process(target=_tp_rank, args=(
+            r, world, str(Path(d, "store")), backend, jobs, d))
+            for r in range(world)]
+        for p in procs:
+            p.start()
+        # a failed rank leaves the others waiting in a collective: stop
+        # them at once
+        deadline = time.monotonic() + TP_RANK_TIMEOUT_S
+        while (any(p.is_alive() for p in procs)
+               and time.monotonic() < deadline
+               and not any(p.exitcode for p in procs)):
+            time.sleep(0.5)
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+            p.join()
+        bad = [e.read_text() for e in (Path(d, f"rank{r}.err")
+                                       for r in range(world)) if e.exists()]
+        if bad or any(p.exitcode != 0 for p in procs):
+            fail(f"phase 16: {backend} ranks failed (exit codes "
+                 f"{[p.exitcode for p in procs]}):\n" + "\n".join(bad))
+        return json.loads(Path(d, "rank0.json").read_text())
+
+
+def _print_tp(what, res, jobs):
+    print(f"phase 16 {what}: backend {res['backend']}, {res['mesh']}")
+    for job in jobs:
+        r = res[job]
+        t = r["traffic"]
+        line = (f"  {job:22s} model {r['ways']}, {r['n_layers']} layers: "
+                f"host / device ms {r['ms'][0]:.2f} / {r['ms'][1]:.2f}, "
+                f"model 1 {r['one_ms'][0]:.2f} / {r['one_ms'][1]:.2f}; "
+                f"model-axis bytes all-reduce {t['all_reduce'] / 1e6:.2f} "
+                f"MB, all-gather {t['all_gather'] / 1e6:.2f} MB in "
+                f"{t['calls']} collectives")
+        if job == "train":
+            line += ("; bf16 loss / gnorm from f32 "
+                     + ", ".join(f"{k} {a:.2e} (model 1 {b:.2e})"
+                                 for k, (a, b) in r["bf16"].items())
+                     + f"; f32 twin metrics {r['f32'][0]:.2e}, state "
+                     f"{r['f32'][1]:.2e}")
+        else:
+            line += (f"; bf16 logits {r['bf16_logits'][0]:.2e} of max from "
+                     f"f32 (model 1 {r['bf16_logits'][1]:.2e}), scores "
+                     f"{r['bf16_scores'][0]:.2e} of max sum_d |rel*e| from "
+                     f"model 1's (from f32 {r['bf16_scores'][1]:.2e}, model "
+                     f"1 {r['bf16_scores'][2]:.2e}); f32 twin logits "
+                     f"{r['f32'][0]:.2e}, scores {r['f32'][1]:.2e} of max; "
+                     f"launches {r['launches']}")
+        print(line)
+
+
+def check_model_axis(kc, launches, multi):
+    """Phase 16: (a) B13 and its backward at a model rank's shapes
+    (:data:`TP_SCAN_D`) against their plain versions; (b) the model-axis
+    steps in a gloo world of ranks sharing card 0 (:data:`TP_JOBS`), each
+    against the single-process step by phase 13's bf16 rule and an f32
+    twin; (c) with ``multi`` and 2 or more cards, NCCL worlds of 2 and 4
+    ranks (:data:`TP_MULTI_JOBS`)."""
+    print(f"phase 16 (a): B13 and its backward at a model rank's channels, "
+          f"[{LM_BATCH},{LM_PROMPT + LM_NEW},D] bf16, D in {TP_SCAN_D}")
+    gen = torch.Generator(device="cuda").manual_seed(1616)
+    for d in TP_SCAN_D:
+        _scan_row(kc, gen, LM_PROMPT + LM_NEW, torch.bfloat16, d,
+                  every=False)
+    print(f"phase 16 (b): a gloo world of {TP_ONE_CARD_RANKS} ranks sharing "
+          f"card 0 (NCCL refuses two ranks on one card; gloo carries the "
+          f"card's tensors through the host), make_host_mesh(1, "
+          f"{TP_ONE_CARD_RANKS})")
+    t0 = time.perf_counter()
+    res = _tp_world("gloo", TP_ONE_CARD_RANKS, TP_JOBS)
+    _print_tp("(b)", res, TP_JOBS)
+    print(f"  (b) took {time.perf_counter() - t0:.1f} s")
+    totals = launches.setdefault("tp", {})
+    for job in TP_JOBS:
+        for k, v in res[job].get("launches", {}).items():
+            totals[k] = totals.get(k, 0) + v
+    out = {"b": res}
+    count = torch.cuda.device_count()
+    if multi and count >= 2:
+        for world in (w for w in TP_WORLDS if w <= count):
+            t0 = time.perf_counter()
+            res = _tp_world("nccl", world, TP_MULTI_JOBS)
+            _print_tp(f"(c) {world} cards", res, TP_MULTI_JOBS)
+            print(f"  (c) {world} cards took "
+                  f"{time.perf_counter() - t0:.1f} s")
+            out[f"c{world}"] = res
+    elif multi:
+        print(f"phase 16 (c): the machine has {count} card: no NCCL world")
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 
 #: The counters each path must launch; the others must stay at 0 there.
@@ -6747,7 +7097,8 @@ PATH_KERNELS = {"f32": tuple(PER_EXPLAIN["f32"]),
                 "train_cnn": tuple(PER_TRAIN_CNN_STEP),
                 "dp_f32": tuple(PER_EXPLAIN["f32"]),
                 "dp_bf16": tuple(PER_EXPLAIN["bf16"]),
-                "dp_fxp16": tuple(PER_EXPLAIN["fxp16"])}
+                "dp_fxp16": tuple(PER_EXPLAIN["fxp16"]),
+                "tp": ("selective_scan", "selective_scan_bwd")}
 #: The path whose launches the kernel JSON reports for each kernel: the
 #: first that runs it (the bf16 paths report the bf16 instances).
 KERNEL_PATH = {k: next(p for p in PATH_KERNELS if k in PATH_KERNELS[p]
@@ -6779,6 +7130,10 @@ def main() -> int:
                          "llama3.2-1b state drawn from seed 0 in place of "
                          "phase 14's) and stop: on a machine of several "
                          "cards, its multi-card world (e)")
+    ap.add_argument("--model-axis", action="store_true",
+                    help="after phase 1, run phase 16 alone and stop: on "
+                         "a machine of several cards also its NCCL worlds "
+                         "(c)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke test needs one",
@@ -6882,10 +7237,28 @@ def main() -> int:
         del state
         torch.cuda.empty_cache()
         out["e"] = check_multi_card(x_cpu)
+        print("phase 16 (model axis) after phase 15")
+        out["model_axis"] = check_model_axis(
+            KernelCheck(imad_per_s, mufu_per_s), launches, multi=True)
+        check_path_launches("tp", launches["tp"])
         if args.out is not None:
             args.out.mkdir(parents=True, exist_ok=True)
             (args.out / "multi_device.json").write_text(json.dumps(dict(
                 device=kind, nvidia_smi=smi, multi_device=out,
+                launches=launches), indent=1))
+        print(smi)
+        return 0
+
+    if args.model_axis:
+        print("phase 16 (model axis) alone")
+        launches = {}
+        out = check_model_axis(KernelCheck(imad_per_s, mufu_per_s),
+                               launches, multi=True)
+        check_path_launches("tp", launches["tp"])
+        if args.out is not None:
+            args.out.mkdir(parents=True, exist_ok=True)
+            (args.out / "model_axis.json").write_text(json.dumps(dict(
+                device=kind, nvidia_smi=smi, model_axis=out,
                 launches=launches), indent=1))
         print(smi)
         return 0
@@ -7023,6 +7396,14 @@ def main() -> int:
     del lm_train_state
     for precision in ("f32", "bf16", "fxp16"):
         check_path_launches(f"dp_{precision}", launches[f"dp_{precision}"])
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase 16 (model axis): B13 and its backward at a model rank's "
+          f"channels; the tensor / expert parallel steps ({', '.join(TP_JOBS)}"
+          f") in a gloo world of {TP_ONE_CARD_RANKS} ranks on this card "
+          f"against the single-process steps")
+    tp_results = check_model_axis(kc, launches, multi=False)
+    check_path_launches("tp", launches["tp"])
 
     # last, as a profiler session slows what runs after it: phase 2's
     # profiler column (the process's first session), then where each
@@ -7077,7 +7458,7 @@ def main() -> int:
             vjp=vjp_results, train=train_results, lm=lm_results,
             lm_twin=twin_results, lm_zoo=zoo_results, serve=serve_results,
             train_lm=train_lm_results, train_cnn=train_cnn_results,
-            multi_device=multi_results,
+            multi_device=multi_results, model_axis=tp_results,
             perturb=perturb_results, plan=plan_results,
             scan_backward_ms=kc.scan_backward_ms,
             mma_accumulation=kc.accumulation, bf16_one_seed=kc.one_seed,

@@ -37,12 +37,16 @@ RESIDUALS = ("exact", "int8")
 # ---------------------------------------------------------------------------
 
 
-def quantize_int8(x: torch.Tensor):
+def quantize_int8(x: torch.Tensor, row_max=None):
     """Per-row (last-axis) absmax int8 quantization -> ``(q int8, scale
     f32 [..., 1])``: ``scale = max(absmax / 127, 1e-12)`` in f32 and ``q =
     clip(round(x / scale), ±127)``, rounding half to even as ``jnp.round``
-    does."""
-    scale = x.abs().amax(dim=-1, keepdim=True).to(torch.float32) / 127.0
+    does.  ``row_max`` maps the local absmax to the whole row's where
+    ranks hold slices of the last axis (the max over the model group)."""
+    amax = x.abs().amax(dim=-1, keepdim=True)
+    if row_max is not None:
+        amax = row_max(amax)
+    scale = amax.to(torch.float32) / 127.0
     scale = torch.clamp_min(scale, 1e-12)
     q = torch.clamp(torch.round(x.to(torch.float32) / scale), -127, 127)
     return q.to(torch.int8), scale
@@ -155,12 +159,12 @@ class _SmoothAttr(torch.autograd.Function):
     """
 
     @staticmethod
-    def forward(ctx, x, kind, method, residual):
+    def forward(ctx, x, kind, method, residual, row_max):
         ctx.kind, ctx.method, ctx.residual = kind, method, residual
         if method == "deconvnet":
             pass                        # gradient-side rule: no residual
         elif residual == "int8":
-            ctx.save_for_backward(*quantize_int8(x))
+            ctx.save_for_backward(*quantize_int8(x, row_max))
         else:
             ctx.save_for_backward(x)
         return _FWD[kind](x)
@@ -168,7 +172,8 @@ class _SmoothAttr(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         if ctx.method == "deconvnet":   # generalised Eq. 4
-            return torch.where(g > 0, g, 0).to(g.dtype), None, None, None
+            return torch.where(g > 0, g, 0).to(g.dtype), None, None, \
+                None, None
         if ctx.residual == "int8":
             x = dequantize_int8(*ctx.saved_tensors, torch.float32)
         else:
@@ -176,12 +181,14 @@ class _SmoothAttr(torch.autograd.Function):
         r = g.to(torch.float32) * _derivative(ctx.kind, x)
         if ctx.method == "guided":      # generalised Eq. 5
             r = torch.where(g > 0, r, 0)
-        return r.to(g.dtype), None, None, None
+        return r.to(g.dtype), None, None, None, None
 
 
 def act(x: torch.Tensor, kind: str, method: str = "autodiff",
-        residual: str = "int8") -> torch.Tensor:
-    """Attribution-aware nonlinearity used by every model of the zoo."""
+        residual: str = "int8", row_max=None) -> torch.Tensor:
+    """Attribution-aware nonlinearity used by every model of the zoo.
+    ``row_max``: see :func:`quantize_int8` (the int8 residual's row scale
+    over a last axis that ranks split)."""
     if kind == "relu":
         return relu(x, method)
     if method == "autodiff":
@@ -190,7 +197,7 @@ def act(x: torch.Tensor, kind: str, method: str = "autodiff",
         raise ValueError(f"unknown attribution method {method!r}")
     if residual not in RESIDUALS:
         raise ValueError(f"unknown residual policy {residual!r}")
-    return _SmoothAttr.apply(x, kind, method, residual)
+    return _SmoothAttr.apply(x, kind, method, residual, row_max)
 
 
 def silu(x, method="autodiff", residual="int8"):

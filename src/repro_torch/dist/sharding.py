@@ -1,5 +1,5 @@
-"""Mesh context, logical-axis placements and the data-parallel row
-collectives.
+"""Mesh context, logical-axis placements, the data-parallel row
+collectives and the model-axis conjugates.
 
 The JAX package annotates arrays with LOGICAL axes ("batch", "model",
 "expert") and lets GSPMD place them.  The port keeps the same logical
@@ -16,6 +16,27 @@ the same arguments:
     rank order, on every rank (padded to equal sizes for
     ``all_gather_into_tensor``, then trimmed);
   * :func:`all_reduce_sum` — a sum over the batch axes.
+
+Tensor and expert parallelism over the mesh's "model" axis is explicit
+SPMD too: each rank holds its slice of the sharded parameters
+(:func:`repro_torch.dist.params.shard_params`) and the layers, at the
+places where the JAX package calls ``constrain``, call four autograd
+Functions over the model group of the active mesh (:func:`model_group`
+of :func:`current_mesh`), each pairing a collective with its conjugate
+and each the identity at one way:
+
+  * :func:`copy_to_model` — identity forward, sum of the cotangents over
+    the model group backward (a replicated tensor entering rank-local
+    work);
+  * :func:`reduce_from_model` — sum over the model group forward,
+    identity backward (the partial sums of a row-parallel product; bf16
+    partials are summed in f32 and rounded once);
+  * :func:`gather_from_model` — every rank's slice along a dim forward,
+    this rank's slice of the (replicated) cotangent backward;
+  * :func:`slice_to_model` — this rank's slice forward, the gathered
+    cotangent backward.
+
+:data:`MODEL_TRAFFIC` counts the bytes these collectives move.
 
 Logical -> physical:
 
@@ -246,6 +267,182 @@ def join_rows(mesh, local: torch.Tensor, n: int,
     if batch_group(mesh)[0] is None:
         return local
     return _GatherRows.apply(local, mesh, n, dim)
+
+
+# ---------------------------------------------------------------------------
+# the model axis: tensor / expert parallel conjugates
+# ---------------------------------------------------------------------------
+
+#: Payload bytes of the model-axis collectives since the last
+#: :func:`reset_model_traffic`: an all-reduce counts its tensor's bytes, an
+#: all-gather its gathered output's; ``calls`` counts collectives.
+MODEL_TRAFFIC = {"all_reduce": 0, "all_gather": 0, "calls": 0}
+
+
+def reset_model_traffic():
+    """Set every :data:`MODEL_TRAFFIC` count to 0."""
+    for k in MODEL_TRAFFIC:
+        MODEL_TRAFFIC[k] = 0
+
+
+def model_group(mesh) -> Tuple[object, int, int]:
+    """``(group, coordinate, ways)`` of the "model" axis of ``mesh``;
+    ``(None, 0, 1)`` without a mesh, a process group or a "model" axis.
+    The conjugates below read the active mesh's."""
+    if mesh is None or not mesh.has_group or "model" not in mesh.axis_names:
+        return None, 0, 1
+    return mesh.axes_group(("model",))
+
+
+def model_ways(mesh) -> int:
+    """Ways of the "model" axis of ``mesh``."""
+    return model_group(mesh)[2]
+
+
+def _reduce(x, group):
+    """The sum of every rank's ``x``; 2-byte floats are summed in f32 and
+    rounded once."""
+    wide = x.dtype in (torch.bfloat16, torch.float16)
+    y = x.contiguous().to(torch.float32) if wide else x.contiguous().clone()
+    dist.all_reduce(y, op=dist.ReduceOp.SUM, group=group)
+    MODEL_TRAFFIC["all_reduce"] += y.numel() * y.element_size()
+    MODEL_TRAFFIC["calls"] += 1
+    return y.to(x.dtype) if wide else y
+
+
+def _bounds(sizes, coord):
+    lo = sum(sizes[:coord])
+    return lo, lo + sizes[coord]
+
+
+def gather_dim(x, dim, group, sizes):
+    """Every rank of ``group``'s slice of ``x`` along ``dim`` (rank r's of
+    ``sizes[r]`` entries), in rank order, outside autograd: padded to the
+    largest slice for the list all-gather, which gloo carries for card
+    tensors too."""
+    dim = dim % x.ndim
+    per = max(sizes)
+    mine = x.shape[dim]
+    if mine < per:
+        pad = list(x.shape)
+        pad[dim] = per - mine
+        x = torch.cat([x, x.new_zeros(pad)], dim=dim)
+    x = x.contiguous()
+    parts = [torch.empty_like(x) for _ in sizes]
+    dist.all_gather(parts, x, group=group)
+    MODEL_TRAFFIC["all_gather"] += len(sizes) * x.numel() * x.element_size()
+    MODEL_TRAFFIC["calls"] += 1
+    return torch.cat([p.narrow(dim, 0, n) for p, n in zip(parts, sizes)],
+                     dim=dim)
+
+
+def max_over_model(t: torch.Tensor) -> torch.Tensor:
+    """``t``'s elementwise max over the model group, outside autograd: the
+    row absmax of a tensor whose last axis the model ranks split (an int8
+    residual's scale, ``core.rules.quantize_int8``).  ``t`` itself at one
+    way."""
+    group, _, ways = model_group(current_mesh())
+    if ways == 1:
+        return t
+    y = t.detach().contiguous().clone()
+    dist.all_reduce(y, op=dist.ReduceOp.MAX, group=group)
+    MODEL_TRAFFIC["all_reduce"] += y.numel() * y.element_size()
+    MODEL_TRAFFIC["calls"] += 1
+    return y
+
+
+class _CopyToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _reduce(g, ctx.group), None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return _reduce(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _GatherFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, coord, sizes, dim):
+        ctx.dim, ctx.bounds = dim, _bounds(sizes, coord)
+        return gather_dim(x, dim, group, sizes)
+
+    @staticmethod
+    def backward(ctx, g):
+        lo, hi = ctx.bounds
+        return g.narrow(ctx.dim, lo, hi - lo).contiguous(), None, None, \
+            None, None
+
+
+class _SliceToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, coord, sizes, dim):
+        ctx.group, ctx.sizes, ctx.dim = group, sizes, dim
+        lo, hi = _bounds(sizes, coord)
+        return x.narrow(dim, lo, hi - lo).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return gather_dim(g, ctx.dim, ctx.group, ctx.sizes), None, None, \
+            None, None
+
+
+def even_sizes(n: int, ways: int) -> Tuple[int, ...]:
+    """Each rank's share of ``n`` entries, the first ``n % ways`` ranks one
+    more (``host_shard_bounds``' split)."""
+    return tuple(b - a for a, b in (host_shard_bounds(n, r, ways)
+                                    for r in range(ways)))
+
+
+def copy_to_model(x: torch.Tensor) -> torch.Tensor:
+    """``x`` (the same on every model rank) into rank-local work: the
+    identity; its gradient summed over the model group."""
+    group, _, ways = model_group(current_mesh())
+    return x if ways == 1 else _CopyToModel.apply(x, group)
+
+
+def reduce_from_model(x: torch.Tensor) -> torch.Tensor:
+    """The sum of every model rank's ``x`` (partial sums of a row-parallel
+    product); the gradient passes through."""
+    group, _, ways = model_group(current_mesh())
+    return x if ways == 1 else _ReduceFromModel.apply(x, group)
+
+
+def gather_from_model(x: torch.Tensor, dim: int = -1,
+                      sizes: Sequence[int] = None) -> torch.Tensor:
+    """Every model rank's slice along ``dim`` concatenated in rank order
+    (``sizes``: each rank's length; None: all equal to this rank's); the
+    gradient is this rank's slice of the cotangent, which every rank
+    holds whole."""
+    group, coord, ways = model_group(current_mesh())
+    if ways == 1:
+        return x
+    sizes = tuple(sizes) if sizes is not None else (x.shape[dim],) * ways
+    return _GatherFromModel.apply(x, group, coord, sizes, dim)
+
+
+def slice_to_model(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """This model rank's block of an even split of ``x`` along ``dim``
+    (every rank holds ``x`` whole); the gradient gathers every rank's
+    block cotangent."""
+    group, coord, ways = model_group(current_mesh())
+    if ways == 1:
+        return x
+    n = x.shape[dim]
+    if n % ways:
+        raise ValueError(f"{n} entries over {ways} model ranks")
+    return _SliceToModel.apply(x, group, coord, (n // ways,) * ways, dim)
 
 
 def map_tensors(fn, tree):

@@ -12,6 +12,11 @@ no group, and the collectives are skipped, so single-process code and the
 CPU tests need no rendezvous.  Building a mesh never initializes a process
 group.
 
+The ``DeviceMesh`` lives on the card where the default group's backend
+is NCCL and on the CPU otherwise: a gloo world (the CPU tests, or ranks
+sharing one card, which NCCL refuses) builds gloo groups, and gloo
+carries the collectives of :mod:`repro_torch.dist` for card tensors too.
+
 Every builder caps its mesh at the world size, as the JAX package's cap at
 ``len(jax.devices())``.  A mesh smaller than the world is replicated: the
 world splits into blocks of ``mesh.size`` consecutive ranks, and each
@@ -19,6 +24,7 @@ block is one copy of the mesh computing the same thing.
 """
 from __future__ import annotations
 
+import itertools
 import math
 from typing import Dict, Optional, Sequence, Tuple
 
@@ -36,7 +42,10 @@ def world_size() -> int:
 
 
 def _device_type() -> str:
-    return "cuda" if dist.get_backend() == "nccl" else "cpu"
+    """The ``DeviceMesh`` device of the default group's backend: "cuda"
+    where NCCL carries the card's tensors, else "cpu" (gloo, for CPU and
+    card tensors alike)."""
+    return "cuda" if "nccl" in dist.get_backend() else "cpu"
 
 
 class Mesh:
@@ -54,6 +63,7 @@ class Mesh:
             raise ValueError(f"mesh shape {self.shape} has an empty axis")
         self.device_mesh = None
         self._groups: Dict[str, object] = {}
+        self._products: Dict[tuple, object] = {}
         self._coords = {name: 0 for name in self.axis_names}
         if not initialized():
             if self.size != 1:
@@ -106,8 +116,9 @@ class Mesh:
         """``(group, coordinate, ways)`` over the product of the axes
         ``names`` (row-major), or ``(None, 0, 1)`` without a process group
         or when the mesh has none of them.  Several axes of size > 1 need
-        one group over their product, the world's when they span it;
-        anything else is the "model" axis computing (ROADMAP A12d)."""
+        one group over their product: the world's when they span it, else
+        one made at the first call (:meth:`_product_group`), which every
+        rank makes at the same point of its program."""
         names = [n for n in names if n in self.axis_names]
         if not names or not self.has_group:
             return None, 0, 1
@@ -120,9 +131,33 @@ class Mesh:
             return self.group(big[0] if big else names[-1]), coord, ways
         if ways == self.size and self.size == world_size():
             return dist.group.WORLD, coord, ways
-        raise NotImplementedError(
-            f"a group over the axes {tuple(big)} of mesh {self!r} is the "
-            f"model axis computing (ROADMAP A12d)")
+        return self._product_group(tuple(big)), coord, ways
+
+    def _product_group(self, names: Tuple[str, ...]):
+        """The group of the ranks that differ only along ``names``, made
+        collectively over the world (one group per block of the other
+        axes' coordinates, in every copy of the mesh), cached."""
+        if names not in self._products:
+            idx = [self.axis_names.index(n) for n in names]
+            rest = [i for i in range(len(self.shape)) if i not in idx]
+            subgroups = []
+            for block in range(world_size() // self.size):
+                for other in itertools.product(
+                        *(range(self.shape[i]) for i in rest)):
+                    ranks = []
+                    for mine in itertools.product(
+                            *(range(self.shape[i]) for i in idx)):
+                        coord = [0] * len(self.shape)
+                        for i, c in zip(rest + idx, other + mine):
+                            coord[i] = c
+                        flat = 0
+                        for c, s in zip(coord, self.shape):
+                            flat = flat * s + c
+                        ranks.append(block * self.size + flat)
+                    subgroups.append(ranks)
+            self._products[names] = dist.new_subgroups_by_enumeration(
+                subgroups)[0]
+        return self._products[names]
 
     def __repr__(self):
         axes = ", ".join(f"{n}={s}" for n, s in zip(self.axis_names,

@@ -9,7 +9,17 @@ differentiates the loss with respect to that one tree; microbatch
 gradients are widened to f32 and summed in order, then divided.  On a
 mesh each rank runs that on its rows of the global batch, weights its
 gradients, loss and CE by its share of the rows and all-reduces them in
-f32 before the clip, so every rank applies the same update.
+f32 over the batch axes before the clip, so every rank applies the same
+update.
+
+Every step takes ``mesh=`` (a ``(data, model)`` :class:`~repro_torch.
+launch.mesh.Mesh`) and runs under ``use_mesh(mesh)``: the batch axes split
+the rows, the "model" axis splits the parameters, each rank holding its
+slice (:func:`shard_state`, ``dist.params.shard_params``) and the layers
+summing or gathering over the model group.  Gradients of sharded leaves
+stay on their rank; the clip's global norm sums their squares over the
+model group once.  With no mesh, or one rank on each axis, every step is
+the single-device step.
 """
 from __future__ import annotations
 
@@ -83,15 +93,47 @@ def make_train_state_init(cfg):
     return init_fn
 
 
-def _check_data_parallel(mesh):
-    """Training runs data parallel only: a "model" axis that computes is
-    ROADMAP A12d."""
-    if mesh is not None and "model" in mesh.axis_names \
-            and mesh.axis_size("model") > 1:
-        raise NotImplementedError(
-            f"mesh {mesh!r}: the model axis computing (tensor / expert "
-            f"parallel training) is ROADMAP A12d; train data parallel, on "
-            f"a mesh whose model axis is 1")
+def shard_state(state: TrainState, mesh) -> TrainState:
+    """This rank's slice of a full :class:`TrainState` (params and both
+    moments by ``dist.params.shard_params``; the step as it is)."""
+    opt = state.opt
+    return TrainState(
+        params=dist_params.shard_params(state.params, mesh),
+        opt=type(opt)(step=opt.step,
+                      mu=dist_params.shard_params(opt.mu, mesh),
+                      nu=dist_params.shard_params(opt.nu, mesh)))
+
+
+def gather_state(state: TrainState, mesh) -> TrainState:
+    """The full :class:`TrainState` from every model rank's slice, on every
+    rank, bit for bit (collective: every rank calls it)."""
+    opt = state.opt
+    return TrainState(
+        params=dist_params.gather_params(state.params, mesh),
+        opt=type(opt)(step=opt.step,
+                      mu=dist_params.gather_params(opt.mu, mesh),
+                      nu=dist_params.gather_params(opt.nu, mesh)))
+
+
+def _rows(mesh, batch):
+    """``(batch's rows of this rank, n, (lo, hi))``; the batch as it is
+    without a batch axis of several ranks."""
+    n = next(iter(batch.values())).shape[0]
+    _, _, ways = dist_sharding.batch_group(mesh)
+    if ways == 1:
+        return batch, n, (0, n)
+    if n < ways:
+        raise ValueError(f"a batch of {n} rows over {ways} ranks")
+    lo, hi = dist_sharding.local_rows(mesh, n)
+    return {k: v[lo:hi] for k, v in batch.items()}, n, (lo, hi)
+
+
+def _joined(mesh, n, *outs):
+    """Each output's rows from every rank of the batch axes."""
+    if dist_sharding.batch_group(mesh)[2] == 1:
+        return outs
+    return tuple(dist_sharding.gather_rows(mesh, t.contiguous(), n)
+                 for t in outs)
 
 
 def make_train_step(cfg, *, microbatches: int = 1, peak_lr: float = 2e-4,
@@ -105,15 +147,16 @@ def make_train_step(cfg, *, microbatches: int = 1, peak_lr: float = 2e-4,
     ``lr`` (the schedule at the step before the update), scalar
     tensors.
 
-    ``mesh`` (a :class:`repro_torch.launch.mesh.Mesh`, its model axis 1)
-    makes the step data parallel over the mesh's batch axes: every rank
-    passes the same global batch and computes its rows
-    ``host_shard_bounds(B, r, n)``; its gradients (summed over its
-    microbatches, as above), loss and CE are weighted by its share of the
-    ``B`` rows and summed over the ranks in f32, so the gradient norm is
-    global and every rank applies the same AdamW update.  An MoE routes
-    each rank's tokens on their own (capacity and aux loss per rank)."""
-    _check_data_parallel(mesh)
+    ``mesh`` (a :class:`repro_torch.launch.mesh.Mesh`) makes the step
+    data parallel over the mesh's batch axes: every rank passes the same
+    global batch and computes its rows ``host_shard_bounds(B, r, n)``; its
+    gradients (summed over its microbatches, as above), loss and CE are
+    weighted by its share of the ``B`` rows and summed over the ranks in
+    f32, so the gradient norm is global and every rank applies the same
+    AdamW update.  An MoE routes each rank's tokens on their own (capacity
+    and aux loss per rank).  A "model" axis of several ranks makes it
+    tensor / expert parallel: ``state`` is the rank's slice
+    (:func:`shard_state`), and so are the new state and its gradients."""
 
     def loss_fn(params_c, mb):
         fwd_batch = {k: v for k, v in mb.items() if k != "labels"}
@@ -129,13 +172,13 @@ def make_train_step(cfg, *, microbatches: int = 1, peak_lr: float = 2e-4,
         return loss.detach(), ce.detach(), gs
 
     def train_step(state: TrainState, batch: Dict):
+        with dist_sharding.use_mesh(mesh):
+            return _train_step(state, batch)
+
+    def _train_step(state: TrainState, batch: Dict):
         group, _, ways = dist_sharding.batch_group(mesh)
         if group is not None:
-            n = next(iter(batch.values())).shape[0]
-            if n < ways:
-                raise ValueError(f"a batch of {n} rows over {ways} ranks")
-            lo, hi = dist_sharding.local_rows(mesh, n)
-            batch = {k: v[lo:hi] for k, v in batch.items()}
+            batch, n, (lo, hi) = _rows(mesh, batch)
         params_c = trees.tree_map(lambda t: t.detach().requires_grad_(),
                                   cast_for_compute(state.params, cfg))
         leaves = trees.leaves(params_c)
@@ -168,7 +211,7 @@ def make_train_step(cfg, *, microbatches: int = 1, peak_lr: float = 2e-4,
                     mesh, t.mul_(share) if ways > 1 else t)
         grads = trees.unflatten(state.params, flat)
         del flat
-        grads, gnorm = clip_by_global_norm(grads, clip)
+        grads, gnorm = clip_by_global_norm(grads, clip, mesh=mesh)
         lr = cosine_schedule(state.opt.step, peak_lr=peak_lr,
                              warmup_steps=warmup_steps,
                              total_steps=total_steps)
@@ -199,28 +242,36 @@ def state_from_jax(state_np, device="cpu") -> TrainState:
 # ---------------------------------------------------------------------------
 
 
-def make_prefill_step(cfg, *, triangle_skip: bool = True):
+def make_prefill_step(cfg, *, triangle_skip: bool = True, mesh=None):
     """``(params, batch, cache) -> (next tokens [B, 1] int32, cache)``:
-    the prompt's prefill and its greedy (argmax) next token."""
+    the prompt's prefill and its greedy (argmax) next token.  ``mesh``:
+    ``params`` and ``cache`` are the rank's (``shard_params``,
+    ``tf.init_cache(..., mesh=)``), ``batch`` the whole one, of which the
+    rank prefills its rows; the tokens come back whole on every rank."""
     @torch.no_grad()
     def prefill_step(params, batch, cache):
-        logits, cache = tf.prefill(params, cfg, batch, cache,
-                                   triangle_skip=triangle_skip)
-        nxt = torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)
-        return nxt[:, None], cache
+        with dist_sharding.use_mesh(mesh):
+            batch, n, _ = _rows(mesh, batch)
+            logits, cache = tf.prefill(params, cfg, batch, cache,
+                                       triangle_skip=triangle_skip)
+            nxt = torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)
+            return _joined(mesh, n, nxt[:, None])[0], cache
 
     return prefill_step
 
 
-def make_decode_step(cfg):
+def make_decode_step(cfg, *, mesh=None):
     """``(params, cache, tokens [B, 1], pos) -> (next tokens [B, 1] int32,
     cache)``: one cached decode step at position ``pos`` and its greedy
-    next token."""
+    next token (``mesh`` as :func:`make_prefill_step`'s)."""
     @torch.no_grad()
     def decode_step(params, cache, tokens, pos):
-        logits, cache = tf.decode_step(params, cfg, tokens, cache, int(pos))
-        nxt = torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)
-        return nxt[:, None], cache
+        with dist_sharding.use_mesh(mesh):
+            rows, n, _ = _rows(mesh, {"tokens": tokens})
+            logits, cache = tf.decode_step(params, cfg, rows["tokens"],
+                                           cache, int(pos))
+            nxt = torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)
+            return _joined(mesh, n, nxt[:, None])[0], cache
 
     return decode_step
 
@@ -229,15 +280,16 @@ def make_decode_step(cfg):
 TOKEN_MODES = ("ixg", "grad_norm", "contrastive")
 
 
-def ssm_scan_tiles(cfg, plan=None):
+def ssm_scan_tiles(cfg, plan=None, model_ways: int = 1):
     """Per-SEGMENT ``{si: (d_tile, chunk)}`` launch knobs for the B13 scan.
 
     LM attribution always routes SSM segments through the scan kernel;
     this maps a :class:`repro_torch.plan.TilePlan`'s ``ssm<si>.scan``
     entries (``repro_torch.plan.lm_kernel_shapes``) onto the launch knobs.
     Segments without a plan entry, and the whole stack when ``plan`` is
-    None, get the unplanned launch: the whole channel dim in one grid cell
-    (``d_tile = cfg.d_inner``) at the model's ``ssm_chunk``.  The knobs
+    None, get the unplanned launch: the whole channel dim of a rank in one
+    grid cell (``d_tile = cfg.d_inner / model_ways``) at the model's
+    ``ssm_chunk``.  The knobs
     split the grid and the staging, never an element's arithmetic.  Returns
     None for stacks without SSM segments.
     """
@@ -247,13 +299,13 @@ def ssm_scan_tiles(cfg, plan=None):
             continue
         t = plan.get(f"ssm{si}.scan") if plan is not None else None
         tiles[si] = ((t.d_tile, t.chunk) if t is not None
-                     else (cfg.d_inner, cfg.ssm_chunk))
+                     else (cfg.d_inner // model_ways, cfg.ssm_chunk))
     return tiles or None
 
 
 def make_attribute_step(cfg, method: str = "saliency", *,
                         triangle_skip: bool = True, plan=None,
-                        mode: str = "ixg"):
+                        mode: str = "ixg", mesh=None):
     """The paper's technique as a serving feature for LMs: one forward and
     one input-gradient backward, ``(params, batch) -> (last-position
     logits [B, V], per-position scores [B, S])`` for the final position's
@@ -263,12 +315,21 @@ def make_attribute_step(cfg, method: str = "saliency", *,
     embedding gradient) or ``"contrastive"`` (argmax-vs-runner-up
     difference seed).  ``plan`` (a
     ``plan_lm`` :class:`~repro_torch.plan.TilePlan`) sets the scan's
-    ``(d_tile, chunk)`` per segment (:func:`ssm_scan_tiles`)."""
+    ``(d_tile, chunk)`` per segment (:func:`ssm_scan_tiles`; planned at
+    a model rank's channels, ``plan_lm(..., model_ways=)``).  ``mesh``:
+    ``params`` are the rank's (``shard_params``), the rank attributes its
+    rows of ``batch``, and the logits and scores come back whole on every
+    rank."""
     if mode not in TOKEN_MODES:
         raise ValueError(f"mode={mode!r} not in {TOKEN_MODES}")
-    scan_tiles = ssm_scan_tiles(cfg, plan)
+    scan_tiles = ssm_scan_tiles(cfg, plan, dist_sharding.model_ways(mesh))
 
     def attribute_step(params, batch):
+        with dist_sharding.use_mesh(mesh):
+            batch, n, _ = _rows(mesh, batch)
+            return _joined(mesh, n, *_attribute(params, batch))
+
+    def _attribute(params, batch):
         h = tf.embed_inputs(params, cfg, batch)
         enc_frames = batch.get("frames")
 
@@ -322,7 +383,9 @@ def cache_shardings(cfg, cache, mesh, batch_size: int):
 
     Batch >= DP size: shard the batch over (pod, data).  Small-batch
     long-context decode: sequence-parallel instead — the cache T axis
-    shards over "data" and the fused head axis over "model".
+    shards over "data" and the fused head axis over "model".  The steps
+    compute the first (``tf.init_cache(..., mesh=)``); the second is
+    ROADMAP A12d and is refused there.
     """
     dp = 1
     for ax in ("pod", "data"):

@@ -18,9 +18,12 @@ Under ``torchrun`` the driver initializes the default process group from
 the environment (NCCL on the cards, gloo with ``--torch-device cpu``), and
 ``--mesh host`` trains data parallel over all its ranks
 (``make_host_mesh(world, 1)``); rank 0 writes the checkpoints.  ``--mesh
-single|multi`` build the production meshes, which need 256 / 512 ranks and
-a model axis that computes (ROADMAP A12d).  As in the JAX package's
-driver, ``--smoke`` is always on: the arch's SMOKE config trains.
+single|multi`` build the production meshes, which need 256 / 512 ranks
+(16-way tensor / expert parallel on their "model" axis).
+:func:`train_loop` takes any ``(data, model)`` mesh, e.g.
+``make_host_mesh(2, 2)`` under ``torchrun --nproc-per-node 4``.  As in
+``repro.launch.train``, ``--smoke`` is always on: the arch's SMOKE config
+trains.
 """
 from __future__ import annotations
 
@@ -66,9 +69,13 @@ def train_loop(cfg, data: TokenStream, *, steps: int, ckpt_dir: Optional[str],
     0 there.  With ``mesh`` (every rank of the process group calls this
     with the same arguments) each step's global batch is
     ``data.batch_at(step)``, whatever the world size, and each rank
-    computes its rows of it (:func:`steps.make_train_step`); rank 0 writes
-    the checkpoints, every rank restores them, and each rank records its
-    step times under its rank."""
+    computes its rows of it (:func:`steps.make_train_step`); on a "model"
+    axis of several ranks each rank trains its slice of the state
+    (:func:`steps.shard_state` of the full seed-0 or restored state).
+    Checkpoints hold the full state, the same npz keys at any mesh: every
+    rank gathers it over the model group (:func:`steps.gather_state`) and
+    rank 0 writes it; every rank restores it and takes its slice.  Each
+    rank records its step times under its rank."""
     dev = resolve_device(device)
     init_fn, step_fn = build(cfg, microbatches=microbatches,
                              total_steps=steps, mesh=mesh)
@@ -86,7 +93,11 @@ def train_loop(cfg, data: TokenStream, *, steps: int, ckpt_dir: Optional[str],
             print(f"[train] resumed from step {start}")
     if state is None:
         state = fresh()
+    state = steps_lib.shard_state(state, mesh)
     writer = manager if rank == 0 else None
+
+    def full(state):
+        return steps_lib.gather_state(state, mesh) if manager else None
 
     monitor = monitor or HealthMonitor()
     losses = []
@@ -102,10 +113,14 @@ def train_loop(cfg, data: TokenStream, *, steps: int, ckpt_dir: Optional[str],
             print(f"[train] step {step:5d} loss {loss:.4f} "
                   f"lr {float(metrics['lr']):.2e} "
                   f"gnorm {float(metrics['gnorm']):.2f}")
-        if writer and (step + 1) % ckpt_every == 0:
-            writer.save_async(step + 1, state)
-    if writer:
-        writer.save_blocking(steps, state)
+        if manager and (step + 1) % ckpt_every == 0:
+            whole = full(state)
+            if writer:
+                writer.save_async(step + 1, whole)
+    if manager:
+        whole = full(state)
+        if writer:
+            writer.save_blocking(steps, whole)
     if manager and mesh is not None and mesh.has_group:
         dist.barrier()              # every rank past rank 0's last save
     return state, losses

@@ -17,6 +17,18 @@ Attention runs in three shapes, as in the JAX package:
 * decode: one query token against the fused ``[B, T, Kv*hd]`` cache,
   contracted per KV head group (the cache is never repeated).
 
+On a mesh whose "model" axis has several ranks (the active mesh of
+:func:`repro_torch.dist.sharding.use_mesh`), each rank holds its slice of
+the parameters (:func:`repro_torch.dist.params.shard_params`) and the
+layers run Megatron-style: the FFN's ``w1`` / ``w3`` column-parallel and
+``w2`` row-parallel then summed over the model group; the attention's
+q / k / v column-parallel, each rank computing whole heads and ``wo``
+row-parallel then summed (:class:`_Heads`); the table d-sharded (a local
+lookup, then gathered along d); the head V-sharded (the tied table
+resharded from d to V), the logits gathered whole.  The residual stream is
+the same on every rank.  With one rank on that axis every function runs
+the single-device code.
+
 Where the JAX package contracts bf16 operands into a kept f32 result
 (``preferred_element_type``: the scores, ``p @ v``, the chunked
 accumulator, the logits), the operands are widened to f32, which is
@@ -31,6 +43,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core import rules
+from repro_torch.dist import sharding as shd
 
 
 def dense_init(gen: torch.Generator, d_in: int, d_out: int, dtype,
@@ -151,13 +164,93 @@ def _sdpa_grouped(q, k, v, *, q_pos, k_pos, causal: bool, window: int):
     return o.to(v.dtype)
 
 
-def _head_layout(q, k4, v4, g: int):
+def _head_layout(q, k4, v4, g: int, first: int = 0):
     """KV heads repeated to the query-head count (``g`` consecutive copies
-    each, query head j reading KV head j // g)."""
+    each, query head j reading KV head j // g).  ``first``: the offset of
+    ``q``'s first head in the repeated heads of ``k4`` (a model rank's
+    heads may start inside a group)."""
     if g > 1:
         k4 = torch.repeat_interleave(k4, g, dim=2)
         v4 = torch.repeat_interleave(v4, g, dim=2)
+    if first or k4.shape[2] != q.shape[2]:
+        k4 = k4.narrow(2, first, q.shape[2])
+        v4 = v4.narrow(2, first, q.shape[2])
     return q, k4, v4
+
+
+def _whole(t: torch.Tensor, sizes=None) -> torch.Tensor:
+    """Every model rank's columns of ``t`` gathered, for work that differs
+    by rank: the cotangent is summed over the ranks before each keeps its
+    columns (a reduce-scatter)."""
+    return shd.copy_to_model(shd.gather_from_model(t, -1, sizes=sizes))
+
+
+class _Heads:
+    """The heads one model rank of ``ways`` computes (all of them at one
+    way).
+
+    ``wq``'s column block gives rank r the heads ``[r hq / w, (r+1) hq /
+    w)`` when ``w`` divides ``hq``; else the columns are gathered into
+    whole heads and the rank takes ``host_shard_bounds(hq, r, w)`` of them
+    (``q_whole``), and its attention output is gathered back (uneven) for
+    its ``wo`` row block.  The rank's KV heads ``[k0, k1)`` are those its
+    query heads read; its ``wk`` / ``wv`` columns hold exactly them when
+    ``w`` divides both head counts, else the columns are gathered
+    (``kv_whole``: fewer KV heads than ways, or query heads split).  The
+    cache keeps the rank's column block of the fused ``Kv*hd`` axis
+    either way (``cache_shardings``' "model")."""
+
+    def __init__(self, cfg):
+        hq, kvh = cfg.n_heads, cfg.n_kv
+        _, coord, ways = shd.model_group(shd.current_mesh())
+        self.hd, self.g, self.coord = cfg.hd, hq // kvh, coord
+        self.q_whole = ways > 1 and hq % ways != 0
+        self.kv_whole = ways > 1 and (self.q_whole or kvh % ways != 0)
+        if self.q_whole:
+            self.sizes = tuple(n * cfg.hd for n in shd.even_sizes(hq, ways))
+            self.h0 = sum(self.sizes[:coord]) // cfg.hd
+            self.h1 = self.h0 + self.sizes[coord] // cfg.hd
+        else:
+            self.h0, self.h1 = coord * hq // ways, (coord + 1) * hq // ways
+        self.k0, self.k1 = self.h0 // self.g, -(-self.h1 // self.g)
+        self.nkv = kvh if self.kv_whole else self.k1 - self.k0
+        self.col0 = coord * kvh * cfg.hd // ways     # the cache's columns
+        self.cols = kvh * cfg.hd // ways
+
+    @property
+    def nq(self) -> int:
+        return self.h1 - self.h0
+
+    def q_cols(self, q2):
+        """The rank's query heads' columns."""
+        if not self.q_whole:
+            return q2
+        return _whole(q2).narrow(-1, self.h0 * self.hd, self.nq * self.hd)
+
+    def kv_cols(self, t2):
+        """The KV columns the rank holds: its own, or all heads'."""
+        return _whole(t2) if self.kv_whole else t2
+
+    def needed(self, k4):
+        """The KV heads ``[k0, k1)`` of the held heads ``k4``."""
+        if not self.kv_whole:
+            return k4
+        return k4.narrow(2, self.k0, self.k1 - self.k0)
+
+    def own(self, t2):
+        """The rank's cache columns of the held fused ``t2``."""
+        return t2.narrow(-1, self.col0, self.cols) if self.kv_whole else t2
+
+    def cached(self, c):
+        """The held fused KV columns from the rank's cache block."""
+        return shd.gather_from_model(c, -1) if self.kv_whole else c
+
+    def out(self, o2, wo):
+        """``o2 [B, S, nq*hd] @ wo`` summed over the model group."""
+        if self.q_whole:
+            o2 = _whole(o2, self.sizes).narrow(
+                -1, self.coord * wo.shape[0], wo.shape[0])
+        return shd.reduce_from_model(o2 @ wo)
 
 
 def _sdpa_full(q, k, v, *, q_pos, k_pos, causal: bool, window: int):
@@ -235,31 +328,35 @@ def attention(p, x, cfg, *, rope_cs=None, causal=True, window=0,
     """GQA attention, all modes: ``x [B, S, d] -> [B, S, d]`` (and the new
     cache where one is given).
 
-    ``cache``: ``{"k", "v": [B, Tcap, Kv*hd]}`` (fused layout).  With
+    ``cache``: ``{"k", "v": [B, Tcap, Kv*hd]}`` (fused layout; a model
+    rank's column block of it).  With
     ``pos`` (an int) it runs the decode step: this step's keys and values
     are written at ``pos`` and the queries read the whole cache; without,
     the full-sequence pass fills the cache from 0 (prefill).
-    ``kv_override``: ``(k4, v4)`` of a cross-attention source.
+    ``kv_override``: ``(k2, v2)`` ``[B, T, Kv*hd]`` of a cross-attention
+    source (a model rank's columns).
     ``rope_cs``: ``(cos, sin)`` of the full sequence, or in decode any
     non-None value (the tables are built from ``pos``).  ``chunked``
     forces the chunked or the full sdpa (None: chunked from
     ``cfg.attn_chunk_threshold`` tokens on).  ``method`` is unused: the
     attention has no rectifier."""
     b, s, _ = x.shape
-    hd, hq, kvh = cfg.hd, cfg.n_heads, cfg.n_kv
-    g = hq // kvh
+    hd, g = cfg.hd, cfg.n_heads // cfg.n_kv
+    heads = _Heads(cfg)
+    x = shd.copy_to_model(x)
 
     q2 = x @ p["wq"]
     if "bq" in p:
         q2 = q2 + p["bq"]
-    q = _split_heads(q2, hq, hd)
+    q = _split_heads(heads.q_cols(q2), heads.nq, hd)
     if kv_override is None:
         k2, v2 = x @ p["wk"], x @ p["wv"]
         if "bk" in p:
             k2, v2 = k2 + p["bk"], v2 + p["bv"]
-        k4, v4 = _split_heads(k2, kvh, hd), _split_heads(v2, kvh, hd)
     else:
-        k4, v4 = kv_override
+        k2, v2 = kv_override
+    k4 = _split_heads(heads.kv_cols(k2), heads.nkv, hd)
+    v4 = _split_heads(heads.kv_cols(v2), heads.nkv, hd)
 
     new_cache = cache
     if cache is not None and pos is not None:
@@ -272,18 +369,24 @@ def attention(p, x, cfg, *, rope_cs=None, causal=True, window=0,
                 k4 = apply_rope(k4, cq, sq_)   # the cache keeps rotated keys
         if kv_override is None:
             ck = torch.slice_scatter(
-                cache["k"], k4.reshape(b, s, kvh * hd).to(cache["k"].dtype),
-                dim=1, start=pos, end=pos + s)
+                cache["k"], heads.own(k4.reshape(b, s, heads.nkv * hd)).to(
+                    cache["k"].dtype), dim=1, start=pos, end=pos + s)
             cv = torch.slice_scatter(
-                cache["v"], v4.reshape(b, s, kvh * hd).to(cache["v"].dtype),
-                dim=1, start=pos, end=pos + s)
+                cache["v"], heads.own(v4.reshape(b, s, heads.nkv * hd)).to(
+                    cache["v"].dtype), dim=1, start=pos, end=pos + s)
             new_cache = {"k": ck, "v": cv}
         else:
             ck, cv = cache["k"], cache["v"]
+        ck, cv = heads.cached(ck), heads.cached(cv)
         tcap = ck.shape[1]
-        o = _sdpa_grouped(q.reshape(b, s, kvh, g, hd),
-                          ck.reshape(b, tcap, kvh, hd),
-                          cv.reshape(b, tcap, kvh, hd), q_pos=q_pos,
+        kc = heads.needed(ck.reshape(b, tcap, heads.nkv, hd))
+        vc = heads.needed(cv.reshape(b, tcap, heads.nkv, hd))
+        if heads.h0 % g or heads.h1 % g:    # the rank's heads split a group
+            _, kc, vc = _head_layout(q, kc, vc, g, heads.h0 - heads.k0 * g)
+            qg = q.reshape(b, s, heads.nq, 1, hd)
+        else:
+            qg = q.reshape(b, s, heads.k1 - heads.k0, g, hd)
+        o = _sdpa_grouped(qg, kc, vc, q_pos=q_pos,
                           k_pos=torch.arange(tcap, device=x.device),
                           causal=causal, window=window)
     else:
@@ -296,13 +399,15 @@ def attention(p, x, cfg, *, rope_cs=None, causal=True, window=0,
         if cache is not None:
             new_cache = {
                 name: torch.slice_scatter(
-                    cache[name], t4.reshape(b, s, kvh * hd).to(
-                        cache[name].dtype), dim=1, start=0, end=s)
+                    cache[name], heads.own(t4.reshape(
+                        b, s, heads.nkv * hd)).to(cache[name].dtype),
+                    dim=1, start=0, end=s)
                 for name, t4 in (("k", k4), ("v", v4))}
         t = k4.shape[1]
         q_pos = torch.arange(s, device=x.device)
         k_pos = torch.arange(t, device=x.device)
-        qh, kh, vh = _head_layout(q, k4, v4, g)
+        qh, kh, vh = _head_layout(q, heads.needed(k4), heads.needed(v4), g,
+                                  heads.h0 - heads.k0 * g)
         use_chunked = (chunked if chunked is not None
                        else s >= cfg.attn_chunk_threshold)
         if use_chunked:
@@ -315,7 +420,7 @@ def attention(p, x, cfg, *, rope_cs=None, causal=True, window=0,
             o = _sdpa_full(qh, kh, vh, q_pos=q_pos, k_pos=k_pos,
                            causal=causal, window=window)
 
-    out = o.reshape(b, s, hq * hd) @ p["wo"]
+    out = heads.out(o.reshape(b, s, heads.nq * hd), p["wo"])
     if cache is not None:
         return out, new_cache
     return out
@@ -338,11 +443,15 @@ def init_ffn(gen: torch.Generator, cfg, d_ff: Optional[int] = None) -> dict:
 
 def ffn(p, x, cfg, method="autodiff"):
     """``act(x W1) [* x W3] W2``, the activation through ``rules.act``
-    (seamless's ReLU: the paper's 1-bit mask)."""
-    h = rules.act(x @ p["w1"], cfg.act, method, cfg.residual_policy)
+    (seamless's ReLU: the paper's 1-bit mask); on the model axis ``W1`` /
+    ``W3`` column-parallel and ``W2`` row-parallel, summed over the
+    group."""
+    x = shd.copy_to_model(x)
+    h = rules.act(x @ p["w1"], cfg.act, method, cfg.residual_policy,
+                  row_max=shd.max_over_model)
     if cfg.ffn_gated:
         h = h * (x @ p["w3"])
-    return h @ p["w2"]
+    return shd.reduce_from_model(h @ p["w2"])
 
 
 # ---------------------------------------------------------------------------
@@ -363,8 +472,9 @@ def init_embed(gen: torch.Generator, cfg) -> dict:
 
 def embed(p, tokens: torch.Tensor, cfg) -> torch.Tensor:
     """Token lookup ``[B, S] -> [B, S, d]`` (the JAX package's no-mesh
-    ``take``)."""
-    return p["table"][tokens]
+    ``take``); on the model axis a local lookup in the rank's d columns,
+    gathered along d."""
+    return shd.gather_from_model(p["table"][tokens], -1)
 
 
 class _GradCast(torch.autograd.Function):
@@ -392,13 +502,18 @@ def lm_head(p, h: torch.Tensor, cfg) -> torch.Tensor:
     The JAX package contracts bf16 operands with an f32 result
     (``preferred_element_type``); a bf16 ``torch.matmul`` would round the
     logits to bf16, so the operands are widened to f32 (exact) and
-    multiplied in f32, with TF32 off as the port runs everywhere.
+    multiplied in f32, with TF32 off as the port runs everywhere.  On the
+    model axis each rank computes its V columns (the tied table, d-sharded
+    for the lookup, is resharded to V: gathered along d, then the rank's
+    rows), and the logits are gathered whole.
     """
-    h = _grad_cast(h).to(torch.float32)
+    h = shd.copy_to_model(_grad_cast(h).to(torch.float32))
     if cfg.tie_embeddings:
-        logits = h @ p["table"].to(torch.float32).T
+        table = shd.slice_to_model(shd.gather_from_model(p["table"], -1), 0)
+        logits = h @ table.to(torch.float32).T
     else:
         logits = h @ p["head"].to(torch.float32)
+    logits = shd.gather_from_model(logits, -1)
     if cfg.padded_vocab != cfg.vocab:
         logits = logits[..., :cfg.vocab]
     return logits

@@ -15,6 +15,15 @@ The full-sequence recurrence ``h_t = Abar_t * h_{t-1} + Bbar_t x_t``
 Every gate goes through ``core.rules.act``, so attribution crosses the SSM
 with the configured method and residual policy.  ``A_log``, ``D`` and
 ``dt_bias`` stay f32, as in the JAX package.
+
+On a mesh whose "model" axis has several ranks each rank runs its
+``d_inner / ways`` channels: its columns of both halves of ``in_proj``,
+its conv, ``dt_proj``, ``A_log``, ``D`` and ``dt_bias`` channels, the scan
+(B13 on the rank's channels), and its rows of ``out_proj`` and
+``x_proj``, whose partial products are summed over the model group.  The
+summed ``dt | B | C`` then enters each rank's channels through
+``copy_to_model``, so their cotangents (B13's backward returns dB and dC
+summed over the rank's own channels only) are summed over the group too.
 """
 from __future__ import annotations
 
@@ -24,6 +33,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core import rules
+from repro_torch.dist import sharding as shd
 from repro_torch.kernels.ssm_scan import ops as scan_ops
 from repro_torch.models import layers
 
@@ -115,18 +125,23 @@ def mamba_core(p, x, cfg, method="autodiff", state: Optional[dict] = None,
     ``use_pallas`` routes the full-sequence scan through the B13 kernel
     with its default knobs; ``scan_tile`` is a ``(d_tile, chunk)`` pair for
     it (same bits for every pair).  ``pos`` is unused (attention-free).
+    On the model axis ``di`` is the rank's channel count and the state
+    holds its channels.
     """
     b, s, _ = x.shape
-    di, n = cfg.d_inner, cfg.ssm_state
+    di, n = p["A_log"].shape[0], cfg.ssm_state
 
+    x = shd.copy_to_model(x)
     xz = x @ p["in_proj"]
     xin, z = xz.split(di, dim=-1)
 
     conv_state = state["conv"] if state is not None else None
     xc, new_conv = _causal_conv(xin, p["conv_w"], p["conv_b"], conv_state)
-    xc = rules.act(xc, "silu", method, cfg.residual_policy)
+    xc = rules.act(xc, "silu", method, cfg.residual_policy,
+                   row_max=shd.max_over_model)
 
-    bcdt = xc @ p["x_proj"]                               # [B, S, dtr+2N]
+    bcdt = shd.copy_to_model(shd.reduce_from_model(
+        xc @ p["x_proj"]))                                # [B, S, dtr+2N]
     dt_r, bmat, cmat = bcdt.split([cfg.dtr, n, n], dim=-1)
     dt = F.softplus((dt_r @ p["dt_proj"]).to(torch.float32)
                     + p["dt_bias"])                       # [B, S, di] f32
@@ -154,8 +169,9 @@ def mamba_core(p, x, cfg, method="autodiff", state: Optional[dict] = None,
         y = y.to(x.dtype)
 
     y = y + xc * p["D"].to(x.dtype)
-    y = y * rules.act(z, "silu", method, cfg.residual_policy)
-    out = y @ p["out_proj"]
+    y = y * rules.act(z, "silu", method, cfg.residual_policy,
+                      row_max=shd.max_over_model)
+    out = shd.reduce_from_model(y @ p["out_proj"])
 
     new_state = None
     if state is not None:

@@ -21,6 +21,14 @@
   each token's (at most k) slots summed in slot order, from zero, in that
   dtype: the order of XLA's scatter-add.
 
+On a mesh whose "model" axis has several ranks the experts are split
+(expert parallel): the router is replicated and the tokens are the same on
+every model rank, so each rank routes and dispatches exactly as one device
+does, runs ``bmm`` over its ``E / ways`` experts' slots only, and the
+experts' outputs are gathered along the expert axis before the combine,
+which is then the single-device combine, bit for bit on the CPU.  Shared
+experts run the tensor-parallel :func:`layers.ffn`.
+
 Dispatch and combine are deterministic on the card: no scatter with
 duplicate indices and no atomic add onto a row that is kept, forward or
 backward.  The gates (by assignment) and the combine (slot rows by token)
@@ -34,6 +42,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import rules
+from repro_torch.dist import sharding as shd
 from repro_torch.engine import methods as engine_methods
 from repro_torch.models import layers
 
@@ -153,12 +162,22 @@ def moe_ffn(p, x, cfg, method="autodiff"):
     tok, assign, slots = dispatch(expert_ids, cfg, c)
     gate_slots = _gather_rows(gates.reshape(t * k), assign)
 
-    xe = _SlotGather.apply(xt, tok, slots).reshape(e, c, d)
+    # this rank's experts [e0, e0 + el) (all of them at one way)
+    el = p["w1"].shape[0]
+    e0 = shd.model_group(shd.current_mesh())[1] * el
+    if el == e:
+        xe = _SlotGather.apply(xt, tok, slots)
+    else:
+        lo, hi = e0 * c, (e0 + el) * c
+        mine = (slots >= lo) & (slots < hi)
+        xe = _SlotGather.apply(shd.copy_to_model(xt), tok[lo:hi],
+                               torch.where(mine, slots - lo, hi - lo))
+    xe = xe.reshape(el, c, d)
     h = rules.act(torch.bmm(xe, p["w1"]), cfg.act, method,
                   cfg.residual_policy)
     if cfg.ffn_gated:
         h = h * torch.bmm(xe, p["w3"])
-    y = torch.bmm(h, p["w2"])
+    y = shd.gather_from_model(torch.bmm(h, p["w2"]), 0)
     yw = y.reshape(e * c, d) * gate_slots[:, None].to(y.dtype)
     out = _ordered_sum(yw, slots).reshape(b, s, d)
     if cfg.n_shared_experts:

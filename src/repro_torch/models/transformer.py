@@ -22,6 +22,11 @@ projected keys and values, cached once at prefill), the mamba layers' f32
 state ``h`` and conv window; a hybrid segment holds ``{"attn", "ssm"}``.
 The JAX package's ``remat`` knob (checkpointing) has nothing to act on
 here and is not taken.
+
+Under an active mesh whose "model" axis has several ranks every entry
+point runs on the rank's parameter slices (``dist.params.shard_params``)
+and caches (``init_cache(..., mesh=)``); the layers do the model-axis
+collectives (``models/layers.py``, ``mamba.py``, ``moe.py``).
 """
 from __future__ import annotations
 
@@ -30,6 +35,7 @@ from typing import Dict
 import numpy as np
 import torch
 
+from repro_torch.dist import sharding as shd
 from repro_torch.engine.spec import resolve_device
 from repro_torch.models import layers, mamba, moe
 from repro_torch.models.config import ModelConfig
@@ -134,17 +140,14 @@ def _cross_attend(p, x, cfg, cache, enc_out, method):
     """Cross-attention on the encoder's keys and values, projected per
     layer from ``enc_out`` (training, prefill) or read from the cache
     (decode).  Returns (delta_x, (ck, cv))."""
-    b = x.shape[0]
-    hd, kvh = cfg.hd, cfg.n_kv
     hc = layers.apply_norm(p["norm_cross"], x, cfg.norm)
     if enc_out is not None:
-        ck, cv = enc_out @ p["cross"]["wk"], enc_out @ p["cross"]["wv"]
+        src = shd.copy_to_model(enc_out)
+        ck, cv = src @ p["cross"]["wk"], src @ p["cross"]["wv"]
     else:
         ck, cv = cache["ck"], cache["cv"]
-    k4 = ck.reshape(b, ck.shape[1], kvh, hd)
-    v4 = cv.reshape(b, cv.shape[1], kvh, hd)
     c = layers.attention(p["cross"], hc, cfg, rope_cs=None, causal=False,
-                         kv_override=(k4, v4), method=method)
+                         kv_override=(ck, cv), method=method)
     return c, (ck, cv)
 
 
@@ -326,27 +329,45 @@ def forward(params, cfg: ModelConfig, batch: Dict, *, method="autodiff",
 
 
 def init_cache(cfg: ModelConfig, batch: int, capacity: int,
-               src_len: int = 0, *, device=None):
+               src_len: int = 0, *, device=None, mesh=None):
     """Per-segment cache (fused kv in the config's dtype; f32 ssm state,
     conv window in the config's dtype) on ``device`` (None: the card).
     ``capacity`` sizes the self-attention caches, ``src_len`` the
-    encoder-decoder's cross ``ck`` / ``cv``."""
+    encoder-decoder's cross ``ck`` / ``cv``.
+
+    ``mesh``: this rank's cache, the batch-sharded placement of
+    ``launch.steps.cache_shardings``: its rows of the ``batch`` over the
+    batch axes and its block of the fused ``Kv*hd`` and ``d_inner`` axes
+    over "model".  A batch smaller than the data-parallel size would shard
+    the cache's T axis instead (sequence-parallel decode, ROADMAP A12d),
+    which is refused."""
     dev = resolve_device(device)
     dt = cfg.torch_dtype
+    ways = shd.model_ways(mesh)
+    if mesh is not None:
+        _, _, dp = shd.batch_group(mesh)
+        if batch < dp:
+            raise NotImplementedError(
+                f"a batch of {batch} under {dp} data-parallel ranks shards "
+                f"the cache's T axis (sequence-parallel decode, ROADMAP "
+                f"A12d)")
+        lo, hi = shd.local_rows(mesh, batch)
+        batch = hi - lo
+    kv, di = cfg.n_kv * cfg.hd // ways, cfg.d_inner // ways
     caches = []
     for kind, count, _ in cfg.layer_plan():
-        kv_shape = (count, batch, capacity, cfg.n_kv * cfg.hd)
+        kv_shape = (count, batch, capacity, kv)
         attn_c = {"k": torch.zeros(kv_shape, dtype=dt, device=dev),
                   "v": torch.zeros(kv_shape, dtype=dt, device=dev)}
         if cfg.enc_layers and src_len:
-            cross_shape = (count, batch, src_len, cfg.n_kv * cfg.hd)
+            cross_shape = (count, batch, src_len, kv)
             attn_c["ck"] = torch.zeros(cross_shape, dtype=dt, device=dev)
             attn_c["cv"] = torch.zeros(cross_shape, dtype=dt, device=dev)
         ssm_c = {
-            "h": torch.zeros((count, batch, cfg.d_inner, cfg.ssm_state),
+            "h": torch.zeros((count, batch, di, cfg.ssm_state),
                              dtype=torch.float32, device=dev),
-            "conv": torch.zeros((count, batch, cfg.ssm_conv - 1,
-                                 cfg.d_inner), dtype=dt, device=dev)}
+            "conv": torch.zeros((count, batch, cfg.ssm_conv - 1, di),
+                                dtype=dt, device=dev)}
         if kind == "mamba":
             caches.append(ssm_c)
         elif kind == "hybrid":

@@ -247,10 +247,10 @@ def step_grads(cfg, batch, mesh=None):
     state = init_fn(torch.Generator().manual_seed(0), "cpu")
     caught, real = [], steps.clip_by_global_norm
 
-    def spy(grads, clip):
+    def spy(grads, clip, **kw):
         from repro_torch import tree as trees
         caught.append(trees.tree_map(torch.clone, grads))
-        return real(grads, clip)
+        return real(grads, clip, **kw)
 
     steps.clip_by_global_norm = spy
     try:
@@ -366,3 +366,206 @@ def compression_scenario(rank, world):
     finally:
         dist.all_gather = real
     return dict(out=out, wire=wire)
+
+
+# ---------------------------------------------------------------------------
+# the model axis (tests/test_torch_tp.py, tests/test_torch_tp_train.py)
+# ---------------------------------------------------------------------------
+
+#: one SMOKE config of each family of the zoo: dense (tied), GQA with 2 KV
+#: heads, MoE, mamba, hybrid, encoder-decoder, vlm; "hymba-1.5b:split" is
+#: hymba with 5 query heads and 1 KV head (80 columns: 2.5 heads a rank at
+#: 2 ways, as hymba-1.5b's 25 heads at 2 and 4) and the chunked sdpa
+TP_ARCHS = ("llama3.2-1b", "qwen2-1.5b", "moonshot-v1-16b-a3b",
+            "falcon-mamba-7b", "hymba-1.5b", "seamless-m4t-medium",
+            "llava-next-mistral-7b", "hymba-1.5b:split")
+TP_BATCH, TP_SEQ, TP_NEW, TP_SRC = 2, 8, 3, 6
+
+
+def tp_config(name):
+    """The SMOKE config of ``name`` (``arch`` or ``arch:split``)."""
+    from repro_torch import configs
+    arch, _, variant = name.partition(":")
+    cfg = configs.get_smoke(arch)
+    if variant == "split":
+        cfg = cfg.with_(n_heads=5, n_kv=1, attn_chunk_threshold=4,
+                        attn_chunk=4)
+    return cfg
+
+
+def tp_params_np(cfg, seed=0):
+    """Parameters of ``cfg`` as NumPy arrays, drawn by the port's ``init``
+    from ``seed`` (the JAX package's tree: ``params_from_jax`` carries
+    them into the port, ``jnp.asarray`` into the JAX package)."""
+    from repro_torch import tree as trees
+    from repro_torch.models import transformer as tf
+    return trees.tree_map(lambda t: t.numpy(), tf.init(
+        cfg, generator=torch.Generator().manual_seed(seed), device="cpu"))
+
+
+def tp_batch(cfg, rows=TP_BATCH, seed=1):
+    """A NumPy batch: tokens, plus the vlm's patches or the
+    encoder-decoder's frames."""
+    rs = np.random.RandomState(seed)
+    b = {"tokens": rs.randint(0, cfg.vocab, (rows, TP_SEQ)).astype(np.int32)}
+    if cfg.frontend == "patches":
+        b["patches"] = rs.randn(rows, cfg.n_patches,
+                                cfg.d_model).astype(np.float32)
+    if cfg.enc_layers:
+        b["frames"] = rs.randn(rows, TP_SRC, cfg.d_model).astype(np.float32)
+    return b
+
+
+def whole_cache(cache, mesh):
+    """A rank's cache with its "model" blocks gathered (the fused KV and
+    conv columns last, the state's channels second to last)."""
+    from repro_torch import tree as trees
+    from repro_torch.dist import sharding as shd
+    with shd.use_mesh(mesh):
+        return trees.map_with_path(
+            lambda p, t: shd.gather_from_model(
+                t, -2 if trees.leaf_name(p) == "h" else -1), cache)
+
+
+def lm_outputs(cfg, params, batch_np, mesh=None):
+    """What the model-axis tests compare, on ``mesh`` (params: the full
+    tree, sharded here): the attribute step's last logits and ixg scores
+    and contrastive scores (saliency), the prefill and
+    ``TP_NEW`` decode steps' tokens and the final cache, whole."""
+    from repro_torch.dist import params as dist_params
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as tf
+    batch = {k: torch.from_numpy(v) for k, v in batch_np.items()}
+    local = dist_params.shard_params(params, mesh)
+    out = {}
+    for mode in ("ixg", "contrastive"):
+        out[mode] = steps.make_attribute_step(cfg, mode=mode, mesh=mesh)(
+            local, batch)
+    rows = batch["tokens"].shape[0]
+    prompt = TP_SEQ + (cfg.n_patches if cfg.frontend == "patches" else 0)
+    cache = tf.init_cache(cfg, rows, prompt + TP_NEW,
+                          TP_SRC if cfg.enc_layers else 0, device="cpu",
+                          mesh=mesh)
+    nxt, cache = steps.make_prefill_step(cfg, mesh=mesh)(local, batch, cache)
+    toks = [nxt]
+    decode = steps.make_decode_step(cfg, mesh=mesh)
+    for i in range(TP_NEW - 1):
+        nxt, cache = decode(local, cache, nxt, prompt + i)
+        toks.append(nxt)
+    out["tokens"] = torch.cat(toks, dim=1)
+    out["cache"] = whole_cache(cache, mesh) if mesh is not None else cache
+    return out
+
+
+def routed_experts(params, cfg, mesh=None):
+    """The routed experts of the MoE segment's first layer (no shared
+    expert) on a NumPy input, on ``mesh``."""
+    from repro_torch.dist import params as dist_params
+    from repro_torch.dist import sharding as shd
+    from repro_torch.models import moe
+    cfg = cfg.with_(n_shared_experts=0)
+    si = [k for k, _, _ in cfg.layer_plan()].index("moe")
+    seg = dist_params.shard_params(params, mesh)["segments"][si]["ffn"]
+    p = {k: v[0] for k, v in seg.items() if k != "shared"}
+    x = torch.from_numpy(np.random.RandomState(2).randn(
+        TP_BATCH, TP_SEQ, cfg.d_model).astype(np.float32))
+    with shd.use_mesh(mesh):
+        return moe.moe_ffn(p, x, cfg)
+
+
+def tp_scenario(rank, world, params_np, model):
+    """Every arch of ``params_np`` (``{name: the JAX package's params as
+    NumPy}``) on ``make_host_mesh(world // model, model)``: its
+    :func:`lm_outputs`, whether ``gather_params(shard_params(p))`` is
+    ``p`` bit for bit, and the MoE's routed experts; llama3.2-1b's and
+    falcon-mamba-7b's outputs on a ``(1, 1)`` mesh (a model axis of 1 with
+    a process group) ("ones"); the size of the group over the data and
+    model axes and this rank's place in it."""
+    from repro_torch import tree as trees
+    from repro_torch.dist import params as dist_params
+    from repro_torch.dist import sharding as shd
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import transformer as tf
+    mesh = make_host_mesh(world // model, model)
+    group = mesh._product_group(("data", "model"))
+    out = {"mesh": repr(mesh), "model": shd.model_group(mesh)[1:],
+           "product_group": (dist.get_world_size(group),
+                             dist.get_rank(group)), "ones": {}}
+    for name in ("llama3.2-1b", "falcon-mamba-7b"):
+        cfg = tp_config(name)
+        out["ones"][name] = lm_outputs(
+            cfg, tf.params_from_jax(params_np[name]), tp_batch(cfg),
+            make_host_mesh(1, 1))
+    for name, pnp in params_np.items():
+        cfg = tp_config(name)
+        params = tf.params_from_jax(pnp)
+        back = dist_params.gather_params(
+            dist_params.shard_params(params, mesh), mesh)
+        same = all(a.dtype == b.dtype and torch.equal(a, b) for a, b in
+                   zip(trees.leaves(back), trees.leaves(params)))
+        out[name] = dict(lm_outputs(cfg, params, tp_batch(cfg), mesh),
+                         roundtrip=same)
+        if cfg.n_experts:
+            out[name]["routed"] = routed_experts(params, cfg, mesh)
+    return out
+
+
+def tp_train_run(cfg, state, batches, mesh=None, **kw):
+    """The train step of ``launch.train.build`` on ``mesh`` from ``state``
+    (full; sharded here) over NumPy ``batches``: ``([the state after each
+    step, gathered whole], [metrics], [each step's clipped gradient,
+    gathered])``."""
+    from repro_torch.dist import params as dist_params
+    from repro_torch.launch import steps, train
+    _, step_fn = train.build(cfg, mesh=mesh, **kw)
+    state = steps.shard_state(state, mesh)
+    states, metrics, grads, real = [], [], [], steps.clip_by_global_norm
+
+    def spy(g, clip, mesh=None):
+        grads.append(dist_params.gather_params(g, mesh))
+        return real(g, clip, mesh=mesh)
+
+    steps.clip_by_global_norm = spy
+    try:
+        for b in batches:
+            state, m = step_fn(state, {k: torch.from_numpy(v)
+                                       for k, v in b.items()})
+            metrics.append({k: float(v) for k, v in m.items()})
+            states.append(steps.gather_state(state, mesh))
+    finally:
+        steps.clip_by_global_norm = real
+    return states, metrics, grads
+
+
+def tp_train_scenario(rank, world, states_np, batches_np, model, ckpt):
+    """The train step of each arch of ``states_np`` (the JAX package's
+    ``TrainState`` as NumPy) on ``make_host_mesh(world // model, model)``
+    over ``batches_np[name]`` (:func:`tp_train_run`); with ``ckpt``: the
+    first arch's run on a ``(1, 1)`` mesh ("ones"), its ``train_loop``
+    writing a checkpoint under ``ckpt/mesh``, and its state restored from
+    the single-process checkpoint under ``ckpt/single``."""
+    from repro_torch.data import TokenStream
+    from repro_torch.launch import steps, train
+    from repro_torch.launch.mesh import make_host_mesh
+    mesh = make_host_mesh(world // model, model)
+    out = {"mesh": repr(mesh)}
+    for name, snp in states_np.items():
+        out[name] = tp_train_run(tp_config(name), steps.state_from_jax(snp),
+                                 batches_np[name], mesh, total_steps=10)
+    if ckpt:
+        first = next(iter(states_np))
+        out["ones"] = tp_train_run(
+            tp_config(first), steps.state_from_jax(states_np[first]),
+            batches_np[first], make_host_mesh(1, 1), total_steps=10)
+        cfg = tp_config(first)
+        data = TokenStream(vocab=cfg.vocab, seq_len=8, global_batch=4)
+        kw = dict(mesh=mesh, verbose=False, device="cpu")
+        state, _ = train.train_loop(cfg, data, steps=2,
+                                    ckpt_dir=os.path.join(ckpt, "mesh"),
+                                    **kw)
+        out["written"] = steps.gather_state(state, mesh)
+        state, _ = train.train_loop(cfg, data, steps=2,
+                                    ckpt_dir=os.path.join(ckpt, "single"),
+                                    **kw)
+        out["restored"] = steps.gather_state(state, mesh)
+    return out

@@ -17,8 +17,7 @@ row-weighted sum of the single-process gradients of each rank's slice,
 within ``TOL`` of each leaf's max.
 
 The sharding trees (DTensor placements) of ``launch/steps.py`` equal the
-JAX package's ``NamedSharding`` trees' specs, and a "model" axis that
-computes raises naming ROADMAP A12d.
+JAX package's ``NamedSharding`` trees' specs.
 """
 import jax
 import numpy as np
@@ -118,14 +117,21 @@ def test_one_rank_mesh_is_the_plain_step():
         assert torch.equal(x, y)
 
 
-def test_model_axis_is_a12d():
+def test_two_way_model_mesh_runs_the_train_step():
+    """A ``(1, 2)`` mesh builds the train step and runs it; without a
+    process group behind it the model axis has one rank that computes
+    (``model_group``), so the step is the plain step, bit for bit (the
+    two-way step on gloo ranks: ``tests/test_torch_tp_train.py``)."""
     class TwoWay(Mesh):
         def __init__(self):
             self.shape, self.axis_names = (1, 2), ("data", "model")
             self.device_mesh = None
-    with pytest.raises(NotImplementedError, match="A12d"):
-        steps.make_train_step(configs.get_smoke("llama3.2-1b"),
-                              mesh=TwoWay())
+    cfg = configs.get_smoke("llama3.2-1b")
+    a, ma = train_run(cfg)
+    b, mb = train_run(cfg, TwoWay())
+    assert ma == mb
+    for x, y in zip(steps_leaves(a), steps_leaves(b)):
+        assert torch.equal(x, y)
 
 
 def _path(jpath):

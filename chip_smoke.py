@@ -6749,6 +6749,18 @@ TP_LAYERS = 2
 TP_ONE_CARD_RANKS, TP_WORLDS = 2, (2, 4)
 #: timed calls of each step (after one warm-up), and a world's deadline
 TP_TIMED, TP_RANK_TIMEOUT_S = 3, 900
+#: the model-parallel bf16 step against the single-process one on the same
+#: card.  Attribute scores: within TP_BF16_SCORES_TOL of max sum_d
+#: |rel * e| (phase 13's scale), 5.6 x the largest reading of a job whose
+#: tokens all take the same experts (6.6e-5 to 1.8e-4 at 2 and 4 ways on
+#: one and four H100s); an MoE whose routing differs (a bf16 step apart in
+#: the router's input flips a near tie, and the token takes another
+#: expert's output: moonshot-v1-16b-a3b reads 4.3e-4 to 1.5e-3 with about
+#: 1500 of its 3168 token-layers routed otherwise) by phase 13's
+#: ZOO_BF16_SCORES_TOL.  The train step's loss and gnorm: within
+#: TP_BF16_TRAIN_TOL relative, 5.2 x the largest reading (1.1e-5 to
+#: 5.7e-5)
+TP_BF16_SCORES_TOL, TP_BF16_TRAIN_TOL = 1e-3, 3e-4
 
 
 def _tp_timed(fn, reps=TP_TIMED):
@@ -6782,6 +6794,24 @@ def _bf16_rule(what, tp, one, f32):
     return e_tp, e_one
 
 
+def _routes(fn):
+    """``fn()`` and the expert ids ``[T, k]`` of every MoE routing it ran,
+    in order (none without experts)."""
+    from repro_torch.models import moe
+    real, seen = moe.route, []
+
+    def spy(*args, **kw):
+        out = real(*args, **kw)
+        seen.append(out[1].clone())
+        return out
+
+    moe.route = spy
+    try:
+        return fn(), seen
+    finally:
+        moe.route = real
+
+
 def _terms_scale(params, cfg, batch):
     """max_t sum_d |rel * e| of the attribute step's ixg seed (saliency,
     B13 on hybrid and mamba stacks) on one process: the scale phase 13
@@ -6804,8 +6834,9 @@ def _terms_scale(params, cfg, batch):
 def _tp_attribute(arch, mesh, single):
     """One attribute job on ``mesh``: the ixg step in bf16 at full width
     (``TP_DEPTH``), counted, timed, its collective bytes; the f32 twin at
-    TP_LAYERS (exact residuals); on rank 0 (``single``) the single-process
-    steps beside them."""
+    TP_LAYERS (the config's int8 residuals, their row scales taken over
+    the ranks' slices by ``max_over_model``); on rank 0 (``single``) the
+    single-process steps beside them."""
     from repro_torch import configs
     from repro_torch import tree as trees
     from repro_torch.dist import params as dist_params
@@ -6826,7 +6857,7 @@ def _tp_attribute(arch, mesh, single):
     torch.cuda.synchronize()
     reset_launches()
     shd.reset_model_traffic()
-    logits, scores = step(local, batch)
+    (logits, scores), routes = _routes(lambda: step(local, batch))
     torch.cuda.synchronize()
     out = dict(ways=shd.model_ways(mesh), n_layers=cfg.n_layers,
                launches={k: v for k, v in LAUNCHES.items() if v},
@@ -6837,7 +6868,10 @@ def _tp_attribute(arch, mesh, single):
     del local
     if single:
         one = steps.make_attribute_step(cfg, mode="ixg")
-        ref = one(params, batch)
+        ref, want = _routes(lambda: one(params, batch))
+        # tokens routed to other experts than on one process, over layers
+        out["routing_flips"] = sum(int((a != b).any(-1).sum())
+                                   for a, b in zip(routes, want))
         out["one_ms"] = _tp_timed(lambda: one(params, batch))
         # phase 13's rule for bf16 scores (sums over d that cancel): the
         # scale of a bf16 sum's rounding, max sum_d |rel * e|
@@ -6852,14 +6886,17 @@ def _tp_attribute(arch, mesh, single):
         out["bf16_scores"] = tuple(
             (a.float() - b.float()).abs().max().item() / terms
             for a, b in ((scores, ref[1]), (scores, f32[1]), (ref[1], f32[1])))
-        if not out["bf16_scores"][0] <= ZOO_BF16_SCORES_TOL:
+        tol = (ZOO_BF16_SCORES_TOL if out["routing_flips"]
+               else TP_BF16_SCORES_TOL)
+        if not out["bf16_scores"][0] <= tol:
             fail(f"phase 16 {arch} scores: bf16 {out['bf16_scores'][0]:.3e} "
-                 f"of max sum_d |rel*e| from the single-process step's "
-                 f"(ZOO_BF16_SCORES_TOL)")
+                 f"of max sum_d |rel*e| from the single-process step's, "
+                 f"beyond {tol} ({out['routing_flips']} tokens routed "
+                 f"otherwise)")
     torch.cuda.empty_cache()
-    # the f32 twin: TP_LAYERS, exact residuals, the twin's batch
-    twin = configs.get(arch).with_(n_layers=TP_LAYERS, dtype="float32",
-                                   residual_policy="exact")
+    # the f32 twin: TP_LAYERS, the config's residual policy, the twin's
+    # batch
+    twin = configs.get(arch).with_(n_layers=TP_LAYERS, dtype="float32")
     p32 = tf.init(twin, generator=torch.Generator(device="cuda")
                   .manual_seed(0), device="cuda")
     tb = _zoo_inputs(twin, LM_TWIN_BATCH, LM_TWIN_SEQ,
@@ -6918,9 +6955,15 @@ def _tp_train(mesh, single):
     if single:
         _, one, _, out["one_ms"] = run(cut, None, batches[:1], True)
         _, f32, _, _ = run(cut.with_(dtype="float32"), None, batches[:1])
-        out["bf16"] = {k: _bf16_rule(
-            f"train {k}", torch.tensor(met[0][k]), torch.tensor(one[0][k]),
-            torch.tensor(f32[0][k])) for k in ("loss", "gnorm")}
+        out["bf16"] = {}
+        for k in ("loss", "gnorm"):
+            tp, o, w = met[0][k], one[0][k], f32[0][k]
+            out["bf16"][k] = (abs(tp - o) / abs(o), abs(tp - w) / abs(w),
+                              abs(o - w) / abs(w))
+            if not out["bf16"][k][0] <= TP_BF16_TRAIN_TOL:
+                fail(f"phase 16 train: bf16 {k} {tp!r} is "
+                     f"{out['bf16'][k][0]:.3e} relative from the "
+                     f"single-process step's {o!r} (TP_BF16_TRAIN_TOL)")
     twin = cut.with_(dtype="float32")
     tdata = TokenStream(vocab=twin.vocab, seq_len=16, global_batch=2)
     tbatches = [_batch_on(tdata, s) for s in range(2)]
@@ -7012,9 +7055,10 @@ def _print_tp(what, res, jobs):
                 f"MB, all-gather {t['all_gather'] / 1e6:.2f} MB in "
                 f"{t['calls']} collectives")
         if job == "train":
-            line += ("; bf16 loss / gnorm from f32 "
-                     + ", ".join(f"{k} {a:.2e} (model 1 {b:.2e})"
-                                 for k, (a, b) in r["bf16"].items())
+            line += ("; bf16 loss / gnorm from model 1's "
+                     + ", ".join(f"{k} {a:.2e} (from f32 {b:.2e}, model 1 "
+                                 f"{c:.2e})"
+                                 for k, (a, b, c) in r["bf16"].items())
                      + f"; f32 twin metrics {r['f32'][0]:.2e}, state "
                      f"{r['f32'][1]:.2e}")
         else:
@@ -7022,7 +7066,8 @@ def _print_tp(what, res, jobs):
                      f"f32 (model 1 {r['bf16_logits'][1]:.2e}), scores "
                      f"{r['bf16_scores'][0]:.2e} of max sum_d |rel*e| from "
                      f"model 1's (from f32 {r['bf16_scores'][1]:.2e}, model "
-                     f"1 {r['bf16_scores'][2]:.2e}); f32 twin logits "
+                     f"1 {r['bf16_scores'][2]:.2e}; {r['routing_flips']} "
+                     f"tokens routed otherwise); f32 twin logits "
                      f"{r['f32'][0]:.2e}, scores {r['f32'][1]:.2e} of max; "
                      f"launches {r['launches']}")
         print(line)

@@ -30,6 +30,7 @@ from dataclasses import dataclass
 from typing import Any, Tuple
 
 import torch
+import torch.distributed as dist
 
 from repro_torch import tree as trees
 from repro_torch.dist.sharding import (gather_dim, model_group, physical_spec,
@@ -137,27 +138,40 @@ def shard_params(full, mesh):
     return trees.map_with_path(cut, full)
 
 
-def gather_params(local, mesh):
+def gather_params(local, mesh, dst=None):
     """The full tree from every rank's :func:`shard_params` slice, on every
     rank (one all-gather a sharded leaf, over the model group; moved as
-    the leaf's own dtype, so bit for bit)."""
+    the leaf's own dtype, so bit for bit).
+
+    ``dst`` (a global rank; a checkpoint's writer): the full tree on that
+    rank alone, each leaf moved to the host as it is gathered, so the
+    cards hold at most one full leaf at a time; None on the other ranks,
+    and without a collective on those whose model group does not hold
+    ``dst``.  At one way ``local`` comes back as it is, on every rank."""
     group, _, ways = model_group(mesh)
     if ways == 1:
         return local
+    if dst is not None and dst not in dist.get_process_group_ranks(group):
+        return None
+    mine = dst is None or dist.get_rank() == dst
 
     def join(path, leaf):
         dim = _model_dim(path, leaf, mesh)
         if dim is None:
-            return leaf
+            return leaf if dst is None else \
+                leaf.detach().cpu() if mine else None
         halves = _halves(path, leaf)
         with torch.no_grad():
             parts = gather_dim(leaf.detach(), dim, group,
-                            (leaf.shape[dim],) * ways)
-        if halves == 1:
-            return parts
-        per = leaf.shape[dim] // halves
-        blocks = parts.split(per, dim=dim)       # rank-major, half-minor
-        return torch.cat([blocks[r * halves + h] for h in range(halves)
-                          for r in range(ways)], dim=dim)
+                               (leaf.shape[dim],) * ways, dst)
+        if not mine:
+            return None
+        if halves > 1:
+            per = leaf.shape[dim] // halves
+            blocks = parts.split(per, dim=dim)   # rank-major, half-minor
+            parts = torch.cat([blocks[r * halves + h] for h in range(halves)
+                               for r in range(ways)], dim=dim)
+        return parts if dst is None else parts.cpu()
 
-    return trees.map_with_path(join, local)
+    whole = trees.map_with_path(join, local)
+    return whole if mine else None

@@ -315,11 +315,12 @@ def _bounds(sizes, coord):
     return lo, lo + sizes[coord]
 
 
-def gather_dim(x, dim, group, sizes):
+def gather_dim(x, dim, group, sizes, dst=None):
     """Every rank of ``group``'s slice of ``x`` along ``dim`` (rank r's of
     ``sizes[r]`` entries), in rank order, outside autograd: padded to the
     largest slice for the list all-gather, which gloo carries for card
-    tensors too."""
+    tensors too.  ``dst`` (a global rank in ``group``): gathered onto that
+    rank alone (``dist.gather``), None on the others."""
     dim = dim % x.ndim
     per = max(sizes)
     mine = x.shape[dim]
@@ -328,10 +329,17 @@ def gather_dim(x, dim, group, sizes):
         pad[dim] = per - mine
         x = torch.cat([x, x.new_zeros(pad)], dim=dim)
     x = x.contiguous()
-    parts = [torch.empty_like(x) for _ in sizes]
-    dist.all_gather(parts, x, group=group)
+    if dst is None:
+        parts = [torch.empty_like(x) for _ in sizes]
+        dist.all_gather(parts, x, group=group)
+    else:
+        parts = ([torch.empty_like(x) for _ in sizes]
+                 if dist.get_rank() == dst else None)
+        dist.gather(x, parts, dst=dst, group=group)
     MODEL_TRAFFIC["all_gather"] += len(sizes) * x.numel() * x.element_size()
     MODEL_TRAFFIC["calls"] += 1
+    if parts is None:
+        return None
     return torch.cat([p.narrow(dim, 0, n) for p, n in zip(parts, sizes)],
                      dim=dim)
 

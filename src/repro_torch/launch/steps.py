@@ -17,9 +17,9 @@ launch.mesh.Mesh`) and runs under ``use_mesh(mesh)``: the batch axes split
 the rows, the "model" axis splits the parameters, each rank holding its
 slice (:func:`shard_state`, ``dist.params.shard_params``) and the layers
 summing or gathering over the model group.  Gradients of sharded leaves
-stay on their rank; the clip's global norm sums their squares over the
-model group once.  With no mesh, or one rank on each axis, every step is
-the single-device step.
+stay on their rank; the step sums their squares over the model group
+once for the clip's global norm.  With no mesh, or one rank on each axis,
+every step is the single-device step.
 """
 from __future__ import annotations
 
@@ -104,15 +104,35 @@ def shard_state(state: TrainState, mesh) -> TrainState:
                       nu=dist_params.shard_params(opt.nu, mesh)))
 
 
-def gather_state(state: TrainState, mesh) -> TrainState:
+def gather_state(state: TrainState, mesh, dst=None):
     """The full :class:`TrainState` from every model rank's slice, on every
-    rank, bit for bit (collective: every rank calls it)."""
+    rank, bit for bit (collective: every rank calls it).  ``dst`` (a
+    global rank): on that rank alone, on the host, None on the others
+    (``dist.params.gather_params``)."""
     opt = state.opt
-    return TrainState(
-        params=dist_params.gather_params(state.params, mesh),
-        opt=type(opt)(step=opt.step,
-                      mu=dist_params.gather_params(opt.mu, mesh),
-                      nu=dist_params.gather_params(opt.nu, mesh)))
+    params = dist_params.gather_params(state.params, mesh, dst)
+    mu = dist_params.gather_params(opt.mu, mesh, dst)
+    nu = dist_params.gather_params(opt.nu, mesh, dst)
+    if params is None:
+        return None
+    return TrainState(params=params,
+                      opt=type(opt)(step=opt.step, mu=mu, nu=nu))
+
+
+def _model_norm(grads, mesh):
+    """The global norm of a model rank's gradient slices: the squares of
+    the sharded leaves summed over the model group, those of the
+    replicated leaves (the same on every rank) counted once; None at one
+    way, where the clip takes the plain norm."""
+    if dist_sharding.model_ways(mesh) == 1:
+        return None
+    dev = trees.leaves(grads)[0].device
+    sq = {s: torch.zeros((), dtype=torch.float32, device=dev)
+          for s in (True, False)}
+    for path, g in trees.walk(grads):
+        s = dist_params.sharded_leaf(path, g, mesh)
+        sq[s] = sq[s] + torch.sum(torch.square(g.to(torch.float32)))
+    return torch.sqrt(dist_sharding.reduce_from_model(sq[True]) + sq[False])
 
 
 def _rows(mesh, batch):
@@ -211,7 +231,8 @@ def make_train_step(cfg, *, microbatches: int = 1, peak_lr: float = 2e-4,
                     mesh, t.mul_(share) if ways > 1 else t)
         grads = trees.unflatten(state.params, flat)
         del flat
-        grads, gnorm = clip_by_global_norm(grads, clip, mesh=mesh)
+        grads, gnorm = clip_by_global_norm(grads, clip,
+                                           gnorm=_model_norm(grads, mesh))
         lr = cosine_schedule(state.opt.step, peak_lr=peak_lr,
                              warmup_steps=warmup_steps,
                              total_steps=total_steps)
@@ -280,18 +301,18 @@ def make_decode_step(cfg, *, mesh=None):
 TOKEN_MODES = ("ixg", "grad_norm", "contrastive")
 
 
-def ssm_scan_tiles(cfg, plan=None, model_ways: int = 1):
+def ssm_scan_tiles(cfg, plan=None):
     """Per-SEGMENT ``{si: (d_tile, chunk)}`` launch knobs for the B13 scan.
 
     LM attribution always routes SSM segments through the scan kernel;
     this maps a :class:`repro_torch.plan.TilePlan`'s ``ssm<si>.scan``
     entries (``repro_torch.plan.lm_kernel_shapes``) onto the launch knobs.
     Segments without a plan entry, and the whole stack when ``plan`` is
-    None, get the unplanned launch: the whole channel dim of a rank in one
-    grid cell (``d_tile = cfg.d_inner / model_ways``) at the model's
-    ``ssm_chunk``.  The knobs
-    split the grid and the staging, never an element's arithmetic.  Returns
-    None for stacks without SSM segments.
+    None, get the unplanned launch: the whole channel dim in one grid cell
+    (``d_tile = cfg.d_inner``; the kernel clamps it to the channels it is
+    given, a model rank's ``d_inner / ways``) at the model's
+    ``ssm_chunk``.  The knobs split the grid and the staging, never an
+    element's arithmetic.  Returns None for stacks without SSM segments.
     """
     tiles = {}
     for si, (kind, _, _) in enumerate(cfg.layer_plan()):
@@ -299,7 +320,7 @@ def ssm_scan_tiles(cfg, plan=None, model_ways: int = 1):
             continue
         t = plan.get(f"ssm{si}.scan") if plan is not None else None
         tiles[si] = ((t.d_tile, t.chunk) if t is not None
-                     else (cfg.d_inner // model_ways, cfg.ssm_chunk))
+                     else (cfg.d_inner, cfg.ssm_chunk))
     return tiles or None
 
 
@@ -315,14 +336,20 @@ def make_attribute_step(cfg, method: str = "saliency", *,
     embedding gradient) or ``"contrastive"`` (argmax-vs-runner-up
     difference seed).  ``plan`` (a
     ``plan_lm`` :class:`~repro_torch.plan.TilePlan`) sets the scan's
-    ``(d_tile, chunk)`` per segment (:func:`ssm_scan_tiles`; planned at
-    a model rank's channels, ``plan_lm(..., model_ways=)``).  ``mesh``:
-    ``params`` are the rank's (``shard_params``), the rank attributes its
-    rows of ``batch``, and the logits and scores come back whole on every
-    rank."""
+    ``(d_tile, chunk)`` per segment (:func:`ssm_scan_tiles`; on a mesh
+    each planned ``d_tile`` must divide a model rank's channels).
+    ``mesh``: ``params`` are the rank's (``shard_params``), the rank
+    attributes its rows of ``batch``, and the logits and scores come back
+    whole on every rank."""
     if mode not in TOKEN_MODES:
         raise ValueError(f"mode={mode!r} not in {TOKEN_MODES}")
-    scan_tiles = ssm_scan_tiles(cfg, plan, dist_sharding.model_ways(mesh))
+    scan_tiles = ssm_scan_tiles(cfg, plan)
+    d_local = cfg.d_inner // dist_sharding.model_ways(mesh)
+    for si, (d_tile, _) in (scan_tiles or {}).items():
+        if d_local % min(d_tile, d_local):
+            raise ValueError(
+                f"segment {si}: the planned scan tile d_tile={d_tile} does "
+                f"not divide a model rank's {d_local} channels")
 
     def attribute_step(params, batch):
         with dist_sharding.use_mesh(mesh):

@@ -72,10 +72,11 @@ def train_loop(cfg, data: TokenStream, *, steps: int, ckpt_dir: Optional[str],
     computes its rows of it (:func:`steps.make_train_step`); on a "model"
     axis of several ranks each rank trains its slice of the state
     (:func:`steps.shard_state` of the full seed-0 or restored state).
-    Checkpoints hold the full state, the same npz keys at any mesh: every
-    rank gathers it over the model group (:func:`steps.gather_state`) and
-    rank 0 writes it; every rank restores it and takes its slice.  Each
-    rank records its step times under its rank."""
+    Checkpoints hold the full state, the same npz keys at any mesh: it is
+    gathered onto rank 0 alone over its model group, leaf by leaf to the
+    host (:func:`steps.gather_state` with ``dst=0``), and rank 0 writes
+    it; every rank restores it and takes its slice.  Each rank records
+    its step times under its rank."""
     dev = resolve_device(device)
     init_fn, step_fn = build(cfg, microbatches=microbatches,
                              total_steps=steps, mesh=mesh)
@@ -97,7 +98,7 @@ def train_loop(cfg, data: TokenStream, *, steps: int, ckpt_dir: Optional[str],
     writer = manager if rank == 0 else None
 
     def full(state):
-        return steps_lib.gather_state(state, mesh) if manager else None
+        return steps_lib.gather_state(state, mesh, dst=0)
 
     monitor = monitor or HealthMonitor()
     losses = []

@@ -162,16 +162,14 @@ def moe_ffn(p, x, cfg, method="autodiff"):
     tok, assign, slots = dispatch(expert_ids, cfg, c)
     gate_slots = _gather_rows(gates.reshape(t * k), assign)
 
-    # this rank's experts [e0, e0 + el) (all of them at one way)
+    # this rank's experts [e0, e0 + el): its window [lo, hi) of the slots
+    # (all of them at one way)
     el = p["w1"].shape[0]
     e0 = shd.model_group(shd.current_mesh())[1] * el
-    if el == e:
-        xe = _SlotGather.apply(xt, tok, slots)
-    else:
-        lo, hi = e0 * c, (e0 + el) * c
-        mine = (slots >= lo) & (slots < hi)
-        xe = _SlotGather.apply(shd.copy_to_model(xt), tok[lo:hi],
-                               torch.where(mine, slots - lo, hi - lo))
+    lo, hi = e0 * c, (e0 + el) * c
+    mine = (slots >= lo) & (slots < hi)
+    xe = _SlotGather.apply(shd.copy_to_model(xt), tok[lo:hi],
+                           torch.where(mine, slots - lo, hi - lo))
     xe = xe.reshape(el, c, d)
     h = rules.act(torch.bmm(xe, p["w1"]), cfg.act, method,
                   cfg.residual_policy)

@@ -11,7 +11,7 @@ from typing import Any, NamedTuple
 
 import torch
 
-from repro_torch.tree import leaves, tree_map, unflatten, walk
+from repro_torch.tree import leaves, tree_map, unflatten
 
 
 class AdamWState(NamedTuple):
@@ -54,29 +54,13 @@ def adamw_update(grads, state: AdamWState, params, *, lr, b1=0.9, b2=0.95,
                        nu=unflatten(params, new_v)))
 
 
-def clip_by_global_norm(grads, max_norm: float, mesh=None):
-    """Returns ``(clipped_grads, global_norm)``.
-
-    ``mesh``: ``grads`` are a model rank's slices
-    (``dist.params.shard_params``); the squares of the sharded leaves are
-    summed over the model group, those of the replicated leaves (the same
-    on every rank) counted once."""
-    from repro_torch.dist import params as dist_params
-    from repro_torch.dist import sharding as dist_sharding
-    group, _, ways = dist_sharding.model_group(mesh)
-    if ways == 1:
+def clip_by_global_norm(grads, max_norm: float, gnorm=None):
+    """Returns ``(clipped_grads, global_norm)``; ``gnorm``: the global
+    norm where the caller has it (of gradients split over ranks), else
+    that of ``grads``."""
+    if gnorm is None:
         gnorm = torch.sqrt(sum(torch.sum(torch.square(g.to(torch.float32)))
                                for g in leaves(grads)))
-    else:
-        sq = {True: 0.0, False: 0.0}
-        for path, g in walk(grads):
-            sharded = dist_params.sharded_leaf(path, g, mesh)
-            sq[sharded] = sq[sharded] + torch.sum(
-                torch.square(g.to(torch.float32)))
-        part = torch.as_tensor(sq[True], dtype=torch.float32,
-                               device=leaves(grads)[0].device).clone()
-        torch.distributed.all_reduce(part, group=group)
-        gnorm = torch.sqrt(part + sq[False])
     scale = torch.clamp(max_norm / torch.clamp_min(gnorm, 1e-9), max=1.0)
     return tree_map(lambda g: (g.to(torch.float32) * scale).to(g.dtype),
                 grads), gnorm

@@ -794,39 +794,34 @@ def cnn_plan_footprints(cfg, plan: Optional[TilePlan], *,
 LM_PLAN_SEQ = 128
 
 
-def lm_kernel_shapes(cfg, batch: int = 1, seq: int = LM_PLAN_SEQ,
-                     model_ways: int = 1):
+def lm_kernel_shapes(cfg, batch: int = 1, seq: int = LM_PLAN_SEQ):
     """Every planned kernel launch of the LM attribution stack: one
     ``ssm_scan`` launch per mamba / hybrid segment of
-    ``cfg.layer_plan()``, on a model rank's ``d_inner / model_ways``
-    channels; ``chunk_default`` records the config's unplanned chunk
-    length."""
+    ``cfg.layer_plan()``; ``chunk_default`` records the config's unplanned
+    chunk length."""
     out = []
     for si, (kind, _count, _window) in enumerate(cfg.layer_plan()):
         if kind in ("mamba", "hybrid"):
             out.append((f"ssm{si}.scan", "ssm_scan",
-                        dict(b=batch, s=seq, d=cfg.d_inner // model_ways,
-                             n=cfg.ssm_state,
+                        dict(b=batch, s=seq, d=cfg.d_inner, n=cfg.ssm_state,
                              chunk_default=cfg.ssm_chunk)))
     return out
 
 
 def plan_lm(cfg, device=None, precision: str = "f32", *, batch: int = 1,
             seq: int = LM_PLAN_SEQ, autotune: bool = False,
-            cache: Optional[TuningCache] = None,
-            model_ways: int = 1) -> TilePlan:
+            cache: Optional[TuningCache] = None) -> TilePlan:
     """Plan the LM attribution stack's scan launches for ``device``,
     mirroring :func:`plan_cnn` (f32 or bf16: token attribution runs on
-    float gradients); ``model_ways``: at a model rank's channels, for
-    ``make_attribute_step(..., mesh=)``."""
+    float gradients)."""
     if precision not in ("f32", "bf16"):
         raise ValueError(f"plan_lm supports precision f32|bf16, "
                          f"got {precision!r}")
     profile = get_profile(device)
     if isinstance(profile, MeshProfile):
         batch, _ = shard_batch_seeds(batch, 1, profile.n_shards)
-    return _plan_entries(lm_kernel_shapes(cfg, batch, seq, model_ways),
-                         profile, precision, autotune, cache)
+    return _plan_entries(lm_kernel_shapes(cfg, batch, seq), profile,
+                         precision, autotune, cache)
 
 
 def lm_plan_footprints(cfg, plan: Optional[TilePlan], *,

@@ -521,9 +521,9 @@ def tp_train_run(cfg, state, batches, mesh=None, **kw):
     state = steps.shard_state(state, mesh)
     states, metrics, grads, real = [], [], [], steps.clip_by_global_norm
 
-    def spy(g, clip, mesh=None):
+    def spy(g, clip, **kw):
         grads.append(dist_params.gather_params(g, mesh))
-        return real(g, clip, mesh=mesh)
+        return real(g, clip, **kw)
 
     steps.clip_by_global_norm = spy
     try:
@@ -540,10 +540,11 @@ def tp_train_run(cfg, state, batches, mesh=None, **kw):
 def tp_train_scenario(rank, world, states_np, batches_np, model, ckpt):
     """The train step of each arch of ``states_np`` (the JAX package's
     ``TrainState`` as NumPy) on ``make_host_mesh(world // model, model)``
-    over ``batches_np[name]`` (:func:`tp_train_run`); with ``ckpt``: the
-    first arch's run on a ``(1, 1)`` mesh ("ones"), its ``train_loop``
-    writing a checkpoint under ``ckpt/mesh``, and its state restored from
-    the single-process checkpoint under ``ckpt/single``."""
+    over ``batches_np[name]`` (:func:`tp_train_run`); the first arch's
+    initial state sharded and gathered onto rank 0 alone ("onto_rank0");
+    with ``ckpt``: the first arch's run on a ``(1, 1)`` mesh ("ones"), its
+    ``train_loop`` writing a checkpoint under ``ckpt/mesh``, and its state
+    restored from the single-process checkpoint under ``ckpt/single``."""
     from repro_torch.data import TokenStream
     from repro_torch.launch import steps, train
     from repro_torch.launch.mesh import make_host_mesh
@@ -552,8 +553,10 @@ def tp_train_scenario(rank, world, states_np, batches_np, model, ckpt):
     for name, snp in states_np.items():
         out[name] = tp_train_run(tp_config(name), steps.state_from_jax(snp),
                                  batches_np[name], mesh, total_steps=10)
+    first = next(iter(states_np))
+    out["onto_rank0"] = steps.gather_state(steps.shard_state(
+        steps.state_from_jax(states_np[first]), mesh), mesh, dst=0)
     if ckpt:
-        first = next(iter(states_np))
         out["ones"] = tp_train_run(
             tp_config(first), steps.state_from_jax(states_np[first]),
             batches_np[first], make_host_mesh(1, 1), total_steps=10)

@@ -25,6 +25,8 @@ The ranks sum partial products in another order than one device's
 products, hence the tolerances.  A batch below the data-parallel size
 (sequence-parallel decode) raises naming ROADMAP A12d.
 """
+from types import SimpleNamespace
+
 import jax
 import numpy as np
 import pytest
@@ -197,15 +199,43 @@ def test_sequence_parallel_cache_is_a12d():
     assert tuple(cache[0]["k"].shape) == (2, 2, 16, cfg.n_kv * cfg.hd)
 
 
+class _ModelRanks(Mesh):
+    """A ``(1, ways)`` mesh whose model group claims ``ways`` ranks, with
+    no process group behind it: the steps are built, never run."""
+
+    def __init__(self, ways):
+        self.shape, self.axis_names = (1, ways), ("data", "model")
+        self.device_mesh = object()
+
+    def axes_group(self, names):
+        ways = self.shape[1]
+        return (object(), 0, ways) if names == ("model",) else (None, 0, 1)
+
+
 @pytest.mark.parametrize("ways", (1, 2, 4))
 def test_scan_is_planned_at_a_rank_s_channels(ways):
     """The B13 launches of a model rank cover ``d_inner / ways`` channels:
-    the unplanned knobs and the planner's shapes."""
+    the unplanned ``d_tile = d_inner`` launches what a rank's own width
+    does (the kernel clamps it); a planned tile that does not divide a
+    rank's channels (a tile of 640 of hymba-1.5b's 3200 at 2 and 4 ways)
+    is refused where the step is made; one of 160 runs at any way."""
+    from repro_torch import configs
+    from repro_torch.kernels.ssm_scan.ssm_scan import fwd_channels
     from repro_torch.launch import steps
-    from repro_torch.plan import lm_kernel_shapes
-    cfg = tp_config("hymba-1.5b")
-    tiles = steps.ssm_scan_tiles(cfg, None, ways)
-    assert set(tiles.values()) == {(cfg.d_inner // ways, cfg.ssm_chunk)}
-    shapes = lm_kernel_shapes(cfg, 2, 16, model_ways=ways)
-    assert len(shapes) == len(tiles)
-    assert {kw["d"] for _, _, kw in shapes} == {cfg.d_inner // ways}
+    cfg = configs.get("hymba-1.5b")
+    local = cfg.d_inner // ways
+    tiles = steps.ssm_scan_tiles(cfg)
+    assert set(tiles.values()) == {(cfg.d_inner, cfg.ssm_chunk)}
+    assert fwd_channels(cfg.d_inner, local) == fwd_channels(local, local)
+    mesh = _ModelRanks(ways)
+
+    def plan(d_tile):
+        return {f"ssm{si}.scan": SimpleNamespace(d_tile=d_tile, chunk=64)
+                for si in tiles}
+
+    steps.make_attribute_step(cfg, plan=plan(160), mesh=mesh)
+    if ways == 1:
+        steps.make_attribute_step(cfg, plan=plan(640), mesh=mesh)
+    else:
+        with pytest.raises(ValueError, match="d_tile=640"):
+            steps.make_attribute_step(cfg, plan=plan(640), mesh=mesh)

@@ -18,7 +18,9 @@ seed, then ``shard_state``) 3 steps on batches of 4 rows x 8 tokens:
   returns dB and dC summed over a rank's own channels, and without the
   sum over the model group its ``x_proj`` and ``in_proj`` gradients are
   wrong;
-* every rank holds the same gathered state bit for bit; a model axis of 1
+* every rank holds the same gathered state bit for bit; the state
+  gathered onto rank 0 alone (a checkpoint's writer) is the full one, on
+  the host, bit for bit, and None on the other ranks; a model axis of 1
   (a replicated ``(1, 1)`` mesh in the same world) is the plain step bit
   for bit;
 * ``train_loop`` on ``(1, 2)`` writes a checkpoint that one process
@@ -146,6 +148,16 @@ def test_ranks_hold_the_same_state(ranks, key):
             for a, b in zip(trees.leaves(first[name][0][-1]),
                             trees.leaves(other[name][0][-1])):
                 assert torch.equal(a, b), name
+
+
+@pytest.mark.parametrize("key", WORLDS)
+def test_state_gathers_onto_rank_0_alone(setup, ranks, key):
+    first = WORLDS[key][2][0]
+    got = [r["onto_rank0"] for r in ranks[key]]
+    assert all(g is None for g in got[1:])
+    for a, b in zip(trees.leaves(got[0]), trees.leaves(setup["init"][first])):
+        assert a.device.type == "cpu"
+        assert a.dtype == b.dtype and torch.equal(a, b)
 
 
 def test_model_axis_of_one_is_the_plain_step(setup, ranks):

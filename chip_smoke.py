@@ -16,6 +16,7 @@ autotuned), and check them against the CPU.
     python3 chip_smoke.py --out DIR        # also writes DIR/chip_smoke.json
     python3 chip_smoke.py --sweep [--out DIR]
     python3 chip_smoke.py --multi-device [--out DIR]
+    python3 chip_smoke.py --serve-mesh [--out DIR]
 
 ``--sweep`` runs phase 1, then times the launch choices of B4 (every K
 split) and B1 (the tile plans of ``conv_candidates``, all bitwise equal;
@@ -337,8 +338,39 @@ Phases (every failed check raises; nothing is caught and carried on):
    row-weighted f32 sum of the plain step's gradients of each rank's
    slice, loss and CE likewise: each rank rounds the bf16 gradient of its
    rows before the sum, so against the whole batch's plain step bf16
-   would set the bound); else one line says the machine has one card.  ``--multi-device`` runs phase 1, then
-   phase 15 alone (on a llama3.2-1b state from seed 0), and stops.
+   would set the bound); else one line says the machine has one card.
+16. the model axis (after phase 15): B13 and its backward at a model
+   rank's channels, and the tensor / expert parallel LM steps in a gloo
+   world of 2 ranks sharing the card against the single-process steps
+   (:func:`check_model_axis`; NCCL worlds of 2 and 4 cards under
+   ``--multi-device`` or ``--model-axis``); path ``tp``.
+17. multi-rank serving (after phase 16): (a) a gloo world of 2 ranks
+   sharing card 0 serves the Table III CNN from a ``mesh:h100:2`` engine
+   (``max_batch`` 32 a rank, 64 seats a launch) through the explanation
+   server on rank 0 (``repro_torch.serve.follower.lead``), the other rank
+   joining every launch (``follower.follow``): phase 10's request mix
+   (predicts, hits of saliency, guided and deconvnet with and without
+   top-3 and explicit targets, cold explains of the same rows, integrated
+   gradients, smoothgrad, input x gradient, occlusion, LIME, RISE, an
+   fxp16 reroute under admission pressure) in f32, bf16 and fxp16, each
+   held against the one-process ``h100`` server's responses on the same
+   stream (fxp16 bitwise; f32 logits within DOT_TOL and relevance within
+   REPLAY_TOL of max, bf16 within BF16_TOL; a BP response whose stored
+   bits differ replayed on the world's bits; residual bits within
+   MIN_BIT_AGREEMENT); within the world each hit bitwise its cold
+   explain, every follower joining every launch with no fault; host ms a
+   64-row predict, hit and cold batch against the one-process server's,
+   with the call stream's collectives and bytes a batch; paths
+   ``serve_mesh_f32``, ``serve_mesh_bf16``, ``serve_mesh_fxp16`` (B1-B10
+   on rank 0, counted over the predict, hit and cold BP bursts).  (b)
+   under ``--multi-device`` or ``--serve-mesh`` with 2 or more cards, NCCL
+   worlds of ``min(4, count)`` ranks, one card each, the same checks and
+   phase 10's timed replay (SERVE_REPLAY_N requests) beside the one-card
+   server's; no speed-up is claimed.
+
+``--multi-device`` runs phase 1, then phase 15 alone (on a llama3.2-1b
+state from seed 0), 16 and 17, and stops; ``--model-axis`` runs phase 1
+and phase 16 alone; ``--serve-mesh`` phase 1 and phase 17 alone.
 
 Last, the profiler column of phase 2: every row's kernel (and general
 route) 50 times under one profiler session, its CUPTI time per call;
@@ -7114,6 +7146,491 @@ def check_model_axis(kc, launches, multi):
 
 
 # ---------------------------------------------------------------------------
+# phase 17: multi-rank serving (the explanation server on a mesh of ranks)
+# ---------------------------------------------------------------------------
+
+#: (a) gloo ranks sharing card 0, and each rank's seats a launch
+#: (``max_batch``): a launch has 2 x 32 = 64
+MESH_SERVE_RANKS, MESH_SERVE_BATCH = 2, 32
+#: (b) NCCL worlds of at most this many ranks, one card each
+MESH_SERVE_MAX_RANKS = 4
+#: timed bursts of each batch kind through a server (after MESH_SERVE_WARM)
+MESH_SERVE_TIMED, MESH_SERVE_WARM = 7, 2
+MESH_SERVE_TIMEOUT_S = 900
+MESH_SERVE_OPTS = {"integrated_gradients": {"steps": SERVE_IG_STEPS},
+                   "smoothgrad": {"n": SERVE_SG_N}}
+#: the bursts that run the seed-batched pair alone, counted (path
+#: ``serve_mesh_<precision>``): 4 forwards (the predict batch, two cold
+#: batches of the hit rows, the new uids' cold batch) and 9 BP launches
+#: (5 hit groups, 2 + 1 cold, the new uids' top-3 follow-ups)
+MESH_SERVE_COUNTED = ("predict", "hits", "colds", "new", "followups")
+MESH_SERVE_FORWARDS, MESH_SERVE_BPS = 4, 9
+
+
+def _mesh_serve_phases(pool, precision):
+    """Phase 10's request mix at 64 seats a launch, as ``(name, server,
+    requests)`` bursts: 64 predicts; their explains (saliency, guided,
+    deconvnet, saliency top-3, guided at explicit targets: every one a
+    hit); cold explains of the first and the top-3 hit rows under new
+    uids (each bitwise its hit); 32 cold explains of new rows and their
+    top-3 follow-ups; 8 integrated gradients, 8 smoothgrad (per-request
+    seeds), 8 input x gradient; 8 each of occlusion, LIME and RISE (per-
+    request seeds); from f32 and bf16, 16 explains through a server of
+    capacity 16 that reroutes the last 8 to fxp16."""
+    from repro_torch.serve import Request as R
+
+    def ex(uid, i, method, **kw):
+        return R(uid=uid, kind="explain", x=pool[i], method=method, **kw)
+
+    phases = [
+        ("predict", "main", [R(uid=f"p{i}", kind="predict", x=pool[i])
+                             for i in range(64)]),
+        ("hits", "main",
+         [ex(f"p{i}", i, "saliency") for i in range(16)]
+         + [ex(f"p{i}", i, "guided") for i in range(16, 32)]
+         + [ex(f"p{i}", i, "deconvnet") for i in range(32, 40)]
+         + [ex(f"p{i}", i, "saliency", topk=SEEDS) for i in range(40, 56)]
+         + [ex(f"p{i}", i, "guided", target=i % 10)
+            for i in range(56, 64)]),
+        ("colds", "main",
+         [ex(f"c{i}", i, "saliency") for i in range(16)]
+         + [ex(f"c{i}", i, "saliency", topk=SEEDS) for i in range(40, 56)]),
+        ("new", "main", [ex(f"n{i}", 64 + i, "saliency")
+                         for i in range(32)]),
+        ("followups", "main", [ex(f"n{i}", 64 + i, "guided", topk=SEEDS)
+                               for i in range(32)]),
+        ("composites", "main",
+         [ex(f"g{i}", 96 + i, "integrated_gradients") for i in range(8)]
+         + [ex(f"s{i}", 104 + i, "smoothgrad", key=1000 + i)
+            for i in range(8)]
+         + [ex(f"i{i}", 96 + i, "input_x_gradient") for i in range(8)]),
+        ("perturb", "main",
+         [ex(f"o{i}", 112 + i, "occlusion") for i in range(8)]
+         + [ex(f"l{i}", 112 + i, "lime", key=2000 + i) for i in range(8)]
+         + [ex(f"r{i}", 112 + i, "rise", key=3000 + i) for i in range(8)]),
+    ]
+    if precision != "fxp16":
+        phases.append(("reroute", "reroute",
+                       [ex(f"d{i}", 120 + i, "saliency")
+                        for i in range(16)]))
+    return phases
+
+
+def _mesh_serve_servers(adapter, max_batch):
+    from repro_torch.serve import (AdmissionConfig, DegradePolicy,
+                                   ExplanationServer)
+    kw = dict(max_batch=max_batch, max_delay_s=60.0, cache_capacity=1024,
+              method_opts=MESH_SERVE_OPTS)
+    return {"main": ExplanationServer(adapter, **kw),
+            "reroute": ExplanationServer(adapter, admission=AdmissionConfig(
+                capacity=16, degrade=DegradePolicy(
+                    pressure_threshold=0.5, reroute_precision="fxp16")),
+                **kw)}
+
+
+def _stream_counts(stats):
+    if stats is None:
+        return {}
+    flat = {f"calls/{k}": v for k, v in stats["calls"].items()}
+    flat.update({k: v for k, v in stats.items()
+                 if isinstance(v, (int, float)) and k != "calls"})
+    return flat
+
+
+def _mesh_serve_run(servers, phases, stats=None):
+    """Every burst of ``phases`` through ``servers``: the responses on
+    the host by phase, the stream's counts each burst added, the launches
+    of the counted bursts (this process's counters), and the main cache's
+    residuals on the host by uid."""
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.models import cnn
+    out, counts, launches = {}, {}, {}
+    for name, which, reqs in phases:
+        if name == MESH_SERVE_COUNTED[0]:
+            torch.cuda.synchronize()
+            reset_launches()
+        before = _stream_counts(stats)
+        resps = _burst(servers[which], reqs)
+        after = _stream_counts(stats)
+        counts[name] = {k: v - before.get(k, 0) for k, v in after.items()}
+        if name == MESH_SERVE_COUNTED[-1]:
+            torch.cuda.synchronize()
+            launches = dict(LAUNCHES)
+        out[name] = [dict(uid=r.uid, kind=r.kind, method=r.method,
+                          targets=r.targets, cache_hit=r.cache_hit,
+                          batch_size=r.batch_size, meta=dict(r.meta),
+                          logits=r.logits.cpu(),
+                          relevance=(None if r.relevance is None
+                                     else r.relevance.cpu()))
+                     for r in resps]
+    cache = servers["main"].cache
+    res = {uid: cnn.residuals_to(cache.peek(uid).residuals, "cpu")
+           for uid in [f"p{i}" for i in range(64)]
+           + [f"c{i}" for i in list(range(16)) + list(range(40, 56))]
+           + [f"n{i}" for i in range(32)]}
+    return out, counts, launches, res
+
+
+def _mesh_serve_timing(servers, pool, stats=None):
+    """Host ms (median of MESH_SERVE_TIMED) through the main server of a
+    64-row predict, hit (the predicted rows' saliency) and cold BP batch
+    (new uids), and the stream's counts a batch."""
+    from repro_torch.serve import Request
+    srv = servers["main"]
+    seq = iter(range(10 ** 6))
+
+    def fresh(kind):
+        k = next(seq)
+        return [Request(uid=f"t{k}_{j}", kind=kind, x=pool[j],
+                        method="saliency") for j in range(64)]
+
+    rows = {"predict": lambda: fresh("predict"),
+            "hit": lambda: [Request(uid=f"p{j}", kind="explain", x=pool[j],
+                                    method="saliency") for j in range(64)],
+            "cold BP": lambda: fresh("explain")}
+    out = {}
+    for what, reqs_fn in rows.items():
+        host, per = [], None
+        for i in range(MESH_SERVE_WARM + MESH_SERVE_TIMED):
+            reqs = reqs_fn()
+            torch.cuda.synchronize()
+            before = _stream_counts(stats)
+            t0 = time.perf_counter()
+            _burst(srv, reqs)
+            host.append(1e3 * (time.perf_counter() - t0))
+            after = _stream_counts(stats)
+            per = {k: v - before.get(k, 0) for k, v in after.items()}
+        out[what] = dict(host_ms=statistics.median(host[MESH_SERVE_WARM:]),
+                         stream=per)
+    return out
+
+
+def _mesh_serve_replay(adapter, multi_rank):
+    """Phase 10's timed replay of SERVE_REPLAY_N requests (no admission)
+    through ``adapter`` (rank 0's stream adapter on a world, or the
+    one-card adapter): p50 / p99 by kind and throughput."""
+    from repro_torch.serve import ExplanationServer
+    from repro_torch.serve.replay import (TimedAdapter, VirtualClock,
+                                          replay, synthesize)
+    clock = VirtualClock()
+    srv = ExplanationServer(TimedAdapter(adapter, clock), clock=clock,
+                            max_batch=SERVE_BATCH, max_delay_s=0.002)
+    t0 = time.perf_counter()
+    rep = replay(srv, synthesize(SERVE_REPLAY_N, seed=0),
+                 example_shape=(32, 32, 3))
+    wall = time.perf_counter() - t0
+    snap = rep.snapshot()
+    if rep.errors:
+        fail(f"phase 17 replay: {rep.errors} error responses")
+    return dict(predict_p50_us=snap.get("predict_p50_us"),
+                predict_p99_us=snap.get("predict_p99_us"),
+                explain_p50_us=snap.get("explain_p50_us"),
+                explain_p99_us=snap.get("explain_p99_us"),
+                completed=rep.completed, makespan_s=snap["makespan_s"],
+                req_per_s=rep.completed / snap["makespan_s"],
+                wall_s=wall, ranks=multi_rank)
+
+
+def _mesh_serve_pool():
+    return torch.randn((SERVE_POOL, 32, 32, 3),
+                       generator=torch.Generator().manual_seed(2)).numpy()
+
+
+def _mesh_serve_rank(rank, world, store, backend, out_dir, replay_too):
+    """One rank of a phase 17 world: a ``mesh:h100:<world>`` CNN adapter
+    in f32, bf16 and fxp16 on its card; rank 0 leads the servers through
+    the stream (``follower.lead``), the others follow.  Rank 0's results
+    go to ``out_dir/rank0.pt``, every rank's follower stats to its own; a
+    failure's traceback to ``rank<r>.err``."""
+    import traceback
+
+    import torch.distributed as dist
+    try:
+        torch.cuda.set_device(rank if backend == "nccl" else 0)
+        dist.init_process_group(backend, init_method=f"file://{store}",
+                                rank=rank, world_size=world)
+        from repro_torch.engine import CNNModel, EngineSpec, build
+        from repro_torch.kernels import _build
+        from repro_torch.models import cnn
+        from repro_torch.serve import CNNAdapter, follower
+        _build.library()
+        cfg = cnn.CNNConfig()
+        params = cnn.init(torch.Generator().manual_seed(0), cfg)
+        pool = _mesh_serve_pool()
+        out = dict(backend=dist.get_backend())
+        for precision in ("f32", "bf16", "fxp16"):
+            adapter = CNNAdapter.from_engine(build(EngineSpec(
+                CNNModel(params, cfg, device="cuda"), precision=precision,
+                device=f"mesh:h100:{world}")))
+            if adapter.engine.mesh is None or adapter.engine.mesh.size \
+                    != world:
+                fail(f"phase 17: rank {rank}'s engine mesh "
+                     f"{adapter.engine.mesh!r}, not {world} ranks")
+            if rank > 0:
+                out[precision] = follower.follow(adapter)
+                continue
+            with follower.lead(adapter) as adp:
+                stats = adp.stream.stats
+                servers = _mesh_serve_servers(adp, MESH_SERVE_BATCH)
+                recs, counts, launches, res = _mesh_serve_run(
+                    servers, _mesh_serve_phases(pool, precision), stats)
+                timing = _mesh_serve_timing(servers, pool, stats)
+                rep = (_mesh_serve_replay(adp, world)
+                       if replay_too and precision == "f32" else None)
+                out[precision] = dict(records=recs, counts=counts,
+                                      launches=launches, residuals=res,
+                                      timing=timing, replay=rep,
+                                      stats=dict(stats))
+        dist.destroy_process_group()
+        torch.save(out, Path(out_dir, f"rank{rank}.pt"))
+    except BaseException:
+        Path(out_dir, f"rank{rank}.err").write_text(traceback.format_exc())
+        raise SystemExit(1)
+
+
+def _mesh_serve_world(backend, world, replay_too):
+    """A world of ``world`` ranks running :func:`_mesh_serve_rank`;
+    every rank's results (a failed rank stops the others at once)."""
+    import multiprocessing as mp
+    with tempfile.TemporaryDirectory(prefix="serve_mesh_") as d:
+        ctx = mp.get_context("spawn")
+        procs = [ctx.Process(target=_mesh_serve_rank, args=(
+            r, world, str(Path(d, "store")), backend, d, replay_too))
+            for r in range(world)]
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + MESH_SERVE_TIMEOUT_S
+        while (any(p.is_alive() for p in procs)
+               and time.monotonic() < deadline
+               and not any(p.exitcode for p in procs)):
+            time.sleep(0.5)
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+            p.join()
+        bad = [e.read_text() for e in (Path(d, f"rank{r}.err")
+                                       for r in range(world)) if e.exists()]
+        if bad or any(p.exitcode != 0 for p in procs):
+            fail(f"phase 17: {backend} ranks failed (exit codes "
+                 f"{[p.exitcode for p in procs]}):\n" + "\n".join(bad))
+        return [torch.load(Path(d, f"rank{r}.pt"), weights_only=False)
+                for r in range(world)]
+
+
+def _mesh_serve_held(what, got, want, got_res, want_res, precision,
+                     single):
+    """Rank 0's responses against the one-process server's on the same
+    stream: fxp16 bitwise; else targets, hits, batch sizes and meta
+    equal, logits within DOT_TOL (bf16 BF16_TOL) of max and relevance
+    within REPLAY_TOL (bf16 BF16_TOL) of max; a BP response whose
+    example's stored bits differ is held against the one-process
+    engine's replay of the world's bits.  Cached residual bits agree on
+    MIN_BIT_AGREEMENT of them.  Returns the worst errors and the
+    examples replayed."""
+    from repro_torch.models import cnn
+    from repro_torch.serve import registry
+    ltol, rtol = ((BF16_TOL, BF16_TOL) if precision == "bf16"
+                  else (DOT_TOL, REPLAY_TOL))
+    worst, replayed = {"logits": 0.0, "relevance": 0.0}, 0
+    flips = bits = 0
+    for uid, r in got_res.items():
+        if precision == "fxp16":
+            if not all(a is None and b is None or torch.equal(a, b)
+                       for a, b in zip(_res_tensors(r),
+                                       _res_tensors(want_res[uid]))):
+                fail(f"{what} {uid}: stored residuals not bitwise")
+            continue
+        f, b = _residual_bit_flips(r, want_res[uid])
+        flips, bits = flips + f, bits + b
+    if flips > (1 - MIN_BIT_AGREEMENT) * max(bits, 1):
+        fail(f"{what}: {flips} of {bits} stored residual bits differ")
+    for phase, wants in want.items():
+        gots = got[phase]
+        if [r["uid"] for r in gots] != [r["uid"] for r in wants]:
+            fail(f"{what} {phase}: responses in another order")
+        for a, b in zip(gots, wants):
+            where = f"{what} {phase} {a['uid']}"
+            for k in ("kind", "method", "targets", "cache_hit",
+                      "batch_size", "meta"):
+                if a[k] != b[k]:
+                    fail(f"{where}: {k} {a[k]!r}, one process {b[k]!r}")
+            ref = b["relevance"]
+            if (a["relevance"] is None) != (ref is None):
+                fail(f"{where}: relevance {a['relevance'] is None}, one "
+                     f"process {ref is None}")
+            if precision == "fxp16":
+                if not (torch.equal(a["logits"], b["logits"])
+                        and (ref is None
+                             or torch.equal(a["relevance"], ref))):
+                    fail(f"{where}: not bitwise the one-process server's")
+                continue
+            err = _rel_err(a["logits"], b["logits"])
+            worst["logits"] = max(worst["logits"], err)
+            if not err <= ltol:
+                fail(f"{where}: logits {err:.3e} of max from one process")
+            if ref is None:         # a predict
+                continue
+            err = _rel_err(a["relevance"], ref)
+            key = a["uid"] if a["uid"] in got_res else None
+            if (err > rtol and key is not None
+                    and registry.get(a["method"]).mask_reuse
+                    and _residual_bit_flips(got_res[key],
+                                            want_res[key])[0]):
+                seeds = F.one_hot(torch.tensor(a["targets"]),
+                                  10).float()[:, None].cuda()
+                ref = single.engine_for(a["method"]).replay(
+                    cnn.residuals_to(got_res[key], "cuda"), seeds)[:, 0]
+                ref = (ref if a["relevance"].dim() == 4 else ref[0]).cpu()
+                err = _rel_err(a["relevance"], ref)
+                replayed += 1
+            worst["relevance"] = max(worst["relevance"], err)
+            if not err <= rtol:
+                fail(f"{where}: relevance {err:.3e} of max from one "
+                     f"process")
+    return dict(worst=worst, replayed=replayed, flips=flips, bits=bits)
+
+
+def _mesh_serve_world_checks(what, ranks, singles, launches, replay_too):
+    """Hold a world's results (:func:`_mesh_serve_world`) against the
+    one-process servers' (``singles``, by precision); count its launches
+    (paths ``serve_mesh_<precision>``); print and return its readings."""
+    lead = ranks[0]
+    world = len(ranks)
+    rows = {}
+    for precision in ("f32", "bf16", "fxp16"):
+        got, single = lead[precision], singles[precision]
+        held = _mesh_serve_held(f"{what} {precision}", got["records"],
+                                single["records"], got["residuals"],
+                                single["residuals"], precision,
+                                single["adapter"])
+        # within the world, each hit bitwise its cold explain
+        hits = {r["uid"]: r for r in got["records"]["hits"]}
+        for cold in got["records"]["colds"]:
+            hit = hits["p" + cold["uid"][1:]]
+            if not (hit["cache_hit"] and not cold["cache_hit"]
+                    and hit["batch_size"] == cold["batch_size"]
+                    and torch.equal(hit["relevance"], cold["relevance"])
+                    and torch.equal(hit["logits"], cold["logits"])):
+                fail(f"{what} {precision} {cold['uid']}: the cold explain "
+                     f"is not bitwise its hit")
+        # every follower joined every launch, and met no fault
+        for r in range(1, world):
+            fol = ranks[r][precision]
+            if fol["calls"] != dict(got["stats"]["calls"], stop=1) \
+                    or fol["faults"]:
+                fail(f"{what} {precision}: rank {r} joined "
+                     f"{fol['calls']}, faults {fol['faults']}; rank 0 "
+                     f"made {got['stats']['calls']}")
+        kernels = (PER_EXPLAIN["fxp16"] if precision == "fxp16"
+                   else PER_COLD_BATCH)
+        fwd = set(PER_EXPLAIN["fxp16"]) - {"conv2d_bwd_fused_fxp",
+                                           "vmm_bwd_fused_fxp"}
+        want = {k: v * (MESH_SERVE_FORWARDS if k in PER_PREDICT_BATCH
+                        or k in fwd else MESH_SERVE_BPS)
+                for k, v in kernels.items()}
+        _expect(got["launches"], want, f"{what} {precision} launches")
+        path = f"serve_mesh_{precision}"
+        for k, v in got["launches"].items():
+            launches.setdefault(path, {})
+            launches[path][k] = launches[path].get(k, 0) + v
+        rows[precision] = dict(held=held, timing=got["timing"],
+                               one_process=single["timing"],
+                               counts=got["counts"], replay=got["replay"])
+        hit = got["counts"]["hits"]
+        print(f"  {what} {precision}: every response against the one-"
+              f"process h100 server (max_batch {MESH_SERVE_BATCH * world}"
+              f"): worst logits {held['worst']['logits']:.3e}, relevance "
+              f"{held['worst']['relevance']:.3e} of max ({held['replayed']}"
+              f" replayed on the world's bits; stored bits {held['flips']}"
+              f" of {held['bits']} differ); hits bitwise their cold "
+              f"explains; the hit bursts shipped {hit['residual_bytes']} "
+              f"residual bytes in {hit['calls/explain_cached']} launches")
+        for kind, t in got["timing"].items():
+            s = t["stream"]
+            print(f"    {kind:8s} batch (64 rows): {t['host_ms']:.3f} ms "
+                  f"host on {world} ranks, one process "
+                  f"{single['timing'][kind]['host_ms']:.3f}; stream "
+                  f"collectives {s['collectives']}, payload "
+                  f"{s['payload_bytes']} B (residuals "
+                  f"{s['residual_bytes']} B), announce "
+                  f"{1e3 * s['announce_s']:.3f} ms, agree "
+                  f"{1e3 * s['agree_s']:.3f} ms")
+    if replay_too:
+        rep, one = lead["f32"]["replay"], singles["f32"]["replay"]
+        print(f"  {what} timed replay, f32, {SERVE_REPLAY_N} requests, "
+              f"max_batch {SERVE_BATCH} a rank: {world} ranks p50/p99 us "
+              f"predict {rep['predict_p50_us']}/{rep['predict_p99_us']}, "
+              f"explain {rep['explain_p50_us']}/{rep['explain_p99_us']}, "
+              f"{rep['req_per_s']:.1f} req/s virtual ({rep['wall_s']:.2f}"
+              f" s wall); one card {one['predict_p50_us']}/"
+              f"{one['predict_p99_us']}, {one['explain_p50_us']}/"
+              f"{one['explain_p99_us']}, {one['req_per_s']:.1f} req/s "
+              f"({one['wall_s']:.2f} s wall); no speed-up claimed")
+    return rows
+
+
+def _mesh_serve_singles(world, replay_too):
+    """The one-process ``h100`` servers on card 0 (max_batch = the
+    world's seats) on the same streams, by precision."""
+    from repro_torch.engine import CNNModel, EngineSpec, build
+    from repro_torch.models import cnn
+    from repro_torch.serve import CNNAdapter
+    cfg = cnn.CNNConfig()
+    params = cnn.init(torch.Generator().manual_seed(0), cfg)
+    pool = _mesh_serve_pool()
+    out = {}
+    for precision in ("f32", "bf16", "fxp16"):
+        adapter = CNNAdapter.from_engine(build(EngineSpec(
+            CNNModel(params, cfg, device="cuda"), precision=precision,
+            device="h100")))
+        servers = _mesh_serve_servers(adapter, MESH_SERVE_BATCH * world)
+        recs, counts, launches, res = _mesh_serve_run(
+            servers, _mesh_serve_phases(pool, precision))
+        out[precision] = dict(
+            records=recs, residuals=res, adapter=adapter,
+            timing=_mesh_serve_timing(servers, pool),
+            replay=(_mesh_serve_replay(adapter, 1)
+                    if replay_too and precision == "f32" else None))
+    return out
+
+
+def check_serve_mesh(launches, multi):
+    """Phase 17: (a) a gloo world of MESH_SERVE_RANKS ranks sharing card
+    0 serves the Table III CNN from a ``mesh:h100:2`` engine, held
+    against the one-process server; (b) with ``multi`` and 2 or more
+    cards, a NCCL world of ``min(MESH_SERVE_MAX_RANKS, count)`` ranks,
+    one card each, the same, and the timed replay beside the one-card
+    server's."""
+    print(f"phase 17 (a): a gloo world of {MESH_SERVE_RANKS} ranks sharing "
+          f"card 0, mesh:h100:{MESH_SERVE_RANKS}, max_batch "
+          f"{MESH_SERVE_BATCH} a rank ({MESH_SERVE_BATCH * MESH_SERVE_RANKS}"
+          f" seats a launch), phase 10's mix in f32 / bf16 / fxp16")
+    t0 = time.perf_counter()
+    ranks = _mesh_serve_world("gloo", MESH_SERVE_RANKS, False)
+    t_world = time.perf_counter() - t0
+    singles = _mesh_serve_singles(MESH_SERVE_RANKS, False)
+    out = {"a": _mesh_serve_world_checks("(a)", ranks, singles, launches,
+                                         False)}
+    print(f"  (a) took {time.perf_counter() - t0:.1f} s (the world "
+          f"{t_world:.1f} s)")
+    for precision in ("f32", "bf16", "fxp16"):
+        check_path_launches(f"serve_mesh_{precision}",
+                            launches[f"serve_mesh_{precision}"])
+    count = torch.cuda.device_count()
+    if multi and count >= 2:
+        world = min(MESH_SERVE_MAX_RANKS, count)
+        t0 = time.perf_counter()
+        ranks = _mesh_serve_world("nccl", world, True)
+        singles = _mesh_serve_singles(world, True)
+        out["b"] = _mesh_serve_world_checks(f"(b) {world} cards", ranks,
+                                            singles, {}, True)
+        print(f"  (b) {world} cards took {time.perf_counter() - t0:.1f} s")
+    elif multi:
+        print(f"phase 17 (b): the machine has {count} card: no NCCL world")
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 
 #: The counters each path must launch; the others must stay at 0 there.
@@ -7143,12 +7660,24 @@ PATH_KERNELS = {"f32": tuple(PER_EXPLAIN["f32"]),
                 "dp_f32": tuple(PER_EXPLAIN["f32"]),
                 "dp_bf16": tuple(PER_EXPLAIN["bf16"]),
                 "dp_fxp16": tuple(PER_EXPLAIN["fxp16"]),
-                "tp": ("selective_scan", "selective_scan_bwd")}
+                "tp": ("selective_scan", "selective_scan_bwd"),
+                "serve_mesh_f32": tuple(PER_COLD_BATCH),
+                "serve_mesh_bf16": tuple(PER_COLD_BATCH),
+                "serve_mesh_fxp16": tuple(PER_EXPLAIN["fxp16"])}
 #: The path whose launches the kernel JSON reports for each kernel: the
 #: first that runs it (the bf16 paths report the bf16 instances).
 KERNEL_PATH = {k: next(p for p in PATH_KERNELS if k in PATH_KERNELS[p]
                        and not p.startswith("bf16"))
                for k in KERNELS}
+
+
+def mesh_serve_launches(launches, name, counter):
+    """The launches of a kernels-line row's counter on phase 17's paths
+    (rank 0's): the bf16 instances on ``serve_mesh_bf16``, the others on
+    the f32 and fxp16 paths that run them."""
+    paths = (("bf16",) if name in BF16_INSTANCES else ("f32", "fxp16"))
+    return {f"serve_mesh_{p}": launches[f"serve_mesh_{p}"].get(counter, 0)
+            for p in paths}
 
 
 def check_path_launches(path, got):
@@ -7179,6 +7708,10 @@ def main() -> int:
                     help="after phase 1, run phase 16 alone and stop: on "
                          "a machine of several cards also its NCCL worlds "
                          "(c)")
+    ap.add_argument("--serve-mesh", action="store_true",
+                    help="after phase 1, run phase 17 alone and stop: on "
+                         "a machine of several cards also its NCCL world "
+                         "(b)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke test needs one",
@@ -7286,10 +7819,24 @@ def main() -> int:
         out["model_axis"] = check_model_axis(
             KernelCheck(imad_per_s, mufu_per_s), launches, multi=True)
         check_path_launches("tp", launches["tp"])
+        print("phase 17 (multi-rank serving) after phase 16")
+        out["serve_mesh"] = check_serve_mesh(launches, multi=True)
         if args.out is not None:
             args.out.mkdir(parents=True, exist_ok=True)
             (args.out / "multi_device.json").write_text(json.dumps(dict(
                 device=kind, nvidia_smi=smi, multi_device=out,
+                launches=launches), indent=1))
+        print(smi)
+        return 0
+
+    if args.serve_mesh:
+        print("phase 17 (multi-rank serving) alone")
+        launches = {}
+        out = check_serve_mesh(launches, multi=True)
+        if args.out is not None:
+            args.out.mkdir(parents=True, exist_ok=True)
+            (args.out / "serve_mesh.json").write_text(json.dumps(dict(
+                device=kind, nvidia_smi=smi, serve_mesh=out,
                 launches=launches), indent=1))
         print(smi)
         return 0
@@ -7449,6 +7996,13 @@ def main() -> int:
           f"against the single-process steps")
     tp_results = check_model_axis(kc, launches, multi=False)
     check_path_launches("tp", launches["tp"])
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase 17 (multi-rank serving): the explanation server on a "
+          f"mesh:h100:{MESH_SERVE_RANKS} engine over a gloo world of "
+          f"{MESH_SERVE_RANKS} ranks on this card, rank 0 leading, the "
+          f"others following, against the one-process server")
+    serve_mesh_results = check_serve_mesh(launches, multi=False)
 
     # last, as a profiler session slows what runs after it: phase 2's
     # profiler column (the process's first session), then where each
@@ -7487,12 +8041,15 @@ def main() -> int:
              for name, (counter, entry) in BF16_INSTANCES.items()]
     for name, n_launched, source, replaces in rows:
         s = kc.sums[name]
+        counter = BF16_INSTANCES.get(name, (name,))[0]
         kernels.append(dict(name=name, route="cuda", source=source,
                             replaces=replaces, launches=n_launched,
                             max_abs_err=kc.err[name], ms=s["ms"],
                             plain_ms=s["plain_ms"], bound_ms=s["bound_ms"],
                             bound_by=_bound_by(kc, name),
-                            library_ms=s["library_ms"]))
+                            library_ms=s["library_ms"],
+                            mesh_serve_launches=mesh_serve_launches(
+                                launches, name, counter)))
     if args.out is not None:
         args.out.mkdir(parents=True, exist_ok=True)
         (args.out / "chip_smoke.json").write_text(json.dumps(dict(
@@ -7504,7 +8061,7 @@ def main() -> int:
             lm_twin=twin_results, lm_zoo=zoo_results, serve=serve_results,
             train_lm=train_lm_results, train_cnn=train_cnn_results,
             multi_device=multi_results, model_axis=tp_results,
-            perturb=perturb_results, plan=plan_results,
+            serve_mesh=serve_mesh_results, perturb=perturb_results, plan=plan_results,
             scan_backward_ms=kc.scan_backward_ms,
             mma_accumulation=kc.accumulation, bf16_one_seed=kc.one_seed,
             scan_backward_loop_ms=kc.scan_backward_loop_ms,

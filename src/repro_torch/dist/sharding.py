@@ -477,8 +477,11 @@ def gather_tree_rows(mesh, tree, n: int):
     raw = [t.contiguous().reshape(rows, -1).view(torch.uint8) for t in local]
     full = gather_rows(mesh, torch.cat(raw, dim=1), n)
     parts = iter(torch.split(full, [r.shape[1] for r in raw], dim=1))
-    return map_tensors(lambda t: next(parts).contiguous().view(
-        t.dtype).reshape((n,) + tuple(t.shape[1:])), tree)
+    # each leaf's bytes copied out whole: a one-row part is "contiguous"
+    # at the full row's stride and offset, which no dtype view takes
+    return map_tensors(lambda t: next(parts).clone(
+        memory_format=torch.contiguous_format).view(t.dtype).reshape(
+            (n,) + tuple(t.shape[1:])), tree)
 
 
 def slice_tree_rows(mesh, tree):

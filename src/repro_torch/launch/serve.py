@@ -22,6 +22,17 @@ Both run on the card unless ``--torch-device cpu`` asks for the CPU::
     python -m repro_torch.launch.serve --workload cnn --requests 16
     python -m repro_torch.launch.serve --workload lm --arch falcon-mamba-7b \\
         --method token_ixg --torch-device cpu
+    torchrun --standalone --nproc-per-node 2 -m repro_torch.launch.serve \\
+        --workload cnn --torch-device cpu --device-profile mesh:edge-small:2
+
+Under ``torchrun`` the driver initializes the default process group from
+the environment (NCCL on the cards, one card a rank; gloo with
+``--torch-device cpu``).  A ``mesh:<profile>:<n>`` CNN engine then shards
+every launch over the ranks: rank 0 runs the server and prints what the
+single-process driver prints, and the other ranks follow its launches
+(:mod:`repro_torch.serve.follower`) and exit 0 when it is done.  LM
+engines build unsharded (as the JAX package's), so there rank 0 serves
+alone and the other ranks wait for it at a barrier.
 
 ``--method occlusion|lime|rise`` serves the perturbation explainers
 (``--perturb-samples`` sets lime's and rise's fan-out).
@@ -42,16 +53,18 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 import repro_torch.configs as configs
 from repro_torch import engine as engine_lib
 from repro_torch.engine.spec import resolve_device
+from repro_torch.launch.train import init_from_env
 from repro_torch.models import cnn as cnn_lib, transformer as tf
 from repro_torch.obs import Tracer, dumps_strict, snapshot as obs_snapshot
 from repro_torch.obs import profile as obs_profile
 from repro_torch.serve import (AdmissionConfig, CNNAdapter, DegradePolicy,
                                ExplanationServer, Request, ShedError,
-                               registry)
+                               follower, registry)
 
 
 def generate(cfg, params, prompt_tokens, *, max_new: int = 16):
@@ -205,9 +218,32 @@ def run_cnn(args) -> None:
         model=engine_lib.CNNModel(params, cfg, device=device),
         method="saliency", precision=args.precision,
         device=args.device_profile, autotune=args.autotune))
+    adapter = CNNAdapter.from_engine(eng)
+    ranks = eng.mesh.size if eng.mesh is not None else 1
+    if dist.is_initialized() and dist.get_rank() > 0:
+        if ranks > 1:
+            follower.follow(adapter)    # every launch of rank 0's server
+        return                          # else rank 0 serves alone
+    if ranks == 1:
+        _serve_cnn(args, cfg, eng, adapter, device)
+        return
+    with follower.lead(adapter) as adp:
+        _serve_cnn(args, cfg, eng, adp, device)
+    stats = adp.stream.stats
+    print(f"[serve/cnn] call stream over {ranks} ranks: "
+          f"{sum(stats['calls'].values())} launches {stats['calls']}, "
+          f"{stats['collectives']} collectives of its own, "
+          f"{stats['payload_bytes']} payload bytes "
+          f"({stats['residual_bytes']} of hit residuals)")
+
+
+def _serve_cnn(args, cfg, eng, adapter, device) -> None:
     if eng.n_shards > 1:
+        ranks = eng.mesh.size if eng.mesh is not None else 1
         print(f"[serve/cnn] mesh-sharded engine: {eng.n_shards} shards, "
-              f"batcher fills {args.batch * eng.n_shards} seats/launch")
+              f"batcher fills {args.batch * eng.n_shards} seats/launch"
+              + (f"; rank 0 leads, {ranks - 1} follow" if ranks > 1
+                 else ""))
     if eng.plan is not None:
         print(f"[serve/cnn] planned tiles for device profile "
               f"{args.device_profile!r}:")
@@ -228,8 +264,7 @@ def run_cnn(args) -> None:
     if args.perturb_samples is not None:
         method_opts = {m: {"n_samples": args.perturb_samples}
                        for m in ("lime", "rise")}
-    server = ExplanationServer(CNNAdapter.from_engine(eng),
-                               max_batch=args.batch,
+    server = ExplanationServer(adapter, max_batch=args.batch,
                                max_delay_s=args.max_delay_ms / 1e3,
                                method_opts=method_opts,
                                admission=admission, tracer=tracer)
@@ -357,9 +392,21 @@ def main(argv=None):
         if args.precision == "fxp16":
             raise SystemExit("--workload lm has no int16 fixed-point path "
                              "(token attribution needs float gradients)")
-        run_lm(args)
-    else:
-        run_cnn(args)
+    started = init_from_env(args.torch_device)
+    try:
+        if args.workload == "cnn":
+            run_cnn(args)
+        elif not started or dist.get_rank() == 0:
+            if started:
+                print(f"[serve/lm] rank 0 serves alone (LM engines build "
+                      f"unsharded); {dist.get_world_size() - 1} other "
+                      f"rank(s) wait")
+            run_lm(args)
+        if started:
+            dist.barrier()
+    finally:
+        if started:
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

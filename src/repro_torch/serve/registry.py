@@ -75,6 +75,27 @@ def make(name: str, f: Callable, **opts) -> "Explainer":
     return get(name)(f, **opts)
 
 
+def explainer_for(adapter, name: str, opts: dict,
+                  form: Optional[str] = None) -> "Explainer":
+    """The server's explainer for ``name`` on ``adapter``: on the engine of
+    its rule set (``form="engine"``, the default where the adapter exposes
+    ``engine_for``: precision and backend, the fxp16 pair included,
+    resolved by the spec in one place), or on the adapter's rule-bound
+    ``model_fn`` and ``manual_backward`` closures (``"closure"``: the
+    replay harness's adapters, whose closures time the composites;
+    quantized ones expose a manual BP engine, float ones None, and
+    autograd is used).  Inputs move to the adapter's device."""
+    cls = get(name)
+    if form is None:
+        form = "engine" if hasattr(adapter, "engine_for") else "closure"
+    if form == "engine":
+        return cls.from_engine(adapter.engine_for(cls.rules), **opts)
+    manual = getattr(adapter, "manual_backward", None)
+    return cls(adapter.model_fn(cls.rules),
+               backward=manual(cls.rules) if manual else None,
+               device=getattr(adapter, "device", None), **opts)
+
+
 class Explainer:
     """Base: one attribution method over a rule-bound model callable."""
 

@@ -370,6 +370,18 @@ class TimedAdapter:
                 return _TimedLMEngine(self.inner.engine_for(rules),
                                       self.clock)
             return engine_for
+        # A multi-rank adapter (repro_torch.serve.follower.StreamAdapter)
+        # runs a composite's call on every rank: the clock advances by the
+        # call's whole wall time, the part its timed closures did not.
+        if name == "attribute" and hasattr(self.inner, "attribute"):
+            def attribute(explainer, xb, **kw):
+                t0, c0 = perf_counter(), self.clock()
+                out = block_until_ready(self.inner.attribute(explainer, xb,
+                                                             **kw))
+                wall = perf_counter() - t0
+                self.clock.advance(max(0.0, wall - (self.clock() - c0)))
+                return out
+            return attribute
         raise AttributeError(name)
 
 

@@ -37,6 +37,13 @@ Heavy-traffic hardening (see :mod:`repro_torch.serve.admission`):
 Everything is synchronous and deterministic (injectable clock); an async
 transport would wrap ``submit``/``poll`` without touching the dataflow.
 
+On a mesh of several ranks (a ``mesh:<profile>:<n>`` engine under a
+process group of n ranks) the server runs on rank 0 alone, through the
+adapter :func:`repro_torch.serve.follower.lead` returns: each of its
+launches is announced to the other ranks, which join it
+(:func:`~repro_torch.serve.follower.follow`), and a launch that fails on
+any rank completes as error responses here.
+
 On the device: every batch is stacked on the host and moved to the
 engine's device in one copy; every dispatch ends in one
 ``torch.cuda.synchronize`` (``adapters.block_until_ready``) before the
@@ -86,13 +93,15 @@ class ExplanationServer:
         # Mesh-sharded adapters (engine built for a mesh:<profile>:<n>
         # device) expose n_shards; the batcher then fills buckets toward
         # max_batch * n_shards seats so every launch occupies the mesh.
-        # The server drives its engine from one rank: on a mesh of several
-        # ranks the others would need a follower joining every launch.
+        # On a mesh of several ranks the server runs on rank 0 through
+        # follower.lead's adapter, whose launches the other ranks join.
         mesh = getattr(getattr(adapter, "engine", None), "mesh", None)
-        if mesh is not None and mesh.size > 1:
-            raise NotImplementedError(
-                f"serving on {mesh!r}: ranks > 0 need a follower that joins "
-                f"each launch (ROADMAP A12d)")
+        if (mesh is not None and mesh.size > 1
+                and getattr(adapter, "stream", None) is None):
+            raise ValueError(
+                f"serving on {mesh!r}: rank 0 serves through "
+                f"repro_torch.serve.follower.lead(adapter) and every other "
+                f"rank runs follower.follow(adapter)")
         self.batcher = MicroBatcher(max_batch=max_batch,
                                     max_delay_s=max_delay_s, clock=clock,
                                     n_shards=getattr(adapter, "n_shards", 1))
@@ -271,26 +280,9 @@ class ExplanationServer:
                   degraded: bool = False) -> registry.Explainer:
         key = (method, degraded)
         if key not in self._explainers:
-            adapter = self._adapter_for(degraded)
-            cls = registry.get(method)
-            eng_for = getattr(adapter, "engine_for", None)
-            if eng_for is not None:
-                # Engine-backed adapters: the explainer rides the built
-                # engine for its rule set — precision/backend (incl. the
-                # fxp16 manual pair) resolved by the spec, in one place.
-                self._explainers[key] = cls.from_engine(
-                    eng_for(cls.rules), **self.method_opts.get(method, {}))
-            else:
-                # Raw-closure adapters (the replay harness's): quantized
-                # ones expose a manual BP engine (integers have no
-                # gradient); float adapters return None and autograd is
-                # used.  Inputs move to the adapter's device.
-                manual = getattr(adapter, "manual_backward", None)
-                self._explainers[key] = cls(
-                    adapter.model_fn(cls.rules),
-                    backward=manual(cls.rules) if manual else None,
-                    device=getattr(adapter, "device", None),
-                    **self.method_opts.get(method, {}))
+            self._explainers[key] = registry.explainer_for(
+                self._adapter_for(degraded), method,
+                self.method_opts.get(method, {}))
         return self._explainers[key]
 
     # -- dispatch -----------------------------------------------------------
@@ -509,7 +501,11 @@ class ExplanationServer:
                 # non-foldable stochastic methods ride singleton buckets
                 # (batcher token), so reqs is exactly one request here
                 key = reqs[0].key
-        logits, rel = explainer.attribute(xb, target=target, key=key)
+        # a multi-rank adapter runs the call on every rank of its mesh
+        run = getattr(adapter, "attribute", None)
+        logits, rel = (run(explainer, xb, target=target, key=key)
+                       if run is not None else
+                       explainer.attribute(xb, target=target, key=key))
         block_until_ready(rel)
         host = _host_logits(logits)
         self.stats.record_batch(live, xb.shape[0])

@@ -572,3 +572,334 @@ def tp_train_scenario(rank, world, states_np, batches_np, model, ckpt):
                                     **kw)
         out["restored"] = steps.gather_state(state, mesh)
     return out
+
+
+# ---------------------------------------------------------------------------
+# multi-rank serving (tests/test_torch_serve_mesh.py)
+# ---------------------------------------------------------------------------
+
+#: seats a launch per rank; a world of n fills ``SERVE_MAX_BATCH * n``
+SERVE_MAX_BATCH = 4
+SERVE_POOL = 24
+SERVE_OPTS = {"integrated_gradients": {"steps": 4}, "smoothgrad": {"n": 4},
+              "occlusion": {"window": 4, "stride": 4},
+              "lime": {"n_samples": 16}, "rise": {"n_samples": 16}}
+#: a payload value the faulty follower fails on after the launch's
+#: collectives (an error surfacing at the end of the device work)
+FAULT_MARK = 1234.5
+
+
+def serve_pool():
+    return np.random.RandomState(7).randn(SERVE_POOL, 8, 8,
+                                          3).astype(np.float32)
+
+
+def serve_phases(pkg, x, precision, key=int):
+    """The request stream of the multi-rank server tests, as ``(name,
+    server, requests)`` bursts (each submitted whole, then drained):
+    ``server`` is "main" or, from f32 and bf16, "reroute" (capacity 16,
+    explains rerouted to fxp16 above half of it).  ``pkg`` is
+    ``repro.serve`` or ``repro_torch.serve``; ``key`` makes a request's
+    seed (the JAX package's server takes PRNG keys)."""
+    R = pkg.Request
+
+    def ex(uid, i, method, **kw):
+        return R(uid=uid, kind="explain", x=x[i], method=method, **kw)
+
+    marked = x[20].copy()
+    marked[0, 0, 0] = FAULT_MARK
+    # groups of 3 or 4 rows pad to 4: at least 2 rows a rank in worlds of
+    # 2 and 3; the groups of 2 give one row a rank, those of 1 one row
+    phases = [
+        ("predict", "main", [R(uid=f"p{i}", kind="predict", x=x[i])
+                             for i in range(12)]),
+        ("hits", "main",
+         [ex(f"p{i}", i, "saliency") for i in range(4)]
+         + [ex(f"p{i}", i, "deconvnet") for i in (4, 5, 6)]
+         + [ex(f"p{i}", i, "guided", topk=3) for i in (7, 8, 9)]
+         + [ex(f"p{i}", i, "saliency", target=7) for i in (10, 11)]),
+        # the same rows, cold: bitwise the hits of the same batch
+        ("colds", "main",
+         [ex(f"c{i}", i, "saliency") for i in range(4)]
+         + [ex(f"c{i}", i, "guided", topk=3) for i in (7, 8, 9)]),
+        ("followups", "main",
+         [ex(f"c{i}", i, "deconvnet") for i in range(4)]
+         + [ex("p0", 0, "guided", topk=3)]),
+        ("composites", "main",
+         [ex(f"ig{i}", 12 + i, "integrated_gradients") for i in range(3)]
+         + [ex(f"sg{i}", 15 + i, "smoothgrad", key=key(100 + i))
+            for i in range(3)]
+         + [ex("ixg0", 18, "input_x_gradient"),
+            ex("ixg1", 19, "input_x_gradient", target=3)]),
+        ("singleton", "main", [ex("sg0", 15, "smoothgrad", key=key(100))]),
+        ("perturb", "main",
+         [ex(f"oc{i}", 12 + i, "occlusion") for i in range(3)]
+         + [ex(f"lime{i}", 12 + i, "lime", key=key(200 + i)) for i in range(3)]
+         + [ex(f"rise{i}", 12 + i, "rise", key=key(300 + i)) for i in range(2)]),
+        # refused at submit (never announced), then a launch that fails on
+        # every rank (class 99 of 10) beside a batch that is served
+        ("poison", "main",
+         [R(uid="bad_shape", kind="predict", x=x[0][:4]),
+          R(uid="bad_nan", kind="predict",
+            x=np.full_like(x[0], np.nan)),
+          ex("bad_target", 19, "input_x_gradient", target=99),
+          ex("e0", 19, "saliency")]),
+        ("fault", "main", [R(uid="f0", kind="predict", x=marked)]
+         + [R(uid=f"f{i}", kind="predict", x=x[20 + i]) for i in (1, 2)]),
+        ("after_fault", "main", [R(uid=f"f{i}", kind="predict",
+                                   x=x[20 + i]) for i in (3, 1, 2)]),
+    ]
+    if precision != "fxp16":
+        # the faulty follower cannot build the fxp16 sibling the first
+        # time: the first rerouted batch fails, the next is served
+        phases += [(f"reroute{r}", "reroute",
+                    [ex(f"d{r}_{i}", i, "saliency") for i in range(16)])
+                   for r in range(2)]
+    return phases
+
+
+def serve_servers(pkg, adapter, max_batch):
+    """The two servers of :func:`serve_phases` on one adapter."""
+    kw = dict(max_batch=max_batch, max_delay_s=60.0, cache_capacity=256,
+              method_opts=SERVE_OPTS)
+    return {"main": pkg.ExplanationServer(
+                adapter, admission=pkg.AdmissionConfig(capacity=1024), **kw),
+            "reroute": pkg.ExplanationServer(adapter, admission=pkg.
+                AdmissionConfig(capacity=16, degrade=pkg.DegradePolicy(
+                    pressure_threshold=0.5, reroute_precision="fxp16")),
+                **kw)}
+
+
+def response_record(r):
+    """What the tests compare of a response."""
+    return dict(uid=r.uid, kind=r.kind, method=r.method, ok=r.ok,
+                error_type=r.error_type, error=r.error, targets=r.targets,
+                cache_hit=r.cache_hit, batch_size=r.batch_size,
+                meta=dict(r.meta), logits=r.logits, relevance=r.relevance)
+
+
+def serve_run(pkg, servers, phases, stats=None):
+    """Run ``phases`` through ``servers``: ``{phase: [record]}``; a
+    refusal at submit is a record with ``raised`` set.  ``stats``: a
+    stream's stats dict, whose counts each phase adds are kept in
+    ``out["stream"][phase]``."""
+    out = {"stream": {}}
+    for name, which, reqs in phases:
+        before = None if stats is None else _counts(stats)
+        srv, recs = servers[which], []
+        for req in reqs:
+            try:
+                srv.submit(req)
+            except Exception as e:                      # noqa: BLE001
+                recs.append(dict(uid=req.uid, raised=type(e).__name__))
+        recs += [response_record(r) for r in srv.drain()]
+        out[name] = recs
+        if stats is not None:
+            after = _counts(stats)
+            out["stream"][name] = {k: after[k] - before.get(k, 0)
+                                   for k in after}
+    return out
+
+
+def _counts(stats):
+    """A stream's integer counts, flat (calls by op as ``calls/<op>``)."""
+    flat = {f"calls/{k}": v for k, v in stats["calls"].items()}
+    flat.update({k: v for k, v in stats.items() if isinstance(v, int)})
+    return flat
+
+
+#: requests of the timed replay the leader drives through the stream
+SERVE_REPLAY_N = 40
+
+
+def serve_replay(pkg, adapter):
+    """The replay harness (``serve.replay``: a ``TimedAdapter`` on a
+    virtual clock) through ``adapter`` over :data:`SERVE_REPLAY_N`
+    requests of its default mix: offered, completed, errors, and every
+    response's uid and method."""
+    from repro_torch.serve.replay import (TimedAdapter, VirtualClock,
+                                          replay, synthesize)
+    clock = VirtualClock()
+    srv = pkg.ExplanationServer(TimedAdapter(adapter, clock), clock=clock,
+                                max_batch=SERVE_MAX_BATCH, max_delay_s=0.002,
+                                method_opts=SERVE_OPTS)
+    rep = replay(srv, synthesize(SERVE_REPLAY_N, seed=0, x_pool=16),
+                 example_shape=(8, 8, 3), x_pool=16)
+    return dict(offered=rep.offered, completed=rep.completed,
+                errors=rep.errors, hit_rate=rep.cache_hit_rate)
+
+
+class FaultyAdapter:
+    """A follower's adapter that fails three times: building its first
+    explainer (integrated gradients', before the launch: the follower
+    cannot prepare it), building its first sibling (a build launch), and
+    a predict whose batch holds :data:`FAULT_MARK` (after the launch's
+    collectives)."""
+
+    def __init__(self, inner):
+        self.inner = inner
+        self.sibling_fault = True
+        self.explainer_fault = True
+
+    def __getattr__(self, name):
+        return getattr(self.inner, name)
+
+    def predict(self, xb):
+        out = self.inner.predict(xb)
+        if bool((xb == FAULT_MARK).any()):
+            raise RuntimeError("injected: predict failed on a follower")
+        return out
+
+    def with_precision(self, precision):
+        if self.sibling_fault:
+            self.sibling_fault = False
+            raise RuntimeError("injected: no sibling on a follower")
+        return self.inner.with_precision(precision)
+
+    def engine_for(self, rules):
+        # a follower asks its adapter for an engine only to build an
+        # explainer (the inner adapter's replays use its own)
+        if self.explainer_fault:
+            self.explainer_fault = False
+            raise RuntimeError("injected: no explainer on a follower")
+        return self.inner.engine_for(rules)
+
+
+def serve_scenario(rank, world, params_np, precisions):
+    """Every rank of a world serving :func:`serve_phases` on a
+    ``mesh:edge-small:<world>`` CNN adapter: rank 0 leads the servers,
+    the others follow (the last through :class:`FaultyAdapter`).  Rank 0
+    returns each precision's records and stream stats, the others their
+    follower stats."""
+    import repro_torch.serve as tserve
+    from repro_torch.engine import CNNModel, EngineSpec, build
+    from repro_torch.serve import follower
+    from repro_torch.models import cnn
+    cfg = cnn.CNNConfig(**CNN_KW)
+    params = cnn.params_from_jax(params_np)
+    x = serve_pool()
+    out = {}
+    for precision in precisions:
+        adapter = tserve.CNNAdapter.from_engine(build(EngineSpec(
+            CNNModel(params, cfg, device="cpu"), precision=precision,
+            device=f"mesh:edge-small:{world}")))
+        if rank == 0:
+            with follower.lead(adapter) as adp:
+                servers = serve_servers(tserve, adp, SERVE_MAX_BATCH)
+                out[precision] = serve_run(
+                    tserve, servers, serve_phases(tserve, x, precision),
+                    stats=adp.stream.stats)
+                out[precision]["replay"] = serve_replay(tserve, adp)
+                out[precision]["stats"] = dict(adp.stream.stats)
+        else:
+            if rank == world - 1:
+                adapter = FaultyAdapter(adapter)
+            out[precision] = follower.follow(adapter)
+    return out
+
+
+#: tests/test_torch_serve.py's tolerances: (logits, relevance) relative to
+#: the reference's max |value|
+SERVE_TOL = {"f32": (1e-5, 1e-4), "bf16": (2.0 ** -6, 2.0 ** -6),
+             "fxp16": (0.0, 0.0)}
+#: methods whose draws the JAX package makes from its own keys
+SERVE_STOCHASTIC = ("smoothgrad", "lime", "rise")
+#: the requests the faulty follower fails: a predict batch after its
+#: collectives, the first composite batch (no explainer) and the first
+#: rerouted batch (no fxp16 sibling)
+SERVE_INJECTED = ({"f0", "f1", "f2", "ig0", "ig1", "ig2"}
+                  | {f"d0_{i}" for i in range(8, 16)})
+SERVE_WORLDS = (2, 3)
+
+
+def serve_worlds(tmp_path, params_np):
+    """Start the serving worlds of 2 and 3 ranks, every precision."""
+    return start_worlds(tmp_path, {
+        str(n): ("serve_scenario", n, dict(params_np=params_np,
+                                           precisions=PRECISIONS))
+        for n in SERVE_WORLDS})
+
+
+def _host(t):
+    if isinstance(t, torch.Tensor):
+        return t.detach().float().cpu().numpy().astype(np.float64)
+    return np.asarray(t, np.float32).astype(np.float64)
+
+
+def serve_close(got, want, tol, what):
+    """``got`` within ``tol`` of ``want``'s max |value| (tensors or
+    arrays)."""
+    got, want = _host(got), _host(want)
+    assert got.shape == want.shape, what
+    err = np.abs(got - want).max()
+    assert err <= tol * np.abs(want).max(), (what, err, np.abs(want).max())
+
+
+def serve_pairs(got, want, skip=()):
+    """``(phase, got record, want record)`` of two runs of
+    :func:`serve_phases`, phase by phase, in order: every request of
+    ``want`` (a reference run may leave the stochastic methods out), but
+    the uids in ``skip``."""
+    phases = [k for k in want if k != "stream"]
+    assert [k for k in got
+            if k not in ("stream", "stats", "replay")] == phases
+    for phase in phases:
+        uids = {w["uid"] for w in want[phase]}
+        mine = [r for r in got[phase]
+                if r.get("method") not in SERVE_STOCHASTIC
+                or r["uid"] in uids]
+        assert [r["uid"] for r in mine] == [
+            r["uid"] for r in want[phase]], phase
+        for a, b in zip(mine, want[phase]):
+            if a["uid"] not in skip:
+                yield phase, a, b
+
+
+def serve_same_outcome(a, b, what) -> bool:
+    """Two records of one request agree but for their values; True when
+    they carry values (an ok response)."""
+    assert a.get("raised") == b.get("raised"), what
+    if "raised" in a:
+        return False
+    for k in ("kind", "method", "ok", "error_type", "targets", "cache_hit",
+              "batch_size", "meta"):
+        assert a[k] == b[k], (what, k)
+    return a["ok"]
+
+
+def followers_requests(pkg, x):
+    """4 predicts, their 4 saliency hits and 4 cold guided explains."""
+    R = pkg.Request
+    return ([R(uid=f"p{i}", kind="predict", x=x[i]) for i in range(4)]
+            + [R(uid=f"p{i}", kind="explain", x=x[i], method="saliency")
+               for i in range(4)]
+            + [R(uid=f"c{i}", kind="explain", x=x[4 + i], method="guided")
+               for i in range(4)])
+
+
+def serve_followers_scenario(rank, world, params_np, x):
+    """``tests/test_torch_serve.py``'s world: rank 0 serves
+    :func:`followers_requests` through ``follower.lead`` (after a server
+    without the stream is refused), the others follow; every header is
+    longer than the first broadcast takes, so each goes out in two."""
+    import repro_torch.serve as tserve
+    from repro_torch.engine import CNNModel, EngineSpec, build
+    from repro_torch.models import cnn
+    from repro_torch.serve import follower
+    follower.HEADER_BYTES = 64
+    adapter = tserve.CNNAdapter.from_engine(build(EngineSpec(
+        CNNModel(cnn.params_from_jax(params_np), cnn.CNNConfig(**CNN_KW),
+                 device="cpu"), device=f"mesh:edge-small:{world}")))
+    if rank > 0:
+        return follower.follow(adapter)
+    try:
+        tserve.ExplanationServer(adapter)
+        refused = None
+    except ValueError as e:
+        refused = type(e).__name__
+    with follower.lead(adapter) as adp:
+        srv = tserve.ExplanationServer(adp, max_batch=4, max_delay_s=0.0)
+        for r in followers_requests(tserve, x):
+            srv.submit(r)
+        out = [response_record(r) for r in srv.drain()]
+    return dict(refused=refused, responses=out)

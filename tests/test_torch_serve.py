@@ -736,19 +736,33 @@ def test_mesh_server_heatmaps_bitwise_with_single_device(setup, n_shards):
         assert torch.equal(a.relevance, b.relevance)
 
 
-def test_server_on_several_ranks_is_a12d():
-    """A server drives its engine from one rank; ranks > 0 would need a
-    follower joining each launch (ROADMAP A12d)."""
-    class Mesh:
-        size = 2
-
-    class Engine:
-        mesh = Mesh()
-
-    class Adapter:
-        store_rules, n_shards, engine = "saliency", 2, Engine()
-    with pytest.raises(NotImplementedError, match="A12d"):
-        tserve.ExplanationServer(Adapter())
+def test_server_on_several_ranks_serves_through_followers(setup, tmp_path):
+    """On a gloo world of 2 ranks (``tests/_torch_dist.py``), rank 0
+    serves through ``follower.lead`` and rank 1 follows: predicts, their
+    hits and cold explains come back bitwise the single-process server's
+    on the same ``mesh:edge-small:2`` seats, every header sent in two
+    broadcasts; a server on the multi-rank mesh without the call stream
+    is refused before any launch."""
+    from _torch_dist import followers_requests, run_worlds
+    jparams, params, x = setup
+    params_np = jax.tree.map(np.asarray, jparams)
+    got = run_worlds(tmp_path, {"2": ("serve_followers_scenario", 2,
+                                      dict(params_np=params_np, x=x))})["2"]
+    adapter = tserve.CNNAdapter.from_engine(build(EngineSpec(
+        CNNModel(params, CFG, device="cpu"), device="mesh:edge-small:2")))
+    want = burst(server(tserve, adapter), followers_requests(tserve, x))
+    assert got[0]["refused"] == "ValueError"
+    assert [r.uid for r in want] == [r["uid"] for r in got[0]["responses"]]
+    for a, b in zip(got[0]["responses"], want):
+        assert a["ok"] and b.ok and a["cache_hit"] == b.cache_hit
+        assert torch.equal(a["logits"], b.logits)
+        if b.relevance is not None:
+            assert torch.equal(a["relevance"], b.relevance)
+    assert got[1]["calls"] == {"predict": 2, "explain_cached": 2,
+                               "stop": 1}
+    # a launch: two header broadcasts, the payload, two agreements; the
+    # stop's header fits in one
+    assert got[1]["collectives"] == 4 * 5 + 1
 
 
 # -- the driver ---------------------------------------------------------------
@@ -769,14 +783,13 @@ def test_driver_serves_cnn_on_the_cpu():
     assert "0 errors" in r.stdout and "serve_requests_total" in r.stdout
 
 
-@pytest.mark.parametrize("flag,item", [
-    ("--device-profile=mesh:edge-small:4", "A12")])
-def test_driver_refuses_what_is_not_ported(flag, item, capsys):
-    """The driver serves a mesh-sharded engine (A12b): 4 shards, its
-    batcher filling 4 x batch seats a launch."""
+def test_driver_serves_a_mesh_sharded_engine(capsys):
+    """The driver serves a mesh-sharded engine in one process: 4 shards,
+    its batcher filling 4 x batch seats a launch."""
     from repro_torch.launch import serve as driver
-    driver.main(["--workload", "cnn", "--torch-device", "cpu", flag,
-                 "--requests", "4", "--batch", "2"])
+    driver.main(["--workload", "cnn", "--torch-device", "cpu",
+                 "--device-profile=mesh:edge-small:4", "--requests", "4",
+                 "--batch", "2"])
     out = capsys.readouterr().out
     assert "mesh-sharded engine: 4 shards, batcher fills 8 seats" in out
     assert "8 responses" in out and "0 errors" in out

@@ -360,13 +360,14 @@ Phases (every failed check raises; nothing is caught and carried on):
    MIN_BIT_AGREEMENT); within the world each hit bitwise its cold
    explain, every follower joining every launch with no fault; host ms a
    64-row predict, hit and cold batch against the one-process server's,
-   with the call stream's collectives and bytes a batch; paths
-   ``serve_mesh_f32``, ``serve_mesh_bf16``, ``serve_mesh_fxp16`` (B1-B10
-   on rank 0, counted over the predict, hit and cold BP bursts).  (b)
-   under ``--multi-device`` or ``--serve-mesh`` with 2 or more cards, NCCL
-   worlds of ``min(4, count)`` ranks, one card each, the same checks and
-   phase 10's timed replay (SERVE_REPLAY_N requests) beside the one-card
-   server's; no speed-up is claimed.
+   with the call stream's collectives and bytes a batch; phase 10's timed
+   replay (SERVE_REPLAY_N requests, f32) beside the one-card server's,
+   with the server's batches, their mean rows and the stream's launches
+   by op; paths ``serve_mesh_f32``, ``serve_mesh_bf16``,
+   ``serve_mesh_fxp16`` (B1-B10 on rank 0, counted over the predict, hit
+   and cold BP bursts).  (b) under ``--multi-device`` or ``--serve-mesh``
+   with 2 or more cards, NCCL worlds of ``min(4, count)`` ranks, one card
+   each, the same checks and the same replay; no speed-up is claimed.
 
 ``--multi-device`` runs phase 1, then phase 15 alone (on a llama3.2-1b
 state from seed 0), 16 and 17, and stops; ``--model-axis`` runs phase 1
@@ -7308,27 +7309,37 @@ def _mesh_serve_timing(servers, pool, stats=None):
 def _mesh_serve_replay(adapter, multi_rank):
     """Phase 10's timed replay of SERVE_REPLAY_N requests (no admission)
     through ``adapter`` (rank 0's stream adapter on a world, or the
-    one-card adapter): p50 / p99 by kind and throughput."""
+    one-card adapter): p50 / p99 by kind and throughput; the server's
+    launches and their mean live and padded rows; on a world, the
+    stream's launches by op, collectives and seconds announcing and
+    agreeing over the replay."""
     from repro_torch.serve import ExplanationServer
     from repro_torch.serve.replay import (TimedAdapter, VirtualClock,
                                           replay, synthesize)
     clock = VirtualClock()
     srv = ExplanationServer(TimedAdapter(adapter, clock), clock=clock,
                             max_batch=SERVE_BATCH, max_delay_s=0.002)
+    stats = getattr(getattr(adapter, "stream", None), "stats", None)
+    before = _stream_counts(stats)
     t0 = time.perf_counter()
     rep = replay(srv, synthesize(SERVE_REPLAY_N, seed=0),
                  example_shape=(32, 32, 3))
     wall = time.perf_counter() - t0
+    after = _stream_counts(stats)
     snap = rep.snapshot()
     if rep.errors:
         fail(f"phase 17 replay: {rep.errors} error responses")
+    batches = srv.stats.batches
     return dict(predict_p50_us=snap.get("predict_p50_us"),
                 predict_p99_us=snap.get("predict_p99_us"),
                 explain_p50_us=snap.get("explain_p50_us"),
                 explain_p99_us=snap.get("explain_p99_us"),
                 completed=rep.completed, makespan_s=snap["makespan_s"],
                 req_per_s=rep.completed / snap["makespan_s"],
-                wall_s=wall, ranks=multi_rank)
+                wall_s=wall, ranks=multi_rank, batches=batches,
+                mean_live_rows=srv.stats.batched_rows / max(batches, 1),
+                mean_padded_rows=srv.stats.padded_rows / max(batches, 1),
+                stream={k: v - before.get(k, 0) for k, v in after.items()})
 
 
 def _mesh_serve_pool():
@@ -7566,6 +7577,18 @@ def _mesh_serve_world_checks(what, ranks, singles, launches, replay_too):
               f"{one['predict_p99_us']}, {one['explain_p50_us']}/"
               f"{one['explain_p99_us']}, {one['req_per_s']:.1f} req/s "
               f"({one['wall_s']:.2f} s wall); no speed-up claimed")
+        s = rep["stream"]
+        launches = {k[len("calls/"):]: v for k, v in s.items()
+                    if k.startswith("calls/")}
+        print(f"    replay launches: {world} ranks {rep['batches']} server "
+              f"batches, mean {rep['mean_live_rows']:.2f} live / "
+              f"{rep['mean_padded_rows']:.2f} padded rows; stream "
+              f"{sum(launches.values())} launches {launches}, "
+              f"{s['collectives']} collectives, announce "
+              f"{s['announce_s']:.3f} s, agree {s['agree_s']:.3f} s; one "
+              f"card {one['batches']} batches, mean "
+              f"{one['mean_live_rows']:.2f} live / "
+              f"{one['mean_padded_rows']:.2f} padded rows")
     return rows
 
 
@@ -7597,20 +7620,20 @@ def _mesh_serve_singles(world, replay_too):
 def check_serve_mesh(launches, multi):
     """Phase 17: (a) a gloo world of MESH_SERVE_RANKS ranks sharing card
     0 serves the Table III CNN from a ``mesh:h100:2`` engine, held
-    against the one-process server; (b) with ``multi`` and 2 or more
-    cards, a NCCL world of ``min(MESH_SERVE_MAX_RANKS, count)`` ranks,
-    one card each, the same, and the timed replay beside the one-card
-    server's."""
+    against the one-process server, and the timed replay beside the
+    one-card server's; (b) with ``multi`` and 2 or more cards, a NCCL
+    world of ``min(MESH_SERVE_MAX_RANKS, count)`` ranks, one card each,
+    the same."""
     print(f"phase 17 (a): a gloo world of {MESH_SERVE_RANKS} ranks sharing "
           f"card 0, mesh:h100:{MESH_SERVE_RANKS}, max_batch "
           f"{MESH_SERVE_BATCH} a rank ({MESH_SERVE_BATCH * MESH_SERVE_RANKS}"
           f" seats a launch), phase 10's mix in f32 / bf16 / fxp16")
     t0 = time.perf_counter()
-    ranks = _mesh_serve_world("gloo", MESH_SERVE_RANKS, False)
+    ranks = _mesh_serve_world("gloo", MESH_SERVE_RANKS, True)
     t_world = time.perf_counter() - t0
-    singles = _mesh_serve_singles(MESH_SERVE_RANKS, False)
+    singles = _mesh_serve_singles(MESH_SERVE_RANKS, True)
     out = {"a": _mesh_serve_world_checks("(a)", ranks, singles, launches,
-                                         False)}
+                                         True)}
     print(f"  (a) took {time.perf_counter() - t0:.1f} s (the world "
           f"{t_world:.1f} s)")
     for precision in ("f32", "bf16", "fxp16"):

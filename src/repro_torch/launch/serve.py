@@ -32,7 +32,10 @@ every launch over the ranks: rank 0 runs the server and prints what the
 single-process driver prints, and the other ranks follow its launches
 (:mod:`repro_torch.serve.follower`) and exit 0 when it is done.  LM
 engines build unsharded (as the JAX package's), so there rank 0 serves
-alone and the other ranks wait for it at a barrier.
+alone and the other ranks exit at once.  A rank whose serving world is
+lost (a fault that left the ranks out of step, or a rank gone) ends its
+process with :data:`repro_torch.serve.follower.LOST_EXIT_CODE`, and
+``torchrun`` stops the others.
 
 ``--method occlusion|lime|rise`` serves the perturbation explainers
 (``--perturb-samples`` sets lime's and rise's fan-out).
@@ -400,10 +403,10 @@ def main(argv=None):
             if started:
                 print(f"[serve/lm] rank 0 serves alone (LM engines build "
                       f"unsharded); {dist.get_world_size() - 1} other "
-                      f"rank(s) wait")
+                      f"rank(s) exit")
             run_lm(args)
-        if started:
-            dist.barrier()
+        # ranks > 0 of an LM world exit at once: torchrun waits for every
+        # rank, and nothing holds them idle in a collective
     finally:
         if started:
             dist.destroy_process_group()

@@ -171,3 +171,7 @@ class LMAdapter:
 
     def manual_backward(self, rules: str):
         return self.engine_for(rules).composite_backward
+
+    def attribute(self, explainer, xb, **kw):
+        """A registry token explainer's call on a batch."""
+        return explainer.attribute(xb, **kw)

@@ -12,7 +12,10 @@ dispatch loop calls:
   * ``explain_cached(method, residuals, seeds)`` — the BP phase alone
     (``Engine.replay``), seed-batched over stored masks (paper §III.F);
   * ``engine_for(rules)`` / ``model_fn(rules)`` — the engine (and its
-    rule-bound callable) for the registry's cold explainers.
+    rule-bound callable) for the registry's cold explainers, and
+    ``attribute(explainer, xb, ...)``, which makes such an explainer's call
+    (a multi-rank adapter, :mod:`repro_torch.serve.follower`, on every
+    rank).
 
 :class:`CNNAdapter` wires the paper's Table III CNN; both cold and cached
 paths run the SAME kernel pair, so a cache hit is bit-exact with a cold
@@ -199,3 +202,8 @@ class CNNAdapter:
         """Manual BP engine for registry explainers, or None on f32 and
         bf16 (where autograd through :meth:`model_fn` is the engine)."""
         return self.engine_for(rules).composite_backward
+
+    def attribute(self, explainer, xb, **kw):
+        """A registry explainer's call on a batch (the server's cold
+        composite and perturbation explains)."""
+        return explainer.attribute(xb, **kw)

@@ -46,22 +46,35 @@ all-reduced over the gloo group: after the announcement every rank says
 whether it could prepare the call (decode it, resolve its adapter and
 explainer), and nobody launches unless all could; after the call (its
 device work waited for) every rank says whether it ran.  Engine builds
-(``with_precision``, ``engine_for``) make the mesh's groups, so they run
-inside the launch on every rank, as on the leader.
-Either "no" makes the leader raise :class:`RankFault`, which the server's
-dispatch answers as error responses, and the world serves the next batch.
-What the leader can refuse before a collective (``_validate``, the host
-targets) it refuses before announcing.  A fault raised inside a launch
-on one rank alone, between two of the engine's collectives, leaves the
-ranks out of step: that rank's process should end, and a rank that dies
-stops its world (``torchrun`` and the test harnesses stop the others).
-Nothing falls back to one rank or to the CPU.
+(``with_precision``, ``engine_for``) run inside a launch on every rank,
+as on the leader.  Either "no" makes the leader raise :class:`RankFault`,
+which the server's dispatch answers as error responses, and the world
+serves the next batch.  What the leader can refuse before a collective
+(``_validate``, the host targets) it refuses before announcing.
+
+A rank that says "no" after the call waits at most :data:`FAULT_GRACE_S`
+for the others' word.  They all come when the ranks are still in step:
+every rank met the same fault, or the fault came after the launch's last
+collective.  They do not come when the fault left the others inside one
+of the engine's collectives, waiting for this rank's rows: the world is
+then out of step, and this rank ends its process at once
+(:data:`LOST_EXIT_CODE`, no teardown of the process groups, whose
+destructors would wait on the collectives in flight).  So does a rank
+whose announcement, payload or agreement fails because another rank has
+gone.  On gloo the ranks left see their peers' sockets close and end in
+turn; on NCCL ``torchrun`` (or the harness that started the world) stops
+them when the first rank exits.  An idle follower waits for the next
+header up to :data:`CONTROL_TIMEOUT`.  Nothing falls back to one rank or
+to the CPU.
 """
 from __future__ import annotations
 
+import os
 import pickle
+import sys
 import time
-from typing import Any, Callable, Dict, List, Optional
+from datetime import timedelta
+from typing import Any, Callable, Dict, List, NoReturn, Optional
 
 import torch
 import torch.distributed as dist
@@ -77,6 +90,14 @@ HEADER_BYTES = 4096
 #: take (the caching allocator's own alignment).
 _ALIGN = 256
 _STOP = "stop"
+#: Seconds a rank that says "no" after a call waits for the others' word
+#: before it takes the world for out of step (module docstring).
+FAULT_GRACE_S = 60.0
+#: How long a follower waits for the next header: the longest a server on
+#: the leader may sit idle (the control group's timeout).
+CONTROL_TIMEOUT = timedelta(days=1)
+#: The exit code of a rank whose serving world is lost.
+LOST_EXIT_CODE = 70
 
 
 class RankFault(RuntimeError):
@@ -105,7 +126,8 @@ class CallStream:
         self.rank = dist.get_rank()
         self.world = dist.get_world_size()
         # headers and agreements on the host, whatever carries the payload
-        self.control = dist.new_group(backend="gloo")
+        self.control = dist.new_group(backend="gloo",
+                                      timeout=CONTROL_TIMEOUT)
         self.stats: Dict[str, Any] = dict(
             calls={}, collectives=0, header_bytes=0, payload_bytes=0,
             residual_bytes=0, announce_s=0.0, agree_s=0.0)
@@ -121,16 +143,16 @@ class CallStream:
             head = len(raw).to_bytes(8, "little") + raw
             buf[:min(len(head), HEADER_BYTES)] = torch.frombuffer(
                 bytearray(head[:HEADER_BYTES]), dtype=torch.uint8)
-        dist.broadcast(buf, src=0, group=self.control)
-        self.stats["collectives"] += 1
+        self._collective("header", dist.broadcast, buf, src=0,
+                         group=self.control)
         n = int.from_bytes(bytes(buf[:8].tolist()), "little")
         if 8 + n > HEADER_BYTES:
             rest = torch.zeros(8 + n - HEADER_BYTES, dtype=torch.uint8)
             if self.rank == 0:
                 rest.copy_(torch.frombuffer(bytearray(head[HEADER_BYTES:]),
                                             dtype=torch.uint8))
-            dist.broadcast(rest, src=0, group=self.control)
-            self.stats["collectives"] += 1
+            self._collective("header", dist.broadcast, rest, src=0,
+                             group=self.control)
             buf = torch.cat([buf, rest])
         self.stats["header_bytes"] += n
         return header if self.rank == 0 else pickle.loads(
@@ -150,8 +172,7 @@ class CallStream:
                 raw = t.detach().contiguous().reshape(-1).view(torch.uint8)
                 buf[off:off + raw.numel()].copy_(raw)
                 off += size
-        dist.broadcast(buf, src=0)
-        self.stats["collectives"] += 1
+        self._collective("payload", dist.broadcast, buf, src=0)
         self.stats["payload_bytes"] += buf.numel()
         out, off = [], 0
         for (dtype, shape), size in zip(specs, sizes):
@@ -181,14 +202,42 @@ class CallStream:
         calls[header["op"]] = calls.get(header["op"], 0) + 1
         return header, tensors
 
+    def _collective(self, what: str, fn, *args, **kwargs) -> None:
+        try:
+            fn(*args, **kwargs)
+        except Exception as e:                          # noqa: BLE001
+            self.lose(f"the {what} broadcast failed: {e}")
+        self.stats["collectives"] += 1
+
     def agree(self, ok: bool) -> bool:
-        """Every rank's ``ok``, and-ed: one word all-reduced (minimum)."""
+        """Every rank's ``ok``, and-ed: one word all-reduced (minimum).  A
+        rank that says no waits at most :data:`FAULT_GRACE_S` for the
+        others, and ends its process if they do not come."""
         t0 = time.perf_counter()
         flag = torch.tensor([1 if ok else 0], dtype=torch.int32)
-        dist.all_reduce(flag, op=dist.ReduceOp.MIN, group=self.control)
+        work = dist.all_reduce(flag, op=dist.ReduceOp.MIN,
+                               group=self.control, async_op=True)
+        try:
+            if ok:
+                work.wait()
+            else:
+                work.wait(timedelta(seconds=FAULT_GRACE_S))
+        except Exception as e:                          # noqa: BLE001
+            self.lose(f"the ranks did not agree (this rank said "
+                      f"{'yes' if ok else 'no'}): {e}")
         self.stats["collectives"] += 1
         self.stats["agree_s"] += time.perf_counter() - t0
         return bool(flag.item())
+
+    def lose(self, why: str) -> NoReturn:
+        """End this rank's process: its world is out of step, or a rank of
+        it is gone.  No teardown: a process group's destructor would wait
+        on the collectives still in flight."""
+        sys.stdout.flush()
+        sys.stderr.write(f"[serve/follower] rank {self.rank}: the serving "
+                         f"world is lost: {why}\n")
+        sys.stderr.flush()
+        os._exit(LOST_EXIT_CODE)
 
     def stop(self) -> None:
         """Rank 0: release the followers."""
@@ -301,7 +350,9 @@ class StreamAdapter:
 
     def _launch(self, op: str, header: dict, tensors, run: Callable):
         """Announce, agree that every rank prepared, run, agree that
-        every rank ran; :class:`RankFault` where some rank did not."""
+        every rank ran; :class:`RankFault` where some rank did not, the
+        call's own error where this rank failed in step with the others
+        (:meth:`CallStream.agree` ends the process where it did not)."""
         args = self.stream.announce(op, dict(header, adapter=self.key),
                                     tensors)
         if not self.stream.agree(True):
@@ -416,7 +467,8 @@ class Follower:
             self.stream.agree(ok)
 
     def _explainer(self, key, method, opts, form):
-        ck = (key, method, form)
+        # one server's options are not another's (their launches differ)
+        ck = (key, method, form, repr(sorted(opts.items())))
         if ck not in self._explainers:
             self._explainers[ck] = registry.explainer_for(
                 self.adapters[key], method, opts, form)

@@ -299,6 +299,9 @@ class SimAdapter:
     def manual_backward(self, rules: str):
         return None                      # float path: autograd is the engine
 
+    def attribute(self, explainer, xb, **kw):
+        return explainer.attribute(xb, **kw)
+
 
 class TimedAdapter:
     """Wrap a REAL adapter; advance the virtual clock by measured wall time.
@@ -308,7 +311,8 @@ class TimedAdapter:
     ends in ``torch.cuda.synchronize`` before the wall clock is read, so
     the clock advances by service time, not launch time.  Composite
     explainers ride the inner adapter's ``model_fn`` (not ``engine_for``)
-    so their wall time is measured here too.
+    so their wall time is measured here too, and :meth:`attribute` adds
+    the rest of their call.
     """
 
     def __init__(self, inner, clock: VirtualClock):
@@ -358,6 +362,16 @@ class TimedAdapter:
     def manual_backward(self, rules: str):
         return self.inner.manual_backward(rules)
 
+    def attribute(self, explainer, xb, **kw):
+        """The inner adapter's call: the clock advances by its whole wall
+        time, the part its timed closures did not count (a composite's
+        backward, a multi-rank adapter's announcement)."""
+        t0, c0 = perf_counter(), self.clock()
+        out = block_until_ready(self.inner.attribute(explainer, xb, **kw))
+        self.clock.advance(max(0.0, perf_counter() - t0
+                               - (self.clock() - c0)))
+        return out
+
     def __getattr__(self, name):
         # TOKEN adapters (repro_torch.lm.LMAdapter) only: expose engine_for so
         # the server's registry token explainers ride a clock-advancing
@@ -370,18 +384,6 @@ class TimedAdapter:
                 return _TimedLMEngine(self.inner.engine_for(rules),
                                       self.clock)
             return engine_for
-        # A multi-rank adapter (repro_torch.serve.follower.StreamAdapter)
-        # runs a composite's call on every rank: the clock advances by the
-        # call's whole wall time, the part its timed closures did not.
-        if name == "attribute" and hasattr(self.inner, "attribute"):
-            def attribute(explainer, xb, **kw):
-                t0, c0 = perf_counter(), self.clock()
-                out = block_until_ready(self.inner.attribute(explainer, xb,
-                                                             **kw))
-                wall = perf_counter() - t0
-                self.clock.advance(max(0.0, wall - (self.clock() - c0)))
-                return out
-            return attribute
         raise AttributeError(name)
 
 

@@ -501,11 +501,9 @@ class ExplanationServer:
                 # non-foldable stochastic methods ride singleton buckets
                 # (batcher token), so reqs is exactly one request here
                 key = reqs[0].key
-        # a multi-rank adapter runs the call on every rank of its mesh
-        run = getattr(adapter, "attribute", None)
-        logits, rel = (run(explainer, xb, target=target, key=key)
-                       if run is not None else
-                       explainer.attribute(xb, target=target, key=key))
+        # the adapter makes the call (a multi-rank one on every rank)
+        logits, rel = adapter.attribute(explainer, xb, target=target,
+                                        key=key)
         block_until_ready(rel)
         host = _host_logits(logits)
         self.stats.record_batch(live, xb.shape[0])

@@ -81,6 +81,20 @@ class Worlds:
             for name, (d, world) in self.dirs.items()}
         return self._results
 
+    def exitcodes(self):
+        """``{name: [exit code of rank r]}`` once every rank has ended, for
+        worlds whose ranks are meant to fail; a rank alive at the timeout
+        is killed (its code is then negative)."""
+        for p in self.procs:
+            p.join(max(0.0, self.deadline - time.monotonic()))
+            if p.is_alive():
+                p.kill()
+                p.join()
+        codes, procs = {}, iter(self.procs)
+        for name, (_, world) in self.dirs.items():
+            codes[name] = [next(procs).exitcode for _ in range(world)]
+        return codes
+
 
 def start_worlds(tmp_path, worlds, timeout=TIMEOUT_S) -> Worlds:
     """Start ``worlds`` (``{name: (fn_name, world_size, kwargs)}``) at
@@ -584,6 +598,9 @@ SERVE_POOL = 24
 SERVE_OPTS = {"integrated_gradients": {"steps": 4}, "smoothgrad": {"n": 4},
               "occlusion": {"window": 4, "stride": 4},
               "lime": {"n_samples": 16}, "rise": {"n_samples": 16}}
+#: the "steps" server's options: another integrated gradients on the same
+#: adapter (the followers build it apart from the main server's)
+SERVE_STEPS_OPTS = dict(SERVE_OPTS, integrated_gradients={"steps": 8})
 #: a payload value the faulty follower fails on after the launch's
 #: collectives (an error surfacing at the end of the device work)
 FAULT_MARK = 1234.5
@@ -597,8 +614,9 @@ def serve_pool():
 def serve_phases(pkg, x, precision, key=int):
     """The request stream of the multi-rank server tests, as ``(name,
     server, requests)`` bursts (each submitted whole, then drained):
-    ``server`` is "main" or, from f32 and bf16, "reroute" (capacity 16,
-    explains rerouted to fxp16 above half of it).  ``pkg`` is
+    ``server`` is "main", "steps" (integrated gradients at 8 steps, not
+    4) or, from f32 and bf16, "reroute" (capacity 16, explains rerouted
+    to fxp16 above half of it).  ``pkg`` is
     ``repro.serve`` or ``repro_torch.serve``; ``key`` makes a request's
     seed (the JAX package's server takes PRNG keys)."""
     R = pkg.Request
@@ -632,6 +650,8 @@ def serve_phases(pkg, x, precision, key=int):
          + [ex("ixg0", 18, "input_x_gradient"),
             ex("ixg1", 19, "input_x_gradient", target=3)]),
         ("singleton", "main", [ex("sg0", 15, "smoothgrad", key=key(100))]),
+        ("ig_steps", "steps", [ex(f"is{i}", 12 + i, "integrated_gradients")
+                               for i in range(3)]),
         ("perturb", "main",
          [ex(f"oc{i}", 12 + i, "occlusion") for i in range(3)]
          + [ex(f"lime{i}", 12 + i, "lime", key=key(200 + i)) for i in range(3)]
@@ -659,11 +679,13 @@ def serve_phases(pkg, x, precision, key=int):
 
 
 def serve_servers(pkg, adapter, max_batch):
-    """The two servers of :func:`serve_phases` on one adapter."""
+    """The three servers of :func:`serve_phases` on one adapter."""
     kw = dict(max_batch=max_batch, max_delay_s=60.0, cache_capacity=256,
               method_opts=SERVE_OPTS)
     return {"main": pkg.ExplanationServer(
                 adapter, admission=pkg.AdmissionConfig(capacity=1024), **kw),
+            "steps": pkg.ExplanationServer(
+                adapter, **dict(kw, method_opts=SERVE_STEPS_OPTS)),
             "reroute": pkg.ExplanationServer(adapter, admission=pkg.
                 AdmissionConfig(capacity=16, degrade=pkg.DegradePolicy(
                     pressure_threshold=0.5, reroute_precision="fxp16")),
@@ -796,6 +818,61 @@ def serve_scenario(rank, world, params_np, precisions):
                 adapter = FaultyAdapter(adapter)
             out[precision] = follower.follow(adapter)
     return out
+
+
+#: worlds whose serving stream is lost by design: ``{name: (ranks, the
+#: rank that fails inside its model function)}``
+SERVE_LOST = {"follower": (3, 2), "leader": (2, 0)}
+#: FAULT_GRACE_S in those worlds, and the seconds a world may take to stop
+SERVE_LOST_GRACE_S, SERVE_LOST_TIMEOUT_S = 2.0, 90
+
+
+def serve_lost_scenario(rank, world, params_np, faulty):
+    """A world that serves one predict batch and then loses its stream:
+    rank ``faulty`` raises inside its model function (its first conv, on
+    its rows of a batch whose every row holds :data:`FAULT_MARK`) before
+    the engine's gather, so the other ranks wait in that collective.
+    Every rank is meant to end its process with the follower's
+    ``LOST_EXIT_CODE``; returning is a failure."""
+    import repro_torch.serve as tserve
+    from repro_torch.engine import CNNModel, EngineSpec, build
+    from repro_torch.models import cnn
+    from repro_torch.serve import follower
+    follower.FAULT_GRACE_S = SERVE_LOST_GRACE_S
+    if rank == faulty:
+        real = cnn._KERNELS["f32"]["conv"]
+
+        def conv(x, *args, **kw):
+            if bool((x == FAULT_MARK).any()):
+                raise RuntimeError("injected: a conv failed on one rank")
+            return real(x, *args, **kw)
+        cnn._KERNELS["f32"] = dict(cnn._KERNELS["f32"], conv=conv)
+    adapter = tserve.CNNAdapter.from_engine(build(EngineSpec(
+        CNNModel(cnn.params_from_jax(params_np), cnn.CNNConfig(**CNN_KW),
+                 device="cpu"), device=f"mesh:edge-small:{world}")))
+    if rank > 0:
+        return follower.follow(adapter)
+    x = serve_pool()
+    marked = x[:4].copy()
+    marked[:, 0, 0, 0] = FAULT_MARK
+    with follower.lead(adapter) as adp:
+        srv = tserve.ExplanationServer(adp, max_batch=SERVE_MAX_BATCH,
+                                       max_delay_s=60.0)
+        for rows, tag in ((x[:4], "ok"), (marked, "lost")):
+            for i, row in enumerate(rows):
+                srv.submit(tserve.Request(uid=f"{tag}{i}", kind="predict",
+                                          x=row))
+            out = srv.drain()
+        return [response_record(r) for r in out]
+
+
+def serve_lost_worlds(tmp_path, params_np):
+    """Start the :data:`SERVE_LOST` worlds."""
+    return start_worlds(tmp_path, {
+        name: ("serve_lost_scenario", ranks,
+               dict(params_np=params_np, faulty=faulty))
+        for name, (ranks, faulty) in SERVE_LOST.items()},
+        timeout=SERVE_LOST_TIMEOUT_S)
 
 
 #: tests/test_torch_serve.py's tolerances: (logits, relevance) relative to

@@ -11,9 +11,11 @@ fxp16 sibling, and a predict whose batch holds ``FAULT_MARK`` fails after
 the launch's collectives).  The stream mixes
 predicts, cache hits of the three BP methods with and without top-3 and
 explicit targets, cold explains of the same rows, integrated gradients,
-co-batched smoothgrad seeds, input x gradient, occlusion, LIME and RISE,
-refusals at submit, a launch that fails on every rank (class 99 of 10)
-and, from f32 and bf16, an fxp16 reroute under admission pressure.
+co-batched smoothgrad seeds, input x gradient, integrated gradients again
+through a second server with other steps on the same stream, occlusion,
+LIME and RISE, refusals at submit, a launch that fails on every rank
+(class 99 of 10) and, from f32 and bf16, an fxp16 reroute under admission
+pressure.
 
 * (a) Every response equals the port's single-process server's on the same
   stream (a ``mesh:edge-small:<n>`` adapter in one process: the same seats
@@ -30,6 +32,10 @@ and, from f32 and bf16, an fxp16 reroute under admission pressure.
   ``RankFault`` errors on the leader, and the next batch is served; every
   follower joined every launch, logged exactly the faults it met, and
   exited 0; a cold BP explain ships no residuals, a hit batch its rows'.
+  A fault that leaves the ranks out of step (one rank raising inside its
+  model function, before the engine's gather: a follower in a world of
+  3, the leader in a world of 2) stops the world: every rank ends with
+  ``follower.LOST_EXIT_CODE`` well inside the harness's timeout.
 * (e) ``launch/serve.py`` under ``torchrun``: the CNN on 2 gloo ranks and
   the LM on 2 (rank 0 alone) exit 0 and print the single-process driver's
   counts.
@@ -52,12 +58,12 @@ from repro_torch import tree as trees
 from repro_torch.engine import CNNModel, EngineSpec, build
 from repro_torch.models import cnn
 
-from _torch_dist import (CNN_KW, PRECISIONS, SERVE_INJECTED,
+from _torch_dist import (CNN_KW, PRECISIONS, SERVE_INJECTED, SERVE_LOST,
                          SERVE_MAX_BATCH, SERVE_REPLAY_N, SERVE_TOL,
                          SERVE_WORLDS,
-                         serve_close, serve_pairs, serve_phases, serve_pool,
-                         serve_run, serve_same_outcome, serve_servers,
-                         serve_worlds)
+                         serve_close, serve_lost_worlds, serve_pairs,
+                         serve_phases, serve_pool, serve_run,
+                         serve_same_outcome, serve_servers, serve_worlds)
 
 ROOT = Path(__file__).resolve().parents[1]
 JCFG = jcnn.CNNConfig(**CNN_KW)
@@ -86,7 +92,8 @@ def _driver(args, ranks):
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     """The worlds and the driver runs, started first; meanwhile the
-    single-process port servers on the same stream."""
+    single-process port servers on the same stream; then the worlds that
+    lose their stream."""
     params_np = jax.tree.map(np.asarray, jcnn.init(jax.random.PRNGKey(0),
                                                    JCFG))
     worlds = serve_worlds(tmp_path_factory.mktemp("serve_mesh"), params_np)
@@ -108,8 +115,11 @@ def runs(tmp_path_factory):
     for key, proc in drivers.items():
         out, err = proc.communicate(timeout=DRIVER_TIMEOUT_S)
         outs[key] = (proc.returncode, out, err)
+    # started once the drivers are done, to keep fewer processes at once
+    lost = serve_lost_worlds(tmp_path_factory.mktemp("serve_lost"),
+                             params_np)
     yield dict(world=worlds.join(), single=single, drivers=outs,
-               params=params)
+               params=params, lost=lost.exitcodes())
     tengine.clear_cache()
 
 
@@ -218,6 +228,17 @@ def test_faults_answer_as_errors_and_the_world_goes_on(runs, world,
             want = (["attribute"] + want + ["predict"]
                     + (["with_precision"] if precision != "fxp16" else []))
         assert met == want, (rank, met)
+
+
+@pytest.mark.parametrize("who", sorted(SERVE_LOST))
+def test_a_fault_out_of_step_stops_the_world(runs, who):
+    """(d) A rank that raises inside its model function leaves the others
+    in the engine's gather: no agreement can complete, so every rank ends
+    its process with ``LOST_EXIT_CODE`` (none returns, none hangs to the
+    harness's timeout and is killed)."""
+    from repro_torch.serve import follower
+    ranks, _ = SERVE_LOST[who]
+    assert runs["lost"][who] == [follower.LOST_EXIT_CODE] * ranks
 
 
 @pytest.mark.parametrize("precision", PRECISIONS)

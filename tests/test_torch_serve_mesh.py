@@ -115,7 +115,7 @@ def runs(tmp_path_factory):
     for key, proc in drivers.items():
         out, err = proc.communicate(timeout=DRIVER_TIMEOUT_S)
         outs[key] = (proc.returncode, out, err)
-    # started once the drivers are done, to keep fewer processes at once
+    # started once the torchrun runs are done: fewer processes at once
     lost = serve_lost_worlds(tmp_path_factory.mktemp("serve_lost"),
                              params_np)
     yield dict(world=worlds.join(), single=single, drivers=outs,
